@@ -1,0 +1,347 @@
+// Fused position-wise channel-mixing branches of the DiffWave block.
+//
+// Replaces two TPU kernels of diffwave_sashimi_tpu/ops/chmix.py:
+//   _glu_kernel (mix_glu_res):  out = res + a * sigmoid(g),  [a; g] = W y + b
+//   _ff_kernel  (ln_ff_res):    out = x + W2 gelu(W1 TLN(x) + b1) + b2
+//                               [+ skip]
+//                               and, optionally, the channel mean and var of
+//                               out per position (the next block's norm1).
+// Activations are the flat (B, H, L) layout; the matmuls contract the
+// channel axis H for every position.
+//
+// What bounds them on the H100: each is a channel GEMM of 2 * 2H * H * B * L
+// (GLU) or twice that (FF) fp32 flops against one read and one write of
+// the activations: ~H/3 flops per byte, past the fp32 CUDA-core balance
+// (67 TFLOP/s : 3.35 TB/s = 20) at every tier (H >= 128), so they are
+// compute bound, and the inner product must not be bound by shared memory.
+//
+// Design: one block of 256 threads per (batch, P positions), P = 16384 / H
+// (128, 64, 32 at H = 128, 256, 512), so the block's input tile (H x P)
+// and, for FF, its (2H x P) hidden activation stay in shared memory (192 KB)
+// and each residual branch costs one read and one write of the
+// activations.  Weights stream through a transposed (TK x TM) shared tile,
+// TM = 16384 / P rows, prefetched into registers one k-step ahead.  Each
+// thread keeps an 8 x 8 register tile (rows {r, r + TM/2} x 4, positions
+// 8 consecutive), fed by four 16-byte shared loads per 64 FMAs.  One
+// block per SM: two GLU blocks per SM and a 16-deep FF k-tile were both
+// measured slower on the step.  The FF kernel computes the LayerNorm
+// statistics of its input and of its output itself.  GELU uses erff, the
+// sigmoid expf: the strict f32 path.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int NT = 256;        // threads per block
+constexpr int TK = 8;          // contraction tile
+
+__device__ __forceinline__ float gelu_erf(float x) {
+  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
+}
+
+template <int P>
+struct Tile {
+  static constexpr int PG = P / 8;          // position groups of 8
+  static constexpr int RG = NT / PG;        // row groups of 4 (+4 paired)
+  static constexpr int TM = RG * 8;         // weight rows per chunk
+  static constexpr int LDT = TM + 4;        // padded transposed row
+  static constexpr int NPRE = TM * 2 / NT;  // float4 prefetches per thread
+};
+
+// Global row of local weight row lr in [0, TM), or -1 past the matrix:
+// rows [0, TM/2) map to ra + lr, rows [TM/2, TM) to rb + lr - TM/2, each
+// valid below lim.  The GLU pairs value row o with gate row H + o.
+struct RowMap {
+  int ra, rb, lim_a, lim_b, half;
+  __device__ int operator()(int lr) const {
+    if (lr < half) return ra + lr < lim_a ? ra + lr : -1;
+    const int g = rb + lr - half;
+    return g < lim_b ? g : -1;
+  }
+};
+
+// acc[r][j] = sum_k A[row(r), k] * Bs[k * P + pg * 8 + j] for the thread's
+// rows r < 4 -> local rg * 4 + r, r >= 4 -> TM/2 + rg * 4 + r - 4.
+// A is (rows x K) row-major with K % TK == 0; Bs is K x P.
+template <int P>
+__device__ void gemm_chunk(const float* __restrict__ A, int K, RowMap map,
+                           const float* Bs, float* AsT, float acc[8][8]) {
+  using T = Tile<P>;
+  const int tid = threadIdx.x;
+  const int pg = tid % T::PG, rg = tid / T::PG;
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[r][j] = 0.0f;
+
+  float4 pre[T::NPRE];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int q = 0; q < T::NPRE; ++q) {
+      const int idx = tid + q * NT;           // (row, half) pairs
+      const int g = map(idx >> 1);
+      pre[q] = g >= 0 ? *reinterpret_cast<const float4*>(
+                            A + (size_t)g * K + k0 + 4 * (idx & 1))
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  fetch(0);
+  for (int k0 = 0; k0 < K; k0 += TK) {
+    __syncthreads();                          // AsT free, Bs complete
+#pragma unroll
+    for (int q = 0; q < T::NPRE; ++q) {
+      const int idx = tid + q * NT;
+      const int lr = idx >> 1, k = 4 * (idx & 1);
+      AsT[(k + 0) * T::LDT + lr] = pre[q].x;
+      AsT[(k + 1) * T::LDT + lr] = pre[q].y;
+      AsT[(k + 2) * T::LDT + lr] = pre[q].z;
+      AsT[(k + 3) * T::LDT + lr] = pre[q].w;
+    }
+    __syncthreads();
+    if (k0 + TK < K) fetch(k0 + TK);          // in flight during the FMAs
+#pragma unroll
+    for (int kk = 0; kk < TK; ++kk) {
+      const float* at = AsT + kk * T::LDT;
+      const float4 a0 = *reinterpret_cast<const float4*>(at + rg * 4);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(at + T::TM / 2 + rg * 4);
+      const float* bt = Bs + (size_t)(k0 + kk) * P + pg * 8;
+      const float4 b0 = *reinterpret_cast<const float4*>(bt);
+      const float4 b1 = *reinterpret_cast<const float4*>(bt + 4);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(av[r], bv[j], acc[r][j]);
+    }
+  }
+}
+
+// Thread's local row for accumulator row r.
+template <int P>
+__device__ __forceinline__ int local_row(int r) {
+  using T = Tile<P>;
+  const int rg = threadIdx.x / T::PG;
+  return r < 4 ? rg * 4 + r : T::TM / 2 + rg * 4 + r - 4;
+}
+
+// xs[h * P + p] = x[b, h, t0 + p] (0 past L), h < H.
+template <int P>
+__device__ void load_tile(const float* __restrict__ x, float* xs, int b,
+                          int H, int L, int t0) {
+  for (int idx = threadIdx.x; idx < H * P; idx += NT) {
+    const int h = idx / P, p = idx % P, t = t0 + p;
+    xs[idx] = t < L ? x[((size_t)b * H + h) * L + t] : 0.0f;
+  }
+}
+
+// Per-position channel mean and E[x^2] - mean^2 of xs[0:H, :].
+template <int P>
+__device__ void column_stats(const float* xs, int H, float* red,
+                             float* mean_s, float* var_s) {
+  constexpr int PARTS = NT / P;
+  const int tid = threadIdx.x, p = tid % P, part = tid / P;
+  float s1 = 0.0f, s2 = 0.0f;
+  for (int h = part; h < H; h += PARTS) {
+    const float v = xs[h * P + p];
+    s1 += v;
+    s2 += v * v;
+  }
+  red[tid] = s1;
+  red[NT + tid] = s2;
+  __syncthreads();
+  if (tid < P) {
+    float t1 = 0.0f, t2 = 0.0f;
+    for (int q = 0; q < PARTS; ++q) {
+      t1 += red[q * P + tid];
+      t2 += red[NT + q * P + tid];
+    }
+    const float mean = t1 / (float)H;
+    mean_s[tid] = mean;
+    var_s[tid] = t2 / (float)H - mean * mean;
+  }
+  __syncthreads();
+}
+
+template <int P>
+__global__ void __launch_bounds__(NT, 1)
+glu_res_kernel(const float* __restrict__ y, const float* __restrict__ res,
+               const float* __restrict__ W, const float* __restrict__ bias,
+               float* __restrict__ out, int H, int L) {
+  using T = Tile<P>;
+  extern __shared__ float4 sh4[];
+  float* ys = reinterpret_cast<float*>(sh4);     // H x P
+  float* AsT = ys + H * P;                        // TK x LDT
+  const int b = blockIdx.y, t0 = blockIdx.x * P;
+  const int pg = threadIdx.x % T::PG;
+  load_tile<P>(y, ys, b, H, L, t0);
+  for (int o0 = 0; o0 < H; o0 += T::TM / 2) {
+    float acc[8][8];
+    gemm_chunk<P>(W, H, RowMap{o0, H + o0, H, 2 * H, T::TM / 2}, ys, AsT, acc);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int o = o0 + local_row<P>(r);
+      if (o >= H) continue;
+      const float ba = bias[o], bg = bias[H + o];
+      const size_t row = ((size_t)b * H + o) * L;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int t = t0 + pg * 8 + j;
+        if (t >= L) continue;
+        const float g = acc[r + 4][j] + bg;
+        out[row + t] = res[row + t] + (acc[r][j] + ba) / (1.0f + expf(-g));
+      }
+    }
+  }
+}
+
+template <int P>
+__global__ void __launch_bounds__(NT, 1)
+ln_ff_res_kernel(const float* __restrict__ x, const float* __restrict__ skip,
+                 const float* __restrict__ W1, const float* __restrict__ b1,
+                 const float* __restrict__ W2, const float* __restrict__ b2,
+                 const float* __restrict__ m_ptr,
+                 const float* __restrict__ s_ptr, float* __restrict__ out,
+                 float* __restrict__ mean_out, float* __restrict__ var_out,
+                 int H, int F, int L) {
+  using T = Tile<P>;
+  extern __shared__ float4 sh4[];
+  float* xs = reinterpret_cast<float*>(sh4);     // H x P: TLN(x), later out
+  float* zs = xs + H * P;                         // F x P: gelu(W1 xn + b1)
+  float* AsT = zs + F * P;                        // TK x LDT
+  float* red = AsT + TK * T::LDT;                 // 2 * NT
+  float* mean_s = red + 2 * NT;                   // P
+  float* var_s = mean_s + P;                      // P
+  const int b = blockIdx.y, t0 = blockIdx.x * P;
+  const int tid = threadIdx.x, pg = tid % T::PG;
+
+  load_tile<P>(x, xs, b, H, L, t0);
+  __syncthreads();
+  column_stats<P>(xs, H, red, mean_s, var_s);
+
+  // TransposedLN: (s / std) * (x - mean + m), population std, no eps
+  const float m = *m_ptr, s = *s_ptr;
+  for (int idx = tid; idx < H * P; idx += NT) {
+    const int p = idx % P;
+    xs[idx] = s * rsqrtf(var_s[p]) * (xs[idx] - mean_s[p] + m);
+  }
+
+  for (int f0 = 0; f0 < F; f0 += T::TM) {
+    float acc[8][8];
+    gemm_chunk<P>(W1, H, RowMap{f0, f0 + T::TM / 2, F, F, T::TM / 2}, xs, AsT,
+                  acc);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int f = f0 + local_row<P>(r);
+      if (f >= F) continue;
+      const float bf = b1[f];
+      float* zr = zs + f * P + pg * 8;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) zr[j] = gelu_erf(acc[r][j] + bf);
+    }
+  }
+
+  for (int h0 = 0; h0 < H; h0 += T::TM) {
+    float acc[8][8];
+    gemm_chunk<P>(W2, F, RowMap{h0, h0 + T::TM / 2, H, H, T::TM / 2}, zs, AsT,
+                  acc);
+    // xs is free: every thread passed gemm_chunk's barriers after GEMM1
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int h = h0 + local_row<P>(r);
+      if (h >= H) continue;
+      const float bh = b2[h];
+      const size_t row = ((size_t)b * H + h) * L;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int p = pg * 8 + j, t = t0 + p;
+        float v = 0.0f;
+        if (t < L) {
+          v = x[row + t] + acc[r][j] + bh;
+          if (skip != nullptr) v += skip[row + t];
+          out[row + t] = v;
+        }
+        xs[h * P + p] = v;
+      }
+    }
+  }
+
+  if (mean_out != nullptr) {
+    __syncthreads();
+    column_stats<P>(xs, H, red, mean_s, var_s);
+    if (tid < P && t0 + tid < L) {
+      mean_out[(size_t)b * L + t0 + tid] = mean_s[tid];
+      var_out[(size_t)b * L + t0 + tid] = var_s[tid];
+    }
+  }
+}
+
+// Positions per block: P = 16384 / H, within [32, 128].
+int choose_p(int H) {
+  const int p = 16384 / (H > 0 ? H : 1);
+  return p >= 128 ? 128 : (p >= 64 ? 64 : 32);
+}
+
+template <int P>
+int launch_glu(const float* y, const float* res, const float* W,
+               const float* b, float* out, int B, int H, int L,
+               cudaStream_t stream) {
+  using T = Tile<P>;
+  const size_t smem = ((size_t)H * P + TK * T::LDT) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      glu_res_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((L + P - 1) / P, B);
+  glu_res_kernel<P><<<grid, NT, smem, stream>>>(y, res, W, b, out, H, L);
+  return (int)cudaGetLastError();
+}
+
+template <int P>
+int launch_ff(const float* x, const float* skip, const float* W1,
+              const float* b1, const float* W2, const float* b2,
+              const float* m, const float* s, float* out, float* mean,
+              float* var, int B, int H, int F, int L, cudaStream_t stream) {
+  using T = Tile<P>;
+  const size_t smem = ((size_t)(H + F) * P + TK * T::LDT + 2 * NT + 2 * P) *
+                      sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      ln_ff_res_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((L + P - 1) / P, B);
+  ln_ff_res_kernel<P><<<grid, NT, smem, stream>>>(
+      x, skip, W1, b1, W2, b2, m, s, out, mean, var, H, F, L);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int dwst_glu_res(const float* y, const float* res, const float* W,
+                            const float* b, float* out, int B, int H, int L,
+                            cudaStream_t stream) {
+  if (H % 8) return (int)cudaErrorInvalidValue;
+  switch (choose_p(H)) {
+    case 128: return launch_glu<128>(y, res, W, b, out, B, H, L, stream);
+    case 64: return launch_glu<64>(y, res, W, b, out, B, H, L, stream);
+    default: return launch_glu<32>(y, res, W, b, out, B, H, L, stream);
+  }
+}
+
+extern "C" int dwst_ln_ff_res(const float* x, const float* skip,
+                              const float* W1, const float* b1,
+                              const float* W2, const float* b2,
+                              const float* m, const float* s, float* out,
+                              float* mean, float* var, int B, int H, int F,
+                              int L, cudaStream_t stream) {
+  if (H % TK || F % TK) return (int)cudaErrorInvalidValue;
+  switch (choose_p(H)) {
+    case 128: return launch_ff<128>(x, skip, W1, b1, W2, b2, m, s, out, mean,
+                                    var, B, H, F, L, stream);
+    case 64: return launch_ff<64>(x, skip, W1, b1, W2, b2, m, s, out, mean,
+                                  var, B, H, F, L, stream);
+    default: return launch_ff<32>(x, skip, W1, b1, W2, b2, m, s, out, mean,
+                                  var, B, H, F, L, stream);
+  }
+}

@@ -1,0 +1,271 @@
+// Fused S4 FFT convolution with the DiffWave block head and tail folded in.
+//
+// Replaces the TPU kernel diffwave_sashimi_tpu/ops/fftconv2.py::_kernel as
+// called through _conv2_impl by fftconv2_ln_bias_gelu_d (the sampling
+// path).  For one (batch b, channel h) row of length L:
+//
+//   u'[t] = a[b,t] * u[b,h,t] + c[b,t] + bias[b,h]       (t < L, else 0)
+//   y     = irfft(rfft(u', n) * khat[h], n)[:L]
+//   out   = gelu_erf(y + D[h] * u')
+//
+// a and c are norm1 (the channel LayerNorm) as a per-position scale and
+// shift; bias is the diffusion-step bias; khat is the rfft of the combined
+// bidirectional S4 kernel at the power-of-two size n >= 2L.
+//
+// What bounds it on the H100: the transform is ~5 n log2(n) flops per row
+// against 8 bytes of input and output per sample, so the passes over the
+// data run from shared memory, bound by shared-memory traffic and by the
+// block-wide barriers between passes, not by device memory.
+//
+// Design: one block per row does the whole chain in shared memory, so the
+// input is read once and the output written once (plus one re-read of u,
+// a, c for the D-skip, which hits L2).  The length-n real FFT is an
+// M = n/2 point complex FFT of the packed even/odd samples: 132 KB of
+// dynamic shared memory at n = 32768 (the full n-point buffer would not
+// fit in a block's 227 KB).  The complex FFTs are Stockham autosort
+// transforms (natural order in and out) in radix-8 passes with a radix-4
+// or radix-2 last pass: 5 passes at M = 16384, each thread holding 16
+// values in registers between one read and one write of shared memory.
+// Twiddles are computed in registers (one sincospif per butterfly, then
+// powers), not read from a table, whose strided reads conflict on the
+// shared-memory banks; one pad element per 32 keeps the first passes'
+// strided writes conflict-free too.  The spectrum split, the multiply by
+// khat and the inverse's pre-twiddle are one pairwise (k, M-k) pass.  The
+// irfft's 1/n is applied in the epilogue.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int VPT = 16;    // complex values per thread per pass
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+__device__ __forceinline__ float2 cconj(float2 a) {
+  return make_float2(a.x, -a.y);
+}
+// i * a
+__device__ __forceinline__ float2 cmuli(float2 a) {
+  return make_float2(-a.y, a.x);
+}
+// a * (-i) forward, a * i inverse: the radix-4 rotation W4
+template <bool INV>
+__device__ __forceinline__ float2 rot4(float2 a) {
+  return INV ? make_float2(-a.y, a.x) : make_float2(a.y, -a.x);
+}
+
+__device__ __forceinline__ float gelu_erf(float x) {
+  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
+}
+
+// In-register DFTs of size 2, 4, 8, natural order in and out;
+// forward uses exp(-2 pi i / R), inverse exp(+2 pi i / R), unnormalised.
+template <bool INV>
+__device__ __forceinline__ void dft2(float2* v) {
+  const float2 t = csub(v[0], v[1]);
+  v[0] = cadd(v[0], v[1]);
+  v[1] = t;
+}
+
+template <bool INV>
+__device__ __forceinline__ void dft4(float2* v) {
+  const float2 s02 = cadd(v[0], v[2]), d02 = csub(v[0], v[2]);
+  const float2 s13 = cadd(v[1], v[3]), d13 = rot4<INV>(csub(v[1], v[3]));
+  v[0] = cadd(s02, s13);
+  v[2] = csub(s02, s13);
+  v[1] = cadd(d02, d13);
+  v[3] = csub(d02, d13);
+}
+
+template <bool INV>
+__device__ __forceinline__ void dft8(float2* v) {
+  float2 e[4] = {v[0], v[2], v[4], v[6]};
+  float2 o[4] = {v[1], v[3], v[5], v[7]};
+  dft4<INV>(e);
+  dft4<INV>(o);
+  const float h = 0.70710678118654752f;
+  // W8^k for k = 1, 2, 3 (conjugated for the inverse)
+  const float2 w1 = INV ? make_float2(h, h) : make_float2(h, -h);
+  const float2 w3 = INV ? make_float2(-h, h) : make_float2(-h, -h);
+  o[1] = cmul(o[1], w1);
+  o[2] = rot4<INV>(o[2]);
+  o[3] = cmul(o[3], w3);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[k] = cadd(e[k], o[k]);
+    v[k + 4] = csub(e[k], o[k]);
+  }
+}
+
+template <int R, bool INV>
+__device__ __forceinline__ void dft(float2* v) {
+  if (R == 8) dft8<INV>(v);
+  else if (R == 4) dft4<INV>(v);
+  else dft2<INV>(v);
+}
+
+// Shared-memory slot of complex element i: one pad slot per 32 elements.
+__device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
+
+// One Stockham radix-R pass over z (length M) at sub-transform size Ns:
+// butterfly j reads z[j + r M/R], twiddles by W_{Ns R}^{(j mod Ns) r},
+// transforms, and writes z[(j / Ns) Ns R + j mod Ns + r Ns].  Each of the
+// nt = M / 16 threads does 16 / R butterflies; all reads finish (barrier)
+// before any write, so the pass works in place.
+template <int R, bool INV>
+__device__ void stockham_pass(float2* z, int M, int Ns) {
+  constexpr int NB = VPT / R;
+  const int nt = blockDim.x, stride = M / R;
+  float2 v[NB][R];
+#pragma unroll
+  for (int q = 0; q < NB; ++q) {
+    const int j = threadIdx.x + q * nt;
+    const int k = j & (Ns - 1);
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[q][r] = z[pad(j + r * stride)];
+    if (Ns > 1) {
+      // W = exp(-+2 pi i k / (Ns R)); the argument is exact in float
+      float s, c;
+      sincospif(2.0f * (float)k / (float)(Ns * R), &s, &c);
+      const float2 w1 = make_float2(c, INV ? s : -s);
+      float2 w = w1;
+#pragma unroll
+      for (int r = 1; r < R; ++r) {
+        v[q][r] = cmul(v[q][r], w);
+        w = cmul(w, w1);
+      }
+    }
+    dft<R, INV>(v[q]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < NB; ++q) {
+    const int j = threadIdx.x + q * nt;
+    const int k = j & (Ns - 1);
+    const int base = (j - k) * R + k;
+#pragma unroll
+    for (int r = 0; r < R; ++r) z[pad(base + r * Ns)] = v[q][r];
+  }
+  __syncthreads();
+}
+
+// Complex FFT of length M = 2^log2M >= 16 in place, natural order in and
+// out: radix-8 passes, then one radix-4 or radix-2 pass for the rest.
+template <bool INV>
+__device__ void fft(float2* z, int M) {
+  int Ns = 1;
+  while (Ns * 8 <= M) {
+    stockham_pass<8, INV>(z, M, Ns);
+    Ns *= 8;
+  }
+  if (Ns * 4 == M) stockham_pass<4, INV>(z, M, Ns);
+  else if (Ns * 2 == M) stockham_pass<2, INV>(z, M, Ns);
+}
+
+__global__ void __launch_bounds__(1024)
+fftconv_kernel(const float* __restrict__ u, const float* __restrict__ a,
+               const float* __restrict__ c, const float* __restrict__ bias,
+               const float2* __restrict__ khat, const float* __restrict__ D,
+               float* __restrict__ out, int H, int L, int M) {
+  extern __shared__ float2 z[];      // M complex values at pad(i)
+  const int row = blockIdx.x;        // b * H + h
+  const int b = row / H;
+  const int h = row - b * H;
+  const float* ur = u + (size_t)row * L;
+  const float* ar = a + (size_t)b * L;
+  const float* cr = c + (size_t)b * L;
+  const float bh = bias[row];
+  const float dh = D[h];
+  const float2* kr = khat + (size_t)h * (M + 1);
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+
+  // prologue while loading: z[j] = u'[2j] + i u'[2j+1], zero past L
+  for (int j = tid; j < M; j += nt) {
+    const int t0 = 2 * j, t1 = t0 + 1;
+    const float v0 = t0 < L ? ar[t0] * ur[t0] + cr[t0] + bh : 0.0f;
+    const float v1 = t1 < L ? ar[t1] * ur[t1] + cr[t1] + bh : 0.0f;
+    z[pad(j)] = make_float2(v0, v1);
+  }
+  __syncthreads();
+  fft<false>(z, M);
+
+  // Per pair (k, M-k): split the packed spectrum Z into the real signal's
+  // half spectrum X, multiply by khat, and fold the product Y back into
+  // the packed spectrum Z' of the inverse:
+  //   E = (Z[k] + conj Z[M-k]) / 2,  O = (Z[k] - conj Z[M-k]) / 2i
+  //   X[k] = E + W^k O,  X[M-k] = conj(E - W^k O),     W = exp(-i pi / M)
+  //   Z'[k]   = (Y[k] + conj Y[M-k]) + i W^-k (Y[k] - conj Y[M-k])
+  //   Z'[M-k] = conj(Y[k] + conj Y[M-k]) + i W^k conj(Y[k] - conj Y[M-k])
+  // so that the unnormalised inverse of Z' is n * (y[2j] + i y[2j+1]).
+  for (int k = tid; k <= (M >> 1); k += nt) {
+    if (k == 0) {
+      // DC and Nyquist bins are real: irfft ignores their imaginary parts
+      const float2 z0 = z[0];          // pad(0) == 0
+      const float y0 = (z0.x + z0.y) * kr[0].x;
+      const float yM = (z0.x - z0.y) * kr[M].x;
+      z[0] = make_float2(y0 + yM, y0 - yM);
+      continue;
+    }
+    const int mk = M - k;
+    const float2 zk = z[pad(k)], zm = z[pad(mk)];
+    const float2 e = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
+    const float2 dv = csub(zk, cconj(zm));
+    const float2 o = make_float2(0.5f * dv.y, -0.5f * dv.x);   // dv / 2i
+    float s, co;
+    sincospif((float)k / (float)M, &s, &co);
+    const float2 w = make_float2(co, -s);                       // W^k
+    const float2 wo = cmul(w, o);
+    const float2 yk = cmul(cadd(e, wo), kr[k]);
+    const float2 ym = cmul(cconj(csub(e, wo)), kr[mk]);
+    const float2 sa = cadd(yk, cconj(ym));
+    const float2 sb = csub(yk, cconj(ym));
+    z[pad(k)] = cadd(sa, cmuli(cmul(cconj(w), sb)));
+    if (mk != k) z[pad(mk)] = cadd(cconj(sa), cmuli(cmul(w, cconj(sb))));
+  }
+  __syncthreads();
+  fft<true>(z, M);
+
+  // epilogue: 1/n, D-skip on the post-prologue input, exact GELU
+  const float inv_n = 1.0f / (float)(2 * M);
+  float* orow = out + (size_t)row * L;
+  for (int j = tid; j < M; j += nt) {
+    const int t0 = 2 * j, t1 = t0 + 1;
+    const float2 v = z[pad(j)];
+    if (t0 < L) {
+      const float x0 = ar[t0] * ur[t0] + cr[t0] + bh;
+      orow[t0] = gelu_erf(v.x * inv_n + dh * x0);
+    }
+    if (t1 < L) {
+      const float x1 = ar[t1] * ur[t1] + cr[t1] + bh;
+      orow[t1] = gelu_erf(v.y * inv_n + dh * x1);
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int dwst_fftconv_ln_bias_gelu_d(
+    const float* u, const float* a, const float* c, const float* bias,
+    const void* khat, const float* D, float* out, int B, int H, int L, int n,
+    cudaStream_t stream) {
+  const int M = n / 2;
+  // power of two, 16 <= M <= 16384 (n <= 32768: one block's shared memory)
+  if (n != 2 * M || M < 16 || M > 16384 || (M & (M - 1)) || L > n)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(M + M / 32) * sizeof(float2);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      fftconv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int threads = M / VPT;     // each thread holds 16 values per pass
+  fftconv_kernel<<<B * H, threads, smem, stream>>>(
+      u, a, c, bias, static_cast<const float2*>(khat), D, out, H, L, M);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,1 @@
+"""diffusion of the PyTorch port (see the package docstring)."""

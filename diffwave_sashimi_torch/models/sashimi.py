@@ -1,0 +1,231 @@
+"""SaShiMi backbone: S4-based UNet eps-prediction network, sampling path.
+
+Port of ``diffwave_sashimi_tpu/models/sashimi.py`` with the reference's
+ModuleList layout and state-dict names (``d_layers.{i}``, ``c_layers.{j}``,
+``u_layers.{i}``, ``init_conv.0.conv.*``, ``final_conv.{0,2}.conv.*``):
+
+  init 1x1 conv + ReLU
+  -> per pool factor: n_layers DiffWaveBlocks (if unet), DownPool
+  -> n_layers centre blocks, + centre skip
+  -> per pool factor (reversed): UpPool + pool skip, n_layers blocks each
+     followed by the matching down block's input (UNet skip, reverse order)
+  -> TransposedLN -> 1x1 conv -> ReLU -> zero-init 1x1 conv
+
+Each DiffWaveBlock runs the fused eval form of the JAX package
+(models/sashimi.py:222-254) as three kernels: norm1 + step bias + S4 conv +
+D-skip + GELU (kernel 1), output linear + GLU + residual (kernel 2), and
+norm2 + FF + residual + UNet skip (kernel 3), which also emits the channel
+statistics the next block's norm1 needs; only the first block after a pool
+computes them itself.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence
+
+import torch
+import torch.nn as nn
+
+from ..ops import FUSED, Ops
+from ..ops.conv import TorchLinear, WNConv1d, ZeroConv1d, swish
+from .embedding import diffusion_step_embedding
+from .s4 import S4
+
+
+class TransposedLN(nn.Module):
+    """LayerNorm over the channel axis with scalar affine (m, s): population
+    std and no eps, so ``nn.LayerNorm`` is not a drop-in."""
+
+    def __init__(self):
+        super().__init__()
+        self.m = nn.Parameter(torch.zeros(1))
+        self.s = nn.Parameter(torch.ones(1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        var, mean = torch.var_mean(x, dim=1, unbiased=False, keepdim=True)
+        return (self.s / torch.sqrt(var)) * (x - mean + self.m)
+
+
+class DownPool(nn.Module):
+    """(B, H, L) -> (B, H_out, L / pool): h-major reshape + 1x1 conv."""
+
+    def __init__(self, d_input: int, d_output: int, pool: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.pool = pool
+        self.linear = WNConv1d(d_input * pool, d_output, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, H, L = x.shape
+        s = self.pool
+        # '... h (l s) -> ... (h s) l'
+        x = x.reshape(B, H, L // s, s).transpose(2, 3)
+        return self.linear(x.reshape(B, H * s, L // s))
+
+
+class UpPool(nn.Module):
+    """(B, H_in, L) -> (B, H_out, L * pool): 1x1 conv + DownPool's inverse
+    reshape."""
+
+    def __init__(self, d_input: int, d_output: int, pool: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.pool = pool
+        self.linear = WNConv1d(d_input, d_output * pool, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.linear(x)
+        B, Hs, L = x.shape
+        s = self.pool
+        # '... (h s) l -> ... h (l s)'
+        return x.reshape(B, Hs // s, s, L).transpose(2, 3).reshape(
+            B, Hs // s, L * s)
+
+
+class DiffWaveBlock(nn.Module):
+    """norm1 -> + step bias -> bidirectional S4 -> residual -> norm2 -> FF
+    -> residual (reference keys fc_t, norm1, norm2, layer, ff.ff.{0,2})."""
+
+    def __init__(self, d_model: int, L: int, ff: int = 2,
+                 diffusion_step_embed_dim_out: int = 512,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        H = d_model
+        self.fc_t = TorchLinear(diffusion_step_embed_dim_out, H,
+                                generator=generator)
+        self.layer = S4(H, l_max=L, bidirectional=True, generator=generator)
+        self.norm1 = TransposedLN()
+        self.norm2 = TransposedLN()
+        self.ff = nn.ModuleDict({"ff": nn.Sequential(
+            WNConv1d(H, ff * H, generator=generator), nn.GELU(),
+            WNConv1d(ff * H, H, generator=generator))})
+
+    def forward(self, x, embed, khat, stats=None, skip=None,
+                ops: Ops = FUSED):
+        """Returns (out, (mean, var)): the block output [+ skip] and its
+        channel statistics per position.  ``stats`` are x's, when known."""
+        bias = self.fc_t(embed)                                # (B, H)
+        if stats is None:
+            var, mean = torch.var_mean(x, dim=1, unbiased=False)
+        else:
+            mean, var = stats
+        a = self.norm1.s * torch.rsqrt(var)                    # (B, L)
+        c = (self.norm1.m - mean) * a
+        x = self.layer(x, khat, a, c, bias, residual=x, ops=ops)
+        ff1, ff2 = self.ff["ff"][0], self.ff["ff"][2]
+        out, mean, var = ops.ff(
+            x, self.norm2.m, self.norm2.s, ff1.effective_weight()[:, :, 0],
+            ff1.bias, ff2.effective_weight()[:, :, 0], ff2.bias, skip=skip,
+            emit_stats=True)
+        return out, (mean, var)
+
+
+class Sashimi(nn.Module):
+    """eps_theta((x_t, t)) with the reference constructor surface
+    (unconditional)."""
+
+    def __init__(self, in_channels: int = 1, out_channels: int = 1,
+                 d_model: int = 64, n_layers: int = 8,
+                 pool: Sequence[int] = (4, 4), expand: int = 2, ff: int = 2,
+                 unet: bool = True, diffusion_step_embed_dim_in: int = 128,
+                 diffusion_step_embed_dim_mid: int = 512,
+                 diffusion_step_embed_dim_out: int = 512,
+                 unconditional: bool = True, L: int = 16000,
+                 dropout: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if not unconditional:
+            raise NotImplementedError(
+                "mel-conditioned SaShiMi (vocoding) is not ported yet")
+        if dropout:
+            raise NotImplementedError("S4 dropout is training only and not "
+                                      "ported yet")
+        g = generator
+        self.pool, self.unet = tuple(pool), unet
+        self.embed_dim_in = diffusion_step_embed_dim_in
+        H = d_model
+
+        def block(H, L):
+            return DiffWaveBlock(H, L, ff, diffusion_step_embed_dim_out, g)
+
+        self.init_conv = nn.Sequential(WNConv1d(in_channels, H, generator=g),
+                                       nn.ReLU())
+        self.fc_t1 = TorchLinear(diffusion_step_embed_dim_in,
+                                 diffusion_step_embed_dim_mid, generator=g)
+        self.fc_t2 = TorchLinear(diffusion_step_embed_dim_mid,
+                                 diffusion_step_embed_dim_out, generator=g)
+        d_layers = []
+        for p in self.pool:
+            if unet:
+                d_layers += [block(H, L) for _ in range(n_layers)]
+            d_layers.append(DownPool(H, H * expand, p, generator=g))
+            L //= p
+            H *= expand
+        self.d_layers = nn.ModuleList(d_layers)
+        self.c_layers = nn.ModuleList([block(H, L) for _ in range(n_layers)])
+        u_layers = []
+        for p in self.pool[::-1]:
+            H //= expand
+            L *= p
+            u_layers.append(UpPool(H * expand, H, p, generator=g))
+            u_layers += [block(H, L) for _ in range(n_layers)]
+        self.u_layers = nn.ModuleList(u_layers)
+        self.norm = TransposedLN()
+        self.final_conv = nn.Sequential(WNConv1d(H, H, generator=g), nn.ReLU(),
+                                        ZeroConv1d(H, out_channels))
+
+    def compute_kernels(self, audio_length: int,
+                        ops: Ops = FUSED) -> List[torch.Tensor]:
+        """Every block's conv-kernel spectrum for sequences of
+        ``audio_length`` samples, in block order.  A pure function of the
+        parameters: the sampler computes it once for all T steps."""
+        L, out = audio_length, []
+        for layer in self.d_layers:
+            if isinstance(layer, DownPool):
+                L //= layer.pool
+            else:
+                out.append(layer.layer.compute_kernel_freq(L, ops))
+        out += [b.layer.compute_kernel_freq(L, ops) for b in self.c_layers]
+        for layer in self.u_layers:
+            if isinstance(layer, UpPool):
+                L *= layer.pool
+            else:
+                out.append(layer.layer.compute_kernel_freq(L, ops))
+        return out
+
+    def forward(self, audio: torch.Tensor, steps: torch.Tensor,
+                kernels: Optional[List[torch.Tensor]] = None,
+                ops: Ops = FUSED) -> torch.Tensor:
+        """audio (B, in_channels, L), steps (B,) -> eps (B, out_channels, L).
+        ``kernels`` from :meth:`compute_kernels` (computed here if None)."""
+        if audio.shape[-1] % math.prod(self.pool):
+            raise ValueError(f"audio length {audio.shape[-1]} must divide "
+                             f"the pooling {self.pool}")
+        if kernels is None:
+            kernels = self.compute_kernels(audio.shape[-1], ops)
+        khats = iter(kernels)
+        x = self.init_conv(audio)
+        embed = diffusion_step_embedding(steps, self.embed_dim_in)
+        embed = swish(self.fc_t2(swish(self.fc_t1(embed))))
+
+        outputs, stats = [], None
+        for layer in self.d_layers:
+            outputs.append(x)
+            if isinstance(layer, DownPool):
+                x, stats = layer(x), None
+            else:
+                x, stats = layer(x, embed, next(khats), stats, ops=ops)
+        outputs.append(x)
+        stats = None
+        for layer in self.c_layers:
+            x, stats = layer(x, embed, next(khats), stats, ops=ops)
+        x = x + outputs.pop()
+        for layer in self.u_layers:
+            if isinstance(layer, UpPool):
+                x, stats = layer(x) + outputs.pop(), None
+            else:
+                skip = outputs.pop() if self.unet else None
+                x, stats = layer(x, embed, next(khats), stats, skip=skip,
+                                 ops=ops)
+        return self.final_conv(self.norm(x))

@@ -1,0 +1,88 @@
+"""Conv/linear primitives in the (B, C, L) layout with the reference's
+initialisation and state-dict names.
+
+Port of ``diffwave_sashimi_tpu/ops/conv.py``.  The reference wraps each conv
+in ``weight_norm`` (keys ``<name>.conv.weight_v`` / ``.weight_g`` /
+``.bias``); its later ``kaiming_normal_`` on the materialised weight is a
+no-op, so the effective init is torch's default U(+-1/sqrt(fan_in)) for v
+and the bias, with g = ||v|| per output channel.  These 1x1 convolutions run
+outside the fused kernels, as plain ``F.conv1d`` / ``torch.matmul``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def torch_uniform_(t: torch.Tensor, fan_in: int,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+    """torch's default kaiming_uniform(a=sqrt(5)) == U(+-1/sqrt(fan_in))."""
+    bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+    with torch.no_grad():
+        return t.uniform_(-bound, bound, generator=generator)
+
+
+class WNConv1d(nn.Module):
+    """Weight-normalised 1x1 Conv1d (the only kernel size SaShiMi uses).
+
+    Parameters sit in a ``conv`` dict so the state-dict keys read
+    ``conv.weight_v`` (O, I, 1), ``conv.weight_g`` (O, 1, 1) and
+    ``conv.bias`` (O,), as under the reference's ``Conv`` wrapper."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        v = torch_uniform_(torch.empty(out_channels, in_channels, 1),
+                           in_channels, generator)
+        g = v.square().sum(dim=(1, 2), keepdim=True).sqrt()
+        b = torch_uniform_(torch.empty(out_channels), in_channels, generator)
+        self.conv = nn.ParameterDict({"weight_v": nn.Parameter(v),
+                                      "weight_g": nn.Parameter(g),
+                                      "bias": nn.Parameter(b)})
+
+    def effective_weight(self) -> torch.Tensor:
+        """W = g * v / ||v||, norm over axes (1, 2); shape (O, I, 1)."""
+        v = self.conv["weight_v"]
+        g = self.conv["weight_g"].reshape(-1, 1, 1)
+        return g * v / v.square().sum(dim=(1, 2), keepdim=True).sqrt()
+
+    @property
+    def bias(self) -> torch.Tensor:
+        return self.conv["bias"]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv1d(x, self.effective_weight(), self.bias)
+
+
+class ZeroConv1d(nn.Module):
+    """1x1 conv with zero-initialised weight and bias (key ``conv.*``)."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv = nn.Conv1d(in_channels, out_channels, kernel_size=1)
+        with torch.no_grad():
+            self.conv.weight.zero_()
+            self.conv.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+class TorchLinear(nn.Linear):
+    """nn.Linear whose default init draws from an explicit generator."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_features, out_features)
+        torch_uniform_(self.weight, in_features, generator)
+        torch_uniform_(self.bias, in_features, generator)
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)

@@ -1,0 +1,118 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) as one library.
+
+Each source is compiled by its own ``nvcc`` process (all started together)
+into an object file, and the objects are linked into one shared library with
+a plain C interface, loaded with ``ctypes``.  The build happens at first use,
+into ``build/diffwave_sashimi_torch/<hash>/`` under the repository root,
+keyed by a hash of the sources and flags, so an unchanged checkout reuses it.
+
+Nothing here runs at import time: the CPU tests import every module of the
+port on machines that have neither ``nvcc`` nor a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+_CSRC = _PKG / "csrc"
+_BUILD = _PKG.parent / "build" / "diffwave_sashimi_torch"
+_SOURCES = ("fftconv.cu", "chmix.cu", "cauchy.cu")
+_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-Xcompiler", "-fPIC"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry points: name -> argument types (pointers and the stream as
+# c_void_p so 64-bit addresses are not cut to 32-bit ints).
+_SIGNATURES = {
+    # u, a, c, bias, khat, D, out, B, H, L, n, stream
+    "dwst_fftconv_ln_bias_gelu_d": [_P] * 7 + [_I] * 4 + [_P],
+    # y, res, W, b, out, B, H, L, stream
+    "dwst_glu_res": [_P] * 5 + [_I] * 3 + [_P],
+    # x, skip, W1, b1, W2, b2, m, s, out, mean, var, B, H, F, L, stream
+    "dwst_ln_ff_res": [_P] * 11 + [_I] * 4 + [_P],
+    # a, b, c, d, z, out, K, M, N, Lz, stream
+    "dwst_cauchy": [_P] * 6 + [_I] * 4 + [_P],
+}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("CUDA toolkit not found (torch.utils."
+                           "cpp_extension.CUDA_HOME is None): the port's "
+                           "kernels need nvcc to build")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for name in _SOURCES:
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build(out: Path) -> None:
+    out.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs, procs = [], []
+        for name in _SOURCES:
+            obj = os.path.join(tmp, name + ".o")
+            objs.append(obj)
+            procs.append((name, subprocess.Popen(
+                [nvcc, *_FLAGS, "-c", str(_CSRC / name), "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        errors = []
+        for name, p in procs:
+            log, _ = p.communicate()
+            if p.returncode != 0:
+                errors.append(f"{name}:\n{log.decode(errors='replace')}")
+        if errors:
+            raise RuntimeError("nvcc failed\n" + "\n".join(errors))
+        tmp_so = os.path.join(tmp, out.name)
+        subprocess.run([nvcc, "-shared", *_FLAGS[:2], *objs, "-o", tmp_so],
+                       check=True, capture_output=True)
+        os.replace(tmp_so, out)       # atomic: a reader never sees half
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if this checkout has none."""
+    out = _BUILD / _source_hash() / "libdwst_kernels.so"
+    if not out.exists():
+        _build(out)
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(t, shape, dtype) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of shape and dtype:
+    the kernels take raw pointers and trust these."""
+    if not t.is_cuda or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(f"kernel argument must be a contiguous CUDA {dtype} "
+                         f"tensor of shape {tuple(shape)}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device} "
+                         f"(contiguous={t.is_contiguous()})")
+
+
+def launch(name: str, *args) -> None:
+    """Call a kernel entry point on the current stream; raise on a refused
+    launch (the C side returns ``cudaGetLastError()``)."""
+    import torch
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(library(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

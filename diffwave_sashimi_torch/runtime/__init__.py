@@ -1,0 +1,1 @@
+"""runtime of the PyTorch port (see the package docstring)."""

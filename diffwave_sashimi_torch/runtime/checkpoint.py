@@ -1,0 +1,84 @@
+"""Checkpoint loading (and the port's own save) with the reference layout.
+
+Files are ``exp/<run>/checkpoint/<iter>.pkl`` holding a dict with
+``model_state_dict``.  Three producers are read:
+
+- the JAX package (``diffwave_sashimi_tpu.runtime.checkpoint.
+  save_checkpoint``): a pickle whose state is the flax ``{"params": ...}``
+  numpy tree, converted with :func:`..utils.jax_compat.params_from_jax`;
+- the reference torch framework: ``torch.save`` of a torch state dict;
+- this port: ``torch.save`` of its state dict, which uses the reference's
+  names (:func:`save_checkpoint`).
+
+``ckpt_iter`` is ``"max"`` (the largest iteration present) or an int.
+Pickles are trusted input: they are written by this project's trainers.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import zipfile
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..utils.exp import find_max_epoch
+from ..utils.jax_compat import params_from_jax
+
+FORMAT = "diffwave_sashimi_torch.v1"
+
+
+def resolve_iter(directory: str, ckpt_iter) -> int:
+    """``"max"`` -> the largest ``<iter>.pkl`` in ``directory`` (-1 if none);
+    an int (or its string) -> itself."""
+    if ckpt_iter == "max":
+        return find_max_epoch(directory)
+    return int(ckpt_iter)
+
+
+def save_checkpoint(directory: str, step: int, model: torch.nn.Module) -> str:
+    """Write ``<directory>/<step>.pkl`` atomically in the port's format."""
+    os.makedirs(directory, mode=0o775, exist_ok=True)
+    path = os.path.join(directory, f"{step}.pkl")
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    torch.save({"model_state_dict": sd, "step": int(step), "format": FORMAT},
+               path + ".tmp")
+    os.replace(path + ".tmp", path)
+    return path
+
+
+def _read(path: str) -> Dict[str, Any]:
+    if zipfile.is_zipfile(path):                 # torch.save (zip format)
+        return torch.load(path, map_location="cpu", weights_only=True)
+    with open(path, "rb") as f:                  # pickle (JAX package)
+        return pickle.load(f)
+
+
+def load_state_dict(directory: str, ckpt_iter, model_cfg
+                    ) -> Optional[Dict[str, torch.Tensor]]:
+    """The port's state dict for ``ckpt_iter`` in ``directory``, or None
+    when there is no such checkpoint."""
+    it = resolve_iter(directory, ckpt_iter)
+    path = os.path.join(directory, f"{it}.pkl")
+    if it < 0 or not os.path.exists(path):
+        return None
+    sd = _read(path)["model_state_dict"]
+    if isinstance(sd.get("params"), dict):       # flax variables tree
+        return params_from_jax(sd, model_cfg)
+    return {k: v if isinstance(v, torch.Tensor)
+            else torch.from_numpy(np.asarray(v)) for k, v in sd.items()}
+
+
+def load_into(model: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> None:
+    """``load_state_dict`` (strict), reshaping an entry whose element count
+    matches (the reference stores its output-linear bias as (2H, 1))."""
+    own = model.state_dict()
+    fitted = {}
+    for k, v in sd.items():
+        if k in own and v.shape != own[k].shape \
+                and v.numel() == own[k].numel():
+            v = v.reshape(own[k].shape)
+        fitted[k] = v
+    model.load_state_dict(fitted, strict=True)

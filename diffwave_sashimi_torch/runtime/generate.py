@@ -1,0 +1,122 @@
+"""Generation runtime: checkpoint -> reverse diffusion -> wav files.
+
+Port of ``diffwave_sashimi_tpu/runtime/generate.py`` for unconditional
+SaShiMi at f32: resolve ``exp/<run>/checkpoint/<iter>.pkl`` by ``ckpt_iter``
+('max' | int), build the S4 kernels once, run the T-step sampler in batches,
+and write ``exp/<run>/waveforms/<iter>/<iter//1000>k_<i>.wav``.  The
+sampling time is taken between ``torch.cuda.synchronize()`` calls and
+reported with the realtime factor.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+from scipy.io import wavfile
+
+from ..diffusion.sampling import sampling
+from ..diffusion.schedule import schedule_from_cfg
+from ..models import BF16_TODO, construct_model
+from ..utils.exp import local_directory
+from .checkpoint import load_into, load_state_dict, resolve_iter
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@torch.no_grad()
+def generate(diffusion_cfg, model_cfg, dataset_cfg, ckpt_iter="max",
+             n_samples: int = 1, name: Optional[str] = None,
+             batch_size: Optional[int] = None, ckpt_smooth=None,
+             mel_path: Optional[str] = None, mel_name: Optional[str] = None,
+             seed: int = 0, precision: str = "f32",
+             device=None) -> np.ndarray:
+    """Sample ``n_samples`` waveforms; returns (n_samples, 1, L) numpy.
+    ``device`` defaults to the first card, else the CPU."""
+    if precision not in ("f32", "float32"):
+        raise NotImplementedError(BF16_TODO)
+    if ckpt_smooth is not None:
+        raise NotImplementedError("checkpoint smoothing is not ported yet")
+    if mel_name is not None or mel_path is not None:
+        raise NotImplementedError("mel-conditioned generation (vocoding) "
+                                  "is not ported yet")
+    # f32 means f32: no TF32 in the 1x1 convolutions or the plain matmuls
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device if device is not None else
+                          ("cuda" if torch.cuda.is_available() else "cpu"))
+
+    local_path, output_directory = local_directory(
+        name, model_cfg, diffusion_cfg, dataset_cfg, "waveforms")
+    schedule = schedule_from_cfg(diffusion_cfg, fast=True)
+    ckpt_path = os.path.join("exp", local_path, "checkpoint")
+    ckpt_iter = resolve_iter(ckpt_path, ckpt_iter)
+    sd = load_state_dict(ckpt_path, ckpt_iter, model_cfg)
+    if sd is None:
+        raise FileNotFoundError(
+            f"no valid checkpoint at iter {ckpt_iter} in {ckpt_path}")
+    # build on the device that runs it: the random init, overwritten by the
+    # checkpoint, is the S4 C~ setup's matrix powers, seconds on a CPU
+    with torch.device(device):
+        model = construct_model(model_cfg, precision)
+    load_into(model, sd)
+    model.eval()
+    output_directory = os.path.join(output_directory, str(ckpt_iter))
+    os.makedirs(output_directory, mode=0o775, exist_ok=True)
+
+    audio_length = int(dataset_cfg["segment_length"])
+    batch_size = batch_size or n_samples
+    if n_samples % batch_size:
+        raise ValueError(f"n_samples {n_samples} must be a multiple of "
+                         f"batch_size {batch_size}")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = (batch_size, 1, audio_length)
+    chunks, secs = [], []
+    for _ in range(n_samples // batch_size):
+        _sync(device)
+        t0 = time.perf_counter()
+        x = sampling(model, shape, schedule, device=device, generator=gen)
+        _sync(device)
+        secs.append(time.perf_counter() - t0)
+        chunks.append(x.cpu().numpy())
+    generated = np.concatenate(chunks, axis=0)
+
+    sr = int(dataset_cfg["sampling_rate"])
+    total = sum(secs)
+    print(f"generated {n_samples} samples of {audio_length / sr:.2f}s at "
+          f"iteration {ckpt_iter} on {device} in {total:.3f}s "
+          f"({n_samples * audio_length / sr / total:.3f}x realtime, "
+          f"{1000 * total / (len(secs) * schedule.T):.3f} ms per sampling "
+          f"step at batch {batch_size}; includes building the S4 kernels)",
+          flush=True)
+    for i in range(n_samples):
+        wavfile.write(os.path.join(output_directory,
+                                   f"{ckpt_iter // 1000}k_{i}.wav"),
+                      sr, generated[i, 0].astype(np.float32))
+    return generated
+
+
+def main(argv=None):
+    """CLI: ``python -m diffwave_sashimi_torch.runtime.generate
+    experiment=sc09 compute.precision=f32 generate.n_samples=4``
+    (Hydra-style overrides, read by the JAX package's jax-free config.py)."""
+    from diffwave_sashimi_tpu.config import load_config
+
+    cfg = load_config(overrides=list(argv if argv is not None
+                                     else sys.argv[1:]))
+    print(cfg.to_yaml())
+    generate(cfg.diffusion, cfg.model, cfg.dataset,
+             name=cfg.train.get("name"),
+             precision=cfg.get_path("compute.precision", "bf16"),
+             **dict(cfg.generate))
+
+
+if __name__ == "__main__":
+    main()

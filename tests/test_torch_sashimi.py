@@ -1,0 +1,211 @@
+"""Port parity for the whole SC09 sampling slice at the JAX suite's
+``sashimi_small`` size (d_model 8, n_layers 1, pool [4, 4], L 16000):
+eps against the JAX flat and compact paths, a 3-step aligned sampler with
+injected noise, generate() from a JAX-written checkpoint, the exact weight
+round trip, the jax-free import of the port, and the chip smoke test's
+config literals.  Model tolerance: atol 1e-3, rtol 1e-2 (the JAX package's
+bar against the reference torch model, tests/test_sashimi_parity.py)."""
+
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+from scipy.io import wavfile
+
+from test_torch_common import SMALL_CFG, perturbed, port_model
+
+import jax
+import jax.numpy as jnp
+
+from diffwave_sashimi_tpu.diffusion.schedule import \
+    schedule_from_cfg as jax_schedule
+from diffwave_sashimi_tpu.models.sashimi import Sashimi as JaxSashimi
+from diffwave_sashimi_tpu.runtime.checkpoint import save_checkpoint
+from diffwave_sashimi_tpu.utils.torch_compat import sashimi_from_torch
+from diffwave_sashimi_torch import ops
+from diffwave_sashimi_torch.diffusion.sampling import (
+    sampling, sampling_step, schedule_table)
+from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
+from diffwave_sashimi_torch.models import construct_model
+from diffwave_sashimi_torch.runtime.checkpoint import (
+    load_into, load_state_dict, save_checkpoint as port_save)
+from diffwave_sashimi_torch.runtime.generate import generate, main
+from diffwave_sashimi_torch.utils.exp import local_directory
+from diffwave_sashimi_torch.utils.jax_compat import params_from_jax
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ATOL, RTOL = 1e-3, 1e-2
+FAST3 = {"T": 200, "beta_0": 0.0001, "beta_T": 0.02, "beta": None,
+         "fast_steps": 3}
+
+
+@pytest.fixture(scope="module")
+def small(sashimi_small):
+    """(JAX model, perturbed numpy params, jitted flat apply, port model)."""
+    model, params = sashimi_small
+    p = perturbed(params)
+    return model, p, jax.jit(model.apply), port_model(p)
+
+
+def _inputs(B=2, seed=0):
+    rng = np.random.RandomState(seed)
+    audio = (0.5 * rng.randn(B, 1, 16000)).astype(np.float32)
+    return audio, np.array([7.0, 100.5], np.float32)[:B]
+
+
+def test_eps_matches_jax_flat_and_compact_paths(small):
+    model, p, apply, tm = small
+    audio, steps = _inputs()
+    ref_flat = np.asarray(apply(p, jnp.asarray(audio), jnp.asarray(steps)))
+    kernels = jax.jit(lambda q: model.apply(
+        q, 16000, "v2", method=JaxSashimi.compute_kernels))(p)
+    ref_v2 = np.asarray(jax.jit(lambda q, a, s, k: model.apply(
+        q, a, s, kernels=k))(p, jnp.asarray(audio), jnp.asarray(steps),
+                             kernels))
+    with torch.no_grad():
+        out = tm(torch.from_numpy(audio), torch.from_numpy(steps)).numpy()
+    assert np.abs(ref_flat).max() > 1e-2          # not a comparison of zeros
+    np.testing.assert_allclose(out, ref_flat, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(out, ref_v2, atol=ATOL, rtol=RTOL)
+
+
+def test_sampler_matches_jax_loop_with_injected_noise(small):
+    """3 aligned fast steps (fractional t_embed) with one shared noise
+    stack; the JAX side is the update of diffusion/sampling.py:66-68."""
+    _, p, apply, tm = small
+    js = jax_schedule(FAST3, fast=True)
+    a, ab, sg, te = (np.asarray(r) for r in
+                     (js.alpha, js.alpha_bar, js.sigma, js.t_embed))
+    shape = (2, 1, 16000)
+    noise = np.random.RandomState(7).randn(js.T + 1, *shape).astype(
+        np.float32)
+    x = noise[0]
+    for i, t in enumerate(range(js.T - 1, -1, -1)):
+        eps = np.asarray(apply(p, jnp.asarray(x),
+                               jnp.full((2,), te[t], jnp.float32)))
+        x = (x - (1.0 - a[t]) / np.sqrt(1.0 - ab[t]) * eps) / np.sqrt(a[t])
+        if t > 0:
+            x = x + sg[t] * noise[i + 1]
+    out = sampling(tm, shape, schedule_from_cfg(FAST3, fast=True),
+                   noise=torch.from_numpy(noise)).numpy()
+    np.testing.assert_allclose(out, x, atol=ATOL, rtol=RTOL)
+
+
+def test_sampling_step_rejects_mismatched_schedule_rows(small):
+    tm = small[3]
+    s = schedule_from_cfg(FAST3, fast=True)
+    table = schedule_table(s)
+    assert table.shape[0] == 4
+    with pytest.raises(ValueError, match="rows"):
+        sampling_step(tm, torch.zeros(1, 1, 16000), 2, table[:3], True,
+                      torch.zeros(1, 1, 16000))
+
+
+def test_generate_from_jax_checkpoint(small, tmp_path, monkeypatch):
+    """generate() resolves ckpt_iter='max' among JAX-written pickles, loads
+    the flax tree through params_from_jax, and writes the reference wav
+    layout; its samples equal the sampler's with the same seed."""
+    model, p, _, tm = small
+    monkeypatch.chdir(tmp_path)
+    dataset = {"_name_": "sc09", "segment_length": 16000,
+               "sampling_rate": 16000}
+    run, _ = local_directory(None, SMALL_CFG, FAST3, dataset, "checkpoint")
+    ck = os.path.join("exp", run, "checkpoint")
+    zero_head = {"params": dict(p["params"], final_conv2={
+        k: np.zeros_like(v) for k, v in p["params"]["final_conv2"].items()})}
+    save_checkpoint(ck, 1000, zero_head)         # older: must not be picked
+    save_checkpoint(ck, 2000, p)
+    out = generate(FAST3, SMALL_CFG, dataset, ckpt_iter="max", n_samples=2,
+                   batch_size=1, seed=3, device="cpu")
+    assert out.shape == (2, 1, 16000) and np.isfinite(out).all()
+    wav_dir = os.path.join("exp", run, "waveforms", "2000")
+    assert sorted(os.listdir(wav_dir)) == ["2k_0.wav", "2k_1.wav"]
+    sr, wav = wavfile.read(os.path.join(wav_dir, "2k_1.wav"))
+    assert sr == 16000 and wav.dtype == np.float32
+    np.testing.assert_array_equal(wav, out[1, 0])
+    g = torch.Generator().manual_seed(3)
+    s = schedule_from_cfg(FAST3, fast=True)
+    want = [sampling(tm, (1, 1, 16000), s, generator=g) for _ in range(2)]
+    np.testing.assert_array_equal(out, torch.cat(want).numpy())
+
+
+def test_params_from_jax_round_trips_through_sashimi_from_torch(small):
+    p = small[1]
+    sd = params_from_jax(p, SMALL_CFG)
+    assert set(sd) == set(small[3].state_dict())      # reference names
+    back = sashimi_from_torch(sd, 1, [4, 4])
+    flat_b = jax.tree_util.tree_leaves_with_path(back)
+    flat_p = jax.tree_util.tree_leaves_with_path(p["params"])
+    assert [k for k, _ in flat_b] == [k for k, _ in flat_p]
+    for (k, x), (_, y) in zip(flat_b, flat_p):
+        assert x.dtype == y.dtype and np.array_equal(x, y), k
+    per_block = sashimi_from_torch(sd, 1, [4, 4], block_scan=False)
+    sd2 = params_from_jax({"params": per_block}, SMALL_CFG)
+    assert set(sd2) == set(sd)
+    assert all(torch.equal(sd2[k], sd[k]) for k in sd)
+
+
+def test_port_checkpoint_and_reference_bias_shape(small, tmp_path):
+    """The port's own checkpoint round-trips, and a reference state dict
+    whose output-linear bias is stored (2H, 1) loads into (2H,)."""
+    tm = small[3]
+    port_save(str(tmp_path), 5, tm)
+    sd = load_state_dict(str(tmp_path), "max", SMALL_CFG)
+    assert all(torch.equal(sd[k], v) for k, v in tm.state_dict().items())
+    key = "c_layers.0.layer.output_linear.0.bias"
+    ref_sd = dict(sd, **{key: sd[key].reshape(-1, 1) + 1.0})
+    other = construct_model(SMALL_CFG)
+    load_into(other, ref_sd)
+    assert torch.equal(other.state_dict()[key], sd[key] + 1.0)
+
+
+def test_port_imports_no_jax():
+    code = ("import importlib, pkgutil, sys, diffwave_sashimi_torch as p\n"
+            "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'diffwave_sashimi_tpu'))\n"
+            "print(len([m for m in sys.modules if m.startswith(p.__name__)]),"
+            " bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert int(r.stdout.split()[0]) >= 20        # every module was imported
+
+
+def test_chip_smoke_config_literals_match_load_config():
+    from diffwave_sashimi_tpu.config import load_config
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = json.loads(json.dumps(load_config(overrides=["experiment=sc09"])))
+    assert cfg["diffusion"] == smoke.DIFFUSION_CFG
+    assert cfg["model"] == smoke.MODEL_CFG
+    assert cfg["dataset"] == smoke.DATASET_CFG
+
+
+def test_bf16_is_refused_not_run_as_f32(tmp_path, monkeypatch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        construct_model(SMALL_CFG, precision="bf16")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match="bf16 activation policy"):
+        main(["experiment=sc09"])         # the config default is bf16
+
+
+def test_plain_and_fused_ops_agree_on_cpu(small):
+    """On CPU tensors every kernel wrapper is its plain version."""
+    tm = small[3]
+    audio, steps = _inputs(B=1)
+    with torch.no_grad():
+        a = tm(torch.from_numpy(audio), torch.from_numpy(steps),
+               ops=ops.FUSED)
+        b = tm(torch.from_numpy(audio), torch.from_numpy(steps),
+               ops=ops.PLAIN)
+    assert torch.equal(a, b)
