@@ -19,15 +19,34 @@ Phases, each fatal on failure (non-zero exit, no result line):
 5. one eps forward through the kernels against the plain path on the card;
 6. timings (CUDA events, after warm-up): each kernel and its plain
    version, and the eps forward (one sampling step) both ways at the main
-   path's batch and at batch 16.
+   path's batch and at batch 16;
+7. the training kernels (kernel 1's training entry and its conjugate
+   form, kernels 5-8) against their plain versions at the three tiers,
+   with their times;
+8. the training path: a seeded synthetic SC09 corpus (one-second 16 kHz
+   ``*_nohash_*.wav`` clips, a few per digit folder) and the port's
+   ``runtime.train.main`` with ``experiment=sc09 compute.precision=f32``
+   for 4 iterations at full width and batch 4 (checkpoint at 2), then a
+   resume from 'max' for one more step; every kernel the training step
+   runs must have launched, the losses must be finite and the checkpoint
+   must exist;
+9. one training step's loss and every parameter gradient through the
+   kernels (ops.FUSED) and through torch autograd of the plain versions
+   (ops.PLAIN), on the same batch, t and z;
+10. the training step (forward, backward, Adam) timed both ways;
+11. a torch.profiler trace of two training steps with the kernels: device
+    time by kernel, the port's kernels' share, the device's idle share.
 
-It prints the card's name and power limit, one JSON line with the kernels,
-and last ``{"ok": true, "device": {...}}``.  The config blocks below are
+It prints the card's name and power limit, one JSON line with the kernels
+(each with its bound: the larger of its bytes over the HBM rate and its
+fp32 operations over the fp32 peak, at the top tier's shapes), and last
+``{"ok": true, "device": {...}}``.  The config blocks below are
 ``load_config(["experiment=sc09"])`` written out (a CPU test pins them),
 so this script imports nothing of the JAX package.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -38,6 +57,12 @@ SEED = 0
 N_SAMPLES = 4                 # the main path's batch
 TOL_KERNEL = 1e-4             # |kernel - plain| <= TOL * max(1, max|plain|)
 TOL_EPS = (1e-3, 1e-2)        # eps: |kernel - plain| <= atol + rtol * |plain|
+TOL_GRAD = 1e-3               # |grad kernels - plain| <= TOL * max(1, max|plain|)
+PEAK_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
+PEAK_BYTES = 3.35e12          # H100 SXM HBM3
+TRAIN_OVERRIDES = ["experiment=sc09", "compute.precision=f32",
+                   "train.n_iters=3", "train.iters_per_ckpt=2",
+                   "train.iters_per_logging=1", "generate.n_samples=0"]
 
 DIFFUSION_CFG = {"T": 200, "beta_0": 0.0001, "beta_T": 0.02, "beta": None}
 MODEL_CFG = {"_name_": "sashimi", "unconditional": True, "in_channels": 1,
@@ -49,15 +74,31 @@ MODEL_CFG = {"_name_": "sashimi", "unconditional": True, "in_channels": 1,
 DATASET_CFG = {"_name_": "sc09", "data_path": "data/sc09",
                "segment_length": 16000, "sampling_rate": 16000}
 
+# name -> (source, TPU kernel it replaces, the paths that launch it)
 KERNELS = {
     "fftconv_ln_bias_gelu_d": ("diffwave_sashimi_torch/csrc/fftconv.cu",
-                               "diffwave_sashimi_tpu/ops/fftconv2.py:427"),
+                               "diffwave_sashimi_tpu/ops/fftconv2.py:427",
+                               ("generate",)),
     "glu_res": ("diffwave_sashimi_torch/csrc/chmix.cu",
-                "diffwave_sashimi_tpu/ops/chmix.py:119"),
+                "diffwave_sashimi_tpu/ops/chmix.py:119",
+                ("generate", "train")),
     "ln_ff_res": ("diffwave_sashimi_torch/csrc/chmix.cu",
-                  "diffwave_sashimi_tpu/ops/chmix.py:182"),
+                  "diffwave_sashimi_tpu/ops/chmix.py:182",
+                  ("generate", "train")),
     "cauchy": ("diffwave_sashimi_torch/csrc/cauchy.cu",
-               "diffwave_sashimi_tpu/ops/cauchy_pallas.py:54"),
+               "diffwave_sashimi_tpu/ops/cauchy_pallas.py:54",
+               ("generate", "train")),
+    "fftconv": ("diffwave_sashimi_torch/csrc/fftconv.cu",
+                "diffwave_sashimi_tpu/ops/fftconv2.py:427", ("train",)),
+    "fftconv_dkf": ("diffwave_sashimi_torch/csrc/fftconv.cu",
+                    "diffwave_sashimi_tpu/ops/fftconv2.py:707", ("train",)),
+    "glu_res_bwd": ("diffwave_sashimi_torch/csrc/chmix.cu",
+                    "diffwave_sashimi_tpu/ops/chmix.py:414", ("train",)),
+    "ln_ff_res_bwd": ("diffwave_sashimi_torch/csrc/chmix.cu",
+                      "diffwave_sashimi_tpu/ops/chmix.py:362", ("train",)),
+    "cauchy_bwd": ("diffwave_sashimi_torch/csrc/cauchy.cu",
+                   "diffwave_sashimi_tpu/ops/cauchy_pallas.py:91",
+                   ("train",)),
 }
 
 
@@ -93,6 +134,74 @@ def max_err(out, ref):
     return float((out - ref).abs().max()), float(ref.abs().max())
 
 
+def work(name, B, H, L, n, K=6, N=32):
+    """(fp32 operations, bytes) of one call at these shapes: each input
+    read once and each output written once; a real FFT of length n counted
+    as 2.5 n log2 n operations."""
+    F, Lz = 2 * H, L // 2 + 1
+    fft = 2.5 * n * math.log2(n)
+    act = B * H * L * 4                  # one (B, H, L) f32 tensor
+    spec = H * (n // 2 + 1) * 8          # one (H, n/2+1) spectrum
+    glu_w, ff_w = (2 * H * H + 2 * H) * 4, (2 * F * H + F + H + 2) * 4
+    coef = (2 * K * H * N + 2 * H * N) * 4
+    cauchy_io = Lz * 8 + K * H * Lz * 8
+    return {
+        "fftconv_ln_bias_gelu_d": (B * H * (2 * fft + 3 * n) + 12 * B * H * L,
+                                   2 * act + spec + 2 * B * L * 4
+                                   + B * H * 4 + H * 4),
+        "fftconv": (B * H * (2 * fft + 3 * n), 2 * act + spec),
+        "fftconv_dkf": (B * H * (2 * fft + 4 * n), 2 * act + spec),
+        "glu_res": (4 * H * H * B * L, 3 * act + glu_w),
+        "glu_res_bwd": (12 * H * H * B * L, 3 * act + 2 * glu_w),
+        "ln_ff_res": (4 * F * H * B * L, 3 * act + 2 * B * L * 4 + ff_w),
+        "ln_ff_res_bwd": (10 * F * H * B * L, 3 * act + 2 * ff_w),
+        "cauchy": ((13 + 11 * K) * H * N * Lz, coef + cauchy_io),
+        "cauchy_bwd": ((30 + 16 * K) * H * N * Lz, 2 * coef + cauchy_io),
+    }[name]
+
+
+def bound(name, B, H, L, n):
+    """(bound_ms, bound_by): the least time of one call on the card."""
+    flops, nbytes = work(name, B, H, L, n)
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def compare(name, H, L, kfn, pfn, reps, results):
+    """Hold one kernel wrapper against its plain version at tier (H, L)
+    (each output of a tuple against its own bound), time both, record with
+    the bound; raise on a miss."""
+    import torch
+    tier = f"H{H}_L{L}"
+    out, ref = kfn(), pfn()
+    torch.cuda.synchronize()
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    errs = [max_err(o, r) for o, r in zip(outs, refs)]
+    ok = all(e <= TOL_KERNEL * max(1.0, sc) for e, sc in errs) and all(
+        bool(torch.isfinite(o).all()) for o in outs)
+    err = max(e for e, _ in errs)
+    scale = max(sc for _, sc in errs)
+    ms, plain_ms = paired_ms(kfn, pfn, reps)
+    log(f"kernel {name} {tier}: max_abs_err {err:.3e} (per output "
+        f"{', '.join(f'{e:.2e}/{sc:.2e}' for e, sc in errs)} of max|plain|) "
+        f"bound {TOL_KERNEL} x max(1, max|plain|) {'ok' if ok else 'FAIL'}; "
+        f"{ms:.4f} ms vs plain {plain_ms:.4f} ms")
+    r = results.setdefault(name, {"max_abs_err": 0.0, "tiers": {}})
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    r["tiers"].setdefault(tier, {"max_abs_err": 0.0, "max_abs_plain": 0.0})
+    t = r["tiers"][tier]
+    t.update(max_abs_err=max(t["max_abs_err"], err),
+             max_abs_plain=max(t["max_abs_plain"], scale))
+    t.setdefault("ms", ms)
+    t.setdefault("plain_ms", plain_ms)
+    t["bound_ms"], t["bound_by"] = bound(name, N_SAMPLES, H, L,
+                                         1 << (2 * L - 1).bit_length())
+    if not ok:
+        raise AssertionError(f"kernel {name} disagrees at {tier}")
+
+
 def build_model(torch):
     from diffwave_sashimi_torch.models import construct_model
     gen = torch.Generator().manual_seed(SEED)
@@ -117,78 +226,276 @@ def tier_blocks(model):
     return sorted(out, key=lambda t: t[0])
 
 
-def check_kernels(torch, model, dev, results):
-    """Phase 3 (+ kernel timings): every kernel vs its plain version at
-    the sampling path's shapes of every tier."""
+def tier_inputs(torch, blk, L, gen, dev):
+    """Inputs of one tier's kernels at the main paths' shapes (batch
+    N_SAMPLES), from the tier's first block."""
     from diffwave_sashimi_torch import ops
     from diffwave_sashimi_torch.models.s4 import _fft_nodes
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    B = N_SAMPLES
-    for H, L, blk in tier_blocks(model):
-        tier = f"H{H}_L{L}"
-        layer = blk.layer
-        khat = layer.compute_kernel_freq(L, ops.PLAIN)
-        x = torch.randn(B, H, L, device=dev, generator=gen)
-        var, mean = torch.var_mean(x, dim=1, unbiased=False)
-        a = blk.norm1.s * torch.rsqrt(var)
-        c = (blk.norm1.m - mean) * a
-        bias = blk.fc_t(torch.randn(B, 512, device=dev, generator=gen))
-        D = layer.D[0]
-        lin = layer.output_linear[0]
-        ff1, ff2 = blk.ff["ff"][0], blk.ff["ff"][2]
-        w1 = ff1.effective_weight()[:, :, 0]
-        w2 = ff2.effective_weight()[:, :, 0]
-        skip = torch.randn(B, H, L, device=dev, generator=gen)
-        kern = layer.kernel["kernel"]
-        C = torch.view_as_complex(kern.C)
-        Pm = kern._broadcast(torch.view_as_complex(kern.P), 1)
-        Bm = kern._broadcast(torch.view_as_complex(kern.B), 1)
-        v = (torch.cat([Bm, Pm])[:, None] * torch.cat([C, Pm.conj()])[None])
-        z = torch.from_numpy(_fft_nodes(L)[1]).to(dev)
-        wt = kern._w() * kern.log_dt.exp()[:, None]
-        y = ops.fftconv_ln_bias_gelu_d_ref(x, a, c, bias, khat, D)
+    B, layer = N_SAMPLES, blk.layer
+    H = layer.D.shape[1]
+    khat = layer.compute_kernel_freq(L, ops.PLAIN)
+    x = torch.randn(B, H, L, device=dev, generator=gen)
+    var, mean = torch.var_mean(x, dim=1, unbiased=False)
+    a = blk.norm1.s * torch.rsqrt(var)
+    ff1, ff2 = blk.ff["ff"][0], blk.ff["ff"][2]
+    kern = layer.kernel["kernel"]
+    C = torch.view_as_complex(kern.C)
+    Pm = kern._broadcast(torch.view_as_complex(kern.P), 1)
+    Bm = kern._broadcast(torch.view_as_complex(kern.B), 1)
+    v = torch.cat([Bm, Pm])[:, None] * torch.cat([C, Pm.conj()])[None]
+    wt = kern._w() * kern.log_dt.exp()[:, None]
+    z = torch.from_numpy(_fft_nodes(L)[1]).to(dev)
+    qa, qb, qc, qd = ops.cauchy._coefficients(v, wt)
+    K, N = qa.numel() // (H * qa.shape[-1]), qa.shape[-1]
+    d = dict(x=x, a=a, c=(blk.norm1.m - mean) * a, khat=khat,
+             n=2 * (khat.shape[-1] - 1), D=layer.D[0],
+             bias=blk.fc_t(torch.randn(B, 512, device=dev, generator=gen)),
+             lin=layer.output_linear[0], m2=blk.norm2.m, s2=blk.norm2.s,
+             w1=ff1.effective_weight()[:, :, 0], b1=ff1.bias,
+             w2=ff2.effective_weight()[:, :, 0], b2=ff2.bias,
+             skip=torch.randn(B, H, L, device=dev, generator=gen),
+             g=torch.randn(B, H, L, device=dev, generator=gen),
+             v=v, wt=wt, z=z, quad=(qa.reshape(K, H, N).contiguous(),
+                                    qb.reshape(K, H, N).contiguous(), qc, qd),
+             g_re=torch.randn(K, H, z.shape[0], device=dev, generator=gen),
+             g_im=torch.randn(K, H, z.shape[0], device=dev, generator=gen))
+    d["y"] = ops.fftconv_ln_bias_gelu_d_ref(x, d["a"], d["c"], d["bias"],
+                                            khat, d["D"])
+    return d
 
+
+def check_kernels(torch, model, dev, results):
+    """Phase 3 (+ kernel timings): the sampling kernels vs their plain
+    versions at the sampling path's shapes of every tier."""
+    from diffwave_sashimi_torch import ops
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for H, L, blk in tier_blocks(model):
+        d = tier_inputs(torch, blk, L, gen, dev)
+        x, lin = d["x"], d["lin"]
         cases = {
             "fftconv_ln_bias_gelu_d": (
-                lambda: ops.fftconv_ln_bias_gelu_d(x, a, c, bias, khat, D),
-                lambda: ops.fftconv_ln_bias_gelu_d_ref(x, a, c, bias, khat,
-                                                       D)),
-            "glu_res": (lambda: ops.mix_glu_res(y, x, lin.weight, lin.bias),
-                        lambda: ops.glu_res_ref(y, x, lin.weight, lin.bias)),
+                lambda: ops.fftconv_ln_bias_gelu_d(x, d["a"], d["c"],
+                                                   d["bias"], d["khat"],
+                                                   d["D"]),
+                lambda: ops.fftconv_ln_bias_gelu_d_ref(x, d["a"], d["c"],
+                                                       d["bias"], d["khat"],
+                                                       d["D"])),
+            "glu_res": (
+                lambda: ops.mix_glu_res(d["y"], x, lin.weight, lin.bias),
+                lambda: ops.glu_res_ref(d["y"], x, lin.weight, lin.bias)),
             "ln_ff_res": (
-                lambda: ops.ln_ff_res(x, blk.norm2.m, blk.norm2.s, w1,
-                                      ff1.bias, w2, ff2.bias, skip, True),
-                lambda: ops.ln_ff_res_ref(x, blk.norm2.m, blk.norm2.s, w1,
-                                          ff1.bias, w2, ff2.bias, skip,
-                                          True)),
-            "cauchy": (lambda: ops.cauchy_sym_fused(v, z, wt),
-                       lambda: ops.cauchy_sym(v, z, wt)),
+                lambda: ops.ln_ff_res(x, d["m2"], d["s2"], d["w1"], d["b1"],
+                                      d["w2"], d["b2"], d["skip"], True),
+                lambda: ops.ln_ff_res_ref(x, d["m2"], d["s2"], d["w1"],
+                                          d["b1"], d["w2"], d["b2"],
+                                          d["skip"], True)),
+            "cauchy": (lambda: ops.cauchy_quad(*d["quad"], d["z"]),
+                       lambda: ops.cauchy_quad_ref(*d["quad"], d["z"])),
         }
         for name, (kfn, pfn) in cases.items():
-            out, ref = kfn(), pfn()
-            torch.cuda.synchronize()
-            if name == "ln_ff_res":    # (out, mean, var): check all three
-                errs = [max_err(o, r) for o, r in zip(out, ref)]
-                err = max(e for e, _ in errs)
-                scale = max(s for _, s in errs)
-            else:
-                err, scale = max_err(out, ref)
-            bound = TOL_KERNEL * max(1.0, scale)
-            reps = 3 if name == "cauchy" else 20
-            ms, plain_ms = paired_ms(kfn, pfn, reps)
-            ok = err <= bound and all(torch.isfinite(t).all() for t in
-                                      (out if isinstance(out, tuple)
-                                       else (out,)))
-            log(f"kernel {name} {tier}: max_abs_err {err:.3e}, rel "
-                f"{err / max(scale, 1e-30):.3e} of max|plain| {scale:.3e} "
-                f"(bound {bound:.3e}) {'ok' if ok else 'FAIL'}; "
-                f"{ms:.4f} ms vs plain {plain_ms:.4f} ms")
-            r = results.setdefault(name, {"max_abs_err": 0.0, "tiers": {}})
-            r["max_abs_err"] = max(r["max_abs_err"], err)
-            r["tiers"][tier] = {"max_abs_err": err, "max_abs_plain": scale,
-                                "ms": ms, "plain_ms": plain_ms}
-            if not ok:
-                raise AssertionError(f"kernel {name} disagrees at {tier}")
+            compare(name, H, L, kfn, pfn, 3 if name == "cauchy" else 20,
+                    results)
+
+
+def check_training_kernels(torch, model, dev, results):
+    """Phase 7: kernel 1's training entry (and its conjugate form) and
+    kernels 5-8 vs their plain versions at every tier, timed."""
+    from diffwave_sashimi_torch import ops
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for H, L, blk in tier_blocks(model):
+        d = tier_inputs(torch, blk, L, gen, dev)
+        x, g, khat, lin = d["x"], d["g"], d["khat"], d["lin"]
+        ff = (x, d["m2"], d["s2"], d["w1"], d["b1"], d["w2"], d["b2"], g)
+        cauchy = (*d["quad"], d["z"], d["g_re"], d["g_im"])
+        cases = [
+            ("fftconv", lambda: ops.fftconv(x, khat),
+             lambda: ops.fftconv_ref(x, khat)),
+            ("fftconv", lambda: ops.fftconv(g, khat, conj=True),
+             lambda: ops.fftconv_ref(g, khat, conj=True)),
+            ("fftconv_dkf", lambda: ops.fftconv_dkf(x, g, d["n"]),
+             lambda: ops.fftconv_dkf_ref(x, g, d["n"])),
+            ("glu_res_bwd",
+             lambda: ops.glu_res_bwd(d["y"], lin.weight, lin.bias, g),
+             lambda: ops.glu_res_bwd_ref(d["y"], lin.weight, lin.bias, g)),
+            ("ln_ff_res_bwd", lambda: ops.ln_ff_res_bwd(*ff),
+             lambda: ops.ln_ff_res_bwd_ref(*ff)),
+            ("cauchy_bwd", lambda: ops.cauchy_bwd(*cauchy),
+             lambda: ops.cauchy_bwd_ref(*cauchy)),
+        ]
+        for name, kfn, pfn in cases:
+            compare(name, H, L, kfn, pfn, 3 if name == "cauchy_bwd" else 10,
+                    results)
+
+
+def write_corpus(root, per_digit=3):
+    """Seeded synthetic SC09: one-second 16 kHz int16 clips, ``per_digit``
+    in each digit folder, named like SpeechCommands (``*_nohash_*``)."""
+    import numpy as np
+    from scipy.io import wavfile
+    rng = np.random.RandomState(SEED)
+    t = np.arange(16000) / 16000.0
+    for i, digit in enumerate(("zero", "one", "two", "three", "four", "five",
+                               "six", "seven", "eight", "nine")):
+        os.makedirs(os.path.join(root, digit))
+        for j in range(per_digit):
+            f0 = 150.0 + 40.0 * i + 10.0 * j
+            wav = (0.3 * np.sin(2 * np.pi * f0 * t) * np.hanning(16000)
+                   + 0.01 * rng.randn(16000))
+            wavfile.write(os.path.join(root, digit,
+                                       f"spk{j:02d}_nohash_{j}.wav"),
+                          16000, (wav * 32767).astype(np.int16))
+
+
+def run_training(torch, exp_dir, launches):
+    """Phase 8: the training CLI, from scratch and resumed, with the launch
+    counts of the first run."""
+    import numpy as np
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.runtime import train as train_mod
+    from diffwave_sashimi_torch.utils.exp import local_directory
+    data = os.path.join(exp_dir, "sc09")
+    write_corpus(data)
+    overrides = TRAIN_OVERRIDES + [f"dataset.data_path={data}"]
+    for fn in ops.COUNTED.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    train_mod.main(overrides)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches["train"] = {k: f.launches for k, f in ops.COUNTED.items()}
+    t0 = time.perf_counter()
+    train_mod.main(overrides)                  # resumes from 'max' (2)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    run, ckpt = local_directory(None, MODEL_CFG, DIFFUSION_CFG, DATASET_CFG,
+                                "checkpoint", makedirs=False)
+    with open(os.path.join("exp", run, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [(r["step"], r["train/loss"]) for r in recs
+              if "train/loss" in r]
+    log(f"phase train: main() 4 iterations in {first_s:.2f} s wall, resume "
+        f"1 iteration in {resume_s:.2f} s wall (each includes building the "
+        f"model); losses {losses}; checkpoints {sorted(os.listdir(ckpt))}; "
+        f"launches {launches['train']}")
+    if [i for i, _ in losses] != [0, 1, 2, 3, 3] or not all(
+            np.isfinite(v) for _, v in losses):
+        raise AssertionError(f"training losses {losses}")
+    if not os.path.exists(os.path.join(ckpt, "2.pkl")):
+        raise AssertionError("checkpoint 2.pkl was not written")
+    missing = [k for k, (_, _, paths) in KERNELS.items()
+               if "train" in paths and launches["train"][k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never ran in training: {missing}")
+    return losses
+
+
+def check_gradients(torch, model, dev):
+    """Phase 9: loss and every parameter gradient of one training step,
+    kernels vs plain, on one batch, t and z."""
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.diffusion.loss import training_loss
+    from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    audio = 0.3 * torch.randn(N_SAMPLES, 1, 16000, device=dev, generator=g)
+    t = torch.randint(0, 200, (N_SAMPLES,), device=dev, generator=g)
+    z = torch.randn(N_SAMPLES, 1, 16000, device=dev, generator=g)
+    schedule = schedule_from_cfg(DIFFUSION_CFG)
+    grads, losses = {}, {}
+    for route in ("FUSED", "PLAIN"):
+        model.zero_grad(set_to_none=True)
+        loss = training_loss(model, audio, schedule, t=t, z=z,
+                             ops=getattr(ops, route))
+        loss.backward()
+        losses[route] = loss.item()
+        grads[route] = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    worst, bad = (0.0, ""), []
+    for name, gp in grads["PLAIN"].items():
+        err = float((grads["FUSED"][name] - gp).abs().max())
+        tol = TOL_GRAD * max(1.0, float(gp.abs().max()))
+        worst = max(worst, (err / tol, name))
+        if not err <= tol:
+            bad.append(name)
+    lerr = abs(losses["FUSED"] - losses["PLAIN"])
+    log(f"phase grads: loss {losses['FUSED']:.6f} with kernels vs "
+        f"{losses['PLAIN']:.6f} plain; {len(grads['PLAIN'])} gradient "
+        f"tensors within {TOL_GRAD} x max(1, max|plain grad|), worst "
+        f"{worst[0]:.3e} of its bound ({worst[1]})")
+    if bad or not lerr <= TOL_GRAD * max(1.0, abs(losses["PLAIN"])):
+        raise AssertionError(f"gradients disagree: {bad}, loss err {lerr}")
+    return worst
+
+
+def profile_train_step(torch, model, dev, steps=2):
+    """Phase 11: a torch.profiler trace of ``steps`` training steps with the
+    kernels.  Returns the device time by kernel name (ms per step), the
+    share of it in the port's kernels, and the device's idle share of the
+    window from the first kernel's start to the last one's end."""
+    from torch.profiler import ProfilerActivity, profile
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
+    from diffwave_sashimi_torch.runtime.train import make_optimizer, train_step
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    audio = 0.3 * torch.randn(N_SAMPLES, 1, 16000, device=dev, generator=g)
+    schedule = schedule_from_cfg(DIFFUSION_CFG)
+    optim = make_optimizer(model, 2e-4)
+    for _ in range(2):
+        train_step(model, optim, audio, schedule, g, ops.FUSED)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            train_step(model, optim, audio, schedule, g, ops.FUSED)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation
+            and e.time_range.end > e.time_range.start]
+    if not kern:
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    busy, (cur_a, cur_b) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > cur_b:
+            busy += cur_b - cur_a
+            cur_a, cur_b = a, b
+        else:
+            cur_b = max(cur_b, b)
+    busy += cur_b - cur_a
+    window = spans[-1][1] - spans[0][0]
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3 / steps
+    ours = sum(ms for name, ms in by_name.items() if any(
+        k in name for k in ("fftconv_kernel", "fftconv_dkf_kernel",
+                            "glu_res_kernel", "glu_res_bwd_kernel",
+                            "ln_ff_res_kernel", "ln_ff_res_bwd_kernel",
+                            "wgrad_kernel", "reduce_splits_kernel",
+                            "cauchy_kernel", "cauchy_bwd_kernel")))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {"window_ms_per_step": window / 1e3 / steps,
+            "device_busy_ms_per_step": busy / 1e3 / steps,
+            "idle_share": 1.0 - busy / window,
+            "port_kernels_ms_per_step": ours,
+            "other_kernels_ms_per_step": sum(by_name.values()) - ours,
+            "launches_per_step": len(kern) / steps,
+            "top_kernels_ms_per_step": dict(top)}
+
+
+def time_train_step(torch, model, dev):
+    """Phase 10: one training step (forward, backward, Adam) with the
+    kernels and plain, at the main path's batch; returns (ms, plain ms)."""
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
+    from diffwave_sashimi_torch.runtime.train import make_optimizer, train_step
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    audio = 0.3 * torch.randn(N_SAMPLES, 1, 16000, device=dev, generator=g)
+    schedule = schedule_from_cfg(DIFFUSION_CFG)
+    optim = make_optimizer(model, 2e-4)
+    return paired_ms(
+        lambda: train_step(model, optim, audio, schedule, g, ops.FUSED),
+        lambda: train_step(model, optim, audio, schedule, g, ops.PLAIN), 3)
 
 
 def main():
@@ -236,21 +543,23 @@ def main():
         with torch.no_grad():
             check_kernels(torch, model, dev, results)
 
-        # phase 4: the main path through generate()
-        counters = (ops.fftconv_ln_bias_gelu_d, ops.mix_glu_res,
-                    ops.ln_ff_res, ops.cauchy_sym_fused)
-        for fn in counters:
+        # phase 4: the sampling path through generate()
+        for fn in ops.COUNTED.values():
             fn.launches = 0
         t0 = time.perf_counter()
         audio = generate(DIFFUSION_CFG, MODEL_CFG, DATASET_CFG,
                          ckpt_iter="max", n_samples=N_SAMPLES, seed=SEED,
                          device="cuda")
         gen_s = time.perf_counter() - t0
-        launches = dict(zip(KERNELS, (fn.launches for fn in counters)))
-        log(f"phase generate: {gen_s:.2f} s wall; launches {launches}")
-        if any(n == 0 for n in launches.values()):
-            raise AssertionError(f"a kernel never ran on the main path: "
-                                 f"{launches}")
+        launches = {"generate": {k: f.launches
+                                 for k, f in ops.COUNTED.items()}}
+        log(f"phase generate: {gen_s:.2f} s wall; launches "
+            f"{launches['generate']}")
+        missing = [k for k, (_, _, paths) in KERNELS.items()
+                   if "generate" in paths and launches["generate"][k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never ran on the sampling path: "
+                                 f"{missing}")
         if audio.shape != (N_SAMPLES, 1, 16000) or \
                 not np.isfinite(audio).all():
             raise AssertionError(f"bad output {audio.shape}")
@@ -300,20 +609,52 @@ def main():
     log(f"timing: generate() at B{N_SAMPLES}: "
         f"{N_SAMPLES * 16000 / sr / gen_s:.3f}x realtime from its wall time "
         f"(model build + load, S4 kernels, {T} steps, wav writes)")
+
+    # phase 7: the training kernels vs plain at every tier
+    with torch.no_grad():
+        check_training_kernels(torch, model, dev, results)
+
+    # phase 8: the training path through runtime.train.main
+    train_root = tempfile.TemporaryDirectory(prefix="dwst_smoke_train_")
+    os.chdir(train_root.name)
+    try:
+        run_training(torch, train_root.name, launches)
+    finally:
+        os.chdir(cwd)
+        train_root.cleanup()
+
+    # phases 9 and 10: gradients kernels vs plain, then the step's time
+    check_gradients(torch, model, dev)
+    train_ms, train_plain_ms = time_train_step(torch, model, dev)
+    log(f"timing: training step (forward, backward, Adam) at B{N_SAMPLES} "
+        f"{train_ms:.3f} ms with kernels vs {train_plain_ms:.3f} ms plain")
+    trace = profile_train_step(torch, model, dev)
+    log("trace: training step with the kernels: " + (
+        "no device time in the profiler's events (not measured)"
+        if trace is None else json.dumps(trace)))
     log(f"card: {smi[0]}")
 
     tier1 = "H128_L16000"
-    log(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name],
-         "max_abs_err": results[name]["max_abs_err"],
-         "ms": results[name]["tiers"][tier1]["ms"],
-         "plain_ms": results[name]["tiers"][tier1]["plain_ms"],
-         "tiers": results[name]["tiers"]}
-        for name, (src, rep) in KERNELS.items()],
+    entries = []
+    for name, (src, rep, paths) in KERNELS.items():
+        r, top = results[name], results[name]["tiers"][tier1]
+        per_path = {p: launches[p][name] for p in ("generate", "train")}
+        entries.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": sum(per_path.values()),
+            "launches_per_path": per_path,
+            "max_abs_err": r["max_abs_err"], "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": None,
+            "tiers": r["tiers"]})
+    log(json.dumps({
+        "kernels": entries,
         "step_ms": {str(B): ms for B, (ms, _) in steps_ms.items()},
         "step_plain_ms": {str(B): p for B, (_, p) in steps_ms.items()},
         "realtime_factor": {str(B): r for B, r in rtf.items()},
+        "train_step_ms": {str(N_SAMPLES): train_ms},
+        "train_step_plain_ms": {str(N_SAMPLES): train_plain_ms},
+        "train_step_trace": trace,
         "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

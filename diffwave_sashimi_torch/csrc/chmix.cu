@@ -1,11 +1,13 @@
 // Fused position-wise channel-mixing branches of the DiffWave block.
 //
-// Replaces two TPU kernels of diffwave_sashimi_tpu/ops/chmix.py:
+// Replaces four TPU kernels of diffwave_sashimi_tpu/ops/chmix.py:
 //   _glu_kernel (mix_glu_res):  out = res + a * sigmoid(g),  [a; g] = W y + b
 //   _ff_kernel  (ln_ff_res):    out = x + W2 gelu(W1 TLN(x) + b1) + b2
 //                               [+ skip]
 //                               and, optionally, the channel mean and var of
 //                               out per position (the next block's norm1).
+//   _glu_bwd_kernel (_glu_train_bwd) and _ff_bwd_kernel (_ff_train_bwd):
+//                               their backward passes, below the forwards.
 // Activations are the flat (B, H, L) layout; the matmuls contract the
 // channel axis H for every position.
 //
@@ -277,10 +279,387 @@ ln_ff_res_kernel(const float* __restrict__ x, const float* __restrict__ skip,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// Backward passes (kernels 6 and 7).
+//
+// What bounds them: the same channel GEMMs as the forwards, three per
+// position for GLU (z, dy, dW) and five for FF (z, dh, dxn, dW1, dW2), so
+// they are fp32-compute bound like the forwards.
+//
+// Design: a per-position pass reuses the forward's block layout and
+// register-tiled gemm_chunk: it recomputes z from the saved input, forms
+// dz in shared memory, contracts it back to the input gradient, and
+// writes the operands of the weight gradients (dz, and for FF the
+// normalised input and the GELU output) to device memory.  The weight
+// gradients contract over all B * L positions (64000 at the top tier), so
+// a second kernel computes them as split-K partials, one per 2048
+// positions of one batch row, 64 x 64 output tiles of 4 x 4 per thread,
+// with the bias gradients as row sums of the same tiles; a third sums the
+// partials in a fixed order.  No float atomics: a run repeats bit for
+// bit.  FF's scalar gradients dm and ds are per-block partials summed the
+// same way.
+
+// GLU backward, per position tile (P as the forward): z = W y + b
+// recomputed, da = g sig(gate), dgate = g a sig (1 - sig), dy = W^T dz.
+template <int P>
+__global__ void __launch_bounds__(NT, 1)
+glu_res_bwd_kernel(const float* __restrict__ y, const float* __restrict__ g,
+                   const float* __restrict__ W, const float* __restrict__ Wt,
+                   const float* __restrict__ bias, float* __restrict__ dy,
+                   float* __restrict__ dz, int H, int L) {
+  using T = Tile<P>;
+  extern __shared__ float4 sh4[];
+  float* ys = reinterpret_cast<float*>(sh4);     // H x P
+  float* dzs = ys + H * P;                        // 2H x P
+  float* AsT = dzs + 2 * H * P;                   // TK x LDT
+  const int b = blockIdx.y, t0 = blockIdx.x * P;
+  const int pg = threadIdx.x % T::PG;
+  load_tile<P>(y, ys, b, H, L, t0);
+  for (int o0 = 0; o0 < H; o0 += T::TM / 2) {
+    float acc[8][8];
+    gemm_chunk<P>(W, H, RowMap{o0, H + o0, H, 2 * H, T::TM / 2}, ys, AsT, acc);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int o = o0 + local_row<P>(r);
+      if (o >= H) continue;
+      const float ba = bias[o], bg = bias[H + o];
+      const size_t grow = ((size_t)b * H + o) * L;
+      const size_t arow = ((size_t)b * 2 * H + o) * L;
+      const size_t hrow = arow + (size_t)H * L;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int p = pg * 8 + j, t = t0 + p;
+        const float gv = t < L ? g[grow + t] : 0.0f;
+        const float a = acc[r][j] + ba;
+        const float sig = 1.0f / (1.0f + expf(-(acc[r + 4][j] + bg)));
+        const float da = gv * sig, dgate = gv * a * sig * (1.0f - sig);
+        dzs[o * P + p] = da;
+        dzs[(H + o) * P + p] = dgate;
+        if (t < L) {
+          dz[arow + t] = da;
+          dz[hrow + t] = dgate;
+        }
+      }
+    }
+  }
+  for (int h0 = 0; h0 < H; h0 += T::TM) {
+    float acc[8][8];
+    gemm_chunk<P>(Wt, 2 * H, RowMap{h0, h0 + T::TM / 2, H, H, T::TM / 2}, dzs,
+                  AsT, acc);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int h = h0 + local_row<P>(r);
+      if (h >= H) continue;
+      const size_t row = ((size_t)b * H + h) * L;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int t = t0 + pg * 8 + j;
+        if (t < L) dy[row + t] = acc[r][j];
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float gelu_erf_grad(float z) {
+  return 0.5f * (1.0f + erff(z * 0.70710678118654752f)) +
+         z * expf(-0.5f * z * z) * 0.39894228040143268f;
+}
+
+// FF backward, per position tile of P = 8192 / H positions (half the
+// forward's: x, g, and the F-row dh/dz tile share the shared memory), the
+// algebra of the JAX kernel: var = E[x^2] - mean^2, r = s rstd,
+//   dxn = W1^T (gelu'(z) . W2^T g),  S1 = mean_h dxn,
+//   S2 = mean_h dxn (xc + m),  dx = g + r (dxn - S1) - r rstd^2 xc S2,
+//   dm = sum dxn r,  ds = sum dxn rstd (xc + m).
+// Writes dx, xn = TLN(x), hact = gelu(z), dz, and (dm, ds) of the block.
+template <int P>
+__global__ void __launch_bounds__(NT, 1)
+ln_ff_res_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                     const float* __restrict__ W1, const float* __restrict__ b1,
+                     const float* __restrict__ W1t,
+                     const float* __restrict__ W2t,
+                     const float* __restrict__ m_ptr,
+                     const float* __restrict__ s_ptr, float* __restrict__ dx,
+                     float* __restrict__ xn, float* __restrict__ hact,
+                     float* __restrict__ dz, float* __restrict__ stat_part,
+                     int H, int F, int L) {
+  using T = Tile<P>;
+  constexpr int PARTS = NT / P;
+  extern __shared__ float4 sh4[];
+  float* xs = reinterpret_cast<float*>(sh4);     // H x P: x, then xn
+  float* gs = xs + H * P;                         // H x P: g, then dxn
+  float* hs = gs + H * P;                         // F x P: dh, then dz
+  float* AsT = hs + F * P;                        // TK x LDT
+  float* red = AsT + TK * T::LDT;                 // 2 * NT
+  float* mean_s = red + 2 * NT;                   // P
+  float* rstd_s = mean_s + P;                     // P (0 past L)
+  float* s1_s = rstd_s + P;                       // P
+  float* s2_s = s1_s + P;                         // P
+  const int b = blockIdx.y, t0 = blockIdx.x * P;
+  const int tid = threadIdx.x, pg = tid % T::PG;
+  const float m = *m_ptr, s = *s_ptr;
+
+  load_tile<P>(x, xs, b, H, L, t0);
+  load_tile<P>(g, gs, b, H, L, t0);
+  __syncthreads();
+  column_stats<P>(xs, H, red, mean_s, rstd_s);
+  if (tid < P) rstd_s[tid] = t0 + tid < L ? rsqrtf(rstd_s[tid]) : 0.0f;
+  __syncthreads();
+  for (int idx = tid; idx < H * P; idx += NT) {
+    const int h = idx / P, p = idx % P, t = t0 + p;
+    const float v = s * rstd_s[p] * (xs[idx] - mean_s[p] + m);
+    xs[idx] = v;
+    if (t < L) xn[((size_t)b * H + h) * L + t] = v;
+  }
+
+  // dh = W2^T g into hs
+  for (int f0 = 0; f0 < F; f0 += T::TM) {
+    float acc[8][8];
+    gemm_chunk<P>(W2t, H, RowMap{f0, f0 + T::TM / 2, F, F, T::TM / 2}, gs, AsT,
+                  acc);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int f = f0 + local_row<P>(r);
+      if (f >= F) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) hs[f * P + pg * 8 + j] = acc[r][j];
+    }
+  }
+  // z = W1 xn + b1; dz = gelu'(z) dh in place of dh
+  for (int f0 = 0; f0 < F; f0 += T::TM) {
+    float acc[8][8];
+    gemm_chunk<P>(W1, H, RowMap{f0, f0 + T::TM / 2, F, F, T::TM / 2}, xs, AsT,
+                  acc);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int f = f0 + local_row<P>(r);
+      if (f >= F) continue;
+      const float bf = b1[f];
+      const size_t row = ((size_t)b * F + f) * L;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int p = pg * 8 + j, t = t0 + p;
+        const float zz = acc[r][j] + bf;
+        const float d = gelu_erf_grad(zz) * hs[f * P + p];
+        hs[f * P + p] = d;
+        if (t < L) {
+          hact[row + t] = gelu_erf(zz);
+          dz[row + t] = d;
+        }
+      }
+    }
+  }
+  // dxn = W1^T dz into gs (g is no longer read from shared memory)
+  for (int h0 = 0; h0 < H; h0 += T::TM) {
+    float acc[8][8];
+    gemm_chunk<P>(W1t, F, RowMap{h0, h0 + T::TM / 2, H, H, T::TM / 2}, hs, AsT,
+                  acc);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int h = h0 + local_row<P>(r);
+      if (h >= H) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) gs[h * P + pg * 8 + j] = acc[r][j];
+    }
+  }
+  __syncthreads();
+
+  // S1, S2 per position; xc + m re-read from x
+  {
+    const int p = tid % P, part = tid / P, t = t0 + p;
+    float a1 = 0.0f, a2 = 0.0f;
+    if (t < L) {
+      for (int h = part; h < H; h += PARTS) {
+        const float v = gs[h * P + p];
+        a1 += v;
+        a2 += v * (x[((size_t)b * H + h) * L + t] - mean_s[p] + m);
+      }
+    }
+    red[tid] = a1;
+    red[NT + tid] = a2;
+    __syncthreads();
+    if (tid < P) {
+      float t1 = 0.0f, t2 = 0.0f;
+      for (int q = 0; q < PARTS; ++q) {
+        t1 += red[q * P + tid];
+        t2 += red[NT + q * P + tid];
+      }
+      s1_s[tid] = t1 / (float)H;
+      s2_s[tid] = t2 / (float)H;
+    }
+    __syncthreads();
+  }
+
+  // dx, and this thread's share of dm and ds
+  float dm = 0.0f, ds = 0.0f;
+  for (int idx = tid; idx < H * P; idx += NT) {
+    const int h = idx / P, p = idx % P, t = t0 + p;
+    if (t >= L) continue;
+    const size_t at = ((size_t)b * H + h) * L + t;
+    const float rstd = rstd_s[p], r = s * rstd;
+    const float xc = x[at] - mean_s[p];
+    const float v = gs[idx];
+    dx[at] = g[at] + r * (v - s1_s[p]) - r * rstd * rstd * xc * s2_s[p];
+    dm += v * r;
+    ds += v * rstd * (xc + m);
+  }
+  __syncthreads();                 // red is reused
+  red[tid] = dm;
+  red[NT + tid] = ds;
+  __syncthreads();
+  for (int w = NT / 2; w > 0; w >>= 1) {   // fixed-order tree
+    if (tid < w) {
+      red[tid] += red[tid + w];
+      red[NT + tid] += red[NT + tid + w];
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+    stat_part[2 * blk] = red[0];
+    stat_part[2 * blk + 1] = red[NT];
+  }
+}
+
+constexpr int WB = 64;   // weight-gradient output tile (WB x WB)
+constexpr int WK = 16;   // positions per k-step
+
+// part[s] = (X Y^T over split s, then the row sums of X over split s):
+// X (B, M, L), Y (B, N, L); split s = b * nsb + j covers positions
+// [j tc, min(L, (j + 1) tc)) of batch row b.  Row sums come from the
+// blocks of the first column tile.
+__global__ void __launch_bounds__(256)
+wgrad_kernel(const float* __restrict__ X, const float* __restrict__ Y,
+             float* __restrict__ part, int M, int N, int L, int tc, int nsb) {
+  __shared__ float Xs[WK][WB + 4];
+  __shared__ float Ys[WK][WB + 4];
+  const int n0 = blockIdx.x * WB, m0 = blockIdx.y * WB, sp = blockIdx.z;
+  const int b = sp / nsb, ta = (sp % nsb) * tc;
+  const int tb = min(L, ta + tc);
+  const float* Xb = X + (size_t)b * M * L;
+  const float* Yb = Y + (size_t)b * N * L;
+  const int tid = threadIdx.x, tm = tid / 16, tn = tid % 16;
+  const bool rows = blockIdx.x == 0 && tn == 0;
+  float acc[4][4] = {}, rs[4] = {};
+  for (int t = ta; t < tb; t += WK) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int idx = tid + q * 256, r = idx >> 4, k = idx & 15;
+      const int tt = t + k;
+      Xs[k][r] = (m0 + r < M && tt < tb) ? Xb[(size_t)(m0 + r) * L + tt]
+                                         : 0.0f;
+      Ys[k][r] = (n0 + r < N && tt < tb) ? Yb[(size_t)(n0 + r) * L + tt]
+                                         : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < WK; ++k) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        av[i] = Xs[k][tm * 4 + i];
+        bv[i] = Ys[k][tn * 4 + i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (rows) rs[i] += av[i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+  float* out = part + (size_t)sp * ((size_t)M * N + M);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int mm = m0 + tm * 4 + i;
+    if (mm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int nn = n0 + tn * 4 + j;
+      if (nn < N) out[(size_t)mm * N + nn] = acc[i][j];
+    }
+    if (rows) out[(size_t)M * N + mm] = rs[i];
+  }
+}
+
+// out[i] = sum over s of part[s * size + i], in order of s.
+__global__ void reduce_splits_kernel(const float* __restrict__ part,
+                                     float* __restrict__ out, int S,
+                                     int size) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= size) return;
+  float acc = 0.0f;
+  for (int s = 0; s < S; ++s) acc += part[(size_t)s * size + i];
+  out[i] = acc;
+}
+
+int reduce_splits(const float* part, float* out, int S, int size,
+                  cudaStream_t stream) {
+  reduce_splits_kernel<<<(size + 255) / 256, 256, 0, stream>>>(part, out, S,
+                                                               size);
+  return (int)cudaGetLastError();
+}
+
+// The weight and bias gradient sum over all B * L positions of
+// X Y^T (M x N) and of X's rows: partials, then their fixed-order sum.
+int weight_grad(const float* X, const float* Y, float* part, float* grads,
+                int B, int M, int N, int L, int tc, cudaStream_t stream) {
+  const int nsb = (L + tc - 1) / tc;
+  dim3 grid((N + WB - 1) / WB, (M + WB - 1) / WB, B * nsb);
+  wgrad_kernel<<<grid, 256, 0, stream>>>(X, Y, part, M, N, L, tc, nsb);
+  const int e = (int)cudaGetLastError();
+  if (e) return e;
+  return reduce_splits(part, grads, B * nsb, M * N + M, stream);
+}
+
 // Positions per block: P = 16384 / H, within [32, 128].
 int choose_p(int H) {
   const int p = 16384 / (H > 0 ? H : 1);
   return p >= 128 ? 128 : (p >= 64 ? 64 : 32);
+}
+
+// Positions per block of the FF backward: P = 8192 / H, within [16, 64].
+int choose_p_bwd(int H) {
+  const int p = 8192 / (H > 0 ? H : 1);
+  return p >= 64 ? 64 : (p >= 32 ? 32 : 16);
+}
+
+template <int P>
+int launch_glu_bwd(const float* y, const float* g, const float* W,
+                   const float* Wt, const float* bias, float* dy, float* dz,
+                   int B, int H, int L, cudaStream_t stream) {
+  using T = Tile<P>;
+  const size_t smem = ((size_t)3 * H * P + TK * T::LDT) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      glu_res_bwd_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((L + P - 1) / P, B);
+  glu_res_bwd_kernel<P><<<grid, NT, smem, stream>>>(y, g, W, Wt, bias, dy, dz,
+                                                    H, L);
+  return (int)cudaGetLastError();
+}
+
+template <int P>
+int launch_ff_bwd(const float* x, const float* g, const float* W1,
+                  const float* b1, const float* W1t, const float* W2t,
+                  const float* m, const float* s, float* dx, float* xn,
+                  float* hact, float* dz, float* stat_part, int B, int H,
+                  int F, int L, int* nblocks, cudaStream_t stream) {
+  using T = Tile<P>;
+  const size_t smem = ((size_t)(2 * H + F) * P + TK * T::LDT + 2 * NT + 4 * P) *
+                      sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      ln_ff_res_bwd_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((L + P - 1) / P, B);
+  *nblocks = grid.x * grid.y;
+  ln_ff_res_bwd_kernel<P><<<grid, NT, smem, stream>>>(
+      x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact, dz, stat_part, H, F, L);
+  return (int)cudaGetLastError();
 }
 
 template <int P>
@@ -344,4 +723,49 @@ extern "C" int dwst_ln_ff_res(const float* x, const float* skip,
     default: return launch_ff<32>(x, skip, W1, b1, W2, b2, m, s, out, mean,
                                   var, B, H, F, L, stream);
   }
+}
+
+extern "C" int dwst_glu_res_bwd(const float* y, const float* g, const float* W,
+                                const float* Wt, const float* b, float* dy,
+                                float* dz, float* part, float* grads, int B,
+                                int H, int L, int tc, cudaStream_t stream) {
+  if (H % 8 || tc <= 0) return (int)cudaErrorInvalidValue;
+  int e;
+  switch (choose_p(H)) {
+    case 128: e = launch_glu_bwd<128>(y, g, W, Wt, b, dy, dz, B, H, L, stream);
+      break;
+    case 64: e = launch_glu_bwd<64>(y, g, W, Wt, b, dy, dz, B, H, L, stream);
+      break;
+    default: e = launch_glu_bwd<32>(y, g, W, Wt, b, dy, dz, B, H, L, stream);
+  }
+  if (e) return e;
+  return weight_grad(dz, y, part, grads, B, 2 * H, H, L, tc, stream);
+}
+
+extern "C" int dwst_ln_ff_res_bwd(
+    const float* x, const float* g, const float* W1, const float* b1,
+    const float* W1t, const float* W2t, const float* m, const float* s,
+    float* dx, float* xn, float* hact, float* dz, float* stat_part,
+    float* dms, float* part1, float* grads1, float* part2, float* grads2,
+    int B, int H, int F, int L, int tc, cudaStream_t stream) {
+  if (H % TK || F % TK || tc <= 0) return (int)cudaErrorInvalidValue;
+  int e, nblocks = 0;
+  switch (choose_p_bwd(H)) {
+    case 64: e = launch_ff_bwd<64>(x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact,
+                                   dz, stat_part, B, H, F, L, &nblocks,
+                                   stream);
+      break;
+    case 32: e = launch_ff_bwd<32>(x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact,
+                                   dz, stat_part, B, H, F, L, &nblocks,
+                                   stream);
+      break;
+    default: e = launch_ff_bwd<16>(x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact,
+                                   dz, stat_part, B, H, F, L, &nblocks,
+                                   stream);
+  }
+  if (e) return e;
+  if ((e = reduce_splits(stat_part, dms, nblocks, 2, stream))) return e;
+  if ((e = weight_grad(dz, xn, part1, grads1, B, F, H, L, tc, stream)))
+    return e;
+  return weight_grad(g, hact, part2, grads2, B, H, F, L, tc, stream);
 }

@@ -1,8 +1,8 @@
-// Fused S4 FFT convolution with the DiffWave block head and tail folded in.
+// S4 FFT convolution (kernel 1) and its spectrum gradient (kernel 5).
 //
-// Replaces the TPU kernel diffwave_sashimi_tpu/ops/fftconv2.py::_kernel as
-// called through _conv2_impl by fftconv2_ln_bias_gelu_d (the sampling
-// path).  For one (batch b, channel h) row of length L:
+// Kernel 1 replaces the TPU kernel diffwave_sashimi_tpu/ops/fftconv2.py::
+// _kernel, called through _conv2_impl.  Sampling form (fftconv2_ln_bias_
+// gelu_d), for one (batch b, channel h) row of length L:
 //
 //   u'[t] = a[b,t] * u[b,h,t] + c[b,t] + bias[b,h]       (t < L, else 0)
 //   y     = irfft(rfft(u', n) * khat[h], n)[:L]
@@ -10,7 +10,24 @@
 //
 // a and c are norm1 (the channel LayerNorm) as a per-position scale and
 // shift; bias is the diffusion-step bias; khat is the rfft of the combined
-// bidirectional S4 kernel at the power-of-two size n >= 2L.
+// bidirectional S4 kernel at the power-of-two size n >= 2L.  Training form
+// (fftconv2 and its custom VJP): out = y with u' = u, and, with the conj
+// flag, the same conv with conj(khat), which is its input gradient (the
+// kernel k is real, so the adjoint of the cut circular conv is the cut
+// circular correlation).
+//
+// Kernel 5 replaces fftconv2.py::_dkf_kernel (fftconv2_dkf): the khat
+// gradient summed over the batch, in the convention of torch autograd for
+// a complex input,
+//
+//   dkhat[h, k] = c_k sum_b conj(U_b[k]) G_b[k],  U = rfft(u), G = rfft(g)
+//
+// with c_k = 1/n at the DC and Nyquist bins and 2/n between them (the
+// adjoint of irfft).  One block per channel h walks the batch: it
+// transforms u_b, keeps each pair's half-spectrum values in the thread's
+// own local array, transforms g_b, and accumulates the products in
+// registers of the thread that owns the pair, so the (B, H, n/2+1) spectra
+// never reach device memory and the sum over b has a fixed order.
 //
 // What bounds it on the H100: the transform is ~5 n log2(n) flops per row
 // against 8 bytes of input and output per sample, so the passes over the
@@ -169,30 +186,69 @@ __device__ void fft(float2* z, int M) {
   else if (Ns * 2 == M) stockham_pass<2, INV>(z, M, Ns);
 }
 
+// W^k = exp(-i pi k / M), the twiddle of the packed real transform.
+__device__ __forceinline__ float2 half_twiddle(int k, int M) {
+  float s, co;
+  sincospif((float)k / (float)M, &s, &co);
+  return make_float2(co, -s);
+}
+
+// z[j] = x[2j] + i x[2j+1] of one real row x of length L, zero past L.
+__device__ void load_packed(float2* z, const float* __restrict__ xr, int L,
+                            int M) {
+  for (int j = threadIdx.x; j < M; j += blockDim.x) {
+    const int t0 = 2 * j, t1 = t0 + 1;
+    z[pad(j)] = make_float2(t0 < L ? xr[t0] : 0.0f, t1 < L ? xr[t1] : 0.0f);
+  }
+}
+
+// The real signal's half spectrum at the pair (k, M-k), 0 < k <= M/2, from
+// the packed spectrum Z of its even/odd samples:
+//   E = (Z[k] + conj Z[M-k]) / 2,  O = (Z[k] - conj Z[M-k]) / 2i
+//   X[k] = E + W^k O,  X[M-k] = conj(E - W^k O)
+__device__ __forceinline__ void split_pair(const float2* z, int k, int M,
+                                           float2* xk, float2* xm) {
+  const float2 zk = z[pad(k)], zm = z[pad(M - k)];
+  const float2 e = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
+  const float2 dv = csub(zk, cconj(zm));
+  const float2 o = make_float2(0.5f * dv.y, -0.5f * dv.x);   // dv / 2i
+  const float2 wo = cmul(half_twiddle(k, M), o);
+  *xk = cadd(e, wo);
+  *xm = cconj(csub(e, wo));
+}
+
+// FUSED: the sampling form (prologue a u + c + bias, epilogue D skip +
+// GELU); otherwise the plain conv, with conj(khat) when conj != 0.
+template <bool FUSED>
 __global__ void __launch_bounds__(1024)
 fftconv_kernel(const float* __restrict__ u, const float* __restrict__ a,
                const float* __restrict__ c, const float* __restrict__ bias,
                const float2* __restrict__ khat, const float* __restrict__ D,
-               float* __restrict__ out, int H, int L, int M) {
+               float* __restrict__ out, int H, int L, int M, int conj) {
   extern __shared__ float2 z[];      // M complex values at pad(i)
   const int row = blockIdx.x;        // b * H + h
   const int b = row / H;
   const int h = row - b * H;
   const float* ur = u + (size_t)row * L;
-  const float* ar = a + (size_t)b * L;
-  const float* cr = c + (size_t)b * L;
-  const float bh = bias[row];
-  const float dh = D[h];
+  const float* ar = FUSED ? a + (size_t)b * L : nullptr;
+  const float* cr = FUSED ? c + (size_t)b * L : nullptr;
+  const float bh = FUSED ? bias[row] : 0.0f;
+  const float dh = FUSED ? D[h] : 0.0f;
   const float2* kr = khat + (size_t)h * (M + 1);
+  const float ksign = conj ? -1.0f : 1.0f;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
 
-  // prologue while loading: z[j] = u'[2j] + i u'[2j+1], zero past L
-  for (int j = tid; j < M; j += nt) {
-    const int t0 = 2 * j, t1 = t0 + 1;
-    const float v0 = t0 < L ? ar[t0] * ur[t0] + cr[t0] + bh : 0.0f;
-    const float v1 = t1 < L ? ar[t1] * ur[t1] + cr[t1] + bh : 0.0f;
-    z[pad(j)] = make_float2(v0, v1);
+  if (FUSED) {
+    // prologue while loading: z[j] = u'[2j] + i u'[2j+1], zero past L
+    for (int j = tid; j < M; j += nt) {
+      const int t0 = 2 * j, t1 = t0 + 1;
+      const float v0 = t0 < L ? ar[t0] * ur[t0] + cr[t0] + bh : 0.0f;
+      const float v1 = t1 < L ? ar[t1] * ur[t1] + cr[t1] + bh : 0.0f;
+      z[pad(j)] = make_float2(v0, v1);
+    }
+  } else {
+    load_packed(z, ur, L, M);
   }
   __syncthreads();
   fft<false>(z, M);
@@ -215,16 +271,12 @@ fftconv_kernel(const float* __restrict__ u, const float* __restrict__ a,
       continue;
     }
     const int mk = M - k;
-    const float2 zk = z[pad(k)], zm = z[pad(mk)];
-    const float2 e = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
-    const float2 dv = csub(zk, cconj(zm));
-    const float2 o = make_float2(0.5f * dv.y, -0.5f * dv.x);   // dv / 2i
-    float s, co;
-    sincospif((float)k / (float)M, &s, &co);
-    const float2 w = make_float2(co, -s);                       // W^k
-    const float2 wo = cmul(w, o);
-    const float2 yk = cmul(cadd(e, wo), kr[k]);
-    const float2 ym = cmul(cconj(csub(e, wo)), kr[mk]);
+    float2 xk, xm;
+    split_pair(z, k, M, &xk, &xm);
+    const float2 w = half_twiddle(k, M);                        // W^k
+    const float2 kk = kr[k], km = kr[mk];
+    const float2 yk = cmul(xk, make_float2(kk.x, ksign * kk.y));
+    const float2 ym = cmul(xm, make_float2(km.x, ksign * km.y));
     const float2 sa = cadd(yk, cconj(ym));
     const float2 sb = csub(yk, cconj(ym));
     z[pad(k)] = cadd(sa, cmuli(cmul(cconj(w), sb)));
@@ -233,21 +285,118 @@ fftconv_kernel(const float* __restrict__ u, const float* __restrict__ a,
   __syncthreads();
   fft<true>(z, M);
 
-  // epilogue: 1/n, D-skip on the post-prologue input, exact GELU
+  // epilogue: 1/n; in the sampling form also the D-skip on the
+  // post-prologue input and exact GELU
   const float inv_n = 1.0f / (float)(2 * M);
   float* orow = out + (size_t)row * L;
   for (int j = tid; j < M; j += nt) {
-    const int t0 = 2 * j, t1 = t0 + 1;
     const float2 v = z[pad(j)];
-    if (t0 < L) {
-      const float x0 = ar[t0] * ur[t0] + cr[t0] + bh;
-      orow[t0] = gelu_erf(v.x * inv_n + dh * x0);
-    }
-    if (t1 < L) {
-      const float x1 = ar[t1] * ur[t1] + cr[t1] + bh;
-      orow[t1] = gelu_erf(v.y * inv_n + dh * x1);
+    const float y[2] = {v.x * inv_n, v.y * inv_n};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int t = 2 * j + e;
+      if (t >= L) continue;
+      orow[t] = FUSED ? gelu_erf(y[e] + dh * (ar[t] * ur[t] + cr[t] + bh))
+                      : y[e];
     }
   }
+}
+
+constexpr int MAX_PAIRS = 9;   // pairs (k, M-k), 0 <= k <= M/2, per thread
+
+// Kernel 5: one block per channel h; see the header.
+__global__ void __launch_bounds__(1024)
+fftconv_dkf_kernel(const float* __restrict__ u, const float* __restrict__ g,
+                   float2* __restrict__ out, int B, int H, int L, int M) {
+  extern __shared__ float2 z[];      // M complex values at pad(i)
+  const int h = blockIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  // the thread's pairs k = tid + i nt (i < MAX_PAIRS, k <= M/2): U at
+  // (k, M-k) of the current batch row, and the running sums there
+  float2 uk[MAX_PAIRS], um[MAX_PAIRS], ak[MAX_PAIRS], am[MAX_PAIRS];
+#pragma unroll
+  for (int i = 0; i < MAX_PAIRS; ++i)
+    ak[i] = am[i] = make_float2(0.0f, 0.0f);
+
+  for (int b = 0; b < B; ++b) {
+    const size_t row = ((size_t)b * H + h) * L;
+    load_packed(z, u + row, L, M);
+    __syncthreads();
+    fft<false>(z, M);
+#pragma unroll
+    for (int i = 0; i < MAX_PAIRS; ++i) {
+      const int k = tid + i * nt;
+      if (k > (M >> 1)) break;
+      if (k == 0) {            // DC and Nyquist: real
+        const float2 z0 = z[0];
+        uk[i] = make_float2(z0.x + z0.y, 0.0f);
+        um[i] = make_float2(z0.x - z0.y, 0.0f);
+      } else {
+        split_pair(z, k, M, &uk[i], &um[i]);
+      }
+    }
+    __syncthreads();           // all reads of z done before it is reused
+    load_packed(z, g + row, L, M);
+    __syncthreads();
+    fft<false>(z, M);
+#pragma unroll
+    for (int i = 0; i < MAX_PAIRS; ++i) {
+      const int k = tid + i * nt;
+      if (k > (M >> 1)) break;
+      float2 gk, gm;
+      if (k == 0) {
+        const float2 z0 = z[0];
+        gk = make_float2(z0.x + z0.y, 0.0f);
+        gm = make_float2(z0.x - z0.y, 0.0f);
+      } else {
+        split_pair(z, k, M, &gk, &gm);
+      }
+      ak[i] = cadd(ak[i], cmul(cconj(uk[i]), gk));
+      am[i] = cadd(am[i], cmul(cconj(um[i]), gm));
+    }
+    __syncthreads();
+  }
+
+  const float edge = 1.0f / (float)(2 * M), inner = 2.0f * edge;
+  float2* orow = out + (size_t)h * (M + 1);
+#pragma unroll
+  for (int i = 0; i < MAX_PAIRS; ++i) {
+    const int k = tid + i * nt;
+    if (k > (M >> 1)) break;
+    const float ck = k == 0 ? edge : inner;
+    const float cm = k == 0 ? edge : inner;
+    orow[k] = make_float2(ck * ak[i].x, ck * ak[i].y);
+    if (M - k != k) orow[M - k] = make_float2(cm * am[i].x, cm * am[i].y);
+  }
+}
+
+// power of two, 16 <= M <= 16384 (n <= 32768: one block's shared memory)
+bool bad_size(int n, int L) {
+  const int M = n / 2;
+  return n != 2 * M || M < 16 || M > 16384 || (M & (M - 1)) || L > n;
+}
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, int M, size_t* smem) {
+  *smem = (size_t)(M + M / 32) * sizeof(float2);
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+}
+
+template <bool FUSED>
+int launch_conv(const float* u, const float* a, const float* c,
+                const float* bias, const void* khat, const float* D,
+                float* out, int B, int H, int L, int n, int conj,
+                cudaStream_t stream) {
+  if (bad_size(n, L)) return (int)cudaErrorInvalidValue;
+  const int M = n / 2;
+  size_t smem;
+  const cudaError_t attr = set_smem(fftconv_kernel<FUSED>, M, &smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int threads = M / VPT;     // each thread holds 16 values per pass
+  fftconv_kernel<FUSED><<<B * H, threads, smem, stream>>>(
+      u, a, c, bias, static_cast<const float2*>(khat), D, out, H, L, M, conj);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -256,16 +405,26 @@ extern "C" int dwst_fftconv_ln_bias_gelu_d(
     const float* u, const float* a, const float* c, const float* bias,
     const void* khat, const float* D, float* out, int B, int H, int L, int n,
     cudaStream_t stream) {
+  return launch_conv<true>(u, a, c, bias, khat, D, out, B, H, L, n, 0,
+                           stream);
+}
+
+extern "C" int dwst_fftconv(const float* u, const void* khat, float* out,
+                            int B, int H, int L, int n, int conj,
+                            cudaStream_t stream) {
+  return launch_conv<false>(u, nullptr, nullptr, nullptr, khat, nullptr, out,
+                            B, H, L, n, conj, stream);
+}
+
+extern "C" int dwst_fftconv_dkf(const float* u, const float* g, void* out,
+                                int B, int H, int L, int n,
+                                cudaStream_t stream) {
+  if (bad_size(n, L)) return (int)cudaErrorInvalidValue;
   const int M = n / 2;
-  // power of two, 16 <= M <= 16384 (n <= 32768: one block's shared memory)
-  if (n != 2 * M || M < 16 || M > 16384 || (M & (M - 1)) || L > n)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(M + M / 32) * sizeof(float2);
-  const cudaError_t attr = cudaFuncSetAttribute(
-      fftconv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  size_t smem;
+  const cudaError_t attr = set_smem(fftconv_dkf_kernel, M, &smem);
   if (attr != cudaSuccess) return (int)attr;
-  const int threads = M / VPT;     // each thread holds 16 values per pass
-  fftconv_kernel<<<B * H, threads, smem, stream>>>(
-      u, a, c, bias, static_cast<const float2*>(khat), D, out, H, L, M);
+  fftconv_dkf_kernel<<<H, M / VPT, smem, stream>>>(
+      u, g, static_cast<float2*>(out), B, H, L, M);
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,14 @@
-"""S4 layer, NPLR kernel, eval path.
+"""S4 layer and NPLR kernel: sampling and training paths.
 
 Port of ``diffwave_sashimi_tpu/models/s4.py``: ``SSKernelNPLR.__call__``
 (the kernel-construction forward, without ``state`` and without the
 ``extend_C`` doubling for generation beyond the trained length) and the
-S4 layer's sampling path.  The layer's convolution kernel depends only on
-parameters, so :meth:`S4.compute_kernel_freq` runs once per sampling run
-and its spectrum is reused by all T steps.
+S4 layer's fused sampling and training paths.  The layer's convolution
+kernel depends only on parameters, so at sampling
+:meth:`S4.compute_kernel_freq` runs once per run and its spectrum is
+reused by all T steps; in training it runs in every step, differentiably
+(Cauchy through kernels 4 and 8, Woodbury, bilinear fix, irfft, the
+bidirectional combine and rfft in torch autograd).
 
 Parameters keep the reference's names and its ``view_as_real`` storage of
 complex tensors (trailing dim 2): ``kernel.kernel.C`` (c, H, N/2, 2),
@@ -23,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..ops import FUSED, Ops, hippo
 from ..ops.conv import TorchLinear
@@ -61,6 +65,15 @@ def _fft_nodes(L: int):
              ** np.arange(L // 2 + 1, dtype=np.float32)).astype(np.complex64)
     z = (2 * (1 - omega) / (1 + omega)).astype(np.complex64)
     return omega, z
+
+
+@functools.lru_cache(maxsize=16)
+def _fft_nodes_on(L: int, device: torch.device):
+    """:func:`_fft_nodes` as tensors on ``device``, copied there once: a
+    copy from host memory blocks the host until the card's queue drains,
+    and the training step builds every layer's kernel in every step."""
+    omega, z = _fft_nodes(L)
+    return torch.from_numpy(omega).to(device), torch.from_numpy(z).to(device)
 
 
 def woodbury(r: torch.Tensor, rank: int) -> torch.Tensor:
@@ -150,9 +163,7 @@ class SSKernelNPLR(nn.Module):
         B = self._broadcast(torch.view_as_complex(self.B), 1)
         P = self._broadcast(torch.view_as_complex(self.P), 1)
         Q = P.conj()
-        omega_np, z_np = _fft_nodes(internal_L)
-        omega = torch.from_numpy(omega_np).to(dev)
-        z = torch.from_numpy(z_np).to(dev)
+        omega, z = _fft_nodes_on(internal_L, dev)
 
         v = torch.cat([B, P])[:, None] * torch.cat([C, Q])[None]
         r = ops.cauchy(v, z, w * dt[:, None]) * dt[None, None, :, None]
@@ -162,9 +173,11 @@ class SSKernelNPLR(nn.Module):
 
 
 class S4(nn.Module):
-    """Bidirectional S4 layer, sampling path: fused conv (kernel 1) with the
-    block's norm1 + step bias as prologue and D-skip + GELU as epilogue,
-    then the output linear + GLU + block residual (kernel 2)."""
+    """Bidirectional S4 layer.  Sampling path: fused conv (kernel 1) with
+    the block's norm1 + step bias as prologue and D-skip + GELU as
+    epilogue, then the output linear + GLU + block residual (kernel 2).
+    Training path: the conv (kernels 1 and 5), D-skip and exact GELU in
+    autograd, then output linear + GLU + residual (kernels 2 and 6)."""
 
     def __init__(self, d_model: int, d_state: int = 64, l_max: int = 1,
                  bidirectional: bool = True, rank: int = 1,
@@ -203,3 +216,10 @@ class S4(nn.Module):
         y = ops.conv(x, a, c, bias, khat, self.D[0])
         lin = self.output_linear[0]
         return ops.glu(y, residual, lin.weight, lin.bias)
+
+    def forward_train(self, u, khat, residual, ops: Ops = FUSED):
+        """residual + GLU(W gelu(conv(u) + D u)), differentiable in u, khat
+        and the layer's parameters (JAX models/s4.py:664-686)."""
+        y = ops.conv_train(u, khat) + self.D[0][:, None] * u
+        lin = self.output_linear[0]
+        return ops.glu_train(F.gelu(y), residual, lin.weight, lin.bias)

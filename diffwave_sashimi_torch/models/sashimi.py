@@ -1,4 +1,4 @@
-"""SaShiMi backbone: S4-based UNet eps-prediction network, sampling path.
+"""SaShiMi backbone: S4-based UNet eps-prediction network.
 
 Port of ``diffwave_sashimi_tpu/models/sashimi.py`` with the reference's
 ModuleList layout and state-dict names (``d_layers.{i}``, ``c_layers.{j}``,
@@ -16,7 +16,11 @@ Each DiffWaveBlock runs the fused eval form of the JAX package
 D-skip + GELU (kernel 1), output linear + GLU + residual (kernel 2), and
 norm2 + FF + residual + UNet skip (kernel 3), which also emits the channel
 statistics the next block's norm1 needs; only the first block after a pool
-computes them itself.
+computes them itself.  With ``train=True`` each block runs the training
+form (JAX models/sashimi.py:193-220): norm1 and the step bias in autograd,
+then the S4 training path, then norm2 + FF + residual + UNet skip as one
+differentiable Function (kernels 3 and 7); the S4 kernels are rebuilt
+with gradients in every forward.
 """
 
 from __future__ import annotations
@@ -120,6 +124,15 @@ class DiffWaveBlock(nn.Module):
             emit_stats=True)
         return out, (mean, var)
 
+    def forward_train(self, x, embed, khat, skip=None, ops: Ops = FUSED):
+        """The differentiable block: out [+ skip]."""
+        y = self.norm1(x) + self.fc_t(embed)[:, :, None]
+        x = self.layer.forward_train(y, khat, residual=x, ops=ops)
+        ff1, ff2 = self.ff["ff"][0], self.ff["ff"][2]
+        return ops.ff_train(
+            x, self.norm2.m, self.norm2.s, ff1.effective_weight()[:, :, 0],
+            ff1.bias, ff2.effective_weight()[:, :, 0], ff2.bias, skip=skip)
+
 
 class Sashimi(nn.Module):
     """eps_theta((x_t, t)) with the reference constructor surface
@@ -137,10 +150,11 @@ class Sashimi(nn.Module):
         super().__init__()
         if not unconditional:
             raise NotImplementedError(
-                "mel-conditioned SaShiMi (vocoding) is not ported yet")
+                "mel-conditioned SaShiMi (vocoding) is not ported yet: "
+                "ROADMAP.md queue 1, item 10")
         if dropout:
-            raise NotImplementedError("S4 dropout is training only and not "
-                                      "ported yet")
+            raise NotImplementedError("S4 dropout (DropoutNd) is not ported "
+                                      "yet: ROADMAP.md queue 1, item 5")
         g = generator
         self.pool, self.unet = tuple(pool), unet
         self.embed_dim_in = diffusion_step_embed_dim_in
@@ -196,9 +210,10 @@ class Sashimi(nn.Module):
 
     def forward(self, audio: torch.Tensor, steps: torch.Tensor,
                 kernels: Optional[List[torch.Tensor]] = None,
-                ops: Ops = FUSED) -> torch.Tensor:
+                ops: Ops = FUSED, train: bool = False) -> torch.Tensor:
         """audio (B, in_channels, L), steps (B,) -> eps (B, out_channels, L).
-        ``kernels`` from :meth:`compute_kernels` (computed here if None)."""
+        ``kernels`` from :meth:`compute_kernels` (computed here if None).
+        ``train`` runs the differentiable training form of every block."""
         if audio.shape[-1] % math.prod(self.pool):
             raise ValueError(f"audio length {audio.shape[-1]} must divide "
                              f"the pooling {self.pool}")
@@ -209,23 +224,28 @@ class Sashimi(nn.Module):
         embed = diffusion_step_embedding(steps, self.embed_dim_in)
         embed = swish(self.fc_t2(swish(self.fc_t1(embed))))
 
+        def block(layer, x, stats, skip=None):
+            if train:
+                return layer.forward_train(x, embed, next(khats), skip,
+                                           ops=ops), None
+            return layer(x, embed, next(khats), stats, skip=skip, ops=ops)
+
         outputs, stats = [], None
         for layer in self.d_layers:
             outputs.append(x)
             if isinstance(layer, DownPool):
                 x, stats = layer(x), None
             else:
-                x, stats = layer(x, embed, next(khats), stats, ops=ops)
+                x, stats = block(layer, x, stats)
         outputs.append(x)
         stats = None
         for layer in self.c_layers:
-            x, stats = layer(x, embed, next(khats), stats, ops=ops)
+            x, stats = block(layer, x, stats)
         x = x + outputs.pop()
         for layer in self.u_layers:
             if isinstance(layer, UpPool):
                 x, stats = layer(x) + outputs.pop(), None
             else:
                 skip = outputs.pop() if self.unet else None
-                x, stats = layer(x, embed, next(khats), stats, skip=skip,
-                                 ops=ops)
+                x, stats = block(layer, x, stats, skip)
         return self.final_conv(self.norm(x))

@@ -1,25 +1,43 @@
-"""Ops of the port: the four kernel wrappers and their plain versions.
+"""Ops of the port: the kernel wrappers and their plain versions.
 
 :data:`FUSED` routes the model through the kernel wrappers (the CUDA
-kernels on CUDA tensors, the plain versions on CPU tensors); :data:`PLAIN`
-routes it through the plain PyTorch versions everywhere, which is how a
-run on the card compares the kernels' model output with the plain one.
+kernels on CUDA tensors, the plain versions on CPU tensors); the training
+entries are autograd Functions whose backward passes are kernels too.
+:data:`PLAIN` routes it through the plain PyTorch versions everywhere and
+trains through torch autograd of the plain forwards, which is how a run on
+the card compares the kernels' outputs and gradients with plain ones.
 """
 
 from typing import Callable, NamedTuple
 
-from .cauchy import cauchy_sym, cauchy_sym_fused
-from .chmix import glu_res_ref, ln_ff_res, ln_ff_res_ref, mix_glu_res
-from .fftconv import fftconv_ln_bias_gelu_d, fftconv_ln_bias_gelu_d_ref
+from .cauchy import (cauchy_bwd, cauchy_bwd_ref, cauchy_quad,
+                     cauchy_quad_ref, cauchy_sym, cauchy_sym_fused)
+from .chmix import (glu_res_bwd, glu_res_bwd_ref, glu_res_ref, ln_ff_res,
+                    ln_ff_res_bwd, ln_ff_res_bwd_ref, ln_ff_res_ref,
+                    ln_ff_res_train, mix_glu_res, mix_glu_res_train)
+from .fftconv import (fftconv, fftconv_dkf, fftconv_dkf_ref,
+                      fftconv_ln_bias_gelu_d, fftconv_ln_bias_gelu_d_ref,
+                      fftconv_ref, fftconv_train)
 
 
 class Ops(NamedTuple):
-    conv: Callable      # kernel 1: fused S4 FFT conv (+ norm1/bias, D, GELU)
-    glu: Callable       # kernel 2: output linear + GLU + residual
-    ff: Callable        # kernel 3: norm2 + FF + residual (+ skip, stats)
-    cauchy: Callable    # kernel 4: Cauchy sum of the S4 kernel construction
+    conv: Callable        # kernel 1: fused S4 FFT conv (+ norm1/bias, D, GELU)
+    glu: Callable         # kernel 2: output linear + GLU + residual
+    ff: Callable          # kernel 3: norm2 + FF + residual (+ skip, stats)
+    cauchy: Callable      # kernels 4 (+ 8): Cauchy sum of the S4 kernel
+    conv_train: Callable  # kernels 1 (+ conj) and 5: the plain S4 conv
+    glu_train: Callable   # kernels 2 and 6
+    ff_train: Callable    # kernels 3 and 7
 
 
-FUSED = Ops(fftconv_ln_bias_gelu_d, mix_glu_res, ln_ff_res, cauchy_sym_fused)
+FUSED = Ops(fftconv_ln_bias_gelu_d, mix_glu_res, ln_ff_res, cauchy_sym_fused,
+            fftconv_train, mix_glu_res_train, ln_ff_res_train)
 PLAIN = Ops(fftconv_ln_bias_gelu_d_ref, glu_res_ref, ln_ff_res_ref,
-            cauchy_sym)
+            cauchy_sym, fftconv_ref, glu_res_ref, ln_ff_res_ref)
+
+# every kernel wrapper with a launch count, by kernel name
+COUNTED = {"fftconv_ln_bias_gelu_d": fftconv_ln_bias_gelu_d,
+           "glu_res": mix_glu_res, "ln_ff_res": ln_ff_res,
+           "cauchy": cauchy_quad, "fftconv": fftconv,
+           "fftconv_dkf": fftconv_dkf, "glu_res_bwd": glu_res_bwd,
+           "ln_ff_res_bwd": ln_ff_res_bwd, "cauchy_bwd": cauchy_bwd}

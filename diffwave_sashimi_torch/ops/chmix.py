@@ -1,19 +1,26 @@
-"""Fused position-wise channel-mixing branches of the DiffWave block
-(kernels 2 and 3).
+"""Fused position-wise channel-mixing branches of the DiffWave block:
+kernels 2 and 3 (forward) and 6 and 7 (their backward passes).
 
-Ports of ``diffwave_sashimi_tpu/ops/chmix.py::mix_glu_res`` and
-``::ln_ff_res`` in the flat (B, H, L) layout (channel axis 1).  The CUDA
-kernels are ``csrc/chmix.cu``; :func:`glu_res_ref` and
-:func:`ln_ff_res_ref` are their plain PyTorch versions, used for CPU
+Ports of ``diffwave_sashimi_tpu/ops/chmix.py`` in the flat (B, H, L)
+layout (channel axis 1): ``mix_glu_res`` and ``ln_ff_res`` (sampling),
+and the training Functions ``mix_glu_res_train`` / ``ln_ff_res_train``
+whose backward passes are ``_glu_bwd_kernel`` / ``_ff_bwd_kernel``.  The
+CUDA kernels are ``csrc/chmix.cu``; the ``*_ref`` functions are their
+plain PyTorch versions (explicit formulas, not autograd), used for CPU
 tensors and as the on-card comparison.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
+
+# positions per split-K partial of the weight gradients (kernels 6 and 7)
+WGRAD_POSITIONS = 2048
 
 
 def glu_res_ref(y, res, w, b):
@@ -103,3 +110,169 @@ def _check_width(*widths):
         if w % 8:
             raise ValueError(f"channel width {w} must be a multiple of 8 "
                              f"for the CUDA kernels")
+
+
+def _gelu_grad(z):
+    """d/dz of the exact (erf) GELU."""
+    return (0.5 * (1.0 + torch.erf(z * (1.0 / math.sqrt(2.0))))
+            + z * torch.exp(-0.5 * z * z) * (1.0 / math.sqrt(2.0 * math.pi)))
+
+
+def glu_res_bwd_ref(y, w, b, g):
+    """Backward of :func:`glu_res_ref` for the output cotangent g, z
+    recomputed from y (JAX ``_glu_bwd_kernel``): returns (dy, dw, db);
+    the residual's gradient is g itself."""
+    H = y.shape[1]
+    z = torch.einsum("bhl,oh->bol", y, w) + b[None, :, None]
+    a, sig = z[:, :H], torch.sigmoid(z[:, H:])
+    dz = torch.cat([g * sig, g * a * sig * (1.0 - sig)], dim=1)
+    return (torch.einsum("bol,oh->bhl", dz, w),
+            torch.einsum("bol,bhl->oh", dz, y), dz.sum(dim=(0, 2)))
+
+
+def ln_ff_res_bwd_ref(x, m, s, w1, b1, w2, b2, g):
+    """Backward of :func:`ln_ff_res_ref` (without stats) for the output
+    cotangent g, everything recomputed from x with the algebra of JAX
+    ``_ff_bwd_kernel`` (var = E[x^2] - mean^2):
+
+        dx = g + r (dxn - S1) - r rstd^2 xc S2,   r = s rstd, xc = x - mean
+        S1 = mean_h dxn,  S2 = mean_h dxn (xc + m)
+
+    Returns (dx, dm, ds, dw1, db1, dw2, db2); a skip's gradient is g."""
+    mean = x.mean(dim=1, keepdim=True)
+    var = (x * x).mean(dim=1, keepdim=True) - mean * mean
+    rstd = torch.rsqrt(var)
+    xc = x - mean
+    r = s * rstd
+    xn = r * (xc + m)
+    z = torch.einsum("bhl,fh->bfl", xn, w1) + b1[None, :, None]
+    dz = _gelu_grad(z) * torch.einsum("bhl,hf->bfl", g, w2)
+    dxn = torch.einsum("bfl,fh->bhl", dz, w1)
+    S1 = dxn.mean(dim=1, keepdim=True)
+    S2 = (dxn * (xc + m)).mean(dim=1, keepdim=True)
+    dx = g + r * (dxn - S1) - r * rstd * rstd * xc * S2
+    return (dx, (dxn * r).sum().reshape(1),
+            (dxn * rstd * (xc + m)).sum().reshape(1),
+            torch.einsum("bfl,bhl->fh", dz, xn), dz.sum(dim=(0, 2)),
+            torch.einsum("bhl,bfl->hf", g, F.gelu(z)), g.sum(dim=(0, 2)))
+
+
+def _wgrad_scratch(x, B, L, rows, cols):
+    """Split-K partials of a (rows x cols) weight gradient plus its
+    (rows,) bias gradient, one slice per WGRAD_POSITIONS positions of one
+    batch row; and the reduced result, whose first rows * cols entries are
+    the weight gradient and last rows the bias gradient."""
+    splits = B * -(-L // WGRAD_POSITIONS)
+    size = rows * cols + rows
+    return x.new_empty((splits, size)), x.new_empty((size,))
+
+
+def glu_res_bwd(y, w, b, g):
+    """Kernel-6 wrapper (same arguments and results as
+    :func:`glu_res_bwd_ref`): the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if not y.is_cuda:
+        return glu_res_bwd_ref(y, w, b, g)
+    B, H, L = y.shape
+    _check_width(H)
+    for t, shape in ((y, (B, H, L)), (g, (B, H, L)), (w, (2 * H, H)),
+                     (b, (2 * H,))):
+        cuda_lib.check(t, shape, torch.float32)
+    wt = w.t().contiguous()
+    dy = torch.empty_like(y)
+    dz = y.new_empty((B, 2 * H, L))
+    part, grads = _wgrad_scratch(y, B, L, 2 * H, H)
+    cuda_lib.launch("dwst_glu_res_bwd", y.data_ptr(), g.data_ptr(),
+                    w.data_ptr(), wt.data_ptr(), b.data_ptr(), dy.data_ptr(),
+                    dz.data_ptr(), part.data_ptr(), grads.data_ptr(), B, H, L,
+                    WGRAD_POSITIONS)
+    glu_res_bwd.launches += 1
+    return dy, grads[:2 * H * H].view(2 * H, H), grads[2 * H * H:]
+
+
+glu_res_bwd.launches = 0
+
+
+def ln_ff_res_bwd(x, m, s, w1, b1, w2, b2, g):
+    """Kernel-7 wrapper (same arguments and results as
+    :func:`ln_ff_res_bwd_ref`): the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if not x.is_cuda:
+        return ln_ff_res_bwd_ref(x, m, s, w1, b1, w2, b2, g)
+    B, H, L = x.shape
+    Fd = w1.shape[0]
+    _check_width(H, Fd)
+    for t, shape in ((x, (B, H, L)), (g, (B, H, L)), (w1, (Fd, H)),
+                     (b1, (Fd,)), (w2, (H, Fd)), (b2, (H,)), (m, (1,)),
+                     (s, (1,))):
+        cuda_lib.check(t, shape, torch.float32)
+    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+    dx = torch.empty_like(x)
+    xn = torch.empty_like(x)
+    hact = x.new_empty((B, Fd, L))
+    dz = x.new_empty((B, Fd, L))
+    # per-block (dm, ds) partials: at most one block per 16 positions
+    stat_part = x.new_empty((B * -(-L // 16), 2))
+    dms = x.new_empty((2,))
+    part1, grads1 = _wgrad_scratch(x, B, L, Fd, H)
+    part2, grads2 = _wgrad_scratch(x, B, L, H, Fd)
+    cuda_lib.launch("dwst_ln_ff_res_bwd", x.data_ptr(), g.data_ptr(),
+                    w1.data_ptr(), b1.data_ptr(), w1t.data_ptr(),
+                    w2t.data_ptr(), m.data_ptr(), s.data_ptr(),
+                    dx.data_ptr(), xn.data_ptr(), hact.data_ptr(),
+                    dz.data_ptr(), stat_part.data_ptr(), dms.data_ptr(),
+                    part1.data_ptr(), grads1.data_ptr(), part2.data_ptr(),
+                    grads2.data_ptr(), B, H, Fd, L, WGRAD_POSITIONS)
+    ln_ff_res_bwd.launches += 1
+    return (dx, dms[0:1], dms[1:2], grads1[:Fd * H].view(Fd, H),
+            grads1[Fd * H:], grads2[:H * Fd].view(H, Fd), grads2[H * Fd:])
+
+
+ln_ff_res_bwd.launches = 0
+
+
+class _GluResTrain(torch.autograd.Function):
+    """Forward kernel 2, backward kernel 6 (JAX ``_glu_train``)."""
+
+    @staticmethod
+    def forward(ctx, y, res, w, b):
+        ctx.save_for_backward(y, w, b)
+        return mix_glu_res(y, res, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, w, b = ctx.saved_tensors
+        g = g.contiguous()
+        dy, dw, db = glu_res_bwd(y, w, b, g)
+        return dy, g, dw, db
+
+
+def mix_glu_res_train(y, res, w, b):
+    """Differentiable res + GLU(w y + b)."""
+    return _GluResTrain.apply(y.contiguous(), res.contiguous(),
+                              w.contiguous(), b.contiguous())
+
+
+class _LnFFResTrain(torch.autograd.Function):
+    """Forward kernel 3 (no stats), backward kernel 7 (JAX ``_ff_train``
+    and ``_ff_train_skip``; a skip's gradient is g)."""
+
+    @staticmethod
+    def forward(ctx, x, m, s, w1, b1, w2, b2, skip):
+        ctx.save_for_backward(x, m, s, w1, b1, w2, b2)
+        ctx.has_skip = skip is not None
+        return ln_ff_res(x, m, s, w1, b1, w2, b2, skip)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        grads = ln_ff_res_bwd(*ctx.saved_tensors, g)
+        return (*grads, g if ctx.has_skip else None)
+
+
+def ln_ff_res_train(x, m, s, w1, b1, w2, b2, skip=None):
+    """Differentiable x + w2 gelu(w1 TLN(x) + b1) + b2 [+ skip]."""
+    return _LnFFResTrain.apply(
+        x.contiguous(), m.contiguous(), s.contiguous(), w1.contiguous(),
+        b1.contiguous(), w2.contiguous(), b2.contiguous(),
+        None if skip is None else skip.contiguous())

@@ -39,6 +39,17 @@ _SIGNATURES = {
     "dwst_ln_ff_res": [_P] * 11 + [_I] * 4 + [_P],
     # a, b, c, d, z, out, K, M, N, Lz, stream
     "dwst_cauchy": [_P] * 6 + [_I] * 4 + [_P],
+    # u, khat, out, B, H, L, n, conj, stream
+    "dwst_fftconv": [_P] * 3 + [_I] * 5 + [_P],
+    # u, g, out, B, H, L, n, stream
+    "dwst_fftconv_dkf": [_P] * 3 + [_I] * 4 + [_P],
+    # y, g, W, Wt, b, dy, dz, part, grads, B, H, L, tc, stream
+    "dwst_glu_res_bwd": [_P] * 9 + [_I] * 4 + [_P],
+    # x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact, dz, stat_part, dms,
+    # part1, grads1, part2, grads2, B, H, F, L, tc, stream
+    "dwst_ln_ff_res_bwd": [_P] * 18 + [_I] * 5 + [_P],
+    # a, b, c, d, z, g, da, db, dc, dd, K, M, N, Lz, stream
+    "dwst_cauchy_bwd": [_P] * 10 + [_I] * 4 + [_P],
 }
 
 

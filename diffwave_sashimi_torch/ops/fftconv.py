@@ -1,11 +1,21 @@
-"""Fused S4 FFT convolution for the sampling path (kernel 1).
+"""S4 FFT convolution (kernel 1) and its spectrum gradient (kernel 5).
 
-Port of ``diffwave_sashimi_tpu/ops/fftconv2.py::fftconv2_ln_bias_gelu_d``
-in the flat (B, H, L) layout: the DiffWave block head (norm1 as a
-per-position scale/shift + the diffusion-step bias) rides the convolution
-as a prologue and the S4 D-skip + exact GELU as its epilogue.  The CUDA
-kernel is ``csrc/fftconv.cu``; :func:`fftconv_ln_bias_gelu_d_ref` is its
-plain PyTorch version (torch.fft), used for CPU tensors and as the on-card
+Ports of ``diffwave_sashimi_tpu/ops/fftconv2.py`` in the flat (B, H, L)
+layout, CUDA source ``csrc/fftconv.cu``:
+
+- sampling form, ``fftconv2_ln_bias_gelu_d``: the DiffWave block head
+  (norm1 as a per-position scale/shift + the diffusion-step bias) rides
+  the convolution as a prologue and the S4 D-skip + exact GELU as its
+  epilogue (:func:`fftconv_ln_bias_gelu_d`);
+- training form, ``fftconv2`` with its custom VJP: the plain conv
+  ``y = irfft(rfft(u, n) khat, n)[:L]`` (:func:`fftconv`), whose input
+  gradient is the same conv with ``conj(khat)`` (k is real), and the
+  spectrum gradient ``fftconv2_dkf`` (:func:`fftconv_dkf`), wrapped as the
+  autograd Function :func:`fftconv_train`.
+
+Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
+PyTorch version (the ``*_ref`` functions, torch.fft with explicit
+formulas) for CPU tensors; the plain versions are also the on-card
 comparison.
 """
 
@@ -15,6 +25,16 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
+
+
+def _fft_size_of(khat) -> int:
+    return 2 * (khat.shape[-1] - 1)
+
+
+def _check_fft_size(n: int, L: int) -> None:
+    if n & (n - 1) or n < max(32, L):
+        raise ValueError(f"FFT size {n} must be a power of two >= "
+                         f"max(32, L = {L})")
 
 
 def fftconv_ln_bias_gelu_d_ref(u, a, c, bias, khat, D):
@@ -37,9 +57,8 @@ def fftconv_ln_bias_gelu_d(u, a, c, bias, khat, D):
     if not u.is_cuda:
         return fftconv_ln_bias_gelu_d_ref(u, a, c, bias, khat, D)
     B, H, L = u.shape
-    n = 2 * (khat.shape[-1] - 1)
-    if n & (n - 1) or n < max(4, L):
-        raise ValueError(f"FFT size {n} must be a power of two >= L = {L}")
+    n = _fft_size_of(khat)
+    _check_fft_size(n, L)
     for t, shape in ((u, (B, H, L)), (a, (B, L)), (c, (B, L)),
                      (bias, (B, H)), (D, (H,))):
         cuda_lib.check(t, shape, torch.float32)
@@ -53,3 +72,97 @@ def fftconv_ln_bias_gelu_d(u, a, c, bias, khat, D):
 
 
 fftconv_ln_bias_gelu_d.launches = 0
+
+
+def fftconv_ref(u, khat, conj=False):
+    """y = irfft(rfft(u, n) khat, n)[:L] (``conj``: with conj(khat), the
+    adjoint of the same conv).  u: (B, H, L) float32; khat: (H, n/2+1)
+    complex64.  Returns (B, H, L) float32."""
+    L = u.shape[-1]
+    n = _fft_size_of(khat)
+    k = khat.conj() if conj else khat
+    return torch.fft.irfft(torch.fft.rfft(u, n=n) * k, n=n)[..., :L]
+
+
+def fftconv_dkf_ref(u, g, n):
+    """The khat gradient of :func:`fftconv_ref` for the output cotangent
+    g, as torch autograd defines it for a complex input: sum over the
+    batch of conj(rfft(u, n)) c_k rfft(g, n), where c_k = 1/n at the DC
+    and Nyquist bins and 2/n between them (the adjoint of irfft counts the
+    interior bins twice and the real parts of the two edge bins once).
+    u, g: (B, H, L) float32.  Returns (H, n/2+1) complex64."""
+    U = torch.fft.rfft(u, n=n)
+    G = torch.fft.rfft(g, n=n)
+    c = torch.full((n // 2 + 1,), 2.0 / n, dtype=u.dtype, device=u.device)
+    c[0] = c[-1] = 1.0 / n
+    return (U.conj() * G).sum(dim=0) * c
+
+
+def fftconv(u, khat, conj=False):
+    """Kernel-1 training entry: :func:`fftconv_ref` as a CUDA kernel for
+    CUDA tensors (the sampling kernel's FFT code without its prologue and
+    epilogue), the plain version for CPU tensors."""
+    if not u.is_cuda:
+        return fftconv_ref(u, khat, conj)
+    B, H, L = u.shape
+    n = _fft_size_of(khat)
+    _check_fft_size(n, L)
+    cuda_lib.check(u, (B, H, L), torch.float32)
+    cuda_lib.check(khat, (H, n // 2 + 1), torch.complex64)
+    out = torch.empty_like(u)
+    cuda_lib.launch("dwst_fftconv", u.data_ptr(), khat.data_ptr(),
+                    out.data_ptr(), B, H, L, n, int(conj))
+    fftconv.launches += 1
+    return out
+
+
+fftconv.launches = 0
+
+
+def fftconv_dkf(u, g, n):
+    """Kernel-5 wrapper: :func:`fftconv_dkf_ref` as a CUDA kernel (batch
+    summed inside the kernel) for CUDA tensors, the plain version for CPU
+    tensors."""
+    if not u.is_cuda:
+        return fftconv_dkf_ref(u, g, n)
+    B, H, L = u.shape
+    _check_fft_size(n, L)
+    cuda_lib.check(u, (B, H, L), torch.float32)
+    cuda_lib.check(g, (B, H, L), torch.float32)
+    out = torch.empty((H, n // 2 + 1), dtype=torch.complex64,
+                      device=u.device)
+    cuda_lib.launch("dwst_fftconv_dkf", u.data_ptr(), g.data_ptr(),
+                    out.data_ptr(), B, H, L, n)
+    fftconv_dkf.launches += 1
+    return out
+
+
+fftconv_dkf.launches = 0
+
+
+class _FFTConvTrain(torch.autograd.Function):
+    """y = fftconv(u, khat); du = fftconv(g, khat, conj) (kernel 1),
+    dkhat = fftconv_dkf(u, g) (kernel 5).  Saves u and khat."""
+
+    @staticmethod
+    def forward(ctx, u, khat):
+        ctx.save_for_backward(u, khat)
+        return fftconv(u, khat)
+
+    @staticmethod
+    def backward(ctx, g):
+        u, khat = ctx.saved_tensors
+        g = g.contiguous()
+        du = dk = None
+        if ctx.needs_input_grad[0]:
+            du = fftconv(g, khat, conj=True)
+        if ctx.needs_input_grad[1]:
+            dk = fftconv_dkf(u, g, _fft_size_of(khat))
+        return du, dk
+
+
+def fftconv_train(u, khat):
+    """Differentiable S4 conv of the training path (JAX ``fftconv2`` and
+    its custom VJP): kernels 1 and 5 on the card, their plain versions on
+    the CPU."""
+    return _FFTConvTrain.apply(u.contiguous(), khat.contiguous())

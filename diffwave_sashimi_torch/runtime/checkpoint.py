@@ -1,7 +1,8 @@
-"""Checkpoint loading (and the port's own save) with the reference layout.
+"""Checkpoint save and load with the reference layout.
 
 Files are ``exp/<run>/checkpoint/<iter>.pkl`` holding a dict with
-``model_state_dict``.  Three producers are read:
+``model_state_dict`` (and, from the trainers, ``optimizer_state_dict`` and
+``step``).  Three producers are read:
 
 - the JAX package (``diffwave_sashimi_tpu.runtime.checkpoint.
   save_checkpoint``): a pickle whose state is the flax ``{"params": ...}``
@@ -10,8 +11,12 @@ Files are ``exp/<run>/checkpoint/<iter>.pkl`` holding a dict with
 - this port: ``torch.save`` of its state dict, which uses the reference's
   names (:func:`save_checkpoint`).
 
-``ckpt_iter`` is ``"max"`` (the largest iteration present) or an int.
-Pickles are trusted input: they are written by this project's trainers.
+``ckpt_iter`` is ``"max"`` (the largest iteration present) or an int;
+-1, like "none found", means none.  Resuming from a JAX pickle or a
+reference torch file loads the parameters only: optimizer state is read
+from the port's own files only (the JAX package does the same for torch
+files).  Pickles are trusted input: they are written by this project's
+trainers.
 """
 
 from __future__ import annotations
@@ -38,13 +43,18 @@ def resolve_iter(directory: str, ckpt_iter) -> int:
     return int(ckpt_iter)
 
 
-def save_checkpoint(directory: str, step: int, model: torch.nn.Module) -> str:
-    """Write ``<directory>/<step>.pkl`` atomically in the port's format."""
+def save_checkpoint(directory: str, step: int, model: torch.nn.Module,
+                    optimizer: Optional[torch.optim.Optimizer] = None) -> str:
+    """Write ``<directory>/<step>.pkl`` atomically in the port's format
+    (``os.replace`` of a finished temporary file)."""
     os.makedirs(directory, mode=0o775, exist_ok=True)
     path = os.path.join(directory, f"{step}.pkl")
-    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    torch.save({"model_state_dict": sd, "step": int(step), "format": FORMAT},
-               path + ".tmp")
+    payload = {"model_state_dict": {k: v.detach().cpu() for k, v in
+                                    model.state_dict().items()},
+               "step": int(step), "format": FORMAT}
+    if optimizer is not None:
+        payload["optimizer_state_dict"] = optimizer.state_dict()
+    torch.save(payload, path + ".tmp")
     os.replace(path + ".tmp", path)
     return path
 
@@ -56,19 +66,36 @@ def _read(path: str) -> Dict[str, Any]:
         return pickle.load(f)
 
 
-def load_state_dict(directory: str, ckpt_iter, model_cfg
-                    ) -> Optional[Dict[str, torch.Tensor]]:
-    """The port's state dict for ``ckpt_iter`` in ``directory``, or None
-    when there is no such checkpoint."""
+def load_checkpoint(directory: str, ckpt_iter, model_cfg
+                    ) -> Optional[Dict[str, Any]]:
+    """``{"model_state_dict", "optimizer_state_dict", "step"}`` for
+    ``ckpt_iter`` in ``directory`` (the optimizer state only from the
+    port's own files, else None), or None when there is no such
+    checkpoint."""
     it = resolve_iter(directory, ckpt_iter)
     path = os.path.join(directory, f"{it}.pkl")
     if it < 0 or not os.path.exists(path):
         return None
-    sd = _read(path)["model_state_dict"]
+    raw = _read(path)
+    sd = raw["model_state_dict"]
     if isinstance(sd.get("params"), dict):       # flax variables tree
-        return params_from_jax(sd, model_cfg)
-    return {k: v if isinstance(v, torch.Tensor)
-            else torch.from_numpy(np.asarray(v)) for k, v in sd.items()}
+        sd = params_from_jax(sd, model_cfg)
+    else:
+        sd = {k: v if isinstance(v, torch.Tensor)
+              else torch.from_numpy(np.asarray(v)) for k, v in sd.items()}
+    own = raw.get("format") == FORMAT
+    return {"model_state_dict": sd,
+            "optimizer_state_dict": (raw.get("optimizer_state_dict")
+                                     if own else None),
+            "step": int(raw.get("step", it))}
+
+
+def load_state_dict(directory: str, ckpt_iter, model_cfg
+                    ) -> Optional[Dict[str, torch.Tensor]]:
+    """The port's state dict for ``ckpt_iter`` in ``directory``, or None
+    when there is no such checkpoint."""
+    ck = load_checkpoint(directory, ckpt_iter, model_cfg)
+    return None if ck is None else ck["model_state_dict"]
 
 
 def load_into(model: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> None:

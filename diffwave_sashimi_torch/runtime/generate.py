@@ -19,11 +19,22 @@ import numpy as np
 import torch
 from scipy.io import wavfile
 
+from ..config import load_config
 from ..diffusion.sampling import sampling
 from ..diffusion.schedule import schedule_from_cfg
 from ..models import BF16_TODO, construct_model
 from ..utils.exp import local_directory
 from .checkpoint import load_into, load_state_dict, resolve_iter
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device``, by default the first card; raises when a card is asked
+    for and there is none (the CPU runs only when the caller asks)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card; pass "
+                           "device='cpu' to run on the CPU")
+    return device
 
 
 def _sync(device: torch.device) -> None:
@@ -39,7 +50,7 @@ def generate(diffusion_cfg, model_cfg, dataset_cfg, ckpt_iter="max",
              seed: int = 0, precision: str = "f32",
              device=None) -> np.ndarray:
     """Sample ``n_samples`` waveforms; returns (n_samples, 1, L) numpy.
-    ``device`` defaults to the first card, else the CPU."""
+    ``device`` defaults to the first card (see :func:`resolve_device`)."""
     if precision not in ("f32", "float32"):
         raise NotImplementedError(BF16_TODO)
     if ckpt_smooth is not None:
@@ -50,8 +61,7 @@ def generate(diffusion_cfg, model_cfg, dataset_cfg, ckpt_iter="max",
     # f32 means f32: no TF32 in the 1x1 convolutions or the plain matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    device = torch.device(device if device is not None else
-                          ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = resolve_device(device)
 
     local_path, output_directory = local_directory(
         name, model_cfg, diffusion_cfg, dataset_cfg, "waveforms")
@@ -106,9 +116,7 @@ def generate(diffusion_cfg, model_cfg, dataset_cfg, ckpt_iter="max",
 def main(argv=None):
     """CLI: ``python -m diffwave_sashimi_torch.runtime.generate
     experiment=sc09 compute.precision=f32 generate.n_samples=4``
-    (Hydra-style overrides, read by the JAX package's jax-free config.py)."""
-    from diffwave_sashimi_tpu.config import load_config
-
+    (Hydra-style overrides of the repository's configs/)."""
     cfg = load_config(overrides=list(argv if argv is not None
                                      else sys.argv[1:]))
     print(cfg.to_yaml())

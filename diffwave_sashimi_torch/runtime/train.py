@@ -1,0 +1,234 @@
+"""Training runtime: SC09 unconditional SaShiMi at f32 on one card.
+
+Port of ``diffwave_sashimi_tpu/runtime/train.py`` (the reference's
+``train.py``): run name and ``exp/<run>`` layout, diffusion schedule, SC09
+loader, Adam at ``learning_rate`` (optionally ``s4_lr`` for the SSM
+tensors), resume from ``ckpt_iter`` ('max' | int | -1), loss logging every
+``iters_per_logging``, a checkpoint (and, with ``generate.n_samples > 0``,
+samples from it) every ``iters_per_ckpt``, ``n_iters + 1`` iterations and
+an optional wall-clock budget ``max_seconds``.
+
+Each step draws t and z from a generator seeded by (seed, iteration), so a
+resumed run draws what an uninterrupted one would, runs the model's
+training form through the kernels (``ops.FUSED``: forward kernels 1-4,
+backward kernels 1, 5-8) and takes one Adam step.  Not ported, and refused
+by name: bf16 (``compute.precision``), dropout, mel conditioning,
+activation rematerialisation, data parallelism (``mesh.data`` > 1) and
+wandb.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import sys
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..config import extract_multirun_flag, load_config, sweep_overrides
+from ..data import dataloader
+from ..diffusion.loss import training_loss
+from ..diffusion.schedule import schedule_from_cfg
+from ..models import BF16_TODO, construct_model
+from ..ops import FUSED, Ops
+from ..utils.exp import local_directory
+from .checkpoint import load_checkpoint, load_into, save_checkpoint
+from .generate import generate, resolve_device
+from .metrics import MetricsLogger
+
+SSM_PARAM_NAMES = frozenset(
+    {"log_dt", "B", "P", "inv_w_real", "w_imag", "inv_A_real", "A_imag"})
+
+
+def is_ssm_param(name: str) -> bool:
+    """An SSM tensor of an S4 kernel (the JAX package labels a parameter
+    "s4" when it sits under a ``kernel`` module and is named in
+    :data:`SSM_PARAM_NAMES`)."""
+    parts = name.split(".")
+    return parts[-1] in SSM_PARAM_NAMES and "kernel" in parts[:-1]
+
+
+def make_optimizer(model: torch.nn.Module, learning_rate: float,
+                   s4_lr: Optional[float] = None) -> torch.optim.Adam:
+    """Adam (optax.adam's defaults), with a second parameter group at
+    ``s4_lr`` for the SSM tensors when it is set."""
+    if s4_lr is None:
+        return torch.optim.Adam(model.parameters(), lr=learning_rate)
+    named = list(model.named_parameters())
+    return torch.optim.Adam([
+        {"params": [p for n, p in named if not is_ssm_param(n)],
+         "lr": learning_rate},
+        {"params": [p for n, p in named if is_ssm_param(n)], "lr": s4_lr}])
+
+
+def train_step(model, optimizer, audio: torch.Tensor, schedule,
+               generator: Optional[torch.Generator] = None,
+               ops: Ops = FUSED) -> torch.Tensor:
+    """One loss, backward and Adam update; returns the loss (detached)."""
+    optimizer.zero_grad(set_to_none=True)
+    loss = training_loss(model, audio, schedule, generator, ops=ops)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+def _refuse_unported(model_cfg, compute_cfg, mesh_cfg, wandb_cfg) -> str:
+    """The compute precision, after refusing what is not ported."""
+    compute_cfg = compute_cfg or {}
+    precision = compute_cfg.get("precision", "bf16")
+    if precision not in ("f32", "float32"):
+        raise NotImplementedError(BF16_TODO)
+    if compute_cfg.get("remat"):
+        raise NotImplementedError("compute.remat (activation "
+                                  "rematerialisation) is not ported: "
+                                  "ROADMAP.md queue 1, item 7")
+    if int((mesh_cfg or {}).get("data", -1)) > 1:
+        raise NotImplementedError("data-parallel training is not ported: "
+                                  "ROADMAP.md queue 1, item 13")
+    if (wandb_cfg or {}).get("mode", "disabled") != "disabled":
+        raise NotImplementedError("wandb logging is not ported: ROADMAP.md "
+                                  "queue 1, item 9")
+    if float(model_cfg.get("dropout", 0.0) or 0.0):
+        raise NotImplementedError("S4 dropout is not ported: ROADMAP.md "
+                                  "queue 1, item 5")
+    return precision
+
+
+def train(diffusion_cfg, model_cfg, dataset_cfg, generate_cfg,
+          ckpt_iter="max", n_iters: int = 1000001,
+          iters_per_ckpt: int = 10000, iters_per_logging: int = 100,
+          learning_rate: float = 2e-4, batch_size_per_gpu: int = 4,
+          s4_lr: Optional[float] = None, name: Optional[str] = None,
+          mesh_cfg=None, compute_cfg=None, wandb_cfg=None, seed: int = 0,
+          max_seconds: Optional[float] = None,
+          device=None) -> Dict[str, Any]:
+    """Run the training loop; returns {'model', 'optimizer', 'step',
+    'checkpoint_dir', 'losses'} ('losses': the logged (iteration, loss)
+    pairs).  ``device`` defaults to the first card."""
+    precision = _refuse_unported(model_cfg, compute_cfg, mesh_cfg, wandb_cfg)
+    device = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 means f32
+    torch.backends.cudnn.allow_tf32 = False
+    local_path, ckpt_dir = local_directory(name, model_cfg, diffusion_cfg,
+                                           dataset_cfg, "checkpoint")
+    schedule = schedule_from_cfg(diffusion_cfg, fast=False)
+    data_loader = dataloader(dataset_cfg, batch_size=batch_size_per_gpu,
+                             unconditional=model_cfg["unconditional"])
+    print(f"Data loaded: {len(data_loader)} batches ({batch_size_per_gpu} "
+          f"global, 1 device)", flush=True)
+    if len(data_loader) == 0:
+        raise ValueError(
+            f"dataset yielded 0 batches of {batch_size_per_gpu} - check "
+            f"data_path={dataset_cfg.get('data_path')!r} (the SC09 loader "
+            f"keeps only '*_nohash_*.wav' files) and that it holds >= one "
+            f"batch of clips")
+
+    torch.manual_seed(seed)          # the initialisation, on the device
+    with torch.device(device):
+        model = construct_model(model_cfg, precision)
+    print(f"{model.__class__.__name__} Parameters: "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.6f}M",
+          flush=True)
+    optimizer = make_optimizer(model, learning_rate, s4_lr)
+
+    ck = load_checkpoint(ckpt_dir, ckpt_iter, model_cfg)
+    if ck is not None:
+        load_into(model, ck["model_state_dict"])
+        if ck["optimizer_state_dict"] is not None:
+            optimizer.load_state_dict(ck["optimizer_state_dict"])
+        start_iter = ck["step"] + 1
+        print(f"Successfully loaded model at iteration {ck['step']}",
+              flush=True)
+    else:
+        start_iter = 0
+        print("No valid checkpoint model found - training from scratch.",
+              flush=True)
+    model.train()
+
+    gen_kwargs = {k: v for k, v in dict(generate_cfg or {}).items()
+                  if k != "ckpt_iter"}
+    logger = MetricsLogger(os.path.join("exp", local_path))
+    step_gen = torch.Generator(device=device)
+    losses = []
+    n_iter = start_iter
+    t_start = time.time()
+    try:
+        while n_iter < n_iters + 1:
+            epoch_loss, epoch_batches = None, 0
+            for data in data_loader:
+                audio = torch.from_numpy(np.asarray(
+                    data[0] if isinstance(data, tuple) else data,
+                    np.float32)).to(device)
+                step_gen.manual_seed(seed * 1_000_003 + n_iter)
+                loss = train_step(model, optimizer, audio, schedule,
+                                  step_gen)
+                epoch_loss = loss if epoch_loss is None else epoch_loss + loss
+                epoch_batches += 1
+
+                if n_iter % iters_per_logging == 0:
+                    loss_v = float(loss)
+                    losses.append((n_iter, loss_v))
+                    logger.log({"train/loss": loss_v,
+                                "train/log_loss": math.log(max(loss_v,
+                                                               1e-12)),
+                                "train/steps_per_sec":
+                                    (n_iter - start_iter + 1)
+                                    / (time.time() - t_start)},
+                               step=n_iter)
+                    print(f"iter {n_iter} loss {loss_v:.5f}", flush=True)
+
+                if n_iter > 0 and n_iter % iters_per_ckpt == 0:
+                    save_checkpoint(ckpt_dir, n_iter, model, optimizer)
+                    print(f"model at iteration {n_iter} is saved",
+                          flush=True)
+                    if int(gen_kwargs.get("n_samples") or 0) > 0:
+                        generate(diffusion_cfg, model_cfg, dataset_cfg,
+                                 ckpt_iter=n_iter, name=name,
+                                 precision=precision, device=device,
+                                 **gen_kwargs)
+
+                n_iter += 1
+                if n_iter >= n_iters + 1:
+                    break
+                if max_seconds and time.time() - t_start > max_seconds:
+                    break
+            if epoch_batches:
+                logger.log({"train/loss_epoch":
+                            float(epoch_loss) / epoch_batches}, step=n_iter)
+            if max_seconds and time.time() - t_start > max_seconds:
+                break
+    finally:
+        logger.finish()
+    return {"model": model, "optimizer": optimizer, "step": n_iter - 1,
+            "checkpoint_dir": ckpt_dir, "losses": losses}
+
+
+def main(argv=None):
+    """CLI: ``python -m diffwave_sashimi_torch.runtime.train
+    experiment=sc09 compute.precision=f32 ...`` (Hydra-style overrides;
+    ``-m`` sweeps comma-listed values as sequential jobs).  Trains on the
+    card; ``+train.device=cpu`` asks for the CPU."""
+    args, multirun = extract_multirun_flag(
+        argv if argv is not None else sys.argv[1:])
+    if multirun:
+        jobs = sweep_overrides(args)
+        for i, job in enumerate(jobs):
+            print(f"[multirun] job {i}/{len(jobs)}: {' '.join(job)}",
+                  flush=True)
+            main(job)
+        return
+    cfg = load_config(overrides=args)
+    print(cfg.to_yaml())
+    os.makedirs("exp/", mode=0o775, exist_ok=True)
+    train_cfg = dict(cfg.train)
+    name = train_cfg.pop("name", None)
+    train(cfg.diffusion, cfg.model, cfg.dataset, cfg.generate, name=name,
+          mesh_cfg=cfg.get("mesh"), compute_cfg=cfg.get("compute"),
+          wandb_cfg=cfg.get("wandb"), **train_cfg)
+
+
+if __name__ == "__main__":
+    main()
