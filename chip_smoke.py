@@ -35,14 +35,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (ops.PLAIN), on the same batch, t and z;
 10. the training step (forward, backward, Adam) timed both ways;
 11. a torch.profiler trace of two training steps with the kernels: device
-    time by kernel, the port's kernels' share, the device's idle share.
+    time by kernel, the port's kernels' share, the device's idle share;
+12. the vocoder: the shipped LJSpeech model (``experiment=ljspeech``:
+    d_model 128, n_layers 6, pool [4, 4], L 16000, mel_upsample [16, 16],
+    hop 256 at 22050 Hz) from a seed, with a perturbed final conv, saved as
+    a checkpoint under its ``_L16000_hop256_cond`` run name, and a seeded
+    synthetic 6.5 s int16 utterance (harmonics, a chirp, noise) as
+    ``LJ001-0001.wav`` in a temporary data_path;
+13. the vocoding path: ``generate(mel_name=...)`` at T = 50, 2 samples of
+    560 frames x 256 = 143360 samples, with every launch count set to 0
+    just before and read just after: kernel 9 24 x 50 times (the top and
+    middle tiers, n 2^18 and 2^16), kernel 1 6 x 50 (the deepest, n 16384),
+    kernels 2 and 3 30 x 50, kernel 4 30; finite output of that length and
+    a fidelity.json;
+14. the precomputed-mel route: the port's ``mel2samp`` CLI writes the
+    utterance's mel, which loads equal to the one computed on the fly;
+15. kernel 9 (both entries) against its plain version at the top and
+    middle tiers' shapes and at n 4096, and kernel 1 at the deepest tier
+    (n 16384 < 2L), timed;
+16. one vocoder eps forward through the kernels against the plain path;
+17. the vocoder step's eps forward timed both ways at B2 (ms per step, the
+    realtime factor), and a torch.profiler trace of two steps.
 
 It prints the card's name and power limit, one JSON line with the kernels
 (each with its bound: the larger of its bytes over the HBM rate and its
-fp32 operations over the fp32 peak, at the top tier's shapes), and last
-``{"ok": true, "device": {...}}``.  The config blocks below are
-``load_config(["experiment=sc09"])`` written out (a CPU test pins them),
-so this script imports nothing of the JAX package.
+fp32 operations over the fp32 peak, at the top tier's shapes of the path
+that runs it), and last ``{"ok": true, "device": {...}}``.  The config
+blocks below are ``load_config(["experiment=sc09"])`` and
+``load_config(["experiment=ljspeech"])`` written out (a CPU test pins
+them), so this script imports nothing of the JAX package.
 """
 
 import json
@@ -74,6 +95,18 @@ MODEL_CFG = {"_name_": "sashimi", "unconditional": True, "in_channels": 1,
 DATASET_CFG = {"_name_": "sc09", "data_path": "data/sc09",
                "segment_length": 16000, "sampling_rate": 16000}
 
+VOC_SAMPLES = 2               # the vocoder's batch (generate.n_samples)
+VOC_SECONDS = 6.5             # a typical LJSpeech utterance
+VOC_MEL = "LJ001-0001"        # generate.mel_name of experiment=ljspeech
+VOC_DIFFUSION_CFG = {"T": 50, "beta_0": 0.0001, "beta_T": 0.05,
+                     "beta": None}
+VOC_MODEL_CFG = dict(MODEL_CFG, unconditional=False, mel_upsample=[16, 16])
+VOC_DATASET_CFG = {"_name_": "ljspeech",
+                   "data_path": "data/LJSpeech-1.1/wavs",
+                   "segment_length": 16000, "sampling_rate": 22050,
+                   "valid": False, "filter_length": 1024, "hop_length": 256,
+                   "win_length": 1024, "mel_fmin": 0.0, "mel_fmax": 8000.0}
+
 # name -> (source, TPU kernel it replaces, the paths that launch it)
 KERNELS = {
     "fftconv_ln_bias_gelu_d": ("diffwave_sashimi_torch/csrc/fftconv.cu",
@@ -99,7 +132,29 @@ KERNELS = {
     "cauchy_bwd": ("diffwave_sashimi_torch/csrc/cauchy.cu",
                    "diffwave_sashimi_tpu/ops/cauchy_pallas.py:91",
                    ("train",)),
+    # kernel 9 replaces fftconv_pallas.py:78 (_kernel) and, as the same
+    # function, :126 (_kernel_batched)
+    "fftconv_long_ln_bias_gelu_d": (
+        "diffwave_sashimi_torch/csrc/fftconv_long.cu",
+        "diffwave_sashimi_tpu/ops/fftconv_pallas.py:78", ("vocode",)),
+    "fftconv_long": ("diffwave_sashimi_torch/csrc/fftconv_long.cu",
+                     "diffwave_sashimi_tpu/ops/fftconv_pallas.py:78", ()),
 }
+PATHS = ("generate", "train", "vocode")
+# kernel 9's entries compute kernel 1's functions (at larger n)
+SAME_FUNCTION = {"fftconv_long_ln_bias_gelu_d": "fftconv_ln_bias_gelu_d",
+                 "fftconv_long": "fftconv"}
+# vocoding at T = 50: launches of each kernel of the path (24 blocks at
+# n > 32768, 6 at n = 16384, 30 in all; kernel 4 once per block and run)
+VOC_LAUNCHES = {"fftconv_long_ln_bias_gelu_d": 24 * 50,
+                "fftconv_ln_bias_gelu_d": 6 * 50, "glu_res": 30 * 50,
+                "ln_ff_res": 30 * 50, "cauchy": 30}
+# the port's kernels, by the name of their __global__ function
+PORT_KERNELS = ("fftconv_kernel", "fftconv_dkf_kernel", "glu_res_kernel",
+                "glu_res_bwd_kernel", "ln_ff_res_kernel",
+                "ln_ff_res_bwd_kernel", "wgrad_kernel", "reduce_splits_kernel",
+                "cauchy_kernel", "cauchy_bwd_kernel", "cols_fwd_kernel",
+                "rows_kernel", "cols_inv_kernel")
 
 
 def log(msg):
@@ -157,7 +212,7 @@ def work(name, B, H, L, n, K=6, N=32):
         "ln_ff_res_bwd": (10 * F * H * B * L, 3 * act + 2 * ff_w),
         "cauchy": ((13 + 11 * K) * H * N * Lz, coef + cauchy_io),
         "cauchy_bwd": ((30 + 16 * K) * H * N * Lz, 2 * coef + cauchy_io),
-    }[name]
+    }[SAME_FUNCTION.get(name, name)]
 
 
 def bound(name, B, H, L, n):
@@ -168,10 +223,11 @@ def bound(name, B, H, L, n):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def compare(name, H, L, kfn, pfn, reps, results):
+def compare(name, H, L, kfn, pfn, reps, results, B=N_SAMPLES, n=None):
     """Hold one kernel wrapper against its plain version at tier (H, L)
     (each output of a tuple against its own bound), time both, record with
-    the bound; raise on a miss."""
+    the bound at batch B and FFT size n (by default the SC09 paths': the
+    next power of two >= 2L); raise on a miss."""
     import torch
     tier = f"H{H}_L{L}"
     out, ref = kfn(), pfn()
@@ -196,16 +252,16 @@ def compare(name, H, L, kfn, pfn, reps, results):
              max_abs_plain=max(t["max_abs_plain"], scale))
     t.setdefault("ms", ms)
     t.setdefault("plain_ms", plain_ms)
-    t["bound_ms"], t["bound_by"] = bound(name, N_SAMPLES, H, L,
-                                         1 << (2 * L - 1).bit_length())
+    t["bound_ms"], t["bound_by"] = bound(
+        name, B, H, L, n or 1 << (2 * L - 1).bit_length())
     if not ok:
         raise AssertionError(f"kernel {name} disagrees at {tier}")
 
 
-def build_model(torch):
+def build_model(torch, cfg=MODEL_CFG):
     from diffwave_sashimi_torch.models import construct_model
     gen = torch.Generator().manual_seed(SEED)
-    model = construct_model(MODEL_CFG, "f32", generator=gen)
+    model = construct_model(cfg, "f32", generator=gen)
     fc2 = model.final_conv[2].conv
     with torch.no_grad():     # zero-init head: perturb, or eps is all 0
         fc2.weight.copy_(0.1 * torch.randn(fc2.weight.shape, generator=gen))
@@ -226,6 +282,22 @@ def tier_blocks(model):
     return sorted(out, key=lambda t: t[0])
 
 
+def conv_inputs(torch, blk, L, B, gen, dev):
+    """A block's conv inputs at length L and batch B: x, norm1 as a, c, the
+    step bias, D and the conv-kernel spectrum (capped at the trained
+    length, at the power-of-two n >= L_k + L)."""
+    from diffwave_sashimi_torch import ops
+    layer = blk.layer
+    H = layer.D.shape[1]
+    khat = layer.compute_kernel_freq(L, ops.PLAIN)
+    x = torch.randn(B, H, L, device=dev, generator=gen)
+    var, mean = torch.var_mean(x, dim=1, unbiased=False)
+    a = blk.norm1.s * torch.rsqrt(var)
+    return dict(x=x, a=a, c=(blk.norm1.m - mean) * a, khat=khat,
+                n=2 * (khat.shape[-1] - 1), D=layer.D[0],
+                bias=blk.fc_t(torch.randn(B, 512, device=dev, generator=gen)))
+
+
 def tier_inputs(torch, blk, L, gen, dev):
     """Inputs of one tier's kernels at the main paths' shapes (batch
     N_SAMPLES), from the tier's first block."""
@@ -233,10 +305,7 @@ def tier_inputs(torch, blk, L, gen, dev):
     from diffwave_sashimi_torch.models.s4 import _fft_nodes
     B, layer = N_SAMPLES, blk.layer
     H = layer.D.shape[1]
-    khat = layer.compute_kernel_freq(L, ops.PLAIN)
-    x = torch.randn(B, H, L, device=dev, generator=gen)
-    var, mean = torch.var_mean(x, dim=1, unbiased=False)
-    a = blk.norm1.s * torch.rsqrt(var)
+    d = conv_inputs(torch, blk, L, B, gen, dev)
     ff1, ff2 = blk.ff["ff"][0], blk.ff["ff"][2]
     kern = layer.kernel["kernel"]
     C = torch.view_as_complex(kern.C)
@@ -247,10 +316,7 @@ def tier_inputs(torch, blk, L, gen, dev):
     z = torch.from_numpy(_fft_nodes(L)[1]).to(dev)
     qa, qb, qc, qd = ops.cauchy._coefficients(v, wt)
     K, N = qa.numel() // (H * qa.shape[-1]), qa.shape[-1]
-    d = dict(x=x, a=a, c=(blk.norm1.m - mean) * a, khat=khat,
-             n=2 * (khat.shape[-1] - 1), D=layer.D[0],
-             bias=blk.fc_t(torch.randn(B, 512, device=dev, generator=gen)),
-             lin=layer.output_linear[0], m2=blk.norm2.m, s2=blk.norm2.s,
+    d.update(lin=layer.output_linear[0], m2=blk.norm2.m, s2=blk.norm2.s,
              w1=ff1.effective_weight()[:, :, 0], b1=ff1.bias,
              w2=ff2.effective_weight()[:, :, 0], b2=ff2.bias,
              skip=torch.randn(B, H, L, device=dev, generator=gen),
@@ -259,8 +325,8 @@ def tier_inputs(torch, blk, L, gen, dev):
                                     qb.reshape(K, H, N).contiguous(), qc, qd),
              g_re=torch.randn(K, H, z.shape[0], device=dev, generator=gen),
              g_im=torch.randn(K, H, z.shape[0], device=dev, generator=gen))
-    d["y"] = ops.fftconv_ln_bias_gelu_d_ref(x, d["a"], d["c"], d["bias"],
-                                            khat, d["D"])
+    d["y"] = ops.fftconv_ln_bias_gelu_d_ref(d["x"], d["a"], d["c"],
+                                            d["bias"], d["khat"], d["D"])
     return d
 
 
@@ -428,10 +494,7 @@ def check_gradients(torch, model, dev):
 
 def profile_train_step(torch, model, dev, steps=2):
     """Phase 11: a torch.profiler trace of ``steps`` training steps with the
-    kernels.  Returns the device time by kernel name (ms per step), the
-    share of it in the port's kernels, and the device's idle share of the
-    window from the first kernel's start to the last one's end."""
-    from torch.profiler import ProfilerActivity, profile
+    kernels (see :func:`trace_steps`)."""
     from diffwave_sashimi_torch import ops
     from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
     from diffwave_sashimi_torch.runtime.train import make_optimizer, train_step
@@ -439,13 +502,24 @@ def profile_train_step(torch, model, dev, steps=2):
     audio = 0.3 * torch.randn(N_SAMPLES, 1, 16000, device=dev, generator=g)
     schedule = schedule_from_cfg(DIFFUSION_CFG)
     optim = make_optimizer(model, 2e-4)
+    return trace_steps(
+        torch, lambda: train_step(model, optim, audio, schedule, g,
+                                  ops.FUSED), steps)
+
+
+def trace_steps(torch, step, steps=2):
+    """A torch.profiler trace of ``steps`` calls of ``step`` after two
+    untraced ones.  Returns the device time by kernel name (ms per step),
+    the share of it in the port's kernels, and the device's idle share of
+    the window from the first kernel's start to the last one's end."""
+    from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
-        train_step(model, optim, audio, schedule, g, ops.FUSED)
+        step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            train_step(model, optim, audio, schedule, g, ops.FUSED)
+            step()
         torch.cuda.synchronize()
     kern = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
@@ -465,22 +539,28 @@ def profile_train_step(torch, model, dev, steps=2):
     window = spans[-1][1] - spans[0][0]
     by_name = {}
     for e in kern:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (
+        name = short_name(e.name)
+        by_name[name] = by_name.get(name, 0.0) + (
             e.time_range.end - e.time_range.start) / 1e3 / steps
-    ours = sum(ms for name, ms in by_name.items() if any(
-        k in name for k in ("fftconv_kernel", "fftconv_dkf_kernel",
-                            "glu_res_kernel", "glu_res_bwd_kernel",
-                            "ln_ff_res_kernel", "ln_ff_res_bwd_kernel",
-                            "wgrad_kernel", "reduce_splits_kernel",
-                            "cauchy_kernel", "cauchy_bwd_kernel")))
+    port = {name: ms for name, ms in by_name.items()
+            if name.split("<")[0] in PORT_KERNELS}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {"window_ms_per_step": window / 1e3 / steps,
             "device_busy_ms_per_step": busy / 1e3 / steps,
             "idle_share": 1.0 - busy / window,
-            "port_kernels_ms_per_step": ours,
-            "other_kernels_ms_per_step": sum(by_name.values()) - ours,
+            "port_kernels_ms_per_step": sum(port.values()),
+            "other_kernels_ms_per_step": sum(by_name.values())
+            - sum(port.values()),
             "launches_per_step": len(kern) / steps,
+            "port_kernels_by_name_ms_per_step": port,
             "top_kernels_ms_per_step": dict(top)}
+
+
+def short_name(name):
+    """A device kernel's name without its return type, namespace and
+    parameter list, e.g. ``ln_ff_res_kernel<128>``; at most 80 chars."""
+    name = name.removeprefix("void ").removeprefix("(anonymous namespace)::")
+    return name.split("(")[0][:80]
 
 
 def time_train_step(torch, model, dev):
@@ -496,6 +576,155 @@ def time_train_step(torch, model, dev):
     return paired_ms(
         lambda: train_step(model, optim, audio, schedule, g, ops.FUSED),
         lambda: train_step(model, optim, audio, schedule, g, ops.PLAIN), 3)
+
+
+def write_utterance(path):
+    """Phase 12: a seeded synthetic utterance of VOC_SECONDS at 22050 Hz,
+    int16: five harmonics of a gliding pitch, a chirp and noise."""
+    import numpy as np
+    from scipy.io import wavfile
+    sr = VOC_DATASET_CFG["sampling_rate"]
+    n = int(VOC_SECONDS * sr)
+    t = np.arange(n) / sr
+    f0 = 120.0 + 30.0 * np.sin(2 * np.pi * 0.4 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    wav = sum(0.2 / k * np.sin(k * phase) for k in range(1, 6))
+    wav = wav + 0.05 * np.sin(2 * np.pi * (200.0 + 300.0 * t) * t)
+    wav = wav + 0.01 * np.random.RandomState(SEED).randn(n)
+    wavfile.write(path, sr, (0.5 * 32767 * wav / np.abs(wav).max())
+                  .astype(np.int16))
+
+
+def run_vocoder(torch, root, launches, dev):
+    """Phases 12-14: the vocoder checkpoint and utterance, vocoding through
+    generate() with its launch counts, the precomputed-mel route.  Returns
+    (model, mel (1, 80, frames) numpy, audio length, generate() wall s)."""
+    import numpy as np
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.data import mel2samp
+    from diffwave_sashimi_torch.runtime.checkpoint import save_checkpoint
+    from diffwave_sashimi_torch.runtime.generate import (generate,
+                                                         resolve_condition)
+    from diffwave_sashimi_torch.utils.exp import local_directory
+    t0 = time.perf_counter()
+    model = build_model(torch, VOC_MODEL_CFG)
+    run, ckpt = local_directory(None, VOC_MODEL_CFG, VOC_DIFFUSION_CFG,
+                                VOC_DATASET_CFG, "checkpoint")
+    save_checkpoint(ckpt, 1000, model)
+    data = os.path.join(root, "wavs")
+    os.makedirs(data)
+    write_utterance(os.path.join(data, VOC_MEL + ".wav"))
+    dataset = dict(VOC_DATASET_CFG, data_path=data)
+    log(f"phase vocoder model: {run} built and saved, utterance written, "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    for fn in ops.COUNTED.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    audio = generate(VOC_DIFFUSION_CFG, VOC_MODEL_CFG, dataset,
+                     ckpt_iter="max", n_samples=VOC_SAMPLES,
+                     mel_name=VOC_MEL, seed=SEED, device=dev)
+    gen_s = time.perf_counter() - t0
+    launches["vocode"] = {k: f.launches for k, f in ops.COUNTED.items()}
+    log(f"phase vocode: {gen_s:.2f} s wall; launches {launches['vocode']}")
+    want = {k: VOC_LAUNCHES.get(k, 0) for k in ops.COUNTED}
+    if launches["vocode"] != want:
+        raise AssertionError(f"vocoding launches {launches['vocode']}, "
+                             f"expected {want}")
+    hop = VOC_DATASET_CFG["hop_length"]
+    frames = 1 + int(VOC_SECONDS * VOC_DATASET_CFG["sampling_rate"]) // hop
+    L = frames * hop
+    if audio.shape != (VOC_SAMPLES, 1, L) or not np.isfinite(audio).all():
+        raise AssertionError(f"bad vocoder output {audio.shape}")
+    with open(os.path.join("exp", run, "waveforms", "1000",
+                           "fidelity.json")) as f:
+        fidelity = json.load(f)
+    log(f"output: shape {audio.shape}, finite, std {audio.std():.4f}; "
+        f"fidelity.json {fidelity}")
+
+    mels = os.path.join(root, "mels")
+    n = mel2samp.main(["experiment=ljspeech", f"dataset.data_path={data}",
+                       f"+output_dir={mels}"])
+    pre, L_pre = resolve_condition(dataset, mels, VOC_MEL)
+    mel, L_fly = resolve_condition(dataset, None, VOC_MEL)
+    log(f"phase mel_path: {n} mel written by the mel2samp CLI, shape "
+        f"{pre.shape}, equal to the mel computed on the fly: "
+        f"{np.array_equal(pre, mel)}")
+    if n != 1 or not np.array_equal(pre, mel) or not L_pre == L_fly == L:
+        raise AssertionError("the precomputed mel differs")
+    return model.to(dev).eval(), mel, L, gen_s
+
+
+def check_vocoder_kernels(torch, model, L, dev, results):
+    """Phase 15: kernel 9 (both entries) at the top and middle tiers and at
+    n 4096, kernel 1 at the deepest tier (n 16384 < 2L), and kernels 2 and
+    3 at the vocoder's tiers, against their plain versions, timed."""
+    from diffwave_sashimi_torch import ops
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    (H0, _, b0), (H1, _, b1), (H2, _, b2) = tier_blocks(model)
+    B = VOC_SAMPLES
+    for H, Lt, blk in ((H0, L, b0), (H1, L // 4, b1), (H2, 3000, b2)):
+        d = conv_inputs(torch, blk, Lt, B, gen, dev)
+        x, a, c, bias, D = d["x"], d["a"], d["c"], d["bias"], d["D"]
+        kp = ops.long_spectrum(d["khat"])
+        compare("fftconv_long_ln_bias_gelu_d", H, Lt,
+                lambda: ops.fftconv_long_ln_bias_gelu_d(x, a, c, bias, kp, D),
+                lambda: ops.fftconv_long_ln_bias_gelu_d_ref(x, a, c, bias,
+                                                            kp, D),
+                10, results, B, d["n"])
+        compare("fftconv_long", H, Lt, lambda: ops.fftconv_long(x, kp),
+                lambda: ops.fftconv_long_ref(x, kp), 10, results, B, d["n"])
+    for H, Lt, blk in ((H0, L, b0), (H1, L // 4, b1), (H2, L // 16, b2)):
+        d = conv_inputs(torch, blk, Lt, B, gen, dev)
+        x, a, c, bias, D = d["x"], d["a"], d["c"], d["bias"], d["D"]
+        if blk is b2:
+            compare("fftconv_ln_bias_gelu_d", H, Lt,
+                    lambda: ops.fftconv_ln_bias_gelu_d(x, a, c, bias,
+                                                       d["khat"], D),
+                    lambda: ops.fftconv_ln_bias_gelu_d_ref(x, a, c, bias,
+                                                           d["khat"], D),
+                    10, results, B, d["n"])
+        lin, ff1, ff2 = blk.layer.output_linear[0], *(blk.ff["ff"][i]
+                                                     for i in (0, 2))
+        ff = (x, blk.norm2.m, blk.norm2.s, ff1.effective_weight()[:, :, 0],
+              ff1.bias, ff2.effective_weight()[:, :, 0], ff2.bias, x, True)
+        compare("glu_res", H, Lt,
+                lambda: ops.mix_glu_res(x, x, lin.weight, lin.bias),
+                lambda: ops.glu_res_ref(x, x, lin.weight, lin.bias),
+                10, results, B, d["n"])
+        compare("ln_ff_res", H, Lt, lambda: ops.ln_ff_res(*ff),
+                lambda: ops.ln_ff_res_ref(*ff), 10, results, B, d["n"])
+
+
+def check_vocoder_step(torch, model, mel, L, dev):
+    """Phases 16 and 17: one vocoder eps forward through the kernels
+    against the plain path; then the step timed both ways at B2 and
+    traced.  Returns (ms, plain ms, trace)."""
+    from diffwave_sashimi_torch import ops
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    B = VOC_SAMPLES
+    x = torch.randn(B, 1, L, device=dev, generator=g)
+    steps = torch.tensor([49, 7][:B], device=dev)
+    conds = model.compute_mel_conds(torch.from_numpy(mel).to(dev), L)
+    k_fused = model.compute_kernels(L, ops.FUSED)
+    k_plain = model.compute_kernels(L, ops.PLAIN)
+    eps = model(x, steps, k_fused, ops.FUSED, mel_conds=conds)
+    eps_plain = model(x, steps, k_plain, ops.PLAIN, mel_conds=conds)
+    err, scale = max_err(eps, eps_plain)
+    atol, rtol = TOL_EPS
+    ok = bool(torch.isfinite(eps).all()) and bool(
+        ((eps - eps_plain).abs() <= atol + rtol * eps_plain.abs()).all())
+    log(f"phase vocoder eps: kernels vs plain max_abs_err {err:.3e} "
+        f"(max|plain| {scale:.3e}, atol {atol} rtol {rtol}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok or scale == 0.0:
+        raise AssertionError("vocoder eps through the kernels disagrees")
+    ms, plain_ms = paired_ms(
+        lambda: model(x, steps, k_fused, ops.FUSED, mel_conds=conds),
+        lambda: model(x, steps, k_plain, ops.PLAIN, mel_conds=conds), 3)
+    trace = trace_steps(
+        torch, lambda: model(x, steps, k_fused, ops.FUSED, mel_conds=conds))
+    return ms, plain_ms, trace
 
 
 def main():
@@ -632,13 +861,42 @@ def main():
     log("trace: training step with the kernels: " + (
         "no device time in the profiler's events (not measured)"
         if trace is None else json.dumps(trace)))
+
+    # phases 12-14: the vocoder through generate(), the precomputed mel
+    voc_root = tempfile.TemporaryDirectory(prefix="dwst_smoke_voc_")
+    os.chdir(voc_root.name)
+    try:
+        voc_model, mel, voc_L, voc_gen_s = run_vocoder(
+            torch, voc_root.name, launches, dev)
+    finally:
+        os.chdir(cwd)
+        voc_root.cleanup()
+
+    # phases 15-17: the vocoder's kernels, eps and step
+    with torch.no_grad():
+        check_vocoder_kernels(torch, voc_model, voc_L, dev, results)
+        voc_ms, voc_plain_ms, voc_trace = check_vocoder_step(
+            torch, voc_model, mel, voc_L, dev)
+    voc_T = VOC_DIFFUSION_CFG["T"]
+    voc_audio_s = VOC_SAMPLES * voc_L / VOC_DATASET_CFG["sampling_rate"]
+    voc_rtf = voc_audio_s / (voc_T * voc_ms / 1000)
+    log(f"timing: vocoder eps forward (one sampling step) at "
+        f"B{VOC_SAMPLES} L{voc_L} {voc_ms:.3f} ms with kernels vs "
+        f"{voc_plain_ms:.3f} ms plain; T={voc_T} -> {voc_rtf:.3f}x realtime "
+        f"from the step time; generate() {voc_audio_s / voc_gen_s:.3f}x "
+        f"realtime from its wall time (model build + load, mel, mel terms, "
+        f"S4 kernels, {voc_T} steps, wav and fidelity writes)")
+    log("trace: vocoder step with the kernels: " + (
+        "no device time in the profiler's events (not measured)"
+        if voc_trace is None else json.dumps(voc_trace)))
     log(f"card: {smi[0]}")
 
-    tier1 = "H128_L16000"
     entries = []
     for name, (src, rep, paths) in KERNELS.items():
-        r, top = results[name], results[name]["tiers"][tier1]
-        per_path = {p: launches[p][name] for p in ("generate", "train")}
+        tier = (f"H128_L{voc_L}" if name.startswith("fftconv_long")
+                else "H128_L16000")
+        r, top = results[name], results[name]["tiers"][tier]
+        per_path = {p: launches[p][name] for p in PATHS}
         entries.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(per_path.values()),
@@ -647,6 +905,9 @@ def main():
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": None,
             "tiers": r["tiers"]})
+        if name.startswith("fftconv_long"):     # the same function
+            entries[-1]["also_replaces"] = (
+                "diffwave_sashimi_tpu/ops/fftconv_pallas.py:126")
     log(json.dumps({
         "kernels": entries,
         "step_ms": {str(B): ms for B, (ms, _) in steps_ms.items()},
@@ -655,6 +916,11 @@ def main():
         "train_step_ms": {str(N_SAMPLES): train_ms},
         "train_step_plain_ms": {str(N_SAMPLES): train_plain_ms},
         "train_step_trace": trace,
+        "vocode": {"step_ms": {str(VOC_SAMPLES): voc_ms},
+                   "step_plain_ms": {str(VOC_SAMPLES): voc_plain_ms},
+                   "realtime_factor_step": voc_rtf,
+                   "realtime_factor_generate": voc_audio_s / voc_gen_s,
+                   "generate_s": voc_gen_s, "trace": voc_trace},
         "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

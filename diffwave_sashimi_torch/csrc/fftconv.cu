@@ -10,7 +10,9 @@
 //
 // a and c are norm1 (the channel LayerNorm) as a per-position scale and
 // shift; bias is the diffusion-step bias; khat is the rfft of the combined
-// bidirectional S4 kernel at the power-of-two size n >= 2L.  Training form
+// bidirectional S4 kernel at a power-of-two size n >= L + L_k, L_k <= L
+// the S4 kernel's length (the output's first L samples of the circular
+// conv are then the linear conv's: no lag wraps onto a tap).  Training form
 // (fftconv2 and its custom VJP): out = y with u' = u, and, with the conj
 // flag, the same conv with conj(khat), which is its input gradient (the
 // kernel k is real, so the adjoint of the cut circular conv is the cut
@@ -39,152 +41,19 @@
 // a, c for the D-skip, which hits L2).  The length-n real FFT is an
 // M = n/2 point complex FFT of the packed even/odd samples: 132 KB of
 // dynamic shared memory at n = 32768 (the full n-point buffer would not
-// fit in a block's 227 KB).  The complex FFTs are Stockham autosort
-// transforms (natural order in and out) in radix-8 passes with a radix-4
-// or radix-2 last pass: 5 passes at M = 16384, each thread holding 16
-// values in registers between one read and one write of shared memory.
-// Twiddles are computed in registers (one sincospif per butterfly, then
-// powers), not read from a table, whose strided reads conflict on the
-// shared-memory banks; one pad element per 32 keeps the first passes'
-// strided writes conflict-free too.  The spectrum split, the multiply by
-// khat and the inverse's pre-twiddle are one pairwise (k, M-k) pass.  The
-// irfft's 1/n is applied in the epilogue.
+// fit in a block's 227 KB).  The complex FFTs are the Stockham radix-8
+// transforms of fft_stockham.cuh: 5 passes at M = 16384, M / 16 threads
+// per row.  The spectrum split, the multiply by khat and the inverse's
+// pre-twiddle are one pairwise (k, M-k) pass.  The irfft's 1/n is applied
+// in the epilogue.
 
 #include <cuda_runtime.h>
 
+#include "fft_stockham.cuh"
+
 namespace {
 
-constexpr int VPT = 16;    // complex values per thread per pass
-
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
-}
-__device__ __forceinline__ float2 csub(float2 a, float2 b) {
-  return make_float2(a.x - b.x, a.y - b.y);
-}
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-__device__ __forceinline__ float2 cconj(float2 a) {
-  return make_float2(a.x, -a.y);
-}
-// i * a
-__device__ __forceinline__ float2 cmuli(float2 a) {
-  return make_float2(-a.y, a.x);
-}
-// a * (-i) forward, a * i inverse: the radix-4 rotation W4
-template <bool INV>
-__device__ __forceinline__ float2 rot4(float2 a) {
-  return INV ? make_float2(-a.y, a.x) : make_float2(a.y, -a.x);
-}
-
-__device__ __forceinline__ float gelu_erf(float x) {
-  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
-}
-
-// In-register DFTs of size 2, 4, 8, natural order in and out;
-// forward uses exp(-2 pi i / R), inverse exp(+2 pi i / R), unnormalised.
-template <bool INV>
-__device__ __forceinline__ void dft2(float2* v) {
-  const float2 t = csub(v[0], v[1]);
-  v[0] = cadd(v[0], v[1]);
-  v[1] = t;
-}
-
-template <bool INV>
-__device__ __forceinline__ void dft4(float2* v) {
-  const float2 s02 = cadd(v[0], v[2]), d02 = csub(v[0], v[2]);
-  const float2 s13 = cadd(v[1], v[3]), d13 = rot4<INV>(csub(v[1], v[3]));
-  v[0] = cadd(s02, s13);
-  v[2] = csub(s02, s13);
-  v[1] = cadd(d02, d13);
-  v[3] = csub(d02, d13);
-}
-
-template <bool INV>
-__device__ __forceinline__ void dft8(float2* v) {
-  float2 e[4] = {v[0], v[2], v[4], v[6]};
-  float2 o[4] = {v[1], v[3], v[5], v[7]};
-  dft4<INV>(e);
-  dft4<INV>(o);
-  const float h = 0.70710678118654752f;
-  // W8^k for k = 1, 2, 3 (conjugated for the inverse)
-  const float2 w1 = INV ? make_float2(h, h) : make_float2(h, -h);
-  const float2 w3 = INV ? make_float2(-h, h) : make_float2(-h, -h);
-  o[1] = cmul(o[1], w1);
-  o[2] = rot4<INV>(o[2]);
-  o[3] = cmul(o[3], w3);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    v[k] = cadd(e[k], o[k]);
-    v[k + 4] = csub(e[k], o[k]);
-  }
-}
-
-template <int R, bool INV>
-__device__ __forceinline__ void dft(float2* v) {
-  if (R == 8) dft8<INV>(v);
-  else if (R == 4) dft4<INV>(v);
-  else dft2<INV>(v);
-}
-
-// Shared-memory slot of complex element i: one pad slot per 32 elements.
-__device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
-
-// One Stockham radix-R pass over z (length M) at sub-transform size Ns:
-// butterfly j reads z[j + r M/R], twiddles by W_{Ns R}^{(j mod Ns) r},
-// transforms, and writes z[(j / Ns) Ns R + j mod Ns + r Ns].  Each of the
-// nt = M / 16 threads does 16 / R butterflies; all reads finish (barrier)
-// before any write, so the pass works in place.
-template <int R, bool INV>
-__device__ void stockham_pass(float2* z, int M, int Ns) {
-  constexpr int NB = VPT / R;
-  const int nt = blockDim.x, stride = M / R;
-  float2 v[NB][R];
-#pragma unroll
-  for (int q = 0; q < NB; ++q) {
-    const int j = threadIdx.x + q * nt;
-    const int k = j & (Ns - 1);
-#pragma unroll
-    for (int r = 0; r < R; ++r) v[q][r] = z[pad(j + r * stride)];
-    if (Ns > 1) {
-      // W = exp(-+2 pi i k / (Ns R)); the argument is exact in float
-      float s, c;
-      sincospif(2.0f * (float)k / (float)(Ns * R), &s, &c);
-      const float2 w1 = make_float2(c, INV ? s : -s);
-      float2 w = w1;
-#pragma unroll
-      for (int r = 1; r < R; ++r) {
-        v[q][r] = cmul(v[q][r], w);
-        w = cmul(w, w1);
-      }
-    }
-    dft<R, INV>(v[q]);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int q = 0; q < NB; ++q) {
-    const int j = threadIdx.x + q * nt;
-    const int k = j & (Ns - 1);
-    const int base = (j - k) * R + k;
-#pragma unroll
-    for (int r = 0; r < R; ++r) z[pad(base + r * Ns)] = v[q][r];
-  }
-  __syncthreads();
-}
-
-// Complex FFT of length M = 2^log2M >= 16 in place, natural order in and
-// out: radix-8 passes, then one radix-4 or radix-2 pass for the rest.
-template <bool INV>
-__device__ void fft(float2* z, int M) {
-  int Ns = 1;
-  while (Ns * 8 <= M) {
-    stockham_pass<8, INV>(z, M, Ns);
-    Ns *= 8;
-  }
-  if (Ns * 4 == M) stockham_pass<4, INV>(z, M, Ns);
-  else if (Ns * 2 == M) stockham_pass<2, INV>(z, M, Ns);
-}
+using namespace dwst_fft;
 
 // W^k = exp(-i pi k / M), the twiddle of the packed real transform.
 __device__ __forceinline__ float2 half_twiddle(int k, int M) {
@@ -251,7 +120,7 @@ fftconv_kernel(const float* __restrict__ u, const float* __restrict__ a,
     load_packed(z, ur, L, M);
   }
   __syncthreads();
-  fft<false>(z, M);
+  fft<false>(z, M, tid, nt);
 
   // Per pair (k, M-k): split the packed spectrum Z into the real signal's
   // half spectrum X, multiply by khat, and fold the product Y back into
@@ -283,7 +152,7 @@ fftconv_kernel(const float* __restrict__ u, const float* __restrict__ a,
     if (mk != k) z[pad(mk)] = cadd(cconj(sa), cmuli(cmul(w, cconj(sb))));
   }
   __syncthreads();
-  fft<true>(z, M);
+  fft<true>(z, M, tid, nt);
 
   // epilogue: 1/n; in the sampling form also the D-skip on the
   // post-prologue input and exact GELU
@@ -322,7 +191,7 @@ fftconv_dkf_kernel(const float* __restrict__ u, const float* __restrict__ g,
     const size_t row = ((size_t)b * H + h) * L;
     load_packed(z, u + row, L, M);
     __syncthreads();
-    fft<false>(z, M);
+    fft<false>(z, M, tid, nt);
 #pragma unroll
     for (int i = 0; i < MAX_PAIRS; ++i) {
       const int k = tid + i * nt;
@@ -338,7 +207,7 @@ fftconv_dkf_kernel(const float* __restrict__ u, const float* __restrict__ g,
     __syncthreads();           // all reads of z done before it is reused
     load_packed(z, g + row, L, M);
     __syncthreads();
-    fft<false>(z, M);
+    fft<false>(z, M, tid, nt);
 #pragma unroll
     for (int i = 0; i < MAX_PAIRS; ++i) {
       const int k = tid + i * nt;

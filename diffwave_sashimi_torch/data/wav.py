@@ -1,8 +1,9 @@
 """WAV reading for the data layer (scipy).
 
-Port of ``diffwave_sashimi_tpu/data/wav.py::load_wav_raw``: files store
-int16 PCM, and model-side audio is float in [-1, 1] after division by
-:data:`MAX_WAV_VALUE` (the reference's convention).
+Port of ``diffwave_sashimi_tpu/data/wav.py`` (``load_wav_raw``,
+``load_wav_float``): files store int16 PCM, and model-side audio is float
+in [-1, 1] after division by :data:`MAX_WAV_VALUE` (the reference's
+convention).
 """
 
 from __future__ import annotations
@@ -32,3 +33,9 @@ def load_wav_raw(path: str) -> Tuple[np.ndarray, int]:
     else:
         raise ValueError(f"unsupported wav dtype {data.dtype} in {path}")
     return audio, int(sr)
+
+
+def load_wav_float(path: str) -> Tuple[np.ndarray, int]:
+    """(audio float32 in [-1, 1], sample_rate)."""
+    audio, sr = load_wav_raw(path)
+    return audio / MAX_WAV_VALUE, sr

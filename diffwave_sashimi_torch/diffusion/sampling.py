@@ -9,14 +9,15 @@ a TPU watchdog):
         x = (x - (1 - alpha_t) / sqrt(1 - abar_t) * eps) / sqrt(alpha_t)
         if t > 0: x += sigma_t * N(0, I)
 
-The S4 kernels depend only on the parameters, so they are built once, before
-the loop.  Noise comes from a ``torch.Generator``, or from an injected stack
-so a test can share it with the JAX package.
+The S4 kernels depend only on the parameters, and a vocoder's mel terms
+only on the mel and the parameters, so both are built once, before the
+loop.  Noise comes from a ``torch.Generator``, or from an injected stack so
+a test can share it with the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -56,10 +57,12 @@ def sampling_step(net, x: torch.Tensor, t: int, table: torch.Tensor,
 @torch.no_grad()
 def sampling(model, shape: Sequence[int], schedule: DiffusionSchedule,
              device=None, generator: Optional[torch.Generator] = None,
-             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+             noise: Optional[torch.Tensor] = None,
+             mel_conds: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """Draw (B, 1, L) samples.  ``noise`` (T+1, *shape), if given, replaces
     the generator: noise[0] is x_T and noise[1 + i] the draw of the i-th
-    step (t = T-1-i; the last step draws none)."""
+    step (t = T-1-i; the last step draws none).  A conditional model takes
+    its mel terms from ``model.compute_mel_conds(mel, L)``."""
     device = torch.device(device if device is not None else "cpu")
     T = schedule.T
     if noise is not None and tuple(noise.shape) != (T + 1, *shape):
@@ -74,7 +77,7 @@ def sampling(model, shape: Sequence[int], schedule: DiffusionSchedule,
     kernels = model.compute_kernels(shape[-1])
 
     def net(x, steps):
-        return model(x, steps, kernels)
+        return model(x, steps, kernels, mel_conds=mel_conds)
 
     table = schedule_table(schedule)
     has_embed = schedule.t_embed is not None

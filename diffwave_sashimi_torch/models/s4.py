@@ -173,7 +173,8 @@ class SSKernelNPLR(nn.Module):
 
 
 class S4(nn.Module):
-    """Bidirectional S4 layer.  Sampling path: fused conv (kernel 1) with
+    """Bidirectional S4 layer.  Sampling path: fused conv (kernel 1, or
+    kernel 9 for FFT sizes past kernel 1's, by the spectrum's layout) with
     the block's norm1 + step bias as prologue and D-skip + GELU as
     epilogue, then the output linear + GLU + block residual (kernel 2).
     Training path: the conv (kernels 1 and 5), D-skip and exact GELU in
@@ -203,7 +204,9 @@ class S4(nn.Module):
 
     def compute_kernel_freq(self, L: int, ops: Ops = FUSED) -> torch.Tensor:
         """(H, n/2+1) complex64 spectrum of the combined kernel at the
-        power-of-two n >= L_kernel + L: the conv kernel's input."""
+        power-of-two n >= L_kernel + L, L_kernel = min(L, l_max): the
+        conv's input (the sampling form's through
+        ``ops.sampling_spectrum``)."""
         k = self.compute_kernel(L, ops)
         n = _fft_size(k.shape[-1] + L)
         if self.bidirectional:

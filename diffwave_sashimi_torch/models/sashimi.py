@@ -13,14 +13,22 @@ ModuleList layout and state-dict names (``d_layers.{i}``, ``c_layers.{j}``,
 
 Each DiffWaveBlock runs the fused eval form of the JAX package
 (models/sashimi.py:222-254) as three kernels: norm1 + step bias + S4 conv +
-D-skip + GELU (kernel 1), output linear + GLU + residual (kernel 2), and
-norm2 + FF + residual + UNet skip (kernel 3), which also emits the channel
-statistics the next block's norm1 needs; only the first block after a pool
-computes them itself.  With ``train=True`` each block runs the training
+D-skip + GELU (kernel 1, or kernel 9 past kernel 1's FFT sizes), output
+linear + GLU + residual (kernel 2), and norm2 + FF + residual + UNet skip
+(kernel 3), which also emits the channel statistics the next block's norm1
+needs; only the first block after a pool computes them itself.  With ``train=True`` each block runs the training
 form (JAX models/sashimi.py:193-220): norm1 and the step bias in autograd,
 then the S4 training path, then norm2 + FF + residual + UNet skip as one
 differentiable Function (kernels 3 and 7); the S4 kernels are rebuilt
 with gradients in every forward.
+
+The conditional (vocoder) model adds, in every block, ``mel_conv(upsample(
+mel))`` to the residual that kernel 2 adds (JAX models/sashimi.py:237-242,
+equal to the reference's post-S4 add).  The term depends only on the mel
+and the parameters, so :meth:`Sashimi.compute_mel_conds` computes all 30
+once per run, like the S4 kernels.  At a pooled tier it is the full-rate
+upsampled mel cut to that tier's length, as in the JAX package and the
+reference.
 """
 
 from __future__ import annotations
@@ -31,8 +39,9 @@ from typing import List, Optional, Sequence
 import torch
 import torch.nn as nn
 
-from ..ops import FUSED, Ops
+from ..ops import FUSED, Ops, sampling_spectrum
 from ..ops.conv import TorchLinear, WNConv1d, ZeroConv1d, swish
+from ..ops.mel_upsample import MelUpsampler
 from .embedding import diffusion_step_embedding
 from .s4 import S4
 
@@ -88,11 +97,14 @@ class UpPool(nn.Module):
 
 
 class DiffWaveBlock(nn.Module):
-    """norm1 -> + step bias -> bidirectional S4 -> residual -> norm2 -> FF
-    -> residual (reference keys fc_t, norm1, norm2, layer, ff.ff.{0,2})."""
+    """norm1 -> + step bias -> bidirectional S4 -> residual [+ mel term]
+    -> norm2 -> FF -> residual (reference keys fc_t, norm1, norm2, layer,
+    ff.ff.{0,2}; conditional: upsample_conv2d.{0,1}, mel_conv)."""
 
     def __init__(self, d_model: int, L: int, ff: int = 2,
                  diffusion_step_embed_dim_out: int = 512,
+                 unconditional: bool = True,
+                 mel_upsample: Sequence[int] = (16, 16),
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         H = d_model
@@ -104,11 +116,20 @@ class DiffWaveBlock(nn.Module):
         self.ff = nn.ModuleDict({"ff": nn.Sequential(
             WNConv1d(H, ff * H, generator=generator), nn.GELU(),
             WNConv1d(ff * H, H, generator=generator))})
+        if not unconditional:
+            self.upsample_conv2d = MelUpsampler(mel_upsample, generator)
+            self.mel_conv = WNConv1d(80, H, generator=generator)
+
+    def compute_mel_cond(self, mel: torch.Tensor, L_gen: int) -> torch.Tensor:
+        """``mel_conv(upsample(mel))[..., :L_gen]``, (B, H, L_gen) for mel
+        (B, 80, frames) (JAX models/sashimi.py:160-175, flat layout)."""
+        return self.mel_conv(self.upsample_conv2d(mel, L_gen))
 
     def forward(self, x, embed, khat, stats=None, skip=None,
-                ops: Ops = FUSED):
+                ops: Ops = FUSED, mel_cond=None):
         """Returns (out, (mean, var)): the block output [+ skip] and its
-        channel statistics per position.  ``stats`` are x's, when known."""
+        channel statistics per position.  ``stats`` are x's, when known;
+        ``mel_cond`` (B or 1, H, L) joins kernel 2's residual."""
         bias = self.fc_t(embed)                                # (B, H)
         if stats is None:
             var, mean = torch.var_mean(x, dim=1, unbiased=False)
@@ -116,7 +137,8 @@ class DiffWaveBlock(nn.Module):
             mean, var = stats
         a = self.norm1.s * torch.rsqrt(var)                    # (B, L)
         c = (self.norm1.m - mean) * a
-        x = self.layer(x, khat, a, c, bias, residual=x, ops=ops)
+        res = x if mel_cond is None else x + mel_cond
+        x = self.layer(x, khat, a, c, bias, residual=res, ops=ops)
         ff1, ff2 = self.ff["ff"][0], self.ff["ff"][2]
         out, mean, var = ops.ff(
             x, self.norm2.m, self.norm2.s, ff1.effective_weight()[:, :, 0],
@@ -135,8 +157,7 @@ class DiffWaveBlock(nn.Module):
 
 
 class Sashimi(nn.Module):
-    """eps_theta((x_t, t)) with the reference constructor surface
-    (unconditional)."""
+    """eps_theta((x_t, t), mel) with the reference constructor surface."""
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  d_model: int = 64, n_layers: int = 8,
@@ -144,24 +165,23 @@ class Sashimi(nn.Module):
                  unet: bool = True, diffusion_step_embed_dim_in: int = 128,
                  diffusion_step_embed_dim_mid: int = 512,
                  diffusion_step_embed_dim_out: int = 512,
-                 unconditional: bool = True, L: int = 16000,
+                 unconditional: bool = True,
+                 mel_upsample: Sequence[int] = (16, 16), L: int = 16000,
                  dropout: float = 0.0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if not unconditional:
-            raise NotImplementedError(
-                "mel-conditioned SaShiMi (vocoding) is not ported yet: "
-                "ROADMAP.md queue 1, item 10")
         if dropout:
             raise NotImplementedError("S4 dropout (DropoutNd) is not ported "
                                       "yet: ROADMAP.md queue 1, item 5")
         g = generator
         self.pool, self.unet = tuple(pool), unet
+        self.unconditional = unconditional
         self.embed_dim_in = diffusion_step_embed_dim_in
         H = d_model
 
         def block(H, L):
-            return DiffWaveBlock(H, L, ff, diffusion_step_embed_dim_out, g)
+            return DiffWaveBlock(H, L, ff, diffusion_step_embed_dim_out,
+                                 unconditional, mel_upsample, g)
 
         self.init_conv = nn.Sequential(WNConv1d(in_channels, H, generator=g),
                                        nn.ReLU())
@@ -189,37 +209,71 @@ class Sashimi(nn.Module):
         self.final_conv = nn.Sequential(WNConv1d(H, H, generator=g), nn.ReLU(),
                                         ZeroConv1d(H, out_channels))
 
-    def compute_kernels(self, audio_length: int,
-                        ops: Ops = FUSED) -> List[torch.Tensor]:
-        """Every block's conv-kernel spectrum for sequences of
-        ``audio_length`` samples, in block order.  A pure function of the
-        parameters: the sampler computes it once for all T steps."""
+    def _blocks(self, audio_length: int):
+        """(block, its sequence length) for every block, in block order."""
         L, out = audio_length, []
         for layer in self.d_layers:
             if isinstance(layer, DownPool):
                 L //= layer.pool
             else:
-                out.append(layer.layer.compute_kernel_freq(L, ops))
-        out += [b.layer.compute_kernel_freq(L, ops) for b in self.c_layers]
+                out.append((layer, L))
+        out += [(b, L) for b in self.c_layers]
         for layer in self.u_layers:
             if isinstance(layer, UpPool):
                 L *= layer.pool
             else:
-                out.append(layer.layer.compute_kernel_freq(L, ops))
+                out.append((layer, L))
         return out
+
+    def compute_kernels(self, audio_length: int, ops: Ops = FUSED,
+                        train: bool = False) -> List[torch.Tensor]:
+        """Every block's conv-kernel spectrum for sequences of
+        ``audio_length`` samples, in block order.  A pure function of the
+        parameters: the sampler computes it once for all T steps.  For the
+        sampling form each spectrum comes in the layout of the conv kernel
+        that takes its FFT size (``ops.sampling_spectrum``); ``train``
+        keeps the half spectra of the training conv."""
+        out = [b.layer.compute_kernel_freq(L, ops)
+               for b, L in self._blocks(audio_length)]
+        return out if train else [sampling_spectrum(k) for k in out]
+
+    def compute_mel_conds(self, mel: torch.Tensor,
+                          audio_length: int) -> List[torch.Tensor]:
+        """Every block's mel term (B, H, L_tier) for mel (B, 80, frames),
+        in block order: a pure function of the mel and the parameters, so
+        the sampler computes it once for all T steps (JAX
+        models/sashimi.py:673-698; one block at a time, which bounds the
+        upsampler's transients)."""
+        return [b.compute_mel_cond(mel, L)
+                for b, L in self._blocks(audio_length)]
 
     def forward(self, audio: torch.Tensor, steps: torch.Tensor,
                 kernels: Optional[List[torch.Tensor]] = None,
-                ops: Ops = FUSED, train: bool = False) -> torch.Tensor:
+                ops: Ops = FUSED, train: bool = False,
+                mel: Optional[torch.Tensor] = None,
+                mel_conds: Optional[List[torch.Tensor]] = None
+                ) -> torch.Tensor:
         """audio (B, in_channels, L), steps (B,) -> eps (B, out_channels, L).
         ``kernels`` from :meth:`compute_kernels` (computed here if None).
-        ``train`` runs the differentiable training form of every block."""
+        ``train`` runs the differentiable training form of every block.
+        The conditional model takes ``mel`` (B or 1, 80, frames), each
+        block computing its term, or the terms from
+        :meth:`compute_mel_conds`."""
         if audio.shape[-1] % math.prod(self.pool):
             raise ValueError(f"audio length {audio.shape[-1]} must divide "
                              f"the pooling {self.pool}")
+        conditioned = mel is not None or mel_conds is not None
+        if conditioned == self.unconditional:
+            raise ValueError("a conditional model takes a mel (mel or "
+                             "mel_conds), an unconditional one none")
+        if train and conditioned:
+            raise NotImplementedError(
+                "training the mel-conditioned model is not ported yet: "
+                "ROADMAP.md queue 1, item 10 (vocoder training)")
         if kernels is None:
-            kernels = self.compute_kernels(audio.shape[-1], ops)
+            kernels = self.compute_kernels(audio.shape[-1], ops, train)
         khats = iter(kernels)
+        conds = None if mel_conds is None else iter(mel_conds)
         x = self.init_conv(audio)
         embed = diffusion_step_embedding(steps, self.embed_dim_in)
         embed = swish(self.fc_t2(swish(self.fc_t1(embed))))
@@ -228,7 +282,11 @@ class Sashimi(nn.Module):
             if train:
                 return layer.forward_train(x, embed, next(khats), skip,
                                            ops=ops), None
-            return layer(x, embed, next(khats), stats, skip=skip, ops=ops)
+            cond = next(conds) if conds is not None else (
+                None if mel is None
+                else layer.compute_mel_cond(mel, x.shape[-1]))
+            return layer(x, embed, next(khats), stats, skip=skip, ops=ops,
+                         mel_cond=cond)
 
         outputs, stats = [], None
         for layer in self.d_layers:

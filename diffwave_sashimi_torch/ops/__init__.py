@@ -18,10 +18,14 @@ from .chmix import (glu_res_bwd, glu_res_bwd_ref, glu_res_ref, ln_ff_res,
 from .fftconv import (fftconv, fftconv_dkf, fftconv_dkf_ref,
                       fftconv_ln_bias_gelu_d, fftconv_ln_bias_gelu_d_ref,
                       fftconv_ref, fftconv_train)
+from .fftconv_long import (fftconv_long, fftconv_long_ln_bias_gelu_d,
+                           fftconv_long_ln_bias_gelu_d_ref, fftconv_long_ref,
+                           long_spectrum, s4_conv, s4_conv_ref,
+                           sampling_spectrum)
 
 
 class Ops(NamedTuple):
-    conv: Callable        # kernel 1: fused S4 FFT conv (+ norm1/bias, D, GELU)
+    conv: Callable        # kernel 1 or 9 by FFT size: fused S4 conv
     glu: Callable         # kernel 2: output linear + GLU + residual
     ff: Callable          # kernel 3: norm2 + FF + residual (+ skip, stats)
     cauchy: Callable      # kernels 4 (+ 8): Cauchy sum of the S4 kernel
@@ -30,9 +34,9 @@ class Ops(NamedTuple):
     ff_train: Callable    # kernels 3 and 7
 
 
-FUSED = Ops(fftconv_ln_bias_gelu_d, mix_glu_res, ln_ff_res, cauchy_sym_fused,
+FUSED = Ops(s4_conv, mix_glu_res, ln_ff_res, cauchy_sym_fused,
             fftconv_train, mix_glu_res_train, ln_ff_res_train)
-PLAIN = Ops(fftconv_ln_bias_gelu_d_ref, glu_res_ref, ln_ff_res_ref,
+PLAIN = Ops(s4_conv_ref, glu_res_ref, ln_ff_res_ref,
             cauchy_sym, fftconv_ref, glu_res_ref, ln_ff_res_ref)
 
 # every kernel wrapper with a launch count, by kernel name
@@ -40,4 +44,6 @@ COUNTED = {"fftconv_ln_bias_gelu_d": fftconv_ln_bias_gelu_d,
            "glu_res": mix_glu_res, "ln_ff_res": ln_ff_res,
            "cauchy": cauchy_quad, "fftconv": fftconv,
            "fftconv_dkf": fftconv_dkf, "glu_res_bwd": glu_res_bwd,
-           "ln_ff_res_bwd": ln_ff_res_bwd, "cauchy_bwd": cauchy_bwd}
+           "ln_ff_res_bwd": ln_ff_res_bwd, "cauchy_bwd": cauchy_bwd,
+           "fftconv_long_ln_bias_gelu_d": fftconv_long_ln_bias_gelu_d,
+           "fftconv_long": fftconv_long}

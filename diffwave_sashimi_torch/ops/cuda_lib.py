@@ -23,7 +23,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "diffwave_sashimi_torch"
-_SOURCES = ("fftconv.cu", "chmix.cu", "cauchy.cu")
+_SOURCES = ("fftconv.cu", "fftconv_long.cu", "chmix.cu", "cauchy.cu")
+_HEADERS = ("fft_stockham.cuh",)
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC"]
 
@@ -50,6 +51,10 @@ _SIGNATURES = {
     "dwst_ln_ff_res_bwd": [_P] * 18 + [_I] * 5 + [_P],
     # a, b, c, d, z, g, da, db, dc, dd, K, M, N, Lz, stream
     "dwst_cauchy_bwd": [_P] * 10 + [_I] * 4 + [_P],
+    # u, a, c, bias, kp, D, scratch, out, B, H, L, n, stream
+    "dwst_fftconv_long_ln_bias_gelu_d": [_P] * 8 + [_I] * 4 + [_P],
+    # u, kp, scratch, out, B, H, L, n, stream
+    "dwst_fftconv_long": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 
@@ -64,7 +69,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     return h.hexdigest()[:16]

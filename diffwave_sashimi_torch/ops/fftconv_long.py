@@ -1,0 +1,161 @@
+"""Long S4 FFT convolution (kernel 9): FFT sizes past kernel 1's.
+
+Port of ``diffwave_sashimi_tpu/ops/fftconv_pallas.py::fftconv_fused`` (the
+four-step DFT conv, TPU kernels ``_kernel`` and ``_kernel_batched``), CUDA
+source ``csrc/fftconv_long.cu``.  Kernel 1 (:mod:`.fftconv`) holds a whole
+row in one block's shared memory, which caps it at n = 32768; the vocoder
+convolves at up to n = 2^18 (the generation length plus the S4 kernel
+capped at the trained length), so :func:`sampling_spectrum` puts the
+spectrum of every n above kernel 1's cap into this kernel's layout once per
+run, and the sampling conv :func:`s4_conv` routes by that layout:
+
+- ``(H, n/2+1)`` half spectrum, n <= 32768: kernel 1;
+- ``(H, N1, N2)`` factorized spectrum, 32768 < n <= 2^20: kernel 9.
+
+The factorized spectrum is the JAX kernel's (k1, k2) order, Hermitian
+completed: ``kp[h, k1, k2] = K[h, k1 + N1 k2]`` over the full n-point DFT
+K of the real combined kernel, with the DC and Nyquist bins real (the
+parts ``irfft`` reads).  Entries:
+
+- :func:`fftconv_long`: ``y = irfft(rfft(u, n) K, n)[:L]``, the TPU
+  kernel's contract;
+- :func:`fftconv_long_ln_bias_gelu_d`: the sampling form with kernel 1's
+  norm1/bias prologue and D-skip + GELU epilogue.
+
+Each launches its CUDA kernel for CUDA tensors and runs its plain version
+(``*_ref``: the half spectrum back out of the layout, then kernel 1's
+plain versions, exact at any n) for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cuda_lib
+from .fftconv import (fftconv_ln_bias_gelu_d, fftconv_ln_bias_gelu_d_ref,
+                      fftconv_ref)
+
+KERNEL1_MAX_N = 32768     # kernel 1's largest FFT (one block's shared memory)
+MAX_N = 1 << 20           # kernel 9's largest (N1, N2 <= 1024)
+
+
+def split(n: int):
+    """n = N1 N2 with N1 = 2^floor(l/2), N2 = 2^ceil(l/2) for n = 2^l (the
+    JAX package's mxu_fft._split_size for powers of two)."""
+    l = n.bit_length() - 1
+    return 1 << (l // 2), 1 << (l - l // 2)
+
+
+def long_spectrum(khat: torch.Tensor) -> torch.Tensor:
+    """(H, n/2+1) half spectrum -> (H, N1, N2) complex64 factorized
+    Hermitian-completed spectrum ``kp[h, k1, k2] = K[h, k1 + N1 k2]``."""
+    H, half = khat.shape
+    n = 2 * (half - 1)
+    N1, N2 = split(n)
+    full = torch.cat([khat, khat[:, 1:-1].flip(-1).conj()], dim=-1)
+    full[:, 0] = khat[:, 0].real                   # irfft reads only the
+    full[:, n // 2] = khat[:, -1].real             # real parts of these
+    return full.reshape(H, N2, N1).transpose(1, 2).contiguous()
+
+
+def half_spectrum(kp: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`long_spectrum`: (H, N1, N2) -> (H, n/2+1)."""
+    H, N1, N2 = kp.shape
+    n = N1 * N2
+    return kp.transpose(1, 2).reshape(H, n)[:, :n // 2 + 1]
+
+
+def sampling_spectrum(khat: torch.Tensor) -> torch.Tensor:
+    """The sampling conv's spectrum in the layout of the kernel that takes
+    its FFT size: kernel 1's half spectrum as it is up to
+    :data:`KERNEL1_MAX_N`, kernel 9's factorized one up to :data:`MAX_N`.
+    Built once per run, outside the T-step loop."""
+    n = 2 * (khat.shape[-1] - 1)
+    if n <= KERNEL1_MAX_N:
+        return khat
+    if n > MAX_N:
+        raise ValueError(f"FFT size {n} is past the long conv's {MAX_N}: "
+                         f"generation length too long for one pass")
+    return long_spectrum(khat)
+
+
+def fftconv_long_ref(u, kp):
+    """Plain version of :func:`fftconv_long`."""
+    return fftconv_ref(u, half_spectrum(kp))
+
+
+def fftconv_long_ln_bias_gelu_d_ref(u, a, c, bias, kp, D):
+    """Plain version of :func:`fftconv_long_ln_bias_gelu_d`."""
+    return fftconv_ln_bias_gelu_d_ref(u, a, c, bias, half_spectrum(kp), D)
+
+
+def _check(u, kp):
+    """(B, H, L, n) of a launch; raise on what the kernel does not take."""
+    B, H, L = u.shape
+    N1, N2 = kp.shape[1:]
+    n = N1 * N2
+    if n & (n - 1) or n < 256 or n > MAX_N or L > n or (N1, N2) != split(n):
+        raise ValueError(f"long conv: spectrum {tuple(kp.shape)} is no "
+                         f"power-of-two split of 256 <= n <= {MAX_N} "
+                         f">= L = {L}")
+    cuda_lib.check(u, (B, H, L), torch.float32)
+    cuda_lib.check(kp, (H, N1, N2), torch.complex64)
+    return B, H, L, n
+
+
+def _scratch(B, H, n, device):
+    """One complex n-row per (pair of batch rows, channel)."""
+    return torch.empty(((B + 1) // 2 * H, n), dtype=torch.complex64,
+                       device=device)
+
+
+def fftconv_long(u, kp):
+    """Kernel-9 wrapper, the TPU kernel's contract: the CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors."""
+    if not u.is_cuda:
+        return fftconv_long_ref(u, kp)
+    B, H, L, n = _check(u, kp)
+    out, scratch = torch.empty_like(u), _scratch(B, H, n, u.device)
+    cuda_lib.launch("dwst_fftconv_long", u.data_ptr(), kp.data_ptr(),
+                    scratch.data_ptr(), out.data_ptr(), B, H, L, n)
+    fftconv_long.launches += 1
+    return out
+
+
+fftconv_long.launches = 0
+
+
+def fftconv_long_ln_bias_gelu_d(u, a, c, bias, kp, D):
+    """Kernel-9 wrapper, sampling form (arguments as kernel 1's, with the
+    factorized spectrum)."""
+    if not u.is_cuda:
+        return fftconv_long_ln_bias_gelu_d_ref(u, a, c, bias, kp, D)
+    B, H, L, n = _check(u, kp)
+    for t, shape in ((a, (B, L)), (c, (B, L)), (bias, (B, H)), (D, (H,))):
+        cuda_lib.check(t, shape, torch.float32)
+    out, scratch = torch.empty_like(u), _scratch(B, H, n, u.device)
+    cuda_lib.launch("dwst_fftconv_long_ln_bias_gelu_d", u.data_ptr(),
+                    a.data_ptr(), c.data_ptr(), bias.data_ptr(),
+                    kp.data_ptr(), D.data_ptr(), scratch.data_ptr(),
+                    out.data_ptr(), B, H, L, n)
+    fftconv_long_ln_bias_gelu_d.launches += 1
+    return out
+
+
+fftconv_long_ln_bias_gelu_d.launches = 0
+
+
+def s4_conv(u, a, c, bias, khat, D):
+    """The sampling form's conv, routed by the spectrum's layout (see
+    :func:`sampling_spectrum`): kernel 9 for a factorized spectrum, kernel 1
+    for a half spectrum."""
+    if khat.dim() == 3:
+        return fftconv_long_ln_bias_gelu_d(u, a, c, bias, khat, D)
+    return fftconv_ln_bias_gelu_d(u, a, c, bias, khat, D)
+
+
+def s4_conv_ref(u, a, c, bias, khat, D):
+    """Plain version of :func:`s4_conv`."""
+    if khat.dim() == 3:
+        return fftconv_long_ln_bias_gelu_d_ref(u, a, c, bias, khat, D)
+    return fftconv_ln_bias_gelu_d_ref(u, a, c, bias, khat, D)

@@ -1,15 +1,22 @@
 """Generation runtime: checkpoint -> reverse diffusion -> wav files.
 
-Port of ``diffwave_sashimi_tpu/runtime/generate.py`` for unconditional
-SaShiMi at f32: resolve ``exp/<run>/checkpoint/<iter>.pkl`` by ``ckpt_iter``
-('max' | int), build the S4 kernels once, run the T-step sampler in batches,
-and write ``exp/<run>/waveforms/<iter>/<iter//1000>k_<i>.wav``.  The
-sampling time is taken between ``torch.cuda.synchronize()`` calls and
-reported with the realtime factor.
+Port of ``diffwave_sashimi_tpu/runtime/generate.py`` for SaShiMi at f32:
+resolve ``exp/<run>/checkpoint/<iter>.pkl`` by ``ckpt_iter`` ('max' |
+int), build the S4 kernels once, run the T-step sampler in batches, and
+write ``exp/<run>/waveforms/<iter>/<iter//1000>k_<i>.wav``.  The sampling
+time is taken between ``torch.cuda.synchronize()`` calls and reported with
+the realtime factor.
+
+Vocoding (``mel_name``): the mel is computed from
+``{data_path}/{mel_name}.wav``, or read precomputed from ``mel_path``
+(:mod:`..data.mel2samp`); the generated length is frames x hop_length; the
+blocks' mel terms are computed once per run; and ``fidelity.json`` beside
+the wavs compares the first sample with the source wav.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 import time
@@ -20,9 +27,12 @@ import torch
 from scipy.io import wavfile
 
 from ..config import load_config
+from ..data.mel2samp import Mel2Samp, load_mel_file
+from ..data.wav import load_wav_float, load_wav_raw
 from ..diffusion.sampling import sampling
 from ..diffusion.schedule import schedule_from_cfg
 from ..models import BF16_TODO, construct_model
+from ..utils.audio_metrics import compare
 from ..utils.exp import local_directory
 from .checkpoint import load_into, load_state_dict, resolve_iter
 
@@ -42,6 +52,39 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def resolve_condition(dataset_cfg, mel_path: Optional[str],
+                      mel_name: Optional[str]):
+    """(mel (1, 80, frames) numpy or None, audio_length): the length is
+    frames x hop_length when vocoding, else ``segment_length`` (JAX
+    runtime/generate.py:94-112)."""
+    if mel_name is None:
+        return None, int(dataset_cfg["segment_length"])
+    if mel_path is not None:
+        mel = load_mel_file(os.path.join(mel_path, f"{mel_name}.wav"))
+    else:
+        ds_cfg = {k: v for k, v in dict(dataset_cfg).items()
+                  if k != "_name_"}
+        audio, _ = load_wav_raw(os.path.join(dataset_cfg["data_path"],
+                                             f"{mel_name}.wav"))
+        mel = Mel2Samp(**ds_cfg).get_mel(audio)
+    mel = np.asarray(mel, np.float32)[None]
+    return mel, mel.shape[-1] * int(dataset_cfg["hop_length"])
+
+
+def write_fidelity(path: str, ref_wav: str, generated: np.ndarray, sr: int,
+                   mel_name: str, ckpt_iter: int) -> dict:
+    """The fidelity metrics of ``generated`` (L,) against the source wav,
+    written to ``path`` as JSON (non-finite values as null)."""
+    ref, _ = load_wav_float(ref_wav)
+    n = min(ref.shape[-1], generated.shape[-1])
+    m = {k: (float(v) if np.isfinite(v) else None)
+         for k, v in compare(ref[:n], generated[:n], sr).items()}
+    m.update(mel_name=mel_name, ckpt_iter=ckpt_iter)
+    with open(path, "w") as f:
+        json.dump(m, f, indent=1)
+    return m
+
+
 @torch.no_grad()
 def generate(diffusion_cfg, model_cfg, dataset_cfg, ckpt_iter="max",
              n_samples: int = 1, name: Optional[str] = None,
@@ -55,9 +98,6 @@ def generate(diffusion_cfg, model_cfg, dataset_cfg, ckpt_iter="max",
         raise NotImplementedError(BF16_TODO)
     if ckpt_smooth is not None:
         raise NotImplementedError("checkpoint smoothing is not ported yet")
-    if mel_name is not None or mel_path is not None:
-        raise NotImplementedError("mel-conditioned generation (vocoding) "
-                                  "is not ported yet")
     # f32 means f32: no TF32 in the 1x1 convolutions or the plain matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -81,18 +121,25 @@ def generate(diffusion_cfg, model_cfg, dataset_cfg, ckpt_iter="max",
     output_directory = os.path.join(output_directory, str(ckpt_iter))
     os.makedirs(output_directory, mode=0o775, exist_ok=True)
 
-    audio_length = int(dataset_cfg["segment_length"])
+    mel, audio_length = resolve_condition(dataset_cfg, mel_path, mel_name)
     batch_size = batch_size or n_samples
     if n_samples % batch_size:
         raise ValueError(f"n_samples {n_samples} must be a multiple of "
                          f"batch_size {batch_size}")
     gen = torch.Generator(device=device).manual_seed(seed)
     shape = (batch_size, 1, audio_length)
+    _sync(device)
+    t0 = time.perf_counter()
+    mel_conds = None if mel is None else model.compute_mel_conds(
+        torch.from_numpy(mel).to(device), audio_length)
+    _sync(device)
+    cond_s = time.perf_counter() - t0
     chunks, secs = [], []
     for _ in range(n_samples // batch_size):
         _sync(device)
         t0 = time.perf_counter()
-        x = sampling(model, shape, schedule, device=device, generator=gen)
+        x = sampling(model, shape, schedule, device=device, generator=gen,
+                     mel_conds=mel_conds)
         _sync(device)
         secs.append(time.perf_counter() - t0)
         chunks.append(x.cpu().numpy())
@@ -104,19 +151,32 @@ def generate(diffusion_cfg, model_cfg, dataset_cfg, ckpt_iter="max",
           f"iteration {ckpt_iter} on {device} in {total:.3f}s "
           f"({n_samples * audio_length / sr / total:.3f}x realtime, "
           f"{1000 * total / (len(secs) * schedule.T):.3f} ms per sampling "
-          f"step at batch {batch_size}; includes building the S4 kernels)",
-          flush=True)
+          f"step at batch {batch_size}; includes building the S4 kernels"
+          + ("" if mel is None else f"; the mel terms took {cond_s:.3f}s "
+             f"once, before") + ")", flush=True)
     for i in range(n_samples):
         wavfile.write(os.path.join(output_directory,
                                    f"{ckpt_iter // 1000}k_{i}.wav"),
                       sr, generated[i, 0].astype(np.float32))
+    ref_wav = None if mel_name is None else os.path.join(
+        dataset_cfg["data_path"], f"{mel_name}.wav")
+    if ref_wav is not None and os.path.exists(ref_wav):
+        m = write_fidelity(os.path.join(output_directory, "fidelity.json"),
+                           ref_wav, generated[0, 0], sr, mel_name, ckpt_iter)
+        print(f"fidelity vs {mel_name}: " + ", ".join(
+            f"{k}={v:.4g}" for k, v in m.items() if isinstance(v, float)),
+            flush=True)
+    elif ref_wav is not None:
+        print(f"no fidelity.json: no source wav at {ref_wav}", flush=True)
     return generated
 
 
 def main(argv=None):
     """CLI: ``python -m diffwave_sashimi_torch.runtime.generate
-    experiment=sc09 compute.precision=f32 generate.n_samples=4``
-    (Hydra-style overrides of the repository's configs/)."""
+    experiment=sc09 compute.precision=f32 generate.n_samples=4``, or
+    vocoding, ``experiment=ljspeech compute.precision=f32
+    generate.mel_name=<wav name> dataset.data_path=<dir>`` (Hydra-style
+    overrides of the repository's configs/)."""
     cfg = load_config(overrides=list(argv if argv is not None
                                      else sys.argv[1:]))
     print(cfg.to_yaml())

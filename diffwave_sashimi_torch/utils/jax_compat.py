@@ -4,7 +4,8 @@
 ``diffwave_sashimi_tpu/utils/torch_compat.py::sashimi_from_torch``: it maps
 the JAX ``{"params": ...}`` numpy tree of a SaShiMi model (block-scan
 stacked ``d0_blocks: {block: ...}`` or per-block ``d0_block{j}``) to the
-reference torch names the port's modules use.  Needs numpy only.
+reference torch names the port's modules use, with each block's mel
+conditioner when the model is conditional.  Needs numpy only.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ def _tln(sd, prefix: str, p: Mapping[str, Any]) -> None:
     sd[prefix + ".s"] = _t(p["s"])
 
 
-def _block(sd, prefix: str, p: Mapping[str, Any]) -> None:
+def _block(sd, prefix: str, p: Mapping[str, Any], conditional: bool) -> None:
     _linear(sd, prefix + ".fc_t", p["fc_t"])
     _tln(sd, prefix + ".norm1", p["norm1"])
     _tln(sd, prefix + ".norm2", p["norm2"])
@@ -47,6 +48,14 @@ def _block(sd, prefix: str, p: Mapping[str, Any]) -> None:
     _linear(sd, prefix + ".layer.output_linear.0", s4["output_linear"])
     _wn(sd, prefix + ".ff.ff.0.conv", p["ff1"])
     _wn(sd, prefix + ".ff.ff.2.conv", p["ff2"])
+    if conditional:
+        for i in (0, 1):
+            q = p["mel_upsampler"][f"upsample{i}"]
+            key = f"{prefix}.upsample_conv2d.{i}"
+            sd[key + ".weight_v"] = _t(q["v"])
+            sd[key + ".weight_g"] = _t(np.asarray(q["g"]).reshape(1, 1, 1, 1))
+            sd[key + ".bias"] = _t(q["b"])
+        _wn(sd, prefix + ".mel_conv.conv", p["mel_conv"])
 
 
 def params_from_jax(params: Mapping[str, Any], model_cfg
@@ -55,8 +64,7 @@ def params_from_jax(params: Mapping[str, Any], model_cfg
     port's ``state_dict``."""
     if model_cfg["_name_"] != "sashimi":
         raise NotImplementedError(f"{model_cfg['_name_']!r} is not ported")
-    if not model_cfg.get("unconditional", True):
-        raise NotImplementedError("mel-conditioned SaShiMi is not ported")
+    conditional = not model_cfg.get("unconditional", True)
     p = params.get("params", params)
     n_layers, pool = int(model_cfg["n_layers"]), list(model_cfg["pool"])
     unet = bool(model_cfg.get("unet", True))
@@ -74,18 +82,18 @@ def params_from_jax(params: Mapping[str, Any], model_cfg
     for si in range(len(pool)):
         if unet:
             for j in range(n_layers):
-                _block(sd, f"d_layers.{i}", blk(f"d{si}", j))
+                _block(sd, f"d_layers.{i}", blk(f"d{si}", j), conditional)
                 i += 1
         _wn(sd, f"d_layers.{i}.linear.conv", p[f"down{si}"]["linear"])
         i += 1
     for j in range(n_layers):
-        _block(sd, f"c_layers.{j}", blk("c", j))
+        _block(sd, f"c_layers.{j}", blk("c", j), conditional)
     i = 0
     for si in range(len(pool)):
         _wn(sd, f"u_layers.{i}.linear.conv", p[f"up{si}"]["linear"])
         i += 1
         for j in range(n_layers):
-            _block(sd, f"u_layers.{i}", blk(f"u{si}", j))
+            _block(sd, f"u_layers.{i}", blk(f"u{si}", j), conditional)
             i += 1
     _tln(sd, "norm", p["norm"])
     _wn(sd, "final_conv.0.conv", p["final_conv1"])

@@ -189,6 +189,13 @@ def test_chip_smoke_config_literals_match_load_config():
     assert cfg["diffusion"] == smoke.DIFFUSION_CFG
     assert cfg["model"] == smoke.MODEL_CFG
     assert cfg["dataset"] == smoke.DATASET_CFG
+    voc = json.loads(json.dumps(load_config(
+        overrides=["experiment=ljspeech"])))
+    assert voc["diffusion"] == smoke.VOC_DIFFUSION_CFG
+    assert voc["model"] == smoke.VOC_MODEL_CFG
+    assert voc["dataset"] == smoke.VOC_DATASET_CFG
+    assert voc["generate"]["mel_name"] == smoke.VOC_MEL
+    assert voc["generate"]["n_samples"] == smoke.VOC_SAMPLES
 
 
 def test_bf16_is_refused_not_run_as_f32(tmp_path, monkeypatch):

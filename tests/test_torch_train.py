@@ -221,6 +221,7 @@ def test_sc09_loader_matches_jax(tmp_path, replicas, replica_id):
 
 @pytest.mark.parametrize("overrides", [
     ["experiment=sc09"], ["experiment=sc09_wavenet"],
+    ["experiment=ljspeech"], ["experiment=ljspeech_harder"],
     ["experiment=sc09", "model.d_model=64", "train.n_iters=100",
      "+diffusion.fast_steps=6", "compute.precision=f32"],
     ["-m", "model.d_model=32,64", "model.pool=[2,2],[4,4]",
@@ -295,19 +296,24 @@ def test_entry_points_require_a_card_unless_asked_for_the_cpu(
 
 
 def test_entry_point_mains_import_no_jax(tmp_path):
-    """Both runtimes' main() load the config through the port's own
-    config.py and reach the device check; by then no module of jax or of
+    """Both runtimes' main() (generation for SC09 and for the vocoder)
+    load the config through the port's own config.py and reach the device
+    check, and the mel precompute CLI runs; by then no module of jax or of
     the JAX package has been imported."""
     code = (
         "import sys\n"
+        "from diffwave_sashimi_torch.data import mel2samp\n"
         "from diffwave_sashimi_torch.runtime import generate, train\n"
-        "for main in (generate.main, train.main):\n"
+        "for main, exp in ((generate.main, 'sc09'), (train.main, 'sc09'),\n"
+        "                  (generate.main, 'ljspeech')):\n"
         "    try:\n"
-        "        main(['experiment=sc09', 'compute.precision=f32'])\n"
+        "        main(['experiment=' + exp, 'compute.precision=f32'])\n"
         "    except RuntimeError as e:\n"
         "        assert 'no CUDA device' in str(e), e\n"
         "    else:\n"
         "        raise SystemExit('main() ran without a card')\n"
+        "assert mel2samp.main(['experiment=ljspeech', "
+        "'+output_dir=mels']) == 0\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'diffwave_sashimi_tpu'))\n"
         "print(bad)\n"
@@ -318,4 +324,5 @@ def test_entry_point_mains_import_no_jax(tmp_path):
     r = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
                        env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
-    assert r.stdout.count("d_model: 128") == 2      # both printed the config
+    assert r.stdout.count("d_model: 128") == 3    # each printed the config
+    assert r.stdout.count("mel_upsample:") == 1
