@@ -55,14 +55,38 @@ Phases, each fatal on failure (non-zero exit, no result line):
     (n 16384 < 2L), timed;
 16. one vocoder eps forward through the kernels against the plain path;
 17. the vocoder step's eps forward timed both ways at B2 (ms per step, the
-    realtime factor), and a torch.profiler trace of two steps.
+    realtime factor), and a torch.profiler trace of two steps;
+18. the WaveNet: the shipped ``experiment=sc09_wavenet`` model (res 256,
+    skip 256, 36 layers, dilation cycle 12) from a seed, with a perturbed
+    final conv, saved as a checkpoint under its ``wnet_h256_d36`` run name;
+19. kernel 11 (the gate + res/skip tail) against its plain version at the
+    sampling path's shape (B4 C256 S256 L16000), at B16, and at a ragged
+    length with S != C (C128 S256 L8960), timed;
+20. the WaveNet sampling path: ``generate()`` at T = 200, B4, with every
+    launch count set to 0 just before and read just after: kernel 11
+    exactly 36 x 200 times, every other kernel never; finite output of
+    shape (4, 1, 16000) in the ``<iter//1000>k_<i>.wav`` layout;
+21. one WaveNet eps forward through the kernel against the plain path,
+    and the same for a conditional WaveNet of that width (mel_upsample
+    [16, 16], a seeded mel of 63 frames, L 16128);
+22. the WaveNet eps forward timed both ways at B4 and B16 (ms per step,
+    the realtime factor at T = 200), and a torch.profiler trace of two
+    steps: device time in kernel 11, in the convolution and GEMM library
+    kernels (the dilated conv), and the rest, and the idle share;
+23. WaveNet training: ``runtime.train.main`` with ``experiment=sc09_wavenet
+    compute.precision=f32`` for 3 iterations at B4 on phase 8's synthetic
+    corpus (checkpoint at 2), then a resume from 'max' for one more
+    (checkpoint 3, whose Adam state must show 4 steps); finite losses, no
+    kernel launched (the training form has none, as in JAX); then the
+    training step timed.
 
 It prints the card's name and power limit, one JSON line with the kernels
 (each with its bound: the larger of its bytes over the HBM rate and its
 fp32 operations over the fp32 peak, at the top tier's shapes of the path
 that runs it), and last ``{"ok": true, "device": {...}}``.  The config
-blocks below are ``load_config(["experiment=sc09"])`` and
-``load_config(["experiment=ljspeech"])`` written out (a CPU test pins
+blocks below are ``load_config(["experiment=sc09"])``,
+``load_config(["experiment=ljspeech"])`` and the model block of
+``load_config(["experiment=sc09_wavenet"])`` written out (a CPU test pins
 them), so this script imports nothing of the JAX package.
 """
 
@@ -107,6 +131,24 @@ VOC_DATASET_CFG = {"_name_": "ljspeech",
                    "valid": False, "filter_length": 1024, "hop_length": 256,
                    "win_length": 1024, "mel_fmin": 0.0, "mel_fmax": 8000.0}
 
+WNET_MODEL_CFG = {"_name_": "wavenet", "unconditional": True,
+                  "in_channels": 1, "out_channels": 1,
+                  "diffusion_step_embed_dim_in": 128,
+                  "diffusion_step_embed_dim_mid": 512,
+                  "diffusion_step_embed_dim_out": 512, "res_channels": 256,
+                  "skip_channels": 256, "num_res_layers": 36,
+                  "dilation_cycle": 12}   # its diffusion and dataset: sc09's
+WNET_COND_CFG = dict(WNET_MODEL_CFG, unconditional=False,
+                     mel_upsample=[16, 16])
+WNET_MEL_FRAMES = 63          # x hop 256: L 16128 (phase 21)
+WNET_LAUNCHES = {"gate_res_skip": 36 * 200}   # generate() at T = 200
+WNET_TRAIN_OVERRIDES = ["experiment=sc09_wavenet", "compute.precision=f32",
+                        "train.iters_per_logging=1", "generate.n_samples=0"]
+# kernel 11's cases (B, C, S, L): the sampling path's, B16, and a ragged
+# length with S != C (wavenet_small's widths)
+GATE_CASES = ((N_SAMPLES, 256, 256, 16000), (16, 256, 256, 16000),
+              (N_SAMPLES, 128, 256, 8960))
+
 # name -> (source, TPU kernel it replaces, the paths that launch it)
 KERNELS = {
     "fftconv_ln_bias_gelu_d": ("diffwave_sashimi_torch/csrc/fftconv.cu",
@@ -139,8 +181,13 @@ KERNELS = {
         "diffwave_sashimi_tpu/ops/fftconv_pallas.py:78", ("vocode",)),
     "fftconv_long": ("diffwave_sashimi_torch/csrc/fftconv_long.cu",
                      "diffwave_sashimi_tpu/ops/fftconv_pallas.py:78", ()),
+    "gate_res_skip": ("diffwave_sashimi_torch/csrc/wavenet_gate.cu",
+                      "diffwave_sashimi_tpu/ops/wavenet_gate.py:58",
+                      ("wavenet",)),
 }
-PATHS = ("generate", "train", "vocode")
+PATHS = ("generate", "train", "vocode", "wavenet", "wavenet_train")
+# the tier of the JSON line's entry, where it is not H128 at the path's L
+TOP_TIER = {"gate_res_skip": f"B{N_SAMPLES}_C256_S256_L16000"}
 # kernel 9's entries compute kernel 1's functions (at larger n)
 SAME_FUNCTION = {"fftconv_long_ln_bias_gelu_d": "fftconv_ln_bias_gelu_d",
                  "fftconv_long": "fftconv"}
@@ -154,7 +201,7 @@ PORT_KERNELS = ("fftconv_kernel", "fftconv_dkf_kernel", "glu_res_kernel",
                 "glu_res_bwd_kernel", "ln_ff_res_kernel",
                 "ln_ff_res_bwd_kernel", "wgrad_kernel", "reduce_splits_kernel",
                 "cauchy_kernel", "cauchy_bwd_kernel", "cols_fwd_kernel",
-                "rows_kernel", "cols_inv_kernel")
+                "rows_kernel", "cols_inv_kernel", "gate_res_skip_kernel")
 
 
 def log(msg):
@@ -189,11 +236,13 @@ def max_err(out, ref):
     return float((out - ref).abs().max()), float(ref.abs().max())
 
 
-def work(name, B, H, L, n, K=6, N=32):
+def work(name, B, H, L, n, K=6, N=32, S=None):
     """(fp32 operations, bytes) of one call at these shapes: each input
     read once and each output written once; a real FFT of length n counted
-    as 2.5 n log2 n operations."""
+    as 2.5 n log2 n operations.  For kernel 11, H is C and S the skip
+    width (C by default)."""
     F, Lz = 2 * H, L // 2 + 1
+    S = H if S is None else S
     fft = 2.5 * n * math.log2(n)
     act = B * H * L * 4                  # one (B, H, L) f32 tensor
     spec = H * (n // 2 + 1) * 8          # one (H, n/2+1) spectrum
@@ -212,24 +261,29 @@ def work(name, B, H, L, n, K=6, N=32):
         "ln_ff_res_bwd": (10 * F * H * B * L, 3 * act + 2 * ff_w),
         "cauchy": ((13 + 11 * K) * H * N * Lz, coef + cauchy_io),
         "cauchy_bwd": ((30 + 16 * K) * H * N * Lz, 2 * coef + cauchy_io),
+        "gate_res_skip": (2 * B * L * H * (H + S),
+                          (4 * H + S) * B * L * 4
+                          + (H * H + H + S * H + S) * 4),
     }[SAME_FUNCTION.get(name, name)]
 
 
-def bound(name, B, H, L, n):
+def bound(name, B, H, L, n, S=None):
     """(bound_ms, bound_by): the least time of one call on the card."""
-    flops, nbytes = work(name, B, H, L, n)
+    flops, nbytes = work(name, B, H, L, n, S=S)
     t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def compare(name, H, L, kfn, pfn, reps, results, B=N_SAMPLES, n=None):
+def compare(name, H, L, kfn, pfn, reps, results, B=N_SAMPLES, n=None,
+            S=None, tier=None):
     """Hold one kernel wrapper against its plain version at tier (H, L)
     (each output of a tuple against its own bound), time both, record with
     the bound at batch B and FFT size n (by default the SC09 paths': the
-    next power of two >= 2L); raise on a miss."""
+    next power of two >= 2L) and skip width S (kernel 11); raise on a
+    miss."""
     import torch
-    tier = f"H{H}_L{L}"
+    tier = tier or f"H{H}_L{L}"
     out, ref = kfn(), pfn()
     torch.cuda.synchronize()
     outs = out if isinstance(out, tuple) else (out,)
@@ -253,7 +307,7 @@ def compare(name, H, L, kfn, pfn, reps, results, B=N_SAMPLES, n=None):
     t.setdefault("ms", ms)
     t.setdefault("plain_ms", plain_ms)
     t["bound_ms"], t["bound_by"] = bound(
-        name, B, H, L, n or 1 << (2 * L - 1).bit_length())
+        name, B, H, L, n or 1 << (2 * L - 1).bit_length(), S)
     if not ok:
         raise AssertionError(f"kernel {name} disagrees at {tier}")
 
@@ -507,11 +561,13 @@ def profile_train_step(torch, model, dev, steps=2):
                                   ops.FUSED), steps)
 
 
-def trace_steps(torch, step, steps=2):
+def trace_steps(torch, step, steps=2, groups=None):
     """A torch.profiler trace of ``steps`` calls of ``step`` after two
     untraced ones.  Returns the device time by kernel name (ms per step),
     the share of it in the port's kernels, and the device's idle share of
-    the window from the first kernel's start to the last one's end."""
+    the window from the first kernel's start to the last one's end; with
+    ``groups`` (label -> predicate on a kernel's short name), also the
+    device time of each group and of the rest."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         step()
@@ -545,6 +601,11 @@ def trace_steps(torch, step, steps=2):
     port = {name: ms for name, ms in by_name.items()
             if name.split("<")[0] in PORT_KERNELS}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    split = None
+    if groups:
+        split = {label: sum(ms for name, ms in by_name.items() if pred(name))
+                 for label, pred in groups.items()}
+        split["rest"] = sum(by_name.values()) - sum(split.values())
     return {"window_ms_per_step": window / 1e3 / steps,
             "device_busy_ms_per_step": busy / 1e3 / steps,
             "idle_share": 1.0 - busy / window,
@@ -553,7 +614,8 @@ def trace_steps(torch, step, steps=2):
             - sum(port.values()),
             "launches_per_step": len(kern) / steps,
             "port_kernels_by_name_ms_per_step": port,
-            "top_kernels_ms_per_step": dict(top)}
+            "top_kernels_ms_per_step": dict(top),
+            "groups_ms_per_step": split}
 
 
 def short_name(name):
@@ -696,6 +758,25 @@ def check_vocoder_kernels(torch, model, L, dev, results):
                 lambda: ops.ln_ff_res_ref(*ff), 10, results, B, d["n"])
 
 
+def check_eps(torch, model, x, steps, label, kernels=([], []), **cond):
+    """eps through the kernels (ops.FUSED, with kernels[0]) against the
+    plain path (ops.PLAIN, with kernels[1]) on the same inputs, at TOL_EPS;
+    returns the max abs error."""
+    from diffwave_sashimi_torch import ops
+    eps = model(x, steps, kernels[0], ops.FUSED, **cond)
+    eps_plain = model(x, steps, kernels[1], ops.PLAIN, **cond)
+    err, scale = max_err(eps, eps_plain)
+    atol, rtol = TOL_EPS
+    ok = bool(torch.isfinite(eps).all()) and bool(
+        ((eps - eps_plain).abs() <= atol + rtol * eps_plain.abs()).all())
+    log(f"phase {label}: kernels vs plain max_abs_err {err:.3e} "
+        f"(max|plain| {scale:.3e}, atol {atol} rtol {rtol}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok or scale == 0.0:
+        raise AssertionError(f"{label} through the kernels disagrees")
+    return err
+
+
 def check_vocoder_step(torch, model, mel, L, dev):
     """Phases 16 and 17: one vocoder eps forward through the kernels
     against the plain path; then the step timed both ways at B2 and
@@ -708,23 +789,195 @@ def check_vocoder_step(torch, model, mel, L, dev):
     conds = model.compute_mel_conds(torch.from_numpy(mel).to(dev), L)
     k_fused = model.compute_kernels(L, ops.FUSED)
     k_plain = model.compute_kernels(L, ops.PLAIN)
-    eps = model(x, steps, k_fused, ops.FUSED, mel_conds=conds)
-    eps_plain = model(x, steps, k_plain, ops.PLAIN, mel_conds=conds)
-    err, scale = max_err(eps, eps_plain)
-    atol, rtol = TOL_EPS
-    ok = bool(torch.isfinite(eps).all()) and bool(
-        ((eps - eps_plain).abs() <= atol + rtol * eps_plain.abs()).all())
-    log(f"phase vocoder eps: kernels vs plain max_abs_err {err:.3e} "
-        f"(max|plain| {scale:.3e}, atol {atol} rtol {rtol}) "
-        f"{'ok' if ok else 'FAIL'}")
-    if not ok or scale == 0.0:
-        raise AssertionError("vocoder eps through the kernels disagrees")
+    check_eps(torch, model, x, steps, "vocoder eps", (k_fused, k_plain),
+              mel_conds=conds)
     ms, plain_ms = paired_ms(
         lambda: model(x, steps, k_fused, ops.FUSED, mel_conds=conds),
         lambda: model(x, steps, k_plain, ops.PLAIN, mel_conds=conds), 3)
     trace = trace_steps(
         torch, lambda: model(x, steps, k_fused, ops.FUSED, mel_conds=conds))
     return ms, plain_ms, trace
+
+
+def build_wavenet(torch):
+    """Phase 18: the seeded full-width WaveNet saved as checkpoint 1000
+    under its run name in the current directory's ``exp/``; returns (model
+    on the CPU, run name)."""
+    from diffwave_sashimi_torch.runtime.checkpoint import save_checkpoint
+    from diffwave_sashimi_torch.utils.exp import local_directory
+    t0 = time.perf_counter()
+    model = build_model(torch, WNET_MODEL_CFG)
+    run, ckpt = local_directory(None, WNET_MODEL_CFG, DIFFUSION_CFG,
+                                DATASET_CFG, "checkpoint")
+    save_checkpoint(ckpt, 1000, model)
+    log(f"phase wavenet model: {run} built and saved in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return model, run
+
+
+def check_gate_kernel(torch, model, dev, results):
+    """Phase 19: kernel 11 vs its plain version at GATE_CASES, with the
+    first block's weights where the width is the model's and seeded ones
+    (scale 1/sqrt(C)) elsewhere, timed."""
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.ops.conv import weight_norm
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    blk = model.residual_layer["residual_blocks"][0]
+    for B, C, S, L in GATE_CASES:
+        if (C, S) == (256, 256):
+            wr = weight_norm(blk.res_conv)[:, :, 0]
+            ws = weight_norm(blk.skip_conv)[:, :, 0]
+            br, bs = blk.res_conv["bias"], blk.skip_conv["bias"]
+        else:
+            wr, br, ws, bs = (torch.randn(*shape, device=dev, generator=gen)
+                              / math.sqrt(C) for shape in
+                              ((C, C), (C,), (S, C), (S,)))
+        h = torch.randn(B, 2 * C, L, device=dev, generator=gen)
+        x = torch.randn(B, C, L, device=dev, generator=gen)
+        compare("gate_res_skip", C, L,
+                lambda: ops.gate_res_skip(h, x, wr, br, ws, bs),
+                lambda: ops.gate_res_skip_ref(h, x, wr, br, ws, bs),
+                10 if B > N_SAMPLES else 20, results, B=B, S=S,
+                tier=f"B{B}_C{C}_S{S}_L{L}")
+
+
+def run_wavenet_generate(torch, run, launches, dev):
+    """Phase 20: generate() from the WaveNet checkpoint with its launch
+    counts; returns its wall seconds."""
+    import numpy as np
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.runtime.generate import generate
+    for fn in ops.COUNTED.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    audio = generate(DIFFUSION_CFG, WNET_MODEL_CFG, DATASET_CFG,
+                     ckpt_iter="max", n_samples=N_SAMPLES, seed=SEED,
+                     device=dev)
+    gen_s = time.perf_counter() - t0
+    launches["wavenet"] = {k: f.launches for k, f in ops.COUNTED.items()}
+    log(f"phase wavenet generate: {gen_s:.2f} s wall; launches "
+        f"{launches['wavenet']}")
+    want = {k: WNET_LAUNCHES.get(k, 0) for k in ops.COUNTED}
+    if launches["wavenet"] != want:
+        raise AssertionError(f"wavenet sampling launches "
+                             f"{launches['wavenet']}, expected {want}")
+    if audio.shape != (N_SAMPLES, 1, 16000) or not np.isfinite(audio).all():
+        raise AssertionError(f"bad wavenet output {audio.shape}")
+    wavs = sorted(os.listdir(os.path.join("exp", run, "waveforms", "1000")))
+    if wavs != [f"1k_{i}.wav" for i in range(N_SAMPLES)]:
+        raise AssertionError(f"wav layout {wavs}")
+    log(f"output: shape {audio.shape}, finite, std {audio.std():.4f}, "
+        f"wavs {wavs}")
+    return gen_s
+
+
+def check_wavenet_step(torch, model, dev):
+    """Phases 21 and 22: eps kernel vs plain (unconditional, then a
+    conditional model of the same width with a seeded mel), then the step
+    timed both ways at B4 and B16 and traced at B4.  Returns a dict."""
+    from diffwave_sashimi_torch import ops
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    x = torch.randn(N_SAMPLES, 1, 16000, device=dev, generator=g)
+    steps = torch.tensor([199, 120, 40, 3][:N_SAMPLES], device=dev)
+    out = {"eps_err": check_eps(torch, model, x, steps, "wavenet eps")}
+    cond_model = build_model(torch, WNET_COND_CFG).to(dev).eval()
+    L = WNET_MEL_FRAMES * 256
+    mel = torch.randn(N_SAMPLES, 80, WNET_MEL_FRAMES, device=dev,
+                      generator=g)
+    conds = cond_model.compute_mel_conds(mel, L)
+    xc = torch.randn(N_SAMPLES, 1, L, device=dev, generator=g)
+    out["cond_eps_err"] = check_eps(torch, cond_model, xc, steps,
+                                    "wavenet conditional eps",
+                                    mel_conds=conds)
+    del cond_model, conds
+    torch.cuda.empty_cache()
+    out["step_ms"], out["step_plain_ms"] = {}, {}
+    for B in (N_SAMPLES, 16):
+        xb = torch.randn(B, 1, 16000, device=dev, generator=g)
+        sb = torch.randint(0, 200, (B,), device=dev, generator=g)
+        out["step_ms"][str(B)], out["step_plain_ms"][str(B)] = paired_ms(
+            lambda: model(xb, sb, [], ops.FUSED),
+            lambda: model(xb, sb, [], ops.PLAIN), 3)
+    T = DIFFUSION_CFG["T"]
+    out["realtime_factor"] = {B: int(B) * 16000 / 16000 / (T * ms / 1000)
+                              for B, ms in out["step_ms"].items()}
+    for B, ms in out["step_ms"].items():
+        log(f"timing: wavenet eps forward (one sampling step) at B{B} "
+            f"{ms:.3f} ms with kernel 11 vs {out['step_plain_ms'][B]:.3f} ms "
+            f"plain; T={T} -> {out['realtime_factor'][B]:.3f}x realtime "
+            f"from the step time")
+
+    def is_library(name):
+        lo = name.lower()
+        return any(s in lo for s in ("conv", "xmma", "gemm", "cudnn",
+                                     "cutlass", "implicit", "winograd"))
+    out["trace"] = trace_steps(
+        torch, lambda: model(x, steps, [], ops.FUSED),
+        groups={"gate_res_skip (kernel 11)":
+                lambda n: n.startswith("gate_res_skip_kernel"),
+                "convolution and GEMM library kernels": is_library})
+    log("trace: wavenet step with kernel 11: " + (
+        "no device time in the profiler's events (not measured)"
+        if out["trace"] is None else json.dumps(out["trace"])))
+    return out
+
+
+def run_wavenet_training(torch, root, model, launches, dev):
+    """Phase 23: the training CLI on the synthetic corpus, 3 iterations
+    (checkpoint 2), then resumed for one more (checkpoint 3); then the
+    training step of ``model`` timed.  Returns (losses, step ms)."""
+    import numpy as np
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
+    from diffwave_sashimi_torch.runtime import train as train_mod
+    from diffwave_sashimi_torch.utils.exp import local_directory
+    data = os.path.join(root, "sc09")
+    write_corpus(data)
+    overrides = WNET_TRAIN_OVERRIDES + [f"dataset.data_path={data}"]
+    for fn in ops.COUNTED.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    train_mod.main(overrides + ["train.n_iters=2", "train.iters_per_ckpt=2"])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_mod.main(overrides + ["train.n_iters=3", "train.iters_per_ckpt=3"])
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    launches["wavenet_train"] = {k: f.launches
+                                 for k, f in ops.COUNTED.items()}
+    run, ckpt = local_directory(None, WNET_MODEL_CFG, DIFFUSION_CFG,
+                                DATASET_CFG, "checkpoint", makedirs=False)
+    with open(os.path.join("exp", run, "metrics.jsonl")) as f:
+        losses = [(r["step"], r["train/loss"]) for r in map(json.loads, f)
+                  if "train/loss" in r]
+    saved = torch.load(os.path.join(ckpt, "3.pkl"), weights_only=True)
+    adam = {int(st["step"]) for st in
+            saved["optimizer_state_dict"]["state"].values()}
+    log(f"phase wavenet train: main() 3 iterations in {first_s:.2f} s wall, "
+        f"resume 1 iteration in {resume_s:.2f} s wall (each includes "
+        f"building the model); losses {losses}; checkpoints "
+        f"{sorted(os.listdir(ckpt))}; Adam steps in 3.pkl {adam}; launches "
+        f"{launches['wavenet_train']}")
+    if [i for i, _ in losses] != [0, 1, 2, 3] or not all(
+            np.isfinite(v) for _, v in losses):
+        raise AssertionError(f"wavenet training losses {losses}")
+    if sorted(os.listdir(ckpt)) != ["2.pkl", "3.pkl"] or adam != {4}:
+        raise AssertionError("wavenet checkpoints or resumed Adam state")
+    if any(launches["wavenet_train"].values()):
+        raise AssertionError("a kernel ran in wavenet training, which has "
+                             "none")
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    audio = 0.3 * torch.randn(N_SAMPLES, 1, 16000, device=dev, generator=g)
+    schedule = schedule_from_cfg(DIFFUSION_CFG)
+    optim = train_mod.make_optimizer(model, 2e-4)
+    model.train()
+    step_ms = cuda_ms(lambda: train_mod.train_step(model, optim, audio,
+                                                   schedule, g), 3)
+    log(f"timing: wavenet training step (forward, backward, Adam) at "
+        f"B{N_SAMPLES} {step_ms:.3f} ms (no kernel of the port: cuDNN "
+        f"convs and the plain tail under autograd)")
+    return losses, step_ms
 
 
 def main():
@@ -808,16 +1061,7 @@ def main():
         steps = torch.tensor([199, 120, 40, 3][:N_SAMPLES], device=dev)
         k_fused = model.compute_kernels(16000, ops.FUSED)
         k_plain = model.compute_kernels(16000, ops.PLAIN)
-        eps = model(x, steps, k_fused, ops.FUSED)
-        eps_plain = model(x, steps, k_plain, ops.PLAIN)
-        err, scale = max_err(eps, eps_plain)
-        atol, rtol = TOL_EPS
-        ok = bool(torch.isfinite(eps).all()) and bool(
-            ((eps - eps_plain).abs() <= atol + rtol * eps_plain.abs()).all())
-        log(f"phase eps: kernels vs plain max_abs_err {err:.3e} (max|plain| "
-            f"{scale:.3e}, atol {atol} rtol {rtol}) {'ok' if ok else 'FAIL'}")
-        if not ok or scale == 0.0:
-            raise AssertionError("eps through the kernels disagrees")
+        check_eps(torch, model, x, steps, "eps", (k_fused, k_plain))
 
         # phase 6: one sampling step's eps forward, kernels vs plain, at
         # the main path's batch and at 16
@@ -889,12 +1133,49 @@ def main():
     log("trace: vocoder step with the kernels: " + (
         "no device time in the profiler's events (not measured)"
         if voc_trace is None else json.dumps(voc_trace)))
+    del voc_model
+    torch.cuda.empty_cache()
+
+    # phases 18-20: the WaveNet checkpoint, kernel 11, sampling through
+    # generate()
+    wn_root = tempfile.TemporaryDirectory(prefix="dwst_smoke_wnet_")
+    os.chdir(wn_root.name)
+    try:
+        wn_model, wn_run = build_wavenet(torch)
+        wn_model = wn_model.to(dev).eval()
+        with torch.no_grad():
+            check_gate_kernel(torch, wn_model, dev, results)
+        wn_gen_s = run_wavenet_generate(torch, wn_run, launches, dev)
+    finally:
+        os.chdir(cwd)
+        wn_root.cleanup()
+
+    # phases 21 and 22: WaveNet eps kernel vs plain, step times, a trace
+    with torch.no_grad():
+        wn = check_wavenet_step(torch, wn_model, dev)
+    wn["generate_s"] = wn_gen_s
+    wn["realtime_factor_generate"] = N_SAMPLES * 16000 / 16000 / wn_gen_s
+    log(f"timing: wavenet generate() at B{N_SAMPLES}: "
+        f"{wn['realtime_factor_generate']:.3f}x realtime from its wall time "
+        f"(model build + load, {DIFFUSION_CFG['T']} steps, wav writes)")
+
+    # phase 23: WaveNet training through runtime.train.main
+    wn_train_root = tempfile.TemporaryDirectory(
+        prefix="dwst_smoke_wnet_train_")
+    os.chdir(wn_train_root.name)
+    try:
+        wn["train_losses"], wn["train_step_ms"] = run_wavenet_training(
+            torch, wn_train_root.name, wn_model, launches, dev)
+    finally:
+        os.chdir(cwd)
+        wn_train_root.cleanup()
     log(f"card: {smi[0]}")
 
     entries = []
     for name, (src, rep, paths) in KERNELS.items():
-        tier = (f"H128_L{voc_L}" if name.startswith("fftconv_long")
-                else "H128_L16000")
+        tier = TOP_TIER.get(name) or (
+            f"H128_L{voc_L}" if name.startswith("fftconv_long")
+            else "H128_L16000")
         r, top = results[name], results[name]["tiers"][tier]
         per_path = {p: launches[p][name] for p in PATHS}
         entries.append({
@@ -921,6 +1202,7 @@ def main():
                    "realtime_factor_step": voc_rtf,
                    "realtime_factor_generate": voc_audio_s / voc_gen_s,
                    "generate_s": voc_gen_s, "trace": voc_trace},
+        "wavenet": wn,
         "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,8 @@
 
 Port of ``diffwave_sashimi_tpu/models/__init__.py``: the remaining config
 keys are constructor keywords, and keys the constructor does not take are
-dropped (as the reference's ``**kwargs`` swallows them).  Only SaShiMi is
-ported so far, and only at f32.
+dropped (as the reference's ``**kwargs`` swallows them).  Both backbones,
+SaShiMi and WaveNet, are ported, at f32 only.
 """
 
 from __future__ import annotations
@@ -14,8 +14,9 @@ from typing import Any, Dict, Optional
 import torch
 
 from .sashimi import Sashimi
+from .wavenet import WaveNet
 
-_REGISTRY = {"sashimi": Sashimi}
+_REGISTRY = {"sashimi": Sashimi, "wavenet": WaveNet}
 BF16_TODO = ("compute.precision=bf16 is not ported yet: ROADMAP.md queue 1, "
              "'bf16 activation policy for sampling'")
 

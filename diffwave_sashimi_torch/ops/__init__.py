@@ -22,6 +22,7 @@ from .fftconv_long import (fftconv_long, fftconv_long_ln_bias_gelu_d,
                            fftconv_long_ln_bias_gelu_d_ref, fftconv_long_ref,
                            long_spectrum, s4_conv, s4_conv_ref,
                            sampling_spectrum)
+from .wavenet_gate import gate_res_skip, gate_res_skip_ref
 
 
 class Ops(NamedTuple):
@@ -32,12 +33,14 @@ class Ops(NamedTuple):
     conv_train: Callable  # kernels 1 (+ conj) and 5: the plain S4 conv
     glu_train: Callable   # kernels 2 and 6
     ff_train: Callable    # kernels 3 and 7
+    gate: Callable        # kernel 11: WaveNet gate + res/skip tail (eval)
 
 
 FUSED = Ops(s4_conv, mix_glu_res, ln_ff_res, cauchy_sym_fused,
-            fftconv_train, mix_glu_res_train, ln_ff_res_train)
+            fftconv_train, mix_glu_res_train, ln_ff_res_train, gate_res_skip)
 PLAIN = Ops(s4_conv_ref, glu_res_ref, ln_ff_res_ref,
-            cauchy_sym, fftconv_ref, glu_res_ref, ln_ff_res_ref)
+            cauchy_sym, fftconv_ref, glu_res_ref, ln_ff_res_ref,
+            gate_res_skip_ref)
 
 # every kernel wrapper with a launch count, by kernel name
 COUNTED = {"fftconv_ln_bias_gelu_d": fftconv_ln_bias_gelu_d,
@@ -46,4 +49,4 @@ COUNTED = {"fftconv_ln_bias_gelu_d": fftconv_ln_bias_gelu_d,
            "fftconv_dkf": fftconv_dkf, "glu_res_bwd": glu_res_bwd,
            "ln_ff_res_bwd": ln_ff_res_bwd, "cauchy_bwd": cauchy_bwd,
            "fftconv_long_ln_bias_gelu_d": fftconv_long_ln_bias_gelu_d,
-           "fftconv_long": fftconv_long}
+           "fftconv_long": fftconv_long, "gate_res_skip": gate_res_skip}

@@ -5,8 +5,10 @@ Port of ``diffwave_sashimi_tpu/ops/conv.py``.  The reference wraps each conv
 in ``weight_norm`` (keys ``<name>.conv.weight_v`` / ``.weight_g`` /
 ``.bias``); its later ``kaiming_normal_`` on the materialised weight is a
 no-op, so the effective init is torch's default U(+-1/sqrt(fan_in)) for v
-and the bias, with g = ||v|| per output channel.  These 1x1 convolutions run
-outside the fused kernels, as plain ``F.conv1d`` / ``torch.matmul``.
+and the bias, with g = ||v|| per output channel.  These convolutions run
+outside the fused kernels, as plain ``F.conv1d`` / ``torch.matmul``: the 1x1
+convs, and WaveNet's dilated k=3 conv, which the JAX package also leaves to
+XLA (its shifted-matmul form is a TPU workaround and is not ported).
 """
 
 from __future__ import annotations
@@ -28,36 +30,58 @@ def torch_uniform_(t: torch.Tensor, fan_in: int,
         return t.uniform_(-bound, bound, generator=generator)
 
 
+def weight_norm_params(in_channels: int, out_channels: int,
+                       kernel_size: int = 1,
+                       generator: Optional[torch.Generator] = None
+                       ) -> nn.ParameterDict:
+    """A weight-normalised conv's parameters ``weight_v`` (O, I, K),
+    ``weight_g`` (O, 1, 1) = ||v|| and ``bias`` (O,), with fan-in I * K.
+    Held directly by a module, the keys sit at that module's level (the
+    reference's ``res_conv.weight_v``)."""
+    fan_in = in_channels * kernel_size
+    v = torch_uniform_(torch.empty(out_channels, in_channels, kernel_size),
+                       fan_in, generator)
+    g = v.square().sum(dim=(1, 2), keepdim=True).sqrt()
+    b = torch_uniform_(torch.empty(out_channels), fan_in, generator)
+    return nn.ParameterDict({"weight_v": nn.Parameter(v),
+                             "weight_g": nn.Parameter(g),
+                             "bias": nn.Parameter(b)})
+
+
+def weight_norm(p: nn.ParameterDict) -> torch.Tensor:
+    """W = g * v / ||v||, norm over axes (1, 2); shape (O, I, K)."""
+    v = p["weight_v"]
+    g = p["weight_g"].reshape(-1, 1, 1)
+    return g * v / v.square().sum(dim=(1, 2), keepdim=True).sqrt()
+
+
 class WNConv1d(nn.Module):
-    """Weight-normalised 1x1 Conv1d (the only kernel size SaShiMi uses).
+    """Weight-normalised Conv1d with 'same' padding of
+    ``dilation * (kernel_size - 1) // 2`` (1x1 unless asked).
 
     Parameters sit in a ``conv`` dict so the state-dict keys read
-    ``conv.weight_v`` (O, I, 1), ``conv.weight_g`` (O, 1, 1) and
+    ``conv.weight_v`` (O, I, K), ``conv.weight_g`` (O, 1, 1) and
     ``conv.bias`` (O,), as under the reference's ``Conv`` wrapper."""
 
     def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 1, dilation: int = 1,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        v = torch_uniform_(torch.empty(out_channels, in_channels, 1),
-                           in_channels, generator)
-        g = v.square().sum(dim=(1, 2), keepdim=True).sqrt()
-        b = torch_uniform_(torch.empty(out_channels), in_channels, generator)
-        self.conv = nn.ParameterDict({"weight_v": nn.Parameter(v),
-                                      "weight_g": nn.Parameter(g),
-                                      "bias": nn.Parameter(b)})
+        self.dilation = dilation
+        self.padding = dilation * (kernel_size - 1) // 2
+        self.conv = weight_norm_params(in_channels, out_channels,
+                                       kernel_size, generator)
 
     def effective_weight(self) -> torch.Tensor:
-        """W = g * v / ||v||, norm over axes (1, 2); shape (O, I, 1)."""
-        v = self.conv["weight_v"]
-        g = self.conv["weight_g"].reshape(-1, 1, 1)
-        return g * v / v.square().sum(dim=(1, 2), keepdim=True).sqrt()
+        return weight_norm(self.conv)
 
     @property
     def bias(self) -> torch.Tensor:
         return self.conv["bias"]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv1d(x, self.effective_weight(), self.bias)
+        return F.conv1d(x, self.effective_weight(), self.bias,
+                        padding=self.padding, dilation=self.dilation)
 
 
 class ZeroConv1d(nn.Module):

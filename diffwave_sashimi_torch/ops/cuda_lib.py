@@ -23,7 +23,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "diffwave_sashimi_torch"
-_SOURCES = ("fftconv.cu", "fftconv_long.cu", "chmix.cu", "cauchy.cu")
+_SOURCES = ("fftconv.cu", "fftconv_long.cu", "chmix.cu", "cauchy.cu",
+            "wavenet_gate.cu")
 _HEADERS = ("fft_stockham.cuh",)
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC"]
@@ -55,6 +56,8 @@ _SIGNATURES = {
     "dwst_fftconv_long_ln_bias_gelu_d": [_P] * 8 + [_I] * 4 + [_P],
     # u, kp, scratch, out, B, H, L, n, stream
     "dwst_fftconv_long": [_P] * 4 + [_I] * 4 + [_P],
+    # h, x, Wr, br, Ws, bs, res, skip, B, C, S, L, stream
+    "dwst_gate_res_skip": [_P] * 8 + [_I] * 4 + [_P],
 }
 
 

@@ -1,8 +1,9 @@
 """Generation runtime: checkpoint -> reverse diffusion -> wav files.
 
-Port of ``diffwave_sashimi_tpu/runtime/generate.py`` for SaShiMi at f32:
-resolve ``exp/<run>/checkpoint/<iter>.pkl`` by ``ckpt_iter`` ('max' |
-int), build the S4 kernels once, run the T-step sampler in batches, and
+Port of ``diffwave_sashimi_tpu/runtime/generate.py`` for SaShiMi and
+WaveNet at f32: resolve ``exp/<run>/checkpoint/<iter>.pkl`` by ``ckpt_iter``
+('max' | int), build SaShiMi's S4 kernels once, run the T-step sampler in
+batches, and
 write ``exp/<run>/waveforms/<iter>/<iter//1000>k_<i>.wav``.  The sampling
 time is taken between ``torch.cuda.synchronize()`` calls and reported with
 the realtime factor.
@@ -151,7 +152,7 @@ def generate(diffusion_cfg, model_cfg, dataset_cfg, ckpt_iter="max",
           f"iteration {ckpt_iter} on {device} in {total:.3f}s "
           f"({n_samples * audio_length / sr / total:.3f}x realtime, "
           f"{1000 * total / (len(secs) * schedule.T):.3f} ms per sampling "
-          f"step at batch {batch_size}; includes building the S4 kernels"
+          f"step at batch {batch_size}; includes building any S4 kernels"
           + ("" if mel is None else f"; the mel terms took {cond_s:.3f}s "
              f"once, before") + ")", flush=True)
     for i in range(n_samples):

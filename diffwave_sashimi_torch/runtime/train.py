@@ -1,4 +1,5 @@
-"""Training runtime: SC09 unconditional SaShiMi at f32 on one card.
+"""Training runtime: SC09 unconditional SaShiMi or WaveNet at f32 on one
+card.
 
 Port of ``diffwave_sashimi_tpu/runtime/train.py`` (the reference's
 ``train.py``): run name and ``exp/<run>`` layout, diffusion schedule, SC09
@@ -10,11 +11,12 @@ an optional wall-clock budget ``max_seconds``.
 
 Each step draws t and z from a generator seeded by (seed, iteration), so a
 resumed run draws what an uninterrupted one would, runs the model's
-training form through the kernels (``ops.FUSED``: forward kernels 1-4,
-backward kernels 1, 5-8) and takes one Adam step.  Not ported, and refused
-by name: bf16 (``compute.precision``), dropout, mel conditioning,
-activation rematerialisation, data parallelism (``mesh.data`` > 1) and
-wandb.
+training form through the kernels (``ops.FUSED``: for SaShiMi forward
+kernels 1-4, backward kernels 1, 5-8; WaveNet's training form has none, as
+in JAX: cuDNN convs and the plain gate under autograd) and takes one Adam
+step.  Not ported, and refused by name: bf16 (``compute.precision``),
+dropout, mel conditioning, activation rematerialisation, data parallelism
+(``mesh.data`` > 1) and wandb.
 """
 
 from __future__ import annotations
@@ -54,7 +56,9 @@ def is_ssm_param(name: str) -> bool:
 def make_optimizer(model: torch.nn.Module, learning_rate: float,
                    s4_lr: Optional[float] = None) -> torch.optim.Adam:
     """Adam (optax.adam's defaults), with a second parameter group at
-    ``s4_lr`` for the SSM tensors when it is set."""
+    ``s4_lr`` for the SSM tensors when it is set (empty for a model without
+    S4, whose parameters all stay in the first, as under the JAX
+    ``multi_transform`` labels)."""
     if s4_lr is None:
         return torch.optim.Adam(model.parameters(), lr=learning_rate)
     named = list(model.named_parameters())

@@ -196,6 +196,13 @@ def test_chip_smoke_config_literals_match_load_config():
     assert voc["dataset"] == smoke.VOC_DATASET_CFG
     assert voc["generate"]["mel_name"] == smoke.VOC_MEL
     assert voc["generate"]["n_samples"] == smoke.VOC_SAMPLES
+    wnet = json.loads(json.dumps(load_config(
+        overrides=["experiment=sc09_wavenet"])))
+    assert wnet["model"] == smoke.WNET_MODEL_CFG
+    assert wnet["diffusion"] == smoke.DIFFUSION_CFG
+    assert wnet["dataset"] == smoke.DATASET_CFG
+    assert smoke.WNET_LAUNCHES["gate_res_skip"] == (
+        wnet["model"]["num_res_layers"] * wnet["diffusion"]["T"])
 
 
 def test_bf16_is_refused_not_run_as_f32(tmp_path, monkeypatch):

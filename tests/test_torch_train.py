@@ -296,16 +296,19 @@ def test_entry_points_require_a_card_unless_asked_for_the_cpu(
 
 
 def test_entry_point_mains_import_no_jax(tmp_path):
-    """Both runtimes' main() (generation for SC09 and for the vocoder)
-    load the config through the port's own config.py and reach the device
-    check, and the mel precompute CLI runs; by then no module of jax or of
-    the JAX package has been imported."""
+    """Both runtimes' main() (generation for SC09, for the vocoder and for
+    the WaveNet; training for SaShiMi and for the WaveNet) load the config
+    through the port's own config.py and reach the device check, and the
+    mel precompute CLI runs; by then no module of jax or of the JAX
+    package has been imported."""
     code = (
         "import sys\n"
         "from diffwave_sashimi_torch.data import mel2samp\n"
         "from diffwave_sashimi_torch.runtime import generate, train\n"
         "for main, exp in ((generate.main, 'sc09'), (train.main, 'sc09'),\n"
-        "                  (generate.main, 'ljspeech')):\n"
+        "                  (generate.main, 'ljspeech'),\n"
+        "                  (generate.main, 'sc09_wavenet'),\n"
+        "                  (train.main, 'sc09_wavenet')):\n"
         "    try:\n"
         "        main(['experiment=' + exp, 'compute.precision=f32'])\n"
         "    except RuntimeError as e:\n"
@@ -326,3 +329,4 @@ def test_entry_point_mains_import_no_jax(tmp_path):
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
     assert r.stdout.count("d_model: 128") == 3    # each printed the config
     assert r.stdout.count("mel_upsample:") == 1
+    assert r.stdout.count("num_res_layers: 36") == 2
