@@ -15,11 +15,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
    card at the shapes the sampling path gives it at all three UNet tiers;
 4. the main path: ``generate()`` at T = 200, f32, a few samples, with every
    kernel's launch count set to 0 just before and read just after (each
-   must be > 0), and finite output of the right shape;
+   must be > 0), and finite output of the right shape; then (4b) the
+   shipped command, ``runtime.generate.main(["experiment=sc09",
+   "generate.n_samples=4"])`` with no precision override (bf16: kernels
+   1f, 2f and 3f exactly 6000 times each, kernel 4 30 times, no f32 form),
+   and again with ``+compute.conv_int8=true`` (kernel 12 6000 times, 1f
+   never), counts read around each run;
 5. one eps forward through the kernels against the plain path on the card;
 6. timings (CUDA events, after warm-up): each kernel and its plain
    version, and the eps forward (one sampling step) both ways at the main
-   path's batch and at batch 16;
+   path's batch and at batch 16; then (6b) kernels 1f, 2f, 3f and 12 (its
+   bf16 and f32 epilogues) against their plain versions at the three
+   tiers, B4, timed, and kernel 12 against an f64 direct conv; (6c) bf16
+   and int8 eps through the kernels against the bf16 plain path, and the
+   quality gate: a 50-step reverse process with one
+   injected noise stack, whose bf16 and int8 x_0 must correlate >= 0.99999
+   with f32's; (6d) the bf16 and int8 eps step timed at B4 and B16 and
+   traced;
 7. the training kernels (kernel 1's training entry and its conjugate
    form, kernels 5-8) against their plain versions at the three tiers,
    with their times;
@@ -101,10 +113,29 @@ import time
 SEED = 0
 N_SAMPLES = 4                 # the main path's batch
 TOL_KERNEL = 1e-4             # |kernel - plain| <= TOL * max(1, max|plain|)
+# the bf16 forms (1f, 2f, 3f): about one bf16 rounding of the output; the
+# int8 conv (12): rare flips of a quantization tie between the two
+TOL_BF16 = 1e-2               # |kernel - plain| <= TOL * max(1, max|plain|)
+TOL_INT8 = 1e-2               # the same bar
+TOL_INT8_F64 = 3e-2           # kernel 12 vs an f64 direct conv, of max|ref|
 TOL_EPS = (1e-3, 1e-2)        # eps: |kernel - plain| <= atol + rtol * |plain|
+# bf16 / int8 eps through the kernels vs the same precision's plain path:
+# the kernels' bf16 roundings may land the other way and compound through
+# 30 blocks; max |kernel - plain| <= TOL * max|plain|
+TOL_EPS_BF16 = 4e-2
+# int8 eps: the int8 conv's own error on a row offset by the step bias
+# reaches ~1.5e-1 of its max at the top tier (phase 6b) and enters eps
+# through 30 blocks, at the same level through the kernels as through the
+# plain path; held to rms(kernels - bf16 plain) <= TOL * rms(int8 plain -
+# bf16 plain) + 1e-3, both relative to rms(bf16 plain)
+TOL_EPS_INT8 = 1.1
+CORR_MIN = 0.99999            # x_0 vs f32 over 50 steps (BASELINE.md:316)
 TOL_GRAD = 1e-3               # |grad kernels - plain| <= TOL * max(1, max|plain|)
-PEAK_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
+PEAK_OPS = {"fp32": 67e12,    # H100 SXM: fp32 outside the tensor cores,
+            "bf16": 989e12,   # dense bf16 and int8 on the tensor cores
+            "int8": 1979e12}
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
+QUALITY_CFG = {"T": 50, "beta_0": 0.0001, "beta_T": 0.02, "beta": None}
 TRAIN_OVERRIDES = ["experiment=sc09", "compute.precision=f32",
                    "train.n_iters=3", "train.iters_per_ckpt=2",
                    "train.iters_per_logging=1", "generate.n_samples=0"]
@@ -142,6 +173,13 @@ WNET_COND_CFG = dict(WNET_MODEL_CFG, unconditional=False,
                      mel_upsample=[16, 16])
 WNET_MEL_FRAMES = 63          # x hop 256: L 16128 (phase 21)
 WNET_LAUNCHES = {"gate_res_skip": 36 * 200}   # generate() at T = 200
+# the shipped SC09 command at T = 200 (30 blocks a step, kernel 4 once per
+# block and run): bf16, then with +compute.conv_int8=true
+BF16_LAUNCHES = {"fftconv_ln_bias_gelu_d_bf16": 30 * 200,
+                 "glu_res_bf16": 30 * 200, "ln_ff_res_bf16": 30 * 200,
+                 "cauchy": 30}
+INT8_LAUNCHES = dict(BF16_LAUNCHES, fftconv_ln_bias_gelu_d_bf16=0,
+                     fftconv_int8=30 * 200)
 WNET_TRAIN_OVERRIDES = ["experiment=sc09_wavenet", "compute.precision=f32",
                         "train.iters_per_logging=1", "generate.n_samples=0"]
 # kernel 11's cases (B, C, S, L): the sampling path's, B16, and a ragged
@@ -184,8 +222,23 @@ KERNELS = {
     "gate_res_skip": ("diffwave_sashimi_torch/csrc/wavenet_gate.cu",
                       "diffwave_sashimi_tpu/ops/wavenet_gate.py:58",
                       ("wavenet",)),
+    # the bf16 path's forms (fast=True) of kernels 1-3, and kernel 12, the
+    # int8 branch of fftconv2.py:427 (qscale, _consts_q8 :293)
+    "fftconv_ln_bias_gelu_d_bf16": ("diffwave_sashimi_torch/csrc/fftconv.cu",
+                                    "diffwave_sashimi_tpu/ops/fftconv2.py:427",
+                                    ("generate_bf16",)),
+    "glu_res_bf16": ("diffwave_sashimi_torch/csrc/chmix.cu",
+                     "diffwave_sashimi_tpu/ops/chmix.py:119",
+                     ("generate_bf16", "generate_int8")),
+    "ln_ff_res_bf16": ("diffwave_sashimi_torch/csrc/chmix.cu",
+                       "diffwave_sashimi_tpu/ops/chmix.py:182",
+                       ("generate_bf16", "generate_int8")),
+    "fftconv_int8": ("diffwave_sashimi_torch/csrc/fftconv_int8.cu",
+                     "diffwave_sashimi_tpu/ops/fftconv2.py:427",
+                     ("generate_int8",)),
 }
-PATHS = ("generate", "train", "vocode", "wavenet", "wavenet_train")
+PATHS = ("generate", "train", "vocode", "wavenet", "wavenet_train",
+         "generate_bf16", "generate_int8")
 # the tier of the JSON line's entry, where it is not H128 at the path's L
 TOP_TIER = {"gate_res_skip": f"B{N_SAMPLES}_C256_S256_L16000"}
 # kernel 9's entries compute kernel 1's functions (at larger n)
@@ -201,7 +254,8 @@ PORT_KERNELS = ("fftconv_kernel", "fftconv_dkf_kernel", "glu_res_kernel",
                 "glu_res_bwd_kernel", "ln_ff_res_kernel",
                 "ln_ff_res_bwd_kernel", "wgrad_kernel", "reduce_splits_kernel",
                 "cauchy_kernel", "cauchy_bwd_kernel", "cols_fwd_kernel",
-                "rows_kernel", "cols_inv_kernel", "gate_res_skip_kernel")
+                "rows_kernel", "cols_inv_kernel", "gate_res_skip_kernel",
+                "fftconv_int8_kernel")
 
 
 def log(msg):
@@ -233,26 +287,38 @@ def paired_ms(kernel_fn, plain_fn, reps):
 
 
 def max_err(out, ref):
+    out, ref = out.float(), ref.float()
     return float((out - ref).abs().max()), float(ref.abs().max())
 
 
-def work(name, B, H, L, n, K=6, N=32, S=None):
-    """(fp32 operations, bytes) of one call at these shapes: each input
-    read once and each output written once; a real FFT of length n counted
-    as 2.5 n log2 n operations.  For kernel 11, H is C and S the skip
-    width (C by default)."""
+def work(name, B, H, L, n, K=6, N=32, S=None, bpe=4):
+    """({operand type: operations}, bytes) of one call at these shapes:
+    each input read once and each output written once; a real FFT of
+    length n counted as 2.5 n log2 n fp32 operations.  For kernel 11, H is
+    C and S the skip width (C by default).  The _bf16 forms move bf16
+    activations and multiply bf16 operands; kernel 12 moves activations of
+    bpe bytes and multiplies int8 ones (its four-step layout's products)."""
+    base = name.removesuffix("_bf16")
+    if base != name:
+        bpe = 2
+    gemm = "fp32" if base == name else "bf16"
     F, Lz = 2 * H, L // 2 + 1
     S = H if S is None else S
     fft = 2.5 * n * math.log2(n)
-    act = B * H * L * 4                  # one (B, H, L) f32 tensor
+    act = B * H * L * bpe                # one (B, H, L) activation tensor
     spec = H * (n // 2 + 1) * 8          # one (H, n/2+1) spectrum
     glu_w, ff_w = (2 * H * H + 2 * H) * 4, (2 * F * H + F + H + 2) * 4
     coef = (2 * K * H * N + 2 * H * N) * 4
     cauchy_io = Lz * 8 + K * H * Lz * 8
-    return {
+    conv_io = 2 * act + spec + 2 * B * L * 4 + B * H * 4 + H * 4
+    if base == "fftconv_int8":
+        from diffwave_sashimi_torch.ops.int8conv import int8_layout
+        R, Sq, Rc = int8_layout(n, L)
+        return ({"int8": 8 * Sq * R * (Rc + Sq) * B * H,
+                 "fp32": 14 * B * H * L}, conv_io + H * L * 4)   # + W
+    ops, nbytes = {
         "fftconv_ln_bias_gelu_d": (B * H * (2 * fft + 3 * n) + 12 * B * H * L,
-                                   2 * act + spec + 2 * B * L * 4
-                                   + B * H * 4 + H * 4),
+                                   conv_io),
         "fftconv": (B * H * (2 * fft + 3 * n), 2 * act + spec),
         "fftconv_dkf": (B * H * (2 * fft + 4 * n), 2 * act + spec),
         "glu_res": (4 * H * H * B * L, 3 * act + glu_w),
@@ -264,24 +330,28 @@ def work(name, B, H, L, n, K=6, N=32, S=None):
         "gate_res_skip": (2 * B * L * H * (H + S),
                           (4 * H + S) * B * L * 4
                           + (H * H + H + S * H + S) * 4),
-    }[SAME_FUNCTION.get(name, name)]
+    }[SAME_FUNCTION.get(base, base)]
+    return {gemm if base in ("glu_res", "ln_ff_res") else "fp32": ops}, nbytes
 
 
-def bound(name, B, H, L, n, S=None):
-    """(bound_ms, bound_by): the least time of one call on the card."""
-    flops, nbytes = work(name, B, H, L, n, S=S)
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+def bound(name, B, H, L, n, S=None, bpe=4):
+    """(bound_ms, bound_by): the least time of one call on the card: the
+    larger of its bytes over the HBM rate and its operations over the peak
+    rate of their type (summed over the types)."""
+    ops, nbytes = work(name, B, H, L, n, S=S, bpe=bpe)
+    t_ops = sum(v / PEAK_OPS[t] for t, v in ops.items())
+    t_bytes = nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
 
 def compare(name, H, L, kfn, pfn, reps, results, B=N_SAMPLES, n=None,
-            S=None, tier=None):
+            S=None, tier=None, tol=TOL_KERNEL, bpe=4):
     """Hold one kernel wrapper against its plain version at tier (H, L)
-    (each output of a tuple against its own bound), time both, record with
-    the bound at batch B and FFT size n (by default the SC09 paths': the
-    next power of two >= 2L) and skip width S (kernel 11); raise on a
-    miss."""
+    (each output of a tuple against its own bound, tol x max(1, its
+    max|plain|)), time both, record with the bound at batch B, FFT size n
+    (by default the SC09 paths': the next power of two >= 2L), skip width
+    S (kernel 11) and bpe bytes an activation; raise on a miss."""
     import torch
     tier = tier or f"H{H}_L{L}"
     out, ref = kfn(), pfn()
@@ -289,14 +359,14 @@ def compare(name, H, L, kfn, pfn, reps, results, B=N_SAMPLES, n=None,
     outs = out if isinstance(out, tuple) else (out,)
     refs = ref if isinstance(ref, tuple) else (ref,)
     errs = [max_err(o, r) for o, r in zip(outs, refs)]
-    ok = all(e <= TOL_KERNEL * max(1.0, sc) for e, sc in errs) and all(
+    ok = all(e <= tol * max(1.0, sc) for e, sc in errs) and all(
         bool(torch.isfinite(o).all()) for o in outs)
     err = max(e for e, _ in errs)
     scale = max(sc for _, sc in errs)
     ms, plain_ms = paired_ms(kfn, pfn, reps)
     log(f"kernel {name} {tier}: max_abs_err {err:.3e} (per output "
         f"{', '.join(f'{e:.2e}/{sc:.2e}' for e, sc in errs)} of max|plain|) "
-        f"bound {TOL_KERNEL} x max(1, max|plain|) {'ok' if ok else 'FAIL'}; "
+        f"bound {tol} x max(1, max|plain|) {'ok' if ok else 'FAIL'}; "
         f"{ms:.4f} ms vs plain {plain_ms:.4f} ms")
     r = results.setdefault(name, {"max_abs_err": 0.0, "tiers": {}})
     r["max_abs_err"] = max(r["max_abs_err"], err)
@@ -307,7 +377,7 @@ def compare(name, H, L, kfn, pfn, reps, results, B=N_SAMPLES, n=None,
     t.setdefault("ms", ms)
     t.setdefault("plain_ms", plain_ms)
     t["bound_ms"], t["bound_by"] = bound(
-        name, B, H, L, n or 1 << (2 * L - 1).bit_length(), S)
+        name, B, H, L, n or 1 << (2 * L - 1).bit_length(), S, bpe)
     if not ok:
         raise AssertionError(f"kernel {name} disagrees at {tier}")
 
@@ -415,6 +485,214 @@ def check_kernels(torch, model, dev, results):
         for name, (kfn, pfn) in cases.items():
             compare(name, H, L, kfn, pfn, 3 if name == "cauchy" else 20,
                     results)
+
+
+def direct_conv_f64(torch, x, a, c, bias, khat, D, fast):
+    """Kernel 1's sampling function in f64 on the card: the prologue, the
+    conv by an f64 FFT of the f64 spectrum, the D-skip and the GELU (the
+    polynomial one for the bf16 form)."""
+    from diffwave_sashimi_torch import ops
+    L, n = x.shape[-1], 2 * (khat.shape[-1] - 1)
+    xn = (x.double() * a.double()[:, None] + c.double()[:, None]
+          + bias.double()[:, :, None])
+    y = torch.fft.irfft(torch.fft.rfft(xn, n=n) * khat.to(torch.complex128),
+                        n=n)[..., :L] + D.double()[:, None] * xn
+    return ops.gelu_fast(y) if fast else torch.nn.functional.gelu(y)
+
+
+def check_bf16_kernels(torch, model, dev, results):
+    """The bf16 forms of kernels 1-3 (1f, 2f, 3f) and kernel 12 with both
+    epilogues vs their plain versions at the sampling path's shapes of
+    every tier (B4, bf16 activations), timed; kernel 12 also vs an f64
+    direct conv of the same inputs."""
+    from diffwave_sashimi_torch import ops
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    bf = torch.bfloat16
+    f64 = {}
+    for H, L, blk in tier_blocks(model):
+        d = tier_inputs(torch, blk, L, gen, dev)
+        x, skip, lin = d["x"].to(bf), d["skip"].to(bf), d["lin"]
+        conv = (d["a"], d["c"], d["bias"], d["khat"], d["D"])
+        W = ops.int8_spectrum(d["khat"], L)[1]       # the main path's form
+        y = ops.fftconv_ln_bias_gelu_d_ref(x, *conv)
+        ff = (x, d["m2"], d["s2"], d["w1"], d["b1"], d["w2"], d["b2"], skip,
+              True)
+        cases = [
+            ("fftconv_ln_bias_gelu_d_bf16",
+             lambda: ops.fftconv_ln_bias_gelu_d_bf16(x, *conv),
+             lambda: ops.fftconv_ln_bias_gelu_d_ref(x, *conv), TOL_BF16,
+             None, 2),
+            ("glu_res_bf16",
+             lambda: ops.mix_glu_res_bf16(y, x, lin.weight, lin.bias),
+             lambda: ops.glu_res_ref(y, x, lin.weight, lin.bias), TOL_BF16,
+             None, 2),
+            ("ln_ff_res_bf16", lambda: ops.ln_ff_res_bf16(*ff),
+             lambda: ops.ln_ff_res_ref(*ff), TOL_BF16, None, 2),
+            ("fftconv_int8", lambda: ops.fftconv_int8(x, *conv, W),
+             lambda: ops.fftconv_int8_ref(x, *conv, W), TOL_INT8, None, 2),
+            ("fftconv_int8", lambda: ops.fftconv_int8(d["x"], *conv, W),
+             lambda: ops.fftconv_int8_ref(d["x"], *conv, W), TOL_INT8,
+             f"H{H}_L{L}_f32", 4),
+        ]
+        for name, kfn, pfn, tol, tier, bpe in cases:
+            compare(name, H, L, kfn, pfn, 10, results, tol=tol, tier=tier,
+                    bpe=bpe)
+        # vs f64, with the step bias (each row offset by a constant) and
+        # without; and the JAX algorithm (no mean split, W None) on the
+        # offset rows, recorded: the offset's window spectrum then sets
+        # every stage's per-tensor scale
+        a_, c_, bias, khat, D = conv
+        for form, xin in (("bf16", x), ("f32", d["x"])):
+            for case, b_, w_ in (("", bias, W),
+                                 ("_no_step_bias", torch.zeros_like(bias), W),
+                                 ("_no_mean_split", bias, None)):
+                cv = (a_, c_, b_, khat, D)
+                out = ops.fftconv_int8(xin, *cv, w_).double()
+                ref = direct_conv_f64(torch, xin, *cv, fast=form == "bf16")
+                rel = float((out - ref).abs().max() / ref.abs().max())
+                key = f"H{H}_L{L}_{form}{case}"
+                f64[key] = rel
+                ok = w_ is None or rel <= TOL_INT8_F64
+                log(f"kernel fftconv_int8 {key}: vs an f64 direct conv "
+                    f"max_abs_err / max|ref| {rel:.3e} ("
+                    + ("recorded" if w_ is None else
+                       f"bound {TOL_INT8_F64} {'ok' if ok else 'FAIL'}")
+                    + ")")
+                if not ok:
+                    raise AssertionError(f"kernel 12 vs f64 at {key}")
+    results["fftconv_int8"]["vs_f64_max_rel"] = f64
+
+
+def run_shipped_command(torch, run, launches):
+    """The shipped SC09 command, ``runtime.generate.main(["experiment=sc09",
+    "generate.n_samples=4"])`` with no precision override (bf16), then with
+    ``+compute.conv_int8=true``: exact launch counts, finite wavs.  Returns
+    the wall seconds of each."""
+    import numpy as np
+    from scipy.io import wavfile
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.runtime import generate as generate_mod
+    secs = {}
+    for path, extra, want in (
+            ("generate_bf16", [], BF16_LAUNCHES),
+            ("generate_int8", ["+compute.conv_int8=true"], INT8_LAUNCHES)):
+        for fn in ops.COUNTED.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        generate_mod.main(["experiment=sc09",
+                           f"generate.n_samples={N_SAMPLES}"] + extra)
+        torch.cuda.synchronize()
+        secs[path] = time.perf_counter() - t0
+        launches[path] = {k: f.launches for k, f in ops.COUNTED.items()}
+        log(f"phase {path}: main({extra}) {secs[path]:.2f} s wall; launches "
+            f"{launches[path]}")
+        expect = {k: want.get(k, 0) for k in ops.COUNTED}
+        if launches[path] != expect:
+            raise AssertionError(f"{path} launches {launches[path]}, "
+                                 f"expected {expect}")
+        wav_dir = os.path.join("exp", run, "waveforms", "1000")
+        wavs = [wavfile.read(os.path.join(wav_dir, f"1k_{i}.wav"))[1]
+                for i in range(N_SAMPLES)]
+        if any(w.shape != (16000,) or not np.isfinite(w).all()
+               for w in wavs):
+            raise AssertionError(f"bad {path} output")
+        log(f"output: {N_SAMPLES} wavs of 16000 samples, finite, std "
+            f"{np.std(wavs):.4f}")
+    return secs
+
+
+def check_bf16_path(torch, model, dev):
+    """The bf16 and int8 sampling paths on the same parameters as the f32
+    model: eps through the kernels vs the bf16 plain path (int8: vs the
+    int8 plain path's own distance to it); the eps step timed at B4 and B16
+    (kernels vs plain); a trace of two bf16 steps and two int8 steps; then
+    a 50-step reverse process (QUALITY_CFG) with one injected noise stack,
+    x_0 of bf16, bf16 + int8 and f32 + int8 against f32's.  Returns a
+    dict."""
+    import copy
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.diffusion.sampling import sampling
+    from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
+    bfm = copy.deepcopy(model)          # construct_model(..., "bf16") with
+    bfm.act_dtype = torch.bfloat16      # the f32 model's parameters
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    x = torch.randn(N_SAMPLES, 1, 16000, device=dev, generator=g)
+    steps = torch.tensor([199, 120, 40, 3][:N_SAMPLES], device=dev)
+    routes = {"bf16": (ops.FUSED, ops.PLAIN),
+              "int8": (ops.FUSED_INT8, ops.PLAIN_INT8)}
+    # each route's spectra (the int8 ones carry the window convs)
+    spectra = {o: bfm.compute_kernels(16000, o)
+               for pair in routes.values() for o in pair}
+    out = {"eps_err": {}, "quality": {}, "step_ms": {}, "step_plain_ms": {},
+           "trace": {}}
+    ref = bfm(x, steps, spectra[ops.PLAIN], ops.PLAIN)   # bf16 plain path
+
+    def rel_rms(e):
+        return float(((e - ref).square().mean() / ref.square().mean()).sqrt())
+    for label, (fused, plain) in routes.items():
+        eps = bfm(x, steps, spectra[fused], fused)
+        err, scale = max_err(eps, ref)
+        r = {"max_abs_err": err, "max_abs_plain": scale,
+             "rel_rms": rel_rms(eps)}
+        ok = eps.dtype == torch.float32 and bool(torch.isfinite(eps).all()) \
+            and scale > 0
+        if label == "bf16":
+            bar = f"max_abs_err <= {TOL_EPS_BF16} x max|plain|"
+            ok = ok and err <= TOL_EPS_BF16 * scale
+        else:
+            r["plain_rel_rms"] = rel_rms(bfm(x, steps, spectra[plain], plain))
+            bar = f"rel_rms <= {TOL_EPS_INT8} x plain_rel_rms + 1e-3"
+            ok = ok and r["rel_rms"] <= TOL_EPS_INT8 * r["plain_rel_rms"] \
+                + 1e-3
+        out["eps_err"][label] = r
+        log(f"phase {label} eps: kernels vs the bf16 plain path "
+            f"{json.dumps(r)} ({bar}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label} eps through the kernels disagrees")
+
+    for B in (N_SAMPLES, 16):
+        xb = torch.randn(B, 1, 16000, device=dev, generator=g)
+        sb = torch.randint(0, 200, (B,), device=dev, generator=g)
+        for label, (fused, plain) in routes.items():
+            key = f"{label}_B{B}"
+            out["step_ms"][key], out["step_plain_ms"][key] = paired_ms(
+                lambda: bfm(xb, sb, spectra[fused], fused),
+                lambda: bfm(xb, sb, spectra[plain], plain), 5)
+            log(f"timing: {label} eps forward (one sampling step) at B{B} "
+                f"{out['step_ms'][key]:.3f} ms with kernels vs "
+                f"{out['step_plain_ms'][key]:.3f} ms plain")
+    for label, (fused, _) in routes.items():
+        out["trace"][label] = trace_steps(
+            torch, lambda: bfm(x, steps, spectra[fused], fused))
+        log(f"trace: {label} sampling step with the kernels: " + (
+            "no device time in the profiler's events (not measured)"
+            if out["trace"][label] is None
+            else json.dumps(out["trace"][label])))
+
+    sched = schedule_from_cfg(QUALITY_CFG, fast=True)
+    shape = (N_SAMPLES, 1, 16000)
+    noise = torch.randn(sched.T + 1, *shape, device=dev, generator=g)
+    x32 = sampling(model, shape, sched, device=dev, noise=noise)
+    failed = []
+    for label, m, o in (("bf16", bfm, ops.FUSED),
+                        ("int8", bfm, ops.FUSED_INT8),
+                        ("int8_f32", model, ops.FUSED_INT8)):
+        xq = sampling(m, shape, sched, device=dev, noise=noise, ops=o)
+        corr = float(torch.corrcoef(torch.stack([xq.flatten(),
+                                                 x32.flatten()]))[0, 1])
+        q = {"corr": corr, "max_abs_diff": float((xq - x32).abs().max()),
+             "signal_std": float(x32.std())}
+        out["quality"][label] = q
+        ok = corr >= CORR_MIN and bool(torch.isfinite(xq).all())
+        log(f"phase quality {label}: x_0 over {sched.T} steps vs f32: corr "
+            f"{corr:.7f} (gate {CORR_MIN}), max abs diff "
+            f"{q['max_abs_diff']:.4f} on signal std {q['signal_std']:.4f} "
+            f"{'ok' if ok else 'FAIL'}")
+        failed += [] if ok else [label]
+
+    if failed:
+        raise AssertionError(f"x_0 fails the quality gate: {failed}")
+    return out
 
 
 def check_training_kernels(torch, model, dev, results):
@@ -1050,6 +1328,9 @@ def main():
             raise AssertionError(f"wav layout {sorted(wavs)}")
         log(f"output: shape {audio.shape}, finite, std {audio.std():.4f}, "
             f"wavs {sorted(wavs)}")
+
+        # phase 4b: the shipped command, bf16 and int8, through main()
+        shipped_s = run_shipped_command(torch, run, launches)
     finally:
         os.chdir(cwd)
         exp_root.cleanup()
@@ -1082,6 +1363,13 @@ def main():
     log(f"timing: generate() at B{N_SAMPLES}: "
         f"{N_SAMPLES * 16000 / sr / gen_s:.3f}x realtime from its wall time "
         f"(model build + load, S4 kernels, {T} steps, wav writes)")
+
+    # phases 6b-6d: the bf16 and int8 kernels at every tier; eps, quality,
+    # timing and traces of the bf16 and int8 paths
+    with torch.no_grad():
+        check_bf16_kernels(torch, model, dev, results)
+        bf16_path = check_bf16_path(torch, model, dev)
+    bf16_path["generate_s"] = shipped_s
 
     # phase 7: the training kernels vs plain at every tier
     with torch.no_grad():
@@ -1186,6 +1474,8 @@ def main():
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": None,
             "tiers": r["tiers"]})
+        if "vs_f64_max_rel" in r:
+            entries[-1]["vs_f64_max_rel"] = r["vs_f64_max_rel"]
         if name.startswith("fftconv_long"):     # the same function
             entries[-1]["also_replaces"] = (
                 "diffwave_sashimi_tpu/ops/fftconv_pallas.py:126")
@@ -1203,6 +1493,7 @@ def main():
                    "realtime_factor_generate": voc_audio_s / voc_gen_s,
                    "generate_s": voc_gen_s, "trace": voc_trace},
         "wavenet": wn,
+        "bf16_int8": bf16_path,
         "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,17 +29,26 @@
 // measured slower on the step.  The FF kernel computes the LayerNorm
 // statistics of its input and of its output itself.  GELU uses erff, the
 // sigmoid expf: the strict f32 path.
+//
+// Kernels 2f and 3f, the bf16 path's forms (the TPU kernels with
+// fast=True), are the same code templated on the activations' type: bf16
+// loads and stores halve the activation bytes, while the tiles in shared
+// memory and the products stay f32 on the CUDA cores.  As in the TPU
+// kernels, the weights, FF's normalised input and its GELU output (now
+// gelu_fast) are rounded to bf16 before their products, which accumulate
+// in f32; bias, sigmoid, LN statistics and residual adds are f32.  A
+// tensor-core (mma.sync bf16) form is left for later work.
 
 #include <cuda_runtime.h>
 
+#include "activations.cuh"
+
 namespace {
+
+using namespace dwst_act;
 
 constexpr int NT = 256;        // threads per block
 constexpr int TK = 8;          // contraction tile
-
-__device__ __forceinline__ float gelu_erf(float x) {
-  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
-}
 
 template <int P>
 struct Tile {
@@ -64,8 +73,9 @@ struct RowMap {
 
 // acc[r][j] = sum_k A[row(r), k] * Bs[k * P + pg * 8 + j] for the thread's
 // rows r < 4 -> local rg * 4 + r, r >= 4 -> TM/2 + rg * 4 + r - 4.
-// A is (rows x K) row-major with K % TK == 0; Bs is K x P.
-template <int P>
+// A is (rows x K) row-major with K % TK == 0; Bs is K x P.  RW rounds A's
+// entries to bf16 as they are loaded (the bf16 path's weights).
+template <int P, bool RW = false>
 __device__ void gemm_chunk(const float* __restrict__ A, int K, RowMap map,
                            const float* Bs, float* AsT, float acc[8][8]) {
   using T = Tile<P>;
@@ -94,6 +104,9 @@ __device__ void gemm_chunk(const float* __restrict__ A, int K, RowMap map,
     for (int q = 0; q < T::NPRE; ++q) {
       const int idx = tid + q * NT;
       const int lr = idx >> 1, k = 4 * (idx & 1);
+      if (RW)
+        pre[q] = make_float4(round_bf16(pre[q].x), round_bf16(pre[q].y),
+                             round_bf16(pre[q].z), round_bf16(pre[q].w));
       AsT[(k + 0) * T::LDT + lr] = pre[q].x;
       AsT[(k + 1) * T::LDT + lr] = pre[q].y;
       AsT[(k + 2) * T::LDT + lr] = pre[q].z;
@@ -129,12 +142,12 @@ __device__ __forceinline__ int local_row(int r) {
 }
 
 // xs[h * P + p] = x[b, h, t0 + p] (0 past L), h < H.
-template <int P>
-__device__ void load_tile(const float* __restrict__ x, float* xs, int b,
+template <int P, typename IO = float>
+__device__ void load_tile(const IO* __restrict__ x, float* xs, int b,
                           int H, int L, int t0) {
   for (int idx = threadIdx.x; idx < H * P; idx += NT) {
     const int h = idx / P, p = idx % P, t = t0 + p;
-    xs[idx] = t < L ? x[((size_t)b * H + h) * L + t] : 0.0f;
+    xs[idx] = t < L ? to_f(x[((size_t)b * H + h) * L + t]) : 0.0f;
   }
 }
 
@@ -166,11 +179,14 @@ __device__ void column_stats(const float* xs, int H, float* red,
   __syncthreads();
 }
 
-template <int P>
+// IO: the activations' type, float or bf16 (kernel 2f: W rounded to bf16
+// on load, f32 products, bias, sigmoid and residual add).
+template <int P, typename IO>
 __global__ void __launch_bounds__(NT, 1)
-glu_res_kernel(const float* __restrict__ y, const float* __restrict__ res,
+glu_res_kernel(const IO* __restrict__ y, const IO* __restrict__ res,
                const float* __restrict__ W, const float* __restrict__ bias,
-               float* __restrict__ out, int H, int L) {
+               IO* __restrict__ out, int H, int L) {
+  constexpr bool BF = sizeof(IO) == 2;
   using T = Tile<P>;
   extern __shared__ float4 sh4[];
   float* ys = reinterpret_cast<float*>(sh4);     // H x P
@@ -180,7 +196,8 @@ glu_res_kernel(const float* __restrict__ y, const float* __restrict__ res,
   load_tile<P>(y, ys, b, H, L, t0);
   for (int o0 = 0; o0 < H; o0 += T::TM / 2) {
     float acc[8][8];
-    gemm_chunk<P>(W, H, RowMap{o0, H + o0, H, 2 * H, T::TM / 2}, ys, AsT, acc);
+    gemm_chunk<P, BF>(W, H, RowMap{o0, H + o0, H, 2 * H, T::TM / 2}, ys, AsT,
+                      acc);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int o = o0 + local_row<P>(r);
@@ -192,21 +209,27 @@ glu_res_kernel(const float* __restrict__ y, const float* __restrict__ res,
         const int t = t0 + pg * 8 + j;
         if (t >= L) continue;
         const float g = acc[r + 4][j] + bg;
-        out[row + t] = res[row + t] + (acc[r][j] + ba) / (1.0f + expf(-g));
+        out[row + t] = from_f<IO>(to_f(res[row + t])
+                                  + (acc[r][j] + ba) / (1.0f + expf(-g)));
       }
     }
   }
 }
 
-template <int P>
+// IO: the activations' type, float or bf16 (kernel 3f: W1, W2, TLN(x) and
+// the GELU output rounded to bf16 before their products, gelu_fast, f32
+// LN statistics, bias and residual adds; the emitted statistics are the
+// f32 output's, before it is rounded).
+template <int P, typename IO>
 __global__ void __launch_bounds__(NT, 1)
-ln_ff_res_kernel(const float* __restrict__ x, const float* __restrict__ skip,
+ln_ff_res_kernel(const IO* __restrict__ x, const IO* __restrict__ skip,
                  const float* __restrict__ W1, const float* __restrict__ b1,
                  const float* __restrict__ W2, const float* __restrict__ b2,
                  const float* __restrict__ m_ptr,
-                 const float* __restrict__ s_ptr, float* __restrict__ out,
+                 const float* __restrict__ s_ptr, IO* __restrict__ out,
                  float* __restrict__ mean_out, float* __restrict__ var_out,
                  int H, int F, int L) {
+  constexpr bool BF = sizeof(IO) == 2;
   using T = Tile<P>;
   extern __shared__ float4 sh4[];
   float* xs = reinterpret_cast<float*>(sh4);     // H x P: TLN(x), later out
@@ -226,13 +249,14 @@ ln_ff_res_kernel(const float* __restrict__ x, const float* __restrict__ skip,
   const float m = *m_ptr, s = *s_ptr;
   for (int idx = tid; idx < H * P; idx += NT) {
     const int p = idx % P;
-    xs[idx] = s * rsqrtf(var_s[p]) * (xs[idx] - mean_s[p] + m);
+    const float v = s * rsqrtf(var_s[p]) * (xs[idx] - mean_s[p] + m);
+    xs[idx] = BF ? round_bf16(v) : v;
   }
 
   for (int f0 = 0; f0 < F; f0 += T::TM) {
     float acc[8][8];
-    gemm_chunk<P>(W1, H, RowMap{f0, f0 + T::TM / 2, F, F, T::TM / 2}, xs, AsT,
-                  acc);
+    gemm_chunk<P, BF>(W1, H, RowMap{f0, f0 + T::TM / 2, F, F, T::TM / 2}, xs,
+                      AsT, acc);
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const int f = f0 + local_row<P>(r);
@@ -240,14 +264,16 @@ ln_ff_res_kernel(const float* __restrict__ x, const float* __restrict__ skip,
       const float bf = b1[f];
       float* zr = zs + f * P + pg * 8;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) zr[j] = gelu_erf(acc[r][j] + bf);
+      for (int j = 0; j < 8; ++j)
+        zr[j] = BF ? round_bf16(gelu_fast(acc[r][j] + bf))
+                   : gelu_erf(acc[r][j] + bf);
     }
   }
 
   for (int h0 = 0; h0 < H; h0 += T::TM) {
     float acc[8][8];
-    gemm_chunk<P>(W2, F, RowMap{h0, h0 + T::TM / 2, H, H, T::TM / 2}, zs, AsT,
-                  acc);
+    gemm_chunk<P, BF>(W2, F, RowMap{h0, h0 + T::TM / 2, H, H, T::TM / 2}, zs,
+                      AsT, acc);
     // xs is free: every thread passed gemm_chunk's barriers after GEMM1
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
@@ -260,9 +286,9 @@ ln_ff_res_kernel(const float* __restrict__ x, const float* __restrict__ skip,
         const int p = pg * 8 + j, t = t0 + p;
         float v = 0.0f;
         if (t < L) {
-          v = x[row + t] + acc[r][j] + bh;
-          if (skip != nullptr) v += skip[row + t];
-          out[row + t] = v;
+          v = to_f(x[row + t]) + acc[r][j] + bh;
+          if (skip != nullptr) v += to_f(skip[row + t]);
+          out[row + t] = from_f<IO>(v);
         }
         xs[h * P + p] = v;
       }
@@ -662,44 +688,42 @@ int launch_ff_bwd(const float* x, const float* g, const float* W1,
   return (int)cudaGetLastError();
 }
 
-template <int P>
-int launch_glu(const float* y, const float* res, const float* W,
-               const float* b, float* out, int B, int H, int L,
+template <int P, typename IO>
+int launch_glu(const IO* y, const IO* res, const float* W,
+               const float* b, IO* out, int B, int H, int L,
                cudaStream_t stream) {
   using T = Tile<P>;
   const size_t smem = ((size_t)H * P + TK * T::LDT) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      glu_res_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      glu_res_kernel<P, IO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((L + P - 1) / P, B);
-  glu_res_kernel<P><<<grid, NT, smem, stream>>>(y, res, W, b, out, H, L);
+  glu_res_kernel<P, IO><<<grid, NT, smem, stream>>>(y, res, W, b, out, H, L);
   return (int)cudaGetLastError();
 }
 
-template <int P>
-int launch_ff(const float* x, const float* skip, const float* W1,
+template <int P, typename IO>
+int launch_ff(const IO* x, const IO* skip, const float* W1,
               const float* b1, const float* W2, const float* b2,
-              const float* m, const float* s, float* out, float* mean,
+              const float* m, const float* s, IO* out, float* mean,
               float* var, int B, int H, int F, int L, cudaStream_t stream) {
   using T = Tile<P>;
   const size_t smem = ((size_t)(H + F) * P + TK * T::LDT + 2 * NT + 2 * P) *
                       sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      ln_ff_res_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ln_ff_res_kernel<P, IO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((L + P - 1) / P, B);
-  ln_ff_res_kernel<P><<<grid, NT, smem, stream>>>(
+  ln_ff_res_kernel<P, IO><<<grid, NT, smem, stream>>>(
       x, skip, W1, b1, W2, b2, m, s, out, mean, var, H, F, L);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int dwst_glu_res(const float* y, const float* res, const float* W,
-                            const float* b, float* out, int B, int H, int L,
-                            cudaStream_t stream) {
+template <typename IO>
+int glu_res(const IO* y, const IO* res, const float* W, const float* b,
+            IO* out, int B, int H, int L, cudaStream_t stream) {
   if (H % 8) return (int)cudaErrorInvalidValue;
   switch (choose_p(H)) {
     case 128: return launch_glu<128>(y, res, W, b, out, B, H, L, stream);
@@ -708,12 +732,11 @@ extern "C" int dwst_glu_res(const float* y, const float* res, const float* W,
   }
 }
 
-extern "C" int dwst_ln_ff_res(const float* x, const float* skip,
-                              const float* W1, const float* b1,
-                              const float* W2, const float* b2,
-                              const float* m, const float* s, float* out,
-                              float* mean, float* var, int B, int H, int F,
-                              int L, cudaStream_t stream) {
+template <typename IO>
+int ln_ff_res(const IO* x, const IO* skip, const float* W1, const float* b1,
+              const float* W2, const float* b2, const float* m,
+              const float* s, IO* out, float* mean, float* var, int B, int H,
+              int F, int L, cudaStream_t stream) {
   if (H % TK || F % TK) return (int)cudaErrorInvalidValue;
   switch (choose_p(H)) {
     case 128: return launch_ff<128>(x, skip, W1, b1, W2, b2, m, s, out, mean,
@@ -723,6 +746,46 @@ extern "C" int dwst_ln_ff_res(const float* x, const float* skip,
     default: return launch_ff<32>(x, skip, W1, b1, W2, b2, m, s, out, mean,
                                   var, B, H, F, L, stream);
   }
+}
+
+using bf16 = __nv_bfloat16;
+
+}  // namespace
+
+extern "C" int dwst_glu_res(const float* y, const float* res, const float* W,
+                            const float* b, float* out, int B, int H, int L,
+                            cudaStream_t stream) {
+  return glu_res(y, res, W, b, out, B, H, L, stream);
+}
+
+// Kernel 2f: y, res and out bf16.
+extern "C" int dwst_glu_res_bf16(const void* y, const void* res,
+                                 const float* W, const float* b, void* out,
+                                 int B, int H, int L, cudaStream_t stream) {
+  return glu_res(static_cast<const bf16*>(y), static_cast<const bf16*>(res),
+                 W, b, static_cast<bf16*>(out), B, H, L, stream);
+}
+
+extern "C" int dwst_ln_ff_res(const float* x, const float* skip,
+                              const float* W1, const float* b1,
+                              const float* W2, const float* b2,
+                              const float* m, const float* s, float* out,
+                              float* mean, float* var, int B, int H, int F,
+                              int L, cudaStream_t stream) {
+  return ln_ff_res(x, skip, W1, b1, W2, b2, m, s, out, mean, var, B, H, F, L,
+                   stream);
+}
+
+// Kernel 3f: x, skip and out bf16; mean and var f32.
+extern "C" int dwst_ln_ff_res_bf16(const void* x, const void* skip,
+                                   const float* W1, const float* b1,
+                                   const float* W2, const float* b2,
+                                   const float* m, const float* s, void* out,
+                                   float* mean, float* var, int B, int H,
+                                   int F, int L, cudaStream_t stream) {
+  return ln_ff_res(static_cast<const bf16*>(x),
+                   static_cast<const bf16*>(skip), W1, b1, W2, b2, m, s,
+                   static_cast<bf16*>(out), mean, var, B, H, F, L, stream);
 }
 
 extern "C" int dwst_glu_res_bwd(const float* y, const float* g, const float* W,

@@ -41,10 +41,6 @@ __device__ __forceinline__ float2 rot4(float2 a) {
   return INV ? make_float2(-a.y, a.x) : make_float2(a.y, -a.x);
 }
 
-__device__ __forceinline__ float gelu_erf(float x) {
-  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
-}
-
 // In-register DFTs of size 2, 4, 8, natural order in and out;
 // forward uses exp(-2 pi i / R), inverse exp(+2 pi i / R), unnormalised.
 template <bool INV>

@@ -18,6 +18,14 @@
 // kernel k is real, so the adjoint of the cut circular conv is the cut
 // circular correlation).
 //
+// Kernel 1f, the sampling form of the bf16 path (the TPU kernel with
+// fast=True and a bf16 layout): u and out are bf16, a, c, bias, khat and D
+// f32, the GELU is gelu_fast (activations.cuh), and the D-skip takes the
+// f32 u'.  The transform chain stays f32 in shared memory, more exact than
+// the TPU kernel's bf16 chain and well inside its ~4e-3 conv budget
+// (ops/fftconv_pallas.py:38-41): what bf16 buys on this card is half the
+// device-memory bytes of the input and output.
+//
 // Kernel 5 replaces fftconv2.py::_dkf_kernel (fftconv2_dkf): the khat
 // gradient summed over the batch, in the convention of torch autograd for
 // a complex input,
@@ -49,11 +57,13 @@
 
 #include <cuda_runtime.h>
 
+#include "activations.cuh"
 #include "fft_stockham.cuh"
 
 namespace {
 
 using namespace dwst_fft;
+using namespace dwst_act;
 
 // W^k = exp(-i pi k / M), the twiddle of the packed real transform.
 __device__ __forceinline__ float2 half_twiddle(int k, int M) {
@@ -87,18 +97,21 @@ __device__ __forceinline__ void split_pair(const float2* z, int k, int M,
 }
 
 // FUSED: the sampling form (prologue a u + c + bias, epilogue D skip +
-// GELU); otherwise the plain conv, with conj(khat) when conj != 0.
-template <bool FUSED>
+// GELU); otherwise the plain conv, with conj(khat) when conj != 0.  T is
+// the activations' type: float, or bf16 for kernel 1f (the sampling form
+// of the bf16 path: the chain stays f32, the GELU is gelu_fast).
+template <bool FUSED, typename T>
 __global__ void __launch_bounds__(1024)
-fftconv_kernel(const float* __restrict__ u, const float* __restrict__ a,
+fftconv_kernel(const T* __restrict__ u, const float* __restrict__ a,
                const float* __restrict__ c, const float* __restrict__ bias,
                const float2* __restrict__ khat, const float* __restrict__ D,
-               float* __restrict__ out, int H, int L, int M, int conj) {
+               T* __restrict__ out, int H, int L, int M, int conj) {
+  constexpr bool FAST = sizeof(T) == 2;
   extern __shared__ float2 z[];      // M complex values at pad(i)
   const int row = blockIdx.x;        // b * H + h
   const int b = row / H;
   const int h = row - b * H;
-  const float* ur = u + (size_t)row * L;
+  const T* ur = u + (size_t)row * L;
   const float* ar = FUSED ? a + (size_t)b * L : nullptr;
   const float* cr = FUSED ? c + (size_t)b * L : nullptr;
   const float bh = FUSED ? bias[row] : 0.0f;
@@ -112,12 +125,12 @@ fftconv_kernel(const float* __restrict__ u, const float* __restrict__ a,
     // prologue while loading: z[j] = u'[2j] + i u'[2j+1], zero past L
     for (int j = tid; j < M; j += nt) {
       const int t0 = 2 * j, t1 = t0 + 1;
-      const float v0 = t0 < L ? ar[t0] * ur[t0] + cr[t0] + bh : 0.0f;
-      const float v1 = t1 < L ? ar[t1] * ur[t1] + cr[t1] + bh : 0.0f;
+      const float v0 = t0 < L ? ar[t0] * to_f(ur[t0]) + cr[t0] + bh : 0.0f;
+      const float v1 = t1 < L ? ar[t1] * to_f(ur[t1]) + cr[t1] + bh : 0.0f;
       z[pad(j)] = make_float2(v0, v1);
     }
   } else {
-    load_packed(z, ur, L, M);
+    load_packed(z, reinterpret_cast<const float*>(ur), L, M);
   }
   __syncthreads();
   fft<false>(z, M, tid, nt);
@@ -154,10 +167,10 @@ fftconv_kernel(const float* __restrict__ u, const float* __restrict__ a,
   __syncthreads();
   fft<true>(z, M, tid, nt);
 
-  // epilogue: 1/n; in the sampling form also the D-skip on the
-  // post-prologue input and exact GELU
+  // epilogue: 1/n; in the sampling form also the D-skip on the f32
+  // post-prologue input and GELU (exact, or gelu_fast for bf16)
   const float inv_n = 1.0f / (float)(2 * M);
-  float* orow = out + (size_t)row * L;
+  T* orow = out + (size_t)row * L;
   for (int j = tid; j < M; j += nt) {
     const float2 v = z[pad(j)];
     const float y[2] = {v.x * inv_n, v.y * inv_n};
@@ -165,8 +178,12 @@ fftconv_kernel(const float* __restrict__ u, const float* __restrict__ a,
     for (int e = 0; e < 2; ++e) {
       const int t = 2 * j + e;
       if (t >= L) continue;
-      orow[t] = FUSED ? gelu_erf(y[e] + dh * (ar[t] * ur[t] + cr[t] + bh))
-                      : y[e];
+      if (!FUSED) {
+        orow[t] = from_f<T>(y[e]);
+        continue;
+      }
+      const float v = y[e] + dh * (ar[t] * to_f(ur[t]) + cr[t] + bh);
+      orow[t] = from_f<T>(FAST ? gelu_fast(v) : gelu_erf(v));
     }
   }
 }
@@ -252,18 +269,18 @@ cudaError_t set_smem(Kernel kernel, int M, size_t* smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
 }
 
-template <bool FUSED>
-int launch_conv(const float* u, const float* a, const float* c,
+template <bool FUSED, typename T>
+int launch_conv(const T* u, const float* a, const float* c,
                 const float* bias, const void* khat, const float* D,
-                float* out, int B, int H, int L, int n, int conj,
+                T* out, int B, int H, int L, int n, int conj,
                 cudaStream_t stream) {
   if (bad_size(n, L)) return (int)cudaErrorInvalidValue;
   const int M = n / 2;
   size_t smem;
-  const cudaError_t attr = set_smem(fftconv_kernel<FUSED>, M, &smem);
+  const cudaError_t attr = set_smem(fftconv_kernel<FUSED, T>, M, &smem);
   if (attr != cudaSuccess) return (int)attr;
   const int threads = M / VPT;     // each thread holds 16 values per pass
-  fftconv_kernel<FUSED><<<B * H, threads, smem, stream>>>(
+  fftconv_kernel<FUSED, T><<<B * H, threads, smem, stream>>>(
       u, a, c, bias, static_cast<const float2*>(khat), D, out, H, L, M, conj);
   return (int)cudaGetLastError();
 }
@@ -278,11 +295,21 @@ extern "C" int dwst_fftconv_ln_bias_gelu_d(
                            stream);
 }
 
+// Kernel 1f: u and out bf16, the rest as kernel 1.
+extern "C" int dwst_fftconv_ln_bias_gelu_d_bf16(
+    const void* u, const float* a, const float* c, const float* bias,
+    const void* khat, const float* D, void* out, int B, int H, int L, int n,
+    cudaStream_t stream) {
+  return launch_conv<true>(static_cast<const __nv_bfloat16*>(u), a, c, bias,
+                           khat, D, static_cast<__nv_bfloat16*>(out), B, H,
+                           L, n, 0, stream);
+}
+
 extern "C" int dwst_fftconv(const float* u, const void* khat, float* out,
                             int B, int H, int L, int n, int conj,
                             cudaStream_t stream) {
-  return launch_conv<false>(u, nullptr, nullptr, nullptr, khat, nullptr, out,
-                            B, H, L, n, conj, stream);
+  return launch_conv<false, float>(u, nullptr, nullptr, nullptr, khat,
+                                   nullptr, out, B, H, L, n, conj, stream);
 }
 
 extern "C" int dwst_fftconv_dkf(const float* u, const float* g, void* out,

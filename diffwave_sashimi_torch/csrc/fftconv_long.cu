@@ -52,13 +52,15 @@
 
 #include <algorithm>
 
+#include "activations.cuh"
 #include "fft_stockham.cuh"
 
 namespace {
 
 using namespace dwst_fft;
+using dwst_act::gelu_erf;
 
-constexpr int TC = 16;            // columns per block in passes A and C
+constexpr int TC = 16;           // columns per block in passes A and C
 constexpr int ROW_THREADS = 256;  // threads per block in pass B
 
 // Shared-memory slots per transform: pad() of N values plus one, so that

@@ -21,6 +21,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from ..ops import FUSED, Ops
 from .schedule import DiffusionSchedule
 
 
@@ -47,7 +48,7 @@ def sampling_step(net, x: torch.Tensor, t: int, table: torch.Tensor,
     step = float(table[3, t]) if has_embed else t
     steps = torch.full((x.shape[0],), step, device=x.device,
                        dtype=torch.float32 if has_embed else torch.int64)
-    eps = net(x, steps)
+    eps = net(x, steps).float()          # x_t stays f32 at any precision
     x = (x - (1.0 - alpha_t) / (1.0 - abar_t) ** 0.5 * eps) / alpha_t ** 0.5
     if t > 0:
         x = x + sigma_t * noise
@@ -58,10 +59,12 @@ def sampling_step(net, x: torch.Tensor, t: int, table: torch.Tensor,
 def sampling(model, shape: Sequence[int], schedule: DiffusionSchedule,
              device=None, generator: Optional[torch.Generator] = None,
              noise: Optional[torch.Tensor] = None,
-             mel_conds: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
-    """Draw (B, 1, L) samples.  ``noise`` (T+1, *shape), if given, replaces
-    the generator: noise[0] is x_T and noise[1 + i] the draw of the i-th
-    step (t = T-1-i; the last step draws none).  A conditional model takes
+             mel_conds: Optional[List[torch.Tensor]] = None,
+             ops: Optional[Ops] = None) -> torch.Tensor:
+    """Draw (B, 1, L) samples, through ``ops`` (default ``ops.FUSED``).
+    ``noise`` (T+1, *shape), if given, replaces the generator: noise[0] is
+    x_T and noise[1 + i] the draw of the i-th step (t = T-1-i; the last
+    step draws none).  A conditional model takes
     its mel terms from ``model.compute_mel_conds(mel, L)``."""
     device = torch.device(device if device is not None else "cpu")
     T = schedule.T
@@ -74,10 +77,11 @@ def sampling(model, shape: Sequence[int], schedule: DiffusionSchedule,
             return noise[i].to(device)
         return torch.randn(tuple(shape), generator=generator, device=device)
 
-    kernels = model.compute_kernels(shape[-1])
+    ops = FUSED if ops is None else ops
+    kernels = model.compute_kernels(shape[-1], ops)
 
     def net(x, steps):
-        return model(x, steps, kernels, mel_conds=mel_conds)
+        return model(x, steps, kernels, ops, mel_conds=mel_conds)
 
     table = schedule_table(schedule)
     has_embed = schedule.t_embed is not None

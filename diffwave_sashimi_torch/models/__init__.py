@@ -2,8 +2,11 @@
 
 Port of ``diffwave_sashimi_tpu/models/__init__.py``: the remaining config
 keys are constructor keywords, and keys the constructor does not take are
-dropped (as the reference's ``**kwargs`` swallows them).  Both backbones,
-SaShiMi and WaveNet, are ported, at f32 only.
+dropped (as the reference's ``**kwargs`` swallows them), except
+``kernel_fft_fast``, which changes the numerics in JAX and is refused.
+``precision`` sets the activation dtype: f32 for both backbones, bf16 for
+SaShiMi sampling at kernel 1's FFT sizes (the shipped SC09 model); the
+other bf16 paths are refused by name.
 """
 
 from __future__ import annotations
@@ -13,25 +16,58 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from .sashimi import Sashimi
+from ..ops.fftconv_long import KERNEL1_MAX_N
+from .sashimi import BF16_TRAIN_TODO, Sashimi
 from .wavenet import WaveNet
 
 _REGISTRY = {"sashimi": Sashimi, "wavenet": WaveNet}
-BF16_TODO = ("compute.precision=bf16 is not ported yet: ROADMAP.md queue 1, "
-             "'bf16 activation policy for sampling'")
+_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+           "f32": torch.float32, "float32": torch.float32}
+BF16_WAVENET_TODO = ("bf16 WaveNet needs kernel 11's fast form, which is not "
+                     "ported: ROADMAP.md queue 2, entry 2")
+BF16_VOCODER_TODO = ("bf16 at FFT sizes past 32768 (the vocoder's lengths) "
+                     "needs kernel 9's fast form, which is not ported: "
+                     "ROADMAP.md queue 2, entry 2 (bf16 vocoding)")
+KERNEL_FFT_FAST_TODO = ("model.kernel_fft_fast (the precision of the S4 "
+                        "kernel construction's FFT) is not ported: "
+                        "ROADMAP.md queue 1, item 1")
+
+
+def activation_dtype(precision: str) -> torch.dtype:
+    if precision not in _DTYPES:
+        raise ValueError(f"compute.precision {precision!r}: one of "
+                         f"{sorted(_DTYPES)}")
+    return _DTYPES[precision]
+
+
+def check_supported(model_cfg: Dict[str, Any], precision: str) -> None:
+    """Raise on a model config or precision the port does not run (by
+    name, with its ROADMAP entry), before anything is built."""
+    dtype = activation_dtype(precision)
+    name = model_cfg["_name_"]
+    if name not in _REGISTRY:
+        raise NotImplementedError(f"model {name!r} is not ported yet")
+    if model_cfg.get("kernel_fft_fast"):
+        raise NotImplementedError(KERNEL_FFT_FAST_TODO)
+    if dtype == torch.bfloat16:
+        if name == "wavenet":
+            raise NotImplementedError(BF16_WAVENET_TODO)
+        L = int(model_cfg.get(
+            "L", inspect.signature(Sashimi).parameters["L"].default))
+        n_top = 1 << (2 * L - 1).bit_length()
+        if not model_cfg.get("unconditional", True) or n_top > KERNEL1_MAX_N:
+            raise NotImplementedError(BF16_VOCODER_TODO)
 
 
 def construct_model(model_cfg: Dict[str, Any], precision: str = "f32",
                     generator: Optional[torch.Generator] = None):
     """Build the backbone (on the CPU) from a model config block."""
-    if precision not in ("f32", "float32"):
-        raise NotImplementedError(BF16_TODO)
+    check_supported(model_cfg, precision)
     cfg = dict(model_cfg)
-    name = cfg.pop("_name_")
-    if name not in _REGISTRY:
-        raise NotImplementedError(f"model {name!r} is not ported yet")
-    cls = _REGISTRY[name]
+    cls = _REGISTRY[cfg.pop("_name_")]
     params = inspect.signature(cls).parameters
     kwargs = {k: (tuple(v) if isinstance(v, list) else v)
               for k, v in cfg.items() if k in params}
+    if cls is Sashimi:
+        kwargs["dtype"] = activation_dtype(precision)
     return cls(**kwargs, generator=generator)

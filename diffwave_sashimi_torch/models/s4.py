@@ -28,7 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import FUSED, Ops, hippo
+from ..ops import FUSED, Ops, hippo, widen
 from ..ops.conv import TorchLinear
 from ..ops.nplr import discretize, setup_C
 
@@ -215,8 +215,10 @@ class S4(nn.Module):
 
     def forward(self, x, khat, a, c, bias, residual, ops: Ops = FUSED):
         """residual + GLU(W gelu(conv(a x + c + bias) + D (a x + c + bias)))
-        for x (B, H, L); a, c (B, L) norm1 scale/shift; bias (B, H)."""
-        y = ops.conv(x, a, c, bias, khat, self.D[0])
+        for x (B, H, L); a, c (B, L) norm1 scale/shift; bias (B, H).  The
+        conv takes x and residual in their dtype (f32 or bf16) and the
+        prologue (a, c, bias) in f32."""
+        y = ops.conv(x, a, c, widen(bias), khat, self.D[0])
         lin = self.output_linear[0]
         return ops.glu(y, residual, lin.weight, lin.bias)
 

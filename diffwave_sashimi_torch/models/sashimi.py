@@ -29,6 +29,13 @@ and the parameters, so :meth:`Sashimi.compute_mel_conds` computes all 30
 once per run, like the S4 kernels.  At a pooled tier it is the full-rate
 upsampled mel cut to that tier's length, as in the JAX package and the
 reference.
+
+``dtype=torch.bfloat16`` is the JAX package's bf16 policy at sampling
+(models/sashimi.py:725, :739-743): the input is cast once, activations,
+skips and pool outputs are bf16, the step embedding is made in f32 and
+cast, channel statistics (norm1, TransposedLN, kernel 3's emitted ones)
+are f32, the S4 spectra stay complex64, the kernels take their bf16 forms
+(1f, 2f, 3f, or 12 with the int8 ops) and eps is returned as f32.
 """
 
 from __future__ import annotations
@@ -39,11 +46,15 @@ from typing import List, Optional, Sequence
 import torch
 import torch.nn as nn
 
-from ..ops import FUSED, Ops, sampling_spectrum
+from ..ops import FUSED, Ops, widen
 from ..ops.conv import TorchLinear, WNConv1d, ZeroConv1d, swish
 from ..ops.mel_upsample import MelUpsampler
 from .embedding import diffusion_step_embedding
 from .s4 import S4
+
+BF16_TRAIN_TODO = ("bf16 training is not ported: ROADMAP.md queue 1, item 1 "
+                   "(the fast forms of kernels 1 (training), 5, 6 and 7, "
+                   "queue 2, entry 2)")
 
 
 class TransposedLN(nn.Module):
@@ -56,8 +67,11 @@ class TransposedLN(nn.Module):
         self.s = nn.Parameter(torch.ones(1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        var, mean = torch.var_mean(x, dim=1, unbiased=False, keepdim=True)
-        return (self.s / torch.sqrt(var)) * (x - mean + self.m)
+        """Statistics and normalisation in f32; the result in x's dtype."""
+        x32 = widen(x)
+        var, mean = torch.var_mean(x32, dim=1, unbiased=False, keepdim=True)
+        return ((self.s / torch.sqrt(var)) * (x32 - mean + self.m)).to(
+            x.dtype)
 
 
 class DownPool(nn.Module):
@@ -132,7 +146,7 @@ class DiffWaveBlock(nn.Module):
         ``mel_cond`` (B or 1, H, L) joins kernel 2's residual."""
         bias = self.fc_t(embed)                                # (B, H)
         if stats is None:
-            var, mean = torch.var_mean(x, dim=1, unbiased=False)
+            var, mean = torch.var_mean(widen(x), dim=1, unbiased=False)
         else:
             mean, var = stats
         a = self.norm1.s * torch.rsqrt(var)                    # (B, L)
@@ -168,15 +182,17 @@ class Sashimi(nn.Module):
                  unconditional: bool = True,
                  mel_upsample: Sequence[int] = (16, 16), L: int = 16000,
                  dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if dropout:
             raise NotImplementedError("S4 dropout (DropoutNd) is not ported "
-                                      "yet: ROADMAP.md queue 1, item 5")
+                                      "yet: ROADMAP.md queue 1, item 7")
         g = generator
         self.pool, self.unet = tuple(pool), unet
         self.unconditional = unconditional
         self.embed_dim_in = diffusion_step_embed_dim_in
+        self.act_dtype = dtype          # the parameters stay f32
         H = d_model
 
         def block(H, L):
@@ -231,11 +247,13 @@ class Sashimi(nn.Module):
         ``audio_length`` samples, in block order.  A pure function of the
         parameters: the sampler computes it once for all T steps.  For the
         sampling form each spectrum comes in the layout of the conv kernel
-        that takes its FFT size (``ops.sampling_spectrum``); ``train``
-        keeps the half spectra of the training conv."""
-        out = [b.layer.compute_kernel_freq(L, ops)
-               for b, L in self._blocks(audio_length)]
-        return out if train else [sampling_spectrum(k) for k in out]
+        that takes its FFT size (``ops.spectrum``); ``train`` keeps the
+        half spectra of the training conv."""
+        blocks = self._blocks(audio_length)
+        out = [b.layer.compute_kernel_freq(L, ops) for b, L in blocks]
+        if train:
+            return out
+        return [ops.spectrum(k, L) for k, (_, L) in zip(out, blocks)]
 
     def compute_mel_conds(self, mel: torch.Tensor,
                           audio_length: int) -> List[torch.Tensor]:
@@ -266,16 +284,19 @@ class Sashimi(nn.Module):
         if conditioned == self.unconditional:
             raise ValueError("a conditional model takes a mel (mel or "
                              "mel_conds), an unconditional one none")
+        if train and self.act_dtype != torch.float32:
+            raise NotImplementedError(BF16_TRAIN_TODO)
         if train and conditioned:
             raise NotImplementedError(
                 "training the mel-conditioned model is not ported yet: "
-                "ROADMAP.md queue 1, item 10 (vocoder training)")
+                "ROADMAP.md queue 1, item 2 (vocoder training)")
         if kernels is None:
             kernels = self.compute_kernels(audio.shape[-1], ops, train)
         khats = iter(kernels)
         conds = None if mel_conds is None else iter(mel_conds)
-        x = self.init_conv(audio)
-        embed = diffusion_step_embedding(steps, self.embed_dim_in)
+        x = self.init_conv(audio.to(self.act_dtype))
+        embed = diffusion_step_embedding(steps, self.embed_dim_in).to(
+            self.act_dtype)
         embed = swish(self.fc_t2(swish(self.fc_t1(embed))))
 
         def block(layer, x, stats, skip=None):
@@ -306,4 +327,4 @@ class Sashimi(nn.Module):
             else:
                 skip = outputs.pop() if self.unet else None
                 x, stats = block(layer, x, stats, skip)
-        return self.final_conv(self.norm(x))
+        return widen(self.final_conv(self.norm(x)))

@@ -6,6 +6,10 @@ entries are autograd Functions whose backward passes are kernels too.
 :data:`PLAIN` routes it through the plain PyTorch versions everywhere and
 trains through torch autograd of the plain forwards, which is how a run on
 the card compares the kernels' outputs and gradients with plain ones.
+:data:`FUSED_INT8` and :data:`PLAIN_INT8` are the same with the sampling
+conv swapped for the int8 conv (kernel 12; ``+compute.conv_int8=true``).
+The sampling wrappers take the bf16 path's forms (kernels 1f, 2f, 3f) for
+bf16 activations, by the tensors' dtype.
 """
 
 from typing import Callable, NamedTuple
@@ -13,11 +17,15 @@ from typing import Callable, NamedTuple
 from .cauchy import (cauchy_bwd, cauchy_bwd_ref, cauchy_quad,
                      cauchy_quad_ref, cauchy_sym, cauchy_sym_fused)
 from .chmix import (glu_res_bwd, glu_res_bwd_ref, glu_res_ref, ln_ff_res,
-                    ln_ff_res_bwd, ln_ff_res_bwd_ref, ln_ff_res_ref,
-                    ln_ff_res_train, mix_glu_res, mix_glu_res_train)
+                    ln_ff_res_bf16, ln_ff_res_bwd, ln_ff_res_bwd_ref,
+                    ln_ff_res_ref, ln_ff_res_train, mix_glu_res,
+                    mix_glu_res_bf16, mix_glu_res_train)
 from .fftconv import (fftconv, fftconv_dkf, fftconv_dkf_ref,
-                      fftconv_ln_bias_gelu_d, fftconv_ln_bias_gelu_d_ref,
-                      fftconv_ref, fftconv_train)
+                      fftconv_ln_bias_gelu_d, fftconv_ln_bias_gelu_d_bf16,
+                      fftconv_ln_bias_gelu_d_ref, fftconv_ref, fftconv_train,
+                      gelu_fast, widen)
+from .int8conv import (fftconv_int8, fftconv_int8_ref, int8_spectrum,
+                       s4_conv_int8, s4_conv_int8_ref)
 from .fftconv_long import (fftconv_long, fftconv_long_ln_bias_gelu_d,
                            fftconv_long_ln_bias_gelu_d_ref, fftconv_long_ref,
                            long_spectrum, s4_conv, s4_conv_ref,
@@ -26,7 +34,7 @@ from .wavenet_gate import gate_res_skip, gate_res_skip_ref
 
 
 class Ops(NamedTuple):
-    conv: Callable        # kernel 1 or 9 by FFT size: fused S4 conv
+    conv: Callable        # kernel 1 or 9 by FFT size (or 12): fused S4 conv
     glu: Callable         # kernel 2: output linear + GLU + residual
     ff: Callable          # kernel 3: norm2 + FF + residual (+ skip, stats)
     cauchy: Callable      # kernels 4 (+ 8): Cauchy sum of the S4 kernel
@@ -34,6 +42,8 @@ class Ops(NamedTuple):
     glu_train: Callable   # kernels 2 and 6
     ff_train: Callable    # kernels 3 and 7
     gate: Callable        # kernel 11: WaveNet gate + res/skip tail (eval)
+    # (khat, L) -> the sampling conv's spectrum, built once per run
+    spectrum: Callable = sampling_spectrum
 
 
 FUSED = Ops(s4_conv, mix_glu_res, ln_ff_res, cauchy_sym_fused,
@@ -41,6 +51,8 @@ FUSED = Ops(s4_conv, mix_glu_res, ln_ff_res, cauchy_sym_fused,
 PLAIN = Ops(s4_conv_ref, glu_res_ref, ln_ff_res_ref,
             cauchy_sym, fftconv_ref, glu_res_ref, ln_ff_res_ref,
             gate_res_skip_ref)
+FUSED_INT8 = FUSED._replace(conv=s4_conv_int8, spectrum=int8_spectrum)
+PLAIN_INT8 = PLAIN._replace(conv=s4_conv_int8_ref, spectrum=int8_spectrum)
 
 # every kernel wrapper with a launch count, by kernel name
 COUNTED = {"fftconv_ln_bias_gelu_d": fftconv_ln_bias_gelu_d,
@@ -49,4 +61,7 @@ COUNTED = {"fftconv_ln_bias_gelu_d": fftconv_ln_bias_gelu_d,
            "fftconv_dkf": fftconv_dkf, "glu_res_bwd": glu_res_bwd,
            "ln_ff_res_bwd": ln_ff_res_bwd, "cauchy_bwd": cauchy_bwd,
            "fftconv_long_ln_bias_gelu_d": fftconv_long_ln_bias_gelu_d,
-           "fftconv_long": fftconv_long, "gate_res_skip": gate_res_skip}
+           "fftconv_long": fftconv_long, "gate_res_skip": gate_res_skip,
+           "fftconv_ln_bias_gelu_d_bf16": fftconv_ln_bias_gelu_d_bf16,
+           "glu_res_bf16": mix_glu_res_bf16, "ln_ff_res_bf16": ln_ff_res_bf16,
+           "fftconv_int8": fftconv_int8}

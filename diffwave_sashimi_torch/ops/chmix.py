@@ -8,6 +8,13 @@ whose backward passes are ``_glu_bwd_kernel`` / ``_ff_bwd_kernel``.  The
 CUDA kernels are ``csrc/chmix.cu``; the ``*_ref`` functions are their
 plain PyTorch versions (explicit formulas, not autograd), used for CPU
 tensors and as the on-card comparison.
+
+bf16 activations take the sampling kernels' ``fast=True`` forms, kernels
+2f and 3f (:func:`mix_glu_res_bf16`, :func:`ln_ff_res_bf16`): the weights,
+and FF's normalised input and GELU output, are rounded to bf16 before
+their products, which accumulate in f32; bias, sigmoid, LN statistics,
+the polynomial GELU and the residual adds are f32, and the output is
+rounded to bf16 (its statistics are the f32 output's).
 """
 
 from __future__ import annotations
@@ -18,24 +25,28 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
+from .fftconv import as_operand, gelu_fast, widen
 
 # positions per split-K partial of the weight gradients (kernels 6 and 7)
 WGRAD_POSITIONS = 2048
 
 
 def glu_res_ref(y, res, w, b):
-    """res + GLU over channels of (w @ y + b).  y, res: (B, H, L);
-    w: (2H, H); b: (2H,)."""
-    z = torch.einsum("bhl,oh->bol", y, w) + b[None, :, None]
+    """res + GLU over channels of (w @ y + b).  y, res: (B, H, L), f32 or
+    bf16 (kernel 2f's function); w: (2H, H); b: (2H,) f32."""
+    z = (torch.einsum("bhl,oh->bol", widen(y), as_operand(w, y.dtype))
+         + b[None, :, None])
     H = y.shape[1]
-    return res + z[:, :H] * torch.sigmoid(z[:, H:])
+    return (widen(res) + z[:, :H] * torch.sigmoid(z[:, H:])).to(res.dtype)
 
 
 def mix_glu_res(y, res, w, b):
     """Kernel-2 wrapper: CUDA kernel for CUDA tensors, else the plain
-    version."""
+    version; bf16 activations go to kernel 2f."""
     if not y.is_cuda:
         return glu_res_ref(y, res, w, b)
+    if y.dtype == torch.bfloat16:
+        return mix_glu_res_bf16(y, res, w, b)
     B, H, L = y.shape
     _check_width(H)
     for t, shape in ((y, (B, H, L)), (res, (B, H, L)), (w, (2 * H, H)),
@@ -51,55 +62,104 @@ def mix_glu_res(y, res, w, b):
 mix_glu_res.launches = 0
 
 
+def mix_glu_res_bf16(y, res, w, b):
+    """Kernel-2f wrapper (y, res bf16; w, b f32): CUDA kernel for CUDA
+    tensors, else the plain version."""
+    if not y.is_cuda:
+        return glu_res_ref(y, res, w, b)
+    B, H, L = y.shape
+    _check_width(H)
+    for t, shape in ((y, (B, H, L)), (res, (B, H, L))):
+        cuda_lib.check(t, shape, torch.bfloat16)
+    for t, shape in ((w, (2 * H, H)), (b, (2 * H,))):
+        cuda_lib.check(t, shape, torch.float32)
+    out = torch.empty_like(res)
+    cuda_lib.launch("dwst_glu_res_bf16", y.data_ptr(), res.data_ptr(),
+                    w.data_ptr(), b.data_ptr(), out.data_ptr(), B, H, L)
+    mix_glu_res_bf16.launches += 1
+    return out
+
+
+mix_glu_res_bf16.launches = 0
+
+
 def ln_ff_res_ref(x, m, s, w1, b1, w2, b2, skip=None, emit_stats=False):
     """x + w2 @ gelu(w1 @ TLN(x) + b1) + b2 [+ skip], TLN the scalar-affine
     channel LayerNorm (population std, no eps).  With ``emit_stats`` also
     returns the output's channel mean and E[x^2] - mean^2, each (B, L).
 
-    x, skip: (B, H, L); w1: (F, H); b1: (F,); w2: (H, F); b2: (H,);
-    m, s: (1,)."""
+    x, skip: (B, H, L), f32 or bf16 (kernel 3f's function); w1: (F, H);
+    b1: (F,); w2: (H, F); b2: (H,); m, s: (1,), all f32.  The statistics
+    are f32, of the output before it is rounded to x's dtype."""
+    dt = x.dtype
+    x = widen(x)
     var, mean = torch.var_mean(x, dim=1, unbiased=False, keepdim=True)
-    xn = (s / torch.sqrt(var)) * (x - mean + m)
-    z = F.gelu(torch.einsum("bhl,fh->bfl", xn, w1) + b1[None, :, None])
-    out = x + torch.einsum("bfl,hf->bhl", z, w2) + b2[None, :, None]
+    xn = as_operand((s / torch.sqrt(var)) * (x - mean + m), dt)
+    z = (torch.einsum("bhl,fh->bfl", xn, as_operand(w1, dt))
+         + b1[None, :, None])
+    z = as_operand(gelu_fast(z), dt) if dt == torch.bfloat16 else F.gelu(z)
+    out = (x + torch.einsum("bfl,hf->bhl", z, as_operand(w2, dt))
+           + b2[None, :, None])
     if skip is not None:
-        out = out + skip
+        out = out + widen(skip)
     if not emit_stats:
-        return out
+        return out.to(dt)
     mo = out.mean(dim=1)
-    return out, mo, (out * out).mean(dim=1) - mo * mo
+    return out.to(dt), mo, (out * out).mean(dim=1) - mo * mo
 
 
 def ln_ff_res(x, m, s, w1, b1, w2, b2, skip=None, emit_stats=False):
     """Kernel-3 wrapper: CUDA kernel for CUDA tensors, else the plain
-    version (same arguments and results)."""
+    version (same arguments and results); bf16 activations go to kernel
+    3f."""
     if not x.is_cuda:
         return ln_ff_res_ref(x, m, s, w1, b1, w2, b2, skip, emit_stats)
+    if x.dtype == torch.bfloat16:
+        return ln_ff_res_bf16(x, m, s, w1, b1, w2, b2, skip, emit_stats)
+    return _launch_ff(ln_ff_res, "dwst_ln_ff_res", x, m, s, w1, b1, w2, b2,
+                      skip, emit_stats)
+
+
+ln_ff_res.launches = 0
+
+
+def ln_ff_res_bf16(x, m, s, w1, b1, w2, b2, skip=None, emit_stats=False):
+    """Kernel-3f wrapper (x, skip and the output bf16; weights, m, s and
+    the statistics f32): CUDA kernel for CUDA tensors, else the plain
+    version."""
+    if not x.is_cuda:
+        return ln_ff_res_ref(x, m, s, w1, b1, w2, b2, skip, emit_stats)
+    return _launch_ff(ln_ff_res_bf16, "dwst_ln_ff_res_bf16", x, m, s, w1, b1,
+                      w2, b2, skip, emit_stats)
+
+
+ln_ff_res_bf16.launches = 0
+
+
+def _launch_ff(wrapper, entry, x, m, s, w1, b1, w2, b2, skip, emit_stats):
+    """Check the arguments of kernel 3 or 3f (activations in x's dtype),
+    launch ``entry`` and count it on ``wrapper``."""
     B, H, L = x.shape
     Fd = w1.shape[0]
     _check_width(H, Fd)
-    args = [(x, (B, H, L)), (w1, (Fd, H)), (b1, (Fd,)), (w2, (H, Fd)),
-            (b2, (H,)), (m, (1,)), (s, (1,))]
-    if skip is not None:
-        args.append((skip, (B, H, L)))
-    for t, shape in args:
+    for t, shape in ((w1, (Fd, H)), (b1, (Fd,)), (w2, (H, Fd)), (b2, (H,)),
+                     (m, (1,)), (s, (1,))):
         cuda_lib.check(t, shape, torch.float32)
+    for t in (x,) if skip is None else (x, skip):
+        cuda_lib.check(t, (B, H, L), x.dtype)
     out = torch.empty_like(x)
     mean = var = None
     if emit_stats:
-        mean = x.new_empty((B, L))
-        var = x.new_empty((B, L))
-    cuda_lib.launch("dwst_ln_ff_res", x.data_ptr(),
+        mean = x.new_empty((B, L), dtype=torch.float32)
+        var = x.new_empty((B, L), dtype=torch.float32)
+    cuda_lib.launch(entry, x.data_ptr(),
                     None if skip is None else skip.data_ptr(),
                     w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
                     b2.data_ptr(), m.data_ptr(), s.data_ptr(), out.data_ptr(),
                     None if mean is None else mean.data_ptr(),
                     None if var is None else var.data_ptr(), B, H, Fd, L)
-    ln_ff_res.launches += 1
+    wrapper.launches += 1
     return (out, mean, var) if emit_stats else out
-
-
-ln_ff_res.launches = 0
 
 
 def _check_width(*widths):

@@ -9,6 +9,12 @@ and the bias, with g = ||v|| per output channel.  These convolutions run
 outside the fused kernels, as plain ``F.conv1d`` / ``torch.matmul``: the 1x1
 convs, and WaveNet's dilated k=3 conv, which the JAX package also leaves to
 XLA (its shifted-matmul form is a TPU workaround and is not ported).
+
+bf16 activations follow the JAX package's policy (ops/conv.py:94-97,
+:116-119, :135-142): the weights are rounded to bf16 for the product,
+which accumulates in f32; ``WNConv1d`` rounds the product to bf16 and adds
+the bf16-rounded bias in bf16, ``ZeroConv1d`` and ``TorchLinear`` add the
+f32 bias to the f32 sum and round once.  The parameters stay f32.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from .fftconv import as_operand
 
 
 def torch_uniform_(t: torch.Tensor, fan_in: int,
@@ -80,8 +88,13 @@ class WNConv1d(nn.Module):
         return self.conv["bias"]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv1d(x, self.effective_weight(), self.bias,
-                        padding=self.padding, dilation=self.dilation)
+        w = self.effective_weight()
+        if x.dtype != torch.bfloat16:
+            return F.conv1d(x, w, self.bias, padding=self.padding,
+                            dilation=self.dilation)
+        y = F.conv1d(x, w.to(x.dtype), padding=self.padding,
+                     dilation=self.dilation)
+        return y + self.bias.to(x.dtype)[:, None]
 
 
 class ZeroConv1d(nn.Module):
@@ -95,7 +108,10 @@ class ZeroConv1d(nn.Module):
             self.conv.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+        if x.dtype != torch.bfloat16:
+            return self.conv(x)
+        return F.conv1d(x.float(), as_operand(self.conv.weight, x.dtype),
+                        self.conv.bias).to(x.dtype)
 
 
 class TorchLinear(nn.Linear):
@@ -106,6 +122,12 @@ class TorchLinear(nn.Linear):
         super().__init__(in_features, out_features)
         torch_uniform_(self.weight, in_features, generator)
         torch_uniform_(self.bias, in_features, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.bfloat16:
+            return super().forward(x)
+        return F.linear(x.float(), as_operand(self.weight, x.dtype),
+                        self.bias).to(x.dtype)
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:

@@ -23,9 +23,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "diffwave_sashimi_torch"
-_SOURCES = ("fftconv.cu", "fftconv_long.cu", "chmix.cu", "cauchy.cu",
-            "wavenet_gate.cu")
-_HEADERS = ("fft_stockham.cuh",)
+_SOURCES = ("fftconv.cu", "fftconv_long.cu", "fftconv_int8.cu", "chmix.cu",
+            "cauchy.cu", "wavenet_gate.cu")
+_HEADERS = ("fft_stockham.cuh", "activations.cuh")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC"]
 
@@ -33,12 +33,19 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argument types (pointers and the stream as
 # c_void_p so 64-bit addresses are not cut to 32-bit ints).
 _SIGNATURES = {
-    # u, a, c, bias, khat, D, out, B, H, L, n, stream
+    # u, a, c, bias, khat, D, out, B, H, L, n, stream (the _bf16 forms:
+    # the same arguments, the activations bf16)
     "dwst_fftconv_ln_bias_gelu_d": [_P] * 7 + [_I] * 4 + [_P],
+    "dwst_fftconv_ln_bias_gelu_d_bf16": [_P] * 7 + [_I] * 4 + [_P],
     # y, res, W, b, out, B, H, L, stream
     "dwst_glu_res": [_P] * 5 + [_I] * 3 + [_P],
+    "dwst_glu_res_bf16": [_P] * 5 + [_I] * 3 + [_P],
     # x, skip, W1, b1, W2, b2, m, s, out, mean, var, B, H, F, L, stream
     "dwst_ln_ff_res": [_P] * 11 + [_I] * 4 + [_P],
+    "dwst_ln_ff_res_bf16": [_P] * 11 + [_I] * 4 + [_P],
+    # u, a, c, bias, khat, D, W, qc, qs, out, B, H, L, n, R, S, Rc, bf16,
+    # stream
+    "dwst_fftconv_int8": [_P] * 10 + [_I] * 8 + [_P],
     # a, b, c, d, z, out, K, M, N, Lz, stream
     "dwst_cauchy": [_P] * 6 + [_I] * 4 + [_P],
     # u, khat, out, B, H, L, n, conj, stream

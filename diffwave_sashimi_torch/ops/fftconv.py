@@ -6,7 +6,9 @@ layout, CUDA source ``csrc/fftconv.cu``:
 - sampling form, ``fftconv2_ln_bias_gelu_d``: the DiffWave block head
   (norm1 as a per-position scale/shift + the diffusion-step bias) rides
   the convolution as a prologue and the S4 D-skip + exact GELU as its
-  epilogue (:func:`fftconv_ln_bias_gelu_d`);
+  epilogue (:func:`fftconv_ln_bias_gelu_d`); for bf16 activations its
+  ``fast=True`` form, kernel 1f (:func:`fftconv_ln_bias_gelu_d_bf16`: bf16
+  in and out, the chain f32, :func:`gelu_fast`);
 - training form, ``fftconv2`` with its custom VJP: the plain conv
   ``y = irfft(rfft(u, n) khat, n)[:L]`` (:func:`fftconv`), whose input
   gradient is the same conv with ``conj(khat)`` (k is real), and the
@@ -27,6 +29,37 @@ import torch.nn.functional as F
 from . import cuda_lib
 
 
+# The JAX package's polynomial GELU (ops/fftconv2.py::_gelu_fast): a fit
+# of gelu(x) - x/2 as a degree-7 polynomial in x^2 on [-4, 4], |err| <
+# 1.3e-3, x itself above 4.
+_GELU_C = (3.98530402e-01, -6.54241398e-02, 9.14217304e-03,
+           -8.87377753e-04, 5.52706534e-05, -1.95562042e-06,
+           2.95654090e-08)
+
+
+def widen(t):
+    """bf16 activations as f32 for the float arithmetic around a product;
+    other dtypes as they are."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def as_operand(w, dtype):
+    """A product's operand as a bf16 product takes it when ``dtype`` is
+    bf16 (rounded to bf16, held in f32: an f32 product of such operands is
+    the f32-accumulated product of the rounded ones); else as it is."""
+    return w.to(dtype).float() if dtype == torch.bfloat16 else w
+
+
+def gelu_fast(x):
+    """The bf16 path's GELU (f32 in, f32 out)."""
+    xc = x.clamp(-4.0, 4.0)
+    x2 = xc * xc
+    p = torch.full_like(x2, _GELU_C[-1])
+    for c in _GELU_C[-2::-1]:
+        p = p * x2 + c
+    return torch.where(x > 4.0, x, 0.5 * xc + x2 * p)
+
+
 def _fft_size_of(khat) -> int:
     return 2 * (khat.shape[-1] - 1)
 
@@ -40,22 +73,28 @@ def _check_fft_size(n: int, L: int) -> None:
 def fftconv_ln_bias_gelu_d_ref(u, a, c, bias, khat, D):
     """u' = a u + c + bias;  gelu(irfft(rfft(u', n) khat, n)[:L] + D u').
 
-    u: (B, H, L); a, c: (B, L); bias: (B, H); khat: (H, n/2+1) complex64
-    (the rfft of the combined bidirectional kernel at size n >= 2L);
-    D: (H,).  Returns (B, H, L) float32.
+    u: (B, H, L) float32, or bfloat16 for kernel 1f's function (u' and the
+    conv in f32, gelu_fast, the result rounded to bf16); a, c: (B, L);
+    bias: (B, H); khat: (H, n/2+1) complex64 (the rfft of the combined
+    bidirectional kernel at size n >= 2L); D: (H,), all float32.  Returns
+    (B, H, L) in u's dtype.
     """
     L = u.shape[-1]
     n = 2 * (khat.shape[-1] - 1)
-    xn = u * a[:, None, :] + c[:, None, :] + bias[:, :, None]
+    xn = widen(u) * a[:, None, :] + c[:, None, :] + bias[:, :, None]
     y = torch.fft.irfft(torch.fft.rfft(xn, n=n) * khat, n=n)[..., :L]
-    return F.gelu(y + D[:, None] * xn)
+    gelu = gelu_fast if u.dtype == torch.bfloat16 else F.gelu
+    return gelu(y + D[:, None] * xn).to(u.dtype)
 
 
 def fftconv_ln_bias_gelu_d(u, a, c, bias, khat, D):
     """Kernel-1 wrapper: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors (same arguments as the plain version)."""
+    version for CPU tensors (same arguments as the plain version); bf16
+    activations go to kernel 1f."""
     if not u.is_cuda:
         return fftconv_ln_bias_gelu_d_ref(u, a, c, bias, khat, D)
+    if u.dtype == torch.bfloat16:
+        return fftconv_ln_bias_gelu_d_bf16(u, a, c, bias, khat, D)
     B, H, L = u.shape
     n = _fft_size_of(khat)
     _check_fft_size(n, L)
@@ -72,6 +111,29 @@ def fftconv_ln_bias_gelu_d(u, a, c, bias, khat, D):
 
 
 fftconv_ln_bias_gelu_d.launches = 0
+
+
+def fftconv_ln_bias_gelu_d_bf16(u, a, c, bias, khat, D):
+    """Kernel-1f wrapper (u bf16, the rest as kernel 1's): the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors."""
+    if not u.is_cuda:
+        return fftconv_ln_bias_gelu_d_ref(u, a, c, bias, khat, D)
+    B, H, L = u.shape
+    n = _fft_size_of(khat)
+    _check_fft_size(n, L)
+    cuda_lib.check(u, (B, H, L), torch.bfloat16)
+    for t, shape in ((a, (B, L)), (c, (B, L)), (bias, (B, H)), (D, (H,))):
+        cuda_lib.check(t, shape, torch.float32)
+    cuda_lib.check(khat, (H, n // 2 + 1), torch.complex64)
+    out = torch.empty_like(u)
+    cuda_lib.launch("dwst_fftconv_ln_bias_gelu_d_bf16", u.data_ptr(),
+                    a.data_ptr(), c.data_ptr(), bias.data_ptr(),
+                    khat.data_ptr(), D.data_ptr(), out.data_ptr(), B, H, L, n)
+    fftconv_ln_bias_gelu_d_bf16.launches += 1
+    return out
+
+
+fftconv_ln_bias_gelu_d_bf16.launches = 0
 
 
 def fftconv_ref(u, khat, conj=False):

@@ -37,6 +37,9 @@ from .fftconv import (fftconv_ln_bias_gelu_d, fftconv_ln_bias_gelu_d_ref,
 
 KERNEL1_MAX_N = 32768     # kernel 1's largest FFT (one block's shared memory)
 MAX_N = 1 << 20           # kernel 9's largest (N1, N2 <= 1024)
+BF16_TODO = ("bf16 activations at FFT sizes past 32768 need kernel 9's "
+             "bf16 (fast) form, which is not ported: ROADMAP.md queue 2, "
+             "entry 2 (bf16 vocoding)")
 
 
 def split(n: int):
@@ -65,11 +68,12 @@ def half_spectrum(kp: torch.Tensor) -> torch.Tensor:
     return kp.transpose(1, 2).reshape(H, n)[:, :n // 2 + 1]
 
 
-def sampling_spectrum(khat: torch.Tensor) -> torch.Tensor:
+def sampling_spectrum(khat: torch.Tensor, L: int = 0) -> torch.Tensor:
     """The sampling conv's spectrum in the layout of the kernel that takes
     its FFT size: kernel 1's half spectrum as it is up to
     :data:`KERNEL1_MAX_N`, kernel 9's factorized one up to :data:`MAX_N`.
-    Built once per run, outside the T-step loop."""
+    Built once per run, outside the T-step loop (``L``, the valid length,
+    is for the int8 form's :func:`.int8conv.int8_spectrum`)."""
     n = 2 * (khat.shape[-1] - 1)
     if n <= KERNEL1_MAX_N:
         return khat
@@ -148,14 +152,21 @@ fftconv_long_ln_bias_gelu_d.launches = 0
 def s4_conv(u, a, c, bias, khat, D):
     """The sampling form's conv, routed by the spectrum's layout (see
     :func:`sampling_spectrum`): kernel 9 for a factorized spectrum, kernel 1
-    for a half spectrum."""
+    for a half spectrum (kernel 1f for bf16 activations)."""
     if khat.dim() == 3:
+        _refuse_bf16(u)
         return fftconv_long_ln_bias_gelu_d(u, a, c, bias, khat, D)
     return fftconv_ln_bias_gelu_d(u, a, c, bias, khat, D)
+
+
+def _refuse_bf16(u):
+    if u.dtype == torch.bfloat16:
+        raise NotImplementedError(BF16_TODO)
 
 
 def s4_conv_ref(u, a, c, bias, khat, D):
     """Plain version of :func:`s4_conv`."""
     if khat.dim() == 3:
+        _refuse_bf16(u)
         return fftconv_long_ln_bias_gelu_d_ref(u, a, c, bias, khat, D)
     return fftconv_ln_bias_gelu_d_ref(u, a, c, bias, khat, D)

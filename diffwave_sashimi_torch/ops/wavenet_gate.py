@@ -24,7 +24,7 @@ from . import cuda_lib
 
 SQRT_HALF = math.sqrt(0.5)
 FAST_TODO = ("the bf16 (fast=True) form of the WaveNet tail is not ported: "
-             "ROADMAP.md queue 1, item 16 (bf16 activation policy)")
+             "ROADMAP.md queue 2, entry 2 (bf16 WaveNet)")
 
 
 def gate_res_skip_ref(h, x, wr, br, ws, bs, fast: bool = False):

@@ -1,7 +1,8 @@
 """Generation runtime: checkpoint -> reverse diffusion -> wav files.
 
-Port of ``diffwave_sashimi_tpu/runtime/generate.py`` for SaShiMi and
-WaveNet at f32: resolve ``exp/<run>/checkpoint/<iter>.pkl`` by ``ckpt_iter``
+Port of ``diffwave_sashimi_tpu/runtime/generate.py`` for SaShiMi (f32, and
+bf16 at kernel 1's FFT sizes: the shipped SC09 default) and WaveNet (f32):
+resolve ``exp/<run>/checkpoint/<iter>.pkl`` by ``ckpt_iter``
 ('max' | int), build SaShiMi's S4 kernels once, run the T-step sampler in
 batches, and
 write ``exp/<run>/waveforms/<iter>/<iter//1000>k_<i>.wav``.  The sampling
@@ -13,6 +14,9 @@ Vocoding (``mel_name``): the mel is computed from
 (:mod:`..data.mel2samp`); the generated length is frames x hop_length; the
 blocks' mel terms are computed once per run; and ``fidelity.json`` beside
 the wavs compares the first sample with the source wav.
+
+``conv_int8`` (``+compute.conv_int8=true``) runs SaShiMi's S4 conv as the
+int8 conv, kernel 12 (``ops.FUSED_INT8``), at either precision.
 """
 
 from __future__ import annotations
@@ -32,10 +36,15 @@ from ..data.mel2samp import Mel2Samp, load_mel_file
 from ..data.wav import load_wav_float, load_wav_raw
 from ..diffusion.sampling import sampling
 from ..diffusion.schedule import schedule_from_cfg
-from ..models import BF16_TODO, construct_model
+from .. import ops as port_ops
+from ..models import check_supported, construct_model
 from ..utils.audio_metrics import compare
 from ..utils.exp import local_directory
 from .checkpoint import load_into, load_state_dict, resolve_iter
+
+
+PROFILE_DIR_TODO = ("compute.profile_dir (a trace of generation) is not "
+                    "ported: ROADMAP.md queue 1, item 6")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -91,12 +100,14 @@ def generate(diffusion_cfg, model_cfg, dataset_cfg, ckpt_iter="max",
              n_samples: int = 1, name: Optional[str] = None,
              batch_size: Optional[int] = None, ckpt_smooth=None,
              mel_path: Optional[str] = None, mel_name: Optional[str] = None,
-             seed: int = 0, precision: str = "f32",
+             seed: int = 0, precision: str = "f32", conv_int8: bool = False,
              device=None) -> np.ndarray:
     """Sample ``n_samples`` waveforms; returns (n_samples, 1, L) numpy.
     ``device`` defaults to the first card (see :func:`resolve_device`)."""
-    if precision not in ("f32", "float32"):
-        raise NotImplementedError(BF16_TODO)
+    check_supported(model_cfg, precision)
+    if conv_int8 and model_cfg["_name_"] != "sashimi":
+        raise ValueError("compute.conv_int8 switches SaShiMi's S4 conv; "
+                         f"model {model_cfg['_name_']!r} has none")
     if ckpt_smooth is not None:
         raise NotImplementedError("checkpoint smoothing is not ported yet")
     # f32 means f32: no TF32 in the 1x1 convolutions or the plain matmuls
@@ -128,6 +139,7 @@ def generate(diffusion_cfg, model_cfg, dataset_cfg, ckpt_iter="max",
         raise ValueError(f"n_samples {n_samples} must be a multiple of "
                          f"batch_size {batch_size}")
     gen = torch.Generator(device=device).manual_seed(seed)
+    ops = port_ops.FUSED_INT8 if conv_int8 else port_ops.FUSED
     shape = (batch_size, 1, audio_length)
     _sync(device)
     t0 = time.perf_counter()
@@ -140,7 +152,7 @@ def generate(diffusion_cfg, model_cfg, dataset_cfg, ckpt_iter="max",
         _sync(device)
         t0 = time.perf_counter()
         x = sampling(model, shape, schedule, device=device, generator=gen,
-                     mel_conds=mel_conds)
+                     mel_conds=mel_conds, ops=ops)
         _sync(device)
         secs.append(time.perf_counter() - t0)
         chunks.append(x.cpu().numpy())
@@ -149,7 +161,8 @@ def generate(diffusion_cfg, model_cfg, dataset_cfg, ckpt_iter="max",
     sr = int(dataset_cfg["sampling_rate"])
     total = sum(secs)
     print(f"generated {n_samples} samples of {audio_length / sr:.2f}s at "
-          f"iteration {ckpt_iter} on {device} in {total:.3f}s "
+          f"iteration {ckpt_iter} on {device} at {precision}"
+          f"{' with the int8 S4 conv' if conv_int8 else ''} in {total:.3f}s "
           f"({n_samples * audio_length / sr / total:.3f}x realtime, "
           f"{1000 * total / (len(secs) * schedule.T):.3f} ms per sampling "
           f"step at batch {batch_size}; includes building any S4 kernels"
@@ -174,16 +187,20 @@ def generate(diffusion_cfg, model_cfg, dataset_cfg, ckpt_iter="max",
 
 def main(argv=None):
     """CLI: ``python -m diffwave_sashimi_torch.runtime.generate
-    experiment=sc09 compute.precision=f32 generate.n_samples=4``, or
-    vocoding, ``experiment=ljspeech compute.precision=f32
-    generate.mel_name=<wav name> dataset.data_path=<dir>`` (Hydra-style
-    overrides of the repository's configs/)."""
+    experiment=sc09 generate.n_samples=4`` (bf16, the config's default;
+    ``+compute.conv_int8=true`` for the int8 conv), or vocoding,
+    ``experiment=ljspeech compute.precision=f32 generate.mel_name=<wav
+    name> dataset.data_path=<dir>`` (Hydra-style overrides of the
+    repository's configs/)."""
     cfg = load_config(overrides=list(argv if argv is not None
                                      else sys.argv[1:]))
+    if cfg.get_path("compute.profile_dir") is not None:
+        raise NotImplementedError(PROFILE_DIR_TODO)
     print(cfg.to_yaml())
     generate(cfg.diffusion, cfg.model, cfg.dataset,
              name=cfg.train.get("name"),
              precision=cfg.get_path("compute.precision", "bf16"),
+             conv_int8=bool(cfg.get_path("compute.conv_int8", False)),
              **dict(cfg.generate))
 
 

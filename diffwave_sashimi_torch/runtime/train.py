@@ -34,7 +34,7 @@ from ..config import extract_multirun_flag, load_config, sweep_overrides
 from ..data import dataloader
 from ..diffusion.loss import training_loss
 from ..diffusion.schedule import schedule_from_cfg
-from ..models import BF16_TODO, construct_model
+from ..models import BF16_TRAIN_TODO, construct_model
 from ..ops import FUSED, Ops
 from ..utils.exp import local_directory
 from .checkpoint import load_checkpoint, load_into, save_checkpoint
@@ -84,20 +84,20 @@ def _refuse_unported(model_cfg, compute_cfg, mesh_cfg, wandb_cfg) -> str:
     compute_cfg = compute_cfg or {}
     precision = compute_cfg.get("precision", "bf16")
     if precision not in ("f32", "float32"):
-        raise NotImplementedError(BF16_TODO)
+        raise NotImplementedError(BF16_TRAIN_TODO)
     if compute_cfg.get("remat"):
         raise NotImplementedError("compute.remat (activation "
                                   "rematerialisation) is not ported: "
-                                  "ROADMAP.md queue 1, item 7")
+                                  "ROADMAP.md queue 1, item 6")
     if int((mesh_cfg or {}).get("data", -1)) > 1:
         raise NotImplementedError("data-parallel training is not ported: "
-                                  "ROADMAP.md queue 1, item 13")
+                                  "ROADMAP.md queue 1, item 4")
     if (wandb_cfg or {}).get("mode", "disabled") != "disabled":
         raise NotImplementedError("wandb logging is not ported: ROADMAP.md "
-                                  "queue 1, item 9")
+                                  "queue 1, item 6")
     if float(model_cfg.get("dropout", 0.0) or 0.0):
         raise NotImplementedError("S4 dropout is not ported: ROADMAP.md "
-                                  "queue 1, item 5")
+                                  "queue 1, item 7")
     return precision
 
 

@@ -35,6 +35,7 @@ from diffwave_sashimi_torch.models import construct_model
 from diffwave_sashimi_torch.runtime.checkpoint import (
     load_into, load_state_dict, save_checkpoint as port_save)
 from diffwave_sashimi_torch.runtime.generate import generate, main
+from diffwave_sashimi_torch.runtime.train import train
 from diffwave_sashimi_torch.utils.exp import local_directory
 from diffwave_sashimi_torch.utils.jax_compat import params_from_jax
 
@@ -205,12 +206,52 @@ def test_chip_smoke_config_literals_match_load_config():
         wnet["model"]["num_res_layers"] * wnet["diffusion"]["T"])
 
 
-def test_bf16_is_refused_not_run_as_f32(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        construct_model(SMALL_CFG, precision="bf16")
+_WNET_SMALL = {"_name_": "wavenet", "res_channels": 16, "skip_channels": 16,
+               "num_res_layers": 2, "dilation_cycle": 2}
+_DATA = {"_name_": "sc09", "segment_length": 16000, "sampling_rate": 16000,
+         "data_path": "."}
+
+
+def _bf16_conv_at_kernel9_size():
+    """The sampling conv with a factorized (kernel 9) spectrum."""
+    kp = ops.long_spectrum(torch.fft.rfft(torch.randn(8, 65536), n=65536))
+    u = torch.zeros(1, 8, 40000, dtype=torch.bfloat16)
+    a, c = torch.ones(1, 40000), torch.zeros(1, 40000)
+    ops.s4_conv_ref(u, a, c, torch.zeros(1, 8), kp, torch.zeros(8))
+
+
+# what the bf16 slice leaves unported: each refused by name, none run at f32
+_REFUSED = {
+    "train": (lambda: train(FAST3, SMALL_CFG, _DATA, None, device="cpu",
+                            compute_cfg={"precision": "bf16"}),
+              "bf16 training.*queue 1, item 1"),
+    "wavenet": (lambda: construct_model(_WNET_SMALL, "bf16"),
+                "bf16 WaveNet.*queue 2, entry 2"),
+    "vocoder": (lambda: construct_model(dict(SMALL_CFG, unconditional=False),
+                                        "bf16"), "bf16 vocoding"),
+    "vocoder_lengths": (lambda: construct_model(dict(SMALL_CFG, L=32000),
+                                                "bf16"), "bf16 vocoding"),
+    "kernel9_conv": (_bf16_conv_at_kernel9_size,
+                     "kernel 9.*queue 2, entry 2"),
+    "kernel_fft_fast": (lambda: main(["experiment=sc09",
+                                      "+model.kernel_fft_fast=true"]),
+                        "kernel_fft_fast.*queue 1, item 1"),
+    "profile_dir": (lambda: main(["experiment=sc09",
+                                  "compute.profile_dir=trace"]),
+                    "profile_dir.*queue 1, item 6"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_REFUSED))
+def test_bf16_is_refused_not_run_as_f32(case, tmp_path, monkeypatch):
+    """bf16 SaShiMi sampling builds (the shipped default); the paths this
+    slice leaves out raise NotImplementedError naming their ROADMAP entry
+    (and so do the config keys the port cannot honour yet)."""
+    assert construct_model(SMALL_CFG, "bf16").act_dtype == torch.bfloat16
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="bf16 activation policy"):
-        main(["experiment=sc09"])         # the config default is bf16
+    fn, match = _REFUSED[case]
+    with pytest.raises(NotImplementedError, match=match):
+        fn()
 
 
 def test_plain_and_fused_ops_agree_on_cpu(small):

@@ -290,7 +290,7 @@ def test_entry_points_require_a_card_unless_asked_for_the_cpu(
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train(DIFFUSION, SMALL_CFG, data, None, device="cpu",
               compute_cfg={"precision": "bf16"})
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
         train(DIFFUSION, SMALL_CFG, data, None, device="cpu",
               compute_cfg=F32, mesh_cfg={"data": 4})
 

@@ -121,7 +121,7 @@ def test_gate_ref_matches_jax_kernel_and_ref(B, C, S, L):
 def test_gate_fast_form_is_refused():
     data = list(map(torch.from_numpy, _gate_data(1, 8, 8, 16)))
     for fn in (ops.gate_res_skip, ops.gate_res_skip_ref):
-        with pytest.raises(NotImplementedError, match="item 16"):
+        with pytest.raises(NotImplementedError, match="queue 2, entry 2"):
             fn(*data, fast=True)
 
 
