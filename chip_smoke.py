@@ -34,18 +34,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
    traced;
 7. the training kernels (kernel 1's training entry and its conjugate
    form, kernels 5-8) against their plain versions at the three tiers,
-   with their times;
+   with their times; then (7b) their bf16 forms (1f's training entry and
+   its conjugate form, 5f, 6f, 7f) at the three tiers, B4, timed;
 8. the training path: a seeded synthetic SC09 corpus (one-second 16 kHz
    ``*_nohash_*.wav`` clips, a few per digit folder) and the port's
    ``runtime.train.main`` with ``experiment=sc09 compute.precision=f32``
    for 4 iterations at full width and batch 4 (checkpoint at 2), then a
    resume from 'max' for one more step; every kernel the training step
    runs must have launched, the losses must be finite and the checkpoint
-   must exist;
+   must exist; then (8b) the shipped training command,
+   ``runtime.train.main(["experiment=sc09", ...])`` with no precision
+   override (bf16), 4 iterations and a resume on the same corpus: exact
+   launch counts (kernel 1f's training entry 240, kernels 2f, 3f, 4, 5f,
+   6f, 7f and 8 120 each, no f32 form), finite losses, an f32 checkpoint;
 9. one training step's loss and every parameter gradient through the
    kernels (ops.FUSED) and through torch autograd of the plain versions
-   (ops.PLAIN), on the same batch, t and z;
-10. the training step (forward, backward, Adam) timed both ways;
+   (ops.PLAIN), on the same batch, t and z; then (9b) the same at bf16,
+   and the bf16 gradients' distance from the f32 ones; (9c) the quality
+   gate of bf16 training: TRAJ_STEPS Adam steps from one init on the
+   same batches, t and z at bf16 and at f32, through the kernels, whose
+   per-step losses must agree within TRAJ_TOL;
+10. the training step (forward, backward, Adam) timed both ways; (10b) the
+    bf16 training step against its plain path and against the f32 step,
+    and a trace of two bf16 steps;
 11. a torch.profiler trace of two training steps with the kernels: device
     time by kernel, the port's kernels' share, the device's idle share;
 12. the vocoder: the shipped LJSpeech model (``experiment=ljspeech``:
@@ -139,6 +150,34 @@ QUALITY_CFG = {"T": 50, "beta_0": 0.0001, "beta_T": 0.02, "beta": None}
 TRAIN_OVERRIDES = ["experiment=sc09", "compute.precision=f32",
                    "train.n_iters=3", "train.iters_per_ckpt=2",
                    "train.iters_per_logging=1", "generate.n_samples=0"]
+# the shipped training command: experiment=sc09 trains at bf16
+TRAIN_BF16_OVERRIDES = [o for o in TRAIN_OVERRIDES
+                        if not o.startswith("compute.precision")]
+# its first run, 4 iterations of 30 blocks: kernel 1f's training entry
+# twice a block (the conv and its conjugate, the input gradient), the rest
+# once
+TRAIN_BF16_LAUNCHES = {"fftconv_bf16": 4 * 60, "fftconv_dkf_bf16": 4 * 30,
+                       "glu_res_bwd_bf16": 4 * 30,
+                       "ln_ff_res_bwd_bf16": 4 * 30, "glu_res_bf16": 4 * 30,
+                       "ln_ff_res_bf16": 4 * 30, "cauchy": 4 * 30,
+                       "cauchy_bwd": 4 * 30}
+# bf16 gradients, kernels vs the bf16 plain path, per tensor |a - b|_2 /
+# |b|_2: the median over the tensors, the worst tensor, and the largest
+# entry error over the largest plain gradient (the loss is held to the
+# entry bar, relative).  The two differ where a bf16 rounding (of a
+# product's operand, of an activation) lands the other way after sums
+# taken in other orders, and the plain path's weight gradients are rounded
+# to bf16 by its casts' backward; scalar gradients that cancel over every
+# position (norm1.s) move most.  A first card run of this phase measured
+# median 2.0e-3, worst 0.12, entry 2.2e-3; the bf16 gradients' distance
+# from the f32 ones was median 8.8e-3, entry 4.4e-3: the median and entry
+# bars sit between the two.
+TOL_GRAD_BF16 = {"median": 5e-3, "worst": 0.25, "entry": 5e-3}
+# the quality gate of bf16 training: per-step losses of TRAJ_STEPS Adam
+# steps at bf16 vs f32 from one init, |bf16 - f32| <= atol + rtol |f32|
+# (the JAX suite's trajectory bar, tests/test_train_dynamics.py:116)
+TRAJ_STEPS = 20
+TRAJ_TOL = {"rtol": 3e-2, "atol": 2e-3}
 
 DIFFUSION_CFG = {"T": 200, "beta_0": 0.0001, "beta_T": 0.02, "beta": None}
 MODEL_CFG = {"_name_": "sashimi", "unconditional": True, "in_channels": 1,
@@ -200,7 +239,7 @@ KERNELS = {
                   ("generate", "train")),
     "cauchy": ("diffwave_sashimi_torch/csrc/cauchy.cu",
                "diffwave_sashimi_tpu/ops/cauchy_pallas.py:54",
-               ("generate", "train")),
+               ("generate", "train", "train_bf16")),
     "fftconv": ("diffwave_sashimi_torch/csrc/fftconv.cu",
                 "diffwave_sashimi_tpu/ops/fftconv2.py:427", ("train",)),
     "fftconv_dkf": ("diffwave_sashimi_torch/csrc/fftconv.cu",
@@ -211,7 +250,7 @@ KERNELS = {
                       "diffwave_sashimi_tpu/ops/chmix.py:362", ("train",)),
     "cauchy_bwd": ("diffwave_sashimi_torch/csrc/cauchy.cu",
                    "diffwave_sashimi_tpu/ops/cauchy_pallas.py:91",
-                   ("train",)),
+                   ("train", "train_bf16")),
     # kernel 9 replaces fftconv_pallas.py:78 (_kernel) and, as the same
     # function, :126 (_kernel_batched)
     "fftconv_long_ln_bias_gelu_d": (
@@ -229,16 +268,30 @@ KERNELS = {
                                     ("generate_bf16",)),
     "glu_res_bf16": ("diffwave_sashimi_torch/csrc/chmix.cu",
                      "diffwave_sashimi_tpu/ops/chmix.py:119",
-                     ("generate_bf16", "generate_int8")),
+                     ("generate_bf16", "generate_int8", "train_bf16")),
     "ln_ff_res_bf16": ("diffwave_sashimi_torch/csrc/chmix.cu",
                        "diffwave_sashimi_tpu/ops/chmix.py:182",
-                       ("generate_bf16", "generate_int8")),
+                       ("generate_bf16", "generate_int8", "train_bf16")),
     "fftconv_int8": ("diffwave_sashimi_torch/csrc/fftconv_int8.cu",
                      "diffwave_sashimi_tpu/ops/fftconv2.py:427",
                      ("generate_int8",)),
+    # the bf16 training path's forms (fast=True) of kernels 1 (training
+    # entry and conjugate form), 5, 6 and 7
+    "fftconv_bf16": ("diffwave_sashimi_torch/csrc/fftconv.cu",
+                     "diffwave_sashimi_tpu/ops/fftconv2.py:427",
+                     ("train_bf16",)),
+    "fftconv_dkf_bf16": ("diffwave_sashimi_torch/csrc/fftconv.cu",
+                         "diffwave_sashimi_tpu/ops/fftconv2.py:707",
+                         ("train_bf16",)),
+    "glu_res_bwd_bf16": ("diffwave_sashimi_torch/csrc/chmix.cu",
+                         "diffwave_sashimi_tpu/ops/chmix.py:414",
+                         ("train_bf16",)),
+    "ln_ff_res_bwd_bf16": ("diffwave_sashimi_torch/csrc/chmix.cu",
+                           "diffwave_sashimi_tpu/ops/chmix.py:362",
+                           ("train_bf16",)),
 }
 PATHS = ("generate", "train", "vocode", "wavenet", "wavenet_train",
-         "generate_bf16", "generate_int8")
+         "generate_bf16", "generate_int8", "train_bf16")
 # the tier of the JSON line's entry, where it is not H128 at the path's L
 TOP_TIER = {"gate_res_skip": f"B{N_SAMPLES}_C256_S256_L16000"}
 # kernel 9's entries compute kernel 1's functions (at larger n)
@@ -287,7 +340,9 @@ def paired_ms(kernel_fn, plain_fn, reps):
 
 
 def max_err(out, ref):
-    out, ref = out.float(), ref.float()
+    """(max |out - ref|, max |ref|), in f32 (complex values as they are)."""
+    if not out.is_complex():
+        out, ref = out.float(), ref.float()
     return float((out - ref).abs().max()), float(ref.abs().max())
 
 
@@ -296,8 +351,11 @@ def work(name, B, H, L, n, K=6, N=32, S=None, bpe=4):
     each input read once and each output written once; a real FFT of
     length n counted as 2.5 n log2 n fp32 operations.  For kernel 11, H is
     C and S the skip width (C by default).  The _bf16 forms move bf16
-    activations and multiply bf16 operands; kernel 12 moves activations of
-    bpe bytes and multiplies int8 ones (its four-step layout's products)."""
+    activations and multiply bf16 operands where JAX's fast=True kernels
+    do (the forwards' products; the backward passes' per-position products,
+    its _bmm, while their weight gradients, its _bmmc, stay fp32); kernel
+    12 moves activations of bpe bytes and multiplies int8 ones (its
+    four-step layout's products)."""
     base = name.removesuffix("_bf16")
     if base != name:
         bpe = 2
@@ -331,7 +389,15 @@ def work(name, B, H, L, n, K=6, N=32, S=None, bpe=4):
                           (4 * H + S) * B * L * 4
                           + (H * H + H + S * H + S) * 4),
     }[SAME_FUNCTION.get(base, base)]
-    return {gemm if base in ("glu_res", "ln_ff_res") else "fp32": ops}, nbytes
+    # operations of the per-position products, of the weight gradients
+    split = {"glu_res": (ops, 0), "ln_ff_res": (ops, 0),
+             "glu_res_bwd": (8 * H * H * B * L, 4 * H * H * B * L),
+             "ln_ff_res_bwd": (6 * F * H * B * L, 4 * F * H * B * L)}
+    if base not in split:
+        return {"fp32": ops}, nbytes
+    by_type = {"fp32": split[base][1]}
+    by_type[gemm] = by_type.get(gemm, 0) + split[base][0]
+    return {t: v for t, v in by_type.items() if v}, nbytes
 
 
 def bound(name, B, H, L, n, S=None, bpe=4):
@@ -609,12 +675,10 @@ def check_bf16_path(torch, model, dev):
     a 50-step reverse process (QUALITY_CFG) with one injected noise stack,
     x_0 of bf16, bf16 + int8 and f32 + int8 against f32's.  Returns a
     dict."""
-    import copy
     from diffwave_sashimi_torch import ops
     from diffwave_sashimi_torch.diffusion.sampling import sampling
     from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
-    bfm = copy.deepcopy(model)          # construct_model(..., "bf16") with
-    bfm.act_dtype = torch.bfloat16      # the f32 model's parameters
+    bfm = bf16_copy(torch, model)
     g = torch.Generator(device=dev).manual_seed(SEED + 13)
     x = torch.randn(N_SAMPLES, 1, 16000, device=dev, generator=g)
     steps = torch.tensor([199, 120, 40, 3][:N_SAMPLES], device=dev)
@@ -725,6 +789,35 @@ def check_training_kernels(torch, model, dev, results):
                     results)
 
 
+def check_bf16_training_kernels(torch, model, dev, results):
+    """Phase 7b: the bf16 training forms (kernel 1f's training entry and
+    its conjugate form, 5f, 6f, 7f) vs their plain versions at every tier
+    (B4, bf16 activations), timed."""
+    from diffwave_sashimi_torch import ops
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    bf = torch.bfloat16
+    for H, L, blk in tier_blocks(model):
+        d = tier_inputs(torch, blk, L, gen, dev)
+        x, g, y, khat, lin = (d["x"].to(bf), d["g"].to(bf), d["y"].to(bf),
+                              d["khat"], d["lin"])
+        ff = (x, d["m2"], d["s2"], d["w1"], d["b1"], d["w2"], d["b2"], g)
+        cases = [
+            ("fftconv_bf16", lambda: ops.fftconv_bf16(x, khat),
+             lambda: ops.fftconv_ref(x, khat)),
+            ("fftconv_bf16", lambda: ops.fftconv_bf16(g, khat, conj=True),
+             lambda: ops.fftconv_ref(g, khat, conj=True)),
+            ("fftconv_dkf_bf16", lambda: ops.fftconv_dkf_bf16(x, g, d["n"]),
+             lambda: ops.fftconv_dkf_ref(x, g, d["n"])),
+            ("glu_res_bwd_bf16",
+             lambda: ops.glu_res_bwd_bf16(y, lin.weight, lin.bias, g),
+             lambda: ops.glu_res_bwd_ref(y, lin.weight, lin.bias, g)),
+            ("ln_ff_res_bwd_bf16", lambda: ops.ln_ff_res_bwd_bf16(*ff),
+             lambda: ops.ln_ff_res_bwd_ref(*ff)),
+        ]
+        for name, kfn, pfn in cases:
+            compare(name, H, L, kfn, pfn, 10, results, tol=TOL_BF16, bpe=2)
+
+
 def write_corpus(root, per_digit=3):
     """Seeded synthetic SC09: one-second 16 kHz int16 clips, ``per_digit``
     in each digit folder, named like SpeechCommands (``*_nohash_*``)."""
@@ -787,26 +880,174 @@ def run_training(torch, exp_dir, launches):
     return losses
 
 
-def check_gradients(torch, model, dev):
-    """Phase 9: loss and every parameter gradient of one training step,
-    kernels vs plain, on one batch, t and z."""
+def run_training_bf16(torch, exp_dir, launches):
+    """Phase 8b: the shipped training command (bf16, no precision
+    override), from scratch and resumed, with exact launch counts of the
+    first run; the checkpoint's tensors must be f32."""
+    import numpy as np
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.runtime import train as train_mod
+    from diffwave_sashimi_torch.utils.exp import local_directory
+    data = os.path.join(exp_dir, "sc09")
+    write_corpus(data)
+    overrides = TRAIN_BF16_OVERRIDES + [f"dataset.data_path={data}"]
+    for fn in ops.COUNTED.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    train_mod.main(overrides)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches["train_bf16"] = {k: f.launches for k, f in ops.COUNTED.items()}
+    t0 = time.perf_counter()
+    train_mod.main(overrides)                  # resumes from 'max' (2)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    run, ckpt = local_directory(None, MODEL_CFG, DIFFUSION_CFG, DATASET_CFG,
+                                "checkpoint", makedirs=False)
+    with open(os.path.join("exp", run, "metrics.jsonl")) as f:
+        losses = [(r["step"], r["train/loss"]) for r in map(json.loads, f)
+                  if "train/loss" in r]
+    saved = torch.load(os.path.join(ckpt, "2.pkl"), weights_only=True)
+    dtypes = {str(t.dtype) for t in saved["model_state_dict"].values()}
+    adam = {int(st["step"]) for st in
+            saved["optimizer_state_dict"]["state"].values()}
+    log(f"phase train_bf16: main() with no precision override, 4 iterations "
+        f"in {first_s:.2f} s wall, resume 1 iteration in {resume_s:.2f} s "
+        f"wall (each includes building the model); losses {losses}; "
+        f"checkpoints {sorted(os.listdir(ckpt))}, 2.pkl tensors {dtypes}, "
+        f"Adam steps {adam}; launches {launches['train_bf16']}")
+    expect = {k: TRAIN_BF16_LAUNCHES.get(k, 0) for k in ops.COUNTED}
+    if launches["train_bf16"] != expect:
+        raise AssertionError(f"bf16 training launches "
+                             f"{launches['train_bf16']}, expected {expect}")
+    if [i for i, _ in losses] != [0, 1, 2, 3, 3] or not all(
+            np.isfinite(v) for _, v in losses):
+        raise AssertionError(f"bf16 training losses {losses}")
+    if dtypes != {"torch.float32"} or adam != {3}:
+        raise AssertionError(f"bf16 checkpoint: tensors {dtypes}, Adam "
+                             f"steps {adam}")
+    return {"losses": losses, "first_s": first_s, "resume_s": resume_s}
+
+
+def bf16_copy(torch, model):
+    """The model's parameters in a copy that runs at bf16
+    (``construct_model(..., "bf16")`` with the same weights)."""
+    import copy
+    bfm = copy.deepcopy(model)
+    bfm.act_dtype = torch.bfloat16
+    return bfm
+
+
+def grad_batch(torch, dev):
+    """Phases 9 and 9b's seeded (audio, t, z)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    return (0.3 * torch.randn(N_SAMPLES, 1, 16000, device=dev, generator=g),
+            torch.randint(0, 200, (N_SAMPLES,), device=dev, generator=g),
+            torch.randn(N_SAMPLES, 1, 16000, device=dev, generator=g))
+
+
+def step_grads(torch, model, audio, t, z, route):
+    """(loss, {name: grad}) of one training step through ``route``."""
     from diffwave_sashimi_torch import ops
     from diffwave_sashimi_torch.diffusion.loss import training_loss
     from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
-    g = torch.Generator(device=dev).manual_seed(SEED + 4)
-    audio = 0.3 * torch.randn(N_SAMPLES, 1, 16000, device=dev, generator=g)
-    t = torch.randint(0, 200, (N_SAMPLES,), device=dev, generator=g)
-    z = torch.randn(N_SAMPLES, 1, 16000, device=dev, generator=g)
+    model.zero_grad(set_to_none=True)
+    loss = training_loss(model, audio, schedule_from_cfg(DIFFUSION_CFG),
+                         t=t, z=z, ops=getattr(ops, route))
+    loss.backward()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def grad_distance(mine, ref):
+    """Per tensor |a - b|_2 / |b|_2: its median and worst over the tensors
+    (init_conv's weight_v left out: its gradient is exactly 0 but for
+    roundoff, W = g sign(v)), and the largest entry error over the largest
+    entry of ref."""
+    names = [n for n in ref if n != "init_conv.0.conv.weight_v"]
+    per = {n: float((mine[n] - ref[n]).norm() / ref[n].norm()) for n in names}
+    worst = max(per, key=per.get)
+    entry = max(float((mine[n] - ref[n]).abs().max()) for n in names)
+    return {"median": float(sorted(per.values())[len(per) // 2]),
+            "worst": per[worst], "worst_tensor": worst,
+            "entry": entry / max(float(ref[n].abs().max()) for n in names)}
+
+
+def check_gradients_bf16(torch, model, dev):
+    """Phase 9b: loss and every parameter gradient of one bf16 training
+    step, kernels vs the bf16 plain path, on phase 9's batch, t and z, at
+    TOL_GRAD_BF16; and the bf16 gradients' distance from the f32 ones
+    (through the kernels)."""
+    batch = grad_batch(torch, dev)
+    bfm = bf16_copy(torch, model)
+    loss, grads = step_grads(torch, bfm, *batch, "FUSED")
+    loss_plain, grads_plain = step_grads(torch, bfm, *batch, "PLAIN")
+    loss32, grads32 = step_grads(torch, model, *batch, "FUSED")
+    vs_plain = grad_distance(grads, grads_plain)
+    vs_f32 = grad_distance(grads, grads32)
+    finite = all(bool(torch.isfinite(v).all()) for v in grads.values())
+    ok = finite and all(vs_plain[k] <= TOL_GRAD_BF16[k]
+                        for k in TOL_GRAD_BF16) and abs(
+        loss - loss_plain) <= TOL_GRAD_BF16["entry"] * abs(loss_plain)
+    out = {"loss": loss, "loss_plain": loss_plain, "loss_f32": loss32,
+           "vs_plain": vs_plain, "vs_f32": vs_f32}
+    log(f"phase grads_bf16: {json.dumps(out)} (bars {TOL_GRAD_BF16}, the "
+        f"loss to the entry bar) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("bf16 gradients through the kernels disagree")
+    return out
+
+
+def check_bf16_trajectory(torch, model, dev):
+    """Phase 9c: TRAJ_STEPS Adam steps (lr 2e-4) from the model's
+    parameters at f32 and at bf16, through the kernels, on the same seeded
+    batches, t and z; per-step losses within TRAJ_TOL."""
+    import copy
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.diffusion.loss import training_loss
+    from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
+    from diffwave_sashimi_torch.runtime.train import make_optimizer
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    draws = [(0.3 * torch.randn(N_SAMPLES, 1, 16000, device=dev, generator=g),
+              torch.randint(0, 200, (N_SAMPLES,), device=dev, generator=g),
+              torch.randn(N_SAMPLES, 1, 16000, device=dev, generator=g))
+             for _ in range(TRAJ_STEPS)]
     schedule = schedule_from_cfg(DIFFUSION_CFG)
+    losses = {}
+    for label, m in (("f32", copy.deepcopy(model)),
+                     ("bf16", bf16_copy(torch, model))):
+        optim = make_optimizer(m, 2e-4)
+        losses[label] = []
+        for audio, t, z in draws:
+            optim.zero_grad(set_to_none=True)
+            loss = training_loss(m, audio, schedule, t=t, z=z, ops=ops.FUSED)
+            loss.backward()
+            optim.step()
+            losses[label].append(loss.item())
+        del m, optim
+    diff = [abs(b - f) for b, f in zip(losses["bf16"], losses["f32"])]
+    ok = all(math.isfinite(v) for v in losses["bf16"]) and all(
+        d <= TRAJ_TOL["atol"] + TRAJ_TOL["rtol"] * abs(f)
+        for d, f in zip(diff, losses["f32"]))
+    out = {"losses": losses, "max_abs_diff": max(diff),
+           "max_rel_diff": max(d / abs(f) for d, f in
+                               zip(diff, losses["f32"]))}
+    log(f"phase trajectory_bf16: {TRAJ_STEPS} Adam steps, per-step losses "
+        f"bf16 vs f32 {json.dumps(out)} (bar {TRAJ_TOL}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("bf16 training leaves the f32 trajectory")
+    return out
+
+
+def check_gradients(torch, model, dev):
+    """Phase 9: loss and every parameter gradient of one training step,
+    kernels vs plain, on one batch, t and z."""
     grads, losses = {}, {}
     for route in ("FUSED", "PLAIN"):
-        model.zero_grad(set_to_none=True)
-        loss = training_loss(model, audio, schedule, t=t, z=z,
-                             ops=getattr(ops, route))
-        loss.backward()
-        losses[route] = loss.item()
-        grads[route] = {n: p.grad.clone() for n, p in model.named_parameters()}
-    model.zero_grad(set_to_none=True)
+        losses[route], grads[route] = step_grads(
+            torch, model, *grad_batch(torch, dev), route)
     worst, bad = (0.0, ""), []
     for name, gp in grads["PLAIN"].items():
         err = float((grads["FUSED"][name] - gp).abs().max())
@@ -916,6 +1157,39 @@ def time_train_step(torch, model, dev):
     return paired_ms(
         lambda: train_step(model, optim, audio, schedule, g, ops.FUSED),
         lambda: train_step(model, optim, audio, schedule, g, ops.PLAIN), 3)
+
+
+def time_train_step_bf16(torch, model, dev):
+    """Phase 10b: the bf16 training step (forward, backward, Adam) with the
+    kernels, against its plain path and against the f32 step with the
+    kernels, each pair timed in turns in this call, at the main path's
+    batch; then a trace of two bf16 steps.  Returns a dict."""
+    import copy
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
+    from diffwave_sashimi_torch.runtime.train import make_optimizer, train_step
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    audio = 0.3 * torch.randn(N_SAMPLES, 1, 16000, device=dev, generator=g)
+    schedule = schedule_from_cfg(DIFFUSION_CFG)
+    bfm, fm = bf16_copy(torch, model), copy.deepcopy(model)
+    opt_b, opt_f = make_optimizer(bfm, 2e-4), make_optimizer(fm, 2e-4)
+
+    def bf16_step(o=ops.FUSED):
+        return train_step(bfm, opt_b, audio, schedule, g, o)
+    out = {}
+    out["ms"], out["plain_ms"] = paired_ms(
+        bf16_step, lambda: bf16_step(ops.PLAIN), 3)
+    out["ms_vs_f32"], out["f32_ms"] = paired_ms(
+        bf16_step, lambda: train_step(fm, opt_f, audio, schedule, g,
+                                      ops.FUSED), 3)
+    out["trace"] = trace_steps(torch, bf16_step)
+    log(f"timing: bf16 training step at B{N_SAMPLES} {out['ms']:.3f} ms with "
+        f"kernels vs {out['plain_ms']:.3f} ms plain; {out['ms_vs_f32']:.3f} "
+        f"ms vs the f32 step's {out['f32_ms']:.3f} ms in turns")
+    log("trace: bf16 training step with the kernels: " + (
+        "no device time in the profiler's events (not measured)"
+        if out["trace"] is None else json.dumps(out["trace"])))
+    return out
 
 
 def write_utterance(path):
@@ -1371,21 +1645,30 @@ def main():
         bf16_path = check_bf16_path(torch, model, dev)
     bf16_path["generate_s"] = shipped_s
 
-    # phase 7: the training kernels vs plain at every tier
+    # phase 7: the training kernels vs plain at every tier; 7b their bf16
+    # forms
     with torch.no_grad():
         check_training_kernels(torch, model, dev, results)
+        check_bf16_training_kernels(torch, model, dev, results)
 
-    # phase 8: the training path through runtime.train.main
-    train_root = tempfile.TemporaryDirectory(prefix="dwst_smoke_train_")
-    os.chdir(train_root.name)
-    try:
-        run_training(torch, train_root.name, launches)
-    finally:
-        os.chdir(cwd)
-        train_root.cleanup()
+    # phase 8: the training path through runtime.train.main; 8b the
+    # shipped (bf16) training command, in a directory of its own
+    def in_temp_dir(label, run_fn):
+        root = tempfile.TemporaryDirectory(prefix=f"dwst_smoke_{label}_")
+        os.chdir(root.name)
+        try:
+            return run_fn(torch, root.name, launches)
+        finally:
+            os.chdir(cwd)
+            root.cleanup()
+    in_temp_dir("train", run_training)
+    train_bf16 = {"main": in_temp_dir("train_bf16", run_training_bf16)}
 
-    # phases 9 and 10: gradients kernels vs plain, then the step's time
+    # phases 9 and 10: gradients kernels vs plain (9b at bf16), the bf16
+    # trajectory (9c), then the step's time
     check_gradients(torch, model, dev)
+    train_bf16["grads"] = check_gradients_bf16(torch, model, dev)
+    train_bf16["trajectory"] = check_bf16_trajectory(torch, model, dev)
     train_ms, train_plain_ms = time_train_step(torch, model, dev)
     log(f"timing: training step (forward, backward, Adam) at B{N_SAMPLES} "
         f"{train_ms:.3f} ms with kernels vs {train_plain_ms:.3f} ms plain")
@@ -1393,6 +1676,7 @@ def main():
     log("trace: training step with the kernels: " + (
         "no device time in the profiler's events (not measured)"
         if trace is None else json.dumps(trace)))
+    train_bf16["step"] = time_train_step_bf16(torch, model, dev)
 
     # phases 12-14: the vocoder through generate(), the precomputed mel
     voc_root = tempfile.TemporaryDirectory(prefix="dwst_smoke_voc_")
@@ -1494,6 +1778,7 @@ def main():
                    "generate_s": voc_gen_s, "trace": voc_trace},
         "wavenet": wn,
         "bf16_int8": bf16_path,
+        "train_bf16": train_bf16,
         "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -325,15 +325,28 @@ ln_ff_res_kernel(const IO* __restrict__ x, const IO* __restrict__ skip,
 // partials in a fixed order.  No float atomics: a run repeats bit for
 // bit.  FF's scalar gradients dm and ds are per-block partials summed the
 // same way.
+//
+// Kernels 6f and 7f, the bf16 path's backward passes (the TPU kernels with
+// fast=True), are the same code templated on the activations' type, as
+// 2f and 3f are: y or x, g and the input gradient are bf16, and, as JAX's
+// _bmm does, both operands of every per-position product are rounded to
+// bf16 (the weights as they are loaded; xn and dz in shared memory) with
+// f32 sums.  The weight gradients contract the unrounded f32 operands (as
+// JAX's _bmmc does): the dz, xn and GELU-output scratch stays f32 and the
+// split-K kernels read it, and the bf16 g or y, in f32.  7f's GELU and its
+// derivative are gelu_fast and gelu_fast_grad.
 
 // GLU backward, per position tile (P as the forward): z = W y + b
 // recomputed, da = g sig(gate), dgate = g a sig (1 - sig), dy = W^T dz.
-template <int P>
+// IO: the activations' type (kernel 6f: bf16, W and the shared-memory dz
+// rounded to bf16 for their products; the dz written out stays f32).
+template <int P, typename IO>
 __global__ void __launch_bounds__(NT, 1)
-glu_res_bwd_kernel(const float* __restrict__ y, const float* __restrict__ g,
+glu_res_bwd_kernel(const IO* __restrict__ y, const IO* __restrict__ g,
                    const float* __restrict__ W, const float* __restrict__ Wt,
-                   const float* __restrict__ bias, float* __restrict__ dy,
+                   const float* __restrict__ bias, IO* __restrict__ dy,
                    float* __restrict__ dz, int H, int L) {
+  constexpr bool BF = sizeof(IO) == 2;
   using T = Tile<P>;
   extern __shared__ float4 sh4[];
   float* ys = reinterpret_cast<float*>(sh4);     // H x P
@@ -344,7 +357,8 @@ glu_res_bwd_kernel(const float* __restrict__ y, const float* __restrict__ g,
   load_tile<P>(y, ys, b, H, L, t0);
   for (int o0 = 0; o0 < H; o0 += T::TM / 2) {
     float acc[8][8];
-    gemm_chunk<P>(W, H, RowMap{o0, H + o0, H, 2 * H, T::TM / 2}, ys, AsT, acc);
+    gemm_chunk<P, BF>(W, H, RowMap{o0, H + o0, H, 2 * H, T::TM / 2}, ys, AsT,
+                      acc);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int o = o0 + local_row<P>(r);
@@ -356,12 +370,12 @@ glu_res_bwd_kernel(const float* __restrict__ y, const float* __restrict__ g,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int p = pg * 8 + j, t = t0 + p;
-        const float gv = t < L ? g[grow + t] : 0.0f;
+        const float gv = t < L ? to_f(g[grow + t]) : 0.0f;
         const float a = acc[r][j] + ba;
         const float sig = 1.0f / (1.0f + expf(-(acc[r + 4][j] + bg)));
         const float da = gv * sig, dgate = gv * a * sig * (1.0f - sig);
-        dzs[o * P + p] = da;
-        dzs[(H + o) * P + p] = dgate;
+        dzs[o * P + p] = BF ? round_bf16(da) : da;
+        dzs[(H + o) * P + p] = BF ? round_bf16(dgate) : dgate;
         if (t < L) {
           dz[arow + t] = da;
           dz[hrow + t] = dgate;
@@ -371,8 +385,8 @@ glu_res_bwd_kernel(const float* __restrict__ y, const float* __restrict__ g,
   }
   for (int h0 = 0; h0 < H; h0 += T::TM) {
     float acc[8][8];
-    gemm_chunk<P>(Wt, 2 * H, RowMap{h0, h0 + T::TM / 2, H, H, T::TM / 2}, dzs,
-                  AsT, acc);
+    gemm_chunk<P, BF>(Wt, 2 * H, RowMap{h0, h0 + T::TM / 2, H, H, T::TM / 2},
+                      dzs, AsT, acc);
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const int h = h0 + local_row<P>(r);
@@ -381,7 +395,7 @@ glu_res_bwd_kernel(const float* __restrict__ y, const float* __restrict__ g,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int t = t0 + pg * 8 + j;
-        if (t < L) dy[row + t] = acc[r][j];
+        if (t < L) dy[row + t] = from_f<IO>(acc[r][j]);
       }
     }
   }
@@ -399,17 +413,21 @@ __device__ __forceinline__ float gelu_erf_grad(float z) {
 //   S2 = mean_h dxn (xc + m),  dx = g + r (dxn - S1) - r rstd^2 xc S2,
 //   dm = sum dxn r,  ds = sum dxn rstd (xc + m).
 // Writes dx, xn = TLN(x), hact = gelu(z), dz, and (dm, ds) of the block.
-template <int P>
+// IO: the activations' type (kernel 7f: bf16 x, g and dx; the weights, and
+// xn and dz in shared memory, rounded to bf16 for their products; the xn,
+// hact and dz written out stay f32; gelu_fast and gelu_fast_grad).
+template <int P, typename IO>
 __global__ void __launch_bounds__(NT, 1)
-ln_ff_res_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
+ln_ff_res_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
                      const float* __restrict__ W1, const float* __restrict__ b1,
                      const float* __restrict__ W1t,
                      const float* __restrict__ W2t,
                      const float* __restrict__ m_ptr,
-                     const float* __restrict__ s_ptr, float* __restrict__ dx,
+                     const float* __restrict__ s_ptr, IO* __restrict__ dx,
                      float* __restrict__ xn, float* __restrict__ hact,
                      float* __restrict__ dz, float* __restrict__ stat_part,
                      int H, int F, int L) {
+  constexpr bool BF = sizeof(IO) == 2;
   using T = Tile<P>;
   constexpr int PARTS = NT / P;
   extern __shared__ float4 sh4[];
@@ -435,15 +453,15 @@ ln_ff_res_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
   for (int idx = tid; idx < H * P; idx += NT) {
     const int h = idx / P, p = idx % P, t = t0 + p;
     const float v = s * rstd_s[p] * (xs[idx] - mean_s[p] + m);
-    xs[idx] = v;
+    xs[idx] = BF ? round_bf16(v) : v;
     if (t < L) xn[((size_t)b * H + h) * L + t] = v;
   }
 
   // dh = W2^T g into hs
   for (int f0 = 0; f0 < F; f0 += T::TM) {
     float acc[8][8];
-    gemm_chunk<P>(W2t, H, RowMap{f0, f0 + T::TM / 2, F, F, T::TM / 2}, gs, AsT,
-                  acc);
+    gemm_chunk<P, BF>(W2t, H, RowMap{f0, f0 + T::TM / 2, F, F, T::TM / 2}, gs,
+                      AsT, acc);
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const int f = f0 + local_row<P>(r);
@@ -455,8 +473,8 @@ ln_ff_res_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
   // z = W1 xn + b1; dz = gelu'(z) dh in place of dh
   for (int f0 = 0; f0 < F; f0 += T::TM) {
     float acc[8][8];
-    gemm_chunk<P>(W1, H, RowMap{f0, f0 + T::TM / 2, F, F, T::TM / 2}, xs, AsT,
-                  acc);
+    gemm_chunk<P, BF>(W1, H, RowMap{f0, f0 + T::TM / 2, F, F, T::TM / 2}, xs,
+                      AsT, acc);
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const int f = f0 + local_row<P>(r);
@@ -467,10 +485,11 @@ ln_ff_res_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
       for (int j = 0; j < 8; ++j) {
         const int p = pg * 8 + j, t = t0 + p;
         const float zz = acc[r][j] + bf;
-        const float d = gelu_erf_grad(zz) * hs[f * P + p];
-        hs[f * P + p] = d;
+        const float d =
+            (BF ? gelu_fast_grad(zz) : gelu_erf_grad(zz)) * hs[f * P + p];
+        hs[f * P + p] = BF ? round_bf16(d) : d;
         if (t < L) {
-          hact[row + t] = gelu_erf(zz);
+          hact[row + t] = BF ? gelu_fast(zz) : gelu_erf(zz);
           dz[row + t] = d;
         }
       }
@@ -479,8 +498,8 @@ ln_ff_res_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
   // dxn = W1^T dz into gs (g is no longer read from shared memory)
   for (int h0 = 0; h0 < H; h0 += T::TM) {
     float acc[8][8];
-    gemm_chunk<P>(W1t, F, RowMap{h0, h0 + T::TM / 2, H, H, T::TM / 2}, hs, AsT,
-                  acc);
+    gemm_chunk<P, BF>(W1t, F, RowMap{h0, h0 + T::TM / 2, H, H, T::TM / 2}, hs,
+                      AsT, acc);
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const int h = h0 + local_row<P>(r);
@@ -499,7 +518,7 @@ ln_ff_res_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
       for (int h = part; h < H; h += PARTS) {
         const float v = gs[h * P + p];
         a1 += v;
-        a2 += v * (x[((size_t)b * H + h) * L + t] - mean_s[p] + m);
+        a2 += v * (to_f(x[((size_t)b * H + h) * L + t]) - mean_s[p] + m);
       }
     }
     red[tid] = a1;
@@ -524,9 +543,10 @@ ln_ff_res_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
     if (t >= L) continue;
     const size_t at = ((size_t)b * H + h) * L + t;
     const float rstd = rstd_s[p], r = s * rstd;
-    const float xc = x[at] - mean_s[p];
+    const float xc = to_f(x[at]) - mean_s[p];
     const float v = gs[idx];
-    dx[at] = g[at] + r * (v - s1_s[p]) - r * rstd * rstd * xc * s2_s[p];
+    dx[at] = from_f<IO>(to_f(g[at]) + r * (v - s1_s[p])
+                        - r * rstd * rstd * xc * s2_s[p]);
     dm += v * r;
     ds += v * rstd * (xc + m);
   }
@@ -552,19 +572,20 @@ constexpr int WB = 64;   // weight-gradient output tile (WB x WB)
 constexpr int WK = 16;   // positions per k-step
 
 // part[s] = (X Y^T over split s, then the row sums of X over split s):
-// X (B, M, L), Y (B, N, L); split s = b * nsb + j covers positions
-// [j tc, min(L, (j + 1) tc)) of batch row b.  Row sums come from the
-// blocks of the first column tile.
+// X (B, M, L), Y (B, N, L), each f32 or bf16 (read into f32); split s = b *
+// nsb + j covers positions [j tc, min(L, (j + 1) tc)) of batch row b.  Row
+// sums come from the blocks of the first column tile.
+template <typename TX, typename TY>
 __global__ void __launch_bounds__(256)
-wgrad_kernel(const float* __restrict__ X, const float* __restrict__ Y,
+wgrad_kernel(const TX* __restrict__ X, const TY* __restrict__ Y,
              float* __restrict__ part, int M, int N, int L, int tc, int nsb) {
   __shared__ float Xs[WK][WB + 4];
   __shared__ float Ys[WK][WB + 4];
   const int n0 = blockIdx.x * WB, m0 = blockIdx.y * WB, sp = blockIdx.z;
   const int b = sp / nsb, ta = (sp % nsb) * tc;
   const int tb = min(L, ta + tc);
-  const float* Xb = X + (size_t)b * M * L;
-  const float* Yb = Y + (size_t)b * N * L;
+  const TX* Xb = X + (size_t)b * M * L;
+  const TY* Yb = Y + (size_t)b * N * L;
   const int tid = threadIdx.x, tm = tid / 16, tn = tid % 16;
   const bool rows = blockIdx.x == 0 && tn == 0;
   float acc[4][4] = {}, rs[4] = {};
@@ -573,10 +594,10 @@ wgrad_kernel(const float* __restrict__ X, const float* __restrict__ Y,
     for (int q = 0; q < 4; ++q) {
       const int idx = tid + q * 256, r = idx >> 4, k = idx & 15;
       const int tt = t + k;
-      Xs[k][r] = (m0 + r < M && tt < tb) ? Xb[(size_t)(m0 + r) * L + tt]
-                                         : 0.0f;
-      Ys[k][r] = (n0 + r < N && tt < tb) ? Yb[(size_t)(n0 + r) * L + tt]
-                                         : 0.0f;
+      Xs[k][r] = (m0 + r < M && tt < tb)
+                     ? to_f(Xb[(size_t)(m0 + r) * L + tt]) : 0.0f;
+      Ys[k][r] = (n0 + r < N && tt < tb)
+                     ? to_f(Yb[(size_t)(n0 + r) * L + tt]) : 0.0f;
     }
     __syncthreads();
 #pragma unroll
@@ -630,8 +651,9 @@ int reduce_splits(const float* part, float* out, int S, int size,
 
 // The weight and bias gradient sum over all B * L positions of
 // X Y^T (M x N) and of X's rows: partials, then their fixed-order sum.
-int weight_grad(const float* X, const float* Y, float* part, float* grads,
-                int B, int M, int N, int L, int tc, cudaStream_t stream) {
+template <typename TX, typename TY>
+int weight_grad(const TX* X, const TY* Y, float* part, float* grads, int B,
+                int M, int N, int L, int tc, cudaStream_t stream) {
   const int nsb = (L + tc - 1) / tc;
   dim3 grid((N + WB - 1) / WB, (M + WB - 1) / WB, B * nsb);
   wgrad_kernel<<<grid, 256, 0, stream>>>(X, Y, part, M, N, L, tc, nsb);
@@ -652,38 +674,38 @@ int choose_p_bwd(int H) {
   return p >= 64 ? 64 : (p >= 32 ? 32 : 16);
 }
 
-template <int P>
-int launch_glu_bwd(const float* y, const float* g, const float* W,
-                   const float* Wt, const float* bias, float* dy, float* dz,
-                   int B, int H, int L, cudaStream_t stream) {
+template <int P, typename IO>
+int launch_glu_bwd(const IO* y, const IO* g, const float* W, const float* Wt,
+                   const float* bias, IO* dy, float* dz, int B, int H, int L,
+                   cudaStream_t stream) {
   using T = Tile<P>;
   const size_t smem = ((size_t)3 * H * P + TK * T::LDT) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      glu_res_bwd_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      glu_res_bwd_kernel<P, IO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((L + P - 1) / P, B);
-  glu_res_bwd_kernel<P><<<grid, NT, smem, stream>>>(y, g, W, Wt, bias, dy, dz,
-                                                    H, L);
+  glu_res_bwd_kernel<P, IO><<<grid, NT, smem, stream>>>(y, g, W, Wt, bias, dy,
+                                                        dz, H, L);
   return (int)cudaGetLastError();
 }
 
-template <int P>
-int launch_ff_bwd(const float* x, const float* g, const float* W1,
-                  const float* b1, const float* W1t, const float* W2t,
-                  const float* m, const float* s, float* dx, float* xn,
-                  float* hact, float* dz, float* stat_part, int B, int H,
-                  int F, int L, int* nblocks, cudaStream_t stream) {
+template <int P, typename IO>
+int launch_ff_bwd(const IO* x, const IO* g, const float* W1, const float* b1,
+                  const float* W1t, const float* W2t, const float* m,
+                  const float* s, IO* dx, float* xn, float* hact, float* dz,
+                  float* stat_part, int B, int H, int F, int L, int* nblocks,
+                  cudaStream_t stream) {
   using T = Tile<P>;
   const size_t smem = ((size_t)(2 * H + F) * P + TK * T::LDT + 2 * NT + 4 * P) *
                       sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      ln_ff_res_bwd_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ln_ff_res_bwd_kernel<P, IO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((L + P - 1) / P, B);
   *nblocks = grid.x * grid.y;
-  ln_ff_res_bwd_kernel<P><<<grid, NT, smem, stream>>>(
+  ln_ff_res_bwd_kernel<P, IO><<<grid, NT, smem, stream>>>(
       x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact, dz, stat_part, H, F, L);
   return (int)cudaGetLastError();
 }
@@ -748,6 +770,55 @@ int ln_ff_res(const IO* x, const IO* skip, const float* W1, const float* b1,
   }
 }
 
+// Kernel 6 or 6f: the per-position pass, then dW and db from dz and y.
+template <typename IO>
+int glu_res_bwd(const IO* y, const IO* g, const float* W, const float* Wt,
+                const float* b, IO* dy, float* dz, float* part, float* grads,
+                int B, int H, int L, int tc, cudaStream_t stream) {
+  if (H % 8 || tc <= 0) return (int)cudaErrorInvalidValue;
+  int e;
+  switch (choose_p(H)) {
+    case 128: e = launch_glu_bwd<128>(y, g, W, Wt, b, dy, dz, B, H, L, stream);
+      break;
+    case 64: e = launch_glu_bwd<64>(y, g, W, Wt, b, dy, dz, B, H, L, stream);
+      break;
+    default: e = launch_glu_bwd<32>(y, g, W, Wt, b, dy, dz, B, H, L, stream);
+  }
+  if (e) return e;
+  return weight_grad(dz, y, part, grads, B, 2 * H, H, L, tc, stream);
+}
+
+// Kernel 7 or 7f: the per-position pass, the (dm, ds) sum, then dW1, db1
+// from dz and xn, dW2, db2 from g and the GELU output.
+template <typename IO>
+int ln_ff_res_bwd(const IO* x, const IO* g, const float* W1, const float* b1,
+                  const float* W1t, const float* W2t, const float* m,
+                  const float* s, IO* dx, float* xn, float* hact, float* dz,
+                  float* stat_part, float* dms, float* part1, float* grads1,
+                  float* part2, float* grads2, int B, int H, int F, int L,
+                  int tc, cudaStream_t stream) {
+  if (H % TK || F % TK || tc <= 0) return (int)cudaErrorInvalidValue;
+  int e, nblocks = 0;
+  switch (choose_p_bwd(H)) {
+    case 64: e = launch_ff_bwd<64>(x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact,
+                                   dz, stat_part, B, H, F, L, &nblocks,
+                                   stream);
+      break;
+    case 32: e = launch_ff_bwd<32>(x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact,
+                                   dz, stat_part, B, H, F, L, &nblocks,
+                                   stream);
+      break;
+    default: e = launch_ff_bwd<16>(x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact,
+                                   dz, stat_part, B, H, F, L, &nblocks,
+                                   stream);
+  }
+  if (e) return e;
+  if ((e = reduce_splits(stat_part, dms, nblocks, 2, stream))) return e;
+  if ((e = weight_grad(dz, xn, part1, grads1, B, F, H, L, tc, stream)))
+    return e;
+  return weight_grad(g, hact, part2, grads2, B, H, F, L, tc, stream);
+}
+
 using bf16 = __nv_bfloat16;
 
 }  // namespace
@@ -792,17 +863,19 @@ extern "C" int dwst_glu_res_bwd(const float* y, const float* g, const float* W,
                                 const float* Wt, const float* b, float* dy,
                                 float* dz, float* part, float* grads, int B,
                                 int H, int L, int tc, cudaStream_t stream) {
-  if (H % 8 || tc <= 0) return (int)cudaErrorInvalidValue;
-  int e;
-  switch (choose_p(H)) {
-    case 128: e = launch_glu_bwd<128>(y, g, W, Wt, b, dy, dz, B, H, L, stream);
-      break;
-    case 64: e = launch_glu_bwd<64>(y, g, W, Wt, b, dy, dz, B, H, L, stream);
-      break;
-    default: e = launch_glu_bwd<32>(y, g, W, Wt, b, dy, dz, B, H, L, stream);
-  }
-  if (e) return e;
-  return weight_grad(dz, y, part, grads, B, 2 * H, H, L, tc, stream);
+  return glu_res_bwd(y, g, W, Wt, b, dy, dz, part, grads, B, H, L, tc,
+                     stream);
+}
+
+// Kernel 6f: y, g and dy bf16; dz, part and grads f32.
+extern "C" int dwst_glu_res_bwd_bf16(const void* y, const void* g,
+                                     const float* W, const float* Wt,
+                                     const float* b, void* dy, float* dz,
+                                     float* part, float* grads, int B, int H,
+                                     int L, int tc, cudaStream_t stream) {
+  return glu_res_bwd(static_cast<const bf16*>(y), static_cast<const bf16*>(g),
+                     W, Wt, b, static_cast<bf16*>(dy), dz, part, grads, B, H,
+                     L, tc, stream);
 }
 
 extern "C" int dwst_ln_ff_res_bwd(
@@ -811,24 +884,20 @@ extern "C" int dwst_ln_ff_res_bwd(
     float* dx, float* xn, float* hact, float* dz, float* stat_part,
     float* dms, float* part1, float* grads1, float* part2, float* grads2,
     int B, int H, int F, int L, int tc, cudaStream_t stream) {
-  if (H % TK || F % TK || tc <= 0) return (int)cudaErrorInvalidValue;
-  int e, nblocks = 0;
-  switch (choose_p_bwd(H)) {
-    case 64: e = launch_ff_bwd<64>(x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact,
-                                   dz, stat_part, B, H, F, L, &nblocks,
-                                   stream);
-      break;
-    case 32: e = launch_ff_bwd<32>(x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact,
-                                   dz, stat_part, B, H, F, L, &nblocks,
-                                   stream);
-      break;
-    default: e = launch_ff_bwd<16>(x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact,
-                                   dz, stat_part, B, H, F, L, &nblocks,
-                                   stream);
-  }
-  if (e) return e;
-  if ((e = reduce_splits(stat_part, dms, nblocks, 2, stream))) return e;
-  if ((e = weight_grad(dz, xn, part1, grads1, B, F, H, L, tc, stream)))
-    return e;
-  return weight_grad(g, hact, part2, grads2, B, H, F, L, tc, stream);
+  return ln_ff_res_bwd(x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact, dz,
+                       stat_part, dms, part1, grads1, part2, grads2, B, H, F,
+                       L, tc, stream);
+}
+
+// Kernel 7f: x, g and dx bf16; the scratch and the gradients f32.
+extern "C" int dwst_ln_ff_res_bwd_bf16(
+    const void* x, const void* g, const float* W1, const float* b1,
+    const float* W1t, const float* W2t, const float* m, const float* s,
+    void* dx, float* xn, float* hact, float* dz, float* stat_part,
+    float* dms, float* part1, float* grads1, float* part2, float* grads2,
+    int B, int H, int F, int L, int tc, cudaStream_t stream) {
+  return ln_ff_res_bwd(static_cast<const bf16*>(x),
+                       static_cast<const bf16*>(g), W1, b1, W1t, W2t, m, s,
+                       static_cast<bf16*>(dx), xn, hact, dz, stat_part, dms,
+                       part1, grads1, part2, grads2, B, H, F, L, tc, stream);
 }

@@ -26,6 +26,10 @@
 // (ops/fftconv_pallas.py:38-41): what bf16 buys on this card is half the
 // device-memory bytes of the input and output.
 //
+// Kernel 1f's training entry (fftconv2 with fast=True, and its input
+// gradient, the same call on -kfi) is the plain form templated on bf16: u
+// and out bf16, the chain f32.
+//
 // Kernel 5 replaces fftconv2.py::_dkf_kernel (fftconv2_dkf): the khat
 // gradient summed over the batch, in the convention of torch autograd for
 // a complex input,
@@ -33,7 +37,11 @@
 //   dkhat[h, k] = c_k sum_b conj(U_b[k]) G_b[k],  U = rfft(u), G = rfft(g)
 //
 // with c_k = 1/n at the DC and Nyquist bins and 2/n between them (the
-// adjoint of irfft).  One block per channel h walks the batch: it
+// adjoint of irfft).  Kernel 5f (fast=True) is the same code reading bf16
+// u and g; the transforms, the sum and the output stay f32 (the TPU
+// kernel's bf16 DFT operands cost it ~2e-3 of the result; this kernel
+// matches JAX's f32 function of the same inputs instead).  One block per
+// channel h walks the batch: it
 // transforms u_b, keeps each pair's half-spectrum values in the thread's
 // own local array, transforms g_b, and accumulates the products in
 // registers of the thread that owns the pair, so the (B, H, n/2+1) spectra
@@ -72,12 +80,15 @@ __device__ __forceinline__ float2 half_twiddle(int k, int M) {
   return make_float2(co, -s);
 }
 
-// z[j] = x[2j] + i x[2j+1] of one real row x of length L, zero past L.
-__device__ void load_packed(float2* z, const float* __restrict__ xr, int L,
+// z[j] = x[2j] + i x[2j+1] of one real row x (float or bf16) of length L,
+// zero past L.
+template <typename T>
+__device__ void load_packed(float2* z, const T* __restrict__ xr, int L,
                             int M) {
   for (int j = threadIdx.x; j < M; j += blockDim.x) {
     const int t0 = 2 * j, t1 = t0 + 1;
-    z[pad(j)] = make_float2(t0 < L ? xr[t0] : 0.0f, t1 < L ? xr[t1] : 0.0f);
+    z[pad(j)] = make_float2(t0 < L ? to_f(xr[t0]) : 0.0f,
+                            t1 < L ? to_f(xr[t1]) : 0.0f);
   }
 }
 
@@ -130,7 +141,7 @@ fftconv_kernel(const T* __restrict__ u, const float* __restrict__ a,
       z[pad(j)] = make_float2(v0, v1);
     }
   } else {
-    load_packed(z, reinterpret_cast<const float*>(ur), L, M);
+    load_packed(z, ur, L, M);
   }
   __syncthreads();
   fft<false>(z, M, tid, nt);
@@ -190,9 +201,11 @@ fftconv_kernel(const T* __restrict__ u, const float* __restrict__ a,
 
 constexpr int MAX_PAIRS = 9;   // pairs (k, M-k), 0 <= k <= M/2, per thread
 
-// Kernel 5: one block per channel h; see the header.
+// Kernel 5 (T float) and 5f (T bf16): one block per channel h; see the
+// header.
+template <typename T>
 __global__ void __launch_bounds__(1024)
-fftconv_dkf_kernel(const float* __restrict__ u, const float* __restrict__ g,
+fftconv_dkf_kernel(const T* __restrict__ u, const T* __restrict__ g,
                    float2* __restrict__ out, int B, int H, int L, int M) {
   extern __shared__ float2 z[];      // M complex values at pad(i)
   const int h = blockIdx.x;
@@ -285,6 +298,19 @@ int launch_conv(const T* u, const float* a, const float* c,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_dkf(const T* u, const T* g, void* out, int B, int H, int L, int n,
+               cudaStream_t stream) {
+  if (bad_size(n, L)) return (int)cudaErrorInvalidValue;
+  const int M = n / 2;
+  size_t smem;
+  const cudaError_t attr = set_smem(fftconv_dkf_kernel<T>, M, &smem);
+  if (attr != cudaSuccess) return (int)attr;
+  fftconv_dkf_kernel<T><<<H, M / VPT, smem, stream>>>(
+      u, g, static_cast<float2*>(out), B, H, L, M);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int dwst_fftconv_ln_bias_gelu_d(
@@ -312,15 +338,27 @@ extern "C" int dwst_fftconv(const float* u, const void* khat, float* out,
                                    nullptr, out, B, H, L, n, conj, stream);
 }
 
+// Kernel 1f's training entry: u and out bf16, the rest as dwst_fftconv.
+extern "C" int dwst_fftconv_bf16(const void* u, const void* khat, void* out,
+                                 int B, int H, int L, int n, int conj,
+                                 cudaStream_t stream) {
+  return launch_conv<false>(static_cast<const __nv_bfloat16*>(u), nullptr,
+                            nullptr, nullptr, khat, nullptr,
+                            static_cast<__nv_bfloat16*>(out), B, H, L, n,
+                            conj, stream);
+}
+
 extern "C" int dwst_fftconv_dkf(const float* u, const float* g, void* out,
                                 int B, int H, int L, int n,
                                 cudaStream_t stream) {
-  if (bad_size(n, L)) return (int)cudaErrorInvalidValue;
-  const int M = n / 2;
-  size_t smem;
-  const cudaError_t attr = set_smem(fftconv_dkf_kernel, M, &smem);
-  if (attr != cudaSuccess) return (int)attr;
-  fftconv_dkf_kernel<<<H, M / VPT, smem, stream>>>(
-      u, g, static_cast<float2*>(out), B, H, L, M);
-  return (int)cudaGetLastError();
+  return launch_dkf(u, g, out, B, H, L, n, stream);
+}
+
+// Kernel 5f: u and g bf16, out complex64 as kernel 5's.
+extern "C" int dwst_fftconv_dkf_bf16(const void* u, const void* g, void* out,
+                                     int B, int H, int L, int n,
+                                     cudaStream_t stream) {
+  return launch_dkf(static_cast<const __nv_bfloat16*>(u),
+                    static_cast<const __nv_bfloat16*>(g), out, B, H, L, n,
+                    stream);
 }

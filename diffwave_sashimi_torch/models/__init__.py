@@ -5,8 +5,8 @@ keys are constructor keywords, and keys the constructor does not take are
 dropped (as the reference's ``**kwargs`` swallows them), except
 ``kernel_fft_fast``, which changes the numerics in JAX and is refused.
 ``precision`` sets the activation dtype: f32 for both backbones, bf16 for
-SaShiMi sampling at kernel 1's FFT sizes (the shipped SC09 model); the
-other bf16 paths are refused by name.
+unconditional SaShiMi (sampling and training) at kernel 1's FFT sizes (the
+shipped SC09 model); the other bf16 paths are refused by name.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..ops.fftconv_long import KERNEL1_MAX_N
-from .sashimi import BF16_TRAIN_TODO, Sashimi
+from .sashimi import Sashimi
 from .wavenet import WaveNet
 
 _REGISTRY = {"sashimi": Sashimi, "wavenet": WaveNet}
@@ -25,9 +25,11 @@ _DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
            "f32": torch.float32, "float32": torch.float32}
 BF16_WAVENET_TODO = ("bf16 WaveNet needs kernel 11's fast form, which is not "
                      "ported: ROADMAP.md queue 2, entry 2")
-BF16_VOCODER_TODO = ("bf16 at FFT sizes past 32768 (the vocoder's lengths) "
-                     "needs kernel 9's fast form, which is not ported: "
-                     "ROADMAP.md queue 2, entry 2 (bf16 vocoding)")
+BF16_VOCODER_TODO = ("bf16 mel-conditioned models (vocoding and vocoder "
+                     "training) and bf16 at FFT sizes past 32768 (the "
+                     "vocoder's lengths) need kernel 9's fast form, which is "
+                     "not ported: ROADMAP.md queue 2, entry 2 (bf16 "
+                     "vocoding)")
 KERNEL_FFT_FAST_TODO = ("model.kernel_fft_fast (the precision of the S4 "
                         "kernel construction's FFT) is not ported: "
                         "ROADMAP.md queue 1, item 1")

@@ -178,7 +178,8 @@ class S4(nn.Module):
     the block's norm1 + step bias as prologue and D-skip + GELU as
     epilogue, then the output linear + GLU + block residual (kernel 2).
     Training path: the conv (kernels 1 and 5), D-skip and exact GELU in
-    autograd, then output linear + GLU + residual (kernels 2 and 6)."""
+    autograd, then output linear + GLU + residual (kernels 2 and 6); at
+    bf16 the kernels' fast forms."""
 
     def __init__(self, d_model: int, d_state: int = 64, l_max: int = 1,
                  bidirectional: bool = True, rank: int = 1,
@@ -224,7 +225,10 @@ class S4(nn.Module):
 
     def forward_train(self, u, khat, residual, ops: Ops = FUSED):
         """residual + GLU(W gelu(conv(u) + D u)), differentiable in u, khat
-        and the layer's parameters (JAX models/s4.py:664-686)."""
-        y = ops.conv_train(u, khat) + self.D[0][:, None] * u
+        and the layer's parameters (JAX models/s4.py:664-686).  Every
+        activation in u's dtype: for bf16 the conv's output is bf16, D is
+        cast to bf16 and the D-skip, its add and the exact GELU run on bf16
+        tensors, as in JAX."""
+        y = ops.conv_train(u, khat) + self.D[0].to(u.dtype)[:, None] * u
         lin = self.output_linear[0]
         return ops.glu_train(F.gelu(y), residual, lin.weight, lin.bias)

@@ -30,12 +30,14 @@ once per run, like the S4 kernels.  At a pooled tier it is the full-rate
 upsampled mel cut to that tier's length, as in the JAX package and the
 reference.
 
-``dtype=torch.bfloat16`` is the JAX package's bf16 policy at sampling
-(models/sashimi.py:725, :739-743): the input is cast once, activations,
-skips and pool outputs are bf16, the step embedding is made in f32 and
-cast, channel statistics (norm1, TransposedLN, kernel 3's emitted ones)
-are f32, the S4 spectra stay complex64, the kernels take their bf16 forms
-(1f, 2f, 3f, or 12 with the int8 ops) and eps is returned as f32.
+``dtype=torch.bfloat16`` is the JAX package's bf16 policy (models/
+sashimi.py:725, :739-743): the input is cast once, activations, skips and
+pool outputs are bf16, the step embedding is made in f32 and cast,
+channel statistics (norm1, TransposedLN, kernel 3's emitted ones) are
+f32, the S4 spectra stay complex64, the kernels take their bf16 forms
+(sampling: 1f, 2f, 3f, or 12 with the int8 ops; training: 1f, 2f, 3f
+forward, 1f, 5f, 6f, 7f backward, at FFT sizes up to kernel 1's) and eps
+is returned as f32.  The parameters, and so their gradients, stay f32.
 """
 
 from __future__ import annotations
@@ -48,14 +50,10 @@ import torch.nn as nn
 
 from ..ops import FUSED, Ops, widen
 from ..ops.conv import TorchLinear, WNConv1d, ZeroConv1d, swish
+from ..ops.fftconv_long import BF16_TODO, KERNEL1_MAX_N
 from ..ops.mel_upsample import MelUpsampler
 from .embedding import diffusion_step_embedding
 from .s4 import S4
-
-BF16_TRAIN_TODO = ("bf16 training is not ported: ROADMAP.md queue 1, item 1 "
-                   "(the fast forms of kernels 1 (training), 5, 6 and 7, "
-                   "queue 2, entry 2)")
-
 
 class TransposedLN(nn.Module):
     """LayerNorm over the channel axis with scalar affine (m, s): population
@@ -284,8 +282,9 @@ class Sashimi(nn.Module):
         if conditioned == self.unconditional:
             raise ValueError("a conditional model takes a mel (mel or "
                              "mel_conds), an unconditional one none")
-        if train and self.act_dtype != torch.float32:
-            raise NotImplementedError(BF16_TRAIN_TODO)
+        if train and self.act_dtype == torch.bfloat16 and (
+                1 << (2 * audio.shape[-1] - 1).bit_length()) > KERNEL1_MAX_N:
+            raise NotImplementedError(BF16_TODO)
         if train and conditioned:
             raise NotImplementedError(
                 "training the mel-conditioned model is not ported yet: "

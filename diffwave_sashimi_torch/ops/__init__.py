@@ -8,22 +8,25 @@ trains through torch autograd of the plain forwards, which is how a run on
 the card compares the kernels' outputs and gradients with plain ones.
 :data:`FUSED_INT8` and :data:`PLAIN_INT8` are the same with the sampling
 conv swapped for the int8 conv (kernel 12; ``+compute.conv_int8=true``).
-The sampling wrappers take the bf16 path's forms (kernels 1f, 2f, 3f) for
-bf16 activations, by the tensors' dtype.
+Every wrapper takes the bf16 path's form (kernels 1f, 2f, 3f at sampling;
+1f's training entry, 5f, 6f, 7f in training) for bf16 activations, by the
+tensors' dtype.
 """
 
 from typing import Callable, NamedTuple
 
 from .cauchy import (cauchy_bwd, cauchy_bwd_ref, cauchy_quad,
                      cauchy_quad_ref, cauchy_sym, cauchy_sym_fused)
-from .chmix import (glu_res_bwd, glu_res_bwd_ref, glu_res_ref, ln_ff_res,
-                    ln_ff_res_bf16, ln_ff_res_bwd, ln_ff_res_bwd_ref,
-                    ln_ff_res_ref, ln_ff_res_train, mix_glu_res,
-                    mix_glu_res_bf16, mix_glu_res_train)
-from .fftconv import (fftconv, fftconv_dkf, fftconv_dkf_ref,
-                      fftconv_ln_bias_gelu_d, fftconv_ln_bias_gelu_d_bf16,
-                      fftconv_ln_bias_gelu_d_ref, fftconv_ref, fftconv_train,
-                      gelu_fast, widen)
+from .chmix import (glu_res_bwd, glu_res_bwd_bf16, glu_res_bwd_ref,
+                    glu_res_ref, ln_ff_res, ln_ff_res_bf16, ln_ff_res_bwd,
+                    ln_ff_res_bwd_bf16, ln_ff_res_bwd_ref, ln_ff_res_ref,
+                    ln_ff_res_train, mix_glu_res, mix_glu_res_bf16,
+                    mix_glu_res_train)
+from .fftconv import (fftconv, fftconv_bf16, fftconv_dkf, fftconv_dkf_bf16,
+                      fftconv_dkf_ref, fftconv_ln_bias_gelu_d,
+                      fftconv_ln_bias_gelu_d_bf16, fftconv_ln_bias_gelu_d_ref,
+                      fftconv_ref, fftconv_train, gelu_fast, gelu_fast_grad,
+                      widen)
 from .int8conv import (fftconv_int8, fftconv_int8_ref, int8_spectrum,
                        s4_conv_int8, s4_conv_int8_ref)
 from .fftconv_long import (fftconv_long, fftconv_long_ln_bias_gelu_d,
@@ -64,4 +67,7 @@ COUNTED = {"fftconv_ln_bias_gelu_d": fftconv_ln_bias_gelu_d,
            "fftconv_long": fftconv_long, "gate_res_skip": gate_res_skip,
            "fftconv_ln_bias_gelu_d_bf16": fftconv_ln_bias_gelu_d_bf16,
            "glu_res_bf16": mix_glu_res_bf16, "ln_ff_res_bf16": ln_ff_res_bf16,
-           "fftconv_int8": fftconv_int8}
+           "fftconv_int8": fftconv_int8, "fftconv_bf16": fftconv_bf16,
+           "fftconv_dkf_bf16": fftconv_dkf_bf16,
+           "glu_res_bwd_bf16": glu_res_bwd_bf16,
+           "ln_ff_res_bwd_bf16": ln_ff_res_bwd_bf16}

@@ -9,12 +9,19 @@ CUDA kernels are ``csrc/chmix.cu``; the ``*_ref`` functions are their
 plain PyTorch versions (explicit formulas, not autograd), used for CPU
 tensors and as the on-card comparison.
 
-bf16 activations take the sampling kernels' ``fast=True`` forms, kernels
-2f and 3f (:func:`mix_glu_res_bf16`, :func:`ln_ff_res_bf16`): the weights,
-and FF's normalised input and GELU output, are rounded to bf16 before
-their products, which accumulate in f32; bias, sigmoid, LN statistics,
-the polynomial GELU and the residual adds are f32, and the output is
-rounded to bf16 (its statistics are the f32 output's).
+bf16 activations take the ``fast=True`` forms, kernels 2f and 3f
+(:func:`mix_glu_res_bf16`, :func:`ln_ff_res_bf16`) and their backward
+passes 6f and 7f (:func:`glu_res_bwd_bf16`, :func:`ln_ff_res_bwd_bf16`),
+by the tensors' dtype.  Forward: the weights, and FF's normalised input
+and GELU output, are rounded to bf16 before their products, which
+accumulate in f32; bias, sigmoid, LN statistics, the polynomial GELU and
+the residual adds are f32, and the output is rounded to bf16 (its
+statistics are the f32 output's).  Backward (JAX ``_bmm`` / ``_bmmc``):
+both operands of every per-position product (z = W y, dy = W^T dz, z =
+W1 xn, dh = W2^T g, dxn = W1^T dz) are rounded to bf16, the weight
+gradients contract the unrounded f32 dz, xn and GELU output, the GELU's
+derivative is the polynomial's, dy and dx are rounded to bf16 and the
+weight, bias, m and s gradients stay f32.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
-from .fftconv import as_operand, gelu_fast, widen
+from .fftconv import as_operand, gelu_fast, gelu_fast_grad, widen
 
 # positions per split-K partial of the weight gradients (kernels 6 and 7)
 WGRAD_POSITIONS = 2048
@@ -116,8 +123,8 @@ def ln_ff_res(x, m, s, w1, b1, w2, b2, skip=None, emit_stats=False):
         return ln_ff_res_ref(x, m, s, w1, b1, w2, b2, skip, emit_stats)
     if x.dtype == torch.bfloat16:
         return ln_ff_res_bf16(x, m, s, w1, b1, w2, b2, skip, emit_stats)
-    return _launch_ff(ln_ff_res, "dwst_ln_ff_res", x, m, s, w1, b1, w2, b2,
-                      skip, emit_stats)
+    return _launch_ff(ln_ff_res, "dwst_ln_ff_res", torch.float32, x, m, s, w1,
+                      b1, w2, b2, skip, emit_stats)
 
 
 ln_ff_res.launches = 0
@@ -129,15 +136,16 @@ def ln_ff_res_bf16(x, m, s, w1, b1, w2, b2, skip=None, emit_stats=False):
     version."""
     if not x.is_cuda:
         return ln_ff_res_ref(x, m, s, w1, b1, w2, b2, skip, emit_stats)
-    return _launch_ff(ln_ff_res_bf16, "dwst_ln_ff_res_bf16", x, m, s, w1, b1,
-                      w2, b2, skip, emit_stats)
+    return _launch_ff(ln_ff_res_bf16, "dwst_ln_ff_res_bf16", torch.bfloat16,
+                      x, m, s, w1, b1, w2, b2, skip, emit_stats)
 
 
 ln_ff_res_bf16.launches = 0
 
 
-def _launch_ff(wrapper, entry, x, m, s, w1, b1, w2, b2, skip, emit_stats):
-    """Check the arguments of kernel 3 or 3f (activations in x's dtype),
+def _launch_ff(wrapper, entry, dtype, x, m, s, w1, b1, w2, b2, skip,
+               emit_stats):
+    """Check the arguments of kernel 3 or 3f (activations of ``dtype``),
     launch ``entry`` and count it on ``wrapper``."""
     B, H, L = x.shape
     Fd = w1.shape[0]
@@ -146,7 +154,7 @@ def _launch_ff(wrapper, entry, x, m, s, w1, b1, w2, b2, skip, emit_stats):
                      (m, (1,)), (s, (1,))):
         cuda_lib.check(t, shape, torch.float32)
     for t in (x,) if skip is None else (x, skip):
-        cuda_lib.check(t, (B, H, L), x.dtype)
+        cuda_lib.check(t, (B, H, L), dtype)
     out = torch.empty_like(x)
     mean = var = None
     if emit_stats:
@@ -181,13 +189,19 @@ def _gelu_grad(z):
 def glu_res_bwd_ref(y, w, b, g):
     """Backward of :func:`glu_res_ref` for the output cotangent g, z
     recomputed from y (JAX ``_glu_bwd_kernel``): returns (dy, dw, db);
-    the residual's gradient is g itself."""
+    the residual's gradient is g itself.  y, g: f32, or bf16 (kernel 6f's
+    function: the ``fast=True`` algebra of the module docstring, dy bf16,
+    dw and db f32)."""
+    dt = y.dtype
+    y, g = widen(y), widen(g)
     H = y.shape[1]
-    z = torch.einsum("bhl,oh->bol", y, w) + b[None, :, None]
+    z = (torch.einsum("bhl,oh->bol", y, as_operand(w, dt))
+         + b[None, :, None])
     a, sig = z[:, :H], torch.sigmoid(z[:, H:])
     dz = torch.cat([g * sig, g * a * sig * (1.0 - sig)], dim=1)
-    return (torch.einsum("bol,oh->bhl", dz, w),
-            torch.einsum("bol,bhl->oh", dz, y), dz.sum(dim=(0, 2)))
+    dy = torch.einsum("bol,oh->bhl", as_operand(dz, dt), as_operand(w, dt))
+    return (dy.to(dt), torch.einsum("bol,bhl->oh", dz, y),
+            dz.sum(dim=(0, 2)))
 
 
 def ln_ff_res_bwd_ref(x, m, s, w1, b1, w2, b2, g):
@@ -198,30 +212,40 @@ def ln_ff_res_bwd_ref(x, m, s, w1, b1, w2, b2, g):
         dx = g + r (dxn - S1) - r rstd^2 xc S2,   r = s rstd, xc = x - mean
         S1 = mean_h dxn,  S2 = mean_h dxn (xc + m)
 
-    Returns (dx, dm, ds, dw1, db1, dw2, db2); a skip's gradient is g."""
+    Returns (dx, dm, ds, dw1, db1, dw2, db2); a skip's gradient is g.
+    x, g: f32, or bf16 (kernel 7f's function: the ``fast=True`` algebra of
+    the module docstring with :func:`gelu_fast` and its derivative, dx
+    bf16, the rest f32)."""
+    dt = x.dtype
+    x, g = widen(x), widen(g)
+    gelu, gelu_grad = ((gelu_fast, gelu_fast_grad) if dt == torch.bfloat16
+                       else (F.gelu, _gelu_grad))
     mean = x.mean(dim=1, keepdim=True)
     var = (x * x).mean(dim=1, keepdim=True) - mean * mean
     rstd = torch.rsqrt(var)
     xc = x - mean
     r = s * rstd
     xn = r * (xc + m)
-    z = torch.einsum("bhl,fh->bfl", xn, w1) + b1[None, :, None]
-    dz = _gelu_grad(z) * torch.einsum("bhl,hf->bfl", g, w2)
-    dxn = torch.einsum("bfl,fh->bhl", dz, w1)
+    z = (torch.einsum("bhl,fh->bfl", as_operand(xn, dt), as_operand(w1, dt))
+         + b1[None, :, None])
+    dz = gelu_grad(z) * torch.einsum("bhl,hf->bfl", as_operand(g, dt),
+                                     as_operand(w2, dt))
+    dxn = torch.einsum("bfl,fh->bhl", as_operand(dz, dt), as_operand(w1, dt))
     S1 = dxn.mean(dim=1, keepdim=True)
     S2 = (dxn * (xc + m)).mean(dim=1, keepdim=True)
     dx = g + r * (dxn - S1) - r * rstd * rstd * xc * S2
-    return (dx, (dxn * r).sum().reshape(1),
+    return (dx.to(dt), (dxn * r).sum().reshape(1),
             (dxn * rstd * (xc + m)).sum().reshape(1),
             torch.einsum("bfl,bhl->fh", dz, xn), dz.sum(dim=(0, 2)),
-            torch.einsum("bhl,bfl->hf", g, F.gelu(z)), g.sum(dim=(0, 2)))
+            torch.einsum("bhl,bfl->hf", g, gelu(z)), g.sum(dim=(0, 2)))
 
 
 def _wgrad_scratch(x, B, L, rows, cols):
     """Split-K partials of a (rows x cols) weight gradient plus its
     (rows,) bias gradient, one slice per WGRAD_POSITIONS positions of one
     batch row; and the reduced result, whose first rows * cols entries are
-    the weight gradient and last rows the bias gradient."""
+    the weight gradient and last rows the bias gradient (both in x's
+    dtype and on its device)."""
     splits = B * -(-L // WGRAD_POSITIONS)
     size = rows * cols + rows
     return x.new_empty((splits, size)), x.new_empty((size,))
@@ -230,69 +254,117 @@ def _wgrad_scratch(x, B, L, rows, cols):
 def glu_res_bwd(y, w, b, g):
     """Kernel-6 wrapper (same arguments and results as
     :func:`glu_res_bwd_ref`): the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors; bf16 activations go to kernel 6f."""
     if not y.is_cuda:
         return glu_res_bwd_ref(y, w, b, g)
-    B, H, L = y.shape
-    _check_width(H)
-    for t, shape in ((y, (B, H, L)), (g, (B, H, L)), (w, (2 * H, H)),
-                     (b, (2 * H,))):
-        cuda_lib.check(t, shape, torch.float32)
-    wt = w.t().contiguous()
-    dy = torch.empty_like(y)
-    dz = y.new_empty((B, 2 * H, L))
-    part, grads = _wgrad_scratch(y, B, L, 2 * H, H)
-    cuda_lib.launch("dwst_glu_res_bwd", y.data_ptr(), g.data_ptr(),
-                    w.data_ptr(), wt.data_ptr(), b.data_ptr(), dy.data_ptr(),
-                    dz.data_ptr(), part.data_ptr(), grads.data_ptr(), B, H, L,
-                    WGRAD_POSITIONS)
-    glu_res_bwd.launches += 1
-    return dy, grads[:2 * H * H].view(2 * H, H), grads[2 * H * H:]
+    if y.dtype == torch.bfloat16:
+        return glu_res_bwd_bf16(y, w, b, g)
+    return _launch_glu_bwd(glu_res_bwd, "dwst_glu_res_bwd", torch.float32, y,
+                           w, b, g)
 
 
 glu_res_bwd.launches = 0
 
 
+def glu_res_bwd_bf16(y, w, b, g):
+    """Kernel-6f wrapper (y, g and dy bf16; w, b, dw, db f32): the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    if not y.is_cuda:
+        return glu_res_bwd_ref(y, w, b, g)
+    return _launch_glu_bwd(glu_res_bwd_bf16, "dwst_glu_res_bwd_bf16",
+                           torch.bfloat16, y, w, b, g)
+
+
+glu_res_bwd_bf16.launches = 0
+
+
+def _launch_glu_bwd(wrapper, entry, dtype, y, w, b, g):
+    """Check the arguments of kernel 6 or 6f (activations of ``dtype``, the
+    dz scratch and the gradients f32), launch ``entry`` and count it on
+    ``wrapper``."""
+    B, H, L = y.shape
+    _check_width(H)
+    for t in (y, g):
+        cuda_lib.check(t, (B, H, L), dtype)
+    for t, shape in ((w, (2 * H, H)), (b, (2 * H,))):
+        cuda_lib.check(t, shape, torch.float32)
+    wt = w.t().contiguous()
+    dy = torch.empty_like(y)
+    dz = w.new_empty((B, 2 * H, L))
+    part, grads = _wgrad_scratch(w, B, L, 2 * H, H)
+    cuda_lib.launch(entry, y.data_ptr(), g.data_ptr(), w.data_ptr(),
+                    wt.data_ptr(), b.data_ptr(), dy.data_ptr(), dz.data_ptr(),
+                    part.data_ptr(), grads.data_ptr(), B, H, L,
+                    WGRAD_POSITIONS)
+    wrapper.launches += 1
+    return dy, grads[:2 * H * H].view(2 * H, H), grads[2 * H * H:]
+
+
 def ln_ff_res_bwd(x, m, s, w1, b1, w2, b2, g):
     """Kernel-7 wrapper (same arguments and results as
     :func:`ln_ff_res_bwd_ref`): the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors; bf16 activations go to kernel 7f."""
     if not x.is_cuda:
         return ln_ff_res_bwd_ref(x, m, s, w1, b1, w2, b2, g)
-    B, H, L = x.shape
-    Fd = w1.shape[0]
-    _check_width(H, Fd)
-    for t, shape in ((x, (B, H, L)), (g, (B, H, L)), (w1, (Fd, H)),
-                     (b1, (Fd,)), (w2, (H, Fd)), (b2, (H,)), (m, (1,)),
-                     (s, (1,))):
-        cuda_lib.check(t, shape, torch.float32)
-    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
-    dx = torch.empty_like(x)
-    xn = torch.empty_like(x)
-    hact = x.new_empty((B, Fd, L))
-    dz = x.new_empty((B, Fd, L))
-    # per-block (dm, ds) partials: at most one block per 16 positions
-    stat_part = x.new_empty((B * -(-L // 16), 2))
-    dms = x.new_empty((2,))
-    part1, grads1 = _wgrad_scratch(x, B, L, Fd, H)
-    part2, grads2 = _wgrad_scratch(x, B, L, H, Fd)
-    cuda_lib.launch("dwst_ln_ff_res_bwd", x.data_ptr(), g.data_ptr(),
-                    w1.data_ptr(), b1.data_ptr(), w1t.data_ptr(),
-                    w2t.data_ptr(), m.data_ptr(), s.data_ptr(),
-                    dx.data_ptr(), xn.data_ptr(), hact.data_ptr(),
-                    dz.data_ptr(), stat_part.data_ptr(), dms.data_ptr(),
-                    part1.data_ptr(), grads1.data_ptr(), part2.data_ptr(),
-                    grads2.data_ptr(), B, H, Fd, L, WGRAD_POSITIONS)
-    ln_ff_res_bwd.launches += 1
-    return (dx, dms[0:1], dms[1:2], grads1[:Fd * H].view(Fd, H),
-            grads1[Fd * H:], grads2[:H * Fd].view(H, Fd), grads2[H * Fd:])
+    if x.dtype == torch.bfloat16:
+        return ln_ff_res_bwd_bf16(x, m, s, w1, b1, w2, b2, g)
+    return _launch_ff_bwd(ln_ff_res_bwd, "dwst_ln_ff_res_bwd", torch.float32,
+                          x, m, s, w1, b1, w2, b2, g)
 
 
 ln_ff_res_bwd.launches = 0
 
 
+def ln_ff_res_bwd_bf16(x, m, s, w1, b1, w2, b2, g):
+    """Kernel-7f wrapper (x, g and dx bf16; the weights, m, s and their
+    gradients f32): the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    if not x.is_cuda:
+        return ln_ff_res_bwd_ref(x, m, s, w1, b1, w2, b2, g)
+    return _launch_ff_bwd(ln_ff_res_bwd_bf16, "dwst_ln_ff_res_bwd_bf16",
+                          torch.bfloat16, x, m, s, w1, b1, w2, b2, g)
+
+
+ln_ff_res_bwd_bf16.launches = 0
+
+
+def _launch_ff_bwd(wrapper, entry, dtype, x, m, s, w1, b1, w2, b2, g):
+    """Check the arguments of kernel 7 or 7f (activations of ``dtype``; the
+    xn, GELU-output and dz scratch and the gradients f32), launch
+    ``entry`` and count it on ``wrapper``."""
+    B, H, L = x.shape
+    Fd = w1.shape[0]
+    _check_width(H, Fd)
+    for t in (x, g):
+        cuda_lib.check(t, (B, H, L), dtype)
+    for t, shape in ((w1, (Fd, H)), (b1, (Fd,)), (w2, (H, Fd)), (b2, (H,)),
+                     (m, (1,)), (s, (1,))):
+        cuda_lib.check(t, shape, torch.float32)
+    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+    dx = torch.empty_like(x)
+    xn = w1.new_empty((B, H, L))
+    hact = w1.new_empty((B, Fd, L))
+    dz = w1.new_empty((B, Fd, L))
+    # per-block (dm, ds) partials: at most one block per 16 positions
+    stat_part = w1.new_empty((B * -(-L // 16), 2))
+    dms = w1.new_empty((2,))
+    part1, grads1 = _wgrad_scratch(w1, B, L, Fd, H)
+    part2, grads2 = _wgrad_scratch(w1, B, L, H, Fd)
+    cuda_lib.launch(entry, x.data_ptr(), g.data_ptr(), w1.data_ptr(),
+                    b1.data_ptr(), w1t.data_ptr(), w2t.data_ptr(),
+                    m.data_ptr(), s.data_ptr(), dx.data_ptr(), xn.data_ptr(),
+                    hact.data_ptr(), dz.data_ptr(), stat_part.data_ptr(),
+                    dms.data_ptr(), part1.data_ptr(), grads1.data_ptr(),
+                    part2.data_ptr(), grads2.data_ptr(), B, H, Fd, L,
+                    WGRAD_POSITIONS)
+    wrapper.launches += 1
+    return (dx, dms[0:1], dms[1:2], grads1[:Fd * H].view(Fd, H),
+            grads1[Fd * H:], grads2[:H * Fd].view(H, Fd), grads2[H * Fd:])
+
+
 class _GluResTrain(torch.autograd.Function):
-    """Forward kernel 2, backward kernel 6 (JAX ``_glu_train``)."""
+    """Forward kernel 2, backward kernel 6 (JAX ``_glu_train``); 2f and 6f
+    for bf16 activations."""
 
     @staticmethod
     def forward(ctx, y, res, w, b):
@@ -315,7 +387,8 @@ def mix_glu_res_train(y, res, w, b):
 
 class _LnFFResTrain(torch.autograd.Function):
     """Forward kernel 3 (no stats), backward kernel 7 (JAX ``_ff_train``
-    and ``_ff_train_skip``; a skip's gradient is g)."""
+    and ``_ff_train_skip``; a skip's gradient is g); 3f and 7f for bf16
+    activations."""
 
     @staticmethod
     def forward(ctx, x, m, s, w1, b1, w2, b2, skip):

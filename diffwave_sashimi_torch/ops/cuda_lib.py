@@ -48,15 +48,21 @@ _SIGNATURES = {
     "dwst_fftconv_int8": [_P] * 10 + [_I] * 8 + [_P],
     # a, b, c, d, z, out, K, M, N, Lz, stream
     "dwst_cauchy": [_P] * 6 + [_I] * 4 + [_P],
-    # u, khat, out, B, H, L, n, conj, stream
+    # u, khat, out, B, H, L, n, conj, stream (the _bf16 forms of this and
+    # the three training entries below: the same arguments, the
+    # activations bf16)
     "dwst_fftconv": [_P] * 3 + [_I] * 5 + [_P],
+    "dwst_fftconv_bf16": [_P] * 3 + [_I] * 5 + [_P],
     # u, g, out, B, H, L, n, stream
     "dwst_fftconv_dkf": [_P] * 3 + [_I] * 4 + [_P],
+    "dwst_fftconv_dkf_bf16": [_P] * 3 + [_I] * 4 + [_P],
     # y, g, W, Wt, b, dy, dz, part, grads, B, H, L, tc, stream
     "dwst_glu_res_bwd": [_P] * 9 + [_I] * 4 + [_P],
+    "dwst_glu_res_bwd_bf16": [_P] * 9 + [_I] * 4 + [_P],
     # x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact, dz, stat_part, dms,
     # part1, grads1, part2, grads2, B, H, F, L, tc, stream
     "dwst_ln_ff_res_bwd": [_P] * 18 + [_I] * 5 + [_P],
+    "dwst_ln_ff_res_bwd_bf16": [_P] * 18 + [_I] * 5 + [_P],
     # a, b, c, d, z, g, da, db, dc, dd, K, M, N, Lz, stream
     "dwst_cauchy_bwd": [_P] * 10 + [_I] * 4 + [_P],
     # u, a, c, bias, kp, D, scratch, out, B, H, L, n, stream

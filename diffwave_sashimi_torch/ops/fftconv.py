@@ -13,7 +13,10 @@ layout, CUDA source ``csrc/fftconv.cu``:
   ``y = irfft(rfft(u, n) khat, n)[:L]`` (:func:`fftconv`), whose input
   gradient is the same conv with ``conj(khat)`` (k is real), and the
   spectrum gradient ``fftconv2_dkf`` (:func:`fftconv_dkf`), wrapped as the
-  autograd Function :func:`fftconv_train`.
+  autograd Function :func:`fftconv_train`; for bf16 activations their
+  ``fast=True`` forms, kernel 1f's training entry (:func:`fftconv_bf16`)
+  and kernel 5f (:func:`fftconv_dkf_bf16`): bf16 in (and, for the conv,
+  out), the transforms f32, the spectrum gradient complex64.
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 PyTorch version (the ``*_ref`` functions, torch.fft with explicit
@@ -58,6 +61,24 @@ def gelu_fast(x):
     for c in _GELU_C[-2::-1]:
         p = p * x2 + c
     return torch.where(x > 4.0, x, 0.5 * xc + x2 * p)
+
+
+def gelu_fast_grad(x):
+    """d/dx of :func:`gelu_fast` (JAX ``ops/chmix.py::_gelu_fast_grad``):
+    0.5 + 2 x (p + x^2 p') on [-4, 4], with p' the derivative of the
+    polynomial in x^2; 1 above 4 and 0 below -4."""
+    xc = x.clamp(-4.0, 4.0)
+    x2 = xc * xc
+    p = torch.full_like(x2, _GELU_C[-1])
+    for c in _GELU_C[-2::-1]:
+        p = p * x2 + c
+    n = len(_GELU_C) - 1
+    pp = torch.full_like(x2, n * _GELU_C[n])
+    for i in range(n - 1, 0, -1):
+        pp = pp * x2 + i * _GELU_C[i]
+    inner = 0.5 + 2.0 * xc * (p + x2 * pp)
+    return torch.where(x > 4.0, torch.ones_like(x),
+                       torch.where(x < -4.0, torch.zeros_like(x), inner))
 
 
 def _fft_size_of(khat) -> int:
@@ -138,12 +159,14 @@ fftconv_ln_bias_gelu_d_bf16.launches = 0
 
 def fftconv_ref(u, khat, conj=False):
     """y = irfft(rfft(u, n) khat, n)[:L] (``conj``: with conj(khat), the
-    adjoint of the same conv).  u: (B, H, L) float32; khat: (H, n/2+1)
-    complex64.  Returns (B, H, L) float32."""
+    adjoint of the same conv).  u: (B, H, L) float32, or bfloat16 for
+    kernel 1f's training function (the conv in f32, the result rounded to
+    bf16); khat: (H, n/2+1) complex64.  Returns (B, H, L) in u's dtype."""
     L = u.shape[-1]
     n = _fft_size_of(khat)
     k = khat.conj() if conj else khat
-    return torch.fft.irfft(torch.fft.rfft(u, n=n) * k, n=n)[..., :L]
+    return torch.fft.irfft(torch.fft.rfft(widen(u), n=n) * k,
+                           n=n)[..., :L].to(u.dtype)
 
 
 def fftconv_dkf_ref(u, g, n):
@@ -152,10 +175,12 @@ def fftconv_dkf_ref(u, g, n):
     batch of conj(rfft(u, n)) c_k rfft(g, n), where c_k = 1/n at the DC
     and Nyquist bins and 2/n between them (the adjoint of irfft counts the
     interior bins twice and the real parts of the two edge bins once).
-    u, g: (B, H, L) float32.  Returns (H, n/2+1) complex64."""
-    U = torch.fft.rfft(u, n=n)
-    G = torch.fft.rfft(g, n=n)
-    c = torch.full((n // 2 + 1,), 2.0 / n, dtype=u.dtype, device=u.device)
+    u, g: (B, H, L) float32, or bfloat16 (kernel 5f's function: the
+    transforms and the sum in f32).  Returns (H, n/2+1) complex64."""
+    U = torch.fft.rfft(widen(u), n=n)
+    G = torch.fft.rfft(widen(g), n=n)
+    c = torch.full((n // 2 + 1,), 2.0 / n, dtype=U.real.dtype,
+                   device=u.device)
     c[0] = c[-1] = 1.0 / n
     return (U.conj() * G).sum(dim=0) * c
 
@@ -163,48 +188,92 @@ def fftconv_dkf_ref(u, g, n):
 def fftconv(u, khat, conj=False):
     """Kernel-1 training entry: :func:`fftconv_ref` as a CUDA kernel for
     CUDA tensors (the sampling kernel's FFT code without its prologue and
-    epilogue), the plain version for CPU tensors."""
+    epilogue), the plain version for CPU tensors; bf16 activations go to
+    kernel 1f's training entry."""
     if not u.is_cuda:
         return fftconv_ref(u, khat, conj)
-    B, H, L = u.shape
-    n = _fft_size_of(khat)
-    _check_fft_size(n, L)
-    cuda_lib.check(u, (B, H, L), torch.float32)
-    cuda_lib.check(khat, (H, n // 2 + 1), torch.complex64)
-    out = torch.empty_like(u)
-    cuda_lib.launch("dwst_fftconv", u.data_ptr(), khat.data_ptr(),
-                    out.data_ptr(), B, H, L, n, int(conj))
-    fftconv.launches += 1
-    return out
+    if u.dtype == torch.bfloat16:
+        return fftconv_bf16(u, khat, conj)
+    return _launch_conv(fftconv, "dwst_fftconv", torch.float32, u, khat,
+                        conj)
 
 
 fftconv.launches = 0
 
 
+def fftconv_bf16(u, khat, conj=False):
+    """Kernel 1f's training entry (u and the result bf16, khat complex64):
+    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    if not u.is_cuda:
+        return fftconv_ref(u, khat, conj)
+    return _launch_conv(fftconv_bf16, "dwst_fftconv_bf16", torch.bfloat16, u,
+                        khat, conj)
+
+
+fftconv_bf16.launches = 0
+
+
+def _launch_conv(wrapper, entry, dtype, u, khat, conj):
+    """Check the arguments of kernel 1's or 1f's training entry (u of
+    ``dtype``), launch ``entry`` and count it on ``wrapper``."""
+    B, H, L = u.shape
+    n = _fft_size_of(khat)
+    _check_fft_size(n, L)
+    cuda_lib.check(u, (B, H, L), dtype)
+    cuda_lib.check(khat, (H, n // 2 + 1), torch.complex64)
+    out = torch.empty_like(u)
+    cuda_lib.launch(entry, u.data_ptr(), khat.data_ptr(), out.data_ptr(), B,
+                    H, L, n, int(conj))
+    wrapper.launches += 1
+    return out
+
+
 def fftconv_dkf(u, g, n):
     """Kernel-5 wrapper: :func:`fftconv_dkf_ref` as a CUDA kernel (batch
     summed inside the kernel) for CUDA tensors, the plain version for CPU
-    tensors."""
+    tensors; bf16 activations go to kernel 5f."""
     if not u.is_cuda:
         return fftconv_dkf_ref(u, g, n)
-    B, H, L = u.shape
-    _check_fft_size(n, L)
-    cuda_lib.check(u, (B, H, L), torch.float32)
-    cuda_lib.check(g, (B, H, L), torch.float32)
-    out = torch.empty((H, n // 2 + 1), dtype=torch.complex64,
-                      device=u.device)
-    cuda_lib.launch("dwst_fftconv_dkf", u.data_ptr(), g.data_ptr(),
-                    out.data_ptr(), B, H, L, n)
-    fftconv_dkf.launches += 1
-    return out
+    if u.dtype == torch.bfloat16:
+        return fftconv_dkf_bf16(u, g, n)
+    return _launch_dkf(fftconv_dkf, "dwst_fftconv_dkf", torch.float32, u, g,
+                       n)
 
 
 fftconv_dkf.launches = 0
 
 
+def fftconv_dkf_bf16(u, g, n):
+    """Kernel-5f wrapper (u, g bf16; the result complex64): the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors."""
+    if not u.is_cuda:
+        return fftconv_dkf_ref(u, g, n)
+    return _launch_dkf(fftconv_dkf_bf16, "dwst_fftconv_dkf_bf16",
+                       torch.bfloat16, u, g, n)
+
+
+fftconv_dkf_bf16.launches = 0
+
+
+def _launch_dkf(wrapper, entry, dtype, u, g, n):
+    """Check the arguments of kernel 5 or 5f (u and g of ``dtype``), launch
+    ``entry`` and count it on ``wrapper``."""
+    B, H, L = u.shape
+    _check_fft_size(n, L)
+    for t in (u, g):
+        cuda_lib.check(t, (B, H, L), dtype)
+    out = torch.empty((H, n // 2 + 1), dtype=torch.complex64,
+                      device=u.device)
+    cuda_lib.launch(entry, u.data_ptr(), g.data_ptr(), out.data_ptr(), B, H,
+                    L, n)
+    wrapper.launches += 1
+    return out
+
+
 class _FFTConvTrain(torch.autograd.Function):
     """y = fftconv(u, khat); du = fftconv(g, khat, conj) (kernel 1),
-    dkhat = fftconv_dkf(u, g) (kernel 5).  Saves u and khat."""
+    dkhat = fftconv_dkf(u, g) (kernel 5); for bf16 u (and so bf16 g) the
+    wrappers take kernels 1f and 5f.  Saves u and khat."""
 
     @staticmethod
     def forward(ctx, u, khat):
@@ -225,6 +294,6 @@ class _FFTConvTrain(torch.autograd.Function):
 
 def fftconv_train(u, khat):
     """Differentiable S4 conv of the training path (JAX ``fftconv2`` and
-    its custom VJP): kernels 1 and 5 on the card, their plain versions on
-    the CPU."""
+    its custom VJP): kernels 1 and 5 (1f and 5f for bf16 u) on the card,
+    their plain versions on the CPU."""
     return _FFTConvTrain.apply(u.contiguous(), khat.contiguous())

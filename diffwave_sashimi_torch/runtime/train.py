@@ -1,5 +1,5 @@
-"""Training runtime: SC09 unconditional SaShiMi or WaveNet at f32 on one
-card.
+"""Training runtime: SC09 unconditional SaShiMi (f32, or bf16 as shipped)
+or WaveNet (f32) on one card.
 
 Port of ``diffwave_sashimi_tpu/runtime/train.py`` (the reference's
 ``train.py``): run name and ``exp/<run>`` layout, diffusion schedule, SC09
@@ -12,10 +12,14 @@ an optional wall-clock budget ``max_seconds``.
 Each step draws t and z from a generator seeded by (seed, iteration), so a
 resumed run draws what an uninterrupted one would, runs the model's
 training form through the kernels (``ops.FUSED``: for SaShiMi forward
-kernels 1-4, backward kernels 1, 5-8; WaveNet's training form has none, as
-in JAX: cuDNN convs and the plain gate under autograd) and takes one Adam
-step.  Not ported, and refused by name: bf16 (``compute.precision``),
-dropout, mel conditioning, activation rematerialisation, data parallelism
+kernels 1-4, backward kernels 1, 5-8, or at bf16 their fast forms 1f, 2f,
+3f and 1f, 5f, 6f, 7f with kernels 4 and 8; WaveNet's training form has
+none, as in JAX: cuDNN convs and the plain gate under autograd) and takes
+one Adam step on the f32 parameters, so a checkpoint is f32 whatever the
+precision.  In-training samples are drawn at f32, as the JAX trainer's
+``generate()`` call does.  Not ported, and refused by name: bf16 WaveNet
+and bf16 vocoder configs (``models.check_supported``), dropout, mel
+conditioning, activation rematerialisation, data parallelism
 (``mesh.data`` > 1) and wandb.
 """
 
@@ -34,7 +38,7 @@ from ..config import extract_multirun_flag, load_config, sweep_overrides
 from ..data import dataloader
 from ..diffusion.loss import training_loss
 from ..diffusion.schedule import schedule_from_cfg
-from ..models import BF16_TRAIN_TODO, construct_model
+from ..models import check_supported, construct_model
 from ..ops import FUSED, Ops
 from ..utils.exp import local_directory
 from .checkpoint import load_checkpoint, load_into, save_checkpoint
@@ -83,8 +87,7 @@ def _refuse_unported(model_cfg, compute_cfg, mesh_cfg, wandb_cfg) -> str:
     """The compute precision, after refusing what is not ported."""
     compute_cfg = compute_cfg or {}
     precision = compute_cfg.get("precision", "bf16")
-    if precision not in ("f32", "float32"):
-        raise NotImplementedError(BF16_TRAIN_TODO)
+    check_supported(model_cfg, precision)
     if compute_cfg.get("remat"):
         raise NotImplementedError("compute.remat (activation "
                                   "rematerialisation) is not ported: "
@@ -189,9 +192,10 @@ def train(diffusion_cfg, model_cfg, dataset_cfg, generate_cfg,
                     print(f"model at iteration {n_iter} is saved",
                           flush=True)
                     if int(gen_kwargs.get("n_samples") or 0) > 0:
+                        # at generate()'s default precision, f32, as the
+                        # JAX trainer samples whatever it trains at
                         generate(diffusion_cfg, model_cfg, dataset_cfg,
-                                 ckpt_iter=n_iter, name=name,
-                                 precision=precision, device=device,
+                                 ckpt_iter=n_iter, name=name, device=device,
                                  **gen_kwargs)
 
                 n_iter += 1
@@ -212,7 +216,7 @@ def train(diffusion_cfg, model_cfg, dataset_cfg, generate_cfg,
 
 def main(argv=None):
     """CLI: ``python -m diffwave_sashimi_torch.runtime.train
-    experiment=sc09 compute.precision=f32 ...`` (Hydra-style overrides;
+    experiment=sc09 ...`` (Hydra-style overrides;
     ``-m`` sweeps comma-listed values as sequential jobs).  Trains on the
     card; ``+train.device=cpu`` asks for the CPU."""
     args, multirun = extract_multirun_flag(

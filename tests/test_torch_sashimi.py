@@ -204,6 +204,10 @@ def test_chip_smoke_config_literals_match_load_config():
     assert wnet["dataset"] == smoke.DATASET_CFG
     assert smoke.WNET_LAUNCHES["gate_res_skip"] == (
         wnet["model"]["num_res_layers"] * wnet["diffusion"]["T"])
+    # phase 8b runs the shipped precision at the main path's batch
+    train = load_config(overrides=smoke.TRAIN_BF16_OVERRIDES)
+    assert train["compute"]["precision"] == "bf16"
+    assert train["train"]["batch_size_per_gpu"] == smoke.N_SAMPLES
 
 
 _WNET_SMALL = {"_name_": "wavenet", "res_channels": 16, "skip_channels": 16,
@@ -220,17 +224,21 @@ def _bf16_conv_at_kernel9_size():
     ops.s4_conv_ref(u, a, c, torch.zeros(1, 8), kp, torch.zeros(8))
 
 
-# what the bf16 slice leaves unported: each refused by name, none run at f32
+# what the bf16 slices leave unported: each refused by name, none run at
+# f32 ("train": bf16 SaShiMi trains; training the bf16 WaveNet does not)
 _REFUSED = {
-    "train": (lambda: train(FAST3, SMALL_CFG, _DATA, None, device="cpu",
+    "train": (lambda: train(FAST3, _WNET_SMALL, _DATA, None, device="cpu",
                             compute_cfg={"precision": "bf16"}),
-              "bf16 training.*queue 1, item 1"),
+              "bf16 WaveNet.*queue 2, entry 2"),
     "wavenet": (lambda: construct_model(_WNET_SMALL, "bf16"),
                 "bf16 WaveNet.*queue 2, entry 2"),
     "vocoder": (lambda: construct_model(dict(SMALL_CFG, unconditional=False),
                                         "bf16"), "bf16 vocoding"),
     "vocoder_lengths": (lambda: construct_model(dict(SMALL_CFG, L=32000),
                                                 "bf16"), "bf16 vocoding"),
+    "train_lengths": (lambda: construct_model(SMALL_CFG, "bf16")(
+        torch.zeros(1, 1, 32000), torch.zeros(1, dtype=torch.long),
+        train=True), "bf16 vocoding"),
     "kernel9_conv": (_bf16_conv_at_kernel9_size,
                      "kernel 9.*queue 2, entry 2"),
     "kernel_fft_fast": (lambda: main(["experiment=sc09",
@@ -244,9 +252,10 @@ _REFUSED = {
 
 @pytest.mark.parametrize("case", sorted(_REFUSED))
 def test_bf16_is_refused_not_run_as_f32(case, tmp_path, monkeypatch):
-    """bf16 SaShiMi sampling builds (the shipped default); the paths this
-    slice leaves out raise NotImplementedError naming their ROADMAP entry
-    (and so do the config keys the port cannot honour yet)."""
+    """bf16 SaShiMi builds (the shipped default, for sampling and
+    training); the bf16 paths still unported raise NotImplementedError
+    naming their ROADMAP entry (and so do the config keys the port cannot
+    honour yet)."""
     assert construct_model(SMALL_CFG, "bf16").act_dtype == torch.bfloat16
     monkeypatch.chdir(tmp_path)
     fn, match = _REFUSED[case]

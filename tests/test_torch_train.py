@@ -5,6 +5,7 @@ against optax, the SC09 loader and the config loader against the JAX
 package's, and the trainer's runtime (checkpoints, resume, in-training
 generation, the card requirement, the jax-free entry points)."""
 
+import inspect
 import json
 import os
 import subprocess
@@ -34,7 +35,10 @@ from diffwave_sashimi_torch.config import (extract_multirun_flag,
 from diffwave_sashimi_torch.data import dataloader
 from diffwave_sashimi_torch.diffusion.loss import training_loss
 from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
+from diffwave_sashimi_torch.models import construct_model
 from diffwave_sashimi_torch.runtime import generate as port_generate
+from diffwave_sashimi_torch.runtime import train as port_train
+from diffwave_sashimi_torch.runtime.checkpoint import load_into
 from diffwave_sashimi_torch.runtime.train import (is_ssm_param,
                                                   make_optimizer, train)
 from diffwave_sashimi_torch.utils.exp import local_directory
@@ -277,6 +281,58 @@ def test_train_checkpoints_resumes_and_generates(tmp_path, monkeypatch):
     assert audio.shape == (1, 1, 16000) and np.isfinite(audio).all()
 
 
+def test_bf16_train_checkpoints_f32_and_resumes(tmp_path, monkeypatch):
+    """train(device="cpu") at bf16 (the shipped precision), d8: 3
+    iterations write checkpoint 2, whose tensors are f32 and load into an
+    f32 port model; a resume from 'max' runs one more step on the carried
+    Adam state (4 steps) of the f32 parameters; the losses are finite."""
+    data = _write_corpus(str(tmp_path / "sc09"), n_per_label=1)
+    monkeypatch.chdir(tmp_path)
+    kw = dict(iters_per_ckpt=2, iters_per_logging=1, batch_size_per_gpu=2,
+              device="cpu")
+    out = train(DIFFUSION, SMALL_CFG, data, None, n_iters=2,
+                compute_cfg={"precision": "bf16"}, **kw)
+    assert out["model"].act_dtype == torch.bfloat16
+    assert [i for i, _ in out["losses"]] == [0, 1, 2]
+    assert all(np.isfinite(v) for _, v in out["losses"])
+    _, ckpt = local_directory(None, SMALL_CFG, DIFFUSION, data, "checkpoint",
+                              makedirs=False)
+    assert sorted(os.listdir(ckpt)) == ["2.pkl"]
+    saved = torch.load(os.path.join(ckpt, "2.pkl"), weights_only=True)
+    assert {t.dtype for t in saved["model_state_dict"].values()} == {
+        torch.float32}
+    f32_model = construct_model(SMALL_CFG, "f32")
+    load_into(f32_model, saved["model_state_dict"])
+    torch.testing.assert_close(f32_model.state_dict(),
+                               saved["model_state_dict"], rtol=0, atol=0)
+    res = train(DIFFUSION, SMALL_CFG, data, None, ckpt_iter="max",
+                n_iters=3, compute_cfg={"precision": "bf16"}, **kw)
+    assert res["step"] == 3 and [i for i, _ in res["losses"]] == [3]
+    assert {int(s["step"]) for s in res["optimizer"].state.values()} == {4}
+    assert all(p.dtype == torch.float32 for p in res["model"].parameters())
+    assert np.isfinite(res["losses"][0][1])
+
+
+def test_bf16_train_samples_at_f32(tmp_path, monkeypatch):
+    """The in-training samples are drawn at generate()'s default, f32,
+    whatever the training precision, as the JAX trainer's generate() call
+    (without a precision) does."""
+    data = _write_corpus(str(tmp_path / "sc09"), n_per_label=1)
+    monkeypatch.chdir(tmp_path)
+    calls = []
+    monkeypatch.setattr(port_train, "generate",
+                        lambda *a, **k: calls.append(k))
+    gen_cfg = {"ckpt_iter": "max", "n_samples": 1, "batch_size": None,
+               "ckpt_smooth": None, "mel_path": None, "mel_name": None}
+    train(DIFFUSION, SMALL_CFG, data, gen_cfg, n_iters=1, iters_per_ckpt=1,
+          iters_per_logging=1, batch_size_per_gpu=2, device="cpu",
+          compute_cfg={"precision": "bf16"})
+    assert len(calls) == 1 and calls[0]["ckpt_iter"] == 1
+    assert "precision" not in calls[0]
+    assert inspect.signature(port_generate.generate).parameters[
+        "precision"].default == "f32"
+
+
 def test_entry_points_require_a_card_unless_asked_for_the_cpu(
         tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
@@ -287,9 +343,10 @@ def test_entry_points_require_a_card_unless_asked_for_the_cpu(
         port_generate.generate(DIFFUSION, SMALL_CFG, data)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train(DIFFUSION, SMALL_CFG, data, None, compute_cfg=F32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train(DIFFUSION, SMALL_CFG, data, None, device="cpu",
-              compute_cfg={"precision": "bf16"})
+    # bf16 SaShiMi trains; a bf16 conditional (vocoder) config does not
+    with pytest.raises(NotImplementedError, match="bf16 mel-conditioned.*ROADMAP"):
+        train(DIFFUSION, dict(SMALL_CFG, unconditional=False), data, None,
+              device="cpu", compute_cfg={"precision": "bf16"})
     with pytest.raises(NotImplementedError, match="queue 1, item 4"):
         train(DIFFUSION, SMALL_CFG, data, None, device="cpu",
               compute_cfg=F32, mesh_cfg={"data": 4})
