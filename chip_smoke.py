@@ -70,32 +70,53 @@ Phases, each fatal on failure (non-zero exit, no result line):
     just before and read just after: kernel 9 24 x 50 times (the top and
     middle tiers, n 2^18 and 2^16), kernel 1 6 x 50 (the deepest, n 16384),
     kernels 2 and 3 30 x 50, kernel 4 30; finite output of that length and
-    a fidelity.json;
+    a fidelity.json; then (13b) the shipped vocoding command,
+    ``runtime.generate.main(["experiment=ljspeech", "generate.n_samples=2",
+    "dataset.data_path=..."])`` with no precision override (bf16): kernel
+    9f exactly 24 x 50 times, 1f 6 x 50, 2f and 3f 30 x 50 each, kernel 4
+    30, no f32 form; finite wavs of 143360 samples and a fidelity.json;
 14. the precomputed-mel route: the port's ``mel2samp`` CLI writes the
     utterance's mel, which loads equal to the one computed on the fly;
 15. kernel 9 (both entries) against its plain version at the top and
     middle tiers' shapes and at n 4096, and kernel 1 at the deepest tier
-    (n 16384 < 2L), timed;
+    (n 16384 < 2L), timed; (15b) kernel 9f at the same three shapes (bf16
+    activations), timed;
 16. one vocoder eps forward through the kernels against the plain path;
+    (16b) the same at bf16 against the bf16 plain path, and the quality
+    gate: a 50-step reverse process at the vocoder's schedule with one
+    injected noise stack, whose bf16 x_0 must correlate >= 0.99999 with
+    f32's;
 17. the vocoder step's eps forward timed both ways at B2 (ms per step, the
-    realtime factor), and a torch.profiler trace of two steps;
+    realtime factor), and a torch.profiler trace of two steps; (17b) the
+    bf16 step against its plain path and, in turns, against the f32 step,
+    and a trace of two bf16 steps;
 18. the WaveNet: the shipped ``experiment=sc09_wavenet`` model (res 256,
     skip 256, 36 layers, dilation cycle 12) from a seed, with a perturbed
     final conv, saved as a checkpoint under its ``wnet_h256_d36`` run name;
 19. kernel 11 (the gate + res/skip tail) against its plain version at the
     sampling path's shape (B4 C256 S256 L16000), at B16, and at a ragged
-    length with S != C (C128 S256 L8960), timed;
+    length with S != C (C128 S256 L8960), timed; (19b) kernel 11f at the
+    same cases (bf16 activations), timed;
 20. the WaveNet sampling path: ``generate()`` at T = 200, B4, with every
     launch count set to 0 just before and read just after: kernel 11
     exactly 36 x 200 times, every other kernel never; finite output of
-    shape (4, 1, 16000) in the ``<iter//1000>k_<i>.wav`` layout;
+    shape (4, 1, 16000) in the ``<iter//1000>k_<i>.wav`` layout; then
+    (20b) the shipped command, ``runtime.generate.main(
+    ["experiment=sc09_wavenet", "generate.n_samples=4"])`` with no
+    precision override (bf16): kernel 11f exactly 36 x 200 times, every
+    other kernel never, finite wavs;
 21. one WaveNet eps forward through the kernel against the plain path,
     and the same for a conditional WaveNet of that width (mel_upsample
-    [16, 16], a seeded mel of 63 frames, L 16128);
+    [16, 16], a seeded mel of 63 frames, L 16128); (21b) both at bf16
+    against the bf16 plain path, and the quality gate: 50 steps with one
+    injected noise stack, bf16 x_0 vs f32's, corr >= 0.99999;
 22. the WaveNet eps forward timed both ways at B4 and B16 (ms per step,
     the realtime factor at T = 200), and a torch.profiler trace of two
     steps: device time in kernel 11, in the convolution and GEMM library
-    kernels (the dilated conv), and the rest, and the idle share;
+    kernels (the dilated conv), and the rest, and the idle share; (22b)
+    the bf16 step at B4 and B16 against its plain path and, in turns,
+    against the f32 step, and a trace of two bf16 steps split the same
+    way;
 23. WaveNet training: ``runtime.train.main`` with ``experiment=sc09_wavenet
     compute.precision=f32`` for 3 iterations at B4 on phase 8's synthetic
     corpus (checkpoint at 2), then a resume from 'max' for one more
@@ -116,6 +137,7 @@ them), so this script imports nothing of the JAX package.
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -212,6 +234,8 @@ WNET_COND_CFG = dict(WNET_MODEL_CFG, unconditional=False,
                      mel_upsample=[16, 16])
 WNET_MEL_FRAMES = 63          # x hop 256: L 16128 (phase 21)
 WNET_LAUNCHES = {"gate_res_skip": 36 * 200}   # generate() at T = 200
+# the shipped WaveNet command (phase 20b): bf16, kernel 11f in every block
+WNET_BF16_LAUNCHES = {"gate_res_skip_bf16": 36 * 200}
 # the shipped SC09 command at T = 200 (30 blocks a step, kernel 4 once per
 # block and run): bf16, then with +compute.conv_int8=true
 BF16_LAUNCHES = {"fftconv_ln_bias_gelu_d_bf16": 30 * 200,
@@ -265,13 +289,15 @@ KERNELS = {
     # int8 branch of fftconv2.py:427 (qscale, _consts_q8 :293)
     "fftconv_ln_bias_gelu_d_bf16": ("diffwave_sashimi_torch/csrc/fftconv.cu",
                                     "diffwave_sashimi_tpu/ops/fftconv2.py:427",
-                                    ("generate_bf16",)),
+                                    ("generate_bf16", "vocode_bf16")),
     "glu_res_bf16": ("diffwave_sashimi_torch/csrc/chmix.cu",
                      "diffwave_sashimi_tpu/ops/chmix.py:119",
-                     ("generate_bf16", "generate_int8", "train_bf16")),
+                     ("generate_bf16", "generate_int8", "train_bf16",
+                      "vocode_bf16")),
     "ln_ff_res_bf16": ("diffwave_sashimi_torch/csrc/chmix.cu",
                        "diffwave_sashimi_tpu/ops/chmix.py:182",
-                       ("generate_bf16", "generate_int8", "train_bf16")),
+                       ("generate_bf16", "generate_int8", "train_bf16",
+                        "vocode_bf16")),
     "fftconv_int8": ("diffwave_sashimi_torch/csrc/fftconv_int8.cu",
                      "diffwave_sashimi_tpu/ops/fftconv2.py:427",
                      ("generate_int8",)),
@@ -289,11 +315,20 @@ KERNELS = {
     "ln_ff_res_bwd_bf16": ("diffwave_sashimi_torch/csrc/chmix.cu",
                            "diffwave_sashimi_tpu/ops/chmix.py:362",
                            ("train_bf16",)),
+    # the bf16 sampling forms (fast=True) of kernels 9 and 11
+    "fftconv_long_ln_bias_gelu_d_bf16": (
+        "diffwave_sashimi_torch/csrc/fftconv_long.cu",
+        "diffwave_sashimi_tpu/ops/fftconv_pallas.py:78", ("vocode_bf16",)),
+    "gate_res_skip_bf16": ("diffwave_sashimi_torch/csrc/wavenet_gate.cu",
+                           "diffwave_sashimi_tpu/ops/wavenet_gate.py:58",
+                           ("wavenet_bf16",)),
 }
 PATHS = ("generate", "train", "vocode", "wavenet", "wavenet_train",
-         "generate_bf16", "generate_int8", "train_bf16")
+         "generate_bf16", "generate_int8", "train_bf16", "vocode_bf16",
+         "wavenet_bf16")
 # the tier of the JSON line's entry, where it is not H128 at the path's L
-TOP_TIER = {"gate_res_skip": f"B{N_SAMPLES}_C256_S256_L16000"}
+TOP_TIER = {"gate_res_skip": f"B{N_SAMPLES}_C256_S256_L16000",
+            "gate_res_skip_bf16": f"B{N_SAMPLES}_C256_S256_L16000"}
 # kernel 9's entries compute kernel 1's functions (at larger n)
 SAME_FUNCTION = {"fftconv_long_ln_bias_gelu_d": "fftconv_ln_bias_gelu_d",
                  "fftconv_long": "fftconv"}
@@ -302,6 +337,12 @@ SAME_FUNCTION = {"fftconv_long_ln_bias_gelu_d": "fftconv_ln_bias_gelu_d",
 VOC_LAUNCHES = {"fftconv_long_ln_bias_gelu_d": 24 * 50,
                 "fftconv_ln_bias_gelu_d": 6 * 50, "glu_res": 30 * 50,
                 "ln_ff_res": 30 * 50, "cauchy": 30}
+# the shipped vocoding command (phase 13b): the same at bf16 (9f, 1f, 2f,
+# 3f; kernel 4 builds the spectra in f32 at any precision)
+VOC_BF16_LAUNCHES = {"fftconv_long_ln_bias_gelu_d_bf16": 24 * 50,
+                     "fftconv_ln_bias_gelu_d_bf16": 6 * 50,
+                     "glu_res_bf16": 30 * 50, "ln_ff_res_bf16": 30 * 50,
+                     "cauchy": 30}
 # the port's kernels, by the name of their __global__ function
 PORT_KERNELS = ("fftconv_kernel", "fftconv_dkf_kernel", "glu_res_kernel",
                 "glu_res_bwd_kernel", "ln_ff_res_kernel",
@@ -386,11 +427,12 @@ def work(name, B, H, L, n, K=6, N=32, S=None, bpe=4):
         "cauchy": ((13 + 11 * K) * H * N * Lz, coef + cauchy_io),
         "cauchy_bwd": ((30 + 16 * K) * H * N * Lz, 2 * coef + cauchy_io),
         "gate_res_skip": (2 * B * L * H * (H + S),
-                          (4 * H + S) * B * L * 4
+                          (4 * H + S) * B * L * bpe
                           + (H * H + H + S * H + S) * 4),
     }[SAME_FUNCTION.get(base, base)]
     # operations of the per-position products, of the weight gradients
     split = {"glu_res": (ops, 0), "ln_ff_res": (ops, 0),
+             "gate_res_skip": (ops, 0),
              "glu_res_bwd": (8 * H * H * B * L, 4 * H * H * B * L),
              "ln_ff_res_bwd": (6 * F * H * B * L, 4 * F * H * B * L)}
     if base not in split:
@@ -634,36 +676,15 @@ def run_shipped_command(torch, run, launches):
     "generate.n_samples=4"])`` with no precision override (bf16), then with
     ``+compute.conv_int8=true``: exact launch counts, finite wavs.  Returns
     the wall seconds of each."""
-    import numpy as np
-    from scipy.io import wavfile
-    from diffwave_sashimi_torch import ops
-    from diffwave_sashimi_torch.runtime import generate as generate_mod
     secs = {}
     for path, extra, want in (
             ("generate_bf16", [], BF16_LAUNCHES),
             ("generate_int8", ["+compute.conv_int8=true"], INT8_LAUNCHES)):
-        for fn in ops.COUNTED.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        generate_mod.main(["experiment=sc09",
-                           f"generate.n_samples={N_SAMPLES}"] + extra)
-        torch.cuda.synchronize()
-        secs[path] = time.perf_counter() - t0
-        launches[path] = {k: f.launches for k, f in ops.COUNTED.items()}
-        log(f"phase {path}: main({extra}) {secs[path]:.2f} s wall; launches "
-            f"{launches[path]}")
-        expect = {k: want.get(k, 0) for k in ops.COUNTED}
-        if launches[path] != expect:
-            raise AssertionError(f"{path} launches {launches[path]}, "
-                                 f"expected {expect}")
-        wav_dir = os.path.join("exp", run, "waveforms", "1000")
-        wavs = [wavfile.read(os.path.join(wav_dir, f"1k_{i}.wav"))[1]
-                for i in range(N_SAMPLES)]
-        if any(w.shape != (16000,) or not np.isfinite(w).all()
-               for w in wavs):
-            raise AssertionError(f"bad {path} output")
-        log(f"output: {N_SAMPLES} wavs of 16000 samples, finite, std "
-            f"{np.std(wavs):.4f}")
+        secs[path] = run_shipped_command_counted(
+            torch, path, ["experiment=sc09",
+                          f"generate.n_samples={N_SAMPLES}"] + extra,
+            want, launches)
+        read_wavs(run, N_SAMPLES, 16000, path)
     return secs
 
 
@@ -742,16 +763,7 @@ def check_bf16_path(torch, model, dev):
                         ("int8", bfm, ops.FUSED_INT8),
                         ("int8_f32", model, ops.FUSED_INT8)):
         xq = sampling(m, shape, sched, device=dev, noise=noise, ops=o)
-        corr = float(torch.corrcoef(torch.stack([xq.flatten(),
-                                                 x32.flatten()]))[0, 1])
-        q = {"corr": corr, "max_abs_diff": float((xq - x32).abs().max()),
-             "signal_std": float(x32.std())}
-        out["quality"][label] = q
-        ok = corr >= CORR_MIN and bool(torch.isfinite(xq).all())
-        log(f"phase quality {label}: x_0 over {sched.T} steps vs f32: corr "
-            f"{corr:.7f} (gate {CORR_MIN}), max abs diff "
-            f"{q['max_abs_diff']:.4f} on signal std {q['signal_std']:.4f} "
-            f"{'ok' if ok else 'FAIL'}")
+        out["quality"][label], ok = quality_gate(torch, label, x32, xq)
         failed += [] if ok else [label]
 
     if failed:
@@ -1211,8 +1223,9 @@ def write_utterance(path):
 
 def run_vocoder(torch, root, launches, dev):
     """Phases 12-14: the vocoder checkpoint and utterance, vocoding through
-    generate() with its launch counts, the precomputed-mel route.  Returns
-    (model, mel (1, 80, frames) numpy, audio length, generate() wall s)."""
+    generate() with its launch counts (13b: the shipped command at bf16),
+    the precomputed-mel route.  Returns (model, mel (1, 80, frames) numpy,
+    audio length, {path: generate() wall s})."""
     import numpy as np
     from diffwave_sashimi_torch import ops
     from diffwave_sashimi_torch.data import mel2samp
@@ -1255,6 +1268,9 @@ def run_vocoder(torch, root, launches, dev):
         fidelity = json.load(f)
     log(f"output: shape {audio.shape}, finite, std {audio.std():.4f}; "
         f"fidelity.json {fidelity}")
+    secs = {"vocode": gen_s,
+            "vocode_bf16": run_shipped_vocoding(torch, run, data, L,
+                                                launches)}
 
     mels = os.path.join(root, "mels")
     n = mel2samp.main(["experiment=ljspeech", f"dataset.data_path={data}",
@@ -1266,13 +1282,67 @@ def run_vocoder(torch, root, launches, dev):
         f"{np.array_equal(pre, mel)}")
     if n != 1 or not np.array_equal(pre, mel) or not L_pre == L_fly == L:
         raise AssertionError("the precomputed mel differs")
-    return model.to(dev).eval(), mel, L, gen_s
+    return model.to(dev).eval(), mel, L, secs
+
+
+def run_shipped_command_counted(torch, path, argv, want, launches):
+    """``runtime.generate.main(argv)`` with every launch count set to 0
+    just before and read just after into ``launches[path]``, which must
+    equal ``want`` (0 for every kernel it does not name).  Returns its wall
+    seconds."""
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.runtime import generate as generate_mod
+    for fn in ops.COUNTED.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    generate_mod.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches[path] = {k: f.launches for k, f in ops.COUNTED.items()}
+    log(f"phase {path}: main({argv}) {secs:.2f} s wall; launches "
+        f"{launches[path]}")
+    expect = {k: want.get(k, 0) for k in ops.COUNTED}
+    if launches[path] != expect:
+        raise AssertionError(f"{path} launches {launches[path]}, expected "
+                             f"{expect}")
+    return secs
+
+
+def read_wavs(run, n, L, label):
+    """The n wavs ``1k_<i>.wav`` of checkpoint 1000 in ``exp/<run>``; each
+    must hold L finite samples."""
+    import numpy as np
+    from scipy.io import wavfile
+    wav_dir = os.path.join("exp", run, "waveforms", "1000")
+    wavs = [wavfile.read(os.path.join(wav_dir, f"1k_{i}.wav"))[1]
+            for i in range(n)]
+    if any(w.shape != (L,) or not np.isfinite(w).all() for w in wavs):
+        raise AssertionError(f"bad {label} output")
+    log(f"output: {n} wavs of {L} samples, finite, std {np.std(wavs):.4f}")
+    return wav_dir
+
+
+def run_shipped_vocoding(torch, run, data, L, launches):
+    """Phase 13b: the shipped vocoding command with no precision override
+    (bf16) on phase 12's checkpoint and utterance: exact launch counts,
+    finite wavs of L samples, a fidelity.json.  Returns its wall s."""
+    shutil.rmtree(os.path.join("exp", run, "waveforms"))
+    secs = run_shipped_command_counted(
+        torch, "vocode_bf16", ["experiment=ljspeech",
+                               f"generate.n_samples={VOC_SAMPLES}",
+                               f"dataset.data_path={data}"],
+        VOC_BF16_LAUNCHES, launches)
+    wav_dir = read_wavs(run, VOC_SAMPLES, L, "bf16 vocoding")
+    with open(os.path.join(wav_dir, "fidelity.json")) as f:
+        log(f"fidelity.json {json.load(f)}")
+    return secs
 
 
 def check_vocoder_kernels(torch, model, L, dev, results):
-    """Phase 15: kernel 9 (both entries) at the top and middle tiers and at
-    n 4096, kernel 1 at the deepest tier (n 16384 < 2L), and kernels 2 and
-    3 at the vocoder's tiers, against their plain versions, timed."""
+    """Phase 15: kernel 9 (both entries; 15b: 9f) at the top and middle
+    tiers and at n 4096, kernel 1 at the deepest tier (n 16384 < 2L), and
+    kernels 2 and 3 at the vocoder's tiers, against their plain versions,
+    timed."""
     from diffwave_sashimi_torch import ops
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     (H0, _, b0), (H1, _, b1), (H2, _, b2) = tier_blocks(model)
@@ -1288,6 +1358,13 @@ def check_vocoder_kernels(torch, model, L, dev, results):
                 10, results, B, d["n"])
         compare("fftconv_long", H, Lt, lambda: ops.fftconv_long(x, kp),
                 lambda: ops.fftconv_long_ref(x, kp), 10, results, B, d["n"])
+        xb = x.to(torch.bfloat16)
+        compare("fftconv_long_ln_bias_gelu_d_bf16", H, Lt,
+                lambda: ops.fftconv_long_ln_bias_gelu_d_bf16(xb, a, c, bias,
+                                                             kp, D),
+                lambda: ops.fftconv_long_ln_bias_gelu_d_bf16_ref(
+                    xb, a, c, bias, kp, D),
+                10, results, B, d["n"], tol=TOL_BF16, bpe=2)
     for H, Lt, blk in ((H0, L, b0), (H1, L // 4, b1), (H2, L // 16, b2)):
         d = conv_inputs(torch, blk, Lt, B, gen, dev)
         x, a, c, bias, D = d["x"], d["a"], d["c"], d["bias"], d["D"]
@@ -1351,6 +1428,97 @@ def check_vocoder_step(torch, model, mel, L, dev):
     return ms, plain_ms, trace
 
 
+def quality_gate(torch, label, x32, xq):
+    """x_0 of a reduced precision vs f32's over the same noise: corr must
+    reach CORR_MIN.  Returns the numbers."""
+    corr = float(torch.corrcoef(torch.stack([xq.flatten(),
+                                             x32.flatten()]))[0, 1])
+    q = {"corr": corr, "max_abs_diff": float((xq - x32).abs().max()),
+         "signal_std": float(x32.std())}
+    ok = corr >= CORR_MIN and bool(torch.isfinite(xq).all())
+    log(f"phase quality {label}: x_0 vs f32: corr {corr:.7f} (gate "
+        f"{CORR_MIN}), max abs diff {q['max_abs_diff']:.4f} on signal std "
+        f"{q['signal_std']:.4f} {'ok' if ok else 'FAIL'}")
+    return q, ok
+
+
+def check_eps_bf16(torch, bfm, args, fused, plain, label):
+    """bf16 eps through the kernels vs the bf16 plain path, max abs error
+    <= TOL_EPS_BF16 x max|plain|; ``fused`` and ``plain`` are (kernels,
+    ops).  Returns (max abs err, max|plain|)."""
+    eps = bfm(*args, *fused[:2], **fused[2])
+    ref = bfm(*args, *plain[:2], **plain[2])
+    err, scale = max_err(eps, ref)
+    ok = eps.dtype == torch.float32 and bool(torch.isfinite(eps).all()) \
+        and 0 < scale and err <= TOL_EPS_BF16 * scale
+    log(f"phase {label}: kernels vs the bf16 plain path max_abs_err "
+        f"{err:.3e} (max|plain| {scale:.3e}, bar {TOL_EPS_BF16} x "
+        f"max|plain|) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} through the kernels disagrees")
+    return err, scale
+
+
+def check_vocoder_bf16(torch, model, mel, L, dev):
+    """Phases 16b and 17b: the bf16 vocoder (the same parameters): eps
+    through the kernels vs the bf16 plain path; the quality gate over
+    VOC_DIFFUSION_CFG's 50 steps; the step timed vs its plain path and, in
+    turns, vs the f32 step, at B2; a trace of two bf16 steps.  Returns a
+    dict."""
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.diffusion.sampling import sampling
+    from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
+    bfm = bf16_copy(torch, model)
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    B = VOC_SAMPLES
+    x = torch.randn(B, 1, L, device=dev, generator=g)
+    steps = torch.tensor([49, 7][:B], device=dev)
+    m = torch.from_numpy(mel).to(dev)
+    conds, conds32 = bfm.compute_mel_conds(m, L), model.compute_mel_conds(m, L)
+    k_fused = bfm.compute_kernels(L, ops.FUSED)
+    k_plain = bfm.compute_kernels(L, ops.PLAIN)
+    fused = (k_fused, ops.FUSED, {"mel_conds": conds})
+    out = {}
+    out["eps_err"], out["eps_max_plain"] = check_eps_bf16(
+        torch, bfm, (x, steps), fused, (k_plain, ops.PLAIN,
+                                        {"mel_conds": conds}),
+        "vocoder eps bf16")
+
+    sched = schedule_from_cfg(VOC_DIFFUSION_CFG, fast=True)
+    shape = (B, 1, L)
+    noise = torch.randn(sched.T + 1, *shape, device=dev, generator=g)
+    x32 = sampling(model, shape, sched, device=dev, noise=noise,
+                   mel_conds=conds32)
+    xq = sampling(bfm, shape, sched, device=dev, noise=noise,
+                  mel_conds=conds)
+    out["quality"], ok = quality_gate(torch, "vocoder_bf16", x32, xq)
+    del noise, x32, xq
+    if not ok:
+        raise AssertionError("bf16 vocoder x_0 fails the quality gate")
+
+    def step(m_, k, o, c):
+        return lambda: m_(x, steps, k, o, mel_conds=c)
+    k32 = model.compute_kernels(L, ops.FUSED)
+    bf16_step = step(bfm, k_fused, ops.FUSED, conds)
+    out["step_ms"], out["step_plain_ms"] = paired_ms(
+        bf16_step, step(bfm, k_plain, ops.PLAIN, conds), 3)
+    out["step_ms_vs_f32"], out["f32_step_ms"] = paired_ms(
+        bf16_step, step(model, k32, ops.FUSED, conds32), 3)
+    audio_s = B * L / VOC_DATASET_CFG["sampling_rate"]
+    out["realtime_factor_step"] = audio_s / (
+        VOC_DIFFUSION_CFG["T"] * out["step_ms"] / 1000)
+    log(f"timing: bf16 vocoder eps forward at B{B} L{L} "
+        f"{out['step_ms']:.3f} ms with kernels vs {out['step_plain_ms']:.3f}"
+        f" ms plain; {out['step_ms_vs_f32']:.3f} ms vs the f32 step's "
+        f"{out['f32_step_ms']:.3f} ms in turns; "
+        f"{out['realtime_factor_step']:.3f}x realtime from the step time")
+    out["trace"] = trace_steps(torch, bf16_step)
+    log("trace: bf16 vocoder step with the kernels: " + (
+        "no device time in the profiler's events (not measured)"
+        if out["trace"] is None else json.dumps(out["trace"])))
+    return out
+
+
 def build_wavenet(torch):
     """Phase 18: the seeded full-width WaveNet saved as checkpoint 1000
     under its run name in the current directory's ``exp/``; returns (model
@@ -1368,9 +1536,9 @@ def build_wavenet(torch):
 
 
 def check_gate_kernel(torch, model, dev, results):
-    """Phase 19: kernel 11 vs its plain version at GATE_CASES, with the
-    first block's weights where the width is the model's and seeded ones
-    (scale 1/sqrt(C)) elsewhere, timed."""
+    """Phase 19: kernel 11 (19b: 11f, bf16 h and x) vs its plain version at
+    GATE_CASES, with the first block's weights where the width is the
+    model's and seeded ones (scale 1/sqrt(C)) elsewhere, timed."""
     from diffwave_sashimi_torch import ops
     from diffwave_sashimi_torch.ops.conv import weight_norm
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
@@ -1391,11 +1559,18 @@ def check_gate_kernel(torch, model, dev, results):
                 lambda: ops.gate_res_skip_ref(h, x, wr, br, ws, bs),
                 10 if B > N_SAMPLES else 20, results, B=B, S=S,
                 tier=f"B{B}_C{C}_S{S}_L{L}")
+        hb, xb = h.to(torch.bfloat16), x.to(torch.bfloat16)
+        compare("gate_res_skip_bf16", C, L,
+                lambda: ops.gate_res_skip_bf16(hb, xb, wr, br, ws, bs),
+                lambda: ops.gate_res_skip_ref(hb, xb, wr, br, ws, bs),
+                10 if B > N_SAMPLES else 20, results, B=B, S=S,
+                tier=f"B{B}_C{C}_S{S}_L{L}", tol=TOL_BF16, bpe=2)
 
 
 def run_wavenet_generate(torch, run, launches, dev):
     """Phase 20: generate() from the WaveNet checkpoint with its launch
-    counts; returns its wall seconds."""
+    counts; (20b) the shipped command at bf16 on the same checkpoint.
+    Returns {path: wall seconds}."""
     import numpy as np
     from diffwave_sashimi_torch import ops
     from diffwave_sashimi_torch.runtime.generate import generate
@@ -1420,29 +1595,55 @@ def run_wavenet_generate(torch, run, launches, dev):
         raise AssertionError(f"wav layout {wavs}")
     log(f"output: shape {audio.shape}, finite, std {audio.std():.4f}, "
         f"wavs {wavs}")
-    return gen_s
+    shutil.rmtree(os.path.join("exp", run, "waveforms"))
+    bf16_s = run_shipped_command_counted(
+        torch, "wavenet_bf16", ["experiment=sc09_wavenet",
+                                f"generate.n_samples={N_SAMPLES}"],
+        WNET_BF16_LAUNCHES, launches)
+    read_wavs(run, N_SAMPLES, 16000, "bf16 wavenet")
+    return {"wavenet": gen_s, "wavenet_bf16": bf16_s}
 
 
-def check_wavenet_step(torch, model, dev):
-    """Phases 21 and 22: eps kernel vs plain (unconditional, then a
-    conditional model of the same width with a seeded mel), then the step
-    timed both ways at B4 and B16 and traced at B4.  Returns a dict."""
+def build_wavenet_cond(torch, dev):
+    """Phase 21's conditional WaveNet of the shipped width (seeded, on the
+    card), a seeded mel of WNET_MEL_FRAMES frames and an input of that
+    length: (model, mel, x)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    L = WNET_MEL_FRAMES * 256
+    return (build_model(torch, WNET_COND_CFG).to(dev).eval(),
+            torch.randn(N_SAMPLES, 80, WNET_MEL_FRAMES, device=dev,
+                        generator=g),
+            torch.randn(N_SAMPLES, 1, L, device=dev, generator=g))
+
+
+def wavenet_groups(kernel):
+    """The trace groups of a WaveNet step: the tail kernel, the convolution
+    and GEMM library kernels (the dilated conv, the 1x1 convs), the rest."""
+    def is_library(name):
+        lo = name.lower()
+        return any(s in lo for s in ("conv", "xmma", "gemm", "cudnn",
+                                     "cutlass", "implicit", "winograd"))
+    return {f"gate_res_skip (kernel {kernel})":
+            lambda n: n.startswith("gate_res_skip_kernel"),
+            "convolution and GEMM library kernels": is_library}
+
+
+def check_wavenet_step(torch, model, cond, dev):
+    """Phases 21 and 22: eps kernel vs plain (unconditional, then the
+    conditional model of the same width with its seeded mel, ``cond``),
+    then the step timed both ways at B4 and B16 and traced at B4.  Returns
+    a dict."""
     from diffwave_sashimi_torch import ops
     g = torch.Generator(device=dev).manual_seed(SEED + 10)
     x = torch.randn(N_SAMPLES, 1, 16000, device=dev, generator=g)
     steps = torch.tensor([199, 120, 40, 3][:N_SAMPLES], device=dev)
     out = {"eps_err": check_eps(torch, model, x, steps, "wavenet eps")}
-    cond_model = build_model(torch, WNET_COND_CFG).to(dev).eval()
-    L = WNET_MEL_FRAMES * 256
-    mel = torch.randn(N_SAMPLES, 80, WNET_MEL_FRAMES, device=dev,
-                      generator=g)
-    conds = cond_model.compute_mel_conds(mel, L)
-    xc = torch.randn(N_SAMPLES, 1, L, device=dev, generator=g)
+    cond_model, mel, xc = cond
+    conds = cond_model.compute_mel_conds(mel, xc.shape[-1])
     out["cond_eps_err"] = check_eps(torch, cond_model, xc, steps,
                                     "wavenet conditional eps",
                                     mel_conds=conds)
-    del cond_model, conds
-    torch.cuda.empty_cache()
+    del conds
     out["step_ms"], out["step_plain_ms"] = {}, {}
     for B in (N_SAMPLES, 16):
         xb = torch.randn(B, 1, 16000, device=dev, generator=g)
@@ -1459,16 +1660,72 @@ def check_wavenet_step(torch, model, dev):
             f"plain; T={T} -> {out['realtime_factor'][B]:.3f}x realtime "
             f"from the step time")
 
-    def is_library(name):
-        lo = name.lower()
-        return any(s in lo for s in ("conv", "xmma", "gemm", "cudnn",
-                                     "cutlass", "implicit", "winograd"))
     out["trace"] = trace_steps(
         torch, lambda: model(x, steps, [], ops.FUSED),
-        groups={"gate_res_skip (kernel 11)":
-                lambda n: n.startswith("gate_res_skip_kernel"),
-                "convolution and GEMM library kernels": is_library})
+        groups=wavenet_groups("11"))
     log("trace: wavenet step with kernel 11: " + (
+        "no device time in the profiler's events (not measured)"
+        if out["trace"] is None else json.dumps(out["trace"])))
+    return out
+
+
+def check_wavenet_bf16(torch, model, cond, dev):
+    """Phases 21b and 22b: the bf16 WaveNet (the same parameters): eps
+    through kernel 11f vs the bf16 plain path, unconditional and for the
+    conditional model ``cond``; the quality gate over QUALITY_CFG's 50
+    steps; the step at B4 and B16 vs its plain path and, in turns, vs the
+    f32 step; a trace of two bf16 steps.  Returns a dict."""
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.diffusion.sampling import sampling
+    from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
+    bfm = bf16_copy(torch, model)
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    x = torch.randn(N_SAMPLES, 1, 16000, device=dev, generator=g)
+    steps = torch.tensor([199, 120, 40, 3][:N_SAMPLES], device=dev)
+    out = {"eps_err": check_eps_bf16(torch, bfm, (x, steps),
+                                     ([], ops.FUSED, {}),
+                                     ([], ops.PLAIN, {}), "wavenet eps bf16")}
+    cond_bf16 = bf16_copy(torch, cond[0])
+    mc = {"mel_conds": cond_bf16.compute_mel_conds(cond[1],
+                                                   cond[2].shape[-1])}
+    out["cond_eps_err"] = check_eps_bf16(
+        torch, cond_bf16, (cond[2], steps), ([], ops.FUSED, mc),
+        ([], ops.PLAIN, mc), "wavenet conditional eps bf16")
+    del cond_bf16, mc
+
+    sched = schedule_from_cfg(QUALITY_CFG, fast=True)
+    shape = (N_SAMPLES, 1, 16000)
+    noise = torch.randn(sched.T + 1, *shape, device=dev, generator=g)
+    out["quality"], ok = quality_gate(
+        torch, "wavenet_bf16",
+        sampling(model, shape, sched, device=dev, noise=noise),
+        sampling(bfm, shape, sched, device=dev, noise=noise))
+    if not ok:
+        raise AssertionError("bf16 WaveNet x_0 fails the quality gate")
+
+    for key in ("step_ms", "step_plain_ms", "step_ms_vs_f32", "f32_step_ms"):
+        out[key] = {}
+    for B in (N_SAMPLES, 16):
+        xb = torch.randn(B, 1, 16000, device=dev, generator=g)
+        sb = torch.randint(0, 200, (B,), device=dev, generator=g)
+        k = str(B)
+        out["step_ms"][k], out["step_plain_ms"][k] = paired_ms(
+            lambda: bfm(xb, sb, [], ops.FUSED),
+            lambda: bfm(xb, sb, [], ops.PLAIN), 3)
+        out["step_ms_vs_f32"][k], out["f32_step_ms"][k] = paired_ms(
+            lambda: bfm(xb, sb, [], ops.FUSED),
+            lambda: model(xb, sb, [], ops.FUSED), 3)
+        log(f"timing: bf16 wavenet eps forward at B{B} "
+            f"{out['step_ms'][k]:.3f} ms with kernel 11f vs "
+            f"{out['step_plain_ms'][k]:.3f} ms plain; "
+            f"{out['step_ms_vs_f32'][k]:.3f} ms vs the f32 step's "
+            f"{out['f32_step_ms'][k]:.3f} ms in turns")
+    T = DIFFUSION_CFG["T"]
+    out["realtime_factor"] = {B: int(B) * 16000 / 16000 / (T * ms / 1000)
+                              for B, ms in out["step_ms"].items()}
+    out["trace"] = trace_steps(torch, lambda: bfm(x, steps, [], ops.FUSED),
+                               groups=wavenet_groups("11f"))
+    log("trace: bf16 wavenet step with kernel 11f: " + (
         "no device time in the profiler's events (not measured)"
         if out["trace"] is None else json.dumps(out["trace"])))
     return out
@@ -1682,17 +1939,20 @@ def main():
     voc_root = tempfile.TemporaryDirectory(prefix="dwst_smoke_voc_")
     os.chdir(voc_root.name)
     try:
-        voc_model, mel, voc_L, voc_gen_s = run_vocoder(
+        voc_model, mel, voc_L, voc_secs = run_vocoder(
             torch, voc_root.name, launches, dev)
+        voc_gen_s = voc_secs["vocode"]
     finally:
         os.chdir(cwd)
         voc_root.cleanup()
 
-    # phases 15-17: the vocoder's kernels, eps and step
+    # phases 15-17: the vocoder's kernels (15b: 9f), eps and step; 16b and
+    # 17b at bf16
     with torch.no_grad():
         check_vocoder_kernels(torch, voc_model, voc_L, dev, results)
         voc_ms, voc_plain_ms, voc_trace = check_vocoder_step(
             torch, voc_model, mel, voc_L, dev)
+        voc_bf16 = check_vocoder_bf16(torch, voc_model, mel, voc_L, dev)
     voc_T = VOC_DIFFUSION_CFG["T"]
     voc_audio_s = VOC_SAMPLES * voc_L / VOC_DATASET_CFG["sampling_rate"]
     voc_rtf = voc_audio_s / (voc_T * voc_ms / 1000)
@@ -1705,6 +1965,12 @@ def main():
     log("trace: vocoder step with the kernels: " + (
         "no device time in the profiler's events (not measured)"
         if voc_trace is None else json.dumps(voc_trace)))
+    voc_bf16["generate_s"] = voc_secs["vocode_bf16"]
+    voc_bf16["realtime_factor_generate"] = (voc_audio_s
+                                            / voc_secs["vocode_bf16"])
+    log(f"timing: the shipped vocoding command at bf16: "
+        f"{voc_bf16['realtime_factor_generate']:.3f}x realtime from its wall "
+        f"time (as phase 13's, plus the config's load)")
     del voc_model
     torch.cuda.empty_cache()
 
@@ -1717,19 +1983,26 @@ def main():
         wn_model = wn_model.to(dev).eval()
         with torch.no_grad():
             check_gate_kernel(torch, wn_model, dev, results)
-        wn_gen_s = run_wavenet_generate(torch, wn_run, launches, dev)
+        wn_secs = run_wavenet_generate(torch, wn_run, launches, dev)
     finally:
         os.chdir(cwd)
         wn_root.cleanup()
 
-    # phases 21 and 22: WaveNet eps kernel vs plain, step times, a trace
+    # phases 21 and 22: WaveNet eps kernel vs plain, step times, a trace;
+    # 21b and 22b at bf16
     with torch.no_grad():
-        wn = check_wavenet_step(torch, wn_model, dev)
-    wn["generate_s"] = wn_gen_s
-    wn["realtime_factor_generate"] = N_SAMPLES * 16000 / 16000 / wn_gen_s
-    log(f"timing: wavenet generate() at B{N_SAMPLES}: "
-        f"{wn['realtime_factor_generate']:.3f}x realtime from its wall time "
-        f"(model build + load, {DIFFUSION_CFG['T']} steps, wav writes)")
+        cond = build_wavenet_cond(torch, dev)
+        wn = check_wavenet_step(torch, wn_model, cond, dev)
+        wn_bf16 = check_wavenet_bf16(torch, wn_model, cond, dev)
+    del cond
+    torch.cuda.empty_cache()
+    for out, path in ((wn, "wavenet"), (wn_bf16, "wavenet_bf16")):
+        out["generate_s"] = wn_secs[path]
+        out["realtime_factor_generate"] = N_SAMPLES / wn_secs[path]
+        log(f"timing: {path} sampling at B{N_SAMPLES}: "
+            f"{out['realtime_factor_generate']:.3f}x realtime from its wall "
+            f"time (model build + load, {DIFFUSION_CFG['T']} steps, wav "
+            f"writes)")
 
     # phase 23: WaveNet training through runtime.train.main
     wn_train_root = tempfile.TemporaryDirectory(
@@ -1777,6 +2050,8 @@ def main():
                    "realtime_factor_generate": voc_audio_s / voc_gen_s,
                    "generate_s": voc_gen_s, "trace": voc_trace},
         "wavenet": wn,
+        "wavenet_bf16": wn_bf16,
+        "vocode_bf16": voc_bf16,
         "bf16_int8": bf16_path,
         "train_bf16": train_bf16,
         "seconds": time.perf_counter() - t_start}))

@@ -13,10 +13,22 @@
 // prologue u' = a u + c + bias (a, c (B, L) norm1 as scale and shift; bias
 // (B, H) the step bias) and epilogue gelu_erf(y + D u').
 //
+// Kernel 9f, the sampling form of the bf16 path (the TPU kernel with
+// fast=True, whose only change there is the MXU precision, composed with
+// the bf16 policy around it, diffwave_sashimi_tpu/models/s4.py:705-712):
+// u and out are bf16, a, c, bias, the spectrum and D f32; the prologue
+// u' = a u + c + bias is rounded to bf16 (JAX's conv input is a bf16
+// tensor), the chain stays f32, and the epilogue rounds v = y + D u' to
+// bf16 before the exact GELU, whose result is stored as bf16.  Kernel 1f
+// (csrc/fftconv.cu) differs on purpose: its prologue stays unrounded and
+// its GELU is gelu_fast, the compact path's function.
+//
 // What bounds it on the H100: at the vocoder's top tier (B 2, H 128,
 // L 143360, n 2^18) the function reads u and the half spectrum once and
 // writes y once, 0.43 GB, 0.13 ms at 3.35 TB/s; its ~6 GFLOP of transforms
-// take 0.09 ms at the fp32 peak, so device memory bounds it.  A whole
+// take 0.09 ms at the fp32 peak, so device memory bounds it (9f moves its
+// activations at 2 bytes, 0.28 GB, 0.08 ms, so there the transforms' fp32
+// operations bound it; the scratch round trips cost it the same).  A whole
 // complex row of 2^18 values is 2 MB, past one SM's shared memory, so the
 // transform cannot stay on chip the way kernel 1's does.
 //
@@ -58,7 +70,7 @@
 namespace {
 
 using namespace dwst_fft;
-using dwst_act::gelu_erf;
+using namespace dwst_act;
 
 constexpr int TC = 16;           // columns per block in passes A and C
 constexpr int ROW_THREADS = 256;  // threads per block in pass B
@@ -82,10 +94,27 @@ struct Dims {
   float two_over_n;
 };
 
+// The conv input at one position: u, or in the sampling form u' = a u + c
+// + bias, rounded to bf16 in 9f.  Passes A and C both call it, so the
+// D-skip sees the very value that was transformed.
+template <bool FUSED, typename T>
+__device__ __forceinline__ float conv_in(T u, float a, float c, float bh) {
+  if (!FUSED) return to_f(u);
+  const float v = a * to_f(u) + c + bh;
+  return sizeof(T) == 2 ? round_bf16(v) : v;
+}
+
+// The sampling form's output from v = y + D u': gelu_erf(v), or in 9f
+// gelu_erf of v rounded to bf16, stored as bf16.
+template <typename T>
+__device__ __forceinline__ T gelu_out(float v) {
+  return from_f<T>(gelu_erf(sizeof(T) == 2 ? round_bf16(v) : v));
+}
+
 // Pass A.  blockIdx.x: column tile; blockIdx.y: r = pair * H + h.
-template <bool FUSED>
+template <bool FUSED, typename T>
 __global__ void __launch_bounds__(1024)
-cols_fwd_kernel(const float* __restrict__ u, const float* __restrict__ a,
+cols_fwd_kernel(const T* __restrict__ u, const float* __restrict__ a,
                 const float* __restrict__ c, const float* __restrict__ bias,
                 float2* __restrict__ S, Dims d) {
   extern __shared__ float2 z[];    // TC columns of N1 values
@@ -96,8 +125,8 @@ cols_fwd_kernel(const float* __restrict__ u, const float* __restrict__ a,
   const int c0 = blockIdx.x * TC;
   const int N1 = d.N1, N2 = d.N2, L = d.L, st = slots(N1);
   const int tid = threadIdx.x, nt = blockDim.x;
-  const float* u0 = u + ((size_t)b0 * d.H + h) * L;
-  const float* u1 = u + ((size_t)b1 * d.H + h) * L;
+  const T* u0 = u + ((size_t)b0 * d.H + h) * L;
+  const T* u1 = u + ((size_t)b1 * d.H + h) * L;
   const float* a0 = FUSED ? a + (size_t)b0 * L : nullptr;
   const float* a1 = FUSED ? a + (size_t)b1 * L : nullptr;
   const float* s0 = FUSED ? c + (size_t)b0 * L : nullptr;
@@ -110,8 +139,11 @@ cols_fwd_kernel(const float* __restrict__ u, const float* __restrict__ a,
     const int t = n1 * N2 + c0 + cc;
     float v0 = 0.0f, v1 = 0.0f;
     if (t < L) {
-      v0 = FUSED ? a0[t] * u0[t] + s0[t] + bh0 : u0[t];
-      if (two) v1 = FUSED ? a1[t] * u1[t] + s1[t] + bh1 : u1[t];
+      v0 = conv_in<FUSED>(u0[t], FUSED ? a0[t] : 0.0f, FUSED ? s0[t] : 0.0f,
+                          bh0);
+      if (two)
+        v1 = conv_in<FUSED>(u1[t], FUSED ? a1[t] : 0.0f,
+                            FUSED ? s1[t] : 0.0f, bh1);
     }
     z[cc * st + pad(n1)] = make_float2(v0, v1);
   }
@@ -160,12 +192,12 @@ rows_kernel(float2* __restrict__ S, const float2* __restrict__ kp, Dims d,
 }
 
 // Pass C.  Grid as pass A.
-template <bool FUSED>
+template <bool FUSED, typename T>
 __global__ void __launch_bounds__(1024)
-cols_inv_kernel(const float2* __restrict__ S, const float* __restrict__ u,
+cols_inv_kernel(const float2* __restrict__ S, const T* __restrict__ u,
                 const float* __restrict__ a, const float* __restrict__ c,
                 const float* __restrict__ bias, const float* __restrict__ D,
-                float* __restrict__ out, Dims d) {
+                T* __restrict__ out, Dims d) {
   extern __shared__ float2 z[];
   const int r = blockIdx.y;
   const int p = r / d.H, h = r - p * d.H;
@@ -198,12 +230,14 @@ cols_inv_kernel(const float2* __restrict__ S, const float* __restrict__ u,
     const float y0 = v.x * inv_n, y1 = v.y * inv_n;
     if (FUSED) {
       const size_t q0 = (size_t)b0 * L + t, q1 = (size_t)b1 * L + t;
-      out[o0 + t] = gelu_erf(y0 + dh * (a[q0] * u[o0 + t] + c[q0] + bh0));
+      out[o0 + t] = gelu_out<T>(
+          y0 + dh * conv_in<true>(u[o0 + t], a[q0], c[q0], bh0));
       if (two)
-        out[o1 + t] = gelu_erf(y1 + dh * (a[q1] * u[o1 + t] + c[q1] + bh1));
+        out[o1 + t] = gelu_out<T>(
+            y1 + dh * conv_in<true>(u[o1 + t], a[q1], c[q1], bh1));
     } else {
-      out[o0 + t] = y0;
-      if (two) out[o1 + t] = y1;
+      out[o0 + t] = from_f<T>(y0);
+      if (two) out[o1 + t] = from_f<T>(y1);
     }
   }
 }
@@ -219,10 +253,10 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <bool FUSED>
-int launch_long(const float* u, const float* a, const float* c,
+template <bool FUSED, typename T>
+int launch_long(const T* u, const float* a, const float* c,
                 const float* bias, const void* kp, const float* D,
-                void* scratch, float* out, int B, int H, int L, int n,
+                void* scratch, T* out, int B, int H, int L, int n,
                 cudaStream_t stream) {
   if (bad_size(n, L) || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
   int l = 0;
@@ -235,20 +269,20 @@ int launch_long(const float* u, const float* a, const float* c,
   const int rpb = std::min(ROW_THREADS * VPT / d.N2, d.N1);
   const size_t smem_row = (size_t)rpb * slots(d.N2) * sizeof(float2);
   cudaError_t e;
-  if ((e = allow_smem(cols_fwd_kernel<FUSED>, smem_col)) != cudaSuccess ||
+  if ((e = allow_smem(cols_fwd_kernel<FUSED, T>, smem_col)) != cudaSuccess ||
       (e = allow_smem(rows_kernel, smem_row)) != cudaSuccess ||
-      (e = allow_smem(cols_inv_kernel<FUSED>, smem_col)) != cudaSuccess)
+      (e = allow_smem(cols_inv_kernel<FUSED, T>, smem_col)) != cudaSuccess)
     return (int)e;
 
   const dim3 col_grid(d.N2 / TC, R);
   const int col_threads = TC * d.N1 / VPT;
-  cols_fwd_kernel<FUSED><<<col_grid, col_threads, smem_col, stream>>>(
+  cols_fwd_kernel<FUSED, T><<<col_grid, col_threads, smem_col, stream>>>(
       u, a, c, bias, S, d);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   rows_kernel<<<R * d.N1 / rpb, rpb * d.N2 / VPT, smem_row, stream>>>(
       S, static_cast<const float2*>(kp), d, rpb);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  cols_inv_kernel<FUSED><<<col_grid, col_threads, smem_col, stream>>>(
+  cols_inv_kernel<FUSED, T><<<col_grid, col_threads, smem_col, stream>>>(
       S, u, a, c, bias, D, out, d);
   return (int)cudaGetLastError();
 }
@@ -265,9 +299,19 @@ extern "C" int dwst_fftconv_long_ln_bias_gelu_d(
                            stream);
 }
 
+// Kernel 9f: u and out bf16, the rest as above.
+extern "C" int dwst_fftconv_long_ln_bias_gelu_d_bf16(
+    const void* u, const float* a, const float* c, const float* bias,
+    const void* kp, const float* D, void* scratch, void* out, int B, int H,
+    int L, int n, cudaStream_t stream) {
+  return launch_long<true>(static_cast<const __nv_bfloat16*>(u), a, c, bias,
+                           kp, D, scratch, static_cast<__nv_bfloat16*>(out),
+                           B, H, L, n, stream);
+}
+
 extern "C" int dwst_fftconv_long(const float* u, const void* kp,
                                  void* scratch, float* out, int B, int H,
                                  int L, int n, cudaStream_t stream) {
-  return launch_long<false>(u, nullptr, nullptr, nullptr, kp, nullptr,
-                            scratch, out, B, H, L, n, stream);
+  return launch_long<false, float>(u, nullptr, nullptr, nullptr, kp,
+                                   nullptr, scratch, out, B, H, L, n, stream);
 }

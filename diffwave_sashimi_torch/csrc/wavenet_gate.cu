@@ -27,10 +27,25 @@
 // sqrt(1/2)) and skip (adding b_s) straight to device memory.  The ragged
 // tail past L is masked, so any L works.  tanhf and expf are the exact
 // ones (no fast-math intrinsics): the strict f32 path.
+//
+// Kernel 11f, the bf16 path's form (the TPU kernel with fast=True, _kernel
+// :58-73): h, x, res and skip are bf16; the gate is computed in f32 and
+// rounded to bf16 as it is stored in shared memory (still as floats, so
+// the tile layout is kernel 11's); the weights stay f32 in device memory
+// and are rounded to bf16 after their float4 loads, as 6f and 7f round
+// theirs; the products accumulate in f32, the f32 biases are added, res is
+// (x + W_r out + b_r) sqrt(1/2) in f32, and res and skip are rounded to
+// bf16 as they are stored.  The products stay fp32 CUDA-core FMAs of
+// bf16-valued operands: what bf16 buys here is half the activation bytes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "activations.cuh"
+
 namespace {
+
+using namespace dwst_act;
 
 constexpr int NT = 256;        // threads per block
 constexpr int TK = 8;          // contraction tile
@@ -54,15 +69,43 @@ __device__ __forceinline__ const float* weight_row(const float* Wr,
   return nullptr;
 }
 
-template <int P>
+// A product's operand: as it is, or rounded to bf16 in kernel 11f.
+template <bool FAST>
+__device__ __forceinline__ float operand(float v) {
+  return FAST ? round_bf16(v) : v;
+}
+
+// Four activations from t on (16-byte aligned for float, 8 for bf16), and
+// four stored there.
+__device__ __forceinline__ void load4(const float* p, float v[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
+  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
+  const float2 lo = __bfloat1622float2(q[0]), hi = __bfloat1622float2(q[1]);
+  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+}
+__device__ __forceinline__ void store4(float* p, const float v[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
+  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
+  q[0] = __floats2bfloat162_rn(v[0], v[1]);
+  q[1] = __floats2bfloat162_rn(v[2], v[3]);
+}
+
+// TA: the activations' type, float (kernel 11) or bf16 (kernel 11f).
+template <int P, typename TA>
 __global__ void __launch_bounds__(NT, 1)
-gate_res_skip_kernel(const float* __restrict__ h, const float* __restrict__ x,
+gate_res_skip_kernel(const TA* __restrict__ h, const TA* __restrict__ x,
                      const float* __restrict__ Wr,
                      const float* __restrict__ br,
                      const float* __restrict__ Ws,
-                     const float* __restrict__ bs, float* __restrict__ res,
-                     float* __restrict__ skip, int C, int S, int L) {
+                     const float* __restrict__ bs, TA* __restrict__ res,
+                     TA* __restrict__ skip, int C, int S, int L) {
   using T = Tile<P>;
+  constexpr bool FAST = sizeof(TA) == 2;
   extern __shared__ float4 sh4[];
   float* gs = reinterpret_cast<float*>(sh4);     // C x P gated activation
   float* AsT = gs + C * P;                        // TK x LDT weight tile
@@ -71,14 +114,14 @@ gate_res_skip_kernel(const float* __restrict__ h, const float* __restrict__ x,
   const int b = blockIdx.y, t0 = blockIdx.x * P;
 
   // prologue: gs[c, p] = tanh(h[b, c, t]) * sigmoid(h[b, C + c, t]), 0 past L
-  const float* hb = h + (size_t)b * 2 * C * L;
+  const TA* hb = h + (size_t)b * 2 * C * L;
   for (int idx = tid; idx < C * P; idx += NT) {
     const int c = idx / P, p = idx % P, t = t0 + p;
     float v = 0.0f;
     if (t < L) {
-      const float a = hb[(size_t)c * L + t];
-      const float g = hb[(size_t)(C + c) * L + t];
-      v = tanhf(a) / (1.0f + expf(-g));
+      const float a = to_f(hb[(size_t)c * L + t]);
+      const float g = to_f(hb[(size_t)(C + c) * L + t]);
+      v = operand<FAST>(tanhf(a) / (1.0f + expf(-g)));
     }
     gs[idx] = v;
   }
@@ -113,10 +156,10 @@ gate_res_skip_kernel(const float* __restrict__ h, const float* __restrict__ x,
       for (int q = 0; q < T::NPRE; ++q) {
         const int idx = tid + q * NT;
         const int lr = idx >> 1, k = 4 * (idx & 1);
-        AsT[(k + 0) * T::LDT + lr] = pre[q].x;
-        AsT[(k + 1) * T::LDT + lr] = pre[q].y;
-        AsT[(k + 2) * T::LDT + lr] = pre[q].z;
-        AsT[(k + 3) * T::LDT + lr] = pre[q].w;
+        AsT[(k + 0) * T::LDT + lr] = operand<FAST>(pre[q].x);
+        AsT[(k + 1) * T::LDT + lr] = operand<FAST>(pre[q].y);
+        AsT[(k + 2) * T::LDT + lr] = operand<FAST>(pre[q].z);
+        AsT[(k + 3) * T::LDT + lr] = operand<FAST>(pre[q].w);
       }
       __syncthreads();
       if (k0 + TK < C) fetch(k0 + TK);          // in flight during the FMAs
@@ -145,9 +188,9 @@ gate_res_skip_kernel(const float* __restrict__ h, const float* __restrict__ x,
       if (g >= M) continue;
       const bool is_res = g < C;
       const float bias = is_res ? br[g] : bs[g - C];
-      float* orow = is_res ? res + ((size_t)b * C + g) * L
-                           : skip + ((size_t)b * S + (g - C)) * L;
-      const float* xrow = is_res ? x + ((size_t)b * C + g) * L : nullptr;
+      TA* orow = is_res ? res + ((size_t)b * C + g) * L
+                        : skip + ((size_t)b * S + (g - C)) * L;
+      const TA* xrow = is_res ? x + ((size_t)b * C + g) * L : nullptr;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int t = half ? tB : tA;
@@ -156,19 +199,18 @@ gate_res_skip_kernel(const float* __restrict__ h, const float* __restrict__ x,
         for (int j = 0; j < 4; ++j) v[j] = acc[r][4 * half + j] + bias;
         if (vec && t + 4 <= L) {
           if (is_res) {
-            const float4 xv = *reinterpret_cast<const float4*>(xrow + t);
-            v[0] = (xv.x + v[0]) * SQRT_HALF;
-            v[1] = (xv.y + v[1]) * SQRT_HALF;
-            v[2] = (xv.z + v[2]) * SQRT_HALF;
-            v[3] = (xv.w + v[3]) * SQRT_HALF;
+            float xv[4];
+            load4(xrow + t, xv);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) v[j] = (xv[j] + v[j]) * SQRT_HALF;
           }
-          *reinterpret_cast<float4*>(orow + t) =
-              make_float4(v[0], v[1], v[2], v[3]);
+          store4(orow + t, v);
         } else {
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             if (t + j < L)
-              orow[t + j] = is_res ? (xrow[t + j] + v[j]) * SQRT_HALF : v[j];
+              orow[t + j] = from_f<TA>(
+                  is_res ? (to_f(xrow[t + j]) + v[j]) * SQRT_HALF : v[j]);
           }
         }
       }
@@ -182,29 +224,26 @@ int choose_p(int C) {
   return p >= 128 ? 128 : (p >= 64 ? 64 : 32);
 }
 
-template <int P>
-int launch(const float* h, const float* x, const float* Wr, const float* br,
-           const float* Ws, const float* bs, float* res, float* skip, int B,
+template <int P, typename TA>
+int launch(const TA* h, const TA* x, const float* Wr, const float* br,
+           const float* Ws, const float* bs, TA* res, TA* skip, int B,
            int C, int S, int L, cudaStream_t stream) {
   using T = Tile<P>;
   const size_t smem = ((size_t)C * P + TK * T::LDT) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      gate_res_skip_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      gate_res_skip_kernel<P, TA>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((L + P - 1) / P, B);
-  gate_res_skip_kernel<P><<<grid, NT, smem, stream>>>(h, x, Wr, br, Ws, bs,
-                                                      res, skip, C, S, L);
+  gate_res_skip_kernel<P, TA><<<grid, NT, smem, stream>>>(
+      h, x, Wr, br, Ws, bs, res, skip, C, S, L);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int dwst_gate_res_skip(const float* h, const float* x,
-                                  const float* Wr, const float* br,
-                                  const float* Ws, const float* bs,
-                                  float* res, float* skip, int B, int C,
-                                  int S, int L, cudaStream_t stream) {
+template <typename TA>
+int launch_any(const TA* h, const TA* x, const float* Wr, const float* br,
+               const float* Ws, const float* bs, TA* res, TA* skip, int B,
+               int C, int S, int L, cudaStream_t stream) {
   if (C <= 0 || C % TK || S <= 0 || B <= 0 || L <= 0)
     return (int)cudaErrorInvalidValue;
   switch (choose_p(C)) {
@@ -215,4 +254,26 @@ extern "C" int dwst_gate_res_skip(const float* h, const float* x,
     default: return launch<32>(h, x, Wr, br, Ws, bs, res, skip, B, C, S, L,
                                stream);
   }
+}
+
+}  // namespace
+
+extern "C" int dwst_gate_res_skip(const float* h, const float* x,
+                                  const float* Wr, const float* br,
+                                  const float* Ws, const float* bs,
+                                  float* res, float* skip, int B, int C,
+                                  int S, int L, cudaStream_t stream) {
+  return launch_any(h, x, Wr, br, Ws, bs, res, skip, B, C, S, L, stream);
+}
+
+// Kernel 11f: h, x, res and skip bf16; the weights and biases f32.
+extern "C" int dwst_gate_res_skip_bf16(const void* h, const void* x,
+                                       const float* Wr, const float* br,
+                                       const float* Ws, const float* bs,
+                                       void* res, void* skip, int B, int C,
+                                       int S, int L, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  return launch_any(static_cast<const bf*>(h), static_cast<const bf*>(x), Wr,
+                    br, Ws, bs, static_cast<bf*>(res), static_cast<bf*>(skip),
+                    B, C, S, L, stream);
 }

@@ -4,9 +4,10 @@ Port of ``diffwave_sashimi_tpu/models/__init__.py``: the remaining config
 keys are constructor keywords, and keys the constructor does not take are
 dropped (as the reference's ``**kwargs`` swallows them), except
 ``kernel_fft_fast``, which changes the numerics in JAX and is refused.
-``precision`` sets the activation dtype: f32 for both backbones, bf16 for
-unconditional SaShiMi (sampling and training) at kernel 1's FFT sizes (the
-shipped SC09 model); the other bf16 paths are refused by name.
+``precision`` sets the activation dtype of either backbone: f32, or bf16
+(the shipped default), which samples every model (SC09 SaShiMi and
+WaveNet, the vocoder) and trains unconditional SaShiMi at kernel 1's FFT
+sizes; the bf16 training paths still unported are refused by name.
 """
 
 from __future__ import annotations
@@ -17,19 +18,17 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..ops.fftconv_long import KERNEL1_MAX_N
-from .sashimi import Sashimi
+from .sashimi import BF16_LONG_TRAIN_TODO, Sashimi
 from .wavenet import WaveNet
 
 _REGISTRY = {"sashimi": Sashimi, "wavenet": WaveNet}
 _DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
            "f32": torch.float32, "float32": torch.float32}
-BF16_WAVENET_TODO = ("bf16 WaveNet needs kernel 11's fast form, which is not "
-                     "ported: ROADMAP.md queue 2, entry 2")
-BF16_VOCODER_TODO = ("bf16 mel-conditioned models (vocoding and vocoder "
-                     "training) and bf16 at FFT sizes past 32768 (the "
-                     "vocoder's lengths) need kernel 9's fast form, which is "
-                     "not ported: ROADMAP.md queue 2, entry 2 (bf16 "
-                     "vocoding)")
+BF16_WAVENET_TRAIN_TODO = ("bf16 WaveNet training is not ported: "
+                           "ROADMAP.md queue 1, item 1")
+BF16_VOCODER_TRAIN_TODO = ("bf16 mel-conditioned training (vocoder "
+                           "training) is not ported: ROADMAP.md queue 1, "
+                           "items 1 and 2")
 KERNEL_FFT_FAST_TODO = ("model.kernel_fft_fast (the precision of the S4 "
                         "kernel construction's FFT) is not ported: "
                         "ROADMAP.md queue 1, item 1")
@@ -42,23 +41,27 @@ def activation_dtype(precision: str) -> torch.dtype:
     return _DTYPES[precision]
 
 
-def check_supported(model_cfg: Dict[str, Any], precision: str) -> None:
-    """Raise on a model config or precision the port does not run (by
-    name, with its ROADMAP entry), before anything is built."""
+def check_supported(model_cfg: Dict[str, Any], precision: str,
+                    train: bool = False) -> None:
+    """Raise on a model config or precision the port does not run for
+    sampling, or with ``train`` for training (by name, with its ROADMAP
+    entry), before anything is built."""
     dtype = activation_dtype(precision)
     name = model_cfg["_name_"]
     if name not in _REGISTRY:
         raise NotImplementedError(f"model {name!r} is not ported yet")
     if model_cfg.get("kernel_fft_fast"):
         raise NotImplementedError(KERNEL_FFT_FAST_TODO)
-    if dtype == torch.bfloat16:
-        if name == "wavenet":
-            raise NotImplementedError(BF16_WAVENET_TODO)
-        L = int(model_cfg.get(
-            "L", inspect.signature(Sashimi).parameters["L"].default))
-        n_top = 1 << (2 * L - 1).bit_length()
-        if not model_cfg.get("unconditional", True) or n_top > KERNEL1_MAX_N:
-            raise NotImplementedError(BF16_VOCODER_TODO)
+    if not train or dtype != torch.bfloat16:
+        return
+    if name == "wavenet":
+        raise NotImplementedError(BF16_WAVENET_TRAIN_TODO)
+    if not model_cfg.get("unconditional", True):
+        raise NotImplementedError(BF16_VOCODER_TRAIN_TODO)
+    L = int(model_cfg.get(
+        "L", inspect.signature(Sashimi).parameters["L"].default))
+    if 1 << (2 * L - 1).bit_length() > KERNEL1_MAX_N:
+        raise NotImplementedError(BF16_LONG_TRAIN_TODO)
 
 
 def construct_model(model_cfg: Dict[str, Any], precision: str = "f32",
@@ -70,6 +73,5 @@ def construct_model(model_cfg: Dict[str, Any], precision: str = "f32",
     params = inspect.signature(cls).parameters
     kwargs = {k: (tuple(v) if isinstance(v, list) else v)
               for k, v in cfg.items() if k in params}
-    if cls is Sashimi:
-        kwargs["dtype"] = activation_dtype(precision)
-    return cls(**kwargs, generator=generator)
+    return cls(**kwargs, dtype=activation_dtype(precision),
+               generator=generator)

@@ -35,9 +35,11 @@ sashimi.py:725, :739-743): the input is cast once, activations, skips and
 pool outputs are bf16, the step embedding is made in f32 and cast,
 channel statistics (norm1, TransposedLN, kernel 3's emitted ones) are
 f32, the S4 spectra stay complex64, the kernels take their bf16 forms
-(sampling: 1f, 2f, 3f, or 12 with the int8 ops; training: 1f, 2f, 3f
-forward, 1f, 5f, 6f, 7f backward, at FFT sizes up to kernel 1's) and eps
-is returned as f32.  The parameters, and so their gradients, stay f32.
+(sampling: 1f or, past kernel 1's FFT sizes, 9f, 2f, 3f, or 12 with the
+int8 ops; training: 1f, 2f, 3f forward, 1f, 5f, 6f, 7f backward, at FFT
+sizes up to kernel 1's) and eps is returned as f32.  The parameters, and
+so their gradients, stay f32.  The mel is cast to bf16 before its terms
+are computed, so they and the residual ``x + mel_cond`` are bf16 too.
 """
 
 from __future__ import annotations
@@ -50,10 +52,16 @@ import torch.nn as nn
 
 from ..ops import FUSED, Ops, widen
 from ..ops.conv import TorchLinear, WNConv1d, ZeroConv1d, swish
-from ..ops.fftconv_long import BF16_TODO, KERNEL1_MAX_N
+from ..ops.fftconv_long import KERNEL1_MAX_N
 from ..ops.mel_upsample import MelUpsampler
 from .embedding import diffusion_step_embedding
 from .s4 import S4
+
+BF16_LONG_TRAIN_TODO = ("bf16 training at FFT sizes past 32768 (the "
+                        "vocoder's lengths) needs the bf16 training form of "
+                        "kernel 9, which is not ported: ROADMAP.md queue 1, "
+                        "item 1")
+
 
 class TransposedLN(nn.Module):
     """LayerNorm over the channel axis with scalar affine (m, s): population
@@ -256,10 +264,11 @@ class Sashimi(nn.Module):
     def compute_mel_conds(self, mel: torch.Tensor,
                           audio_length: int) -> List[torch.Tensor]:
         """Every block's mel term (B, H, L_tier) for mel (B, 80, frames),
-        in block order: a pure function of the mel and the parameters, so
-        the sampler computes it once for all T steps (JAX
-        models/sashimi.py:673-698; one block at a time, which bounds the
-        upsampler's transients)."""
+        in block order and the activation dtype: a pure function of the mel
+        and the parameters, so the sampler computes it once for all T steps
+        (JAX models/sashimi.py:673-698; one block at a time, which bounds
+        the upsampler's transients)."""
+        mel = mel.to(self.act_dtype)
         return [b.compute_mel_cond(mel, L)
                 for b, L in self._blocks(audio_length)]
 
@@ -284,7 +293,7 @@ class Sashimi(nn.Module):
                              "mel_conds), an unconditional one none")
         if train and self.act_dtype == torch.bfloat16 and (
                 1 << (2 * audio.shape[-1] - 1).bit_length()) > KERNEL1_MAX_N:
-            raise NotImplementedError(BF16_TODO)
+            raise NotImplementedError(BF16_LONG_TRAIN_TODO)
         if train and conditioned:
             raise NotImplementedError(
                 "training the mel-conditioned model is not ported yet: "
@@ -293,6 +302,7 @@ class Sashimi(nn.Module):
             kernels = self.compute_kernels(audio.shape[-1], ops, train)
         khats = iter(kernels)
         conds = None if mel_conds is None else iter(mel_conds)
+        mel = None if mel is None else mel.to(self.act_dtype)
         x = self.init_conv(audio.to(self.act_dtype))
         embed = diffusion_step_embedding(steps, self.embed_dim_in).to(
             self.act_dtype)

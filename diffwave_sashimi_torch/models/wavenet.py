@@ -22,6 +22,14 @@ autograd, as the JAX training path has no kernel there.  A block's mel term
 depends only on the mel and the parameters, so :meth:`WaveNet.
 compute_mel_conds` may compute all of them once per run (the JAX package
 recomputes them every step; the function is the same).
+
+``dtype=torch.bfloat16`` is the JAX package's bf16 policy (models/
+wavenet.py:128-170): the audio is cast once, the step embedding is made in
+f32 and cast, every conv and linear layer runs on bf16 activations (f32
+accumulation, ops/conv.py), the mel is cast before its terms are
+computed, the tail takes kernel 11f, the skip sum accumulates in bf16 and
+is scaled by sqrt(1 / num_res_layers) rounded to bf16, as JAX's is, and
+eps is returned as f32.  The parameters stay f32.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ from typing import List, Optional, Sequence
 import torch
 import torch.nn as nn
 
-from ..ops import FUSED, Ops, gate_res_skip_ref
+from ..ops import FUSED, Ops, gate_res_skip_ref, widen
 from ..ops.conv import (TorchLinear, WNConv1d, ZeroConv1d, swish,
                         weight_norm, weight_norm_params)
 from ..ops.mel_upsample import MelUpsampler
@@ -90,10 +98,12 @@ class WaveNet(nn.Module):
                  diffusion_step_embed_dim_out: int = 512,
                  unconditional: bool = True,
                  mel_upsample: Sequence[int] = (16, 16),
+                 dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = generator
         self.unconditional = unconditional
+        self.act_dtype = dtype          # the parameters stay f32
         self.embed_dim_in = diffusion_step_embed_dim_in
         self.init_conv = nn.Sequential(
             WNConv1d(in_channels, res_channels, generator=g), nn.ReLU())
@@ -122,7 +132,9 @@ class WaveNet(nn.Module):
     def compute_mel_conds(self, mel: torch.Tensor,
                           audio_length: int) -> List[torch.Tensor]:
         """Every block's mel term (B, 2C, L) for mel (B, 80, frames), in
-        block order: a pure function of the mel and the parameters."""
+        block order and the activation dtype: a pure function of the mel
+        and the parameters."""
+        mel = mel.to(self.act_dtype)
         return [b.compute_mel_cond(mel, audio_length)
                 for b in self.residual_layer["residual_blocks"]]
 
@@ -142,9 +154,11 @@ class WaveNet(nn.Module):
                              "mel_conds), an unconditional one none")
         group = self.residual_layer
         blocks = group["residual_blocks"]
-        x = self.init_conv(audio)
-        embed = diffusion_step_embedding(steps, self.embed_dim_in)
+        dtype = self.act_dtype
+        x = self.init_conv(audio.to(dtype))
+        embed = diffusion_step_embedding(steps, self.embed_dim_in).to(dtype)
         embed = swish(group["fc_t2"](swish(group["fc_t1"](embed))))
+        mel = None if mel is None else mel.to(dtype)
         skip_sum = None
         for n, block in enumerate(blocks):
             cond = mel_conds[n] if mel_conds is not None else (
@@ -152,5 +166,6 @@ class WaveNet(nn.Module):
                 else block.compute_mel_cond(mel, audio.shape[-1]))
             x, skip = block(x, embed, ops, train, cond)
             skip_sum = skip if skip_sum is None else skip_sum + skip
-        x = skip_sum * math.sqrt(1.0 / len(blocks))
-        return self.final_conv(x)
+        # the scale as a scalar of the activations' dtype, as JAX's
+        scale = torch.tensor(math.sqrt(1.0 / len(blocks)), dtype=dtype).item()
+        return widen(self.final_conv(skip_sum * scale))

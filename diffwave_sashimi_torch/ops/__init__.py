@@ -8,9 +8,9 @@ trains through torch autograd of the plain forwards, which is how a run on
 the card compares the kernels' outputs and gradients with plain ones.
 :data:`FUSED_INT8` and :data:`PLAIN_INT8` are the same with the sampling
 conv swapped for the int8 conv (kernel 12; ``+compute.conv_int8=true``).
-Every wrapper takes the bf16 path's form (kernels 1f, 2f, 3f at sampling;
-1f's training entry, 5f, 6f, 7f in training) for bf16 activations, by the
-tensors' dtype.
+Every wrapper takes the bf16 path's form (kernels 1f or 9f, 2f, 3f and
+11f at sampling; 1f's training entry, 5f, 6f, 7f in training) for bf16
+activations, by the tensors' dtype.
 """
 
 from typing import Callable, NamedTuple
@@ -30,10 +30,12 @@ from .fftconv import (fftconv, fftconv_bf16, fftconv_dkf, fftconv_dkf_bf16,
 from .int8conv import (fftconv_int8, fftconv_int8_ref, int8_spectrum,
                        s4_conv_int8, s4_conv_int8_ref)
 from .fftconv_long import (fftconv_long, fftconv_long_ln_bias_gelu_d,
+                           fftconv_long_ln_bias_gelu_d_bf16,
+                           fftconv_long_ln_bias_gelu_d_bf16_ref,
                            fftconv_long_ln_bias_gelu_d_ref, fftconv_long_ref,
                            long_spectrum, s4_conv, s4_conv_ref,
                            sampling_spectrum)
-from .wavenet_gate import gate_res_skip, gate_res_skip_ref
+from .wavenet_gate import gate_res_skip, gate_res_skip_bf16, gate_res_skip_ref
 
 
 class Ops(NamedTuple):
@@ -44,7 +46,7 @@ class Ops(NamedTuple):
     conv_train: Callable  # kernels 1 (+ conj) and 5: the plain S4 conv
     glu_train: Callable   # kernels 2 and 6
     ff_train: Callable    # kernels 3 and 7
-    gate: Callable        # kernel 11: WaveNet gate + res/skip tail (eval)
+    gate: Callable        # kernel 11 (11f): WaveNet gate + res/skip tail
     # (khat, L) -> the sampling conv's spectrum, built once per run
     spectrum: Callable = sampling_spectrum
 
@@ -70,4 +72,7 @@ COUNTED = {"fftconv_ln_bias_gelu_d": fftconv_ln_bias_gelu_d,
            "fftconv_int8": fftconv_int8, "fftconv_bf16": fftconv_bf16,
            "fftconv_dkf_bf16": fftconv_dkf_bf16,
            "glu_res_bwd_bf16": glu_res_bwd_bf16,
-           "ln_ff_res_bwd_bf16": ln_ff_res_bwd_bf16}
+           "ln_ff_res_bwd_bf16": ln_ff_res_bwd_bf16,
+           "fftconv_long_ln_bias_gelu_d_bf16":
+               fftconv_long_ln_bias_gelu_d_bf16,
+           "gate_res_skip_bf16": gate_res_skip_bf16}

@@ -65,12 +65,16 @@ _SIGNATURES = {
     "dwst_ln_ff_res_bwd_bf16": [_P] * 18 + [_I] * 5 + [_P],
     # a, b, c, d, z, g, da, db, dc, dd, K, M, N, Lz, stream
     "dwst_cauchy_bwd": [_P] * 10 + [_I] * 4 + [_P],
-    # u, a, c, bias, kp, D, scratch, out, B, H, L, n, stream
+    # u, a, c, bias, kp, D, scratch, out, B, H, L, n, stream (the _bf16
+    # form: the same arguments, u and out bf16)
     "dwst_fftconv_long_ln_bias_gelu_d": [_P] * 8 + [_I] * 4 + [_P],
+    "dwst_fftconv_long_ln_bias_gelu_d_bf16": [_P] * 8 + [_I] * 4 + [_P],
     # u, kp, scratch, out, B, H, L, n, stream
     "dwst_fftconv_long": [_P] * 4 + [_I] * 4 + [_P],
-    # h, x, Wr, br, Ws, bs, res, skip, B, C, S, L, stream
+    # h, x, Wr, br, Ws, bs, res, skip, B, C, S, L, stream (the _bf16 form:
+    # the same arguments, h, x, res and skip bf16)
     "dwst_gate_res_skip": [_P] * 8 + [_I] * 4 + [_P],
+    "dwst_gate_res_skip_bf16": [_P] * 8 + [_I] * 4 + [_P],
 }
 
 

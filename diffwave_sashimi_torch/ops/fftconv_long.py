@@ -20,16 +20,29 @@ parts ``irfft`` reads).  Entries:
 - :func:`fftconv_long`: ``y = irfft(rfft(u, n) K, n)[:L]``, the TPU
   kernel's contract;
 - :func:`fftconv_long_ln_bias_gelu_d`: the sampling form with kernel 1's
-  norm1/bias prologue and D-skip + GELU epilogue.
+  norm1/bias prologue and D-skip + GELU epilogue; for bf16 activations its
+  bf16 form, kernel 9f (:func:`fftconv_long_ln_bias_gelu_d_bf16`).
 
 Each launches its CUDA kernel for CUDA tensors and runs its plain version
-(``*_ref``: the half spectrum back out of the layout, then kernel 1's
-plain versions, exact at any n) for CPU tensors.
+(``*_ref``: the half spectrum back out of the layout, then torch.fft) for
+CPU tensors.
+
+Kernel 9f computes what the JAX package computes around kernel 9 at bf16
+(its v1 path, ``models/s4.py:705-712``, and its flat path, which computes
+the same function): the bf16 conv input ``u' = a u + c + bias`` rounded to
+bf16, the f32 conv of it, ``v = y + D u'`` in f32 rounded to bf16, and the
+exact GELU of that, stored as bf16.  The TPU kernel's ``fast`` flag changes
+only its MXU precision, and off the TPU its fast form is its strict one.
+Kernel 1f's sampling form rounds neither u' nor v and takes ``gelu_fast``
+(the compact path's function), so the two differ there.  The TPU-contract
+entry :func:`fftconv_long` stays f32: its bf16 use is the training form,
+which waits for vocoder training.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import cuda_lib
 from .fftconv import (fftconv_ln_bias_gelu_d, fftconv_ln_bias_gelu_d_ref,
@@ -37,9 +50,6 @@ from .fftconv import (fftconv_ln_bias_gelu_d, fftconv_ln_bias_gelu_d_ref,
 
 KERNEL1_MAX_N = 32768     # kernel 1's largest FFT (one block's shared memory)
 MAX_N = 1 << 20           # kernel 9's largest (N1, N2 <= 1024)
-BF16_TODO = ("bf16 activations at FFT sizes past 32768 need kernel 9's "
-             "bf16 (fast) form, which is not ported: ROADMAP.md queue 2, "
-             "entry 2 (bf16 vocoding)")
 
 
 def split(n: int):
@@ -89,12 +99,29 @@ def fftconv_long_ref(u, kp):
 
 
 def fftconv_long_ln_bias_gelu_d_ref(u, a, c, bias, kp, D):
-    """Plain version of :func:`fftconv_long_ln_bias_gelu_d`."""
+    """Plain version of :func:`fftconv_long_ln_bias_gelu_d` (kernel 9f's,
+    :func:`fftconv_long_ln_bias_gelu_d_bf16_ref`, for bf16 u)."""
+    if u.dtype == torch.bfloat16:
+        return fftconv_long_ln_bias_gelu_d_bf16_ref(u, a, c, bias, kp, D)
     return fftconv_ln_bias_gelu_d_ref(u, a, c, bias, half_spectrum(kp), D)
 
 
-def _check(u, kp):
-    """(B, H, L, n) of a launch; raise on what the kernel does not take."""
+def fftconv_long_ln_bias_gelu_d_bf16_ref(u, a, c, bias, kp, D):
+    """Plain version of kernel 9f: u (B, H, L) bf16, the rest as kernel
+    9's; u' = a u + c + bias rounded to bf16, the conv in f32, v = y + D u'
+    rounded to bf16, the exact GELU of it in f32, the result bf16."""
+    L, n = u.shape[-1], kp.shape[1] * kp.shape[2]
+    xn = (u.float() * a[:, None, :] + c[:, None, :]
+          + bias[:, :, None]).to(torch.bfloat16).float()
+    y = torch.fft.irfft(torch.fft.rfft(xn, n=n) * half_spectrum(kp),
+                        n=n)[..., :L]
+    v = (y + D[:, None] * xn).to(torch.bfloat16)
+    return F.gelu(v.float()).to(torch.bfloat16)
+
+
+def _check(u, kp, dtype=torch.float32):
+    """(B, H, L, n) of a launch with u of ``dtype``; raise on what the
+    kernel does not take."""
     B, H, L = u.shape
     N1, N2 = kp.shape[1:]
     n = N1 * N2
@@ -102,7 +129,7 @@ def _check(u, kp):
         raise ValueError(f"long conv: spectrum {tuple(kp.shape)} is no "
                          f"power-of-two split of 256 <= n <= {MAX_N} "
                          f">= L = {L}")
-    cuda_lib.check(u, (B, H, L), torch.float32)
+    cuda_lib.check(u, (B, H, L), dtype)
     cuda_lib.check(kp, (H, N1, N2), torch.complex64)
     return B, H, L, n
 
@@ -131,42 +158,59 @@ fftconv_long.launches = 0
 
 def fftconv_long_ln_bias_gelu_d(u, a, c, bias, kp, D):
     """Kernel-9 wrapper, sampling form (arguments as kernel 1's, with the
-    factorized spectrum)."""
+    factorized spectrum); bf16 activations go to kernel 9f."""
     if not u.is_cuda:
         return fftconv_long_ln_bias_gelu_d_ref(u, a, c, bias, kp, D)
-    B, H, L, n = _check(u, kp)
-    for t, shape in ((a, (B, L)), (c, (B, L)), (bias, (B, H)), (D, (H,))):
-        cuda_lib.check(t, shape, torch.float32)
-    out, scratch = torch.empty_like(u), _scratch(B, H, n, u.device)
-    cuda_lib.launch("dwst_fftconv_long_ln_bias_gelu_d", u.data_ptr(),
-                    a.data_ptr(), c.data_ptr(), bias.data_ptr(),
-                    kp.data_ptr(), D.data_ptr(), scratch.data_ptr(),
-                    out.data_ptr(), B, H, L, n)
-    fftconv_long_ln_bias_gelu_d.launches += 1
-    return out
+    if u.dtype == torch.bfloat16:
+        return fftconv_long_ln_bias_gelu_d_bf16(u, a, c, bias, kp, D)
+    return _launch_sampling(fftconv_long_ln_bias_gelu_d,
+                            "dwst_fftconv_long_ln_bias_gelu_d", torch.float32,
+                            u, a, c, bias, kp, D)
 
 
 fftconv_long_ln_bias_gelu_d.launches = 0
 
 
+def fftconv_long_ln_bias_gelu_d_bf16(u, a, c, bias, kp, D):
+    """Kernel-9f wrapper (u bf16, the rest as kernel 9's): the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors."""
+    if not u.is_cuda:
+        return fftconv_long_ln_bias_gelu_d_bf16_ref(u, a, c, bias, kp, D)
+    return _launch_sampling(fftconv_long_ln_bias_gelu_d_bf16,
+                            "dwst_fftconv_long_ln_bias_gelu_d_bf16",
+                            torch.bfloat16, u, a, c, bias, kp, D)
+
+
+fftconv_long_ln_bias_gelu_d_bf16.launches = 0
+
+
+def _launch_sampling(wrapper, entry, dtype, u, a, c, bias, kp, D):
+    """Check the arguments of kernel 9's or 9f's sampling form (u of
+    ``dtype``, the rest f32), launch ``entry`` and count it on
+    ``wrapper``."""
+    B, H, L, n = _check(u, kp, dtype)
+    for t, shape in ((a, (B, L)), (c, (B, L)), (bias, (B, H)), (D, (H,))):
+        cuda_lib.check(t, shape, torch.float32)
+    out, scratch = torch.empty_like(u), _scratch(B, H, n, u.device)
+    cuda_lib.launch(entry, u.data_ptr(), a.data_ptr(), c.data_ptr(),
+                    bias.data_ptr(), kp.data_ptr(), D.data_ptr(),
+                    scratch.data_ptr(), out.data_ptr(), B, H, L, n)
+    wrapper.launches += 1
+    return out
+
+
 def s4_conv(u, a, c, bias, khat, D):
     """The sampling form's conv, routed by the spectrum's layout (see
-    :func:`sampling_spectrum`): kernel 9 for a factorized spectrum, kernel 1
-    for a half spectrum (kernel 1f for bf16 activations)."""
+    :func:`sampling_spectrum`) and the activations' dtype: kernel 9 (9f for
+    bf16) for a factorized spectrum, kernel 1 (1f for bf16) for a half
+    spectrum."""
     if khat.dim() == 3:
-        _refuse_bf16(u)
         return fftconv_long_ln_bias_gelu_d(u, a, c, bias, khat, D)
     return fftconv_ln_bias_gelu_d(u, a, c, bias, khat, D)
-
-
-def _refuse_bf16(u):
-    if u.dtype == torch.bfloat16:
-        raise NotImplementedError(BF16_TODO)
 
 
 def s4_conv_ref(u, a, c, bias, khat, D):
     """Plain version of :func:`s4_conv`."""
     if khat.dim() == 3:
-        _refuse_bf16(u)
         return fftconv_long_ln_bias_gelu_d_ref(u, a, c, bias, khat, D)
     return fftconv_ln_bias_gelu_d_ref(u, a, c, bias, khat, D)

@@ -7,6 +7,12 @@ image, then ``leaky_relu(0.4)``; the result, frames x prod(s) samples
 long, is cut to the requested length.  A plain ``F.conv_transpose2d``:
 no TPU kernel stands behind it.
 
+The upsampler runs at its input's dtype.  bf16 follows the JAX package's
+policy (ops/mel_upsample.py:56-70): the mel and the effective weight are
+rounded to bf16 for the transpose conv, which accumulates in f32, the f32
+bias is added and the sum rounded to bf16, and ``leaky_relu`` runs on the
+bf16 tensor.
+
 :class:`MelUpsampler` is a ModuleList of the stages, so a block holding it
 as ``upsample_conv2d`` has the reference's state-dict keys
 ``upsample_conv2d.{i}.weight_v`` (1, 1, 3, 2s), ``.weight_g`` (1, 1, 1, 1)
@@ -23,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .conv import torch_uniform_
+from .fftconv import as_operand
 
 
 class WNConvTranspose2d(nn.Module):
@@ -42,11 +49,12 @@ class WNConvTranspose2d(nn.Module):
                                                 generator))
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        """(B, 1, M, T) -> (B, 1, M, s T)."""
+        """(B, 1, M, T) -> (B, 1, M, s T), in mel's dtype."""
         v = self.weight_v
         w = self.weight_g * v / v.square().sum().sqrt()
-        return F.conv_transpose2d(mel, w, self.bias, stride=(1, self.s),
-                                  padding=(1, self.s // 2))
+        return F.conv_transpose2d(
+            mel.float(), as_operand(w, mel.dtype), self.bias,
+            stride=(1, self.s), padding=(1, self.s // 2)).to(mel.dtype)
 
 
 class MelUpsampler(nn.ModuleList):
@@ -58,7 +66,8 @@ class MelUpsampler(nn.ModuleList):
         self.hop = math.prod(factors)
 
     def forward(self, mel: torch.Tensor, out_length: int) -> torch.Tensor:
-        """mel (B, M, T) -> (B, M, out_length), out_length <= T * hop."""
+        """mel (B, M, T) -> (B, M, out_length), out_length <= T * hop, in
+        mel's dtype."""
         if out_length > mel.shape[-1] * self.hop:
             raise ValueError(f"upsampled mel length {mel.shape[-1]} x "
                              f"{self.hop} < audio length {out_length}")

@@ -1,11 +1,11 @@
 """Generation runtime: checkpoint -> reverse diffusion -> wav files.
 
-Port of ``diffwave_sashimi_tpu/runtime/generate.py`` for SaShiMi (f32, and
-bf16 at kernel 1's FFT sizes: the shipped SC09 default) and WaveNet (f32):
-resolve ``exp/<run>/checkpoint/<iter>.pkl`` by ``ckpt_iter``
-('max' | int), build SaShiMi's S4 kernels once, run the T-step sampler in
-batches, and
-write ``exp/<run>/waveforms/<iter>/<iter//1000>k_<i>.wav``.  The sampling
+Port of ``diffwave_sashimi_tpu/runtime/generate.py`` for SaShiMi and
+WaveNet, unconditional or mel-conditioned, at f32 or bf16 (the shipped
+``compute.precision``): resolve ``exp/<run>/checkpoint/<iter>.pkl`` by
+``ckpt_iter`` ('max' | int), build SaShiMi's S4 kernels once, run the
+T-step sampler in batches, and write
+``exp/<run>/waveforms/<iter>/<iter//1000>k_<i>.wav``.  The sampling
 time is taken between ``torch.cuda.synchronize()`` calls and reported with
 the realtime factor.
 
@@ -188,10 +188,11 @@ def generate(diffusion_cfg, model_cfg, dataset_cfg, ckpt_iter="max",
 def main(argv=None):
     """CLI: ``python -m diffwave_sashimi_torch.runtime.generate
     experiment=sc09 generate.n_samples=4`` (bf16, the config's default;
-    ``+compute.conv_int8=true`` for the int8 conv), or vocoding,
-    ``experiment=ljspeech compute.precision=f32 generate.mel_name=<wav
-    name> dataset.data_path=<dir>`` (Hydra-style overrides of the
-    repository's configs/)."""
+    ``compute.precision=f32`` for f32, ``+compute.conv_int8=true`` for the
+    int8 conv), ``experiment=sc09_wavenet``, or vocoding,
+    ``experiment=ljspeech generate.mel_name=<wav name>
+    dataset.data_path=<dir>`` (Hydra-style overrides of the repository's
+    configs/)."""
     cfg = load_config(overrides=list(argv if argv is not None
                                      else sys.argv[1:]))
     if cfg.get_path("compute.profile_dir") is not None:

@@ -17,9 +17,11 @@ kernels 1-4, backward kernels 1, 5-8, or at bf16 their fast forms 1f, 2f,
 none, as in JAX: cuDNN convs and the plain gate under autograd) and takes
 one Adam step on the f32 parameters, so a checkpoint is f32 whatever the
 precision.  In-training samples are drawn at f32, as the JAX trainer's
-``generate()`` call does.  Not ported, and refused by name: bf16 WaveNet
-and bf16 vocoder configs (``models.check_supported``), dropout, mel
-conditioning, activation rematerialisation, data parallelism
+``generate()`` call does.  Not ported, and refused by name
+(``models.check_supported(..., train=True)`` and the rest of
+:func:`_refuse_unported`): bf16 WaveNet training, bf16 training of a
+mel-conditioned model or past FFT size 32768, dropout, mel conditioning
+at any precision, activation rematerialisation, data parallelism
 (``mesh.data`` > 1) and wandb.
 """
 
@@ -87,7 +89,7 @@ def _refuse_unported(model_cfg, compute_cfg, mesh_cfg, wandb_cfg) -> str:
     """The compute precision, after refusing what is not ported."""
     compute_cfg = compute_cfg or {}
     precision = compute_cfg.get("precision", "bf16")
-    check_supported(model_cfg, precision)
+    check_supported(model_cfg, precision, train=True)
     if compute_cfg.get("remat"):
         raise NotImplementedError("compute.remat (activation "
                                   "rematerialisation) is not ported: "

@@ -204,6 +204,16 @@ def test_chip_smoke_config_literals_match_load_config():
     assert wnet["dataset"] == smoke.DATASET_CFG
     assert smoke.WNET_LAUNCHES["gate_res_skip"] == (
         wnet["model"]["num_res_layers"] * wnet["diffusion"]["T"])
+    # phases 13b and 20b run the shipped commands at their precision, bf16
+    assert wnet["compute"]["precision"] == voc["compute"]["precision"] == \
+        "bf16"
+    assert smoke.WNET_BF16_LAUNCHES == {"gate_res_skip_bf16": (
+        wnet["model"]["num_res_layers"] * wnet["diffusion"]["T"])}
+    T = voc["diffusion"]["T"]
+    assert smoke.VOC_BF16_LAUNCHES == {
+        "fftconv_long_ln_bias_gelu_d_bf16": 24 * T,
+        "fftconv_ln_bias_gelu_d_bf16": 6 * T, "glu_res_bf16": 30 * T,
+        "ln_ff_res_bf16": 30 * T, "cauchy": 30}
     # phase 8b runs the shipped precision at the main path's batch
     train = load_config(overrides=smoke.TRAIN_BF16_OVERRIDES)
     assert train["compute"]["precision"] == "bf16"
@@ -216,31 +226,79 @@ _DATA = {"_name_": "sc09", "segment_length": 16000, "sampling_rate": 16000,
          "data_path": "."}
 
 
+_VOC_SMALL = dict(SMALL_CFG, unconditional=False, mel_upsample=[4, 4])
+
+
+def _run_bf16(cfg, L, mel_frames=None):
+    """eps of a bf16 model built from ``cfg`` at length L (a mel of
+    ``mel_frames`` frames for a conditional one), on the CPU."""
+    model = construct_model(cfg, "bf16",
+                            generator=torch.Generator().manual_seed(0))
+    assert model.act_dtype == torch.bfloat16
+    mel = None if mel_frames is None else torch.randn(1, 80, mel_frames)
+    with torch.no_grad():
+        eps = model(0.5 * torch.randn(1, 1, L), torch.tensor([3]), mel=mel)
+    return eps
+
+
 def _bf16_conv_at_kernel9_size():
-    """The sampling conv with a factorized (kernel 9) spectrum."""
-    kp = ops.long_spectrum(torch.fft.rfft(torch.randn(8, 65536), n=65536))
-    u = torch.zeros(1, 8, 40000, dtype=torch.bfloat16)
+    """The sampling conv with a factorized (kernel 9) spectrum at bf16:
+    kernel 9f's plain version, by dtype."""
+    kp = ops.long_spectrum(torch.fft.rfft(0.01 * torch.randn(8, 65536),
+                                          n=65536))
+    u = torch.randn(1, 8, 40000).to(torch.bfloat16)
     a, c = torch.ones(1, 40000), torch.zeros(1, 40000)
-    ops.s4_conv_ref(u, a, c, torch.zeros(1, 8), kp, torch.zeros(8))
+    args = (u, a, c, torch.zeros(1, 8), kp, torch.ones(8))
+    before = ops.fftconv_long_ln_bias_gelu_d_bf16.launches
+    out = ops.s4_conv(*args)
+    assert ops.fftconv_long_ln_bias_gelu_d_bf16.launches == before
+    assert torch.equal(out, ops.fftconv_long_ln_bias_gelu_d_bf16_ref(*args))
+    assert torch.equal(out, ops.s4_conv_ref(*args))
+    return out
+
+
+# the bf16 paths that kernels 9f and 11f opened: each builds and runs
+# at bf16 on the CPU, through the plain versions
+_RUNS = {
+    "wavenet": lambda: _run_bf16(_WNET_SMALL, 256),
+    "vocoder": lambda: _run_bf16(_VOC_SMALL, 256, mel_frames=16),
+    "vocoder_lengths": lambda: _run_bf16(dict(SMALL_CFG, L=32000), 20000),
+    "kernel9_conv": _bf16_conv_at_kernel9_size,
+}
+
+
+@pytest.mark.parametrize("case", sorted(_RUNS))
+def test_bf16_sampling_path_builds_and_runs(case):
+    """What the earlier slices refused at bf16 (WaveNet, the vocoder, FFT
+    sizes past 32768, kernel 9's bf16 form) now samples: finite output of
+    the right shape and dtype (the models' zero-init heads make their eps
+    0; tests/test_torch_bf16_vocoder.py and test_torch_bf16_wavenet.py
+    hold the numbers against JAX)."""
+    out = _RUNS[case]()
+    want = (torch.bfloat16, (1, 8, 40000)) if case == "kernel9_conv" else (
+        torch.float32, (1, 1, 20000 if case == "vocoder_lengths" else 256))
+    assert (out.dtype, tuple(out.shape)) == want
+    assert bool(torch.isfinite(out.float()).all())
 
 
 # what the bf16 slices leave unported: each refused by name, none run at
-# f32 ("train": bf16 SaShiMi trains; training the bf16 WaveNet does not)
+# f32 (bf16 SaShiMi trains at kernel 1's FFT sizes; bf16 WaveNet and the
+# bf16 vocoder sample but do not train)
 _REFUSED = {
     "train": (lambda: train(FAST3, _WNET_SMALL, _DATA, None, device="cpu",
                             compute_cfg={"precision": "bf16"}),
-              "bf16 WaveNet.*queue 2, entry 2"),
-    "wavenet": (lambda: construct_model(_WNET_SMALL, "bf16"),
-                "bf16 WaveNet.*queue 2, entry 2"),
-    "vocoder": (lambda: construct_model(dict(SMALL_CFG, unconditional=False),
-                                        "bf16"), "bf16 vocoding"),
-    "vocoder_lengths": (lambda: construct_model(dict(SMALL_CFG, L=32000),
-                                                "bf16"), "bf16 vocoding"),
+              "bf16 WaveNet training.*queue 1, item 1"),
+    "train_vocoder": (lambda: train(FAST3, _VOC_SMALL, _DATA, None,
+                                    device="cpu",
+                                    compute_cfg={"precision": "bf16"}),
+                      "mel-conditioned.*queue 1, items 1 and 2"),
+    "train_vocoder_lengths": (
+        lambda: train(FAST3, dict(SMALL_CFG, L=32000), _DATA, None,
+                      device="cpu", compute_cfg={"precision": "bf16"}),
+        "past 32768.*queue 1, item 1"),
     "train_lengths": (lambda: construct_model(SMALL_CFG, "bf16")(
         torch.zeros(1, 1, 32000), torch.zeros(1, dtype=torch.long),
-        train=True), "bf16 vocoding"),
-    "kernel9_conv": (_bf16_conv_at_kernel9_size,
-                     "kernel 9.*queue 2, entry 2"),
+        train=True), "past 32768.*queue 1, item 1"),
     "kernel_fft_fast": (lambda: main(["experiment=sc09",
                                       "+model.kernel_fft_fast=true"]),
                         "kernel_fft_fast.*queue 1, item 1"),

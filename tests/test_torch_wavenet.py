@@ -118,11 +118,25 @@ def test_gate_ref_matches_jax_kernel_and_ref(B, C, S, L):
     assert all(torch.equal(a, b) for a, b in zip(mine, wrapped))
 
 
-def test_gate_fast_form_is_refused():
+def test_gate_bf16_form_runs_by_dtype():
+    """bf16 h and x take kernel 11f's function (the JAX kernel's
+    fast=True form, held to it in tests/test_torch_bf16_wavenet.py): on CPU
+    tensors both wrappers are its plain version, count no launch and
+    return bf16 res and skip, within one bf16 rounding of the f32 form's
+    on the same rounded inputs."""
     data = list(map(torch.from_numpy, _gate_data(1, 8, 8, 16)))
-    for fn in (ops.gate_res_skip, ops.gate_res_skip_ref):
-        with pytest.raises(NotImplementedError, match="queue 2, entry 2"):
-            fn(*data, fast=True)
+    h, x = (t.to(torch.bfloat16) for t in data[:2])
+    before = ops.gate_res_skip_bf16.launches
+    outs = [fn(h, x, *data[2:]) for fn in (
+        ops.gate_res_skip, ops.gate_res_skip_bf16, ops.gate_res_skip_ref)]
+    assert ops.gate_res_skip_bf16.launches == before
+    f32 = ops.gate_res_skip_ref(h.float(), x.float(), *data[2:])
+    for i in range(2):
+        assert all(o[i].dtype == torch.bfloat16 for o in outs)
+        assert torch.equal(outs[0][i], outs[2][i])
+        assert torch.equal(outs[1][i], outs[2][i])
+        err = (outs[0][i].float() - f32[i]).abs().max()
+        assert 0 < err <= 2e-2 * f32[i].abs().max()
 
 
 @pytest.mark.parametrize("dilation", [1, 2, 8])
