@@ -26,12 +26,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    version, and the eps forward (one sampling step) both ways at the main
    path's batch and at batch 16; then (6b) kernels 1f, 2f, 3f and 12 (its
    bf16 and f32 epilogues) against their plain versions at the three
-   tiers, B4, timed, and kernel 12 against an f64 direct conv; (6c) bf16
-   and int8 eps through the kernels against the bf16 plain path, and the
-   quality gate: a 50-step reverse process with one
-   injected noise stack, whose bf16 and int8 x_0 must correlate >= 0.99999
-   with f32's; (6d) the bf16 and int8 eps step timed at B4 and B16 and
-   traced;
+   tiers, B4, timed, 3f also at F = H (off the shipped F = 2H), kernel 12
+   against an f64 direct conv, and beside 3f its two channel products as
+   two bf16 ``torch.matmul`` calls (the ``gemm_pair_ms`` yardstick, not a
+   library call of its function) and its entry with the f32 weights
+   rounded in the kernel instead of by a pass into a scratch (equal
+   outputs; ``weights_in_kernel_ms`` beside ``weights_scratch_ms``); (6c)
+   bf16 and int8 eps through the kernels against the bf16 plain path, and
+   the quality gate: a 50-step reverse process with one injected noise
+   stack, whose bf16 and int8 x_0 must correlate >= 0.99999 with f32's;
+   (6d) the bf16 and int8 eps step timed at B4 and B16 and traced;
 7. the training kernels (kernel 1's training entry and its conjugate
    form, kernels 5-8) against their plain versions at the three tiers,
    with their times; then (7b) their bf16 forms (1f's training entry and
@@ -80,7 +84,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
 15. kernel 9 (both entries) against its plain version at the top and
     middle tiers' shapes and at n 4096, and kernel 1 at the deepest tier
     (n 16384 < 2L), timed; (15b) kernel 9f at the same three shapes (bf16
-    activations), timed;
+    activations), and kernel 3f at the vocoder's three tiers (B2: H128
+    L143360, H256 L35840, H512 L8960), timed, with its two weight
+    designs as in 6b;
 16. one vocoder eps forward through the kernels against the plain path;
     (16b) the same at bf16 against the bf16 plain path, and the quality
     gate: a 50-step reverse process at the vocoder's schedule with one
@@ -346,10 +352,15 @@ VOC_BF16_LAUNCHES = {"fftconv_long_ln_bias_gelu_d_bf16": 24 * 50,
 # the port's kernels, by the name of their __global__ function
 PORT_KERNELS = ("fftconv_kernel", "fftconv_dkf_kernel", "glu_res_kernel",
                 "glu_res_bwd_kernel", "ln_ff_res_kernel",
+                "ln_ff_res_tc_kernel", "round_weights_kernel",
                 "ln_ff_res_bwd_kernel", "wgrad_kernel", "reduce_splits_kernel",
                 "cauchy_kernel", "cauchy_bwd_kernel", "cols_fwd_kernel",
                 "rows_kernel", "cols_inv_kernel", "gate_res_skip_kernel",
                 "fftconv_int8_kernel")
+
+# kernel 3f's wrapper launches two of them a call: the weights' rounding
+# pass, then the tensor-core kernel; traces report their sum as 3f's time
+KERNELS_3F = ("ln_ff_res_tc_kernel", "round_weights_kernel")
 
 
 def log(msg):
@@ -387,11 +398,12 @@ def max_err(out, ref):
     return float((out - ref).abs().max()), float(ref.abs().max())
 
 
-def work(name, B, H, L, n, K=6, N=32, S=None, bpe=4):
+def work(name, B, H, L, n, K=6, N=32, S=None, bpe=4, F=None):
     """({operand type: operations}, bytes) of one call at these shapes:
     each input read once and each output written once; a real FFT of
     length n counted as 2.5 n log2 n fp32 operations.  For kernel 11, H is
-    C and S the skip width (C by default).  The _bf16 forms move bf16
+    C and S the skip width (C by default); F is the FF hidden width (2H by
+    default).  The _bf16 forms move bf16
     activations and multiply bf16 operands where JAX's fast=True kernels
     do (the forwards' products; the backward passes' per-position products,
     its _bmm, while their weight gradients, its _bmmc, stay fp32); kernel
@@ -401,7 +413,7 @@ def work(name, B, H, L, n, K=6, N=32, S=None, bpe=4):
     if base != name:
         bpe = 2
     gemm = "fp32" if base == name else "bf16"
-    F, Lz = 2 * H, L // 2 + 1
+    F, Lz = F or 2 * H, L // 2 + 1
     S = H if S is None else S
     fft = 2.5 * n * math.log2(n)
     act = B * H * L * bpe                # one (B, H, L) activation tensor
@@ -442,11 +454,11 @@ def work(name, B, H, L, n, K=6, N=32, S=None, bpe=4):
     return {t: v for t, v in by_type.items() if v}, nbytes
 
 
-def bound(name, B, H, L, n, S=None, bpe=4):
+def bound(name, B, H, L, n, S=None, bpe=4, F=None):
     """(bound_ms, bound_by): the least time of one call on the card: the
     larger of its bytes over the HBM rate and its operations over the peak
     rate of their type (summed over the types)."""
-    ops, nbytes = work(name, B, H, L, n, S=S, bpe=bpe)
+    ops, nbytes = work(name, B, H, L, n, S=S, bpe=bpe, F=F)
     t_ops = sum(v / PEAK_OPS[t] for t, v in ops.items())
     t_bytes = nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
@@ -454,12 +466,13 @@ def bound(name, B, H, L, n, S=None, bpe=4):
 
 
 def compare(name, H, L, kfn, pfn, reps, results, B=N_SAMPLES, n=None,
-            S=None, tier=None, tol=TOL_KERNEL, bpe=4):
+            S=None, tier=None, tol=TOL_KERNEL, bpe=4, F=None):
     """Hold one kernel wrapper against its plain version at tier (H, L)
     (each output of a tuple against its own bound, tol x max(1, its
     max|plain|)), time both, record with the bound at batch B, FFT size n
     (by default the SC09 paths': the next power of two >= 2L), skip width
-    S (kernel 11) and bpe bytes an activation; raise on a miss."""
+    S (kernel 11), FF hidden width F (2H by default) and bpe bytes an
+    activation; raise on a miss."""
     import torch
     tier = tier or f"H{H}_L{L}"
     out, ref = kfn(), pfn()
@@ -485,7 +498,7 @@ def compare(name, H, L, kfn, pfn, reps, results, B=N_SAMPLES, n=None,
     t.setdefault("ms", ms)
     t.setdefault("plain_ms", plain_ms)
     t["bound_ms"], t["bound_by"] = bound(
-        name, B, H, L, n or 1 << (2 * L - 1).bit_length(), S, bpe)
+        name, B, H, L, n or 1 << (2 * L - 1).bit_length(), S, bpe, F)
     if not ok:
         raise AssertionError(f"kernel {name} disagrees at {tier}")
 
@@ -608,6 +621,42 @@ def direct_conv_f64(torch, x, a, c, bias, khat, D, fast):
     return ops.gelu_fast(y) if fast else torch.nn.functional.gelu(y)
 
 
+def time_ff_weight_designs(torch, ff, result, tier):
+    """Kernel 3f's two designs for its f32 weights, held equal and timed
+    in turns at one tier: the shipped one (the wrapper: a pass rounds them
+    to bf16 into a scratch, which every block then reads) and the other
+    (the same entry with a null scratch: every block reads the f32 weights
+    and rounds them as they load, with no extra launch).  Both round the
+    same values and sum in the same order, so their outputs are equal
+    bit for bit.  Recorded as ``weights_scratch_ms`` and
+    ``weights_in_kernel_ms``; the port calls only the first."""
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.ops import chmix, cuda_lib
+    x, m, s, w1, b1, w2, b2, skip, _ = ff
+    B, H, L = x.shape
+    F = w1.shape[0]
+    P, smem = chmix.ff_bf16_plan(B, H, F, L, cuda_lib.sm_count(x.device))
+
+    def in_kernel():
+        out = torch.empty_like(x)
+        mean = x.new_empty((B, L), dtype=torch.float32)
+        var = torch.empty_like(mean)
+        cuda_lib.launch("dwst_ln_ff_res_bf16",
+                        *chmix._ptrs(x, skip, w1, b1, w2, b2, m, s, out,
+                                     mean, var, None), B, H, F, L, P, smem)
+        return out, mean, var
+
+    shipped = lambda: ops.ln_ff_res_bf16(*ff)    # noqa: E731
+    if not all(torch.equal(a, b) for a, b in zip(in_kernel(), shipped())):
+        raise AssertionError(f"kernel 3f's weight designs differ at {tier}")
+    t_in, t_scratch = paired_ms(in_kernel, shipped, 10)
+    result["tiers"][tier].update(weights_scratch_ms=t_scratch,
+                                 weights_in_kernel_ms=t_in)
+    log(f"kernel ln_ff_res_bf16 {tier}: weights rounded by a pass into a "
+        f"scratch {t_scratch:.4f} ms, rounded as they load {t_in:.4f} ms "
+        f"(equal outputs)")
+
+
 def check_bf16_kernels(torch, model, dev, results):
     """The bf16 forms of kernels 1-3 (1f, 2f, 3f) and kernel 12 with both
     epilogues vs their plain versions at the sampling path's shapes of
@@ -645,6 +694,25 @@ def check_bf16_kernels(torch, model, dev, results):
         for name, kfn, pfn, tol, tier, bpe in cases:
             compare(name, H, L, kfn, pfn, 10, results, tol=tol, tier=tier,
                     bpe=bpe)
+        time_ff_weight_designs(torch, ff, results["ln_ff_res_bf16"],
+                               f"H{H}_L{L}")
+        # F = H (a config's model.ff 1), off the shipped F = 2H: the GEMM 2
+        # output tile is then larger than the GELU tile it reuses
+        ffh = ff[:3] + (d["w1"][:H].contiguous(), d["b1"][:H],
+                        d["w2"][:, :H].contiguous()) + ff[6:]
+        compare("ln_ff_res_bf16", H, L, lambda: ops.ln_ff_res_bf16(*ffh),
+                lambda: ops.ln_ff_res_ref(*ffh), 10, results, tol=TOL_BF16,
+                tier=f"H{H}_L{L}_F{H}", bpe=2, F=H)
+        # 3f's two channel products alone, as two bf16 torch.matmul calls
+        # (cuBLAS on the tensor cores): a yardstick of the tensor-core part
+        # only (no LN, GELU, residual or statistics), never called by the
+        # port
+        w1b, w2b = d["w1"].to(bf), d["w2"].to(bf)
+        pair_ms = cuda_ms(lambda: torch.matmul(w2b, torch.matmul(w1b, x)), 10)
+        results["ln_ff_res_bf16"]["tiers"][f"H{H}_L{L}"]["gemm_pair_ms"] = (
+            pair_ms)
+        log(f"yardstick ln_ff_res_bf16 H{H}_L{L}: two bf16 torch.matmul "
+            f"{pair_ms:.4f} ms")
         # vs f64, with the step bias (each row offset by a constant) and
         # without; and the JAX algorithm (no mean split, W None) on the
         # offset rows, recorded: the offset's window spectrum then sets
@@ -1131,6 +1199,8 @@ def trace_steps(torch, step, steps=2, groups=None):
             e.time_range.end - e.time_range.start) / 1e3 / steps
     port = {name: ms for name, ms in by_name.items()
             if name.split("<")[0] in PORT_KERNELS}
+    ff_bf16 = sum(ms for name, ms in port.items()
+                  if name.split("<")[0] in KERNELS_3F)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     split = None
     if groups:
@@ -1145,6 +1215,7 @@ def trace_steps(torch, step, steps=2, groups=None):
             - sum(port.values()),
             "launches_per_step": len(kern) / steps,
             "port_kernels_by_name_ms_per_step": port,
+            "ln_ff_res_bf16_ms_per_step": ff_bf16,
             "top_kernels_ms_per_step": dict(top),
             "groups_ms_per_step": split}
 
@@ -1341,8 +1412,8 @@ def run_shipped_vocoding(torch, run, data, L, launches):
 def check_vocoder_kernels(torch, model, L, dev, results):
     """Phase 15: kernel 9 (both entries; 15b: 9f) at the top and middle
     tiers and at n 4096, kernel 1 at the deepest tier (n 16384 < 2L), and
-    kernels 2 and 3 at the vocoder's tiers, against their plain versions,
-    timed."""
+    kernels 2 and 3 (15b: and 3f) at the vocoder's tiers, against their
+    plain versions, timed."""
     from diffwave_sashimi_torch import ops
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     (H0, _, b0), (H1, _, b1), (H2, _, b2) = tier_blocks(model)
@@ -1385,6 +1456,13 @@ def check_vocoder_kernels(torch, model, L, dev, results):
                 10, results, B, d["n"])
         compare("ln_ff_res", H, Lt, lambda: ops.ln_ff_res(*ff),
                 lambda: ops.ln_ff_res_ref(*ff), 10, results, B, d["n"])
+        xb = x.to(torch.bfloat16)
+        ffb = (xb,) + ff[1:7] + (xb, True)
+        compare("ln_ff_res_bf16", H, Lt, lambda: ops.ln_ff_res_bf16(*ffb),
+                lambda: ops.ln_ff_res_ref(*ffb), 10, results, B, d["n"],
+                tol=TOL_BF16, bpe=2)
+        time_ff_weight_designs(torch, ffb, results["ln_ff_res_bf16"],
+                               f"H{H}_L{Lt}")
 
 
 def check_eps(torch, model, x, steps, label, kernels=([], []), **cond):
@@ -2031,6 +2109,10 @@ def main():
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": None,
             "tiers": r["tiers"]})
+        for key in ("gemm_pair_ms", "weights_scratch_ms",
+                    "weights_in_kernel_ms"):    # yardsticks, not library calls
+            if key in top:
+                entries[-1][key] = top[key]
         if "vs_f64_max_rel" in r:
             entries[-1]["vs_f64_max_rel"] = r["vs_f64_max_rel"]
         if name.startswith("fftconv_long"):     # the same function

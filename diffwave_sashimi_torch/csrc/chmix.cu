@@ -30,18 +30,47 @@
 // statistics of its input and of its output itself.  GELU uses erff, the
 // sigmoid expf: the strict f32 path.
 //
-// Kernels 2f and 3f, the bf16 path's forms (the TPU kernels with
-// fast=True), are the same code templated on the activations' type: bf16
-// loads and stores halve the activation bytes, while the tiles in shared
-// memory and the products stay f32 on the CUDA cores.  As in the TPU
-// kernels, the weights, FF's normalised input and its GELU output (now
-// gelu_fast) are rounded to bf16 before their products, which accumulate
-// in f32; bias, sigmoid, LN statistics and residual adds are f32.  A
-// tensor-core (mma.sync bf16) form is left for later work.
+// Kernel 2f, the GLU's bf16 form (the TPU kernel with fast=True), is the
+// same code templated on the activations' type: bf16 loads and stores
+// halve the activation bytes, while the tiles in shared memory and the
+// products stay f32 on the CUDA cores, the weights rounded to bf16 as
+// they are loaded; bias, sigmoid and residual add are f32.
+//
+// Kernel 3f, FF's bf16 form (ln_ff_res_tc_kernel), multiplies on the
+// tensor cores instead (mma.sync m16n8k16, bf16 operands, f32 sums;
+// mma_bf16.cuh).  Its products of bf16 values are exact in f32, so it
+// computes the terms of JAX's fast=True kernel (_bmm) and only sums them
+// in another order.  What bounds it: 4 F H B L operations at the bf16
+// tensor-core rate take less time than one read of x and skip and one
+// write of out (8.5 us against 15 us at SC09's top tier), so the bound is
+// bytes; but every block also reads both weight matrices whole from L2,
+// once per P positions, which bounded the deep tiers, and runs its phases
+// one after another.  Design: the weights are rounded to bf16 once a call
+// into the wrapper's scratch (round_weights_kernel), halving those reads
+// (rounding them as they load instead, with no extra launch, ties at H 128
+// and is 20-37% slower at H 256 and 512, chip_smoke.py's
+// weights_in_kernel_ms); one block of 8 warps per (batch, P positions), P
+// = 16384 / H (128, 64, 32; 64 at H 512 when the grid fills two waves);
+// the input tile, then TLN(x) rounded to bf16, and the GELU output stay in
+// shared memory as bf16 (rows padded so that ldmatrix reads them without
+// bank conflicts), so two blocks share an SM below H 512 at F = 2H.
+// ops/chmix.py::ff_bf16_plan picks P and computes the block's shared
+// memory bytes, which the kernel takes as given.  The LN statistics are
+// taken in f32 as the tile is loaded, 16 bytes a thread.  Each warp takes
+// 16-row m-tiles of a weight over all P positions: its A fragments come
+// straight from L2 (4-byte loads, one k-step ahead), so each weight entry
+// is read once a block and no weight tile is staged or synchronised; B
+// fragments come from the shared tiles by ldmatrix.trans.  GEMM 2's f32
+// result (+ b2) is staged in the GELU tile's region, then the residual
+// adds, the bf16 store and the output's statistics run 16 bytes a thread,
+// coalesced; the statistics are summed in a fixed order (no float
+// atomics).  Kernel 3, the f32 form, keeps its fp32 FMAs: its 1e-4 bar
+// rules out TF32.
 
 #include <cuda_runtime.h>
 
 #include "activations.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -216,20 +245,16 @@ glu_res_kernel(const IO* __restrict__ y, const IO* __restrict__ res,
   }
 }
 
-// IO: the activations' type, float or bf16 (kernel 3f: W1, W2, TLN(x) and
-// the GELU output rounded to bf16 before their products, gelu_fast, f32
-// LN statistics, bias and residual adds; the emitted statistics are the
-// f32 output's, before it is rounded).
-template <int P, typename IO>
+// Kernel 3 (f32; kernel 3f is ln_ff_res_tc_kernel below).
+template <int P>
 __global__ void __launch_bounds__(NT, 1)
-ln_ff_res_kernel(const IO* __restrict__ x, const IO* __restrict__ skip,
+ln_ff_res_kernel(const float* __restrict__ x, const float* __restrict__ skip,
                  const float* __restrict__ W1, const float* __restrict__ b1,
                  const float* __restrict__ W2, const float* __restrict__ b2,
                  const float* __restrict__ m_ptr,
-                 const float* __restrict__ s_ptr, IO* __restrict__ out,
+                 const float* __restrict__ s_ptr, float* __restrict__ out,
                  float* __restrict__ mean_out, float* __restrict__ var_out,
                  int H, int F, int L) {
-  constexpr bool BF = sizeof(IO) == 2;
   using T = Tile<P>;
   extern __shared__ float4 sh4[];
   float* xs = reinterpret_cast<float*>(sh4);     // H x P: TLN(x), later out
@@ -249,13 +274,12 @@ ln_ff_res_kernel(const IO* __restrict__ x, const IO* __restrict__ skip,
   const float m = *m_ptr, s = *s_ptr;
   for (int idx = tid; idx < H * P; idx += NT) {
     const int p = idx % P;
-    const float v = s * rsqrtf(var_s[p]) * (xs[idx] - mean_s[p] + m);
-    xs[idx] = BF ? round_bf16(v) : v;
+    xs[idx] = s * rsqrtf(var_s[p]) * (xs[idx] - mean_s[p] + m);
   }
 
   for (int f0 = 0; f0 < F; f0 += T::TM) {
     float acc[8][8];
-    gemm_chunk<P, BF>(W1, H, RowMap{f0, f0 + T::TM / 2, F, F, T::TM / 2}, xs,
+    gemm_chunk<P>(W1, H, RowMap{f0, f0 + T::TM / 2, F, F, T::TM / 2}, xs,
                       AsT, acc);
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
@@ -264,16 +288,14 @@ ln_ff_res_kernel(const IO* __restrict__ x, const IO* __restrict__ skip,
       const float bf = b1[f];
       float* zr = zs + f * P + pg * 8;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        zr[j] = BF ? round_bf16(gelu_fast(acc[r][j] + bf))
-                   : gelu_erf(acc[r][j] + bf);
+      for (int j = 0; j < 8; ++j) zr[j] = gelu_erf(acc[r][j] + bf);
     }
   }
 
   for (int h0 = 0; h0 < H; h0 += T::TM) {
     float acc[8][8];
-    gemm_chunk<P, BF>(W2, F, RowMap{h0, h0 + T::TM / 2, H, H, T::TM / 2}, zs,
-                      AsT, acc);
+    gemm_chunk<P>(W2, F, RowMap{h0, h0 + T::TM / 2, H, H, T::TM / 2}, zs,
+                  AsT, acc);
     // xs is free: every thread passed gemm_chunk's barriers after GEMM1
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
@@ -286,9 +308,9 @@ ln_ff_res_kernel(const IO* __restrict__ x, const IO* __restrict__ skip,
         const int p = pg * 8 + j, t = t0 + p;
         float v = 0.0f;
         if (t < L) {
-          v = to_f(x[row + t]) + acc[r][j] + bh;
-          if (skip != nullptr) v += to_f(skip[row + t]);
-          out[row + t] = from_f<IO>(v);
+          v = x[row + t] + acc[r][j] + bh;
+          if (skip != nullptr) v += skip[row + t];
+          out[row + t] = v;
         }
         xs[h * P + p] = v;
       }
@@ -305,6 +327,267 @@ ln_ff_res_kernel(const IO* __restrict__ x, const IO* __restrict__ skip,
   }
 }
 
+// Kernel 3f's tiles: P positions a block; in GEMM 1 a warp takes MT1
+// m-tiles (16 MT1 hidden channels) over all P positions at a time, in GEMM 2
+// each warp one set of MT2 m-tiles (16 MT2 >= H / 8 output channels), so
+// that its accumulators hold until every warp has read the GELU tile; bf16
+// rows padded to LD elements so that ldmatrix's eight rows fall on distinct
+// banks, the f32 output tile's to LO.
+constexpr int NWARPS = NT / 32;
+
+template <int P>
+struct TcTile {
+  static constexpr int MT1 = P >= 128 ? 1 : 2;
+  static constexpr int N8 = P / 8;          // n-tiles, and 8-position chunks
+  static constexpr int LD = P + 8;
+  static constexpr int LO = P + 8;
+  static constexpr int RED = 2 * NWARPS * P;   // per-warp f32 sums
+};
+
+__device__ __forceinline__ void unpack8(uint4 r, float f[8]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float f[8]) {
+  return make_uint4(dwst_mma::pack_bf16x2(f[0], f[1]),
+                    dwst_mma::pack_bf16x2(f[2], f[3]),
+                    dwst_mma::pack_bf16x2(f[4], f[5]),
+                    dwst_mma::pack_bf16x2(f[6], f[7]));
+}
+
+// s[0:8] summed over the lanes of this warp that hold the same 8-position
+// chunk c (lane % (P / 8)), in a fixed order, written to row[c:c + 8] by
+// the first of them.  Every warp covers all P / 8 chunks.
+template <int P>
+__device__ __forceinline__ void chunk_sums(float s[8], float* row, int c) {
+#pragma unroll
+  for (int o = P / 8; o < 32; o <<= 1)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s[e] += __shfl_xor_sync(0xffffffffu, s[e], o);
+  if ((threadIdx.x & 31) < P / 8) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) row[c + e] = s[e];
+  }
+}
+
+// Kernel 3f (bf16 x, skip and out; f32 biases, m, s and statistics) on the
+// tensor cores: xn = bf16(TLN(x)) and z = bf16(gelu_fast(W1b xn + b1)) as
+// bf16 tiles in shared memory, W1b and W2b the weights rounded to bf16 (WT
+// bf16: by round_weights_kernel; WT float: as their fragments load); W2b z
+// + b2 staged as an f32 tile, then out = x + that [+ skip] stored bf16 and
+// its per-position statistics taken in f32.  Dynamic shared memory, laid
+// out as below and sized by ops/chmix.py::ff_bf16_plan (the one place its
+// bytes are computed): 18 P floats of sums and statistics, the H-row bf16
+// input tile, then one region that holds the F-row bf16 GELU tile and
+// later the H-row f32 output tile, as large as the larger of the two.
+// Each thread moves 8 consecutive positions (16 bytes) of its rows when
+// vec (L % 8 == 0, 16-byte aligned tensors).  H <= 128 MT2.  Two blocks
+// share an SM where P MT2 = 128 (96 KB of tiles at H = 128 MT2), one
+// where the wider P of a long sequence at H 512 doubles the tiles and
+// GEMM 2's accumulators.
+template <int P, int MT2, typename WT>
+__global__ void __launch_bounds__(NT, P * MT2 >= 256 ? 1 : 2)
+ln_ff_res_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                    const __nv_bfloat16* __restrict__ skip,
+                    const WT* __restrict__ W1, const float* __restrict__ b1,
+                    const WT* __restrict__ W2,
+                    const float* __restrict__ b2,
+                    const float* __restrict__ m_ptr,
+                    const float* __restrict__ s_ptr,
+                    __nv_bfloat16* __restrict__ out,
+                    float* __restrict__ mean_out, float* __restrict__ var_out,
+                    int H, int F, int L, bool vec) {
+  using T = TcTile<P>;
+  using bf = __nv_bfloat16;
+  constexpr int N8 = T::N8, LD = T::LD, LO = T::LO;
+  extern __shared__ float4 sh4[];
+  float* red = reinterpret_cast<float*>(sh4);     // RED: per-warp sums
+  float* mean_s = red + T::RED;                   // P
+  float* rstd_s = mean_s + P;                     // P (0 past L)
+  bf* xs = reinterpret_cast<bf*>(rstd_s + P);     // H x LD: x, then xn
+  bf* zs = xs + H * LD;                           // F x LD: GELU output
+  float* os = reinterpret_cast<float*>(zs);       // H x LO: W2b z + b2
+  const int b = blockIdx.y, t0 = blockIdx.x * P;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  // this thread's chunk of 8 positions, and its first row and row step
+  const int c = tid % N8 * 8, t = t0 + c, h0 = tid / N8;
+  constexpr int HS = NT / N8;
+  float* red1 = red + warp * P;
+  float* red2 = red + (NWARPS + warp) * P;
+
+  // the x tile as loaded (0 past L), and its per-position channel sums
+  {
+    float s1[8] = {}, s2[8] = {};
+    for (int h = h0; h < H; h += HS) {
+      const size_t at = ((size_t)b * H + h) * L + t;
+      float v[8];
+      if (vec && t + 8 <= L) {
+        unpack8(__ldg(reinterpret_cast<const uint4*>(x + at)), v);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          v[j] = t + j < L ? __bfloat162float(x[at + j]) : 0.0f;
+      }
+      *reinterpret_cast<uint4*>(xs + h * LD + c) = pack8(v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s1[j] += v[j];
+        s2[j] += v[j] * v[j];
+      }
+    }
+    chunk_sums<P>(s1, red1, c);
+    chunk_sums<P>(s2, red2, c);
+  }
+  __syncthreads();
+  if (tid < P) {           // mean and E[x^2] - mean^2, f32
+    float t1 = 0.0f, t2 = 0.0f;
+    for (int w = 0; w < NWARPS; ++w) {
+      t1 += red[w * P + tid];
+      t2 += red[(NWARPS + w) * P + tid];
+    }
+    const float mean = t1 / (float)H;
+    mean_s[tid] = mean;
+    rstd_s[tid] = t0 + tid < L ? rsqrtf(t2 / (float)H - mean * mean) : 0.0f;
+  }
+  __syncthreads();
+
+  // TransposedLN in place: (s / std) * (x - mean + m), population std, no
+  // eps, rounded to bf16 (0 past L)
+  {
+    const float m = *m_ptr, s = *s_ptr;
+    float a[8], mu[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      a[j] = s * rstd_s[c + j];
+      mu[j] = mean_s[c + j];
+    }
+    for (int h = h0; h < H; h += HS) {
+      uint4* e = reinterpret_cast<uint4*>(xs + h * LD + c);
+      float v[8];
+      unpack8(*e, v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = a[j] * (v[j] - mu[j] + m);
+      *e = pack8(v);
+    }
+  }
+  __syncthreads();
+
+  // GEMM 1: z = bf16(gelu_fast(W1b xn + b1)), F x P
+  for (int u = warp; u * 16 * T::MT1 < F; u += NWARPS) {
+    constexpr int MT = T::MT1;
+    const int r0 = u * 16 * MT;
+    float acc[MT][N8][4];
+    dwst_mma::warp_gemm<MT, N8>(W1, F, H, r0, xs, LD, acc);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int f = r0 + 16 * mt + g + 8 * hh;
+        if (f >= F) continue;
+        const float bias = b1[f];
+        uint32_t* zr = reinterpret_cast<uint32_t*>(zs + f * LD + 2 * tq);
+#pragma unroll
+        for (int j = 0; j < N8; ++j)
+          zr[4 * j] = dwst_mma::pack_bf16x2(
+              gelu_fast(acc[mt][j][2 * hh] + bias),
+              gelu_fast(acc[mt][j][2 * hh + 1] + bias));
+      }
+  }
+  __syncthreads();
+
+  // GEMM 2: W2b z + b2, H x P, into the f32 tile over the GELU tile once
+  // every warp has read it
+  {
+    constexpr int MT = MT2;
+    const int r0 = warp * 16 * MT;
+    float acc[MT][N8][4];
+    if (r0 < H) dwst_mma::warp_gemm<MT, N8>(W2, H, F, r0, zs, LD, acc);
+    __syncthreads();
+    if (r0 < H) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int h = r0 + 16 * mt + g + 8 * hh;
+          if (h >= H) continue;
+          const float bias = b2[h];
+          float* orow = os + h * LO + 2 * tq;
+#pragma unroll
+          for (int j = 0; j < N8; ++j)
+            *reinterpret_cast<float2*>(orow + 8 * j) =
+                make_float2(acc[mt][j][2 * hh] + bias,
+                            acc[mt][j][2 * hh + 1] + bias);
+        }
+    }
+  }
+  __syncthreads();
+
+  // out = x + (W2b z + b2) [+ skip] in f32, stored bf16, and the f32
+  // output's per-position sums
+  const bool stats = mean_out != nullptr;
+  {
+    float s1[8] = {}, s2[8] = {};
+    for (int h = h0; h < H; h += HS) {
+      const size_t at = ((size_t)b * H + h) * L + t;
+      const float4 o0 = *reinterpret_cast<const float4*>(os + h * LO + c);
+      const float4 o1 = *reinterpret_cast<const float4*>(os + h * LO + c + 4);
+      float v[8] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
+      if (vec && t + 8 <= L) {
+        float r[8];
+        unpack8(__ldg(reinterpret_cast<const uint4*>(x + at)), r);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] += r[j];
+        if (skip != nullptr) {
+          unpack8(__ldg(reinterpret_cast<const uint4*>(skip + at)), r);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v[j] += r[j];
+        }
+        *reinterpret_cast<uint4*>(out + at) = pack8(v);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (t + j >= L) {
+            v[j] = 0.0f;
+            continue;
+          }
+          v[j] += __bfloat162float(x[at + j]);
+          if (skip != nullptr) v[j] += __bfloat162float(skip[at + j]);
+          out[at + j] = __float2bfloat16_rn(v[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s1[j] += v[j];
+        s2[j] += v[j] * v[j];
+      }
+    }
+    if (stats) {
+      chunk_sums<P>(s1, red1, c);
+      chunk_sums<P>(s2, red2, c);
+    }
+  }
+  if (stats) {
+    __syncthreads();
+    if (tid < P && t0 + tid < L) {
+      float t1 = 0.0f, t2 = 0.0f;
+      for (int w = 0; w < NWARPS; ++w) {
+        t1 += red[w * P + tid];
+        t2 += red[(NWARPS + w) * P + tid];
+      }
+      const float mean = t1 / (float)H;
+      mean_out[(size_t)b * L + t0 + tid] = mean;
+      var_out[(size_t)b * L + t0 + tid] = t2 / (float)H - mean * mean;
+    }
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Backward passes (kernels 6 and 7).
@@ -328,7 +611,7 @@ ln_ff_res_kernel(const IO* __restrict__ x, const IO* __restrict__ skip,
 //
 // Kernels 6f and 7f, the bf16 path's backward passes (the TPU kernels with
 // fast=True), are the same code templated on the activations' type, as
-// 2f and 3f are: y or x, g and the input gradient are bf16, and, as JAX's
+// 2f is: y or x, g and the input gradient are bf16, and, as JAX's
 // _bmm does, both operands of every per-position product are rounded to
 // bf16 (the weights as they are loaded; xn and dz in shared memory) with
 // f32 sums.  The weight gradients contract the unrounded f32 operands (as
@@ -725,22 +1008,71 @@ int launch_glu(const IO* y, const IO* res, const float* W,
   return (int)cudaGetLastError();
 }
 
-template <int P, typename IO>
-int launch_ff(const IO* x, const IO* skip, const float* W1,
+template <int P>
+int launch_ff(const float* x, const float* skip, const float* W1,
               const float* b1, const float* W2, const float* b2,
-              const float* m, const float* s, IO* out, float* mean,
+              const float* m, const float* s, float* out, float* mean,
               float* var, int B, int H, int F, int L, cudaStream_t stream) {
   using T = Tile<P>;
   const size_t smem = ((size_t)(H + F) * P + TK * T::LDT + 2 * NT + 2 * P) *
                       sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      ln_ff_res_kernel<P, IO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ln_ff_res_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((L + P - 1) / P, B);
-  ln_ff_res_kernel<P, IO><<<grid, NT, smem, stream>>>(
+  ln_ff_res_kernel<P><<<grid, NT, smem, stream>>>(
       x, skip, W1, b1, W2, b2, m, s, out, mean, var, H, F, L);
   return (int)cudaGetLastError();
+}
+
+// wb[0:n] = bf16(W1[0:n]), wb[n:2n] = bf16(W2[0:n]), n % 4 == 0.
+__global__ void round_weights_kernel(const float4* __restrict__ W1,
+                                     const float4* __restrict__ W2,
+                                     uint2* __restrict__ wb, int n4) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= 2 * n4) return;
+  const float4 v = i < n4 ? W1[i] : W2[i - n4];
+  wb[i] = make_uint2(dwst_mma::pack_bf16x2(v.x, v.y),
+                     dwst_mma::pack_bf16x2(v.z, v.w));
+}
+
+// Kernel 3f on smem bytes of dynamic shared memory a block: with a
+// scratch wb (2 F H bf16 entries), the weights rounded to bf16 into it,
+// then the tensor-core kernel reading them; with wb null, the kernel
+// reading the f32 weights and rounding them as they load.
+template <int P, int MT2>
+int launch_ff_tc(const __nv_bfloat16* x, const __nv_bfloat16* skip,
+                 const float* W1, const float* b1, const float* W2,
+                 const float* b2, const float* m, const float* s,
+                 __nv_bfloat16* out, float* mean, float* var,
+                 __nv_bfloat16* wb, int B, int H, int F, int L, int smem,
+                 cudaStream_t stream) {
+  auto aligned = [](const void* p, uintptr_t a) {
+    return p == nullptr || reinterpret_cast<uintptr_t>(p) % a == 0;
+  };
+  const bool vec = L % 8 == 0 && aligned(x, 16) && aligned(skip, 16) &&
+                   aligned(out, 16);
+  const dim3 grid((L + P - 1) / P, B);
+  auto run = [&](auto kernel, auto w1, auto w2) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<grid, NT, smem, stream>>>(x, skip, w1, b1, w2, b2, m, s, out,
+                                       mean, var, H, F, L, vec);
+    return (int)cudaGetLastError();
+  };
+  if (wb == nullptr)
+    return run(ln_ff_res_tc_kernel<P, MT2, float>, W1, W2);
+  const int n4 = F * H / 4;
+  round_weights_kernel<<<(2 * n4 + 255) / 256, 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(W1), reinterpret_cast<const float4*>(W2),
+      reinterpret_cast<uint2*>(wb), n4);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return run(ln_ff_res_tc_kernel<P, MT2, __nv_bfloat16>,
+             static_cast<const __nv_bfloat16*>(wb),
+             static_cast<const __nv_bfloat16*>(wb + (size_t)F * H));
 }
 
 template <typename IO>
@@ -754,11 +1086,10 @@ int glu_res(const IO* y, const IO* res, const float* W, const float* b,
   }
 }
 
-template <typename IO>
-int ln_ff_res(const IO* x, const IO* skip, const float* W1, const float* b1,
-              const float* W2, const float* b2, const float* m,
-              const float* s, IO* out, float* mean, float* var, int B, int H,
-              int F, int L, cudaStream_t stream) {
+int ln_ff_res(const float* x, const float* skip, const float* W1,
+              const float* b1, const float* W2, const float* b2,
+              const float* m, const float* s, float* out, float* mean,
+              float* var, int B, int H, int F, int L, cudaStream_t stream) {
   if (H % TK || F % TK) return (int)cudaErrorInvalidValue;
   switch (choose_p(H)) {
     case 128: return launch_ff<128>(x, skip, W1, b1, W2, b2, m, s, out, mean,
@@ -847,16 +1178,36 @@ extern "C" int dwst_ln_ff_res(const float* x, const float* skip,
                    stream);
 }
 
-// Kernel 3f: x, skip and out bf16; mean and var f32.
+// Kernel 3f: x, skip and out bf16; mean and var f32; wb a scratch for the
+// weights rounded to bf16 (2 F H entries), or null to round them in the
+// kernel; P positions a block and smem bytes of shared memory a block, both
+// from ops/chmix.py::ff_bf16_plan: P 128 for H <= 128, 64 for H <= 256, 32
+// or 64 for H <= 512; H and F multiples of 16.
 extern "C" int dwst_ln_ff_res_bf16(const void* x, const void* skip,
                                    const float* W1, const float* b1,
                                    const float* W2, const float* b2,
                                    const float* m, const float* s, void* out,
-                                   float* mean, float* var, int B, int H,
-                                   int F, int L, cudaStream_t stream) {
-  return ln_ff_res(static_cast<const bf16*>(x),
-                   static_cast<const bf16*>(skip), W1, b1, W2, b2, m, s,
-                   static_cast<bf16*>(out), mean, var, B, H, F, L, stream);
+                                   float* mean, float* var, void* wb, int B,
+                                   int H, int F, int L, int P, int smem,
+                                   cudaStream_t stream) {
+  if (H % 16 || F % 16 || H > 512) return (int)cudaErrorInvalidValue;
+  const auto* xb = static_cast<const bf16*>(x);
+  const auto* sb = static_cast<const bf16*>(skip);
+  auto* ob = static_cast<bf16*>(out);
+  auto* w = static_cast<bf16*>(wb);
+  if (P == 128 && H <= 128)
+    return launch_ff_tc<128, 1>(xb, sb, W1, b1, W2, b2, m, s, ob, mean, var,
+                                w, B, H, F, L, smem, stream);
+  if (P == 64 && H <= 256)
+    return launch_ff_tc<64, 2>(xb, sb, W1, b1, W2, b2, m, s, ob, mean, var, w,
+                               B, H, F, L, smem, stream);
+  if (P == 64)
+    return launch_ff_tc<64, 4>(xb, sb, W1, b1, W2, b2, m, s, ob, mean, var, w,
+                               B, H, F, L, smem, stream);
+  if (P == 32)
+    return launch_ff_tc<32, 4>(xb, sb, W1, b1, W2, b2, m, s, ob, mean, var, w,
+                               B, H, F, L, smem, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int dwst_glu_res_bwd(const float* y, const float* g, const float* W,

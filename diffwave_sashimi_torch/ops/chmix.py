@@ -16,12 +16,13 @@ by the tensors' dtype.  Forward: the weights, and FF's normalised input
 and GELU output, are rounded to bf16 before their products, which
 accumulate in f32; bias, sigmoid, LN statistics, the polynomial GELU and
 the residual adds are f32, and the output is rounded to bf16 (its
-statistics are the f32 output's).  Backward (JAX ``_bmm`` / ``_bmmc``):
-both operands of every per-position product (z = W y, dy = W^T dz, z =
-W1 xn, dh = W2^T g, dxn = W1^T dz) are rounded to bf16, the weight
-gradients contract the unrounded f32 dz, xn and GELU output, the GELU's
-derivative is the polynomial's, dy and dx are rounded to bf16 and the
-weight, bias, m and s gradients stay f32.
+statistics are the f32 output's); kernel 3f multiplies on the tensor
+cores and takes channel widths that are multiples of 16.  Backward (JAX
+``_bmm`` / ``_bmmc``): both operands of every per-position product (z = W
+y, dy = W^T dz, z = W1 xn, dh = W2^T g, dxn = W1^T dz) are rounded to
+bf16, the weight gradients contract the unrounded f32 dz, xn and GELU
+output, the GELU's derivative is the polynomial's, dy and dx are rounded
+to bf16 and the weight, bias, m and s gradients stay f32.
 """
 
 from __future__ import annotations
@@ -123,8 +124,15 @@ def ln_ff_res(x, m, s, w1, b1, w2, b2, skip=None, emit_stats=False):
         return ln_ff_res_ref(x, m, s, w1, b1, w2, b2, skip, emit_stats)
     if x.dtype == torch.bfloat16:
         return ln_ff_res_bf16(x, m, s, w1, b1, w2, b2, skip, emit_stats)
-    return _launch_ff(ln_ff_res, "dwst_ln_ff_res", torch.float32, x, m, s, w1,
-                      b1, w2, b2, skip, emit_stats)
+    B, H, L = x.shape
+    _check_width(H, w1.shape[0])
+    out, mean, var = _ff_outputs(torch.float32, x, m, s, w1, b1, w2, b2, skip,
+                                 emit_stats)
+    cuda_lib.launch("dwst_ln_ff_res", *_ptrs(x, skip, w1, b1, w2, b2, m, s,
+                                              out, mean, var),
+                    B, H, w1.shape[0], L)
+    ln_ff_res.launches += 1
+    return (out, mean, var) if emit_stats else out
 
 
 ln_ff_res.launches = 0
@@ -133,41 +141,90 @@ ln_ff_res.launches = 0
 def ln_ff_res_bf16(x, m, s, w1, b1, w2, b2, skip=None, emit_stats=False):
     """Kernel-3f wrapper (x, skip and the output bf16; weights, m, s and
     the statistics f32): CUDA kernel for CUDA tensors, else the plain
-    version."""
+    version.  The kernel multiplies on the tensor cores, so H and F must
+    be multiples of 16 (:func:`check_ff_bf16_widths`).  A call launches
+    two kernels, counted as one launch: a pass that rounds the weights to
+    bf16 into a scratch of its own, then the tensor-core kernel."""
     if not x.is_cuda:
         return ln_ff_res_ref(x, m, s, w1, b1, w2, b2, skip, emit_stats)
-    return _launch_ff(ln_ff_res_bf16, "dwst_ln_ff_res_bf16", torch.bfloat16,
-                      x, m, s, w1, b1, w2, b2, skip, emit_stats)
+    B, H, L = x.shape
+    Fd = w1.shape[0]
+    check_ff_bf16_widths(H, Fd)
+    out, mean, var = _ff_outputs(torch.bfloat16, x, m, s, w1, b1, w2, b2,
+                                 skip, emit_stats)
+    wb = w1.new_empty((2 * Fd * H,), dtype=torch.bfloat16)
+    P, smem = ff_bf16_plan(B, H, Fd, L, cuda_lib.sm_count(x.device))
+    cuda_lib.launch("dwst_ln_ff_res_bf16",
+                    *_ptrs(x, skip, w1, b1, w2, b2, m, s, out, mean, var, wb),
+                    B, H, Fd, L, P, smem)
+    ln_ff_res_bf16.launches += 1
+    return (out, mean, var) if emit_stats else out
 
 
 ln_ff_res_bf16.launches = 0
 
+# shared memory one block may use on sm_90 (227 KB)
+SMEM_LIMIT = 232448
 
-def _launch_ff(wrapper, entry, dtype, x, m, s, w1, b1, w2, b2, skip,
-               emit_stats):
-    """Check the arguments of kernel 3 or 3f (activations of ``dtype``),
-    launch ``entry`` and count it on ``wrapper``."""
+
+def ff_bf16_plan(B, H, F, L, sms=132):
+    """Kernel 3f's tile plan on a card of ``sms`` SMs: (P positions a
+    block, shared-memory bytes a block), the grid being ceil(L / P) x B
+    blocks.  P = 16384 / H within [32, 128], two blocks an SM below H 512
+    at F = 2H; past H 256, P 64 where the grid still fills two waves of
+    one block an SM (each block reads both weight matrices, 2 MB in bf16
+    at H 512, so a wider P halves those reads per position).  The block
+    keeps per-position f32 sums and statistics (18 P floats), its H-row
+    input tile as bf16, and one region that holds the F-row bf16 GELU tile
+    and then GEMM 2's H-row f32 output tile, rows padded to P + 8.  The
+    kernel (``csrc/chmix.cu::ln_ff_res_tc_kernel``) takes these bytes as
+    given: this is the one place they are computed."""
+    def smem(P):
+        return (18 * P * 4 + H * (P + 8) * 2
+                + max(F * (P + 8) * 2, H * (P + 8) * 4))
+
+    P = 128 if H <= 128 else (64 if H <= 256 else 32)
+    if H > 256 and B * -(-L // 64) >= 2 * sms and smem(64) <= SMEM_LIMIT:
+        P = 64
+    return P, smem(P)
+
+
+def check_ff_bf16_widths(H, F):
+    """Raise ValueError unless kernel 3f takes channel widths H and F: its
+    mma tiles are 16 channels deep, so both must be positive multiples of
+    16; its eight warps hold at most 16384 / P output channels (H <= 512);
+    and its tiles must fit one block's shared memory."""
+    for name, w in (("H", H), ("F", F)):
+        if w <= 0 or w % 16:
+            raise ValueError(f"kernel 3f: channel width {name} = {w} must be "
+                             f"a positive multiple of 16")
+    if H > 512:
+        raise ValueError(f"kernel 3f: channel width H = {H} is over 512")
+    smem = ff_bf16_plan(1, H, F, 1)[1]
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"kernel 3f: widths H = {H}, F = {F} need {smem} "
+                         f"bytes of shared memory a block, over {SMEM_LIMIT}")
+
+
+def _ff_outputs(dtype, x, m, s, w1, b1, w2, b2, skip, emit_stats):
+    """Check the arguments of kernel 3 or 3f (activations of ``dtype``) and
+    allocate its output and, with ``emit_stats``, its mean and var."""
     B, H, L = x.shape
     Fd = w1.shape[0]
-    _check_width(H, Fd)
     for t, shape in ((w1, (Fd, H)), (b1, (Fd,)), (w2, (H, Fd)), (b2, (H,)),
                      (m, (1,)), (s, (1,))):
         cuda_lib.check(t, shape, torch.float32)
     for t in (x,) if skip is None else (x, skip):
         cuda_lib.check(t, (B, H, L), dtype)
-    out = torch.empty_like(x)
-    mean = var = None
-    if emit_stats:
-        mean = x.new_empty((B, L), dtype=torch.float32)
-        var = x.new_empty((B, L), dtype=torch.float32)
-    cuda_lib.launch(entry, x.data_ptr(),
-                    None if skip is None else skip.data_ptr(),
-                    w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                    b2.data_ptr(), m.data_ptr(), s.data_ptr(), out.data_ptr(),
-                    None if mean is None else mean.data_ptr(),
-                    None if var is None else var.data_ptr(), B, H, Fd, L)
-    wrapper.launches += 1
-    return (out, mean, var) if emit_stats else out
+    if not emit_stats:
+        return torch.empty_like(x), None, None
+    return (torch.empty_like(x), x.new_empty((B, L), dtype=torch.float32),
+            x.new_empty((B, L), dtype=torch.float32))
+
+
+def _ptrs(*tensors):
+    """Device addresses of tensors, None (a null pointer) for None."""
+    return [None if t is None else t.data_ptr() for t in tensors]
 
 
 def _check_width(*widths):

@@ -25,7 +25,7 @@ _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "diffwave_sashimi_torch"
 _SOURCES = ("fftconv.cu", "fftconv_long.cu", "fftconv_int8.cu", "chmix.cu",
             "cauchy.cu", "wavenet_gate.cu")
-_HEADERS = ("fft_stockham.cuh", "activations.cuh")
+_HEADERS = ("fft_stockham.cuh", "activations.cuh", "mma_bf16.cuh")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC"]
 
@@ -42,7 +42,10 @@ _SIGNATURES = {
     "dwst_glu_res_bf16": [_P] * 5 + [_I] * 3 + [_P],
     # x, skip, W1, b1, W2, b2, m, s, out, mean, var, B, H, F, L, stream
     "dwst_ln_ff_res": [_P] * 11 + [_I] * 4 + [_P],
-    "dwst_ln_ff_res_bf16": [_P] * 11 + [_I] * 4 + [_P],
+    # the same with x, skip and out bf16, wb (bf16 weight scratch, or
+    # null) after var, and P (positions a block) and smem (its bytes of
+    # shared memory) after L
+    "dwst_ln_ff_res_bf16": [_P] * 12 + [_I] * 6 + [_P],
     # u, a, c, bias, khat, D, W, qc, qs, out, B, H, L, n, R, S, Rc, bf16,
     # stream
     "dwst_fftconv_int8": [_P] * 10 + [_I] * 8 + [_P],
@@ -131,6 +134,13 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The number of SMs of a CUDA device."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(t, shape, dtype) -> None:

@@ -23,6 +23,7 @@ from diffwave_sashimi_tpu.models.sashimi import Sashimi as JaxSashimi
 from diffwave_sashimi_tpu.ops import chmix as jchmix
 from diffwave_sashimi_tpu.ops import fftconv2 as f2
 from diffwave_sashimi_torch import ops
+from diffwave_sashimi_torch.config import load_config
 from diffwave_sashimi_torch.diffusion.sampling import sampling
 from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
 from diffwave_sashimi_torch.models import construct_model
@@ -158,14 +159,29 @@ def test_glu_bf16_matches_jax_fast_kernel():
     assert torch.equal(ops.mix_glu_res_bf16(ty, tr, tw, tb), out)
 
 
-@pytest.mark.parametrize("with_skip", [False, True])
-def test_ff_bf16_matches_jax_fast_kernel(with_skip):
+# (B, H, L, F): the narrow case, a wider one at B > 1 whose L is not a
+# multiple of kernel 3f's position tile (P 128 at H 32), and F = H (a
+# config's ``model.ff`` 1)
+FF_NARROW, FF_WIDE, FF_SQUARE = ((2, 16, 256, 32), (3, 32, 250, 64),
+                                 (2, 32, 200, 32))
+
+
+@pytest.mark.parametrize("with_skip,shape", [
+    pytest.param(False, FF_NARROW, id="False"),
+    pytest.param(True, FF_NARROW, id="True"),
+    pytest.param(False, FF_WIDE, id="False-B3-H32-L250"),
+    pytest.param(True, FF_WIDE, id="True-B3-H32-L250"),
+    pytest.param(True, FF_SQUARE, id="True-B2-H32-F32-L200")])
+def test_ff_bf16_matches_jax_fast_kernel(with_skip, shape):
     """Plain kernel-3f version vs JAX ``_ff_kernel`` with fast=True and
     emit_stats in interpret mode: the output within about one bf16
     rounding; the statistics (f32, of the f32 output before it is
     rounded) to atol 1e-4, rtol 2^-7 (a bf16 rounding of a product's
     operand that lands the other way moves them by about that much)."""
-    d = _chmix_inputs()
+    B, H, L, F = shape
+    if shape == FF_WIDE:
+        assert L % ops.chmix.ff_bf16_plan(B, H, F, L)[0]
+    d = _chmix_inputs(B=B, H=H, L=L, F=F)
     jx, tx = _bf16(d["x"])
     js, ts = _bf16(d["skip"])
     xc, sc = _compact(jx), _compact(js)
@@ -201,6 +217,77 @@ def test_ff_bf16_matches_jax_fast_kernel(with_skip):
     for fn in (ops.ln_ff_res, ops.ln_ff_res_bf16):
         got = fn(*args)
         assert all(torch.equal(g, w) for g, w in zip(got, (out, mean, var)))
+
+
+@pytest.mark.parametrize("H,F,ok", [
+    (16, 32, True), (32, 64, True), (128, 256, True), (256, 512, True),
+    (512, 1024, True), (128, 128, True), (512, 512, True), (256, 128, True),
+    (24, 48, False), (128, 264, False), (0, 32, False), (520, 1040, False),
+    (528, 1056, False)])
+def test_ff_bf16_width_check(H, F, ok):
+    """Kernel 3f's width rule, checked without a card: H and F multiples
+    of 16, H at most 512; every shipped width (d_model 128, expand 2, ff
+    2: H 128, 256, 512) passes, F = H and F < H pass, and a refusal names
+    the width."""
+    if ok:
+        ops.chmix.check_ff_bf16_widths(H, F)
+        return
+    with pytest.raises(ValueError) as e:
+        ops.chmix.check_ff_bf16_widths(H, F)
+    assert (f"= {H}" in str(e.value)) or (f"= {F}" in str(e.value))
+
+
+def _shipped_tiers(experiment, L, B):
+    """(B, H, F, L) of each UNet tier of an experiment's shipped model at
+    generated length L and batch B."""
+    m = load_config(overrides=[f"experiment={experiment}"]).model
+    out, H = [], m.d_model
+    for i in range(len(m.pool) + 1):
+        out.append((B, H, m.ff * H, L))
+        if i < len(m.pool):
+            H, L = H * m.expand, L // m.pool[i]
+    return out
+
+
+@pytest.mark.parametrize("tier", [
+    *_shipped_tiers("sc09", 16000, 4),           # SC09 sampling, B4
+    *_shipped_tiers("ljspeech", 143360, 2),      # a 6.5 s utterance, B2
+    *_shipped_tiers("ljspeech_harder", 44000, 2)],
+    ids=lambda t: "B{}-H{}-F{}-L{}".format(*t))
+def test_ff_bf16_plan_fits_shared_memory(tier):
+    """Kernel 3f's tile plan on the H100's 132 SMs at every shipped tier:
+    its widths pass the check, a block's shared memory is within the 227
+    KB a block may use, and where P = 16384 / H below H 512 two blocks fit
+    one SM's 228 KB (1 KB reserved a block); a wider P only where the
+    grid (ceil(L / P) x B blocks) still fills two waves of one block an
+    SM."""
+    B, H, F, L = tier
+    ops.chmix.check_ff_bf16_widths(H, F)
+    P, smem = ops.chmix.ff_bf16_plan(B, H, F, L, sms=132)
+    assert P in (32, 64, 128)
+    assert smem <= ops.chmix.SMEM_LIMIT == 227 * 1024
+    if H * P == 16384 and H < 512:
+        assert 2 * (smem + 1024) <= 228 * 1024
+    if H * P > 16384:
+        assert H > 256 and P == 64 and B * -(-L // P) >= 2 * 132
+
+
+@pytest.mark.parametrize("H,F", [(16, 16), (128, 64), (128, 128),
+                                 (128, 256), (128, 512), (512, 256),
+                                 (512, 512), (512, 1024)])
+def test_ff_bf16_plan_holds_every_tile(H, F):
+    """Kernel 3f's shared memory holds its layout at any accepted F, not
+    only F = 2H: 18 P f32 sums and statistics, the H-row bf16 input tile,
+    and a region that takes both the F-row bf16 GELU tile and, after it,
+    GEMM 2's H-row f32 output tile (rows padded to P + 8); the larger of
+    the two sets the region when F != 2H."""
+    ops.chmix.check_ff_bf16_widths(H, F)
+    for B, L in ((4, 16000), (2, 143360), (1, 100)):
+        P, smem = ops.chmix.ff_bf16_plan(B, H, F, L, sms=132)
+        head = 18 * P * 4 + H * (P + 8) * 2
+        assert smem >= head + F * (P + 8) * 2
+        assert smem >= head + H * (P + 8) * 4
+        assert smem <= ops.chmix.SMEM_LIMIT
 
 
 # ---------------------------------------------------------------------------
