@@ -26,10 +26,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    version, and the eps forward (one sampling step) both ways at the main
    path's batch and at batch 16; then (6b) kernels 1f, 2f, 3f and 12 (its
    bf16 and f32 epilogues) against their plain versions at the three
-   tiers, B4, timed, 3f also at F = H (off the shipped F = 2H), kernel 12
-   against an f64 direct conv, and beside 3f its two channel products as
-   two bf16 ``torch.matmul`` calls (the ``gemm_pair_ms`` yardstick, not a
-   library call of its function) and its entry with the f32 weights
+   tiers, B4, timed, 3f also at F = H (off the shipped F = 2H), 2f also
+   at H 1024 (d_model 256's deepest tier, L 1000) and on its element-wise
+   path (L 1001 at H 128 and 256, B2; y and res one element off a
+   16-byte boundary), kernel 12 against an
+   f64 direct conv, beside 2f its channel product as one bf16
+   ``torch.matmul`` (``gemm_ms``) and beside 3f its two as two
+   (``gemm_pair_ms``; yardsticks, not library calls of their functions),
+   and 3f's entry with the f32 weights
    rounded in the kernel instead of by a pass into a scratch (equal
    outputs; ``weights_in_kernel_ms`` beside ``weights_scratch_ms``); (6c)
    bf16 and int8 eps through the kernels against the bf16 plain path, and
@@ -84,9 +88,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
 15. kernel 9 (both entries) against its plain version at the top and
     middle tiers' shapes and at n 4096, and kernel 1 at the deepest tier
     (n 16384 < 2L), timed; (15b) kernel 9f at the same three shapes (bf16
-    activations), and kernel 3f at the vocoder's three tiers (B2: H128
-    L143360, H256 L35840, H512 L8960), timed, with its two weight
-    designs as in 6b;
+    activations), and kernels 3f and 2f at the vocoder's three tiers (B2:
+    H128 L143360, H256 L35840, H512 L8960), timed, 3f with its two weight
+    designs as in 6b and 2f with its ``gemm_ms``;
 16. one vocoder eps forward through the kernels against the plain path;
     (16b) the same at bf16 against the bf16 plain path, and the quality
     gate: a 50-step reverse process at the vocoder's schedule with one
@@ -128,7 +132,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
     corpus (checkpoint at 2), then a resume from 'max' for one more
     (checkpoint 3, whose Adam state must show 4 steps); finite losses, no
     kernel launched (the training form has none, as in JAX); then the
-    training step timed.
+    training step timed;
+24. a wider SaShiMi, d_model 256 (tiers H 256, 512, 1024) at L 16000 from
+    a seed, depth cut to n_layers 1: the channel mixers (kernels 2, 3, 6,
+    7 and their f forms) against their plain versions at its H 1024 tier
+    (B4, L 1000; the fp32 plans narrow P to 16, and to 8 for kernel 7, so
+    the tiles fit one block; 3f runs at P 16), timed; at f32 and at bf16
+    one eps forward and one training step through the kernels against
+    the plain path, each with exact launch counts of every kernel, and
+    the eps step timed.
 
 It prints the card's name and power limit, one JSON line with the kernels
 (each with its bound: the larger of its bytes over the HBM rate and its
@@ -249,6 +261,23 @@ BF16_LAUNCHES = {"fftconv_ln_bias_gelu_d_bf16": 30 * 200,
                  "cauchy": 30}
 INT8_LAUNCHES = dict(BF16_LAUNCHES, fftconv_ln_bias_gelu_d_bf16=0,
                      fftconv_int8=30 * 200)
+# phase 24: a wider SaShiMi, d_model 256 (tiers H 256, 512, 1024) at full
+# width and L 16000, depth cut to n_layers 1 (5 blocks: H 256, 512, 1024,
+# 512, 256), every block through the kernels.  Exact counts of one eps
+# forward (its spectra built before) and of one training step, at f32 and
+# at bf16
+D256_CFG = dict(MODEL_CFG, d_model=256, n_layers=1)
+D256_EPS_LAUNCHES = {"fftconv_ln_bias_gelu_d": 5, "glu_res": 5,
+                     "ln_ff_res": 5}
+D256_EPS_BF16_LAUNCHES = {"fftconv_ln_bias_gelu_d_bf16": 5,
+                          "glu_res_bf16": 5, "ln_ff_res_bf16": 5}
+D256_TRAIN_LAUNCHES = {"cauchy": 5, "cauchy_bwd": 5, "fftconv": 10,
+                       "fftconv_dkf": 5, "glu_res": 5, "glu_res_bwd": 5,
+                       "ln_ff_res": 5, "ln_ff_res_bwd": 5}
+D256_TRAIN_BF16_LAUNCHES = {"cauchy": 5, "cauchy_bwd": 5, "fftconv_bf16": 10,
+                            "fftconv_dkf_bf16": 5, "glu_res_bf16": 5,
+                            "glu_res_bwd_bf16": 5, "ln_ff_res_bf16": 5,
+                            "ln_ff_res_bwd_bf16": 5}
 WNET_TRAIN_OVERRIDES = ["experiment=sc09_wavenet", "compute.precision=f32",
                         "train.iters_per_logging=1", "generate.n_samples=0"]
 # kernel 11's cases (B, C, S, L): the sampling path's, B16, and a ragged
@@ -331,7 +360,8 @@ KERNELS = {
 }
 PATHS = ("generate", "train", "vocode", "wavenet", "wavenet_train",
          "generate_bf16", "generate_int8", "train_bf16", "vocode_bf16",
-         "wavenet_bf16")
+         "wavenet_bf16", "d256_eps", "d256_eps_bf16", "d256_train",
+         "d256_train_bf16")
 # the tier of the JSON line's entry, where it is not H128 at the path's L
 TOP_TIER = {"gate_res_skip": f"B{N_SAMPLES}_C256_S256_L16000",
             "gate_res_skip_bf16": f"B{N_SAMPLES}_C256_S256_L16000"}
@@ -351,16 +381,18 @@ VOC_BF16_LAUNCHES = {"fftconv_long_ln_bias_gelu_d_bf16": 24 * 50,
                      "cauchy": 30}
 # the port's kernels, by the name of their __global__ function
 PORT_KERNELS = ("fftconv_kernel", "fftconv_dkf_kernel", "glu_res_kernel",
-                "glu_res_bwd_kernel", "ln_ff_res_kernel",
+                "glu_res_tc_kernel", "glu_res_bwd_kernel", "ln_ff_res_kernel",
                 "ln_ff_res_tc_kernel", "round_weights_kernel",
                 "ln_ff_res_bwd_kernel", "wgrad_kernel", "reduce_splits_kernel",
                 "cauchy_kernel", "cauchy_bwd_kernel", "cols_fwd_kernel",
                 "rows_kernel", "cols_inv_kernel", "gate_res_skip_kernel",
                 "fftconv_int8_kernel")
 
-# kernel 3f's wrapper launches two of them a call: the weights' rounding
-# pass, then the tensor-core kernel; traces report their sum as 3f's time
-KERNELS_3F = ("ln_ff_res_tc_kernel", "round_weights_kernel")
+# kernels 2f's and 3f's wrappers launch two of them a call: the weights'
+# rounding pass (an instance named for its kernel), then the tensor-core
+# kernel; traces report their sum as 2f's and 3f's time
+KERNELS_2F = ("glu_res_tc_kernel", "round_weights_kernel<2>")
+KERNELS_3F = ("ln_ff_res_tc_kernel", "round_weights_kernel<3>")
 
 
 def log(msg):
@@ -694,6 +726,8 @@ def check_bf16_kernels(torch, model, dev, results):
         for name, kfn, pfn, tol, tier, bpe in cases:
             compare(name, H, L, kfn, pfn, 10, results, tol=tol, tier=tier,
                     bpe=bpe)
+        glu_gemm_ms(torch, results["glu_res_bf16"], f"H{H}_L{L}", lin.weight,
+                    y)
         time_ff_weight_designs(torch, ff, results["ln_ff_res_bf16"],
                                f"H{H}_L{L}")
         # F = H (a config's model.ff 1), off the shipped F = 2H: the GEMM 2
@@ -737,6 +771,42 @@ def check_bf16_kernels(torch, model, dev, results):
                 if not ok:
                     raise AssertionError(f"kernel 12 vs f64 at {key}")
     results["fftconv_int8"]["vs_f64_max_rel"] = f64
+    # 2f at H 1024 (d_model 256's deepest tier: L 1000, B4), with seeded
+    # weights of scale 1 / sqrt(H)
+    H, L = 1024, 1000
+    y, x = (torch.randn(N_SAMPLES, H, L, device=dev, generator=gen).to(bf)
+            for _ in range(2))
+    w = torch.randn(2 * H, H, device=dev, generator=gen) / math.sqrt(H)
+    b = 0.1 * torch.randn(2 * H, device=dev, generator=gen)
+    compare("glu_res_bf16", H, L, lambda: ops.mix_glu_res_bf16(y, x, w, b),
+            lambda: ops.glu_res_ref(y, x, w, b), 10, results, tol=TOL_BF16,
+            bpe=2)
+    glu_gemm_ms(torch, results["glu_res_bf16"], f"H{H}_L{L}", w, y)
+    # 2f's element-wise path (its 16-byte one needs L % 8 == 0 and aligned
+    # tensors): L 1001 at H 128 (P 128) and H 256 (P 64, so the last block
+    # is ragged too), and y and res one element past a 16-byte boundary
+    for B, H, L, off in ((2, 128, 1001, 0), (2, 256, 1001, 0),
+                         (2, 128, 1000, 1)):
+        y, x = (torch.randn(B * H * L + off, device=dev, generator=gen)
+                .to(bf)[off:].view(B, H, L) for _ in range(2))
+        w = torch.randn(2 * H, H, device=dev, generator=gen) / math.sqrt(H)
+        b = 0.1 * torch.randn(2 * H, device=dev, generator=gen)
+        compare("glu_res_bf16", H, L,
+                lambda: ops.mix_glu_res_bf16(y, x, w, b),
+                lambda: ops.glu_res_ref(y, x, w, b), 3, results, B=B,
+                tol=TOL_BF16, bpe=2,
+                tier=f"B{B}_H{H}_L{L}" + (f"_offset{off}" if off else ""))
+
+
+def glu_gemm_ms(torch, result, tier, w, y):
+    """Kernel 2f's channel product alone at one tier, as one bf16
+    ``torch.matmul`` of its shapes ((2H x H) by each batch row's (H x L);
+    cuBLAS on the tensor cores, no bias, sigmoid or residual): a yardstick
+    recorded as ``gemm_ms``, never called by the port."""
+    wb = w.to(torch.bfloat16)
+    ms = cuda_ms(lambda: torch.matmul(wb, y), 10)
+    result["tiers"][tier]["gemm_ms"] = ms
+    log(f"yardstick glu_res_bf16 {tier}: one bf16 torch.matmul {ms:.4f} ms")
 
 
 def run_shipped_command(torch, run, launches):
@@ -762,8 +832,8 @@ def check_bf16_path(torch, model, dev):
     int8 plain path's own distance to it); the eps step timed at B4 and B16
     (kernels vs plain); a trace of two bf16 steps and two int8 steps; then
     a 50-step reverse process (QUALITY_CFG) with one injected noise stack,
-    x_0 of bf16, bf16 + int8 and f32 + int8 against f32's.  Returns a
-    dict."""
+    x_0 of bf16, bf16 + int8 and f32 + int8 against f32's; the bf16 step
+    against the f32 step, in turns, at both batches.  Returns a dict."""
     from diffwave_sashimi_torch import ops
     from diffwave_sashimi_torch.diffusion.sampling import sampling
     from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
@@ -777,7 +847,7 @@ def check_bf16_path(torch, model, dev):
     spectra = {o: bfm.compute_kernels(16000, o)
                for pair in routes.values() for o in pair}
     out = {"eps_err": {}, "quality": {}, "step_ms": {}, "step_plain_ms": {},
-           "trace": {}}
+           "step_ms_vs_f32": {}, "f32_step_ms": {}, "trace": {}}
     ref = bfm(x, steps, spectra[ops.PLAIN], ops.PLAIN)   # bf16 plain path
 
     def rel_rms(e):
@@ -803,6 +873,7 @@ def check_bf16_path(torch, model, dev):
         if not ok:
             raise AssertionError(f"{label} eps through the kernels disagrees")
 
+    k32 = model.compute_kernels(16000, ops.FUSED)
     for B in (N_SAMPLES, 16):
         xb = torch.randn(B, 1, 16000, device=dev, generator=g)
         sb = torch.randint(0, 200, (B,), device=dev, generator=g)
@@ -814,6 +885,14 @@ def check_bf16_path(torch, model, dev):
             log(f"timing: {label} eps forward (one sampling step) at B{B} "
                 f"{out['step_ms'][key]:.3f} ms with kernels vs "
                 f"{out['step_plain_ms'][key]:.3f} ms plain")
+        # the bf16 step against the f32 step, both through the kernels
+        key = f"B{B}"
+        out["step_ms_vs_f32"][key], out["f32_step_ms"][key] = paired_ms(
+            lambda: bfm(xb, sb, spectra[ops.FUSED], ops.FUSED),
+            lambda: model(xb, sb, k32, ops.FUSED), 5)
+        log(f"timing: bf16 eps forward at B{B} "
+            f"{out['step_ms_vs_f32'][key]:.3f} ms vs the f32 step's "
+            f"{out['f32_step_ms'][key]:.3f} ms in turns")
     for label, (fused, _) in routes.items():
         out["trace"][label] = trace_steps(
             torch, lambda: bfm(x, steps, spectra[fused], fused))
@@ -1128,6 +1207,14 @@ def check_gradients(torch, model, dev):
     for route in ("FUSED", "PLAIN"):
         losses[route], grads[route] = step_grads(
             torch, model, *grad_batch(torch, dev), route)
+    return hold_gradients("grads", losses, grads)
+
+
+def hold_gradients(label, losses, grads):
+    """Each gradient through the kernels (FUSED) within TOL_GRAD x max(1,
+    max|plain grad|) of the plain path's (PLAIN), and the loss within
+    TOL_GRAD x max(1, |plain loss|); returns (worst share of its bound,
+    its tensor)."""
     worst, bad = (0.0, ""), []
     for name, gp in grads["PLAIN"].items():
         err = float((grads["FUSED"][name] - gp).abs().max())
@@ -1136,13 +1223,147 @@ def check_gradients(torch, model, dev):
         if not err <= tol:
             bad.append(name)
     lerr = abs(losses["FUSED"] - losses["PLAIN"])
-    log(f"phase grads: loss {losses['FUSED']:.6f} with kernels vs "
+    log(f"phase {label}: loss {losses['FUSED']:.6f} with kernels vs "
         f"{losses['PLAIN']:.6f} plain; {len(grads['PLAIN'])} gradient "
         f"tensors within {TOL_GRAD} x max(1, max|plain grad|), worst "
         f"{worst[0]:.3e} of its bound ({worst[1]})")
     if bad or not lerr <= TOL_GRAD * max(1.0, abs(losses["PLAIN"])):
-        raise AssertionError(f"gradients disagree: {bad}, loss err {lerr}")
+        raise AssertionError(f"{label}: gradients disagree: {bad}, loss err "
+                             f"{lerr}")
     return worst
+
+
+def counted_run(torch, path, want, launches, fn):
+    """fn() with every launch count set to 0 just before and read just
+    after into ``launches[path]``, which must equal ``want`` (0 for every
+    count it does not name); returns fn's result."""
+    from diffwave_sashimi_torch import ops
+    for f in ops.COUNTED.values():
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches[path] = {k: f.launches for k, f in ops.COUNTED.items()}
+    expect = {k: want.get(k, 0) for k in ops.COUNTED}
+    if launches[path] != expect:
+        raise AssertionError(f"{path} launches {launches[path]}, expected "
+                             f"{expect}")
+    return out
+
+
+def check_wide_mixers(torch, blk, L, dev, results):
+    """Phase 24's kernel checks: the channel mixers (kernels 2, 3, 6, 7 and
+    their f forms) vs their plain versions at the d_model 256 model's H
+    1024 tier (B4, L 1000, the block's own weights), where the fp32 plans
+    narrow P to fit one block (3 and 6 at 16, 7 at 8) and 3f runs at P 16;
+    timed.  Returns each kernel's plan there."""
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.ops import chmix
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    bf = torch.bfloat16
+    d = tier_inputs(torch, blk, L, gen, dev)
+    H, lin = d["x"].shape[1], d["lin"]
+    w = (d["w1"], d["b1"], d["w2"], d["b2"])
+    for dt, tol, bpe in ((torch.float32, TOL_KERNEL, 4), (bf, TOL_BF16, 2)):
+        x, y, g, skip = (d[k].to(dt) for k in ("x", "y", "g", "skip"))
+        sfx = "_bf16" if dt == bf else ""
+        cases = [
+            ("glu_res", lambda: ops.mix_glu_res(y, x, lin.weight, lin.bias),
+             lambda: ops.glu_res_ref(y, x, lin.weight, lin.bias)),
+            ("ln_ff_res",
+             lambda: ops.ln_ff_res(x, d["m2"], d["s2"], *w, skip, True),
+             lambda: ops.ln_ff_res_ref(x, d["m2"], d["s2"], *w, skip, True)),
+            ("glu_res_bwd",
+             lambda: ops.glu_res_bwd(y, lin.weight, lin.bias, g),
+             lambda: ops.glu_res_bwd_ref(y, lin.weight, lin.bias, g)),
+            ("ln_ff_res_bwd",
+             lambda: ops.ln_ff_res_bwd(x, d["m2"], d["s2"], *w, g),
+             lambda: ops.ln_ff_res_bwd_ref(x, d["m2"], d["s2"], *w, g)),
+        ]
+        for name, kfn, pfn in cases:
+            compare(name + sfx, H, L, kfn, pfn, 3, results, tol=tol, bpe=bpe)
+    return {"glu": chmix.glu_plan(H)[0], "ff": chmix.ff_plan(H, 2 * H)[0],
+            "glu_bwd": chmix.glu_bwd_plan(H)[0],
+            "ff_bwd": chmix.ff_bwd_plan(H, 2 * H)[0],
+            "glu_bf16": chmix.glu_bf16_plan(N_SAMPLES, H, L)[0],
+            "ff_bf16": chmix.ff_bf16_plan(N_SAMPLES, H, 2 * H, L)[0]}
+
+
+def check_wide_model(torch, dev, launches, results):
+    """Phase 24: the d_model 256 SaShiMi (D256_CFG) from a seed: the
+    channel mixers at its H 1024 tier (``check_wide_mixers``); at f32 and
+    at bf16, one eps forward through the kernels against the plain path
+    (TOL_EPS; bf16 TOL_EPS_BF16 x max|plain|) and one training step's
+    loss and gradients against the plain path (TOL_GRAD; bf16
+    TOL_GRAD_BF16 against the bf16 plain path), each run through the
+    kernels with exact launch counts; the eps step timed both ways.
+    Returns a dict."""
+    from diffwave_sashimi_torch import ops
+    t0 = time.perf_counter()
+    model = build_model(torch, D256_CFG).to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(SEED + 24)
+    x = torch.randn(N_SAMPLES, 1, 16000, device=dev, generator=g)
+    steps = torch.tensor([199, 120, 40, 3][:N_SAMPLES], device=dev)
+    log(f"phase d256: d_model 256, n_layers 1, L 16000 built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    H, L, blk = tier_blocks(model)[-1]
+    with torch.no_grad():
+        out = {f"plans_P_H{H}": check_wide_mixers(torch, blk, L, dev,
+                                                  results)}
+    log(f"phase d256 mixers: positions a block at H{H} "
+        f"{json.dumps(out[f'plans_P_H{H}'])}")
+    for label, m, want_eps, want_train in (
+            ("f32", model, D256_EPS_LAUNCHES, D256_TRAIN_LAUNCHES),
+            ("bf16", bf16_copy(torch, model), D256_EPS_BF16_LAUNCHES,
+             D256_TRAIN_BF16_LAUNCHES)):
+        sfx = "" if label == "f32" else "_bf16"
+        with torch.no_grad():
+            kf = m.compute_kernels(16000, ops.FUSED)
+            kp = m.compute_kernels(16000, ops.PLAIN)
+            eps = counted_run(torch, f"d256_eps{sfx}", want_eps, launches,
+                              lambda: m(x, steps, kf, ops.FUSED))
+            ref = m(x, steps, kp, ops.PLAIN)
+            err, scale = max_err(eps, ref)
+            if label == "f32":
+                atol, rtol = TOL_EPS
+                ok = bool(((eps - ref).abs() <= atol + rtol * ref.abs()).all())
+            else:
+                ok = err <= TOL_EPS_BF16 * scale
+            ok = ok and bool(torch.isfinite(eps).all()) and scale > 0
+            ms, plain_ms = paired_ms(lambda: m(x, steps, kf, ops.FUSED),
+                                     lambda: m(x, steps, kp, ops.PLAIN), 3)
+        log(f"phase d256 eps {label}: kernels vs plain max_abs_err {err:.3e} "
+            f"(max|plain| {scale:.3e}) {'ok' if ok else 'FAIL'}; step "
+            f"{ms:.3f} ms vs {plain_ms:.3f} ms plain at B{N_SAMPLES}")
+        if not ok:
+            raise AssertionError(f"d256 {label} eps through the kernels "
+                                 f"disagrees")
+        batch = grad_batch(torch, dev)
+        loss, grads = counted_run(
+            torch, f"d256_train{sfx}", want_train, launches,
+            lambda: step_grads(torch, m, *batch, "FUSED"))
+        loss_plain, grads_plain = step_grads(torch, m, *batch, "PLAIN")
+        r = {"eps_max_abs_err": err, "eps_max_abs_plain": scale,
+             "step_ms": ms, "step_plain_ms": plain_ms, "loss": loss,
+             "loss_plain": loss_plain}
+        if label == "f32":
+            r["grad_worst_of_bound"] = hold_gradients(
+                "d256 grads f32", {"FUSED": loss, "PLAIN": loss_plain},
+                {"FUSED": grads, "PLAIN": grads_plain})[0]
+        else:
+            r["grads_vs_plain"] = dist = grad_distance(grads, grads_plain)
+            ok = all(bool(torch.isfinite(v).all()) for v in grads.values()) \
+                and all(dist[k] <= TOL_GRAD_BF16[k] for k in TOL_GRAD_BF16) \
+                and abs(loss - loss_plain) <= TOL_GRAD_BF16["entry"] * abs(
+                    loss_plain)
+            log(f"phase d256 grads bf16: {json.dumps(r)} (bars "
+                f"{TOL_GRAD_BF16}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("d256 bf16 gradients through the "
+                                     "kernels disagree")
+        out[label] = r
+    del model
+    torch.cuda.empty_cache()
+    return out
 
 
 def profile_train_step(torch, model, dev, steps=2):
@@ -1199,8 +1420,9 @@ def trace_steps(torch, step, steps=2, groups=None):
             e.time_range.end - e.time_range.start) / 1e3 / steps
     port = {name: ms for name, ms in by_name.items()
             if name.split("<")[0] in PORT_KERNELS}
-    ff_bf16 = sum(ms for name, ms in port.items()
-                  if name.split("<")[0] in KERNELS_3F)
+    glu_bf16, ff_bf16 = (sum(ms for name, ms in port.items()
+                             if in_group(name, group))
+                         for group in (KERNELS_2F, KERNELS_3F))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     split = None
     if groups:
@@ -1215,9 +1437,16 @@ def trace_steps(torch, step, steps=2, groups=None):
             - sum(port.values()),
             "launches_per_step": len(kern) / steps,
             "port_kernels_by_name_ms_per_step": port,
+            "glu_res_bf16_ms_per_step": glu_bf16,
             "ln_ff_res_bf16_ms_per_step": ff_bf16,
             "top_kernels_ms_per_step": dict(top),
             "groups_ms_per_step": split}
+
+
+def in_group(name, group):
+    """Whether a kernel's short name is one of ``group``: by its full
+    name, or by its template's name."""
+    return name in group or name.split("<")[0] in group
 
 
 def short_name(name):
@@ -1461,6 +1690,12 @@ def check_vocoder_kernels(torch, model, L, dev, results):
         compare("ln_ff_res_bf16", H, Lt, lambda: ops.ln_ff_res_bf16(*ffb),
                 lambda: ops.ln_ff_res_ref(*ffb), 10, results, B, d["n"],
                 tol=TOL_BF16, bpe=2)
+        compare("glu_res_bf16", H, Lt,
+                lambda: ops.mix_glu_res_bf16(xb, xb, lin.weight, lin.bias),
+                lambda: ops.glu_res_ref(xb, xb, lin.weight, lin.bias),
+                10, results, B, d["n"], tol=TOL_BF16, bpe=2)
+        glu_gemm_ms(torch, results["glu_res_bf16"], f"H{H}_L{Lt}",
+                    lin.weight, xb)
         time_ff_weight_designs(torch, ffb, results["ln_ff_res_bf16"],
                                f"H{H}_L{Lt}")
 
@@ -2092,6 +2327,11 @@ def main():
     finally:
         os.chdir(cwd)
         wn_train_root.cleanup()
+    del wn_model
+    torch.cuda.empty_cache()
+
+    # phase 24: the d_model 256 model through the kernels
+    d256 = check_wide_model(torch, dev, launches, results)
     log(f"card: {smi[0]}")
 
     entries = []
@@ -2109,7 +2349,7 @@ def main():
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": None,
             "tiers": r["tiers"]})
-        for key in ("gemm_pair_ms", "weights_scratch_ms",
+        for key in ("gemm_ms", "gemm_pair_ms", "weights_scratch_ms",
                     "weights_in_kernel_ms"):    # yardsticks, not library calls
             if key in top:
                 entries[-1][key] = top[key]
@@ -2136,6 +2376,7 @@ def main():
         "vocode_bf16": voc_bf16,
         "bf16_int8": bf16_path,
         "train_bf16": train_bf16,
+        "d256": d256,
         "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,20 +21,22 @@
 // (128, 64, 32 at H = 128, 256, 512), so the block's input tile (H x P)
 // and, for FF, its (2H x P) hidden activation stay in shared memory (192 KB)
 // and each residual branch costs one read and one write of the
-// activations.  Weights stream through a transposed (TK x TM) shared tile,
-// TM = 16384 / P rows, prefetched into registers one k-step ahead.  Each
-// thread keeps an 8 x 8 register tile (rows {r, r + TM/2} x 4, positions
-// 8 consecutive), fed by four 16-byte shared loads per 64 FMAs.  One
-// block per SM: two GLU blocks per SM and a 16-deep FF k-tile were both
-// measured slower on the step.  The FF kernel computes the LayerNorm
-// statistics of its input and of its output itself.  GELU uses erff, the
-// sigmoid expf: the strict f32 path.
+// activations.  Past H 512 the wider tiles would not fit one block, so the
+// plan halves P until they do (16 for FF and the GLU backward, 8 for the FF
+// backward at H 1024, F 2048).  Weights stream through a transposed (TK x
+// TM) shared tile, TM = 16384 / P rows, prefetched into registers one
+// k-step ahead.  Each thread keeps an 8 x 8 register tile (rows {r, r +
+// TM/2} x 4, positions 8 consecutive), fed by four 16-byte shared loads
+// per 64 FMAs.  One block per SM: two GLU blocks per SM and a 16-deep FF
+// k-tile were both measured slower on the step.  The FF kernel computes
+// the LayerNorm statistics of its input and of its output itself.  GELU
+// uses erff, the sigmoid expf: the strict f32 path.
 //
-// Kernel 2f, the GLU's bf16 form (the TPU kernel with fast=True), is the
-// same code templated on the activations' type: bf16 loads and stores
-// halve the activation bytes, while the tiles in shared memory and the
-// products stay f32 on the CUDA cores, the weights rounded to bf16 as
-// they are loaded; bias, sigmoid and residual add are f32.
+// The host computes every kernel's positions a block P and its bytes of
+// shared memory (ops/chmix.py: glu_plan, ff_plan, glu_bwd_plan, ff_bwd_plan
+// and, for the tensor-core kernels below, glu_bf16_plan and ff_bf16_plan),
+// and refuses widths whose tiles do not fit one block before it launches;
+// the kernels take both as given.
 //
 // Kernel 3f, FF's bf16 form (ln_ff_res_tc_kernel), multiplies on the
 // tensor cores instead (mma.sync m16n8k16, bf16 operands, f32 sums;
@@ -50,7 +52,8 @@
 // (rounding them as they load instead, with no extra launch, ties at H 128
 // and is 20-37% slower at H 256 and 512, chip_smoke.py's
 // weights_in_kernel_ms); one block of 8 warps per (batch, P positions), P
-// = 16384 / H (128, 64, 32; 64 at H 512 when the grid fills two waves);
+// = 16384 / H (128, 64, 32; 64 at H 512 when the grid fills two waves; 16
+// past H 512, where GEMM 2's warps take 8 m-tiles each);
 // the input tile, then TLN(x) rounded to bf16, and the GELU output stay in
 // shared memory as bf16 (rows padded so that ldmatrix reads them without
 // bank conflicts), so two blocks share an SM below H 512 at F = 2H.
@@ -66,6 +69,24 @@
 // coalesced; the statistics are summed in a fixed order (no float
 // atomics).  Kernel 3, the f32 form, keeps its fp32 FMAs: its 1e-4 bar
 // rules out TF32.
+//
+// Kernel 2f, the GLU's bf16 form (glu_res_tc_kernel), is one channel GEMM
+// of 4 H^2 B L operations with a register-local epilogue, on the tensor
+// cores as 3f's GEMMs are, and for the same reason bound by bytes (one read
+// of y and res and one write of out: 15 us at SC09's top tier against 4 us
+// of products).  Design, 3f's: W rounded to bf16 once a call into a scratch
+// (round_weights_kernel); one block of 8 warps per (batch, P positions);
+// the y tile in shared memory as bf16, loaded 16 bytes a thread, rows
+// padded for ldmatrix.trans.  Each warp takes value m-tiles [o, o + 16 MV)
+// together with their gate m-tiles [H + o, H + o + 16 MV) over all P
+// positions, so a and g of one (o, p) meet in one thread's registers, where
+// bias, sigmoid and product are formed; A fragments come from L2 one
+// k-step ahead, with no weight tile and no barrier in the k-loop.  The
+// gated f32 product is staged in shared memory, then res is added and out
+// stored 16 bytes a thread, coalesced.  MV P = 128 keeps 128 sums a
+// thread; past 128 MV value rows the warps take the rows in passes, so any
+// H that is a multiple of 16 up to 1024 fits one block.  Kernel 2, the f32
+// form, keeps its fp32 FMAs: its 1e-4 bar rules out bf16 products.
 
 #include <cuda_runtime.h>
 
@@ -208,14 +229,12 @@ __device__ void column_stats(const float* xs, int H, float* red,
   __syncthreads();
 }
 
-// IO: the activations' type, float or bf16 (kernel 2f: W rounded to bf16
-// on load, f32 products, bias, sigmoid and residual add).
-template <int P, typename IO>
+// Kernel 2 (f32; kernel 2f is glu_res_tc_kernel below).
+template <int P>
 __global__ void __launch_bounds__(NT, 1)
-glu_res_kernel(const IO* __restrict__ y, const IO* __restrict__ res,
+glu_res_kernel(const float* __restrict__ y, const float* __restrict__ res,
                const float* __restrict__ W, const float* __restrict__ bias,
-               IO* __restrict__ out, int H, int L) {
-  constexpr bool BF = sizeof(IO) == 2;
+               float* __restrict__ out, int H, int L) {
   using T = Tile<P>;
   extern __shared__ float4 sh4[];
   float* ys = reinterpret_cast<float*>(sh4);     // H x P
@@ -225,8 +244,8 @@ glu_res_kernel(const IO* __restrict__ y, const IO* __restrict__ res,
   load_tile<P>(y, ys, b, H, L, t0);
   for (int o0 = 0; o0 < H; o0 += T::TM / 2) {
     float acc[8][8];
-    gemm_chunk<P, BF>(W, H, RowMap{o0, H + o0, H, 2 * H, T::TM / 2}, ys, AsT,
-                      acc);
+    gemm_chunk<P>(W, H, RowMap{o0, H + o0, H, 2 * H, T::TM / 2}, ys, AsT,
+                  acc);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int o = o0 + local_row<P>(r);
@@ -238,8 +257,7 @@ glu_res_kernel(const IO* __restrict__ y, const IO* __restrict__ res,
         const int t = t0 + pg * 8 + j;
         if (t >= L) continue;
         const float g = acc[r + 4][j] + bg;
-        out[row + t] = from_f<IO>(to_f(res[row + t])
-                                  + (acc[r][j] + ba) / (1.0f + expf(-g)));
+        out[row + t] = res[row + t] + (acc[r][j] + ba) / (1.0f + expf(-g));
       }
     }
   }
@@ -388,12 +406,13 @@ __device__ __forceinline__ void chunk_sums(float s[8], float* row, int c) {
 // input tile, then one region that holds the F-row bf16 GELU tile and
 // later the H-row f32 output tile, as large as the larger of the two.
 // Each thread moves 8 consecutive positions (16 bytes) of its rows when
-// vec (L % 8 == 0, 16-byte aligned tensors).  H <= 128 MT2.  Two blocks
+// vec (L % 8 == 0, 16-byte aligned tensors).  H <= 128 MT2, so MT2 8 at
+// P 16 takes H up to 1024 (with 8 P x MT2 sums a thread).  Two blocks
 // share an SM where P MT2 = 128 (96 KB of tiles at H = 128 MT2), one
 // where the wider P of a long sequence at H 512 doubles the tiles and
 // GEMM 2's accumulators.
 template <int P, int MT2, typename WT>
-__global__ void __launch_bounds__(NT, P * MT2 >= 256 ? 1 : 2)
+__global__ void __launch_bounds__(NT, P * MT2 >= 256 || MT2 >= 8 ? 1 : 2)
 ln_ff_res_tc_kernel(const __nv_bfloat16* __restrict__ x,
                     const __nv_bfloat16* __restrict__ skip,
                     const WT* __restrict__ W1, const float* __restrict__ b1,
@@ -589,6 +608,170 @@ ln_ff_res_tc_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// Kernel 2f's tiles: P positions a block; each warp takes MV value m-tiles
+// and their MV gate m-tiles over all P positions at a time (MV P = 128: 128
+// f32 sums a thread), so one pass of the 8 warps covers ROWS = 128 MV value
+// rows, each thread moving RPT = 8 rows of 8 positions in and out; bf16
+// rows padded to LD elements as 3f's, the staged f32 rows to LO.
+template <int P>
+struct GluTile {
+  static constexpr int MV = 128 / P;
+  static constexpr int N8 = P / 8;
+  static constexpr int LD = P + 8;
+  static constexpr int LO = P + 8;
+  static constexpr int ROWS = NWARPS * 16 * MV;
+  static constexpr int HS = NT / N8;        // row step of a thread
+  static constexpr int RPT = ROWS / HS;
+};
+
+// 16 bytes from device memory to shared memory, asynchronously (cp.async,
+// by L2 only); commit closes a group, wait<n> waits for all but the last n.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Kernel 2f (bf16 y, res and out; Wb = W rounded to bf16 by
+// round_weights_kernel; f32 bias) on the tensor cores: out = res + (Wa y +
+// ba) sigmoid(Wg y + bg), [Wa; Wg] = Wb, the sums, bias, sigmoid and
+// residual add in f32 and the result rounded once.  Dynamic shared memory,
+// sized by ops/chmix.py::glu_bf16_plan: the H-row bf16 y tile, then for
+// R = min(H, ROWS) rows of one pass the f32 gated product, staged for the
+// epilogue, and the bf16 res rows.  When vec (L % 8 == 0, 16-byte aligned
+// tensors) each thread moves 8 consecutive positions (16 bytes) of its
+// rows: y and the first pass's res arrive by cp.async in two groups, so
+// res loads while the product is computed, and each later pass's res is
+// fetched while its product is; else element by element from device
+// memory.
+template <int P>
+__global__ void __launch_bounds__(NT, 1)
+glu_res_tc_kernel(const __nv_bfloat16* __restrict__ y,
+                  const __nv_bfloat16* __restrict__ res,
+                  const __nv_bfloat16* __restrict__ Wb,
+                  const float* __restrict__ bias,
+                  __nv_bfloat16* __restrict__ out, int H, int L, bool vec) {
+  using T = GluTile<P>;
+  using bf = __nv_bfloat16;
+  constexpr int N8 = T::N8, LD = T::LD, LO = T::LO, MV = T::MV, HS = T::HS;
+  extern __shared__ float4 sh4[];
+  const int R = min(H, T::ROWS);
+  bf* ys = reinterpret_cast<bf*>(sh4);                        // H x LD
+  float* os = reinterpret_cast<float*>(ys + (size_t)H * LD);  // R x LO
+  bf* rs = reinterpret_cast<bf*>(os + (size_t)R * LO);        // R x LD
+  const int b = blockIdx.y, t0 = blockIdx.x * P;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  // this thread's chunk of 8 positions, and its first row
+  const int c = tid % N8 * 8, t = t0 + c, h0 = tid / N8;
+  const bool in = t < L;            // with vec: all 8 positions are
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  // rows [p0, p0 + R) of res into rs, asynchronously (vec only)
+  auto fetch_res = [&](int p0) {
+#pragma unroll
+    for (int i = 0; i < T::RPT; ++i) {
+      const int h = h0 + i * HS;
+      if (h >= R || p0 + h >= H) continue;
+      if (in)
+        cp_async16(rs + h * LD + c, res + ((size_t)b * H + p0 + h) * L + t);
+    }
+    cp_async_commit();
+  };
+
+  // the y tile (0 past L)
+  if (vec) {
+    for (int h = h0; h < H; h += HS) {
+      bf* dst = ys + h * LD + c;
+      if (in)
+        cp_async16(dst, y + ((size_t)b * H + h) * L + t);
+      else
+        *reinterpret_cast<uint4*>(dst) = zero;
+    }
+    cp_async_commit();
+    fetch_res(0);
+    cp_async_wait<1>();             // y has landed; res may still be loading
+  } else {
+    for (int h = h0; h < H; h += HS) {
+      const size_t at = ((size_t)b * H + h) * L + t;
+      float f[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        f[j] = t + j < L ? __bfloat162float(y[at + j]) : 0.0f;
+      *reinterpret_cast<uint4*>(ys + h * LD + c) = pack8(f);
+    }
+  }
+  __syncthreads();
+
+  for (int p0 = 0; p0 < H; p0 += T::ROWS) {
+    if (vec && p0 > 0) fetch_res(p0);   // rs is free: see the barrier below
+    // value rows [r0, r0 + 16 MV) and gate rows H + the same, over all P
+    // positions; value rows past H (a partial last m-tile group) are
+    // computed from gate rows and dropped
+    const int r0 = p0 + warp * 16 * MV;
+    if (r0 < H) {
+      float acc[2 * MV][N8][4];
+      dwst_mma::warp_gemm<2 * MV, N8, bf, MV>(Wb, 2 * H, H, r0, ys, LD, acc,
+                                              H);
+#pragma unroll
+      for (int mt = 0; mt < MV; ++mt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int o = r0 + 16 * mt + g + 8 * hh;
+          if (o >= H) continue;
+          const float ba = bias[o], bg = bias[H + o];
+          float* orow = os + (o - p0) * LO + 2 * tq;
+#pragma unroll
+          for (int j = 0; j < N8; ++j) {
+            const float a0 = acc[mt][j][2 * hh] + ba;
+            const float a1 = acc[mt][j][2 * hh + 1] + ba;
+            const float g0 = acc[MV + mt][j][2 * hh] + bg;
+            const float g1 = acc[MV + mt][j][2 * hh + 1] + bg;
+            *reinterpret_cast<float2*>(orow + 8 * j) =
+                make_float2(__fdividef(a0, 1.0f + __expf(-g0)),
+                            __fdividef(a1, 1.0f + __expf(-g1)));
+          }
+        }
+    }
+    if (vec) cp_async_wait<0>();
+    __syncthreads();
+
+    // out = res + the staged product, in f32, stored bf16
+#pragma unroll
+    for (int i = 0; i < T::RPT; ++i) {
+      const int h = h0 + i * HS;
+      if (h >= R || p0 + h >= H) continue;
+      const size_t at = ((size_t)b * H + p0 + h) * L + t;
+      const float4 o0 = *reinterpret_cast<const float4*>(os + h * LO + c);
+      const float4 o1 = *reinterpret_cast<const float4*>(os + h * LO + c + 4);
+      float v[8] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
+      if (vec) {
+        if (!in) continue;
+        float r[8];
+        unpack8(*reinterpret_cast<const uint4*>(rs + h * LD + c), r);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] += r[j];
+        *reinterpret_cast<uint4*>(out + at) = pack8(v);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (t + j < L)
+            out[at + j] =
+                __float2bfloat16_rn(__bfloat162float(res[at + j]) + v[j]);
+      }
+    }
+    __syncthreads();                 // os and rs are free for the next pass
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Backward passes (kernels 6 and 7).
 //
@@ -690,7 +873,8 @@ __device__ __forceinline__ float gelu_erf_grad(float z) {
 }
 
 // FF backward, per position tile of P = 8192 / H positions (half the
-// forward's: x, g, and the F-row dh/dz tile share the shared memory), the
+// forward's: x, g, and the F-row dh/dz tile share the shared memory; 8 at
+// H 1024, F 2048), the
 // algebra of the JAX kernel: var = E[x^2] - mean^2, r = s rstd,
 //   dxn = W1^T (gelu'(z) . W2^T g),  S1 = mean_h dxn,
 //   S2 = mean_h dxn (xc + m),  dx = g + r (dxn - S1) - r rstd^2 xc S2,
@@ -945,88 +1129,103 @@ int weight_grad(const TX* X, const TY* Y, float* part, float* grads, int B,
   return reduce_splits(part, grads, B * nsb, M * N + M, stream);
 }
 
-// Positions per block: P = 16384 / H, within [32, 128].
-int choose_p(int H) {
-  const int p = 16384 / (H > 0 ? H : 1);
-  return p >= 128 ? 128 : (p >= 64 ? 64 : 32);
+
+// The fp32 kernels below launch at P positions a block on smem bytes of
+// dynamic shared memory, both from ops/chmix.py's plan of each kernel; P is
+// one the kernel is built for, else the launch is refused.
+template <typename IO>
+int glu_res_bwd_launch(const IO* y, const IO* g, const float* W,
+                       const float* Wt, const float* bias, IO* dy, float* dz,
+                       int B, int H, int L, int P, int smem,
+                       cudaStream_t stream) {
+  auto run = [&](auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<dim3((L + P - 1) / P, B), NT, smem, stream>>>(y, g, W, Wt, bias,
+                                                           dy, dz, H, L);
+    return (int)cudaGetLastError();
+  };
+  switch (P) {
+    case 128: return run(glu_res_bwd_kernel<128, IO>);
+    case 64: return run(glu_res_bwd_kernel<64, IO>);
+    case 32: return run(glu_res_bwd_kernel<32, IO>);
+    case 16: return run(glu_res_bwd_kernel<16, IO>);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-// Positions per block of the FF backward: P = 8192 / H, within [16, 64].
-int choose_p_bwd(int H) {
-  const int p = 8192 / (H > 0 ? H : 1);
-  return p >= 64 ? 64 : (p >= 32 ? 32 : 16);
+template <typename IO>
+int ln_ff_res_bwd_launch(const IO* x, const IO* g, const float* W1,
+                         const float* b1, const float* W1t, const float* W2t,
+                         const float* m, const float* s, IO* dx, float* xn,
+                         float* hact, float* dz, float* stat_part, int B,
+                         int H, int F, int L, int P, int smem,
+                         cudaStream_t stream) {
+  auto run = [&](auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<dim3((L + P - 1) / P, B), NT, smem, stream>>>(
+        x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact, dz, stat_part, H, F, L);
+    return (int)cudaGetLastError();
+  };
+  switch (P) {
+    case 64: return run(ln_ff_res_bwd_kernel<64, IO>);
+    case 32: return run(ln_ff_res_bwd_kernel<32, IO>);
+    case 16: return run(ln_ff_res_bwd_kernel<16, IO>);
+    case 8: return run(ln_ff_res_bwd_kernel<8, IO>);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-template <int P, typename IO>
-int launch_glu_bwd(const IO* y, const IO* g, const float* W, const float* Wt,
-                   const float* bias, IO* dy, float* dz, int B, int H, int L,
-                   cudaStream_t stream) {
-  using T = Tile<P>;
-  const size_t smem = ((size_t)3 * H * P + TK * T::LDT) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      glu_res_bwd_kernel<P, IO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((L + P - 1) / P, B);
-  glu_res_bwd_kernel<P, IO><<<grid, NT, smem, stream>>>(y, g, W, Wt, bias, dy,
-                                                        dz, H, L);
-  return (int)cudaGetLastError();
+int glu_res(const float* y, const float* res, const float* W, const float* b,
+            float* out, int B, int H, int L, int P, int smem,
+            cudaStream_t stream) {
+  auto run = [&](auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<dim3((L + P - 1) / P, B), NT, smem, stream>>>(y, res, W, b, out,
+                                                           H, L);
+    return (int)cudaGetLastError();
+  };
+  if (H % TK) return (int)cudaErrorInvalidValue;
+  switch (P) {
+    case 128: return run(glu_res_kernel<128>);
+    case 64: return run(glu_res_kernel<64>);
+    case 32: return run(glu_res_kernel<32>);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-template <int P, typename IO>
-int launch_ff_bwd(const IO* x, const IO* g, const float* W1, const float* b1,
-                  const float* W1t, const float* W2t, const float* m,
-                  const float* s, IO* dx, float* xn, float* hact, float* dz,
-                  float* stat_part, int B, int H, int F, int L, int* nblocks,
-                  cudaStream_t stream) {
-  using T = Tile<P>;
-  const size_t smem = ((size_t)(2 * H + F) * P + TK * T::LDT + 2 * NT + 4 * P) *
-                      sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      ln_ff_res_bwd_kernel<P, IO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((L + P - 1) / P, B);
-  *nblocks = grid.x * grid.y;
-  ln_ff_res_bwd_kernel<P, IO><<<grid, NT, smem, stream>>>(
-      x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact, dz, stat_part, H, F, L);
-  return (int)cudaGetLastError();
-}
-
-template <int P, typename IO>
-int launch_glu(const IO* y, const IO* res, const float* W,
-               const float* b, IO* out, int B, int H, int L,
-               cudaStream_t stream) {
-  using T = Tile<P>;
-  const size_t smem = ((size_t)H * P + TK * T::LDT) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      glu_res_kernel<P, IO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((L + P - 1) / P, B);
-  glu_res_kernel<P, IO><<<grid, NT, smem, stream>>>(y, res, W, b, out, H, L);
-  return (int)cudaGetLastError();
-}
-
-template <int P>
-int launch_ff(const float* x, const float* skip, const float* W1,
+int ln_ff_res(const float* x, const float* skip, const float* W1,
               const float* b1, const float* W2, const float* b2,
               const float* m, const float* s, float* out, float* mean,
-              float* var, int B, int H, int F, int L, cudaStream_t stream) {
-  using T = Tile<P>;
-  const size_t smem = ((size_t)(H + F) * P + TK * T::LDT + 2 * NT + 2 * P) *
-                      sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      ln_ff_res_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((L + P - 1) / P, B);
-  ln_ff_res_kernel<P><<<grid, NT, smem, stream>>>(
-      x, skip, W1, b1, W2, b2, m, s, out, mean, var, H, F, L);
-  return (int)cudaGetLastError();
+              float* var, int B, int H, int F, int L, int P, int smem,
+              cudaStream_t stream) {
+  auto run = [&](auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<dim3((L + P - 1) / P, B), NT, smem, stream>>>(
+        x, skip, W1, b1, W2, b2, m, s, out, mean, var, H, F, L);
+    return (int)cudaGetLastError();
+  };
+  if (H % TK || F % TK) return (int)cudaErrorInvalidValue;
+  switch (P) {
+    case 128: return run(ln_ff_res_kernel<128>);
+    case 64: return run(ln_ff_res_kernel<64>);
+    case 32: return run(ln_ff_res_kernel<32>);
+    case 16: return run(ln_ff_res_kernel<16>);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-// wb[0:n] = bf16(W1[0:n]), wb[n:2n] = bf16(W2[0:n]), n % 4 == 0.
+// wb[0:n] = bf16(W1[0:n]), wb[n:2n] = bf16(W2[0:n]), n % 4 == 0.  K (2 or
+// 3, the kernel whose call launches it) only names the instance, so that a
+// trace tells 2f's pass from 3f's.
+template <int K>
 __global__ void round_weights_kernel(const float4* __restrict__ W1,
                                      const float4* __restrict__ W2,
                                      uint2* __restrict__ wb, int n4) {
@@ -1035,6 +1234,20 @@ __global__ void round_weights_kernel(const float4* __restrict__ W1,
   const float4 v = i < n4 ? W1[i] : W2[i - n4];
   wb[i] = make_uint2(dwst_mma::pack_bf16x2(v.x, v.y),
                      dwst_mma::pack_bf16x2(v.z, v.w));
+}
+
+template <int K>
+int round_weights(const float* W1, const float* W2, __nv_bfloat16* wb,
+                  int n, cudaStream_t stream) {
+  const int n4 = n / 4;
+  round_weights_kernel<K><<<(2 * n4 + 255) / 256, 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(W1), reinterpret_cast<const float4*>(W2),
+      reinterpret_cast<uint2*>(wb), n4);
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 // Kernel 3f on smem bytes of dynamic shared memory a block: with a
@@ -1048,11 +1261,8 @@ int launch_ff_tc(const __nv_bfloat16* x, const __nv_bfloat16* skip,
                  __nv_bfloat16* out, float* mean, float* var,
                  __nv_bfloat16* wb, int B, int H, int F, int L, int smem,
                  cudaStream_t stream) {
-  auto aligned = [](const void* p, uintptr_t a) {
-    return p == nullptr || reinterpret_cast<uintptr_t>(p) % a == 0;
-  };
-  const bool vec = L % 8 == 0 && aligned(x, 16) && aligned(skip, 16) &&
-                   aligned(out, 16);
+  const bool vec = L % 8 == 0 && aligned16(x) && aligned16(skip) &&
+                   aligned16(out);
   const dim3 grid((L + P - 1) / P, B);
   auto run = [&](auto kernel, auto w1, auto w2) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -1064,57 +1274,42 @@ int launch_ff_tc(const __nv_bfloat16* x, const __nv_bfloat16* skip,
   };
   if (wb == nullptr)
     return run(ln_ff_res_tc_kernel<P, MT2, float>, W1, W2);
-  const int n4 = F * H / 4;
-  round_weights_kernel<<<(2 * n4 + 255) / 256, 256, 0, stream>>>(
-      reinterpret_cast<const float4*>(W1), reinterpret_cast<const float4*>(W2),
-      reinterpret_cast<uint2*>(wb), n4);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  const int e = round_weights<3>(W1, W2, wb, F * H, stream);
+  if (e) return e;
   return run(ln_ff_res_tc_kernel<P, MT2, __nv_bfloat16>,
              static_cast<const __nv_bfloat16*>(wb),
              static_cast<const __nv_bfloat16*>(wb + (size_t)F * H));
 }
 
-template <typename IO>
-int glu_res(const IO* y, const IO* res, const float* W, const float* b,
-            IO* out, int B, int H, int L, cudaStream_t stream) {
-  if (H % 8) return (int)cudaErrorInvalidValue;
-  switch (choose_p(H)) {
-    case 128: return launch_glu<128>(y, res, W, b, out, B, H, L, stream);
-    case 64: return launch_glu<64>(y, res, W, b, out, B, H, L, stream);
-    default: return launch_glu<32>(y, res, W, b, out, B, H, L, stream);
-  }
-}
-
-int ln_ff_res(const float* x, const float* skip, const float* W1,
-              const float* b1, const float* W2, const float* b2,
-              const float* m, const float* s, float* out, float* mean,
-              float* var, int B, int H, int F, int L, cudaStream_t stream) {
-  if (H % TK || F % TK) return (int)cudaErrorInvalidValue;
-  switch (choose_p(H)) {
-    case 128: return launch_ff<128>(x, skip, W1, b1, W2, b2, m, s, out, mean,
-                                    var, B, H, F, L, stream);
-    case 64: return launch_ff<64>(x, skip, W1, b1, W2, b2, m, s, out, mean,
-                                  var, B, H, F, L, stream);
-    default: return launch_ff<32>(x, skip, W1, b1, W2, b2, m, s, out, mean,
-                                  var, B, H, F, L, stream);
-  }
+// Kernel 2f on smem bytes of dynamic shared memory a block: W (2H x H)
+// rounded to bf16 into the scratch wb, then the tensor-core kernel.
+template <int P>
+int launch_glu_tc(const __nv_bfloat16* y, const __nv_bfloat16* res,
+                  const float* W, const float* b, __nv_bfloat16* out,
+                  __nv_bfloat16* wb, int B, int H, int L, int smem,
+                  cudaStream_t stream) {
+  int e = round_weights<2>(W, W + (size_t)H * H, wb, H * H, stream);
+  if (e) return e;
+  e = (int)cudaFuncSetAttribute(glu_res_tc_kernel<P>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem);
+  if (e) return e;
+  const bool vec = L % 8 == 0 && aligned16(y) && aligned16(res) &&
+                   aligned16(out);
+  glu_res_tc_kernel<P><<<dim3((L + P - 1) / P, B), NT, smem, stream>>>(
+      y, res, wb, b, out, H, L, vec);
+  return (int)cudaGetLastError();
 }
 
 // Kernel 6 or 6f: the per-position pass, then dW and db from dz and y.
 template <typename IO>
 int glu_res_bwd(const IO* y, const IO* g, const float* W, const float* Wt,
                 const float* b, IO* dy, float* dz, float* part, float* grads,
-                int B, int H, int L, int tc, cudaStream_t stream) {
-  if (H % 8 || tc <= 0) return (int)cudaErrorInvalidValue;
-  int e;
-  switch (choose_p(H)) {
-    case 128: e = launch_glu_bwd<128>(y, g, W, Wt, b, dy, dz, B, H, L, stream);
-      break;
-    case 64: e = launch_glu_bwd<64>(y, g, W, Wt, b, dy, dz, B, H, L, stream);
-      break;
-    default: e = launch_glu_bwd<32>(y, g, W, Wt, b, dy, dz, B, H, L, stream);
-  }
+                int B, int H, int L, int tc, int P, int smem,
+                cudaStream_t stream) {
+  if (H % TK || tc <= 0) return (int)cudaErrorInvalidValue;
+  const int e = glu_res_bwd_launch(y, g, W, Wt, b, dy, dz, B, H, L, P, smem,
+                                   stream);
   if (e) return e;
   return weight_grad(dz, y, part, grads, B, 2 * H, H, L, tc, stream);
 }
@@ -1127,23 +1322,12 @@ int ln_ff_res_bwd(const IO* x, const IO* g, const float* W1, const float* b1,
                   const float* s, IO* dx, float* xn, float* hact, float* dz,
                   float* stat_part, float* dms, float* part1, float* grads1,
                   float* part2, float* grads2, int B, int H, int F, int L,
-                  int tc, cudaStream_t stream) {
+                  int tc, int P, int smem, cudaStream_t stream) {
   if (H % TK || F % TK || tc <= 0) return (int)cudaErrorInvalidValue;
-  int e, nblocks = 0;
-  switch (choose_p_bwd(H)) {
-    case 64: e = launch_ff_bwd<64>(x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact,
-                                   dz, stat_part, B, H, F, L, &nblocks,
-                                   stream);
-      break;
-    case 32: e = launch_ff_bwd<32>(x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact,
-                                   dz, stat_part, B, H, F, L, &nblocks,
-                                   stream);
-      break;
-    default: e = launch_ff_bwd<16>(x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact,
-                                   dz, stat_part, B, H, F, L, &nblocks,
-                                   stream);
-  }
+  int e = ln_ff_res_bwd_launch(x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact,
+                               dz, stat_part, B, H, F, L, P, smem, stream);
   if (e) return e;
+  const int nblocks = (L + P - 1) / P * B;
   if ((e = reduce_splits(stat_part, dms, nblocks, 2, stream))) return e;
   if ((e = weight_grad(dz, xn, part1, grads1, B, F, H, L, tc, stream)))
     return e;
@@ -1154,18 +1338,35 @@ using bf16 = __nv_bfloat16;
 
 }  // namespace
 
+// Every entry below takes P (positions a block) and smem (bytes of shared
+// memory a block) from the kernel's plan in ops/chmix.py.
+
 extern "C" int dwst_glu_res(const float* y, const float* res, const float* W,
                             const float* b, float* out, int B, int H, int L,
-                            cudaStream_t stream) {
-  return glu_res(y, res, W, b, out, B, H, L, stream);
+                            int P, int smem, cudaStream_t stream) {
+  return glu_res(y, res, W, b, out, B, H, L, P, smem, stream);
 }
 
-// Kernel 2f: y, res and out bf16.
+// Kernel 2f: y, res and out bf16; wb a scratch for W rounded to bf16 (2 H H
+// entries); P 128, 64 or 32; H a multiple of 16 up to 1024.
 extern "C" int dwst_glu_res_bf16(const void* y, const void* res,
                                  const float* W, const float* b, void* out,
-                                 int B, int H, int L, cudaStream_t stream) {
-  return glu_res(static_cast<const bf16*>(y), static_cast<const bf16*>(res),
-                 W, b, static_cast<bf16*>(out), B, H, L, stream);
+                                 void* wb, int B, int H, int L, int P,
+                                 int smem, cudaStream_t stream) {
+  if (H <= 0 || H % 16 || H > 1024) return (int)cudaErrorInvalidValue;
+  const auto* yb = static_cast<const bf16*>(y);
+  const auto* rb = static_cast<const bf16*>(res);
+  auto* ob = static_cast<bf16*>(out);
+  auto* w = static_cast<bf16*>(wb);
+  switch (P) {
+    case 128: return launch_glu_tc<128>(yb, rb, W, b, ob, w, B, H, L, smem,
+                                        stream);
+    case 64: return launch_glu_tc<64>(yb, rb, W, b, ob, w, B, H, L, smem,
+                                      stream);
+    case 32: return launch_glu_tc<32>(yb, rb, W, b, ob, w, B, H, L, smem,
+                                      stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int dwst_ln_ff_res(const float* x, const float* skip,
@@ -1173,16 +1374,15 @@ extern "C" int dwst_ln_ff_res(const float* x, const float* skip,
                               const float* W2, const float* b2,
                               const float* m, const float* s, float* out,
                               float* mean, float* var, int B, int H, int F,
-                              int L, cudaStream_t stream) {
+                              int L, int P, int smem, cudaStream_t stream) {
   return ln_ff_res(x, skip, W1, b1, W2, b2, m, s, out, mean, var, B, H, F, L,
-                   stream);
+                   P, smem, stream);
 }
 
 // Kernel 3f: x, skip and out bf16; mean and var f32; wb a scratch for the
 // weights rounded to bf16 (2 F H entries), or null to round them in the
-// kernel; P positions a block and smem bytes of shared memory a block, both
-// from ops/chmix.py::ff_bf16_plan: P 128 for H <= 128, 64 for H <= 256, 32
-// or 64 for H <= 512; H and F multiples of 16.
+// kernel; P 128 for H <= 128, 64 for H <= 256, 32 or 64 for H <= 512, 16
+// for H <= 1024; H and F multiples of 16.
 extern "C" int dwst_ln_ff_res_bf16(const void* x, const void* skip,
                                    const float* W1, const float* b1,
                                    const float* W2, const float* b2,
@@ -1190,7 +1390,7 @@ extern "C" int dwst_ln_ff_res_bf16(const void* x, const void* skip,
                                    float* mean, float* var, void* wb, int B,
                                    int H, int F, int L, int P, int smem,
                                    cudaStream_t stream) {
-  if (H % 16 || F % 16 || H > 512) return (int)cudaErrorInvalidValue;
+  if (H % 16 || F % 16 || H > 1024) return (int)cudaErrorInvalidValue;
   const auto* xb = static_cast<const bf16*>(x);
   const auto* sb = static_cast<const bf16*>(skip);
   auto* ob = static_cast<bf16*>(out);
@@ -1204,8 +1404,11 @@ extern "C" int dwst_ln_ff_res_bf16(const void* x, const void* skip,
   if (P == 64)
     return launch_ff_tc<64, 4>(xb, sb, W1, b1, W2, b2, m, s, ob, mean, var, w,
                                B, H, F, L, smem, stream);
-  if (P == 32)
+  if (P == 32 && H <= 512)
     return launch_ff_tc<32, 4>(xb, sb, W1, b1, W2, b2, m, s, ob, mean, var, w,
+                               B, H, F, L, smem, stream);
+  if (P == 16)
+    return launch_ff_tc<16, 8>(xb, sb, W1, b1, W2, b2, m, s, ob, mean, var, w,
                                B, H, F, L, smem, stream);
   return (int)cudaErrorInvalidValue;
 }
@@ -1213,9 +1416,10 @@ extern "C" int dwst_ln_ff_res_bf16(const void* x, const void* skip,
 extern "C" int dwst_glu_res_bwd(const float* y, const float* g, const float* W,
                                 const float* Wt, const float* b, float* dy,
                                 float* dz, float* part, float* grads, int B,
-                                int H, int L, int tc, cudaStream_t stream) {
-  return glu_res_bwd(y, g, W, Wt, b, dy, dz, part, grads, B, H, L, tc,
-                     stream);
+                                int H, int L, int tc, int P, int smem,
+                                cudaStream_t stream) {
+  return glu_res_bwd(y, g, W, Wt, b, dy, dz, part, grads, B, H, L, tc, P,
+                     smem, stream);
 }
 
 // Kernel 6f: y, g and dy bf16; dz, part and grads f32.
@@ -1223,10 +1427,11 @@ extern "C" int dwst_glu_res_bwd_bf16(const void* y, const void* g,
                                      const float* W, const float* Wt,
                                      const float* b, void* dy, float* dz,
                                      float* part, float* grads, int B, int H,
-                                     int L, int tc, cudaStream_t stream) {
+                                     int L, int tc, int P, int smem,
+                                     cudaStream_t stream) {
   return glu_res_bwd(static_cast<const bf16*>(y), static_cast<const bf16*>(g),
                      W, Wt, b, static_cast<bf16*>(dy), dz, part, grads, B, H,
-                     L, tc, stream);
+                     L, tc, P, smem, stream);
 }
 
 extern "C" int dwst_ln_ff_res_bwd(
@@ -1234,10 +1439,11 @@ extern "C" int dwst_ln_ff_res_bwd(
     const float* W1t, const float* W2t, const float* m, const float* s,
     float* dx, float* xn, float* hact, float* dz, float* stat_part,
     float* dms, float* part1, float* grads1, float* part2, float* grads2,
-    int B, int H, int F, int L, int tc, cudaStream_t stream) {
+    int B, int H, int F, int L, int tc, int P, int smem,
+    cudaStream_t stream) {
   return ln_ff_res_bwd(x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact, dz,
                        stat_part, dms, part1, grads1, part2, grads2, B, H, F,
-                       L, tc, stream);
+                       L, tc, P, smem, stream);
 }
 
 // Kernel 7f: x, g and dx bf16; the scratch and the gradients f32.
@@ -1246,9 +1452,11 @@ extern "C" int dwst_ln_ff_res_bwd_bf16(
     const float* W1t, const float* W2t, const float* m, const float* s,
     void* dx, float* xn, float* hact, float* dz, float* stat_part,
     float* dms, float* part1, float* grads1, float* part2, float* grads2,
-    int B, int H, int F, int L, int tc, cudaStream_t stream) {
+    int B, int H, int F, int L, int tc, int P, int smem,
+    cudaStream_t stream) {
   return ln_ff_res_bwd(static_cast<const bf16*>(x),
                        static_cast<const bf16*>(g), W1, b1, W1t, W2t, m, s,
                        static_cast<bf16*>(dx), xn, hact, dz, stat_part, dms,
-                       part1, grads1, part2, grads2, B, H, F, L, tc, stream);
+                       part1, grads1, part2, grads2, B, H, F, L, tc, P, smem,
+                       stream);
 }

@@ -86,24 +86,32 @@ __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One warp's product acc[m][j] (MT m-tiles x N8 n-tiles, f32) = A[r0 :
-// r0 + 16 MT, :] Bs: A bf16 or f32 (M x K, row-major) in device memory,
-// its fragments loaded one k-step ahead of their use; Bs bf16 (K x 8 N8)
-// in shared memory, row stride ld.  K % 16 == 0, N8 even.
-template <int MT, int N8, typename TA>
+// One warp's product acc[m][j] (MT m-tiles x N8 n-tiles, f32) = A[rows of
+// m-tile m, :] Bs: A bf16 or f32 (M x K, row-major) in device memory, its
+// fragments loaded one k-step ahead of their use; Bs bf16 (K x 8 N8) in
+// shared memory, row stride ld.  K % 16 == 0, N8 even.  The m-tiles come in
+// groups of MG consecutive ones, gap rows apart: m-tile m covers rows
+// [r0 + 16 (m % MG) + gap (m / MG), + 16) (by default one group, rows [r0,
+// r0 + 16 MT)).
+template <int MT, int N8, typename TA, int MG = MT>
 __device__ __forceinline__ void warp_gemm(const TA* __restrict__ A,
                                           int M, int K, int r0,
                                           const __nv_bfloat16* Bs, int ld,
-                                          float acc[MT][N8][4]) {
+                                          float acc[MT][N8][4],
+                                          int gap = 0) {
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int j = 0; j < N8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.0f;
+  int row[MT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+    row[mt] = r0 + 16 * (mt % MG) + gap * (mt / MG);
   uint32_t pre[MT][4];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) load_a(pre[mt], A, M, K, r0 + 16 * mt, 0);
+  for (int mt = 0; mt < MT; ++mt) load_a(pre[mt], A, M, K, row[mt], 0);
   for (int k0 = 0; k0 < K; k0 += 16) {
     uint32_t a[MT][4];
 #pragma unroll
@@ -113,7 +121,7 @@ __device__ __forceinline__ void warp_gemm(const TA* __restrict__ A,
     if (k0 + 16 < K) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
-        load_a(pre[mt], A, M, K, r0 + 16 * mt, k0 + 16);
+        load_a(pre[mt], A, M, K, row[mt], k0 + 16);
     }
 #pragma unroll
     for (int j = 0; j < N8; j += 2) {

@@ -65,7 +65,7 @@ def dataloader(dataset_cfg, batch_size: int, num_replicas: int = 1,
             "sc09", "sc", "speechcommands")):
         raise NotImplementedError("mel-conditioned datasets (LJSpeech) are "
                                   "not ported yet: ROADMAP.md queue 1, item "
-                                  "10")
+                                  "2 (vocoder training)")
     ds = SpeechCommands(dataset_cfg["data_path"],
                         segment_length=dataset_cfg.get("segment_length",
                                                        16000),

@@ -7,7 +7,9 @@ dropped (as the reference's ``**kwargs`` swallows them), except
 ``precision`` sets the activation dtype of either backbone: f32, or bf16
 (the shipped default), which samples every model (SC09 SaShiMi and
 WaveNet, the vocoder) and trains unconditional SaShiMi at kernel 1's FFT
-sizes; the bf16 training paths still unported are refused by name.
+sizes; the bf16 training paths still unported, f32 training on the card
+past kernel 1's FFT sizes, and on the card SaShiMi widths the
+channel-mixer kernels do not take, are refused by name.
 """
 
 from __future__ import annotations
@@ -17,8 +19,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..ops.fftconv_long import KERNEL1_MAX_N
-from .sashimi import BF16_LONG_TRAIN_TODO, Sashimi
+from .sashimi import Sashimi, check_mixer_widths, check_train_length
 from .wavenet import WaveNet
 
 _REGISTRY = {"sashimi": Sashimi, "wavenet": WaveNet}
@@ -42,32 +43,38 @@ def activation_dtype(precision: str) -> torch.dtype:
 
 
 def check_supported(model_cfg: Dict[str, Any], precision: str,
-                    train: bool = False) -> None:
-    """Raise on a model config or precision the port does not run for
-    sampling, or with ``train`` for training (by name, with its ROADMAP
-    entry), before anything is built."""
+                    train: bool = False, *, device_type: str) -> None:
+    """Raise on a model config or precision the port does not run on
+    ``device_type`` ("cuda" or "cpu") for sampling, or with ``train`` for
+    training (by name, with its ROADMAP entry), before anything is
+    built."""
+    def arg(key):       # the config's value, else Sashimi's default
+        return model_cfg.get(
+            key, inspect.signature(Sashimi).parameters[key].default)
+
     dtype = activation_dtype(precision)
     name = model_cfg["_name_"]
     if name not in _REGISTRY:
         raise NotImplementedError(f"model {name!r} is not ported yet")
     if model_cfg.get("kernel_fft_fast"):
         raise NotImplementedError(KERNEL_FFT_FAST_TODO)
-    if not train or dtype != torch.bfloat16:
+    if name == "sashimi" and device_type == "cuda":
+        check_mixer_widths(arg("d_model"), arg("expand"), len(arg("pool")),
+                           arg("ff"), dtype, train)
+    if not train:
         return
-    if name == "wavenet":
+    if dtype == torch.bfloat16 and name == "wavenet":
         raise NotImplementedError(BF16_WAVENET_TRAIN_TODO)
-    if not model_cfg.get("unconditional", True):
+    if dtype == torch.bfloat16 and not model_cfg.get("unconditional", True):
         raise NotImplementedError(BF16_VOCODER_TRAIN_TODO)
-    L = int(model_cfg.get(
-        "L", inspect.signature(Sashimi).parameters["L"].default))
-    if 1 << (2 * L - 1).bit_length() > KERNEL1_MAX_N:
-        raise NotImplementedError(BF16_LONG_TRAIN_TODO)
+    if name == "sashimi":
+        check_train_length(int(arg("L")), dtype, device_type)
 
 
 def construct_model(model_cfg: Dict[str, Any], precision: str = "f32",
                     generator: Optional[torch.Generator] = None):
     """Build the backbone (on the CPU) from a model config block."""
-    check_supported(model_cfg, precision)
+    check_supported(model_cfg, precision, device_type="cpu")
     cfg = dict(model_cfg)
     cls = _REGISTRY[cfg.pop("_name_")]
     params = inspect.signature(cls).parameters

@@ -50,7 +50,7 @@ from typing import List, Optional, Sequence
 import torch
 import torch.nn as nn
 
-from ..ops import FUSED, Ops, widen
+from ..ops import FUSED, Ops, chmix, widen
 from ..ops.conv import TorchLinear, WNConv1d, ZeroConv1d, swish
 from ..ops.fftconv_long import KERNEL1_MAX_N
 from ..ops.mel_upsample import MelUpsampler
@@ -61,6 +61,46 @@ BF16_LONG_TRAIN_TODO = ("bf16 training at FFT sizes past 32768 (the "
                         "vocoder's lengths) needs the bf16 training form of "
                         "kernel 9, which is not ported: ROADMAP.md queue 1, "
                         "item 1")
+F32_LONG_TRAIN_TODO = ("f32 training on the card at FFT sizes past 32768 "
+                       "(the vocoder's lengths) needs the training route "
+                       "through kernel 9, which is not ported: ROADMAP.md "
+                       "queue 1, item 1")
+
+
+def check_train_length(L: int, dtype: torch.dtype, device_type: str) -> None:
+    """Raise NotImplementedError, before anything runs, where the port
+    cannot train on sequences of L samples: past kernel 1's FFT sizes
+    (n = the power of two >= 2L above 32768) at bf16 on any device, and
+    at f32 on the card (kernel 1's training entry refuses them; the CPU's
+    plain path trains them, as JAX does)."""
+    if 1 << (2 * L - 1).bit_length() <= KERNEL1_MAX_N:
+        return
+    if dtype == torch.bfloat16:
+        raise NotImplementedError(BF16_LONG_TRAIN_TODO)
+    if device_type == "cuda":
+        raise NotImplementedError(F32_LONG_TRAIN_TODO)
+
+
+def check_mixer_widths(d_model: int, expand: int, n_pools: int, ff: int,
+                       dtype: torch.dtype, train: bool) -> None:
+    """Raise NotImplementedError, naming the width, where a channel-mixer
+    kernel (2 and 3 at sampling, 6 and 7 too in training; their f forms
+    at bf16) does not take a UNet tier's widths (H = d_model expand^i, F =
+    ff H): the card runs every block through these kernels.  Every tier
+    of d_model 128 and 256 passes."""
+    H = d_model
+    for _ in range(n_pools + 1):
+        why = [chmix.glu_refusal(H, dtype),
+               chmix.ff_refusal(H, ff * H, dtype)]
+        if train:
+            why += [chmix.glu_bwd_refusal(H, dtype),
+                    chmix.ff_bwd_refusal(H, ff * H, dtype)]
+        why = next((w for w in why if w), None)
+        if why:
+            raise NotImplementedError(
+                f"{why}; on the card these widths are not ported: "
+                "ROADMAP.md queue 1, item 8")
+        H *= expand
 
 
 class TransposedLN(nn.Module):
@@ -291,9 +331,9 @@ class Sashimi(nn.Module):
         if conditioned == self.unconditional:
             raise ValueError("a conditional model takes a mel (mel or "
                              "mel_conds), an unconditional one none")
-        if train and self.act_dtype == torch.bfloat16 and (
-                1 << (2 * audio.shape[-1] - 1).bit_length()) > KERNEL1_MAX_N:
-            raise NotImplementedError(BF16_LONG_TRAIN_TODO)
+        if train:
+            check_train_length(audio.shape[-1], self.act_dtype,
+                               audio.device.type)
         if train and conditioned:
             raise NotImplementedError(
                 "training the mel-conditioned model is not ported yet: "

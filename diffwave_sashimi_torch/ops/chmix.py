@@ -16,13 +16,23 @@ by the tensors' dtype.  Forward: the weights, and FF's normalised input
 and GELU output, are rounded to bf16 before their products, which
 accumulate in f32; bias, sigmoid, LN statistics, the polynomial GELU and
 the residual adds are f32, and the output is rounded to bf16 (its
-statistics are the f32 output's); kernel 3f multiplies on the tensor
-cores and takes channel widths that are multiples of 16.  Backward (JAX
+statistics are the f32 output's); kernels 2f and 3f multiply on the
+tensor cores and take channel widths that are multiples of 16.  Backward (JAX
 ``_bmm`` / ``_bmmc``): both operands of every per-position product (z = W
 y, dy = W^T dz, z = W1 xn, dh = W2^T g, dxn = W1^T dz) are rounded to
 bf16, the weight gradients contract the unrounded f32 dz, xn and GELU
 output, the GELU's derivative is the polynomial's, dy and dx are rounded
 to bf16 and the weight, bias, m and s gradients stay f32.
+
+Widths: each kernel's plan (``glu_plan``, ``ff_plan``, ``glu_bwd_plan``,
+``ff_bwd_plan``, ``glu_bf16_plan``, ``ff_bf16_plan``) is the one place its
+positions a block and its shared-memory bytes are computed, and its
+refusal function (``glu_refusal`` and the like) says whether it takes a
+block's widths at an activation dtype.  Every kernel takes every tier of
+d_model 128 and 256 (H up to 1024, F = 2H).  A wrapper given widths its
+kernel does not take raises ValueError on CUDA tensors before it
+launches; ``models.check_supported`` refuses such a model on the card by
+name before it is built.
 """
 
 from __future__ import annotations
@@ -56,13 +66,14 @@ def mix_glu_res(y, res, w, b):
     if y.dtype == torch.bfloat16:
         return mix_glu_res_bf16(y, res, w, b)
     B, H, L = y.shape
-    _check_width(H)
+    _raise(glu_refusal(H, torch.float32))
     for t, shape in ((y, (B, H, L)), (res, (B, H, L)), (w, (2 * H, H)),
                      (b, (2 * H,))):
         cuda_lib.check(t, shape, torch.float32)
     out = torch.empty_like(res)
     cuda_lib.launch("dwst_glu_res", y.data_ptr(), res.data_ptr(),
-                    w.data_ptr(), b.data_ptr(), out.data_ptr(), B, H, L)
+                    w.data_ptr(), b.data_ptr(), out.data_ptr(), B, H, L,
+                    *glu_plan(H))
     mix_glu_res.launches += 1
     return out
 
@@ -72,18 +83,24 @@ mix_glu_res.launches = 0
 
 def mix_glu_res_bf16(y, res, w, b):
     """Kernel-2f wrapper (y, res bf16; w, b f32): CUDA kernel for CUDA
-    tensors, else the plain version."""
+    tensors, else the plain version.  The kernel multiplies on the tensor
+    cores, so H must be a multiple of 16 up to 1024
+    (:func:`check_glu_bf16_widths`).  A call launches two kernels, counted
+    as one launch: a pass that rounds W to bf16 into a scratch of its own,
+    then the tensor-core kernel."""
     if not y.is_cuda:
         return glu_res_ref(y, res, w, b)
     B, H, L = y.shape
-    _check_width(H)
+    check_glu_bf16_widths(H)
     for t, shape in ((y, (B, H, L)), (res, (B, H, L))):
         cuda_lib.check(t, shape, torch.bfloat16)
     for t, shape in ((w, (2 * H, H)), (b, (2 * H,))):
         cuda_lib.check(t, shape, torch.float32)
     out = torch.empty_like(res)
-    cuda_lib.launch("dwst_glu_res_bf16", y.data_ptr(), res.data_ptr(),
-                    w.data_ptr(), b.data_ptr(), out.data_ptr(), B, H, L)
+    wb = w.new_empty((2 * H * H,), dtype=torch.bfloat16)
+    cuda_lib.launch("dwst_glu_res_bf16", *_ptrs(y, res, w, b, out, wb),
+                    B, H, L,
+                    *glu_bf16_plan(B, H, L, cuda_lib.sm_count(y.device)))
     mix_glu_res_bf16.launches += 1
     return out
 
@@ -125,12 +142,13 @@ def ln_ff_res(x, m, s, w1, b1, w2, b2, skip=None, emit_stats=False):
     if x.dtype == torch.bfloat16:
         return ln_ff_res_bf16(x, m, s, w1, b1, w2, b2, skip, emit_stats)
     B, H, L = x.shape
-    _check_width(H, w1.shape[0])
+    Fd = w1.shape[0]
+    _raise(ff_refusal(H, Fd, torch.float32))
     out, mean, var = _ff_outputs(torch.float32, x, m, s, w1, b1, w2, b2, skip,
                                  emit_stats)
     cuda_lib.launch("dwst_ln_ff_res", *_ptrs(x, skip, w1, b1, w2, b2, m, s,
                                               out, mean, var),
-                    B, H, w1.shape[0], L)
+                    B, H, Fd, L, *ff_plan(H, Fd))
     ln_ff_res.launches += 1
     return (out, mean, var) if emit_stats else out
 
@@ -165,6 +183,90 @@ ln_ff_res_bf16.launches = 0
 
 # shared memory one block may use on sm_90 (227 KB)
 SMEM_LIMIT = 232448
+# csrc/chmix.cu's fp32 tiles (kernels 2, 3, 6, 7 and the 6f, 7f forms): NT
+# threads a block; weights through a transposed (TK x 16384 / P + 4) tile
+NT, TK = 256, 8
+# the positions a block each fp32 kernel is built for (the P cases of its
+# launcher in csrc/chmix.cu), widest first
+GLU_PS = (128, 64, 32)
+FF_PS = (128, 64, 32, 16)
+GLU_BWD_PS = (128, 64, 32, 16)
+FF_BWD_PS = (64, 32, 16, 8)
+# the widest H kernels 2f and 3f take
+GLU_BF16_MAX_H = FF_BF16_MAX_H = 1024
+
+
+def _positions(H):
+    """P = 16384 / H within [32, 128]: kernels 2, 3 and 6 and the
+    tensor-core kernels' default."""
+    return 128 if H <= 128 else (64 if H <= 256 else 32)
+
+
+def _weight_tile(P):
+    """Floats of the fp32 kernels' transposed weight tile at P."""
+    return TK * (16384 // P + 4)
+
+
+def _fitted(ps, P0, smem):
+    """(P, smem(P)) for the widest P of ``ps`` up to P0 whose tiles fit
+    one block's shared memory (the narrowest if none does: the kernel's
+    refusal then names the bytes)."""
+    ps = [P for P in ps if P <= P0]
+    P = next((P for P in ps if smem(P) <= SMEM_LIMIT), ps[-1])
+    return P, smem(P)
+
+
+def glu_plan(H):
+    """Kernel 2's (P, shared-memory bytes a block): the f32 y tile (H x P)
+    and the weight tile."""
+    return _fitted(GLU_PS, _positions(H),
+                   lambda P: 4 * (H * P + _weight_tile(P)))
+
+
+def ff_plan(H, F):
+    """Kernel 3's (P, bytes): the f32 input and hidden tiles ((H + F) x P),
+    the weight tile, 2 NT floats of sums and 2 P of statistics; P halved
+    from 16384 / H until they fit (16 at H 1024, F 2048)."""
+    return _fitted(FF_PS, _positions(H), lambda P: 4 * (
+        (H + F) * P + _weight_tile(P) + 2 * NT + 2 * P))
+
+
+def glu_bwd_plan(H):
+    """Kernel 6's and 6f's (P, bytes): the f32 y and dz tiles (3H x P) and
+    the weight tile; P halved from 16384 / H until they fit (16 at H
+    1024)."""
+    return _fitted(GLU_BWD_PS, _positions(H),
+                   lambda P: 4 * (3 * H * P + _weight_tile(P)))
+
+
+def ff_bwd_plan(H, F):
+    """Kernel 7's and 7f's (P, bytes): P = 8192 / H within [16, 64], halved
+    until the tiles fit (8 at H 1024, F 2048); the f32 x, g and hidden
+    tiles ((2H + F) x P), the weight tile, 2 NT floats of sums and 4 P of
+    statistics."""
+    P0 = 64 if H <= 128 else (32 if H <= 256 else 16)
+    return _fitted(FF_BWD_PS, P0, lambda P: 4 * (
+        (2 * H + F) * P + _weight_tile(P) + 2 * NT + 4 * P))
+
+
+def glu_bf16_plan(B, H, L, sms=132):
+    """Kernel 2f's tile plan on a card of ``sms`` SMs: (P positions a
+    block, shared-memory bytes a block), the grid being ceil(L / P) x B
+    blocks of one block an SM.  P = 16384 / H within [32, 128]; past H 256,
+    P 64 where the grid still fills two waves (each block reads W whole,
+    so a wider P halves those reads per position).  The block keeps its
+    H-row y tile as bf16 and, for one pass of value rows (16384 / P of
+    them, or H if fewer), the f32 gated product and the bf16 res rows,
+    rows padded to P + 8.  The kernel (``csrc/chmix.cu::
+    glu_res_tc_kernel``) takes these bytes as given: this is the one place
+    they are computed."""
+    def smem(P):
+        return (P + 8) * (H * 2 + min(H, 16384 // P) * (4 + 2))
+
+    P = _positions(H)
+    if H > 256 and B * -(-L // 64) >= 2 * sms and smem(64) <= SMEM_LIMIT:
+        P = 64
+    return P, smem(P)
 
 
 def ff_bf16_plan(B, H, F, L, sms=132):
@@ -173,7 +275,8 @@ def ff_bf16_plan(B, H, F, L, sms=132):
     blocks.  P = 16384 / H within [32, 128], two blocks an SM below H 512
     at F = 2H; past H 256, P 64 where the grid still fills two waves of
     one block an SM (each block reads both weight matrices, 2 MB in bf16
-    at H 512, so a wider P halves those reads per position).  The block
+    at H 512, so a wider P halves those reads per position); 16 past H
+    512, where GEMM 2's warps hold 8 m-tiles each.  The block
     keeps per-position f32 sums and statistics (18 P floats), its H-row
     input tile as bf16, and one region that holds the F-row bf16 GELU tile
     and then GEMM 2's H-row f32 output tile, rows padded to P + 8.  The
@@ -183,27 +286,85 @@ def ff_bf16_plan(B, H, F, L, sms=132):
         return (18 * P * 4 + H * (P + 8) * 2
                 + max(F * (P + 8) * 2, H * (P + 8) * 4))
 
-    P = 128 if H <= 128 else (64 if H <= 256 else 32)
-    if H > 256 and B * -(-L // 64) >= 2 * sms and smem(64) <= SMEM_LIMIT:
+    P = _positions(H)
+    if H > 512:
+        P = 16
+    elif H > 256 and B * -(-L // 64) >= 2 * sms and smem(64) <= SMEM_LIMIT:
         P = 64
     return P, smem(P)
 
 
-def check_ff_bf16_widths(H, F):
-    """Raise ValueError unless kernel 3f takes channel widths H and F: its
-    mma tiles are 16 channels deep, so both must be positive multiples of
-    16; its eight warps hold at most 16384 / P output channels (H <= 512);
-    and its tiles must fit one block's shared memory."""
-    for name, w in (("H", H), ("F", F)):
-        if w <= 0 or w % 16:
-            raise ValueError(f"kernel 3f: channel width {name} = {w} must be "
-                             f"a positive multiple of 16")
-    if H > 512:
-        raise ValueError(f"kernel 3f: channel width H = {H} is over 512")
-    smem = ff_bf16_plan(1, H, F, 1)[1]
+def _width_refusal(kernel, widths, step, smem, max_h=None):
+    """Why ``kernel`` does not take ``widths`` ((name, width) pairs, H
+    first), each of which must be a positive multiple of ``step``, H at
+    most ``max_h``, on ``smem`` bytes of shared memory a block; None if it
+    does."""
+    for name, w in widths:
+        if w <= 0 or w % step:
+            return (f"kernel {kernel}: channel width {name} = {w} must be a "
+                    f"positive multiple of {step}")
+    H = widths[0][1]
+    if max_h is not None and H > max_h:
+        return f"kernel {kernel}: channel width H = {H} is over {max_h}"
     if smem > SMEM_LIMIT:
-        raise ValueError(f"kernel 3f: widths H = {H}, F = {F} need {smem} "
-                         f"bytes of shared memory a block, over {SMEM_LIMIT}")
+        return (f"kernel {kernel}: widths "
+                + ", ".join(f"{n} = {w}" for n, w in widths)
+                + f" need {smem} bytes of shared memory a block, over "
+                f"{SMEM_LIMIT}")
+    return None
+
+
+def glu_refusal(H, dtype):
+    """None if kernel 2 (f32) or 2f (bf16 activations) takes channel
+    width H, else why not.  Kernel 2 loads weights in k-tiles of 8
+    channels; 2f's mma tiles are 16 deep and its plan holds up to
+    GLU_BF16_MAX_H rows."""
+    if dtype != torch.bfloat16:
+        return _width_refusal("2", (("H", H),), TK, glu_plan(H)[1])
+    return _width_refusal("2f", (("H", H),), 16, glu_bf16_plan(1, H, 1)[1],
+                          GLU_BF16_MAX_H)
+
+
+def ff_refusal(H, F, dtype):
+    """None if kernel 3 (f32) or 3f (bf16 activations) takes widths H and
+    F (hidden), else why not.  3f's eight warps hold at most 128 output
+    channels each, so H <= FF_BF16_MAX_H."""
+    widths = (("H", H), ("F", F))
+    if dtype != torch.bfloat16:
+        return _width_refusal("3", widths, TK, ff_plan(H, F)[1])
+    return _width_refusal("3f", widths, 16, ff_bf16_plan(1, H, F, 1)[1],
+                          FF_BF16_MAX_H)
+
+
+def glu_bwd_refusal(H, dtype):
+    """None if kernel 6 (f32) or 6f (bf16 activations) takes width H."""
+    return _width_refusal("6f" if dtype == torch.bfloat16 else "6",
+                          (("H", H),), TK, glu_bwd_plan(H)[1])
+
+
+def ff_bwd_refusal(H, F, dtype):
+    """None if kernel 7 (f32) or 7f (bf16 activations) takes widths H and
+    F."""
+    return _width_refusal("7f" if dtype == torch.bfloat16 else "7",
+                          (("H", H), ("F", F)), TK, ff_bwd_plan(H, F)[1])
+
+
+def _raise(refusal):
+    if refusal is not None:
+        raise ValueError(refusal)
+
+
+def check_glu_bf16_widths(H):
+    """Raise ValueError, naming the width, unless kernel 2f takes H: a
+    positive multiple of 16 up to GLU_BF16_MAX_H."""
+    _raise(glu_refusal(H, torch.bfloat16))
+
+
+def check_ff_bf16_widths(H, F):
+    """Raise ValueError, naming the width, unless kernel 3f takes H and F:
+    positive multiples of 16 (its mma tiles are 16 channels deep), H <=
+    FF_BF16_MAX_H, and tiles that fit one block's shared memory."""
+    _raise(ff_refusal(H, F, torch.bfloat16))
 
 
 def _ff_outputs(dtype, x, m, s, w1, b1, w2, b2, skip, emit_stats):
@@ -225,16 +386,6 @@ def _ff_outputs(dtype, x, m, s, w1, b1, w2, b2, skip, emit_stats):
 def _ptrs(*tensors):
     """Device addresses of tensors, None (a null pointer) for None."""
     return [None if t is None else t.data_ptr() for t in tensors]
-
-
-def _check_width(*widths):
-    """The kernels load weights in k-tiles of 8 channels (two float4).
-    (Widths whose activation tile overflows shared memory, H > 512 for the
-    FF kernel, are refused at launch.)"""
-    for w in widths:
-        if w % 8:
-            raise ValueError(f"channel width {w} must be a multiple of 8 "
-                             f"for the CUDA kernels")
 
 
 def _gelu_grad(z):
@@ -340,7 +491,7 @@ def _launch_glu_bwd(wrapper, entry, dtype, y, w, b, g):
     dz scratch and the gradients f32), launch ``entry`` and count it on
     ``wrapper``."""
     B, H, L = y.shape
-    _check_width(H)
+    _raise(glu_bwd_refusal(H, dtype))
     for t in (y, g):
         cuda_lib.check(t, (B, H, L), dtype)
     for t, shape in ((w, (2 * H, H)), (b, (2 * H,))):
@@ -352,7 +503,7 @@ def _launch_glu_bwd(wrapper, entry, dtype, y, w, b, g):
     cuda_lib.launch(entry, y.data_ptr(), g.data_ptr(), w.data_ptr(),
                     wt.data_ptr(), b.data_ptr(), dy.data_ptr(), dz.data_ptr(),
                     part.data_ptr(), grads.data_ptr(), B, H, L,
-                    WGRAD_POSITIONS)
+                    WGRAD_POSITIONS, *glu_bwd_plan(H))
     wrapper.launches += 1
     return dy, grads[:2 * H * H].view(2 * H, H), grads[2 * H * H:]
 
@@ -391,7 +542,7 @@ def _launch_ff_bwd(wrapper, entry, dtype, x, m, s, w1, b1, w2, b2, g):
     ``entry`` and count it on ``wrapper``."""
     B, H, L = x.shape
     Fd = w1.shape[0]
-    _check_width(H, Fd)
+    _raise(ff_bwd_refusal(H, Fd, dtype))
     for t in (x, g):
         cuda_lib.check(t, (B, H, L), dtype)
     for t, shape in ((w1, (Fd, H)), (b1, (Fd,)), (w2, (H, Fd)), (b2, (H,)),
@@ -402,8 +553,8 @@ def _launch_ff_bwd(wrapper, entry, dtype, x, m, s, w1, b1, w2, b2, g):
     xn = w1.new_empty((B, H, L))
     hact = w1.new_empty((B, Fd, L))
     dz = w1.new_empty((B, Fd, L))
-    # per-block (dm, ds) partials: at most one block per 16 positions
-    stat_part = w1.new_empty((B * -(-L // 16), 2))
+    P, smem = ff_bwd_plan(H, Fd)
+    stat_part = w1.new_empty((B * -(-L // P), 2))     # (dm, ds) a block
     dms = w1.new_empty((2,))
     part1, grads1 = _wgrad_scratch(w1, B, L, Fd, H)
     part2, grads2 = _wgrad_scratch(w1, B, L, H, Fd)
@@ -413,7 +564,7 @@ def _launch_ff_bwd(wrapper, entry, dtype, x, m, s, w1, b1, w2, b2, g):
                     hact.data_ptr(), dz.data_ptr(), stat_part.data_ptr(),
                     dms.data_ptr(), part1.data_ptr(), grads1.data_ptr(),
                     part2.data_ptr(), grads2.data_ptr(), B, H, Fd, L,
-                    WGRAD_POSITIONS)
+                    WGRAD_POSITIONS, P, smem)
     wrapper.launches += 1
     return (dx, dms[0:1], dms[1:2], grads1[:Fd * H].view(Fd, H),
             grads1[Fd * H:], grads2[:H * Fd].view(H, Fd), grads2[H * Fd:])

@@ -37,14 +37,19 @@ _SIGNATURES = {
     # the same arguments, the activations bf16)
     "dwst_fftconv_ln_bias_gelu_d": [_P] * 7 + [_I] * 4 + [_P],
     "dwst_fftconv_ln_bias_gelu_d_bf16": [_P] * 7 + [_I] * 4 + [_P],
-    # y, res, W, b, out, B, H, L, stream
-    "dwst_glu_res": [_P] * 5 + [_I] * 3 + [_P],
-    "dwst_glu_res_bf16": [_P] * 5 + [_I] * 3 + [_P],
-    # x, skip, W1, b1, W2, b2, m, s, out, mean, var, B, H, F, L, stream
-    "dwst_ln_ff_res": [_P] * 11 + [_I] * 4 + [_P],
-    # the same with x, skip and out bf16, wb (bf16 weight scratch, or
-    # null) after var, and P (positions a block) and smem (its bytes of
-    # shared memory) after L
+    # The channel mixers (kernels 2, 3, 6, 7 and their f forms) take P
+    # (positions a block) and smem (its bytes of shared memory) from their
+    # plans in ops/chmix.py, after their other ints.
+    # y, res, W, b, out, B, H, L, P, smem, stream
+    "dwst_glu_res": [_P] * 5 + [_I] * 5 + [_P],
+    # the same with y, res and out bf16 and wb (the bf16 weight scratch)
+    # after out
+    "dwst_glu_res_bf16": [_P] * 6 + [_I] * 5 + [_P],
+    # x, skip, W1, b1, W2, b2, m, s, out, mean, var, B, H, F, L, P, smem,
+    # stream
+    "dwst_ln_ff_res": [_P] * 11 + [_I] * 6 + [_P],
+    # the same with x, skip and out bf16 and wb (bf16 weight scratch, or
+    # null) after var
     "dwst_ln_ff_res_bf16": [_P] * 12 + [_I] * 6 + [_P],
     # u, a, c, bias, khat, D, W, qc, qs, out, B, H, L, n, R, S, Rc, bf16,
     # stream
@@ -59,13 +64,13 @@ _SIGNATURES = {
     # u, g, out, B, H, L, n, stream
     "dwst_fftconv_dkf": [_P] * 3 + [_I] * 4 + [_P],
     "dwst_fftconv_dkf_bf16": [_P] * 3 + [_I] * 4 + [_P],
-    # y, g, W, Wt, b, dy, dz, part, grads, B, H, L, tc, stream
-    "dwst_glu_res_bwd": [_P] * 9 + [_I] * 4 + [_P],
-    "dwst_glu_res_bwd_bf16": [_P] * 9 + [_I] * 4 + [_P],
+    # y, g, W, Wt, b, dy, dz, part, grads, B, H, L, tc, P, smem, stream
+    "dwst_glu_res_bwd": [_P] * 9 + [_I] * 6 + [_P],
+    "dwst_glu_res_bwd_bf16": [_P] * 9 + [_I] * 6 + [_P],
     # x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact, dz, stat_part, dms,
-    # part1, grads1, part2, grads2, B, H, F, L, tc, stream
-    "dwst_ln_ff_res_bwd": [_P] * 18 + [_I] * 5 + [_P],
-    "dwst_ln_ff_res_bwd_bf16": [_P] * 18 + [_I] * 5 + [_P],
+    # part1, grads1, part2, grads2, B, H, F, L, tc, P, smem, stream
+    "dwst_ln_ff_res_bwd": [_P] * 18 + [_I] * 7 + [_P],
+    "dwst_ln_ff_res_bwd_bf16": [_P] * 18 + [_I] * 7 + [_P],
     # a, b, c, d, z, g, da, db, dc, dd, K, M, N, Lz, stream
     "dwst_cauchy_bwd": [_P] * 10 + [_I] * 4 + [_P],
     # u, a, c, bias, kp, D, scratch, out, B, H, L, n, stream (the _bf16

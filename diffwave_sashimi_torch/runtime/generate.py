@@ -104,7 +104,8 @@ def generate(diffusion_cfg, model_cfg, dataset_cfg, ckpt_iter="max",
              device=None) -> np.ndarray:
     """Sample ``n_samples`` waveforms; returns (n_samples, 1, L) numpy.
     ``device`` defaults to the first card (see :func:`resolve_device`)."""
-    check_supported(model_cfg, precision)
+    check_supported(model_cfg, precision, device_type=torch.device(
+        "cuda" if device is None else device).type)
     if conv_int8 and model_cfg["_name_"] != "sashimi":
         raise ValueError("compute.conv_int8 switches SaShiMi's S4 conv; "
                          f"model {model_cfg['_name_']!r} has none")

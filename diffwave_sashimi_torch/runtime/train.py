@@ -20,9 +20,10 @@ precision.  In-training samples are drawn at f32, as the JAX trainer's
 ``generate()`` call does.  Not ported, and refused by name
 (``models.check_supported(..., train=True)`` and the rest of
 :func:`_refuse_unported`): bf16 WaveNet training, bf16 training of a
-mel-conditioned model or past FFT size 32768, dropout, mel conditioning
-at any precision, activation rematerialisation, data parallelism
-(``mesh.data`` > 1) and wandb.
+mel-conditioned model or past FFT size 32768, f32 training on the card
+past FFT size 32768, dropout, mel conditioning at any precision,
+activation rematerialisation, data parallelism (``mesh.data`` > 1) and
+wandb.
 """
 
 from __future__ import annotations
@@ -85,11 +86,14 @@ def train_step(model, optimizer, audio: torch.Tensor, schedule,
     return loss.detach()
 
 
-def _refuse_unported(model_cfg, compute_cfg, mesh_cfg, wandb_cfg) -> str:
-    """The compute precision, after refusing what is not ported."""
+def _refuse_unported(model_cfg, compute_cfg, mesh_cfg, wandb_cfg,
+                     device_type) -> str:
+    """The compute precision, after refusing what is not ported on
+    ``device_type``."""
     compute_cfg = compute_cfg or {}
     precision = compute_cfg.get("precision", "bf16")
-    check_supported(model_cfg, precision, train=True)
+    check_supported(model_cfg, precision, train=True,
+                    device_type=device_type)
     if compute_cfg.get("remat"):
         raise NotImplementedError("compute.remat (activation "
                                   "rematerialisation) is not ported: "
@@ -117,8 +121,9 @@ def train(diffusion_cfg, model_cfg, dataset_cfg, generate_cfg,
     """Run the training loop; returns {'model', 'optimizer', 'step',
     'checkpoint_dir', 'losses'} ('losses': the logged (iteration, loss)
     pairs).  ``device`` defaults to the first card."""
-    precision = _refuse_unported(model_cfg, compute_cfg, mesh_cfg, wandb_cfg)
     device = resolve_device(device)
+    precision = _refuse_unported(model_cfg, compute_cfg, mesh_cfg, wandb_cfg,
+                                 device.type)
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 means f32
     torch.backends.cudnn.allow_tf32 = False
     local_path, ckpt_dir = local_directory(name, model_cfg, diffusion_cfg,

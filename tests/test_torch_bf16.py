@@ -223,12 +223,14 @@ def test_ff_bf16_matches_jax_fast_kernel(with_skip, shape):
     (16, 32, True), (32, 64, True), (128, 256, True), (256, 512, True),
     (512, 1024, True), (128, 128, True), (512, 512, True), (256, 128, True),
     (24, 48, False), (128, 264, False), (0, 32, False), (520, 1040, False),
-    (528, 1056, False)])
+    (528, 1056, True), (1024, 2048, True), (1040, 2080, False),
+    (1024, 4096, False)])
 def test_ff_bf16_width_check(H, F, ok):
     """Kernel 3f's width rule, checked without a card: H and F multiples
-    of 16, H at most 512; every shipped width (d_model 128, expand 2, ff
-    2: H 128, 256, 512) passes, F = H and F < H pass, and a refusal names
-    the width."""
+    of 16, H at most 1024, tiles within one block; every shipped width
+    (d_model 128, expand 2, ff 2: H 128, 256, 512) and every tier of
+    d_model 256 (H up to 1024) passes, F = H and F < H pass, and a refusal
+    names the width."""
     if ok:
         ops.chmix.check_ff_bf16_widths(H, F)
         return
@@ -274,7 +276,8 @@ def test_ff_bf16_plan_fits_shared_memory(tier):
 
 @pytest.mark.parametrize("H,F", [(16, 16), (128, 64), (128, 128),
                                  (128, 256), (128, 512), (512, 256),
-                                 (512, 512), (512, 1024)])
+                                 (512, 512), (512, 1024), (1024, 2048),
+                                 (1024, 1024), (768, 3072)])
 def test_ff_bf16_plan_holds_every_tile(H, F):
     """Kernel 3f's shared memory holds its layout at any accepted F, not
     only F = 2H: 18 P f32 sums and statistics, the H-row bf16 input tile,

@@ -1,0 +1,254 @@
+"""Kernel 2f's tile plan and width rule, the channel mixers' plans at
+every tier of d_model 128 and 256, and the port's named refusals, checked
+without a card: the plan's shared memory at the shipped tiers and at every
+width 2f takes, the positions a block and bytes each fp32 mixer plan picks
+up to H 1024, the card's refusal of widths no mixer kernel takes
+(sampling and training, f32 and bf16), the refusal of f32 training past
+kernel 1's FFT sizes on the card only, and the loader's refusal of mel
+datasets."""
+
+import math
+
+import pytest
+import torch
+
+from test_torch_common import SMALL_CFG
+
+from diffwave_sashimi_torch.config import load_config
+from diffwave_sashimi_torch.data import dataloader
+from diffwave_sashimi_torch.models import check_supported, construct_model
+from diffwave_sashimi_torch.models.sashimi import check_train_length
+from diffwave_sashimi_torch.ops import chmix
+
+BF, F32 = torch.bfloat16, torch.float32
+SMS = 132                       # the H100's SMs
+
+
+def _tiers(experiment, L, B):
+    """(B, H, L) of each UNet tier of an experiment's shipped model at
+    generated length L and batch B."""
+    m = load_config(overrides=[f"experiment={experiment}"]).model
+    out, H = [], m.d_model
+    for i in range(len(m.pool) + 1):
+        out.append((B, H, L))
+        if i < len(m.pool):
+            H, L = H * m.expand, L // m.pool[i]
+    return out
+
+
+@pytest.mark.parametrize("tier", [*_tiers("sc09", 16000, 4),
+                                  *_tiers("ljspeech", 143360, 2)],
+                         ids=lambda t: "B{}-H{}-L{}".format(*t))
+def test_glu_bf16_plan_fits_shared_memory(tier):
+    """Kernel 2f's plan at SC09's three tiers (B4) and the vocoder's (B2,
+    a 6.5 s utterance): the width passes the check, a block's shared
+    memory is within the 227 KB a block may use, P is 128 at H 128 and 64
+    at H 256, and at H 512 64 exactly where the grid (ceil(L / 64) x B
+    blocks) fills two waves of one block an SM, else 32."""
+    B, H, L = tier
+    chmix.check_glu_bf16_widths(H)
+    P, smem = chmix.glu_bf16_plan(B, H, L, sms=SMS)
+    assert smem <= chmix.SMEM_LIMIT == 227 * 1024
+    want = {128: 128, 256: 64}.get(
+        H, 64 if B * -(-L // 64) >= 2 * SMS else 32)
+    assert P == want
+
+
+@pytest.mark.parametrize("H", range(16, 1025, 16))
+def test_glu_bf16_plan_holds_every_tile(H):
+    """At every width 2f takes (multiples of 16 up to 1024) and at a short,
+    a middle and a long sequence, the plan's shared memory holds the
+    kernel's layout (csrc/chmix.cu::glu_res_tc_kernel): the H-row bf16 y
+    tile, then for one pass of value rows (8 warps x 16 x MV rows, MV P =
+    128, or H if fewer) the f32 gated product and the bf16 res rows, rows
+    padded to P + 8; each region starts 16-byte aligned, ldmatrix's rows
+    fall on distinct banks (row stride / 16 bytes odd), and the passes
+    cover all H rows."""
+    chmix.check_glu_bf16_widths(H)
+    for B, L in ((1, 100), (4, 1000), (2, 143360)):
+        P, smem = chmix.glu_bf16_plan(B, H, L, sms=SMS)
+        assert P in (32, 64, 128)
+        rows = 8 * 16 * (128 // P)
+        y_tile, staged = H * (P + 8) * 2, min(H, rows) * (P + 8) * 4
+        assert smem >= y_tile + staged + min(H, rows) * (P + 8) * 2
+        assert smem <= chmix.SMEM_LIMIT
+        assert y_tile % 16 == 0 and staged % 16 == 0
+        assert (P + 8) * 2 // 16 % 2 == 1
+        assert math.ceil(H / rows) * rows >= H
+
+
+@pytest.mark.parametrize("H,ok", [
+    (16, True), (128, True), (256, True), (512, True), (1008, True),
+    (1024, True), (0, False), (-16, False), (8, False), (24, False),
+    (1040, False), (2048, False)])
+def test_glu_bf16_width_check(H, ok):
+    """Kernel 2f's width rule: a positive multiple of 16 up to 1024 (every
+    tier of d_model 128 and 256); a refusal is a ValueError that names
+    the width."""
+    if ok:
+        chmix.check_glu_bf16_widths(H)
+        assert chmix.glu_refusal(H, BF) is None
+        return
+    with pytest.raises(ValueError, match=f"H = {H}"):
+        chmix.check_glu_bf16_widths(H)
+
+
+# the positions a block each fp32 mixer plan picks at a tier (H, F = 2H):
+# P halves from 16384 / H (8192 / H for kernel 7) until the tiles fit
+PLANS = {128: (128, 128, 128, 64), 256: (64, 64, 64, 32),
+         512: (32, 32, 32, 16), 1024: (32, 16, 16, 8)}
+
+
+@pytest.mark.parametrize("dtype", [F32, BF], ids=["f32", "bf16"])
+@pytest.mark.parametrize("H", sorted(PLANS))
+def test_mixer_kernels_take_every_tier(H, dtype):
+    """Every channel-mixer kernel (2, 3, 6, 7 and their f forms) takes the
+    widths of every tier of d_model 128 and 256 (H 128-1024, F = 2H): no
+    refusal, and each fp32 plan picks a P its kernel is built for
+    (csrc/chmix.cu's launchers) whose tiles fit one block."""
+    F = 2 * H
+    assert [chmix.glu_refusal(H, dtype), chmix.ff_refusal(H, F, dtype),
+            chmix.glu_bwd_refusal(H, dtype),
+            chmix.ff_bwd_refusal(H, F, dtype)] == [None] * 4
+    plans = (chmix.glu_plan(H), chmix.ff_plan(H, F), chmix.glu_bwd_plan(H),
+             chmix.ff_bwd_plan(H, F))
+    assert tuple(P for P, _ in plans) == PLANS[H]
+    for (P, smem), built in zip(plans, (chmix.GLU_PS, chmix.FF_PS,
+                                        chmix.GLU_BWD_PS, chmix.FF_BWD_PS)):
+        assert P in built and smem <= chmix.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("H,F", [(1024, 2048), (768, 1536), (1024, 1024),
+                                 (512, 1024), (256, 512)])
+def test_fp32_mixer_plans_hold_every_tile(H, F):
+    """The fp32 plans' bytes hold their kernels' layouts (csrc/chmix.cu):
+    kernel 2 the (H x P) y tile, 3 the input and hidden tiles ((H + F) x
+    P), 6 the y and dz tiles (3H x P), 7 the x, g and hidden tiles ((2H +
+    F) x P), each with the (TK x 16384 / P + 4) weight tile; the sums and
+    statistics of 3 and 7 on top.  P at least 8, so kernel 7's (dm, ds)
+    partials, one pair a block, are B ceil(L / P) pairs."""
+    wt = chmix.TK * 4
+    for (P, smem), rows, extra in (
+            (chmix.glu_plan(H), H, 0), (chmix.ff_plan(H, F), H + F, 2 * 256),
+            (chmix.glu_bwd_plan(H), 3 * H, 0),
+            (chmix.ff_bwd_plan(H, F), 2 * H + F, 2 * 256)):
+        assert P >= 8
+        assert smem >= 4 * (rows * P + extra) + wt * (16384 // P + 4)
+        assert smem <= chmix.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("d_model,precision,train,device,refused", [
+    (128, "f32", True, "cuda", None), (128, "bf16", True, "cuda", None),
+    (256, "f32", True, "cuda", None), (256, "bf16", True, "cuda", None),
+    (256, "bf16", False, "cuda", None),
+    (8, "f32", True, "cuda", None), (8, "bf16", False, "cpu", None),
+    (8, "bf16", False, "cuda", "kernel 2f: channel width H = 8"),
+    (200, "bf16", False, "cuda", "kernel 2f: channel width H = 200"),
+    (512, "bf16", False, "cuda", "kernel 2f: channel width H = 2048"),
+    (512, "f32", False, "cuda", "kernel 2: widths H = 2048"),
+    (512, "f32", False, "cpu", None)])
+def test_card_refuses_widths_no_mixer_kernel_takes(d_model, precision,
+                                                   train, device, refused):
+    """``check_supported`` refuses by name, on the card only, a SaShiMi
+    whose tier widths a channel-mixer kernel does not take (queue 1, item
+    8): bf16 widths that are not multiples of 16, tiers past H 1024; every
+    tier of d_model 128 and 256 passes, sampling and training."""
+    cfg = dict(SMALL_CFG, d_model=d_model)
+    if refused is None:
+        check_supported(cfg, precision, train, device_type=device)
+        return
+    with pytest.raises(NotImplementedError,
+                       match=f"{refused}.*queue 1, item 8"):
+        check_supported(cfg, precision, train, device_type=device)
+
+
+@pytest.mark.parametrize("precision,kernel", [("f32", "3"), ("bf16", "3f")])
+def test_card_refuses_ff_tiles_past_a_block(precision, kernel):
+    """At d_model 256 with ff 4 (F = 4096 at H 1024) the FF kernel's tiles
+    do not fit one block even at its narrowest P: refused on the card,
+    naming the widths and the bytes; the CPU runs the plain version."""
+    cfg = dict(SMALL_CFG, d_model=256, ff=4)
+    with pytest.raises(NotImplementedError,
+                       match=f"kernel {kernel}: widths H = 1024, F = 4096 "
+                             "need .* bytes.*item 8"):
+        check_supported(cfg, precision, device_type="cuda")
+    check_supported(cfg, precision, True, device_type="cpu")
+
+
+def test_generate_refuses_unported_widths_before_the_card(monkeypatch,
+                                                          tmp_path):
+    """generate() on the card refuses a bf16 model whose widths 2f does
+    not take before it looks for a card or a checkpoint; on the CPU the
+    same config passes the check."""
+    from diffwave_sashimi_torch.runtime import generate as gen_mod
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = {"_name_": "sc09", "data_path": str(tmp_path)}
+    diffusion = {"T": 200, "beta_0": 0.0001, "beta_T": 0.02}
+    with pytest.raises(NotImplementedError, match="H = 8.*item 8"):
+        gen_mod.generate(diffusion, SMALL_CFG, data, precision="bf16")
+    check_supported(SMALL_CFG, "bf16", device_type="cpu")
+
+
+@pytest.mark.parametrize("L,dtype,device,refused", [
+    (16000, F32, "cuda", None), (16384, F32, "cuda", None),
+    (16385, F32, "cuda", "f32 training on the card"),
+    (143360, F32, "cuda", "f32 training on the card"),
+    (16385, F32, "cpu", None), (143360, F32, "cpu", None),
+    (16385, BF, "cpu", "bf16 training"), (16385, BF, "cuda", "bf16 training"),
+    (16000, BF, "cuda", None)])
+def test_long_training_refusal_by_length_dtype_device(L, dtype, device,
+                                                      refused):
+    """Training past kernel 1's FFT size 32768 (L > 16384) is refused by
+    name at bf16 everywhere and at f32 on the card only; the CPU trains
+    these lengths at f32, as JAX does."""
+    if refused is None:
+        check_train_length(L, dtype, device)
+        return
+    with pytest.raises(NotImplementedError,
+                       match=f"{refused}.*past 32768.*queue 1, item 1"):
+        check_train_length(L, dtype, device)
+
+
+def test_f32_long_training_refused_before_the_card_is_used(monkeypatch,
+                                                           tmp_path):
+    """The trainer refuses f32 training past FFT size 32768 on the card
+    (its config's L) before it loads data or builds a model; the same
+    config passes the check for the CPU."""
+    from diffwave_sashimi_torch.runtime import train as train_mod
+    cfg = dict(SMALL_CFG, L=32000)
+    check_supported(cfg, "f32", train=True, device_type="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
+        check_supported(cfg, "f32", train=True, device_type="cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(train_mod, "dataloader", lambda *a, **k: (
+        pytest.fail("the trainer loaded data before refusing")))
+    monkeypatch.chdir(tmp_path)
+    diffusion = {"T": 200, "beta_0": 0.0001, "beta_T": 0.02}
+    with pytest.raises(NotImplementedError,
+                       match="f32 training on the card.*queue 1, item 1"):
+        train_mod.train(diffusion, cfg, {"_name_": "sc09",
+                                         "data_path": str(tmp_path)}, None,
+                        compute_cfg={"precision": "f32"}, device="cuda")
+
+
+def test_f32_long_training_runs_on_the_cpu():
+    """At f32 on the CPU the training form runs past kernel 1's FFT sizes
+    (the plain conv): finite gradients at L 32000 (n 65536)."""
+    model = construct_model(dict(SMALL_CFG, L=32000), "f32",
+                            generator=torch.Generator().manual_seed(0))
+    torch.nn.init.normal_(model.final_conv[2].conv.weight, std=0.3)
+    x = torch.randn(1, 1, 32000, generator=torch.Generator().manual_seed(2))
+    loss = model(x, torch.tensor([9]), train=True).square().mean()
+    loss.backward()
+    assert torch.isfinite(loss) and loss > 0
+    assert all(bool(torch.isfinite(p.grad).all())
+               for p in model.parameters() if p.grad is not None)
+
+
+def test_loader_refuses_mel_datasets_naming_vocoder_training(tmp_path):
+    """The loader refuses a mel-conditioned dataset by its ROADMAP entry:
+    queue 1, item 2 (vocoder training)."""
+    with pytest.raises(NotImplementedError,
+                       match=r"queue 1, item 2 \(vocoder training\)"):
+        dataloader({"_name_": "ljspeech", "data_path": str(tmp_path)}, 2,
+                   unconditional=False)
