@@ -43,7 +43,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
 7. the training kernels (kernel 1's training entry and its conjugate
    form, kernels 5-8) against their plain versions at the three tiers,
    with their times; then (7b) their bf16 forms (1f's training entry and
-   its conjugate form, 5f, 6f, 7f) at the three tiers, B4, timed;
+   its conjugate form, 5f, 6f, 7f) at the three tiers, B4, timed, 7f also
+   at F = H and on its element-wise path (B2, L 1001, H 128 and 256); at
+   each tier two 7f calls must agree bit for bit, a trace gives 7f's time
+   by part (its pass, the weight-gradient contractions, the reductions),
+   and beside it its three channel products as three bf16
+   ``torch.matmul`` calls and its two weight gradients as two f32 ones
+   with TF32 off (yardsticks, not library calls of its function);
 8. the training path: a seeded synthetic SC09 corpus (one-second 16 kHz
    ``*_nohash_*.wav`` clips, a few per digit folder) and the port's
    ``runtime.train.main`` with ``experiment=sc09 compute.precision=f32``
@@ -64,7 +70,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    per-step losses must agree within TRAJ_TOL;
 10. the training step (forward, backward, Adam) timed both ways; (10b) the
     bf16 training step against its plain path and against the f32 step,
-    and a trace of two bf16 steps;
+    and a trace of two bf16 steps that reports kernel 7f's pass, the
+    weight-gradient contractions and the reductions apart from the rest;
 11. a torch.profiler trace of two training steps with the kernels: device
     time by kernel, the port's kernels' share, the device's idle share;
 12. the vocoder: the shipped LJSpeech model (``experiment=ljspeech``:
@@ -137,10 +144,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
     a seed, depth cut to n_layers 1: the channel mixers (kernels 2, 3, 6,
     7 and their f forms) against their plain versions at its H 1024 tier
     (B4, L 1000; the fp32 plans narrow P to 16, and to 8 for kernel 7, so
-    the tiles fit one block; 3f runs at P 16), timed; at f32 and at bf16
-    one eps forward and one training step through the kernels against
-    the plain path, each with exact launch counts of every kernel, and
-    the eps step timed.
+    the tiles fit one block; 3f and 7f run at P 16), timed; at f32 and at
+    bf16 one eps forward and one training step through the kernels
+    against the plain path, each with exact launch counts of every
+    kernel, and the eps step timed.
 
 It prints the card's name and power limit, one JSON line with the kernels
 (each with its bound: the larger of its bytes over the HBM rate and its
@@ -383,7 +390,9 @@ VOC_BF16_LAUNCHES = {"fftconv_long_ln_bias_gelu_d_bf16": 24 * 50,
 PORT_KERNELS = ("fftconv_kernel", "fftconv_dkf_kernel", "glu_res_kernel",
                 "glu_res_tc_kernel", "glu_res_bwd_kernel", "ln_ff_res_kernel",
                 "ln_ff_res_tc_kernel", "round_weights_kernel",
-                "ln_ff_res_bwd_kernel", "wgrad_kernel", "reduce_splits_kernel",
+                "ln_ff_res_bwd_kernel", "ln_ff_res_bwd_tc_kernel",
+                "round_weights_t_kernel", "wgrad_kernel",
+                "reduce_splits_kernel", "reduce_long_kernel",
                 "cauchy_kernel", "cauchy_bwd_kernel", "cols_fwd_kernel",
                 "rows_kernel", "cols_inv_kernel", "gate_res_skip_kernel",
                 "fftconv_int8_kernel")
@@ -393,6 +402,14 @@ PORT_KERNELS = ("fftconv_kernel", "fftconv_dkf_kernel", "glu_res_kernel",
 # kernel; traces report their sum as 2f's and 3f's time
 KERNELS_2F = ("glu_res_tc_kernel", "round_weights_kernel<2>")
 KERNELS_3F = ("ln_ff_res_tc_kernel", "round_weights_kernel<3>")
+# kernel 7f's wrapper launches seven a call, in three parts that traces
+# report apart: its pass (the weights' rounding and transposing pass, then
+# the tensor-core pass), its two weight-gradient contractions (shared with
+# kernels 6, 6f and 7), and the fixed-order sums of their split-K partials
+# and of the pass's (dm, ds) partials
+KERNELS_7F = {"pass": ("ln_ff_res_bwd_tc_kernel", "round_weights_t_kernel"),
+              "contractions": ("wgrad_kernel",),
+              "reduce": ("reduce_splits_kernel", "reduce_long_kernel")}
 
 
 def log(msg):
@@ -951,7 +968,9 @@ def check_training_kernels(torch, model, dev, results):
 def check_bf16_training_kernels(torch, model, dev, results):
     """Phase 7b: the bf16 training forms (kernel 1f's training entry and
     its conjugate form, 5f, 6f, 7f) vs their plain versions at every tier
-    (B4, bf16 activations), timed."""
+    (B4, bf16 activations), timed; 7f also at F = H and, at H 128 and 256,
+    on its element-wise path (B2, L 1001), and at every tier its repeat,
+    its time by part and its yardsticks (``ff_bwd_bf16_parts``)."""
     from diffwave_sashimi_torch import ops
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
     bf = torch.bfloat16
@@ -975,6 +994,70 @@ def check_bf16_training_kernels(torch, model, dev, results):
         ]
         for name, kfn, pfn in cases:
             compare(name, H, L, kfn, pfn, 10, results, tol=TOL_BF16, bpe=2)
+        # 7f at F = H (a config's model.ff 1), off the shipped F = 2H, and
+        # on its element-wise path (L 1001, B2: the last block ragged)
+        ffh = ff[:3] + (d["w1"][:H].contiguous(), d["b1"][:H],
+                        d["w2"][:, :H].contiguous()) + ff[6:]
+        compare("ln_ff_res_bwd_bf16", H, L,
+                lambda: ops.ln_ff_res_bwd_bf16(*ffh),
+                lambda: ops.ln_ff_res_bwd_ref(*ffh), 10, results,
+                tol=TOL_BF16, tier=f"H{H}_L{L}_F{H}", bpe=2, F=H)
+        if H <= 256:
+            xr, gr = (torch.randn(2, H, 1001, device=dev, generator=gen)
+                      .to(bf) for _ in range(2))
+            ffr = (xr,) + ff[1:7] + (gr,)
+            compare("ln_ff_res_bwd_bf16", H, 1001,
+                    lambda: ops.ln_ff_res_bwd_bf16(*ffr),
+                    lambda: ops.ln_ff_res_bwd_ref(*ffr), 3, results, B=2,
+                    tol=TOL_BF16, tier=f"B2_H{H}_L1001", bpe=2)
+        ff_bwd_bf16_parts(torch, ff, results["ln_ff_res_bwd_bf16"],
+                          f"H{H}_L{L}")
+
+
+def ff_bwd_bf16_parts(torch, ff, result, tier):
+    """Kernel 7f at one tier beyond its bar: two calls on the same inputs
+    must give equal outputs and gradients, bit for bit (the sums are in a
+    fixed order); the device time of a call by part (KERNELS_7F: the pass,
+    the contractions, the reductions), from a trace of five calls; and two
+    yardsticks, never called by the port: the pass's three channel
+    products as three bf16 ``torch.matmul`` calls (``gemm_triple_ms``;
+    cuBLAS on the tensor cores, no LN, GELU or epilogue) and the two weight
+    gradients as two f32 ``torch.matmul`` calls with TF32 off
+    (``wgrad_gemm_pair_ms``; on operands already laid out as the
+    contraction needs them, without the bias sums)."""
+    from diffwave_sashimi_torch import ops
+    x, m, s, w1, b1, w2, b2, g = ff
+    B, H, L = x.shape
+    F = w1.shape[0]
+    one, two = ops.ln_ff_res_bwd_bf16(*ff), ops.ln_ff_res_bwd_bf16(*ff)
+    if not all(torch.equal(a, b) for a, b in zip(one, two)):
+        raise AssertionError(f"kernel 7f does not repeat bit for bit at "
+                             f"{tier}")
+    groups = {part: (lambda n, names=names: in_group(n, names))
+              for part, names in KERNELS_7F.items()}
+    trace = trace_steps(torch, lambda: ops.ln_ff_res_bwd_bf16(*ff), steps=5,
+                        groups=groups)
+    split = None if trace is None else trace["groups_ms_per_step"]
+    bf = torch.bfloat16
+    w1b, w2tb = w1.to(bf), w2.t().contiguous().to(bf)
+    w1tb = w1.t().contiguous().to(bf)
+    dzb = torch.matmul(w2tb, g)                   # a bf16 (B, F, L) operand
+    triple = cuda_ms(lambda: (torch.matmul(w2tb, g), torch.matmul(w1b, x),
+                              torch.matmul(w1tb, dzb)), 10)
+    del dzb
+    # f32 (F, B L) and (H, B L) operands: dz and xn, g and the GELU output
+    rows_f = torch.randn(F, B * L, device=x.device)
+    rows_h = g.float().transpose(0, 1).reshape(H, B * L).contiguous()
+    pair = cuda_ms(lambda: (torch.matmul(rows_f, rows_h.t()),
+                            torch.matmul(rows_h, rows_f.t())), 10)
+    del rows_f, rows_h
+    result["tiers"][tier].update(repeat_bit_equal=True, split_ms=split,
+                                 gemm_triple_ms=triple,
+                                 wgrad_gemm_pair_ms=pair)
+    log(f"kernel ln_ff_res_bwd_bf16 {tier}: two calls bit-equal; device ms "
+        f"a call by part {json.dumps(split)}; yardsticks: three bf16 "
+        f"torch.matmul {triple:.4f} ms, two f32 torch.matmul (TF32 off) "
+        f"{pair:.4f} ms")
 
 
 def write_corpus(root, per_digit=3):
@@ -1285,7 +1368,8 @@ def check_wide_mixers(torch, blk, L, dev, results):
             "glu_bwd": chmix.glu_bwd_plan(H)[0],
             "ff_bwd": chmix.ff_bwd_plan(H, 2 * H)[0],
             "glu_bf16": chmix.glu_bf16_plan(N_SAMPLES, H, L)[0],
-            "ff_bf16": chmix.ff_bf16_plan(N_SAMPLES, H, 2 * H, L)[0]}
+            "ff_bf16": chmix.ff_bf16_plan(N_SAMPLES, H, 2 * H, L)[0],
+            "ff_bwd_bf16": chmix.ff_bwd_bf16_plan(H, 2 * H)[0]}
 
 
 def check_wide_model(torch, dev, launches, results):
@@ -1475,7 +1559,9 @@ def time_train_step_bf16(torch, model, dev):
     """Phase 10b: the bf16 training step (forward, backward, Adam) with the
     kernels, against its plain path and against the f32 step with the
     kernels, each pair timed in turns in this call, at the main path's
-    batch; then a trace of two bf16 steps.  Returns a dict."""
+    batch; then a trace of two bf16 steps, with kernel 7f's pass, the
+    weight-gradient contractions and the reductions apart from the rest.
+    Returns a dict."""
     import copy
     from diffwave_sashimi_torch import ops
     from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
@@ -1494,7 +1580,12 @@ def time_train_step_bf16(torch, model, dev):
     out["ms_vs_f32"], out["f32_ms"] = paired_ms(
         bf16_step, lambda: train_step(fm, opt_f, audio, schedule, g,
                                       ops.FUSED), 3)
-    out["trace"] = trace_steps(torch, bf16_step)
+    # kernel 7f's pass and, apart, the weight-gradient contractions (of 6f
+    # and 7f) and the reductions, as KERNELS_7F names them
+    out["trace"] = trace_steps(torch, bf16_step, groups={
+        f"ln_ff_res_bwd_bf16_{part}": (lambda n, names=names:
+                                       in_group(n, names))
+        for part, names in KERNELS_7F.items()})
     log(f"timing: bf16 training step at B{N_SAMPLES} {out['ms']:.3f} ms with "
         f"kernels vs {out['plain_ms']:.3f} ms plain; {out['ms_vs_f32']:.3f} "
         f"ms vs the f32 step's {out['f32_ms']:.3f} ms in turns")
@@ -1825,7 +1916,12 @@ def check_vocoder_bf16(torch, model, mel, L, dev):
         f" ms plain; {out['step_ms_vs_f32']:.3f} ms vs the f32 step's "
         f"{out['f32_step_ms']:.3f} ms in turns; "
         f"{out['realtime_factor_step']:.3f}x realtime from the step time")
-    out["trace"] = trace_steps(torch, bf16_step)
+    # kernel 7f's pass and, apart, the weight-gradient contractions (of 6f
+    # and 7f) and the reductions, as KERNELS_7F names them
+    out["trace"] = trace_steps(torch, bf16_step, groups={
+        f"ln_ff_res_bwd_bf16_{part}": (lambda n, names=names:
+                                       in_group(n, names))
+        for part, names in KERNELS_7F.items()})
     log("trace: bf16 vocoder step with the kernels: " + (
         "no device time in the profiler's events (not measured)"
         if out["trace"] is None else json.dumps(out["trace"])))
@@ -2350,7 +2446,9 @@ def main():
             "bound_by": top["bound_by"], "library_ms": None,
             "tiers": r["tiers"]})
         for key in ("gemm_ms", "gemm_pair_ms", "weights_scratch_ms",
-                    "weights_in_kernel_ms"):    # yardsticks, not library calls
+                    "weights_in_kernel_ms", "gemm_triple_ms",
+                    "wgrad_gemm_pair_ms", "split_ms"):
+            # yardsticks and parts, not library calls
             if key in top:
                 entries[-1][key] = top[key]
         if "vs_f64_max_rel" in r:

@@ -34,9 +34,10 @@
 //
 // The host computes every kernel's positions a block P and its bytes of
 // shared memory (ops/chmix.py: glu_plan, ff_plan, glu_bwd_plan, ff_bwd_plan
-// and, for the tensor-core kernels below, glu_bf16_plan and ff_bf16_plan),
-// and refuses widths whose tiles do not fit one block before it launches;
-// the kernels take both as given.
+// and, for the tensor-core kernels below, glu_bf16_plan, ff_bf16_plan and
+// ff_bwd_bf16_plan; wgrad_plan for the weight gradients' splits), and
+// refuses widths whose tiles do not fit one block before it launches; the
+// kernels take both as given.
 //
 // Kernel 3f, FF's bf16 form (ln_ff_res_tc_kernel), multiplies on the
 // tensor cores instead (mma.sync m16n8k16, bf16 operands, f32 sums;
@@ -783,24 +784,36 @@ glu_res_tc_kernel(const __nv_bfloat16* __restrict__ y,
 // register-tiled gemm_chunk: it recomputes z from the saved input, forms
 // dz in shared memory, contracts it back to the input gradient, and
 // writes the operands of the weight gradients (dz, and for FF the
-// normalised input and the GELU output) to device memory.  The weight
-// gradients contract over all B * L positions (64000 at the top tier), so
-// a second kernel computes them as split-K partials, one per 2048
-// positions of one batch row, 64 x 64 output tiles of 4 x 4 per thread,
-// with the bias gradients as row sums of the same tiles; a third sums the
-// partials in a fixed order.  No float atomics: a run repeats bit for
-// bit.  FF's scalar gradients dm and ds are per-block partials summed the
-// same way.
+// normalised input and the GELU output) to device memory.  FF's scalar
+// gradients dm and ds are per-block partials summed in a fixed order.
 //
-// Kernels 6f and 7f, the bf16 path's backward passes (the TPU kernels with
-// fast=True), are the same code templated on the activations' type, as
-// 2f is: y or x, g and the input gradient are bf16, and, as JAX's
-// _bmm does, both operands of every per-position product are rounded to
-// bf16 (the weights as they are loaded; xn and dz in shared memory) with
-// f32 sums.  The weight gradients contract the unrounded f32 operands (as
-// JAX's _bmmc does): the dz, xn and GELU-output scratch stays f32 and the
-// split-K kernels read it, and the bf16 g or y, in f32.  7f's GELU and its
-// derivative are gelu_fast and gelu_fast_grad.
+// The weight gradients (wgrad_kernel, shared by 6, 6f, 7 and 7f) contract
+// over all B * L positions (64000 at the top tier): 2 M N B L fp32
+// operations of a GEMM whose two operands are both position-contiguous
+// rows.  They stay on the fp32 FMAs because JAX's _bmmc contracts f32
+// operands and kernels 6 and 7 are held to 1e-4, which rules out TF32.
+// Design: a tiled SGEMM.  Each block takes a 128 x 128 output tile (8 x 8
+// sums a thread, rows and columns 16 apart so that a warp's shared loads
+// hit 4 and 8 rows on distinct banks) over one split of one batch row's
+// positions; 32-position k-tiles of both operands arrive in shared memory
+// by cp.async, double-buffered, rows kept position-contiguous and read as
+// 4 positions a load.  The bias gradients are row sums of the same X
+// tiles (in the first column of blocks).  ops/chmix.py::wgrad_plan picks
+// the positions a split so that the grid fills at least two waves of one
+// block an SM with little tail; the split-K partials are summed in a
+// fixed order by reduce_splits_kernel.  No float atomics: a run repeats
+// bit for bit.
+//
+// Kernel 6f, the GLU backward's bf16 form (the TPU kernel with
+// fast=True), is kernel 6's code templated on the activations' type, as
+// 2f was: y, g and dy are bf16, and, as JAX's _bmm does, both operands of
+// every per-position product are rounded to bf16 (W as it is loaded, dz in
+// shared memory) with f32 sums.  The weight gradients contract the
+// unrounded f32 operands (as JAX's _bmmc does): the dz scratch stays f32,
+// and the bf16 y is read in f32.
+//
+// Kernel 7f, the FF backward's bf16 form, multiplies on the tensor cores
+// (ln_ff_res_bwd_tc_kernel, below kernel 7).
 
 // GLU backward, per position tile (P as the forward): z = W y + b
 // recomputed, da = g sig(gate), dgate = g a sig (1 - sig), dy = W^T dz.
@@ -880,21 +893,18 @@ __device__ __forceinline__ float gelu_erf_grad(float z) {
 //   S2 = mean_h dxn (xc + m),  dx = g + r (dxn - S1) - r rstd^2 xc S2,
 //   dm = sum dxn r,  ds = sum dxn rstd (xc + m).
 // Writes dx, xn = TLN(x), hact = gelu(z), dz, and (dm, ds) of the block.
-// IO: the activations' type (kernel 7f: bf16 x, g and dx; the weights, and
-// xn and dz in shared memory, rounded to bf16 for their products; the xn,
-// hact and dz written out stay f32; gelu_fast and gelu_fast_grad).
-template <int P, typename IO>
+// Kernel 7 (f32; kernel 7f is ln_ff_res_bwd_tc_kernel below).
+template <int P>
 __global__ void __launch_bounds__(NT, 1)
-ln_ff_res_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
+ln_ff_res_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
                      const float* __restrict__ W1, const float* __restrict__ b1,
                      const float* __restrict__ W1t,
                      const float* __restrict__ W2t,
                      const float* __restrict__ m_ptr,
-                     const float* __restrict__ s_ptr, IO* __restrict__ dx,
+                     const float* __restrict__ s_ptr, float* __restrict__ dx,
                      float* __restrict__ xn, float* __restrict__ hact,
                      float* __restrict__ dz, float* __restrict__ stat_part,
                      int H, int F, int L) {
-  constexpr bool BF = sizeof(IO) == 2;
   using T = Tile<P>;
   constexpr int PARTS = NT / P;
   extern __shared__ float4 sh4[];
@@ -920,15 +930,15 @@ ln_ff_res_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
   for (int idx = tid; idx < H * P; idx += NT) {
     const int h = idx / P, p = idx % P, t = t0 + p;
     const float v = s * rstd_s[p] * (xs[idx] - mean_s[p] + m);
-    xs[idx] = BF ? round_bf16(v) : v;
+    xs[idx] = v;
     if (t < L) xn[((size_t)b * H + h) * L + t] = v;
   }
 
   // dh = W2^T g into hs
   for (int f0 = 0; f0 < F; f0 += T::TM) {
     float acc[8][8];
-    gemm_chunk<P, BF>(W2t, H, RowMap{f0, f0 + T::TM / 2, F, F, T::TM / 2}, gs,
-                      AsT, acc);
+    gemm_chunk<P>(W2t, H, RowMap{f0, f0 + T::TM / 2, F, F, T::TM / 2}, gs,
+                  AsT, acc);
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const int f = f0 + local_row<P>(r);
@@ -940,8 +950,8 @@ ln_ff_res_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
   // z = W1 xn + b1; dz = gelu'(z) dh in place of dh
   for (int f0 = 0; f0 < F; f0 += T::TM) {
     float acc[8][8];
-    gemm_chunk<P, BF>(W1, H, RowMap{f0, f0 + T::TM / 2, F, F, T::TM / 2}, xs,
-                      AsT, acc);
+    gemm_chunk<P>(W1, H, RowMap{f0, f0 + T::TM / 2, F, F, T::TM / 2}, xs,
+                  AsT, acc);
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const int f = f0 + local_row<P>(r);
@@ -952,11 +962,10 @@ ln_ff_res_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
       for (int j = 0; j < 8; ++j) {
         const int p = pg * 8 + j, t = t0 + p;
         const float zz = acc[r][j] + bf;
-        const float d =
-            (BF ? gelu_fast_grad(zz) : gelu_erf_grad(zz)) * hs[f * P + p];
-        hs[f * P + p] = BF ? round_bf16(d) : d;
+        const float d = gelu_erf_grad(zz) * hs[f * P + p];
+        hs[f * P + p] = d;
         if (t < L) {
-          hact[row + t] = BF ? gelu_fast(zz) : gelu_erf(zz);
+          hact[row + t] = gelu_erf(zz);
           dz[row + t] = d;
         }
       }
@@ -965,8 +974,8 @@ ln_ff_res_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
   // dxn = W1^T dz into gs (g is no longer read from shared memory)
   for (int h0 = 0; h0 < H; h0 += T::TM) {
     float acc[8][8];
-    gemm_chunk<P, BF>(W1t, F, RowMap{h0, h0 + T::TM / 2, H, H, T::TM / 2}, hs,
-                      AsT, acc);
+    gemm_chunk<P>(W1t, F, RowMap{h0, h0 + T::TM / 2, H, H, T::TM / 2}, hs,
+                  AsT, acc);
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const int h = h0 + local_row<P>(r);
@@ -985,7 +994,7 @@ ln_ff_res_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
       for (int h = part; h < H; h += PARTS) {
         const float v = gs[h * P + p];
         a1 += v;
-        a2 += v * (to_f(x[((size_t)b * H + h) * L + t]) - mean_s[p] + m);
+        a2 += v * (x[((size_t)b * H + h) * L + t] - mean_s[p] + m);
       }
     }
     red[tid] = a1;
@@ -1010,10 +1019,9 @@ ln_ff_res_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
     if (t >= L) continue;
     const size_t at = ((size_t)b * H + h) * L + t;
     const float rstd = rstd_s[p], r = s * rstd;
-    const float xc = to_f(x[at]) - mean_s[p];
+    const float xc = x[at] - mean_s[p];
     const float v = gs[idx];
-    dx[at] = from_f<IO>(to_f(g[at]) + r * (v - s1_s[p])
-                        - r * rstd * rstd * xc * s2_s[p]);
+    dx[at] = g[at] + r * (v - s1_s[p]) - r * rstd * rstd * xc * s2_s[p];
     dm += v * r;
     ds += v * rstd * (xc + m);
   }
@@ -1035,66 +1043,582 @@ ln_ff_res_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ g,
   }
 }
 
-constexpr int WB = 64;   // weight-gradient output tile (WB x WB)
-constexpr int WK = 16;   // positions per k-step
+bool aligned16(const void* p) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Kernel 7f (bf16 x, g and dx; f32 b1, m, s, scratch and (dm, ds)
+// partials), the FF backward on the tensor cores.  It replaces
+// diffwave_sashimi_tpu/ops/chmix.py:362 _ff_bwd_kernel with fast=True: as
+// JAX's _bmm does, both operands of the three per-position products (dh =
+// W2^T g, z = W1 xn, dxn = W1^T dz) are rounded to bf16 and their products
+// summed in f32; the xn, GELU-output and dz scratch stays unrounded f32 for
+// the weight gradients (JAX's _bmmc); GELU and its derivative are
+// gelu_fast and gelu_fast_grad; the LN statistics, S1, S2, dx and (dm, ds)
+// are f32, with kernel 7's algebra.
+//
+// What bounds it: 6 F H B L operations at the bf16 tensor-core rate (13 us
+// at SC09's top tier) take less time than its bytes (x and g read, dx, and
+// the xn, GELU-output and dz scratch written: 64 us), so the bound is
+// bytes; but every block also reads three bf16 weight matrices from L2,
+// once per P positions, which bounded the products.  Design, after 3f's:
+// round_weights_t_kernel rounds W1 and the transposes W1^T and W2^T to
+// bf16 once a call into a scratch, in mma fragment order, so that every
+// product reads its A fragments from L2 one 16-byte load a lane, 512
+// contiguous bytes a warp (mma_bf16.cuh::warp_gemm_frag, one k-step
+// ahead, no weight tile, no barrier in the k-loop); one block
+// of 8 warps per (batch, P positions), P the widest of 128 / 64 / 32 / 16
+// with H P <= 16384 whose tiles fit (ops/chmix.py::ff_bwd_bf16_plan, which
+// also computes the block's shared-memory bytes; the kernel takes both as
+// given).  The bf16 x and g tiles arrive in shared memory by cp.async,
+// each thread's rows all in flight at once, rows padded for
+// ldmatrix.trans; the LN statistics are taken in f32 from the landed tile;
+// xn is rounded to bf16 in place of x as the B operand and written
+// unrounded to the xn scratch.  Each warp takes the same MT1 m-tiles of F
+// for dh and z, so both meet in its registers, where dz = gelu_fast'(z +
+// b1) dh and the GELU output form (one polynomial for both); both go out
+// in f32 and dz, rounded to bf16, into an F-row shared tile.  After one
+// barrier each warp takes MT2 = 128 / P m-tiles of H for dxn = W1^T dz,
+// staged in f32 over the dz tile once every warp has read it.  Then S1,
+// S2, dx (x re-read once, 16 bytes a thread) and the block's (dm, ds),
+// summed in a fixed order: a run repeats bit for bit.
+template <int P>
+struct BwdTcTile {
+  static constexpr int MT1 = P >= 128 ? 1 : 64 / P;  // dh and z m-tiles
+  static constexpr int MT2 = 128 / P;      // dxn m-tiles: H <= 128 MT2
+  static constexpr int N8 = P / 8;         // n-tiles, and 8-position chunks
+  static constexpr int LD = P + 8;         // bf16 rows
+  static constexpr int LO = P + 8;         // f32 dxn rows
+  static constexpr int HS = NT / N8;       // row step of a thread
+  static constexpr int RPT = 8;            // rows a thread: H <= RPT HS
+};
+
+template <int P>
+__global__ void __launch_bounds__(NT, 1)
+ln_ff_res_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                        const __nv_bfloat16* __restrict__ g,
+                        const uint4* __restrict__ W1f,
+                        const uint4* __restrict__ W1tf,
+                        const uint4* __restrict__ W2tf,
+                        const float* __restrict__ b1,
+                        const float* __restrict__ m_ptr,
+                        const float* __restrict__ s_ptr,
+                        __nv_bfloat16* __restrict__ dx,
+                        float* __restrict__ xn, float* __restrict__ hact,
+                        float* __restrict__ dz, float* __restrict__ stat_part,
+                        int H, int F, int L, bool vec) {
+  using T = BwdTcTile<P>;
+  using bf = __nv_bfloat16;
+  constexpr int N8 = T::N8, LD = T::LD, LO = T::LO, HS = T::HS;
+  constexpr int RPT = T::RPT;
+  extern __shared__ float4 sh4[];
+  float* red = reinterpret_cast<float*>(sh4);     // 2 NWARPS P: warp sums
+  float* mean_s = red + 2 * NWARPS * P;           // P
+  float* rstd_s = mean_s + P;                     // P (0 past L)
+  float* s1_s = rstd_s + P;                       // P
+  float* s2_s = s1_s + P;                         // P
+  bf* xs = reinterpret_cast<bf*>(s2_s + P);       // H x LD: x, then bf16(xn)
+  bf* gs = xs + H * LD;                           // H x LD: g
+  bf* zs = gs + H * LD;                           // F x LD: bf16(dz)
+  float* os = reinterpret_cast<float*>(zs);       // H x LO: dxn
+  const int b = blockIdx.y, t0 = blockIdx.x * P;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  // this thread's chunk of 8 positions, and its rows h0 + i HS, i < RPT
+  const int c = tid % N8 * 8, t = t0 + c, h0 = tid / N8;
+  const bool full = vec && t + 8 <= L;   // 16-byte loads and stores
+  float* red1 = red + warp * P;
+  float* red2 = red + (NWARPS + warp) * P;
+  const float m = *m_ptr, s = *s_ptr;
+
+  // the x and g tiles (0 past L): with vec all of this thread's rows in
+  // flight at once by cp.async; then x's per-position channel sums
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int h = h0 + i * HS;
+      if (h >= H) break;
+      const size_t at = ((size_t)b * H + h) * L + t;
+      if (full) {
+        cp_async16(xs + h * LD + c, x + at);
+        cp_async16(gs + h * LD + c, g + at);
+      } else {
+        *reinterpret_cast<uint4*>(xs + h * LD + c) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(gs + h * LD + c) = make_uint4(0, 0, 0, 0);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();              // this thread's own chunks have landed
+  } else {
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int h = h0 + i * HS;
+      if (h >= H) break;
+      const size_t at = ((size_t)b * H + h) * L + t;
+      float v[8], w[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        v[j] = t + j < L ? __bfloat162float(x[at + j]) : 0.0f;
+        w[j] = t + j < L ? __bfloat162float(g[at + j]) : 0.0f;
+      }
+      *reinterpret_cast<uint4*>(xs + h * LD + c) = pack8(v);
+      *reinterpret_cast<uint4*>(gs + h * LD + c) = pack8(w);
+    }
+  }
+  {
+    float s1[8] = {}, s2[8] = {};
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int h = h0 + i * HS;
+      if (h >= H) break;
+      float v[8];
+      unpack8(*reinterpret_cast<const uint4*>(xs + h * LD + c), v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s1[j] += v[j];
+        s2[j] += v[j] * v[j];
+      }
+    }
+    chunk_sums<P>(s1, red1, c);
+    chunk_sums<P>(s2, red2, c);
+  }
+  __syncthreads();
+  if (tid < P) {           // mean and E[x^2] - mean^2, f32
+    float t1 = 0.0f, t2 = 0.0f;
+    for (int w = 0; w < NWARPS; ++w) {
+      t1 += red[w * P + tid];
+      t2 += red[(NWARPS + w) * P + tid];
+    }
+    const float mean = t1 / (float)H;
+    mean_s[tid] = mean;
+    rstd_s[tid] = t0 + tid < L ? rsqrtf(t2 / (float)H - mean * mean) : 0.0f;
+  }
+  __syncthreads();
+
+  // xn = (s rstd) (x - mean + m): rounded to bf16 in place of x, written
+  // unrounded to the xn scratch
+  float mu[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) mu[j] = mean_s[c + j];
+  {
+    float a[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) a[j] = s * rstd_s[c + j];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int h = h0 + i * HS;
+      if (h >= H) break;
+      uint4* e = reinterpret_cast<uint4*>(xs + h * LD + c);
+      float v[8];
+      unpack8(*e, v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = a[j] * (v[j] - mu[j] + m);
+      *e = pack8(v);
+      float* dst = xn + ((size_t)b * H + h) * L + t;
+      if (full) {
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<float4*>(dst + 4) =
+            make_float4(v[4], v[5], v[6], v[7]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (t + j < L) dst[j] = v[j];
+      }
+    }
+  }
+  __syncthreads();
+
+  // dh = W2^T g and z = W1 xn on the same m-tiles of F; dz = gelu_fast'(z
+  // + b1) dh and hact = gelu_fast(z + b1) out in f32, bf16(dz) into zs
+  for (int u = warp; u * 16 * T::MT1 < F; u += NWARPS) {
+    constexpr int MT = T::MT1;
+    const int r0 = u * 16 * MT;
+    float dh[MT][N8][4], zz[MT][N8][4];
+    dwst_mma::warp_gemm_frag<MT, N8>(W2tf, F / 16, H / 16, r0 / 16, gs, LD,
+                                     dh);
+    dwst_mma::warp_gemm_frag<MT, N8>(W1f, F / 16, H / 16, r0 / 16, xs, LD,
+                                     zz);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int f = r0 + 16 * mt + gq + 8 * hh;
+        if (f >= F) continue;
+        const float bias = b1[f];
+        const size_t row = ((size_t)b * F + f) * L;
+        uint32_t* zr = reinterpret_cast<uint32_t*>(zs + f * LD + 2 * tq);
+#pragma unroll
+        for (int j = 0; j < N8; ++j) {
+          const int tt = t0 + 8 * j + 2 * tq;
+          float d[2], ha[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float grad;
+            ha[e] = gelu_fast_and_grad(zz[mt][j][2 * hh + e] + bias, &grad);
+            d[e] = grad * dh[mt][j][2 * hh + e];
+          }
+          zr[4 * j] = dwst_mma::pack_bf16x2(d[0], d[1]);
+          if (vec) {             // L even: both positions in or both out
+            if (tt < L) {
+              *reinterpret_cast<float2*>(hact + row + tt) =
+                  make_float2(ha[0], ha[1]);
+              *reinterpret_cast<float2*>(dz + row + tt) =
+                  make_float2(d[0], d[1]);
+            }
+          } else {
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (tt + e < L) {
+                hact[row + tt + e] = ha[e];
+                dz[row + tt + e] = d[e];
+              }
+          }
+        }
+      }
+  }
+  __syncthreads();
+
+  // dxn = W1^T dz, H x P, into the f32 tile over zs once every warp has
+  // read it
+  {
+    constexpr int MT = T::MT2;
+    const int r0 = warp * 16 * MT;
+    float acc[MT][N8][4];
+    if (r0 < H)
+      dwst_mma::warp_gemm_frag<MT, N8>(W1tf, H / 16, F / 16, r0 / 16, zs, LD,
+                                       acc);
+    __syncthreads();
+    if (r0 < H) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int h = r0 + 16 * mt + gq + 8 * hh;
+          if (h >= H) continue;
+          float* orow = os + h * LO + 2 * tq;
+#pragma unroll
+          for (int j = 0; j < N8; ++j)
+            *reinterpret_cast<float2*>(orow + 8 * j) =
+                make_float2(acc[mt][j][2 * hh], acc[mt][j][2 * hh + 1]);
+        }
+    }
+  }
+  __syncthreads();
+
+  // S1 = mean_h dxn, S2 = mean_h dxn (xc + m) per position; this thread's
+  // x rows re-read, all in flight at once, and kept
+  uint4 xr[RPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int h = h0 + i * HS;
+    if (h >= H) break;
+    const size_t at = ((size_t)b * H + h) * L + t;
+    if (full) {
+      xr[i] = __ldg(reinterpret_cast<const uint4*>(x + at));
+    } else {
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        v[j] = t + j < L ? __bfloat162float(x[at + j]) : 0.0f;
+      xr[i] = pack8(v);
+    }
+  }
+  {
+    float s1[8] = {}, s2[8] = {};
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int h = h0 + i * HS;
+      if (h >= H) break;
+      float v[8];
+      unpack8(xr[i], v);
+      const float4 o0 = *reinterpret_cast<const float4*>(os + h * LO + c);
+      const float4 o1 = *reinterpret_cast<const float4*>(os + h * LO + c + 4);
+      const float d[8] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s1[j] += d[j];
+        s2[j] += d[j] * (v[j] - mu[j] + m);
+      }
+    }
+    chunk_sums<P>(s1, red1, c);
+    chunk_sums<P>(s2, red2, c);
+  }
+  __syncthreads();
+  if (tid < P) {
+    float t1 = 0.0f, t2 = 0.0f;
+    for (int w = 0; w < NWARPS; ++w) {
+      t1 += red[w * P + tid];
+      t2 += red[(NWARPS + w) * P + tid];
+    }
+    s1_s[tid] = t1 / (float)H;
+    s2_s[tid] = t2 / (float)H;
+  }
+  __syncthreads();
+
+  // dx = g + r (dxn - S1) - r rstd^2 xc S2, r = s rstd, stored bf16; this
+  // thread's share of dm = sum dxn r and ds = sum dxn rstd (xc + m)
+  float dm = 0.0f, ds = 0.0f;
+  {
+    float rs[8], r[8], q1[8], q2[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      rs[j] = rstd_s[c + j];
+      r[j] = s * rs[j];
+      q1[j] = s1_s[c + j];
+      q2[j] = s2_s[c + j];
+    }
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int h = h0 + i * HS;
+      if (h >= H) break;
+      const size_t at = ((size_t)b * H + h) * L + t;
+      float v[8], w[8], out[8];
+      unpack8(xr[i], v);
+      unpack8(*reinterpret_cast<const uint4*>(gs + h * LD + c), w);
+      const float4 o0 = *reinterpret_cast<const float4*>(os + h * LO + c);
+      const float4 o1 = *reinterpret_cast<const float4*>(os + h * LO + c + 4);
+      const float d[8] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float xc = v[j] - mu[j];
+        out[j] = w[j] + r[j] * (d[j] - q1[j])
+                 - r[j] * rs[j] * rs[j] * xc * q2[j];
+        if (t + j < L) {
+          dm += d[j] * r[j];
+          ds += d[j] * rs[j] * (xc + m);
+        }
+      }
+      if (full) {
+        *reinterpret_cast<uint4*>(dx + at) = pack8(out);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (t + j < L) dx[at + j] = __float2bfloat16_rn(out[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {      // fixed-order butterfly
+    dm += __shfl_xor_sync(0xffffffffu, dm, o);
+    ds += __shfl_xor_sync(0xffffffffu, ds, o);
+  }
+  if (lane == 0) {
+    red[warp] = dm;
+    red[NWARPS + warp] = ds;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float a1 = 0.0f, a2 = 0.0f;
+    for (int w = 0; w < NWARPS; ++w) {
+      a1 += red[w];
+      a2 += red[NWARPS + w];
+    }
+    const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+    stat_part[2 * blk] = a1;
+    stat_part[2 * blk + 1] = a2;
+  }
+}
+
+// wb = [bf16(W1) (F x H), bf16(W1)^T (H x F), bf16(W2)^T (F x H)] from W1
+// (F x H) and W2 (H x F), each in fragment order (mma_bf16.cuh::
+// load_a_frag): kernel 7f's weights, once a call.  Each warp writes one
+// m16k16 tile: its 16 x 16 source tile (the transposed one for W1^T and
+// W2^T) through shared memory, 32 bytes a lane in, 16 bytes a lane out.
+__global__ void round_weights_t_kernel(const float* __restrict__ W1,
+                                       const float* __restrict__ W2,
+                                       uint4* __restrict__ wb, int F, int H) {
+  __shared__ float tile[NWARPS][16][17];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = F / 16 * (H / 16);          // tiles a matrix
+  const int id = blockIdx.x * NWARPS + warp;
+  if (id >= 3 * n) return;
+  const int job = id / n, tix = id % n;
+  const int Kt = (job == 1 ? F : H) / 16, mt = tix / Kt, kt = tix % Kt;
+  // the source rows r0.. and columns c0.. (row stride ld) of A's tile
+  const float* src = job == 2 ? W2 : W1;
+  const int ld = job == 2 ? F : H;
+  const int r0 = 16 * (job == 0 ? mt : kt), c0 = 16 * (job == 0 ? kt : mt);
+  const int rr = lane >> 1, cc = (lane & 1) * 8;
+  const float* p = src + (size_t)(r0 + rr) * ld + c0 + cc;
+  const float4 v0 = *reinterpret_cast<const float4*>(p);
+  const float4 v1 = *reinterpret_cast<const float4*>(p + 4);
+  const float v[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) tile[warp][rr][cc + e] = v[e];
+  __syncwarp();
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t a[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = g + 8 * (i & 1), k = 2 * t + 8 * (i >> 1);
+    a[i] = job == 0 ? dwst_mma::pack_bf16x2(tile[warp][r][k],
+                                            tile[warp][r][k + 1])
+                    : dwst_mma::pack_bf16x2(tile[warp][k][r],
+                                            tile[warp][k + 1][r]);
+  }
+  wb[((size_t)job * n + tix) * 32 + lane] = make_uint4(a[0], a[1], a[2], a[3]);
+}
+
+int round_weights_t(const float* W1, const float* W2, __nv_bfloat16* wb,
+                    int F, int H, cudaStream_t stream) {
+  const int tiles = 3 * (F / 16) * (H / 16);
+  round_weights_t_kernel<<<(tiles + NWARPS - 1) / NWARPS, NT, 0, stream>>>(
+      W1, W2, reinterpret_cast<uint4*>(wb), F, H);
+  return (int)cudaGetLastError();
+}
+
+// The weight-gradient GEMM's tiles: a GM x GM output tile a block (8 x 8
+// sums a thread), GK positions a stage, WGRAD_STAGES stages in a ring
+// (cp.async keeps all but one in flight); staged rows of T keep
+// their positions contiguous, padded to LD elements (a row's 16-byte reads
+// of 4 positions fall on distinct banks for 8 rows 1 apart), and arrive as
+// 16-byte chunks of CH positions.
+constexpr int GM = 128;
+constexpr int GK = 32;
+constexpr int WGRAD_STAGES = 2;
+
+template <typename T>
+struct Staged {
+  static constexpr int LD = sizeof(T) == 4 ? GK + 4 : GK + 8;
+  static constexpr int CH = 16 / sizeof(T);
+  static constexpr int CPR = GK / CH;                // chunks a row
+  static constexpr int BYTES = GM * LD * sizeof(T);  // one stage
+};
+
+template <typename TX, typename TY>
+constexpr int wgrad_smem() {
+  return WGRAD_STAGES * (Staged<TX>::BYTES + Staged<TY>::BYTES);
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// One stage of a GM-row tile: dst (GM x LD) from src (row 0 of the tile,
+// row stride L), positions [k0, k0 + GK); rows past nrows and positions
+// past kend are 0.  With vec (16-byte aligned rows and chunks) each full
+// chunk is copied by cp.async, else element by element.
+template <typename T>
+__device__ __forceinline__ void stage_tile(T* dst, const T* __restrict__ src,
+                                           int nrows, int L, int k0,
+                                           int kend, bool vec) {
+  using S = Staged<T>;
+#pragma unroll
+  for (int q = 0; q < GM * S::CPR / NT; ++q) {
+    const int idx = threadIdx.x + q * NT;
+    const int r = idx / S::CPR, k = idx % S::CPR * S::CH;
+    T* d = dst + r * S::LD + k;
+    const T* p = src + (size_t)r * L + k0 + k;
+    if (vec && r < nrows && k0 + k + S::CH <= kend) {
+      cp_async16(d, p);
+    } else {
+#pragma unroll
+      for (int e = 0; e < S::CH; ++e)
+        d[e] = r < nrows && k0 + k + e < kend ? p[e] : from_f<T>(0.0f);
+    }
+  }
+}
 
 // part[s] = (X Y^T over split s, then the row sums of X over split s):
-// X (B, M, L), Y (B, N, L), each f32 or bf16 (read into f32); split s = b *
-// nsb + j covers positions [j tc, min(L, (j + 1) tc)) of batch row b.  Row
-// sums come from the blocks of the first column tile.
+// X (B, M, L), Y (B, N, L), each f32 or bf16 (summed in f32); split s = b
+// nsb + j covers positions [j tc, min(L, (j + 1) tc)) of batch row b.
+// Thread (tm, tn) holds rows m0 + tm + 16 i and columns n0 + tn + 16 j; a
+// warp spans 4 tm and 8 tn.  Row sums come from the blocks of the first
+// column tile, each thread summing half a row's stage.
 template <typename TX, typename TY>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(NT, 1)
 wgrad_kernel(const TX* __restrict__ X, const TY* __restrict__ Y,
-             float* __restrict__ part, int M, int N, int L, int tc, int nsb) {
-  __shared__ float Xs[WK][WB + 4];
-  __shared__ float Ys[WK][WB + 4];
-  const int n0 = blockIdx.x * WB, m0 = blockIdx.y * WB, sp = blockIdx.z;
+             float* __restrict__ part, int M, int N, int L, int tc, int nsb,
+             bool vec) {
+  using SX = Staged<TX>;
+  using SY = Staged<TY>;
+  constexpr int NS = WGRAD_STAGES;
+  extern __shared__ float4 sh4[];
+  char* base = reinterpret_cast<char*>(sh4);
+  TX* xs = reinterpret_cast<TX*>(base);                    // NS stages
+  TY* ys = reinterpret_cast<TY*>(base + NS * SX::BYTES);   // NS stages
+  const int n0 = blockIdx.x * GM, m0 = blockIdx.y * GM, sp = blockIdx.z;
   const int b = sp / nsb, ta = (sp % nsb) * tc;
   const int tb = min(L, ta + tc);
-  const TX* Xb = X + (size_t)b * M * L;
-  const TY* Yb = Y + (size_t)b * N * L;
-  const int tid = threadIdx.x, tm = tid / 16, tn = tid % 16;
-  const bool rows = blockIdx.x == 0 && tn == 0;
-  float acc[4][4] = {}, rs[4] = {};
-  for (int t = ta; t < tb; t += WK) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int idx = tid + q * 256, r = idx >> 4, k = idx & 15;
-      const int tt = t + k;
-      Xs[k][r] = (m0 + r < M && tt < tb)
-                     ? to_f(Xb[(size_t)(m0 + r) * L + tt]) : 0.0f;
-      Ys[k][r] = (n0 + r < N && tt < tb)
-                     ? to_f(Yb[(size_t)(n0 + r) * L + tt]) : 0.0f;
+  const TX* Xb = X + ((size_t)b * M + m0) * L;
+  const TY* Yb = Y + ((size_t)b * N + n0) * L;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tm = (warp >> 1) * 4 + (lane >> 3);
+  const int tn = (warp & 1) * 8 + (lane & 7);
+  const bool rows = blockIdx.x == 0;
+  const int nst = (tb - ta + GK - 1) / GK;
+  float acc[8][8] = {};
+  float rs = 0.0f;
+  auto load = [&](int st) {   // a group each call, empty past the split
+    if (st < nst) {
+      const int k0 = ta + st * GK;
+      stage_tile(xs + st % NS * GM * SX::LD, Xb, M - m0, L, k0, tb, vec);
+      stage_tile(ys + st % NS * GM * SY::LD, Yb, N - n0, L, k0, tb, vec);
     }
-    __syncthreads();
+    cp_async_commit();
+  };
+  for (int st = 0; st < NS - 1; ++st) load(st);
+  for (int st = 0; st < nst; ++st) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();      // stage st landed; stage st - 1's buffer is free
+    load(st + NS - 1);
+    const TX* xa = xs + st % NS * GM * SX::LD;
+    const TY* yb = ys + st % NS * GM * SY::LD;
 #pragma unroll
-    for (int k = 0; k < WK; ++k) {
-      float av[4], bv[4];
+    for (int k = 0; k < GK; k += 4) {
+      float4 a[8], bv[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        av[i] = Xs[k][tm * 4 + i];
-        bv[i] = Ys[k][tn * 4 + i];
-      }
+      for (int i = 0; i < 8; ++i)
+        a[i] = load4(xa + (tm + 16 * i) * SX::LD + k);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (rows) rs[i] += av[i];
+      for (int j = 0; j < 8; ++j)
+        bv[j] = load4(yb + (tn + 16 * j) * SY::LD + k);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float v = fmaf(a[i].x, bv[j].x, acc[i][j]);
+          v = fmaf(a[i].y, bv[j].y, v);
+          v = fmaf(a[i].z, bv[j].z, v);
+          acc[i][j] = fmaf(a[i].w, bv[j].w, v);
+        }
+    }
+    if (rows) {   // row tid / 2, positions (tid % 2) GK / 2 + [0, GK / 2)
+      const TX* xr = xa + (tid >> 1) * SX::LD + (tid & 1) * (GK / 2);
+#pragma unroll
+      for (int k = 0; k < GK / 2; k += 4) {
+        const float4 v = load4(xr + k);
+        rs += v.x;
+        rs += v.y;
+        rs += v.z;
+        rs += v.w;
       }
     }
-    __syncthreads();
   }
   float* out = part + (size_t)sp * ((size_t)M * N + M);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int mm = m0 + tm * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int mm = m0 + tm + 16 * i;
     if (mm >= M) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int nn = n0 + tn * 4 + j;
+    for (int j = 0; j < 8; ++j) {
+      const int nn = n0 + tn + 16 * j;
       if (nn < N) out[(size_t)mm * N + nn] = acc[i][j];
     }
-    if (rows) out[(size_t)M * N + mm] = rs[i];
+  }
+  if (rows) {
+    const float other = __shfl_xor_sync(0xffffffffu, rs, 1);
+    const int mm = m0 + (tid >> 1);
+    if (!(tid & 1) && mm < M) out[(size_t)M * N + mm] = rs + other;
   }
 }
 
@@ -1116,16 +1640,43 @@ int reduce_splits(const float* part, float* out, int S, int size,
   return (int)cudaGetLastError();
 }
 
+// The same sum for few outputs over many partials (a pass's (dm, ds) of
+// each block): one block an output, each thread summing every NT-th
+// partial in order, then a fixed-order tree.
+__global__ void reduce_long_kernel(const float* __restrict__ part,
+                                   float* __restrict__ out, int S, int size) {
+  __shared__ float red[NT];
+  const int i = blockIdx.x, tid = threadIdx.x;
+  float acc = 0.0f;
+  for (int s = tid; s < S; s += NT) acc += part[(size_t)s * size + i];
+  red[tid] = acc;
+  __syncthreads();
+  for (int w = NT / 2; w > 0; w >>= 1) {
+    if (tid < w) red[tid] += red[tid + w];
+    __syncthreads();
+  }
+  if (tid == 0) out[i] = red[0];
+}
+
 // The weight and bias gradient sum over all B * L positions of
-// X Y^T (M x N) and of X's rows: partials, then their fixed-order sum.
+// X Y^T (M x N) and of X's rows: partials of tc positions (a multiple of
+// 8, from ops/chmix.py::wgrad_plan), then their fixed-order sum.
 template <typename TX, typename TY>
 int weight_grad(const TX* X, const TY* Y, float* part, float* grads, int B,
                 int M, int N, int L, int tc, cudaStream_t stream) {
+  constexpr int smem = wgrad_smem<TX, TY>();
   const int nsb = (L + tc - 1) / tc;
-  dim3 grid((N + WB - 1) / WB, (M + WB - 1) / WB, B * nsb);
-  wgrad_kernel<<<grid, 256, 0, stream>>>(X, Y, part, M, N, L, tc, nsb);
-  const int e = (int)cudaGetLastError();
-  if (e) return e;
+  const bool vec = (L * sizeof(TX)) % 16 == 0 && (L * sizeof(TY)) % 16 == 0 &&
+                   tc % 8 == 0 && aligned16(X) && aligned16(Y);
+  cudaError_t e = cudaFuncSetAttribute(
+      wgrad_kernel<TX, TY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((N + GM - 1) / GM, (M + GM - 1) / GM, B * nsb);
+  wgrad_kernel<TX, TY><<<grid, NT, smem, stream>>>(X, Y, part, M, N, L, tc,
+                                                   nsb, vec);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
   return reduce_splits(part, grads, B * nsb, M * N + M, stream);
 }
 
@@ -1155,10 +1706,9 @@ int glu_res_bwd_launch(const IO* y, const IO* g, const float* W,
   }
 }
 
-template <typename IO>
-int ln_ff_res_bwd_launch(const IO* x, const IO* g, const float* W1,
+int ln_ff_res_bwd_launch(const float* x, const float* g, const float* W1,
                          const float* b1, const float* W1t, const float* W2t,
-                         const float* m, const float* s, IO* dx, float* xn,
+                         const float* m, const float* s, float* dx, float* xn,
                          float* hact, float* dz, float* stat_part, int B,
                          int H, int F, int L, int P, int smem,
                          cudaStream_t stream) {
@@ -1171,10 +1721,10 @@ int ln_ff_res_bwd_launch(const IO* x, const IO* g, const float* W1,
     return (int)cudaGetLastError();
   };
   switch (P) {
-    case 64: return run(ln_ff_res_bwd_kernel<64, IO>);
-    case 32: return run(ln_ff_res_bwd_kernel<32, IO>);
-    case 16: return run(ln_ff_res_bwd_kernel<16, IO>);
-    case 8: return run(ln_ff_res_bwd_kernel<8, IO>);
+    case 64: return run(ln_ff_res_bwd_kernel<64>);
+    case 32: return run(ln_ff_res_bwd_kernel<32>);
+    case 16: return run(ln_ff_res_bwd_kernel<16>);
+    case 8: return run(ln_ff_res_bwd_kernel<8>);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1246,10 +1796,6 @@ int round_weights(const float* W1, const float* W2, __nv_bfloat16* wb,
   return (int)cudaGetLastError();
 }
 
-bool aligned16(const void* p) {
-  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 // Kernel 3f on smem bytes of dynamic shared memory a block: with a
 // scratch wb (2 F H bf16 entries), the weights rounded to bf16 into it,
 // then the tensor-core kernel reading them; with wb null, the kernel
@@ -1307,31 +1853,56 @@ int glu_res_bwd(const IO* y, const IO* g, const float* W, const float* Wt,
                 const float* b, IO* dy, float* dz, float* part, float* grads,
                 int B, int H, int L, int tc, int P, int smem,
                 cudaStream_t stream) {
-  if (H % TK || tc <= 0) return (int)cudaErrorInvalidValue;
+  if (H % TK || tc <= 0 || tc % 8) return (int)cudaErrorInvalidValue;
   const int e = glu_res_bwd_launch(y, g, W, Wt, b, dy, dz, B, H, L, P, smem,
                                    stream);
   if (e) return e;
   return weight_grad(dz, y, part, grads, B, 2 * H, H, L, tc, stream);
 }
 
-// Kernel 7 or 7f: the per-position pass, the (dm, ds) sum, then dW1, db1
-// from dz and xn, dW2, db2 from g and the GELU output.
+// Kernel 7 or 7f after its per-position pass: the (dm, ds) sum of the pass's
+// nblocks partials, then dW1, db1 from dz and xn, dW2, db2 from g and the
+// GELU output.
 template <typename IO>
-int ln_ff_res_bwd(const IO* x, const IO* g, const float* W1, const float* b1,
-                  const float* W1t, const float* W2t, const float* m,
-                  const float* s, IO* dx, float* xn, float* hact, float* dz,
-                  float* stat_part, float* dms, float* part1, float* grads1,
-                  float* part2, float* grads2, int B, int H, int F, int L,
-                  int tc, int P, int smem, cudaStream_t stream) {
-  if (H % TK || F % TK || tc <= 0) return (int)cudaErrorInvalidValue;
-  int e = ln_ff_res_bwd_launch(x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact,
-                               dz, stat_part, B, H, F, L, P, smem, stream);
+int ff_bwd_sums(const IO* g, const float* xn, const float* hact,
+                const float* dz, const float* stat_part, float* dms,
+                float* part1, float* grads1, float* part2, float* grads2,
+                int nblocks, int B, int H, int F, int L, int tc,
+                cudaStream_t stream) {
+  reduce_long_kernel<<<2, NT, 0, stream>>>(stat_part, dms, nblocks, 2);
+  int e = (int)cudaGetLastError();
   if (e) return e;
-  const int nblocks = (L + P - 1) / P * B;
-  if ((e = reduce_splits(stat_part, dms, nblocks, 2, stream))) return e;
   if ((e = weight_grad(dz, xn, part1, grads1, B, F, H, L, tc, stream)))
     return e;
   return weight_grad(g, hact, part2, grads2, B, H, F, L, tc, stream);
+}
+
+// Kernel 7f on smem bytes of dynamic shared memory a block: the weights
+// rounded (and transposed) into the scratch wb (3 F H bf16 entries), then
+// the tensor-core pass; H <= 16384 / P.
+template <int P>
+int launch_ff_bwd_tc(const __nv_bfloat16* x, const __nv_bfloat16* g,
+                     const float* W1, const float* b1, const float* W2,
+                     const float* m, const float* s, __nv_bfloat16* dx,
+                     float* xn, float* hact, float* dz, float* stat_part,
+                     __nv_bfloat16* wb, int B, int H, int F, int L, int smem,
+                     cudaStream_t stream) {
+  int e = round_weights_t(W1, W2, wb, F, H, stream);
+  if (e) return e;
+  e = (int)cudaFuncSetAttribute(ln_ff_res_bwd_tc_kernel<P>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem);
+  if (e) return e;
+  const bool vec = L % 8 == 0 && aligned16(x) && aligned16(g) &&
+                   aligned16(dx) && aligned16(xn) && aligned16(hact) &&
+                   aligned16(dz);
+  const uint4* wf = reinterpret_cast<const uint4*>(wb);
+  const size_t n = (size_t)F * H / 8;        // uint4s a matrix
+  ln_ff_res_bwd_tc_kernel<P>
+      <<<dim3((L + P - 1) / P, B), NT, smem, stream>>>(
+          x, g, wf, wf + n, wf + 2 * n, b1, m, s, dx, xn, hact, dz,
+          stat_part, H, F, L, vec);
+  return (int)cudaGetLastError();
 }
 
 using bf16 = __nv_bfloat16;
@@ -1441,22 +2012,44 @@ extern "C" int dwst_ln_ff_res_bwd(
     float* dms, float* part1, float* grads1, float* part2, float* grads2,
     int B, int H, int F, int L, int tc, int P, int smem,
     cudaStream_t stream) {
-  return ln_ff_res_bwd(x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact, dz,
-                       stat_part, dms, part1, grads1, part2, grads2, B, H, F,
-                       L, tc, P, smem, stream);
+  if (H % TK || F % TK || tc <= 0 || tc % 8) return (int)cudaErrorInvalidValue;
+  const int e = ln_ff_res_bwd_launch(x, g, W1, b1, W1t, W2t, m, s, dx, xn,
+                                     hact, dz, stat_part, B, H, F, L, P, smem,
+                                     stream);
+  if (e) return e;
+  return ff_bwd_sums(g, xn, hact, dz, stat_part, dms, part1, grads1, part2,
+                     grads2, (L + P - 1) / P * B, B, H, F, L, tc, stream);
 }
 
-// Kernel 7f: x, g and dx bf16; the scratch and the gradients f32.
+// Kernel 7f: x, g and dx bf16; the scratch and the gradients f32; wb a
+// scratch for the weights rounded to bf16 (3 F H entries); P 128, 64, 32
+// or 16 with H P <= 16384; H and F multiples of 16, H <= 1024.
 extern "C" int dwst_ln_ff_res_bwd_bf16(
     const void* x, const void* g, const float* W1, const float* b1,
-    const float* W1t, const float* W2t, const float* m, const float* s,
-    void* dx, float* xn, float* hact, float* dz, float* stat_part,
-    float* dms, float* part1, float* grads1, float* part2, float* grads2,
-    int B, int H, int F, int L, int tc, int P, int smem,
-    cudaStream_t stream) {
-  return ln_ff_res_bwd(static_cast<const bf16*>(x),
-                       static_cast<const bf16*>(g), W1, b1, W1t, W2t, m, s,
-                       static_cast<bf16*>(dx), xn, hact, dz, stat_part, dms,
-                       part1, grads1, part2, grads2, B, H, F, L, tc, P, smem,
-                       stream);
+    const float* W2, const float* m, const float* s, void* dx, float* xn,
+    float* hact, float* dz, float* stat_part, float* dms, float* part1,
+    float* grads1, float* part2, float* grads2, void* wb, int B, int H,
+    int F, int L, int tc, int P, int smem, cudaStream_t stream) {
+  if (H <= 0 || F <= 0 || H % 16 || F % 16 || H * P > 16384 || tc <= 0 ||
+      tc % 8)
+    return (int)cudaErrorInvalidValue;
+  const auto* xb = static_cast<const bf16*>(x);
+  const auto* gb = static_cast<const bf16*>(g);
+  auto* db = static_cast<bf16*>(dx);
+  auto* w = static_cast<bf16*>(wb);
+  auto run = [&](auto launch) {
+    return launch(xb, gb, W1, b1, W2, m, s, db, xn, hact, dz, stat_part, w,
+                  B, H, F, L, smem, stream);
+  };
+  int e;
+  switch (P) {
+    case 128: e = run(launch_ff_bwd_tc<128>); break;
+    case 64: e = run(launch_ff_bwd_tc<64>); break;
+    case 32: e = run(launch_ff_bwd_tc<32>); break;
+    case 16: e = run(launch_ff_bwd_tc<16>); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (e) return e;
+  return ff_bwd_sums(gb, xn, hact, dz, stat_part, dms, part1, grads1, part2,
+                     grads2, (L + P - 1) / P * B, B, H, F, L, tc, stream);
 }

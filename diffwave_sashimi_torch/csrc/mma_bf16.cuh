@@ -136,4 +136,63 @@ __device__ __forceinline__ void warp_gemm(const TA* __restrict__ A,
   }
 }
 
+// Weights in fragment order: a bf16 matrix A (M x K, M and K multiples of
+// 16) stored as its (M / 16) x (K / 16) m16k16 tiles, k-tiles fastest,
+// each tile as the 32 lanes' A fragments, lane l's a[0..3] in 16 bytes at
+// uint4 32 (mt (K / 16) + kt) + l.  One 16-byte load a lane, 512 bytes a
+// warp in one piece, loads a fragment (four 4-byte loads, 16 rows apart,
+// in load_a).  m-tiles at or past Mt load as 0.
+__device__ __forceinline__ void load_a_frag(uint32_t a[4],
+                                            const uint4* __restrict__ Af,
+                                            int Mt, int Kt, int mt, int kt) {
+  const uint4 v = mt < Mt ? __ldg(Af + ((size_t)mt * Kt + kt) * 32 +
+                                  (threadIdx.x & 31))
+                          : make_uint4(0u, 0u, 0u, 0u);
+  a[0] = v.x;
+  a[1] = v.y;
+  a[2] = v.z;
+  a[3] = v.w;
+}
+
+// warp_gemm with A in fragment order (Mt x Kt tiles): acc[m][j] = A[m-tile
+// mt0 + m] Bs, the fragments loaded one k-step ahead.
+template <int MT, int N8>
+__device__ __forceinline__ void warp_gemm_frag(const uint4* __restrict__ Af,
+                                               int Mt, int Kt, int mt0,
+                                               const __nv_bfloat16* Bs,
+                                               int ld, float acc[MT][N8][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < N8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.0f;
+  uint32_t pre[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+    load_a_frag(pre[mt], Af, Mt, Kt, mt0 + mt, 0);
+  for (int kt = 0; kt < Kt; ++kt) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[mt][i] = pre[mt][i];
+    if (kt + 1 < Kt) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        load_a_frag(pre[mt], Af, Mt, Kt, mt0 + mt, kt + 1);
+    }
+#pragma unroll
+    for (int j = 0; j < N8; j += 2) {
+      uint32_t b[4];
+      ldsm_b_x4_trans(b, Bs, ld, 16 * kt, 8 * j);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_16816(acc[mt][j], a[mt], b[0], b[1]);
+        mma_16816(acc[mt][j + 1], a[mt], b[2], b[3]);
+      }
+    }
+  }
+}
+
 }  // namespace dwst_mma

@@ -22,21 +22,26 @@ tensor cores and take channel widths that are multiples of 16.  Backward (JAX
 y, dy = W^T dz, z = W1 xn, dh = W2^T g, dxn = W1^T dz) are rounded to
 bf16, the weight gradients contract the unrounded f32 dz, xn and GELU
 output, the GELU's derivative is the polynomial's, dy and dx are rounded
-to bf16 and the weight, bias, m and s gradients stay f32.
+to bf16 and the weight, bias, m and s gradients stay f32; kernel 7f
+multiplies on the tensor cores and takes channel widths that are
+multiples of 16.  The weight gradients of 6, 6f, 7 and 7f are one tiled
+fp32 contraction over all positions, in split-K partials summed in a
+fixed order (``wgrad_plan``).
 
 Widths: each kernel's plan (``glu_plan``, ``ff_plan``, ``glu_bwd_plan``,
-``ff_bwd_plan``, ``glu_bf16_plan``, ``ff_bf16_plan``) is the one place its
-positions a block and its shared-memory bytes are computed, and its
-refusal function (``glu_refusal`` and the like) says whether it takes a
-block's widths at an activation dtype.  Every kernel takes every tier of
-d_model 128 and 256 (H up to 1024, F = 2H).  A wrapper given widths its
-kernel does not take raises ValueError on CUDA tensors before it
-launches; ``models.check_supported`` refuses such a model on the card by
-name before it is built.
+``ff_bwd_plan``, ``glu_bf16_plan``, ``ff_bf16_plan``, ``ff_bwd_bf16_plan``)
+is the one place its positions a block and its shared-memory bytes are
+computed, and its refusal function (``glu_refusal`` and the like) says
+whether it takes a block's widths at an activation dtype.  Every kernel
+takes every tier of d_model 128 and 256 (H up to 1024, F = 2H).  A
+wrapper given widths its kernel does not take raises ValueError on CUDA
+tensors before it launches; ``models.check_supported`` refuses such a
+model on the card by name before it is built.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -44,10 +49,6 @@ import torch.nn.functional as F
 
 from . import cuda_lib
 from .fftconv import as_operand, gelu_fast, gelu_fast_grad, widen
-
-# positions per split-K partial of the weight gradients (kernels 6 and 7)
-WGRAD_POSITIONS = 2048
-
 
 def glu_res_ref(y, res, w, b):
     """res + GLU over channels of (w @ y + b).  y, res: (B, H, L), f32 or
@@ -192,8 +193,14 @@ GLU_PS = (128, 64, 32)
 FF_PS = (128, 64, 32, 16)
 GLU_BWD_PS = (128, 64, 32, 16)
 FF_BWD_PS = (64, 32, 16, 8)
-# the widest H kernels 2f and 3f take
-GLU_BF16_MAX_H = FF_BF16_MAX_H = 1024
+# the widest H kernels 2f, 3f and 7f take
+GLU_BF16_MAX_H = FF_BF16_MAX_H = FF_BWD_BF16_MAX_H = 1024
+# the positions a block kernel 7f is built for, widest first
+FF_BWD_BF16_PS = (128, 64, 32, 16)
+# csrc/chmix.cu's weight-gradient GEMM: output tile (WGRAD_TILE squared)
+# and positions a stage (WGRAD_STEP); a split-K partial's positions are a
+# multiple of WGRAD_ALIGN, and at least one stage
+WGRAD_TILE, WGRAD_STEP, WGRAD_ALIGN = 128, 32, 8
 
 
 def _positions(H):
@@ -294,6 +301,65 @@ def ff_bf16_plan(B, H, F, L, sms=132):
     return P, smem(P)
 
 
+@functools.lru_cache(maxsize=None)
+def ff_bwd_bf16_plan(H, F):
+    """Kernel 7f's tile plan: (P positions a block, shared-memory bytes a
+    block), the grid being ceil(L / P) x B blocks of one block an SM.  P
+    is the widest of FF_BWD_BF16_PS with H P <= 16384 (the 8 warps' 128 /
+    P m-tiles of dxn cover H rows, and each thread's 8-position chunk
+    holds at most 8 of its rows), halved until the tiles fit.  The block
+    keeps 20 P floats of per-warp sums and statistics, its H-row bf16 x
+    (then xn) and g tiles, and one region that holds the F-row bf16 dz
+    tile and then the H-row f32 dxn tile, rows padded to P + 8.  P depends
+    on the widths alone: a narrower P re-reads the three bf16 weight
+    matrices from L2 more often.  The kernel
+    (``csrc/chmix.cu::ln_ff_res_bwd_tc_kernel``) takes these bytes as
+    given: this is the one place they are computed."""
+    def smem(P):
+        return (20 * P * 4 + 2 * H * (P + 8) * 2
+                + max(F * (P + 8) * 2, H * (P + 8) * 4))
+
+    P0 = next((P for P in FF_BWD_BF16_PS if H * P <= 16384),
+              FF_BWD_BF16_PS[-1])
+    return _fitted(FF_BWD_BF16_PS, P0, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_plan(B, M, N, L, sms=132):
+    """The split-K plan of one weight gradient (M x N, plus its M bias
+    entries) contracted over B batch rows of L positions
+    (``csrc/chmix.cu::wgrad_kernel``, one block of WGRAD_TILE squared
+    outputs an SM): (positions a split, splits, bytes of the f32
+    partials).  Each batch row is cut into the fewest splits that give at
+    least two waves of blocks on ``sms`` SMs and fill at least 90% of the
+    waves they take (else the fullest of up to four times the fewest), so
+    that no wave runs nearly empty; the positions a split are a multiple
+    of WGRAD_ALIGN, so that every split starts 16 bytes aligned, and at
+    least one stage of WGRAD_STEP.  A row too short for two waves is cut
+    into splits of one stage."""
+    tiles = -(-M // WGRAD_TILE) * -(-N // WGRAD_TILE)
+
+    def split(n):              # (positions a split, splits a batch row)
+        tc = max(WGRAD_STEP, -(-L // n // WGRAD_ALIGN) * WGRAD_ALIGN)
+        return tc, -(-L // tc)
+
+    def blocks(n):
+        return tiles * B * split(n)[1]
+
+    def fill(n):               # the share of its waves' SMs the grid fills
+        return blocks(n) / (-(-blocks(n) // sms) * sms)
+
+    n0 = max(1, -(-2 * sms // (tiles * B)))
+    cands = [n for n in range(n0, 4 * n0 + 1) if blocks(n) >= 2 * sms]
+    if cands:
+        n = next((n for n in cands if fill(n) >= 0.9), max(cands, key=fill))
+    else:
+        n = -(-L // WGRAD_STEP)
+    tc, per_row = split(n)
+    splits = B * per_row
+    return tc, splits, splits * (M * N + M) * 4
+
+
 def _width_refusal(kernel, widths, step, smem, max_h=None):
     """Why ``kernel`` does not take ``widths`` ((name, width) pairs, H
     first), each of which must be a positive multiple of ``step``, H at
@@ -344,9 +410,13 @@ def glu_bwd_refusal(H, dtype):
 
 def ff_bwd_refusal(H, F, dtype):
     """None if kernel 7 (f32) or 7f (bf16 activations) takes widths H and
-    F."""
-    return _width_refusal("7f" if dtype == torch.bfloat16 else "7",
-                          (("H", H), ("F", F)), TK, ff_bwd_plan(H, F)[1])
+    F, else why not.  7f's mma tiles are 16 channels deep and its plan
+    holds up to FF_BWD_BF16_MAX_H rows."""
+    widths = (("H", H), ("F", F))
+    if dtype != torch.bfloat16:
+        return _width_refusal("7", widths, TK, ff_bwd_plan(H, F)[1])
+    return _width_refusal("7f", widths, 16, ff_bwd_bf16_plan(H, F)[1],
+                          FF_BWD_BF16_MAX_H)
 
 
 def _raise(refusal):
@@ -449,14 +519,14 @@ def ln_ff_res_bwd_ref(x, m, s, w1, b1, w2, b2, g):
 
 
 def _wgrad_scratch(x, B, L, rows, cols):
-    """Split-K partials of a (rows x cols) weight gradient plus its
-    (rows,) bias gradient, one slice per WGRAD_POSITIONS positions of one
-    batch row; and the reduced result, whose first rows * cols entries are
-    the weight gradient and last rows the bias gradient (both in x's
-    dtype and on its device)."""
-    splits = B * -(-L // WGRAD_POSITIONS)
+    """(positions a split, partials, result) of a (rows x cols) weight
+    gradient plus its (rows,) bias gradient by :func:`wgrad_plan`: the
+    split-K partials, one slice a split of one batch row; the reduced
+    result, whose first rows * cols entries are the weight gradient and
+    last rows the bias gradient (both in x's dtype and on its device)."""
+    tc, splits, _ = wgrad_plan(B, rows, cols, L, cuda_lib.sm_count(x.device))
     size = rows * cols + rows
-    return x.new_empty((splits, size)), x.new_empty((size,))
+    return tc, x.new_empty((splits, size)), x.new_empty((size,))
 
 
 def glu_res_bwd(y, w, b, g):
@@ -499,11 +569,11 @@ def _launch_glu_bwd(wrapper, entry, dtype, y, w, b, g):
     wt = w.t().contiguous()
     dy = torch.empty_like(y)
     dz = w.new_empty((B, 2 * H, L))
-    part, grads = _wgrad_scratch(w, B, L, 2 * H, H)
+    tc, part, grads = _wgrad_scratch(w, B, L, 2 * H, H)
     cuda_lib.launch(entry, y.data_ptr(), g.data_ptr(), w.data_ptr(),
                     wt.data_ptr(), b.data_ptr(), dy.data_ptr(), dz.data_ptr(),
-                    part.data_ptr(), grads.data_ptr(), B, H, L,
-                    WGRAD_POSITIONS, *glu_bwd_plan(H))
+                    part.data_ptr(), grads.data_ptr(), B, H, L, tc,
+                    *glu_bwd_plan(H))
     wrapper.launches += 1
     return dy, grads[:2 * H * H].view(2 * H, H), grads[2 * H * H:]
 
@@ -516,8 +586,18 @@ def ln_ff_res_bwd(x, m, s, w1, b1, w2, b2, g):
         return ln_ff_res_bwd_ref(x, m, s, w1, b1, w2, b2, g)
     if x.dtype == torch.bfloat16:
         return ln_ff_res_bwd_bf16(x, m, s, w1, b1, w2, b2, g)
-    return _launch_ff_bwd(ln_ff_res_bwd, "dwst_ln_ff_res_bwd", torch.float32,
-                          x, m, s, w1, b1, w2, b2, g)
+    B, H, L = x.shape
+    Fd = w1.shape[0]
+    _raise(ff_bwd_refusal(H, Fd, torch.float32))
+    P, smem = ff_bwd_plan(H, Fd)
+    out, tc, ptrs, _scratch = _ff_bwd_buffers(torch.float32, P, x, m, s,
+                                              w1, b1, w2, b2, g)
+    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+    cuda_lib.launch("dwst_ln_ff_res_bwd",
+                    *_ptrs(x, g, w1, b1, w1t, w2t, m, s, out[0]), *ptrs,
+                    B, H, Fd, L, tc, P, smem)
+    ln_ff_res_bwd.launches += 1
+    return out
 
 
 ln_ff_res_bwd.launches = 0
@@ -526,48 +606,68 @@ ln_ff_res_bwd.launches = 0
 def ln_ff_res_bwd_bf16(x, m, s, w1, b1, w2, b2, g):
     """Kernel-7f wrapper (x, g and dx bf16; the weights, m, s and their
     gradients f32): the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+    for CPU tensors.  The per-position products run on the tensor cores,
+    so H and F must be multiples of 16, H up to 1024
+    (:func:`ff_bwd_refusal`).  A call launches, counted as one launch: a
+    pass that rounds W1 and the transposes of W1 and W2 to bf16 into a
+    scratch of its own, the tensor-core pass, the (dm, ds) sum, and the two
+    weight-gradient contractions with their split-K sums."""
     if not x.is_cuda:
         return ln_ff_res_bwd_ref(x, m, s, w1, b1, w2, b2, g)
-    return _launch_ff_bwd(ln_ff_res_bwd_bf16, "dwst_ln_ff_res_bwd_bf16",
-                          torch.bfloat16, x, m, s, w1, b1, w2, b2, g)
+    B, H, L = x.shape
+    Fd = w1.shape[0]
+    _raise(ff_bwd_refusal(H, Fd, torch.bfloat16))
+    P, smem = ff_bwd_bf16_plan(H, Fd)
+    out, tc, ptrs, _scratch = _ff_bwd_buffers(torch.bfloat16, P, x, m, s,
+                                              w1, b1, w2, b2, g)
+    wb = w1.new_empty((3 * Fd * H,), dtype=torch.bfloat16)
+    cuda_lib.launch("dwst_ln_ff_res_bwd_bf16",
+                    *_ptrs(x, g, w1, b1, w2, m, s, out[0]), *ptrs,
+                    wb.data_ptr(),
+                    B, H, Fd, L, tc, P, smem)
+    ln_ff_res_bwd_bf16.launches += 1
+    return out
 
 
 ln_ff_res_bwd_bf16.launches = 0
 
 
-def _launch_ff_bwd(wrapper, entry, dtype, x, m, s, w1, b1, w2, b2, g):
-    """Check the arguments of kernel 7 or 7f (activations of ``dtype``; the
-    xn, GELU-output and dz scratch and the gradients f32), launch
-    ``entry`` and count it on ``wrapper``."""
+def _ff_bwd_buffers(dtype, P, x, m, s, w1, b1, w2, b2, g):
+    """Check the arguments of kernel 7 or 7f (activations of ``dtype``, the
+    rest f32) and allocate, for P positions a block, dx, one f32 tensor of
+    the results after dx (each weight gradient followed by its bias
+    gradient, then (dm, ds)) and one f32 scratch (xn, GELU output, dz, the (dm,
+    ds) partial of each block, each weight gradient's split-K partials),
+    each segment 256-byte aligned.  Returns (the wrapper's results, dx
+    first; positions a weight-gradient split; the addresses of the scratch
+    and results in the entries' order; the scratch, which the caller holds
+    until it has launched)."""
     B, H, L = x.shape
     Fd = w1.shape[0]
-    _raise(ff_bwd_refusal(H, Fd, dtype))
     for t in (x, g):
         cuda_lib.check(t, (B, H, L), dtype)
     for t, shape in ((w1, (Fd, H)), (b1, (Fd,)), (w2, (H, Fd)), (b2, (H,)),
                      (m, (1,)), (s, (1,))):
         cuda_lib.check(t, shape, torch.float32)
-    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
-    dx = torch.empty_like(x)
-    xn = w1.new_empty((B, H, L))
-    hact = w1.new_empty((B, Fd, L))
-    dz = w1.new_empty((B, Fd, L))
-    P, smem = ff_bwd_plan(H, Fd)
-    stat_part = w1.new_empty((B * -(-L // P), 2))     # (dm, ds) a block
-    dms = w1.new_empty((2,))
-    part1, grads1 = _wgrad_scratch(w1, B, L, Fd, H)
-    part2, grads2 = _wgrad_scratch(w1, B, L, H, Fd)
-    cuda_lib.launch(entry, x.data_ptr(), g.data_ptr(), w1.data_ptr(),
-                    b1.data_ptr(), w1t.data_ptr(), w2t.data_ptr(),
-                    m.data_ptr(), s.data_ptr(), dx.data_ptr(), xn.data_ptr(),
-                    hact.data_ptr(), dz.data_ptr(), stat_part.data_ptr(),
-                    dms.data_ptr(), part1.data_ptr(), grads1.data_ptr(),
-                    part2.data_ptr(), grads2.data_ptr(), B, H, Fd, L,
-                    WGRAD_POSITIONS, P, smem)
-    wrapper.launches += 1
-    return (dx, dms[0:1], dms[1:2], grads1[:Fd * H].view(Fd, H),
-            grads1[Fd * H:], grads2[:H * Fd].view(H, Fd), grads2[H * Fd:])
+    # the two contractions have the same output tiles, so the same splits
+    tc, splits, _ = wgrad_plan(B, Fd, H, L, cuda_lib.sm_count(x.device))
+    n1, n2 = Fd * H + Fd, H * Fd + H
+    sizes = (B * H * L, B * Fd * L, B * Fd * L, 2 * B * -(-L // P),
+             splits * n1, splits * n2)
+    offs = [0]
+    for n in sizes:
+        offs.append(offs[-1] + -(-n // 64) * 64)
+    scratch = w1.new_empty((offs[-1],))
+    res = w1.new_empty((n1 + n2 + 2,))
+    at, rp = scratch.data_ptr(), res.data_ptr()
+    xn, hact, dz, stat_part, part1, part2 = (at + 4 * o for o in offs[:-1])
+    ptrs = (xn, hact, dz, stat_part, rp + 4 * (n1 + n2), part1, rp, part2,
+            rp + 4 * n1)
+    dms = res[n1 + n2:]
+    out = (torch.empty_like(x), dms[0:1], dms[1:2],
+           res[:Fd * H].view(Fd, H), res[Fd * H:n1],
+           res[n1:n1 + H * Fd].view(H, Fd), res[n1 + H * Fd:n1 + n2])
+    return out, tc, ptrs, scratch
 
 
 class _GluResTrain(torch.autograd.Function):

@@ -70,6 +70,8 @@ _SIGNATURES = {
     # x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact, dz, stat_part, dms,
     # part1, grads1, part2, grads2, B, H, F, L, tc, P, smem, stream
     "dwst_ln_ff_res_bwd": [_P] * 18 + [_I] * 7 + [_P],
+    # x, g, W1, b1, W2, m, s, dx, the same scratch and gradients, wb (the
+    # bf16 weight scratch), B, H, F, L, tc, P, smem, stream (x, g, dx bf16)
     "dwst_ln_ff_res_bwd_bf16": [_P] * 18 + [_I] * 7 + [_P],
     # a, b, c, d, z, g, da, db, dc, dd, K, M, N, Lz, stream
     "dwst_cauchy_bwd": [_P] * 10 + [_I] * 4 + [_P],

@@ -192,14 +192,22 @@ def test_glu_bwd_bf16_matches_jax_glu_train_vjp():
             fn(t["x"], t["w"], t["b"], t["g"]), out))
 
 
-@pytest.mark.parametrize("with_skip", [False, True])
-def test_ff_bwd_bf16_matches_jax_ff_train_vjp(with_skip):
+@pytest.mark.parametrize("with_skip,hidden", [
+    pytest.param(False, 2, id="False"), pytest.param(True, 2, id="True"),
+    pytest.param(False, 1, id="False-F=H")])
+def test_ff_bwd_bf16_matches_jax_ff_train_vjp(with_skip, hidden):
     """Kernel 7f's plain version vs the JAX ``_ff_bwd_kernel`` with
     fast=True (interpret mode) through jax.vjp of ``_ff_train(True, ...)``
     / ``_ff_train_skip(True, ...)`` on bf16 x, skip and cotangent: dx
     (bf16) within about one bf16 rounding, dm, ds, dw1, db1, dw2, db2
-    (f32) to TOL_WGRAD_BF16."""
+    (f32) to TOL_WGRAD_BF16; at the shipped hidden width F = 2H and at F
+    = H (a config's model.ff 1)."""
     j, t = _chmix_data(0)
+    H = t["x"].shape[1]
+    for d in (j, t):
+        d["w1"], d["b1"] = d["w1"][:hidden * H], d["b1"][:hidden * H]
+        d["w2"] = d["w2"][:, :hidden * H]
+    t["w2"] = t["w2"].contiguous()
     names = ("m", "s", "w1", "b1", "w2", "b2")
     if with_skip:
         _, vjp = jax.vjp(lambda x, sk, *a: jchmix._ff_train_skip(
