@@ -92,12 +92,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
     30, no f32 form; finite wavs of 143360 samples and a fidelity.json;
 14. the precomputed-mel route: the port's ``mel2samp`` CLI writes the
     utterance's mel, which loads equal to the one computed on the fly;
-15. kernel 9 (both entries) against its plain version at the top and
-    middle tiers' shapes and at n 4096, and kernel 1 at the deepest tier
-    (n 16384 < 2L), timed; (15b) kernel 9f at the same three shapes (bf16
-    activations), and kernels 3f and 2f at the vocoder's three tiers (B2:
-    H128 L143360, H256 L35840, H512 L8960), timed, 3f with its two weight
-    designs as in 6b and 2f with its ``gemm_ms``;
+15. kernel 9 (both entries, three passes) against its plain version at
+    the top and middle tiers' shapes (B2 H128 L143360 n 2^18, H256 L35840
+    n 2^16), at B2 H128 L100000 (n 2^17), n 4096 (H512 L3000) and n 2^19
+    (H128 L300000), and kernel 1 at the deepest tier (n 16384 < 2L),
+    timed; (15b) kernel 9f at the same five shapes (bf16 activations; its
+    cluster route, one thread-block cluster a transform row, at n 2^16
+    and 2^17, its three passes at the others), and kernels 3f and 2f at
+    the vocoder's three tiers (B2: H128 L143360, H256 L35840, H512
+    L8960), timed, 3f with its two weight designs as in 6b and 2f with
+    its ``gemm_ms``.  At n 2^16, 2^17 and 2^18, two calls of 9f's cluster
+    kernel must be bit-equal, the route 9f does not take there is held
+    against the plain version and timed in turns with the one it takes
+    (``three_pass_ms`` or ``cluster_ms``), and a cuFFT conv of the same
+    shapes is timed beside it (``cufft_conv_ms``; both yardsticks, which
+    the port never calls); the clusters of each size the card holds at
+    once are printed first;
 16. one vocoder eps forward through the kernels against the plain path;
     (16b) the same at bf16 against the bf16 plain path, and the quality
     gate: a 50-step reverse process at the vocoder's schedule with one
@@ -106,7 +116,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
 17. the vocoder step's eps forward timed both ways at B2 (ms per step, the
     realtime factor), and a torch.profiler trace of two steps; (17b) the
     bf16 step against its plain path and, in turns, against the f32 step,
-    and a trace of two bf16 steps;
+    and, in turns, against the bf16 step with 9f on the three passes at
+    every n, and a trace of two bf16 steps; each trace must show kernel
+    9's three passes, the bf16 one also its cluster kernel and the f32
+    one not (each route's share of the device's busy time reported);
 18. the WaveNet: the shipped ``experiment=sc09_wavenet`` model (res 256,
     skip 256, 36 layers, dilation cycle 12) from a seed, with a perturbed
     final conv, saved as a checkpoint under its ``wnet_h256_d36`` run name;
@@ -159,6 +172,7 @@ blocks below are ``load_config(["experiment=sc09"])``,
 them), so this script imports nothing of the JAX package.
 """
 
+import importlib
 import json
 import math
 import os
@@ -239,6 +253,9 @@ DATASET_CFG = {"_name_": "sc09", "data_path": "data/sc09",
 VOC_SAMPLES = 2               # the vocoder's batch (generate.n_samples)
 VOC_SECONDS = 6.5             # a typical LJSpeech utterance
 VOC_MEL = "LJ001-0001"        # generate.mel_name of experiment=ljspeech
+# phase 15's added long-conv shapes (H128): n 2^17 on the cluster route,
+# n 2^19 on the three-pass route
+VOC_L_2_17, VOC_L_2_19 = 100000, 300000
 VOC_DIFFUSION_CFG = {"T": 50, "beta_0": 0.0001, "beta_T": 0.05,
                      "beta": None}
 VOC_MODEL_CFG = dict(MODEL_CFG, unconditional=False, mel_upsample=[16, 16])
@@ -394,8 +411,16 @@ PORT_KERNELS = ("fftconv_kernel", "fftconv_dkf_kernel", "glu_res_kernel",
                 "round_weights_t_kernel", "wgrad_kernel",
                 "reduce_splits_kernel", "reduce_long_kernel",
                 "cauchy_kernel", "cauchy_bwd_kernel", "cols_fwd_kernel",
-                "rows_kernel", "cols_inv_kernel", "gate_res_skip_kernel",
-                "fftconv_int8_kernel")
+                "rows_kernel", "cols_inv_kernel", "fftconv_cluster_kernel",
+                "gate_res_skip_kernel", "fftconv_int8_kernel")
+# kernel 9's two routes: 9f's cluster kernel (n 2^16 and 2^17, the
+# vocoder's middle tier) and the three passes (every other n, and the f32
+# forms at every n)
+KERNEL_9_CLUSTER = "fftconv_cluster_kernel"
+KERNEL_9_THREE_PASS = ("cols_fwd_kernel", "rows_kernel", "cols_inv_kernel")
+KERNEL_9_GROUPS = {
+    "kernel_9_cluster": lambda name: in_group(name, (KERNEL_9_CLUSTER,)),
+    "kernel_9_three_pass": lambda name: in_group(name, KERNEL_9_THREE_PASS)}
 
 # kernels 2f's and 3f's wrappers launch two of them a call: the weights'
 # rounding pass (an instance named for its kernel), then the tensor-core
@@ -1735,13 +1760,26 @@ def check_vocoder_kernels(torch, model, L, dev, results):
     kernels 2 and 3 (15b: and 3f) at the vocoder's tiers, against their
     plain versions, timed."""
     from diffwave_sashimi_torch import ops
+    fl = importlib.import_module("diffwave_sashimi_torch.ops.fftconv_long")
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     (H0, _, b0), (H1, _, b1), (H2, _, b2) = tier_blocks(model)
     B = VOC_SAMPLES
-    for H, Lt, blk in ((H0, L, b0), (H1, L // 4, b1), (H2, 3000, b2)):
+    clusters = {str(fl.cluster_plan(n).cluster): fl.max_active_clusters(n)
+                for n in fl.CLUSTER_SIZES}
+    log(f"phase 15: clusters of 9f's cluster kernel the card holds at once "
+        f"(cudaOccupancyMaxActiveClusters), by blocks a cluster: "
+        f"{json.dumps(clusters)}")
+    if not all(clusters.values()):
+        raise AssertionError(f"a cluster size the card cannot hold: "
+                             f"{clusters}")
+    # 9f's cluster route at n 2^17 and 2^16, its three passes at n 2^18,
+    # 4096 and 2^19; the f32 forms' three passes at every n
+    for H, Lt, blk in ((H0, L, b0), (H0, VOC_L_2_17, b0), (H1, L // 4, b1),
+                       (H2, 3000, b2), (H0, VOC_L_2_19, b0)):
         d = conv_inputs(torch, blk, Lt, B, gen, dev)
         x, a, c, bias, D = d["x"], d["a"], d["c"], d["bias"], d["D"]
         kp = ops.long_spectrum(d["khat"])
+        log(f"phase 15: H{H} L{Lt} n {d['n']}: 9f {fl.long_plan(d['n'])}")
         compare("fftconv_long_ln_bias_gelu_d", H, Lt,
                 lambda: ops.fftconv_long_ln_bias_gelu_d(x, a, c, bias, kp, D),
                 lambda: ops.fftconv_long_ln_bias_gelu_d_ref(x, a, c, bias,
@@ -1750,12 +1788,25 @@ def check_vocoder_kernels(torch, model, L, dev, results):
         compare("fftconv_long", H, Lt, lambda: ops.fftconv_long(x, kp),
                 lambda: ops.fftconv_long_ref(x, kp), 10, results, B, d["n"])
         xb = x.to(torch.bfloat16)
+        ref = ops.fftconv_long_ln_bias_gelu_d_bf16_ref(xb, a, c, bias, kp, D)
         compare("fftconv_long_ln_bias_gelu_d_bf16", H, Lt,
                 lambda: ops.fftconv_long_ln_bias_gelu_d_bf16(xb, a, c, bias,
                                                              kp, D),
                 lambda: ops.fftconv_long_ln_bias_gelu_d_bf16_ref(
                     xb, a, c, bias, kp, D),
                 10, results, B, d["n"], tol=TOL_BF16, bpe=2)
+        if d["n"] in fl.CLUSTER_SIZES:
+            half = d["khat"]
+            cufft_ms = cuda_ms(lambda: torch.fft.irfft(
+                torch.fft.rfft(x, n=d["n"]) * half, n=d["n"])[..., :Lt], 10)
+            hold_9f_routes(torch, fl, f"H{H}_L{Lt}", d["n"],
+                           lambda p: fl.launch_sampling(xb, a, c, bias, kp,
+                                                        D, p),
+                           ref, cufft_ms, results)
+        del d, x, xb, kp, ref
+        torch.cuda.empty_cache()
+    results["fftconv_long_ln_bias_gelu_d_bf16"]["max_active_clusters"] = \
+        clusters
     for H, Lt, blk in ((H0, L, b0), (H1, L // 4, b1), (H2, L // 16, b2)):
         d = conv_inputs(torch, blk, Lt, B, gen, dev)
         x, a, c, bias, D = d["x"], d["a"], d["c"], d["bias"], d["D"]
@@ -1789,6 +1840,39 @@ def check_vocoder_kernels(torch, model, L, dev, results):
                     lin.weight, xb)
         time_ff_weight_designs(torch, ffb, results["ln_ff_res_bf16"],
                                f"H{H}_L{Lt}")
+
+
+def hold_9f_routes(torch, fl, tier, n, launch, ref, cufft_ms, results):
+    """Phase 15b at a size the cluster kernel has an instance for: 9f on
+    its cluster route, two calls bit-equal; 9f on the route long_plan does
+    not take at n (the three passes at 2^16 and 2^17, the cluster at 2^18)
+    held against the plain version ``ref`` at TOL_BF16 and timed in turns
+    with the route it takes (``three_pass_ms`` or ``cluster_ms``, beside
+    ``ms_vs_three_pass`` or ``ms_vs_cluster``); a cuFFT conv of the same
+    shapes, with no prologue or epilogue (``cufft_conv_ms``).  The two are
+    yardsticks, not library calls of the function: the port calls
+    neither."""
+    cluster, shipped = fl.cluster_plan(n), fl.long_plan(n)
+    other = fl.THREE_PASS if shipped == cluster else cluster
+    one, two = launch(cluster), launch(cluster)
+    alt = launch(other)
+    torch.cuda.synchronize()
+    if not torch.equal(one, two):
+        raise AssertionError(f"kernel 9f {tier}: two calls differ")
+    err, scale = max_err(alt, ref)
+    if not (err <= TOL_BF16 * max(1.0, scale)
+            and bool(torch.isfinite(alt).all())):
+        raise AssertionError(f"kernel 9f {tier} on its {other.route} route "
+                             f"disagrees: {err:.3e} of {scale:.3e}")
+    ms, other_ms = paired_ms(lambda: launch(shipped), lambda: launch(other),
+                             10)
+    t = results["fftconv_long_ln_bias_gelu_d_bf16"]["tiers"][tier]
+    t.update({f"{other.route}_ms": other_ms, f"ms_vs_{other.route}": ms,
+              f"{other.route}_max_abs_err": err, "cufft_conv_ms": cufft_ms})
+    log(f"kernel 9f {tier}: cluster route, two calls bit-equal; its "
+        f"{shipped.route} route {ms:.4f} ms vs the {other.route} route "
+        f"{other_ms:.4f} ms in turns (that one {err:.3e} of {scale:.3e} "
+        f"off the plain version); cuFFT conv {cufft_ms:.4f} ms")
 
 
 def check_eps(torch, model, x, steps, label, kernels=([], []), **cond):
@@ -1828,8 +1912,31 @@ def check_vocoder_step(torch, model, mel, L, dev):
         lambda: model(x, steps, k_fused, ops.FUSED, mel_conds=conds),
         lambda: model(x, steps, k_plain, ops.PLAIN, mel_conds=conds), 3)
     trace = trace_steps(
-        torch, lambda: model(x, steps, k_fused, ops.FUSED, mel_conds=conds))
+        torch, lambda: model(x, steps, k_fused, ops.FUSED, mel_conds=conds),
+        groups=KERNEL_9_GROUPS)
+    kernel_9_route(trace, "vocoder step", cluster=False)
     return ms, plain_ms, trace
+
+
+def kernel_9_route(trace, label, cluster):
+    """A vocoder step's trace went through kernel 9's three passes (the
+    top tier, n 2^18) and, where ``cluster`` (9f's middle tier, n 2^16),
+    through the cluster kernel, and else not; records each route's share
+    of the device's busy time.  A trace with no device time is not
+    measured."""
+    if trace is None:
+        return
+    split, busy = trace["groups_ms_per_step"], trace["device_busy_ms_per_step"]
+    ms = {route: split[f"kernel_9_{route}"]
+          for route in ("cluster", "three_pass")}
+    for route, t in ms.items():
+        trace[f"kernel_9_{route}_share"] = t / busy
+    log(f"trace: {label}: kernel 9's {KERNEL_9_CLUSTER} {ms['cluster']:.3f}"
+        f" ms a step ({ms['cluster'] / busy:.3f} of the device's busy "
+        f"time), its three passes {ms['three_pass']:.3f} ms "
+        f"({ms['three_pass'] / busy:.3f})")
+    if ms["three_pass"] <= 0 or (ms["cluster"] > 0) != cluster:
+        raise AssertionError(f"{label}: kernel 9 off its routes")
 
 
 def quality_gate(torch, label, x32, xq):
@@ -1908,6 +2015,8 @@ def check_vocoder_bf16(torch, model, mel, L, dev):
         bf16_step, step(bfm, k_plain, ops.PLAIN, conds), 3)
     out["step_ms_vs_f32"], out["f32_step_ms"] = paired_ms(
         bf16_step, step(model, k32, ops.FUSED, conds32), 3)
+    out["step_ms_vs_three_pass"], out["three_pass_step_ms"] = paired_ms(
+        bf16_step, three_pass_9f(bf16_step), 3)
     audio_s = B * L / VOC_DATASET_CFG["sampling_rate"]
     out["realtime_factor_step"] = audio_s / (
         VOC_DIFFUSION_CFG["T"] * out["step_ms"] / 1000)
@@ -1915,17 +2024,31 @@ def check_vocoder_bf16(torch, model, mel, L, dev):
         f"{out['step_ms']:.3f} ms with kernels vs {out['step_plain_ms']:.3f}"
         f" ms plain; {out['step_ms_vs_f32']:.3f} ms vs the f32 step's "
         f"{out['f32_step_ms']:.3f} ms in turns; "
+        f"{out['step_ms_vs_three_pass']:.3f} ms vs "
+        f"{out['three_pass_step_ms']:.3f} ms with 9f on the three passes at "
+        f"every n, in turns; "
         f"{out['realtime_factor_step']:.3f}x realtime from the step time")
-    # kernel 7f's pass and, apart, the weight-gradient contractions (of 6f
-    # and 7f) and the reductions, as KERNELS_7F names them
-    out["trace"] = trace_steps(torch, bf16_step, groups={
-        f"ln_ff_res_bwd_bf16_{part}": (lambda n, names=names:
-                                       in_group(n, names))
-        for part, names in KERNELS_7F.items()})
+    out["trace"] = trace_steps(torch, bf16_step, groups=KERNEL_9_GROUPS)
     log("trace: bf16 vocoder step with the kernels: " + (
         "no device time in the profiler's events (not measured)"
         if out["trace"] is None else json.dumps(out["trace"])))
+    kernel_9_route(out["trace"], "bf16 vocoder step", cluster=True)
     return out
+
+
+def three_pass_9f(step):
+    """``step`` with kernel 9f on its three passes at every n (long_plan
+    swapped for the length of the call): the bf16 step's yardstick for
+    what the cluster route gives it."""
+    fl = importlib.import_module("diffwave_sashimi_torch.ops.fftconv_long")
+
+    def run():
+        shipped, fl.long_plan = fl.long_plan, lambda n: fl.THREE_PASS
+        try:
+            return step()
+        finally:
+            fl.long_plan = shipped
+    return run
 
 
 def build_wavenet(torch):
@@ -2447,12 +2570,15 @@ def main():
             "tiers": r["tiers"]})
         for key in ("gemm_ms", "gemm_pair_ms", "weights_scratch_ms",
                     "weights_in_kernel_ms", "gemm_triple_ms",
-                    "wgrad_gemm_pair_ms", "split_ms"):
+                    "wgrad_gemm_pair_ms", "split_ms", "three_pass_ms",
+                    "ms_vs_three_pass", "cluster_ms", "ms_vs_cluster",
+                    "cufft_conv_ms"):
             # yardsticks and parts, not library calls
             if key in top:
                 entries[-1][key] = top[key]
-        if "vs_f64_max_rel" in r:
-            entries[-1]["vs_f64_max_rel"] = r["vs_f64_max_rel"]
+        for key in ("vs_f64_max_rel", "max_active_clusters"):
+            if key in r:
+                entries[-1][key] = r[key]
         if name.startswith("fftconv_long"):     # the same function
             entries[-1]["also_replaces"] = (
                 "diffwave_sashimi_tpu/ops/fftconv_pallas.py:126")

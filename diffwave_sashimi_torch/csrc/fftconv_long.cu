@@ -1,5 +1,5 @@
-// Long S4 FFT convolution (kernel 9): the four-step conv through device
-// memory, for FFT sizes past one block's shared memory.
+// Long S4 FFT convolution (kernel 9): the four-step conv, for FFT sizes
+// past one block's shared memory.
 //
 // Replaces the TPU kernels diffwave_sashimi_tpu/ops/fftconv_pallas.py::
 // _kernel (fftconv_fused, the per-row four-step DFT as matmuls) and its
@@ -23,43 +23,77 @@
 // (csrc/fftconv.cu) differs on purpose: its prologue stays unrounded and
 // its GELU is gelu_fast, the compact path's function.
 //
-// What bounds it on the H100: at the vocoder's top tier (B 2, H 128,
-// L 143360, n 2^18) the function reads u and the half spectrum once and
-// writes y once, 0.43 GB, 0.13 ms at 3.35 TB/s; its ~6 GFLOP of transforms
-// take 0.09 ms at the fp32 peak, so device memory bounds it (9f moves its
-// activations at 2 bytes, 0.28 GB, 0.08 ms, so there the transforms' fp32
-// operations bound it; the scratch round trips cost it the same).  A whole
-// complex row of 2^18 values is 2 MB, past one SM's shared memory, so the
-// transform cannot stay on chip the way kernel 1's does.
-//
 // Design, four-step (n = N1 N2, N1 = 2^floor(l/2), N2 = 2^ceil(l/2) for
 // n = 2^l; time index t = n1 N2 + n2, frequency k = k1 + N1 k2):
 //
 //   X[k1 + N1 k2] = sum_n2 W_N2^(n2 k2) W_n^(n2 k1)
 //                   sum_n1 W_N1^(n1 k1) x[n1 N2 + n2]
 //
-// with the scratch S (one complex n-row per (batch pair, channel)) in
-// (k1, n2) row-major order throughout, so no transpose is materialised:
+// in three phases: N1-point FFTs of the columns n2 (after the prologue,
+// zero past L), the twiddle W_n^(n2 k1); per row k1 the N2-point FFT, the
+// product with the spectrum at k = k1 + N1 k2 (kp[h][k1][k2], permuted
+// once per run), the N2-point inverse and the twiddle W_n^(-m2 k1); the
+// inverse N1-point FFTs of the columns m2, 1/n, and only outputs t = m1 N2
+// + m2 < L written, with the epilogue.  Two batch rows of one channel
+// share one complex transform: k is real, so conv(u_b + i u_b+1, k) =
+// conv(u_b, k) + i conv(u_b+1, k) against the Hermitian-completed
+// spectrum (H, n), and the real and imaginary parts of the result are the
+// two rows' outputs.  That halves the transform work with no real-FFT
+// split.  Every FFT is fft_stockham.cuh's, in shared memory.
+//
+// What bounds it on the H100: at the vocoder's top tier (B 2, H 128,
+// L 143360, n 2^18) the function reads u and the half spectrum once and
+// writes y once, 0.43 GB, 0.13 ms at 3.35 TB/s; its ~6 GFLOP of transforms
+// take 0.09 ms at the fp32 peak, so device memory bounds it (9f moves its
+// activations at 2 bytes, 0.28 GB, 0.08 ms, so there the transforms' fp32
+// operations bound it, 0.10 ms).  A complex row of 2^18 values is 2 MB,
+// past one SM's shared memory, so the row is spread over several SMs.
+// The f32 forms take the three passes below at every n; kernel 9f takes
+// the route that ops/fftconv_long.py::long_plan gives its n (long_plan
+// also sizes the cluster route's blocks):
+//
+// - the cluster route, n 2^16 and 2^17 (the vocoder's middle tier), where
+//   it beats the three passes on the H100 (PERF.md, Findings PR 13): one
+//   thread-block cluster of C = n / 16384 blocks owns one (batch pair,
+//   channel) row from load to store, each block 16384 complex values
+//   (128 KB of shared memory) and 1024 threads.  Block j loads the
+//   columns [j N2/C, (j+1) N2/C) (runs of 64 adjacent activations) and
+//   transforms them; exchange 1 moves, over distributed shared memory, to
+//   each peer the (N1/C) x (N2/C) tile of block j's columns that holds
+//   the peer's rows (no room for a second buffer, so every block reads
+//   what it sends into registers, the cluster syncs, and every block
+//   stores into its peers); block j runs its rows' transforms against one
+//   contiguous 128 KB slab of kp; exchange 2 moves the tiles back, and
+//   block j transforms its columns again and stores them.  The twiddles
+//   are applied as a value crosses an exchange.  Each transform belongs
+//   to one warp (fft_warp, warp barriers only; a slot layout, Swz, that
+//   no access of the kernel meets with a bank conflict).  No device-
+//   memory scratch: the device traffic is u once (the conv input u' stays
+//   in a 64 KB stash of shared memory for the D-skip), out once and kp
+//   once.  What bounds it: the instructions of its 4 transforms a row
+//   (two radix-16 passes at N 256, three radix-8 passes at N 512), the
+//   two exchanges (the network between a cluster's SMs is far slower than
+//   an SM's own shared memory), and the device-memory phases' latency
+//   with one block an SM, whose phases do not overlap.  The instance at
+//   n 2^18 (clusters of 16, past the portable size of 8) is built and
+//   measured (chip_smoke.py, cluster_phases.py) but loses to the three
+//   passes there, so it serves no call;
+// - the three-pass route, every other n, through a scratch S (one complex
+//   n-row per (batch pair, channel)) in (k1, n2) row-major order, so no
+//   transpose is materialised:
 //
 //   A (cols_fwd): each block takes TC adjacent columns n2 (coalesced rows
-//     of u), applies the prologue, zero past L, runs N1-point column FFTs
-//     in shared memory, multiplies by W_n^(n2 k1), writes S[k1][n2];
-//   B (rows):     each block takes contiguous rows k1 of S, runs the
-//     N2-point forward FFT, multiplies by the spectrum at k = k1 + N1 k2
-//     (kp[h][k1][k2], permuted once per run), runs the N2-point inverse,
-//     multiplies by W_n^(-m2 k1), writes S[k1][m2];
-//   C (cols_inv): inverse N1-point column FFTs, 1/n, and only outputs
-//     t = m1 N2 + m2 < L written, with the epilogue.
+//     of u), the prologue, the column FFTs and twiddle, writes S[k1][n2];
+//   B (rows):     each block takes contiguous rows k1 of S, the row
+//     transforms and spectrum product, writes S[k1][m2];
+//   C (cols_inv): the inverse column FFTs and the epilogue.
 //
-// Two batch rows of one channel share one complex transform: k is real, so
-// conv(u_b + i u_b+1, k) = conv(u_b, k) + i conv(u_b+1, k) against the
-// Hermitian-completed spectrum (H, n), and the real and imaginary parts of
-// the result are the two rows' outputs.  That halves the transform work
-// with no real-FFT split.  The passes' FFTs are fft_stockham.cuh's.  The
-// scratch round trips cost ~4 x 8 n bytes per (pair, channel) beyond the
-// bound: a first design, right before fast; keeping a row on chip
-// (thread-block clusters sharing shared memory) is later work.
+//   Its scratch round trips cost ~4 x 8 n bytes per (pair, channel)
+//   beyond the bound, and its column passes move u and out in 32-byte
+//   runs (TC bf16 columns); many blocks an SM overlap one block's
+//   device-memory waits with another's transforms.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -67,19 +101,36 @@
 #include "activations.cuh"
 #include "fft_stockham.cuh"
 
+// A probe build (-DDWST_PHASE_STAMPS, cluster_phases.py) times the cluster
+// kernel phase by phase: thread 0 of each block (the first 4096) records
+// clock64() at each of its PHASE_STAMPS phase boundaries.  In the shipped
+// build STAMP is empty.
+#define PHASE_STAMPS 12
+#ifdef DWST_PHASE_STAMPS
+__device__ long long dwst_stamps[4096][PHASE_STAMPS];
+#define STAMP(k) \
+  if (threadIdx.x == 0 && blockIdx.x < 4096) \
+  dwst_stamps[blockIdx.x][k] = clock64()
+#else
+#define STAMP(k)
+#endif
+
 namespace {
 
+namespace cg = cooperative_groups;
 using namespace dwst_fft;
 using namespace dwst_act;
 
 constexpr int TC = 16;           // columns per block in passes A and C
 constexpr int ROW_THREADS = 256;  // threads per block in pass B
-
-// Shared-memory slots per transform: pad() of N values plus one, so that
-// transforms side by side start on different banks.
-__host__ __device__ __forceinline__ int slots(int N) {
-  return N + N / 32 + 1;
-}
+// The cluster route: the threads of a block, the complex values it holds,
+// the values a thread takes in each phase, and the bf16 pairs u' of the
+// stash (a float2 slot holds two of them) at the start of the block's
+// shared memory.
+constexpr int CLUSTER_THREADS = 1024;
+constexpr int CLUSTER_VALUES = 16384;
+constexpr int CV = CLUSTER_VALUES / CLUSTER_THREADS;
+constexpr int STASH_SLOTS = CLUSTER_VALUES / 2;
 
 // exp(-+2 pi i m / n) for 0 <= m < n <= 2^20: the argument is exact.
 template <bool INV>
@@ -94,13 +145,15 @@ struct Dims {
   float two_over_n;
 };
 
-// The conv input at one position: u, or in the sampling form u' = a u + c
-// + bias, rounded to bf16 in 9f.  Passes A and C both call it, so the
-// D-skip sees the very value that was transformed.
+// The conv input at one position from u (as f32): u, or in the sampling
+// form u' = a u + c + bias, rounded to bf16 in 9f (T bf16).  The column
+// load and the column store both call it, so the D-skip sees the very
+// value that was transformed.
 template <bool FUSED, typename T>
-__device__ __forceinline__ float conv_in(T u, float a, float c, float bh) {
-  if (!FUSED) return to_f(u);
-  const float v = a * to_f(u) + c + bh;
+__device__ __forceinline__ float conv_in(float u, float a, float c,
+                                         float bh) {
+  if (!FUSED) return u;
+  const float v = a * u + c + bh;
   return sizeof(T) == 2 ? round_bf16(v) : v;
 }
 
@@ -111,6 +164,184 @@ __device__ __forceinline__ T gelu_out(float v) {
   return from_f<T>(gelu_erf(sizeof(T) == 2 ? round_bf16(v) : v));
 }
 
+// The shared::cluster address of z's slot in the block of rank `rank` of
+// the cluster, and a store to it: asm volatile, so the stores go out in
+// program order and none waits for another.
+__device__ __forceinline__ unsigned cluster_addr(const float2* z, int rank) {
+  unsigned out;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;"
+      : "=r"(out)
+      : "r"((unsigned)__cvta_generic_to_shared(z)), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void st_cluster(unsigned addr, float2 v) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};" ::"r"(addr),
+               "f"(v.x), "f"(v.y));
+}
+
+// threadIdx.x, read anew in each phase of the cluster kernel: the phases'
+// index arithmetic then stays apart, where the compiler would otherwise
+// keep values common to two phases (every transform's slots, every
+// column's positions) alive in registers across the whole kernel.
+__device__ __forceinline__ int phase_tid() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+}
+
+// The (batch pair, channel) row r = pair * H + h.
+struct Row {
+  int b0, b1, h;
+  bool two;
+  __device__ Row(int r, int B, int H) {
+    const int p = r / H;
+    h = r - p * H;
+    b0 = 2 * p;
+    b1 = b0 + 1;
+    two = b1 < B;
+  }
+};
+
+// A column phase gives each of its nt threads VPT values, the value i =
+// tid + e nt for e < VPT (both routes size their blocks so); a thread
+// starts the device-memory loads of G values before it uses them, so it
+// keeps G loads of each stream in flight.
+constexpr int G = 4;
+
+// Load columns [c0, c0 + ncols) of row w (every n1) into z[cc st +
+// Lay::slot(n1)] as u_b0 + i u_b1, through the prologue, zero past L; nt
+// threads tid.  STASH (9f's cluster route): also keep each value's u'
+// pair, bf16 as the prologue rounds it, in stash[i] for the store.
+template <bool FUSED, int ncols, typename Lay, bool STASH = false,
+          typename T>
+__device__ __forceinline__ void load_cols(
+    float2* z, const T* __restrict__ u, const float* __restrict__ a,
+    const float* __restrict__ c, const float* __restrict__ bias,
+    const Dims& d, const Row& w, int c0, int tid, int nt,
+    __nv_bfloat162* stash = nullptr) {
+  const int N1 = d.N1, N2 = d.N2, L = d.L, st = Lay::stride(N1);
+  const T* u0 = u + ((size_t)w.b0 * d.H + w.h) * L;
+  const T* u1 = u + ((size_t)w.b1 * d.H + w.h) * L;
+  const float* a0 = FUSED ? a + (size_t)w.b0 * L : a;
+  const float* a1 = FUSED ? a + (size_t)w.b1 * L : a;
+  const float* s0 = FUSED ? c + (size_t)w.b0 * L : c;
+  const float* s1 = FUSED ? c + (size_t)w.b1 * L : c;
+  const float bh0 = FUSED ? bias[(size_t)w.b0 * d.H + w.h] : 0.0f;
+  const float bh1 = FUSED && w.two ? bias[(size_t)w.b1 * d.H + w.h] : 0.0f;
+#pragma unroll 1
+  for (int g = 0; g < VPT; g += G) {
+    int t[G];
+    float x0[G], x1[G], p0[G], p1[G], q0[G], q1[G];
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      const int i = tid + (g + k) * nt;
+      const int n1 = i / ncols;
+      t[k] = n1 * N2 + c0 + (i - n1 * ncols);
+      const bool in0 = t[k] < L, in1 = in0 && w.two;
+      x0[k] = in0 ? to_f(u0[t[k]]) : 0.0f;
+      x1[k] = in1 ? to_f(u1[t[k]]) : 0.0f;
+      p0[k] = FUSED && in0 ? a0[t[k]] : 0.0f;
+      q0[k] = FUSED && in0 ? s0[t[k]] : 0.0f;
+      p1[k] = FUSED && in1 ? a1[t[k]] : 0.0f;
+      q1[k] = FUSED && in1 ? s1[t[k]] : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      const int i = tid + (g + k) * nt;
+      const int n1 = i / ncols, cc = i - n1 * ncols;
+      const bool in0 = t[k] < L, in1 = in0 && w.two;
+      const float v0 = in0 ? conv_in<FUSED, T>(x0[k], p0[k], q0[k], bh0) : 0;
+      const float v1 = in1 ? conv_in<FUSED, T>(x1[k], p1[k], q1[k], bh1) : 0;
+      z[cc * st + Lay::slot(n1)] = make_float2(v0, v1);
+      if (STASH) stash[i] = __floats2bfloat162_rn(v0, v1);
+    }
+  }
+}
+
+// Store columns [c0, c0 + ncols) of row w from z[cc st + Lay::slot(m1)]
+// (the inverse column transforms, unscaled): y = 1/n z, t < L only, with
+// the epilogue in the sampling form; nt threads tid, the values of
+// load_cols.  STASH: the D-skip's u' from stash[i], where load_cols kept
+// it, instead of u, a and c read again.
+template <bool FUSED, int ncols, typename Lay, bool STASH = false,
+          typename T>
+__device__ __forceinline__ void store_cols(
+    const float2* z, const T* __restrict__ u, const float* __restrict__ a,
+    const float* __restrict__ c, const float* __restrict__ bias,
+    const float* __restrict__ D, T* __restrict__ out, const Dims& d,
+    const Row& w, int c0, int tid, int nt,
+    const __nv_bfloat162* stash = nullptr) {
+  const int N1 = d.N1, N2 = d.N2, L = d.L, st = Lay::stride(N1);
+  const float inv_n = 0.5f * d.two_over_n;
+  const size_t o0 = ((size_t)w.b0 * d.H + w.h) * L;
+  const size_t o1 = ((size_t)w.b1 * d.H + w.h) * L;
+  const size_t r0 = (size_t)w.b0 * L, r1 = (size_t)w.b1 * L;
+  const float dh = FUSED ? D[w.h] : 0.0f;
+  const float bh0 = FUSED ? bias[(size_t)w.b0 * d.H + w.h] : 0.0f;
+  const float bh1 = FUSED && w.two ? bias[(size_t)w.b1 * d.H + w.h] : 0.0f;
+#pragma unroll 1
+  for (int g = 0; g < VPT; g += G) {
+    int t[G];
+    float x0[G], x1[G], p0[G], p1[G], q0[G], q1[G];
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      const int i = tid + (g + k) * nt;
+      const int m1 = i / ncols;
+      t[k] = m1 * N2 + c0 + (i - m1 * ncols);
+      const bool in0 = FUSED && !STASH && t[k] < L, in1 = in0 && w.two;
+      x0[k] = in0 ? to_f(u[o0 + t[k]]) : 0.0f;
+      x1[k] = in1 ? to_f(u[o1 + t[k]]) : 0.0f;
+      p0[k] = in0 ? a[r0 + t[k]] : 0.0f;
+      q0[k] = in0 ? c[r0 + t[k]] : 0.0f;
+      p1[k] = in1 ? a[r1 + t[k]] : 0.0f;
+      q1[k] = in1 ? c[r1 + t[k]] : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      if (t[k] >= L) continue;
+      const int i = tid + (g + k) * nt;
+      const int m1 = i / ncols, cc = i - m1 * ncols;
+      const float2 v = z[cc * st + Lay::slot(m1)];
+      const float y0 = v.x * inv_n, y1 = v.y * inv_n;
+      if (FUSED) {
+        float2 xs;
+        if (STASH) {
+          xs = __bfloat1622float2(stash[i]);
+        } else {
+          xs.x = conv_in<true, T>(x0[k], p0[k], q0[k], bh0);
+          xs.y = conv_in<true, T>(x1[k], p1[k], q1[k], bh1);
+        }
+        out[o0 + t[k]] = gelu_out<T>(y0 + dh * xs.x);
+        if (w.two) out[o1 + t[k]] = gelu_out<T>(y1 + dh * xs.y);
+      } else {
+        out[o0 + t[k]] = from_f<T>(y0);
+        if (w.two) out[o1 + t[k]] = from_f<T>(y1);
+      }
+    }
+  }
+}
+
+// z[q st + pad(k2)] *= kb[q N2 + k2] over the rows q of N2 values that
+// the nt threads' VPT values each cover, 2 G loads of kb in flight (the
+// three-pass route's row pass).
+__device__ __forceinline__ void spectrum_product(
+    float2* z, const float2* __restrict__ kb, int N2, int tid, int nt) {
+  const int st = Pad::stride(N2);
+#pragma unroll
+  for (int g = 0; g < VPT; g += 2 * G) {
+    float2 k[2 * G];
+#pragma unroll
+    for (int m = 0; m < 2 * G; ++m) k[m] = kb[tid + (g + m) * nt];
+#pragma unroll
+    for (int m = 0; m < 2 * G; ++m) {
+      const int i = tid + (g + m) * nt, q = i / N2;
+      float2* zi = z + q * st + pad(i - q * N2);
+      *zi = cmul(*zi, k[m]);
+    }
+  }
+}
+
 // Pass A.  blockIdx.x: column tile; blockIdx.y: r = pair * H + h.
 template <bool FUSED, typename T>
 __global__ void __launch_bounds__(1024)
@@ -119,34 +350,11 @@ cols_fwd_kernel(const T* __restrict__ u, const float* __restrict__ a,
                 float2* __restrict__ S, Dims d) {
   extern __shared__ float2 z[];    // TC columns of N1 values
   const int r = blockIdx.y;
-  const int p = r / d.H, h = r - p * d.H;
-  const int b0 = 2 * p, b1 = b0 + 1;
-  const bool two = b1 < d.B;
+  const Row w(r, d.B, d.H);
   const int c0 = blockIdx.x * TC;
-  const int N1 = d.N1, N2 = d.N2, L = d.L, st = slots(N1);
+  const int N1 = d.N1, N2 = d.N2, st = Pad::stride(N1);
   const int tid = threadIdx.x, nt = blockDim.x;
-  const T* u0 = u + ((size_t)b0 * d.H + h) * L;
-  const T* u1 = u + ((size_t)b1 * d.H + h) * L;
-  const float* a0 = FUSED ? a + (size_t)b0 * L : nullptr;
-  const float* a1 = FUSED ? a + (size_t)b1 * L : nullptr;
-  const float* s0 = FUSED ? c + (size_t)b0 * L : nullptr;
-  const float* s1 = FUSED ? c + (size_t)b1 * L : nullptr;
-  const float bh0 = FUSED ? bias[(size_t)b0 * d.H + h] : 0.0f;
-  const float bh1 = FUSED && two ? bias[(size_t)b1 * d.H + h] : 0.0f;
-
-  for (int i = tid; i < TC * N1; i += nt) {
-    const int n1 = i / TC, cc = i - n1 * TC;
-    const int t = n1 * N2 + c0 + cc;
-    float v0 = 0.0f, v1 = 0.0f;
-    if (t < L) {
-      v0 = conv_in<FUSED>(u0[t], FUSED ? a0[t] : 0.0f, FUSED ? s0[t] : 0.0f,
-                          bh0);
-      if (two)
-        v1 = conv_in<FUSED>(u1[t], FUSED ? a1[t] : 0.0f,
-                            FUSED ? s1[t] : 0.0f, bh1);
-    }
-    z[cc * st + pad(n1)] = make_float2(v0, v1);
-  }
+  load_cols<FUSED, TC, Pad>(z, u, a, c, bias, d, w, c0, tid, nt);
   __syncthreads();
   const int fpt = N1 / VPT, col = tid / fpt;
   fft<false>(z + col * st, N1, tid - col * fpt, fpt);
@@ -165,23 +373,19 @@ __global__ void __launch_bounds__(ROW_THREADS)
 rows_kernel(float2* __restrict__ S, const float2* __restrict__ kp, Dims d,
             int rpb) {
   extern __shared__ float2 z[];    // rpb rows of N2 values
-  const int N1 = d.N1, N2 = d.N2, st = slots(N2);
+  const int N1 = d.N1, N2 = d.N2, st = Pad::stride(N2);
   const int row0 = blockIdx.x * rpb;           // over (r, k1)
   const int r = row0 / N1, h = r % d.H;
   const int k10 = row0 - r * N1;
   const int tid = threadIdx.x, nt = blockDim.x;
   float2* Sb = S + (size_t)row0 * N2;
-  const float2* kb = kp + ((size_t)h * N1 + k10) * N2;
 
   for (int i = tid; i < rpb * N2; i += nt)
     z[(i / N2) * st + pad(i % N2)] = Sb[i];
   __syncthreads();
   const int fpt = N2 / VPT, rr = tid / fpt, lane = tid - rr * fpt;
   fft<false>(z + rr * st, N2, lane, fpt);
-  for (int i = tid; i < rpb * N2; i += nt) {
-    float2* zi = z + (i / N2) * st + pad(i % N2);
-    *zi = cmul(*zi, kb[i]);
-  }
+  spectrum_product(z, kp + ((size_t)h * N1 + k10) * N2, N2, tid, nt);
   __syncthreads();
   fft<true>(z + rr * st, N2, lane, fpt);
   for (int i = tid; i < rpb * N2; i += nt) {
@@ -200,11 +404,9 @@ cols_inv_kernel(const float2* __restrict__ S, const T* __restrict__ u,
                 T* __restrict__ out, Dims d) {
   extern __shared__ float2 z[];
   const int r = blockIdx.y;
-  const int p = r / d.H, h = r - p * d.H;
-  const int b0 = 2 * p, b1 = b0 + 1;
-  const bool two = b1 < d.B;
+  const Row w(r, d.B, d.H);
   const int c0 = blockIdx.x * TC;
-  const int N1 = d.N1, N2 = d.N2, L = d.L, st = slots(N1);
+  const int N1 = d.N1, N2 = d.N2, st = Pad::stride(N1);
   const int tid = threadIdx.x, nt = blockDim.x;
   const float2* Sr = S + (size_t)r * N1 * N2;
 
@@ -215,31 +417,156 @@ cols_inv_kernel(const float2* __restrict__ S, const T* __restrict__ u,
   __syncthreads();
   const int fpt = N1 / VPT, col = tid / fpt;
   fft<true>(z + col * st, N1, tid - col * fpt, fpt);
+  store_cols<FUSED, TC, Pad>(z, u, a, c, bias, D, out, d, w, c0, tid, nt);
+}
 
-  const float inv_n = 0.5f * d.two_over_n;
-  const size_t o0 = ((size_t)b0 * d.H + h) * L;
-  const size_t o1 = ((size_t)b1 * d.H + h) * L;
-  const float dh = FUSED ? D[h] : 0.0f;
-  const float bh0 = FUSED ? bias[(size_t)b0 * d.H + h] : 0.0f;
-  const float bh1 = FUSED && two ? bias[(size_t)b1 * d.H + h] : 0.0f;
-  for (int i = tid; i < TC * N1; i += nt) {
-    const int m1 = i / TC, cc = i - m1 * TC;
-    const int t = m1 * N2 + c0 + cc;
-    if (t >= L) continue;
-    const float2 v = z[cc * st + pad(m1)];
-    const float y0 = v.x * inv_n, y1 = v.y * inv_n;
-    if (FUSED) {
-      const size_t q0 = (size_t)b0 * L + t, q1 = (size_t)b1 * L + t;
-      out[o0 + t] = gelu_out<T>(
-          y0 + dh * conv_in<true>(u[o0 + t], a[q0], c[q0], bh0));
-      if (two)
-        out[o1 + t] = gelu_out<T>(
-            y1 + dh * conv_in<true>(u[o1 + t], a[q1], c[q1], bh1));
-    } else {
-      out[o0 + t] = from_f<T>(y0);
-      if (two) out[o1 + t] = from_f<T>(y1);
+// Kernel 9f's cluster route at n = N1 N2, C = n / CLUSTER_VALUES blocks a
+// cluster:
+// blockIdx.x / C is the row r = pair * H + h, the rank j in the cluster
+// gives the block's columns [j COLS, (j+1) COLS) and rows [j ROWS, (j+1)
+// ROWS).  Block j holds its columns as z[cc ST1 + slot(k1)] in the column
+// phases and its rows as z[q ST2 + slot(k2)] in the row phase, in the Swz
+// layout; its shared memory is the stash, then z.  Each transform
+// belongs to the N / 16 threads of one warp (or half-warp), so between
+// the exchanges and the device-memory phases a warp runs at its own pace.
+// An exchange pushes: every block reads what it sends from its own z
+// into registers, the cluster syncs, every block stores into its peers' z
+// over distributed shared memory (runs of COLS or ROWS values, no thread
+// waits on a store), and the cluster syncs again.
+template <int N1, int N2>
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1)
+fftconv_cluster_kernel(const __nv_bfloat16* __restrict__ u,
+                       const float* __restrict__ a,
+                       const float* __restrict__ c,
+                       const float* __restrict__ bias,
+                       const float2* __restrict__ kp,
+                       const float* __restrict__ D,
+                       __nv_bfloat16* __restrict__ out, Dims d) {
+  constexpr int C = N1 * N2 / CLUSTER_VALUES, COLS = N2 / C, ROWS = N1 / C;
+  constexpr int TILE = COLS * ROWS, NT = CLUSTER_THREADS;
+  constexpr int ST1 = Swz::stride(N1), ST2 = Swz::stride(N2);
+  constexpr int F1 = N1 / VPT, F2 = N2 / VPT;   // threads a transform
+  static_assert(NT % ROWS == 0 && NT % COLS == 0, "fixed tile positions");
+  extern __shared__ float2 smem[];
+  __nv_bfloat162* const stash = reinterpret_cast<__nv_bfloat162*>(smem);
+  float2* const z = smem + STASH_SLOTS;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int j = (int)cluster.block_rank();
+  const Row w(blockIdx.x / C, d.B, d.H);
+  float2 v[CV];
+  int tid = phase_tid();
+
+  // this block's slab of the spectrum: rows [j ROWS, (j+1) ROWS)
+  const float2* kb = kp + ((size_t)w.h * N1 + j * ROWS) * N2;
+
+  // phase 1: the columns, forward
+  STAMP(0);
+  load_cols<true, COLS, Swz, true>(z, u, a, c, bias, d, w, j * COLS, tid,
+                                   NT, stash);
+  __syncthreads();
+  STAMP(1);
+  tid = phase_tid();
+  fft_warp<N1, false>(z + tid / F1 * ST1, tid % F1);
+  __syncthreads();
+
+  // exchange 1: to peer i the rows [i ROWS, (i+1) ROWS) of this block's
+  // columns, times W_n^(n2 k1).  A thread's value e is column n2 = j COLS
+  // + tid % COLS at k1 = tid / COLS + e NT / COLS (its peer k1 / ROWS), so
+  // its twiddles step by W_n^(n2 NT / COLS), exact every 8 values.
+  STAMP(2);
+  tid = phase_tid();
+  {
+    const int cc = tid % COLS, n2 = j * COLS + cc, k10 = tid / COLS;
+    const float2 step = twiddle<false>(NT / COLS * n2, d.two_over_n);
+    float2 tw;
+#pragma unroll
+    for (int e = 0; e < CV; ++e) {
+      const int k1 = k10 + e * (NT / COLS);
+      if (e % 8 == 0) tw = twiddle<false>(n2 * k1, d.two_over_n);
+      v[e] = cmul(z[cc * ST1 + Swz::slot(k1)], tw);
+      tw = cmul(tw, step);
     }
   }
+  cluster.sync();
+  STAMP(3);
+  tid = phase_tid();
+  {
+    const int cc = tid % COLS;
+#pragma unroll
+    for (int e = 0; e < CV; ++e) {
+      const int x = tid + e * NT, q = x % TILE / COLS;
+      st_cluster(cluster_addr(z + q * ST2 + Swz::slot(j * COLS + cc),
+                              x / TILE),
+                 v[e]);
+    }
+  }
+  STAMP(4);
+  cluster.sync();
+
+  // phase 2: each row, forward, times the spectrum, inverse
+  STAMP(5);
+  tid = phase_tid();
+  {
+    const int q = tid / F2, lane = tid % F2;
+    float2* zq = z + q * ST2;
+    fft_warp<N2, false>(zq, lane);
+    float2 k[VPT];
+#pragma unroll
+    for (int m = 0; m < VPT; ++m) k[m] = kb[q * N2 + lane + m * F2];
+#pragma unroll
+    for (int m = 0; m < VPT; ++m) {
+      float2* zi = zq + Swz::slot(lane + m * F2);
+      *zi = cmul(*zi, k[m]);
+    }
+    __syncwarp();
+    tid = phase_tid();
+    fft_warp<N2, true>(z + tid / F2 * ST2, tid % F2);
+  }
+  __syncthreads();
+
+  // exchange 2: to peer i the columns [i COLS, (i+1) COLS) of this block's
+  // rows, times W_n^(-m2 k1); value e is row k1 = j ROWS + tid % ROWS at
+  // m2 = tid / ROWS + e NT / ROWS (its peer m2 / COLS)
+  STAMP(6);
+  tid = phase_tid();
+  {
+    const int q = tid % ROWS, k1 = j * ROWS + q, m20 = tid / ROWS;
+    const float2 step = twiddle<true>(NT / ROWS * k1, d.two_over_n);
+    float2 tw;
+#pragma unroll
+    for (int e = 0; e < CV; ++e) {
+      const int m2 = m20 + e * (NT / ROWS);
+      if (e % 8 == 0) tw = twiddle<true>(m2 * k1, d.two_over_n);
+      v[e] = cmul(z[q * ST2 + Swz::slot(m2)], tw);
+      tw = cmul(tw, step);
+    }
+  }
+  cluster.sync();
+  STAMP(7);
+  tid = phase_tid();
+  {
+    const int q = tid % ROWS;
+#pragma unroll
+    for (int e = 0; e < CV; ++e) {
+      const int x = tid + e * NT, cc = x % TILE / ROWS;
+      st_cluster(cluster_addr(z + cc * ST1 + Swz::slot(j * ROWS + q),
+                              x / TILE),
+                 v[e]);
+    }
+  }
+  STAMP(8);
+  cluster.sync();
+
+  // phase 3: the columns, inverse, and the store
+  STAMP(9);
+  tid = phase_tid();
+  fft_warp<N1, true>(z + tid / F1 * ST1, tid % F1);
+  __syncthreads();
+  STAMP(10);
+  tid = phase_tid();
+  store_cols<true, COLS, Swz, true>(z, u, a, c, bias, D, out, d, w,
+                                    j * COLS, tid, NT, stash);
+  STAMP(11);
 }
 
 // power of two, 256 <= n <= 2^20 (N1, N2 in [16, 1024]), L <= n
@@ -253,21 +580,95 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+Dims dims(int B, int H, int L, int n) {
+  int l = 0;
+  while ((1 << l) < n) ++l;
+  return Dims{B, H, L, 1 << (l / 2), 1 << (l - l / 2), 2.0f / (float)n};
+}
+
+// The cluster route's launch configuration for a grid of `clusters`
+// clusters of C blocks, with its attribute (in *attr), after the kernel's
+// attributes are set.
+template <typename Kernel>
+cudaError_t cluster_config(Kernel kernel, int C, int smem, int clusters,
+                           cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr) {
+  cudaError_t e;
+  if ((e = allow_smem(kernel, smem)) != cudaSuccess) return e;
+  if (C > 8 && (e = cudaFuncSetAttribute(
+                    kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                    1)) != cudaSuccess)
+    return e;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(clusters * C);
+  cfg->blockDim = dim3(CLUSTER_THREADS);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// The cluster kernel's instance at n = N1 N2 (2^16, 2^17 or 2^18), or
+// null; *C its blocks a cluster.
+using ClusterKernel = void (*)(const __nv_bfloat16*, const float*,
+                               const float*, const float*, const float2*,
+                               const float*, __nv_bfloat16*, Dims);
+
+ClusterKernel cluster_kernel(int n, int* C) {
+  *C = n / CLUSTER_VALUES;
+  switch (n) {
+    case 1 << 16: return fftconv_cluster_kernel<256, 256>;
+    case 1 << 17: return fftconv_cluster_kernel<256, 512>;
+    case 1 << 18: return fftconv_cluster_kernel<512, 512>;
+    default: return nullptr;
+  }
+}
+
+// Kernel 9f on the cluster route with the plan's (cluster, cols, rows,
+// smem), which must be the instance's: every block holds CLUSTER_VALUES
+// values as N2 / C columns and as N1 / C rows.
+int launch_cluster(const __nv_bfloat16* u, const float* a, const float* c,
+                   const float* bias, const void* kp, const float* D,
+                   __nv_bfloat16* out, int B, int H, int L, int n,
+                   int cluster, int cols, int rows, int smem,
+                   cudaStream_t stream) {
+  if (bad_size(n, L) || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  const Dims d = dims(B, H, L, n);
+  int C;
+  const auto kernel = cluster_kernel(n, &C);
+  if (!kernel || cluster != C || cols * C != d.N2 || rows * C != d.N1)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = cluster_config(kernel, C, smem, (B + 1) / 2 * H, stream,
+                                 &cfg, &attr);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchKernelEx(&cfg, kernel, u, a, c, bias,
+                         static_cast<const float2*>(kp), D, out, d);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The three-pass route through scratch.
 template <bool FUSED, typename T>
 int launch_long(const T* u, const float* a, const float* c,
                 const float* bias, const void* kp, const float* D,
                 void* scratch, T* out, int B, int H, int L, int n,
                 cudaStream_t stream) {
   if (bad_size(n, L) || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  int l = 0;
-  while ((1 << l) < n) ++l;
-  Dims d{B, H, L, 1 << (l / 2), 1 << (l - l / 2), 2.0f / (float)n};
+  const Dims d = dims(B, H, L, n);
   const int R = (B + 1) / 2 * H;     // rows r = pair * H + h
   float2* S = static_cast<float2*>(scratch);
 
-  const size_t smem_col = (size_t)TC * slots(d.N1) * sizeof(float2);
+  const size_t smem_col =
+      (size_t)TC * Pad::stride(d.N1) * sizeof(float2);
   const int rpb = std::min(ROW_THREADS * VPT / d.N2, d.N1);
-  const size_t smem_row = (size_t)rpb * slots(d.N2) * sizeof(float2);
+  const size_t smem_row = (size_t)rpb * Pad::stride(d.N2) * sizeof(float2);
   cudaError_t e;
   if ((e = allow_smem(cols_fwd_kernel<FUSED, T>, smem_col)) != cudaSuccess ||
       (e = allow_smem(rows_kernel, smem_row)) != cudaSuccess ||
@@ -290,7 +691,8 @@ int launch_long(const T* u, const float* a, const float* c,
 }  // namespace
 
 // kp: (H, N1, N2) complex64, the Hermitian-completed spectrum K[k1 + N1 k2]
-// at [h][k1][k2]; scratch: ceil(B/2) H n complex64.
+// at [h][k1][k2]; scratch: ceil(B/2) H n complex64.  The f32 forms take
+// the three-pass route at every n.
 extern "C" int dwst_fftconv_long_ln_bias_gelu_d(
     const float* u, const float* a, const float* c, const float* bias,
     const void* kp, const float* D, void* scratch, float* out, int B, int H,
@@ -299,14 +701,21 @@ extern "C" int dwst_fftconv_long_ln_bias_gelu_d(
                            stream);
 }
 
-// Kernel 9f: u and out bf16, the rest as above.
+// Kernel 9f: u and out bf16, the rest as above; cluster, cols, rows, smem:
+// its route's plan (ops/fftconv_long.py::long_plan), cluster 0 the three
+// passes through scratch, cluster > 0 the cluster route (scratch unused).
 extern "C" int dwst_fftconv_long_ln_bias_gelu_d_bf16(
     const void* u, const float* a, const float* c, const float* bias,
     const void* kp, const float* D, void* scratch, void* out, int B, int H,
-    int L, int n, cudaStream_t stream) {
-  return launch_long<true>(static_cast<const __nv_bfloat16*>(u), a, c, bias,
-                           kp, D, scratch, static_cast<__nv_bfloat16*>(out),
-                           B, H, L, n, stream);
+    int L, int n, int cluster, int cols, int rows, int smem,
+    cudaStream_t stream) {
+  const auto* ub = static_cast<const __nv_bfloat16*>(u);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  if (cluster > 0)
+    return launch_cluster(ub, a, c, bias, kp, D, ob, B, H, L, n, cluster,
+                          cols, rows, smem, stream);
+  return launch_long<true>(ub, a, c, bias, kp, D, scratch, ob, B, H, L, n,
+                           stream);
 }
 
 extern "C" int dwst_fftconv_long(const float* u, const void* kp,
@@ -315,3 +724,29 @@ extern "C" int dwst_fftconv_long(const float* u, const void* kp,
   return launch_long<false, float>(u, nullptr, nullptr, nullptr, kp,
                                    nullptr, scratch, out, B, H, L, n, stream);
 }
+
+// How many clusters of 9f's cluster kernel at FFT size n (C = n / 16384
+// blocks a cluster), each block with smem bytes of shared memory, the card
+// can hold at once (cudaOccupancyMaxActiveClusters), or minus the CUDA
+// error.
+extern "C" int dwst_fftconv_long_max_clusters(int n, int smem) {
+  int C;
+  const auto kernel = cluster_kernel(n, &C);
+  if (!kernel) return -(int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = cluster_config(kernel, C, smem, 1, 0, &cfg, &attr);
+  int clusters = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  return e == cudaSuccess ? clusters : -(int)e;
+}
+
+#ifdef DWST_PHASE_STAMPS
+// The probe build's stamps, copied to dst ((4096, stamps) int64); fails
+// unless stamps is the kernel's PHASE_STAMPS.
+extern "C" int dwst_read_stamps(void* dst, int stamps) {
+  if (stamps != PHASE_STAMPS) return (int)cudaErrorInvalidValue;
+  return (int)cudaMemcpyFromSymbol(dst, dwst_stamps, sizeof(dwst_stamps));
+}
+#endif

@@ -75,12 +75,16 @@ _SIGNATURES = {
     "dwst_ln_ff_res_bwd_bf16": [_P] * 18 + [_I] * 7 + [_P],
     # a, b, c, d, z, g, da, db, dc, dd, K, M, N, Lz, stream
     "dwst_cauchy_bwd": [_P] * 10 + [_I] * 4 + [_P],
-    # u, a, c, bias, kp, D, scratch, out, B, H, L, n, stream (the _bf16
-    # form: the same arguments, u and out bf16)
+    # u, a, c, bias, kp, D, scratch, out, B, H, L, n, stream
     "dwst_fftconv_long_ln_bias_gelu_d": [_P] * 8 + [_I] * 4 + [_P],
-    "dwst_fftconv_long_ln_bias_gelu_d_bf16": [_P] * 8 + [_I] * 4 + [_P],
+    # kernel 9f: the same arguments, u and out bf16, and its route's plan
+    # (cluster, cols, rows, smem; ops/fftconv_long.py::long_plan) before
+    # the stream
+    "dwst_fftconv_long_ln_bias_gelu_d_bf16": [_P] * 8 + [_I] * 8 + [_P],
     # u, kp, scratch, out, B, H, L, n, stream
     "dwst_fftconv_long": [_P] * 4 + [_I] * 4 + [_P],
+    # n, smem (no stream): the clusters the card holds at once
+    "dwst_fftconv_long_max_clusters": [_I] * 2,
     # h, x, Wr, br, Ws, bs, res, skip, B, C, S, L, stream (the _bf16 form:
     # the same arguments, h, x, res and skip bf16)
     "dwst_gate_res_skip": [_P] * 8 + [_I] * 4 + [_P],

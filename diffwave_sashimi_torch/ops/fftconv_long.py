@@ -25,7 +25,11 @@ parts ``irfft`` reads).  Entries:
 
 Each launches its CUDA kernel for CUDA tensors and runs its plain version
 (``*_ref``: the half spectrum back out of the layout, then torch.fft) for
-CPU tensors.
+CPU tensors.  On the card the f32 forms take three passes through a
+device-memory scratch at every n; kernel 9f's FFT size alone picks its
+route (:func:`long_plan`): at n 2^16 and 2^17 a thread-block cluster that
+holds one transform row in its blocks' shared memory, at every other n
+the three passes.
 
 Kernel 9f computes what the JAX package computes around kernel 9 at bf16
 (its v1 path, ``models/s4.py:705-712``, and its flat path, which computes
@@ -41,6 +45,8 @@ which waits for vocoder training.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -50,6 +56,18 @@ from .fftconv import (fftconv_ln_bias_gelu_d, fftconv_ln_bias_gelu_d_ref,
 
 KERNEL1_MAX_N = 32768     # kernel 1's largest FFT (one block's shared memory)
 MAX_N = 1 << 20           # kernel 9's largest (N1, N2 <= 1024)
+# kernel 9f's cluster route: the complex values a block holds (1024
+# threads x 16, csrc/fftconv_long.cu::CLUSTER_VALUES); the FFT sizes the
+# kernel has instances for, C = n / CLUSTER_VALUES blocks a cluster (16 is
+# past the portable cluster size of 8, which the H100 allows); and those
+# :func:`long_plan` routes to it, where it beats the three passes on the
+# H100 (PERF.md, Findings PR 13; at n 2^18 the three passes win)
+CLUSTER_VALUES = 16384
+CLUSTER_SIZES = (1 << 16, 1 << 17, 1 << 18)
+CLUSTER_NS = (1 << 16, 1 << 17)
+# 8-byte slots of a block's stash, 9f's conv input u' as a bf16 pair a
+# value (csrc/fftconv_long.cu::STASH_SLOTS)
+CLUSTER_STASH = CLUSTER_VALUES // 2
 
 
 def split(n: int):
@@ -57,6 +75,57 @@ def split(n: int):
     JAX package's mxu_fft._split_size for powers of two)."""
     l = n.bit_length() - 1
     return 1 << (l // 2), 1 << (l - l // 2)
+
+
+class LongPlan(NamedTuple):
+    """How kernel 9f runs at one FFT size: the route (``"cluster"`` or
+    ``"three_pass"``), and on the cluster route the blocks a cluster, the
+    columns n2 and rows k1 a block takes, and its shared-memory bytes (0
+    each on the three-pass route, which sizes its own passes)."""
+    route: str
+    cluster: int
+    cols: int
+    rows: int
+    smem: int
+
+
+THREE_PASS = LongPlan("three_pass", 0, 0, 0, 0)
+
+
+def cluster_plan(n: int, C: int = 0) -> LongPlan:
+    """The cluster route's partition of an n-point transform over C blocks
+    (by default n / 16384: 4, 8, 16 at :data:`CLUSTER_SIZES`, each block
+    16384 complex values): block j takes columns [j N2/C, (j+1) N2/C)
+    (every n1) in the column phases and rows [j N1/C, (j+1) N1/C) (every
+    k2) in the row phase, holding its stash and the larger of the two in
+    shared memory, N + 1 slots an N-point transform
+    (csrc/fft_stockham.cuh::Swz)."""
+    N1, N2 = split(n)
+    C = C or n // CLUSTER_VALUES
+    cols, rows = N2 // C, N1 // C
+    return LongPlan("cluster", C, cols, rows,
+                    8 * (CLUSTER_STASH
+                         + max(cols * (N1 + 1), rows * (N2 + 1))))
+
+
+def long_plan(n: int) -> LongPlan:
+    """Kernel 9f's route at FFT size n, by n alone: the cluster route for
+    n in :data:`CLUSTER_NS`, the three-pass route for every other n.  The
+    kernel takes the plan as given: this is the one place it is
+    computed."""
+    return cluster_plan(n) if n in CLUSTER_NS else THREE_PASS
+
+
+def max_active_clusters(n: int) -> int:
+    """How many clusters of the cluster route at FFT size n (of
+    :data:`CLUSTER_SIZES`) the card holds at once
+    (``cudaOccupancyMaxActiveClusters``); raises on a CUDA error."""
+    got = cuda_lib.library().dwst_fftconv_long_max_clusters(
+        n, cluster_plan(n).smem)
+    if got < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters at n {n}: CUDA "
+                           f"error {-got}")
+    return got
 
 
 def long_spectrum(khat: torch.Tensor) -> torch.Tensor:
@@ -134,10 +203,17 @@ def _check(u, kp, dtype=torch.float32):
     return B, H, L, n
 
 
-def _scratch(B, H, n, device):
-    """One complex n-row per (pair of batch rows, channel)."""
+def _scratch(B, H, n, device, plan):
+    """The three-pass route's scratch, one complex n-row per (pair of batch
+    rows, channel); the cluster route takes none (a null pointer)."""
+    if plan.route == "cluster":
+        return None
     return torch.empty(((B + 1) // 2 * H, n), dtype=torch.complex64,
                        device=device)
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
 
 
 def fftconv_long(u, kp):
@@ -146,7 +222,8 @@ def fftconv_long(u, kp):
     if not u.is_cuda:
         return fftconv_long_ref(u, kp)
     B, H, L, n = _check(u, kp)
-    out, scratch = torch.empty_like(u), _scratch(B, H, n, u.device)
+    out, scratch = torch.empty_like(u), _scratch(B, H, n, u.device,
+                                                 THREE_PASS)
     cuda_lib.launch("dwst_fftconv_long", u.data_ptr(), kp.data_ptr(),
                     scratch.data_ptr(), out.data_ptr(), B, H, L, n)
     fftconv_long.launches += 1
@@ -163,9 +240,9 @@ def fftconv_long_ln_bias_gelu_d(u, a, c, bias, kp, D):
         return fftconv_long_ln_bias_gelu_d_ref(u, a, c, bias, kp, D)
     if u.dtype == torch.bfloat16:
         return fftconv_long_ln_bias_gelu_d_bf16(u, a, c, bias, kp, D)
-    return _launch_sampling(fftconv_long_ln_bias_gelu_d,
-                            "dwst_fftconv_long_ln_bias_gelu_d", torch.float32,
-                            u, a, c, bias, kp, D)
+    out = launch_sampling(u, a, c, bias, kp, D)
+    fftconv_long_ln_bias_gelu_d.launches += 1
+    return out
 
 
 fftconv_long_ln_bias_gelu_d.launches = 0
@@ -176,26 +253,33 @@ def fftconv_long_ln_bias_gelu_d_bf16(u, a, c, bias, kp, D):
     for CUDA tensors, the plain version for CPU tensors."""
     if not u.is_cuda:
         return fftconv_long_ln_bias_gelu_d_bf16_ref(u, a, c, bias, kp, D)
-    return _launch_sampling(fftconv_long_ln_bias_gelu_d_bf16,
-                            "dwst_fftconv_long_ln_bias_gelu_d_bf16",
-                            torch.bfloat16, u, a, c, bias, kp, D)
+    out = launch_sampling(u, a, c, bias, kp, D)
+    fftconv_long_ln_bias_gelu_d_bf16.launches += 1
+    return out
 
 
 fftconv_long_ln_bias_gelu_d_bf16.launches = 0
 
 
-def _launch_sampling(wrapper, entry, dtype, u, a, c, bias, kp, D):
-    """Check the arguments of kernel 9's or 9f's sampling form (u of
-    ``dtype``, the rest f32), launch ``entry`` and count it on
-    ``wrapper``."""
-    B, H, L, n = _check(u, kp, dtype)
+def launch_sampling(u, a, c, bias, kp, D, plan=None):
+    """Check the arguments of kernel 9's sampling form (9f's for bf16 u;
+    the rest f32) and launch it: 9f on ``plan``'s route (by default
+    :func:`long_plan`'s), the f32 form on the three passes; uncounted (the
+    wrappers count their launches)."""
+    bf16 = u.dtype == torch.bfloat16
+    B, H, L, n = _check(u, kp, torch.bfloat16 if bf16 else torch.float32)
+    plan = (plan or long_plan(n)) if bf16 else THREE_PASS
     for t, shape in ((a, (B, L)), (c, (B, L)), (bias, (B, H)), (D, (H,))):
         cuda_lib.check(t, shape, torch.float32)
-    out, scratch = torch.empty_like(u), _scratch(B, H, n, u.device)
-    cuda_lib.launch(entry, u.data_ptr(), a.data_ptr(), c.data_ptr(),
-                    bias.data_ptr(), kp.data_ptr(), D.data_ptr(),
-                    scratch.data_ptr(), out.data_ptr(), B, H, L, n)
-    wrapper.launches += 1
+    out, scratch = torch.empty_like(u), _scratch(B, H, n, u.device, plan)
+    args = (u.data_ptr(), a.data_ptr(), c.data_ptr(), bias.data_ptr(),
+            kp.data_ptr(), D.data_ptr(), _ptr(scratch), out.data_ptr(), B,
+            H, L, n)
+    if bf16:
+        cuda_lib.launch("dwst_fftconv_long_ln_bias_gelu_d_bf16", *args,
+                        *plan[1:])
+    else:
+        cuda_lib.launch("dwst_fftconv_long_ln_bias_gelu_d", *args)
     return out
 
 

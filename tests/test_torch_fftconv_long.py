@@ -2,8 +2,11 @@
 against the JAX package's four-step Pallas conv (``fftconv_fused``, run in
 interpret mode on the CPU at strict f32, and its channel-batched schedule),
 the factorized spectrum the port builds once per run against its
-definition, and the routing by FFT size.  Tolerance: 1e-5 x max(1, max
-|ref|) (f32 transforms of a few thousand points)."""
+definition, the routing by FFT size, the cluster route's plan, and a model
+of the cluster route's schedule (its block partition, its two exchanges as
+tile moves between the blocks' shared-memory slots, its twiddles) at a
+scaled-down split.  Tolerance: 1e-5 x max(1, max |ref|) (f32 transforms of
+a few thousand points)."""
 
 import importlib
 
@@ -148,3 +151,159 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         fl._check(u, torch.zeros(4, 16, 16, dtype=torch.complex64))
     with pytest.raises(ValueError, match="contiguous CUDA"):
         fl._check(u, torch.zeros(4, 16, 32, dtype=torch.complex64))
+
+
+@pytest.mark.parametrize("n,C,cols,rows,routed", [
+    (1 << 16, 4, 64, 64, True), (1 << 17, 8, 64, 32, True),
+    (1 << 18, 16, 32, 32, False)])
+def test_long_plan_routes_the_vocoders_sizes_to_the_cluster(n, C, cols,
+                                                            rows, routed):
+    """The cluster kernel's sizes: one cluster of C = n / 16384 blocks a
+    row, each block 16384 complex values (128 KB) as cols columns of N1
+    and as rows rows of N2; its N + 1 slots a transform and its 64 KB
+    stash within the H100's 232448 bytes a block.  Kernel 9f takes it at
+    n 2^16 and 2^17, where it beats the three passes; at 2^18 the three
+    passes win, and take 9f there."""
+    plan = fl.cluster_plan(n)
+    N1, N2 = fl.split(n)
+    assert plan == ("cluster", C, cols, rows, plan.smem)
+    assert cols * C == N2 and rows * C == N1
+    assert cols * N1 == rows * N2 == fl.CLUSTER_VALUES == 1024 * 16
+    held = max(cols * (N1 + 1), rows * (N2 + 1))
+    assert 128 * 1024 < 8 * held
+    assert plan.smem == 8 * (held + fl.CLUSTER_STASH) <= 232448
+    assert n in fl.CLUSTER_SIZES
+    assert fl.long_plan(n) == (plan if routed else fl.THREE_PASS)
+
+
+@pytest.mark.parametrize("n", [4096, 1 << 15, 1 << 18, 1 << 19, 1 << 20])
+def test_long_plan_keeps_the_three_pass_route_elsewhere(n):
+    assert fl.long_plan(n) == fl.THREE_PASS
+    assert fl.THREE_PASS.route == "three_pass"
+
+
+def test_launchers_refuse_cpu_tensors():
+    """The sampling form's launcher behind the wrappers (also the route
+    yardsticks' entry) raises on CPU tensors, 9f's on either route: only
+    the wrappers take the plain version, and only for CPU tensors."""
+    B, H, L, n = 2, 2, 300, 1 << 16
+    u, kp = torch.zeros(B, H, L), torch.zeros(H, 256, 256,
+                                              dtype=torch.complex64)
+    a, c = torch.ones(B, L), torch.zeros(B, L)
+    bias, D = torch.zeros(B, H), torch.zeros(H)
+    for plan in (fl.long_plan(n), fl.THREE_PASS):
+        for x in (u, u.to(torch.bfloat16)):
+            with pytest.raises(ValueError, match="contiguous CUDA"):
+                fl.launch_sampling(x, a, c, bias, kp, D, plan)
+
+
+def _slot(i):
+    """csrc/fft_stockham.cuh::Swz::slot: bits 0-3 of i XOR bits 3-6."""
+    return i ^ ((i >> 3) & 15)
+
+
+def _cluster_schedule(u, kp, plan, pro=None, D=None):
+    """A model of csrc/fftconv_long.cu::fftconv_cluster_kernel in f64: per
+    (batch pair, channel) row, C blocks each with its own shared-memory
+    slots (the Swz layout, N + 1 slots a transform), the column FFTs, the
+    two exchanges as the kernel's tile moves (each block's value x goes to
+    block x / TILE, the sender reading its own slots and storing into the
+    peer's), the twiddles as values cross them, the row FFTs against the
+    block's slab of kp, and the column store.  ``pro``: (a, c, bias), the
+    sampling form's prologue, with its epilogue gelu_erf(y + D u'); else
+    the contract's conv."""
+    B, H, L = u.shape
+    _, N1, N2 = kp.shape
+    n, C, cols, rows = N1 * N2, plan.cluster, plan.cols, plan.rows
+    st1, st2, tile = N1 + 1, N2 + 1, cols * rows
+    f64, c128 = torch.float64, torch.complex128
+    x = u.to(f64)
+    if pro is not None:
+        a, c, bias = (t.to(f64) for t in pro)
+        x = x * a[:, None] + c[:, None] + bias[:, :, None]
+    xp = torch.zeros(B + B % 2, H, n, dtype=f64)
+    xp[:B, :, :L] = x
+    rows_in = torch.complex(xp[0::2], xp[1::2])           # (pairs, H, n)
+    kp = kp.to(c128)
+    y = torch.empty(rows_in.shape, dtype=c128)
+    # phase 1 (load_cols): column cc of block j at z[cc st1 + slot(n1)]
+    n1 = torch.arange(N1)[:, None]
+    cc = torch.arange(cols)[None, :]
+    col_slots = cc * st1 + _slot(n1)                      # (N1, cols)
+    q2 = torch.arange(rows)[:, None]
+    k2 = torch.arange(N2)[None, :]
+    row_slots = q2 * st2 + _slot(k2)                      # (rows, N2)
+    # a block's value x of an exchange: its peer, its tile position
+    xs = torch.arange(C * tile)
+    peer, yy = xs // tile, xs % tile
+    e1_q, e1_cc = yy // cols, yy % cols                   # cc fastest
+    e2_cc, e2_q = yy // rows, yy % rows                   # q fastest
+    for p in range(rows_in.shape[0]):
+        for h in range(H):
+            z = torch.zeros(C, plan.smem // 8 - fl.CLUSTER_STASH,
+                            dtype=c128)
+            for j in range(C):
+                t = n1 * N2 + j * cols + cc
+                z[j, col_slots] = torch.fft.fft(rows_in[p, h][t], dim=0)
+            w = torch.zeros_like(z)               # exchange 1
+            for j in range(C):
+                k1 = peer * rows + e1_q
+                n2 = j * cols + e1_cc
+                tw = torch.exp(-2j * torch.pi * (n2 * k1).to(f64) / n)
+                w[peer, e1_q * st2 + _slot(n2)] = (
+                    z[j, e1_cc * st1 + _slot(k1)] * tw)
+            z = w
+            for j in range(C):                    # phase 2
+                X = torch.fft.fft(z[j, row_slots], dim=1)
+                X = X * kp[h, j * rows:(j + 1) * rows]
+                z[j, row_slots] = torch.fft.ifft(X, dim=1) * N2
+            w = torch.zeros_like(z)               # exchange 2
+            for j in range(C):
+                k1 = j * rows + e2_q
+                m2 = peer * cols + e2_cc
+                tw = torch.exp(2j * torch.pi * (m2 * k1).to(f64) / n)
+                w[peer, e2_cc * st1 + _slot(k1)] = (
+                    z[j, e2_q * st2 + _slot(m2)] * tw)
+            z = w
+            for j in range(C):                    # phase 3 (store_cols)
+                t = n1 * N2 + j * cols + cc
+                y[p, h][t] = torch.fft.ifft(z[j, col_slots], dim=0) * N1 / n
+    out = torch.stack([y.real, y.imag], 1).reshape(-1, H, n)[:B, :, :L]
+    if pro is None:
+        return out
+    v = out + D.to(f64)[:, None] * x
+    return 0.5 * v * (1.0 + torch.erf(v / np.sqrt(2.0)))
+
+
+@pytest.mark.parametrize("B,L,n,C", [(2, 1000, 1024, 4), (3, 700, 1024, 4),
+                                     (2, 1500, 2048, 4), (1, 3000, 4096, 8),
+                                     (2, 600, 1024, 2)])
+def test_cluster_schedule_matches_jax_fftconv_fused(B, L, n, C):
+    """The cluster route's schedule at a scaled-down split (the plan's
+    partition of n over C blocks; odd B leaves a pair's second row empty)
+    against fftconv_fused: the conv alone, and with the sampling form's
+    prologue and epilogue written out (9f's bf16 roundings aside)."""
+    H = 8                                 # fftconv_fused's HB
+    u, k = _case(B, H, L, n, min(L, n - L), seed=4)
+    kf = fp.factorize_kernel_freq(jnp.asarray(k), n)
+    kp = _port_spectrum(kf, n)
+    plan = fl.cluster_plan(n, C)
+    N1, N2 = fl.split(n)
+    assert plan.cols * C == N2 and plan.rows * C == N1
+    ref = np.asarray(fp.fftconv_fused(jnp.asarray(u), kf, n, L, False))
+    out = _cluster_schedule(torch.from_numpy(u), kp, plan)
+    _within(out.numpy(), ref)
+
+    rng = np.random.RandomState(5)
+    a = (0.5 + rng.rand(B, L)).astype(np.float32)
+    c = (0.3 * rng.randn(B, L)).astype(np.float32)
+    bias = (0.3 * rng.randn(B, H)).astype(np.float32)
+    D = rng.randn(H).astype(np.float32)
+    up = u * a[:, None] + c[:, None] + bias[:, :, None]
+    y = np.asarray(fp.fftconv_fused(jnp.asarray(up), kf, n, L, False))
+    z = y + D[:, None] * up
+    gelu = 0.5 * z * (1.0 + erf(z / np.sqrt(2.0)))
+    fused = _cluster_schedule(torch.from_numpy(u), kp, plan,
+                              [torch.from_numpy(t) for t in (a, c, bias)],
+                              torch.from_numpy(D))
+    _within(fused.numpy(), gelu)
