@@ -126,7 +126,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
 19. kernel 11 (the gate + res/skip tail) against its plain version at the
     sampling path's shape (B4 C256 S256 L16000), at B16, and at a ragged
     length with S != C (C128 S256 L8960), timed; (19b) kernel 11f at the
-    same cases (bf16 activations), timed;
+    same cases (bf16 activations), timed, and at C24 S40 L333 (a width
+    that is a multiple of 8 but not 16, S != C, a ragged L: the zero
+    padding of its rounded weights and gate tile); two calls at the top
+    case bit-equal; one bf16 ``torch.matmul`` of the stacked weight by
+    the gate's shape beside it (``gemm_ms``, a yardstick);
 20. the WaveNet sampling path: ``generate()`` at T = 200, B4, with every
     launch count set to 0 just before and read just after: kernel 11
     exactly 36 x 200 times, every other kernel never; finite output of
@@ -277,6 +281,8 @@ WNET_COND_CFG = dict(WNET_MODEL_CFG, unconditional=False,
 WNET_MEL_FRAMES = 63          # x hop 256: L 16128 (phase 21)
 WNET_LAUNCHES = {"gate_res_skip": 36 * 200}   # generate() at T = 200
 # the shipped WaveNet command (phase 20b): bf16, kernel 11f in every block
+# (a wrapper call, counted once, launches 11f's two kernels: the weights'
+# rounding pass and the tensor-core kernel, KERNELS_11F)
 WNET_BF16_LAUNCHES = {"gate_res_skip_bf16": 36 * 200}
 # the shipped SC09 command at T = 200 (30 blocks a step, kernel 4 once per
 # block and run): bf16, then with +compute.conv_int8=true
@@ -308,6 +314,9 @@ WNET_TRAIN_OVERRIDES = ["experiment=sc09_wavenet", "compute.precision=f32",
 # length with S != C (wavenet_small's widths)
 GATE_CASES = ((N_SAMPLES, 256, 256, 16000), (16, 256, 256, 16000),
               (N_SAMPLES, 128, 256, 8960))
+# kernel 11f's case beside them: C a multiple of 8 but not 16, S != C and a
+# ragged L, so its zero padding runs on the card
+GATE_BF16_RAGGED = (2, 24, 40, 333)
 
 # name -> (source, TPU kernel it replaces, the paths that launch it)
 KERNELS = {
@@ -412,7 +421,8 @@ PORT_KERNELS = ("fftconv_kernel", "fftconv_dkf_kernel", "glu_res_kernel",
                 "reduce_splits_kernel", "reduce_long_kernel",
                 "cauchy_kernel", "cauchy_bwd_kernel", "cols_fwd_kernel",
                 "rows_kernel", "cols_inv_kernel", "fftconv_cluster_kernel",
-                "gate_res_skip_kernel", "fftconv_int8_kernel")
+                "gate_res_skip_kernel", "gate_res_skip_tc_kernel",
+                "round_gate_weights_kernel", "fftconv_int8_kernel")
 # kernel 9's two routes: 9f's cluster kernel (n 2^16 and 2^17, the
 # vocoder's middle tier) and the three passes (every other n, and the f32
 # forms at every n)
@@ -427,6 +437,10 @@ KERNEL_9_GROUPS = {
 # kernel; traces report their sum as 2f's and 3f's time
 KERNELS_2F = ("glu_res_tc_kernel", "round_weights_kernel<2>")
 KERNELS_3F = ("ln_ff_res_tc_kernel", "round_weights_kernel<3>")
+# kernel 11's and 11f's: 11f's wrapper launches two a call, the stacked
+# weight's rounding pass and the tensor-core kernel; traces report their sum
+KERNELS_11 = ("gate_res_skip_kernel",)
+KERNELS_11F = ("gate_res_skip_tc_kernel", "round_gate_weights_kernel")
 # kernel 7f's wrapper launches seven a call, in three parts that traces
 # report apart: its pass (the weights' rounding and transposing pass, then
 # the tensor-core pass), its two weight-gradient contractions (shared with
@@ -768,8 +782,7 @@ def check_bf16_kernels(torch, model, dev, results):
         for name, kfn, pfn, tol, tier, bpe in cases:
             compare(name, H, L, kfn, pfn, 10, results, tol=tol, tier=tier,
                     bpe=bpe)
-        glu_gemm_ms(torch, results["glu_res_bf16"], f"H{H}_L{L}", lin.weight,
-                    y)
+        gemm_ms(torch, "glu_res_bf16", results, f"H{H}_L{L}", lin.weight, y)
         time_ff_weight_designs(torch, ff, results["ln_ff_res_bf16"],
                                f"H{H}_L{L}")
         # F = H (a config's model.ff 1), off the shipped F = 2H: the GEMM 2
@@ -823,7 +836,7 @@ def check_bf16_kernels(torch, model, dev, results):
     compare("glu_res_bf16", H, L, lambda: ops.mix_glu_res_bf16(y, x, w, b),
             lambda: ops.glu_res_ref(y, x, w, b), 10, results, tol=TOL_BF16,
             bpe=2)
-    glu_gemm_ms(torch, results["glu_res_bf16"], f"H{H}_L{L}", w, y)
+    gemm_ms(torch, "glu_res_bf16", results, f"H{H}_L{L}", w, y)
     # 2f's element-wise path (its 16-byte one needs L % 8 == 0 and aligned
     # tensors): L 1001 at H 128 (P 128) and H 256 (P 64, so the last block
     # is ragged too), and y and res one element past a 16-byte boundary
@@ -840,15 +853,17 @@ def check_bf16_kernels(torch, model, dev, results):
                 tier=f"B{B}_H{H}_L{L}" + (f"_offset{off}" if off else ""))
 
 
-def glu_gemm_ms(torch, result, tier, w, y):
-    """Kernel 2f's channel product alone at one tier, as one bf16
-    ``torch.matmul`` of its shapes ((2H x H) by each batch row's (H x L);
-    cuBLAS on the tensor cores, no bias, sigmoid or residual): a yardstick
-    recorded as ``gemm_ms``, never called by the port."""
+def gemm_ms(torch, name, results, tier, w, y):
+    """Kernel ``name``'s channel product alone at one tier, as one bf16
+    ``torch.matmul`` of the weight ``w`` by ``y`` (2f: (2H x H) by each
+    batch row's (H x L); 11f: the stacked (C + S) x C weight by a (C x B
+    L) operand; cuBLAS on the tensor cores, with none of the kernel's
+    bias, activations or residual): a yardstick recorded as ``gemm_ms``,
+    never called by the port."""
     wb = w.to(torch.bfloat16)
     ms = cuda_ms(lambda: torch.matmul(wb, y), 10)
-    result["tiers"][tier]["gemm_ms"] = ms
-    log(f"yardstick glu_res_bf16 {tier}: one bf16 torch.matmul {ms:.4f} ms")
+    results[name]["tiers"][tier]["gemm_ms"] = ms
+    log(f"yardstick {name} {tier}: one bf16 torch.matmul {ms:.4f} ms")
 
 
 def run_shipped_command(torch, run, launches):
@@ -1836,8 +1851,8 @@ def check_vocoder_kernels(torch, model, L, dev, results):
                 lambda: ops.mix_glu_res_bf16(xb, xb, lin.weight, lin.bias),
                 lambda: ops.glu_res_ref(xb, xb, lin.weight, lin.bias),
                 10, results, B, d["n"], tol=TOL_BF16, bpe=2)
-        glu_gemm_ms(torch, results["glu_res_bf16"], f"H{H}_L{Lt}",
-                    lin.weight, xb)
+        gemm_ms(torch, "glu_res_bf16", results, f"H{H}_L{Lt}", lin.weight,
+                xb)
         time_ff_weight_designs(torch, ffb, results["ln_ff_res_bf16"],
                                f"H{H}_L{Lt}")
 
@@ -2075,7 +2090,7 @@ def check_gate_kernel(torch, model, dev, results):
     from diffwave_sashimi_torch.ops.conv import weight_norm
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     blk = model.residual_layer["residual_blocks"][0]
-    for B, C, S, L in GATE_CASES:
+    for B, C, S, L in (*GATE_CASES, GATE_BF16_RAGGED):
         if (C, S) == (256, 256):
             wr = weight_norm(blk.res_conv)[:, :, 0]
             ws = weight_norm(blk.skip_conv)[:, :, 0]
@@ -2086,17 +2101,29 @@ def check_gate_kernel(torch, model, dev, results):
                               ((C, C), (C,), (S, C), (S,)))
         h = torch.randn(B, 2 * C, L, device=dev, generator=gen)
         x = torch.randn(B, C, L, device=dev, generator=gen)
-        compare("gate_res_skip", C, L,
-                lambda: ops.gate_res_skip(h, x, wr, br, ws, bs),
-                lambda: ops.gate_res_skip_ref(h, x, wr, br, ws, bs),
-                10 if B > N_SAMPLES else 20, results, B=B, S=S,
-                tier=f"B{B}_C{C}_S{S}_L{L}")
+        tier = f"B{B}_C{C}_S{S}_L{L}"
+        if (B, C, S, L) in GATE_CASES:
+            compare("gate_res_skip", C, L,
+                    lambda: ops.gate_res_skip(h, x, wr, br, ws, bs),
+                    lambda: ops.gate_res_skip_ref(h, x, wr, br, ws, bs),
+                    10 if B > N_SAMPLES else 20, results, B=B, S=S,
+                    tier=tier)
         hb, xb = h.to(torch.bfloat16), x.to(torch.bfloat16)
         compare("gate_res_skip_bf16", C, L,
                 lambda: ops.gate_res_skip_bf16(hb, xb, wr, br, ws, bs),
                 lambda: ops.gate_res_skip_ref(hb, xb, wr, br, ws, bs),
                 10 if B > N_SAMPLES else 20, results, B=B, S=S,
-                tier=f"B{B}_C{C}_S{S}_L{L}", tol=TOL_BF16, bpe=2)
+                tier=tier, tol=TOL_BF16, bpe=2)
+        if tier == TOP_TIER["gate_res_skip_bf16"]:
+            outs = [ops.gate_res_skip_bf16(hb, xb, wr, br, ws, bs)
+                    for _ in range(2)]
+            if not all(torch.equal(a, b) for a, b in zip(*outs)):
+                raise AssertionError("kernel 11f: two calls differ")
+            log(f"kernel gate_res_skip_bf16 {tier}: two calls bit-equal")
+        if L >= 8960:
+            gemm_ms(torch, "gate_res_skip_bf16", results, tier,
+                    torch.cat([wr, ws]),
+                    torch.randn(C, B * L, device=dev).to(torch.bfloat16))
 
 
 def run_wavenet_generate(torch, run, launches, dev):
@@ -2148,15 +2175,16 @@ def build_wavenet_cond(torch, dev):
             torch.randn(N_SAMPLES, 1, L, device=dev, generator=g))
 
 
-def wavenet_groups(kernel):
-    """The trace groups of a WaveNet step: the tail kernel, the convolution
-    and GEMM library kernels (the dilated conv, the 1x1 convs), the rest."""
+def wavenet_groups(kernel, names):
+    """The trace groups of a WaveNet step: the tail kernel (its __global__
+    functions ``names``), the convolution and GEMM library kernels (the
+    dilated conv, the 1x1 convs), the rest."""
     def is_library(name):
         lo = name.lower()
         return any(s in lo for s in ("conv", "xmma", "gemm", "cudnn",
                                      "cutlass", "implicit", "winograd"))
     return {f"gate_res_skip (kernel {kernel})":
-            lambda n: n.startswith("gate_res_skip_kernel"),
+            lambda n: in_group(n, names),
             "convolution and GEMM library kernels": is_library}
 
 
@@ -2194,7 +2222,7 @@ def check_wavenet_step(torch, model, cond, dev):
 
     out["trace"] = trace_steps(
         torch, lambda: model(x, steps, [], ops.FUSED),
-        groups=wavenet_groups("11"))
+        groups=wavenet_groups("11", KERNELS_11))
     log("trace: wavenet step with kernel 11: " + (
         "no device time in the profiler's events (not measured)"
         if out["trace"] is None else json.dumps(out["trace"])))
@@ -2256,10 +2284,18 @@ def check_wavenet_bf16(torch, model, cond, dev):
     out["realtime_factor"] = {B: int(B) * 16000 / 16000 / (T * ms / 1000)
                               for B, ms in out["step_ms"].items()}
     out["trace"] = trace_steps(torch, lambda: bfm(x, steps, [], ops.FUSED),
-                               groups=wavenet_groups("11f"))
+                               groups=wavenet_groups("11f", KERNELS_11F))
     log("trace: bf16 wavenet step with kernel 11f: " + (
         "no device time in the profiler's events (not measured)"
         if out["trace"] is None else json.dumps(out["trace"])))
+    if out["trace"] is not None:
+        tr = out["trace"]
+        tail = tr["groups_ms_per_step"]["gate_res_skip (kernel 11f)"]
+        busy = tr["device_busy_ms_per_step"]
+        tr["kernel_11f_share_of_busy"] = tail / busy
+        log(f"trace: kernel 11f {tail:.3f} ms a bf16 wavenet step, "
+            f"{tr['kernel_11f_share_of_busy']:.3f} of the device's busy "
+            f"time; idle share {tr['idle_share']:.3f}")
     return out
 
 

@@ -97,6 +97,12 @@
 namespace {
 
 using namespace dwst_act;
+using dwst_mma::aligned16;
+using dwst_mma::cp_async16;
+using dwst_mma::cp_async_commit;
+using dwst_mma::cp_async_wait;
+using dwst_mma::pack8;
+using dwst_mma::unpack8;
 
 constexpr int NT = 256;        // threads per block
 constexpr int TK = 8;          // contraction tile
@@ -363,24 +369,6 @@ struct TcTile {
   static constexpr int RED = 2 * NWARPS * P;   // per-warp f32 sums
 };
 
-__device__ __forceinline__ void unpack8(uint4 r, float f[8]) {
-  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 v =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
-}
-
-__device__ __forceinline__ uint4 pack8(const float f[8]) {
-  return make_uint4(dwst_mma::pack_bf16x2(f[0], f[1]),
-                    dwst_mma::pack_bf16x2(f[2], f[3]),
-                    dwst_mma::pack_bf16x2(f[4], f[5]),
-                    dwst_mma::pack_bf16x2(f[6], f[7]));
-}
-
 // s[0:8] summed over the lanes of this warp that hold the same 8-position
 // chunk c (lane % (P / 8)), in a fixed order, written to row[c:c + 8] by
 // the first of them.  Every warp covers all P / 8 chunks.
@@ -624,23 +612,6 @@ struct GluTile {
   static constexpr int HS = NT / N8;        // row step of a thread
   static constexpr int RPT = ROWS / HS;
 };
-
-// 16 bytes from device memory to shared memory, asynchronously (cp.async,
-// by L2 only); commit closes a group, wait<n> waits for all but the last n.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 
 // Kernel 2f (bf16 y, res and out; Wb = W rounded to bf16 by
 // round_weights_kernel; f32 bias) on the tensor cores: out = res + (Wa y +
@@ -1041,10 +1012,6 @@ ln_ff_res_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
     stat_part[2 * blk] = red[0];
     stat_part[2 * blk + 1] = red[NT];
   }
-}
-
-bool aligned16(const void* p) {
-  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 // Kernel 7f (bf16 x, g and dx; f32 b1, m, s, scratch and (dm, ds)

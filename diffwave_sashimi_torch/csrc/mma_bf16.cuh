@@ -25,6 +25,45 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Eight bf16 values (16 bytes) as floats, and eight floats rounded to bf16.
+__device__ __forceinline__ void unpack8(uint4 r, float f[8]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float f[8]) {
+  return make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
+                    pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
+}
+
+// 16 bytes from device memory to shared memory, asynchronously (cp.async,
+// by L2 only); commit closes a group, wait<n> waits for all but the last n.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Whether a pointer (null counts) is 16-byte aligned, for the launchers.
+inline bool aligned16(const void* p) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 // The A fragment of rows [r0, r0 + 16) and columns [k0, k0 + 16) of the
 // bf16 matrix A (M x K, row-major, K even), rows past M as 0: four 4-byte
 // loads, a[i] at row g + 8 (i & 1), columns 2t + 8 (i >> 1) and the next.
@@ -190,6 +229,55 @@ __device__ __forceinline__ void warp_gemm_frag(const uint4* __restrict__ Af,
       for (int mt = 0; mt < MT; ++mt) {
         mma_16816(acc[mt][j], a[mt], b[0], b[1]);
         mma_16816(acc[mt][j + 1], a[mt], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// warp_gemm_frag with the fragments AHEAD k-steps ahead of their use, in a
+// ring of AHEAD + 1 register sets that the k-loop, unrolled by AHEAD + 1,
+// indexes at compile time: no register copy waits on a load in flight, so
+// AHEAD k-steps of products cover the L2 latency of each load.
+template <int MT, int N8, int AHEAD>
+__device__ __forceinline__ void warp_gemm_ring(const uint4* __restrict__ Af,
+                                               int Mt, int Kt, int mt0,
+                                               const __nv_bfloat16* Bs,
+                                               int ld, float acc[MT][N8][4]) {
+  constexpr int D = AHEAD + 1;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < N8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.0f;
+  uint32_t ring[D][MT][4];
+#pragma unroll
+  for (int s = 0; s < AHEAD; ++s)
+    if (s < Kt) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        load_a_frag(ring[s][mt], Af, Mt, Kt, mt0 + mt, s);
+    }
+  for (int k0 = 0; k0 < Kt; k0 += D) {
+#pragma unroll
+    for (int s = 0; s < D; ++s) {
+      const int kt = k0 + s;
+      if (kt >= Kt) break;
+      if (kt + AHEAD < Kt) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          load_a_frag(ring[(s + AHEAD) % D][mt], Af, Mt, Kt, mt0 + mt,
+                      kt + AHEAD);
+      }
+#pragma unroll
+      for (int j = 0; j < N8; j += 2) {
+        uint32_t b[4];
+        ldsm_b_x4_trans(b, Bs, ld, 16 * kt, 8 * j);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_16816(acc[mt][j], ring[s][mt], b[0], b[1]);
+          mma_16816(acc[mt][j + 1], ring[s][mt], b[2], b[3]);
+        }
       }
     }
   }

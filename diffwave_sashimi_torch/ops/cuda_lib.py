@@ -85,10 +85,12 @@ _SIGNATURES = {
     "dwst_fftconv_long": [_P] * 4 + [_I] * 4 + [_P],
     # n, smem (no stream): the clusters the card holds at once
     "dwst_fftconv_long_max_clusters": [_I] * 2,
-    # h, x, Wr, br, Ws, bs, res, skip, B, C, S, L, stream (the _bf16 form:
-    # the same arguments, h, x, res and skip bf16)
+    # h, x, Wr, br, Ws, bs, res, skip, B, C, S, L, stream
     "dwst_gate_res_skip": [_P] * 8 + [_I] * 4 + [_P],
-    "dwst_gate_res_skip_bf16": [_P] * 8 + [_I] * 4 + [_P],
+    # kernel 11f: the same with h, x, res and skip bf16, wf (the bf16
+    # weight scratch) after skip, and P and smem (ops/wavenet_gate.py::
+    # gate_bf16_plan) after L
+    "dwst_gate_res_skip_bf16": [_P] * 9 + [_I] * 6 + [_P],
 }
 
 

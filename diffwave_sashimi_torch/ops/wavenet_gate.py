@@ -14,7 +14,8 @@ form differentiates: the tail has no backward kernel, in JAX either.  bf16
 activations take the JAX kernel's ``fast=True`` form, kernel 11f
 (:func:`gate_res_skip_bf16`): the gate in f32 rounded to bf16, the weights
 rounded to bf16 for products that accumulate in f32, the f32 biases and
-the residual sum in f32, res and skip rounded to bf16.
+the residual sum in f32, res and skip rounded to bf16.  Kernel 11f
+multiplies on the tensor cores; :func:`gate_bf16_plan` sizes its tiles.
 """
 
 from __future__ import annotations
@@ -24,9 +25,18 @@ import math
 import torch
 
 from . import cuda_lib
+from .chmix import SMEM_LIMIT
 from .fftconv import as_operand, widen
 
 SQRT_HALF = math.sqrt(0.5)
+# kernel 11f's positions a block (the P cases of csrc/wavenet_gate.cu's
+# launcher), widest first, and the stacked rows one pass of its 8 warps
+# computes at each (GateTile<P>::ROWS)
+GATE_BF16_PS = (128, 64, 32)
+GATE_BF16_ROWS = {128: 128, 64: 256, 32: 512}
+# an SM's shared memory on sm_90 (228 KB), of which the card reserves 1 KB
+# for each block it holds
+SMEM_SM, SMEM_RESERVED = 233472, 1024
 
 
 def gate_res_skip_ref(h, x, wr, br, ws, bs):
@@ -52,45 +62,108 @@ def gate_res_skip(h, x, wr, br, ws, bs):
         return gate_res_skip_ref(h, x, wr, br, ws, bs)
     if h.dtype == torch.bfloat16:
         return gate_res_skip_bf16(h, x, wr, br, ws, bs)
-    return _launch(gate_res_skip, "dwst_gate_res_skip", torch.float32, h, x,
-                   wr, br, ws, bs)
-
-
-gate_res_skip.launches = 0
-
-
-def gate_res_skip_bf16(h, x, wr, br, ws, bs):
-    """Kernel-11f wrapper (h, x and the results bf16; the weights and
-    biases f32): the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors."""
-    if not h.is_cuda:
-        return gate_res_skip_ref(h, x, wr, br, ws, bs)
-    return _launch(gate_res_skip_bf16, "dwst_gate_res_skip_bf16",
-                   torch.bfloat16, h, x, wr, br, ws, bs)
-
-
-gate_res_skip_bf16.launches = 0
-
-
-def _launch(wrapper, entry, dtype, h, x, wr, br, ws, bs):
-    """Check the arguments of kernel 11 or 11f (h and x of ``dtype``, the
-    weights f32), launch ``entry`` and count it on ``wrapper``."""
     B, C, L = x.shape
     S = ws.shape[0]
     if C % 8:
         raise ValueError(f"residual width {C} must be a multiple of 8 for "
                          f"the CUDA kernel (weight k-tiles of 8)")
-    for t, shape in ((h, (B, 2 * C, L)), (x, (B, C, L))):
-        cuda_lib.check(t, shape, dtype)
-    for t, shape in ((wr, (C, C)), (br, (C,)), (ws, (S, C)), (bs, (S,))):
+    for t, shape in ((h, (B, 2 * C, L)), (x, (B, C, L)), (wr, (C, C)),
+                     (br, (C,)), (ws, (S, C)), (bs, (S,))):
         cuda_lib.check(t, shape, torch.float32)
     if wr.data_ptr() % 16 or ws.data_ptr() % 16 or x.data_ptr() % 16:
         raise ValueError("the kernel reads the weights and x four values at "
                          "a time: they must start on a 16-byte boundary")
     res = torch.empty_like(x)
     skip = x.new_empty((B, S, L))
-    cuda_lib.launch(entry, h.data_ptr(), x.data_ptr(), wr.data_ptr(),
-                    br.data_ptr(), ws.data_ptr(), bs.data_ptr(),
-                    res.data_ptr(), skip.data_ptr(), B, C, S, L)
-    wrapper.launches += 1
+    cuda_lib.launch("dwst_gate_res_skip", h.data_ptr(), x.data_ptr(),
+                    wr.data_ptr(), br.data_ptr(), ws.data_ptr(),
+                    bs.data_ptr(), res.data_ptr(), skip.data_ptr(), B, C, S,
+                    L)
+    gate_res_skip.launches += 1
     return res, skip
+
+
+gate_res_skip.launches = 0
+
+
+def gate_bf16_plan(B, C, S, L, sms=132):
+    """Kernel 11f's tile plan on a card of ``sms`` SMs: (P positions a
+    block, shared-memory bytes a block), the grid being ceil(L / P) x B
+    blocks.  The block keeps the bf16 gate tile (C rows padded to a
+    multiple of 16) and a bf16 staging tile for one pass of stacked rows
+    (GATE_BF16_ROWS[P], or all C + S padded to 16 if fewer), rows padded to
+    P + 8.  Two blocks an SM overlap one block's loads and gate with the
+    other's products, so P is the widest whose tiles let two blocks share
+    an SM and whose grid still fills one wave of two blocks an SM (each
+    block reads the whole bf16 weight from L2, so a wider P reads it less
+    often per position); the narrowest of those if none fills a wave; if
+    no P lets two blocks share an SM, the widest that fits one.  The kernel
+    (``csrc/wavenet_gate.cu::gate_res_skip_tc_kernel``) takes these bytes
+    as given: this is the one place they are computed."""
+    kp, mp = 16 * -(-C // 16), 16 * -(-(C + S) // 16)
+
+    def smem(P):
+        return (kp + min(mp, GATE_BF16_ROWS[P])) * (P + 8) * 2
+
+    two = [P for P in GATE_BF16_PS
+           if 2 * (smem(P) + SMEM_RESERVED) <= SMEM_SM]
+    if two:
+        P = next((P for P in two if B * -(-L // P) >= 2 * sms), two[-1])
+    else:
+        P = next((P for P in GATE_BF16_PS if smem(P) <= SMEM_LIMIT),
+                 GATE_BF16_PS[-1])
+    return P, smem(P)
+
+
+def gate_bf16_refusal(C, S):
+    """None if kernel 11f takes residual width C and skip width S, else
+    why not: C a positive multiple of 8 (kernel 11's rule too; 11f pads
+    its rounded weights to 16 with zeros), S positive, and tiles that fit
+    one block's shared memory at the narrowest P (C up to 2384 at any
+    S)."""
+    if C <= 0 or C % 8:
+        return (f"kernel 11f: residual width C = {C} must be a positive "
+                f"multiple of 8")
+    if S <= 0:
+        return f"kernel 11f: skip width S = {S} must be positive"
+    smem = gate_bf16_plan(1, C, S, 1)[1]
+    if smem > SMEM_LIMIT:
+        return (f"kernel 11f: widths C = {C}, S = {S} need {smem} bytes of "
+                f"shared memory a block, over {SMEM_LIMIT}")
+    return None
+
+
+def gate_res_skip_bf16(h, x, wr, br, ws, bs):
+    """Kernel-11f wrapper (h, x and the results bf16; the weights and
+    biases f32): the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors.  The kernel multiplies on the tensor cores.  A call
+    launches two kernels, counted as one launch: a pass that rounds the
+    stacked weight [W_r; W_s] to bf16 into a scratch of its own, then the
+    tensor-core kernel, sized by :func:`gate_bf16_plan`."""
+    if not h.is_cuda:
+        return gate_res_skip_ref(h, x, wr, br, ws, bs)
+    B, C, L = x.shape
+    S = ws.shape[0]
+    refusal = gate_bf16_refusal(C, S)
+    if refusal is not None:
+        raise ValueError(refusal)
+    for t, shape in ((h, (B, 2 * C, L)), (x, (B, C, L))):
+        cuda_lib.check(t, shape, torch.bfloat16)
+    for t, shape in ((wr, (C, C)), (br, (C,)), (ws, (S, C)), (bs, (S,))):
+        cuda_lib.check(t, shape, torch.float32)
+    if wr.data_ptr() % 16 or ws.data_ptr() % 16:
+        raise ValueError("the weights' rounding pass reads them four values "
+                         "at a time: they must start on a 16-byte boundary")
+    res = torch.empty_like(x)
+    skip = x.new_empty((B, S, L))
+    wf = x.new_empty((16 * -(-(C + S) // 16) * 16 * -(-C // 16),))
+    P, smem = gate_bf16_plan(B, C, S, L, cuda_lib.sm_count(x.device))
+    cuda_lib.launch("dwst_gate_res_skip_bf16", h.data_ptr(), x.data_ptr(),
+                    wr.data_ptr(), br.data_ptr(), ws.data_ptr(),
+                    bs.data_ptr(), res.data_ptr(), skip.data_ptr(),
+                    wf.data_ptr(), B, C, S, L, P, smem)
+    gate_res_skip_bf16.launches += 1
+    return res, skip
+
+
+gate_res_skip_bf16.launches = 0
