@@ -44,12 +44,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    form, kernels 5-8) against their plain versions at the three tiers,
    with their times; then (7b) their bf16 forms (1f's training entry and
    its conjugate form, 5f, 6f, 7f) at the three tiers, B4, timed, 7f also
-   at F = H and on its element-wise path (B2, L 1001, H 128 and 256); at
-   each tier two 7f calls must agree bit for bit, a trace gives 7f's time
-   by part (its pass, the weight-gradient contractions, the reductions),
-   and beside it its three channel products as three bf16
-   ``torch.matmul`` calls and its two weight gradients as two f32 ones
-   with TF32 off (yardsticks, not library calls of its function);
+   at F = H, 6f and 7f also on their element-wise paths (B2, L 1001, H
+   128 and 256); at each tier two 7f calls and two 6f calls must agree
+   bit for bit, a trace gives each one's time by part (its pass, the
+   weight-gradient contractions, the reductions; a 6f call must launch
+   nothing else), 6f runs at every P its kernel is built for whose tiles
+   fit (each held against the plain version and timed in turns), and
+   beside 7f its three channel products as three bf16 ``torch.matmul``
+   calls and its two weight gradients as two f32 ones with TF32 off,
+   beside 6f its two as two bf16 calls and its weight gradient as one f32
+   call (yardsticks, not library calls of their functions);
 8. the training path: a seeded synthetic SC09 corpus (one-second 16 kHz
    ``*_nohash_*.wav`` clips, a few per digit folder) and the port's
    ``runtime.train.main`` with ``experiment=sc09 compute.precision=f32``
@@ -70,8 +74,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    per-step losses must agree within TRAJ_TOL;
 10. the training step (forward, backward, Adam) timed both ways; (10b) the
     bf16 training step against its plain path and against the f32 step,
-    and a trace of two bf16 steps that reports kernel 7f's pass, the
-    weight-gradient contractions and the reductions apart from the rest;
+    and a trace of two bf16 steps that reports kernel 7f's pass, 6f's
+    pass, the weight-gradient contractions and the reductions apart from
+    the rest (6f's pass must be its tensor-core kernel and its rounding
+    instance, with no kernel-6 instance);
 11. a torch.profiler trace of two training steps with the kernels: device
     time by kernel, the port's kernels' share, the device's idle share;
 12. the vocoder: the shipped LJSpeech model (``experiment=ljspeech``:
@@ -161,7 +167,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
     a seed, depth cut to n_layers 1: the channel mixers (kernels 2, 3, 6,
     7 and their f forms) against their plain versions at its H 1024 tier
     (B4, L 1000; the fp32 plans narrow P to 16, and to 8 for kernel 7, so
-    the tiles fit one block; 3f and 7f run at P 16), timed; at f32 and at
+    the tiles fit one block; 3f, 6f and 7f run at P 16), timed; at f32 and at
     bf16 one eps forward and one training step through the kernels
     against the plain path, each with exact launch counts of every
     kernel, and the eps step timed.
@@ -414,7 +420,8 @@ VOC_BF16_LAUNCHES = {"fftconv_long_ln_bias_gelu_d_bf16": 24 * 50,
                      "cauchy": 30}
 # the port's kernels, by the name of their __global__ function
 PORT_KERNELS = ("fftconv_kernel", "fftconv_dkf_kernel", "glu_res_kernel",
-                "glu_res_tc_kernel", "glu_res_bwd_kernel", "ln_ff_res_kernel",
+                "glu_res_tc_kernel", "glu_res_bwd_kernel",
+                "glu_res_bwd_tc_kernel", "ln_ff_res_kernel",
                 "ln_ff_res_tc_kernel", "round_weights_kernel",
                 "ln_ff_res_bwd_kernel", "ln_ff_res_bwd_tc_kernel",
                 "round_weights_t_kernel", "wgrad_kernel",
@@ -442,13 +449,19 @@ KERNELS_3F = ("ln_ff_res_tc_kernel", "round_weights_kernel<3>")
 KERNELS_11 = ("gate_res_skip_kernel",)
 KERNELS_11F = ("gate_res_skip_tc_kernel", "round_gate_weights_kernel")
 # kernel 7f's wrapper launches seven a call, in three parts that traces
-# report apart: its pass (the weights' rounding and transposing pass, then
-# the tensor-core pass), its two weight-gradient contractions (shared with
-# kernels 6, 6f and 7), and the fixed-order sums of their split-K partials
-# and of the pass's (dm, ds) partials
-KERNELS_7F = {"pass": ("ln_ff_res_bwd_tc_kernel", "round_weights_t_kernel"),
+# report apart: its pass (the weights' rounding and transposing pass, an
+# instance named for its kernel, then the tensor-core pass), its two
+# weight-gradient contractions (shared with kernels 6, 6f and 7), and the
+# fixed-order sums of their split-K partials and of the pass's (dm, ds)
+# partials; kernel 6f's four, in the same parts: its pass (its rounding
+# instance, then the tensor-core pass), its contraction and that one's sum
+KERNELS_7F = {"pass": ("ln_ff_res_bwd_tc_kernel",
+                       "round_weights_t_kernel<7>"),
               "contractions": ("wgrad_kernel",),
               "reduce": ("reduce_splits_kernel", "reduce_long_kernel")}
+KERNELS_6F = {"pass": ("glu_res_bwd_tc_kernel", "round_weights_t_kernel<6>"),
+              "contractions": ("wgrad_kernel",),
+              "reduce": ("reduce_splits_kernel",)}
 
 
 def log(msg):
@@ -1008,9 +1021,10 @@ def check_training_kernels(torch, model, dev, results):
 def check_bf16_training_kernels(torch, model, dev, results):
     """Phase 7b: the bf16 training forms (kernel 1f's training entry and
     its conjugate form, 5f, 6f, 7f) vs their plain versions at every tier
-    (B4, bf16 activations), timed; 7f also at F = H and, at H 128 and 256,
-    on its element-wise path (B2, L 1001), and at every tier its repeat,
-    its time by part and its yardsticks (``ff_bwd_bf16_parts``)."""
+    (B4, bf16 activations), timed; 7f also at F = H; 6f and 7f, at H 128
+    and 256, on their element-wise paths (B2, L 1001), and at every tier
+    their repeats, their times by part and their yardsticks
+    (``ff_bwd_bf16_parts``, ``glu_bwd_bf16_parts``)."""
     from diffwave_sashimi_torch import ops
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
     bf = torch.bfloat16
@@ -1052,6 +1066,105 @@ def check_bf16_training_kernels(torch, model, dev, results):
                     tol=TOL_BF16, tier=f"B2_H{H}_L1001", bpe=2)
         ff_bwd_bf16_parts(torch, ff, results["ln_ff_res_bwd_bf16"],
                           f"H{H}_L{L}")
+        # 6f on its element-wise path (L 1001, B2: the last block ragged;
+        # inputs from a generator of its own), then its repeat, its time by
+        # part, at every P and its yardsticks
+        glu = (y, lin.weight, lin.bias, g)
+        if H <= 256:
+            g6 = torch.Generator(device=dev).manual_seed(SEED + 26 + H)
+            yr, gr = (torch.randn(2, H, 1001, device=dev, generator=g6)
+                      .to(bf) for _ in range(2))
+            glr = (yr, lin.weight, lin.bias, gr)
+            compare("glu_res_bwd_bf16", H, 1001,
+                    lambda: ops.glu_res_bwd_bf16(*glr),
+                    lambda: ops.glu_res_bwd_ref(*glr), 3, results, B=2,
+                    tol=TOL_BF16, tier=f"B2_H{H}_L1001", bpe=2)
+        glu_bwd_bf16_parts(torch, glu, results["glu_res_bwd_bf16"],
+                           f"H{H}_L{L}")
+
+
+def glu_bwd_bf16_parts(torch, glu, result, tier):
+    """Kernel 6f at one tier beyond its bar: two calls on the same inputs
+    must give equal outputs, bit for bit (the sums are in a fixed order);
+    the device time of a call by part (KERNELS_6F: the pass, the
+    contraction, its sum), from a trace of five calls in which every
+    kernel must be one of those (the wrapper launches no PyTorch transpose
+    or copy); the call at every P its kernel is built for whose tiles fit
+    one block, each held against the plain version (TOL_BF16) and timed,
+    in turns (``p_ms``, and whether it equals the plan's call bit for bit,
+    ``p_bit_equal``); and two yardsticks, never called by the port: the
+    pass's two channel products as two bf16 ``torch.matmul`` calls
+    (``gemm_pair_ms``; cuBLAS on the tensor cores, no sigmoid or
+    epilogue) and the weight gradient as one f32 ``torch.matmul`` with
+    TF32 off (``wgrad_gemm_ms``; on operands already laid out as the
+    contraction needs them, without the bias sums)."""
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.ops import chmix, cuda_lib
+    y, w, b, g = glu
+    B, H, L = y.shape
+    bf = torch.bfloat16
+    one, two = ops.glu_res_bwd_bf16(*glu), ops.glu_res_bwd_bf16(*glu)
+    if not all(torch.equal(a, c) for a, c in zip(one, two)):
+        raise AssertionError(f"kernel 6f does not repeat bit for bit at "
+                             f"{tier}")
+    groups = {part: (lambda n, names=names: in_group(n, names))
+              for part, names in KERNELS_6F.items()}
+    trace = trace_steps(torch, lambda: ops.glu_res_bwd_bf16(*glu), steps=5,
+                        groups=groups)
+    split = None
+    if trace is not None:
+        split = trace["groups_ms_per_step"]
+        other = [n for n in trace["top_kernels_ms_per_step"]
+                 if not any(in_group(n, names)
+                            for names in KERNELS_6F.values())]
+        if other:
+            raise AssertionError(f"a kernel 6f call launched {other} at "
+                                 f"{tier}")
+
+    def at(P, smem):             # the wrapper's call with P given
+        dy, dz, tc, part, grads = chmix._glu_bwd_buffers(bf, y, w, b, g)
+        wb = w.new_empty((4 * H * H,), dtype=bf)
+        cuda_lib.launch("dwst_glu_res_bwd_bf16",
+                        *chmix._ptrs(y, g, w, b, dy, dz, part, grads, wb),
+                        B, H, L, tc, P, smem)
+        return dy, grads[:2 * H * H].view(2 * H, H), grads[2 * H * H:]
+    ref = ops.glu_res_bwd_ref(*glu)
+    calls, p_equal = {}, {}
+    for P in chmix.GLU_BWD_BF16_PS:
+        smem = chmix.glu_bwd_bf16_smem(H, P)
+        if smem > chmix.SMEM_LIMIT:
+            continue
+        out = at(P, smem)
+        torch.cuda.synchronize()
+        errs = [max_err(o, r) for o, r in zip(out, ref)]
+        if not all(e <= TOL_BF16 * max(1.0, sc) for e, sc in errs):
+            raise AssertionError(f"kernel 6f at P {P} disagrees at {tier}: "
+                                 f"{errs}")
+        p_equal[P] = all(torch.equal(a, c) for a, c in zip(out, one))
+        calls[P] = lambda P=P, smem=smem: at(P, smem)
+    order = list(calls) + list(calls)[::-1]
+    times = [(P, cuda_ms(calls[P], 10)) for P in order]
+    p_ms = {P: sum(t for q, t in times if q == P) / 2 for P in calls}
+    wb16, wtb = w.to(bf), w.t().contiguous().to(bf)
+    dzb = torch.matmul(wb16, y)                   # a bf16 (B, 2H, L) operand
+    pair = cuda_ms(lambda: (torch.matmul(wb16, y), torch.matmul(wtb, dzb)),
+                   10)
+    del dzb
+    # f32 (2H, B L) and (H, B L) operands: dz and y
+    rows_z = torch.randn(2 * H, B * L, device=y.device)
+    rows_y = y.float().transpose(0, 1).reshape(H, B * L).contiguous()
+    wgrad = cuda_ms(lambda: torch.matmul(rows_z, rows_y.t()), 10)
+    del rows_z, rows_y
+    plan_p = chmix.glu_bwd_bf16_plan(B, H, L, cuda_lib.sm_count(y.device))[0]
+    result["tiers"][tier].update(repeat_bit_equal=True, split_ms=split,
+                                 plan_P=plan_p, p_ms=p_ms,
+                                 p_bit_equal=p_equal, gemm_pair_ms=pair,
+                                 wgrad_gemm_ms=wgrad)
+    log(f"kernel glu_res_bwd_bf16 {tier}: two calls bit-equal; device ms a "
+        f"call by part {json.dumps(split)}; ms at each P (the plan's "
+        f"{plan_p}) {json.dumps(p_ms)}, bit-equal to the plan's "
+        f"{json.dumps(p_equal)}; yardsticks: two bf16 torch.matmul "
+        f"{pair:.4f} ms, one f32 torch.matmul (TF32 off) {wgrad:.4f} ms")
 
 
 def ff_bwd_bf16_parts(torch, ff, result, tier):
@@ -1377,8 +1490,8 @@ def check_wide_mixers(torch, blk, L, dev, results):
     """Phase 24's kernel checks: the channel mixers (kernels 2, 3, 6, 7 and
     their f forms) vs their plain versions at the d_model 256 model's H
     1024 tier (B4, L 1000, the block's own weights), where the fp32 plans
-    narrow P to fit one block (3 and 6 at 16, 7 at 8) and 3f runs at P 16;
-    timed.  Returns each kernel's plan there."""
+    narrow P to fit one block (3 and 6 at 16, 7 at 8) and 3f, 6f and 7f
+    run at P 16; timed.  Returns each kernel's P there."""
     from diffwave_sashimi_torch import ops
     from diffwave_sashimi_torch.ops import chmix
     gen = torch.Generator(device=dev).manual_seed(SEED + 25)
@@ -1409,6 +1522,7 @@ def check_wide_mixers(torch, blk, L, dev, results):
             "ff_bwd": chmix.ff_bwd_plan(H, 2 * H)[0],
             "glu_bf16": chmix.glu_bf16_plan(N_SAMPLES, H, L)[0],
             "ff_bf16": chmix.ff_bf16_plan(N_SAMPLES, H, 2 * H, L)[0],
+            "glu_bwd_bf16": chmix.glu_bwd_bf16_plan(N_SAMPLES, H, L)[0],
             "ff_bwd_bf16": chmix.ff_bwd_bf16_plan(H, 2 * H)[0]}
 
 
@@ -1599,9 +1713,9 @@ def time_train_step_bf16(torch, model, dev):
     """Phase 10b: the bf16 training step (forward, backward, Adam) with the
     kernels, against its plain path and against the f32 step with the
     kernels, each pair timed in turns in this call, at the main path's
-    batch; then a trace of two bf16 steps, with kernel 7f's pass, the
-    weight-gradient contractions and the reductions apart from the rest.
-    Returns a dict."""
+    batch; then a trace of two bf16 steps, with kernel 7f's pass, 6f's
+    pass, the weight-gradient contractions and the reductions apart from
+    the rest.  Returns a dict."""
     import copy
     from diffwave_sashimi_torch import ops
     from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
@@ -1620,12 +1734,23 @@ def time_train_step_bf16(torch, model, dev):
     out["ms_vs_f32"], out["f32_ms"] = paired_ms(
         bf16_step, lambda: train_step(fm, opt_f, audio, schedule, g,
                                       ops.FUSED), 3)
-    # kernel 7f's pass and, apart, the weight-gradient contractions (of 6f
-    # and 7f) and the reductions, as KERNELS_7F names them
-    out["trace"] = trace_steps(torch, bf16_step, groups={
-        f"ln_ff_res_bwd_bf16_{part}": (lambda n, names=names:
-                                       in_group(n, names))
-        for part, names in KERNELS_7F.items()})
+    # kernel 7f's pass and 6f's and, apart, the weight-gradient
+    # contractions (of 6f and 7f) and the reductions, as KERNELS_7F and
+    # KERNELS_6F name them; 6f's pass must be its tensor-core kernel, with
+    # no kernel-6 instance on this bf16 path
+    groups = {f"ln_ff_res_bwd_bf16_{part}": (lambda n, names=names:
+                                             in_group(n, names))
+              for part, names in KERNELS_7F.items()}
+    groups["glu_res_bwd_bf16_pass"] = (
+        lambda n: in_group(n, KERNELS_6F["pass"]))
+    out["trace"] = trace_steps(torch, bf16_step, groups=groups)
+    if out["trace"] is not None:
+        names = out["trace"]["port_kernels_by_name_ms_per_step"]
+        if (any(in_group(n, ("glu_res_bwd_kernel",)) for n in names)
+                or not all(any(in_group(n, (k,)) for n in names)
+                           for k in KERNELS_6F["pass"])):
+            raise AssertionError(f"the bf16 training step's 6f pass is not "
+                                 f"its tensor-core kernel: {sorted(names)}")
     log(f"timing: bf16 training step at B{N_SAMPLES} {out['ms']:.3f} ms with "
         f"kernels vs {out['plain_ms']:.3f} ms plain; {out['ms_vs_f32']:.3f} "
         f"ms vs the f32 step's {out['f32_ms']:.3f} ms in turns")
@@ -2606,7 +2731,8 @@ def main():
             "tiers": r["tiers"]})
         for key in ("gemm_ms", "gemm_pair_ms", "weights_scratch_ms",
                     "weights_in_kernel_ms", "gemm_triple_ms",
-                    "wgrad_gemm_pair_ms", "split_ms", "three_pass_ms",
+                    "wgrad_gemm_pair_ms", "wgrad_gemm_ms", "split_ms",
+                    "plan_P", "p_ms", "three_pass_ms",
                     "ms_vs_three_pass", "cluster_ms", "ms_vs_cluster",
                     "cufft_conv_ms"):
             # yardsticks and parts, not library calls

@@ -34,8 +34,9 @@
 //
 // The host computes every kernel's positions a block P and its bytes of
 // shared memory (ops/chmix.py: glu_plan, ff_plan, glu_bwd_plan, ff_bwd_plan
-// and, for the tensor-core kernels below, glu_bf16_plan, ff_bf16_plan and
-// ff_bwd_bf16_plan; wgrad_plan for the weight gradients' splits), and
+// and, for the tensor-core kernels below, glu_bf16_plan, ff_bf16_plan,
+// glu_bwd_bf16_plan and ff_bwd_bf16_plan; wgrad_plan for the weight
+// gradients' splits), and
 // refuses widths whose tiles do not fit one block before it launches; the
 // kernels take both as given.
 //
@@ -88,6 +89,17 @@
 // thread; past 128 MV value rows the warps take the rows in passes, so any
 // H that is a multiple of 16 up to 1024 fits one block.  Kernel 2, the f32
 // form, keeps its fp32 FMAs: its 1e-4 bar rules out bf16 products.
+//
+// The backward passes' bf16 forms, kernels 6f (glu_res_bwd_tc_kernel) and
+// 7f (ln_ff_res_bwd_tc_kernel), multiply on the tensor cores too, bound by
+// bytes as the forwards are: their weights rounded to bf16 and transposed
+// once a call into a scratch in mma fragment order
+// (round_weights_t_kernel<6> and <7>), A fragments read from L2 with no
+// weight tile, the bf16 activation tiles by cp.async, and 6f's value and
+// gate m-tiles paired in one warp as 2f's, so that its dz is formed in
+// registers; their weight gradients contract the f32 scratch on the fp32
+// FMAs (wgrad_kernel).  Kernels 6 and 7, the f32 forms, keep their fp32
+// FMAs on the gemm_chunk tiles.
 
 #include <cuda_runtime.h>
 
@@ -130,9 +142,8 @@ struct RowMap {
 
 // acc[r][j] = sum_k A[row(r), k] * Bs[k * P + pg * 8 + j] for the thread's
 // rows r < 4 -> local rg * 4 + r, r >= 4 -> TM/2 + rg * 4 + r - 4.
-// A is (rows x K) row-major with K % TK == 0; Bs is K x P.  RW rounds A's
-// entries to bf16 as they are loaded (the bf16 path's weights).
-template <int P, bool RW = false>
+// A is (rows x K) row-major with K % TK == 0; Bs is K x P.
+template <int P>
 __device__ void gemm_chunk(const float* __restrict__ A, int K, RowMap map,
                            const float* Bs, float* AsT, float acc[8][8]) {
   using T = Tile<P>;
@@ -161,9 +172,6 @@ __device__ void gemm_chunk(const float* __restrict__ A, int K, RowMap map,
     for (int q = 0; q < T::NPRE; ++q) {
       const int idx = tid + q * NT;
       const int lr = idx >> 1, k = 4 * (idx & 1);
-      if (RW)
-        pre[q] = make_float4(round_bf16(pre[q].x), round_bf16(pre[q].y),
-                             round_bf16(pre[q].z), round_bf16(pre[q].w));
       AsT[(k + 0) * T::LDT + lr] = pre[q].x;
       AsT[(k + 1) * T::LDT + lr] = pre[q].y;
       AsT[(k + 2) * T::LDT + lr] = pre[q].z;
@@ -199,12 +207,12 @@ __device__ __forceinline__ int local_row(int r) {
 }
 
 // xs[h * P + p] = x[b, h, t0 + p] (0 past L), h < H.
-template <int P, typename IO = float>
-__device__ void load_tile(const IO* __restrict__ x, float* xs, int b,
+template <int P>
+__device__ void load_tile(const float* __restrict__ x, float* xs, int b,
                           int H, int L, int t0) {
   for (int idx = threadIdx.x; idx < H * P; idx += NT) {
     const int h = idx / P, p = idx % P, t = t0 + p;
-    xs[idx] = t < L ? to_f(x[((size_t)b * H + h) * L + t]) : 0.0f;
+    xs[idx] = t < L ? x[((size_t)b * H + h) * L + t] : 0.0f;
   }
 }
 
@@ -775,28 +783,19 @@ glu_res_tc_kernel(const __nv_bfloat16* __restrict__ y,
 // fixed order by reduce_splits_kernel.  No float atomics: a run repeats
 // bit for bit.
 //
-// Kernel 6f, the GLU backward's bf16 form (the TPU kernel with
-// fast=True), is kernel 6's code templated on the activations' type, as
-// 2f was: y, g and dy are bf16, and, as JAX's _bmm does, both operands of
-// every per-position product are rounded to bf16 (W as it is loaded, dz in
-// shared memory) with f32 sums.  The weight gradients contract the
-// unrounded f32 operands (as JAX's _bmmc does): the dz scratch stays f32,
-// and the bf16 y is read in f32.
-//
-// Kernel 7f, the FF backward's bf16 form, multiplies on the tensor cores
-// (ln_ff_res_bwd_tc_kernel, below kernel 7).
+// Kernel 6f, the GLU backward's bf16 form, and kernel 7f, the FF
+// backward's, multiply on the tensor cores (glu_res_bwd_tc_kernel below,
+// ln_ff_res_bwd_tc_kernel below kernel 7).
 
 // GLU backward, per position tile (P as the forward): z = W y + b
 // recomputed, da = g sig(gate), dgate = g a sig (1 - sig), dy = W^T dz.
-// IO: the activations' type (kernel 6f: bf16, W and the shared-memory dz
-// rounded to bf16 for their products; the dz written out stays f32).
-template <int P, typename IO>
+// Kernel 6 (f32; kernel 6f is glu_res_bwd_tc_kernel below).
+template <int P>
 __global__ void __launch_bounds__(NT, 1)
-glu_res_bwd_kernel(const IO* __restrict__ y, const IO* __restrict__ g,
+glu_res_bwd_kernel(const float* __restrict__ y, const float* __restrict__ g,
                    const float* __restrict__ W, const float* __restrict__ Wt,
-                   const float* __restrict__ bias, IO* __restrict__ dy,
+                   const float* __restrict__ bias, float* __restrict__ dy,
                    float* __restrict__ dz, int H, int L) {
-  constexpr bool BF = sizeof(IO) == 2;
   using T = Tile<P>;
   extern __shared__ float4 sh4[];
   float* ys = reinterpret_cast<float*>(sh4);     // H x P
@@ -807,8 +806,8 @@ glu_res_bwd_kernel(const IO* __restrict__ y, const IO* __restrict__ g,
   load_tile<P>(y, ys, b, H, L, t0);
   for (int o0 = 0; o0 < H; o0 += T::TM / 2) {
     float acc[8][8];
-    gemm_chunk<P, BF>(W, H, RowMap{o0, H + o0, H, 2 * H, T::TM / 2}, ys, AsT,
-                      acc);
+    gemm_chunk<P>(W, H, RowMap{o0, H + o0, H, 2 * H, T::TM / 2}, ys, AsT,
+                  acc);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int o = o0 + local_row<P>(r);
@@ -820,12 +819,12 @@ glu_res_bwd_kernel(const IO* __restrict__ y, const IO* __restrict__ g,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int p = pg * 8 + j, t = t0 + p;
-        const float gv = t < L ? to_f(g[grow + t]) : 0.0f;
+        const float gv = t < L ? g[grow + t] : 0.0f;
         const float a = acc[r][j] + ba;
         const float sig = 1.0f / (1.0f + expf(-(acc[r + 4][j] + bg)));
         const float da = gv * sig, dgate = gv * a * sig * (1.0f - sig);
-        dzs[o * P + p] = BF ? round_bf16(da) : da;
-        dzs[(H + o) * P + p] = BF ? round_bf16(dgate) : dgate;
+        dzs[o * P + p] = da;
+        dzs[(H + o) * P + p] = dgate;
         if (t < L) {
           dz[arow + t] = da;
           dz[hrow + t] = dgate;
@@ -835,8 +834,8 @@ glu_res_bwd_kernel(const IO* __restrict__ y, const IO* __restrict__ g,
   }
   for (int h0 = 0; h0 < H; h0 += T::TM) {
     float acc[8][8];
-    gemm_chunk<P, BF>(Wt, 2 * H, RowMap{h0, h0 + T::TM / 2, H, H, T::TM / 2},
-                      dzs, AsT, acc);
+    gemm_chunk<P>(Wt, 2 * H, RowMap{h0, h0 + T::TM / 2, H, H, T::TM / 2},
+                  dzs, AsT, acc);
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const int h = h0 + local_row<P>(r);
@@ -845,8 +844,204 @@ glu_res_bwd_kernel(const IO* __restrict__ y, const IO* __restrict__ g,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int t = t0 + pg * 8 + j;
-        if (t < L) dy[row + t] = from_f<IO>(acc[r][j]);
+        if (t < L) dy[row + t] = acc[r][j];
       }
+    }
+  }
+}
+
+// Kernel 6f (bf16 y, g and dy; f32 bias and dz scratch), the GLU backward
+// on the tensor cores.  It replaces diffwave_sashimi_tpu/ops/chmix.py:414
+// _glu_bwd_kernel with fast=True: as JAX's _bmm does, both operands of its
+// two per-position products (z = W y, dy = W^T dz) are rounded to bf16 and
+// their products summed in f32; bias, sigmoid (expf and an IEEE division,
+// as kernel 6) and dz are f32; dz goes out unrounded for the weight
+// gradient (JAX's _bmmc, wgrad_kernel), dy rounded to bf16.
+//
+// What bounds it: 8 H^2 B L operations at the bf16 tensor-core rate (8.5
+// us at SC09's top tier) take less time than its bytes (y and g read, dy
+// and the f32 dz scratch written: 34 us), so the bound is bytes; every
+// block also reads the bf16 W and W^T whole from L2, once per P
+// positions.  Design, 2f's and 7f's: round_weights_t_kernel<6> rounds W
+// and W^T to bf16 once a call into a scratch in mma fragment order, so that
+// A fragments come from L2 one 16-byte load a lane into a ring of registers
+// (mma_bf16.cuh::warp_gemm_ring), with no weight tile and no barrier in the
+// k-loop; one block of 8 warps per (batch, P positions), P from
+// ops/chmix.py::glu_bwd_bf16_plan, which also computes the block's shared
+// memory (the kernel takes both as given).  The bf16 y and g tiles arrive
+// by cp.async, each thread's rows all in flight at once, rows padded for
+// ldmatrix.trans; g lands in the first H rows of the 2H-row dz tile.  In
+// GEMM 1 each warp takes MV value m-tiles with their MV gate m-tiles over
+// all P positions, so a and gate meet in one thread's registers, where
+// bias, sigmoid, da and dgate are formed: g is read from the dz tile at the
+// thread's own positions and overwritten there by bf16(da) (no other thread
+// reads those entries), bf16(dgate) goes to row H + o, and both go out in
+// f32, four lanes filling a 32-byte sector.  Past 128 MV value rows the
+// warps take the rows in passes.  After one barrier, GEMM 2: each warp
+// takes MT2 m-tiles of dy over all P positions, K = 2H from the dz tile;
+// bf16(dy) is staged over the y tile, free since the barrier, then stored
+// 16 bytes a thread, coalesced.  So any H that is a multiple of 16 up to
+// 1024 fits one block.
+template <int P>
+struct GluBwdTile {
+  static constexpr int MV = 128 / P < 4 ? 128 / P : 4;  // GEMM 1 pairs
+  static constexpr int MT2 = 128 / P;      // GEMM 2 m-tiles: 64 sums
+  static constexpr int N8 = P / 8;         // n-tiles, and 8-position chunks
+  static constexpr int LD = P + 8;         // bf16 rows
+  static constexpr int ROWS = NWARPS * 16 * MV;   // value rows a pass
+  static constexpr int HS = NT / N8;       // row step of a thread
+  // k-steps the A fragments load ahead: 2 while the ring stays small
+  static constexpr int AHEAD1 = MV == 1 ? 2 : 1;
+  static constexpr int AHEAD2 = MT2 <= 2 ? 2 : 1;
+};
+
+template <int P>
+__global__ void __launch_bounds__(NT, 1)
+glu_res_bwd_tc_kernel(const __nv_bfloat16* __restrict__ y,
+                      const __nv_bfloat16* __restrict__ g,
+                      const uint4* __restrict__ Wf,
+                      const uint4* __restrict__ Wtf,
+                      const float* __restrict__ bias,
+                      __nv_bfloat16* __restrict__ dy,
+                      float* __restrict__ dz, int H, int L, bool vec) {
+  using T = GluBwdTile<P>;
+  using bf = __nv_bfloat16;
+  constexpr int N8 = T::N8, LD = T::LD, MV = T::MV, HS = T::HS;
+  extern __shared__ float4 sh4[];
+  bf* ys = reinterpret_cast<bf*>(sh4);     // H x LD: y, then bf16(dy)
+  bf* zs = ys + (size_t)H * LD;            // 2H x LD: g, then bf16(dz)
+  const int b = blockIdx.y, t0 = blockIdx.x * P;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int Ht = H / 16;
+  // this thread's chunk of 8 positions (with vec all in or all past L),
+  // and its rows h0 + i HS
+  const int c = tid % N8 * 8, t = t0 + c, h0 = tid / N8;
+
+  // the y and g tiles (0 past L): with vec all of this thread's rows in
+  // flight at once by cp.async
+  if (vec) {
+    for (int h = h0; h < H; h += HS) {
+      const size_t at = ((size_t)b * H + h) * L + t;
+      if (t < L) {
+        cp_async16(ys + h * LD + c, y + at);
+        cp_async16(zs + h * LD + c, g + at);
+      } else {
+        *reinterpret_cast<uint4*>(ys + h * LD + c) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(zs + h * LD + c) = make_uint4(0, 0, 0, 0);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+  } else {
+    for (int h = h0; h < H; h += HS) {
+      const size_t at = ((size_t)b * H + h) * L + t;
+      float v[8], w[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        v[j] = t + j < L ? __bfloat162float(y[at + j]) : 0.0f;
+        w[j] = t + j < L ? __bfloat162float(g[at + j]) : 0.0f;
+      }
+      *reinterpret_cast<uint4*>(ys + h * LD + c) = pack8(v);
+      *reinterpret_cast<uint4*>(zs + h * LD + c) = pack8(w);
+    }
+  }
+  __syncthreads();
+
+  // GEMM 1: value rows [r0, r0 + 16 MV) and gate rows H + the same of z =
+  // Wb y over all P positions; value rows past H (a partial last group)
+  // are computed from gate rows and dropped
+  for (int p0 = 0; p0 < H; p0 += T::ROWS) {
+    const int r0 = p0 + warp * 16 * MV;
+    if (r0 >= H) continue;
+    float acc[2 * MV][N8][4];
+    dwst_mma::warp_gemm_ring<2 * MV, N8, T::AHEAD1, MV>(Wf, 2 * Ht, Ht,
+                                                        r0 / 16, ys, LD, acc,
+                                                        Ht);
+#pragma unroll
+    for (int mt = 0; mt < MV; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int o = r0 + 16 * mt + gq + 8 * hh;
+        if (o >= H) continue;
+        const float ba = bias[o], bg = bias[H + o];
+        uint32_t* ar = reinterpret_cast<uint32_t*>(zs + o * LD + 2 * tq);
+        uint32_t* hr =
+            reinterpret_cast<uint32_t*>(zs + (H + o) * LD + 2 * tq);
+        float* arow = dz + ((size_t)b * 2 * H + o) * L;
+        float* hrow = arow + (size_t)H * L;
+#pragma unroll
+        for (int j = 0; j < N8; ++j) {
+          const int tt = t0 + 8 * j + 2 * tq;
+          const float2 gv =
+              __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(ar + 4 * j));
+          const float gs[2] = {gv.x, gv.y};
+          float da[2], dg[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float a = acc[mt][j][2 * hh + e] + ba;
+            const float sig =
+                1.0f / (1.0f + expf(-(acc[MV + mt][j][2 * hh + e] + bg)));
+            da[e] = gs[e] * sig;
+            dg[e] = gs[e] * a * sig * (1.0f - sig);
+          }
+          ar[4 * j] = dwst_mma::pack_bf16x2(da[0], da[1]);
+          hr[4 * j] = dwst_mma::pack_bf16x2(dg[0], dg[1]);
+          if (vec) {             // L even: both positions in or both out
+            if (tt < L) {
+              *reinterpret_cast<float2*>(arow + tt) = make_float2(da[0], da[1]);
+              *reinterpret_cast<float2*>(hrow + tt) = make_float2(dg[0], dg[1]);
+            }
+          } else {
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (tt + e < L) {
+                arow[tt + e] = da[e];
+                hrow[tt + e] = dg[e];
+              }
+          }
+        }
+      }
+  }
+  __syncthreads();
+
+  // GEMM 2: dy = Wb^T bf16(dz), H x P, K = 2H; bf16(dy) into the y tile,
+  // which no warp reads past the barrier above
+  {
+    constexpr int MT = T::MT2;
+    for (int u = warp; u * 16 * MT < H; u += NWARPS) {
+      const int r0 = u * 16 * MT;
+      float acc[MT][N8][4];
+      dwst_mma::warp_gemm_ring<MT, N8, T::AHEAD2>(Wtf, Ht, 2 * Ht, r0 / 16,
+                                                  zs, LD, acc);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int h = r0 + 16 * mt + gq + 8 * hh;
+          if (h >= H) continue;
+          uint32_t* dr = reinterpret_cast<uint32_t*>(ys + h * LD + 2 * tq);
+#pragma unroll
+          for (int j = 0; j < N8; ++j)
+            dr[4 * j] = dwst_mma::pack_bf16x2(acc[mt][j][2 * hh],
+                                              acc[mt][j][2 * hh + 1]);
+        }
+    }
+  }
+  __syncthreads();
+
+  // dy out, 16 bytes a thread (element by element without vec)
+  for (int h = h0; h < H; h += HS) {
+    const size_t at = ((size_t)b * H + h) * L + t;
+    const bf* src = ys + h * LD + c;
+    if (vec) {
+      if (t < L)
+        *reinterpret_cast<uint4*>(dy + at) =
+            *reinterpret_cast<const uint4*>(src);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (t + j < L) dy[at + j] = src[j];
     }
   }
 }
@@ -1029,7 +1224,7 @@ ln_ff_res_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
 // the xn, GELU-output and dz scratch written: 64 us), so the bound is
 // bytes; but every block also reads three bf16 weight matrices from L2,
 // once per P positions, which bounded the products.  Design, after 3f's:
-// round_weights_t_kernel rounds W1 and the transposes W1^T and W2^T to
+// round_weights_t_kernel<7> rounds W1 and the transposes W1^T and W2^T to
 // bf16 once a call into a scratch, in mma fragment order, so that every
 // product reads its A fragments from L2 one 16-byte load a lane, 512
 // contiguous bytes a warp (mma_bf16.cuh::warp_gemm_frag, one k-step
@@ -1388,17 +1583,21 @@ ln_ff_res_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x,
 
 // wb = [bf16(W1) (F x H), bf16(W1)^T (H x F), bf16(W2)^T (F x H)] from W1
 // (F x H) and W2 (H x F), each in fragment order (mma_bf16.cuh::
-// load_a_frag): kernel 7f's weights, once a call.  Each warp writes one
-// m16k16 tile: its 16 x 16 source tile (the transposed one for W1^T and
-// W2^T) through shared memory, 32 bytes a lane in, 16 bytes a lane out.
+// load_a_frag), once a call: K = 7, kernel 7f's weights; K = 6, kernel
+// 6f's, the first two alone (W1 = W, F = 2H; W2 unread), so that a trace
+// tells the two instances apart.  Each warp writes one m16k16 tile: its 16
+// x 16 source tile (the transposed one for W1^T and W2^T) through shared
+// memory, 32 bytes a lane in, 16 bytes a lane out.
+template <int K>
 __global__ void round_weights_t_kernel(const float* __restrict__ W1,
                                        const float* __restrict__ W2,
                                        uint4* __restrict__ wb, int F, int H) {
+  constexpr int JOBS = K == 7 ? 3 : 2;
   __shared__ float tile[NWARPS][16][17];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n = F / 16 * (H / 16);          // tiles a matrix
   const int id = blockIdx.x * NWARPS + warp;
-  if (id >= 3 * n) return;
+  if (id >= JOBS * n) return;
   const int job = id / n, tix = id % n;
   const int Kt = (job == 1 ? F : H) / 16, mt = tix / Kt, kt = tix % Kt;
   // the source rows r0.. and columns c0.. (row stride ld) of A's tile
@@ -1426,11 +1625,13 @@ __global__ void round_weights_t_kernel(const float* __restrict__ W1,
   wb[((size_t)job * n + tix) * 32 + lane] = make_uint4(a[0], a[1], a[2], a[3]);
 }
 
+template <int K>
 int round_weights_t(const float* W1, const float* W2, __nv_bfloat16* wb,
                     int F, int H, cudaStream_t stream) {
-  const int tiles = 3 * (F / 16) * (H / 16);
-  round_weights_t_kernel<<<(tiles + NWARPS - 1) / NWARPS, NT, 0, stream>>>(
-      W1, W2, reinterpret_cast<uint4*>(wb), F, H);
+  const int tiles = (K == 7 ? 3 : 2) * (F / 16) * (H / 16);
+  round_weights_t_kernel<K>
+      <<<(tiles + NWARPS - 1) / NWARPS, NT, 0, stream>>>(
+          W1, W2, reinterpret_cast<uint4*>(wb), F, H);
   return (int)cudaGetLastError();
 }
 
@@ -1651,10 +1852,9 @@ int weight_grad(const TX* X, const TY* Y, float* part, float* grads, int B,
 // The fp32 kernels below launch at P positions a block on smem bytes of
 // dynamic shared memory, both from ops/chmix.py's plan of each kernel; P is
 // one the kernel is built for, else the launch is refused.
-template <typename IO>
-int glu_res_bwd_launch(const IO* y, const IO* g, const float* W,
-                       const float* Wt, const float* bias, IO* dy, float* dz,
-                       int B, int H, int L, int P, int smem,
+int glu_res_bwd_launch(const float* y, const float* g, const float* W,
+                       const float* Wt, const float* bias, float* dy,
+                       float* dz, int B, int H, int L, int P, int smem,
                        cudaStream_t stream) {
   auto run = [&](auto kernel) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -1665,10 +1865,10 @@ int glu_res_bwd_launch(const IO* y, const IO* g, const float* W,
     return (int)cudaGetLastError();
   };
   switch (P) {
-    case 128: return run(glu_res_bwd_kernel<128, IO>);
-    case 64: return run(glu_res_bwd_kernel<64, IO>);
-    case 32: return run(glu_res_bwd_kernel<32, IO>);
-    case 16: return run(glu_res_bwd_kernel<16, IO>);
+    case 128: return run(glu_res_bwd_kernel<128>);
+    case 64: return run(glu_res_bwd_kernel<64>);
+    case 32: return run(glu_res_bwd_kernel<32>);
+    case 16: return run(glu_res_bwd_kernel<16>);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1814,17 +2014,39 @@ int launch_glu_tc(const __nv_bfloat16* y, const __nv_bfloat16* res,
   return (int)cudaGetLastError();
 }
 
-// Kernel 6 or 6f: the per-position pass, then dW and db from dz and y.
-template <typename IO>
-int glu_res_bwd(const IO* y, const IO* g, const float* W, const float* Wt,
-                const float* b, IO* dy, float* dz, float* part, float* grads,
-                int B, int H, int L, int tc, int P, int smem,
-                cudaStream_t stream) {
+// Kernel 6: the per-position pass, then dW and db from dz and y.
+int glu_res_bwd(const float* y, const float* g, const float* W,
+                const float* Wt, const float* b, float* dy, float* dz,
+                float* part, float* grads, int B, int H, int L, int tc, int P,
+                int smem, cudaStream_t stream) {
   if (H % TK || tc <= 0 || tc % 8) return (int)cudaErrorInvalidValue;
   const int e = glu_res_bwd_launch(y, g, W, Wt, b, dy, dz, B, H, L, P, smem,
                                    stream);
   if (e) return e;
   return weight_grad(dz, y, part, grads, B, 2 * H, H, L, tc, stream);
+}
+
+// Kernel 6f's pass on smem bytes of dynamic shared memory a block: W and
+// W^T rounded to bf16 into the scratch wb (4 H H entries, fragment order),
+// then the tensor-core pass.
+template <int P>
+int launch_glu_bwd_tc(const __nv_bfloat16* y, const __nv_bfloat16* g,
+                      const float* W, const float* b, __nv_bfloat16* dy,
+                      float* dz, __nv_bfloat16* wb, int B, int H, int L,
+                      int smem, cudaStream_t stream) {
+  int e = round_weights_t<6>(W, nullptr, wb, 2 * H, H, stream);
+  if (e) return e;
+  e = (int)cudaFuncSetAttribute(glu_res_bwd_tc_kernel<P>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem);
+  if (e) return e;
+  const bool vec = L % 8 == 0 && aligned16(y) && aligned16(g) &&
+                   aligned16(dy) && aligned16(dz);
+  const uint4* wf = reinterpret_cast<const uint4*>(wb);
+  const size_t n = (size_t)2 * H * H / 8;    // uint4s a matrix
+  glu_res_bwd_tc_kernel<P><<<dim3((L + P - 1) / P, B), NT, smem, stream>>>(
+      y, g, wf, wf + n, b, dy, dz, H, L, vec);
+  return (int)cudaGetLastError();
 }
 
 // Kernel 7 or 7f after its per-position pass: the (dm, ds) sum of the pass's
@@ -1854,7 +2076,7 @@ int launch_ff_bwd_tc(const __nv_bfloat16* x, const __nv_bfloat16* g,
                      float* xn, float* hact, float* dz, float* stat_part,
                      __nv_bfloat16* wb, int B, int H, int F, int L, int smem,
                      cudaStream_t stream) {
-  int e = round_weights_t(W1, W2, wb, F, H, stream);
+  int e = round_weights_t<7>(W1, W2, wb, F, H, stream);
   if (e) return e;
   e = (int)cudaFuncSetAttribute(ln_ff_res_bwd_tc_kernel<P>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1960,16 +2182,34 @@ extern "C" int dwst_glu_res_bwd(const float* y, const float* g, const float* W,
                      smem, stream);
 }
 
-// Kernel 6f: y, g and dy bf16; dz, part and grads f32.
+// Kernel 6f: y, g and dy bf16; dz, part and grads f32; wb a scratch for W
+// and W^T rounded to bf16 (4 H H entries); P 128, 64, 32 or 16; H a
+// multiple of 16 up to 1024.  The pass, then dW and db from dz and y.
 extern "C" int dwst_glu_res_bwd_bf16(const void* y, const void* g,
-                                     const float* W, const float* Wt,
-                                     const float* b, void* dy, float* dz,
-                                     float* part, float* grads, int B, int H,
+                                     const float* W, const float* b,
+                                     void* dy, float* dz, float* part,
+                                     float* grads, void* wb, int B, int H,
                                      int L, int tc, int P, int smem,
                                      cudaStream_t stream) {
-  return glu_res_bwd(static_cast<const bf16*>(y), static_cast<const bf16*>(g),
-                     W, Wt, b, static_cast<bf16*>(dy), dz, part, grads, B, H,
-                     L, tc, P, smem, stream);
+  if (H <= 0 || H % 16 || H > 1024 || tc <= 0 || tc % 8)
+    return (int)cudaErrorInvalidValue;
+  const auto* yb = static_cast<const bf16*>(y);
+  const auto* gb = static_cast<const bf16*>(g);
+  auto* db = static_cast<bf16*>(dy);
+  auto* w = static_cast<bf16*>(wb);
+  auto run = [&](auto launch) {
+    return launch(yb, gb, W, b, db, dz, w, B, H, L, smem, stream);
+  };
+  int e;
+  switch (P) {
+    case 128: e = run(launch_glu_bwd_tc<128>); break;
+    case 64: e = run(launch_glu_bwd_tc<64>); break;
+    case 32: e = run(launch_glu_bwd_tc<32>); break;
+    case 16: e = run(launch_glu_bwd_tc<16>); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (e) return e;
+  return weight_grad(dz, yb, part, grads, B, 2 * H, H, L, tc, stream);
 }
 
 extern "C" int dwst_ln_ff_res_bwd(

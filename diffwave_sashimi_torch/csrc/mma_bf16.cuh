@@ -237,12 +237,15 @@ __device__ __forceinline__ void warp_gemm_frag(const uint4* __restrict__ Af,
 // warp_gemm_frag with the fragments AHEAD k-steps ahead of their use, in a
 // ring of AHEAD + 1 register sets that the k-loop, unrolled by AHEAD + 1,
 // indexes at compile time: no register copy waits on a load in flight, so
-// AHEAD k-steps of products cover the L2 latency of each load.
-template <int MT, int N8, int AHEAD>
+// AHEAD k-steps of products cover the L2 latency of each load.  The m-tiles
+// come in groups of MG consecutive ones, gap tiles apart: acc[m] is A's
+// m-tile mt0 + m % MG + gap (m / MG) (by default one group, mt0 + m).
+template <int MT, int N8, int AHEAD, int MG = MT>
 __device__ __forceinline__ void warp_gemm_ring(const uint4* __restrict__ Af,
                                                int Mt, int Kt, int mt0,
                                                const __nv_bfloat16* Bs,
-                                               int ld, float acc[MT][N8][4]) {
+                                               int ld, float acc[MT][N8][4],
+                                               int gap = 0) {
   constexpr int D = AHEAD + 1;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
@@ -250,13 +253,16 @@ __device__ __forceinline__ void warp_gemm_ring(const uint4* __restrict__ Af,
     for (int j = 0; j < N8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.0f;
+  int tile[MT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) tile[mt] = mt0 + mt % MG + gap * (mt / MG);
   uint32_t ring[D][MT][4];
 #pragma unroll
   for (int s = 0; s < AHEAD; ++s)
     if (s < Kt) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
-        load_a_frag(ring[s][mt], Af, Mt, Kt, mt0 + mt, s);
+        load_a_frag(ring[s][mt], Af, Mt, Kt, tile[mt], s);
     }
   for (int k0 = 0; k0 < Kt; k0 += D) {
 #pragma unroll
@@ -266,7 +272,7 @@ __device__ __forceinline__ void warp_gemm_ring(const uint4* __restrict__ Af,
       if (kt + AHEAD < Kt) {
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
-          load_a_frag(ring[(s + AHEAD) % D][mt], Af, Mt, Kt, mt0 + mt,
+          load_a_frag(ring[(s + AHEAD) % D][mt], Af, Mt, Kt, tile[mt],
                       kt + AHEAD);
       }
 #pragma unroll

@@ -22,14 +22,15 @@ tensor cores and take channel widths that are multiples of 16.  Backward (JAX
 y, dy = W^T dz, z = W1 xn, dh = W2^T g, dxn = W1^T dz) are rounded to
 bf16, the weight gradients contract the unrounded f32 dz, xn and GELU
 output, the GELU's derivative is the polynomial's, dy and dx are rounded
-to bf16 and the weight, bias, m and s gradients stay f32; kernel 7f
-multiplies on the tensor cores and takes channel widths that are
+to bf16 and the weight, bias, m and s gradients stay f32; kernels 6f
+and 7f multiply on the tensor cores and take channel widths that are
 multiples of 16.  The weight gradients of 6, 6f, 7 and 7f are one tiled
 fp32 contraction over all positions, in split-K partials summed in a
 fixed order (``wgrad_plan``).
 
 Widths: each kernel's plan (``glu_plan``, ``ff_plan``, ``glu_bwd_plan``,
-``ff_bwd_plan``, ``glu_bf16_plan``, ``ff_bf16_plan``, ``ff_bwd_bf16_plan``)
+``ff_bwd_plan``, ``glu_bf16_plan``, ``ff_bf16_plan``, ``glu_bwd_bf16_plan``,
+``ff_bwd_bf16_plan``)
 is the one place its positions a block and its shared-memory bytes are
 computed, and its refusal function (``glu_refusal`` and the like) says
 whether it takes a block's widths at an activation dtype.  Every kernel
@@ -184,8 +185,8 @@ ln_ff_res_bf16.launches = 0
 
 # shared memory one block may use on sm_90 (227 KB)
 SMEM_LIMIT = 232448
-# csrc/chmix.cu's fp32 tiles (kernels 2, 3, 6, 7 and the 6f, 7f forms): NT
-# threads a block; weights through a transposed (TK x 16384 / P + 4) tile
+# csrc/chmix.cu's fp32 tiles (kernels 2, 3, 6 and 7): NT threads a block;
+# weights through a transposed (TK x 16384 / P + 4) tile
 NT, TK = 256, 8
 # the positions a block each fp32 kernel is built for (the P cases of its
 # launcher in csrc/chmix.cu), widest first
@@ -193,10 +194,10 @@ GLU_PS = (128, 64, 32)
 FF_PS = (128, 64, 32, 16)
 GLU_BWD_PS = (128, 64, 32, 16)
 FF_BWD_PS = (64, 32, 16, 8)
-# the widest H kernels 2f, 3f and 7f take
+# the widest H kernels 2f, 3f, 6f and 7f take
 GLU_BF16_MAX_H = FF_BF16_MAX_H = FF_BWD_BF16_MAX_H = 1024
-# the positions a block kernel 7f is built for, widest first
-FF_BWD_BF16_PS = (128, 64, 32, 16)
+# the positions a block kernels 6f and 7f are built for, widest first
+GLU_BWD_BF16_PS = FF_BWD_BF16_PS = (128, 64, 32, 16)
 # csrc/chmix.cu's weight-gradient GEMM: output tile (WGRAD_TILE squared)
 # and positions a stage (WGRAD_STEP); a split-K partial's positions are a
 # multiple of WGRAD_ALIGN, and at least one stage
@@ -239,15 +240,14 @@ def ff_plan(H, F):
 
 
 def glu_bwd_plan(H):
-    """Kernel 6's and 6f's (P, bytes): the f32 y and dz tiles (3H x P) and
-    the weight tile; P halved from 16384 / H until they fit (16 at H
-    1024)."""
+    """Kernel 6's (P, bytes): the f32 y and dz tiles (3H x P) and the
+    weight tile; P halved from 16384 / H until they fit (16 at H 1024)."""
     return _fitted(GLU_BWD_PS, _positions(H),
                    lambda P: 4 * (3 * H * P + _weight_tile(P)))
 
 
 def ff_bwd_plan(H, F):
-    """Kernel 7's and 7f's (P, bytes): P = 8192 / H within [16, 64], halved
+    """Kernel 7's (P, bytes): P = 8192 / H within [16, 64], halved
     until the tiles fit (8 at H 1024, F 2048); the f32 x, g and hidden
     tiles ((2H + F) x P), the weight tile, 2 NT floats of sums and 4 P of
     statistics."""
@@ -274,6 +274,34 @@ def glu_bf16_plan(B, H, L, sms=132):
     if H > 256 and B * -(-L // 64) >= 2 * sms and smem(64) <= SMEM_LIMIT:
         P = 64
     return P, smem(P)
+
+
+def glu_bwd_bf16_plan(B, H, L, sms=132):
+    """Kernel 6f's tile plan on a card of ``sms`` SMs: (P positions a
+    block, shared-memory bytes a block), the grid being ceil(L / P) x B
+    blocks of one block an SM.  P is the widest of GLU_BWD_BF16_PS whose
+    tiles fit one block and whose grid fills at least 90% of one wave
+    (each block reads the bf16 W and W^T whole from L2, so a wider P
+    reads them less often per position, while a grid short of a wave
+    leaves SMs idle), else the narrowest that fits: 128 at H 128 and 256,
+    32 at H 512 and L 1000 (B4), 16 at H 1024.  The block keeps two bf16
+    tiles, rows padded to P + 8: the H-row y tile, which holds bf16(dy)
+    once the first product is done, and the 2H-row dz tile, whose first H
+    rows hold g until each entry's own thread overwrites it with
+    bf16(da).  The kernel (``csrc/chmix.cu::glu_res_bwd_tc_kernel``)
+    takes these bytes as given: this is the one place they are computed
+    (:func:`glu_bwd_bf16_smem`)."""
+    fits = [P for P in GLU_BWD_BF16_PS
+            if glu_bwd_bf16_smem(H, P) <= SMEM_LIMIT] or GLU_BWD_BF16_PS[-1:]
+    P = next((P for P in fits if B * -(-L // P) >= 0.9 * sms), fits[-1])
+    return P, glu_bwd_bf16_smem(H, P)
+
+
+def glu_bwd_bf16_smem(H, P):
+    """Kernel 6f's shared-memory bytes a block at width H and P positions
+    (:func:`glu_bwd_bf16_plan`): the H-row y tile and the 2H-row dz tile,
+    bf16 rows of P + 8."""
+    return 3 * H * (P + 8) * 2
 
 
 def ff_bf16_plan(B, H, F, L, sms=132):
@@ -403,9 +431,13 @@ def ff_refusal(H, F, dtype):
 
 
 def glu_bwd_refusal(H, dtype):
-    """None if kernel 6 (f32) or 6f (bf16 activations) takes width H."""
-    return _width_refusal("6f" if dtype == torch.bfloat16 else "6",
-                          (("H", H),), TK, glu_bwd_plan(H)[1])
+    """None if kernel 6 (f32) or 6f (bf16 activations) takes width H,
+    else why not.  6f's mma tiles are 16 channels deep and its plan holds
+    up to GLU_BF16_MAX_H rows, as 2f's."""
+    if dtype != torch.bfloat16:
+        return _width_refusal("6", (("H", H),), TK, glu_bwd_plan(H)[1])
+    return _width_refusal("6f", (("H", H),), 16,
+                          glu_bwd_bf16_plan(1, H, 1)[1], GLU_BF16_MAX_H)
 
 
 def ff_bwd_refusal(H, F, dtype):
@@ -537,8 +569,15 @@ def glu_res_bwd(y, w, b, g):
         return glu_res_bwd_ref(y, w, b, g)
     if y.dtype == torch.bfloat16:
         return glu_res_bwd_bf16(y, w, b, g)
-    return _launch_glu_bwd(glu_res_bwd, "dwst_glu_res_bwd", torch.float32, y,
-                           w, b, g)
+    B, H, L = y.shape
+    _raise(glu_bwd_refusal(H, torch.float32))
+    dy, dz, tc, part, grads = _glu_bwd_buffers(torch.float32, y, w, b, g)
+    wt = w.t().contiguous()
+    cuda_lib.launch("dwst_glu_res_bwd",
+                    *_ptrs(y, g, w, wt, b, dy, dz, part, grads),
+                    B, H, L, tc, *glu_bwd_plan(H))
+    glu_res_bwd.launches += 1
+    return dy, grads[:2 * H * H].view(2 * H, H), grads[2 * H * H:]
 
 
 glu_res_bwd.launches = 0
@@ -546,36 +585,41 @@ glu_res_bwd.launches = 0
 
 def glu_res_bwd_bf16(y, w, b, g):
     """Kernel-6f wrapper (y, g and dy bf16; w, b, dw, db f32): the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    kernel for CUDA tensors, the plain version for CPU tensors.  The
+    per-position products run on the tensor cores, so H must be a multiple
+    of 16 up to 1024 (:func:`glu_bwd_refusal`).  A call launches, counted
+    as one launch: a pass that rounds W and its transpose to bf16 into a
+    scratch of its own, in mma fragment order, the tensor-core pass, and
+    the weight-gradient contraction with its split-K sum."""
     if not y.is_cuda:
         return glu_res_bwd_ref(y, w, b, g)
-    return _launch_glu_bwd(glu_res_bwd_bf16, "dwst_glu_res_bwd_bf16",
-                           torch.bfloat16, y, w, b, g)
+    B, H, L = y.shape
+    _raise(glu_bwd_refusal(H, torch.bfloat16))
+    dy, dz, tc, part, grads = _glu_bwd_buffers(torch.bfloat16, y, w, b, g)
+    wb = w.new_empty((4 * H * H,), dtype=torch.bfloat16)
+    cuda_lib.launch("dwst_glu_res_bwd_bf16",
+                    *_ptrs(y, g, w, b, dy, dz, part, grads, wb),
+                    B, H, L, tc,
+                    *glu_bwd_bf16_plan(B, H, L, cuda_lib.sm_count(y.device)))
+    glu_res_bwd_bf16.launches += 1
+    return dy, grads[:2 * H * H].view(2 * H, H), grads[2 * H * H:]
 
 
 glu_res_bwd_bf16.launches = 0
 
 
-def _launch_glu_bwd(wrapper, entry, dtype, y, w, b, g):
+def _glu_bwd_buffers(dtype, y, w, b, g):
     """Check the arguments of kernel 6 or 6f (activations of ``dtype``, the
-    dz scratch and the gradients f32), launch ``entry`` and count it on
-    ``wrapper``."""
+    rest f32) and allocate dy, the f32 dz scratch (B, 2H, L) and the
+    weight gradient's split-K partials and result (:func:`_wgrad_scratch`):
+    returns (dy, dz, positions a split, partials, result)."""
     B, H, L = y.shape
-    _raise(glu_bwd_refusal(H, dtype))
     for t in (y, g):
         cuda_lib.check(t, (B, H, L), dtype)
     for t, shape in ((w, (2 * H, H)), (b, (2 * H,))):
         cuda_lib.check(t, shape, torch.float32)
-    wt = w.t().contiguous()
-    dy = torch.empty_like(y)
-    dz = w.new_empty((B, 2 * H, L))
-    tc, part, grads = _wgrad_scratch(w, B, L, 2 * H, H)
-    cuda_lib.launch(entry, y.data_ptr(), g.data_ptr(), w.data_ptr(),
-                    wt.data_ptr(), b.data_ptr(), dy.data_ptr(), dz.data_ptr(),
-                    part.data_ptr(), grads.data_ptr(), B, H, L, tc,
-                    *glu_bwd_plan(H))
-    wrapper.launches += 1
-    return dy, grads[:2 * H * H].view(2 * H, H), grads[2 * H * H:]
+    return (torch.empty_like(y), w.new_empty((B, 2 * H, L)),
+            *_wgrad_scratch(w, B, L, 2 * H, H))
 
 
 def ln_ff_res_bwd(x, m, s, w1, b1, w2, b2, g):

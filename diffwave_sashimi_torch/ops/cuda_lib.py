@@ -66,6 +66,8 @@ _SIGNATURES = {
     "dwst_fftconv_dkf_bf16": [_P] * 3 + [_I] * 4 + [_P],
     # y, g, W, Wt, b, dy, dz, part, grads, B, H, L, tc, P, smem, stream
     "dwst_glu_res_bwd": [_P] * 9 + [_I] * 6 + [_P],
+    # kernel 6f: y, g, W, b, dy, dz, part, grads, wb (the bf16 weight
+    # scratch), B, H, L, tc, P, smem, stream (y, g, dy bf16)
     "dwst_glu_res_bwd_bf16": [_P] * 9 + [_I] * 6 + [_P],
     # x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact, dz, stat_part, dms,
     # part1, grads1, part2, grads2, B, H, F, L, tc, P, smem, stream
