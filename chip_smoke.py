@@ -26,7 +26,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    version, and the eps forward (one sampling step) both ways at the main
    path's batch and at batch 16; then (6b) kernels 1f, 2f, 3f and 12 (its
    bf16 and f32 epilogues) against their plain versions at the three
-   tiers, B4, timed, 3f also at F = H (off the shipped F = 2H), 2f also
+   tiers, B4, timed, 1f on both its routes (two calls of its radix-16
+   kernel bit-equal, the route ``ops.fftconv.conv_plan`` does not take
+   held against the plain version and timed in turns with the one it
+   takes, a cuFFT conv of the shapes beside them as ``cufft_conv_ms``, a
+   yardstick), 3f also at F = H (off the shipped F = 2H), 2f also
    at H 1024 (d_model 256's deepest tier, L 1000) and on its element-wise
    path (L 1001 at H 128 and 256, B2; y and res one element off a
    16-byte boundary), kernel 12 against an
@@ -39,11 +43,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bf16 and int8 eps through the kernels against the bf16 plain path, and
    the quality gate: a 50-step reverse process with one injected noise
    stack, whose bf16 and int8 x_0 must correlate >= 0.99999 with f32's;
-   (6d) the bf16 and int8 eps step timed at B4 and B16 and traced;
+   (6d) the bf16 and int8 eps step timed at B4 and B16 and traced (the
+   bf16 step at B4 and B16 with kernel 1f's time apart);
 7. the training kernels (kernel 1's training entry and its conjugate
    form, kernels 5-8) against their plain versions at the three tiers,
    with their times; then (7b) their bf16 forms (1f's training entry and
-   its conjugate form, 5f, 6f, 7f) at the three tiers, B4, timed, 7f also
+   its conjugate form, each on both routes as in 6b, 5f, 6f, 7f) at the
+   three tiers, B4, timed, 7f also
    at F = H, 6f and 7f also on their element-wise paths (B2, L 1001, H
    128 and 256); at each tier two 7f calls and two 6f calls must agree
    bit for bit, a trace gives each one's time by part (its pass, the
@@ -77,7 +83,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
     and a trace of two bf16 steps that reports kernel 7f's pass, 6f's
     pass, the weight-gradient contractions and the reductions apart from
     the rest (6f's pass must be its tensor-core kernel and its rounding
-    instance, with no kernel-6 instance);
+    instance, with no kernel-6 instance) and kernel 1f's time apart;
 11. a torch.profiler trace of two training steps with the kernels: device
     time by kernel, the port's kernels' share, the device's idle share;
 12. the vocoder: the shipped LJSpeech model (``experiment=ljspeech``:
@@ -104,7 +110,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
     (H128 L300000), and kernel 1 at the deepest tier (n 16384 < 2L),
     timed; (15b) kernel 9f at the same five shapes (bf16 activations; its
     cluster route, one thread-block cluster a transform row, at n 2^16
-    and 2^17, its three passes at the others), and kernels 3f and 2f at
+    and 2^17, its three passes at the others), kernel 1f at the deepest
+    tier (B2 H512 L8960 n 16384: L > n/2, the whole transform) on both
+    its routes as in 6b, and kernels 3f and 2f at
     the vocoder's three tiers (B2: H128 L143360, H256 L35840, H512
     L8960), timed, 3f with its two weight designs as in 6b and 2f with
     its ``gemm_ms``.  At n 2^16, 2^17 and 2^18, two calls of 9f's cluster
@@ -419,7 +427,8 @@ VOC_BF16_LAUNCHES = {"fftconv_long_ln_bias_gelu_d_bf16": 24 * 50,
                      "glu_res_bf16": 30 * 50, "ln_ff_res_bf16": 30 * 50,
                      "cauchy": 30}
 # the port's kernels, by the name of their __global__ function
-PORT_KERNELS = ("fftconv_kernel", "fftconv_dkf_kernel", "glu_res_kernel",
+PORT_KERNELS = ("fftconv_kernel", "fftconv_r16_kernel",
+                "fftconv_dkf_kernel", "glu_res_kernel",
                 "glu_res_tc_kernel", "glu_res_bwd_kernel",
                 "glu_res_bwd_tc_kernel", "ln_ff_res_kernel",
                 "ln_ff_res_tc_kernel", "round_weights_kernel",
@@ -438,6 +447,15 @@ KERNEL_9_THREE_PASS = ("cols_fwd_kernel", "rows_kernel", "cols_inv_kernel")
 KERNEL_9_GROUPS = {
     "kernel_9_cluster": lambda name: in_group(name, (KERNEL_9_CLUSTER,)),
     "kernel_9_three_pass": lambda name: in_group(name, KERNEL_9_THREE_PASS)}
+
+# kernel 1f's two routes (ops.fftconv.conv_plan): the radix-16 kernel and
+# the Stockham kernel's bf16 instances; traces report their sum as 1f's time
+def is_1f(name):
+    return name.startswith("fftconv_r16_kernel") or (
+        name.startswith("fftconv_kernel<") and "bfloat16" in name)
+
+
+KERNEL_1F_GROUPS = {"fftconv_1f": is_1f}
 
 # kernels 2f's and 3f's wrappers launch two of them a call: the weights'
 # rounding pass (an instance named for its kernel), then the tensor-core
@@ -761,9 +779,11 @@ def time_ff_weight_designs(torch, ff, result, tier):
 def check_bf16_kernels(torch, model, dev, results):
     """The bf16 forms of kernels 1-3 (1f, 2f, 3f) and kernel 12 with both
     epilogues vs their plain versions at the sampling path's shapes of
-    every tier (B4, bf16 activations), timed; kernel 12 also vs an f64
-    direct conv of the same inputs."""
+    every tier (B4, bf16 activations), timed; 1f on both its routes
+    (``hold_1f_routes``); kernel 12 also vs an f64 direct conv of the same
+    inputs."""
     from diffwave_sashimi_torch import ops
+    fc = importlib.import_module("diffwave_sashimi_torch.ops.fftconv")
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
     bf = torch.bfloat16
     f64 = {}
@@ -795,6 +815,10 @@ def check_bf16_kernels(torch, model, dev, results):
         for name, kfn, pfn, tol, tier, bpe in cases:
             compare(name, H, L, kfn, pfn, 10, results, tol=tol, tier=tier,
                     bpe=bpe)
+        hold_1f_routes(torch, "fftconv_ln_bias_gelu_d_bf16", f"H{H}_L{L}",
+                       d["n"], lambda p: fc.launch_sampling_bf16(x, *conv, p),
+                       ops.fftconv_ln_bias_gelu_d_ref(x, *conv),
+                       cufft_conv_ms(torch, d["x"], d["khat"], L), results)
         gemm_ms(torch, "glu_res_bf16", results, f"H{H}_L{L}", lin.weight, y)
         time_ff_weight_designs(torch, ff, results["ln_ff_res_bf16"],
                                f"H{H}_L{L}")
@@ -877,6 +901,54 @@ def gemm_ms(torch, name, results, tier, w, y):
     ms = cuda_ms(lambda: torch.matmul(wb, y), 10)
     results[name]["tiers"][tier]["gemm_ms"] = ms
     log(f"yardstick {name} {tier}: one bf16 torch.matmul {ms:.4f} ms")
+
+
+def cufft_conv_ms(torch, x, khat, L):
+    """One torch.fft.rfft -> product -> irfft conv of x (f32) with the half
+    spectrum khat at its FFT size, cut to L (cuFFT, no prologue or
+    epilogue): a yardstick of kernels 1f and 9f, never called by the
+    port."""
+    n = 2 * (khat.shape[-1] - 1)
+    return cuda_ms(lambda: torch.fft.irfft(torch.fft.rfft(x, n=n) * khat,
+                                           n=n)[..., :L], 10)
+
+
+def hold_1f_routes(torch, name, tier, n, launch, ref, cufft_ms, results,
+                   key=""):
+    """Kernel 1f (``name``: its sampling form or its training entry) at one
+    tier beyond its bar: two calls on its radix-16 route bit-equal; the
+    route ops.fftconv.conv_plan does not take at n held against the plain
+    version ``ref`` at TOL_BF16 and timed in turns with the route it takes
+    (``<key>stockham_ms`` or ``<key>radix16_ms``, beside
+    ``<key>ms_vs_stockham`` or ``<key>ms_vs_radix16``); a cuFFT conv of the
+    same shapes (``cufft_conv_ms``), a yardstick the port never calls.
+    ``launch(plan)`` runs 1f on the plan's route."""
+    fc = importlib.import_module("diffwave_sashimi_torch.ops.fftconv")
+    r16, shipped = fc.radix16_plan(n), fc.conv_plan(n)
+    other = fc.STOCKHAM if shipped == r16 else r16
+    one, two = launch(r16), launch(r16)
+    alt = launch(other)
+    torch.cuda.synchronize()
+    if not torch.equal(one, two):
+        raise AssertionError(f"kernel {name} {tier} {key}: two calls of "
+                             f"the radix-16 route differ")
+    err, scale = max_err(alt, ref)
+    if not (err <= TOL_BF16 * max(1.0, scale)
+            and bool(torch.isfinite(alt).all())):
+        raise AssertionError(f"kernel {name} {tier} {key}on its {other.route}"
+                             f" route disagrees: {err:.3e} of {scale:.3e}")
+    ms, other_ms = paired_ms(lambda: launch(shipped), lambda: launch(other),
+                             10)
+    t = results[name]["tiers"][tier]
+    t.update({f"{key}{other.route}_ms": other_ms,
+              f"{key}ms_vs_{other.route}": ms,
+              f"{key}{other.route}_max_abs_err": err,
+              "cufft_conv_ms": cufft_ms})
+    form = f" {key.rstrip('_')}" if key else ""
+    log(f"kernel {name} {tier}{form}: radix-16 route, two calls bit-equal; "
+        f"its {shipped.route} route {ms:.4f} ms vs the {other.route} route "
+        f"{other_ms:.4f} ms in turns (that one {err:.3e} of {scale:.3e} off "
+        f"the plain version); cuFFT conv {cufft_ms:.4f} ms")
 
 
 def run_shipped_command(torch, run, launches):
@@ -965,11 +1037,24 @@ def check_bf16_path(torch, model, dev):
             f"{out['f32_step_ms'][key]:.3f} ms in turns")
     for label, (fused, _) in routes.items():
         out["trace"][label] = trace_steps(
-            torch, lambda: bfm(x, steps, spectra[fused], fused))
+            torch, lambda: bfm(x, steps, spectra[fused], fused),
+            groups=KERNEL_1F_GROUPS if label == "bf16" else None)
         log(f"trace: {label} sampling step with the kernels: " + (
             "no device time in the profiler's events (not measured)"
             if out["trace"][label] is None
             else json.dumps(out["trace"][label])))
+    # the bf16 step at B16 too: kernel 1f's share where the card is fuller
+    x16 = torch.randn(16, 1, 16000, device=dev, generator=g)
+    s16 = torch.randint(0, 200, (16,), device=dev, generator=g)
+    out["trace"]["bf16_B16"] = trace_steps(
+        torch, lambda: bfm(x16, s16, spectra[ops.FUSED], ops.FUSED),
+        groups=KERNEL_1F_GROUPS)
+    for label in ("bf16", "bf16_B16"):
+        tr = out["trace"][label]
+        if tr is not None:
+            log(f"trace: kernel 1f {tr['groups_ms_per_step']['fftconv_1f']:.3f}"
+                f" ms of {tr['device_busy_ms_per_step']:.3f} busy ms a {label}"
+                f" sampling step")
 
     sched = schedule_from_cfg(QUALITY_CFG, fast=True)
     shape = (N_SAMPLES, 1, 16000)
@@ -1020,12 +1105,14 @@ def check_training_kernels(torch, model, dev, results):
 
 def check_bf16_training_kernels(torch, model, dev, results):
     """Phase 7b: the bf16 training forms (kernel 1f's training entry and
-    its conjugate form, 5f, 6f, 7f) vs their plain versions at every tier
-    (B4, bf16 activations), timed; 7f also at F = H; 6f and 7f, at H 128
+    its conjugate form, both on both routes, 5f, 6f, 7f) vs their plain
+    versions at every tier (B4, bf16 activations), timed; 7f also at F =
+    H; 6f and 7f, at H 128
     and 256, on their element-wise paths (B2, L 1001), and at every tier
     their repeats, their times by part and their yardsticks
     (``ff_bwd_bf16_parts``, ``glu_bwd_bf16_parts``)."""
     from diffwave_sashimi_torch import ops
+    fc = importlib.import_module("diffwave_sashimi_torch.ops.fftconv")
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
     bf = torch.bfloat16
     for H, L, blk in tier_blocks(model):
@@ -1048,6 +1135,14 @@ def check_bf16_training_kernels(torch, model, dev, results):
         ]
         for name, kfn, pfn in cases:
             compare(name, H, L, kfn, pfn, 10, results, tol=TOL_BF16, bpe=2)
+        # 1f's training entry and its conjugate form on both routes
+        cufft_ms = cufft_conv_ms(torch, d["x"], khat, L)
+        for key, inp, conj in (("", x, False), ("conj_", g, True)):
+            hold_1f_routes(torch, "fftconv_bf16", f"H{H}_L{L}", d["n"],
+                           lambda p, inp=inp, conj=conj:
+                           fc.launch_conv_bf16(inp, khat, conj, p),
+                           ops.fftconv_ref(inp, khat, conj), cufft_ms,
+                           results, key)
         # 7f at F = H (a config's model.ff 1), off the shipped F = 2H, and
         # on its element-wise path (L 1001, B2: the last block ragged)
         ffh = ff[:3] + (d["w1"][:H].contiguous(), d["b1"][:H],
@@ -1743,6 +1838,7 @@ def time_train_step_bf16(torch, model, dev):
               for part, names in KERNELS_7F.items()}
     groups["glu_res_bwd_bf16_pass"] = (
         lambda n: in_group(n, KERNELS_6F["pass"]))
+    groups.update(KERNEL_1F_GROUPS)
     out["trace"] = trace_steps(torch, bf16_step, groups=groups)
     if out["trace"] is not None:
         names = out["trace"]["port_kernels_by_name_ms_per_step"]
@@ -1957,6 +2053,18 @@ def check_vocoder_kernels(torch, model, L, dev, results):
                     lambda: ops.fftconv_ln_bias_gelu_d_ref(x, a, c, bias,
                                                            d["khat"], D),
                     10, results, B, d["n"])
+            # 1f at n 16384 with L 8960 > n/2: the whole transform
+            xb, conv = x.to(torch.bfloat16), (a, c, bias, d["khat"], D)
+            compare("fftconv_ln_bias_gelu_d_bf16", H, Lt,
+                    lambda: ops.fftconv_ln_bias_gelu_d_bf16(xb, *conv),
+                    lambda: ops.fftconv_ln_bias_gelu_d_ref(xb, *conv),
+                    10, results, B, d["n"], tol=TOL_BF16, bpe=2)
+            fc = importlib.import_module("diffwave_sashimi_torch.ops.fftconv")
+            hold_1f_routes(torch, "fftconv_ln_bias_gelu_d_bf16",
+                           f"H{H}_L{Lt}", d["n"],
+                           lambda p: fc.launch_sampling_bf16(xb, *conv, p),
+                           ops.fftconv_ln_bias_gelu_d_ref(xb, *conv),
+                           cufft_conv_ms(torch, x, d["khat"], Lt), results)
         lin, ff1, ff2 = blk.layer.output_linear[0], *(blk.ff["ff"][i]
                                                      for i in (0, 2))
         ff = (x, blk.norm2.m, blk.norm2.s, ff1.effective_weight()[:, :, 0],
@@ -2734,7 +2842,10 @@ def main():
                     "wgrad_gemm_pair_ms", "wgrad_gemm_ms", "split_ms",
                     "plan_P", "p_ms", "three_pass_ms",
                     "ms_vs_three_pass", "cluster_ms", "ms_vs_cluster",
-                    "cufft_conv_ms"):
+                    "cufft_conv_ms", "stockham_ms", "ms_vs_stockham",
+                    "radix16_ms", "ms_vs_radix16", "conj_stockham_ms",
+                    "conj_ms_vs_stockham", "conj_radix16_ms",
+                    "conj_ms_vs_radix16"):
             # yardsticks and parts, not library calls
             if key in top:
                 entries[-1][key] = top[key]

@@ -28,7 +28,9 @@
 //
 // Kernel 1f's training entry (fftconv2 with fast=True, and its input
 // gradient, the same call on -kfi) is the plain form templated on bf16: u
-// and out bf16, the chain f32.
+// and out bf16, the chain f32.  Both forms of kernel 1f also have a
+// radix-16 route (fftconv_r16_kernel, below), which ops/fftconv.py::
+// conv_plan takes at the FFT sizes where it is the faster on the H100.
 //
 // Kernel 5 replaces fftconv2.py::_dkf_kernel (fftconv2_dkf): the khat
 // gradient summed over the batch, in the convention of torch autograd for
@@ -67,6 +69,20 @@
 
 #include "activations.cuh"
 #include "fft_stockham.cuh"
+
+// A probe build (-DDWST_R16_STAMPS, fftconv_phases.py) times the radix-16
+// kernel phase by phase: thread 0 of each block (the first 4096) records
+// clock64() at each of its R16_STAMPS phase boundaries.  In the shipped
+// build R16_STAMP is empty.
+#define R16_STAMPS 6
+#ifdef DWST_R16_STAMPS
+__device__ long long dwst_r16_stamps[4096][R16_STAMPS];
+#define R16_STAMP(k) \
+  if (threadIdx.x == 0 && blockIdx.x < 4096) \
+  dwst_r16_stamps[blockIdx.x][k] = clock64()
+#else
+#define R16_STAMP(k)
+#endif
 
 namespace {
 
@@ -199,6 +215,498 @@ fftconv_kernel(const T* __restrict__ u, const float* __restrict__ a,
   }
 }
 
+// ---- Kernel 1f's radix-16 route (both forms) -------------------------------
+//
+// The same functions as fftconv_kernel<*, bf16>, redesigned for the H100
+// (ops/fftconv.py::conv_plan routes each FFT size to the faster of the
+// two).  What held the Stockham kernel back, per (b, h) row at n = 32768:
+// 12 shared-memory round trips of the whole 128 KB row and 24 block-wide
+// barriers over 32 warps (5 radix-8/4 passes each way, the load, the
+// pairwise split pass, the store), a second pass over u, a and c for the
+// D-skip, and a transform of the zero half of the input where L <= n/2.
+// This kernel:
+//
+// - folds the D-skip into the spectrum: khat[h, k] + D[h] at every bin is
+//   the transform of khat's kernel plus D delta[0], so the conv of u' with
+//   it is y + D u', and the epilogue is gelu_fast(y / n) alone, reading
+//   nothing from device memory (the f32 transform's rounding of D u' is far
+//   below bf16's rounding of the output);
+// - takes the M = n/2 point complex transform of the packed row in one
+//   radix-R0 pass and P >= 2 radix-16 passes (M = R0 16^P: n 32768 as 4,
+//   16, 16, 16; ops/fftconv.py::radix16_plan), each thread holding 32
+//   values (two radix-16 butterflies, or 32 / R0 radix-R0 ones) between
+//   one read and one write of shared memory, M / 32 threads a row;
+// - reads the input straight from device memory into the first pass
+//   (radix R0 at Ns = 1), with the prologue, only where t < L: where
+//   L <= n/2 the upper half of each butterfly is zero, never loaded and
+//   not transformed (dft_lower); and writes the output straight from the
+//   last inverse pass (radix R0 at Ns = M/R0) with the epilogue, only
+//   where t < L.  The pruning keys on L, so the vocoder's deepest tier
+//   (L 8960 > n/2 at n 16384) takes the whole transform;
+// - merges the spectrum step into the passes around it: thread t takes,
+//   in the last forward pass, butterflies j0 = t and j1 = M/16 - t (M/32
+//   for t = 0), whose outputs Z[j + r M/16] hold each bin k with its
+//   partner M - k, and the first inverse pass (radix 16 at Ns = 1) reads
+//   exactly those slots.  So the thread runs the last forward pass in
+//   place, folds its 16 pairs (split, multiply, pack the inverse's input)
+//   from its own slots, and transforms them again, with no barrier but
+//   the inverse pass's own;
+// - lays the row out with one pad slot per 16 values (slot16), so each
+//   half warp's 64-bit reads and writes meet 16 distinct bank pairs in
+//   every pass (the merged pass's reads of j1, a run that crosses a pad
+//   slot, meet one pair twice);
+// - stays within 128 registers a thread with no spills, which it needs to
+//   run 16 warps an SM: each phase reads threadIdx.x anew (r16_tid), the
+//   phases with no barrier in them (load, fold, store) hold one group of
+//   values at a time, and every twiddle is one sincospif a thread and
+//   phase times constant 32nd roots of unity (root32, which must inline:
+//   a call costs a stack frame in the unrolled loops).
+//
+// So a row takes 8 round trips of shared memory (3 of them the merged
+// pass's, of the thread's own slots) and 11 block barriers (n 32768: 512
+// threads, 136 KB, one block an SM; smaller n several blocks an SM).  The
+// chain stays f32, as in the Stockham kernel.
+
+using bf16 = __nv_bfloat16;
+
+constexpr int R16_HELD = 32;       // complex values a thread holds a pass
+
+// Shared-memory slot of value i: one pad slot per 16 values.
+__device__ __forceinline__ int slot16(int i) { return i + (i >> 4); }
+
+// threadIdx.x, read anew in each phase (as fftconv_long.cu's phase_tid):
+// the phases' slot and position arithmetic then stays apart, where the
+// compiler would otherwise keep values common to two phases alive in
+// registers across the kernel, past the 128 a thread has.
+__device__ __forceinline__ int r16_tid() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+}
+
+__host__ __device__ constexpr int r16_log2(int x) {
+  return x <= 1 ? 0 : 1 + r16_log2(x >> 1);
+}
+
+// The radix-16 route at M = n/2 (ops/fftconv.py::radix16_plan): P
+// radix-16 passes and one of radix R0, NT threads a block, SLOTS 8-byte
+// slots of shared memory; MIN_BLOCKS keeps a thread at <= 128 registers.
+template <int M>
+struct R16 {
+  static constexpr int P = (r16_log2(M) - 1) / 4;
+  static constexpr int R0 = M >> (4 * P);
+  static constexpr int NT = M / R16_HELD;
+  static constexpr int SLOTS = M + M / 16;
+  static constexpr int MIN_BLOCKS = NT >= 512 ? 1 : 512 / NT;
+  static_assert(P >= 2 && R0 >= 2 && R0 <= 16, "M = R0 16^P");
+};
+
+// exp(-+2 pi i m / N) for 0 <= m < N, N a power of two (exact argument).
+template <bool INV>
+__device__ __forceinline__ float2 root(int m, int N) {
+  float s, c;
+  sincospif(2.0f * (float)m / (float)N, &s, &c);
+  return make_float2(c, INV ? s : -s);
+}
+
+// cos(pi m / 16), 0 <= m <= 16, and exp(-i pi r / 16), 0 <= r < 16: the
+// 32nd roots of unity as constants where r is one after unrolling (not
+// recursive, so always inlined: a call would cost a stack frame).
+__device__ __forceinline__ float cos_pi16(int m) {
+  const int a = m > 8 ? 16 - m : m;
+  const float c = a == 0 ? 1.0f
+                  : a == 1 ? 0.98078528040323044f
+                  : a == 2 ? 0.92387953251128674f
+                  : a == 3 ? 0.83146961230254524f
+                  : a == 4 ? 0.70710678118654752f
+                  : a == 5 ? 0.55557023301960222f
+                  : a == 6 ? 0.38268343236508977f
+                  : a == 7 ? 0.19509032201612826f
+                  : 0.0f;
+  return m > 8 ? -c : c;
+}
+__device__ __forceinline__ float2 root32(int r) {
+  return make_float2(cos_pi16(r), -cos_pi16(r <= 8 ? 8 - r : r - 8));
+}
+// exp(-i pi / 32)
+constexpr float COS_PI32 = 0.99518472667219689f;
+constexpr float SIN_PI32 = 0.09801714032956060f;
+
+// v[q][r] *= w1^r for r = 1 .. R-1 and each of NB butterflies q (one w1
+// for all of them), the powers as a running product.
+template <int R, int NB>
+__device__ __forceinline__ void twiddle_all(float2 (*v)[R], float2 w1) {
+  float2 w = w1;
+#pragma unroll
+  for (int r = 1; r < R; ++r) {
+#pragma unroll
+    for (int q = 0; q < NB; ++q) v[q][r] = cmul(v[q][r], w);
+    if (r + 1 < R) w = cmul(w, w1);
+  }
+}
+
+// The forward DFT of R values whose upper half is zero:
+// X[2m] = DFT_{R/2}(x)[m], X[2m+1] = DFT_{R/2}(x_r W_R^r)[m].
+template <int R>
+__device__ __forceinline__ void dft_lower(float2* v) {
+  if constexpr (R == 2) {
+    v[1] = v[0];
+  } else {
+    constexpr int H = R / 2;
+    float2 e[H], o[H];
+#pragma unroll
+    for (int r = 0; r < H; ++r) {
+      e[r] = v[r];
+      o[r] = cmul(v[r], root32(32 / R * r));      // W_R^r
+    }
+    dft<H, false>(e);
+    dft<H, false>(o);
+#pragma unroll
+    for (int m = 0; m < H; ++m) {
+      v[2 * m] = e[m];
+      v[2 * m + 1] = o[m];
+    }
+  }
+}
+
+// One Stockham pass in shared memory, radix R at sub-transform size NS:
+// butterfly j = tid + q NT (q < 32 / R) reads z[j + r M/R], twiddles by
+// W_(NS R)^(k r), k = j mod NS, transforms and (after the barrier)
+// writes z[(j - k) R + k + r NS].
+template <int M, int R, int NS, bool INV>
+__device__ __forceinline__ void r16_pass(float2* z) {
+  constexpr int NT = R16<M>::NT, NB = R16_HELD / R, S = M / R;
+  int tid = r16_tid();
+  float2 v[NB][R];
+#pragma unroll
+  for (int q = 0; q < NB; ++q)
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[q][r] = z[slot16(tid + q * NT + r * S)];
+  if constexpr (NS > 1) {
+    if constexpr (NT % NS == 0) {     // every butterfly of the thread: one k
+      twiddle_all<R, NB>(v, root<INV>(tid & (NS - 1), NS * R));
+    } else {
+#pragma unroll
+      for (int q = 0; q < NB; ++q)
+        twiddle_all<R, 1>(&v[q],
+                          root<INV>((tid + q * NT) & (NS - 1), NS * R));
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < NB; ++q) dft<R, INV>(v[q]);
+  __syncthreads();
+  tid = r16_tid();
+#pragma unroll
+  for (int q = 0; q < NB; ++q) {
+    const int j = tid + q * NT, k = j & (NS - 1), base = (j - k) * R + k;
+#pragma unroll
+    for (int r = 0; r < R; ++r) z[slot16(base + r * NS)] = v[q][r];
+  }
+  __syncthreads();
+}
+
+// The radix-16 passes between the first and the merged pass (forward: NS
+// = R0, 16 R0, ...) or between the merged and the last (inverse: NS =
+// 16, 256, ...): P - 1 of them.
+template <int M, int I, bool INV>
+__device__ __forceinline__ void r16_passes(float2* z) {
+  if constexpr (I + 1 < R16<M>::P) {
+    constexpr int NS = INV ? 1 << (4 * (I + 1)) : R16<M>::R0 << (4 * I);
+    r16_pass<M, 16, NS, INV>(z);
+    r16_passes<M, I + 1, INV>(z);
+  }
+}
+
+// The conv input's packed value p, (x[2p], x[2p+1]), zero past L: u, or in
+// the sampling form a u + c + bias.  VEC (L even, rows aligned): one
+// 4-byte load of u and 8-byte loads of a and c for the pair.
+template <bool FUSED, bool VEC>
+__device__ __forceinline__ float2 r16_in(const bf16* __restrict__ ur,
+                                         const float* __restrict__ ar,
+                                         const float* __restrict__ cr,
+                                         float bh, int p, int L) {
+  const int t = 2 * p;
+  if constexpr (VEC) {
+    if (t >= L) return make_float2(0.0f, 0.0f);
+    const float2 x = __bfloat1622float2(
+        reinterpret_cast<const __nv_bfloat162*>(ur)[p]);
+    if (!FUSED) return x;
+    const float2 av = reinterpret_cast<const float2*>(ar)[p];
+    const float2 cv = reinterpret_cast<const float2*>(cr)[p];
+    return make_float2(av.x * x.x + cv.x + bh, av.y * x.y + cv.y + bh);
+  } else {
+    float v[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float x = t + e < L ? __bfloat162float(ur[t + e]) : 0.0f;
+      v[e] = t + e >= L ? 0.0f : FUSED ? ar[t + e] * x + cr[t + e] + bh : x;
+    }
+    return make_float2(v[0], v[1]);
+  }
+}
+
+// The first forward pass, radix R0 at Ns = 1, from device memory: packed
+// value p = j + r M/R0 is (x[2p], x[2p+1]), loaded only where t < L, a
+// group of butterflies at a time (their loads in flight together: GL
+// packed values, 8 in the sampling form, whose three loads a value hold
+// more registers, 16 in the plain one).
+template <int M, bool FUSED, bool VEC>
+__device__ __forceinline__ void r16_load_pass(
+    float2* z, const bf16* __restrict__ ur, const float* __restrict__ ar,
+    const float* __restrict__ cr, float bh, int L) {
+  constexpr int R = R16<M>::R0, NT = R16<M>::NT, NB = R16_HELD / R;
+  constexpr int S = M / R;
+  constexpr int GL = FUSED ? 8 : 16;
+  constexpr int QG = GL >= R ? GL / R : 1;     // butterflies a group
+  // L <= M: p >= M/2 lies past L, so each butterfly's upper half is zero
+  const bool lower = L <= M;
+#pragma unroll 1
+  for (int q0 = 0; q0 < NB; q0 += QG) {
+    const int tid = r16_tid();
+    float2 v[QG][R];
+#pragma unroll
+    for (int q = 0; q < QG; ++q)
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        v[q][r] = r16_in<FUSED, VEC>(ur, ar, cr, bh,
+                                     tid + (q0 + q) * NT + r * S, L);
+#pragma unroll
+    for (int q = 0; q < QG; ++q) {
+      if (lower) dft_lower<R>(v[q]);
+      else dft<R, false>(v[q]);
+      const int j = tid + (q0 + q) * NT;
+#pragma unroll
+      for (int r = 0; r < R; ++r) z[slot16(j * R + r)] = v[q][r];
+    }
+  }
+  __syncthreads();
+}
+
+// Z'[k] and Z'[M-k] in place of the packed spectrum's Z[k] = zk and
+// Z[M-k] = zm (one value at k = M/2, passed as both), w = W^k =
+// exp(-i pi k / M), kk and km the conv spectrum at k and M - k:
+//   E = (Z[k] + conj Z[M-k]) / 2,  O = (Z[k] - conj Z[M-k]) / 2i
+//   X[k] = E + W^k O,  X[M-k] = conj(E - W^k O),  Y = X * spectrum
+//   Z'[k]   = (Y[k] + conj Y[M-k]) + i W^-k (Y[k] - conj Y[M-k])
+//   Z'[M-k] = conj(Y[k] + conj Y[M-k]) + i W^k conj(Y[k] - conj Y[M-k])
+// so that the unnormalised inverse of Z' is n (y[2j] + i y[2j+1]).
+__device__ __forceinline__ void fold_pair(float2& zk, float2& zm, float2 w,
+                                          float2 kk, float2 km) {
+  const float2 e = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
+  const float2 dv = csub(zk, cconj(zm));
+  const float2 o = make_float2(0.5f * dv.y, -0.5f * dv.x);   // dv / 2i
+  const float2 wo = cmul(w, o);
+  const float2 yk = cmul(cadd(e, wo), kk);
+  const float2 ym = cmul(cconj(csub(e, wo)), km);
+  const float2 sa = cadd(yk, cconj(ym));
+  const float2 sb = csub(yk, cconj(ym));
+  zk = cadd(sa, cmuli(cmul(cconj(w), sb)));
+  zm = cadd(cconj(sa), cmuli(cmul(w, cconj(sb))));
+}
+
+// The merged pass: the last forward pass (radix 16 at Ns = M/16) on
+// butterflies j0 and j1, the fold of their bins with the spectrum (khat
+// + D, or conj(khat)), and the first inverse pass (radix 16 at Ns = 1).
+// The last forward pass writes Z[j + r M/16] to the slots it read, the
+// thread's own, so it runs in place with no barrier, and the fold reads
+// each pair (k, M - k) in natural order from the thread's own slots: the
+// thread holds one butterfly's 16 values, or a pair and two groups of
+// spectrum values, until the first inverse pass, whose 32 values cross
+// the barrier.  Thread t >= 1 folds k = t + r M/16 (r < 16), whose
+// partners are j1's; thread 0 folds k = r M/16 (0 < r <= 8; M/2 with
+// itself) and k = M/32 + r M/16 (r < 8), and the real DC and Nyquist
+// bins.
+template <int M>
+__device__ __forceinline__ void r16_middle(float2* z,
+                                           const float2* __restrict__ kr,
+                                           float dh, float ksign) {
+  constexpr int S = M / 16, T = M / 32, G = 4;
+  // the thread's r-th pair's k
+  const auto bin = [](int tid, int r) {
+    return tid != 0 ? tid + r * S : r < 8 ? (r + 1) * S : T + (r - 8) * S;
+  };
+  const auto spec = [&](int k) {
+    const float2 s = kr[k];
+    return make_float2(s.x + dh, ksign * s.y);
+  };
+  int tid = r16_tid();
+  // the spectrum of the first group of pairs, in flight during the DFTs
+  float2 kk[G], km[G];
+#pragma unroll
+  for (int i = 0; i < G; ++i) {
+    kk[i] = spec(bin(tid, i));
+    km[i] = spec(M - bin(tid, i));
+  }
+  // et = exp(-i pi t / M), the thread's one root; its square W_M^t is
+  // butterfly j0's twiddle, and W_M^(M/16 - t) = W_16 conj(W_M^t) j1's
+  // (for thread 0, W_M^(M/32) = W_32)
+  const float2 et = root<false>(tid, 2 * M);
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    tid = r16_tid();
+    const int j = b == 0 ? tid : tid == 0 ? T : S - tid;
+    const float2 w0 = cmul(et, et);
+    const float2 w1 = b == 0 ? w0
+                      : tid == 0 ? root32(1) : cmul(root32(2), cconj(w0));
+    float2 v[16];
+#pragma unroll
+    for (int r = 0; r < 16; ++r) v[r] = z[slot16(j + r * S)];
+    twiddle_all<16, 1>(&v, w1);
+    dft<16, false>(v);
+#pragma unroll
+    for (int r = 0; r < 16; ++r) z[slot16(j + r * S)] = v[r];
+  }
+  tid = r16_tid();
+  if (tid == 0) {
+    // the DC and Nyquist bins are real: irfft reads only their real parts
+    const float2 z0 = z[0];
+    const float y0 = (z0.x + z0.y) * (kr[0].x + dh);
+    const float yM = (z0.x - z0.y) * (kr[M].x + dh);
+    z[0] = make_float2(y0 + yM, y0 - yM);
+  }
+#pragma unroll
+  for (int g = 0; g < 16 / G; ++g) {
+    float2 nk[G], nm[G];
+    if (g + 1 < 16 / G) {                 // the next group's spectrum
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        const int k = bin(tid, G * (g + 1) + i);
+        nk[i] = spec(k);
+        nm[i] = spec(M - k);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      const int r = G * g + i, k = bin(tid, r);
+      float2* zk = z + slot16(k);
+      float2* zm = z + slot16(M - k);
+      float2 a = *zk, c = *zm;
+      // W^k: et W^(r M/16) for t >= 1; for thread 0 W^((r+1) M/16), or
+      // W^(M/32) W^((r-8) M/16)
+      const float2 w = tid != 0 ? cmul(et, root32(r))
+                       : r < 8 ? root32(r + 1)
+                       : cmul(make_float2(COS_PI32, -SIN_PI32), root32(r - 8));
+      fold_pair(a, c, w, kk[i], km[i]);
+      *zm = c;
+      *zk = a;                            // at k = M/2 the same slot
+    }
+    if (g + 1 < 16 / G) {
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        kk[i] = nk[i];
+        km[i] = nm[i];
+      }
+    }
+  }
+  tid = r16_tid();
+  const int j0 = tid, j1 = tid == 0 ? T : S - tid;
+  float2 A[16], Bv[16];
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    A[r] = z[slot16(j0 + r * S)];
+    Bv[r] = z[slot16(j1 + r * S)];
+  }
+  dft<16, true>(A);
+  dft<16, true>(Bv);
+  __syncthreads();
+  tid = r16_tid();
+  const int i0 = tid, i1 = tid == 0 ? T : S - tid;
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    z[slot16(i0 * 16 + r)] = A[r];
+    z[slot16(i1 * 16 + r)] = Bv[r];
+  }
+  __syncthreads();
+}
+
+// The last inverse pass, radix R0 at Ns = M/R0, to device memory: packed
+// output p = j + r M/R0 is n (y[2p] + i y[2p+1]); t = 2p, 2p + 1 stored
+// only where t < L, as gelu_fast(y) in the sampling form, as one 4-byte
+// store of the pair where L is even.  No barrier follows, so two
+// butterflies at a time.
+template <int M, bool FUSED>
+__device__ __forceinline__ void r16_store_pass(const float2* z,
+                                               bf16* __restrict__ orow,
+                                               int L) {
+  constexpr int R = R16<M>::R0, NT = R16<M>::NT, NB = R16_HELD / R;
+  constexpr int S = M / R, QS = NB >= 2 ? 2 : 1;
+  constexpr float inv_n = 1.0f / (float)(2 * M);
+  const bool pairs = !(L & 1) && !(reinterpret_cast<size_t>(orow) & 3);
+  // butterfly j = t + q M/32 twiddles by W_M^-j = W_M^-t W_32^-q: one
+  // root a thread, and a constant a butterfly
+  const float2 wt = root<true>(r16_tid(), M);
+#pragma unroll 1
+  for (int q0 = 0; q0 < NB; q0 += QS) {
+    const int tid = r16_tid();
+    float2 v[QS][R];
+#pragma unroll
+    for (int q = 0; q < QS; ++q) {
+      const int j = tid + (q0 + q) * NT;
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[q][r] = z[slot16(j + r * S)];
+      // W_32^-(q0 + q) = conj(exp(-i pi (q0 + q) / 16)), q0 + q < NB <= 16
+      twiddle_all<R, 1>(&v[q], cmul(wt, cconj(root32(q0 + q))));
+      dft<R, true>(v[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < QS; ++q)
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int t = 2 * (tid + (q0 + q) * NT + r * S);
+        float y0 = v[q][r].x * inv_n, y1 = v[q][r].y * inv_n;
+        if (FUSED) {
+          y0 = gelu_fast(y0);
+          y1 = gelu_fast(y1);
+        }
+        if (pairs) {
+          if (t < L)
+            *reinterpret_cast<__nv_bfloat162*>(orow + t) =
+                __floats2bfloat162_rn(y0, y1);
+        } else {
+          if (t < L) orow[t] = __float2bfloat16_rn(y0);
+          if (t + 1 < L) orow[t + 1] = __float2bfloat16_rn(y1);
+        }
+      }
+  }
+}
+
+// One block a (b, h) row, blocks in channel-major order (the B rows of a
+// channel read its spectrum back to back).  FUSED: the sampling form;
+// otherwise the training entry, with conj(khat) when conj != 0.
+template <int M, bool FUSED>
+__global__ void __launch_bounds__(R16<M>::NT, R16<M>::MIN_BLOCKS)
+fftconv_r16_kernel(const bf16* __restrict__ u, const float* __restrict__ a,
+                   const float* __restrict__ c,
+                   const float* __restrict__ bias,
+                   const float2* __restrict__ khat,
+                   const float* __restrict__ D, bf16* __restrict__ out,
+                   int B, int H, int L, int conj) {
+  extern __shared__ float2 z[];      // R16<M>::SLOTS slots, slot16(i)
+  const int h = blockIdx.x / B, b = blockIdx.x - h * B;
+  const size_t row = (size_t)b * H + h;
+  R16_STAMP(0);
+  const bf16* ur = u + row * L;
+  const float* ar = FUSED ? a + (size_t)b * L : a;
+  const float* cr = FUSED ? c + (size_t)b * L : c;
+  const float bh = FUSED ? bias[row] : 0.0f;
+  // pairs of the row as one 4-byte (u) and 8-byte (a, c) load each
+  const bool vec = !(L & 1) && !(reinterpret_cast<size_t>(u) & 3) &&
+                   !((reinterpret_cast<size_t>(a) |
+                      reinterpret_cast<size_t>(c)) & 7);
+  if (vec) r16_load_pass<M, FUSED, true>(z, ur, ar, cr, bh, L);
+  else r16_load_pass<M, FUSED, false>(z, ur, ar, cr, bh, L);
+  R16_STAMP(1);
+  r16_passes<M, 0, false>(z);
+  R16_STAMP(2);
+  r16_middle<M>(z, khat + (size_t)h * (M + 1), FUSED ? D[h] : 0.0f,
+                conj ? -1.0f : 1.0f);
+  R16_STAMP(3);
+  r16_passes<M, 0, true>(z);
+  R16_STAMP(4);
+  r16_store_pass<M, FUSED>(z, out + row * L, L);
+  R16_STAMP(5);
+}
+
 constexpr int MAX_PAIRS = 9;   // pairs (k, M-k), 0 <= k <= M/2, per thread
 
 // Kernel 5 (T float) and 5f (T bf16): one block per channel h; see the
@@ -311,6 +819,50 @@ int launch_dkf(const T* u, const T* g, void* out, int B, int H, int L, int n,
   return (int)cudaGetLastError();
 }
 
+// Kernel 1f's radix-16 route at M = n/2, with the plan's threads and
+// shared-memory bytes (ops/fftconv.py::radix16_plan), which must be this
+// instance's.
+template <int M, bool FUSED>
+int launch_r16_at(const bf16* u, const float* a, const float* c,
+                  const float* bias, const void* khat, const float* D,
+                  bf16* out, int B, int H, int L, int conj, int threads,
+                  int smem, cudaStream_t stream) {
+  if (threads != R16<M>::NT || smem != R16<M>::SLOTS * (int)sizeof(float2)
+      || L < 1 || L > 2 * M)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      fftconv_r16_kernel<M, FUSED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  fftconv_r16_kernel<M, FUSED><<<B * H, threads, smem, stream>>>(
+      u, a, c, bias, static_cast<const float2*>(khat), D, out, B, H, L,
+      conj);
+  return (int)cudaGetLastError();
+}
+
+template <bool FUSED>
+int launch_r16(const bf16* u, const float* a, const float* c,
+               const float* bias, const void* khat, const float* D,
+               bf16* out, int B, int H, int L, int n, int conj, int threads,
+               int smem, cudaStream_t stream) {
+  switch (n) {
+    case 2048:
+      return launch_r16_at<1024, FUSED>(u, a, c, bias, khat, D, out, B, H,
+                                        L, conj, threads, smem, stream);
+    case 8192:
+      return launch_r16_at<4096, FUSED>(u, a, c, bias, khat, D, out, B, H,
+                                        L, conj, threads, smem, stream);
+    case 16384:
+      return launch_r16_at<8192, FUSED>(u, a, c, bias, khat, D, out, B, H,
+                                        L, conj, threads, smem, stream);
+    case 32768:
+      return launch_r16_at<16384, FUSED>(u, a, c, bias, khat, D, out, B, H,
+                                         L, conj, threads, smem, stream);
+    default:
+      return (int)cudaErrorInvalidValue;   // no instance at this n
+  }
+}
+
 }  // namespace
 
 extern "C" int dwst_fftconv_ln_bias_gelu_d(
@@ -362,3 +914,33 @@ extern "C" int dwst_fftconv_dkf_bf16(const void* u, const void* g, void* out,
                     static_cast<const __nv_bfloat16*>(g), out, B, H, L, n,
                     stream);
 }
+
+// Kernel 1f on its radix-16 route: the arguments of
+// dwst_fftconv_ln_bias_gelu_d_bf16 and the route's plan.
+extern "C" int dwst_fftconv_r16_ln_bias_gelu_d_bf16(
+    const void* u, const float* a, const float* c, const float* bias,
+    const void* khat, const float* D, void* out, int B, int H, int L, int n,
+    int threads, int smem, cudaStream_t stream) {
+  return launch_r16<true>(static_cast<const bf16*>(u), a, c, bias, khat, D,
+                          static_cast<bf16*>(out), B, H, L, n, 0, threads,
+                          smem, stream);
+}
+
+// Kernel 1f's training entry on its radix-16 route: the arguments of
+// dwst_fftconv_bf16 and the route's plan.
+extern "C" int dwst_fftconv_r16_bf16(const void* u, const void* khat,
+                                     void* out, int B, int H, int L, int n,
+                                     int conj, int threads, int smem,
+                                     cudaStream_t stream) {
+  return launch_r16<false>(static_cast<const bf16*>(u), nullptr, nullptr,
+                           nullptr, khat, nullptr, static_cast<bf16*>(out),
+                           B, H, L, n, conj, threads, smem, stream);
+}
+
+#ifdef DWST_R16_STAMPS
+extern "C" int dwst_read_r16_stamps(void* dst, int stamps) {
+  if (stamps != R16_STAMPS) return (int)cudaErrorInvalidValue;
+  return (int)cudaMemcpyFromSymbol(dst, dwst_r16_stamps,
+                                   sizeof(dwst_r16_stamps));
+}
+#endif

@@ -37,6 +37,9 @@ _SIGNATURES = {
     # the same arguments, the activations bf16)
     "dwst_fftconv_ln_bias_gelu_d": [_P] * 7 + [_I] * 4 + [_P],
     "dwst_fftconv_ln_bias_gelu_d_bf16": [_P] * 7 + [_I] * 4 + [_P],
+    # kernel 1f's radix-16 route: the same arguments and its plan
+    # (threads, smem; ops/fftconv.py::conv_plan) before the stream
+    "dwst_fftconv_r16_ln_bias_gelu_d_bf16": [_P] * 7 + [_I] * 6 + [_P],
     # The channel mixers (kernels 2, 3, 6, 7 and their f forms) take P
     # (positions a block) and smem (its bytes of shared memory) from their
     # plans in ops/chmix.py, after their other ints.
@@ -61,6 +64,9 @@ _SIGNATURES = {
     # activations bf16)
     "dwst_fftconv": [_P] * 3 + [_I] * 5 + [_P],
     "dwst_fftconv_bf16": [_P] * 3 + [_I] * 5 + [_P],
+    # the same, kernel 1f's radix-16 route, with threads and smem before
+    # the stream
+    "dwst_fftconv_r16_bf16": [_P] * 3 + [_I] * 7 + [_P],
     # u, g, out, B, H, L, n, stream
     "dwst_fftconv_dkf": [_P] * 3 + [_I] * 4 + [_P],
     "dwst_fftconv_dkf_bf16": [_P] * 3 + [_I] * 4 + [_P],

@@ -22,9 +22,19 @@ Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 PyTorch version (the ``*_ref`` functions, torch.fft with explicit
 formulas) for CPU tensors; the plain versions are also the on-card
 comparison.
+
+Kernel 1f (both forms) has two routes, chosen by the FFT size alone
+(:func:`conv_plan`): the radix-16 kernel (``fftconv_r16_kernel``: the
+D-skip folded into the spectrum, the zero half of the input pruned, the
+spectrum split merged into the passes around it) at the sizes it has
+instances for, where it beat the Stockham kernel in turns on the H100;
+the Stockham kernel (``fftconv_kernel``, which the f32 forms take at
+every size) at the rest.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -85,6 +95,52 @@ def _fft_size_of(khat) -> int:
     return 2 * (khat.shape[-1] - 1)
 
 
+# Kernel 1f's radix-16 route (csrc/fftconv.cu::fftconv_r16_kernel): each
+# thread holds R16_HELD complex values between passes; the FFT sizes the
+# kernel has instances for: every size the bf16 paths launch 1f at (SC09's
+# three tiers, the vocoder's deepest, d_model 256's), at each of which it
+# beat the Stockham kernel in turns on the H100 (PERF.md, §6, kernel 1f's
+# radix-16 route)
+R16_HELD = 32
+RADIX16_SIZES = (2048, 8192, 16384, 32768)
+
+
+class ConvPlan(NamedTuple):
+    """How kernel 1f runs at one FFT size: the route (``"radix16"`` or
+    ``"stockham"``), and on the radix-16 route the radices of the forward
+    complex transform's passes (first to last; the inverse runs them in
+    the other order), the threads a block and its shared-memory bytes (0
+    each on the Stockham route, which sizes its own launch)."""
+    route: str
+    radices: tuple
+    threads: int
+    smem: int
+
+
+STOCKHAM = ConvPlan("stockham", (), 0, 0)
+
+
+def radix16_plan(n: int) -> ConvPlan:
+    """The radix-16 route at FFT size n (of :data:`RADIX16_SIZES`): the
+    M = n/2 point complex transform of the packed real row as one pass of
+    radix R0 = M / 16^P and P >= 2 passes of radix 16 (M = 16384: 4, 16,
+    16, 16), M / 32 threads (a thread takes 32 values a pass: two radix-16
+    butterflies, or 32 / R0 of the radix-R0 pass), and M + M/16 slots of
+    8 bytes (one pad slot per 16 values)."""
+    M = n // 2
+    P = (M.bit_length() - 2) // 4
+    return ConvPlan("radix16", (M >> (4 * P),) + (16,) * P, M // R16_HELD,
+                    8 * (M + M // 16))
+
+
+def conv_plan(n: int) -> ConvPlan:
+    """Kernel 1f's route at FFT size n, by n alone: the radix-16 kernel for
+    n in :data:`RADIX16_SIZES`, the Stockham kernel for every other n.
+    The kernel takes the plan as given: this is the one place it is
+    computed."""
+    return radix16_plan(n) if n in RADIX16_SIZES else STOCKHAM
+
+
 def _check_fft_size(n: int, L: int) -> None:
     if n & (n - 1) or n < max(32, L):
         raise ValueError(f"FFT size {n} must be a power of two >= "
@@ -136,9 +192,19 @@ fftconv_ln_bias_gelu_d.launches = 0
 
 def fftconv_ln_bias_gelu_d_bf16(u, a, c, bias, khat, D):
     """Kernel-1f wrapper (u bf16, the rest as kernel 1's): the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+    on the route :func:`conv_plan` gives its FFT size for CUDA tensors,
+    the plain version for CPU tensors."""
     if not u.is_cuda:
         return fftconv_ln_bias_gelu_d_ref(u, a, c, bias, khat, D)
+    out = launch_sampling_bf16(u, a, c, bias, khat, D,
+                               conv_plan(_fft_size_of(khat)))
+    fftconv_ln_bias_gelu_d_bf16.launches += 1
+    return out
+
+
+def launch_sampling_bf16(u, a, c, bias, khat, D, plan):
+    """Check kernel 1f's sampling arguments and launch it on ``plan``'s
+    route (uncounted; the wrapper counts)."""
     B, H, L = u.shape
     n = _fft_size_of(khat)
     _check_fft_size(n, L)
@@ -147,10 +213,13 @@ def fftconv_ln_bias_gelu_d_bf16(u, a, c, bias, khat, D):
         cuda_lib.check(t, shape, torch.float32)
     cuda_lib.check(khat, (H, n // 2 + 1), torch.complex64)
     out = torch.empty_like(u)
-    cuda_lib.launch("dwst_fftconv_ln_bias_gelu_d_bf16", u.data_ptr(),
-                    a.data_ptr(), c.data_ptr(), bias.data_ptr(),
-                    khat.data_ptr(), D.data_ptr(), out.data_ptr(), B, H, L, n)
-    fftconv_ln_bias_gelu_d_bf16.launches += 1
+    args = (u.data_ptr(), a.data_ptr(), c.data_ptr(), bias.data_ptr(),
+            khat.data_ptr(), D.data_ptr(), out.data_ptr(), B, H, L, n)
+    if plan.route == "radix16":
+        cuda_lib.launch("dwst_fftconv_r16_ln_bias_gelu_d_bf16", *args,
+                        plan.threads, plan.smem)
+    else:
+        cuda_lib.launch("dwst_fftconv_ln_bias_gelu_d_bf16", *args)
     return out
 
 
@@ -203,19 +272,32 @@ fftconv.launches = 0
 
 def fftconv_bf16(u, khat, conj=False):
     """Kernel 1f's training entry (u and the result bf16, khat complex64):
-    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    the CUDA kernel on the route :func:`conv_plan` gives its FFT size for
+    CUDA tensors, the plain version for CPU tensors."""
     if not u.is_cuda:
         return fftconv_ref(u, khat, conj)
-    return _launch_conv(fftconv_bf16, "dwst_fftconv_bf16", torch.bfloat16, u,
-                        khat, conj)
+    out = launch_conv_bf16(u, khat, conj, conv_plan(_fft_size_of(khat)))
+    fftconv_bf16.launches += 1
+    return out
 
 
 fftconv_bf16.launches = 0
 
 
-def _launch_conv(wrapper, entry, dtype, u, khat, conj):
+def launch_conv_bf16(u, khat, conj, plan):
+    """Check the arguments of kernel 1f's training entry and launch it on
+    ``plan``'s route (uncounted; the wrapper counts)."""
+    if plan.route == "radix16":
+        return _launch_conv(None, "dwst_fftconv_r16_bf16", torch.bfloat16, u,
+                            khat, conj, (plan.threads, plan.smem))
+    return _launch_conv(None, "dwst_fftconv_bf16", torch.bfloat16, u, khat,
+                        conj)
+
+
+def _launch_conv(wrapper, entry, dtype, u, khat, conj, plan_args=()):
     """Check the arguments of kernel 1's or 1f's training entry (u of
-    ``dtype``), launch ``entry`` and count it on ``wrapper``."""
+    ``dtype``), launch ``entry`` (with ``plan_args`` after its ints) and
+    count it on ``wrapper``, if one is given."""
     B, H, L = u.shape
     n = _fft_size_of(khat)
     _check_fft_size(n, L)
@@ -223,8 +305,9 @@ def _launch_conv(wrapper, entry, dtype, u, khat, conj):
     cuda_lib.check(khat, (H, n // 2 + 1), torch.complex64)
     out = torch.empty_like(u)
     cuda_lib.launch(entry, u.data_ptr(), khat.data_ptr(), out.data_ptr(), B,
-                    H, L, n, int(conj))
-    wrapper.launches += 1
+                    H, L, n, int(conj), *plan_args)
+    if wrapper is not None:
+        wrapper.launches += 1
     return out
 
 

@@ -7,7 +7,8 @@ loader, Adam at ``learning_rate`` (optionally ``s4_lr`` for the SSM
 tensors), resume from ``ckpt_iter`` ('max' | int | -1), loss logging every
 ``iters_per_logging``, a checkpoint (and, with ``generate.n_samples > 0``,
 samples from it) every ``iters_per_ckpt``, ``n_iters + 1`` iterations and
-an optional wall-clock budget ``max_seconds``.
+an optional wall-clock budget ``max_seconds``.  A failing in-training
+``generate()`` is printed and training goes on, as in JAX.
 
 Each step draws t and z from a generator seeded by (seed, iteration), so a
 resumed run draws what an uninterrupted one would, runs the model's
@@ -22,8 +23,9 @@ precision.  In-training samples are drawn at f32, as the JAX trainer's
 :func:`_refuse_unported`): bf16 WaveNet training, bf16 training of a
 mel-conditioned model or past FFT size 32768, f32 training on the card
 past FFT size 32768, dropout, mel conditioning at any precision,
-activation rematerialisation, data parallelism (``mesh.data`` > 1) and
-wandb.
+activation rematerialisation, data parallelism (``mesh.data`` > 1),
+wandb and, where samples are drawn, ``generate.ckpt_smooth``: each before
+the first step.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import math
 import os
 import sys
 import time
+import traceback
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -45,7 +48,7 @@ from ..models import check_supported, construct_model
 from ..ops import FUSED, Ops
 from ..utils.exp import local_directory
 from .checkpoint import load_checkpoint, load_into, save_checkpoint
-from .generate import generate, resolve_device
+from .generate import CKPT_SMOOTH_TODO, generate, resolve_device
 from .metrics import MetricsLogger
 
 SSM_PARAM_NAMES = frozenset(
@@ -87,9 +90,10 @@ def train_step(model, optimizer, audio: torch.Tensor, schedule,
 
 
 def _refuse_unported(model_cfg, compute_cfg, mesh_cfg, wandb_cfg,
-                     device_type) -> str:
+                     generate_cfg, device_type) -> str:
     """The compute precision, after refusing what is not ported on
-    ``device_type``."""
+    ``device_type``, the in-training ``generate()`` arguments among it
+    (checked only where samples are drawn, ``generate.n_samples > 0``)."""
     compute_cfg = compute_cfg or {}
     precision = compute_cfg.get("precision", "bf16")
     check_supported(model_cfg, precision, train=True,
@@ -107,6 +111,10 @@ def _refuse_unported(model_cfg, compute_cfg, mesh_cfg, wandb_cfg,
     if float(model_cfg.get("dropout", 0.0) or 0.0):
         raise NotImplementedError("S4 dropout is not ported: ROADMAP.md "
                                   "queue 1, item 7")
+    generate_cfg = generate_cfg or {}
+    if int(generate_cfg.get("n_samples") or 0) > 0 \
+            and generate_cfg.get("ckpt_smooth") is not None:
+        raise NotImplementedError(CKPT_SMOOTH_TODO)
     return precision
 
 
@@ -123,7 +131,7 @@ def train(diffusion_cfg, model_cfg, dataset_cfg, generate_cfg,
     pairs).  ``device`` defaults to the first card."""
     device = resolve_device(device)
     precision = _refuse_unported(model_cfg, compute_cfg, mesh_cfg, wandb_cfg,
-                                 device.type)
+                                 generate_cfg, device.type)
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 means f32
     torch.backends.cudnn.allow_tf32 = False
     local_path, ckpt_dir = local_directory(name, model_cfg, diffusion_cfg,
@@ -201,9 +209,14 @@ def train(diffusion_cfg, model_cfg, dataset_cfg, generate_cfg,
                     if int(gen_kwargs.get("n_samples") or 0) > 0:
                         # at generate()'s default precision, f32, as the
                         # JAX trainer samples whatever it trains at
-                        generate(diffusion_cfg, model_cfg, dataset_cfg,
-                                 ckpt_iter=n_iter, name=name, device=device,
-                                 **gen_kwargs)
+                        try:
+                            generate(diffusion_cfg, model_cfg, dataset_cfg,
+                                     ckpt_iter=n_iter, name=name,
+                                     device=device, **gen_kwargs)
+                        except Exception as e:  # sampling must not kill training
+                            traceback.print_exc()
+                            print(f"in-training generation failed: {e}",
+                                  flush=True)
 
                 n_iter += 1
                 if n_iter >= n_iters + 1:

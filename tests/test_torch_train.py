@@ -333,6 +333,85 @@ def test_bf16_train_samples_at_f32(tmp_path, monkeypatch):
         "precision"].default == "f32"
 
 
+def test_train_refuses_ckpt_smooth_before_the_first_step(tmp_path,
+                                                        monkeypatch):
+    """generate.ckpt_smooth with in-training samples is refused by name,
+    citing its ROADMAP item, before any training step runs; with no
+    samples drawn it is never read, and training runs."""
+    data = _write_corpus(str(tmp_path / "sc09"), n_per_label=1)
+    monkeypatch.chdir(tmp_path)
+    steps = []
+    real_step = port_train.train_step
+    monkeypatch.setattr(port_train, "train_step",
+                        lambda *a, **k: steps.append(1) or real_step(*a, **k))
+    gen_cfg = {"ckpt_iter": "max", "n_samples": 1, "batch_size": None,
+               "ckpt_smooth": 1, "mel_path": None, "mel_name": None}
+    kw = dict(n_iters=1, iters_per_ckpt=1, iters_per_logging=1,
+              batch_size_per_gpu=2, device="cpu", compute_cfg=F32)
+    with pytest.raises(NotImplementedError,
+                       match=r"generate\.ckpt_smooth.*queue 1, item 6"):
+        train(DIFFUSION, SMALL_CFG, data, gen_cfg, **kw)
+    assert steps == [] and not os.path.exists(local_directory(
+        None, SMALL_CFG, DIFFUSION, data, "checkpoint", makedirs=False)[1])
+    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+        port_generate.generate(DIFFUSION, SMALL_CFG, data, ckpt_smooth=1,
+                               device="cpu")
+    out = train(DIFFUSION, SMALL_CFG, data, dict(gen_cfg, n_samples=0), **kw)
+    assert out["step"] == 1 and len(steps) == 2
+
+
+def test_failing_in_training_generation_does_not_stop_training(
+        tmp_path, monkeypatch, capsys):
+    """An in-training generate() that raises is printed, as the JAX
+    trainer prints it, and training carries on to its last iteration and
+    checkpoint."""
+    data = _write_corpus(str(tmp_path / "sc09"), n_per_label=1)
+    monkeypatch.chdir(tmp_path)
+    calls = []
+
+    def failing(*a, **k):
+        calls.append(k["ckpt_iter"])
+        raise RuntimeError("sampler broke")
+    monkeypatch.setattr(port_train, "generate", failing)
+    gen_cfg = {"ckpt_iter": "max", "n_samples": 1, "batch_size": None,
+               "ckpt_smooth": None, "mel_path": None, "mel_name": None}
+    out = train(DIFFUSION, SMALL_CFG, data, gen_cfg, n_iters=2,
+                iters_per_ckpt=1, iters_per_logging=1, batch_size_per_gpu=2,
+                device="cpu", compute_cfg=F32)
+    assert calls == [1, 2] and out["step"] == 2
+    assert [i for i, _ in out["losses"]] == [0, 1, 2]
+    assert sorted(os.listdir(out["checkpoint_dir"])) == ["1.pkl", "2.pkl"]
+    printed = capsys.readouterr().out
+    assert printed.count("in-training generation failed: sampler broke") == 2
+
+
+def test_failing_fidelity_metrics_do_not_stop_generation(tmp_path,
+                                                         monkeypatch, capsys):
+    """A fidelity metric that raises is printed as skipped, as JAX's
+    generate() prints it, and generate() still returns and writes its
+    wavs."""
+    data = _write_corpus(str(tmp_path / "sc09"), n_per_label=1)
+    monkeypatch.chdir(tmp_path)
+    train(DIFFUSION, SMALL_CFG, data, None, n_iters=1, iters_per_ckpt=1,
+          iters_per_logging=1, batch_size_per_gpu=2, device="cpu",
+          compute_cfg=F32)
+
+    def broken(*a, **k):
+        raise ValueError("metric broke")
+    monkeypatch.setattr(port_generate, "write_fidelity", broken)
+    # an unconditional model sampled with a mel_name is not a path; give
+    # generate() a source wav by stubbing the condition instead
+    monkeypatch.setattr(port_generate, "resolve_condition",
+                        lambda *a: (None, 16000))
+    src = os.path.join(data["data_path"], "zero", "spk0_nohash_0.wav")
+    audio = port_generate.generate(
+        DIFFUSION, SMALL_CFG, dict(data, data_path=os.path.dirname(src)),
+        ckpt_iter=1, n_samples=1, mel_name="spk0_nohash_0", device="cpu")
+    assert audio.shape == (1, 1, 16000) and np.isfinite(audio).all()
+    assert "fidelity metrics skipped: ValueError: metric broke" in \
+        capsys.readouterr().out
+
+
 def test_entry_points_require_a_card_unless_asked_for_the_cpu(
         tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
