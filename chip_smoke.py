@@ -5,8 +5,10 @@
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
-1. build the CUDA kernels from ``diffwave_sashimi_torch/csrc`` and require
-   a CUDA device;
+1. build the CUDA kernels from ``diffwave_sashimi_torch/csrc`` (with
+   ``nvcc -Xptxas -v`` of ``csrc/cauchy.cu`` beside the build: the
+   registers and spills of each kernel-8 instance ``<K, PAIRED>``, none
+   of which may spill) and require a CUDA device;
 2. build the shipped SC09 model (d_model 128, n_layers 6, pool [4, 4],
    expand 2, ff 2, L 16000) from a seed, with a perturbed (normally
    zero-initialised) final conv, and save it as a checkpoint in a
@@ -59,7 +61,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    beside 7f its three channel products as three bf16 ``torch.matmul``
    calls and its two weight gradients as two f32 ones with TF32 off,
    beside 6f its two as two bf16 calls and its weight gradient as one f32
-   call (yardsticks, not library calls of their functions);
+   call (yardsticks, not library calls of their functions); at each tier
+   two kernel-8 calls must agree bit for bit, and kernel 8 and its plain
+   version are held against a complex128 evaluation of the same formulas
+   (kernel 8's error at most twice the plain version's), kernel 8 timed in
+   a CUDA graph; kernel 8 also at three shapes off the shipped ones (N
+   below 32, odd K, partial chunks) against its plain version;
 8. the training path: a seeded synthetic SC09 corpus (one-second 16 kHz
    ``*_nohash_*.wav`` clips, a few per digit folder) and the port's
    ``runtime.train.main`` with ``experiment=sc09 compute.precision=f32``
@@ -83,9 +90,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
     and a trace of two bf16 steps that reports kernel 7f's pass, 6f's
     pass, the weight-gradient contractions and the reductions apart from
     the rest (6f's pass must be its tensor-core kernel and its rounding
-    instance, with no kernel-6 instance) and kernel 1f's time apart;
+    instance, with no kernel-6 instance) and kernel 1f's and kernel 8's
+    times apart;
 11. a torch.profiler trace of two training steps with the kernels: device
-    time by kernel, the port's kernels' share, the device's idle share;
+    time by kernel, the port's kernels' share, kernel 8's time (its lanes
+    kernel and its reduce pass; both traces fail without the lanes
+    kernel), the device's idle share;
 12. the vocoder: the shipped LJSpeech model (``experiment=ljspeech``:
     d_model 128, n_layers 6, pool [4, 4], L 16000, mel_upsample [16, 16],
     hop 256 at 22050 Hz) from a seed, with a perturbed final conv, saved as
@@ -175,7 +185,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
     a seed, depth cut to n_layers 1: the channel mixers (kernels 2, 3, 6,
     7 and their f forms) against their plain versions at its H 1024 tier
     (B4, L 1000; the fp32 plans narrow P to 16, and to 8 for kernel 7, so
-    the tiles fit one block; 3f, 6f and 7f run at P 16), timed; at f32 and at
+    the tiles fit one block; 3f, 6f and 7f run at P 16), timed; kernel 8
+    at its three tiers as in phase 7 (vs plain, bit-equal, vs complex128
+    beside its plain version, timed in a CUDA graph); at f32 and at
     bf16 one eps forward and one training step through the kernels
     against the plain path, each with exact launch counts of every
     kernel, and the eps step timed.
@@ -194,6 +206,7 @@ import importlib
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -328,6 +341,9 @@ WNET_TRAIN_OVERRIDES = ["experiment=sc09_wavenet", "compute.precision=f32",
 # length with S != C (wavenet_small's widths)
 GATE_CASES = ((N_SAMPLES, 256, 256, 16000), (16, 256, 256, 16000),
               (N_SAMPLES, 128, 256, 8960))
+# kernel 8's cases (K, M, N, Lz) off the shipped shapes: N below a warp's
+# 32 lanes (the rest masked), odd K and K = 8, partial chunks and splits
+KERNEL_8_RAGGED = ((3, 24, 20, 777), (8, 40, 32, 1001), (1, 4, 7, 65))
 # kernel 11f's case beside them: C a multiple of 8 but not 16, S != C and a
 # ragged L, so its zero padding runs on the card
 GATE_BF16_RAGGED = (2, 24, 40, 333)
@@ -435,7 +451,9 @@ PORT_KERNELS = ("fftconv_kernel", "fftconv_r16_kernel",
                 "ln_ff_res_bwd_kernel", "ln_ff_res_bwd_tc_kernel",
                 "round_weights_t_kernel", "wgrad_kernel",
                 "reduce_splits_kernel", "reduce_long_kernel",
-                "cauchy_kernel", "cauchy_bwd_kernel", "cols_fwd_kernel",
+                "cauchy_kernel", "cauchy_bwd_lanes_kernel",
+                "cauchy_bwd_reduce_kernel",
+                "cols_fwd_kernel",
                 "rows_kernel", "cols_inv_kernel", "fftconv_cluster_kernel",
                 "gate_res_skip_kernel", "gate_res_skip_tc_kernel",
                 "round_gate_weights_kernel", "fftconv_int8_kernel")
@@ -480,10 +498,63 @@ KERNELS_7F = {"pass": ("ln_ff_res_bwd_tc_kernel",
 KERNELS_6F = {"pass": ("glu_res_bwd_tc_kernel", "round_weights_t_kernel<6>"),
               "contractions": ("wgrad_kernel",),
               "reduce": ("reduce_splits_kernel",)}
+# kernel 8's wrapper launches its lanes kernel and, where the plan splits a
+# channel's positions over blocks, the fixed-order sum of their partials;
+# traces report their sum as kernel 8's time.
+KERNELS_8 = ("cauchy_bwd_lanes_kernel", "cauchy_bwd_reduce_kernel")
+KERNEL_8_GROUPS = {"cauchy_bwd": lambda name: in_group(name, KERNELS_8)}
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def start_ptxas_kernel_8():
+    """Beside the build: ``nvcc -Xptxas -v`` of csrc/cauchy.cu (the
+    library's flags), into the build directory; read by
+    :func:`ptxas_kernel_8`."""
+    from diffwave_sashimi_torch.ops import cuda_lib
+    out = cuda_lib._BUILD / "ptxas"
+    out.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen(
+        [cuda_lib._nvcc(), *cuda_lib._FLAGS, "-Xptxas", "-v", "-c",
+         str(cuda_lib._CSRC / "cauchy.cu"), "-o", str(out / "cauchy.o")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def ptxas_kernel_8(proc):
+    """{kernel 8's __global__ instance ``name<K, PAIRED>``: registers a
+    thread, spill stores and loads in bytes} from ptxas's report; raise if
+    nvcc failed, an instance spills or a (K, PAIRED) of K 1-8 is
+    missing."""
+    text = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v of cauchy.cu failed:\n{text}")
+    lines, out = text.splitlines(), {}
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '\w*?(cauchy_bwd\w*?_kernel)"
+                      r"(?:ILi(\d+)ELb([01])E)?", line)
+        if not m:
+            continue
+        props = " ".join(lines[i + 1:i + 5])
+        regs = re.search(r"Used (\d+) registers", props)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", props)
+        name = m.group(1) + (
+            f"<{m.group(2)}, {'true' if m.group(3) == '1' else 'false'}>"
+            if m.group(2) else "")
+        out[name] = {"registers": int(regs.group(1)) if regs else None,
+                     "spill_stores": int(spill.group(1)) if spill else None,
+                     "spill_loads": int(spill.group(2)) if spill else None}
+    want = {f"cauchy_bwd_lanes_kernel<{K}, {p}>" for K in range(1, 9)
+            for p in ("true", "false")}
+    spills = [k for k, v in out.items()
+              if v["spill_stores"] != 0 or v["spill_loads"] != 0]
+    if want - out.keys() or spills:
+        raise RuntimeError(f"ptxas, kernel 8: instances missing "
+                           f"{sorted(want - out.keys())}, spilling or "
+                           f"unread {spills}:\n{text}")
+    return out
 
 
 def cuda_ms(fn, reps):
@@ -671,24 +742,19 @@ def tier_inputs(torch, blk, L, gen, dev):
     H = layer.D.shape[1]
     d = conv_inputs(torch, blk, L, B, gen, dev)
     ff1, ff2 = blk.ff["ff"][0], blk.ff["ff"][2]
-    kern = layer.kernel["kernel"]
-    C = torch.view_as_complex(kern.C)
-    Pm = kern._broadcast(torch.view_as_complex(kern.P), 1)
-    Bm = kern._broadcast(torch.view_as_complex(kern.B), 1)
-    v = torch.cat([Bm, Pm])[:, None] * torch.cat([C, Pm.conj()])[None]
-    wt = kern._w() * kern.log_dt.exp()[:, None]
+    v, wt, _ = layer.kernel["kernel"].cauchy_operands()
     z = torch.from_numpy(_fft_nodes(L)[1]).to(dev)
-    qa, qb, qc, qd = ops.cauchy._coefficients(v, wt)
-    K, N = qa.numel() // (H * qa.shape[-1]), qa.shape[-1]
+    quad = ops.cauchy.quad_operands(v, wt)
     d.update(lin=layer.output_linear[0], m2=blk.norm2.m, s2=blk.norm2.s,
              w1=ff1.effective_weight()[:, :, 0], b1=ff1.bias,
              w2=ff2.effective_weight()[:, :, 0], b2=ff2.bias,
              skip=torch.randn(B, H, L, device=dev, generator=gen),
              g=torch.randn(B, H, L, device=dev, generator=gen),
-             v=v, wt=wt, z=z, quad=(qa.reshape(K, H, N).contiguous(),
-                                    qb.reshape(K, H, N).contiguous(), qc, qd),
-             g_re=torch.randn(K, H, z.shape[0], device=dev, generator=gen),
-             g_im=torch.randn(K, H, z.shape[0], device=dev, generator=gen))
+             v=v, wt=wt, z=z, quad=quad,
+             g_re=torch.randn(*quad[0].shape[:2], z.shape[0], device=dev,
+                              generator=gen),
+             g_im=torch.randn(*quad[0].shape[:2], z.shape[0], device=dev,
+                              generator=gen))
     d["y"] = ops.fftconv_ln_bias_gelu_d_ref(d["x"], d["a"], d["c"],
                                             d["bias"], d["khat"], d["D"])
     return d
@@ -1101,6 +1167,125 @@ def check_training_kernels(torch, model, dev, results):
         for name, kfn, pfn in cases:
             compare(name, H, L, kfn, pfn, 3 if name == "cauchy_bwd" else 10,
                     results)
+        hold_kernel_8(torch, d, f"H{H}_L{L}", results)
+    hold_kernel_8_ragged(torch, dev)
+
+
+def hold_kernel_8_ragged(torch, dev):
+    """Phase 7's kernel 8 off the shipped shapes (KERNEL_8_RAGGED: N below
+    a warp's 32 lanes, odd K, partial chunks and splits), on seeded
+    coefficients over the eigenvalues of an S4 kernel of that width: vs
+    its plain version at TOL_KERNEL x max(1, max|plain|), two calls on the
+    views of one complex cotangent bit-equal, and equal to the call on
+    two planes."""
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.models.s4 import SSKernelNPLR, _fft_nodes
+    from diffwave_sashimi_torch.ops import cauchy
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    for K, M, N, Lz in KERNEL_8_RAGGED:
+        L = 2 * (Lz - 1)
+        kern = SSKernelNPLR(M, N=2 * N, l_max=L, channels=1,
+                            generator=torch.Generator().manual_seed(K))
+        with torch.no_grad():
+            w = kern.cauchy_operands()[1].to(dev)
+        v = torch.randn(K, M, N, dtype=torch.complex64, device=dev,
+                        generator=gen)
+        args = (*cauchy.quad_operands(v, w),
+                torch.from_numpy(_fft_nodes(L)[1]).to(dev))
+        G = torch.randn(K, M, Lz, dtype=torch.complex64, device=dev,
+                        generator=gen)
+        views = ops.cauchy_bwd(*args, G.real, G.imag)
+        again = ops.cauchy_bwd(*args, G.real, G.imag)
+        planes = ops.cauchy_bwd(*args, G.real.contiguous(),
+                                G.imag.contiguous())
+        ref = ops.cauchy_bwd_ref(*args, G.real, G.imag)
+        torch.cuda.synchronize()
+        errs = [max_err(o, r) for o, r in zip(views, ref)]
+        ok = all(e <= TOL_KERNEL * max(1.0, sc) for e, sc in errs) and all(
+            torch.equal(x, y) and torch.equal(x, p)
+            for x, y, p in zip(views, again, planes))
+        log(f"kernel cauchy_bwd K{K} M{M} N{N} Lz{Lz}: per output "
+            f"{', '.join(f'{e:.2e}/{sc:.2e}' for e, sc in errs)} of "
+            f"max|plain|, calls bit-equal on views and planes "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"kernel cauchy_bwd disagrees at K{K} M{M} "
+                                 f"N{N} Lz{Lz}")
+
+
+def hold_kernel_8(torch, d, tier, results):
+    """Kernel 8 at one tier beyond its bar, on the cotangent as the training
+    path hands it over (the real and imaginary views of one complex
+    tensor, read in place): two calls bit-equal, and equal to the call on
+    two planes that ``compare`` held against the plain version; it and its
+    plain version against a complex128 evaluation of the same formulas,
+    their errors side by side (each output's max |error| over max(1, its
+    max|complex128|), the worst of the four), the kernel's at most twice
+    the plain version's; its device time in a CUDA graph (``graph_ms``: at
+    the lower tiers a call's host time exceeds its kernels'); the plan it
+    ran."""
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.ops import cauchy, cuda_lib
+    G = torch.complex(d["g_re"], d["g_im"])
+    args = (*d["quad"], d["z"], G.real, G.imag)
+    one, two = ops.cauchy_bwd(*args), ops.cauchy_bwd(*args)
+    planes = ops.cauchy_bwd(*d["quad"], d["z"], d["g_re"], d["g_im"])
+    plain = ops.cauchy_bwd_ref(*args)
+    wide = ops.cauchy_bwd_ref(*(t.double() for t in d["quad"]),
+                              d["z"].to(torch.complex128),
+                              d["g_re"].double(), d["g_im"].double())
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) and torch.equal(x, p)
+               for x, y, p in zip(one, two, planes)):
+        raise AssertionError(f"kernel cauchy_bwd {tier}: two calls differ, "
+                             f"or the views' call differs from the planes'")
+
+    def worst(outs):
+        return max(float((o.double() - w).abs().max()) / max(
+            1.0, float(w.abs().max())) for o, w in zip(outs, wide))
+    err, plain_err = worst(one), worst(plain)
+    del wide, plain
+    dev_ms = graph_ms(torch, lambda: ops.cauchy_bwd(*args))
+    K, M, N = d["quad"][0].shape
+    plan = cauchy.cauchy_bwd_plan(K, M, N, d["z"].shape[0],
+                                  cuda_lib.sm_count(d["z"].device))
+    t = results["cauchy_bwd"]["tiers"][tier]
+    t.update(bit_equal=True, c128_err=err, plain_c128_err=plain_err,
+             device_ms=dev_ms, plan=list(plan))
+    ok = err <= 2 * plain_err and all(
+        bool(torch.isfinite(o).all()) for o in one)
+    log(f"kernel cauchy_bwd {tier}: two calls bit-equal, equal on planes; "
+        f"vs complex128 {err:.3e} (plain {plain_err:.3e}) "
+        f"{'ok' if ok else 'FAIL'}; in a CUDA graph {dev_ms:.4f} ms; plan "
+        f"{tuple(plan)}")
+    if not ok:
+        raise AssertionError(f"kernel cauchy_bwd {tier}: its error against "
+                             f"complex128 is past twice the plain "
+                             f"version's")
+
+
+def graph_ms(torch, fn, reps=10, replays=5):
+    """Device time per call of fn(), with no host time in it: ``reps``
+    calls captured in one CUDA graph (after 3 uncaptured ones), the graph
+    replayed ``replays`` times between CUDA events."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    torch.cuda.empty_cache()
+    return start.elapsed_time(end) / (reps * replays)
 
 
 def check_bf16_training_kernels(torch, model, dev, results):
@@ -1621,6 +1806,22 @@ def check_wide_mixers(torch, blk, L, dev, results):
             "ff_bwd_bf16": chmix.ff_bwd_bf16_plan(H, 2 * H)[0]}
 
 
+def check_wide_kernel_8(torch, model, dev, results):
+    """Phase 24's kernel 8: vs its plain version at every tier of the
+    d_model 256 model (its own S4 coefficients, seeded cotangents), timed;
+    beyond that as phase 7 holds it (``hold_kernel_8``)."""
+    from diffwave_sashimi_torch import ops
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    for H, L, blk in tier_blocks(model):
+        d = tier_inputs(torch, blk, L, gen, dev)
+        args = (*d["quad"], d["z"], d["g_re"], d["g_im"])
+        compare("cauchy_bwd", H, L, lambda: ops.cauchy_bwd(*args),
+                lambda: ops.cauchy_bwd_ref(*args), 3, results)
+        hold_kernel_8(torch, d, f"H{H}_L{L}", results)
+        del d, args
+        torch.cuda.empty_cache()
+
+
 def check_wide_model(torch, dev, launches, results):
     """Phase 24: the d_model 256 SaShiMi (D256_CFG) from a seed: the
     channel mixers at its H 1024 tier (``check_wide_mixers``); at f32 and
@@ -1642,6 +1843,7 @@ def check_wide_model(torch, dev, launches, results):
     with torch.no_grad():
         out = {f"plans_P_H{H}": check_wide_mixers(torch, blk, L, dev,
                                                   results)}
+        check_wide_kernel_8(torch, model, dev, results)
     log(f"phase d256 mixers: positions a block at H{H} "
         f"{json.dumps(out[f'plans_P_H{H}'])}")
     for label, m, want_eps, want_train in (
@@ -1701,7 +1903,7 @@ def check_wide_model(torch, dev, launches, results):
 
 def profile_train_step(torch, model, dev, steps=2):
     """Phase 11: a torch.profiler trace of ``steps`` training steps with the
-    kernels (see :func:`trace_steps`)."""
+    kernels (see :func:`trace_steps`), kernel 8's kernels summed apart."""
     from diffwave_sashimi_torch import ops
     from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
     from diffwave_sashimi_torch.runtime.train import make_optimizer, train_step
@@ -1709,9 +1911,21 @@ def profile_train_step(torch, model, dev, steps=2):
     audio = 0.3 * torch.randn(N_SAMPLES, 1, 16000, device=dev, generator=g)
     schedule = schedule_from_cfg(DIFFUSION_CFG)
     optim = make_optimizer(model, 2e-4)
-    return trace_steps(
+    trace = trace_steps(
         torch, lambda: train_step(model, optim, audio, schedule, g,
-                                  ops.FUSED), steps)
+                                  ops.FUSED), steps, groups=KERNEL_8_GROUPS)
+    check_kernel_8_trace(trace, "f32")
+    return trace
+
+
+def check_kernel_8_trace(trace, label):
+    """Raise unless a traced training step ran kernel 8's lanes kernel."""
+    if trace is None:
+        return
+    names = trace["port_kernels_by_name_ms_per_step"]
+    if not any(in_group(n, KERNELS_8[:1]) for n in names):
+        raise AssertionError(f"the {label} training step's kernel 8 is not "
+                             f"its lanes kernel: {sorted(names)}")
 
 
 def trace_steps(torch, step, steps=2, groups=None):
@@ -1839,7 +2053,9 @@ def time_train_step_bf16(torch, model, dev):
     groups["glu_res_bwd_bf16_pass"] = (
         lambda n: in_group(n, KERNELS_6F["pass"]))
     groups.update(KERNEL_1F_GROUPS)
+    groups.update(KERNEL_8_GROUPS)
     out["trace"] = trace_steps(torch, bf16_step, groups=groups)
+    check_kernel_8_trace(out["trace"], "bf16")
     if out["trace"] is not None:
         names = out["trace"]["port_kernels_by_name_ms_per_step"]
         if (any(in_group(n, ("glu_res_bwd_kernel",)) for n in names)
@@ -2600,11 +2816,15 @@ def main():
     from diffwave_sashimi_torch.runtime.generate import generate
     from diffwave_sashimi_torch.utils.exp import local_directory
 
-    # phase 1: build, then require the card
+    # phase 1: build (and ptxas's report on kernel 8 beside it), then
+    # require the card
     t0 = time.perf_counter()
+    ptxas = start_ptxas_kernel_8()
     cuda_lib.library()
+    ptxas = ptxas_kernel_8(ptxas)
     log(f"phase build: kernels built and loaded in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s; ptxas, kernel 8: "
+        f"{json.dumps(ptxas)}")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the smoke test runs on a GPU")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2845,13 +3065,17 @@ def main():
                     "cufft_conv_ms", "stockham_ms", "ms_vs_stockham",
                     "radix16_ms", "ms_vs_radix16", "conj_stockham_ms",
                     "conj_ms_vs_stockham", "conj_radix16_ms",
-                    "conj_ms_vs_radix16"):
+                    "conj_ms_vs_radix16", "c128_err", "plain_c128_err",
+                    "bit_equal", "plan", "device_ms"):
             # yardsticks and parts, not library calls
             if key in top:
                 entries[-1][key] = top[key]
         for key in ("vs_f64_max_rel", "max_active_clusters"):
             if key in r:
                 entries[-1][key] = r[key]
+        if name == "cauchy_bwd":
+            entries[-1]["global_kernels"] = list(KERNELS_8)
+            entries[-1]["ptxas"] = ptxas
         if name.startswith("fftconv_long"):     # the same function
             entries[-1]["also_replaces"] = (
                 "diffwave_sashimi_tpu/ops/fftconv_pallas.py:126")

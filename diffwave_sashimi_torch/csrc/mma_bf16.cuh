@@ -18,6 +18,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace dwst_mma {
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -40,23 +42,6 @@ __device__ __forceinline__ void unpack8(uint4 r, float f[8]) {
 __device__ __forceinline__ uint4 pack8(const float f[8]) {
   return make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
                     pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
-}
-
-// 16 bytes from device memory to shared memory, asynchronously (cp.async,
-// by L2 only); commit closes a group, wait<n> waits for all but the last n.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // Whether a pointer (null counts) is 16-byte aligned, for the launchers.

@@ -70,9 +70,9 @@ namespace {
 
 using bf = __nv_bfloat16;
 using dwst_mma::aligned16;
-using dwst_mma::cp_async16;
-using dwst_mma::cp_async_commit;
-using dwst_mma::cp_async_wait;
+using dwst_async::cp_async16;
+using dwst_async::cp_async_commit;
+using dwst_async::cp_async_wait;
 using dwst_mma::pack8;
 using dwst_mma::unpack8;
 

@@ -149,6 +149,16 @@ class SSKernelNPLR(nn.Module):
         w = torch.complex(-torch.exp(self.inv_w_real), self.w_imag)
         return self._broadcast(w, 0)
 
+    def cauchy_operands(self):
+        """The Cauchy sum's residues v ((1 + rank, channels + rank, H, N)),
+        its poles w dt (H, N), and dt (H)."""
+        C = torch.view_as_complex(self.C)
+        B = self._broadcast(torch.view_as_complex(self.B), 1)
+        P = self._broadcast(torch.view_as_complex(self.P), 1)
+        v = torch.cat([B, P])[:, None] * torch.cat([C, P.conj()])[None]
+        dt = torch.exp(self.log_dt)
+        return v, self._w() * dt[:, None], dt
+
     def forward(self, L: int, ops: Ops = FUSED) -> torch.Tensor:
         """The length-L convolution kernel, (channels, H, L)."""
         internal_L = self.l_max if (self.l_max and self.l_max > 0) else L
@@ -156,17 +166,9 @@ class SSKernelNPLR(nn.Module):
             raise NotImplementedError(
                 "kernels longer than the trained length need extend_C, "
                 "which is not ported yet")
-        dev = self.C.device
-        C = torch.view_as_complex(self.C)
-        dt = torch.exp(self.log_dt)
-        w = self._w()
-        B = self._broadcast(torch.view_as_complex(self.B), 1)
-        P = self._broadcast(torch.view_as_complex(self.P), 1)
-        Q = P.conj()
-        omega, z = _fft_nodes_on(internal_L, dev)
-
-        v = torch.cat([B, P])[:, None] * torch.cat([C, Q])[None]
-        r = ops.cauchy(v, z, w * dt[:, None]) * dt[None, None, :, None]
+        omega, z = _fft_nodes_on(internal_L, self.C.device)
+        v, w, dt = self.cauchy_operands()
+        r = ops.cauchy(v, z, w) * dt[None, None, :, None]
         k_f = woodbury(r, self.rank) * 2 / (1 + omega)    # + bilinear fix
         k = torch.fft.irfft(k_f, n=internal_L)[..., :L]   # (1, c, H, L)
         return k[0]

@@ -17,6 +17,10 @@ kernels.
 
 from __future__ import annotations
 
+import functools
+import math
+from typing import NamedTuple
+
 import torch
 
 from . import cuda_lib
@@ -26,6 +30,15 @@ def _coefficients(v, w):
     a = 2.0 * v.real
     b = -2.0 * (v.real * w.real + v.imag * w.imag)
     return a, b, -2.0 * w.real, w.real ** 2 + w.imag ** 2
+
+
+def quad_operands(v, w):
+    """The real operands (a, b, c, d) of kernels 4 and 8 for residues v
+    (..., H, N) and poles w (H, N): a and b as (K, H, N), c and d (H, N)."""
+    H, N = v.shape[-2:]
+    a, b, c, d = _coefficients(v, w)
+    K = a.numel() // (H * N)
+    return a.reshape(K, H, N), b.reshape(K, H, N), c, d
 
 
 def cauchy_quad_ref(a, b, c, d, z):
@@ -41,13 +54,8 @@ def cauchy_quad_ref(a, b, c, d, z):
 def cauchy_sym(v, z, w):
     """Plain version.  v: (..., H, N) complex64; z: (Lz,) complex64;
     w: (H, N) complex64.  Returns (..., H, Lz) complex64."""
-    comp = v.shape[:-2]
-    H, N = v.shape[-2:]
-    a, b, c, d = _coefficients(v, w)
-    K = a.numel() // (H * N)
-    out_re, out_im = cauchy_quad_ref(a.reshape(K, H, N), b.reshape(K, H, N),
-                                     c, d, z)
-    return torch.complex(out_re, out_im).reshape(*comp, H, z.shape[0])
+    out_re, out_im = cauchy_quad_ref(*quad_operands(v, w), z)
+    return torch.complex(out_re, out_im).reshape(*v.shape[:-1], z.shape[0])
 
 
 def cauchy_bwd_ref(a, b, c, d, z, g_re, g_im):
@@ -97,28 +105,108 @@ def cauchy_quad(a, b, c, d, z):
 cauchy_quad.launches = 0
 
 
+# Kernel 8's launch shape (csrc/cauchy.cu, the BWD_ constants): threads a
+# block (8 warps), positions a warp stages at a time, the blocks an SM
+# holds up to K 6 (its __launch_bounds__; one less past K 6, where 64
+# registers a thread would spill), the most components and the most states
+# (one warp's lanes), and the longest chain of positions a thread sums.
+BWD_THREADS, BWD_CHUNK, BWD_BLOCKS_PER_SM = 256, 16, 4
+BWD_KMAX, BWD_NMAX, BWD_CHAIN = 8, 32, 64
+
+
+class BwdPlan(NamedTuple):
+    span: int      # positions a block, whole chunks for each warp
+    splits: int    # blocks a channel; past 1, a reduce pass sums them
+    smem: int      # bytes of shared memory a block
+
+
+def cauchy_bwd_refusal(K, N):
+    """Why kernel 8 takes no (K, N), or None."""
+    if not 1 <= K <= BWD_KMAX:
+        return (f"kernel 8 (cauchy_bwd) has instances for K 1-{BWD_KMAX} "
+                f"components, not K {K}")
+    if not 1 <= N <= BWD_NMAX:
+        return (f"kernel 8 (cauchy_bwd) holds N 1-{BWD_NMAX} states, one a "
+                f"lane of a warp, not N {N}")
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def cauchy_bwd_plan(K, M, N, Lz, sms):
+    """Kernel 8's launch at (K, M, N, Lz) on a card of ``sms`` SMs, the one
+    place that sizes it: each of the M channels splits its Lz positions
+    into ``splits`` blocks of ``span``, a whole number of chunks of
+    BWD_CHUNK for each of a block's 8 warps.  A span is at most BWD_CHAIN
+    positions a warp, so a thread's serial chain stays short; it shrinks
+    further only where the grid would give an SM fewer than two blocks:
+    each block pays its coefficients' and first chunk's latency and its
+    warps' sum (``cauchy_bwd_parts.py`` times half the span).  Shared
+    memory: each warp's two stages (a chunk's z and z^2 in one float4 a
+    position, then g's K values in float4s), or the warps' 2K + 2 sums of
+    32 lanes, whichever is larger.  Raises ValueError on a (K, N) no
+    instance takes."""
+    why = cauchy_bwd_refusal(K, N)
+    if why:
+        raise ValueError(why)
+    warps = BWD_THREADS // 32
+    unit = warps * BWD_CHUNK
+    splits = max(math.ceil(Lz / (BWD_CHAIN * warps)), math.ceil(2 * sms / M))
+    span = unit * math.ceil(math.ceil(Lz / splits) / unit)
+    stages = warps * 2 * BWD_CHUNK * (1 + (K + 1) // 2) * 16
+    return BwdPlan(span, math.ceil(Lz / span),
+                   max(stages, warps * (2 * K + 2) * 32 * 4))
+
+
+def _g_layout(g_re, g_im):
+    """(g_re, g_im, element stride) for the kernel: the real and imaginary
+    views of one complex (K, M, Lz) tensor as they lie (stride 2; each
+    pair 8-byte aligned, as a complex64 tensor's are), two contiguous
+    planes as they are (stride 1), anything else copied into planes."""
+    K, M, Lz = g_re.shape
+    for gs in (2, 1):
+        want = (M * Lz * gs, Lz * gs, gs)
+        if g_re.stride() == want and g_im.stride() == want and (
+                gs == 1 or (g_im.data_ptr() == g_re.data_ptr() + 4
+                            and g_re.data_ptr() % 8 == 0)):
+            return g_re, g_im, gs
+    return g_re.contiguous(), g_im.contiguous(), 1
+
+
 def cauchy_bwd(a, b, c, d, z, g_re, g_im):
     """Kernel-8 wrapper: :func:`cauchy_bwd_ref` as the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    CUDA tensors (``cauchy_bwd_plan``'s launch; g read where it lies), the
+    plain version for CPU tensors.  Returns (da, db, dc, dd), views of one
+    (2K + 2, M, N) buffer."""
     if not a.is_cuda:
         return cauchy_bwd_ref(a, b, c, d, z, g_re, g_im)
     K, M, N = a.shape
     Lz = z.shape[0]
+    why = cauchy_bwd_refusal(K, N)
+    if why:
+        raise ValueError(why)
     a, b, c, d, z = _contiguous(a, b, c, d, z)
-    g = torch.complex(g_re, g_im).contiguous()
     for t, shape in ((a, (K, M, N)), (b, (K, M, N)), (c, (M, N)),
                      (d, (M, N))):
         cuda_lib.check(t, shape, torch.float32)
     cuda_lib.check(z, (Lz,), torch.complex64)
-    cuda_lib.check(g, (K, M, Lz), torch.complex64)
-    da, db = torch.empty_like(a), torch.empty_like(b)
-    dc, dd = torch.empty_like(c), torch.empty_like(d)
+    for g in (g_re, g_im):
+        if tuple(g.shape) != (K, M, Lz) or not g.is_cuda \
+                or g.dtype != torch.float32:
+            raise ValueError(f"kernel 8's cotangents must be CUDA float32 "
+                             f"tensors of shape {(K, M, Lz)}, got {g.dtype} "
+                             f"{tuple(g.shape)} on {g.device}")
+    g_re, g_im, gs = _g_layout(g_re, g_im)
+    plan = cauchy_bwd_plan(K, M, N, Lz, cuda_lib.sm_count(a.device))
+    out = torch.empty((2 * K + 2, M, N), dtype=torch.float32,
+                      device=a.device)
+    part = (torch.empty((plan.splits, 2 * K + 2, M, N), dtype=torch.float32,
+                        device=a.device) if plan.splits > 1 else out)
     cuda_lib.launch("dwst_cauchy_bwd", a.data_ptr(), b.data_ptr(),
-                    c.data_ptr(), d.data_ptr(), z.data_ptr(), g.data_ptr(),
-                    da.data_ptr(), db.data_ptr(), dc.data_ptr(),
-                    dd.data_ptr(), K, M, N, Lz)
+                    c.data_ptr(), d.data_ptr(), z.data_ptr(),
+                    g_re.data_ptr(), g_im.data_ptr(), gs, out.data_ptr(),
+                    part.data_ptr(), K, M, N, Lz, *plan)
     cauchy_bwd.launches += 1
-    return da, db, dc, dd
+    return out[:K], out[K:2 * K], out[2 * K], out[2 * K + 1]
 
 
 cauchy_bwd.launches = 0
@@ -148,10 +236,5 @@ def cauchy_sym_fused(v, z, w):
     """Same arguments and result as :func:`cauchy_sym`, through kernels 4
     and 8 (the plain versions for CPU tensors); differentiable in v and w
     through the coefficient construction."""
-    comp = v.shape[:-2]
-    H, N = v.shape[-2:]
-    a, b, c, d = _coefficients(v, w)
-    K = a.numel() // (H * N)
-    out_re, out_im = _CauchyQuad.apply(a.reshape(K, H, N), b.reshape(K, H, N),
-                                       c, d, z)
-    return torch.complex(out_re, out_im).reshape(*comp, H, z.shape[0])
+    out_re, out_im = _CauchyQuad.apply(*quad_operands(v, w), z)
+    return torch.complex(out_re, out_im).reshape(*v.shape[:-1], z.shape[0])

@@ -25,7 +25,8 @@ _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "diffwave_sashimi_torch"
 _SOURCES = ("fftconv.cu", "fftconv_long.cu", "fftconv_int8.cu", "chmix.cu",
             "cauchy.cu", "wavenet_gate.cu")
-_HEADERS = ("fft_stockham.cuh", "activations.cuh", "mma_bf16.cuh")
+_HEADERS = ("fft_stockham.cuh", "activations.cuh", "mma_bf16.cuh",
+            "cp_async.cuh")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC"]
 
@@ -81,8 +82,10 @@ _SIGNATURES = {
     # x, g, W1, b1, W2, m, s, dx, the same scratch and gradients, wb (the
     # bf16 weight scratch), B, H, F, L, tc, P, smem, stream (x, g, dx bf16)
     "dwst_ln_ff_res_bwd_bf16": [_P] * 18 + [_I] * 7 + [_P],
-    # a, b, c, d, z, g, da, db, dc, dd, K, M, N, Lz, stream
-    "dwst_cauchy_bwd": [_P] * 10 + [_I] * 4 + [_P],
+    # kernel 8: a, b, c, d, z, g_re, g_im, gstride, out, part, K, M, N,
+    # Lz, and its plan (span, splits, smem; ops/cauchy.py::
+    # cauchy_bwd_plan) before the stream
+    "dwst_cauchy_bwd": [_P] * 7 + [_I] + [_P] * 2 + [_I] * 7 + [_P],
     # u, a, c, bias, kp, D, scratch, out, B, H, L, n, stream
     "dwst_fftconv_long_ln_bias_gelu_d": [_P] * 8 + [_I] * 4 + [_P],
     # kernel 9f: the same arguments, u and out bf16, and its route's plan
