@@ -6,9 +6,10 @@
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. build the CUDA kernels from ``diffwave_sashimi_torch/csrc`` (with
-   ``nvcc -Xptxas -v`` of ``csrc/cauchy.cu`` beside the build: the
-   registers and spills of each kernel-8 instance ``<K, PAIRED>``, none
-   of which may spill) and require a CUDA device;
+   ``nvcc -Xptxas -v`` of ``csrc/cauchy.cu`` and ``csrc/fftconv.cu``
+   beside the build: the registers and spills of each kernel-8 instance
+   ``<K, PAIRED>`` and of each instance ``<M, Q, T>`` of kernels 5 and 5f's
+   radix-16 route, none of which may spill) and require a CUDA device;
 2. build the shipped SC09 model (d_model 128, n_layers 6, pool [4, 4],
    expand 2, ff 2, L 16000) from a seed, with a perturbed (normally
    zero-initialised) final conv, and save it as a checkpoint in a
@@ -66,7 +67,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
    version are held against a complex128 evaluation of the same formulas
    (kernel 8's error at most twice the plain version's), kernel 8 timed in
    a CUDA graph; kernel 8 also at three shapes off the shipped ones (N
-   below 32, odd K, partial chunks) against its plain version;
+   below 32, odd K, partial chunks) against its plain version; kernel 5
+   (and 5f in 7b, and at d_model 256's tiers in phase 24) also at B1, B3
+   and B6 (2, 6 and 8 transforms a channel, B6 in two chunks of 4 rows)
+   against its plain version, two calls bit-equal at every batch, its
+   relative L2 error against complex128 at most twice the plain
+   version's, the Stockham kernel held against the plain version, timed
+   in CUDA graphs in turns with the radix-16 route and at each chunk size
+   the plan could take (``rows_ms``), beside one ``torch.fft.rfft`` of u
+   and g stacked (``cufft_rfft_ms``, a yardstick);
 8. the training path: a seeded synthetic SC09 corpus (one-second 16 kHz
    ``*_nohash_*.wav`` clips, a few per digit folder) and the port's
    ``runtime.train.main`` with ``experiment=sc09 compute.precision=f32``
@@ -90,12 +99,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
     and a trace of two bf16 steps that reports kernel 7f's pass, 6f's
     pass, the weight-gradient contractions and the reductions apart from
     the rest (6f's pass must be its tensor-core kernel and its rounding
-    instance, with no kernel-6 instance) and kernel 1f's and kernel 8's
-    times apart;
+    instance, with no kernel-6 instance) and kernel 1f's, 5f's and kernel
+    8's times apart (5f must be its radix-16 kernel);
 11. a torch.profiler trace of two training steps with the kernels: device
     time by kernel, the port's kernels' share, kernel 8's time (its lanes
     kernel and its reduce pass; both traces fail without the lanes
-    kernel), the device's idle share;
+    kernel, and without kernel 5's or 5f's radix-16 kernel), the device's
+    idle share;
 12. the vocoder: the shipped LJSpeech model (``experiment=ljspeech``:
     d_model 128, n_layers 6, pool [4, 4], L 16000, mel_upsample [16, 16],
     hop 256 at 22050 Hz) from a seed, with a perturbed final conv, saved as
@@ -344,6 +354,9 @@ GATE_CASES = ((N_SAMPLES, 256, 256, 16000), (16, 256, 256, 16000),
 # kernel 8's cases (K, M, N, Lz) off the shipped shapes: N below a warp's
 # 32 lanes (the rest masked), odd K and K = 8, partial chunks and splits
 KERNEL_8_RAGGED = ((3, 24, 20, 777), (8, 40, 32, 1001), (1, 4, 7, 65))
+# kernels 5's and 5f's batches off the shipped B4: 2 and 6 transforms a
+# channel, and B6 in two chunks (4 rows, then 2)
+DKF_BATCHES = (1, 3, 6)
 # kernel 11f's case beside them: C a multiple of 8 but not 16, S != C and a
 # ragged L, so its zero padding runs on the card
 GATE_BF16_RAGGED = (2, 24, 40, 333)
@@ -444,7 +457,8 @@ VOC_BF16_LAUNCHES = {"fftconv_long_ln_bias_gelu_d_bf16": 24 * 50,
                      "cauchy": 30}
 # the port's kernels, by the name of their __global__ function
 PORT_KERNELS = ("fftconv_kernel", "fftconv_r16_kernel",
-                "fftconv_dkf_kernel", "glu_res_kernel",
+                "fftconv_dkf_kernel", "fftconv_dkf_r16_kernel",
+                "glu_res_kernel",
                 "glu_res_tc_kernel", "glu_res_bwd_kernel",
                 "glu_res_bwd_tc_kernel", "ln_ff_res_kernel",
                 "ln_ff_res_tc_kernel", "round_weights_kernel",
@@ -474,6 +488,14 @@ def is_1f(name):
 
 
 KERNEL_1F_GROUPS = {"fftconv_1f": is_1f}
+
+# kernels 5's and 5f's two routes (ops.fftconv.dkf_plan): the radix-16
+# kernel and the Stockham kernel; traces report 5f's sum
+def is_5f(name):
+    return name.startswith("fftconv_dkf") and "bfloat16" in name
+
+
+KERNEL_5F_GROUPS = {"fftconv_dkf_bf16": is_5f}
 
 # kernels 2f's and 3f's wrappers launch two of them a call: the weights'
 # rounding pass (an instance named for its kernel), then the tensor-core
@@ -509,51 +531,72 @@ def log(msg):
     print(msg, flush=True)
 
 
-def start_ptxas_kernel_8():
-    """Beside the build: ``nvcc -Xptxas -v`` of csrc/cauchy.cu (the
+# the sources whose instances phase 1 reads ptxas's report of
+PTXAS_SOURCES = ("cauchy.cu", "fftconv.cu")
+
+
+def start_ptxas():
+    """Beside the build: ``nvcc -Xptxas -v`` of each of PTXAS_SOURCES (the
     library's flags), into the build directory; read by
-    :func:`ptxas_kernel_8`."""
+    :func:`ptxas_report`."""
     from diffwave_sashimi_torch.ops import cuda_lib
     out = cuda_lib._BUILD / "ptxas"
     out.mkdir(parents=True, exist_ok=True)
-    return subprocess.Popen(
+    return [subprocess.Popen(
         [cuda_lib._nvcc(), *cuda_lib._FLAGS, "-Xptxas", "-v", "-c",
-         str(cuda_lib._CSRC / "cauchy.cu"), "-o", str(out / "cauchy.o")],
+         str(cuda_lib._CSRC / src), "-o", str(out / (src + ".o"))],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src in PTXAS_SOURCES]
 
 
-def ptxas_kernel_8(proc):
-    """{kernel 8's __global__ instance ``name<K, PAIRED>``: registers a
-    thread, spill stores and loads in bytes} from ptxas's report; raise if
-    nvcc failed, an instance spills or a (K, PAIRED) of K 1-8 is
-    missing."""
-    text = proc.communicate()[0]
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc -Xptxas -v of cauchy.cu failed:\n{text}")
-    lines, out = text.splitlines(), {}
-    for i, line in enumerate(lines):
-        m = re.search(r"Compiling entry function '\w*?(cauchy_bwd\w*?_kernel)"
-                      r"(?:ILi(\d+)ELb([01])E)?", line)
-        if not m:
-            continue
-        props = " ".join(lines[i + 1:i + 5])
-        regs = re.search(r"Used (\d+) registers", props)
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", props)
-        name = m.group(1) + (
-            f"<{m.group(2)}, {'true' if m.group(3) == '1' else 'false'}>"
-            if m.group(2) else "")
-        out[name] = {"registers": int(regs.group(1)) if regs else None,
-                     "spill_stores": int(spill.group(1)) if spill else None,
-                     "spill_loads": int(spill.group(2)) if spill else None}
+def ptxas_report(procs):
+    """{__global__ instance: registers a thread, spill stores and loads in
+    bytes} from ptxas's reports, of kernel 8 (``name<K, PAIRED>``) and of
+    kernels 5 and 5f's radix-16 route (``fftconv_dkf_r16_kernel<M, Q,
+    T>``); raise if nvcc failed, an instance spills or one of kernel 8's K
+    1-8 or of the route's M (n 2048 .. 32768, each with its transforms a
+    block Q) and T (float, bf16) is missing."""
+    fc = importlib.import_module("diffwave_sashimi_torch.ops.fftconv")
+    out = {}
+    for src, proc in zip(PTXAS_SOURCES, procs):
+        text = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v of {src} failed:\n{text}")
+        lines = text.splitlines()
+        for i, line in enumerate(lines):
+            k8 = re.search(r"Compiling entry function '\w*?(cauchy_bwd\w*?"
+                           r"_kernel)(?:ILi(\d+)ELb([01])E)?", line)
+            dkf = re.search(r"Compiling entry function '\w*?(fftconv_dkf_r16_"
+                            r"kernel)ILi(\d+)ELi(\d+)E(f|13__nv_bfloat16)E",
+                            line)
+            if k8:
+                name = k8.group(1) + (
+                    f"<{k8.group(2)}, "
+                    f"{'true' if k8.group(3) == '1' else 'false'}>"
+                    if k8.group(2) else "")
+            elif dkf:
+                name = (f"{dkf.group(1)}<{dkf.group(2)}, {dkf.group(3)}, "
+                        f"{'float' if dkf.group(4) == 'f' else 'bf16'}>")
+            else:
+                continue
+            props = " ".join(lines[i + 1:i + 5])
+            regs = re.search(r"Used (\d+) registers", props)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", props)
+            out[name] = {
+                "registers": int(regs.group(1)) if regs else None,
+                "spill_stores": int(spill.group(1)) if spill else None,
+                "spill_loads": int(spill.group(2)) if spill else None}
     want = {f"cauchy_bwd_lanes_kernel<{K}, {p}>" for K in range(1, 9)
-            for p in ("true", "false")}
+            for p in ("true", "false")} | {
+        f"fftconv_dkf_r16_kernel<{n // 2}, {q}, {t}>"
+        for n, q in fc.DKF_PER_BLOCK.items() for t in ("float", "bf16")}
     spills = [k for k, v in out.items()
               if v["spill_stores"] != 0 or v["spill_loads"] != 0]
     if want - out.keys() or spills:
-        raise RuntimeError(f"ptxas, kernel 8: instances missing "
+        raise RuntimeError(f"ptxas: instances missing "
                            f"{sorted(want - out.keys())}, spilling or "
-                           f"unread {spills}:\n{text}")
+                           f"unread {spills}:\n{out}")
     return out
 
 
@@ -1141,7 +1184,8 @@ def check_bf16_path(torch, model, dev):
 
 def check_training_kernels(torch, model, dev, results):
     """Phase 7: kernel 1's training entry (and its conjugate form) and
-    kernels 5-8 vs their plain versions at every tier, timed."""
+    kernels 5-8 vs their plain versions at every tier, timed (kernel 8
+    beyond that by ``hold_kernel_8``, kernel 5 by ``hold_dkf``)."""
     from diffwave_sashimi_torch import ops
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     for H, L, blk in tier_blocks(model):
@@ -1154,8 +1198,6 @@ def check_training_kernels(torch, model, dev, results):
              lambda: ops.fftconv_ref(x, khat)),
             ("fftconv", lambda: ops.fftconv(g, khat, conj=True),
              lambda: ops.fftconv_ref(g, khat, conj=True)),
-            ("fftconv_dkf", lambda: ops.fftconv_dkf(x, g, d["n"]),
-             lambda: ops.fftconv_dkf_ref(x, g, d["n"])),
             ("glu_res_bwd",
              lambda: ops.glu_res_bwd(d["y"], lin.weight, lin.bias, g),
              lambda: ops.glu_res_bwd_ref(d["y"], lin.weight, lin.bias, g)),
@@ -1168,6 +1210,7 @@ def check_training_kernels(torch, model, dev, results):
             compare(name, H, L, kfn, pfn, 3 if name == "cauchy_bwd" else 10,
                     results)
         hold_kernel_8(torch, d, f"H{H}_L{L}", results)
+        hold_dkf(torch, "fftconv_dkf", d, results)
     hold_kernel_8_ragged(torch, dev)
 
 
@@ -1288,9 +1331,106 @@ def graph_ms(torch, fn, reps=10, replays=5):
     return start.elapsed_time(end) / (reps * replays)
 
 
+def hold_dkf(torch, name, d, results):
+    """Kernel 5 (``name`` fftconv_dkf, u and g f32) or 5f
+    (fftconv_dkf_bf16, bf16) at one tier's shapes (d: ``tier_inputs``),
+    B4: vs its plain version (TOL_KERNEL or TOL_BF16 x max(1, max|plain|),
+    ``compare``), and at each of DKF_BATCHES on inputs of its own; two
+    calls bit-equal at every batch.  At B4 also: it, the plain version and
+    the Stockham kernel against a complex128 evaluation of the function on
+    the same inputs, as relative L2 errors (``c128_l2``: the kernel's at
+    most twice the plain version's, cuFFT's) and max |error| over
+    max|complex128| (``c128_err``); the Stockham kernel against the plain
+    version at the same bar; the radix-16 route and the Stockham kernel
+    timed in CUDA graphs in turns (``graph_ms``, ``stockham_graph_ms``;
+    graphs: at the lower tiers a call's host time exceeds its kernel's),
+    the radix-16 route at every chunk size up to the plan's (``rows_ms``,
+    each timed twice, in one order and then the other), and one
+    ``torch.fft.rfft`` of u and g stacked at the FFT size
+    (``cufft_rfft_ms``, a yardstick the port never calls)."""
+    from diffwave_sashimi_torch import ops
+    fc = importlib.import_module("diffwave_sashimi_torch.ops.fftconv")
+    bf = name.endswith("_bf16")
+    dtype = torch.bfloat16 if bf else torch.float32
+    tol, bpe = (TOL_BF16, 2) if bf else (TOL_KERNEL, 4)
+    x, g, n = d["x"].to(dtype), d["g"].to(dtype), d["n"]
+    B, H, L = x.shape
+    tier = f"H{H}_L{L}"
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 28 + H)
+    for b, (xb, gb) in [(B, (x, g))] + [
+            (b, tuple(torch.randn(b, H, L, device=x.device, generator=gen)
+                      .to(dtype) for _ in range(2))) for b in DKF_BATCHES]:
+        compare(name, H, L, lambda: ops.fftconv_dkf(xb, gb, n),
+                lambda: ops.fftconv_dkf_ref(xb, gb, n), 10 if b == B else 3,
+                results, B=b, n=n, tier=tier if b == B else f"B{b}_{tier}",
+                tol=tol, bpe=bpe)
+        plan = fc.dkf_plan(n, b)
+        one, two = fc.launch_dkf(xb, gb, n, plan), fc.launch_dkf(xb, gb, n,
+                                                                 plan)
+        torch.cuda.synchronize()
+        if not torch.equal(one, two):
+            raise AssertionError(f"kernel {name} B{b} {tier}: two calls "
+                                 f"differ")
+    del xb, gb
+    plan = fc.dkf_plan(n, B)
+    one = fc.launch_dkf(x, g, n, plan)
+    old = fc.launch_dkf(x, g, n, fc.DKF_STOCKHAM)
+    plain = ops.fftconv_dkf_ref(x, g, n)
+    wide = ops.fftconv_dkf_ref(x.double(), g.double(), n)
+    torch.cuda.synchronize()
+
+    def l2(out):
+        return float((out.to(torch.complex128) - wide).abs().norm()
+                     / wide.abs().norm())
+
+    def rel_max(out):
+        return float((out.to(torch.complex128) - wide).abs().max()
+                     / wide.abs().max())
+    old_err, scale = max_err(old, plain)
+    errs = {"c128_l2": l2(one), "plain_c128_l2": l2(plain),
+            "stockham_c128_l2": l2(old), "c128_err": rel_max(one),
+            "plain_c128_err": rel_max(plain), "stockham_max_abs_err": old_err}
+    del wide, plain, old
+    ok = errs["c128_l2"] <= 2 * errs["plain_c128_l2"] and \
+        old_err <= tol * max(1.0, scale)
+
+    def launch(p):
+        return lambda: fc.launch_dkf(x, g, n, p)
+    o1 = graph_ms(torch, launch(fc.DKF_STOCKHAM))
+    k1, k2 = graph_ms(torch, launch(plan)), graph_ms(torch, launch(plan))
+    o2 = graph_ms(torch, launch(fc.DKF_STOCKHAM))
+    rows = range(1, plan.rows + 1)
+    fwd = [graph_ms(torch, launch(fc.dkf_plan(n, B, r))) for r in rows]
+    back = [graph_ms(torch, launch(fc.dkf_plan(n, B, r)))
+            for r in reversed(rows)][::-1]
+    cufft = cuda_ms(lambda: torch.fft.rfft(torch.stack([x, g]).float(),
+                                           n=n), 10)
+    t = results[name]["tiers"][tier]
+    t.update(errs, bit_equal=True, graph_ms=(k1 + k2) / 2,
+             stockham_graph_ms=(o1 + o2) / 2, plan=list(plan),
+             rows_ms={str(r): (a + b) / 2 for r, a, b in zip(rows, fwd,
+                                                             back)},
+             cufft_rfft_ms=cufft)
+    log(f"kernel {name} {tier}: two calls bit-equal at B{B} and "
+        f"{DKF_BATCHES}; vs complex128 L2 {errs['c128_l2']:.3e} (plain "
+        f"{errs['plain_c128_l2']:.3e}, Stockham "
+        f"{errs['stockham_c128_l2']:.3e}), max {errs['c128_err']:.3e} "
+        f"(plain {errs['plain_c128_err']:.3e}) {'ok' if ok else 'FAIL'}; "
+        f"in CUDA graphs, in turns: radix-16 route {t['graph_ms']:.4f} ms "
+        f"vs Stockham {t['stockham_graph_ms']:.4f} ms (its max_abs_err "
+        f"{old_err:.3e} of {scale:.3e}); by rows a chunk "
+        f"{json.dumps(t['rows_ms'])}; cuFFT rfft of u and g "
+        f"{cufft:.4f} ms; plan {tuple(plan)}")
+    if not ok:
+        raise AssertionError(f"kernel {name} {tier}: its L2 error against "
+                             f"complex128 is past twice the plain "
+                             f"version's, or the Stockham kernel disagrees")
+
+
 def check_bf16_training_kernels(torch, model, dev, results):
     """Phase 7b: the bf16 training forms (kernel 1f's training entry and
-    its conjugate form, both on both routes, 5f, 6f, 7f) vs their plain
+    its conjugate form, both on both routes, 5f (``hold_dkf``), 6f, 7f) vs
+    their plain
     versions at every tier (B4, bf16 activations), timed; 7f also at F =
     H; 6f and 7f, at H 128
     and 256, on their element-wise paths (B2, L 1001), and at every tier
@@ -1310,8 +1450,6 @@ def check_bf16_training_kernels(torch, model, dev, results):
              lambda: ops.fftconv_ref(x, khat)),
             ("fftconv_bf16", lambda: ops.fftconv_bf16(g, khat, conj=True),
              lambda: ops.fftconv_ref(g, khat, conj=True)),
-            ("fftconv_dkf_bf16", lambda: ops.fftconv_dkf_bf16(x, g, d["n"]),
-             lambda: ops.fftconv_dkf_ref(x, g, d["n"])),
             ("glu_res_bwd_bf16",
              lambda: ops.glu_res_bwd_bf16(y, lin.weight, lin.bias, g),
              lambda: ops.glu_res_bwd_ref(y, lin.weight, lin.bias, g)),
@@ -1320,6 +1458,7 @@ def check_bf16_training_kernels(torch, model, dev, results):
         ]
         for name, kfn, pfn in cases:
             compare(name, H, L, kfn, pfn, 10, results, tol=TOL_BF16, bpe=2)
+        hold_dkf(torch, "fftconv_dkf_bf16", d, results)
         # 1f's training entry and its conjugate form on both routes
         cufft_ms = cufft_conv_ms(torch, d["x"], khat, L)
         for key, inp, conj in (("", x, False), ("conj_", g, True)):
@@ -1807,9 +1946,10 @@ def check_wide_mixers(torch, blk, L, dev, results):
 
 
 def check_wide_kernel_8(torch, model, dev, results):
-    """Phase 24's kernel 8: vs its plain version at every tier of the
-    d_model 256 model (its own S4 coefficients, seeded cotangents), timed;
-    beyond that as phase 7 holds it (``hold_kernel_8``)."""
+    """Phase 24's kernels 8 and 5f: vs their plain versions at every tier
+    of the d_model 256 model (its own S4 coefficients, seeded inputs and
+    cotangents), timed; beyond that as phases 7 and 7b hold them
+    (``hold_kernel_8``, ``hold_dkf``)."""
     from diffwave_sashimi_torch import ops
     gen = torch.Generator(device=dev).manual_seed(SEED + 26)
     for H, L, blk in tier_blocks(model):
@@ -1818,6 +1958,7 @@ def check_wide_kernel_8(torch, model, dev, results):
         compare("cauchy_bwd", H, L, lambda: ops.cauchy_bwd(*args),
                 lambda: ops.cauchy_bwd_ref(*args), 3, results)
         hold_kernel_8(torch, d, f"H{H}_L{L}", results)
+        hold_dkf(torch, "fftconv_dkf_bf16", d, results)
         del d, args
         torch.cuda.empty_cache()
 
@@ -1919,13 +2060,18 @@ def profile_train_step(torch, model, dev, steps=2):
 
 
 def check_kernel_8_trace(trace, label):
-    """Raise unless a traced training step ran kernel 8's lanes kernel."""
+    """Raise unless a traced training step ran kernel 8's lanes kernel and
+    kernel 5's (f32) or 5f's (bf16) radix-16 kernel."""
     if trace is None:
         return
     names = trace["port_kernels_by_name_ms_per_step"]
     if not any(in_group(n, KERNELS_8[:1]) for n in names):
         raise AssertionError(f"the {label} training step's kernel 8 is not "
                              f"its lanes kernel: {sorted(names)}")
+    if not any(n.startswith("fftconv_dkf_r16_kernel")
+               and ("bfloat16" in n) == (label == "bf16") for n in names):
+        raise AssertionError(f"the {label} training step's kernel 5 is not "
+                             f"its radix-16 kernel: {sorted(names)}")
 
 
 def trace_steps(torch, step, steps=2, groups=None):
@@ -2053,6 +2199,7 @@ def time_train_step_bf16(torch, model, dev):
     groups["glu_res_bwd_bf16_pass"] = (
         lambda n: in_group(n, KERNELS_6F["pass"]))
     groups.update(KERNEL_1F_GROUPS)
+    groups.update(KERNEL_5F_GROUPS)
     groups.update(KERNEL_8_GROUPS)
     out["trace"] = trace_steps(torch, bf16_step, groups=groups)
     check_kernel_8_trace(out["trace"], "bf16")
@@ -2069,6 +2216,12 @@ def time_train_step_bf16(torch, model, dev):
     log("trace: bf16 training step with the kernels: " + (
         "no device time in the profiler's events (not measured)"
         if out["trace"] is None else json.dumps(out["trace"])))
+    if out["trace"] is not None:
+        tr = out["trace"]
+        ms = tr["groups_ms_per_step"]["fftconv_dkf_bf16"]
+        log(f"trace: kernel 5f {ms:.3f} ms of "
+            f"{tr['device_busy_ms_per_step']:.3f} busy ms a bf16 training "
+            f"step")
     return out
 
 
@@ -2816,15 +2969,15 @@ def main():
     from diffwave_sashimi_torch.runtime.generate import generate
     from diffwave_sashimi_torch.utils.exp import local_directory
 
-    # phase 1: build (and ptxas's report on kernel 8 beside it), then
-    # require the card
+    # phase 1: build (and ptxas's report on kernels 8, 5 and 5f beside
+    # it), then require the card
     t0 = time.perf_counter()
-    ptxas = start_ptxas_kernel_8()
+    ptxas = start_ptxas()
     cuda_lib.library()
-    ptxas = ptxas_kernel_8(ptxas)
+    ptxas = ptxas_report(ptxas)
     log(f"phase build: kernels built and loaded in "
-        f"{time.perf_counter() - t0:.1f} s; ptxas, kernel 8: "
-        f"{json.dumps(ptxas)}")
+        f"{time.perf_counter() - t0:.1f} s; ptxas, kernels 8, 5 and 5f's "
+        f"radix-16 route: {json.dumps(ptxas)}")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the smoke test runs on a GPU")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3066,7 +3219,10 @@ def main():
                     "radix16_ms", "ms_vs_radix16", "conj_stockham_ms",
                     "conj_ms_vs_stockham", "conj_radix16_ms",
                     "conj_ms_vs_radix16", "c128_err", "plain_c128_err",
-                    "bit_equal", "plan", "device_ms"):
+                    "bit_equal", "plan", "device_ms", "c128_l2",
+                    "plain_c128_l2", "stockham_c128_l2", "graph_ms",
+                    "stockham_graph_ms", "rows_ms", "cufft_rfft_ms",
+                    "stockham_max_abs_err"):
             # yardsticks and parts, not library calls
             if key in top:
                 entries[-1][key] = top[key]
@@ -3075,7 +3231,11 @@ def main():
                 entries[-1][key] = r[key]
         if name == "cauchy_bwd":
             entries[-1]["global_kernels"] = list(KERNELS_8)
-            entries[-1]["ptxas"] = ptxas
+            entries[-1]["ptxas"] = {k: v for k, v in ptxas.items()
+                                    if k.startswith("cauchy")}
+        if name.startswith("fftconv_dkf"):
+            entries[-1]["ptxas"] = {k: v for k, v in ptxas.items()
+                                    if k.startswith("fftconv_dkf")}
         if name.startswith("fftconv_long"):     # the same function
             entries[-1]["also_replaces"] = (
                 "diffwave_sashimi_tpu/ops/fftconv_pallas.py:126")

@@ -1,6 +1,7 @@
-// Complex helpers and the Stockham autosort FFT in shared memory, shared by
-// the S4 FFT convolutions (fftconv.cu: one row per block; fftconv_long.cu:
-// several rows or columns per block, the four-step passes).
+// Complex helpers, access to a cluster's shared memory, and the Stockham
+// autosort FFT in shared memory, shared by the S4 FFT convolutions
+// (fftconv.cu: one row per block; fftconv_long.cu: several rows or columns
+// per block, the four-step passes).
 //
 // The complex FFTs are Stockham transforms (natural order in and out) in
 // radix-8 passes with a radix-4 or radix-2 last pass, each thread holding
@@ -113,6 +114,33 @@ __device__ __forceinline__ void dft(float2* v) {
   else if (R == 8) dft8<INV>(v);
   else if (R == 4) dft4<INV>(v);
   else dft2<INV>(v);
+}
+
+// The shared::cluster address of z's slot in the block of rank `rank` of
+// the thread-block cluster, a store to it and a load from it: asm
+// volatile, so the stores go out in program order and none waits for
+// another; the load also clobbers memory, so it stays after the cluster
+// barrier that makes the peer's values visible.
+__device__ __forceinline__ unsigned cluster_addr(const float2* z, int rank) {
+  unsigned out;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;"
+      : "=r"(out)
+      : "r"((unsigned)__cvta_generic_to_shared(z)), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void st_cluster(unsigned addr, float2 v) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};" ::"r"(addr),
+               "f"(v.x), "f"(v.y));
+}
+
+__device__ __forceinline__ float2 ld_cluster(unsigned addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // Shared-memory slot of complex element i: one pad slot per 32 elements.

@@ -42,12 +42,16 @@
 // adjoint of irfft).  Kernel 5f (fast=True) is the same code reading bf16
 // u and g; the transforms, the sum and the output stay f32 (the TPU
 // kernel's bf16 DFT operands cost it ~2e-3 of the result; this kernel
-// matches JAX's f32 function of the same inputs instead).  One block per
-// channel h walks the batch: it
-// transforms u_b, keeps each pair's half-spectrum values in the thread's
-// own local array, transforms g_b, and accumulates the products in
-// registers of the thread that owns the pair, so the (B, H, n/2+1) spectra
-// never reach device memory and the sum over b has a fixed order.
+// matches JAX's f32 function of the same inputs instead).  Both have two
+// routes, chosen by ops/fftconv.py::dkf_plan: the radix-16 route
+// (fftconv_dkf_r16_kernel, below: a thread-block cluster a channel, the
+// batch's transforms in parallel) at the sizes it has instances for, and
+// at every other size the Stockham kernel, where one block per channel h
+// walks the batch: it transforms u_b, keeps each pair's half-spectrum
+// values in the thread's own local array, transforms g_b, and accumulates
+// the products in registers of the thread that owns the pair.  On either
+// route the (B, H, n/2+1) spectra never reach device memory and the sum
+// over b has a fixed order.
 //
 // What bounds it on the H100: the transform is ~5 n log2(n) flops per row
 // against 8 bytes of input and output per sample, so the passes over the
@@ -65,6 +69,7 @@
 // pre-twiddle are one pairwise (k, M-k) pass.  The irfft's 1/n is applied
 // in the epilogue.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "activations.cuh"
@@ -86,6 +91,7 @@ __device__ long long dwst_r16_stamps[4096][R16_STAMPS];
 
 namespace {
 
+namespace cg = cooperative_groups;
 using namespace dwst_fft;
 using namespace dwst_act;
 
@@ -301,6 +307,14 @@ struct R16 {
   static_assert(P >= 2 && R0 >= 2 && R0 <= 16, "M = R0 16^P");
 };
 
+// The thread's index in its transform, where a block holds Q transforms of
+// R16<M>::NT threads each (kernels 5 and 5f; Q = 1 everywhere else).
+template <int M, int Q>
+__device__ __forceinline__ int r16_lane() {
+  if constexpr (Q == 1) return r16_tid();
+  else return r16_tid() & (R16<M>::NT - 1);
+}
+
 // exp(-+2 pi i m / N) for 0 <= m < N, N a power of two (exact argument).
 template <bool INV>
 __device__ __forceinline__ float2 root(int m, int N) {
@@ -345,6 +359,44 @@ __device__ __forceinline__ void twiddle_all(float2 (*v)[R], float2 w1) {
   }
 }
 
+// A radix-16 butterfly's twiddles W^(k r), r < 16, W = exp(-+2 pi i / N),
+// as the products of at most two of p[s-1] = W^(s k) and q[s-1] = W^(4 s
+// k), s = 1 .. 3, each of those one or two once-rounded roots: a power
+// carries a few roundings, where twiddle_all's running product carries r
+// roundings of W^k.  Kernels 5 and 5f take this form: their error against
+// complex128 is held to twice the plain version's (cuFFT's), and running
+// products to W^(15 k) in every pass cost about 4x (a plain torch model of
+// the schedule, tests/test_torch_dkf_tc.py).
+struct Pow16 {
+  float2 p[3], q[3];
+};
+
+// From the roots a[i] = W^(2^i k), i < 4.
+__device__ __forceinline__ Pow16 pow16(float2 a0, float2 a1, float2 a2,
+                                       float2 a3) {
+  return Pow16{{a0, a1, cmul(a1, a0)}, {a2, a3, cmul(a3, a2)}};
+}
+
+// From k and N, 8 k < N (sincospif of exact arguments).
+template <bool INV>
+__device__ __forceinline__ Pow16 pow16(int k, int N) {
+  return pow16(root<INV>(k, N), root<INV>(2 * k, N), root<INV>(4 * k, N),
+               root<INV>(8 * k, N));
+}
+
+// v[b][r] *= W^(k r) for r = 1 .. 15 and each of NB butterflies b.
+template <int NB>
+__device__ __forceinline__ void twiddle16(float2 (*v)[16], const Pow16& w) {
+#pragma unroll
+  for (int r = 1; r < 16; ++r) {
+    const int s = r & 3, j = r >> 2;
+    const float2 t = j == 0 ? w.p[s - 1]
+                     : s == 0 ? w.q[j - 1] : cmul(w.q[j - 1], w.p[s - 1]);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) v[b][r] = cmul(v[b][r], t);
+  }
+}
+
 // The forward DFT of R values whose upper half is zero:
 // X[2m] = DFT_{R/2}(x)[m], X[2m+1] = DFT_{R/2}(x_r W_R^r)[m].
 template <int R>
@@ -372,17 +424,27 @@ __device__ __forceinline__ void dft_lower(float2* v) {
 // One Stockham pass in shared memory, radix R at sub-transform size NS:
 // butterfly j = tid + q NT (q < 32 / R) reads z[j + r M/R], twiddles by
 // W_(NS R)^(k r), k = j mod NS, transforms and (after the barrier)
-// writes z[(j - k) R + k + r NS].
-template <int M, int R, int NS, bool INV>
+// writes z[(j - k) R + k + r NS].  ROOTS: the twiddles by twiddle16
+// (radix 16, one k a thread; its powers formed before the loads, so that
+// they and the roots' arithmetic are not live beside the 32 values), else
+// by twiddle_all.  Q: as r16_lane.
+template <int M, int R, int NS, bool INV, bool ROOTS = false, int Q = 1>
 __device__ __forceinline__ void r16_pass(float2* z) {
   constexpr int NT = R16<M>::NT, NB = R16_HELD / R, S = M / R;
-  int tid = r16_tid();
+  int tid = r16_lane<M, Q>();
+  [[maybe_unused]] Pow16 w;
+  if constexpr (NS > 1 && ROOTS) {
+    static_assert(R == 16 && NT % NS == 0, "radix 16, one k a thread");
+    w = pow16<INV>(tid & (NS - 1), NS * R);
+  }
   float2 v[NB][R];
 #pragma unroll
   for (int q = 0; q < NB; ++q)
 #pragma unroll
     for (int r = 0; r < R; ++r) v[q][r] = z[slot16(tid + q * NT + r * S)];
-  if constexpr (NS > 1) {
+  if constexpr (NS > 1 && ROOTS) {
+    twiddle16<NB>(v, w);
+  } else if constexpr (NS > 1) {
     if constexpr (NT % NS == 0) {     // every butterfly of the thread: one k
       twiddle_all<R, NB>(v, root<INV>(tid & (NS - 1), NS * R));
     } else {
@@ -395,7 +457,7 @@ __device__ __forceinline__ void r16_pass(float2* z) {
 #pragma unroll
   for (int q = 0; q < NB; ++q) dft<R, INV>(v[q]);
   __syncthreads();
-  tid = r16_tid();
+  tid = r16_lane<M, Q>();
 #pragma unroll
   for (int q = 0; q < NB; ++q) {
     const int j = tid + q * NT, k = j & (NS - 1), base = (j - k) * R + k;
@@ -407,29 +469,39 @@ __device__ __forceinline__ void r16_pass(float2* z) {
 
 // The radix-16 passes between the first and the merged pass (forward: NS
 // = R0, 16 R0, ...) or between the merged and the last (inverse: NS =
-// 16, 256, ...): P - 1 of them.
-template <int M, int I, bool INV>
+// 16, 256, ...): P - 1 of them (ROOTS, Q: as r16_pass).
+template <int M, int I, bool INV, bool ROOTS = false, int Q = 1>
 __device__ __forceinline__ void r16_passes(float2* z) {
   if constexpr (I + 1 < R16<M>::P) {
     constexpr int NS = INV ? 1 << (4 * (I + 1)) : R16<M>::R0 << (4 * I);
-    r16_pass<M, 16, NS, INV>(z);
-    r16_passes<M, I + 1, INV>(z);
+    r16_pass<M, 16, NS, INV, ROOTS, Q>(z);
+    r16_passes<M, I + 1, INV, ROOTS, Q>(z);
   }
 }
 
+// The pair (x[2p], x[2p+1]) of a row as one load: 4 bytes of bf16, or 8
+// of float.
+__device__ __forceinline__ float2 load_pair(const bf16* __restrict__ x,
+                                            int p) {
+  return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(x)[p]);
+}
+__device__ __forceinline__ float2 load_pair(const float* __restrict__ x,
+                                            int p) {
+  return reinterpret_cast<const float2*>(x)[p];
+}
+
 // The conv input's packed value p, (x[2p], x[2p+1]), zero past L: u, or in
-// the sampling form a u + c + bias.  VEC (L even, rows aligned): one
-// 4-byte load of u and 8-byte loads of a and c for the pair.
-template <bool FUSED, bool VEC>
-__device__ __forceinline__ float2 r16_in(const bf16* __restrict__ ur,
+// the sampling form a u + c + bias (u bf16).  VEC (L even, rows aligned):
+// one load of u (load_pair) and 8-byte loads of a and c for the pair.
+template <bool FUSED, bool VEC, typename T>
+__device__ __forceinline__ float2 r16_in(const T* __restrict__ ur,
                                          const float* __restrict__ ar,
                                          const float* __restrict__ cr,
                                          float bh, int p, int L) {
   const int t = 2 * p;
   if constexpr (VEC) {
     if (t >= L) return make_float2(0.0f, 0.0f);
-    const float2 x = __bfloat1622float2(
-        reinterpret_cast<const __nv_bfloat162*>(ur)[p]);
+    const float2 x = load_pair(ur, p);
     if (!FUSED) return x;
     const float2 av = reinterpret_cast<const float2*>(ar)[p];
     const float2 cv = reinterpret_cast<const float2*>(cr)[p];
@@ -438,7 +510,7 @@ __device__ __forceinline__ float2 r16_in(const bf16* __restrict__ ur,
     float v[2];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const float x = t + e < L ? __bfloat162float(ur[t + e]) : 0.0f;
+      const float x = t + e < L ? to_f(ur[t + e]) : 0.0f;
       v[e] = t + e >= L ? 0.0f : FUSED ? ar[t + e] * x + cr[t + e] + bh : x;
     }
     return make_float2(v[0], v[1]);
@@ -449,10 +521,11 @@ __device__ __forceinline__ float2 r16_in(const bf16* __restrict__ ur,
 // value p = j + r M/R0 is (x[2p], x[2p+1]), loaded only where t < L, a
 // group of butterflies at a time (their loads in flight together: GL
 // packed values, 8 in the sampling form, whose three loads a value hold
-// more registers, 16 in the plain one).
-template <int M, bool FUSED, bool VEC>
+// more registers, 16 in the plain one).  x is bf16, or float for kernel
+// 5's row; Q: as r16_lane.
+template <int M, bool FUSED, bool VEC, int Q = 1, typename T>
 __device__ __forceinline__ void r16_load_pass(
-    float2* z, const bf16* __restrict__ ur, const float* __restrict__ ar,
+    float2* z, const T* __restrict__ ur, const float* __restrict__ ar,
     const float* __restrict__ cr, float bh, int L) {
   constexpr int R = R16<M>::R0, NT = R16<M>::NT, NB = R16_HELD / R;
   constexpr int S = M / R;
@@ -462,7 +535,7 @@ __device__ __forceinline__ void r16_load_pass(
   const bool lower = L <= M;
 #pragma unroll 1
   for (int q0 = 0; q0 < NB; q0 += QG) {
-    const int tid = r16_tid();
+    const int tid = r16_lane<M, Q>();
     float2 v[QG][R];
 #pragma unroll
     for (int q = 0; q < QG; ++q)
@@ -504,46 +577,37 @@ __device__ __forceinline__ void fold_pair(float2& zk, float2& zm, float2 w,
   zm = cadd(cconj(sa), cmuli(cmul(w, cconj(sb))));
 }
 
-// The merged pass: the last forward pass (radix 16 at Ns = M/16) on
-// butterflies j0 and j1, the fold of their bins with the spectrum (khat
-// + D, or conj(khat)), and the first inverse pass (radix 16 at Ns = 1).
-// The last forward pass writes Z[j + r M/16] to the slots it read, the
-// thread's own, so it runs in place with no barrier, and the fold reads
-// each pair (k, M - k) in natural order from the thread's own slots: the
-// thread holds one butterfly's 16 values, or a pair and two groups of
-// spectrum values, until the first inverse pass, whose 32 values cross
-// the barrier.  Thread t >= 1 folds k = t + r M/16 (r < 16), whose
-// partners are j1's; thread 0 folds k = r M/16 (0 < r <= 8; M/2 with
-// itself) and k = M/32 + r M/16 (r < 8), and the real DC and Nyquist
-// bins.
+// The merged pass's pairs.  Thread t >= 1 holds k = t + r M/16 (r < 16),
+// whose partners M - k are butterfly j1's; thread 0 k = r M/16 (0 < r <=
+// 8; M/2 with itself) and k = M/32 + r M/16 (r < 8), and the real DC and
+// Nyquist bins.  r16_bin is the thread's r-th pair's k; r16_pair_root its
+// W^k = exp(-i pi k / M), from et = exp(-i pi t / M): et W^(r M/16) for t
+// >= 1; for thread 0 W^((r+1) M/16), or W^(M/32) W^((r-8) M/16).
 template <int M>
-__device__ __forceinline__ void r16_middle(float2* z,
-                                           const float2* __restrict__ kr,
-                                           float dh, float ksign) {
-  constexpr int S = M / 16, T = M / 32, G = 4;
-  // the thread's r-th pair's k
-  const auto bin = [](int tid, int r) {
-    return tid != 0 ? tid + r * S : r < 8 ? (r + 1) * S : T + (r - 8) * S;
-  };
-  const auto spec = [&](int k) {
-    const float2 s = kr[k];
-    return make_float2(s.x + dh, ksign * s.y);
-  };
-  int tid = r16_tid();
-  // the spectrum of the first group of pairs, in flight during the DFTs
-  float2 kk[G], km[G];
-#pragma unroll
-  for (int i = 0; i < G; ++i) {
-    kk[i] = spec(bin(tid, i));
-    km[i] = spec(M - bin(tid, i));
-  }
-  // et = exp(-i pi t / M), the thread's one root; its square W_M^t is
-  // butterfly j0's twiddle, and W_M^(M/16 - t) = W_16 conj(W_M^t) j1's
-  // (for thread 0, W_M^(M/32) = W_32)
-  const float2 et = root<false>(tid, 2 * M);
+__device__ __forceinline__ int r16_bin(int tid, int r) {
+  constexpr int S = M / 16, T = M / 32;
+  return tid != 0 ? tid + r * S : r < 8 ? (r + 1) * S : T + (r - 8) * S;
+}
+
+__device__ __forceinline__ float2 r16_pair_root(int tid, int r, float2 et) {
+  return tid != 0 ? cmul(et, root32(r))
+         : r < 8  ? root32(r + 1)
+                  : cmul(make_float2(COS_PI32, -SIN_PI32), root32(r - 8));
+}
+
+// The last forward pass (radix 16 at Ns = M/16) in place, on the thread's
+// butterflies j0 = t and j1 = M/16 - t (M/32 for t = 0): the pass writes
+// Z[j + r M/16] to the slots it read, the thread's own, so no barrier is
+// needed, and afterwards the thread's slots hold each of its pairs (k, M -
+// k).  et = exp(-i pi t / M), the thread's one root: its square W_M^t is
+// j0's twiddle, and W_M^(M/16 - t) = W_16 conj(W_M^t) j1's (for thread 0,
+// W_M^(M/32) = W_32).
+template <int M>
+__device__ __forceinline__ void r16_last_forward(float2* z, float2 et) {
+  constexpr int S = M / 16, T = M / 32;
 #pragma unroll
   for (int b = 0; b < 2; ++b) {
-    tid = r16_tid();
+    const int tid = r16_tid();
     const int j = b == 0 ? tid : tid == 0 ? T : S - tid;
     const float2 w0 = cmul(et, et);
     const float2 w1 = b == 0 ? w0
@@ -556,6 +620,67 @@ __device__ __forceinline__ void r16_middle(float2* z,
 #pragma unroll
     for (int r = 0; r < 16; ++r) z[slot16(j + r * S)] = v[r];
   }
+}
+
+// r16_last_forward with its twiddles by twiddle16: j0's from the roots
+// a[i] = W_M^(2^i t), j1's from W_M^(2^i (M/16 - t)) = W_16^(2^i)
+// conj(a[i]) (for thread 0, W_M^(2^i M/32) = W_32^(2^i), constants).
+template <int M, int Q>
+__device__ __forceinline__ void r16_last_forward_roots(float2* z) {
+  constexpr int S = M / 16, T = M / 32;
+  float2 a[4];
+  const int t = r16_lane<M, Q>();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = root<false>(t << i, M);
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    const int tid = r16_lane<M, Q>();
+    const int j = b == 0 ? tid : tid == 0 ? T : S - tid;
+    float2 e[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      e[i] = b == 0 ? a[i]
+             : tid == 0 ? root32(1 << i)
+                        : cmul(root32(2 << i), cconj(a[i]));
+    const Pow16 w = pow16(e[0], e[1], e[2], e[3]);
+    float2 v[16];
+#pragma unroll
+    for (int r = 0; r < 16; ++r) v[r] = z[slot16(j + r * S)];
+    twiddle16<1>(&v, w);
+    dft<16, false>(v);
+#pragma unroll
+    for (int r = 0; r < 16; ++r) z[slot16(j + r * S)] = v[r];
+  }
+}
+
+// The merged pass: the last forward pass (radix 16 at Ns = M/16) on
+// butterflies j0 and j1, the fold of their bins with the spectrum (khat
+// + D, or conj(khat)), and the first inverse pass (radix 16 at Ns = 1).
+// The last forward pass runs in place (r16_last_forward), and the fold
+// reads each pair (k, M - k) in natural order from the thread's own slots:
+// the thread holds one butterfly's 16 values, or a pair and two groups of
+// spectrum values, until the first inverse pass, whose 32 values cross
+// the barrier.  The thread folds its 16 pairs (r16_bin), thread 0 also the
+// real DC and Nyquist bins.
+template <int M>
+__device__ __forceinline__ void r16_middle(float2* z,
+                                           const float2* __restrict__ kr,
+                                           float dh, float ksign) {
+  constexpr int S = M / 16, T = M / 32, G = 4;
+  const auto spec = [&](int k) {
+    const float2 s = kr[k];
+    return make_float2(s.x + dh, ksign * s.y);
+  };
+  int tid = r16_tid();
+  // the spectrum of the first group of pairs, in flight during the DFTs
+  float2 kk[G], km[G];
+#pragma unroll
+  for (int i = 0; i < G; ++i) {
+    kk[i] = spec(r16_bin<M>(tid, i));
+    km[i] = spec(M - r16_bin<M>(tid, i));
+  }
+  const float2 et = root<false>(tid, 2 * M);     // exp(-i pi t / M)
+  r16_last_forward<M>(z, et);
   tid = r16_tid();
   if (tid == 0) {
     // the DC and Nyquist bins are real: irfft reads only their real parts
@@ -570,23 +695,18 @@ __device__ __forceinline__ void r16_middle(float2* z,
     if (g + 1 < 16 / G) {                 // the next group's spectrum
 #pragma unroll
       for (int i = 0; i < G; ++i) {
-        const int k = bin(tid, G * (g + 1) + i);
+        const int k = r16_bin<M>(tid, G * (g + 1) + i);
         nk[i] = spec(k);
         nm[i] = spec(M - k);
       }
     }
 #pragma unroll
     for (int i = 0; i < G; ++i) {
-      const int r = G * g + i, k = bin(tid, r);
+      const int r = G * g + i, k = r16_bin<M>(tid, r);
       float2* zk = z + slot16(k);
       float2* zm = z + slot16(M - k);
       float2 a = *zk, c = *zm;
-      // W^k: et W^(r M/16) for t >= 1; for thread 0 W^((r+1) M/16), or
-      // W^(M/32) W^((r-8) M/16)
-      const float2 w = tid != 0 ? cmul(et, root32(r))
-                       : r < 8 ? root32(r + 1)
-                       : cmul(make_float2(COS_PI32, -SIN_PI32), root32(r - 8));
-      fold_pair(a, c, w, kk[i], km[i]);
+      fold_pair(a, c, r16_pair_root(tid, r, et), kk[i], km[i]);
       *zm = c;
       *zk = a;                            // at k = M/2 the same slot
     }
@@ -707,6 +827,223 @@ fftconv_r16_kernel(const bf16* __restrict__ u, const float* __restrict__ a,
   R16_STAMP(5);
 }
 
+// ---- Kernels 5 and 5f on the radix-16 route ---------------------------------
+//
+// The same function as fftconv_dkf_kernel<T>, redesigned for the H100
+// (ops/fftconv.py::dkf_plan routes each FFT size to it or to that kernel).
+// What held that kernel back: one block a channel walked the batch, 2B
+// Stockham transforms one after another (128 blocks at SC09's top tier,
+// a wave of one block an SM doing 8 transforms), each with 12 block
+// barriers, and its loads wrote all M packed slots where only L/2 are
+// nonzero.  This kernel:
+//
+// - transforms the 2R rows of a chunk of R batch rows (R = rows, at most
+//   DKF_MAX_ROWS) all at once, u_b and g_b for each b, Q of them a block
+//   (dkf_per_block: 8 at n 2048, else 1), so a channel takes a
+//   thread-block cluster of C = ceil(2R / Q) blocks (8 at B4 from n 8192
+//   up; at n 2048 1, all in one block); the cluster walks the batch in
+//   chunks of R rows;
+// - transforms a row as kernel 1f's radix-16 route does (R16<M>, M / 32
+//   threads a transform): the load pass reads only the nonzero part of
+//   the packed row (r16_load_pass), the radix-16 passes follow, and the
+//   last forward pass runs in place (r16_last_forward_roots), so each
+//   thread then holds both bins of its 16 pairs (k, M - k) and splits them
+//   into the real row's half spectrum X in the same slots, with no barrier
+//   (r16_split): slot k holds X[k], slot 0 (X[0], X[M]), both real.  Its
+//   twiddles are products of at most two once-rounded roots (twiddle16),
+//   not kernel 1f's running products: the transform's error stays near
+//   cuFFT's;
+// - after a cluster barrier, block c sums the bins [c S, (c+1) S) of the
+//   chunk, S = ceil(M / C), reading each row's U and G in its own shared
+//   memory or its peers' over the cluster's network (dkf_sum): a warp reads
+//   32 adjacent slots of a spectrum at once, and no spectrum reaches device
+//   memory;
+// - adds the batch terms one by one in b order: each bin's running sum
+//   starts at 0, takes conj(U_b) G_b for b = 0, 1, ... in turn, and
+//   crosses from one chunk to the next unscaled in the output row (the
+//   bins' owner writes and re-reads its own values), the last chunk
+//   writing c_k times the sum.  The order is the same for every chunk
+//   size, so the result is the same bit for bit for any plan; no atomics.
+//
+// What bounds it: the transforms' fp32 operations and shared-memory round
+// trips (a row takes 5-6 of them: the load pass, the radix-16 passes, the
+// in-place last pass and split), then the read of (C-1)/C of 2R half
+// spectra of M/C bins from the cluster's network a block a chunk, which
+// on an H100 ran at about 13 bytes a cycle an SM, a block's own slots
+// read through it no faster: 28% of a block's cycles at n = 32768
+// (fftconv_phases.py).  There a block holds 139 KB and takes a whole SM,
+// so the card runs one transform an SM at a time, and 15 clusters of 8
+// fit at once.
+
+constexpr int DKF_MAX_ROWS = 4;    // batch rows a chunk: <= 8 transforms
+
+// The last forward pass in place (r16_last_forward_roots), then each of
+// the thread's pairs (k, M - k) split into the real row's half spectrum in
+// the same two slots:
+//   E = (Z[k] + conj Z[M-k]) / 2,  O = (Z[k] - conj Z[M-k]) / 2i
+//   X[k] = E + W^k O,  X[M-k] = conj(E - W^k O),   W = exp(-i pi / M);
+// thread 0 also writes (X[0], X[M]) = (Re + Im, Re - Im) of Z[0] to slot 0.
+template <int M, int Q>
+__device__ __forceinline__ void r16_split(float2* z) {
+  r16_last_forward_roots<M, Q>(z);
+  const int tid = r16_lane<M, Q>();
+  const float2 et = root<false>(tid, 2 * M);     // exp(-i pi t / M)
+  if (tid == 0) {
+    const float2 z0 = z[0];
+    z[0] = make_float2(z0.x + z0.y, z0.x - z0.y);
+  }
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int k = r16_bin<M>(tid, r);
+    float2* zk = z + slot16(k);
+    float2* zm = z + slot16(M - k);
+    const float2 a = *zk, c = *zm;
+    const float2 e = make_float2(0.5f * (a.x + c.x), 0.5f * (a.y - c.y));
+    const float2 dv = csub(a, cconj(c));
+    const float2 o = make_float2(0.5f * dv.y, -0.5f * dv.x);   // dv / 2i
+    const float2 wo = cmul(r16_pair_root(tid, r, et), o);
+    *zm = cconj(csub(e, wo));
+    *zk = cadd(e, wo);                      // at k = M/2 the same value
+  }
+}
+
+// One chunk's batch terms, for the block's bins [lo, hi): the rows' half
+// spectra U (spectra 0 .. nr-1 of the cluster) and G (spectra rows ..
+// rows+nr-1), spectrum s in transform s mod Q of block s / Q, read in the
+// block's own or its peers' shared memory.  Each bin's sum starts at 0 in
+// the first chunk, else at the unscaled sum the block left in orow; the
+// last chunk writes c_k times it (c_k = 1/n at the DC and Nyquist bins,
+// 2/n between), every other chunk the sum itself.
+template <int M, int Q>
+__device__ __forceinline__ void dkf_sum(const float2* z,
+                                        float2* __restrict__ orow, int lo,
+                                        int hi, int rows, int nr, bool first,
+                                        bool last) {
+  constexpr int NT = R16<M>::NT, SLOTS = R16<M>::SLOTS;
+  constexpr float edge = 1.0f / (float)(2 * M), inner = 2.0f * edge;
+  const auto spectrum = [&](int s) {
+    return cluster_addr(z + s % Q * SLOTS, s / Q);
+  };
+  unsigned ua[DKF_MAX_ROWS], ga[DKF_MAX_ROWS];
+#pragma unroll
+  for (int i = 0; i < DKF_MAX_ROWS; ++i) {
+    ua[i] = spectrum(i < nr ? i : 0);
+    ga[i] = spectrum(i < nr ? rows + i : 0);
+  }
+#pragma unroll 2
+  for (int k = lo + r16_tid(); k < hi; k += Q * NT) {
+    const unsigned off = (unsigned)(slot16(k) * sizeof(float2));
+    float2 uv[DKF_MAX_ROWS], gv[DKF_MAX_ROWS];
+#pragma unroll
+    for (int i = 0; i < DKF_MAX_ROWS; ++i) {
+      if (i < nr) {
+        uv[i] = ld_cluster(ua[i] + off);
+        gv[i] = ld_cluster(ga[i] + off);
+      }
+    }
+    float2 acc = first ? make_float2(0.0f, 0.0f) : orow[k];
+    if (k == 0) {             // (DC, Nyquist), both real
+#pragma unroll
+      for (int i = 0; i < DKF_MAX_ROWS; ++i) {
+        if (i < nr) {
+          acc.x += uv[i].x * gv[i].x;
+          acc.y += uv[i].y * gv[i].y;
+        }
+      }
+      if (last) {
+        orow[0] = make_float2(edge * acc.x, 0.0f);
+        orow[M] = make_float2(edge * acc.y, 0.0f);
+      } else {
+        orow[0] = acc;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < DKF_MAX_ROWS; ++i)
+        if (i < nr) acc = cadd(acc, cmul(cconj(uv[i]), gv[i]));
+      orow[k] = last ? make_float2(inner * acc.x, inner * acc.y) : acc;
+    }
+  }
+}
+
+// %cluster_ctarank, read anew in each phase (as r16_tid): values kept
+// across the transform would cost registers its passes need.
+__device__ __forceinline__ int dkf_rank() {
+  int r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// The transforms a block of kernels 5 and 5f holds at M
+// (ops/fftconv.py::DKF_PER_BLOCK): at n 2048 a transform is one warp, and
+// a chunk's eight (256 threads, 70 KB) sum in the block's own shared
+// memory with no cluster; a larger transform takes 128-512 threads, and
+// several in one block would lose what separate blocks an SM give, one
+// block's loads under another's passes.
+template <int M>
+constexpr int dkf_per_block() {
+  return M == 1024 ? 2 * DKF_MAX_ROWS : 1;
+}
+
+// Kernel 5 (T float) and 5f (T bf16) on the radix-16 route: Q transforms
+// a block, a cluster of C = ceil(2 rows / Q) blocks a channel, blocks in
+// channel-major order (the launch's cluster dimension is C); see above.
+template <int M, int Q, typename T>
+__global__ void __launch_bounds__(Q * R16<M>::NT,
+                                  Q * R16<M>::NT >= 512 ? 1
+                                  : 512 / (Q * R16<M>::NT))
+fftconv_dkf_r16_kernel(const T* __restrict__ u, const T* __restrict__ g,
+                       float2* __restrict__ out, int B, int H, int L,
+                       int rows) {
+  constexpr int NT = R16<M>::NT;
+  extern __shared__ float2 z[];      // Q transforms of R16<M>::SLOTS slots
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (2 * rows + Q - 1) / Q;
+  for (int b0 = 0; b0 < B; b0 += rows) {
+    R16_STAMP(0);
+    {
+      // the transform's spectrum s: u of the chunk's row s, or g of row
+      // s - rows; one past the chunk's rows transforms zeros (Lq 0), as
+      // its block's barriers need, or with Q 1 is skipped
+      const int q = r16_tid() / NT, s = dkf_rank() * Q + q;
+      const int r = s < rows ? s : s - rows;
+      const bool live = s < 2 * rows && b0 + r < B;
+      if (Q > 1 || live) {
+        const int Lq = live ? L : 0;
+        const T* xr = live ? (s < rows ? u : g) +
+                                 ((size_t)(b0 + r) * H + blockIdx.x / C) * L
+                           : u;
+        float2* zq = z + q * R16<M>::SLOTS;
+        // pairs of a row as one load each (load_pair)
+        const bool vec = !(L & 1) && !((reinterpret_cast<size_t>(u) |
+                                        reinterpret_cast<size_t>(g)) &
+                                       (2 * sizeof(T) - 1));
+        if (vec)
+          r16_load_pass<M, false, true, Q>(zq, xr, nullptr, nullptr, 0.0f,
+                                           Lq);
+        else
+          r16_load_pass<M, false, false, Q>(zq, xr, nullptr, nullptr, 0.0f,
+                                            Lq);
+        R16_STAMP(1);
+        r16_passes<M, 0, false, true, Q>(zq);
+        R16_STAMP(2);
+        r16_split<M, Q>(zq);
+      }
+    }
+    R16_STAMP(3);
+    cluster.sync();
+    R16_STAMP(4);
+    {
+      const int span = (M + C - 1) / C;
+      const int lo = min(M, dkf_rank() * span);
+      dkf_sum<M, Q>(z, out + (size_t)(blockIdx.x / C) * (M + 1), lo,
+                    min(M, lo + span), rows, min(rows, B - b0), b0 == 0,
+                    b0 + rows >= B);
+    }
+    R16_STAMP(5);
+    cluster.sync();
+  }
+}
+
 constexpr int MAX_PAIRS = 9;   // pairs (k, M-k), 0 <= k <= M/2, per thread
 
 // Kernel 5 (T float) and 5f (T bf16): one block per channel h; see the
@@ -819,6 +1156,70 @@ int launch_dkf(const T* u, const T* g, void* out, int B, int H, int L, int n,
   return (int)cudaGetLastError();
 }
 
+// Kernels 5 and 5f on the radix-16 route at M = n/2, with the plan's rows,
+// threads and shared-memory bytes (ops/fftconv.py::dkf_plan), which must be
+// this instance's: dkf_per_block<M>() transforms a block.
+template <int M, typename T>
+int launch_dkf_r16_at(const T* u, const T* g, void* out, int B, int H,
+                      int L, int rows, int threads, int smem,
+                      cudaStream_t stream) {
+  constexpr int Q = dkf_per_block<M>();
+  if (threads != Q * R16<M>::NT
+      || smem != Q * R16<M>::SLOTS * (int)sizeof(float2) || rows < 1
+      || rows > DKF_MAX_ROWS || B < 1 || H < 1 || L < 1 || L > 2 * M)
+    return (int)cudaErrorInvalidValue;
+  const int C = (2 * rows + Q - 1) / Q;
+  const auto kernel = fftconv_dkf_r16_kernel<M, Q, T>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(H * C);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = C;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, u, g, static_cast<float2*>(out), B, H, L, rows);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// Kernel 5 or 5f on the route of the plan (rows, threads, smem): rows 0
+// the Stockham kernel (threads and smem 0; it sizes its own launch),
+// rows > 0 the radix-16 route.
+template <typename T>
+int launch_dkf_plan(const T* u, const T* g, void* out, int B, int H, int L,
+                    int n, int rows, int threads, int smem,
+                    cudaStream_t stream) {
+  if (rows == 0) {
+    if (threads != 0 || smem != 0) return (int)cudaErrorInvalidValue;
+    return launch_dkf(u, g, out, B, H, L, n, stream);
+  }
+  switch (n) {
+    case 2048:
+      return launch_dkf_r16_at<1024>(u, g, out, B, H, L, rows, threads, smem,
+                                     stream);
+    case 8192:
+      return launch_dkf_r16_at<4096>(u, g, out, B, H, L, rows, threads, smem,
+                                     stream);
+    case 16384:
+      return launch_dkf_r16_at<8192>(u, g, out, B, H, L, rows, threads, smem,
+                                     stream);
+    case 32768:
+      return launch_dkf_r16_at<16384>(u, g, out, B, H, L, rows, threads,
+                                      smem, stream);
+    default:
+      return (int)cudaErrorInvalidValue;   // no instance at this n
+  }
+}
+
 // Kernel 1f's radix-16 route at M = n/2, with the plan's threads and
 // shared-memory bytes (ops/fftconv.py::radix16_plan), which must be this
 // instance's.
@@ -900,19 +1301,21 @@ extern "C" int dwst_fftconv_bf16(const void* u, const void* khat, void* out,
                             conj, stream);
 }
 
+// Kernel 5 with its plan (rows, threads, smem; ops/fftconv.py::dkf_plan).
 extern "C" int dwst_fftconv_dkf(const float* u, const float* g, void* out,
-                                int B, int H, int L, int n,
-                                cudaStream_t stream) {
-  return launch_dkf(u, g, out, B, H, L, n, stream);
+                                int B, int H, int L, int n, int rows,
+                                int threads, int smem, cudaStream_t stream) {
+  return launch_dkf_plan(u, g, out, B, H, L, n, rows, threads, smem, stream);
 }
 
 // Kernel 5f: u and g bf16, out complex64 as kernel 5's.
 extern "C" int dwst_fftconv_dkf_bf16(const void* u, const void* g, void* out,
-                                     int B, int H, int L, int n,
+                                     int B, int H, int L, int n, int rows,
+                                     int threads, int smem,
                                      cudaStream_t stream) {
-  return launch_dkf(static_cast<const __nv_bfloat16*>(u),
-                    static_cast<const __nv_bfloat16*>(g), out, B, H, L, n,
-                    stream);
+  return launch_dkf_plan(static_cast<const bf16*>(u),
+                         static_cast<const bf16*>(g), out, B, H, L, n, rows,
+                         threads, smem, stream);
 }
 
 // Kernel 1f on its radix-16 route: the arguments of

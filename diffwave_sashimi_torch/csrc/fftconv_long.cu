@@ -164,22 +164,6 @@ __device__ __forceinline__ T gelu_out(float v) {
   return from_f<T>(gelu_erf(sizeof(T) == 2 ? round_bf16(v) : v));
 }
 
-// The shared::cluster address of z's slot in the block of rank `rank` of
-// the cluster, and a store to it: asm volatile, so the stores go out in
-// program order and none waits for another.
-__device__ __forceinline__ unsigned cluster_addr(const float2* z, int rank) {
-  unsigned out;
-  asm("mapa.shared::cluster.u32 %0, %1, %2;"
-      : "=r"(out)
-      : "r"((unsigned)__cvta_generic_to_shared(z)), "r"(rank));
-  return out;
-}
-
-__device__ __forceinline__ void st_cluster(unsigned addr, float2 v) {
-  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};" ::"r"(addr),
-               "f"(v.x), "f"(v.y));
-}
-
 // threadIdx.x, read anew in each phase of the cluster kernel: the phases'
 // index arithmetic then stays apart, where the compiler would otherwise
 // keep values common to two phases (every transform's slots, every

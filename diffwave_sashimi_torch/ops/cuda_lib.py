@@ -68,9 +68,10 @@ _SIGNATURES = {
     # the same, kernel 1f's radix-16 route, with threads and smem before
     # the stream
     "dwst_fftconv_r16_bf16": [_P] * 3 + [_I] * 7 + [_P],
-    # u, g, out, B, H, L, n, stream
-    "dwst_fftconv_dkf": [_P] * 3 + [_I] * 4 + [_P],
-    "dwst_fftconv_dkf_bf16": [_P] * 3 + [_I] * 4 + [_P],
+    # u, g, out, B, H, L, n, and the plan (rows, threads, smem; ops/
+    # fftconv.py::dkf_plan; rows 0 the Stockham kernel), stream
+    "dwst_fftconv_dkf": [_P] * 3 + [_I] * 7 + [_P],
+    "dwst_fftconv_dkf_bf16": [_P] * 3 + [_I] * 7 + [_P],
     # y, g, W, Wt, b, dy, dz, part, grads, B, H, L, tc, P, smem, stream
     "dwst_glu_res_bwd": [_P] * 9 + [_I] * 6 + [_P],
     # kernel 6f: y, g, W, b, dy, dz, part, grads, wb (the bf16 weight

@@ -30,6 +30,15 @@ spectrum split merged into the passes around it) at the sizes it has
 instances for, where it beat the Stockham kernel in turns on the H100;
 the Stockham kernel (``fftconv_kernel``, which the f32 forms take at
 every size) at the rest.
+
+Kernels 5 and 5f have two routes too, chosen by the FFT size (and sized by
+the batch) in :func:`dkf_plan`: the radix-16 kernel
+(``fftconv_dkf_r16_kernel``: the batch's transforms of u and g in
+parallel, several a block at the smaller sizes, a thread-block cluster of
+blocks a channel, the batch summed over the cluster's shared memory in b
+order) at :data:`RADIX16_SIZES`, the
+Stockham kernel (``fftconv_dkf_kernel``: one block a channel walking the
+batch) at the rest.
 """
 
 from __future__ import annotations
@@ -139,6 +148,54 @@ def conv_plan(n: int) -> ConvPlan:
     The kernel takes the plan as given: this is the one place it is
     computed."""
     return radix16_plan(n) if n in RADIX16_SIZES else STOCKHAM
+
+
+# Kernels 5 and 5f's radix-16 route (csrc/fftconv.cu::
+# fftconv_dkf_r16_kernel): at most DKF_MAX_ROWS batch rows a chunk (2 rows
+# transforms, u and g of each row), and at each FFT size the transforms a
+# block (csrc dkf_per_block: a chunk's 8 one-warp transforms at n 2048, one
+# elsewhere)
+DKF_MAX_ROWS = 4
+DKF_PER_BLOCK = {2048: 2 * DKF_MAX_ROWS, 8192: 1, 16384: 1, 32768: 1}
+
+
+class DkfPlan(NamedTuple):
+    """How kernel 5 or 5f runs at one FFT size and batch: the route
+    (``"radix16"`` or ``"stockham"``), and on the radix-16 route the batch
+    rows a chunk, the transforms a block, the blocks of a channel's
+    thread-block cluster, the threads a block and its shared-memory bytes
+    (0 each on the Stockham route, which sizes its own launch)."""
+    route: str
+    rows: int
+    per_block: int
+    cluster: int
+    threads: int
+    smem: int
+
+
+DKF_STOCKHAM = DkfPlan("stockham", 0, 0, 0, 0, 0)
+
+
+def dkf_plan(n: int, B: int, rows: int | None = None) -> DkfPlan:
+    """Kernel 5's or 5f's route at FFT size n and batch B: the radix-16
+    kernel for n in :data:`RADIX16_SIZES` (min(B, DKF_MAX_ROWS) rows a
+    chunk, or ``rows``, which chip_smoke.py times the route at;
+    DKF_PER_BLOCK[n] transforms of :func:`radix16_plan`'s threads and
+    shared memory a block; ceil(2 rows / per_block) blocks a cluster), the
+    Stockham kernel for every other n.  The kernel takes the plan as
+    given: this is the one place it is computed.  Raises ValueError for B
+    < 1, rows outside 1 .. DKF_MAX_ROWS, or n not a power of two >= 32."""
+    if B < 1:
+        raise ValueError(f"batch {B} must be >= 1")
+    rows = min(B, DKF_MAX_ROWS) if rows is None else rows
+    if not 1 <= rows <= DKF_MAX_ROWS:
+        raise ValueError(f"rows {rows} must be in 1 .. {DKF_MAX_ROWS}")
+    _check_fft_size(n, 1)
+    if n not in RADIX16_SIZES:
+        return DKF_STOCKHAM
+    r16, q = radix16_plan(n), DKF_PER_BLOCK[n]
+    return DkfPlan("radix16", rows, q, -(-2 * rows // q), q * r16.threads,
+                   q * r16.smem)
 
 
 def _check_fft_size(n: int, L: int) -> None:
@@ -313,14 +370,14 @@ def _launch_conv(wrapper, entry, dtype, u, khat, conj, plan_args=()):
 
 def fftconv_dkf(u, g, n):
     """Kernel-5 wrapper: :func:`fftconv_dkf_ref` as a CUDA kernel (batch
-    summed inside the kernel) for CUDA tensors, the plain version for CPU
-    tensors; bf16 activations go to kernel 5f."""
+    summed inside the kernel) on the route :func:`dkf_plan` gives for CUDA
+    tensors, the plain version for CPU tensors; bf16 activations go to
+    kernel 5f."""
     if not u.is_cuda:
         return fftconv_dkf_ref(u, g, n)
     if u.dtype == torch.bfloat16:
         return fftconv_dkf_bf16(u, g, n)
-    return _launch_dkf(fftconv_dkf, "dwst_fftconv_dkf", torch.float32, u, g,
-                       n)
+    return _launch_dkf(fftconv_dkf, torch.float32, u, g, n)
 
 
 fftconv_dkf.launches = 0
@@ -328,28 +385,39 @@ fftconv_dkf.launches = 0
 
 def fftconv_dkf_bf16(u, g, n):
     """Kernel-5f wrapper (u, g bf16; the result complex64): the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+    on the route :func:`dkf_plan` gives for CUDA tensors, the plain version
+    for CPU tensors."""
     if not u.is_cuda:
         return fftconv_dkf_ref(u, g, n)
-    return _launch_dkf(fftconv_dkf_bf16, "dwst_fftconv_dkf_bf16",
-                       torch.bfloat16, u, g, n)
+    return _launch_dkf(fftconv_dkf_bf16, torch.bfloat16, u, g, n)
 
 
 fftconv_dkf_bf16.launches = 0
 
 
-def _launch_dkf(wrapper, entry, dtype, u, g, n):
-    """Check the arguments of kernel 5 or 5f (u and g of ``dtype``), launch
-    ``entry`` and count it on ``wrapper``."""
+def _launch_dkf(wrapper, dtype, u, g, n):
+    """Launch kernel 5 or 5f (u and g of ``dtype``) on the route
+    :func:`dkf_plan` gives and count it on ``wrapper``."""
+    cuda_lib.check(u, tuple(u.shape), dtype)
+    out = launch_dkf(u, g, n, dkf_plan(n, u.shape[0]))
+    wrapper.launches += 1
+    return out
+
+
+def launch_dkf(u, g, n, plan):
+    """Check the arguments of kernel 5 (u and g float32) or 5f (bf16) and
+    launch it on ``plan``'s route (uncounted; the wrappers count)."""
     B, H, L = u.shape
     _check_fft_size(n, L)
+    dtype = torch.bfloat16 if u.dtype == torch.bfloat16 else torch.float32
     for t in (u, g):
         cuda_lib.check(t, (B, H, L), dtype)
     out = torch.empty((H, n // 2 + 1), dtype=torch.complex64,
                       device=u.device)
+    entry = ("dwst_fftconv_dkf_bf16" if dtype == torch.bfloat16
+             else "dwst_fftconv_dkf")
     cuda_lib.launch(entry, u.data_ptr(), g.data_ptr(), out.data_ptr(), B, H,
-                    L, n)
-    wrapper.launches += 1
+                    L, n, plan.rows, plan.threads, plan.smem)
     return out
 
 

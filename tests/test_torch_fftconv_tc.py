@@ -111,17 +111,18 @@ def _chain(k, R, N, inverse):
     return torch.stack(ws, dim=-1)
 
 
-def _pass(z, R, Ns, inverse, NT):
+def _pass(z, R, Ns, inverse, NT, chain=None):
     """One Stockham pass as the kernel's threads run it: butterfly j = tid
-    + q NT reads z[j + r M/R], twiddles by W_(Ns R)^(k r), k = j mod Ns,
-    transforms, and writes z[(j - k) R + k + r Ns]."""
+    + q NT reads z[j + r M/R], twiddles by W_(Ns R)^(k r), k = j mod Ns
+    (as ``chain`` computes them, by default :func:`_chain`), transforms,
+    and writes z[(j - k) R + k + r Ns]."""
     M = z.shape[-1]
     j = torch.arange(M // R)
     r = torch.arange(R)
     k = j % Ns
     v = z[:, j[:, None] + r[None, :] * (M // R)]
     if Ns > 1:
-        v = v * _chain(k, R, Ns * R, inverse)
+        v = v * (chain or _chain)(k, R, Ns * R, inverse)
     v = _dft(v, inverse)
     out = torch.full_like(z, float("nan"))
     out[:, (j - k)[:, None] * R + k[:, None] + r[None, :] * Ns] = v
