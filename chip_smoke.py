@@ -7,15 +7,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. build the CUDA kernels from ``diffwave_sashimi_torch/csrc`` (with
    ``nvcc -Xptxas -v`` of ``csrc/cauchy.cu`` and ``csrc/fftconv.cu``
-   beside the build: the registers and spills of each kernel-8 instance
-   ``<K, PAIRED>`` and of each instance ``<M, Q, T>`` of kernels 5 and 5f's
-   radix-16 route, none of which may spill) and require a CUDA device;
+   beside the build: the registers and spills of each kernel-4 instance
+   ``<K>``, each kernel-8 instance ``<K, PAIRED>`` and each instance
+   ``<M, Q, T>`` of kernels 5 and 5f's radix-16 route, none of which may
+   spill) and require a CUDA device;
 2. build the shipped SC09 model (d_model 128, n_layers 6, pool [4, 4],
    expand 2, ff 2, L 16000) from a seed, with a perturbed (normally
    zero-initialised) final conv, and save it as a checkpoint in a
    temporary ``exp/`` directory;
 3. hold each of the four kernels against its plain PyTorch version on the
    card at the shapes the sampling path gives it at all three UNet tiers;
+   kernel 4 (its (K, M, Lz, 2) output) also two calls bit-equal, against
+   a complex128 evaluation of the sum at most twice the plain version's
+   error, timed in a CUDA graph, its plan printed;
 4. the main path: ``generate()`` at T = 200, f32, a few samples, with every
    kernel's launch count set to 0 just before and read just after (each
    must be > 0), and finite output of the right shape; then (4b) the
@@ -49,9 +53,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (6d) the bf16 and int8 eps step timed at B4 and B16 and traced (the
    bf16 step at B4 and B16 with kernel 1f's time apart);
 7. the training kernels (kernel 1's training entry and its conjugate
-   form, kernels 5-8) against their plain versions at the three tiers,
-   with their times; then (7b) their bf16 forms (1f's training entry and
-   its conjugate form, each on both routes as in 6b, 5f, 6f, 7f) at the
+   form, kernels 4-8) against their plain versions at the three tiers,
+   with their times, kernel 4 held beyond that as in phase 3 and at four
+   shapes off the shipped ones (odd K, K 8, blocks of fewer threads, N
+   800 past 48 KB of records) against its plain version, two calls
+   bit-equal; then (7b) their bf16 forms (1f's training entry and its
+   conjugate form, each on both routes as in 6b, 5f, 6f, 7f) at the
    three tiers, B4, timed, 7f also
    at F = H, 6f and 7f also on their element-wise paths (B2, L 1001, H
    128 and 256); at each tier two 7f calls and two 6f calls must agree
@@ -99,13 +106,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
     and a trace of two bf16 steps that reports kernel 7f's pass, 6f's
     pass, the weight-gradient contractions and the reductions apart from
     the rest (6f's pass must be its tensor-core kernel and its rounding
-    instance, with no kernel-6 instance) and kernel 1f's, 5f's and kernel
-    8's times apart (5f must be its radix-16 kernel);
+    instance, with no kernel-6 instance) and kernel 1f's, 5f's, kernel
+    8's, kernel 4's and PyTorch's elementwise copies' times apart (5f must
+    be its radix-16 kernel);
 11. a torch.profiler trace of two training steps with the kernels: device
     time by kernel, the port's kernels' share, kernel 8's time (its lanes
     kernel and its reduce pass; both traces fail without the lanes
-    kernel, and without kernel 5's or 5f's radix-16 kernel), the device's
-    idle share;
+    kernel, without kernel 4's ``cauchy_fwd_kernel``, and without kernel
+    5's or 5f's radix-16 kernel), the device's idle share;
 12. the vocoder: the shipped LJSpeech model (``experiment=ljspeech``:
     d_model 128, n_layers 6, pool [4, 4], L 16000, mel_upsample [16, 16],
     hop 256 at 22050 Hz) from a seed, with a perturbed final conv, saved as
@@ -195,12 +203,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
     a seed, depth cut to n_layers 1: the channel mixers (kernels 2, 3, 6,
     7 and their f forms) against their plain versions at its H 1024 tier
     (B4, L 1000; the fp32 plans narrow P to 16, and to 8 for kernel 7, so
-    the tiles fit one block; 3f, 6f and 7f run at P 16), timed; kernel 8
-    at its three tiers as in phase 7 (vs plain, bit-equal, vs complex128
-    beside its plain version, timed in a CUDA graph); at f32 and at
-    bf16 one eps forward and one training step through the kernels
-    against the plain path, each with exact launch counts of every
-    kernel, and the eps step timed.
+    the tiles fit one block; 3f, 6f and 7f run at P 16), timed; kernels 4
+    and 8 at its three tiers as in phases 3 and 7 (vs plain, bit-equal, vs
+    complex128 beside the plain version, timed in a CUDA graph); at f32 and
+    at bf16 one eps forward and one training step through the kernels
+    against the plain path, each with exact launch counts of every kernel,
+    and the eps step timed.
 
 It prints the card's name and power limit, one JSON line with the kernels
 (each with its bound: the larger of its bytes over the HBM rate and its
@@ -354,6 +362,9 @@ GATE_CASES = ((N_SAMPLES, 256, 256, 16000), (16, 256, 256, 16000),
 # kernel 8's cases (K, M, N, Lz) off the shipped shapes: N below a warp's
 # 32 lanes (the rest masked), odd K and K = 8, partial chunks and splits
 KERNEL_8_RAGGED = ((3, 24, 20, 777), (8, 40, 32, 1001), (1, 4, 7, 65))
+# kernel 4's beside them: the same, and N 800, whose records pass a
+# block's default 48 KB of shared memory (the launch opts in)
+KERNEL_4_RAGGED = KERNEL_8_RAGGED + ((6, 8, 800, 501),)
 # kernels 5's and 5f's batches off the shipped B4: 2 and 6 transforms a
 # channel, and B6 in two chunks (4 rows, then 2)
 DKF_BATCHES = (1, 3, 6)
@@ -465,7 +476,7 @@ PORT_KERNELS = ("fftconv_kernel", "fftconv_r16_kernel",
                 "ln_ff_res_bwd_kernel", "ln_ff_res_bwd_tc_kernel",
                 "round_weights_t_kernel", "wgrad_kernel",
                 "reduce_splits_kernel", "reduce_long_kernel",
-                "cauchy_kernel", "cauchy_bwd_lanes_kernel",
+                "cauchy_fwd_kernel", "cauchy_bwd_lanes_kernel",
                 "cauchy_bwd_reduce_kernel",
                 "cols_fwd_kernel",
                 "rows_kernel", "cols_inv_kernel", "fftconv_cluster_kernel",
@@ -525,6 +536,14 @@ KERNELS_6F = {"pass": ("glu_res_bwd_tc_kernel", "round_weights_t_kernel<6>"),
 # traces report their sum as kernel 8's time.
 KERNELS_8 = ("cauchy_bwd_lanes_kernel", "cauchy_bwd_reduce_kernel")
 KERNEL_8_GROUPS = {"cauchy_bwd": lambda name: in_group(name, KERNELS_8)}
+# kernel 4's one kernel, and PyTorch's elementwise copies (its copy kernel
+# and device-to-device memcpy), which the bf16 training trace reports
+# beside it
+KERNEL_4 = "cauchy_fwd_kernel"
+KERNEL_4_GROUPS = {
+    "cauchy": lambda name: in_group(name, (KERNEL_4,)),
+    "copies": lambda name: ("direct_copy_kernel" in name
+                            or name.startswith("Memcpy DtoD"))}
 
 
 def log(msg):
@@ -551,11 +570,12 @@ def start_ptxas():
 
 def ptxas_report(procs):
     """{__global__ instance: registers a thread, spill stores and loads in
-    bytes} from ptxas's reports, of kernel 8 (``name<K, PAIRED>``) and of
-    kernels 5 and 5f's radix-16 route (``fftconv_dkf_r16_kernel<M, Q,
-    T>``); raise if nvcc failed, an instance spills or one of kernel 8's K
-    1-8 or of the route's M (n 2048 .. 32768, each with its transforms a
-    block Q) and T (float, bf16) is missing."""
+    bytes} from ptxas's reports, of kernel 4 (``cauchy_fwd_kernel<K>``),
+    of kernel 8 (``name<K, PAIRED>``) and of kernels 5 and 5f's radix-16
+    route (``fftconv_dkf_r16_kernel<M, Q, T>``); raise if nvcc failed, an
+    instance spills or one of kernels 4's and 8's K 1-8 or of the route's
+    M (n 2048 .. 32768, each with its transforms a block Q) and T (float,
+    bf16) is missing."""
     fc = importlib.import_module("diffwave_sashimi_torch.ops.fftconv")
     out = {}
     for src, proc in zip(PTXAS_SOURCES, procs):
@@ -566,6 +586,8 @@ def ptxas_report(procs):
         for i, line in enumerate(lines):
             k8 = re.search(r"Compiling entry function '\w*?(cauchy_bwd\w*?"
                            r"_kernel)(?:ILi(\d+)ELb([01])E)?", line)
+            k4 = re.search(r"Compiling entry function '\w*?(cauchy_fwd_"
+                           r"kernel)ILi(\d+)E", line)
             dkf = re.search(r"Compiling entry function '\w*?(fftconv_dkf_r16_"
                             r"kernel)ILi(\d+)ELi(\d+)E(f|13__nv_bfloat16)E",
                             line)
@@ -574,6 +596,8 @@ def ptxas_report(procs):
                     f"<{k8.group(2)}, "
                     f"{'true' if k8.group(3) == '1' else 'false'}>"
                     if k8.group(2) else "")
+            elif k4:
+                name = f"{k4.group(1)}<{k4.group(2)}>"
             elif dkf:
                 name = (f"{dkf.group(1)}<{dkf.group(2)}, {dkf.group(3)}, "
                         f"{'float' if dkf.group(4) == 'f' else 'bf16'}>")
@@ -589,6 +613,7 @@ def ptxas_report(procs):
                 "spill_loads": int(spill.group(2)) if spill else None}
     want = {f"cauchy_bwd_lanes_kernel<{K}, {p}>" for K in range(1, 9)
             for p in ("true", "false")} | {
+        f"cauchy_fwd_kernel<{K}>" for K in range(1, 9)} | {
         f"fftconv_dkf_r16_kernel<{n // 2}, {q}, {t}>"
         for n, q in fc.DKF_PER_BLOCK.items() for t in ("float", "bf16")}
     spills = [k for k, v in out.items()
@@ -669,7 +694,10 @@ def work(name, B, H, L, n, K=6, N=32, S=None, bpe=4, F=None):
         "glu_res_bwd": (12 * H * H * B * L, 3 * act + 2 * glu_w),
         "ln_ff_res": (4 * F * H * B * L, 3 * act + 2 * B * L * 4 + ff_w),
         "ln_ff_res_bwd": (10 * F * H * B * L, 3 * act + 2 * ff_w),
-        "cauchy": ((13 + 11 * K) * H * N * Lz, coef + cauchy_io),
+        # the fewer flops of the two forms: (a z + b) G0 for each k, or
+        # G1 = z G0 once and a G1 + b G0 for each k (csrc/cauchy.cu)
+        "cauchy": (min(13 + 11 * K, 19 + 8 * K) * H * N * Lz,
+                   coef + cauchy_io),
         "cauchy_bwd": ((30 + 16 * K) * H * N * Lz, 2 * coef + cauchy_io),
         "gate_res_skip": (2 * B * L * H * (H + S),
                           (4 * H + S) * B * L * bpe
@@ -805,7 +833,8 @@ def tier_inputs(torch, blk, L, gen, dev):
 
 def check_kernels(torch, model, dev, results):
     """Phase 3 (+ kernel timings): the sampling kernels vs their plain
-    versions at the sampling path's shapes of every tier."""
+    versions at the sampling path's shapes of every tier; kernel 4 beyond
+    that by ``hold_kernel_4``."""
     from diffwave_sashimi_torch import ops
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     for H, L, blk in tier_blocks(model):
@@ -828,12 +857,14 @@ def check_kernels(torch, model, dev, results):
                 lambda: ops.ln_ff_res_ref(x, d["m2"], d["s2"], d["w1"],
                                           d["b1"], d["w2"], d["b2"],
                                           d["skip"], True)),
-            "cauchy": (lambda: ops.cauchy_quad(*d["quad"], d["z"]),
-                       lambda: ops.cauchy_quad_ref(*d["quad"], d["z"])),
+            "cauchy": (
+                lambda: ops.cauchy_quad(*d["quad"], d["z"]).unbind(-1),
+                lambda: ops.cauchy_quad_ref(*d["quad"], d["z"])),
         }
         for name, (kfn, pfn) in cases.items():
             compare(name, H, L, kfn, pfn, 3 if name == "cauchy" else 20,
                     results)
+        hold_kernel_4(torch, d, f"H{H}_L{L}", results)
 
 
 def direct_conv_f64(torch, x, a, c, bias, khat, D, fast):
@@ -1184,8 +1215,9 @@ def check_bf16_path(torch, model, dev):
 
 def check_training_kernels(torch, model, dev, results):
     """Phase 7: kernel 1's training entry (and its conjugate form) and
-    kernels 5-8 vs their plain versions at every tier, timed (kernel 8
-    beyond that by ``hold_kernel_8``, kernel 5 by ``hold_dkf``)."""
+    kernels 4-8 vs their plain versions at every tier, timed (kernels 4
+    and 8 beyond that by ``hold_kernel_4`` and ``hold_kernel_8``, kernel
+    5 by ``hold_dkf``)."""
     from diffwave_sashimi_torch import ops
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     for H, L, blk in tier_blocks(model):
@@ -1205,13 +1237,48 @@ def check_training_kernels(torch, model, dev, results):
              lambda: ops.ln_ff_res_bwd_ref(*ff)),
             ("cauchy_bwd", lambda: ops.cauchy_bwd(*cauchy),
              lambda: ops.cauchy_bwd_ref(*cauchy)),
+            ("cauchy",
+             lambda: ops.cauchy_quad(*d["quad"], d["z"]).unbind(-1),
+             lambda: ops.cauchy_quad_ref(*d["quad"], d["z"])),
         ]
         for name, kfn, pfn in cases:
-            compare(name, H, L, kfn, pfn, 3 if name == "cauchy_bwd" else 10,
-                    results)
+            compare(name, H, L, kfn, pfn,
+                    3 if name.startswith("cauchy") else 10, results)
+        hold_kernel_4(torch, d, f"H{H}_L{L}", results)
         hold_kernel_8(torch, d, f"H{H}_L{L}", results)
         hold_dkf(torch, "fftconv_dkf", d, results)
     hold_kernel_8_ragged(torch, dev)
+    hold_kernel_4_ragged(torch, dev)
+
+
+def hold_kernel_4_ragged(torch, dev):
+    """Phase 7's kernel 4 off the shipped shapes (KERNEL_4_RAGGED: odd K,
+    K 8, blocks of fewer threads, N past 48 KB of records), on seeded
+    residues and poles of negative real part: vs its plain version at
+    TOL_KERNEL x max(1, max|plain|), two calls bit-equal."""
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.models.s4 import _fft_nodes
+    from diffwave_sashimi_torch.ops import cauchy, cuda_lib
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    for K, M, N, Lz in KERNEL_4_RAGGED:
+        w = torch.complex(-0.1 - torch.rand(M, N, device=dev, generator=gen),
+                          10 * torch.randn(M, N, device=dev, generator=gen))
+        v = torch.randn(K, M, N, dtype=torch.complex64, device=dev,
+                        generator=gen)
+        args = (*cauchy.quad_operands(v, w),
+                torch.from_numpy(_fft_nodes(2 * (Lz - 1))[1]).to(dev))
+        one, two = ops.cauchy_quad(*args), ops.cauchy_quad(*args)
+        ref = torch.stack(ops.cauchy_quad_ref(*args), -1)
+        torch.cuda.synchronize()
+        err, sc = max_err(one, ref)
+        ok = err <= TOL_KERNEL * max(1.0, sc) and torch.equal(one, two)
+        log(f"kernel cauchy K{K} M{M} N{N} Lz{Lz}: {err:.2e}/{sc:.2e} of "
+            f"max|plain|, two calls bit-equal, plan "
+            f"{cauchy.cauchy_fwd_plan(K, M, N, Lz, cuda_lib.sm_count(dev))} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"kernel cauchy disagrees at K{K} M{M} "
+                                 f"N{N} Lz{Lz}")
 
 
 def hold_kernel_8_ragged(torch, dev):
@@ -1303,6 +1370,46 @@ def hold_kernel_8(torch, d, tier, results):
         f"{tuple(plan)}")
     if not ok:
         raise AssertionError(f"kernel cauchy_bwd {tier}: its error against "
+                             f"complex128 is past twice the plain "
+                             f"version's")
+
+
+def hold_kernel_4(torch, d, tier, results):
+    """Kernel 4 at one tier beyond its bar: two calls bit-equal; it and its
+    plain version against a complex128 evaluation of the same sum (max
+    |error| over max(1, max|complex128|)), the kernel's at most twice the
+    plain version's; its device time in a CUDA graph (``graph_ms``: at the
+    lower tiers a call's host time exceeds its kernel's); the plan it
+    ran."""
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.ops import cauchy, cuda_lib
+    args = (*d["quad"], d["z"])
+    one, two = ops.cauchy_quad(*args), ops.cauchy_quad(*args)
+    plain = torch.stack(ops.cauchy_quad_ref(*args), -1)
+    wide = torch.stack(ops.cauchy_quad_ref(
+        *(t.double() for t in d["quad"]), d["z"].to(torch.complex128)), -1)
+    torch.cuda.synchronize()
+    if not torch.equal(one, two):
+        raise AssertionError(f"kernel cauchy {tier}: two calls differ")
+
+    def worst(out):
+        return float((out.double() - wide).abs().max()) / max(
+            1.0, float(wide.abs().max()))
+    err, plain_err = worst(one), worst(plain)
+    del wide, plain
+    K, M, N = d["quad"][0].shape
+    plan = cauchy.cauchy_fwd_plan(K, M, N, d["z"].shape[0],
+                                  cuda_lib.sm_count(d["z"].device))
+    t = results["cauchy"]["tiers"][tier]
+    t.update(bit_equal=True, c128_err=err, plain_c128_err=plain_err,
+             graph_ms=graph_ms(torch, lambda: ops.cauchy_quad(*args)),
+             plan=list(plan))
+    ok = err <= 2 * plain_err and bool(torch.isfinite(one).all())
+    log(f"kernel cauchy {tier}: two calls bit-equal; vs complex128 "
+        f"{err:.3e} (plain {plain_err:.3e}) {'ok' if ok else 'FAIL'}; in a "
+        f"CUDA graph {t['graph_ms']:.4f} ms; plan {tuple(plan)}")
+    if not ok:
+        raise AssertionError(f"kernel cauchy {tier}: its error against "
                              f"complex128 is past twice the plain "
                              f"version's")
 
@@ -1945,16 +2052,20 @@ def check_wide_mixers(torch, blk, L, dev, results):
             "ff_bwd_bf16": chmix.ff_bwd_bf16_plan(H, 2 * H)[0]}
 
 
-def check_wide_kernel_8(torch, model, dev, results):
-    """Phase 24's kernels 8 and 5f: vs their plain versions at every tier
-    of the d_model 256 model (its own S4 coefficients, seeded inputs and
-    cotangents), timed; beyond that as phases 7 and 7b hold them
-    (``hold_kernel_8``, ``hold_dkf``)."""
+def check_wide_s4_kernels(torch, model, dev, results):
+    """Phase 24's kernels 4, 8 and 5f: vs their plain versions at every
+    tier of the d_model 256 model (its own S4 coefficients, seeded inputs
+    and cotangents), timed; beyond that as phases 3, 7 and 7b hold them
+    (``hold_kernel_4``, ``hold_kernel_8``, ``hold_dkf``)."""
     from diffwave_sashimi_torch import ops
     gen = torch.Generator(device=dev).manual_seed(SEED + 26)
     for H, L, blk in tier_blocks(model):
         d = tier_inputs(torch, blk, L, gen, dev)
         args = (*d["quad"], d["z"], d["g_re"], d["g_im"])
+        compare("cauchy", H, L,
+                lambda: ops.cauchy_quad(*d["quad"], d["z"]).unbind(-1),
+                lambda: ops.cauchy_quad_ref(*d["quad"], d["z"]), 3, results)
+        hold_kernel_4(torch, d, f"H{H}_L{L}", results)
         compare("cauchy_bwd", H, L, lambda: ops.cauchy_bwd(*args),
                 lambda: ops.cauchy_bwd_ref(*args), 3, results)
         hold_kernel_8(torch, d, f"H{H}_L{L}", results)
@@ -1984,7 +2095,7 @@ def check_wide_model(torch, dev, launches, results):
     with torch.no_grad():
         out = {f"plans_P_H{H}": check_wide_mixers(torch, blk, L, dev,
                                                   results)}
-        check_wide_kernel_8(torch, model, dev, results)
+        check_wide_s4_kernels(torch, model, dev, results)
     log(f"phase d256 mixers: positions a block at H{H} "
         f"{json.dumps(out[f'plans_P_H{H}'])}")
     for label, m, want_eps, want_train in (
@@ -2055,16 +2166,20 @@ def profile_train_step(torch, model, dev, steps=2):
     trace = trace_steps(
         torch, lambda: train_step(model, optim, audio, schedule, g,
                                   ops.FUSED), steps, groups=KERNEL_8_GROUPS)
-    check_kernel_8_trace(trace, "f32")
+    check_training_trace(trace, "f32")
     return trace
 
 
-def check_kernel_8_trace(trace, label):
-    """Raise unless a traced training step ran kernel 8's lanes kernel and
-    kernel 5's (f32) or 5f's (bf16) radix-16 kernel."""
+def check_training_trace(trace, label):
+    """Raise unless a traced training step ran kernel 4's kernel, kernel
+    8's lanes kernel and kernel 5's (f32) or 5f's (bf16) radix-16
+    kernel."""
     if trace is None:
         return
     names = trace["port_kernels_by_name_ms_per_step"]
+    if not any(in_group(n, (KERNEL_4,)) for n in names):
+        raise AssertionError(f"the {label} training step's kernel 4 is not "
+                             f"{KERNEL_4}: {sorted(names)}")
     if not any(in_group(n, KERNELS_8[:1]) for n in names):
         raise AssertionError(f"the {label} training step's kernel 8 is not "
                              f"its lanes kernel: {sorted(names)}")
@@ -2201,8 +2316,9 @@ def time_train_step_bf16(torch, model, dev):
     groups.update(KERNEL_1F_GROUPS)
     groups.update(KERNEL_5F_GROUPS)
     groups.update(KERNEL_8_GROUPS)
+    groups.update(KERNEL_4_GROUPS)
     out["trace"] = trace_steps(torch, bf16_step, groups=groups)
-    check_kernel_8_trace(out["trace"], "bf16")
+    check_training_trace(out["trace"], "bf16")
     if out["trace"] is not None:
         names = out["trace"]["port_kernels_by_name_ms_per_step"]
         if (any(in_group(n, ("glu_res_bwd_kernel",)) for n in names)
@@ -2218,10 +2334,13 @@ def time_train_step_bf16(torch, model, dev):
         if out["trace"] is None else json.dumps(out["trace"])))
     if out["trace"] is not None:
         tr = out["trace"]
-        ms = tr["groups_ms_per_step"]["fftconv_dkf_bf16"]
-        log(f"trace: kernel 5f {ms:.3f} ms of "
-            f"{tr['device_busy_ms_per_step']:.3f} busy ms a bf16 training "
-            f"step")
+        busy = tr["device_busy_ms_per_step"]
+        for label, key in (("kernel 5f", "fftconv_dkf_bf16"),
+                           ("kernel 4", "cauchy"),
+                           ("PyTorch's elementwise copies", "copies")):
+            ms = tr["groups_ms_per_step"][key]
+            log(f"trace: {label} {ms:.3f} ms of {busy:.3f} busy ms a bf16 "
+                f"training step ({ms / busy:.2%})")
     return out
 
 
@@ -2969,14 +3088,14 @@ def main():
     from diffwave_sashimi_torch.runtime.generate import generate
     from diffwave_sashimi_torch.utils.exp import local_directory
 
-    # phase 1: build (and ptxas's report on kernels 8, 5 and 5f beside
+    # phase 1: build (and ptxas's report on kernels 4, 8, 5 and 5f beside
     # it), then require the card
     t0 = time.perf_counter()
     ptxas = start_ptxas()
     cuda_lib.library()
     ptxas = ptxas_report(ptxas)
     log(f"phase build: kernels built and loaded in "
-        f"{time.perf_counter() - t0:.1f} s; ptxas, kernels 8, 5 and 5f's "
+        f"{time.perf_counter() - t0:.1f} s; ptxas, kernels 4, 8, 5 and 5f's "
         f"radix-16 route: {json.dumps(ptxas)}")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the smoke test runs on a GPU")
@@ -3232,7 +3351,11 @@ def main():
         if name == "cauchy_bwd":
             entries[-1]["global_kernels"] = list(KERNELS_8)
             entries[-1]["ptxas"] = {k: v for k, v in ptxas.items()
-                                    if k.startswith("cauchy")}
+                                    if k.startswith("cauchy_bwd")}
+        if name == "cauchy":
+            entries[-1]["global_kernels"] = [KERNEL_4]
+            entries[-1]["ptxas"] = {k: v for k, v in ptxas.items()
+                                    if k.startswith(KERNEL_4)}
         if name.startswith("fftconv_dkf"):
             entries[-1]["ptxas"] = {k: v for k, v in ptxas.items()
                                     if k.startswith("fftconv_dkf")}

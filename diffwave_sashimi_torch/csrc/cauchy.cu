@@ -13,15 +13,35 @@
 // rank-1 S4 layer) share one denominator per (m, n, l), so its reciprocal,
 // the costliest step, is computed once for all K.
 //
-// What bounds it on the H100: ~(13 + 8K) flops per (m, n, l) and one
-// division, against K complex outputs per (m, l): at N = 32 states it is
-// compute bound (fp32 CUDA cores); device memory sees only the output.
+// What bounds it on the H100: its flops per (m, n, l), counted as the
+// fewer of its two forms need (chip_smoke.py::work): 13 + 11K with the
+// numerator a_k z + b_k multiplied by G0 = 1/den for each k (the TPU
+// kernel's form), or 19 + 8K with G1 = z G0 formed once and
+// a_k G1 + b_k G0 added for each k (this kernel's form), 67 at K = 6;
+// against K complex outputs per (m, l): at N = 32 states it is compute
+// bound (fp32 CUDA cores); device memory sees only the output.  So every
+// instruction per (m, n, l) counts.
 //
-// Design: one thread per (m, l) with 2K register accumulators, looping
-// over n; the block's row coefficients (c, d and the K rows of a, b) are
-// staged in shared memory and read as broadcasts.  The reciprocal is
-// computed with the denominator scaled by its largest component, so the
-// huge z at the Nyquist node (1 + omega nearly 0) cannot overflow |den|^2.
+// Design (cauchy_fwd_kernel<K>): a thread owns P = 4 positions of one
+// channel m, l = base + t + j x threads for j < P (so each j's float2
+// stores coalesce across a warp), and all K components: 2KP sums in
+// registers, added over n in the order 0..N-1.  No sum crosses threads:
+// no atomics, no reduction pass, and two calls give the same bits.  The
+// block stages its channel's coefficients once in shared memory, one
+// record a state, [c, d, a_0..a_{K-1}, b_0..b_{K-1}] padded to whole
+// float4s, read as 128-bit broadcasts once a state for all P positions
+// (R / P loads a (n, l), R = 4 float4s at K = 6).  Per (m, n, l): the
+// denominator chain with one reciprocal (kernel 8's: den scaled by the
+// exact power of two pow2_inverse gives, then reciprocal_1_8 of the
+// scaled |den|^2), G0 = 1/den, G1 = z G0, then acc_k += a_k G1 + b_k G0,
+// 4 FMAs a component: about 20 + 4K instructions.  K is a template
+// argument: no work on components k >= K.  P = 4 won in turns with 2 and
+// 8 at every tier (chip_smoke.py, PERF.md); at 8 the sums take too many
+// registers, at 2 the records are read twice as often.  ops/cauchy.py::
+// cauchy_fwd_plan alone sizes the launch (threads, blocks a channel,
+// shared memory).  The kernel writes interleaved (re, im) pairs: the
+// (K, M, Lz, 2) float32 output is a complex64 (K, M, Lz) tensor's memory,
+// which the S4 kernel construction views, with no copy.
 // It runs once per sampling run (30 S4 layers), and once per layer in
 // every training step.
 
@@ -39,59 +59,130 @@ using dwst_async::cp_async_commit;
 using dwst_async::cp_async_wait;
 
 constexpr int KMAX = 8;
-constexpr int NT = 128;
+constexpr int FWD_THREADS = 128;           // the most threads a block
+constexpr int FWD_P = 4;                   // positions a thread
+constexpr int FWD_SMEM_MAX = 232448;       // shared memory a block may use
 
-__global__ void __launch_bounds__(NT)
-cauchy_kernel(const float* __restrict__ a, const float* __restrict__ b,
-              const float* __restrict__ c, const float* __restrict__ d,
-              const float2* __restrict__ z, float2* __restrict__ out, int K,
-              int M, int N, int Lz) {
-  extern __shared__ float sh[];
-  float* sc = sh;             // N
-  float* sd = sc + N;         // N
-  float* sa = sd + N;         // K x N
-  float* sb = sa + K * N;     // K x N
-  const int m = blockIdx.y;
-  for (int i = threadIdx.x; i < N; i += NT) {
-    sc[i] = c[(size_t)m * N + i];
-    sd[i] = d[(size_t)m * N + i];
+// 2^-e for x = 2^e x [1, 2), from x's exponent bits: exact, so scaling by
+// it adds no rounding (for normal x below 2^127)
+__device__ __forceinline__ float pow2_inverse(float x) {
+  return __int_as_float(0x7f000000 - (__float_as_int(x) & 0x7f800000));
+}
+
+// 1 / q for q in [1, 8): the approximate reciprocal, then one Newton step
+// (cauchy_bwd_parts.py times the kernel without it)
+__device__ __forceinline__ float reciprocal_1_8(float q) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(q));
+  return fmaf(r, fmaf(-q, r, 1.0f), r);
+}
+
+// float4s of one state's record: c, d, the K a's and the K b's
+__host__ __device__ constexpr int fwd_record_f4(int K) {
+  return (2 * K + 2 + 3) / 4;
+}
+
+// component q of a record held in registers (q a constant once unrolled)
+template <int R>
+__device__ __forceinline__ float record_at(const float4 (&rq)[R], int q) {
+  const float4 v = rq[q >> 2];
+  return (q & 3) == 0 ? v.x : (q & 3) == 1 ? v.y : (q & 3) == 2 ? v.z : v.w;
+}
+
+// The launch bounds' one block an SM: without it ptxas spills a few of
+// K 6's sums (112 registers a thread hold them) to fit more blocks an SM;
+// with it every instance keeps its sums in registers.
+template <int K>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+cauchy_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                  const float* __restrict__ c, const float* __restrict__ d,
+                  const float2* __restrict__ z, float2* __restrict__ out,
+                  int M, int N, int Lz) {
+  constexpr int R = fwd_record_f4(K), Q = 2 * K + 2, P = FWD_P;
+  extern __shared__ float4 fwd_sh[];
+  float* rec = reinterpret_cast<float*>(fwd_sh);
+  const int m = blockIdx.y, T = blockDim.x;
+  // the records: item i is field q = i / N of state n = i % N, so each
+  // field's reads from device memory run along n
+  for (int i = threadIdx.x; i < Q * N; i += T) {
+    const int q = i / N, n = i - q * N;
+    float v;
+    if (q == 0)
+      v = c[(size_t)m * N + n];
+    else if (q == 1)
+      v = d[(size_t)m * N + n];
+    else if (q < K + 2)
+      v = a[((size_t)(q - 2) * M + m) * N + n];
+    else
+      v = b[((size_t)(q - 2 - K) * M + m) * N + n];
+    rec[n * 4 * R + q] = v;
   }
-  for (int i = threadIdx.x; i < K * N; i += NT) {
-    const int k = i / N, n = i - k * N;
-    sa[i] = a[((size_t)k * M + m) * N + n];
-    sb[i] = b[((size_t)k * M + m) * N + n];
+  const int l0 = blockIdx.x * T * P + threadIdx.x;
+  float zr[P], zi[P], z2r[P], z2i[P], accr[K][P], acci[K][P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const int l = l0 + j * T;
+    const float2 zl = l < Lz ? z[l] : make_float2(0.0f, 0.0f);
+    zr[j] = zl.x;
+    zi[j] = zl.y;
+    z2r[j] = zl.x * zl.x - zl.y * zl.y;           // as kernel 8 forms it
+    z2i[j] = 2.0f * zl.x * zl.y;
+#pragma unroll
+    for (int k = 0; k < K; ++k) accr[k][j] = acci[k][j] = 0.0f;
   }
   __syncthreads();
-  const int l = blockIdx.x * NT + threadIdx.x;
-  if (l >= Lz) return;
-  const float2 zl = z[l];
-  const float z2r = zl.x * zl.x - zl.y * zl.y;
-  const float z2i = 2.0f * zl.x * zl.y;
-  float acc_r[KMAX], acc_i[KMAX];
-#pragma unroll
-  for (int k = 0; k < KMAX; ++k) acc_r[k] = acc_i[k] = 0.0f;
+
   for (int n = 0; n < N; ++n) {
-    const float den_r = z2r + sc[n] * zl.x + sd[n];
-    const float den_i = z2i + sc[n] * zl.y;
-    // g = 1 / den = conj(den) / |den|^2, with den scaled into range first
-    const float scale = 1.0f / fmaxf(fabsf(den_r), fabsf(den_i));
-    const float dr = den_r * scale, di = den_i * scale;
-    const float inv = scale / (dr * dr + di * di);
-    const float g_r = dr * inv, g_i = -di * inv;
+    float4 rq[R];
 #pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-      if (k < K) {
-        const float an = sa[k * N + n], bn = sb[k * N + n];
-        const float num_r = an * zl.x + bn, num_i = an * zl.y;
-        acc_r[k] += num_r * g_r - num_i * g_i;
-        acc_i[k] += num_i * g_r + num_r * g_i;
+    for (int i = 0; i < R; ++i) rq[i] = fwd_sh[n * R + i];
+    const float cn = rq[0].x, dn = rq[0].y;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      // kernel 8's denominator chain: the same G0 from the same
+      // instructions
+      const float den_r = z2r[j] + cn * zr[j] + dn;
+      const float den_i = z2i[j] + cn * zi[j];
+      const float s = pow2_inverse(fmaxf(fabsf(den_r), fabsf(den_i)));
+      const float sr = den_r * s, si = den_i * s;
+      const float t = reciprocal_1_8(sr * sr + si * si) * s;
+      const float g0r = sr * t, g0i = -si * t;              // 1 / den
+      const float g1r = zr[j] * g0r - zi[j] * g0i;          // z / den
+      const float g1i = zr[j] * g0i + zi[j] * g0r;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float ak = record_at(rq, 2 + k), bk = record_at(rq, 2 + K + k);
+        accr[k][j] = fmaf(bk, g0r, fmaf(ak, g1r, accr[k][j]));
+        acci[k][j] = fmaf(bk, g0i, fmaf(ak, g1i, acci[k][j]));
       }
     }
   }
+
 #pragma unroll
-  for (int k = 0; k < KMAX; ++k)
-    if (k < K)
-      out[((size_t)k * M + m) * Lz + l] = make_float2(acc_r[k], acc_i[k]);
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int l = l0 + j * T;
+      if (l < Lz)
+        out[((size_t)k * M + m) * Lz + l] = make_float2(accr[k][j],
+                                                         acci[k][j]);
+    }
+}
+
+template <int K>
+int launch_fwd(const float* a, const float* b, const float* c,
+               const float* d, const float2* z, float2* out, int M, int N,
+               int Lz, int threads, int splits, int smem,
+               cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        cauchy_fwd_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cauchy_fwd_kernel<K><<<dim3(splits, M), threads, smem, stream>>>(
+      a, b, c, d, z, out, M, N, Lz);
+  return (int)cudaGetLastError();
 }
 
 // Kernel 8 replaces cauchy_pallas.py::_bwd_kernel (_cauchy_quad_bwd): the
@@ -128,9 +219,9 @@ cauchy_kernel(const float* __restrict__ a, const float* __restrict__ b,
 // 2^-e with max(|den_r|, |den_i|) = 2^e x [1, 2), so the scaled |den|^2
 // lies in [1, 8), where the approximate reciprocal and a Newton step are
 // good to an ulp.  The scaling adds no rounding and keeps |den|^2 in range
-// at the Nyquist node, where z is huge (|z| ~ 8e5 at L = 1000); G0 then
-// differs from the forward's (two IEEE divisions) by about one rounding,
-// which the CPU tests' Nyquist-tail case shows is harmless.
+// at the Nyquist node, where z is huge (|z| ~ 8e5 at L = 1000).  Kernel 4
+// computes G0 by the same helpers and the same chain, so the two kernels'
+// G0 agree.
 //
 // Sums run in a fixed order: each thread's chain of span / BWD_WARPS
 // positions (at most 64, the plan's cap), the warps' sums pairwise through
@@ -143,20 +234,6 @@ constexpr int BWD_WARPS = BWD_THREADS / 32;
 constexpr int BWD_CHUNK = 16;           // positions a warp stages at a time
 constexpr int BWD_BLOCKS_PER_SM = 4;   // the plan's too; 3 past K 6
 constexpr int BWD_LANES = 32;                       // the most states, N
-
-// 2^-e for x = 2^e x [1, 2), from x's exponent bits: exact, so scaling by
-// it adds no rounding (for normal x below 2^127)
-__device__ __forceinline__ float pow2_inverse(float x) {
-  return __int_as_float(0x7f000000 - (__float_as_int(x) & 0x7f800000));
-}
-
-// 1 / q for q in [1, 8): the approximate reciprocal, then one Newton step
-// (cauchy_bwd_parts.py times the kernel without it)
-__device__ __forceinline__ float reciprocal_1_8(float q) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(q));
-  return fmaf(r, fmaf(-q, r, 1.0f), r);
-}
 
 // A warp's stage, in float4s: BWD_CHUNK z records (zr, zi, Re z^2,
 // Im z^2), then g's K values of each position, padded to whole float4s.
@@ -391,15 +468,29 @@ int launch_bwd_lanes(const float* a, const float* b, const float* c,
 
 extern "C" int dwst_cauchy(const float* a, const float* b, const float* c,
                            const float* d, const void* z, void* out, int K,
-                           int M, int N, int Lz, cudaStream_t stream) {
-  if (K < 1 || K > KMAX) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(2 + 2 * K) * N * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  dim3 grid((Lz + NT - 1) / NT, M);
-  cauchy_kernel<<<grid, NT, smem, stream>>>(
-      a, b, c, d, static_cast<const float2*>(z), static_cast<float2*>(out),
-      K, M, N, Lz);
-  return (int)cudaGetLastError();
+                           int M, int N, int Lz, int threads, int splits,
+                           int smem, cudaStream_t stream) {
+  // the plan's threads, splits and smem (ops/cauchy.py::
+  // cauchy_fwd_plan), taken as given once they cover [0, Lz) and hold
+  // the channel's records
+  if (K < 1 || K > KMAX || N < 1 || M < 1 || M > 65535 || Lz < 1 ||
+      threads < 32 || threads > FWD_THREADS || threads % 32 != 0 ||
+      splits < 1 || (long long)(splits - 1) * threads * FWD_P >= Lz ||
+      (long long)splits * threads * FWD_P < Lz ||
+      (long long)N * fwd_record_f4(K) * 16 > smem || smem > FWD_SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  const float2* zz = static_cast<const float2*>(z);
+  float2* o = static_cast<float2*>(out);
+#define DWST_FWD_CASE(KK)                                                  \
+  case KK:                                                                 \
+    return launch_fwd<KK>(a, b, c, d, zz, o, M, N, Lz, threads, splits,    \
+                          smem, stream);
+  switch (K) {
+    DWST_FWD_CASE(1) DWST_FWD_CASE(2) DWST_FWD_CASE(3) DWST_FWD_CASE(4)
+    DWST_FWD_CASE(5) DWST_FWD_CASE(6) DWST_FWD_CASE(7) DWST_FWD_CASE(8)
+  }
+#undef DWST_FWD_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int dwst_cauchy_bwd(const float* a, const float* b, const float* c,

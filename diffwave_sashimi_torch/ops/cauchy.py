@@ -9,10 +9,12 @@ them) and of ``ops/cauchy_pallas.py::cauchy_sym_pallas`` with its custom
 VJP ``_cauchy_quad`` (the kernels, CUDA source ``csrc/cauchy.cu``).  Both
 use the all-real form of each conjugate pair, (a z + b) / (z^2 + c z + d)
 with a = 2 Re v, b = -2 Re(v conj w), c = -2 Re w, d = |w|^2.  The
-autograd Function takes and returns real tensors only (a, b, c, d ->
-out_re, out_im); the coefficients and ``torch.complex`` stay outside it in
-torch autograd, so torch's complex-gradient conventions never reach the
-kernels.
+autograd Function takes and returns real tensors only (a, b, c, d -> one
+float32 (K, M, Lz, 2) tensor of (re, im) pairs, the memory of a complex64
+(K, M, Lz) tensor); the coefficients and ``torch.view_as_complex`` stay
+outside it in torch autograd, so torch's complex-gradient conventions
+never reach the kernels, and the S4 kernel construction reads kernel 4's
+output with no copy.
 """
 
 from __future__ import annotations
@@ -41,13 +43,18 @@ def quad_operands(v, w):
     return a.reshape(K, H, N), b.reshape(K, H, N), c, d
 
 
+def _quad_complex(a, b, c, d, z):
+    """:func:`cauchy_quad_ref`'s sum as one complex (K, M, Lz) tensor."""
+    g0 = 1.0 / (z * z + c[..., None] * z + d[..., None])    # (M, N, Lz)
+    g1 = z * g0
+    return (torch.einsum("kmn,mnl->kml", a.to(g1.dtype), g1)
+            + torch.einsum("kmn,mnl->kml", b.to(g0.dtype), g0))
+
+
 def cauchy_quad_ref(a, b, c, d, z):
     """out[k, m, l] = sum_n (a[k,m,n] z_l + b[k,m,n]) / (z_l^2 + c[m,n] z_l
     + d[m,n]) as (out_re, out_im), each (K, M, Lz) real."""
-    g0 = 1.0 / (z * z + c[..., None] * z + d[..., None])    # (M, N, Lz)
-    g1 = z * g0
-    out = (torch.einsum("kmn,mnl->kml", a.to(g1.dtype), g1)
-           + torch.einsum("kmn,mnl->kml", b.to(g0.dtype), g0))
+    out = _quad_complex(a, b, c, d, z)
     return out.real, out.imag
 
 
@@ -83,23 +90,77 @@ def _contiguous(*ts):
     return [t.contiguous() for t in ts]
 
 
+# Kernel 4's launch shape (csrc/cauchy.cu, the FWD_ constants): the most
+# threads a block, the positions a thread, the most components, and the
+# shared memory a block may use (past 48 KB by opting in).
+FWD_THREADS, FWD_P, FWD_KMAX, FWD_SMEM_MAX = 128, 4, 8, 232448
+
+
+class FwdPlan(NamedTuple):
+    threads: int   # threads a block, a multiple of 32; FWD_P positions each
+    splits: int    # blocks a channel
+    smem: int      # bytes of shared memory a block: the channel's records
+
+
+def _fwd_smem(K, N):
+    """Bytes of N records [c, d, a_0.., b_0..], each padded to float4s."""
+    return N * ((2 * K + 2 + 3) // 4) * 16
+
+
+def cauchy_fwd_refusal(K, N):
+    """Why kernel 4 takes no (K, N), or None."""
+    if not 1 <= K <= FWD_KMAX:
+        return (f"kernel 4 (cauchy) has instances for K 1-{FWD_KMAX} "
+                f"components, not K {K}")
+    nmax = FWD_SMEM_MAX // _fwd_smem(K, 1)
+    if not 1 <= N <= nmax:
+        return (f"kernel 4 (cauchy) stages a channel's N states in one "
+                f"block's shared memory, N 1-{nmax} at K {K}, not N {N}")
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def cauchy_fwd_plan(K, M, N, Lz, sms):
+    """Kernel 4's launch at (K, M, N, Lz) on a card of ``sms`` SMs, the one
+    place that sizes it: each of the M channels splits its Lz positions
+    into ``splits`` blocks of ``threads`` threads, FWD_P positions a
+    thread.  A block has FWD_THREADS threads unless the grid would then
+    give an SM fewer than two blocks: then more, smaller blocks (down to
+    one warp), as far as the positions allow.  Shared memory: the
+    channel's N records.  Raises ValueError on a (K, N) no instance
+    takes."""
+    why = cauchy_fwd_refusal(K, N)
+    if why:
+        raise ValueError(why)
+    splits = math.ceil(Lz / (FWD_THREADS * FWD_P))
+    if M * splits < 2 * sms:
+        splits = min(math.ceil(2 * sms / M), math.ceil(Lz / (32 * FWD_P)))
+    threads = 32 * math.ceil(math.ceil(Lz / splits) / (32 * FWD_P))
+    return FwdPlan(threads, math.ceil(Lz / (threads * FWD_P)),
+                   _fwd_smem(K, N))
+
+
 def cauchy_quad(a, b, c, d, z):
-    """Kernel-4 wrapper: :func:`cauchy_quad_ref` as the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    """Kernel-4 wrapper: :func:`cauchy_quad_ref`'s sum as one float32
+    (K, M, Lz, 2) tensor of (re, im) pairs, by the CUDA kernel for CUDA
+    tensors (``cauchy_fwd_plan``'s launch), by the plain version for CPU
+    tensors (``torch.view_as_real`` of its complex sum)."""
     if not a.is_cuda:
-        return cauchy_quad_ref(a, b, c, d, z)
+        return torch.view_as_real(_quad_complex(a, b, c, d, z))
     K, M, N = a.shape
     Lz = z.shape[0]
+    plan = cauchy_fwd_plan(K, M, N, Lz, cuda_lib.sm_count(a.device))
     a, b, c, d, z = _contiguous(a, b, c, d, z)
     for t, shape in ((a, (K, M, N)), (b, (K, M, N)), (c, (M, N)),
                      (d, (M, N))):
         cuda_lib.check(t, shape, torch.float32)
     cuda_lib.check(z, (Lz,), torch.complex64)
-    out = torch.empty((K, M, Lz), dtype=torch.complex64, device=a.device)
+    out = torch.empty((K, M, Lz, 2), dtype=torch.float32, device=a.device)
     cuda_lib.launch("dwst_cauchy", a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                    d.data_ptr(), z.data_ptr(), out.data_ptr(), K, M, N, Lz)
+                    d.data_ptr(), z.data_ptr(), out.data_ptr(), K, M, N, Lz,
+                    *plan)
     cauchy_quad.launches += 1
-    return out.real, out.imag
+    return out
 
 
 cauchy_quad.launches = 0
@@ -214,27 +275,25 @@ cauchy_bwd.launches = 0
 
 class _CauchyQuad(torch.autograd.Function):
     """Forward kernel 4, backward kernel 8 (JAX ``_cauchy_quad``), on real
-    tensors only; z is a constant."""
+    tensors only; z is a constant.  The forward returns kernel 4's
+    (K, M, Lz, 2) output as it is; the backward hands kernel 8 its
+    cotangent's real and imaginary parts where they lie."""
 
     @staticmethod
     def forward(ctx, a, b, c, d, z):
         ctx.save_for_backward(a, b, c, d, z)
-        out_re, out_im = cauchy_quad(a, b, c, d, z)
-        return out_re.contiguous(), out_im.contiguous()
+        return cauchy_quad(a, b, c, d, z)
 
     @staticmethod
-    def backward(ctx, g_re, g_im):
+    def backward(ctx, g):
         a, b, c, d, z = ctx.saved_tensors
-        if g_re is None:
-            g_re = torch.zeros_like(g_im)
-        if g_im is None:
-            g_im = torch.zeros_like(g_re)
-        return (*cauchy_bwd(a, b, c, d, z, g_re, g_im), None)
+        return (*cauchy_bwd(a, b, c, d, z, g[..., 0], g[..., 1]), None)
 
 
 def cauchy_sym_fused(v, z, w):
     """Same arguments and result as :func:`cauchy_sym`, through kernels 4
     and 8 (the plain versions for CPU tensors); differentiable in v and w
-    through the coefficient construction."""
-    out_re, out_im = _CauchyQuad.apply(*quad_operands(v, w), z)
-    return torch.complex(out_re, out_im).reshape(*v.shape[:-1], z.shape[0])
+    through the coefficient construction.  The result is a view of kernel
+    4's output."""
+    out = _CauchyQuad.apply(*quad_operands(v, w), z)
+    return torch.view_as_complex(out).reshape(*v.shape[:-1], z.shape[0])

@@ -58,8 +58,9 @@ _SIGNATURES = {
     # u, a, c, bias, khat, D, W, qc, qs, out, B, H, L, n, R, S, Rc, bf16,
     # stream
     "dwst_fftconv_int8": [_P] * 10 + [_I] * 8 + [_P],
-    # a, b, c, d, z, out, K, M, N, Lz, stream
-    "dwst_cauchy": [_P] * 6 + [_I] * 4 + [_P],
+    # kernel 4: a, b, c, d, z, out, K, M, N, Lz, and its plan (threads,
+    # splits, smem; ops/cauchy.py::cauchy_fwd_plan) before the stream
+    "dwst_cauchy": [_P] * 6 + [_I] * 7 + [_P],
     # u, khat, out, B, H, L, n, conj, stream (the _bf16 forms of this and
     # the three training entries below: the same arguments, the
     # activations bf16)

@@ -198,7 +198,7 @@ def _function_cases(dtype, small):
         ("ff", ops.ln_ff_res_train, ops.ln_ff_res_ref, ff),
         ("ff_skip", ops.ln_ff_res_train, ops.ln_ff_res_ref,
          ff + [t(B, H, L)]),
-        ("cauchy", lambda *a: ops.cauchy._CauchyQuad.apply(*a, z),
+        ("cauchy", lambda *a: ops.cauchy._CauchyQuad.apply(*a, z).unbind(-1),
          lambda *a: ops.cauchy_quad_ref(*a, z), quad),
     ]
 
