@@ -6,11 +6,12 @@
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. build the CUDA kernels from ``diffwave_sashimi_torch/csrc`` (with
-   ``nvcc -Xptxas -v`` of ``csrc/cauchy.cu`` and ``csrc/fftconv.cu``
-   beside the build: the registers and spills of each kernel-4 instance
-   ``<K>``, each kernel-8 instance ``<K, PAIRED>`` and each instance
-   ``<M, Q, T>`` of kernels 5 and 5f's radix-16 route, none of which may
-   spill) and require a CUDA device;
+   ``nvcc -Xptxas -v`` of ``csrc/cauchy.cu``, ``csrc/fftconv.cu`` and
+   ``csrc/fftconv_long.cu`` beside the build: the registers and spills
+   of each kernel-4 instance ``<K>``, each kernel-8 instance ``<K,
+   PAIRED>``, each instance ``<M, Q, T>`` of kernels 5 and 5f's radix-16
+   route and kernel 5L's passes, none of which may spill) and require a
+   CUDA device;
 2. build the shipped SC09 model (d_model 128, n_layers 6, pool [4, 4],
    expand 2, ff 2, L 16000) from a seed, with a perturbed (normally
    zero-initialised) final conv, and save it as a checkpoint in a
@@ -82,7 +83,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    version's, the Stockham kernel held against the plain version, timed
    in CUDA graphs in turns with the radix-16 route and at each chunk size
    the plan could take (``rows_ms``), beside one ``torch.fft.rfft`` of u
-   and g stacked (``cufft_rfft_ms``, a yardstick);
+   and g stacked (``cufft_rfft_ms``, a yardstick); (7c) the training
+   route past FFT size 32768 at the ljspeech_harder top tier's shapes (B2
+   H128 L44000, n 2^17) and at B4 H128 L30000 (n 2^16): kernel 9's
+   training entries (the conv and its conjugate form) against
+   ``fftconv_long_ref`` and kernel 5L, on f32 and bf16 inputs, against its
+   plain version at TOL_KERNEL, two calls bit-equal, its L2 error against
+   complex128 at most twice the plain version's, timed in a CUDA graph
+   beside a ``torch.fft.rfft`` of u and g (a yardstick);
 8. the training path: a seeded synthetic SC09 corpus (one-second 16 kHz
    ``*_nohash_*.wav`` clips, a few per digit folder) and the port's
    ``runtime.train.main`` with ``experiment=sc09 compute.precision=f32``
@@ -198,7 +206,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
     corpus (checkpoint at 2), then a resume from 'max' for one more
     (checkpoint 3, whose Adam state must show 4 steps); finite losses, no
     kernel launched (the training form has none, as in JAX); then the
-    training step timed;
+    training step timed; (23b) the shipped WaveNet training command, bf16
+    with no precision override, 3 iterations (no kernel launched, finite
+    losses, an f32 checkpoint), and the bf16 trajectory gate: TRAJ_STEPS
+    Adam steps at bf16 and at f32 from one init, per-step losses within
+    TRAJ_TOL;
 24. a wider SaShiMi, d_model 256 (tiers H 256, 512, 1024) at L 16000 from
     a seed, depth cut to n_layers 1: the channel mixers (kernels 2, 3, 6,
     7 and their f forms) against their plain versions at its H 1024 tier
@@ -208,14 +220,34 @@ Phases, each fatal on failure (non-zero exit, no result line):
     complex128 beside the plain version, timed in a CUDA graph); at f32 and
     at bf16 one eps forward and one training step through the kernels
     against the plain path, each with exact launch counts of every kernel,
-    and the eps step timed.
+    and the eps step timed;
+25. vocoder training: seeded synthetic 22050 Hz LJSpeech clips and the
+    port's ``runtime.train.main(["experiment=ljspeech", ...])`` at its
+    shipped bf16 and at f32, 3 iterations each at full width and B4,
+    exact launch counts (the SC09 training kernels' per step), finite
+    losses, checkpoint 2; one training step of the seeded full-width
+    vocoder (mel terms through autograd) at each of two seeded batches,
+    kernels vs plain at phase 9's bar (f32) and phase 9b's (bf16; its
+    per-tensor bar over the tensors with the scalar gradients stacked by
+    kind), and the bf16 step timed;
+26. ``experiment=ljspeech_harder`` (L 44000, hop 2048, mel_upsample [32,
+    64], B2) through ``main`` at bf16, 3 iterations: per step exactly 24
+    launches of kernel 9's training entry (12 of them its conjugate form)
+    and 12 of kernel 5L (the top tier, n 2^17), 1f 36 and 5f 18 (n 32768
+    and 8192),
+    30 each of 2f, 3f, 4, 6f, 7f, 8; its gradients kernels vs plain as in
+    phase 25 at depth cut to n_layers 2 (HARDER_GRAD_LAYERS: the plain
+    path's memory), the bf16 step timed at full depth; kernels 4 and 8 at
+    its top tier (Lz 22001), 6f and 7f at L 44000, 1f and 5f at L 11000
+    vs plain.
 
 It prints the card's name and power limit, one JSON line with the kernels
 (each with its bound: the larger of its bytes over the HBM rate and its
 fp32 operations over the fp32 peak, at the top tier's shapes of the path
 that runs it), and last ``{"ok": true, "device": {...}}``.  The config
 blocks below are ``load_config(["experiment=sc09"])``,
-``load_config(["experiment=ljspeech"])`` and the model block of
+``load_config(["experiment=ljspeech"])``, the model and dataset blocks of
+``load_config(["experiment=ljspeech_harder"])`` and the model block of
 ``load_config(["experiment=sc09_wavenet"])`` written out (a CPU test pins
 them), so this script imports nothing of the JAX package.
 """
@@ -283,6 +315,17 @@ TRAIN_BF16_LAUNCHES = {"fftconv_bf16": 4 * 60, "fftconv_dkf_bf16": 4 * 30,
 # from the f32 ones was median 8.8e-3, entry 4.4e-3: the median and entry
 # bars sit between the two.
 TOL_GRAD_BF16 = {"median": 5e-3, "worst": 0.25, "entry": 5e-3}
+# phases 25 and 26 hold the vocoder's bf16 gradients at those bars, its
+# scalar gradients (TransposedLN's m and s, the mel upsampler's weight_g
+# and bias) stacked by kind: each is a sum over every position that
+# cancels up to some hundredfold, so bf16 roundings move it by its own
+# size on either bf16 path (vocoder_grads.py at five seeds: single scalars
+# kernels vs plain up to 4.09 relative, the plain bf16 path vs f32 up to
+# 8.88), while each kind across the blocks (the parameter's name without
+# its block, as norm2.m) as one tensor agrees within 0.024 and the mel
+# upsampler's effective weight gradients within 0.091; at VOC_GRAD_SEEDS,
+# two seeded batches
+VOC_GRAD_SEEDS = (SEED + 31, SEED + 33)
 # the quality gate of bf16 training: per-step losses of TRAJ_STEPS Adam
 # steps at bf16 vs f32 from one init, |bf16 - f32| <= atol + rtol |f32|
 # (the JAX suite's trajectory bar, tests/test_train_dynamics.py:116)
@@ -371,6 +414,46 @@ DKF_BATCHES = (1, 3, 6)
 # kernel 11f's case beside them: C a multiple of 8 but not 16, S != C and a
 # ragged L, so its zero padding runs on the card
 GATE_BF16_RAGGED = (2, 24, 40, 333)
+# phase 7c: the training route past FFT size 32768, (B, H, L, n): the
+# ljspeech_harder top tier's shapes (B2, L 44000, n 2^17) and one n 2^16
+# shape (B4, L 30000)
+LONG_TRAIN_CASES = ((2, 128, 44000, 1 << 17), (4, 128, 30000, 1 << 16))
+# phases 25 and 26: vocoder training through runtime.train.main on seeded
+# synthetic LJSpeech clips (phase 12's utterance at VOC_TRAIN_CLIPS
+# pitches), VOC_TRAIN_ITERS iterations (n_iters + 1), checkpoint at 2
+VOC_TRAIN_CLIPS = 4
+VOC_TRAIN_ITERS = 3
+VOC_TRAIN_ARGS = ["train.n_iters=2", "train.iters_per_ckpt=2",
+                  "train.iters_per_logging=1", "generate.n_samples=0"]
+# one bf16 (f32) SaShiMi training step whose 30 blocks all convolve at FFT
+# sizes up to 32768 (SC09, experiment=ljspeech): kernel 1f's (1's)
+# training entry twice a block (the conv and its conjugate form), the rest
+# once
+TRAIN_BF16_STEP = {"fftconv_bf16": 60, "fftconv_dkf_bf16": 30,
+                   "glu_res_bf16": 30, "glu_res_bwd_bf16": 30,
+                   "ln_ff_res_bf16": 30, "ln_ff_res_bwd_bf16": 30,
+                   "cauchy": 30, "cauchy_bwd": 30}
+TRAIN_F32_STEP = {"fftconv": 60, "fftconv_dkf": 30, "glu_res": 30,
+                  "glu_res_bwd": 30, "ln_ff_res": 30, "ln_ff_res_bwd": 30,
+                  "cauchy": 30, "cauchy_bwd": 30}
+# experiment=ljspeech_harder at bf16: its top tier's 12 blocks (L 44000, n
+# 2^17) take kernel 9's training entry twice (the conv and its conjugate
+# form) and kernel 5L once, the 18 below (n 32768 and 8192) kernels 1f and
+# 5f
+HARDER_BF16_STEP = dict(TRAIN_BF16_STEP, fftconv_bf16=36,
+                        fftconv_dkf_bf16=18, fftconv_long=24,
+                        fftconv_dkf_long=12)
+# its config (load_config(["experiment=ljspeech_harder"]), pinned by a CPU
+# test)
+HARDER_MODEL_CFG = dict(VOC_MODEL_CFG, L=44000, mel_upsample=[32, 64])
+HARDER_DATASET_CFG = dict(VOC_DATASET_CFG, segment_length=44000,
+                          hop_length=2048)
+HARDER_SAMPLES = 2                # its train.batch_size_per_gpu
+# phase 26's gradients kernels vs plain at depth cut to n_layers 2: the
+# plain path's S4 kernel construction at Lz 22001 keeps (H, N, Lz)
+# complex intermediates under autograd, 0.72 GB each at the top tier's H
+# 128, and at the full depth's 30 blocks its step passes the card's 80 GB
+HARDER_GRAD_LAYERS = 2
 
 # name -> (source, TPU kernel it replaces, the paths that launch it)
 KERNELS = {
@@ -402,8 +485,15 @@ KERNELS = {
     "fftconv_long_ln_bias_gelu_d": (
         "diffwave_sashimi_torch/csrc/fftconv_long.cu",
         "diffwave_sashimi_tpu/ops/fftconv_pallas.py:78", ("vocode",)),
+    # its TPU contract, the conv the training route takes past FFT size
+    # 32768, and the same with conj(K), its input gradient
     "fftconv_long": ("diffwave_sashimi_torch/csrc/fftconv_long.cu",
-                     "diffwave_sashimi_tpu/ops/fftconv_pallas.py:78", ()),
+                     "diffwave_sashimi_tpu/ops/fftconv_pallas.py:78",
+                     ("vocoder_train_harder",)),
+    # kernel 5L: fftconv2.py:707's function past kernel 5's FFT sizes
+    "fftconv_dkf_long": ("diffwave_sashimi_torch/csrc/fftconv_long.cu",
+                         "diffwave_sashimi_tpu/ops/fftconv2.py:707",
+                         ("vocoder_train_harder",)),
     "gate_res_skip": ("diffwave_sashimi_torch/csrc/wavenet_gate.cu",
                       "diffwave_sashimi_tpu/ops/wavenet_gate.py:58",
                       ("wavenet",)),
@@ -427,16 +517,20 @@ KERNELS = {
     # entry and conjugate form), 5, 6 and 7
     "fftconv_bf16": ("diffwave_sashimi_torch/csrc/fftconv.cu",
                      "diffwave_sashimi_tpu/ops/fftconv2.py:427",
-                     ("train_bf16",)),
+                     ("train_bf16", "vocoder_train",
+                      "vocoder_train_harder")),
     "fftconv_dkf_bf16": ("diffwave_sashimi_torch/csrc/fftconv.cu",
                          "diffwave_sashimi_tpu/ops/fftconv2.py:707",
-                         ("train_bf16",)),
+                         ("train_bf16", "vocoder_train",
+                          "vocoder_train_harder")),
     "glu_res_bwd_bf16": ("diffwave_sashimi_torch/csrc/chmix.cu",
                          "diffwave_sashimi_tpu/ops/chmix.py:414",
-                         ("train_bf16",)),
+                         ("train_bf16", "vocoder_train",
+                          "vocoder_train_harder")),
     "ln_ff_res_bwd_bf16": ("diffwave_sashimi_torch/csrc/chmix.cu",
                            "diffwave_sashimi_tpu/ops/chmix.py:362",
-                           ("train_bf16",)),
+                           ("train_bf16", "vocoder_train",
+                            "vocoder_train_harder")),
     # the bf16 sampling forms (fast=True) of kernels 9 and 11
     "fftconv_long_ln_bias_gelu_d_bf16": (
         "diffwave_sashimi_torch/csrc/fftconv_long.cu",
@@ -448,13 +542,19 @@ KERNELS = {
 PATHS = ("generate", "train", "vocode", "wavenet", "wavenet_train",
          "generate_bf16", "generate_int8", "train_bf16", "vocode_bf16",
          "wavenet_bf16", "d256_eps", "d256_eps_bf16", "d256_train",
-         "d256_train_bf16")
+         "d256_train_bf16", "vocoder_train", "vocoder_train_f32",
+         "vocoder_train_harder", "wavenet_train_bf16")
 # the tier of the JSON line's entry, where it is not H128 at the path's L
+# (5L's at the bf16 path's dtype)
 TOP_TIER = {"gate_res_skip": f"B{N_SAMPLES}_C256_S256_L16000",
-            "gate_res_skip_bf16": f"B{N_SAMPLES}_C256_S256_L16000"}
-# kernel 9's entries compute kernel 1's functions (at larger n)
+            "gate_res_skip_bf16": f"B{N_SAMPLES}_C256_S256_L16000",
+            "fftconv_long": "H128_L44000",
+            "fftconv_dkf_long": "H128_L44000_bf16"}
+# kernel 9's entries compute kernel 1's functions (at larger n), kernel
+# 5L kernel 5's
 SAME_FUNCTION = {"fftconv_long_ln_bias_gelu_d": "fftconv_ln_bias_gelu_d",
-                 "fftconv_long": "fftconv"}
+                 "fftconv_long": "fftconv",
+                 "fftconv_dkf_long": "fftconv_dkf"}
 # vocoding at T = 50: launches of each kernel of the path (24 blocks at
 # n > 32768, 6 at n = 16384, 30 in all; kernel 4 once per block and run)
 VOC_LAUNCHES = {"fftconv_long_ln_bias_gelu_d": 24 * 50,
@@ -480,6 +580,7 @@ PORT_KERNELS = ("fftconv_kernel", "fftconv_r16_kernel",
                 "cauchy_bwd_reduce_kernel",
                 "cols_fwd_kernel",
                 "rows_kernel", "cols_inv_kernel", "fftconv_cluster_kernel",
+                "dkf_cols_kernel", "dkf_rows_kernel",
                 "gate_res_skip_kernel", "gate_res_skip_tc_kernel",
                 "round_gate_weights_kernel", "fftconv_int8_kernel")
 # kernel 9's two routes: 9f's cluster kernel (n 2^16 and 2^17, the
@@ -551,7 +652,10 @@ def log(msg):
 
 
 # the sources whose instances phase 1 reads ptxas's report of
-PTXAS_SOURCES = ("cauchy.cu", "fftconv.cu")
+PTXAS_SOURCES = ("cauchy.cu", "fftconv.cu", "fftconv_long.cu")
+# kernel 5L's instances: pass A by input type, pass B
+KERNEL_5L = ("dkf_cols_kernel<float>", "dkf_cols_kernel<bf16>",
+             "dkf_rows_kernel")
 
 
 def start_ptxas():
@@ -571,11 +675,12 @@ def start_ptxas():
 def ptxas_report(procs):
     """{__global__ instance: registers a thread, spill stores and loads in
     bytes} from ptxas's reports, of kernel 4 (``cauchy_fwd_kernel<K>``),
-    of kernel 8 (``name<K, PAIRED>``) and of kernels 5 and 5f's radix-16
-    route (``fftconv_dkf_r16_kernel<M, Q, T>``); raise if nvcc failed, an
-    instance spills or one of kernels 4's and 8's K 1-8 or of the route's
-    M (n 2048 .. 32768, each with its transforms a block Q) and T (float,
-    bf16) is missing."""
+    of kernel 8 (``name<K, PAIRED>``), of kernels 5 and 5f's radix-16
+    route (``fftconv_dkf_r16_kernel<M, Q, T>``) and of kernel 5L's two
+    passes (KERNEL_5L); raise if nvcc failed, an instance spills or one of
+    kernels 4's and 8's K 1-8, of the route's M (n 2048 .. 32768, each
+    with its transforms a block Q) and T (float, bf16) or of 5L's is
+    missing."""
     fc = importlib.import_module("diffwave_sashimi_torch.ops.fftconv")
     out = {}
     for src, proc in zip(PTXAS_SOURCES, procs):
@@ -591,6 +696,8 @@ def ptxas_report(procs):
             dkf = re.search(r"Compiling entry function '\w*?(fftconv_dkf_r16_"
                             r"kernel)ILi(\d+)ELi(\d+)E(f|13__nv_bfloat16)E",
                             line)
+            k5l = re.search(r"Compiling entry function '\w*?\d(dkf_(?:cols|"
+                            r"rows)_kernel)(?:I(f|13__nv_bfloat16)E)?", line)
             if k8:
                 name = k8.group(1) + (
                     f"<{k8.group(2)}, "
@@ -601,6 +708,10 @@ def ptxas_report(procs):
             elif dkf:
                 name = (f"{dkf.group(1)}<{dkf.group(2)}, {dkf.group(3)}, "
                         f"{'float' if dkf.group(4) == 'f' else 'bf16'}>")
+            elif k5l:
+                name = k5l.group(1) + (
+                    "" if k5l.group(2) is None else
+                    f"<{'float' if k5l.group(2) == 'f' else 'bf16'}>")
             else:
                 continue
             props = " ".join(lines[i + 1:i + 5])
@@ -615,7 +726,8 @@ def ptxas_report(procs):
             for p in ("true", "false")} | {
         f"cauchy_fwd_kernel<{K}>" for K in range(1, 9)} | {
         f"fftconv_dkf_r16_kernel<{n // 2}, {q}, {t}>"
-        for n, q in fc.DKF_PER_BLOCK.items() for t in ("float", "bf16")}
+        for n, q in fc.DKF_PER_BLOCK.items() for t in ("float", "bf16")} | {
+        *KERNEL_5L}
     spills = [k for k, v in out.items()
               if v["spill_stores"] != 0 or v["spill_loads"] != 0]
     if want - out.keys() or spills:
@@ -1867,14 +1979,16 @@ def grad_batch(torch, dev):
             torch.randn(N_SAMPLES, 1, 16000, device=dev, generator=g))
 
 
-def step_grads(torch, model, audio, t, z, route):
-    """(loss, {name: grad}) of one training step through ``route``."""
+def step_grads(torch, model, audio, t, z, route, mel=None,
+               diffusion=DIFFUSION_CFG):
+    """(loss, {name: grad}) of one training step through ``route`` (a
+    conditional model's ``mel``; ``diffusion``'s schedule)."""
     from diffwave_sashimi_torch import ops
     from diffwave_sashimi_torch.diffusion.loss import training_loss
     from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
     model.zero_grad(set_to_none=True)
-    loss = training_loss(model, audio, schedule_from_cfg(DIFFUSION_CFG),
-                         t=t, z=z, ops=getattr(ops, route))
+    loss = training_loss(model, audio, schedule_from_cfg(diffusion),
+                         t=t, z=z, ops=getattr(ops, route), mel=mel)
     loss.backward()
     grads = {n: p.grad.clone() for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
@@ -1889,10 +2003,13 @@ def grad_distance(mine, ref):
     names = [n for n in ref if n != "init_conv.0.conv.weight_v"]
     per = {n: float((mine[n] - ref[n]).norm() / ref[n].norm()) for n in names}
     worst = max(per, key=per.get)
-    entry = max(float((mine[n] - ref[n]).abs().max()) for n in names)
+    errs = {n: float((mine[n] - ref[n]).abs().max()) for n in names}
+    entry = max(errs, key=errs.get)
     return {"median": float(sorted(per.values())[len(per) // 2]),
             "worst": per[worst], "worst_tensor": worst,
-            "entry": entry / max(float(ref[n].abs().max()) for n in names)}
+            "entry": errs[entry] / max(float(ref[n].abs().max())
+                                       for n in names),
+            "entry_tensor": entry}
 
 
 def check_gradients_bf16(torch, model, dev):
@@ -1920,10 +2037,11 @@ def check_gradients_bf16(torch, model, dev):
     return out
 
 
-def check_bf16_trajectory(torch, model, dev):
-    """Phase 9c: TRAJ_STEPS Adam steps (lr 2e-4) from the model's
-    parameters at f32 and at bf16, through the kernels, on the same seeded
-    batches, t and z; per-step losses within TRAJ_TOL."""
+def check_bf16_trajectory(torch, model, dev, label="trajectory_bf16"):
+    """Phase 9c (23b for the WaveNet): TRAJ_STEPS Adam steps (lr 2e-4)
+    from the model's parameters at f32 and at bf16, through the kernels,
+    on the same seeded batches, t and z; per-step losses within
+    TRAJ_TOL."""
     import copy
     from diffwave_sashimi_torch import ops
     from diffwave_sashimi_torch.diffusion.loss import training_loss
@@ -1936,16 +2054,16 @@ def check_bf16_trajectory(torch, model, dev):
              for _ in range(TRAJ_STEPS)]
     schedule = schedule_from_cfg(DIFFUSION_CFG)
     losses = {}
-    for label, m in (("f32", copy.deepcopy(model)),
-                     ("bf16", bf16_copy(torch, model))):
+    for dt, m in (("f32", copy.deepcopy(model)),
+                  ("bf16", bf16_copy(torch, model))):
         optim = make_optimizer(m, 2e-4)
-        losses[label] = []
+        losses[dt] = []
         for audio, t, z in draws:
             optim.zero_grad(set_to_none=True)
             loss = training_loss(m, audio, schedule, t=t, z=z, ops=ops.FUSED)
             loss.backward()
             optim.step()
-            losses[label].append(loss.item())
+            losses[dt].append(loss.item())
         del m, optim
     diff = [abs(b - f) for b, f in zip(losses["bf16"], losses["f32"])]
     ok = all(math.isfinite(v) for v in losses["bf16"]) and all(
@@ -1954,7 +2072,7 @@ def check_bf16_trajectory(torch, model, dev):
     out = {"losses": losses, "max_abs_diff": max(diff),
            "max_rel_diff": max(d / abs(f) for d, f in
                                zip(diff, losses["f32"]))}
-    log(f"phase trajectory_bf16: {TRAJ_STEPS} Adam steps, per-step losses "
+    log(f"phase {label}: {TRAJ_STEPS} Adam steps, per-step losses "
         f"bf16 vs f32 {json.dumps(out)} (bar {TRAJ_TOL}) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -2344,15 +2462,16 @@ def time_train_step_bf16(torch, model, dev):
     return out
 
 
-def write_utterance(path):
+def write_utterance(path, pitch=1.0):
     """Phase 12: a seeded synthetic utterance of VOC_SECONDS at 22050 Hz,
-    int16: five harmonics of a gliding pitch, a chirp and noise."""
+    int16: five harmonics of a gliding pitch (times ``pitch``), a chirp
+    and noise."""
     import numpy as np
     from scipy.io import wavfile
     sr = VOC_DATASET_CFG["sampling_rate"]
     n = int(VOC_SECONDS * sr)
     t = np.arange(n) / sr
-    f0 = 120.0 + 30.0 * np.sin(2 * np.pi * 0.4 * t)
+    f0 = pitch * (120.0 + 30.0 * np.sin(2 * np.pi * 0.4 * t))
     phase = 2 * np.pi * np.cumsum(f0) / sr
     wav = sum(0.2 / k * np.sin(k * phase) for k in range(1, 6))
     wav = wav + 0.05 * np.sin(2 * np.pi * (200.0 + 300.0 * t) * t)
@@ -3078,6 +3197,324 @@ def run_wavenet_training(torch, root, model, launches, dev):
     return losses, step_ms
 
 
+def check_long_training_kernels(torch, dev, results):
+    """Phase 7c: the training route past FFT size 32768 at
+    LONG_TRAIN_CASES, on seeded u, g and a decaying seeded kernel's
+    spectrum: kernel 9's training entry (``fftconv_long``, f32, the three
+    passes, and its conjugate form, the ``_conj`` tier) against
+    ``fftconv_long_ref``, and kernel 5L (``fftconv_dkf_long``, f32 and
+    bf16 inputs) against its plain version (``fftconv_dkf_ref``), each at
+    TOL_KERNEL x max(1, max|plain|) and timed (``compare``); 5L's relative
+    L2 error against complex128 at most twice the plain version's, two
+    calls bit-equal, its device time in a CUDA graph (``graph_ms``) and one
+    ``torch.fft.rfft`` of u and g stacked beside it (``cufft_rfft_ms``, a
+    yardstick the port never calls)."""
+    from diffwave_sashimi_torch import ops
+    fl = importlib.import_module("diffwave_sashimi_torch.ops.fftconv_long")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    for B, H, L, n in LONG_TRAIN_CASES:
+        base = f"H{H}_L{L}" if B == 2 else f"B{B}_H{H}_L{L}"
+        decay = torch.exp(-torch.arange(n, device=dev) / (n / 16))
+        khat = torch.fft.rfft(0.01 * decay * torch.randn(
+            H, n, device=dev, generator=gen), n=n)
+        kp = ops.long_spectrum(khat)
+        u, g = (torch.randn(B, H, L, device=dev, generator=gen)
+                for _ in range(2))
+        for conj, x, tier in ((False, u, base), (True, g, base + "_conj")):
+            compare("fftconv_long", H, L,
+                    lambda x=x, conj=conj: ops.fftconv_long(x, kp, conj),
+                    lambda x=x, conj=conj: fl.fftconv_long_ref(x, kp, conj),
+                    5, results, B=B, n=n, tier=tier)
+        for dtype, bpe, tier in ((torch.float32, 4, base),
+                                 (torch.bfloat16, 2, base + "_bf16")):
+            ud, gd = u.to(dtype), g.to(dtype)
+            compare("fftconv_dkf_long", H, L,
+                    lambda: ops.fftconv_dkf_long(ud, gd, n),
+                    lambda: ops.fftconv_dkf_ref(ud, gd, n), 5, results, B=B,
+                    n=n, tier=tier, bpe=bpe)
+            one, two = (fl.launch_dkf_long(ud, gd, n) for _ in range(2))
+            plain = ops.fftconv_dkf_ref(ud, gd, n)
+            wide = ops.fftconv_dkf_ref(ud.double(), gd.double(), n)
+            torch.cuda.synchronize()
+
+            def l2(out):
+                return float((out.to(torch.complex128) - wide).abs().norm()
+                             / wide.abs().norm())
+            errs = {"c128_l2": l2(one), "plain_c128_l2": l2(plain)}
+            equal = torch.equal(one, two)
+            del one, two, plain, wide
+            t = results["fftconv_dkf_long"]["tiers"][tier]
+            t.update(errs, bit_equal=equal,
+                     graph_ms=graph_ms(torch, lambda: fl.launch_dkf_long(
+                         ud, gd, n)),
+                     cufft_rfft_ms=cuda_ms(lambda: torch.fft.rfft(
+                         torch.stack([ud, gd]).float(), n=n), 5))
+            ok = equal and errs["c128_l2"] <= 2 * errs["plain_c128_l2"]
+            log(f"kernel fftconv_dkf_long {tier} n {n}: two calls "
+                f"{'bit-equal' if equal else 'DIFFER'}; vs complex128 L2 "
+                f"{errs['c128_l2']:.3e} (plain {errs['plain_c128_l2']:.3e}) "
+                f"{'ok' if ok else 'FAIL'}; in a CUDA graph "
+                f"{t['graph_ms']:.4f} ms, rfft of u and g "
+                f"{t['cufft_rfft_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
+            if not ok:
+                raise AssertionError(f"kernel fftconv_dkf_long {tier}: two "
+                                     f"calls differ, or its L2 error against "
+                                     f"complex128 is past twice the plain "
+                                     f"version's")
+        del u, g, kp, khat
+        torch.cuda.empty_cache()
+
+
+def write_clips(root):
+    """Phases 25 and 26: VOC_TRAIN_CLIPS seeded synthetic LJSpeech clips
+    (phase 12's utterance at pitches 1, 1.1, 1.2, ...) in ``root``."""
+    os.makedirs(root)
+    for i in range(VOC_TRAIN_CLIPS):
+        write_utterance(os.path.join(root, f"LJ000-{i:04d}.wav"),
+                        1.0 + 0.1 * i)
+
+
+def run_vocoder_training(torch, root, launches, runs, model_cfg,
+                         dataset_cfg):
+    """Phases 25 and 26: for each (path, overrides, per-step launches) of
+    ``runs``, ``runtime.train.main`` (VOC_TRAIN_ARGS) on the synthetic
+    clips in a directory of its own, with every launch count set to 0
+    just before and read just after: exactly VOC_TRAIN_ITERS times the
+    step's counts, finite losses of every iteration, checkpoint 2.
+    Returns {path: {"losses", "s"}}."""
+    import numpy as np
+    from diffwave_sashimi_torch.runtime import train as train_mod
+    from diffwave_sashimi_torch.utils.exp import local_directory
+    data = os.path.join(root, "wavs")
+    write_clips(data)
+    out = {}
+    for path, overrides, step in runs:
+        work = os.path.join(root, path)
+        os.makedirs(work)
+        os.chdir(work)
+        argv = overrides + VOC_TRAIN_ARGS + [f"dataset.data_path={data}"]
+        t0 = time.perf_counter()
+        counted_run(torch, path, {k: VOC_TRAIN_ITERS * v
+                                  for k, v in step.items()}, launches,
+                    lambda: train_mod.main(argv))
+        secs = time.perf_counter() - t0
+        run, ckpt = local_directory(None, model_cfg, VOC_DIFFUSION_CFG,
+                                    dataset_cfg, "checkpoint",
+                                    makedirs=False)
+        with open(os.path.join("exp", run, "metrics.jsonl")) as f:
+            losses = [(r["step"], r["train/loss"])
+                      for r in map(json.loads, f) if "train/loss" in r]
+        log(f"phase {path}: main({' '.join(overrides)}) "
+            f"{VOC_TRAIN_ITERS} iterations in {secs:.2f} s wall (building "
+            f"the model and the loader included); losses {losses}; "
+            f"checkpoints {sorted(os.listdir(ckpt))}; launches "
+            f"{launches[path]}")
+        if [i for i, _ in losses] != list(range(VOC_TRAIN_ITERS)) or \
+                not all(np.isfinite(v) for _, v in losses):
+            raise AssertionError(f"{path} losses {losses}")
+        if not os.path.exists(os.path.join(ckpt, "2.pkl")):
+            raise AssertionError(f"{path}: checkpoint 2.pkl was not written")
+        out[path] = {"losses": losses, "s": secs}
+    return out
+
+
+def stack_scalars(grads):
+    """grads with its scalars stacked by kind, a kind being the parameter's
+    name without its block (``c_layers.1.norm2.m`` -> ``scalars:norm2.m``);
+    the other tensors as they are."""
+    import torch
+    out, kinds = {}, {}
+    for n, g in grads.items():
+        if g.numel() > 1:
+            out[n] = g
+        else:
+            kinds.setdefault(re.sub(r"^[a-z]+_layers\.\d+\.", "", n),
+                             []).append(g.reshape(()))
+    out.update({f"scalars:{k}": torch.stack(v) for k, v in kinds.items()})
+    return out
+
+
+def hold_vocoder_grads_bf16(torch, label, loss, loss_plain, grads,
+                            grads_plain, grads32):
+    """Phases 25 and 26's bf16 hold of one step, kernels vs the bf16 plain
+    path: phase 9b's median and entry bars over the tensors (the loss to
+    the entry bar) and its per-tensor bar over the tensors with the
+    scalars stacked by kind (``stack_scalars``).  Returns the distances,
+    the stacked ones, and the plain bf16 path's from the plain f32 path
+    (``grads32``)."""
+    vs_plain = grad_distance(grads, grads_plain)
+    stacked = grad_distance(stack_scalars(grads), stack_scalars(grads_plain))
+    finite = all(bool(torch.isfinite(v).all()) for v in grads.values())
+    ok = finite and stacked["worst"] <= TOL_GRAD_BF16["worst"] and all(
+        vs_plain[k] <= TOL_GRAD_BF16[k] for k in ("median", "entry")) and \
+        abs(loss - loss_plain) <= TOL_GRAD_BF16["entry"] * abs(loss_plain)
+    out = {"loss": loss, "loss_plain": loss_plain, "vs_plain": vs_plain,
+           "stacked_vs_plain": stacked,
+           "plain_vs_f32": grad_distance(grads_plain, grads32),
+           "stacked_plain_vs_f32": grad_distance(
+               stack_scalars(grads_plain), stack_scalars(grads32))}
+    log(f"phase {label}: {json.dumps(out)} (bars {TOL_GRAD_BF16}: median "
+        f"and entry over the tensors, the loss to the entry bar, worst over "
+        f"the tensors with the scalars stacked by kind) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: bf16 gradients through the kernels "
+                             f"disagree")
+    return out
+
+
+def check_vocoder_train_grads(torch, cfg, dataset_cfg, B, dev, label,
+                              grad_layers=None):
+    """Phases 25 and 26: one training step of the vocoder ``cfg`` (built
+    from a seed, full width; depth cut to ``grad_layers`` where given) on
+    a seeded (audio, t, z, mel) at its segment length and batch B, at each
+    of VOC_GRAD_SEEDS: at f32 every gradient through the kernels held
+    against torch autograd of the plain versions (ops.PLAIN) on the card at
+    phase 9's bar (``hold_gradients``), at bf16 at phase 9b's
+    (``hold_vocoder_grads_bf16``); then the training step (forward,
+    backward, Adam) of ``cfg`` at full depth timed at the bf16 path.
+    Returns its numbers."""
+    from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
+    from diffwave_sashimi_torch.runtime.train import (make_optimizer,
+                                                      train_step)
+    L, hop = dataset_cfg["segment_length"], dataset_cfg["hop_length"]
+    model = build_model(torch, dict(cfg, n_layers=grad_layers)
+                        if grad_layers else cfg).to(dev)
+    T = VOC_DIFFUSION_CFG["T"]
+    out = {"grad_layers": grad_layers or cfg["n_layers"], "seeds": {}}
+    for seed in VOC_GRAD_SEEDS:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        audio = 0.3 * torch.randn(B, 1, L, device=dev, generator=gen)
+        t = torch.randint(0, T, (B,), device=dev, generator=gen)
+        z = torch.randn(B, 1, L, device=dev, generator=gen)
+        mel = torch.randn(B, 80, L // hop + 1, device=dev, generator=gen)
+        batch = (audio, t, z)
+        losses, grads = {}, {}
+        for route in ("FUSED", "PLAIN"):
+            losses[route], grads[route] = step_grads(
+                torch, model, *batch, route, mel, VOC_DIFFUSION_CFG)
+        f32_worst = hold_gradients(f"{label}_grads_seed{seed}", losses,
+                                   grads)
+        grads32 = grads.pop("PLAIN")
+        del grads
+        bfm = bf16_copy(torch, model)
+        loss, grads = step_grads(torch, bfm, *batch, "FUSED", mel,
+                                 VOC_DIFFUSION_CFG)
+        loss_plain, grads_plain = step_grads(torch, bfm, *batch, "PLAIN",
+                                             mel, VOC_DIFFUSION_CFG)
+        del bfm
+        out["seeds"][str(seed)] = dict(hold_vocoder_grads_bf16(
+            torch, f"{label}_grads_bf16_seed{seed}", loss, loss_plain,
+            grads, grads_plain, grads32), f32_worst=f32_worst)
+        del grads, grads_plain, grads32
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    bfm = bf16_copy(torch, build_model(torch, cfg).to(dev))
+    schedule = schedule_from_cfg(VOC_DIFFUSION_CFG)
+    optim = make_optimizer(bfm, 2e-4)
+    bfm.train()
+    out["step_ms_bf16"] = cuda_ms(lambda: train_step(
+        bfm, optim, audio, schedule, gen, mel=mel), 3)
+    log(f"timing: {label} bf16 training step (forward, backward, Adam) at "
+        f"B{B} L{L} {out['step_ms_bf16']:.3f} ms")
+    del bfm, optim
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_harder_kernels(torch, dev, results):
+    """Phase 26: the ljspeech_harder model's kernels off SC09's shapes, vs
+    their plain versions at its tiers (B4, bf16 activations, a seeded
+    full-width model): kernels 4 and 8 at the top tier (Lz 22001), held as
+    in phase 7 (``hold_kernel_4``, ``hold_kernel_8``), 6f and 7f at L
+    44000, and 1f's training entry, its conjugate form and 5f at L 11000
+    (n 32768, the radix-16 route)."""
+    from diffwave_sashimi_torch import ops
+    model = build_model(torch, HARDER_MODEL_CFG).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    bf = torch.bfloat16
+    for H, L, blk in tier_blocks(model)[:2]:
+        d = tier_inputs(torch, blk, L, gen, dev)
+        x, g, y, khat, lin = (d["x"].to(bf), d["g"].to(bf), d["y"].to(bf),
+                              d["khat"], d["lin"])
+        tier = f"H{H}_L{L}"
+        if L == 44000:
+            ff = (x, d["m2"], d["s2"], d["w1"], d["b1"], d["w2"], d["b2"], g)
+            cauchy = (*d["quad"], d["z"], d["g_re"], d["g_im"])
+            cases = [
+                ("cauchy",
+                 lambda: ops.cauchy_quad(*d["quad"], d["z"]).unbind(-1),
+                 lambda: ops.cauchy_quad_ref(*d["quad"], d["z"]),
+                 TOL_KERNEL, 4),
+                ("cauchy_bwd", lambda: ops.cauchy_bwd(*cauchy),
+                 lambda: ops.cauchy_bwd_ref(*cauchy), TOL_KERNEL, 4),
+                ("glu_res_bwd_bf16",
+                 lambda: ops.glu_res_bwd_bf16(y, lin.weight, lin.bias, g),
+                 lambda: ops.glu_res_bwd_ref(y, lin.weight, lin.bias, g),
+                 TOL_BF16, 2),
+                ("ln_ff_res_bwd_bf16", lambda: ops.ln_ff_res_bwd_bf16(*ff),
+                 lambda: ops.ln_ff_res_bwd_ref(*ff), TOL_BF16, 2)]
+        else:
+            n = d["n"]
+            cases = [
+                ("fftconv_bf16", lambda: ops.fftconv_bf16(x, khat),
+                 lambda: ops.fftconv_ref(x, khat), TOL_BF16, 2),
+                ("fftconv_bf16", lambda: ops.fftconv_bf16(g, khat, conj=True),
+                 lambda: ops.fftconv_ref(g, khat, conj=True), TOL_BF16, 2),
+                ("fftconv_dkf_bf16", lambda: ops.fftconv_dkf_bf16(x, g, n),
+                 lambda: ops.fftconv_dkf_ref(x, g, n), TOL_BF16, 2)]
+        for name, kfn, pfn, tol, bpe in cases:
+            compare(name, H, L, kfn, pfn, 3, results, tol=tol, bpe=bpe)
+        if L == 44000:
+            hold_kernel_4(torch, d, tier, results)
+            hold_kernel_8(torch, d, tier, results)
+        del d
+    del model
+    torch.cuda.empty_cache()
+
+
+def run_wavenet_training_bf16(torch, root, model, launches, dev):
+    """Phase 23b: the shipped WaveNet training command (bf16, no precision
+    override) on phase 8's synthetic corpus, 3 iterations (checkpoint 2),
+    with no kernel launched (the training form has none, as in JAX),
+    finite losses and an f32 checkpoint; then the quality gate of bf16
+    training: TRAJ_STEPS Adam steps at bf16 and at f32 from ``model``'s
+    parameters (``check_bf16_trajectory``)."""
+    import numpy as np
+    from diffwave_sashimi_torch.runtime import train as train_mod
+    from diffwave_sashimi_torch.utils.exp import local_directory
+    data = os.path.join(root, "sc09")
+    write_corpus(data)
+    argv = [o for o in WNET_TRAIN_OVERRIDES
+            if not o.startswith("compute.precision")] + [
+        "train.n_iters=2", "train.iters_per_ckpt=2",
+        f"dataset.data_path={data}"]
+    t0 = time.perf_counter()
+    counted_run(torch, "wavenet_train_bf16", {}, launches,
+                lambda: train_mod.main(argv))
+    secs = time.perf_counter() - t0
+    run, ckpt = local_directory(None, WNET_MODEL_CFG, DIFFUSION_CFG,
+                                DATASET_CFG, "checkpoint", makedirs=False)
+    with open(os.path.join("exp", run, "metrics.jsonl")) as f:
+        losses = [(r["step"], r["train/loss"]) for r in map(json.loads, f)
+                  if "train/loss" in r]
+    saved = torch.load(os.path.join(ckpt, "2.pkl"), weights_only=True)
+    dtypes = {str(t.dtype) for t in saved["model_state_dict"].values()}
+    log(f"phase wavenet_train_bf16: main() with no precision override, 3 "
+        f"iterations in {secs:.2f} s wall (building the model included); "
+        f"losses {losses}; 2.pkl tensors {dtypes}; launches "
+        f"{launches['wavenet_train_bf16']}")
+    if [i for i, _ in losses] != [0, 1, 2] or not all(
+            np.isfinite(v) for _, v in losses) or dtypes != {
+            "torch.float32"}:
+        raise AssertionError(f"bf16 wavenet training: losses {losses}, "
+                             f"checkpoint tensors {dtypes}")
+    traj = check_bf16_trajectory(torch, model, dev, "wavenet_trajectory_bf16")
+    return {"losses": losses, "s": secs, "trajectory": traj}
+
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -3088,7 +3525,7 @@ def main():
     from diffwave_sashimi_torch.runtime.generate import generate
     from diffwave_sashimi_torch.utils.exp import local_directory
 
-    # phase 1: build (and ptxas's report on kernels 4, 8, 5 and 5f beside
+    # phase 1: build (and ptxas's report on kernels 4, 8, 5, 5f and 5L beside
     # it), then require the card
     t0 = time.perf_counter()
     ptxas = start_ptxas()
@@ -3096,7 +3533,7 @@ def main():
     ptxas = ptxas_report(ptxas)
     log(f"phase build: kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s; ptxas, kernels 4, 8, 5 and 5f's "
-        f"radix-16 route: {json.dumps(ptxas)}")
+        f"radix-16 route and 5L: {json.dumps(ptxas)}")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the smoke test runs on a GPU")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3200,6 +3637,9 @@ def main():
     with torch.no_grad():
         check_training_kernels(torch, model, dev, results)
         check_bf16_training_kernels(torch, model, dev, results)
+        # phase 7c: the training route past FFT size 32768 (kernel 9's
+        # training entries, kernel 5L)
+        check_long_training_kernels(torch, dev, results)
 
     # phase 8: the training path through runtime.train.main; 8b the
     # shipped (bf16) training command, in a directory of its own
@@ -3267,6 +3707,30 @@ def main():
     del voc_model
     torch.cuda.empty_cache()
 
+    # phases 25 and 26: vocoder training through runtime.train.main on
+    # synthetic clips, experiment=ljspeech at bf16 and f32 and
+    # experiment=ljspeech_harder at bf16, each with exact launch counts;
+    # their gradients, kernels vs plain; 26's kernels at its tiers
+    def train_vocoder(runs, cfg, dataset):
+        return lambda torch, root, launches: run_vocoder_training(
+            torch, root, launches, runs, cfg, dataset)
+    voc_train = in_temp_dir("voc_train", train_vocoder(
+        [("vocoder_train", ["experiment=ljspeech"], TRAIN_BF16_STEP),
+         ("vocoder_train_f32", ["experiment=ljspeech",
+                                "compute.precision=f32"], TRAIN_F32_STEP)],
+        VOC_MODEL_CFG, VOC_DATASET_CFG))
+    voc_train["grads"] = check_vocoder_train_grads(
+        torch, VOC_MODEL_CFG, VOC_DATASET_CFG, N_SAMPLES, dev,
+        "vocoder_train")
+    harder = in_temp_dir("harder_train", train_vocoder(
+        [("vocoder_train_harder", ["experiment=ljspeech_harder"],
+          HARDER_BF16_STEP)], HARDER_MODEL_CFG, HARDER_DATASET_CFG))
+    harder["grads"] = check_vocoder_train_grads(
+        torch, HARDER_MODEL_CFG, HARDER_DATASET_CFG, HARDER_SAMPLES, dev,
+        "vocoder_train_harder", HARDER_GRAD_LAYERS)
+    with torch.no_grad():
+        check_harder_kernels(torch, dev, results)
+
     # phases 18-20: the WaveNet checkpoint, kernel 11, sampling through
     # generate()
     wn_root = tempfile.TemporaryDirectory(prefix="dwst_smoke_wnet_")
@@ -3307,6 +3771,11 @@ def main():
     finally:
         os.chdir(cwd)
         wn_train_root.cleanup()
+    # phase 23b: the shipped (bf16) WaveNet training command and the bf16
+    # trajectory gate
+    wn_train_bf16 = in_temp_dir(
+        "wnet_train_bf16", lambda torch, root, launches:
+        run_wavenet_training_bf16(torch, root, wn_model, launches, dev))
     del wn_model
     torch.cuda.empty_cache()
 
@@ -3356,7 +3825,11 @@ def main():
             entries[-1]["global_kernels"] = [KERNEL_4]
             entries[-1]["ptxas"] = {k: v for k, v in ptxas.items()
                                     if k.startswith(KERNEL_4)}
-        if name.startswith("fftconv_dkf"):
+        if name == "fftconv_dkf_long":
+            entries[-1]["global_kernels"] = ["dkf_cols_kernel",
+                                             "dkf_rows_kernel"]
+            entries[-1]["ptxas"] = {k: ptxas[k] for k in KERNEL_5L}
+        elif name.startswith("fftconv_dkf"):
             entries[-1]["ptxas"] = {k: v for k, v in ptxas.items()
                                     if k.startswith("fftconv_dkf")}
         if name.startswith("fftconv_long"):     # the same function
@@ -3380,6 +3853,9 @@ def main():
         "vocode_bf16": voc_bf16,
         "bf16_int8": bf16_path,
         "train_bf16": train_bf16,
+        "vocoder_train": voc_train,
+        "vocoder_train_harder": harder,
+        "wavenet_train_bf16": wn_train_bf16,
         "d256": d256,
         "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {

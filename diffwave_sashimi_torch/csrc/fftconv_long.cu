@@ -1,5 +1,7 @@
 // Long S4 FFT convolution (kernel 9): the four-step conv, for FFT sizes
-// past one block's shared memory.
+// past one block's shared memory; and kernel 5L, the conv spectrum's
+// gradient at those sizes, on the same four-step transform (its design
+// is above its two kernels, dkf_cols_kernel and dkf_rows_kernel).
 //
 // Replaces the TPU kernels diffwave_sashimi_tpu/ops/fftconv_pallas.py::
 // _kernel (fftconv_fused, the per-row four-step DFT as matmuls) and its
@@ -9,7 +11,8 @@
 //
 // for u (B, H, L) float32 and the spectrum khat of the combined
 // bidirectional S4 kernel at any power of two 256 <= n <= 2^20 with
-// L <= n, in factorized (k1, k2) order.  The sampling entry adds kernel 1's
+// L <= n, in factorized (k1, k2) order; its training entry also takes
+// conj(khat), the conv's input gradient.  The sampling entry adds kernel 1's
 // prologue u' = a u + c + bias (a, c (B, L) norm1 as scale and shift; bias
 // (B, H) the step bias) and epilogue gelu_erf(y + D u').
 //
@@ -306,17 +309,21 @@ __device__ __forceinline__ void store_cols(
   }
 }
 
-// z[q st + pad(k2)] *= kb[q N2 + k2] over the rows q of N2 values that
-// the nt threads' VPT values each cover, 2 G loads of kb in flight (the
-// three-pass route's row pass).
+// z[q st + pad(k2)] *= kb[q N2 + k2] (conj(kb[...]) with conj) over the
+// rows q of N2 values that the nt threads' VPT values each cover, 2 G
+// loads of kb in flight (the three-pass route's row pass).
 __device__ __forceinline__ void spectrum_product(
-    float2* z, const float2* __restrict__ kb, int N2, int tid, int nt) {
+    float2* z, const float2* __restrict__ kb, int N2, int tid, int nt,
+    bool conj) {
   const int st = Pad::stride(N2);
 #pragma unroll
   for (int g = 0; g < VPT; g += 2 * G) {
     float2 k[2 * G];
 #pragma unroll
-    for (int m = 0; m < 2 * G; ++m) k[m] = kb[tid + (g + m) * nt];
+    for (int m = 0; m < 2 * G; ++m) {
+      k[m] = kb[tid + (g + m) * nt];
+      if (conj) k[m] = cconj(k[m]);
+    }
 #pragma unroll
     for (int m = 0; m < 2 * G; ++m) {
       const int i = tid + (g + m) * nt, q = i / N2;
@@ -355,7 +362,7 @@ cols_fwd_kernel(const T* __restrict__ u, const float* __restrict__ a,
 // Pass B.  blockIdx.x: a run of rpb rows k1 of one r.
 __global__ void __launch_bounds__(ROW_THREADS)
 rows_kernel(float2* __restrict__ S, const float2* __restrict__ kp, Dims d,
-            int rpb) {
+            int rpb, bool conj) {
   extern __shared__ float2 z[];    // rpb rows of N2 values
   const int N1 = d.N1, N2 = d.N2, st = Pad::stride(N2);
   const int row0 = blockIdx.x * rpb;           // over (r, k1)
@@ -369,7 +376,7 @@ rows_kernel(float2* __restrict__ S, const float2* __restrict__ kp, Dims d,
   __syncthreads();
   const int fpt = N2 / VPT, rr = tid / fpt, lane = tid - rr * fpt;
   fft<false>(z + rr * st, N2, lane, fpt);
-  spectrum_product(z, kp + ((size_t)h * N1 + k10) * N2, N2, tid, nt);
+  spectrum_product(z, kp + ((size_t)h * N1 + k10) * N2, N2, tid, nt, conj);
   __syncthreads();
   fft<true>(z + rr * st, N2, lane, fpt);
   for (int i = tid; i < rpb * N2; i += nt) {
@@ -402,6 +409,151 @@ cols_inv_kernel(const float2* __restrict__ S, const T* __restrict__ u,
   const int fpt = N1 / VPT, col = tid / fpt;
   fft<true>(z + col * st, N1, tid - col * fpt, fpt);
   store_cols<FUSED, TC, Pad>(z, u, a, c, bias, D, out, d, w, c0, tid, nt);
+}
+
+// Kernel 5L, the spectrum gradient past kernel 5's FFT sizes (one block's
+// shared memory caps kernel 5 at n 32768): it replaces the TPU kernel
+// diffwave_sashimi_tpu/ops/fftconv2.py::_dkf_kernel (fftconv2_dkf) at
+// 2^16 <= n <= 2^20, with kernel 5's function (csrc/fftconv.cu),
+//
+//   dkhat[h, k] = c_k sum_b conj(U_b[k]) G_b[k],  U = rfft(u), G = rfft(g)
+//
+// at size n, c_k = 1/n at the DC and Nyquist bins and 2/n between them,
+// for u and g (B, H, L) float32 or bf16.  Each real row x (u_b or g_b of
+// one channel h) is the M = n/2 point complex transform Z of the packed
+// pairs z[m] = x[2m] + i x[2m+1], split into its spectrum
+//
+//   X[k] = E[k] + W_n^k O[k],  E = (Z[k] + conj Z[M-k]) / 2,
+//   O = (Z[k] - conj Z[M-k]) / 2i,  X[M] = Re Z[0] - Im Z[0],
+//
+// so u's and g's spectra keep their own scales (a product of one packed
+// transform of u + i g would carry u's rounding into a small g's bins).
+// Z is kernel 9's four-step transform (M = N1 N2, time m = n1 N2 + n2,
+// frequency k = k1 + N1 k2), in two passes through a device-memory
+// scratch S, one M-point row per (b, h, u or g) in (k1, n2) order:
+//
+//   A (dkf_cols_kernel): each block takes TC columns n2 of one row, loads
+//     the packed pairs (zero past L), runs the N1-point column FFTs, and
+//     writes S[k1][n2] times the twiddle W_M^(n2 k1);
+//   B (dkf_rows_kernel): each block takes one channel and the rows of
+//     rpb / 2 pairs {k1, N1 - k1} (the first pair {0, N1/2}), which hold
+//     each of their bins k together with its partner M - k; for b = 0 ..
+//     B-1 in order it loads those rows of u_b and g_b, runs the N2-point
+//     row FFTs, splits each bin's U and G, and adds conj(U) G to the bin's
+//     sum in a register of the one thread that owns the bin; then it
+//     scales and stores the bins.
+//
+// The batch is summed in b order by one thread a bin, so two calls give
+// the same bits, and the (B, H, n/2+1) spectra never reach device memory.
+// What bounds it on the H100: the function reads u and g once and writes
+// the half spectrum once (B2 H128 L44000 n 2^17: 0.16 GB, 0.05 ms at 3.35
+// TB/s; its transforms take about as long at the fp32 peak).  The scratch
+// round trip moves 2 x 8 n bytes a (b, h) beyond that (0.54 GB there): a
+// redesign that holds a row in a thread-block cluster, as kernel 9f does,
+// would keep it in shared memory.
+
+// The row k1 of a slot's pair p: side 0 p, side 1 its partner row.
+__device__ __forceinline__ int dkf_row(int p, int side, int N1) {
+  return side == 0 ? p : (p == 0 ? N1 / 2 : N1 - p);
+}
+
+// X[k] of a real row from its packed transform: a = Z[k], c = Z[M-k],
+// w = W_n^k.
+__device__ __forceinline__ float2 split_bin(float2 a, float2 c, float2 w) {
+  const float2 e = make_float2(0.5f * (a.x + c.x), 0.5f * (a.y - c.y));
+  const float2 o = make_float2(0.5f * (a.y + c.y), -0.5f * (a.x - c.x));
+  return cadd(e, cmul(w, o));
+}
+
+// Pass A of kernel 5L.  blockIdx.x: the row r = 2 (b H + h) + s (s 0 for
+// u, 1 for g); blockIdx.y: the column tile; d: the M-point split, 2/M.
+template <typename T>
+__global__ void __launch_bounds__(1024)
+dkf_cols_kernel(const T* __restrict__ u, const T* __restrict__ g,
+                float2* __restrict__ S, Dims d) {
+  extern __shared__ float2 z[];    // TC columns of N1 values
+  const int r = blockIdx.x;
+  const T* x = ((r & 1) ? g : u) + (size_t)(r >> 1) * d.L;
+  const int c0 = blockIdx.y * TC;
+  const int N1 = d.N1, N2 = d.N2, L = d.L, st = Pad::stride(N1);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  for (int i = tid; i < TC * N1; i += nt) {
+    const int n1 = i / TC, cc = i - n1 * TC;
+    const int t = 2 * (n1 * N2 + c0 + cc);
+    z[cc * st + pad(n1)] = make_float2(t < L ? to_f(x[t]) : 0.0f,
+                                       t + 1 < L ? to_f(x[t + 1]) : 0.0f);
+  }
+  __syncthreads();
+  const int fpt = N1 / VPT, col = tid / fpt;
+  fft<false>(z + col * st, N1, tid - col * fpt, fpt);
+
+  float2* Sr = S + (size_t)r * N1 * N2;
+  for (int i = tid; i < TC * N1; i += nt) {
+    const int k1 = i / TC, cc = i - k1 * TC;
+    const int n2 = c0 + cc;
+    Sr[(size_t)k1 * N2 + n2] =
+        cmul(z[cc * st + pad(k1)], twiddle<false>(n2 * k1, d.two_over_n));
+  }
+}
+
+// Pass B of kernel 5L.  blockIdx.x: pairs [x rpb/2, (x+1) rpb/2);
+// blockIdx.y: the channel h.  z holds slot q's row of u_b in q and of g_b
+// in rpb + q, slot q the row dkf_row(p0 + q / 2, q % 2); the launch sizes
+// 2 rpb N2 = ROW_THREADS VPT, so a thread owns VPT / 2 bins.
+__global__ void __launch_bounds__(ROW_THREADS)
+dkf_rows_kernel(const float2* __restrict__ S, float2* __restrict__ out,
+                Dims d, int rpb) {
+  extern __shared__ float2 z[];
+  constexpr int BINS = VPT / 2;
+  const int N1 = d.N1, N2 = d.N2, M = N1 * N2, st = Pad::stride(N2);
+  const int h = blockIdx.y, p0 = blockIdx.x * (rpb / 2);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int fpt = N2 / VPT, rr = tid / fpt;
+  const float inv_m = 0.5f * d.two_over_n;       // 2/n: W_n^k's argument
+  float2 acc[BINS];
+  float acc_nyq = 0.0f;                          // bin M, real
+#pragma unroll
+  for (int e = 0; e < BINS; ++e) acc[e] = make_float2(0.0f, 0.0f);
+
+#pragma unroll 1
+  for (int b = 0; b < d.B; ++b) {
+    const float2* Sb = S + (size_t)(b * d.H + h) * 2 * M;
+    for (int i = tid; i < 2 * rpb * N2; i += nt) {
+      const int s = i / N2, k2 = i - s * N2;
+      const int of_g = s >= rpb, q = s - of_g * rpb;
+      const int k1 = dkf_row(p0 + q / 2, q & 1, N1);
+      z[s * st + pad(k2)] = Sb[(size_t)of_g * M + (size_t)k1 * N2 + k2];
+    }
+    __syncthreads();
+    fft<false>(z + rr * st, N2, tid - rr * fpt, fpt);
+#pragma unroll
+    for (int e = 0; e < BINS; ++e) {
+      const int i = tid + e * nt, q = i / N2, k2 = i - q * N2;
+      const int k1 = dkf_row(p0 + q / 2, q & 1, N1);
+      const int k = k1 + N1 * k2, kr = (M - k) & (M - 1);
+      const int k1r = kr & (N1 - 1), k2r = kr / N1;
+      const int qr = k1r == k1 ? q : (q ^ 1);
+      const float2 w = twiddle<false>(k, inv_m);
+      const float2 zu = z[q * st + pad(k2)], zg = z[(q + rpb) * st + pad(k2)];
+      const float2 xu = split_bin(zu, z[qr * st + pad(k2r)], w);
+      const float2 xg = split_bin(zg, z[(qr + rpb) * st + pad(k2r)], w);
+      acc[e] = cadd(acc[e], cmul(cconj(xu), xg));
+      if (k == 0) acc_nyq += (zu.x - zu.y) * (zg.x - zg.y);
+    }
+    __syncthreads();
+  }
+
+  float2* o = out + (size_t)h * (M + 1);
+  const float c_edge = 0.25f * d.two_over_n;     // 1/n
+  const float c_mid = 0.5f * d.two_over_n;       // 2/n
+#pragma unroll
+  for (int e = 0; e < BINS; ++e) {
+    const int i = tid + e * nt, q = i / N2, k2 = i - q * N2;
+    const int k = dkf_row(p0 + q / 2, q & 1, N1) + N1 * k2;
+    const float c = k == 0 ? c_edge : c_mid;
+    o[k] = make_float2(c * acc[e].x, c * acc[e].y);
+    if (k == 0) o[M] = make_float2(c_edge * acc_nyq, 0.0f);
+  }
 }
 
 // Kernel 9f's cluster route at n = N1 N2, C = n / CLUSTER_VALUES blocks a
@@ -643,7 +795,7 @@ template <bool FUSED, typename T>
 int launch_long(const T* u, const float* a, const float* c,
                 const float* bias, const void* kp, const float* D,
                 void* scratch, T* out, int B, int H, int L, int n,
-                cudaStream_t stream) {
+                cudaStream_t stream, bool conj = false) {
   if (bad_size(n, L) || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
   const Dims d = dims(B, H, L, n);
   const int R = (B + 1) / 2 * H;     // rows r = pair * H + h
@@ -665,10 +817,35 @@ int launch_long(const T* u, const float* a, const float* c,
       u, a, c, bias, S, d);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   rows_kernel<<<R * d.N1 / rpb, rpb * d.N2 / VPT, smem_row, stream>>>(
-      S, static_cast<const float2*>(kp), d, rpb);
+      S, static_cast<const float2*>(kp), d, rpb, conj);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   cols_inv_kernel<FUSED, T><<<col_grid, col_threads, smem_col, stream>>>(
       S, u, a, c, bias, D, out, d);
+  return (int)cudaGetLastError();
+}
+
+// Kernel 5L through its scratch (B H n complex64): pass A over 2 B H rows,
+// pass B over the channels.
+template <typename T>
+int launch_dkf_long(const T* u, const T* g, void* scratch, void* out, int B,
+                    int H, int L, int n, cudaStream_t stream) {
+  if (bad_size(n, L) || n < (1 << 16) || B < 1 || H < 1)
+    return (int)cudaErrorInvalidValue;
+  const Dims d = dims(B, H, L, n / 2);
+  float2* S = static_cast<float2*>(scratch);
+  const size_t smem_col = (size_t)TC * Pad::stride(d.N1) * sizeof(float2);
+  const int rpb = ROW_THREADS * VPT / (2 * d.N2);
+  const size_t smem_row =
+      (size_t)2 * rpb * Pad::stride(d.N2) * sizeof(float2);
+  cudaError_t e;
+  if ((e = allow_smem(dkf_cols_kernel<T>, smem_col)) != cudaSuccess ||
+      (e = allow_smem(dkf_rows_kernel, smem_row)) != cudaSuccess)
+    return (int)e;
+  dkf_cols_kernel<T><<<dim3(2 * B * H, d.N2 / TC), TC * d.N1 / VPT,
+                       smem_col, stream>>>(u, g, S, d);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  dkf_rows_kernel<<<dim3(d.N1 / rpb, H), ROW_THREADS, smem_row, stream>>>(
+      S, static_cast<float2*>(out), d, rpb);
   return (int)cudaGetLastError();
 }
 
@@ -702,11 +879,33 @@ extern "C" int dwst_fftconv_long_ln_bias_gelu_d_bf16(
                            stream);
 }
 
+// The TPU kernel's contract, the training conv: conj 0 y = conv(u, k),
+// conj 1 the same with conj(kp), its input gradient (k is real, and the
+// output is as long as the input).
 extern "C" int dwst_fftconv_long(const float* u, const void* kp,
                                  void* scratch, float* out, int B, int H,
-                                 int L, int n, cudaStream_t stream) {
+                                 int L, int n, int conj, cudaStream_t stream) {
   return launch_long<false, float>(u, nullptr, nullptr, nullptr, kp,
-                                   nullptr, scratch, out, B, H, L, n, stream);
+                                   nullptr, scratch, out, B, H, L, n, stream,
+                                   conj != 0);
+}
+
+// Kernel 5L: u, g (B, H, L) float32, scratch B H n complex64, out (H,
+// n/2+1) complex64, 2^16 <= n <= 2^20.
+extern "C" int dwst_fftconv_dkf_long(const float* u, const float* g,
+                                     void* scratch, void* out, int B, int H,
+                                     int L, int n, cudaStream_t stream) {
+  return launch_dkf_long(u, g, scratch, out, B, H, L, n, stream);
+}
+
+// Kernel 5L, u and g bf16.
+extern "C" int dwst_fftconv_dkf_long_bf16(const void* u, const void* g,
+                                          void* scratch, void* out, int B,
+                                          int H, int L, int n,
+                                          cudaStream_t stream) {
+  return launch_dkf_long(static_cast<const __nv_bfloat16*>(u),
+                         static_cast<const __nv_bfloat16*>(g), scratch, out,
+                         B, H, L, n, stream);
 }
 
 // How many clusters of 9f's cluster kernel at FFT size n (C = n / 16384

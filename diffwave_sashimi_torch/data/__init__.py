@@ -1,6 +1,7 @@
-"""Data layer of the port: the SC09 dataset and loader.  The vocoder's mel
-front end lives in ``stft`` and ``mel2samp``; the latter is also a CLI
-(``python -m``), so this package does not import it."""
+"""Data layer of the port: the SC09 and LJSpeech (``mel2samp``) datasets
+and their loader.  The vocoder's mel front end lives in ``stft`` and
+``mel2samp``; the latter is also a CLI (``python -m``), so this package
+does not import it."""
 
 from .loader import DataLoader, dataloader
 from .sc09 import SpeechCommands

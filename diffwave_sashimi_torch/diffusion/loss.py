@@ -22,10 +22,13 @@ def training_loss(model, audio: torch.Tensor, schedule: DiffusionSchedule,
                   generator: Optional[torch.Generator] = None,
                   t: Optional[torch.Tensor] = None,
                   z: Optional[torch.Tensor] = None,
-                  ops: Ops = FUSED) -> torch.Tensor:
+                  ops: Ops = FUSED,
+                  mel: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The eps-prediction MSE for clean audio (B, 1, L); differentiable in
     the model's parameters.  ``t`` (B,) int and ``z`` (B, 1, L), when given,
-    replace the draws from ``generator``."""
+    replace the draws from ``generator``; ``mel`` (B, 80, frames), the
+    conditional model's spectrogram, goes to the model (JAX's
+    ``mel_spec``)."""
     B = audio.shape[0]
     if t is None:
         t = torch.randint(0, schedule.T, (B,), generator=generator,
@@ -35,5 +38,5 @@ def training_loss(model, audio: torch.Tensor, schedule: DiffusionSchedule,
                         device=audio.device, dtype=audio.dtype)
     abar = schedule.alpha_bar.to(audio.device)[t].reshape(B, 1, 1)
     x_t = abar.sqrt() * audio + (1.0 - abar).sqrt() * z
-    eps = model(x_t, t, ops=ops, train=True)
+    eps = model(x_t, t, ops=ops, train=True, mel=mel)
     return torch.mean((eps.float() - z.float()) ** 2)

@@ -5,11 +5,10 @@ keys are constructor keywords, and keys the constructor does not take are
 dropped (as the reference's ``**kwargs`` swallows them), except
 ``kernel_fft_fast``, which changes the numerics in JAX and is refused.
 ``precision`` sets the activation dtype of either backbone: f32, or bf16
-(the shipped default), which samples every model (SC09 SaShiMi and
-WaveNet, the vocoder) and trains unconditional SaShiMi at kernel 1's FFT
-sizes; the bf16 training paths still unported, f32 training on the card
-past kernel 1's FFT sizes, and on the card SaShiMi widths the
-channel-mixer kernels do not take, are refused by name.
+(the shipped default), which samples and trains every model (SC09 SaShiMi
+and WaveNet, the vocoder, unconditional and mel-conditioned); on the card
+SaShiMi widths the channel-mixer kernels do not take are refused by name,
+and training past the long conv's FFT size 2^20 by its size.
 """
 
 from __future__ import annotations
@@ -25,11 +24,6 @@ from .wavenet import WaveNet
 _REGISTRY = {"sashimi": Sashimi, "wavenet": WaveNet}
 _DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
            "f32": torch.float32, "float32": torch.float32}
-BF16_WAVENET_TRAIN_TODO = ("bf16 WaveNet training is not ported: "
-                           "ROADMAP.md queue 1, item 1")
-BF16_VOCODER_TRAIN_TODO = ("bf16 mel-conditioned training (vocoder "
-                           "training) is not ported: ROADMAP.md queue 1, "
-                           "items 1 and 2")
 KERNEL_FFT_FAST_TODO = ("model.kernel_fft_fast (the precision of the S4 "
                         "kernel construction's FFT) is not ported: "
                         "ROADMAP.md queue 1, item 1")
@@ -61,14 +55,8 @@ def check_supported(model_cfg: Dict[str, Any], precision: str,
     if name == "sashimi" and device_type == "cuda":
         check_mixer_widths(arg("d_model"), arg("expand"), len(arg("pool")),
                            arg("ff"), dtype, train)
-    if not train:
-        return
-    if dtype == torch.bfloat16 and name == "wavenet":
-        raise NotImplementedError(BF16_WAVENET_TRAIN_TODO)
-    if dtype == torch.bfloat16 and not model_cfg.get("unconditional", True):
-        raise NotImplementedError(BF16_VOCODER_TRAIN_TODO)
-    if name == "sashimi":
-        check_train_length(int(arg("L")), dtype, device_type)
+    if train and name == "sashimi":
+        check_train_length(int(arg("L")), device_type)
 
 
 def construct_model(model_cfg: Dict[str, Any], precision: str = "f32",

@@ -18,17 +18,20 @@ linear + GLU + residual (kernel 2), and norm2 + FF + residual + UNet skip
 (kernel 3), which also emits the channel statistics the next block's norm1
 needs; only the first block after a pool computes them itself.  With ``train=True`` each block runs the training
 form (JAX models/sashimi.py:193-220): norm1 and the step bias in autograd,
-then the S4 training path, then norm2 + FF + residual + UNet skip as one
-differentiable Function (kernels 3 and 7); the S4 kernels are rebuilt
-with gradients in every forward.
+then the S4 training path (its conv by kernels 1 and 5 up to FFT size
+32768, by kernel 9's training entries and kernel 5L past it, up to 2^20),
+then norm2 + FF + residual + UNet skip as one differentiable Function
+(kernels 3 and 7); the S4 kernels are rebuilt with gradients in every
+forward.
 
 The conditional (vocoder) model adds, in every block, ``mel_conv(upsample(
 mel))`` to the residual that kernel 2 adds (JAX models/sashimi.py:237-242,
 equal to the reference's post-S4 add).  The term depends only on the mel
 and the parameters, so :meth:`Sashimi.compute_mel_conds` computes all 30
-once per run, like the S4 kernels.  At a pooled tier it is the full-rate
-upsampled mel cut to that tier's length, as in the JAX package and the
-reference.
+once per run, like the S4 kernels; the training form computes each
+block's term in the block, under autograd, and adds it to the same
+residual.  At a pooled tier it is the full-rate upsampled mel cut to that
+tier's length, as in the JAX package and the reference.
 
 ``dtype=torch.bfloat16`` is the JAX package's bf16 policy (models/
 sashimi.py:725, :739-743): the input is cast once, activations, skips and
@@ -36,8 +39,9 @@ pool outputs are bf16, the step embedding is made in f32 and cast,
 channel statistics (norm1, TransposedLN, kernel 3's emitted ones) are
 f32, the S4 spectra stay complex64, the kernels take their bf16 forms
 (sampling: 1f or, past kernel 1's FFT sizes, 9f, 2f, 3f, or 12 with the
-int8 ops; training: 1f, 2f, 3f forward, 1f, 5f, 6f, 7f backward, at FFT
-sizes up to kernel 1's) and eps is returned as f32.  The parameters, and
+int8 ops; training: 1f, 2f, 3f forward, 1f, 5f, 6f, 7f backward, and past
+kernel 1's FFT sizes kernel 9 on the widened activations and kernel 5L on
+the bf16 ones) and eps is returned as f32.  The parameters, and
 so their gradients, stay f32.  The mel is cast to bf16 before its terms
 are computed, so they and the residual ``x + mel_cond`` are bf16 too.
 """
@@ -52,33 +56,22 @@ import torch.nn as nn
 
 from ..ops import FUSED, Ops, chmix, widen
 from ..ops.conv import TorchLinear, WNConv1d, ZeroConv1d, swish
-from ..ops.fftconv_long import KERNEL1_MAX_N
+from ..ops.fftconv_long import MAX_N
 from ..ops.mel_upsample import MelUpsampler
 from .embedding import diffusion_step_embedding
 from .s4 import S4
 
-BF16_LONG_TRAIN_TODO = ("bf16 training at FFT sizes past 32768 (the "
-                        "vocoder's lengths) needs the bf16 training form of "
-                        "kernel 9, which is not ported: ROADMAP.md queue 1, "
-                        "item 1")
-F32_LONG_TRAIN_TODO = ("f32 training on the card at FFT sizes past 32768 "
-                       "(the vocoder's lengths) needs the training route "
-                       "through kernel 9, which is not ported: ROADMAP.md "
-                       "queue 1, item 1")
-
-
-def check_train_length(L: int, dtype: torch.dtype, device_type: str) -> None:
-    """Raise NotImplementedError, before anything runs, where the port
-    cannot train on sequences of L samples: past kernel 1's FFT sizes
-    (n = the power of two >= 2L above 32768) at bf16 on any device, and
-    at f32 on the card (kernel 1's training entry refuses them; the CPU's
-    plain path trains them, as JAX does)."""
-    if 1 << (2 * L - 1).bit_length() <= KERNEL1_MAX_N:
-        return
-    if dtype == torch.bfloat16:
-        raise NotImplementedError(BF16_LONG_TRAIN_TODO)
-    if device_type == "cuda":
-        raise NotImplementedError(F32_LONG_TRAIN_TODO)
+def check_train_length(L: int, device_type: str) -> None:
+    """Raise ValueError, before anything runs, where the card cannot train
+    on sequences of L samples: past the long conv's FFT size MAX_N (n =
+    the power of two >= 2L; kernels 9 and 5L stop there).  Up to it every
+    length trains at either precision, through kernels 1 and 5 up to FFT
+    size 32768 and kernel 9's training entries and kernel 5L past it; the
+    CPU's plain path trains any length, as JAX does."""
+    n = 1 << (2 * L - 1).bit_length()
+    if device_type == "cuda" and n > MAX_N:
+        raise ValueError(f"FFT size {n} (L {L}) is past the long conv's "
+                         f"{MAX_N}: training segment too long for the card")
 
 
 def check_mixer_widths(d_model: int, expand: int, n_pools: int, ff: int,
@@ -206,10 +199,16 @@ class DiffWaveBlock(nn.Module):
             emit_stats=True)
         return out, (mean, var)
 
-    def forward_train(self, x, embed, khat, skip=None, ops: Ops = FUSED):
-        """The differentiable block: out [+ skip]."""
+    def forward_train(self, x, embed, khat, skip=None, ops: Ops = FUSED,
+                      mel_cond=None):
+        """The differentiable block: out [+ skip].  ``mel_cond`` (B or 1,
+        H, L) joins the residual that the GLU kernel (2 and 6, or 2f and
+        6f) takes, in x's dtype (JAX models/sashimi.py:204-210); its
+        gradient reaches the upsampler and mel_conv through autograd of
+        that sum."""
         y = self.norm1(x) + self.fc_t(embed)[:, :, None]
-        x = self.layer.forward_train(y, khat, residual=x, ops=ops)
+        res = x if mel_cond is None else x + mel_cond.to(x.dtype)
+        x = self.layer.forward_train(y, khat, residual=res, ops=ops)
         ff1, ff2 = self.ff["ff"][0], self.ff["ff"][2]
         return ops.ff_train(
             x, self.norm2.m, self.norm2.s, ff1.effective_weight()[:, :, 0],
@@ -332,12 +331,7 @@ class Sashimi(nn.Module):
             raise ValueError("a conditional model takes a mel (mel or "
                              "mel_conds), an unconditional one none")
         if train:
-            check_train_length(audio.shape[-1], self.act_dtype,
-                               audio.device.type)
-        if train and conditioned:
-            raise NotImplementedError(
-                "training the mel-conditioned model is not ported yet: "
-                "ROADMAP.md queue 1, item 2 (vocoder training)")
+            check_train_length(audio.shape[-1], audio.device.type)
         if kernels is None:
             kernels = self.compute_kernels(audio.shape[-1], ops, train)
         khats = iter(kernels)
@@ -349,12 +343,12 @@ class Sashimi(nn.Module):
         embed = swish(self.fc_t2(swish(self.fc_t1(embed))))
 
         def block(layer, x, stats, skip=None):
-            if train:
-                return layer.forward_train(x, embed, next(khats), skip,
-                                           ops=ops), None
             cond = next(conds) if conds is not None else (
                 None if mel is None
                 else layer.compute_mel_cond(mel, x.shape[-1]))
+            if train:
+                return layer.forward_train(x, embed, next(khats), skip,
+                                           ops=ops, mel_cond=cond), None
             return layer(x, embed, next(khats), stats, skip=skip, ops=ops,
                          mel_cond=cond)
 

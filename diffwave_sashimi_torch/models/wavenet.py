@@ -17,8 +17,9 @@ state-dict names (``init_conv.0.conv.*``, ``residual_layer.fc_t1/fc_t2``,
 The diffusion-step embedding goes through the two shared swish FC layers
 (fc_t1/fc_t2) and one FC per block (fc_t).  At eval time every block's tail
 goes through ``ops.gate`` at any length (the JAX guard L % 128 == 0 is a TPU
-lane constraint); ``train=True`` differentiates the plain tail under
-autograd, as the JAX training path has no kernel there.  A block's mel term
+lane constraint); ``train=True`` differentiates the plain tail
+(``gate_res_skip_ref``) under autograd at either precision, as the JAX
+training path has no kernel there.  A block's mel term
 depends only on the mel and the parameters, so :meth:`WaveNet.
 compute_mel_conds` may compute all of them once per run (the JAX package
 recomputes them every step; the function is the same).

@@ -10,7 +10,9 @@ the card compares the kernels' outputs and gradients with plain ones.
 conv swapped for the int8 conv (kernel 12; ``+compute.conv_int8=true``).
 Every wrapper takes the bf16 path's form (kernels 1f or 9f, 2f, 3f and
 11f at sampling; 1f's training entry, 5f, 6f, 7f in training) for bf16
-activations, by the tensors' dtype.
+activations, by the tensors' dtype; past kernel 1's FFT sizes the training
+conv takes kernel 9's training entries (bf16 widened to f32) and kernel 5L
+at either precision.
 """
 
 from typing import Callable, NamedTuple
@@ -29,12 +31,13 @@ from .fftconv import (fftconv, fftconv_bf16, fftconv_dkf, fftconv_dkf_bf16,
                       widen)
 from .int8conv import (fftconv_int8, fftconv_int8_ref, int8_spectrum,
                        s4_conv_int8, s4_conv_int8_ref)
-from .fftconv_long import (fftconv_long, fftconv_long_ln_bias_gelu_d,
+from .fftconv_long import (fftconv_dkf_long, fftconv_long,
+                           fftconv_long_ln_bias_gelu_d,
                            fftconv_long_ln_bias_gelu_d_bf16,
                            fftconv_long_ln_bias_gelu_d_bf16_ref,
                            fftconv_long_ln_bias_gelu_d_ref, fftconv_long_ref,
-                           long_spectrum, s4_conv, s4_conv_ref,
-                           sampling_spectrum)
+                           fftconv_long_train, long_spectrum, s4_conv,
+                           s4_conv_ref, sampling_spectrum)
 from .wavenet_gate import gate_res_skip, gate_res_skip_bf16, gate_res_skip_ref
 
 
@@ -43,7 +46,7 @@ class Ops(NamedTuple):
     glu: Callable         # kernel 2: output linear + GLU + residual
     ff: Callable          # kernel 3: norm2 + FF + residual (+ skip, stats)
     cauchy: Callable      # kernels 4 (+ 8): Cauchy sum of the S4 kernel
-    conv_train: Callable  # kernels 1 (+ conj) and 5: the plain S4 conv
+    conv_train: Callable  # kernels 1 (+ conj) and 5, or 9 (+ conj) and 5L
     glu_train: Callable   # kernels 2 and 6
     ff_train: Callable    # kernels 3 and 7
     gate: Callable        # kernel 11 (11f): WaveNet gate + res/skip tail
@@ -66,7 +69,9 @@ COUNTED = {"fftconv_ln_bias_gelu_d": fftconv_ln_bias_gelu_d,
            "fftconv_dkf": fftconv_dkf, "glu_res_bwd": glu_res_bwd,
            "ln_ff_res_bwd": ln_ff_res_bwd, "cauchy_bwd": cauchy_bwd,
            "fftconv_long_ln_bias_gelu_d": fftconv_long_ln_bias_gelu_d,
-           "fftconv_long": fftconv_long, "gate_res_skip": gate_res_skip,
+           "fftconv_long": fftconv_long,
+           "fftconv_dkf_long": fftconv_dkf_long,
+           "gate_res_skip": gate_res_skip,
            "fftconv_ln_bias_gelu_d_bf16": fftconv_ln_bias_gelu_d_bf16,
            "glu_res_bf16": mix_glu_res_bf16, "ln_ff_res_bf16": ln_ff_res_bf16,
            "fftconv_int8": fftconv_int8, "fftconv_bf16": fftconv_bf16,

@@ -94,8 +94,11 @@ _SIGNATURES = {
     # (cluster, cols, rows, smem; ops/fftconv_long.py::long_plan) before
     # the stream
     "dwst_fftconv_long_ln_bias_gelu_d_bf16": [_P] * 8 + [_I] * 8 + [_P],
-    # u, kp, scratch, out, B, H, L, n, stream
-    "dwst_fftconv_long": [_P] * 4 + [_I] * 4 + [_P],
+    # u, kp, scratch, out, B, H, L, n, conj, stream
+    "dwst_fftconv_long": [_P] * 4 + [_I] * 5 + [_P],
+    # kernel 5L: u, g, scratch, out, B, H, L, n, stream (u, g f32 or bf16)
+    "dwst_fftconv_dkf_long": [_P] * 4 + [_I] * 4 + [_P],
+    "dwst_fftconv_dkf_long_bf16": [_P] * 4 + [_I] * 4 + [_P],
     # n, smem (no stream): the clusters the card holds at once
     "dwst_fftconv_long_max_clusters": [_I] * 2,
     # h, x, Wr, br, Ws, bs, res, skip, B, C, S, L, stream

@@ -13,7 +13,8 @@ layout, CUDA source ``csrc/fftconv.cu``:
   ``y = irfft(rfft(u, n) khat, n)[:L]`` (:func:`fftconv`), whose input
   gradient is the same conv with ``conj(khat)`` (k is real), and the
   spectrum gradient ``fftconv2_dkf`` (:func:`fftconv_dkf`), wrapped as the
-  autograd Function :func:`fftconv_train`; for bf16 activations their
+  autograd Function :func:`fftconv_train`, which takes the long route of
+  :mod:`.fftconv_long` past kernel 1's FFT sizes; for bf16 activations their
   ``fast=True`` forms, kernel 1f's training entry (:func:`fftconv_bf16`)
   and kernel 5f (:func:`fftconv_dkf_bf16`): bf16 in (and, for the conv,
   out), the transforms f32, the spectrum gradient complex64.
@@ -98,6 +99,9 @@ def gelu_fast_grad(x):
     inner = 0.5 + 2.0 * xc * (p + x2 * pp)
     return torch.where(x > 4.0, torch.ones_like(x),
                        torch.where(x < -4.0, torch.zeros_like(x), inner))
+
+
+KERNEL1_MAX_N = 32768     # kernel 1's largest FFT (one block's shared memory)
 
 
 def _fft_size_of(khat) -> int:
@@ -445,6 +449,11 @@ class _FFTConvTrain(torch.autograd.Function):
 
 def fftconv_train(u, khat):
     """Differentiable S4 conv of the training path (JAX ``fftconv2`` and
-    its custom VJP): kernels 1 and 5 (1f and 5f for bf16 u) on the card,
-    their plain versions on the CPU."""
+    its custom VJP), routed by the FFT size: kernels 1 and 5 (1f and 5f
+    for bf16 u) up to :data:`KERNEL1_MAX_N`, past it kernel 9's training
+    entries and kernel 5L (:func:`.fftconv_long.fftconv_long_train`); on
+    the CPU their plain versions."""
+    if _fft_size_of(khat) > KERNEL1_MAX_N:
+        from .fftconv_long import fftconv_long_train
+        return fftconv_long_train(u, khat)
     return _FFTConvTrain.apply(u.contiguous(), khat.contiguous())

@@ -18,7 +18,8 @@ K of the real combined kernel, with the DC and Nyquist bins real (the
 parts ``irfft`` reads).  Entries:
 
 - :func:`fftconv_long`: ``y = irfft(rfft(u, n) K, n)[:L]``, the TPU
-  kernel's contract;
+  kernel's contract, or with ``conj=True`` the same with ``conj(K)``: the
+  training conv past kernel 1's FFT sizes and its input gradient;
 - :func:`fftconv_long_ln_bias_gelu_d`: the sampling form with kernel 1's
   norm1/bias prologue and D-skip + GELU epilogue; for bf16 activations its
   bf16 form, kernel 9f (:func:`fftconv_long_ln_bias_gelu_d_bf16`).
@@ -31,6 +32,17 @@ route (:func:`long_plan`): at n 2^16 and 2^17 a thread-block cluster that
 holds one transform row in its blocks' shared memory, at every other n
 the three passes.
 
+The training route past kernel 1's FFT sizes, :func:`fftconv_long_train`
+(JAX ``fftconv2``'s custom VJP on its compact layout, which the JAX
+package takes there: ``fftconv2.py:671-704`` and ``:798-840``), is an
+autograd Function: the conv by :func:`fftconv_long`, its input gradient
+by the same with ``conj=True`` (the conv's adjoint, as the output is as
+long as the input), and the spectrum gradient by kernel 5L
+(:func:`fftconv_dkf_long`, the TPU kernel ``fftconv2.py::_dkf_kernel``'s
+function at 2^16 <= n <= 2^20, CUDA source ``csrc/fftconv_long.cu``).
+bf16 activations are widened to f32 for kernel 9 and its result narrowed
+back; kernel 5L reads them as they are.
+
 Kernel 9f computes what the JAX package computes around kernel 9 at bf16
 (its v1 path, ``models/s4.py:705-712``, and its flat path, which computes
 the same function): the bf16 conv input ``u' = a u + c + bias`` rounded to
@@ -39,8 +51,8 @@ exact GELU of that, stored as bf16.  The TPU kernel's ``fast`` flag changes
 only its MXU precision, and off the TPU its fast form is its strict one.
 Kernel 1f's sampling form rounds neither u' nor v and takes ``gelu_fast``
 (the compact path's function), so the two differ there.  The TPU-contract
-entry :func:`fftconv_long` stays f32: its bf16 use is the training form,
-which waits for vocoder training.
+entry :func:`fftconv_long` stays f32: the bf16 training route widens its
+input.
 """
 
 from __future__ import annotations
@@ -51,11 +63,11 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
-from .fftconv import (fftconv_ln_bias_gelu_d, fftconv_ln_bias_gelu_d_ref,
-                      fftconv_ref)
+from .fftconv import (KERNEL1_MAX_N, fftconv_dkf_ref, fftconv_ln_bias_gelu_d,
+                      fftconv_ln_bias_gelu_d_ref, fftconv_ref, widen)
 
-KERNEL1_MAX_N = 32768     # kernel 1's largest FFT (one block's shared memory)
-MAX_N = 1 << 20           # kernel 9's largest (N1, N2 <= 1024)
+MAX_N = 1 << 20           # kernel 9's largest (N1, N2 <= 1024), and 5L's
+DKF_LONG_MIN_N = 1 << 16  # kernel 5L's smallest: kernel 5 takes the rest
 # kernel 9f's cluster route: the complex values a block holds (1024
 # threads x 16, csrc/fftconv_long.cu::CLUSTER_VALUES); the FFT sizes the
 # kernel has instances for, C = n / CLUSTER_VALUES blocks a cluster (16 is
@@ -162,9 +174,9 @@ def sampling_spectrum(khat: torch.Tensor, L: int = 0) -> torch.Tensor:
     return long_spectrum(khat)
 
 
-def fftconv_long_ref(u, kp):
+def fftconv_long_ref(u, kp, conj=False):
     """Plain version of :func:`fftconv_long`."""
-    return fftconv_ref(u, half_spectrum(kp))
+    return fftconv_ref(u, half_spectrum(kp), conj)
 
 
 def fftconv_long_ln_bias_gelu_d_ref(u, a, c, bias, kp, D):
@@ -216,21 +228,91 @@ def _ptr(t):
     return 0 if t is None else t.data_ptr()
 
 
-def fftconv_long(u, kp):
-    """Kernel-9 wrapper, the TPU kernel's contract: the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+def fftconv_long(u, kp, conj=False):
+    """Kernel-9 wrapper, the TPU kernel's contract (u f32; ``conj``: with
+    conj(K)), the training conv and its input gradient: the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors."""
     if not u.is_cuda:
-        return fftconv_long_ref(u, kp)
+        return fftconv_long_ref(u, kp, conj)
     B, H, L, n = _check(u, kp)
     out, scratch = torch.empty_like(u), _scratch(B, H, n, u.device,
                                                  THREE_PASS)
     cuda_lib.launch("dwst_fftconv_long", u.data_ptr(), kp.data_ptr(),
-                    scratch.data_ptr(), out.data_ptr(), B, H, L, n)
+                    scratch.data_ptr(), out.data_ptr(), B, H, L, n,
+                    int(conj))
     fftconv_long.launches += 1
     return out
 
 
 fftconv_long.launches = 0
+
+
+def fftconv_dkf_long(u, g, n):
+    """Kernel-5L wrapper: :func:`.fftconv.fftconv_dkf_ref` (u, g (B, H, L)
+    f32 or bf16 -> (H, n/2+1) complex64, the batch summed in the kernel)
+    as a CUDA kernel for CUDA tensors at 2^16 <= n <= 2^20, the plain
+    version for CPU tensors."""
+    if not u.is_cuda:
+        return fftconv_dkf_ref(u, g, n)
+    out = launch_dkf_long(u, g, n)
+    fftconv_dkf_long.launches += 1
+    return out
+
+
+fftconv_dkf_long.launches = 0
+
+
+def launch_dkf_long(u, g, n):
+    """Check kernel 5L's arguments and launch it (uncounted; the wrapper
+    counts): u and g of one dtype, f32 or bf16, with a scratch of one
+    complex n-row per (b, h)."""
+    B, H, L = u.shape
+    if n & (n - 1) or not DKF_LONG_MIN_N <= n <= MAX_N or L > n:
+        raise ValueError(f"kernel 5L: FFT size {n} is no power of two in "
+                         f"[{DKF_LONG_MIN_N}, {MAX_N}] >= L = {L}")
+    bf16 = u.dtype == torch.bfloat16
+    for t in (u, g):
+        cuda_lib.check(t, (B, H, L), torch.bfloat16 if bf16
+                       else torch.float32)
+    out = torch.empty((H, n // 2 + 1), dtype=torch.complex64,
+                      device=u.device)
+    scratch = torch.empty((B * H, n), dtype=torch.complex64, device=u.device)
+    cuda_lib.launch("dwst_fftconv_dkf_long_bf16" if bf16
+                    else "dwst_fftconv_dkf_long", u.data_ptr(), g.data_ptr(),
+                    scratch.data_ptr(), out.data_ptr(), B, H, L, n)
+    return out
+
+
+class _FFTConvLongTrain(torch.autograd.Function):
+    """y = fftconv_long(u, kp); du = fftconv_long(g, kp, conj=True)
+    (kernel 9, u and g widened to f32 and the results narrowed to their
+    dtype), dkhat = fftconv_dkf_long(u, g) (kernel 5L), with kp the
+    factorized spectrum of khat (H, n/2+1).  Saves u and kp."""
+
+    @staticmethod
+    def forward(ctx, u, khat):
+        kp = long_spectrum(khat)
+        ctx.save_for_backward(u, kp)
+        return fftconv_long(widen(u), kp).to(u.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        u, kp = ctx.saved_tensors
+        g = g.contiguous()
+        du = dk = None
+        if ctx.needs_input_grad[0]:
+            du = fftconv_long(widen(g), kp, conj=True).to(g.dtype)
+        if ctx.needs_input_grad[1]:
+            dk = fftconv_dkf_long(u, g, kp.shape[1] * kp.shape[2])
+        return du, dk
+
+
+def fftconv_long_train(u, khat):
+    """The training conv past kernel 1's FFT sizes (u (B, H, L) f32 or
+    bf16, khat (H, n/2+1) complex64): kernel 9's training entries and
+    kernel 5L on the card up to MAX_N (past it they raise ValueError),
+    their plain versions on the CPU at any n."""
+    return _FFTConvLongTrain.apply(u.contiguous(), khat.contiguous())
 
 
 def fftconv_long_ln_bias_gelu_d(u, a, c, bias, kp, D):

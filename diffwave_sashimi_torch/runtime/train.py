@@ -1,9 +1,12 @@
-"""Training runtime: SC09 unconditional SaShiMi (f32, or bf16 as shipped)
-or WaveNet (f32) on one card.
+"""Training runtime: SaShiMi or WaveNet, unconditional on SC09 or
+mel-conditioned on LJSpeech (the vocoder), at bf16 as shipped or f32, on
+one card.
 
 Port of ``diffwave_sashimi_tpu/runtime/train.py`` (the reference's
 ``train.py``): run name and ``exp/<run>`` layout, diffusion schedule, SC09
-loader, Adam at ``learning_rate`` (optionally ``s4_lr`` for the SSM
+or Mel2Samp loader (a conditional model's batches are (mel, audio), the
+mel threaded into the loss), Adam at ``learning_rate`` (optionally
+``s4_lr`` for the SSM
 tensors), resume from ``ckpt_iter`` ('max' | int | -1), loss logging every
 ``iters_per_logging``, a checkpoint (and, with ``generate.n_samples > 0``,
 samples from it) every ``iters_per_ckpt``, ``n_iters + 1`` iterations and
@@ -14,18 +17,17 @@ Each step draws t and z from a generator seeded by (seed, iteration), so a
 resumed run draws what an uninterrupted one would, runs the model's
 training form through the kernels (``ops.FUSED``: for SaShiMi forward
 kernels 1-4, backward kernels 1, 5-8, or at bf16 their fast forms 1f, 2f,
-3f and 1f, 5f, 6f, 7f with kernels 4 and 8; WaveNet's training form has
-none, as in JAX: cuDNN convs and the plain gate under autograd) and takes
-one Adam step on the f32 parameters, so a checkpoint is f32 whatever the
-precision.  In-training samples are drawn at f32, as the JAX trainer's
-``generate()`` call does.  Not ported, and refused by name
-(``models.check_supported(..., train=True)`` and the rest of
-:func:`_refuse_unported`): bf16 WaveNet training, bf16 training of a
-mel-conditioned model or past FFT size 32768, f32 training on the card
-past FFT size 32768, dropout, mel conditioning at any precision,
-activation rematerialisation, data parallelism (``mesh.data`` > 1),
-wandb and, where samples are drawn, ``generate.ckpt_smooth``: each before
-the first step.
+3f and 1f, 5f, 6f, 7f with kernels 4 and 8; past FFT size 32768 the conv
+by kernel 9's training entries and its spectrum gradient by kernel 5L;
+WaveNet's training form has none, as in JAX: cuDNN convs and the plain
+gate under autograd) and takes one Adam step on the f32 parameters, so a
+checkpoint is f32 whatever the precision.  In-training samples are drawn
+at f32, as the JAX trainer's ``generate()`` call does; a conditional
+model draws them for ``generate.mel_name``, which it needs.  Not ported,
+and refused by name (``models.check_supported(..., train=True)`` and the
+rest of :func:`_refuse_unported`): dropout, activation
+rematerialisation, data parallelism (``mesh.data`` > 1), wandb and, where
+samples are drawn, ``generate.ckpt_smooth``: each before the first step.
 """
 
 from __future__ import annotations
@@ -80,10 +82,13 @@ def make_optimizer(model: torch.nn.Module, learning_rate: float,
 
 def train_step(model, optimizer, audio: torch.Tensor, schedule,
                generator: Optional[torch.Generator] = None,
-               ops: Ops = FUSED) -> torch.Tensor:
-    """One loss, backward and Adam update; returns the loss (detached)."""
+               ops: Ops = FUSED,
+               mel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One loss, backward and Adam update; returns the loss (detached).
+    ``mel``: the conditional model's batch of spectrograms."""
     optimizer.zero_grad(set_to_none=True)
-    loss = training_loss(model, audio, schedule, generator, ops=ops)
+    loss = training_loss(model, audio, schedule, generator, ops=ops,
+                         mel=mel)
     loss.backward()
     optimizer.step()
     return loss.detach()
@@ -112,9 +117,14 @@ def _refuse_unported(model_cfg, compute_cfg, mesh_cfg, wandb_cfg,
         raise NotImplementedError("S4 dropout is not ported: ROADMAP.md "
                                   "queue 1, item 7")
     generate_cfg = generate_cfg or {}
-    if int(generate_cfg.get("n_samples") or 0) > 0 \
-            and generate_cfg.get("ckpt_smooth") is not None:
-        raise NotImplementedError(CKPT_SMOOTH_TODO)
+    if int(generate_cfg.get("n_samples") or 0) > 0:
+        if generate_cfg.get("ckpt_smooth") is not None:
+            raise NotImplementedError(CKPT_SMOOTH_TODO)
+        if not model_cfg.get("unconditional", True) \
+                and generate_cfg.get("mel_name") is None:
+            raise ValueError("a conditional model's in-training samples "
+                             "need generate.mel_name (or "
+                             "generate.n_samples=0)")
     return precision
 
 
@@ -145,8 +155,8 @@ def train(diffusion_cfg, model_cfg, dataset_cfg, generate_cfg,
         raise ValueError(
             f"dataset yielded 0 batches of {batch_size_per_gpu} - check "
             f"data_path={dataset_cfg.get('data_path')!r} (the SC09 loader "
-            f"keeps only '*_nohash_*.wav' files) and that it holds >= one "
-            f"batch of clips")
+            f"keeps only '*_nohash_*.wav' files, LJSpeech's every '*.wav') "
+            f"and that it holds >= one batch of clips")
 
     torch.manual_seed(seed)          # the initialisation, on the device
     with torch.device(device):
@@ -181,12 +191,18 @@ def train(diffusion_cfg, model_cfg, dataset_cfg, generate_cfg,
         while n_iter < n_iters + 1:
             epoch_loss, epoch_batches = None, 0
             for data in data_loader:
-                audio = torch.from_numpy(np.asarray(
-                    data[0] if isinstance(data, tuple) else data,
-                    np.float32)).to(device)
+                if model_cfg["unconditional"]:
+                    audio = data[0] if isinstance(data, tuple) else data
+                    mel = None
+                else:
+                    mel, audio = data[0], data[1]
+                    mel = torch.from_numpy(np.asarray(mel, np.float32)).to(
+                        device)
+                audio = torch.from_numpy(np.asarray(audio, np.float32)).to(
+                    device)
                 step_gen.manual_seed(seed * 1_000_003 + n_iter)
                 loss = train_step(model, optimizer, audio, schedule,
-                                  step_gen)
+                                  step_gen, mel=mel)
                 epoch_loss = loss if epoch_loss is None else epoch_loss + loss
                 epoch_batches += 1
 

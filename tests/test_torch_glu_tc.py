@@ -9,6 +9,8 @@ datasets."""
 
 import math
 
+import numpy as np
+
 import pytest
 import torch
 
@@ -190,42 +192,52 @@ def test_generate_refuses_unported_widths_before_the_card(monkeypatch,
 
 
 @pytest.mark.parametrize("L,dtype,device,refused", [
-    (16000, F32, "cuda", None), (16384, F32, "cuda", None),
-    (16385, F32, "cuda", "f32 training on the card"),
-    (143360, F32, "cuda", "f32 training on the card"),
-    (16385, F32, "cpu", None), (143360, F32, "cpu", None),
-    (16385, BF, "cpu", "bf16 training"), (16385, BF, "cuda", "bf16 training"),
-    (16000, BF, "cuda", None)])
+    (16000, F32, "cuda", False), (16384, F32, "cuda", False),
+    (16385, F32, "cuda", False), (143360, F32, "cuda", False),
+    (16385, F32, "cpu", False), (143360, F32, "cpu", False),
+    (16385, BF, "cpu", False), (16385, BF, "cuda", False),
+    (16000, BF, "cuda", False), (524288, BF, "cuda", False),
+    (524289, BF, "cuda", True), (524289, F32, "cuda", True),
+    (524289, BF, "cpu", False)])
 def test_long_training_refusal_by_length_dtype_device(L, dtype, device,
                                                       refused):
-    """Training past kernel 1's FFT size 32768 (L > 16384) is refused by
-    name at bf16 everywhere and at f32 on the card only; the CPU trains
-    these lengths at f32, as JAX does."""
-    if refused is None:
-        check_train_length(L, dtype, device)
+    """Training past kernel 1's FFT size 32768 (L > 16384) runs at either
+    precision on either device (kernel 9's training entries and kernel 5L
+    on the card); on the card only past the long conv's FFT size 2^20 (L >
+    524288) is it refused, by size, at either precision; the CPU trains
+    every length, as JAX does (``check_train_length``, through
+    ``check_supported`` at d_model 128, whose widths the card takes)."""
+    cfg = dict(SMALL_CFG, d_model=128, L=L)
+    precision = "bf16" if dtype == BF else "f32"
+    if not refused:
+        check_train_length(L, device)
+        check_supported(cfg, precision, train=True, device_type=device)
         return
-    with pytest.raises(NotImplementedError,
-                       match=f"{refused}.*past 32768.*queue 1, item 1"):
-        check_train_length(L, dtype, device)
+    with pytest.raises(ValueError, match=r"past the long conv's 1048576"):
+        check_train_length(L, device)
+    with pytest.raises(ValueError, match=r"past the long conv's 1048576"):
+        check_supported(cfg, precision, train=True, device_type=device)
 
 
 def test_f32_long_training_refused_before_the_card_is_used(monkeypatch,
                                                            tmp_path):
-    """The trainer refuses f32 training past FFT size 32768 on the card
-    (its config's L) before it loads data or builds a model; the same
-    config passes the check for the CPU."""
+    """The trainer refuses training past the long conv's FFT size 2^20 on
+    the card (its config's L) before it loads data or builds a model; the
+    same config passes the check for the CPU, and on the card the
+    vocoder's lengths (L 32000: n 65536) pass."""
     from diffwave_sashimi_torch.runtime import train as train_mod
-    cfg = dict(SMALL_CFG, L=32000)
+    cfg = dict(SMALL_CFG, L=600000)
     check_supported(cfg, "f32", train=True, device_type="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
+    check_supported(dict(SMALL_CFG, L=32000), "f32", train=True,
+                    device_type="cuda")
+    with pytest.raises(ValueError, match="past the long conv"):
         check_supported(cfg, "f32", train=True, device_type="cuda")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(train_mod, "dataloader", lambda *a, **k: (
         pytest.fail("the trainer loaded data before refusing")))
     monkeypatch.chdir(tmp_path)
     diffusion = {"T": 200, "beta_0": 0.0001, "beta_T": 0.02}
-    with pytest.raises(NotImplementedError,
-                       match="f32 training on the card.*queue 1, item 1"):
+    with pytest.raises(ValueError, match="past the long conv"):
         train_mod.train(diffusion, cfg, {"_name_": "sc09",
                                          "data_path": str(tmp_path)}, None,
                         compute_cfg={"precision": "f32"}, device="cuda")
@@ -246,9 +258,18 @@ def test_f32_long_training_runs_on_the_cpu():
 
 
 def test_loader_refuses_mel_datasets_naming_vocoder_training(tmp_path):
-    """The loader refuses a mel-conditioned dataset by its ROADMAP entry:
-    queue 1, item 2 (vocoder training)."""
-    with pytest.raises(NotImplementedError,
-                       match=r"queue 1, item 2 \(vocoder training\)"):
-        dataloader({"_name_": "ljspeech", "data_path": str(tmp_path)}, 2,
-                   unconditional=False)
+    """The loader no longer refuses a mel-conditioned dataset: a
+    conditional config gets Mel2Samp's (mel, audio) batches (held against
+    JAX's in tests/test_torch_vocoder_train.py), an unconditional one
+    SC09's, as JAX's dataloader does."""
+    from scipy.io import wavfile
+    for i in range(2):
+        wavfile.write(str(tmp_path / f"LJ00{i}.wav"), 22050,
+                      (np.random.RandomState(i).randn(3000) * 3000).astype(
+                          np.int16))
+    cfg = {"_name_": "ljspeech", "data_path": str(tmp_path),
+           "segment_length": 1024, "filter_length": 64, "hop_length": 16,
+           "win_length": 64}
+    mel, audio = next(iter(dataloader(cfg, 2, unconditional=False)))
+    assert mel.shape == (2, 80, 65) and audio.shape == (2, 1, 1024)
+    assert len(dataloader(cfg, 2, unconditional=True)) == 0

@@ -30,6 +30,7 @@ from diffwave_sashimi_tpu.utils.torch_compat import sashimi_from_torch
 from diffwave_sashimi_torch import ops
 from diffwave_sashimi_torch.diffusion.sampling import (
     sampling, sampling_step, schedule_table)
+from diffwave_sashimi_torch.diffusion.loss import training_loss
 from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
 from diffwave_sashimi_torch.models import construct_model
 from diffwave_sashimi_torch.runtime.checkpoint import (
@@ -197,6 +198,22 @@ def test_chip_smoke_config_literals_match_load_config():
     assert voc["dataset"] == smoke.VOC_DATASET_CFG
     assert voc["generate"]["mel_name"] == smoke.VOC_MEL
     assert voc["generate"]["n_samples"] == smoke.VOC_SAMPLES
+    # phase 26 trains experiment=ljspeech_harder at its config and batch
+    harder = json.loads(json.dumps(load_config(
+        overrides=["experiment=ljspeech_harder"])))
+    assert harder["model"] == smoke.HARDER_MODEL_CFG
+    assert harder["dataset"] == smoke.HARDER_DATASET_CFG
+    assert harder["diffusion"] == smoke.VOC_DIFFUSION_CFG
+    assert harder["train"]["batch_size_per_gpu"] == smoke.HARDER_SAMPLES
+    assert voc["train"]["batch_size_per_gpu"] == smoke.N_SAMPLES
+    # its top tier's 12 blocks at n 2^17 take kernel 9 (the conv and its
+    # conjugate form) and 5L, the other 18 kernels 1f and 5f; every block
+    # kernels 2f, 3f, 4, 6f, 7f and 8
+    assert smoke.HARDER_BF16_STEP == dict(
+        smoke.TRAIN_BF16_STEP, fftconv_bf16=2 * 18, fftconv_dkf_bf16=18,
+        fftconv_long=2 * 12, fftconv_dkf_long=12)
+    assert {k: 4 * v for k, v in smoke.TRAIN_BF16_STEP.items()} == \
+        smoke.TRAIN_BF16_LAUNCHES
     wnet = json.loads(json.dumps(load_config(
         overrides=["experiment=sc09_wavenet"])))
     assert wnet["model"] == smoke.WNET_MODEL_CFG
@@ -281,24 +298,51 @@ def test_bf16_sampling_path_builds_and_runs(case):
     assert bool(torch.isfinite(out.float()).all())
 
 
-# what the bf16 slices leave unported: each refused by name, none run at
-# f32 (bf16 SaShiMi trains at kernel 1's FFT sizes; bf16 WaveNet and the
-# bf16 vocoder sample but do not train)
+def _train_bf16(cfg, L, mel_frames=None):
+    """One bf16 training step (loss and backward) of a model built from
+    ``cfg`` at length L, on the CPU: the loss and the named gradients."""
+    model = construct_model(cfg, "bf16",
+                            generator=torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():          # a nonzero head, so every path trains
+        model.final_conv[2].conv.weight.normal_(0.0, 0.3, generator=g)
+    mel = None if mel_frames is None else torch.randn(1, 80, mel_frames,
+                                                      generator=g)
+    loss = training_loss(model, 0.5 * torch.randn(1, 1, L, generator=g),
+                         schedule_from_cfg(FAST3), g, mel=mel)
+    loss.backward()
+    return loss, {n: p.grad for n, p in model.named_parameters()}
+
+
+# what earlier slices refused at bf16 and this one trains: bf16 WaveNet
+# training, bf16 vocoder (mel-conditioned) training, and bf16 training past
+# FFT size 32768 (a model whose S4 length is past it, and a length past
+# the model's), each one bf16 step on the CPU through the plain versions
+_TRAINS = {
+    "train": lambda: _train_bf16(_WNET_SMALL, 256),
+    "train_vocoder": lambda: _train_bf16(_VOC_SMALL, 256, mel_frames=16),
+    "train_vocoder_lengths": lambda: _train_bf16(dict(SMALL_CFG, L=32000),
+                                                 32000),
+    "train_lengths": lambda: _train_bf16(SMALL_CFG, 32000),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_TRAINS))
+def test_bf16_training_runs_where_it_was_refused(case):
+    """A finite loss and a finite f32 gradient of every parameter the loss
+    reaches (the mel branch's too); tests/test_torch_vocoder_train.py and
+    test_torch_long_train.py hold the numbers against JAX."""
+    loss, grads = _TRAINS[case]()
+    assert bool(torch.isfinite(loss))
+    assert all(g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+               for g in grads.values() if g is not None)
+    if case == "train_vocoder":
+        assert float(grads["d_layers.0.mel_conv.conv.weight_v"].abs()
+                     .max()) > 0
+
+
+# what the port still refuses: each raised by name, none run at f32
 _REFUSED = {
-    "train": (lambda: train(FAST3, _WNET_SMALL, _DATA, None, device="cpu",
-                            compute_cfg={"precision": "bf16"}),
-              "bf16 WaveNet training.*queue 1, item 1"),
-    "train_vocoder": (lambda: train(FAST3, _VOC_SMALL, _DATA, None,
-                                    device="cpu",
-                                    compute_cfg={"precision": "bf16"}),
-                      "mel-conditioned.*queue 1, items 1 and 2"),
-    "train_vocoder_lengths": (
-        lambda: train(FAST3, dict(SMALL_CFG, L=32000), _DATA, None,
-                      device="cpu", compute_cfg={"precision": "bf16"}),
-        "past 32768.*queue 1, item 1"),
-    "train_lengths": (lambda: construct_model(SMALL_CFG, "bf16")(
-        torch.zeros(1, 1, 32000), torch.zeros(1, dtype=torch.long),
-        train=True), "past 32768.*queue 1, item 1"),
     "kernel_fft_fast": (lambda: main(["experiment=sc09",
                                       "+model.kernel_fft_fast=true"]),
                         "kernel_fft_fast.*queue 1, item 1"),
@@ -311,9 +355,8 @@ _REFUSED = {
 @pytest.mark.parametrize("case", sorted(_REFUSED))
 def test_bf16_is_refused_not_run_as_f32(case, tmp_path, monkeypatch):
     """bf16 SaShiMi builds (the shipped default, for sampling and
-    training); the bf16 paths still unported raise NotImplementedError
-    naming their ROADMAP entry (and so do the config keys the port cannot
-    honour yet)."""
+    training); the config keys the port cannot honour yet raise
+    NotImplementedError naming their ROADMAP entry."""
     assert construct_model(SMALL_CFG, "bf16").act_dtype == torch.bfloat16
     monkeypatch.chdir(tmp_path)
     fn, match = _REFUSED[case]
