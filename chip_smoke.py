@@ -239,7 +239,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
     phase 25 at depth cut to n_layers 2 (HARDER_GRAD_LAYERS: the plain
     path's memory), the bf16 step timed at full depth; kernels 4 and 8 at
     its top tier (Lz 22001), 6f and 7f at L 44000, 1f and 5f at L 11000
-    vs plain.
+    vs plain;
+27. data parallelism at the main path's width (SC09 SaShiMi d128 n6
+    L16000, a global B4 of B2 a rank), through ``parallel.launch`` and
+    ``runtime.train.train_ranks``: (a) two ranks on this card over gloo
+    (NCCL refuses two ranks on one card) with CUDA tensors, their DDP step
+    through the kernels at f32 and bf16 against one 1-rank B4 step on
+    phase 9's batch, t and z (phase 9's f32 bar, 9b's bf16 bars), both
+    ranks' gradients and parameters after each of two steps bit-equal,
+    each rank's launches each step exactly the 1-rank step's, each rank's
+    step time printed (two processes sharing one card: not a scaling
+    figure); then the shipped bf16 training at two ranks for 3 iterations:
+    the ranks' parameters bit-equal, their launches exact, one checkpoint
+    and one metrics.jsonl, rank 0's, with no ``module.`` in the names;
+    (b) NCCL at one rank through the same function: its losses equal the
+    plain world-1 run's, phase 8b's first 3 (iteration 0 bit-equal, the
+    rest within 1e-5); (c) NCCL at two ranks across two cards with (a)'s
+    gates where the machine has two (``dp_cards.py`` runs phase 27 alone
+    on such a machine), else one line saying it was not run and why;
+    (d, after phase 4) ``generate(rank=1, world=2)`` writes ``1k_4`` to
+    ``1k_7`` and draws other samples than rank 0.  The training phases
+    through ``main()`` above pin ``mesh.data=1``: they read this process's
+    launch counts.
 
 It prints the card's name and power limit, one JSON line with the kernels
 (each with its bound: the larger of its bytes over the HBM rate and its
@@ -289,9 +310,12 @@ PEAK_OPS = {"fp32": 67e12,    # H100 SXM: fp32 outside the tensor cores,
             "int8": 1979e12}
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 QUALITY_CFG = {"T": 50, "beta_0": 0.0001, "beta_T": 0.02, "beta": None}
+# the training phases through main() run on one card (mesh.data=1; the
+# shipped -1 is every card): they read the launch counts of this process
 TRAIN_OVERRIDES = ["experiment=sc09", "compute.precision=f32",
                    "train.n_iters=3", "train.iters_per_ckpt=2",
-                   "train.iters_per_logging=1", "generate.n_samples=0"]
+                   "train.iters_per_logging=1", "generate.n_samples=0",
+                   "mesh.data=1"]
 # the shipped training command: experiment=sc09 trains at bf16
 TRAIN_BF16_OVERRIDES = [o for o in TRAIN_OVERRIDES
                         if not o.startswith("compute.precision")]
@@ -397,7 +421,8 @@ D256_TRAIN_BF16_LAUNCHES = {"cauchy": 5, "cauchy_bwd": 5, "fftconv_bf16": 10,
                             "glu_res_bwd_bf16": 5, "ln_ff_res_bf16": 5,
                             "ln_ff_res_bwd_bf16": 5}
 WNET_TRAIN_OVERRIDES = ["experiment=sc09_wavenet", "compute.precision=f32",
-                        "train.iters_per_logging=1", "generate.n_samples=0"]
+                        "train.iters_per_logging=1", "generate.n_samples=0",
+                        "mesh.data=1"]
 # kernel 11's cases (B, C, S, L): the sampling path's, B16, and a ragged
 # length with S != C (wavenet_small's widths)
 GATE_CASES = ((N_SAMPLES, 256, 256, 16000), (16, 256, 256, 16000),
@@ -424,7 +449,8 @@ LONG_TRAIN_CASES = ((2, 128, 44000, 1 << 17), (4, 128, 30000, 1 << 16))
 VOC_TRAIN_CLIPS = 4
 VOC_TRAIN_ITERS = 3
 VOC_TRAIN_ARGS = ["train.n_iters=2", "train.iters_per_ckpt=2",
-                  "train.iters_per_logging=1", "generate.n_samples=0"]
+                  "train.iters_per_logging=1", "generate.n_samples=0",
+                  "mesh.data=1"]
 # one bf16 (f32) SaShiMi training step whose 30 blocks all convolve at FFT
 # sizes up to 32768 (SC09, experiment=ljspeech): kernel 1f's (1's)
 # training entry twice a block (the conv and its conjugate form), the rest
@@ -454,6 +480,13 @@ HARDER_SAMPLES = 2                # its train.batch_size_per_gpu
 # complex intermediates under autograd, 0.72 GB each at the top tier's H
 # 128, and at the full depth's 30 blocks its step passes the card's 80 GB
 HARDER_GRAD_LAYERS = 2
+# phase 27: data parallelism at the main path's width (SC09 SaShiMi d128
+# n6 L16000), DP_RANKS ranks of N_SAMPLES / DP_RANKS rows: the shipped
+# global batch of 4; the trainer runs 3 iterations (checkpoint 2) of the
+# shipped bf16 command
+DP_RANKS = 2
+DP_OVERRIDES = TRAIN_BF16_OVERRIDES + ["train.n_iters=2"]
+DP_ITERS = 3
 
 # name -> (source, TPU kernel it replaces, the paths that launch it)
 KERNELS = {
@@ -3515,6 +3548,266 @@ def run_wavenet_training_bf16(torch, root, model, launches, dev):
 
 
 
+def dp_grad_rank(rank, world, device, state_path):
+    """Phase 27's rank (a spawned process): at f32 and at bf16, phase 2's
+    model through DDP and the kernels on this rank's rows of phase 9's
+    batch, t and z, two Adam steps (lr 2e-4).  Per precision: the first
+    step's loss, the loss's mean over the ranks and the all-reduced
+    gradients; each step's launch counts (every count set to 0 just
+    before the step); the parameters' digest after each step; and the
+    step's ms (CUDA events, with the other ranks on their cards, or on
+    this one)."""
+    import torch
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.diffusion.loss import training_loss
+    from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
+    from diffwave_sashimi_torch.models import construct_model
+    from diffwave_sashimi_torch.parallel import (all_reduce_mean,
+                                                 data_parallel, row_range)
+    from diffwave_sashimi_torch.runtime.checkpoint import load_into
+    from diffwave_sashimi_torch.runtime.train import (make_optimizer,
+                                                      params_sha256)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lo, hi = row_range(rank, world, N_SAMPLES)
+    audio, t, z = (x[lo:hi] for x in grad_batch(torch, device))
+    schedule = schedule_from_cfg(DIFFUSION_CFG)
+    state = torch.load(state_path, map_location=device, weights_only=True)
+    out = {}
+    for precision in ("f32", "bf16"):
+        with torch.device(device):
+            model = construct_model(MODEL_CFG, precision)
+        load_into(model, state)
+        net = data_parallel(model)
+        optim = make_optimizer(model, 2e-4)
+
+        def step():
+            optim.zero_grad(set_to_none=True)
+            loss = training_loss(net, audio, schedule, t=t, z=z,
+                                 ops=ops.FUSED)
+            loss.backward()
+            return loss
+        res = {"launches": [], "sha256": []}
+        for k in range(2):
+            for f in ops.COUNTED.values():
+                f.launches = 0
+            loss = step()
+            torch.cuda.synchronize()
+            res["launches"].append({n: f.launches
+                                    for n, f in ops.COUNTED.items()})
+            if k == 0:
+                res["loss"] = loss.item()
+                res["loss_mean"] = all_reduce_mean(loss).item()
+                res["grads"] = {n: p.grad.detach().cpu()
+                                for n, p in model.named_parameters()}
+            optim.step()
+            res["sha256"].append(params_sha256(model))
+        res["step_ms"] = cuda_ms(lambda: (step(), optim.step()), 3)
+        out[precision] = res
+        del model, net, optim
+        torch.cuda.empty_cache()
+    return out
+
+
+def hold_dp_grads(torch, label, ranks_out, ref, want_launches):
+    """Phase 27's gates on ``ranks_out`` (dp_grad_rank's results) against
+    the 1-rank step ``ref`` ({precision: (loss, grads)}): every rank's
+    gradients and its parameters after each step bit-equal to rank 0's;
+    each rank's launches each step exactly the 1-rank step's
+    (``want_launches``); the f32 loss and gradients at phase 9's bar, the
+    bf16 ones at phase 9b's.  Returns the readings."""
+    out = {}
+    for precision, (loss1, grads1) in ref.items():
+        rk = [r[precision] for r in ranks_out]
+        same = all(r["sha256"] == rk[0]["sha256"] for r in rk) and all(
+            torch.equal(r["grads"][n], rk[0]["grads"][n])
+            for r in rk for n in grads1)
+        launches_ok = all(c == want_launches[precision]
+                          for r in rk for c in r["launches"])
+        mine = {n: g.to(grads1[n].device) for n, g in rk[0]["grads"].items()}
+        loss = rk[0]["loss_mean"]
+        if precision == "f32":
+            share = max(float((mine[n] - g).abs().max())
+                        / (TOL_GRAD * max(1.0, float(g.abs().max())))
+                        for n, g in grads1.items())
+            loss_share = abs(loss - loss1) / (TOL_GRAD * max(1.0, abs(loss1)))
+            ok = share <= 1 and loss_share <= 1
+            reading = {"worst_share_of_bar": share,
+                       "loss_share_of_bar": loss_share}
+        else:
+            reading = grad_distance(mine, grads1)
+            ok = all(reading[k] <= TOL_GRAD_BF16[k] for k in TOL_GRAD_BF16) \
+                and abs(loss - loss1) <= TOL_GRAD_BF16["entry"] * abs(loss1)
+        reading.update(loss=loss, loss_1rank=loss1,
+                       rank_losses=[r["loss"] for r in rk],
+                       ranks_bit_equal=same, launches_exact=launches_ok,
+                       step_ms=[r["step_ms"] for r in rk])
+        out[precision] = reading
+        ok = ok and same and launches_ok
+        log(f"phase {label} {precision}: {json.dumps(reading)} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label} {precision}: the ranks' step "
+                                 f"disagrees with the 1-rank step or each "
+                                 f"other, or launched other kernels")
+    return out
+
+
+def run_dp_training(torch, root, world, backend):
+    """The shipped bf16 training command's train() arguments (DP_OVERRIDES)
+    at the global batch N_SAMPLES through ``runtime.train.train_ranks`` at
+    ``world`` ranks over ``backend``, in ``root``: every rank's parameters
+    bit-equal at the end, its launches exactly DP_ITERS steps', finite
+    losses, one checkpoint and one metrics.jsonl (rank 0's) whose names
+    carry no ``module.``.  Returns (the ranks' summaries, the logged
+    losses, the wall seconds)."""
+    import numpy as np
+    from diffwave_sashimi_torch.config import load_config
+    from diffwave_sashimi_torch.runtime.train import train_kwargs, train_ranks
+    from diffwave_sashimi_torch.utils.exp import local_directory
+    data = os.path.join(root, "sc09")
+    if not os.path.isdir(data):
+        write_corpus(data)
+    os.chdir(root)
+    kwargs = train_kwargs(load_config(overrides=DP_OVERRIDES + [
+        f"dataset.data_path={data}",
+        f"train.batch_size_per_gpu={N_SAMPLES // world}"]))
+    t0 = time.perf_counter()
+    ranks_out = train_ranks(kwargs, world, backend, "cuda")
+    secs = time.perf_counter() - t0
+    run, ckpt = local_directory(None, MODEL_CFG, DIFFUSION_CFG, DATASET_CFG,
+                                "checkpoint", makedirs=False)
+    with open(os.path.join("exp", run, "metrics.jsonl")) as f:
+        losses = [(r["step"], r["train/loss"]) for r in map(json.loads, f)
+                  if "train/loss" in r]
+    saved = torch.load(os.path.join(ckpt, "2.pkl"), weights_only=True)
+    want = {k: DP_ITERS * TRAIN_BF16_STEP.get(k, 0)
+            for k in ranks_out[0]["launches"]}
+    prefixed = [k for k in saved["model_state_dict"]
+                if k.startswith("module.")]
+    log(f"phase dp_train {backend} x{world}: train_ranks() {DP_ITERS} "
+        f"iterations in {secs:.2f} s wall (process start and model build "
+        f"included); logged losses {losses}; checkpoints "
+        f"{sorted(os.listdir(ckpt))}; ranks' losses "
+        f"{[r['losses'] for r in ranks_out]}; parameter digests equal "
+        f"{len({r['params_sha256'] for r in ranks_out}) == 1}; launches "
+        f"{[r['launches'] for r in ranks_out]}")
+    if len({r["params_sha256"] for r in ranks_out}) != 1 or any(
+            r["launches"] != want for r in ranks_out):
+        raise AssertionError(f"dp_train {backend}: ranks' parameters differ "
+                             f"or launches are not {want}")
+    if [i for i, _ in losses] != list(range(DP_ITERS)) or not all(
+            np.isfinite(v) for _, v in losses) or any(
+            r["losses"] != ranks_out[0]["losses"] for r in ranks_out):
+        raise AssertionError(f"dp_train {backend}: logged losses {losses}")
+    if sorted(os.listdir(ckpt)) != ["2.pkl"] or prefixed or sorted(
+            os.listdir(os.path.join("exp", run))) != ["checkpoint",
+                                                      "metrics.jsonl"]:
+        raise AssertionError(f"dp_train {backend}: checkpoint files or names "
+                             f"({prefixed[:3]})")
+    return ranks_out, losses, secs
+
+
+def check_data_parallel(torch, model, dev, launches, plain_losses):
+    """Phase 27: data parallelism at the main path's width.  (a) DP_RANKS
+    ranks on this one card over gloo (NCCL refuses two ranks on one
+    card), CUDA tensors: their DDP step through the kernels against one
+    1-rank step of the global B4 at f32 and bf16 (hold_dp_grads), then the
+    shipped bf16 training through ``train_ranks`` (run_dp_training);
+    (b) NCCL at one rank through the same function, whose logged losses
+    must equal ``plain_losses``, the plain world-1 run's (phase 8b's
+    first DP_ITERS: the same command, corpus and seed); (c) NCCL at
+    DP_RANKS ranks across DP_RANKS cards, with (a)'s gates, where the
+    machine has them."""
+    from diffwave_sashimi_torch.parallel import launch
+    ref, want = {}, {}
+    for precision, m, step in (("f32", model, TRAIN_F32_STEP),
+                               ("bf16", bf16_copy(torch, model),
+                                TRAIN_BF16_STEP)):
+        ref[precision] = counted_run(
+            torch, f"dp_ref_{precision}", step, launches,
+            lambda: step_grads(torch, m, *grad_batch(torch, dev), "FUSED"))
+        want[precision] = {k: step.get(k, 0) for k in launches[
+            f"dp_ref_{precision}"]}
+    cwd = os.getcwd()
+    root = tempfile.TemporaryDirectory(prefix="dwst_smoke_dp_")
+    out = {}
+    try:
+        state = os.path.join(root.name, "state.pt")
+        torch.save(model.state_dict(), state)
+        cards = torch.cuda.device_count()
+        cases = [("gloo", DP_RANKS, "on one card" if cards == 1
+                  else "on their own cards")]
+        if cards >= DP_RANKS:
+            cases.append(("nccl", DP_RANKS, "across cards"))
+        else:
+            log(f"phase dp nccl x{DP_RANKS}: not run: NCCL takes one card a "
+                f"rank, and this machine has {cards}")
+        for backend, world, where in cases:
+            label = f"dp_{backend}_x{world}"
+            t0 = time.perf_counter()
+            ranks_out = launch(dp_grad_rank, world, backend, "cuda",
+                               (state,))
+            out[label] = hold_dp_grads(torch, label, ranks_out, ref, want)
+            out[label]["s"] = time.perf_counter() - t0
+            for precision, r in out[label].items():
+                if precision != "s":
+                    log(f"timing: {label} {precision} training step at "
+                        f"B{N_SAMPLES // world} a rank (global "
+                        f"B{N_SAMPLES}), {world} processes {where}: "
+                        f"{r['step_ms']} ms (CUDA events per rank; not a "
+                        f"scaling figure)")
+            run_root = os.path.join(root.name, label)
+            os.makedirs(run_root)
+            _, losses, secs = run_dp_training(torch, run_root, world, backend)
+            out[label]["train_losses"], out[label]["train_s"] = losses, secs
+            os.chdir(cwd)
+        # (b) NCCL at one rank against the plain world-1 run
+        nccl_root = os.path.join(root.name, "dp_nccl_x1")
+        os.makedirs(nccl_root)
+        _, losses, secs = run_dp_training(torch, nccl_root, 1, "nccl")
+        plain = [tuple(x) for x in plain_losses[:DP_ITERS]]
+        equal = [a == b for a, b in zip(losses, plain)]
+        rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(losses, plain))
+        out["dp_nccl_x1"] = {"losses": losses, "plain_losses": plain,
+                             "bit_equal": equal, "max_rel_diff": rel,
+                             "s": secs}
+        ok = len(losses) == len(plain) == DP_ITERS and equal[0] and \
+            rel <= 1e-5
+        log(f"phase dp_nccl_x1: losses {losses} vs the plain world-1 run's "
+            f"(phase 8b) {plain}; bit-equal {equal}, max relative "
+            f"difference {rel:.3e} (bar: iteration 0 bit-equal, the rest "
+            f"1e-5) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("NCCL at one rank trains otherwise than the "
+                                 "plain world-1 run")
+    finally:
+        os.chdir(cwd)
+        root.cleanup()
+    return out
+
+
+def check_generate_rank(torch, run, audio0):
+    """Phase 27d: ``generate(rank=1, world=2)`` from phase 4's checkpoint
+    writes the wavs ``1k_4`` to ``1k_7`` and draws other samples than rank
+    0 (phase 4's, at world 1: the same seed)."""
+    import numpy as np
+    from diffwave_sashimi_torch.runtime.generate import generate
+    audio1 = generate(DIFFUSION_CFG, MODEL_CFG, DATASET_CFG, ckpt_iter="max",
+                      n_samples=N_SAMPLES, seed=SEED, device="cuda", rank=1,
+                      world=2)
+    wavs = sorted(os.listdir(os.path.join("exp", run, "waveforms", "1000")))
+    want = [f"1k_{i}.wav" for i in range(2 * N_SAMPLES)]
+    diff = float(np.abs(audio1 - audio0).max())
+    log(f"phase generate_rank: rank 1 of 2 wrote {wavs}; max |rank 1 - "
+        f"rank 0| {diff:.4f}, std {audio1.std():.4f}")
+    if wavs != want or not np.isfinite(audio1).all() or diff < 0.1:
+        raise AssertionError(f"generate(rank=1, world=2): wavs {wavs}, "
+                             f"difference from rank 0 {diff}")
+    return {"wavs": wavs, "max_abs_diff_vs_rank0": diff}
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -3589,6 +3882,8 @@ def main():
             raise AssertionError(f"wav layout {sorted(wavs)}")
         log(f"output: shape {audio.shape}, finite, std {audio.std():.4f}, "
             f"wavs {sorted(wavs)}")
+        # phase 27d: rank 1 of 2 samples from the same checkpoint
+        dp_generate = check_generate_rank(torch, run, audio)
 
         # phase 4b: the shipped command, bf16 and int8, through main()
         shipped_s = run_shipped_command(torch, run, launches)
@@ -3781,6 +4076,11 @@ def main():
 
     # phase 24: the d_model 256 model through the kernels
     d256 = check_wide_model(torch, dev, launches, results)
+
+    # phase 27: data parallelism at the main path's width
+    data_parallel = check_data_parallel(torch, model, dev, launches,
+                                        train_bf16["main"]["losses"])
+    data_parallel["generate_rank"] = dp_generate
     log(f"card: {smi[0]}")
 
     entries = []
@@ -3857,6 +4157,7 @@ def main():
         "vocoder_train_harder": harder,
         "wavenet_train_bf16": wn_train_bf16,
         "d256": d256,
+        "data_parallel": data_parallel,
         "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -300,6 +300,11 @@ class Sashimi(nn.Module):
             return out
         return [ops.spectrum(k, L) for k, (_, L) in zip(out, blocks)]
 
+    def unreached_in_training(self) -> List[str]:
+        """The parameters the training loss never reaches: none (data
+        parallelism reduces every gradient)."""
+        return []
+
     def compute_mel_conds(self, mel: torch.Tensor,
                           audio_length: int) -> List[torch.Tensor]:
         """Every block's mel term (B, H, L_tier) for mel (B, 80, frames),

@@ -130,6 +130,15 @@ class WaveNet(nn.Module):
         """No S4 kernels to build (the sampler's interface): []."""
         return []
 
+    def unreached_in_training(self) -> List[str]:
+        """The parameters the training loss never reaches: the last
+        block's res_conv, whose block output feeds nothing (torch leaves
+        their gradients None, JAX gives zeros); data parallelism leaves
+        them out of its reduction."""
+        last = len(self.residual_layer["residual_blocks"]) - 1
+        return [f"residual_layer.residual_blocks.{last}.res_conv.{k}"
+                for k in ("weight_v", "weight_g", "bias")]
+
     def compute_mel_conds(self, mel: torch.Tensor,
                           audio_length: int) -> List[torch.Tensor]:
         """Every block's mel term (B, 2C, L) for mel (B, 80, frames), in

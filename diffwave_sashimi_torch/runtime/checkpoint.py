@@ -46,7 +46,12 @@ def resolve_iter(directory: str, ckpt_iter) -> int:
 def save_checkpoint(directory: str, step: int, model: torch.nn.Module,
                     optimizer: Optional[torch.optim.Optimizer] = None) -> str:
     """Write ``<directory>/<step>.pkl`` atomically in the port's format
-    (``os.replace`` of a finished temporary file)."""
+    (``os.replace`` of a finished temporary file).  A DDP-wrapped model
+    is saved as its module, so the names carry no ``module.`` prefix and
+    load at any number of ranks."""
+    from torch.nn.parallel import DistributedDataParallel
+    if isinstance(model, DistributedDataParallel):
+        model = model.module
     os.makedirs(directory, mode=0o775, exist_ok=True)
     path = os.path.join(directory, f"{step}.pkl")
     payload = {"model_state_dict": {k: v.detach().cpu() for k, v in

@@ -9,11 +9,16 @@ T-step sampler in batches, and write
 time is taken between ``torch.cuda.synchronize()`` calls and reported with
 the realtime factor.
 
+``rank`` of ``world`` (JAX's arguments; nothing here starts ranks): the
+rank draws from a generator seeded by (seed, rank) and numbers its wavs
+from ``n_samples x rank``; rank 0 draws and writes what the single
+process does.
+
 Vocoding (``mel_name``): the mel is computed from
 ``{data_path}/{mel_name}.wav``, or read precomputed from ``mel_path``
 (:mod:`..data.mel2samp`); the generated length is frames x hop_length; the
 blocks' mel terms are computed once per run; and ``fidelity.json`` beside
-the wavs compares the first sample with the source wav.
+the wavs compares rank 0's first sample with the source wav.
 
 ``conv_int8`` (``+compute.conv_int8=true``) runs SaShiMi's S4 conv as the
 int8 conv, kernel 12 (``ops.FUSED_INT8``), at either precision.
@@ -104,9 +109,12 @@ def generate(diffusion_cfg, model_cfg, dataset_cfg, ckpt_iter="max",
              batch_size: Optional[int] = None, ckpt_smooth=None,
              mel_path: Optional[str] = None, mel_name: Optional[str] = None,
              seed: int = 0, precision: str = "f32", conv_int8: bool = False,
-             device=None) -> np.ndarray:
+             device=None, rank: int = 0, world: int = 1) -> np.ndarray:
     """Sample ``n_samples`` waveforms; returns (n_samples, 1, L) numpy.
-    ``device`` defaults to the first card (see :func:`resolve_device`)."""
+    ``device`` defaults to the first card (see :func:`resolve_device`).
+    ``rank`` of ``world`` sets the seed and the wavs' numbers."""
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} of world {world}")
     check_supported(model_cfg, precision, device_type=torch.device(
         "cuda" if device is None else device).type)
     if conv_int8 and model_cfg["_name_"] != "sashimi":
@@ -142,7 +150,10 @@ def generate(diffusion_cfg, model_cfg, dataset_cfg, ckpt_iter="max",
     if n_samples % batch_size:
         raise ValueError(f"n_samples {n_samples} must be a multiple of "
                          f"batch_size {batch_size}")
-    gen = torch.Generator(device=device).manual_seed(seed)
+    # (seed, rank) -> seed + rank x an odd 32-bit constant: rank 0's is the
+    # single process's seed, and the ranks' differ also in the low 32 bits,
+    # all that the CPU's generator keeps
+    gen = torch.Generator(device=device).manual_seed(seed + rank * 0x9E3779B9)
     ops = port_ops.FUSED_INT8 if conv_int8 else port_ops.FUSED
     shape = (batch_size, 1, audio_length)
     _sync(device)
@@ -173,10 +184,11 @@ def generate(diffusion_cfg, model_cfg, dataset_cfg, ckpt_iter="max",
           + ("" if mel is None else f"; the mel terms took {cond_s:.3f}s "
              f"once, before") + ")", flush=True)
     for i in range(n_samples):
-        wavfile.write(os.path.join(output_directory,
-                                   f"{ckpt_iter // 1000}k_{i}.wav"),
-                      sr, generated[i, 0].astype(np.float32))
-    ref_wav = None if mel_name is None else os.path.join(
+        wav = f"{ckpt_iter // 1000}k_{n_samples * rank + i}.wav"
+        wavfile.write(os.path.join(output_directory, wav), sr,
+                      generated[i, 0].astype(np.float32))
+    # the fidelity report compares rank 0's first sample, as in JAX
+    ref_wav = None if mel_name is None or rank else os.path.join(
         dataset_cfg["data_path"], f"{mel_name}.wav")
     if ref_wav is not None and os.path.exists(ref_wav):
         try:

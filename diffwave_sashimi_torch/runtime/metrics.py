@@ -15,15 +15,22 @@ from typing import Any, Dict
 
 
 class MetricsLogger:
-    def __init__(self, log_dir: str):
-        os.makedirs(log_dir, exist_ok=True)
+    """``enabled=False`` (a rank other than 0) writes nothing."""
+
+    def __init__(self, log_dir: str, enabled: bool = True):
         self.path = os.path.join(log_dir, "metrics.jsonl")
-        self._f = open(self.path, "a")
+        self._f = None
+        if enabled:
+            os.makedirs(log_dir, exist_ok=True)
+            self._f = open(self.path, "a")
 
     def log(self, metrics: Dict[str, Any], step: int) -> None:
+        if self._f is None:
+            return
         rec = {"step": int(step), "time": time.time(), **metrics}
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
 
     def finish(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()

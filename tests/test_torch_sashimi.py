@@ -235,6 +235,16 @@ def test_chip_smoke_config_literals_match_load_config():
     train = load_config(overrides=smoke.TRAIN_BF16_OVERRIDES)
     assert train["compute"]["precision"] == "bf16"
     assert train["train"]["batch_size_per_gpu"] == smoke.N_SAMPLES
+    # the phases through main() train on one card, whatever the machine
+    # holds: they read this process's launch counts
+    assert train["mesh"]["data"] == 1
+    # phase 27 trains the shipped model at bf16 over DP_RANKS ranks, the
+    # global batch N_SAMPLES split evenly, for DP_ITERS iterations
+    dp = load_config(overrides=smoke.DP_OVERRIDES)
+    assert json.loads(json.dumps(dp["model"])) == smoke.MODEL_CFG
+    assert dp["compute"]["precision"] == "bf16"
+    assert smoke.N_SAMPLES % smoke.DP_RANKS == 0
+    assert dp["train"]["n_iters"] + 1 == smoke.DP_ITERS
 
 
 _WNET_SMALL = {"_name_": "wavenet", "res_channels": 16, "skip_channels": 16,

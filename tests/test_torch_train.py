@@ -429,17 +429,16 @@ def test_entry_points_require_a_card_unless_asked_for_the_cpu(
               dict(data, _name_="ljspeech", hop_length=256), None,
               device="cpu",
               compute_cfg={"precision": "bf16"})
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        train(DIFFUSION, SMALL_CFG, data, None, device="cpu",
-              compute_cfg=F32, mesh_cfg={"data": 4})
 
 
 def test_entry_point_mains_import_no_jax(tmp_path):
     """Both runtimes' main() (generation for SC09, for the vocoder and for
     the WaveNet; training for SaShiMi and for the WaveNet) load the config
     through the port's own config.py and reach the device check, and the
-    mel precompute CLI runs; by then no module of jax or of the JAX
-    package has been imported."""
+    mel precompute CLI runs; the data-parallel launcher starts two CPU
+    ranks through train's main() (each finds no clips and raises) and
+    through ``parallel.launch``; by then no module of jax or of the JAX
+    package has been imported, in this process or in a rank."""
     code = (
         "import sys\n"
         "from diffwave_sashimi_torch.data import mel2samp\n"
@@ -456,16 +455,27 @@ def test_entry_point_mains_import_no_jax(tmp_path):
         "        raise SystemExit('main() ran without a card')\n"
         "assert mel2samp.main(['experiment=ljspeech', "
         "'+output_dir=mels']) == 0\n"
+        "from diffwave_sashimi_torch.parallel import launch\n"
+        "import test_torch_parallel_ranks as ranks\n"
+        "try:\n"
+        "    train.main(['experiment=sc09', 'compute.precision=f32',\n"
+        "                'mesh.data=2', '+train.device=cpu',\n"
+        "                'dataset.data_path=no_clips'])\n"
+        "except Exception as e:\n"
+        "    assert '0 batches' in str(e), e\n"
+        "else:\n"
+        "    raise SystemExit('two ranks trained on no clips')\n"
+        "assert launch(ranks.jax_modules, 2, 'gloo', 'cpu') == [[], []]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'diffwave_sashimi_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
-               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
-                                                             ""))
+               PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO, "tests"),
+                                           os.environ.get("PYTHONPATH", "")]))
     r = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
                        env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
-    assert r.stdout.count("d_model: 128") == 3    # each printed the config
+    assert r.stdout.count("d_model: 128") == 4    # each printed the config
     assert r.stdout.count("mel_upsample:") == 1
     assert r.stdout.count("num_res_layers: 36") == 2
