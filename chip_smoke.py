@@ -10,8 +10,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``csrc/fftconv_long.cu`` beside the build: the registers and spills
    of each kernel-4 instance ``<K>``, each kernel-8 instance ``<K,
    PAIRED>``, each instance ``<M, Q, T>`` of kernels 5 and 5f's radix-16
-   route and kernel 5L's passes, none of which may spill) and require a
-   CUDA device;
+   route, kernel 5L's two passes and each instance ``<N1, N2, NT, T>`` of
+   its cluster kernel, none of which may spill) and require a CUDA
+   device;
 2. build the shipped SC09 model (d_model 128, n_layers 6, pool [4, 4],
    expand 2, ff 2, L 16000) from a seed, with a perturbed (normally
    zero-initialised) final conv, and save it as a checkpoint in a
@@ -86,11 +87,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    and g stacked (``cufft_rfft_ms``, a yardstick); (7c) the training
    route past FFT size 32768 at the ljspeech_harder top tier's shapes (B2
    H128 L44000, n 2^17) and at B4 H128 L30000 (n 2^16): kernel 9's
-   training entries (the conv and its conjugate form) against
-   ``fftconv_long_ref`` and kernel 5L, on f32 and bf16 inputs, against its
-   plain version at TOL_KERNEL, two calls bit-equal, its L2 error against
-   complex128 at most twice the plain version's, timed in a CUDA graph
-   beside a ``torch.fft.rfft`` of u and g (a yardstick);
+   training entries (the conv and its conjugate form, f32 and bf16)
+   against ``fftconv_long_ref``, the bf16 entry bit-equal to the f32 entry
+   on the widened input, narrowed, and timed in CUDA graphs in turns with
+   that composite, a cuFFT conv of the shapes beside them (a yardstick);
+   kernel 5L on its cluster route (``dkf_long_plan``), on f32 and bf16
+   inputs, against its plain version at TOL_KERNEL, two calls bit-equal,
+   one allocation a call (its output: no scratch), its L2 error against
+   complex128 at most twice the plain version's, its two-pass route held
+   against the plain version, the two timed in CUDA graphs in turns,
+   beside a ``torch.fft.rfft`` of u and g (a yardstick), and the clusters
+   the card holds at once at each n (none fails);
 8. the training path: a seeded synthetic SC09 corpus (one-second 16 kHz
    ``*_nohash_*.wav`` clips, a few per digit folder) and the port's
    ``runtime.train.main`` with ``experiment=sc09 compute.precision=f32``
@@ -237,9 +244,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
     and 8192),
     30 each of 2f, 3f, 4, 6f, 7f, 8; its gradients kernels vs plain as in
     phase 25 at depth cut to n_layers 2 (HARDER_GRAD_LAYERS: the plain
-    path's memory), the bf16 step timed at full depth; kernels 4 and 8 at
-    its top tier (Lz 22001), 6f and 7f at L 44000, 1f and 5f at L 11000
-    vs plain;
+    path's memory), the bf16 step timed at full depth and traced (one
+    step: the device's idle share, its top kernels, and per step exactly
+    12 launches of 5L's cluster kernel and 24 of each of kernel 9's bf16
+    training entry's three passes, no two-pass 5L kernel and no f32
+    entry; a trace with no device time fails); kernels 4 and 8 at its top tier (Lz 22001), 6f and 7f at L
+    44000, 1f and 5f at L 11000 vs plain;
 27. data parallelism at the main path's width (SC09 SaShiMi d128 n6
     L16000, a global B4 of B2 a rank), through ``parallel.launch`` and
     ``runtime.train.train_ranks``: (a) two ranks on this card over gloo
@@ -581,7 +591,7 @@ PATHS = ("generate", "train", "vocode", "wavenet", "wavenet_train",
 # (5L's at the bf16 path's dtype)
 TOP_TIER = {"gate_res_skip": f"B{N_SAMPLES}_C256_S256_L16000",
             "gate_res_skip_bf16": f"B{N_SAMPLES}_C256_S256_L16000",
-            "fftconv_long": "H128_L44000",
+            "fftconv_long": "H128_L44000_bf16",
             "fftconv_dkf_long": "H128_L44000_bf16"}
 # kernel 9's entries compute kernel 1's functions (at larger n), kernel
 # 5L kernel 5's
@@ -613,7 +623,7 @@ PORT_KERNELS = ("fftconv_kernel", "fftconv_r16_kernel",
                 "cauchy_bwd_reduce_kernel",
                 "cols_fwd_kernel",
                 "rows_kernel", "cols_inv_kernel", "fftconv_cluster_kernel",
-                "dkf_cols_kernel", "dkf_rows_kernel",
+                "dkf_cols_kernel", "dkf_rows_kernel", "dkf_cluster_kernel",
                 "gate_res_skip_kernel", "gate_res_skip_tc_kernel",
                 "round_gate_weights_kernel", "fftconv_int8_kernel")
 # kernel 9's two routes: 9f's cluster kernel (n 2^16 and 2^17, the
@@ -686,9 +696,43 @@ def log(msg):
 
 # the sources whose instances phase 1 reads ptxas's report of
 PTXAS_SOURCES = ("cauchy.cu", "fftconv.cu", "fftconv_long.cu")
-# kernel 5L's instances: pass A by input type, pass B
+# kernel 5L's instances: its two-pass route's pass A by input type and
+# pass B, its cluster kernel <N1, N2, NT> at n 2^16 and 2^17 (N1 N2 the
+# n/2-point transform, NT threads a block), by input type
+KERNEL_5L_CLUSTER = "dkf_cluster_kernel"
 KERNEL_5L = ("dkf_cols_kernel<float>", "dkf_cols_kernel<bf16>",
-             "dkf_rows_kernel")
+             "dkf_rows_kernel",
+             *(f"{KERNEL_5L_CLUSTER}<{inst}, {t}>"
+               for inst in ("128, 256, 512", "256, 256, 1024")
+               for t in ("float", "bf16")))
+# the kernels of kernel 9's training entry in its bf16 form, the three
+# passes (their bf16 instances without the sampling prologue)
+KERNEL_9_TRAIN_BF16 = tuple(f"{k}<false, __nv_bfloat16>"
+                            for k in ("cols_fwd_kernel", "cols_inv_kernel"))
+
+
+def kernel_parts(name, ptxas):
+    """The kernels line's parts of kernel ``name``: the global kernels it
+    launches and the ptxas report (``ptxas_report``) of its instances,
+    where the line lists them."""
+    if name == "cauchy_bwd":
+        return {"global_kernels": list(KERNELS_8),
+                "ptxas": {k: v for k, v in ptxas.items()
+                          if k.startswith("cauchy_bwd")}}
+    if name == "cauchy":
+        return {"global_kernels": [KERNEL_4],
+                "ptxas": {k: v for k, v in ptxas.items()
+                          if k.startswith(KERNEL_4)}}
+    if name == "fftconv_dkf_long":
+        return {"global_kernels": [KERNEL_5L_CLUSTER, "dkf_cols_kernel",
+                                   "dkf_rows_kernel"],
+                "ptxas": {k: ptxas[k] for k in KERNEL_5L}}
+    if name.startswith("fftconv_dkf"):
+        return {"ptxas": {k: v for k, v in ptxas.items()
+                          if k.startswith("fftconv_dkf")}}
+    if name == "fftconv_long":
+        return {"global_kernels": list(KERNEL_9_THREE_PASS)}
+    return {}
 
 
 def start_ptxas():
@@ -710,10 +754,10 @@ def ptxas_report(procs):
     bytes} from ptxas's reports, of kernel 4 (``cauchy_fwd_kernel<K>``),
     of kernel 8 (``name<K, PAIRED>``), of kernels 5 and 5f's radix-16
     route (``fftconv_dkf_r16_kernel<M, Q, T>``) and of kernel 5L's two
-    passes (KERNEL_5L); raise if nvcc failed, an instance spills or one of
-    kernels 4's and 8's K 1-8, of the route's M (n 2048 .. 32768, each
-    with its transforms a block Q) and T (float, bf16) or of 5L's is
-    missing."""
+    passes and cluster kernel (KERNEL_5L); raise if nvcc failed, an
+    instance spills or one of kernels 4's and 8's K 1-8, of the route's M
+    (n 2048 .. 32768, each with its transforms a block Q) and T (float,
+    bf16) or of 5L's is missing."""
     fc = importlib.import_module("diffwave_sashimi_torch.ops.fftconv")
     out = {}
     for src, proc in zip(PTXAS_SOURCES, procs):
@@ -731,6 +775,9 @@ def ptxas_report(procs):
                             line)
             k5l = re.search(r"Compiling entry function '\w*?\d(dkf_(?:cols|"
                             r"rows)_kernel)(?:I(f|13__nv_bfloat16)E)?", line)
+            k5c = re.search(r"Compiling entry function '\w*?(dkf_cluster_"
+                            r"kernel)ILi(\d+)ELi(\d+)ELi(\d+)E(f|13__nv_"
+                            r"bfloat16)E", line)
             if k8:
                 name = k8.group(1) + (
                     f"<{k8.group(2)}, "
@@ -741,6 +788,10 @@ def ptxas_report(procs):
             elif dkf:
                 name = (f"{dkf.group(1)}<{dkf.group(2)}, {dkf.group(3)}, "
                         f"{'float' if dkf.group(4) == 'f' else 'bf16'}>")
+            elif k5c:
+                name = (f"{k5c.group(1)}<{k5c.group(2)}, {k5c.group(3)}, "
+                        f"{k5c.group(4)}, "
+                        f"{'float' if k5c.group(5) == 'f' else 'bf16'}>")
             elif k5l:
                 name = k5l.group(1) + (
                     "" if k5l.group(2) is None else
@@ -2146,6 +2197,51 @@ def hold_gradients(label, losses, grads):
     return worst
 
 
+def check_harder_trace(torch, step, label):
+    """Phase 26: a torch.profiler trace of one ljspeech_harder bf16
+    training step (``trace_steps``), the long route's kernels apart (5L's
+    cluster kernel, the three passes of kernel 9's bf16 training entry);
+    raise unless the step launched 5L's cluster kernel exactly
+    HARDER_BF16_STEP's 12 times and each of the bf16 entry's passes 24
+    times, with no two-pass 5L kernel and no f32 training entry, or if the
+    profiler recorded no device time."""
+    groups = {"kernel_5l_cluster": lambda n: in_group(n, (KERNEL_5L_CLUSTER,)),
+              "kernel_9_train_bf16": lambda n: in_group(
+                  n, KERNEL_9_TRAIN_BF16 + ("rows_kernel",)),
+              "kernel_5l_two_pass": lambda n: in_group(
+                  n, ("dkf_cols_kernel", "dkf_rows_kernel"))}
+    groups.update(KERNEL_1F_GROUPS)
+    groups.update(KERNEL_5F_GROUPS)
+    groups.update(KERNEL_8_GROUPS)
+    groups.update(KERNEL_4_GROUPS)
+    trace = trace_steps(torch, step, steps=1, groups=groups)
+    if trace is None:
+        raise AssertionError(f"{label}: the profiler recorded no device "
+                             f"time, so the step's kernels are unchecked")
+    log(f"trace: {label} bf16 training step with the kernels: "
+        f"{json.dumps(trace)}")
+    count = trace["port_launches_per_step"]
+    cluster = sum(c for n, c in count.items()
+                  if in_group(n, (KERNEL_5L_CLUSTER,)))
+    passes = {k: count.get(k, 0) for k in KERNEL_9_TRAIN_BF16}
+    stale = [n for n in count if in_group(
+        n, ("dkf_cols_kernel", "dkf_rows_kernel", "cols_fwd_kernel<false, "
+            "float>", "cols_inv_kernel<false, float>"))]
+    want = HARDER_BF16_STEP["fftconv_long"]
+    busy = trace["device_busy_ms_per_step"]
+    log(f"trace: {label}: 5L's cluster kernel {cluster:g} launches, "
+        f"{trace['groups_ms_per_step']['kernel_5l_cluster']:.3f} ms; kernel "
+        f"9's bf16 training entry {passes}, "
+        f"{trace['groups_ms_per_step']['kernel_9_train_bf16']:.3f} ms; of "
+        f"{busy:.3f} busy ms a step, idle {trace['idle_share']:.1%}")
+    if cluster != HARDER_BF16_STEP["fftconv_dkf_long"] or stale or any(
+            c != want for c in passes.values()):
+        raise AssertionError(f"{label}: the traced step launched 5L's "
+                             f"cluster kernel {cluster} times, kernel 9's "
+                             f"bf16 entry {passes}, and {stale}")
+    return trace
+
+
 def counted_run(torch, path, want, launches, fn):
     """fn() with every launch count set to 0 just before and read just
     after into ``launches[path]``, which must equal ``want`` (0 for every
@@ -2343,8 +2439,9 @@ def check_training_trace(trace, label):
 def trace_steps(torch, step, steps=2, groups=None):
     """A torch.profiler trace of ``steps`` calls of ``step`` after two
     untraced ones.  Returns the device time by kernel name (ms per step),
-    the share of it in the port's kernels, and the device's idle share of
-    the window from the first kernel's start to the last one's end; with
+    the share of it in the port's kernels and their launches a step, and
+    the device's idle share of the window from the first kernel's start to
+    the last one's end; with
     ``groups`` (label -> predicate on a kernel's short name), also the
     device time of each group and of the rest."""
     from torch.profiler import ProfilerActivity, profile
@@ -2372,11 +2469,12 @@ def trace_steps(torch, step, steps=2, groups=None):
             cur_b = max(cur_b, b)
     busy += cur_b - cur_a
     window = spans[-1][1] - spans[0][0]
-    by_name = {}
+    by_name, count = {}, {}
     for e in kern:
         name = short_name(e.name)
         by_name[name] = by_name.get(name, 0.0) + (
             e.time_range.end - e.time_range.start) / 1e3 / steps
+        count[name] = count.get(name, 0) + 1 / steps
     port = {name: ms for name, ms in by_name.items()
             if name.split("<")[0] in PORT_KERNELS}
     glu_bf16, ff_bf16 = (sum(ms for name, ms in port.items()
@@ -2396,6 +2494,7 @@ def trace_steps(torch, step, steps=2, groups=None):
             - sum(port.values()),
             "launches_per_step": len(kern) / steps,
             "port_kernels_by_name_ms_per_step": port,
+            "port_launches_per_step": {name: count[name] for name in port},
             "glu_res_bf16_ms_per_step": glu_bf16,
             "ln_ff_res_bf16_ms_per_step": ff_bf16,
             "top_kernels_ms_per_step": dict(top),
@@ -3233,17 +3332,25 @@ def run_wavenet_training(torch, root, model, launches, dev):
 def check_long_training_kernels(torch, dev, results):
     """Phase 7c: the training route past FFT size 32768 at
     LONG_TRAIN_CASES, on seeded u, g and a decaying seeded kernel's
-    spectrum: kernel 9's training entry (``fftconv_long``, f32, the three
-    passes, and its conjugate form, the ``_conj`` tier) against
-    ``fftconv_long_ref``, and kernel 5L (``fftconv_dkf_long``, f32 and
-    bf16 inputs) against its plain version (``fftconv_dkf_ref``), each at
-    TOL_KERNEL x max(1, max|plain|) and timed (``compare``); 5L's relative
-    L2 error against complex128 at most twice the plain version's, two
-    calls bit-equal, its device time in a CUDA graph (``graph_ms``) and one
-    ``torch.fft.rfft`` of u and g stacked beside it (``cufft_rfft_ms``, a
-    yardstick the port never calls)."""
+    spectrum: kernel 9's training entry (``fftconv_long``, the three
+    passes, and its conjugate form, the ``_conj`` tiers) on f32 and bf16
+    activations against ``fftconv_long_ref`` (``compare``, TOL_KERNEL and
+    TOL_BF16; the bf16 entry also in ``hold_long_bf16_entry``), a cuFFT
+    conv of the shapes beside them (``cufft_conv_ms``, a yardstick the
+    port never calls); kernel 5L (``fftconv_dkf_long``, f32 and bf16
+    inputs) against its plain version (``fftconv_dkf_ref``) at TOL_KERNEL
+    x max(1, max|plain|), timed (``compare``), and in ``hold_dkf_long``
+    on both routes.  First the clusters of 5L's cluster route the card
+    holds at once at each of its sizes (none fails)."""
     from diffwave_sashimi_torch import ops
     fl = importlib.import_module("diffwave_sashimi_torch.ops.fftconv_long")
+    clusters = {f"n{n}": fl.max_active_dkf_clusters(n)
+                for n in fl.DKF_CLUSTER_NS}
+    log(f"kernel fftconv_dkf_long: cudaOccupancyMaxActiveClusters of its "
+        f"cluster route, by FFT size: {clusters}")
+    if not all(clusters.values()):
+        raise AssertionError(f"kernel fftconv_dkf_long: a cluster the card "
+                             f"cannot hold: {clusters}")
     gen = torch.Generator(device=dev).manual_seed(SEED + 30)
     for B, H, L, n in LONG_TRAIN_CASES:
         base = f"H{H}_L{L}" if B == 2 else f"B{B}_H{H}_L{L}"
@@ -3253,11 +3360,21 @@ def check_long_training_kernels(torch, dev, results):
         kp = ops.long_spectrum(khat)
         u, g = (torch.randn(B, H, L, device=dev, generator=gen)
                 for _ in range(2))
-        for conj, x, tier in ((False, u, base), (True, g, base + "_conj")):
-            compare("fftconv_long", H, L,
-                    lambda x=x, conj=conj: ops.fftconv_long(x, kp, conj),
-                    lambda x=x, conj=conj: fl.fftconv_long_ref(x, kp, conj),
-                    5, results, B=B, n=n, tier=tier)
+        cufft = cufft_conv_ms(torch, u, khat, L)
+        for dtype, bpe, tol, tag in ((torch.float32, 4, TOL_KERNEL, ""),
+                                     (torch.bfloat16, 2, TOL_BF16, "_bf16")):
+            for conj, x in ((False, u), (True, g)):
+                tier = base + tag + ("_conj" if conj else "")
+                xd = x.to(dtype)
+                compare("fftconv_long", H, L,
+                        lambda: ops.fftconv_long(xd, kp, conj),
+                        lambda: fl.fftconv_long_ref(xd, kp, conj), 5,
+                        results, B=B, n=n, tier=tier, tol=tol, bpe=bpe)
+                results["fftconv_long"]["tiers"][tier]["cufft_conv_ms"] = \
+                    cufft
+                if dtype == torch.bfloat16:
+                    hold_long_bf16_entry(torch, fl, xd, kp, conj, tier,
+                                         results)
         for dtype, bpe, tier in ((torch.float32, 4, base),
                                  (torch.bfloat16, 2, base + "_bf16")):
             ud, gd = u.to(dtype), g.to(dtype)
@@ -3265,37 +3382,105 @@ def check_long_training_kernels(torch, dev, results):
                     lambda: ops.fftconv_dkf_long(ud, gd, n),
                     lambda: ops.fftconv_dkf_ref(ud, gd, n), 5, results, B=B,
                     n=n, tier=tier, bpe=bpe)
-            one, two = (fl.launch_dkf_long(ud, gd, n) for _ in range(2))
-            plain = ops.fftconv_dkf_ref(ud, gd, n)
-            wide = ops.fftconv_dkf_ref(ud.double(), gd.double(), n)
-            torch.cuda.synchronize()
-
-            def l2(out):
-                return float((out.to(torch.complex128) - wide).abs().norm()
-                             / wide.abs().norm())
-            errs = {"c128_l2": l2(one), "plain_c128_l2": l2(plain)}
-            equal = torch.equal(one, two)
-            del one, two, plain, wide
-            t = results["fftconv_dkf_long"]["tiers"][tier]
-            t.update(errs, bit_equal=equal,
-                     graph_ms=graph_ms(torch, lambda: fl.launch_dkf_long(
-                         ud, gd, n)),
-                     cufft_rfft_ms=cuda_ms(lambda: torch.fft.rfft(
-                         torch.stack([ud, gd]).float(), n=n), 5))
-            ok = equal and errs["c128_l2"] <= 2 * errs["plain_c128_l2"]
-            log(f"kernel fftconv_dkf_long {tier} n {n}: two calls "
-                f"{'bit-equal' if equal else 'DIFFER'}; vs complex128 L2 "
-                f"{errs['c128_l2']:.3e} (plain {errs['plain_c128_l2']:.3e}) "
-                f"{'ok' if ok else 'FAIL'}; in a CUDA graph "
-                f"{t['graph_ms']:.4f} ms, rfft of u and g "
-                f"{t['cufft_rfft_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
-            if not ok:
-                raise AssertionError(f"kernel fftconv_dkf_long {tier}: two "
-                                     f"calls differ, or its L2 error against "
-                                     f"complex128 is past twice the plain "
-                                     f"version's")
+            hold_dkf_long(torch, fl, ud, gd, n, tier, results)
         del u, g, kp, khat
         torch.cuda.empty_cache()
+    results["fftconv_dkf_long"]["max_active_clusters"] = clusters
+
+
+def hold_long_bf16_entry(torch, fl, x, kp, conj, tier, results):
+    """Kernel 9's bf16 training entry at one tier beyond its bar: bit-equal
+    to the f32 entry on the widened input, narrowed to bf16 (the
+    composite the bf16 route took before the entry existed), and the two
+    timed in CUDA graphs in turns (``graph_ms``, ``composite_graph_ms``)."""
+    def entry():
+        return fl.launch_long(x, kp, conj)
+
+    def composite():
+        return fl.launch_long(x.float(), kp, conj).to(torch.bfloat16)
+    equal = torch.equal(entry(), composite())
+    c1 = graph_ms(torch, composite)
+    k1, k2 = graph_ms(torch, entry), graph_ms(torch, entry)
+    c2 = graph_ms(torch, composite)
+    t = results["fftconv_long"]["tiers"][tier]
+    t.update(bit_equal_composite=equal, graph_ms=(k1 + k2) / 2,
+             composite_graph_ms=(c1 + c2) / 2)
+    log(f"kernel fftconv_long {tier}: the bf16 entry "
+        f"{'bit-equal to' if equal else 'DIFFERS from'} the f32 entry on "
+        f"the widened input, narrowed; in CUDA graphs, in turns: "
+        f"{t['graph_ms']:.4f} ms vs that composite's "
+        f"{t['composite_graph_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms; "
+        f"cuFFT conv {t['cufft_conv_ms']:.4f} ms")
+    if not equal:
+        raise AssertionError(f"kernel fftconv_long {tier}: the bf16 entry "
+                             f"differs from the widened f32 entry narrowed")
+
+
+def hold_dkf_long(torch, fl, u, g, n, tier, results):
+    """Kernel 5L at one tier beyond its bar: on the route dkf_long_plan
+    takes (the cluster route at LONG_TRAIN_CASES' n), two calls bit-equal
+    and one allocation a call (its output: no scratch); it, its two-pass
+    route and the plain version against a complex128 evaluation of the
+    function, as relative L2 errors (``c128_l2``: the route's at most twice
+    the plain version's, ``two_pass_c128_l2``); the two-pass route against
+    the plain version at TOL_KERNEL x max(1, max|plain|); the two timed
+    in CUDA graphs in turns (``graph_ms``, ``two_pass_graph_ms``), and
+    one ``torch.fft.rfft`` of u and g stacked (``cufft_rfft_ms``, a
+    yardstick the port never calls)."""
+    from diffwave_sashimi_torch import ops
+    plan = fl.dkf_long_plan(n)
+    if plan.route != "cluster":
+        raise AssertionError(f"kernel fftconv_dkf_long {tier}: "
+                             f"dkf_long_plan({n}) is {plan}, not the "
+                             f"cluster route")
+    torch.cuda.synchronize()
+    count = torch.cuda.memory_stats()["allocation.all.allocated"]
+    one = fl.launch_dkf_long(u, g, n)
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - count
+    two = fl.launch_dkf_long(u, g, n)
+    other = fl.launch_dkf_long(u, g, n, fl.DKF_TWO_PASS)
+    plain = ops.fftconv_dkf_ref(u, g, n)
+    wide = ops.fftconv_dkf_ref(u.double(), g.double(), n)
+    torch.cuda.synchronize()
+
+    def l2(out):
+        return float((out.to(torch.complex128) - wide).abs().norm()
+                     / wide.abs().norm())
+    other_err, scale = max_err(other, plain)
+    errs = {"c128_l2": l2(one), "plain_c128_l2": l2(plain),
+            "two_pass_c128_l2": l2(other), "two_pass_max_abs_err": other_err}
+    equal = torch.equal(one, two)
+    del one, two, other, plain, wide
+
+    def launch(p):
+        return lambda: fl.launch_dkf_long(u, g, n, p)
+    o1 = graph_ms(torch, launch(fl.DKF_TWO_PASS))
+    k1, k2 = graph_ms(torch, launch(plan)), graph_ms(torch, launch(plan))
+    o2 = graph_ms(torch, launch(fl.DKF_TWO_PASS))
+    t = results["fftconv_dkf_long"]["tiers"][tier]
+    t.update(errs, bit_equal=equal, allocations=allocs, plan=list(plan),
+             graph_ms=(k1 + k2) / 2, two_pass_graph_ms=(o1 + o2) / 2,
+             cufft_rfft_ms=cuda_ms(lambda: torch.fft.rfft(
+                 torch.stack([u, g]).float(), n=n), 5))
+    ok = equal and allocs == 1 and \
+        errs["c128_l2"] <= 2 * errs["plain_c128_l2"] and \
+        other_err <= TOL_KERNEL * max(1.0, scale)
+    log(f"kernel fftconv_dkf_long {tier} n {n}: cluster route, two calls "
+        f"{'bit-equal' if equal else 'DIFFER'}, {allocs} allocation(s) a "
+        f"call; vs complex128 L2 {errs['c128_l2']:.3e} (plain "
+        f"{errs['plain_c128_l2']:.3e}, two passes "
+        f"{errs['two_pass_c128_l2']:.3e}) {'ok' if ok else 'FAIL'}; in CUDA "
+        f"graphs, in turns: {t['graph_ms']:.4f} ms vs the two passes' "
+        f"{t['two_pass_graph_ms']:.4f} ms (their max_abs_err "
+        f"{other_err:.3e} of {scale:.3e}); rfft of u and g "
+        f"{t['cufft_rfft_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms; plan "
+        f"{tuple(plan)}")
+    if not ok:
+        raise AssertionError(f"kernel fftconv_dkf_long {tier}: two calls "
+                             f"differ, a call allocates more than its "
+                             f"output, its L2 error against complex128 is "
+                             f"past twice the plain version's, or the two "
+                             f"passes disagree")
 
 
 def write_clips(root):
@@ -3397,7 +3582,7 @@ def hold_vocoder_grads_bf16(torch, label, loss, loss_plain, grads,
 
 
 def check_vocoder_train_grads(torch, cfg, dataset_cfg, B, dev, label,
-                              grad_layers=None):
+                              grad_layers=None, trace=False):
     """Phases 25 and 26: one training step of the vocoder ``cfg`` (built
     from a seed, full width; depth cut to ``grad_layers`` where given) on
     a seeded (audio, t, z, mel) at its segment length and batch B, at each
@@ -3405,8 +3590,9 @@ def check_vocoder_train_grads(torch, cfg, dataset_cfg, B, dev, label,
     against torch autograd of the plain versions (ops.PLAIN) on the card at
     phase 9's bar (``hold_gradients``), at bf16 at phase 9b's
     (``hold_vocoder_grads_bf16``); then the training step (forward,
-    backward, Adam) of ``cfg`` at full depth timed at the bf16 path.
-    Returns its numbers."""
+    backward, Adam) of ``cfg`` at full depth timed at the bf16 path and,
+    with ``trace``, traced (``check_harder_trace``).  Returns its
+    numbers."""
     from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
     from diffwave_sashimi_torch.runtime.train import (make_optimizer,
                                                       train_step)
@@ -3451,6 +3637,9 @@ def check_vocoder_train_grads(torch, cfg, dataset_cfg, B, dev, label,
         bfm, optim, audio, schedule, gen, mel=mel), 3)
     log(f"timing: {label} bf16 training step (forward, backward, Adam) at "
         f"B{B} L{L} {out['step_ms_bf16']:.3f} ms")
+    if trace:
+        out["trace"] = check_harder_trace(torch, lambda: train_step(
+            bfm, optim, audio, schedule, gen, mel=mel), label)
     del bfm, optim
     torch.cuda.empty_cache()
     return out
@@ -4022,7 +4211,7 @@ def main():
           HARDER_BF16_STEP)], HARDER_MODEL_CFG, HARDER_DATASET_CFG))
     harder["grads"] = check_vocoder_train_grads(
         torch, HARDER_MODEL_CFG, HARDER_DATASET_CFG, HARDER_SAMPLES, dev,
-        "vocoder_train_harder", HARDER_GRAD_LAYERS)
+        "vocoder_train_harder", HARDER_GRAD_LAYERS, trace=True)
     with torch.no_grad():
         check_harder_kernels(torch, dev, results)
 
@@ -4110,28 +4299,17 @@ def main():
                     "bit_equal", "plan", "device_ms", "c128_l2",
                     "plain_c128_l2", "stockham_c128_l2", "graph_ms",
                     "stockham_graph_ms", "rows_ms", "cufft_rfft_ms",
-                    "stockham_max_abs_err"):
+                    "stockham_max_abs_err", "two_pass_graph_ms",
+                    "two_pass_c128_l2", "two_pass_max_abs_err",
+                    "allocations", "bit_equal_composite",
+                    "composite_graph_ms"):
             # yardsticks and parts, not library calls
             if key in top:
                 entries[-1][key] = top[key]
         for key in ("vs_f64_max_rel", "max_active_clusters"):
             if key in r:
                 entries[-1][key] = r[key]
-        if name == "cauchy_bwd":
-            entries[-1]["global_kernels"] = list(KERNELS_8)
-            entries[-1]["ptxas"] = {k: v for k, v in ptxas.items()
-                                    if k.startswith("cauchy_bwd")}
-        if name == "cauchy":
-            entries[-1]["global_kernels"] = [KERNEL_4]
-            entries[-1]["ptxas"] = {k: v for k, v in ptxas.items()
-                                    if k.startswith(KERNEL_4)}
-        if name == "fftconv_dkf_long":
-            entries[-1]["global_kernels"] = ["dkf_cols_kernel",
-                                             "dkf_rows_kernel"]
-            entries[-1]["ptxas"] = {k: ptxas[k] for k in KERNEL_5L}
-        elif name.startswith("fftconv_dkf"):
-            entries[-1]["ptxas"] = {k: v for k, v in ptxas.items()
-                                    if k.startswith("fftconv_dkf")}
+        entries[-1].update(kernel_parts(name, ptxas))
         if name.startswith("fftconv_long"):     # the same function
             entries[-1]["also_replaces"] = (
                 "diffwave_sashimi_tpu/ops/fftconv_pallas.py:126")

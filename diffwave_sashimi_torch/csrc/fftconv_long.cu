@@ -1,7 +1,8 @@
 // Long S4 FFT convolution (kernel 9): the four-step conv, for FFT sizes
 // past one block's shared memory; and kernel 5L, the conv spectrum's
 // gradient at those sizes, on the same four-step transform (its design
-// is above its two kernels, dkf_cols_kernel and dkf_rows_kernel).
+// is above its kernels, dkf_cols_kernel and dkf_rows_kernel, then
+// dkf_cluster_kernel below 9f's cluster kernel).
 //
 // Replaces the TPU kernels diffwave_sashimi_tpu/ops/fftconv_pallas.py::
 // _kernel (fftconv_fused, the per-row four-step DFT as matmuls) and its
@@ -12,9 +13,10 @@
 // for u (B, H, L) float32 and the spectrum khat of the combined
 // bidirectional S4 kernel at any power of two 256 <= n <= 2^20 with
 // L <= n, in factorized (k1, k2) order; its training entry also takes
-// conj(khat), the conv's input gradient.  The sampling entry adds kernel 1's
-// prologue u' = a u + c + bias (a, c (B, L) norm1 as scale and shift; bias
-// (B, H) the step bias) and epilogue gelu_erf(y + D u').
+// conj(khat), the conv's input gradient, and takes u and gives y as f32 or
+// as bf16 (the chain f32, y rounded once).  The sampling entry adds kernel
+// 1's prologue u' = a u + c + bias (a, c (B, L) norm1 as scale and shift;
+// bias (B, H) the step bias) and epilogue gelu_erf(y + D u').
 //
 // Kernel 9f, the sampling form of the bf16 path (the TPU kernel with
 // fast=True, whose only change there is the MXU precision, composed with
@@ -429,28 +431,56 @@ cols_inv_kernel(const float2* __restrict__ S, const T* __restrict__ u,
 // so u's and g's spectra keep their own scales (a product of one packed
 // transform of u + i g would carry u's rounding into a small g's bins).
 // Z is kernel 9's four-step transform (M = N1 N2, time m = n1 N2 + n2,
-// frequency k = k1 + N1 k2), in two passes through a device-memory
-// scratch S, one M-point row per (b, h, u or g) in (k1, n2) order:
+// frequency k = k1 + N1 k2).  Each bin k is split against its partner M -
+// k, whose row is N1 - k1 (k1 0 and N1/2 are their own partners), so the
+// row phase holds the rows in pairs {k1, N1 - k1}, the first pair {0,
+// N1/2} (dkf_row).  ops/fftconv_long.py::dkf_long_plan picks one of two
+// routes by n alone:
+//
+// - the cluster route, n 2^16 and 2^17 (dkf_cluster_kernel): one
+//   thread-block cluster of C = DKF_CLUSTER = 8 blocks owns channel h,
+//   each block NT threads and 16 NT complex values, its share of u_b's and
+//   of g_b's transform (NT 512 at n 2^16, two blocks an SM; 1024 at 2^17,
+//   one): COLS = N2 / C columns n2 of each in the column phase, ROWS = N1
+//   / C rows of each, ROWS / 2 whole pairs, in the row phase.  For b = 0 .. B-1 in order a block
+//   loads its columns of u_b and g_b (zero past L; bf16 read as bf16),
+//   runs the N1-point column FFTs, moves each value over distributed
+//   shared memory to the block that owns its row (one exchange, the
+//   twiddle W_M^(n2 k1) applied as the value crosses it; the exchange
+//   pushes as 9f's does, and the cluster barrier before its stores also
+//   keeps them off the peers' previous row phase), runs the N2-point row
+//   FFTs, splits each bin against its partner and adds conj(U) G to the
+//   bin's sum, which the one thread that owns the bin keeps in a slot of
+//   shared memory.  After the last b the bins are scaled by c_k and
+//   stored once, in runs of consecutive k.  No device-memory scratch: the
+//   device traffic is u and g once and the half spectrum once, in one
+//   launch.  The transforms are 9f's (fft_warp, the Swz slot layout).
+//   What bounds it: the instructions of the two transform phases and the
+//   exchange, as in 9f; at n 2^16 two blocks an SM overlap one block's
+//   exchange with the other's transforms;
+// - the two-pass route, every other n, through a device-memory scratch S,
+//   one M-point row per (b, h, u or g) in (k1, n2) order:
 //
 //   A (dkf_cols_kernel): each block takes TC columns n2 of one row, loads
 //     the packed pairs (zero past L), runs the N1-point column FFTs, and
 //     writes S[k1][n2] times the twiddle W_M^(n2 k1);
 //   B (dkf_rows_kernel): each block takes one channel and the rows of
-//     rpb / 2 pairs {k1, N1 - k1} (the first pair {0, N1/2}), which hold
-//     each of their bins k together with its partner M - k; for b = 0 ..
-//     B-1 in order it loads those rows of u_b and g_b, runs the N2-point
-//     row FFTs, splits each bin's U and G, and adds conj(U) G to the bin's
-//     sum in a register of the one thread that owns the bin; then it
-//     scales and stores the bins.
+//     rpb / 2 pairs, for b = 0 .. B-1 in order loads those rows of u_b and
+//     g_b, runs the N2-point row FFTs, splits each bin's U and G, and adds
+//     conj(U) G to the bin's sum in a register of the one thread that owns
+//     the bin; then it scales and stores the bins.
 //
-// The batch is summed in b order by one thread a bin, so two calls give
-// the same bits, and the (B, H, n/2+1) spectra never reach device memory.
-// What bounds it on the H100: the function reads u and g once and writes
-// the half spectrum once (B2 H128 L44000 n 2^17: 0.16 GB, 0.05 ms at 3.35
-// TB/s; its transforms take about as long at the fp32 peak).  The scratch
-// round trip moves 2 x 8 n bytes a (b, h) beyond that (0.54 GB there): a
-// redesign that holds a row in a thread-block cluster, as kernel 9f does,
-// would keep it in shared memory.
+//   Its scratch round trip moves 2 x 8 n bytes a (b, h) beyond the bound,
+//   and pass B holds one block an SM.  Past n 2^17 a cluster of the
+//   portable size cannot hold a channel's two transforms (at 2^18 it would
+//   need 16 blocks).
+//
+// On either route the batch is summed in b order by one thread a bin, so
+// two calls give the same bits, and the (B, H, n/2+1) spectra never reach
+// device memory.  What bounds the function on the H100: it reads u and g
+// once and writes the half spectrum once (B2 H128 L44000 n 2^17: 0.16 GB,
+// 0.05 ms at 3.35 TB/s; its transforms take about as long at the fp32
+// peak).
 
 // The row k1 of a slot's pair p: side 0 p, side 1 its partner row.
 __device__ __forceinline__ int dkf_row(int p, int side, int N1) {
@@ -705,6 +735,178 @@ fftconv_cluster_kernel(const __nv_bfloat16* __restrict__ u,
   STAMP(11);
 }
 
+// Kernel 5L's cluster route at M = n/2 = N1 N2, NT threads a block, C =
+// 2 M / (NT CV) blocks a cluster, one cluster a channel h = blockIdx.x /
+// C.  Block j (its rank) holds in the column phase z[c ST1 + slot(n1)] for
+// its columns c < COLS of u_b (n2 = j COLS + c) and c - COLS of g_b, and
+// in the row phase z[r ST2 + slot(k2)] for its slots r < ROWS of u_b and
+// r - ROWS of g_b: slot q the row dkf_row(j ROWS/2 + q/2, q % 2).  A
+// thread owns the bins of its BINS u slots (q, k2) = (i / N2, i % N2), i =
+// tid + e NT, and their sums across the batch in acc[q ST2 + k2], shared
+// memory past z that no other thread touches (in registers the sums would
+// spill: the transforms take the 64 registers a thread has at 1024
+// threads an SM).  Thread tid loads and sends the values of column c =
+// tid % (2 COLS) at n1 (k1) = tid / (2 COLS) + e KS, so a warp moves
+// runs of 16 or 32 adjacent values.  In the column transforms thread l of
+// a transform takes lane l ^ 1: at N1 = N2 = 256 the rows' lanes would
+// give the same twiddles, which ptxas then keeps in registers across the
+// b loop, and spills.  The block's shared memory: z's slots, then acc's.
+// The route runs clusters of DKF_CLUSTER blocks at both n, the portable
+// size: blocks of 16384 values at n 2^16 (clusters of 4) and of 8192 at
+// 2^17 (clusters of 16) were slower in turns on the H100 (PERF.md).
+constexpr int DKF_CLUSTER = 8;
+
+template <int N1, int N2, int NT>
+__host__ __device__ constexpr int dkf_cluster_slots() {
+  constexpr int C = 2 * N1 * N2 / (NT * CV);
+  constexpr int cols = 2 * (N2 / C) * Swz::stride(N1);
+  constexpr int rows = 2 * (N1 / C) * Swz::stride(N2);
+  return cols > rows ? cols : rows;
+}
+
+template <int N1, int N2, int NT>
+constexpr int dkf_cluster_smem() {
+  constexpr int C = 2 * N1 * N2 / (NT * CV);
+  return 8 * (dkf_cluster_slots<N1, N2, NT>() + (N1 / C) * Swz::stride(N2));
+}
+
+template <int N1, int N2, int NT, typename T>
+__global__ void __launch_bounds__(NT, CLUSTER_THREADS / NT)
+dkf_cluster_kernel(const T* __restrict__ u, const T* __restrict__ g,
+                   float2* __restrict__ out, Dims d) {
+  constexpr int M = N1 * N2, C = 2 * M / (NT * CV);
+  constexpr int COLS = N2 / C, ROWS = N1 / C, PAIRS = ROWS / 2;
+  constexpr int SPAN = 2 * COLS, KS = NT / SPAN;
+  constexpr int ST1 = Swz::stride(N1), ST2 = Swz::stride(N2);
+  constexpr int F1 = N1 / VPT, F2 = N2 / VPT;   // threads a transform
+  constexpr int BINS = ROWS * N2 / NT;
+  static_assert(NT % SPAN == 0 && KS * CV == N1 && SPAN * F1 == NT &&
+                    2 * ROWS * F2 == NT && BINS * NT == ROWS * N2 &&
+                    COLS % 16 == 0 && PAIRS >= 1 && C <= 16,
+                "a block: 2 COLS columns and 2 ROWS rows of NT CV values");
+  extern __shared__ float2 z[];
+  float2* const acc = z + dkf_cluster_slots<N1, N2, NT>();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int j = (int)cluster.block_rank();
+  const int h = blockIdx.x / C, p0 = j * PAIRS;
+  const float two_over_m = d.two_over_n;          // W_M's argument
+  const float inv_m = 0.5f * two_over_m;          // W_n's
+  float acc_nyq = 0.0f;                           // bin M, real
+  {
+    const int tid = phase_tid();
+#pragma unroll
+    for (int e = 0; e < BINS; ++e) {
+      const int i = tid + e * NT;
+      acc[i / N2 * ST2 + i % N2] = make_float2(0.0f, 0.0f);
+    }
+  }
+
+#pragma unroll 1
+  for (int b = 0; b < d.B; ++b) {
+    // the columns of u_b and g_b, packed pairs, zero past L
+    int tid = phase_tid();
+    {
+      const int c = tid % SPAN, n10 = tid / SPAN, L = d.L;
+      const T* x = (c < COLS ? u : g) + ((size_t)b * d.H + h) * L;
+      const int m0 = j * COLS + c % COLS;
+      float2* zc = z + c * ST1;
+#pragma unroll 1
+      for (int e0 = 0; e0 < CV; e0 += G) {
+        float x0[G], x1[G];
+#pragma unroll
+        for (int k = 0; k < G; ++k) {
+          const int t = 2 * ((n10 + (e0 + k) * KS) * N2 + m0);
+          x0[k] = t < L ? to_f(x[t]) : 0.0f;
+          x1[k] = t + 1 < L ? to_f(x[t + 1]) : 0.0f;
+        }
+#pragma unroll
+        for (int k = 0; k < G; ++k)
+          zc[Swz::slot(n10 + (e0 + k) * KS)] = make_float2(x0[k], x1[k]);
+      }
+    }
+    __syncthreads();
+    tid = phase_tid();
+    fft_warp<N1, false>(z + tid / F1 * ST1, (tid % F1) ^ 1);
+    __syncthreads();
+
+    // the exchange: value (c, k1) times W_M^(n2 k1) to slot (pair of k1)
+    // of the block that owns that pair, row by row; a thread's twiddles
+    // step by W_M^(n2 KS), exact every 8 values
+    tid = phase_tid();
+    float2 v[CV];
+    {
+      const int c = tid % SPAN, n2 = j * COLS + c % COLS, k10 = tid / SPAN;
+      const float2 step = twiddle<false>(KS * n2, two_over_m);
+      float2 tw;
+#pragma unroll
+      for (int e = 0; e < CV; ++e) {
+        const int k1 = k10 + e * KS;
+        if (e % 8 == 0) tw = twiddle<false>(n2 * k1, two_over_m);
+        v[e] = cmul(z[c * ST1 + Swz::slot(k1)], tw);
+        tw = cmul(tw, step);
+      }
+    }
+    cluster.sync();
+    tid = phase_tid();
+    {
+      const int c = tid % SPAN, k10 = tid / SPAN;
+      const int r0 = c < COLS ? 0 : ROWS;
+      const int n2 = j * COLS + c % COLS;
+#pragma unroll
+      for (int e = 0; e < CV; ++e) {
+        const int k1 = k10 + e * KS, side = k1 >= N1 / 2;
+        const int p = side ? (k1 == N1 / 2 ? 0 : N1 - k1) : k1;
+        st_cluster(cluster_addr(z + (r0 + 2 * (p % PAIRS) + side) * ST2 +
+                                    Swz::slot(n2),
+                                p / PAIRS),
+                   v[e]);
+      }
+    }
+    cluster.sync();
+
+    // the rows, forward; then each u bin's split and sum
+    tid = phase_tid();
+    fft_warp<N2, false>(z + tid / F2 * ST2, tid % F2);
+    __syncthreads();
+    tid = phase_tid();
+#pragma unroll
+    for (int e = 0; e < BINS; ++e) {
+      const int i = tid + e * NT, q = i / N2, k2 = i % N2;
+      const int k1 = dkf_row(p0 + q / 2, q & 1, N1);
+      const int k = k1 + N1 * k2, kr = (M - k) & (M - 1);
+      const int k1r = kr & (N1 - 1), k2r = kr / N1;
+      const int qr = k1r == k1 ? q : (q ^ 1);
+      const float2 w = twiddle<false>(k, inv_m);
+      const float2 zu = z[q * ST2 + Swz::slot(k2)];
+      const float2 zg = z[(q + ROWS) * ST2 + Swz::slot(k2)];
+      const float2 xu = split_bin(zu, z[qr * ST2 + Swz::slot(k2r)], w);
+      const float2 xg =
+          split_bin(zg, z[(qr + ROWS) * ST2 + Swz::slot(k2r)], w);
+      float2* a = acc + q * ST2 + k2;
+      *a = cadd(*a, cmul(cconj(xu), xg));
+      if (k == 0) acc_nyq += (zu.x - zu.y) * (zg.x - zg.y);
+    }
+    __syncthreads();
+  }
+
+  // the bins, scaled, in runs of consecutive k1: r < PAIRS the pairs'
+  // first rows, ascending, the rest their partners, ascending (the last
+  // barrier above orders every thread's sums before these reads)
+  float2* o = out + (size_t)h * (M + 1);
+  const float c_edge = 0.5f * inv_m, c_mid = inv_m;   // 1/n, 2/n
+  const int tid = phase_tid();
+  if (j == 0 && tid == 0) o[M] = make_float2(c_edge * acc_nyq, 0.0f);
+#pragma unroll
+  for (int e = 0; e < BINS; ++e) {
+    const int i = tid + e * NT, r = i % ROWS, k2 = i / ROWS;
+    const int q = r < PAIRS ? 2 * r : 2 * (ROWS - 1 - r) + 1;
+    const int k = dkf_row(p0 + q / 2, q & 1, N1) + N1 * k2;
+    const float s = k == 0 ? c_edge : c_mid;
+    const float2 a = acc[q * ST2 + k2];
+    o[k] = make_float2(s * a.x, s * a.y);
+  }
+}
+
 // power of two, 256 <= n <= 2^20 (N1, N2 in [16, 1024]), L <= n
 bool bad_size(int n, int L) {
   return n < 256 || n > (1 << 20) || (n & (n - 1)) || L > n || L < 1;
@@ -728,7 +930,8 @@ Dims dims(int B, int H, int L, int n) {
 template <typename Kernel>
 cudaError_t cluster_config(Kernel kernel, int C, int smem, int clusters,
                            cudaStream_t stream, cudaLaunchConfig_t* cfg,
-                           cudaLaunchAttribute* attr) {
+                           cudaLaunchAttribute* attr,
+                           int threads = CLUSTER_THREADS) {
   cudaError_t e;
   if ((e = allow_smem(kernel, smem)) != cudaSuccess) return e;
   if (C > 8 && (e = cudaFuncSetAttribute(
@@ -737,7 +940,7 @@ cudaError_t cluster_config(Kernel kernel, int C, int smem, int clusters,
     return e;
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3(clusters * C);
-  cfg->blockDim = dim3(CLUSTER_THREADS);
+  cfg->blockDim = dim3(threads);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -824,20 +1027,62 @@ int launch_long(const T* u, const float* a, const float* c,
   return (int)cudaGetLastError();
 }
 
-// Kernel 5L through its scratch (B H n complex64): pass A over 2 B H rows,
-// pass B over the channels.
+// Kernel 5L's cluster-route instance at FFT size n (2^16 or 2^17) for
+// inputs of type T: clusters of DKF_CLUSTER blocks, so NT = n / (8 CV)
+// threads a block (512 at n 2^16, two blocks an SM; 1024 at 2^17, one),
+// with its shared-memory bytes; a null kernel at any other n.
+template <typename T>
+struct DkfCluster {
+  void (*kernel)(const T*, const T*, float2*, Dims);
+  int threads, smem;
+};
+
+template <int N1, int N2, typename T>
+DkfCluster<T> dkf_cluster_at() {
+  constexpr int NT = 2 * N1 * N2 / (DKF_CLUSTER * CV);
+  return {dkf_cluster_kernel<N1, N2, NT, T>, NT,
+          dkf_cluster_smem<N1, N2, NT>()};
+}
+
+template <typename T>
+DkfCluster<T> dkf_cluster_instance(int n) {
+  switch (n) {
+    case 1 << 16: return dkf_cluster_at<128, 256, T>();
+    case 1 << 17: return dkf_cluster_at<256, 256, T>();
+    default: return {nullptr, 0, 0};
+  }
+}
+
+// Kernel 5L on its plan's route (ops/fftconv_long.py::dkf_long_plan):
+// cluster DKF_CLUSTER the cluster route, one launch of H clusters (scratch
+// unused); cluster 0 the two passes through the scratch (B H n complex64),
+// pass A over 2 B H rows, pass B over the channels.
 template <typename T>
 int launch_dkf_long(const T* u, const T* g, void* scratch, void* out, int B,
-                    int H, int L, int n, cudaStream_t stream) {
+                    int H, int L, int n, int cluster, cudaStream_t stream) {
   if (bad_size(n, L) || n < (1 << 16) || B < 1 || H < 1)
     return (int)cudaErrorInvalidValue;
   const Dims d = dims(B, H, L, n / 2);
+  cudaError_t e;
+  if (cluster != 0) {
+    const DkfCluster<T> k = dkf_cluster_instance<T>(n);
+    if (!k.kernel || cluster != DKF_CLUSTER)
+      return (int)cudaErrorInvalidValue;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    if ((e = cluster_config(k.kernel, cluster, k.smem, H, stream, &cfg,
+                            &attr, k.threads)) != cudaSuccess ||
+        (e = cudaLaunchKernelEx(&cfg, k.kernel, u, g,
+                                static_cast<float2*>(out), d)) !=
+            cudaSuccess)
+      return (int)e;
+    return (int)cudaGetLastError();
+  }
   float2* S = static_cast<float2*>(scratch);
   const size_t smem_col = (size_t)TC * Pad::stride(d.N1) * sizeof(float2);
   const int rpb = ROW_THREADS * VPT / (2 * d.N2);
   const size_t smem_row =
       (size_t)2 * rpb * Pad::stride(d.N2) * sizeof(float2);
-  cudaError_t e;
   if ((e = allow_smem(dkf_cols_kernel<T>, smem_col)) != cudaSuccess ||
       (e = allow_smem(dkf_rows_kernel, smem_row)) != cudaSuccess)
     return (int)e;
@@ -881,7 +1126,7 @@ extern "C" int dwst_fftconv_long_ln_bias_gelu_d_bf16(
 
 // The TPU kernel's contract, the training conv: conj 0 y = conv(u, k),
 // conj 1 the same with conj(kp), its input gradient (k is real, and the
-// output is as long as the input).
+// output is as long as the input); three passes at every n.
 extern "C" int dwst_fftconv_long(const float* u, const void* kp,
                                  void* scratch, float* out, int B, int H,
                                  int L, int n, int conj, cudaStream_t stream) {
@@ -890,22 +1135,38 @@ extern "C" int dwst_fftconv_long(const float* u, const void* kp,
                                    conj != 0);
 }
 
-// Kernel 5L: u, g (B, H, L) float32, scratch B H n complex64, out (H,
-// n/2+1) complex64, 2^16 <= n <= 2^20.
+// The same with u and out bf16 (the bf16 training route): u read as bf16,
+// the chain and the scratch f32, y rounded to the nearest bf16 once, so
+// the result is the f32 entry's on the widened input, narrowed.
+extern "C" int dwst_fftconv_long_bf16(const void* u, const void* kp,
+                                      void* scratch, void* out, int B, int H,
+                                      int L, int n, int conj,
+                                      cudaStream_t stream) {
+  return launch_long<false>(static_cast<const __nv_bfloat16*>(u), nullptr,
+                            nullptr, nullptr, kp, nullptr, scratch,
+                            static_cast<__nv_bfloat16*>(out), B, H, L, n,
+                            stream, conj != 0);
+}
+
+// Kernel 5L: u, g (B, H, L) float32, out (H, n/2+1) complex64, 2^16 <= n
+// <= 2^20; cluster: its route (ops/fftconv_long.py::dkf_long_plan), 0 the
+// two passes through scratch (B H n complex64), DKF_CLUSTER the cluster
+// route (scratch unused).
 extern "C" int dwst_fftconv_dkf_long(const float* u, const float* g,
                                      void* scratch, void* out, int B, int H,
-                                     int L, int n, cudaStream_t stream) {
-  return launch_dkf_long(u, g, scratch, out, B, H, L, n, stream);
+                                     int L, int n, int cluster,
+                                     cudaStream_t stream) {
+  return launch_dkf_long(u, g, scratch, out, B, H, L, n, cluster, stream);
 }
 
 // Kernel 5L, u and g bf16.
 extern "C" int dwst_fftconv_dkf_long_bf16(const void* u, const void* g,
                                           void* scratch, void* out, int B,
-                                          int H, int L, int n,
+                                          int H, int L, int n, int cluster,
                                           cudaStream_t stream) {
   return launch_dkf_long(static_cast<const __nv_bfloat16*>(u),
                          static_cast<const __nv_bfloat16*>(g), scratch, out,
-                         B, H, L, n, stream);
+                         B, H, L, n, cluster, stream);
 }
 
 // How many clusters of 9f's cluster kernel at FFT size n (C = n / 16384
@@ -922,6 +1183,20 @@ extern "C" int dwst_fftconv_long_max_clusters(int n, int smem) {
   int clusters = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  return e == cudaSuccess ? clusters : -(int)e;
+}
+
+// The same for kernel 5L's cluster route at FFT size n.
+extern "C" int dwst_fftconv_dkf_long_max_clusters(int n) {
+  const DkfCluster<float> k = dkf_cluster_instance<float>(n);
+  if (!k.kernel) return -(int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = cluster_config(k.kernel, DKF_CLUSTER, k.smem, 1, 0, &cfg,
+                                 &attr, k.threads);
+  int clusters = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveClusters(&clusters, k.kernel, &cfg);
   return e == cudaSuccess ? clusters : -(int)e;
 }
 

@@ -11,8 +11,8 @@ conv swapped for the int8 conv (kernel 12; ``+compute.conv_int8=true``).
 Every wrapper takes the bf16 path's form (kernels 1f or 9f, 2f, 3f and
 11f at sampling; 1f's training entry, 5f, 6f, 7f in training) for bf16
 activations, by the tensors' dtype; past kernel 1's FFT sizes the training
-conv takes kernel 9's training entries (bf16 widened to f32) and kernel 5L
-at either precision.
+conv takes kernel 9's training entries and kernel 5L at either precision,
+each reading bf16 activations as they are.
 """
 
 from typing import Callable, NamedTuple

@@ -94,13 +94,18 @@ _SIGNATURES = {
     # (cluster, cols, rows, smem; ops/fftconv_long.py::long_plan) before
     # the stream
     "dwst_fftconv_long_ln_bias_gelu_d_bf16": [_P] * 8 + [_I] * 8 + [_P],
-    # u, kp, scratch, out, B, H, L, n, conj, stream
+    # u, kp, scratch, out, B, H, L, n, conj, stream (u, out f32 or bf16)
     "dwst_fftconv_long": [_P] * 4 + [_I] * 5 + [_P],
-    # kernel 5L: u, g, scratch, out, B, H, L, n, stream (u, g f32 or bf16)
-    "dwst_fftconv_dkf_long": [_P] * 4 + [_I] * 4 + [_P],
-    "dwst_fftconv_dkf_long_bf16": [_P] * 4 + [_I] * 4 + [_P],
-    # n, smem (no stream): the clusters the card holds at once
+    "dwst_fftconv_long_bf16": [_P] * 4 + [_I] * 5 + [_P],
+    # kernel 5L: u, g, scratch, out, B, H, L, n, its route's blocks a
+    # cluster (ops/fftconv_long.py::dkf_long_plan), stream (u, g f32 or
+    # bf16)
+    "dwst_fftconv_dkf_long": [_P] * 4 + [_I] * 5 + [_P],
+    "dwst_fftconv_dkf_long_bf16": [_P] * 4 + [_I] * 5 + [_P],
+    # n, smem (no stream): the clusters of 9f's cluster route the card
+    # holds at once; 5L's: n
     "dwst_fftconv_long_max_clusters": [_I] * 2,
+    "dwst_fftconv_dkf_long_max_clusters": [_I],
     # h, x, Wr, br, Ws, bs, res, skip, B, C, S, L, stream
     "dwst_gate_res_skip": [_P] * 8 + [_I] * 4 + [_P],
     # kernel 11f: the same with h, x, res and skip bf16, wf (the bf16

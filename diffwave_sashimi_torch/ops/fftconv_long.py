@@ -40,8 +40,13 @@ by the same with ``conj=True`` (the conv's adjoint, as the output is as
 long as the input), and the spectrum gradient by kernel 5L
 (:func:`fftconv_dkf_long`, the TPU kernel ``fftconv2.py::_dkf_kernel``'s
 function at 2^16 <= n <= 2^20, CUDA source ``csrc/fftconv_long.cu``).
-bf16 activations are widened to f32 for kernel 9 and its result narrowed
-back; kernel 5L reads them as they are.
+Both take bf16 activations as they are: kernel 9's training entry has a
+bf16 form (bf16 in and out, the chain f32, y rounded once: the f32 entry's
+result on the widened input, narrowed), and kernel 5L reads bf16.  Kernel
+5L's FFT size alone picks its route (:func:`dkf_long_plan`): at n 2^16
+and 2^17 a thread-block cluster of 8 blocks a channel that holds its
+transforms in its blocks' shared memory, one launch and no scratch; at
+every other n two passes through a device-memory scratch.
 
 Kernel 9f computes what the JAX package computes around kernel 9 at bf16
 (its v1 path, ``models/s4.py:705-712``, and its flat path, which computes
@@ -50,9 +55,7 @@ bf16, the f32 conv of it, ``v = y + D u'`` in f32 rounded to bf16, and the
 exact GELU of that, stored as bf16.  The TPU kernel's ``fast`` flag changes
 only its MXU precision, and off the TPU its fast form is its strict one.
 Kernel 1f's sampling form rounds neither u' nor v and takes ``gelu_fast``
-(the compact path's function), so the two differ there.  The TPU-contract
-entry :func:`fftconv_long` stays f32: the bf16 training route widens its
-input.
+(the compact path's function), so the two differ there.
 """
 
 from __future__ import annotations
@@ -64,7 +67,7 @@ import torch.nn.functional as F
 
 from . import cuda_lib
 from .fftconv import (KERNEL1_MAX_N, fftconv_dkf_ref, fftconv_ln_bias_gelu_d,
-                      fftconv_ln_bias_gelu_d_ref, fftconv_ref, widen)
+                      fftconv_ln_bias_gelu_d_ref, fftconv_ref)
 
 MAX_N = 1 << 20           # kernel 9's largest (N1, N2 <= 1024), and 5L's
 DKF_LONG_MIN_N = 1 << 16  # kernel 5L's smallest: kernel 5 takes the rest
@@ -137,6 +140,45 @@ def max_active_clusters(n: int) -> int:
     if got < 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters at n {n}: CUDA "
                            f"error {-got}")
+    return got
+
+
+class DkfLongPlan(NamedTuple):
+    """How kernel 5L runs at one FFT size: the route (``"cluster"`` or
+    ``"two_pass"``) and the blocks a cluster (0 on the two-pass route).
+    The cluster kernel's instance at n sizes its blocks and their shared
+    memory (csrc/fftconv_long.cu::dkf_cluster_instance)."""
+    route: str
+    cluster: int
+
+
+DKF_TWO_PASS = DkfLongPlan("two_pass", 0)
+# kernel 5L's cluster route (csrc/fftconv_long.cu::dkf_cluster_kernel):
+# the FFT sizes it has instances for, each in clusters of 8 blocks (the
+# portable size; csrc DKF_CLUSTER): 8192 complex values a block, two
+# blocks an SM, at n 2^16, and 16384, one an SM, at 2^17.  Blocks of 16384
+# values at 2^16 and of 8192 at 2^17 were slower in turns on the H100
+# (PERF.md, Findings)
+DKF_CLUSTER_NS = (1 << 16, 1 << 17)
+DKF_CLUSTER = DkfLongPlan("cluster", 8)
+
+
+def dkf_long_plan(n: int) -> DkfLongPlan:
+    """Kernel 5L's route at FFT size n, by n alone: the cluster route for
+    n in :data:`DKF_CLUSTER_NS`, the two passes for every other n up to
+    :data:`MAX_N` (past 2^17 a cluster of the portable size cannot hold a
+    channel's transforms).  This is the one place it is chosen."""
+    return DKF_CLUSTER if n in DKF_CLUSTER_NS else DKF_TWO_PASS
+
+
+def max_active_dkf_clusters(n: int) -> int:
+    """How many clusters of kernel 5L's cluster route at FFT size n (of
+    :data:`DKF_CLUSTER_NS`) the card holds at once
+    (``cudaOccupancyMaxActiveClusters``); raises on a CUDA error."""
+    got = cuda_lib.library().dwst_fftconv_dkf_long_max_clusters(n)
+    if got < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters of kernel 5L at "
+                           f"n {n}: CUDA error {-got}")
     return got
 
 
@@ -229,22 +271,32 @@ def _ptr(t):
 
 
 def fftconv_long(u, kp, conj=False):
-    """Kernel-9 wrapper, the TPU kernel's contract (u f32; ``conj``: with
-    conj(K)), the training conv and its input gradient: the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+    """Kernel-9 wrapper, the TPU kernel's contract (u f32 or bf16, y of
+    its dtype; ``conj``: with conj(K)), the training conv and its input
+    gradient: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
     if not u.is_cuda:
         return fftconv_long_ref(u, kp, conj)
-    B, H, L, n = _check(u, kp)
-    out, scratch = torch.empty_like(u), _scratch(B, H, n, u.device,
-                                                 THREE_PASS)
-    cuda_lib.launch("dwst_fftconv_long", u.data_ptr(), kp.data_ptr(),
-                    scratch.data_ptr(), out.data_ptr(), B, H, L, n,
-                    int(conj))
+    out = launch_long(u, kp, conj)
     fftconv_long.launches += 1
     return out
 
 
 fftconv_long.launches = 0
+
+
+def launch_long(u, kp, conj=False):
+    """Check the arguments of kernel 9's training entry and launch it
+    (uncounted; the wrapper counts): its bf16 form for bf16 u, the f32
+    one for f32 u, on the three passes."""
+    bf16 = u.dtype == torch.bfloat16
+    B, H, L, n = _check(u, kp, torch.bfloat16 if bf16 else torch.float32)
+    out, scratch = torch.empty_like(u), _scratch(B, H, n, u.device,
+                                                 THREE_PASS)
+    cuda_lib.launch("dwst_fftconv_long_bf16" if bf16 else "dwst_fftconv_long",
+                    u.data_ptr(), kp.data_ptr(), scratch.data_ptr(),
+                    out.data_ptr(), B, H, L, n, int(conj))
+    return out
 
 
 def fftconv_dkf_long(u, g, n):
@@ -262,38 +314,41 @@ def fftconv_dkf_long(u, g, n):
 fftconv_dkf_long.launches = 0
 
 
-def launch_dkf_long(u, g, n):
+def launch_dkf_long(u, g, n, plan=None):
     """Check kernel 5L's arguments and launch it (uncounted; the wrapper
-    counts): u and g of one dtype, f32 or bf16, with a scratch of one
-    complex n-row per (b, h)."""
+    counts): u and g of one dtype, f32 or bf16, on ``plan``'s route (by
+    default :func:`dkf_long_plan`'s); the two-pass route with a scratch
+    of one complex n-row per (b, h), the cluster route with none."""
     B, H, L = u.shape
     if n & (n - 1) or not DKF_LONG_MIN_N <= n <= MAX_N or L > n:
         raise ValueError(f"kernel 5L: FFT size {n} is no power of two in "
                          f"[{DKF_LONG_MIN_N}, {MAX_N}] >= L = {L}")
+    plan = plan or dkf_long_plan(n)
     bf16 = u.dtype == torch.bfloat16
     for t in (u, g):
         cuda_lib.check(t, (B, H, L), torch.bfloat16 if bf16
                        else torch.float32)
     out = torch.empty((H, n // 2 + 1), dtype=torch.complex64,
                       device=u.device)
-    scratch = torch.empty((B * H, n), dtype=torch.complex64, device=u.device)
+    scratch = None if plan.route == "cluster" else torch.empty(
+        (B * H, n), dtype=torch.complex64, device=u.device)
     cuda_lib.launch("dwst_fftconv_dkf_long_bf16" if bf16
                     else "dwst_fftconv_dkf_long", u.data_ptr(), g.data_ptr(),
-                    scratch.data_ptr(), out.data_ptr(), B, H, L, n)
+                    _ptr(scratch), out.data_ptr(), B, H, L, n, plan.cluster)
     return out
 
 
 class _FFTConvLongTrain(torch.autograd.Function):
     """y = fftconv_long(u, kp); du = fftconv_long(g, kp, conj=True)
-    (kernel 9, u and g widened to f32 and the results narrowed to their
-    dtype), dkhat = fftconv_dkf_long(u, g) (kernel 5L), with kp the
-    factorized spectrum of khat (H, n/2+1).  Saves u and kp."""
+    (kernel 9's training entry, at u's and g's dtype), dkhat =
+    fftconv_dkf_long(u, g) (kernel 5L), with kp the factorized spectrum
+    of khat (H, n/2+1).  Saves u and kp."""
 
     @staticmethod
     def forward(ctx, u, khat):
         kp = long_spectrum(khat)
         ctx.save_for_backward(u, kp)
-        return fftconv_long(widen(u), kp).to(u.dtype)
+        return fftconv_long(u, kp)
 
     @staticmethod
     def backward(ctx, g):
@@ -301,7 +356,7 @@ class _FFTConvLongTrain(torch.autograd.Function):
         g = g.contiguous()
         du = dk = None
         if ctx.needs_input_grad[0]:
-            du = fftconv_long(widen(g), kp, conj=True).to(g.dtype)
+            du = fftconv_long(g, kp, conj=True)
         if ctx.needs_input_grad[1]:
             dk = fftconv_dkf_long(u, g, kp.shape[1] * kp.shape[2])
         return du, dk
