@@ -6,13 +6,15 @@
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. build the CUDA kernels from ``diffwave_sashimi_torch/csrc`` (with
-   ``nvcc -Xptxas -v`` of ``csrc/cauchy.cu``, ``csrc/fftconv.cu`` and
-   ``csrc/fftconv_long.cu`` beside the build: the registers and spills
-   of each kernel-4 instance ``<K>``, each kernel-8 instance ``<K,
-   PAIRED>``, each instance ``<M, Q, T>`` of kernels 5 and 5f's radix-16
-   route, kernel 5L's two passes and each instance ``<N1, N2, NT, T>`` of
-   its cluster kernel, none of which may spill) and require a CUDA
-   device;
+   ``nvcc -Xptxas -v`` of ``csrc/cauchy.cu``, ``csrc/fftconv.cu``,
+   ``csrc/fftconv_long.cu`` and ``csrc/chmix.cu`` beside the build: the
+   registers and spills of each kernel-4 instance ``<K>``, each kernel-8
+   instance ``<K, PAIRED>``, each instance ``<M, Q, T>`` of kernels 5 and
+   5f's radix-16 route, kernel 5L's two passes and each instance ``<N1,
+   N2, NT, T>`` of its cluster kernel, and kernel 7's 3xTF32 kernels (its
+   pass ``<P>`` at every P, its weights' split), none of which may spill;
+   and, by ``cuobjdump -sass``, the tf32 ``HMMA`` instructions in kernel
+   7's pass, which must have some) and require a CUDA device;
 2. build the shipped SC09 model (d_model 128, n_layers 6, pool [4, 4],
    expand 2, ff 2, L 16000) from a seed, with a perturbed (normally
    zero-initialised) final conv, and save it as a checkpoint in a
@@ -59,7 +61,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    with their times, kernel 4 held beyond that as in phase 3 and at four
    shapes off the shipped ones (odd K, K 8, blocks of fewer threads, N
    800 past 48 KB of records) against its plain version, two calls
-   bit-equal; then (7b) their bf16 forms (1f's training entry and its
+   bit-equal; kernels 7 (f32, its per-position products in 3xTF32 on
+   the tensor cores) and 6 (f32) at each tier also two calls bit-equal,
+   the worst error of their outputs against a float64 evaluation at most
+   twice the plain version's (a tensor's relative L2 error; kernel 7's
+   sums dm and ds as |err| over the sum of their terms' magnitudes),
+   their device time by part from a trace (a kernel-7 call launches
+   nothing but its seven kernels), and timed in CUDA graphs in turns with
+   their products as f32 ``torch.matmul`` calls (TF32 off; a yardstick),
+   7 also at F = H, on its element-wise path (B2 L1001, H 128 and 256)
+   and at H 24, F 40 (widths that pad the last m-tile; with kernel 6 at
+   H 24); then (7b) their bf16 forms (1f's training entry and its
    conjugate form, each on both routes as in 6b, 5f, 6f, 7f) at the
    three tiers, B4, timed, 7f also
    at F = H, 6f and 7f also on their element-wise paths (B2, L 1001, H
@@ -128,7 +140,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
     time by kernel, the port's kernels' share, kernel 8's time (its lanes
     kernel and its reduce pass; both traces fail without the lanes
     kernel, without kernel 4's ``cauchy_fwd_kernel``, and without kernel
-    5's or 5f's radix-16 kernel), the device's idle share;
+    5's or 5f's radix-16 kernel), kernel 7's pass, the contractions of
+    kernels 6 and 7, their sums and kernel 6's pass apart (the f32 trace
+    fails without kernel 7's 3xTF32 kernels), the device's idle share;
+    each trace fails if the profiler recorded no device time, or if in
+    TRACE_ATTEMPTS traces it lacked a kernel that the host launched;
 12. the vocoder: the shipped LJSpeech model (``experiment=ljspeech``:
     d_model 128, n_layers 6, pool [4, 4], L 16000, mel_upsample [16, 16],
     hop 256 at 22050 Hz) from a seed, with a perturbed final conv, saved as
@@ -224,7 +240,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
     (B4, L 1000; the fp32 plans narrow P to 16, and to 8 for kernel 7, so
     the tiles fit one block; 3f, 6f and 7f run at P 16), timed; kernels 4
     and 8 at its three tiers as in phases 3 and 7 (vs plain, bit-equal, vs
-    complex128 beside the plain version, timed in a CUDA graph); at f32 and
+    complex128 beside the plain version, timed in a CUDA graph), and
+    kernels 6 and 7 (f32) there as phase 7 holds them; at f32 and
     at bf16 one eps forward and one training step through the kernels
     against the plain path, each with exact launch counts of every kernel,
     and the eps step timed;
@@ -251,7 +268,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
     entry; a trace with no device time fails); kernels 4 and 8 at its top tier (Lz 22001), 6f and 7f at L
     44000, 1f and 5f at L 11000 vs plain;
 27. data parallelism at the main path's width (SC09 SaShiMi d128 n6
-    L16000, a global B4 of B2 a rank), through ``parallel.launch`` and
+    L16000, a global B4 of B2 a rank, phase 2's seeded model built anew:
+    no state of phase 10's Adam steps), through ``parallel.launch`` and
     ``runtime.train.train_ranks``: (a) two ranks on this card over gloo
     (NCCL refuses two ranks on one card) with CUDA tensors, their DDP step
     through the kernels at f32 and bf16 against one 1-rank B4 step on
@@ -274,8 +292,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 It prints the card's name and power limit, one JSON line with the kernels
 (each with its bound: the larger of its bytes over the HBM rate and its
-fp32 operations over the fp32 peak, at the top tier's shapes of the path
-that runs it), and last ``{"ok": true, "device": {...}}``.  The config
+operations over the peak rate of their type, fp32, bf16, int8 or TF32 (a
+3xTF32 product three TF32 ones), at the top tier's shapes of the path
+that runs it; kernel 7 also with ``fp32_bound_ms``, every product on
+the fp32 FMAs), and last ``{"ok": true, "device": {...}}``.  The config
 blocks below are ``load_config(["experiment=sc09"])``,
 ``load_config(["experiment=ljspeech"])``, the model and dataset blocks of
 ``load_config(["experiment=ljspeech_harder"])`` and the model block of
@@ -316,9 +336,23 @@ TOL_EPS_INT8 = 1.1
 CORR_MIN = 0.99999            # x_0 vs f32 over 50 steps (BASELINE.md:316)
 TOL_GRAD = 1e-3               # |grad kernels - plain| <= TOL * max(1, max|plain|)
 PEAK_OPS = {"fp32": 67e12,    # H100 SXM: fp32 outside the tensor cores,
-            "bf16": 989e12,   # dense bf16 and int8 on the tensor cores
-            "int8": 1979e12}
+            "bf16": 989e12,   # dense bf16, int8 and TF32 on the tensor cores
+            "int8": 1979e12,
+            "tf32": 495e12}
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
+# a trace first launches TRACE_LEAD one-element adds that it does not
+# account for, then the calls it accounts for, inside a range of this
+# name: the profiler loses the device kernels of a trace's first launches,
+# a count that grew over a run from 1 to 22 (all but one call of a
+# 5-call trace of kernel 6 late in a run), whatever the host did before
+TRACE_RANGE = "dwst_traced_calls"
+TRACE_LEAD = 256
+# traces taken of the same calls before a trace that still lacks a kernel
+# fails the phase: each short one is logged
+TRACE_ATTEMPTS = 3
+# the host's kernel-launch calls as the profiler names them (runtime and
+# driver API; cluster launches go through the Ex forms)
+LAUNCH_API = re.compile(r"cu(da)?Launch\w*Kernel")
 QUALITY_CFG = {"T": 50, "beta_0": 0.0001, "beta_T": 0.02, "beta": None}
 # the training phases through main() run on one card (mesh.data=1; the
 # shipped -1 is every card): they read the launch counts of this process
@@ -616,8 +650,9 @@ PORT_KERNELS = ("fftconv_kernel", "fftconv_r16_kernel",
                 "glu_res_tc_kernel", "glu_res_bwd_kernel",
                 "glu_res_bwd_tc_kernel", "ln_ff_res_kernel",
                 "ln_ff_res_tc_kernel", "round_weights_kernel",
-                "ln_ff_res_bwd_kernel", "ln_ff_res_bwd_tc_kernel",
-                "round_weights_t_kernel", "wgrad_kernel",
+                "ln_ff_res_bwd_tf32_kernel", "split_weights_tf32_kernel",
+                "ln_ff_res_bwd_tc_kernel", "round_weights_t_kernel",
+                "wgrad_kernel",
                 "reduce_splits_kernel", "reduce_long_kernel",
                 "cauchy_fwd_kernel", "cauchy_bwd_lanes_kernel",
                 "cauchy_bwd_reduce_kernel",
@@ -675,6 +710,20 @@ KERNELS_7F = {"pass": ("ln_ff_res_bwd_tc_kernel",
 KERNELS_6F = {"pass": ("glu_res_bwd_tc_kernel", "round_weights_t_kernel<6>"),
               "contractions": ("wgrad_kernel",),
               "reduce": ("reduce_splits_kernel",)}
+# kernel 7's (f32) seven, in the same parts: its pass (the weights' split,
+# then the 3xTF32 pass), its two contractions and the sums; kernel 6's
+# pass, its contraction and that one's sum (beside PyTorch's transpose of
+# W); both contract on the fp32 FMAs (wgrad_kernel, 6f's and 7f's)
+KERNELS_7 = {"pass": ("ln_ff_res_bwd_tf32_kernel",
+                      "split_weights_tf32_kernel"),
+             "contractions": ("wgrad_kernel",),
+             "reduce": ("reduce_splits_kernel", "reduce_long_kernel")}
+KERNELS_6 = {"pass": ("glu_res_bwd_kernel",),
+             "contractions": ("wgrad_kernel",),
+             "reduce": ("reduce_splits_kernel",)}
+# kernel 7's widths off the shipped ones: multiples of 8 but not of 16, so
+# that the split weights' zero rows pad the last m-tile (B, H, F, L)
+KERNEL_7_RAGGED = (2, 24, 40, 1001)
 # kernel 8's wrapper launches its lanes kernel and, where the plan splits a
 # channel's positions over blocks, the fixed-order sum of their partials;
 # traces report their sum as kernel 8's time.
@@ -695,7 +744,14 @@ def log(msg):
 
 
 # the sources whose instances phase 1 reads ptxas's report of
-PTXAS_SOURCES = ("cauchy.cu", "fftconv.cu", "fftconv_long.cu")
+PTXAS_SOURCES = ("cauchy.cu", "fftconv.cu", "fftconv_long.cu", "chmix.cu")
+# kernel 7's instances (its 3xTF32 pass at each P it is built for, its
+# weights' split)
+KERNEL_7_TF32 = ("ln_ff_res_bwd_tf32_kernel", "split_weights_tf32_kernel")
+KERNEL_7_PS = (64, 32, 16, 8)
+# their tensor-core products in the built code: sm_90's SASS of mma.sync
+# with tf32 operands and f32 sums (HMMA.<shape>.F32.TF32)
+TF32_MMA_SASS = r"HMMA\.\w+\.F32\.TF32"
 # kernel 5L's instances: its two-pass route's pass A by input type and
 # pass B, its cluster kernel <N1, N2, NT> at n 2^16 and 2^17 (N1 N2 the
 # n/2-point transform, NT threads a block), by input type
@@ -711,10 +767,20 @@ KERNEL_9_TRAIN_BF16 = tuple(f"{k}<false, __nv_bfloat16>"
                             for k in ("cols_fwd_kernel", "cols_inv_kernel"))
 
 
-def kernel_parts(name, ptxas):
+def kernel_parts(name, ptxas, tf32_sass=None):
     """The kernels line's parts of kernel ``name``: the global kernels it
     launches and the ptxas report (``ptxas_report``) of its instances,
-    where the line lists them."""
+    where the line lists them; for kernels 6 and 7 (f32) the count of
+    TF32_MMA_SASS instructions in kernel 7's 3xTF32 kernels
+    (``tf32_mma_sass``)."""
+    if name in ("ln_ff_res_bwd", "glu_res_bwd"):
+        parts = KERNELS_7 if name == "ln_ff_res_bwd" else KERNELS_6
+        names = [k for group in parts.values() for k in group]
+        return {"global_kernels": names,
+                "ptxas": {k: v for k, v in ptxas.items()
+                          if in_group(k, names)},
+                "tf32_mma_sass": {k: v for k, v in (tf32_sass or {}).items()
+                                  if in_group(k, names)}}
     if name == "cauchy_bwd":
         return {"global_kernels": list(KERNELS_8),
                 "ptxas": {k: v for k, v in ptxas.items()
@@ -753,11 +819,13 @@ def ptxas_report(procs):
     """{__global__ instance: registers a thread, spill stores and loads in
     bytes} from ptxas's reports, of kernel 4 (``cauchy_fwd_kernel<K>``),
     of kernel 8 (``name<K, PAIRED>``), of kernels 5 and 5f's radix-16
-    route (``fftconv_dkf_r16_kernel<M, Q, T>``) and of kernel 5L's two
-    passes and cluster kernel (KERNEL_5L); raise if nvcc failed, an
-    instance spills or one of kernels 4's and 8's K 1-8, of the route's M
-    (n 2048 .. 32768, each with its transforms a block Q) and T (float,
-    bf16) or of 5L's is missing."""
+    route (``fftconv_dkf_r16_kernel<M, Q, T>``), of kernel 5L's two
+    passes and cluster kernel (KERNEL_5L) and of kernel 7's 3xTF32 pass at
+    each P and its weights' split (KERNEL_7_TF32);
+    raise if nvcc failed, an instance spills or one of kernels 4's and 8's
+    K 1-8, of the route's M (n 2048 .. 32768, each with its transforms a
+    block Q) and T (float, bf16), of 5L's or of KERNEL_7_TF32's is
+    missing."""
     fc = importlib.import_module("diffwave_sashimi_torch.ops.fftconv")
     out = {}
     for src, proc in zip(PTXAS_SOURCES, procs):
@@ -778,7 +846,13 @@ def ptxas_report(procs):
             k5c = re.search(r"Compiling entry function '\w*?(dkf_cluster_"
                             r"kernel)ILi(\d+)ELi(\d+)ELi(\d+)E(f|13__nv_"
                             r"bfloat16)E", line)
-            if k8:
+            k7 = re.search(r"Compiling entry function '\w*?\d(ln_ff_res_bwd_"
+                           r"tf32_kernel|split_weights_tf32_kernel)"
+                           r"(?:ILi(\d+)E)?", line)
+            if k7:
+                name = k7.group(1) + ("" if k7.group(2) is None
+                                      else f"<{k7.group(2)}>")
+            elif k8:
                 name = k8.group(1) + (
                     f"<{k8.group(2)}, "
                     f"{'true' if k8.group(3) == '1' else 'false'}>"
@@ -806,8 +880,10 @@ def ptxas_report(procs):
                 "registers": int(regs.group(1)) if regs else None,
                 "spill_stores": int(spill.group(1)) if spill else None,
                 "spill_loads": int(spill.group(2)) if spill else None}
-    want = {f"cauchy_bwd_lanes_kernel<{K}, {p}>" for K in range(1, 9)
-            for p in ("true", "false")} | {
+    want = {f"{KERNEL_7_TF32[0]}<{P}>" for P in KERNEL_7_PS} | {
+        *KERNEL_7_TF32[1:]} | {
+        f"cauchy_bwd_lanes_kernel<{K}, {p}>" for K in range(1, 9)
+        for p in ("true", "false")} | {
         f"cauchy_fwd_kernel<{K}>" for K in range(1, 9)} | {
         f"fftconv_dkf_r16_kernel<{n // 2}, {q}, {t}>"
         for n, q in fc.DKF_PER_BLOCK.items() for t in ("float", "bf16")} | {
@@ -819,6 +895,35 @@ def ptxas_report(procs):
                            f"{sorted(want - out.keys())}, spilling or "
                            f"unread {spills}:\n{out}")
     return out
+
+
+def tf32_mma_sass():
+    """{KERNEL_7_TF32 instance: its count of TF32_MMA_SASS instructions}
+    in ``cuobjdump -sass`` of phase 1's chmix.cu object (ptxas_report's
+    build); raise unless each of the pass's instances multiplies on the
+    tensor cores."""
+    from diffwave_sashimi_torch.ops import cuda_lib
+    obj = cuda_lib._BUILD / "ptxas" / "chmix.cu.o"
+    text = subprocess.run(
+        [os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump"),
+         "-sass", str(obj)], capture_output=True, text=True,
+        check=True).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        fn = re.search(r"Function : \w*?\d(" + "|".join(KERNEL_7_TF32)
+                       + r")(?:ILi(\d+)E)?", line)
+        if "Function : " in line:
+            name = None if fn is None else fn.group(1) + (
+                "" if fn.group(2) is None else f"<{fn.group(2)}>")
+            if name is not None:
+                counts[name] = 0
+        elif name is not None and re.search(TF32_MMA_SASS, line):
+            counts[name] += 1
+    want = [f"{KERNEL_7_TF32[0]}<{P}>" for P in KERNEL_7_PS]
+    if any(counts.get(k, 0) == 0 for k in want):
+        raise RuntimeError(f"kernel 7's {TF32_MMA_SASS} instructions: "
+                           f"{counts}")
+    return counts
 
 
 def cuda_ms(fn, reps):
@@ -862,7 +967,8 @@ def work(name, B, H, L, n, K=6, N=32, S=None, bpe=4, F=None):
     do (the forwards' products; the backward passes' per-position products,
     its _bmm, while their weight gradients, its _bmmc, stay fp32); kernel
     12 moves activations of bpe bytes and multiplies int8 ones (its
-    four-step layout's products)."""
+    four-step layout's products).  Kernel 7 (f32) takes its per-position
+    products in 3xTF32: three TF32 products each."""
     base = name.removesuffix("_bf16")
     if base != name:
         bpe = 2
@@ -906,8 +1012,12 @@ def work(name, B, H, L, n, K=6, N=32, S=None, bpe=4, F=None):
              "ln_ff_res_bwd": (6 * F * H * B * L, 4 * F * H * B * L)}
     if base not in split:
         return {"fp32": ops}, nbytes
-    by_type = {"fp32": split[base][1]}
-    by_type[gemm] = by_type.get(gemm, 0) + split[base][0]
+    prod, wgrad = split[base]
+    if name == "ln_ff_res_bwd":
+        by_type = {"fp32": wgrad, "tf32": 3 * prod}
+    else:
+        by_type = {"fp32": wgrad}
+        by_type[gemm] = by_type.get(gemm, 0) + prod
     return {t: v for t, v in by_type.items() if v}, nbytes
 
 
@@ -1443,8 +1553,66 @@ def check_training_kernels(torch, model, dev, results):
         hold_kernel_4(torch, d, f"H{H}_L{L}", results)
         hold_kernel_8(torch, d, f"H{H}_L{L}", results)
         hold_dkf(torch, "fftconv_dkf", d, results)
+        hold_f32_mixers(torch, d, f"H{H}_L{L}", results)
+        # 7 at F = H (a config's model.ff 1), off the shipped F = 2H, and on
+        # its element-wise path (L 1001, B2: L not a multiple of 4)
+        ffh = ff[:3] + (d["w1"][:H].contiguous(), d["b1"][:H],
+                        d["w2"][:, :H].contiguous()) + ff[6:]
+        compare("ln_ff_res_bwd", H, L, lambda: ops.ln_ff_res_bwd(*ffh),
+                lambda: ops.ln_ff_res_bwd_ref(*ffh), 10, results,
+                tier=f"H{H}_L{L}_F{H}", F=H)
+        if H <= 256:
+            xr, gr = (torch.randn(2, H, 1001, device=dev, generator=gen)
+                      for _ in range(2))
+            ffr = (xr,) + ff[1:7] + (gr,)
+            compare("ln_ff_res_bwd", H, 1001,
+                    lambda: ops.ln_ff_res_bwd(*ffr),
+                    lambda: ops.ln_ff_res_bwd_ref(*ffr), 3, results, B=2,
+                    tier=f"B2_H{H}_L1001")
+    hold_kernel_7_ragged(torch, dev, results)
     hold_kernel_8_ragged(torch, dev)
     hold_kernel_4_ragged(torch, dev)
+
+
+def hold_f32_mixers(torch, d, tier, results):
+    """Kernels 7 and 6 (f32) at one tier's shapes (d: ``tier_inputs``)
+    beyond ``compare``'s bar (``hold_f32_mixer``)."""
+    from diffwave_sashimi_torch import ops
+    ff = (d["x"], d["m2"], d["s2"], d["w1"], d["b1"], d["w2"], d["b2"],
+          d["g"])
+    glu = (d["y"], d["lin"].weight, d["lin"].bias, d["g"])
+    hold_f32_mixer(torch, "ln_ff_res_bwd", lambda: ops.ln_ff_res_bwd(*ff),
+                   ops.ln_ff_res_bwd_ref, ff, tier, results, KERNELS_7,
+                   ff_yardstick(torch, ff))
+    hold_f32_mixer(torch, "glu_res_bwd", lambda: ops.glu_res_bwd(*glu),
+                   ops.glu_res_bwd_ref, glu, tier, results, KERNELS_6,
+                   glu_yardstick(torch, glu))
+
+
+def hold_kernel_7_ragged(torch, dev, results):
+    """Kernel 7 at KERNEL_7_RAGGED (H and F multiples of 8 but not 16, L
+    1001: the split weights' zero rows, the element-wise path) and kernel
+    6 at its H, vs their plain versions at TOL_KERNEL, two calls
+    bit-equal."""
+    from diffwave_sashimi_torch import ops
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    B, H, Fd, L = KERNEL_7_RAGGED
+
+    def f(*shape, sc=1.0):
+        return sc * torch.randn(*shape, device=dev, generator=gen)
+    ff = (f(B, H, L), f(1, sc=0.1), 1.0 + f(1, sc=0.1), f(Fd, H, sc=0.3),
+          f(Fd, sc=0.1), f(H, Fd, sc=0.3), f(H, sc=0.1), f(B, H, L))
+    glu = (f(B, H, L), f(2 * H, H, sc=0.3), f(2 * H, sc=0.1), f(B, H, L))
+    tier = f"B{B}_H{H}_F{Fd}_L{L}"
+    for name, kfn, pfn in (
+            ("ln_ff_res_bwd", lambda: ops.ln_ff_res_bwd(*ff),
+             lambda: ops.ln_ff_res_bwd_ref(*ff)),
+            ("glu_res_bwd", lambda: ops.glu_res_bwd(*glu),
+             lambda: ops.glu_res_bwd_ref(*glu))):
+        compare(name, H, L, kfn, pfn, 3, results, B=B, tier=tier, F=Fd)
+        if not all(torch.equal(a, b) for a, b in zip(kfn(), kfn())):
+            raise AssertionError(f"kernel {name} does not repeat bit for "
+                                 f"bit at {tier}")
 
 
 def hold_kernel_4_ragged(torch, dev):
@@ -1935,6 +2103,121 @@ def ff_bwd_bf16_parts(torch, ff, result, tier):
         f"{pair:.4f} ms")
 
 
+def c64_err(outs, refs, scales=None):
+    """Each output's error against a float64 evaluation: ||out - ref||_2 /
+    ||ref||_2, or, for output i in ``scales``, ||out - ref||_2 /
+    scales[i].  ``ff_sum_scales`` gives kernel 7's sums dm and ds theirs:
+    a sum that cancels has its rounding error bounded by the sum of its
+    terms' magnitudes, not by its value."""
+    scales = scales or {}
+    return [float((o.double() - r).norm()
+                  / (scales[i] if i in scales else r.norm().clamp_min(1e-300)))
+            for i, (o, r) in enumerate(zip(outs, refs))]
+
+
+def ff_sum_scales(torch, ff):
+    """{1: sum |dxn r|, 2: sum |dxn rstd (xc + m)|} over every (b, h, l),
+    in float64: the magnitudes of the terms of kernel 7's dm and ds
+    (outputs 1 and 2 of ``ln_ff_res_bwd_ref``, whose algebra this
+    repeats)."""
+    from diffwave_sashimi_torch.ops import chmix
+    x, m, s, w1, b1, w2, _, g = (a.double() for a in ff)
+    mean = x.mean(dim=1, keepdim=True)
+    rstd = torch.rsqrt((x * x).mean(dim=1, keepdim=True) - mean * mean)
+    xc = x - mean
+    z = torch.einsum("bhl,fh->bfl", s * rstd * (xc + m), w1) + b1[:, None]
+    dz = chmix._gelu_grad(z) * torch.einsum("bhl,hf->bfl", g, w2)
+    dxn = torch.einsum("bfl,fh->bhl", dz, w1)
+    return {1: float((dxn * s * rstd).abs().sum()),
+            2: float((dxn * rstd * (xc + m)).abs().sum())}
+
+
+def ff_yardstick(torch, ff):
+    """Kernel 7's products as f32 ``torch.matmul`` calls (TF32 off, cuBLAS
+    on the fp32 cores), a yardstick the port never calls: the pass's three
+    (dh, z, dxn) and the two weight gradients on operands laid out as the
+    contraction needs them, no LN, GELU, bias sums or epilogue."""
+    x, m, s, w1, b1, w2, b2, g = ff
+    B, H, L = x.shape
+    Fd = w1.shape[0]
+    w2t, w1t = w2.t().contiguous(), w1.t().contiguous()
+    dz = torch.matmul(w2t, g)                      # an f32 (B, F, L) operand
+    rows_f = dz.transpose(0, 1).reshape(Fd, B * L).contiguous()
+    rows_h = g.transpose(0, 1).reshape(H, B * L).contiguous()
+    return lambda: (torch.matmul(w2t, g), torch.matmul(w1, x),
+                    torch.matmul(w1t, dz),
+                    torch.matmul(rows_f, rows_h.t()),
+                    torch.matmul(rows_h, rows_f.t()))
+
+
+def glu_yardstick(torch, glu):
+    """Kernel 6's products as f32 ``torch.matmul`` calls (TF32 off): the
+    pass's two and the weight gradient, as ``ff_yardstick``."""
+    y, w, b, g = glu
+    B, H, L = y.shape
+    wt = w.t().contiguous()
+    dz = torch.matmul(w, y)                        # an f32 (B, 2H, L) operand
+    rows_z = dz.transpose(0, 1).reshape(2 * H, B * L).contiguous()
+    rows_y = y.transpose(0, 1).reshape(H, B * L).contiguous()
+    return lambda: (torch.matmul(w, y), torch.matmul(wt, dz),
+                    torch.matmul(rows_z, rows_y.t()))
+
+
+def hold_f32_mixer(torch, name, kfn, plain_fn, args, tier, results, parts,
+                   yard):
+    """Kernel 7 (``name`` ln_ff_res_bwd) or 6 (glu_res_bwd) at f32, beyond
+    ``compare``'s bar: two calls bit-equal (fixed-order sums); the
+    kernel's float64 error (the worst of ``c64_err`` over its outputs,
+    against the plain version on float64 copies of ``args``; kernel 7's dm
+    and ds on the scale of ``ff_sum_scales``) at most twice the plain f32
+    version's on the same scales; its device time by part (``parts``:
+    KERNELS_7 or KERNELS_6) from a trace of five calls, which must record
+    device time and in which a kernel-7 call must launch nothing else; and
+    in CUDA graphs (``graph_ms``), in turns, the kernel and ``yard``, its
+    products as f32 ``torch.matmul`` calls (TF32 off; a yardstick)."""
+    one, two = kfn(), kfn()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(one, two)):
+        raise AssertionError(f"kernel {name} does not repeat bit for bit at "
+                             f"{tier}")
+    ref = plain_fn(*args)
+    r64 = plain_fn(*(a.double() for a in args))
+    scales = ff_sum_scales(torch, args) if name == "ln_ff_res_bwd" else None
+    errs_k, errs_p = c64_err(one, r64, scales), c64_err(ref, r64, scales)
+    e_k, e_p = max(errs_k), max(errs_p)
+    del two, r64
+    groups = {part: (lambda n, names=names: in_group(n, names))
+              for part, names in parts.items()}
+    trace = trace_steps(torch, kfn, steps=5, groups=groups)
+    if trace is None:
+        raise AssertionError(f"the profiler recorded no device time in "
+                             f"kernel {name}'s calls at {tier}")
+    split = trace["groups_ms_per_step"]
+    other = [n for n in trace["top_kernels_ms_per_step"]
+             if not any(in_group(n, names) for names in parts.values())]
+    if name == "ln_ff_res_bwd" and other:
+        raise AssertionError(f"a kernel 7 call launched {other} at {tier}")
+    fns = {"graph_ms": kfn, "yardstick_graph_ms": yard}
+    order = list(fns) + list(fns)[::-1]
+    times = [(k, graph_ms(torch, fns[k])) for k in order]
+    ms = {k: sum(t for q, t in times if q == k) / 2 for k in fns}
+    t = results[name]["tiers"][tier]
+    t.update(c64_err=e_k, plain_c64_err=e_p, c64_errs=errs_k,
+             plain_c64_errs=errs_p, repeat_bit_equal=True, split_ms=split,
+             **ms)
+    log(f"kernel {name} {tier}: two calls bit-equal; error vs float64, "
+        f"worst output {e_k:.3e} (plain {e_p:.3e}; bar 2x) "
+        f"{'ok' if e_k <= 2 * e_p else 'FAIL'}, each output "
+        f"{', '.join(f'{a:.2e}/{b:.2e}' for a, b in zip(errs_k, errs_p))} "
+        f"(kernel/plain); device ms a call by part "
+        f"{json.dumps(split)}; in CUDA graphs, in turns, "
+        f"{json.dumps(ms)}")
+    if e_k > 2 * e_p:
+        raise AssertionError(f"kernel {name}'s float64 error {e_k:.3e} is "
+                             f"over twice the plain version's {e_p:.3e} at "
+                             f"{tier}")
+
+
 def write_corpus(root, per_digit=3):
     """Seeded synthetic SC09: one-second 16 kHz int16 clips, ``per_digit``
     in each digit folder, named like SpeechCommands (``*_nohash_*``)."""
@@ -2300,10 +2583,11 @@ def check_wide_mixers(torch, blk, L, dev, results):
 
 
 def check_wide_s4_kernels(torch, model, dev, results):
-    """Phase 24's kernels 4, 8 and 5f: vs their plain versions at every
-    tier of the d_model 256 model (its own S4 coefficients, seeded inputs
-    and cotangents), timed; beyond that as phases 3, 7 and 7b hold them
-    (``hold_kernel_4``, ``hold_kernel_8``, ``hold_dkf``)."""
+    """Phase 24's kernels 4, 8, 5f, 6 and 7 (f32): vs their plain versions
+    at every tier of the d_model 256 model (its own S4 coefficients and
+    weights, seeded inputs and cotangents), timed; beyond that as phases
+    3, 7 and 7b hold them (``hold_kernel_4``, ``hold_kernel_8``,
+    ``hold_dkf``, ``hold_f32_mixers``)."""
     from diffwave_sashimi_torch import ops
     gen = torch.Generator(device=dev).manual_seed(SEED + 26)
     for H, L, blk in tier_blocks(model):
@@ -2317,7 +2601,15 @@ def check_wide_s4_kernels(torch, model, dev, results):
                 lambda: ops.cauchy_bwd_ref(*args), 3, results)
         hold_kernel_8(torch, d, f"H{H}_L{L}", results)
         hold_dkf(torch, "fftconv_dkf_bf16", d, results)
-        del d, args
+        ff = (d["x"], d["m2"], d["s2"], d["w1"], d["b1"], d["w2"], d["b2"],
+              d["g"])
+        glu = (d["y"], d["lin"].weight, d["lin"].bias, d["g"])
+        compare("ln_ff_res_bwd", H, L, lambda: ops.ln_ff_res_bwd(*ff),
+                lambda: ops.ln_ff_res_bwd_ref(*ff), 3, results)
+        compare("glu_res_bwd", H, L, lambda: ops.glu_res_bwd(*glu),
+                lambda: ops.glu_res_bwd_ref(*glu), 3, results)
+        hold_f32_mixers(torch, d, f"H{H}_L{L}", results)
+        del d, args, ff, glu
         torch.cuda.empty_cache()
 
 
@@ -2402,7 +2694,9 @@ def check_wide_model(torch, dev, launches, results):
 
 def profile_train_step(torch, model, dev, steps=2):
     """Phase 11: a torch.profiler trace of ``steps`` training steps with the
-    kernels (see :func:`trace_steps`), kernel 8's kernels summed apart."""
+    kernels (see :func:`trace_steps`), kernel 8's kernels, kernel 7's
+    parts (its pass, the 3xTF32 contractions of kernels 6 and 7, the sums)
+    and kernel 6's pass summed apart."""
     from diffwave_sashimi_torch import ops
     from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
     from diffwave_sashimi_torch.runtime.train import make_optimizer, train_step
@@ -2410,19 +2704,26 @@ def profile_train_step(torch, model, dev, steps=2):
     audio = 0.3 * torch.randn(N_SAMPLES, 1, 16000, device=dev, generator=g)
     schedule = schedule_from_cfg(DIFFUSION_CFG)
     optim = make_optimizer(model, 2e-4)
+    groups = dict(KERNEL_8_GROUPS)
+    groups.update({f"ln_ff_res_bwd_{part}": (lambda n, names=names:
+                                             in_group(n, names))
+                   for part, names in KERNELS_7.items()})
+    groups["glu_res_bwd_pass"] = lambda n: in_group(n, KERNELS_6["pass"])
     trace = trace_steps(
         torch, lambda: train_step(model, optim, audio, schedule, g,
-                                  ops.FUSED), steps, groups=KERNEL_8_GROUPS)
+                                  ops.FUSED), steps, groups=groups)
     check_training_trace(trace, "f32")
     return trace
 
 
 def check_training_trace(trace, label):
     """Raise unless a traced training step ran kernel 4's kernel, kernel
-    8's lanes kernel and kernel 5's (f32) or 5f's (bf16) radix-16
-    kernel."""
+    8's lanes kernel and kernel 5's (f32) or 5f's (bf16) radix-16 kernel,
+    and (f32) kernel 7's 3xTF32 kernels (KERNEL_7_TF32), or when the
+    profiler recorded no device time."""
     if trace is None:
-        return
+        raise AssertionError(f"the profiler recorded no device time in the "
+                             f"{label} training step")
     names = trace["port_kernels_by_name_ms_per_step"]
     if not any(in_group(n, (KERNEL_4,)) for n in names):
         raise AssertionError(f"the {label} training step's kernel 4 is not "
@@ -2434,31 +2735,53 @@ def check_training_trace(trace, label):
                and ("bfloat16" in n) == (label == "bf16") for n in names):
         raise AssertionError(f"the {label} training step's kernel 5 is not "
                              f"its radix-16 kernel: {sorted(names)}")
+    if label == "f32" and not all(any(in_group(n, (k,)) for n in names)
+                                  for k in KERNEL_7_TF32):
+        raise AssertionError(f"the f32 training step's kernel 7 is not its "
+                             f"3xTF32 kernels {KERNEL_7_TF32}: "
+                             f"{sorted(names)}")
 
 
 def trace_steps(torch, step, steps=2, groups=None):
     """A torch.profiler trace of ``steps`` calls of ``step`` after two
-    untraced ones.  Returns the device time by kernel name (ms per step),
+    untraced ones, behind TRACE_LEAD launches inside the trace that it
+    does not account for (see TRACE_RANGE).  Returns the device time by kernel
+    name (ms per step),
     the share of it in the port's kernels and their launches a step, and
     the device's idle share of the window from the first kernel's start to
     the last one's end; with
     ``groups`` (label -> predicate on a kernel's short name), also the
-    device time of each group and of the rest."""
-    from torch.profiler import ProfilerActivity, profile
+    device time of each group and of the rest.  A trace in which a kernel
+    launch of the host has no device event is logged and taken again, up
+    to TRACE_ATTEMPTS traces; raises if the last is still short; returns
+    None if it holds no device time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     for _ in range(2):
         step()
+    lead = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.is_user_annotation
-            and e.time_range.end > e.time_range.start]
-    if not kern:
-        return None
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_LEAD):
+                lead.add_(1)
+            torch.cuda.synchronize()
+            with record_function(TRACE_RANGE):
+                for _ in range(steps):
+                    step()
+                torch.cuda.synchronize()
+        kern, calls, extra, short = launch_gaps(torch, prof.events())
+        if not kern:
+            return None
+        if not short:
+            break
+        log(f"trace attempt {attempt} of {TRACE_ATTEMPTS} lacks {short}")
+    else:
+        raise AssertionError(f"the profiler's trace lacks kernels after "
+                             f"{TRACE_ATTEMPTS} attempts: {short}")
+    first_ms = None if not calls else (
+        min(e.time_range.start for e in kern)
+        - min(e.time_range.start for e in calls)) / 1e3
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
     busy, (cur_a, cur_b) = 0.0, spans[0]
     for a, b in spans[1:]:
@@ -2487,6 +2810,9 @@ def trace_steps(torch, step, steps=2, groups=None):
                  for label, pred in groups.items()}
         split["rest"] = sum(by_name.values()) - sum(split.values())
     return {"window_ms_per_step": window / 1e3 / steps,
+            "trace_attempts": attempt, "kernel_launch_calls": len(calls),
+            **extra,
+            "first_launch_to_kernel_ms": first_ms,
             "device_busy_ms_per_step": busy / 1e3 / steps,
             "idle_share": 1.0 - busy / window,
             "port_kernels_ms_per_step": sum(port.values()),
@@ -2499,6 +2825,62 @@ def trace_steps(torch, step, steps=2, groups=None):
             "ln_ff_res_bf16_ms_per_step": ff_bf16,
             "top_kernels_ms_per_step": dict(top),
             "groups_ms_per_step": split}
+
+
+def launch_gaps(torch, events):
+    """A trace's device kernels of positive duration (all but the lead's,
+    see TRACE_RANGE), the host's kernel launch calls inside its
+    TRACE_RANGE range, the number of device events of no positive
+    duration and of the lead's launches with no device event, and None,
+    or what the profiler lost of those launches: the launches (by order,
+    and ms into the launches) with no correlated device event, the first
+    device events (correlation id, name, start in ms after the first
+    launch, duration in us) and the least, middle and largest start of a
+    kernel after its launch in ms.  A device event of no positive
+    duration counts as recorded; the trace's device time leaves it out."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    span = next(e.time_range for e in events
+                if e.name == TRACE_RANGE and e.device_type == cpu)
+    launched = [e for e in events
+                if e.device_type == cpu and LAUNCH_API.match(e.name)]
+    before = {e.id for e in events if e.device_type == cpu
+              and e.name.startswith("cu") and e.time_range.start < span.start}
+    calls = sorted((e for e in launched
+                    if span.start <= e.time_range.start <= span.end),
+                   key=lambda e: e.time_range.start)
+    dev = [e for e in events if e.device_type == cuda
+           and not e.is_user_annotation and e.id not in before]
+    kern = [e for e in dev if e.time_range.end > e.time_range.start]
+    by_id = {e.id: e for e in dev}
+    lost, after = [], []
+    for i, c in enumerate(calls):
+        k = by_id.get(c.id)
+        if k is None:
+            lost.append((i, round((c.time_range.start
+                                   - calls[0].time_range.start) / 1e3, 3)))
+        else:
+            after.append((k.time_range.start - c.time_range.start) / 1e3)
+    extra = {"device_events_of_no_duration": len(dev) - len(kern),
+             "lead_launches_lost": len({
+                 e.id for e in launched if e.id in before} - {
+                 e.id for e in events if e.device_type == cuda})}
+    if not lost:
+        return kern, calls, extra, None
+    after.sort()
+    t0 = calls[0].time_range.start
+    first = sorted(dev, key=lambda e: e.time_range.start)[:3]
+    return kern, calls, extra, {
+        "launches": len(calls), "device_events": len(dev),
+        "lost": lost[:8], "n_lost": len(lost),
+        "first_launch_ids": [c.id for c in calls[:3]],
+        "first_device_events": [
+            (e.id, short_name(e.name)[:40],
+             round((e.time_range.start - t0) / 1e3, 3),
+             round(e.time_range.end - e.time_range.start, 3))
+            for e in first],
+        "start_after_launch_ms": [round(after[j], 3) for j in
+                                  (0, len(after) // 2, -1)] if after
+        else None}
 
 
 def in_group(name, group):
@@ -4007,15 +4389,19 @@ def main():
     from diffwave_sashimi_torch.runtime.generate import generate
     from diffwave_sashimi_torch.utils.exp import local_directory
 
-    # phase 1: build (and ptxas's report on kernels 4, 8, 5, 5f and 5L beside
-    # it), then require the card
+    # phase 1: build (and ptxas's report on kernels 4, 8, 5, 5f, 5L and 7
+    # beside it, and kernel 7's tensor-core products in its code), then
+    # require the card
     t0 = time.perf_counter()
     ptxas = start_ptxas()
     cuda_lib.library()
     ptxas = ptxas_report(ptxas)
+    tf32_sass = tf32_mma_sass()
     log(f"phase build: kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s; ptxas, kernels 4, 8, 5 and 5f's "
-        f"radix-16 route and 5L: {json.dumps(ptxas)}")
+        f"radix-16 route, 5L and kernel 7's 3xTF32 kernels: "
+        f"{json.dumps(ptxas)}; {TF32_MMA_SASS} instructions in kernel 7's "
+        f"code {json.dumps(tf32_sass)}")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the smoke test runs on a GPU")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4267,7 +4653,10 @@ def main():
     d256 = check_wide_model(torch, dev, launches, results)
 
     # phase 27: data parallelism at the main path's width
-    data_parallel = check_data_parallel(torch, model, dev, launches,
+    # (its own seeded model, phase 2's before any training phase: phase
+    # 10's Adam steps do not repeat bit for bit from call to call)
+    data_parallel = check_data_parallel(torch, build_model(torch).to(dev),
+                                        dev, launches,
                                         train_bf16["main"]["losses"])
     data_parallel["generate_rank"] = dp_generate
     log(f"card: {smi[0]}")
@@ -4302,14 +4691,24 @@ def main():
                     "stockham_max_abs_err", "two_pass_graph_ms",
                     "two_pass_c128_l2", "two_pass_max_abs_err",
                     "allocations", "bit_equal_composite",
-                    "composite_graph_ms"):
+                    "composite_graph_ms", "c64_err", "plain_c64_err",
+                    "repeat_bit_equal", "c64_errs",
+                    "plain_c64_errs",
+                    "yardstick_graph_ms"):
             # yardsticks and parts, not library calls
             if key in top:
                 entries[-1][key] = top[key]
         for key in ("vs_f64_max_rel", "max_active_clusters"):
             if key in r:
                 entries[-1][key] = r[key]
-        entries[-1].update(kernel_parts(name, ptxas))
+        entries[-1].update(kernel_parts(name, ptxas, tf32_sass))
+        if name == "ln_ff_res_bwd":
+            # the bound with every product on the fp32 FMAs, as before the
+            # 3xTF32 products (a tf32 count is three products' operations)
+            ops_, nbytes = work(name, N_SAMPLES, 128, 16000, 32768)
+            fp32 = ops_.get("fp32", 0) + ops_.get("tf32", 0) / 3
+            entries[-1]["fp32_bound_ms"] = 1e3 * max(
+                fp32 / PEAK_OPS["fp32"], nbytes / PEAK_BYTES)
         if name.startswith("fftconv_long"):     # the same function
             entries[-1]["also_replaces"] = (
                 "diffwave_sashimi_tpu/ops/fftconv_pallas.py:126")

@@ -22,8 +22,9 @@
 // and, for FF, its (2H x P) hidden activation stay in shared memory (192 KB)
 // and each residual branch costs one read and one write of the
 // activations.  Past H 512 the wider tiles would not fit one block, so the
-// plan halves P until they do (16 for FF and the GLU backward, 8 for the FF
-// backward at H 1024, F 2048).  Weights stream through a transposed (TK x
+// plan halves P until they do (16 for FF and the GLU backward at H 1024, F
+// 2048).  The f32 FF backward (kernel 7) multiplies on the tensor cores
+// instead, in 3xTF32 (below).  Weights stream through a transposed (TK x
 // TM) shared tile, TM = 16384 / P rows, prefetched into registers one
 // k-step ahead.  Each thread keeps an 8 x 8 register tile (rows {r, r +
 // TM/2} x 4, positions 8 consecutive), fed by four 16-byte shared loads
@@ -70,7 +71,8 @@
 // adds, the bf16 store and the output's statistics run 16 bytes a thread,
 // coalesced; the statistics are summed in a fixed order (no float
 // atomics).  Kernel 3, the f32 form, keeps its fp32 FMAs: its 1e-4 bar
-// rules out TF32.
+// rules out one TF32 product (kernel 7 takes three, 3xTF32, which keep
+// f32 accuracy; mma_tf32.cuh).
 //
 // Kernel 2f, the GLU's bf16 form (glu_res_tc_kernel), is one channel GEMM
 // of 4 H^2 B L operations with a register-local epilogue, on the tensor
@@ -98,13 +100,18 @@
 // weight tile, the bf16 activation tiles by cp.async, and 6f's value and
 // gate m-tiles paired in one warp as 2f's, so that its dz is formed in
 // registers; their weight gradients contract the f32 scratch on the fp32
-// FMAs (wgrad_kernel).  Kernels 6 and 7, the f32 forms, keep their fp32
-// FMAs on the gemm_chunk tiles.
+// FMAs (wgrad_kernel).  Of the f32 forms, kernel 6 keeps its pass on the
+// fp32 FMAs on the gemm_chunk tiles; kernel 7 takes its three
+// per-position products in 3xTF32 (ln_ff_res_bwd_tf32_kernel): an f32
+// operand split into two tf32 parts and a product taken as three
+// tensor-core products with f32 sums keeps f32 accuracy (mma_tf32.cuh).
+// Both contract their weight gradients on the fp32 FMAs (wgrad_kernel).
 
 #include <cuda_runtime.h>
 
 #include "activations.cuh"
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -757,20 +764,23 @@ glu_res_tc_kernel(const __nv_bfloat16* __restrict__ y,
 //
 // What bounds them: the same channel GEMMs as the forwards, three per
 // position for GLU (z, dy, dW) and five for FF (z, dh, dxn, dW1, dW2), so
-// they are fp32-compute bound like the forwards.
+// they are compute bound like the forwards.
 //
-// Design: a per-position pass reuses the forward's block layout and
-// register-tiled gemm_chunk: it recomputes z from the saved input, forms
-// dz in shared memory, contracts it back to the input gradient, and
-// writes the operands of the weight gradients (dz, and for FF the
-// normalised input and the GELU output) to device memory.  FF's scalar
-// gradients dm and ds are per-block partials summed in a fixed order.
+// Design: a per-position pass (kernel 6's reuses the forward's block
+// layout and register-tiled gemm_chunk; kernel 7's is below) recomputes z
+// from the saved input, forms dz in shared memory, contracts it back to
+// the input gradient, and writes the operands of the weight gradients
+// (dz, and for FF the normalised input and the GELU output) to device
+// memory.  FF's scalar gradients dm and ds are per-block partials summed
+// in a fixed order.
 //
 // The weight gradients (wgrad_kernel, shared by 6, 6f, 7 and 7f) contract
 // over all B * L positions (64000 at the top tier): 2 M N B L fp32
 // operations of a GEMM whose two operands are both position-contiguous
-// rows.  They stay on the fp32 FMAs because JAX's _bmmc contracts f32
-// operands and kernels 6 and 7 are held to 1e-4, which rules out TF32.
+// rows.  JAX's _bmmc contracts f32 operands and kernels 6 and 7 are held
+// to 1e-4, which rules out one TF32 product; a 3xTF32 form of this
+// kernel (three tensor-core products, f32 accuracy) ran no faster than
+// the FMAs at these shapes on the H100 and was not kept.
 // Design: a tiled SGEMM.  Each block takes a 128 x 128 output tile (8 x 8
 // sums a thread, rows and columns 16 apart so that a warp's shared loads
 // hit 4 and 8 rows on distinct banks) over one split of one batch row's
@@ -1051,149 +1061,242 @@ __device__ __forceinline__ float gelu_erf_grad(float z) {
          z * expf(-0.5f * z * z) * 0.39894228040143268f;
 }
 
-// FF backward, per position tile of P = 8192 / H positions (half the
-// forward's: x, g, and the F-row dh/dz tile share the shared memory; 8 at
-// H 1024, F 2048), the
-// algebra of the JAX kernel: var = E[x^2] - mean^2, r = s rstd,
-//   dxn = W1^T (gelu'(z) . W2^T g),  S1 = mean_h dxn,
-//   S2 = mean_h dxn (xc + m),  dx = g + r (dxn - S1) - r rstd^2 xc S2,
-//   dm = sum dxn r,  ds = sum dxn rstd (xc + m).
-// Writes dx, xn = TLN(x), hact = gelu(z), dz, and (dm, ds) of the block.
-// Kernel 7 (f32; kernel 7f is ln_ff_res_bwd_tc_kernel below).
+// Kernel 7 (f32; kernel 7f is ln_ff_res_bwd_tc_kernel below), on the
+// tensor cores at f32 accuracy.  It replaces diffwave_sashimi_tpu/ops/
+// chmix.py:362 _ff_bwd_kernel with fast=False: JAX's three per-position
+// products (_bmm at HIGHEST precision: dh = W2^T g, z = W1 xn, dxn = W1^T
+// dz) in 3xTF32 (mma_tf32.cuh), the rest with kernel 7's f32 algebra: the
+// LN statistics (var = E[x^2] - mean^2), exact GELU (erff) and its
+// derivative, S1, S2, dx and (dm, ds).  Writes dx, xn = TLN(x), hact =
+// gelu(z), dz, and (dm, ds) of the block; the weight gradients contract
+// the f32 xn, hact and dz on the fp32 FMAs (wgrad_kernel).
+//
+// What bounds it: three products of 2 F H B L operations each, three tf32
+// products apiece at the dense TF32 rate (495 T/s: 0.076 ms at SC09's top
+// tier), and its bytes (x and g read, dx and the xn, GELU-output and dz
+// scratch written: 0.08 ms) bound it alike; every block
+// also reads three split weight matrices (8 bytes an entry) from L2, once
+// per P positions.  Design, 7f's with f32 tiles: split_weights_tf32_kernel
+// splits W1, W1^T and W2^T into tf32 hi and lo parts once a call, into a
+// scratch in fragment order, so that A fragments come from L2 two 16-byte
+// loads a lane, one k-step ahead (warp_gemm_3xtf32), with no weight tile
+// and no barrier in the k-loop; one block of 8 warps per (batch, P
+// positions), P and the shared-memory bytes from ops/chmix.py::
+// ff_bwd_plan (the kernel takes both as given).  The f32 x and g tiles
+// arrive by cp.async, rows padded to LD floats (LD % 32 of 8 or 24: a B
+// fragment's 32 loads on distinct banks), and B values are split as they
+// load.  xn replaces x in its tile.  Each warp takes MT m-tiles of F for
+// dh, then z, so both meet in its registers, where dz and the GELU output
+// form; both go out in f32 and dz into an F-row tile.  After one barrier
+// each warp takes MT m-tiles of H for dxn = W1^T dz, stored over xn.
+// Then S1, S2, dx (x re-read) and the block's (dm, ds), in a fixed order
+// (no float atomics): a run repeats bit for bit.  H and F are multiples
+// of 8 (the mma k-step); m-tiles past F or H are the scratch's zero rows.
+template <int P>
+struct Tf32Tile {
+  static constexpr int N8 = P / 8;             // n-tiles
+  static constexpr int LD = P == 8 ? 8 : P + 8;   // f32 rows
+  static constexpr int MT = 128 / P < 4 ? 128 / P : 4;   // m-tiles a warp
+  static constexpr int C4 = P / 4;             // 16-byte chunks a row
+  static constexpr int HS = NT / C4;           // row step of a thread
+};
+
 template <int P>
 __global__ void __launch_bounds__(NT, 1)
-ln_ff_res_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                     const float* __restrict__ W1, const float* __restrict__ b1,
-                     const float* __restrict__ W1t,
-                     const float* __restrict__ W2t,
-                     const float* __restrict__ m_ptr,
-                     const float* __restrict__ s_ptr, float* __restrict__ dx,
-                     float* __restrict__ xn, float* __restrict__ hact,
-                     float* __restrict__ dz, float* __restrict__ stat_part,
-                     int H, int F, int L) {
-  using T = Tile<P>;
-  constexpr int PARTS = NT / P;
+ln_ff_res_bwd_tf32_kernel(const float* __restrict__ x,
+                          const float* __restrict__ g,
+                          const uint4* __restrict__ W1f,
+                          const uint4* __restrict__ W1tf,
+                          const uint4* __restrict__ W2tf,
+                          const float* __restrict__ b1,
+                          const float* __restrict__ m_ptr,
+                          const float* __restrict__ s_ptr,
+                          float* __restrict__ dx, float* __restrict__ xn,
+                          float* __restrict__ hact, float* __restrict__ dz,
+                          float* __restrict__ stat_part, int H, int F, int L,
+                          bool vec) {
+  using T = Tf32Tile<P>;
+  constexpr int LD = T::LD, N8 = T::N8, MT = T::MT, PARTS = NT / P;
   extern __shared__ float4 sh4[];
-  float* xs = reinterpret_cast<float*>(sh4);     // H x P: x, then xn
-  float* gs = xs + H * P;                         // H x P: g, then dxn
-  float* hs = gs + H * P;                         // F x P: dh, then dz
-  float* AsT = hs + F * P;                        // TK x LDT
-  float* red = AsT + TK * T::LDT;                 // 2 * NT
+  float* red = reinterpret_cast<float*>(sh4);     // 2 NT: partial sums
   float* mean_s = red + 2 * NT;                   // P
   float* rstd_s = mean_s + P;                     // P (0 past L)
   float* s1_s = rstd_s + P;                       // P
   float* s2_s = s1_s + P;                         // P
+  float* xs = s2_s + P;                           // H x LD: x, xn, dxn
+  float* gs = xs + H * LD;                        // H x LD: g
+  float* zs = gs + H * LD;                        // F x LD: dz
   const int b = blockIdx.y, t0 = blockIdx.x * P;
-  const int tid = threadIdx.x, pg = tid % T::PG;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  // the thread's position and part of the channels in the column passes
+  const int p = tid % P, part = tid / P;
   const float m = *m_ptr, s = *s_ptr;
 
-  load_tile<P>(x, xs, b, H, L, t0);
-  load_tile<P>(g, gs, b, H, L, t0);
-  __syncthreads();
-  column_stats<P>(xs, H, red, mean_s, rstd_s);
-  if (tid < P) rstd_s[tid] = t0 + tid < L ? rsqrtf(rstd_s[tid]) : 0.0f;
-  __syncthreads();
-  for (int idx = tid; idx < H * P; idx += NT) {
-    const int h = idx / P, p = idx % P, t = t0 + p;
-    const float v = s * rstd_s[p] * (xs[idx] - mean_s[p] + m);
-    xs[idx] = v;
-    if (t < L) xn[((size_t)b * H + h) * L + t] = v;
-  }
-
-  // dh = W2^T g into hs
-  for (int f0 = 0; f0 < F; f0 += T::TM) {
-    float acc[8][8];
-    gemm_chunk<P>(W2t, H, RowMap{f0, f0 + T::TM / 2, F, F, T::TM / 2}, gs,
-                  AsT, acc);
+  // the x and g tiles (0 past L), 16 bytes a thread by cp.async with vec
+  {
+    const int c = tid % T::C4 * 4, t = t0 + c;
+    for (int h = tid / T::C4; h < H; h += T::HS) {
+      const size_t at = ((size_t)b * H + h) * L + t;
+      float* xd = xs + h * LD + c;
+      float* gd = gs + h * LD + c;
+      if (vec && t < L) {          // L % 4 == 0: the chunk is all in
+        cp_async16(xd, x + at);
+        cp_async16(gd, g + at);
+      } else {
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int f = f0 + local_row<P>(r);
-      if (f >= F) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) hs[f * P + pg * 8 + j] = acc[r][j];
-    }
-  }
-  // z = W1 xn + b1; dz = gelu'(z) dh in place of dh
-  for (int f0 = 0; f0 < F; f0 += T::TM) {
-    float acc[8][8];
-    gemm_chunk<P>(W1, H, RowMap{f0, f0 + T::TM / 2, F, F, T::TM / 2}, xs,
-                  AsT, acc);
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int f = f0 + local_row<P>(r);
-      if (f >= F) continue;
-      const float bf = b1[f];
-      const size_t row = ((size_t)b * F + f) * L;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int p = pg * 8 + j, t = t0 + p;
-        const float zz = acc[r][j] + bf;
-        const float d = gelu_erf_grad(zz) * hs[f * P + p];
-        hs[f * P + p] = d;
-        if (t < L) {
-          hact[row + t] = gelu_erf(zz);
-          dz[row + t] = d;
+        for (int e = 0; e < 4; ++e) {
+          xd[e] = t + e < L ? x[at + e] : 0.0f;
+          gd[e] = t + e < L ? g[at + e] : 0.0f;
         }
       }
     }
-  }
-  // dxn = W1^T dz into gs (g is no longer read from shared memory)
-  for (int h0 = 0; h0 < H; h0 += T::TM) {
-    float acc[8][8];
-    gemm_chunk<P>(W1t, F, RowMap{h0, h0 + T::TM / 2, H, H, T::TM / 2}, hs,
-                  AsT, acc);
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int h = h0 + local_row<P>(r);
-      if (h >= H) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) gs[h * P + pg * 8 + j] = acc[r][j];
-    }
+    cp_async_commit();
+    cp_async_wait<0>();
   }
   __syncthreads();
 
-  // S1, S2 per position; xc + m re-read from x
+  // mean and E[x^2] - mean^2 per position, f32, in a fixed order
   {
-    const int p = tid % P, part = tid / P, t = t0 + p;
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int h = part; h < H; h += PARTS) {
+      const float v = xs[h * LD + p];
+      s1 += v;
+      s2 += v * v;
+    }
+    red[tid] = s1;
+    red[NT + tid] = s2;
+  }
+  __syncthreads();
+  if (tid < P) {
+    float t1 = 0.0f, t2 = 0.0f;
+    for (int q = 0; q < PARTS; ++q) {
+      t1 += red[q * P + tid];
+      t2 += red[NT + q * P + tid];
+    }
+    const float mean = t1 / (float)H;
+    mean_s[tid] = mean;
+    rstd_s[tid] = t0 + tid < L ? rsqrtf(t2 / (float)H - mean * mean) : 0.0f;
+  }
+  __syncthreads();
+
+  // xn = s rstd (x - mean + m), in place of x and out to the scratch
+  for (int idx = tid; idx < H * P; idx += NT) {
+    const int h = idx / P, q = idx % P, t = t0 + q;
+    const float v = s * rstd_s[q] * (xs[h * LD + q] - mean_s[q] + m);
+    xs[h * LD + q] = v;
+    if (t < L) xn[((size_t)b * H + h) * L + t] = v;
+  }
+  __syncthreads();
+
+  // dh = W2^T g and z = W1 xn on the same m-tiles of F; dz = gelu'(z + b1)
+  // dh and hact = gelu(z + b1) out in f32, dz into zs
+  const int Ft = (F + 15) / 16, Ht = (H + 15) / 16;
+  for (int u = warp; u * MT < Ft; u += NWARPS) {
+    const int mt0 = u * MT;
+    float dh[MT][N8][4], zz[MT][N8][4];
+    dwst_tf32::warp_gemm_3xtf32<MT, N8>(W2tf, Ft, H / 8, mt0, gs, LD, dh);
+    dwst_tf32::warp_gemm_3xtf32<MT, N8>(W1f, Ft, H / 8, mt0, xs, LD, zz);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int f = 16 * (mt0 + mt) + gq + 8 * hh;
+        if (f >= F) continue;
+        const float bias = b1[f];
+        const size_t row = ((size_t)b * F + f) * L;
+#pragma unroll
+        for (int j = 0; j < N8; ++j) {
+          const int q = 8 * j + 2 * tq, tt = t0 + q;
+          float d[2], ha[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float zv = zz[mt][j][2 * hh + e] + bias;
+            ha[e] = gelu_erf(zv);
+            d[e] = gelu_erf_grad(zv) * dh[mt][j][2 * hh + e];
+          }
+          *reinterpret_cast<float2*>(zs + f * LD + q) = make_float2(d[0], d[1]);
+          if (vec) {             // L % 4 == 0: both positions in or both out
+            if (tt < L) {
+              *reinterpret_cast<float2*>(hact + row + tt) =
+                  make_float2(ha[0], ha[1]);
+              *reinterpret_cast<float2*>(dz + row + tt) =
+                  make_float2(d[0], d[1]);
+            }
+          } else {
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (tt + e < L) {
+                hact[row + tt + e] = ha[e];
+                dz[row + tt + e] = d[e];
+              }
+          }
+        }
+      }
+  }
+  __syncthreads();
+
+  // dxn = W1^T dz, H x P, over xn (no warp reads xs past the barrier)
+  for (int u = warp; u * MT < Ht; u += NWARPS) {
+    const int mt0 = u * MT;
+    float acc[MT][N8][4];
+    dwst_tf32::warp_gemm_3xtf32<MT, N8>(W1tf, Ht, F / 8, mt0, zs, LD, acc);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int h = 16 * (mt0 + mt) + gq + 8 * hh;
+        if (h >= H) continue;
+#pragma unroll
+        for (int j = 0; j < N8; ++j)
+          *reinterpret_cast<float2*>(xs + h * LD + 8 * j + 2 * tq) =
+              make_float2(acc[mt][j][2 * hh], acc[mt][j][2 * hh + 1]);
+      }
+  }
+  __syncthreads();
+
+  // S1 = mean_h dxn, S2 = mean_h dxn (xc + m) per position; x re-read
+  const int t = t0 + p;
+  {
     float a1 = 0.0f, a2 = 0.0f;
     if (t < L) {
       for (int h = part; h < H; h += PARTS) {
-        const float v = gs[h * P + p];
+        const float v = xs[h * LD + p];
         a1 += v;
         a2 += v * (x[((size_t)b * H + h) * L + t] - mean_s[p] + m);
       }
     }
     red[tid] = a1;
     red[NT + tid] = a2;
-    __syncthreads();
-    if (tid < P) {
-      float t1 = 0.0f, t2 = 0.0f;
-      for (int q = 0; q < PARTS; ++q) {
-        t1 += red[q * P + tid];
-        t2 += red[NT + q * P + tid];
-      }
-      s1_s[tid] = t1 / (float)H;
-      s2_s[tid] = t2 / (float)H;
+  }
+  __syncthreads();
+  if (tid < P) {
+    float t1 = 0.0f, t2 = 0.0f;
+    for (int q = 0; q < PARTS; ++q) {
+      t1 += red[q * P + tid];
+      t2 += red[NT + q * P + tid];
     }
-    __syncthreads();
+    s1_s[tid] = t1 / (float)H;
+    s2_s[tid] = t2 / (float)H;
   }
+  __syncthreads();
 
-  // dx, and this thread's share of dm and ds
+  // dx = g + r (dxn - S1) - r rstd^2 xc S2, r = s rstd; this thread's share
+  // of dm = sum dxn r and ds = sum dxn rstd (xc + m)
   float dm = 0.0f, ds = 0.0f;
-  for (int idx = tid; idx < H * P; idx += NT) {
-    const int h = idx / P, p = idx % P, t = t0 + p;
-    if (t >= L) continue;
-    const size_t at = ((size_t)b * H + h) * L + t;
-    const float rstd = rstd_s[p], r = s * rstd;
-    const float xc = x[at] - mean_s[p];
-    const float v = gs[idx];
-    dx[at] = g[at] + r * (v - s1_s[p]) - r * rstd * rstd * xc * s2_s[p];
-    dm += v * r;
-    ds += v * rstd * (xc + m);
+  if (t < L) {
+    const float rstd = rstd_s[p], r = s * rstd, mu = mean_s[p];
+    const float q1 = s1_s[p], q2 = s2_s[p];
+    for (int h = part; h < H; h += PARTS) {
+      const size_t at = ((size_t)b * H + h) * L + t;
+      const float xc = x[at] - mu, v = xs[h * LD + p];
+      dx[at] = gs[h * LD + p] + r * (v - q1) - r * rstd * rstd * xc * q2;
+      dm += v * r;
+      ds += v * rstd * (xc + m);
+    }
   }
-  __syncthreads();                 // red is reused
-  red[tid] = dm;
-  red[NT + tid] = ds;
+  red[tid] = dm;                   // the S1, S2 sums were read before
+  red[NT + tid] = ds;              // the barrier above
   __syncthreads();
   for (int w = NT / 2; w > 0; w >>= 1) {   // fixed-order tree
     if (tid < w) {
@@ -1207,6 +1310,38 @@ ln_ff_res_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
     stat_part[2 * blk] = red[0];
     stat_part[2 * blk + 1] = red[NT];
   }
+}
+
+// wf = [W1 (F x H), W1^T (H x F), W2^T (F x H)] from W1 and W2 (H x F),
+// each split into tf32 hi and lo parts in fragment order (mma_tf32.cuh::
+// load_a_split), m-tiles of 16 rows (zero past the matrix) by k-tiles of 8,
+// once a call: kernel 7's weights.  One thread a (tile, lane).
+__global__ void split_weights_tf32_kernel(const float* __restrict__ W1,
+                                          const float* __restrict__ W2,
+                                          uint4* __restrict__ wf, int F,
+                                          int H) {
+  const int n0 = (F + 15) / 16 * (H / 8);     // tiles of W1 and of W2^T
+  const int n1 = (H + 15) / 16 * (F / 8);     // tiles of W1^T
+  const int id = blockIdx.x * blockDim.x + threadIdx.x;
+  const int tile = id >> 5, lane = id & 31;
+  if (tile >= 2 * n0 + n1) return;
+  const int job = tile < n0 ? 0 : (tile < n0 + n1 ? 1 : 2);
+  const int tix = tile - (job == 0 ? 0 : (job == 1 ? n0 : n0 + n1));
+  const int M = job == 1 ? H : F, Kt = (job == 1 ? F : H) / 8;
+  const int mt = tix / Kt, kt = tix % Kt, gq = lane >> 2, tq = lane & 3;
+  uint32_t hi[4], lo[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 16 * mt + gq + 8 * (i & 1), k = 8 * kt + tq + 4 * (i >> 1);
+    float v = 0.0f;
+    if (r < M)
+      v = job == 0 ? W1[(size_t)r * H + k]
+                   : (job == 1 ? W1[(size_t)k * H + r] : W2[(size_t)k * F + r]);
+    dwst_tf32::split(v, hi[i], lo[i]);
+  }
+  uint4* out = wf + (size_t)tile * 64 + lane;
+  out[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  out[32] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
 }
 
 // Kernel 7f (bf16 x, g and dx; f32 b1, m, s, scratch and (dm, ds)
@@ -1873,29 +2008,6 @@ int glu_res_bwd_launch(const float* y, const float* g, const float* W,
   }
 }
 
-int ln_ff_res_bwd_launch(const float* x, const float* g, const float* W1,
-                         const float* b1, const float* W1t, const float* W2t,
-                         const float* m, const float* s, float* dx, float* xn,
-                         float* hact, float* dz, float* stat_part, int B,
-                         int H, int F, int L, int P, int smem,
-                         cudaStream_t stream) {
-  auto run = [&](auto kernel) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    kernel<<<dim3((L + P - 1) / P, B), NT, smem, stream>>>(
-        x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact, dz, stat_part, H, F, L);
-    return (int)cudaGetLastError();
-  };
-  switch (P) {
-    case 64: return run(ln_ff_res_bwd_kernel<64>);
-    case 32: return run(ln_ff_res_bwd_kernel<32>);
-    case 16: return run(ln_ff_res_bwd_kernel<16>);
-    case 8: return run(ln_ff_res_bwd_kernel<8>);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 int glu_res(const float* y, const float* res, const float* W, const float* b,
             float* out, int B, int H, int L, int P, int smem,
             cudaStream_t stream) {
@@ -2066,6 +2178,35 @@ int ff_bwd_sums(const IO* g, const float* xn, const float* hact,
   return weight_grad(g, hact, part2, grads2, B, H, F, L, tc, stream);
 }
 
+// Kernel 7 on smem bytes of dynamic shared memory a block: W1, W1^T and
+// W2^T split into the scratch wf (ops/chmix.py::ff_bwd_split_floats
+// floats), then the 3xTF32 pass.
+template <int P>
+int launch_ff_bwd_tf32(const float* x, const float* g, const float* W1,
+                       const float* b1, const float* W2, const float* m,
+                       const float* s, float* dx, float* xn, float* hact,
+                       float* dz, float* stat_part, uint4* wf, int B, int H,
+                       int F, int L, int smem, cudaStream_t stream) {
+  const int n0 = (F + 15) / 16 * (H / 8), n1 = (H + 15) / 16 * (F / 8);
+  const int threads = 32 * (2 * n0 + n1);
+  split_weights_tf32_kernel<<<(threads + NT - 1) / NT, NT, 0, stream>>>(
+      W1, W2, wf, F, H);
+  int e = (int)cudaGetLastError();
+  if (e) return e;
+  e = (int)cudaFuncSetAttribute(ln_ff_res_bwd_tf32_kernel<P>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem);
+  if (e) return e;
+  const bool vec = L % 4 == 0 && aligned16(x) && aligned16(g) &&
+                   aligned16(dx) && aligned16(xn) && aligned16(hact) &&
+                   aligned16(dz);
+  ln_ff_res_bwd_tf32_kernel<P>
+      <<<dim3((L + P - 1) / P, B), NT, smem, stream>>>(
+          x, g, wf, wf + (size_t)64 * n0, wf + (size_t)64 * (n0 + n1), b1, m,
+          s, dx, xn, hact, dz, stat_part, H, F, L, vec);
+  return (int)cudaGetLastError();
+}
+
 // Kernel 7f on smem bytes of dynamic shared memory a block: the weights
 // rounded (and transposed) into the scratch wb (3 F H bf16 entries), then
 // the tensor-core pass; H <= 16384 / P.
@@ -2212,17 +2353,31 @@ extern "C" int dwst_glu_res_bwd_bf16(const void* y, const void* g,
   return weight_grad(dz, yb, part, grads, B, 2 * H, H, L, tc, stream);
 }
 
+// Kernel 7: x, g, dx, the scratch and the gradients f32; wf a scratch for
+// the split weights (ops/chmix.py::ff_bwd_split_floats floats); P 64, 32,
+// 16 or 8; H and F multiples of 8.  The 3xTF32 pass, then the (dm, ds)
+// sum and the two contractions.
 extern "C" int dwst_ln_ff_res_bwd(
     const float* x, const float* g, const float* W1, const float* b1,
-    const float* W1t, const float* W2t, const float* m, const float* s,
-    float* dx, float* xn, float* hact, float* dz, float* stat_part,
-    float* dms, float* part1, float* grads1, float* part2, float* grads2,
-    int B, int H, int F, int L, int tc, int P, int smem,
-    cudaStream_t stream) {
-  if (H % TK || F % TK || tc <= 0 || tc % 8) return (int)cudaErrorInvalidValue;
-  const int e = ln_ff_res_bwd_launch(x, g, W1, b1, W1t, W2t, m, s, dx, xn,
-                                     hact, dz, stat_part, B, H, F, L, P, smem,
-                                     stream);
+    const float* W2, const float* m, const float* s, float* dx, float* xn,
+    float* hact, float* dz, float* stat_part, float* dms, float* part1,
+    float* grads1, float* part2, float* grads2, void* wf, int B, int H,
+    int F, int L, int tc, int P, int smem, cudaStream_t stream) {
+  if (H <= 0 || F <= 0 || H % 8 || F % 8 || tc <= 0 || tc % 8)
+    return (int)cudaErrorInvalidValue;
+  auto* w = static_cast<uint4*>(wf);
+  auto run = [&](auto launch) {
+    return launch(x, g, W1, b1, W2, m, s, dx, xn, hact, dz, stat_part, w, B,
+                  H, F, L, smem, stream);
+  };
+  int e;
+  switch (P) {
+    case 64: e = run(launch_ff_bwd_tf32<64>); break;
+    case 32: e = run(launch_ff_bwd_tf32<32>); break;
+    case 16: e = run(launch_ff_bwd_tf32<16>); break;
+    case 8: e = run(launch_ff_bwd_tf32<8>); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   if (e) return e;
   return ff_bwd_sums(g, xn, hact, dz, stat_part, dms, part1, grads1, part2,
                      grads2, (L + P - 1) / P * B, B, H, F, L, tc, stream);

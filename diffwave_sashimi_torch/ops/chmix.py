@@ -25,8 +25,11 @@ output, the GELU's derivative is the polynomial's, dy and dx are rounded
 to bf16 and the weight, bias, m and s gradients stay f32; kernels 6f
 and 7f multiply on the tensor cores and take channel widths that are
 multiples of 16.  The weight gradients of 6, 6f, 7 and 7f are one tiled
-fp32 contraction over all positions, in split-K partials summed in a
-fixed order (``wgrad_plan``).
+contraction over all positions, in split-K partials summed in a fixed
+order (``wgrad_plan``), on the fp32 FMAs.  Kernel 7's per-position
+products run on the tensor cores in 3xTF32: each f32 operand split into
+two tf32 parts, hi and lo, and a product taken as lo hi + hi lo + hi hi
+with f32 sums, which keeps f32 accuracy.
 
 Widths: each kernel's plan (``glu_plan``, ``ff_plan``, ``glu_bwd_plan``,
 ``ff_bwd_plan``, ``glu_bf16_plan``, ``ff_bf16_plan``, ``glu_bwd_bf16_plan``,
@@ -185,7 +188,7 @@ ln_ff_res_bf16.launches = 0
 
 # shared memory one block may use on sm_90 (227 KB)
 SMEM_LIMIT = 232448
-# csrc/chmix.cu's fp32 tiles (kernels 2, 3, 6 and 7): NT threads a block;
+# csrc/chmix.cu's fp32 tiles (kernels 2, 3 and 6): NT threads a block;
 # weights through a transposed (TK x 16384 / P + 4) tile
 NT, TK = 256, 8
 # the positions a block each fp32 kernel is built for (the P cases of its
@@ -247,13 +250,35 @@ def glu_bwd_plan(H):
 
 
 def ff_bwd_plan(H, F):
-    """Kernel 7's (P, bytes): P = 8192 / H within [16, 64], halved
-    until the tiles fit (8 at H 1024, F 2048); the f32 x, g and hidden
-    tiles ((2H + F) x P), the weight tile, 2 NT floats of sums and 4 P of
-    statistics."""
+    """Kernel 7's tile plan (``csrc/chmix.cu::ln_ff_res_bwd_tf32_kernel``):
+    (P positions a block, shared-memory bytes a block), the grid being
+    ceil(L / P) x B blocks of one block an SM.  P = 8192 / H within [16,
+    64], halved until the tiles fit (8 at H 1024, F 2048): each block
+    reads the three split weight matrices whole from L2, so a wider P
+    reads them less often per position.  The block keeps 2 NT floats of
+    partial sums and 4 P of statistics, and its f32 x (then xn, then dxn)
+    and g tiles and its F-row dz tile, rows of :func:`ff_bwd_ld` floats.
+    The kernel takes these bytes as given: this is the one place they are
+    computed."""
     P0 = 64 if H <= 128 else (32 if H <= 256 else 16)
     return _fitted(FF_BWD_PS, P0, lambda P: 4 * (
-        (2 * H + F) * P + _weight_tile(P) + 2 * NT + 4 * P))
+        2 * NT + 4 * P + (2 * H + F) * ff_bwd_ld(P)))
+
+
+def ff_bwd_ld(P):
+    """Floats a row of kernel 7's f32 tiles at P positions: P padded so
+    that the row stride is 8 or 24 modulo 32 banks (a tf32 B fragment's 32
+    loads, rows t and columns g of lane 4 g + t, fall on distinct banks)
+    and rows stay 16-byte aligned."""
+    return P if P == 8 else P + 8
+
+
+def ff_bwd_split_floats(H, F):
+    """Floats of kernel 7's split-weight scratch: W1 (F x H), W1^T and W2^T
+    (``csrc/mma_tf32.cuh``: m-tiles of 16 rows, zero past the matrix, by
+    k-tiles of 8, each as its 32 lanes' tf32 hi fragments then their lo
+    fragments, 256 floats a tile)."""
+    return 256 * (2 * -(-F // 16) * (H // 8) + -(-H // 16) * (F // 8))
 
 
 def glu_bf16_plan(B, H, L, sms=132):
@@ -442,8 +467,9 @@ def glu_bwd_refusal(H, dtype):
 
 def ff_bwd_refusal(H, F, dtype):
     """None if kernel 7 (f32) or 7f (bf16 activations) takes widths H and
-    F, else why not.  7f's mma tiles are 16 channels deep and its plan
-    holds up to FF_BWD_BF16_MAX_H rows."""
+    F, else why not.  Kernel 7's tf32 mma k-steps are 8 channels deep (its
+    m-tiles of 16 pad with zero rows); 7f's mma tiles are 16 channels deep
+    and its plan holds up to FF_BWD_BF16_MAX_H rows."""
     widths = (("H", H), ("F", F))
     if dtype != torch.bfloat16:
         return _width_refusal("7", widths, TK, ff_bwd_plan(H, F)[1])
@@ -564,7 +590,9 @@ def _wgrad_scratch(x, B, L, rows, cols):
 def glu_res_bwd(y, w, b, g):
     """Kernel-6 wrapper (same arguments and results as
     :func:`glu_res_bwd_ref`): the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors; bf16 activations go to kernel 6f."""
+    version for CPU tensors; bf16 activations go to kernel 6f.  A call
+    launches, counted as one launch: the per-position pass on the fp32
+    FMAs and the weight-gradient contraction with its split-K sum."""
     if not y.is_cuda:
         return glu_res_bwd_ref(y, w, b, g)
     if y.dtype == torch.bfloat16:
@@ -625,7 +653,13 @@ def _glu_bwd_buffers(dtype, y, w, b, g):
 def ln_ff_res_bwd(x, m, s, w1, b1, w2, b2, g):
     """Kernel-7 wrapper (same arguments and results as
     :func:`ln_ff_res_bwd_ref`): the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors; bf16 activations go to kernel 7f."""
+    plain version for CPU tensors; bf16 activations go to kernel 7f.  The
+    kernel's products run on the tensor cores at f32 accuracy (3xTF32); H
+    and F must be multiples of 8 (:func:`ff_bwd_refusal`).  A call
+    launches, counted as one launch: a pass that splits W1 and the
+    transposes of W1 and W2 into tf32 parts in mma fragment order into a
+    scratch of its own, the 3xTF32 pass, the (dm, ds) sum, and the two
+    weight-gradient contractions with their split-K sums."""
     if not x.is_cuda:
         return ln_ff_res_bwd_ref(x, m, s, w1, b1, w2, b2, g)
     if x.dtype == torch.bfloat16:
@@ -636,10 +670,10 @@ def ln_ff_res_bwd(x, m, s, w1, b1, w2, b2, g):
     P, smem = ff_bwd_plan(H, Fd)
     out, tc, ptrs, _scratch = _ff_bwd_buffers(torch.float32, P, x, m, s,
                                               w1, b1, w2, b2, g)
-    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+    wf = w1.new_empty((ff_bwd_split_floats(H, Fd),))
     cuda_lib.launch("dwst_ln_ff_res_bwd",
-                    *_ptrs(x, g, w1, b1, w1t, w2t, m, s, out[0]), *ptrs,
-                    B, H, Fd, L, tc, P, smem)
+                    *_ptrs(x, g, w1, b1, w2, m, s, out[0]), *ptrs,
+                    wf.data_ptr(), B, H, Fd, L, tc, P, smem)
     ln_ff_res_bwd.launches += 1
     return out
 

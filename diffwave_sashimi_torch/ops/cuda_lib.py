@@ -26,7 +26,7 @@ _BUILD = _PKG.parent / "build" / "diffwave_sashimi_torch"
 _SOURCES = ("fftconv.cu", "fftconv_long.cu", "fftconv_int8.cu", "chmix.cu",
             "cauchy.cu", "wavenet_gate.cu")
 _HEADERS = ("fft_stockham.cuh", "activations.cuh", "mma_bf16.cuh",
-            "cp_async.cuh")
+            "mma_tf32.cuh", "cp_async.cuh")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC"]
 
@@ -78,11 +78,13 @@ _SIGNATURES = {
     # kernel 6f: y, g, W, b, dy, dz, part, grads, wb (the bf16 weight
     # scratch), B, H, L, tc, P, smem, stream (y, g, dy bf16)
     "dwst_glu_res_bwd_bf16": [_P] * 9 + [_I] * 6 + [_P],
-    # x, g, W1, b1, W1t, W2t, m, s, dx, xn, hact, dz, stat_part, dms,
-    # part1, grads1, part2, grads2, B, H, F, L, tc, P, smem, stream
+    # x, g, W1, b1, W2, m, s, dx, xn, hact, dz, stat_part, dms, part1,
+    # grads1, part2, grads2, wf (the split-weight scratch), B, H, F, L, tc,
+    # P, smem, stream
     "dwst_ln_ff_res_bwd": [_P] * 18 + [_I] * 7 + [_P],
-    # x, g, W1, b1, W2, m, s, dx, the same scratch and gradients, wb (the
-    # bf16 weight scratch), B, H, F, L, tc, P, smem, stream (x, g, dx bf16)
+    # kernel 7f: x, g, W1, b1, W2, m, s, dx, the same scratch and
+    # gradients, wb (the bf16 weight scratch), B, H, F, L, tc, P, smem,
+    # stream (x, g, dx bf16)
     "dwst_ln_ff_res_bwd_bf16": [_P] * 18 + [_I] * 7 + [_P],
     # kernel 8: a, b, c, d, z, g_re, g_im, gstride, out, part, K, M, N,
     # Lz, and its plan (span, splits, smem; ops/cauchy.py::

@@ -12,7 +12,7 @@ card, as JAX's ``make_mesh(data=-1)`` and the reference's
 :func:`launch` starts the ranks (``spawn``), each in a process group whose
 rendezvous is a file store in a fresh temporary directory, so two runs on
 one machine never meet.  A rank that raises ends the others, and the
-launcher raises.
+launcher raises the first failing rank's error.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from __future__ import annotations
 import datetime
 import os
 import tempfile
+import time
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
@@ -108,10 +109,12 @@ def data_parallel(model: torch.nn.Module) -> torch.nn.Module:
 
 def _run_rank(rank: int, fn: Callable, world: int, backend: str,
               device_type: str, store_dir: str, args: Sequence,
-              timeout: Optional[float]) -> None:
+              timeout: Optional[float], threads: Optional[int]) -> None:
     device = rank_device(rank, device_type)
     if device.type == "cuda":
         torch.cuda.set_device(device)   # the kernels launch on its stream
+    if threads is not None:
+        torch.set_num_threads(threads)
     dist.init_process_group(
         backend, init_method="file://" + os.path.join(store_dir, "store"),
         rank=rank, world_size=world, timeout=None if timeout is None
@@ -119,8 +122,38 @@ def _run_rank(rank: int, fn: Callable, world: int, backend: str,
     try:
         out = fn(rank, world, device, *args)
         torch.save(out, os.path.join(store_dir, f"rank{rank}.pt"))
+    except BaseException:
+        _note_failure(store_dir, rank)
+        raise
     finally:
         dist.destroy_process_group()
+
+
+def _note_failure(store_dir: str, rank: int) -> None:
+    """Write this rank's traceback to ``failed<rank>`` in the store
+    directory, stamped with the time and its pid, before its connections
+    close: the other ranks fail later, on those connections, and the
+    launcher reports the first rank to fail, whichever process it hears
+    from first."""
+    import traceback
+    path = os.path.join(store_dir, f"failed{rank}")
+    with open(path + ".tmp", "w") as f:
+        f.write(f"{time.time()!r} {os.getpid()}\n{traceback.format_exc()}")
+    os.replace(path + ".tmp", path)
+
+
+def _first_failure(store_dir: str,
+                   world: int) -> Optional[Tuple[int, int, str]]:
+    """(rank, pid, traceback) of the rank that failed first, or None."""
+    noted = []
+    for r in range(world):
+        path = os.path.join(store_dir, f"failed{r}")
+        if os.path.exists(path):
+            with open(path) as f:
+                head, text = f.read().split("\n", 1)
+            stamp, pid = head.split()
+            noted.append((float(stamp), r, int(pid), text))
+    return min(noted)[1:] if noted else None
 
 
 def launch(fn: Callable, world: int, backend: str, device_type: str = "cuda",
@@ -130,8 +163,12 @@ def launch(fn: Callable, world: int, backend: str, device_type: str = "cuda",
     at world 1; returns each rank's return value (through ``torch.save``,
     tensors as they were).  ``fn`` and ``args`` must pickle: a module's
     top-level function.  A rank that raises ends the rest, and this
-    raises; a collective that waits past ``timeout`` seconds (torch's
-    default when None) raises in its rank."""
+    raises the error of the rank that failed first (the others fail on its
+    closed connections); a collective that waits past ``timeout`` seconds
+    (torch's default when None) raises in its rank.  On the CPU each rank
+    takes an even share of the caller's torch threads (at least one): a
+    spawned process starts with one thread a core, so ``world`` ranks
+    would otherwise ask the cores for ``world`` times as many."""
     import torch.multiprocessing as mp
     if device_type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port runs on the card; ask "
@@ -139,10 +176,22 @@ def launch(fn: Callable, world: int, backend: str, device_type: str = "cuda",
     if backend == "nccl" and world > torch.cuda.device_count():
         raise ValueError(f"NCCL takes one rank a card: {world} ranks, "
                          f"{torch.cuda.device_count()} card(s)")
+    threads = (None if device_type == "cuda"
+               else max(1, torch.get_num_threads() // world))
     with tempfile.TemporaryDirectory(prefix="dwst_ranks_") as store_dir:
-        mp.spawn(_run_rank, args=(fn, world, backend, device_type, store_dir,
-                                  tuple(args), timeout),
-                 nprocs=world, join=True)
+        try:
+            mp.spawn(_run_rank, args=(fn, world, backend, device_type,
+                                      store_dir, tuple(args), timeout,
+                                      threads),
+                     nprocs=world, join=True)
+        except mp.ProcessRaisedException as e:
+            first = _first_failure(store_dir, world)
+            if first is None:
+                raise
+            rank, pid, text = first
+            raise mp.ProcessRaisedException(
+                f"\n\n-- Process {rank} failed first:\n{text}", rank,
+                pid) from e
         return [torch.load(os.path.join(store_dir, f"rank{r}.pt"),
                            map_location="cpu", weights_only=False)
                 for r in range(world)]

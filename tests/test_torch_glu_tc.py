@@ -125,18 +125,23 @@ def test_mixer_kernels_take_every_tier(H, dtype):
 def test_fp32_mixer_plans_hold_every_tile(H, F):
     """The fp32 plans' bytes hold their kernels' layouts (csrc/chmix.cu):
     kernel 2 the (H x P) y tile, 3 the input and hidden tiles ((H + F) x
-    P), 6 the y and dz tiles (3H x P), 7 the x, g and hidden tiles ((2H +
-    F) x P), each with the (TK x 16384 / P + 4) weight tile; the sums and
-    statistics of 3 and 7 on top.  P at least 8, so kernel 7's (dm, ds)
-    partials, one pair a block, are B ceil(L / P) pairs."""
+    P), 6 the y and dz tiles (3H x P), each with the (TK x 16384 / P + 4)
+    weight tile; 7 the x, g and hidden tiles ((2H + F) rows of
+    ``ff_bwd_ld(P)`` floats) and no weight tile (its split weights come
+    from L2); the sums and statistics of 3 and 7 on top.  P at least 8,
+    so kernel 7's (dm, ds) partials, one pair a block, are B ceil(L / P)
+    pairs."""
     wt = chmix.TK * 4
     for (P, smem), rows, extra in (
             (chmix.glu_plan(H), H, 0), (chmix.ff_plan(H, F), H + F, 2 * 256),
-            (chmix.glu_bwd_plan(H), 3 * H, 0),
-            (chmix.ff_bwd_plan(H, F), 2 * H + F, 2 * 256)):
+            (chmix.glu_bwd_plan(H), 3 * H, 0)):
         assert P >= 8
         assert smem >= 4 * (rows * P + extra) + wt * (16384 // P + 4)
         assert smem <= chmix.SMEM_LIMIT
+    P, smem = chmix.ff_bwd_plan(H, F)
+    assert P >= 8
+    assert smem >= 4 * ((2 * H + F) * chmix.ff_bwd_ld(P) + 2 * 256)
+    assert smem <= chmix.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("d_model,precision,train,device,refused", [
