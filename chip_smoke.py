@@ -7,12 +7,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. build the CUDA kernels from ``diffwave_sashimi_torch/csrc`` (with
    ``nvcc -Xptxas -v`` of ``csrc/cauchy.cu``, ``csrc/fftconv.cu``,
-   ``csrc/fftconv_long.cu`` and ``csrc/chmix.cu`` beside the build: the
-   registers and spills of each kernel-4 instance ``<K>``, each kernel-8
-   instance ``<K, PAIRED>``, each instance ``<M, Q, T>`` of kernels 5 and
-   5f's radix-16 route, kernel 5L's two passes and each instance ``<N1,
-   N2, NT, T>`` of its cluster kernel, and kernel 7's 3xTF32 kernels (its
-   pass ``<P>`` at every P, its weights' split), none of which may spill;
+   ``csrc/fftconv_long.cu``, ``csrc/chmix.cu`` and ``csrc/fftconv_int8.cu``
+   beside the build: the registers and spills of each kernel-4 instance
+   ``<K>``, each kernel-8 instance ``<K, PAIRED>``, each instance ``<M,
+   Q, T>`` of kernels 5 and 5f's radix-16 route, kernel 5L's two passes
+   and each instance ``<N1, N2, NT, T>`` of its cluster kernel, kernel
+   7's 3xTF32 kernels (its pass ``<P>`` at every P, its weights' split)
+   and each kernel-12 instance ``<T, threads>``, none of which may spill;
    and, by ``cuobjdump -sass``, the tf32 ``HMMA`` instructions in kernel
    7's pass, which must have some) and require a CUDA device;
 2. build the shipped SC09 model (d_model 128, n_layers 6, pool [4, 4],
@@ -45,7 +46,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    at H 1024 (d_model 256's deepest tier, L 1000) and on its element-wise
    path (L 1001 at H 128 and 256, B2; y and res one element off a
    16-byte boundary), kernel 12 against an
-   f64 direct conv, beside 2f its channel product as one bf16
+   f64 direct conv and, at B4 and B16 with both epilogues, two calls
+   bit-equal, timed in a CUDA graph beside a cuFFT conv and kernel 1f of
+   its shapes, beside 2f its channel product as one bf16
    ``torch.matmul`` (``gemm_ms``) and beside 3f its two as two
    (``gemm_pair_ms``; yardsticks, not library calls of their functions),
    and 3f's entry with the f32 weights
@@ -54,8 +57,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bf16 and int8 eps through the kernels against the bf16 plain path, and
    the quality gate: a 50-step reverse process with one injected noise
    stack, whose bf16 and int8 x_0 must correlate >= 0.99999 with f32's;
-   (6d) the bf16 and int8 eps step timed at B4 and B16 and traced (the
-   bf16 step at B4 and B16 with kernel 1f's time apart);
+   (6d) the bf16 and int8 eps step timed at B4 and B16 and traced at both
+   (kernel 1f's time apart in the bf16 steps, kernel 12's in the int8
+   ones, each with its share of the busy time and the device's idle
+   share; a trace with no device time fails);
 7. the training kernels (kernel 1's training entry and its conjugate
    form, kernels 4-8) against their plain versions at the three tiers,
    with their times, kernel 4 held beyond that as in phase 3 and at four
@@ -678,6 +683,10 @@ def is_1f(name):
 
 
 KERNEL_1F_GROUPS = {"fftconv_1f": is_1f}
+# kernel 12's instances <T, threads>; traces report their sum
+KERNEL_12 = "fftconv_int8_kernel"
+KERNEL_12_GROUPS = {"fftconv_int8": lambda name: in_group(name,
+                                                          (KERNEL_12,))}
 
 # kernels 5's and 5f's two routes (ops.fftconv.dkf_plan): the radix-16
 # kernel and the Stockham kernel; traces report 5f's sum
@@ -744,7 +753,8 @@ def log(msg):
 
 
 # the sources whose instances phase 1 reads ptxas's report of
-PTXAS_SOURCES = ("cauchy.cu", "fftconv.cu", "fftconv_long.cu", "chmix.cu")
+PTXAS_SOURCES = ("cauchy.cu", "fftconv.cu", "fftconv_long.cu", "chmix.cu",
+                 "fftconv_int8.cu")
 # kernel 7's instances (its 3xTF32 pass at each P it is built for, its
 # weights' split)
 KERNEL_7_TF32 = ("ln_ff_res_bwd_tf32_kernel", "split_weights_tf32_kernel")
@@ -798,6 +808,9 @@ def kernel_parts(name, ptxas, tf32_sass=None):
                           if k.startswith("fftconv_dkf")}}
     if name == "fftconv_long":
         return {"global_kernels": list(KERNEL_9_THREE_PASS)}
+    if name == "fftconv_int8":
+        return {"ptxas": {k: v for k, v in ptxas.items()
+                          if k.startswith(KERNEL_12)}}
     return {}
 
 
@@ -820,13 +833,15 @@ def ptxas_report(procs):
     bytes} from ptxas's reports, of kernel 4 (``cauchy_fwd_kernel<K>``),
     of kernel 8 (``name<K, PAIRED>``), of kernels 5 and 5f's radix-16
     route (``fftconv_dkf_r16_kernel<M, Q, T>``), of kernel 5L's two
-    passes and cluster kernel (KERNEL_5L) and of kernel 7's 3xTF32 pass at
-    each P and its weights' split (KERNEL_7_TF32);
+    passes and cluster kernel (KERNEL_5L), of kernel 7's 3xTF32 pass at
+    each P and its weights' split (KERNEL_7_TF32) and of kernel 12
+    (``fftconv_int8_kernel<T, threads>``);
     raise if nvcc failed, an instance spills or one of kernels 4's and 8's
     K 1-8, of the route's M (n 2048 .. 32768, each with its transforms a
-    block Q) and T (float, bf16), of 5L's or of KERNEL_7_TF32's is
-    missing."""
+    block Q) and T (float, bf16), of 5L's, of KERNEL_7_TF32's or of kernel
+    12's T and threads (ops.int8conv.THREADS) is missing."""
     fc = importlib.import_module("diffwave_sashimi_torch.ops.fftconv")
+    from diffwave_sashimi_torch.ops import int8conv
     out = {}
     for src, proc in zip(PTXAS_SOURCES, procs):
         text = proc.communicate()[0]
@@ -849,7 +864,13 @@ def ptxas_report(procs):
             k7 = re.search(r"Compiling entry function '\w*?\d(ln_ff_res_bwd_"
                            r"tf32_kernel|split_weights_tf32_kernel)"
                            r"(?:ILi(\d+)E)?", line)
-            if k7:
+            k12 = re.search(r"Compiling entry function '\w*?\d(fftconv_int8_"
+                            r"kernel)I(f|13__nv_bfloat16)Li(\d+)E", line)
+            if k12:
+                name = (f"{k12.group(1)}<"
+                        f"{'float' if k12.group(2) == 'f' else 'bf16'}, "
+                        f"{k12.group(3)}>")
+            elif k7:
                 name = k7.group(1) + ("" if k7.group(2) is None
                                       else f"<{k7.group(2)}>")
             elif k8:
@@ -887,7 +908,9 @@ def ptxas_report(procs):
         f"cauchy_fwd_kernel<{K}>" for K in range(1, 9)} | {
         f"fftconv_dkf_r16_kernel<{n // 2}, {q}, {t}>"
         for n, q in fc.DKF_PER_BLOCK.items() for t in ("float", "bf16")} | {
-        *KERNEL_5L}
+        *KERNEL_5L} | {
+        f"{KERNEL_12}<{t}, {nt}>" for t in ("float", "bf16")
+        for nt in int8conv.THREADS}
     spills = [k for k, v in out.items()
               if v["spill_stores"] != 0 or v["spill_loads"] != 0]
     if want - out.keys() or spills:
@@ -1261,6 +1284,8 @@ def check_bf16_kernels(torch, model, dev, results):
         for name, kfn, pfn, tol, tier, bpe in cases:
             compare(name, H, L, kfn, pfn, 10, results, tol=tol, tier=tier,
                     bpe=bpe)
+        hold_kernel_12(torch, blk, L, d, W, gen, dev,
+                       results["fftconv_int8"]["tiers"][f"H{H}_L{L}"])
         hold_1f_routes(torch, "fftconv_ln_bias_gelu_d_bf16", f"H{H}_L{L}",
                        d["n"], lambda p: fc.launch_sampling_bf16(x, *conv, p),
                        ops.fftconv_ln_bias_gelu_d_ref(x, *conv),
@@ -1309,6 +1334,7 @@ def check_bf16_kernels(torch, model, dev, results):
                 if not ok:
                     raise AssertionError(f"kernel 12 vs f64 at {key}")
     results["fftconv_int8"]["vs_f64_max_rel"] = f64
+    hold_kernel_12_split(torch, dev, gen, results)
     # 2f at H 1024 (d_model 256's deepest tier: L 1000, B4), with seeded
     # weights of scale 1 / sqrt(H)
     H, L = 1024, 1000
@@ -1334,6 +1360,73 @@ def check_bf16_kernels(torch, model, dev, results):
                 lambda: ops.glu_res_ref(y, x, w, b), 3, results, B=B,
                 tol=TOL_BF16, bpe=2,
                 tier=f"B{B}_H{H}_L{L}" + (f"_offset{off}" if off else ""))
+
+
+def hold_kernel_12(torch, blk, L, d, W, gen, dev, result):
+    """Kernel 12 at one tier beyond its bar, at B4 (phase 6b's inputs ``d``,
+    rows offset by the step bias, the mean split by ``W``) and B16, on
+    bf16 and f32 activations: two calls bit-equal; its time a call in a
+    CUDA graph; beside it a cuFFT conv of the same shapes (f32,
+    ``cufft_conv_ms``) and, in a graph, kernel 1f's sampling form on the
+    bf16 activations: yardsticks the int8 path never calls.
+    Recorded in ``result["graphs"]`` by batch and form, and the B4 bf16
+    time as ``graph_ms``."""
+    from diffwave_sashimi_torch import ops
+    graphs = result.setdefault("graphs", {})
+    for B in (N_SAMPLES, 16):
+        e = d if B == N_SAMPLES else conv_inputs(torch, blk, L, B, gen, dev)
+        conv = (e["a"], e["c"], e["bias"], e["khat"], e["D"])
+        n = e["n"]
+        for form, x in (("bf16", e["x"].to(torch.bfloat16)),
+                        ("f32", e["x"])):
+            def run():
+                return ops.fftconv_int8(x, *conv, W)
+            one, two = run(), run()
+            torch.cuda.synchronize()
+            if not torch.equal(one, two):
+                raise AssertionError(f"kernel 12 at H{x.shape[1]} L{L} B{B} "
+                                     f"{form}: two calls differ")
+            r = {"graph_ms": graph_ms(torch, run)}
+            r["cufft_conv_ms"] = cufft_conv_ms(torch, e["x"], e["khat"], L)
+            if form == "bf16":
+                r["fftconv_1f_graph_ms"] = graph_ms(
+                    torch, lambda: ops.fftconv_ln_bias_gelu_d_bf16(x, *conv))
+            graphs[f"B{B}_{form}"] = r
+            log(f"kernel fftconv_int8 H{x.shape[1]}_L{L} B{B} {form}: two "
+                f"calls bit-equal; {r['graph_ms']:.4f} ms in a CUDA graph; "
+                f"yardsticks: cuFFT conv "
+                f"{r['cufft_conv_ms']:.4f} ms"
+                + (f", kernel 1f {r['fftconv_1f_graph_ms']:.4f} ms"
+                   if form == "bf16" else ""))
+    result["graph_ms"] = graphs[f"B{N_SAMPLES}_bf16"]["graph_ms"]
+
+
+def hold_kernel_12_split(torch, dev, gen, results):
+    """Kernel 12 off SC09's layouts, at B2 H8 L20000 n 32768 (Rc 256, so
+    ``int8_plan`` stages Dr in panels over kr and Er a chunk at a time,
+    and x passes the words a thread holds in registers), both forms,
+    against its plain version at TOL_INT8 (seeded inputs, rows offset by
+    a step bias, the mean split)."""
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.ops import int8conv
+    B, H, L, n = 2, 8, 20000, 32768
+    plan = int8conv.int8_plan(n, L)
+    if plan.panels == 1 or not plan.er_chunked:
+        raise AssertionError(f"kernel 12's split layout is not split: {plan}")
+    x = torch.randn(B, H, L, device=dev, generator=gen)
+    a = 0.5 + torch.rand(B, L, device=dev, generator=gen)
+    c = 0.3 * torch.randn(B, L, device=dev, generator=gen)
+    bias = 1.5 * torch.randn(B, H, device=dev, generator=gen)
+    D = torch.randn(H, device=dev, generator=gen)
+    khat = torch.fft.rfft(0.05 * torch.randn(H, L, device=dev,
+                                             generator=gen), n=n)
+    W = ops.int8_spectrum(khat, L)[1]
+    for form, u in (("bf16", x.to(torch.bfloat16)), ("f32", x)):
+        compare("fftconv_int8", H, L,
+                lambda: ops.fftconv_int8(u, a, c, bias, khat, D, W),
+                lambda: ops.fftconv_int8_ref(u, a, c, bias, khat, D, W), 3,
+                results, B=B, n=n, tier=f"B{B}_H{H}_L{L}_{form}",
+                tol=TOL_INT8, bpe=2 if form == "bf16" else 4)
 
 
 def gemm_ms(torch, name, results, tier, w, y):
@@ -1481,26 +1574,29 @@ def check_bf16_path(torch, model, dev):
         log(f"timing: bf16 eps forward at B{B} "
             f"{out['step_ms_vs_f32'][key]:.3f} ms vs the f32 step's "
             f"{out['f32_step_ms'][key]:.3f} ms in turns")
-    for label, (fused, _) in routes.items():
-        out["trace"][label] = trace_steps(
-            torch, lambda: bfm(x, steps, spectra[fused], fused),
-            groups=KERNEL_1F_GROUPS if label == "bf16" else None)
-        log(f"trace: {label} sampling step with the kernels: " + (
-            "no device time in the profiler's events (not measured)"
-            if out["trace"][label] is None
-            else json.dumps(out["trace"][label])))
-    # the bf16 step at B16 too: kernel 1f's share where the card is fuller
+    # each route's step at B4 and at B16, where the card is fuller: kernel
+    # 1f's share of the bf16 steps, kernel 12's of the int8 ones
     x16 = torch.randn(16, 1, 16000, device=dev, generator=g)
     s16 = torch.randint(0, 200, (16,), device=dev, generator=g)
-    out["trace"]["bf16_B16"] = trace_steps(
-        torch, lambda: bfm(x16, s16, spectra[ops.FUSED], ops.FUSED),
-        groups=KERNEL_1F_GROUPS)
-    for label in ("bf16", "bf16_B16"):
-        tr = out["trace"][label]
-        if tr is not None:
-            log(f"trace: kernel 1f {tr['groups_ms_per_step']['fftconv_1f']:.3f}"
-                f" ms of {tr['device_busy_ms_per_step']:.3f} busy ms a {label}"
-                f" sampling step")
+    for label, (fused, _) in routes.items():
+        groups, kernel = ((KERNEL_1F_GROUPS, "fftconv_1f") if label == "bf16"
+                          else (KERNEL_12_GROUPS, "fftconv_int8"))
+        for key, xs, ss in ((label, x, steps), (f"{label}_B16", x16, s16)):
+            tr = trace_steps(torch, lambda: bfm(xs, ss, spectra[fused],
+                                                fused), groups=groups)
+            if tr is None:
+                raise AssertionError(f"the profiler recorded no device time "
+                                     f"in the {key} sampling step")
+            out["trace"][key] = tr
+            k_ms = tr["groups_ms_per_step"][kernel]
+            tr[f"{kernel}_share"] = k_ms / tr["device_busy_ms_per_step"]
+            log(f"trace: {key} sampling step with the kernels: "
+                f"{json.dumps(tr)}")
+            log(f"trace: kernel {'1f' if label == 'bf16' else '12'} "
+                f"{k_ms:.3f} ms of {tr['device_busy_ms_per_step']:.3f} busy "
+                f"ms a {key} sampling step ({tr[f'{kernel}_share']:.3f} of "
+                f"the busy time); the device idle {tr['idle_share']:.3f} of "
+                f"the window")
 
     sched = schedule_from_cfg(QUALITY_CFG, fast=True)
     shape = (N_SAMPLES, 1, 16000)
@@ -3291,10 +3387,10 @@ def kernel_9_route(trace, label, cluster):
     """A vocoder step's trace went through kernel 9's three passes (the
     top tier, n 2^18) and, where ``cluster`` (9f's middle tier, n 2^16),
     through the cluster kernel, and else not; records each route's share
-    of the device's busy time.  A trace with no device time is not
-    measured."""
+    of the device's busy time; raises on a trace with no device time."""
     if trace is None:
-        return
+        raise AssertionError(f"the profiler recorded no device time in the "
+                             f"{label}")
     split, busy = trace["groups_ms_per_step"], trace["device_busy_ms_per_step"]
     ms = {route: split[f"kernel_9_{route}"]
           for route in ("cluster", "three_pass")}
@@ -4694,7 +4790,7 @@ def main():
                     "composite_graph_ms", "c64_err", "plain_c64_err",
                     "repeat_bit_equal", "c64_errs",
                     "plain_c64_errs",
-                    "yardstick_graph_ms"):
+                    "yardstick_graph_ms", "graphs"):
             # yardsticks and parts, not library calls
             if key in top:
                 entries[-1][key] = top[key]

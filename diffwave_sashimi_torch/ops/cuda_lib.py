@@ -56,8 +56,10 @@ _SIGNATURES = {
     # null) after var
     "dwst_ln_ff_res_bf16": [_P] * 12 + [_I] * 6 + [_P],
     # u, a, c, bias, khat, D, W, qc, qs, out, B, H, L, n, R, S, Rc, bf16,
+    # and the plan (ops/int8conv.py::plan_args: threads, smem, b_off,
+    # f_off, four stage offsets, panels, chunk, er_chunked, prefetch),
     # stream
-    "dwst_fftconv_int8": [_P] * 10 + [_I] * 8 + [_P],
+    "dwst_fftconv_int8": [_P] * 10 + [_I] * 20 + [_P],
     # kernel 4: a, b, c, d, z, out, K, M, N, Lz, and its plan (threads,
     # splits, smem; ops/cauchy.py::cauchy_fwd_plan) before the stream
     "dwst_cauchy": [_P] * 6 + [_I] * 7 + [_P],

@@ -32,7 +32,9 @@ output's max at n = 32768 and fails the int8 quality gate of BASELINE.md
 at d128/n6.  Called with a bare half spectrum (no W), the function is the
 JAX package's unchanged, which is what the tests hold against it.
 
-:func:`fftconv_int8` launches the kernel for CUDA tensors and runs the
+:func:`fftconv_int8` launches the kernel for CUDA tensors, sized by
+:func:`int8_plan` (threads a block, its shared-memory regions and the
+stages' factor offsets, which the kernel takes as given), and runs the
 plain version :func:`fftconv_int8_ref` (the integer products as float64
 matmuls of the int8 values, exact at these depths) for CPU tensors.
 """
@@ -40,6 +42,7 @@ matmuls of the int8 values, exact at these depths) for CPU tensors.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -73,6 +76,92 @@ def int8_layout(n: int, L: int):
     if Rc * S < L:
         raise ValueError(f"int8 conv: L = {L} does not fit n = {n}")
     return R, S, Rc
+
+
+# kernel 12's shared memory (csrc/fftconv_int8.cu): int8 operand rows
+# padded by PAD bytes, output-staging rows by OPAD floats; what an H100
+# gives a block (static and dynamic) and an SM (each block taking 1 KB
+# more); a bound on the kernel's static shared memory (its reductions)
+PAD, OPAD = 16, 4
+SMEM_BLOCK, SMEM_SM, SMEM_RESERVED, SMEM_STATIC = 232448, 233472, 1024, 256
+# the kernel's instances, threads a block; at most 128 registers a thread
+# (__launch_bounds__), so 512 threads an SM
+THREADS = (128, 256, 512)
+REG_THREADS = 512
+
+
+class Int8Plan(NamedTuple):
+    """How kernel 12 runs at one layout: threads a block, blocks an SM,
+    dynamic shared-memory bytes, and the regions: A (at 0; x, then Y,
+    then an output chunk), B (at ``b_off``; B, then T), F (at ``f_off``;
+    the factors, stage s's at ``f_off + stage_off[s]``); S1's factor
+    panels over kr (1: Dr staged once), iB's output chunk of t1 columns,
+    whether Er is staged a chunk at a time, and ``prefetch`` (bit s, s
+    1-3: stage s's factors copied during stage s - 1)."""
+    threads: int
+    blocks_per_sm: int
+    smem: int
+    a_bytes: int
+    b_off: int
+    b_bytes: int
+    f_off: int
+    f_bytes: int
+    stage_off: tuple
+    stage_bytes: tuple
+    panels: int
+    chunk: int
+    er_chunked: bool
+    prefetch: int
+
+
+def int8_plan(n: int, L: int) -> Int8Plan:
+    """Kernel 12's plan at FFT size n and L valid samples (refusing what
+    :func:`int8_layout` refuses).  Regions: A holds max(x (S rows of Rc),
+    Y (R rows of S), an output chunk of ``chunk`` t1 rows of S + OPAD
+    floats, halved from Rc until it is no larger than x or Y); B
+    max(B (R rows of 2S), T (2S rows of R)); F each stage's factors, Dr
+    (2R rows of Rc), DsP (S of 2S), EsP (2S of S), Er (2 Rc of R), every
+    int8 row padded by PAD bytes.  Threads: the fewest of
+    :data:`THREADS` at which REG_THREADS / threads blocks an SM hold A, B
+    and the largest stage's factors; failing that 512, with Dr in panels
+    over kr and Er a chunk at a time where they do not fit.  F holds two
+    consecutive stages' factors where the room allows it, stages 0 and 2
+    at its start and 1 and 3 at its end, and stage s's copy then runs
+    during stage s - 1."""
+    R, S, Rc = int8_layout(n, L)
+    x, Y = S * (Rc + PAD), R * (S + PAD)
+    chunk = Rc
+    while chunk > 16 and chunk * (S + OPAD) * 4 > max(x, Y):
+        chunk //= 2
+    A = max(x, Y, chunk * (S + OPAD) * 4)
+    Bsz = max(R * (2 * S + PAD), 2 * S * (R + PAD))
+    dr, er = 2 * R * (Rc + PAD), 2 * Rc * (R + PAD)
+    dsp, esp = S * (2 * S + PAD), 2 * S * (S + PAD)
+
+    def room(threads):
+        blocks = REG_THREADS // threads
+        return min(SMEM_BLOCK, SMEM_SM // blocks - SMEM_RESERVED) \
+            - SMEM_STATIC - A - Bsz
+    threads = next((t for t in THREADS if max(dr, dsp, esp, er) <= room(t)),
+                   THREADS[-1])
+    free = room(threads)
+    panels = 1
+    while dr // panels > free:
+        panels *= 2
+    er_chunked = er > free
+    f = (dr // panels, dsp, esp, 2 * chunk * (R + PAD) if er_chunked else er)
+    whole = (panels == 1, True, True, not er_chunked)
+    pairs = [f[s - 1] + f[s] for s in (1, 2, 3)
+             if whole[s - 1] and whole[s] and f[s - 1] + f[s] <= free]
+    F = max(f + tuple(pairs))
+    stage_off = tuple(0 if s % 2 == 0 else F - f[s] for s in range(4))
+    prefetch = sum(1 << s for s in (1, 2, 3) if whole[s - 1] and whole[s]
+                   and f[s - 1] + f[s] <= F)
+    smem = A + Bsz + F
+    blocks = min(REG_THREADS // threads,
+                 SMEM_SM // (smem + SMEM_STATIC + SMEM_RESERVED))
+    return Int8Plan(threads, blocks, smem, A, A, Bsz, A + Bsz, F, stage_off,
+                    f, panels, chunk, er_chunked, prefetch)
 
 
 def _quantize(m: np.ndarray):
@@ -239,18 +328,25 @@ def fftconv_int8(u, a, c, bias, khat, D, W=None):
     if W is not None:
         cuda_lib.check(W, (H, L), torch.float32)
     qc, qs = _on_device(n, L, u.device)
+    p = int8_plan(n, L)
     out = torch.empty_like(u)
     cuda_lib.launch("dwst_fftconv_int8", u.data_ptr(), a.data_ptr(),
                     c.data_ptr(), bias.data_ptr(), khat.data_ptr(),
                     D.data_ptr(), None if W is None else W.data_ptr(),
                     qc.data_ptr(), qs.data_ptr(),
                     out.data_ptr(), B, H, L, n, R, S, Rc,
-                    int(u.dtype == torch.bfloat16))
+                    int(u.dtype == torch.bfloat16), *plan_args(p))
     fftconv_int8.launches += 1
     return out
 
 
 fftconv_int8.launches = 0
+
+
+def plan_args(p: Int8Plan):
+    """The plan's ints in the order ``dwst_fftconv_int8`` takes them."""
+    return (p.threads, p.smem, p.b_off, p.f_off, *p.stage_off, p.panels,
+            p.chunk, int(p.er_chunked), p.prefetch)
 
 
 def _split(spec):
