@@ -299,9 +299,9 @@ It prints the card's name and power limit, one JSON line with the kernels
 (each with its bound: the larger of its bytes over the HBM rate and its
 operations over the peak rate of their type, fp32, bf16, int8 or TF32 (a
 3xTF32 product three TF32 ones), at the top tier's shapes of the path
-that runs it; kernel 7 also with ``fp32_bound_ms``, every product on
-the fp32 FMAs), and last ``{"ok": true, "device": {...}}``.  The config
-blocks below are ``load_config(["experiment=sc09"])``,
+that runs it; kernels 3, 7 and 11 also with ``fp32_bound_ms``, every
+product on the fp32 FMAs), and last ``{"ok": true, "device": {...}}``.
+The config blocks below are ``load_config(["experiment=sc09"])``,
 ``load_config(["experiment=ljspeech"])``, the model and dataset blocks of
 ``load_config(["experiment=ljspeech_harder"])`` and the model block of
 ``load_config(["experiment=sc09_wavenet"])`` written out (a CPU test pins
@@ -653,7 +653,7 @@ PORT_KERNELS = ("fftconv_kernel", "fftconv_r16_kernel",
                 "fftconv_dkf_kernel", "fftconv_dkf_r16_kernel",
                 "glu_res_kernel",
                 "glu_res_tc_kernel", "glu_res_bwd_kernel",
-                "glu_res_bwd_tc_kernel", "ln_ff_res_kernel",
+                "glu_res_bwd_tc_kernel", "ln_ff_res_tf32_kernel",
                 "ln_ff_res_tc_kernel", "round_weights_kernel",
                 "ln_ff_res_bwd_tf32_kernel", "split_weights_tf32_kernel",
                 "ln_ff_res_bwd_tc_kernel", "round_weights_t_kernel",
@@ -664,7 +664,7 @@ PORT_KERNELS = ("fftconv_kernel", "fftconv_r16_kernel",
                 "cols_fwd_kernel",
                 "rows_kernel", "cols_inv_kernel", "fftconv_cluster_kernel",
                 "dkf_cols_kernel", "dkf_rows_kernel", "dkf_cluster_kernel",
-                "gate_res_skip_kernel", "gate_res_skip_tc_kernel",
+                "gate_res_skip_tf32_kernel", "gate_res_skip_tc_kernel",
                 "round_gate_weights_kernel", "fftconv_int8_kernel")
 # kernel 9's two routes: 9f's cluster kernel (n 2^16 and 2^17, the
 # vocoder's middle tier) and the three passes (every other n, and the f32
@@ -703,8 +703,14 @@ KERNELS_2F = ("glu_res_tc_kernel", "round_weights_kernel<2>")
 KERNELS_3F = ("ln_ff_res_tc_kernel", "round_weights_kernel<3>")
 # kernel 11's and 11f's: 11f's wrapper launches two a call, the stacked
 # weight's rounding pass and the tensor-core kernel; traces report their sum
-KERNELS_11 = ("gate_res_skip_kernel",)
 KERNELS_11F = ("gate_res_skip_tc_kernel", "round_gate_weights_kernel")
+# kernels 3's and 11's (f32) wrappers launch two a call, in two parts that
+# traces report apart: the weights' split (an instance named for its
+# kernel) and the 3xTF32 kernel
+KERNELS_3 = {"split": ("split_weights_tf32_kernel<3>",),
+             "kernel": ("ln_ff_res_tf32_kernel",)}
+KERNELS_11 = {"split": ("split_weights_tf32_kernel<11>",),
+              "kernel": ("gate_res_skip_tf32_kernel",)}
 # kernel 7f's wrapper launches seven a call, in three parts that traces
 # report apart: its pass (the weights' rounding and transposing pass, an
 # instance named for its kernel, then the tensor-core pass), its two
@@ -724,7 +730,7 @@ KERNELS_6F = {"pass": ("glu_res_bwd_tc_kernel", "round_weights_t_kernel<6>"),
 # pass, its contraction and that one's sum (beside PyTorch's transpose of
 # W); both contract on the fp32 FMAs (wgrad_kernel, 6f's and 7f's)
 KERNELS_7 = {"pass": ("ln_ff_res_bwd_tf32_kernel",
-                      "split_weights_tf32_kernel"),
+                      "split_weights_tf32_kernel<7>"),
              "contractions": ("wgrad_kernel",),
              "reduce": ("reduce_splits_kernel", "reduce_long_kernel")}
 KERNELS_6 = {"pass": ("glu_res_bwd_kernel",),
@@ -754,11 +760,21 @@ def log(msg):
 
 # the sources whose instances phase 1 reads ptxas's report of
 PTXAS_SOURCES = ("cauchy.cu", "fftconv.cu", "fftconv_long.cu", "chmix.cu",
-                 "fftconv_int8.cu")
+                 "fftconv_int8.cu", "wavenet_gate.cu")
 # kernel 7's instances (its 3xTF32 pass at each P it is built for, its
 # weights' split)
-KERNEL_7_TF32 = ("ln_ff_res_bwd_tf32_kernel", "split_weights_tf32_kernel")
+KERNEL_7_TF32 = ("ln_ff_res_bwd_tf32_kernel", "split_weights_tf32_kernel<7>")
 KERNEL_7_PS = (64, 32, 16, 8)
+# the 3xTF32 kernels of kernels 3, 7 and 11 (f32) and the instances each is
+# built for (<P, blocks an SM>; kernel 7's <P>); the weights' split of
+# each, by the kernel that launches it
+TF32_KERNELS = {"ln_ff_res_tf32_kernel": ("128, 1", "64, 2", "64, 1",
+                                          "32, 1", "16, 1", "8, 1"),
+                "ln_ff_res_bwd_tf32_kernel": tuple(map(str, KERNEL_7_PS)),
+                "gate_res_skip_tf32_kernel": ("128, 1", "64, 2", "64, 1",
+                                              "32, 3", "32, 1", "16, 1",
+                                              "8, 1")}
+TF32_SPLITS = tuple(f"split_weights_tf32_kernel<{k}>" for k in (3, 7, 11))
 # their tensor-core products in the built code: sm_90's SASS of mma.sync
 # with tf32 operands and f32 sums (HMMA.<shape>.F32.TF32)
 TF32_MMA_SASS = r"HMMA\.\w+\.F32\.TF32"
@@ -780,11 +796,13 @@ KERNEL_9_TRAIN_BF16 = tuple(f"{k}<false, __nv_bfloat16>"
 def kernel_parts(name, ptxas, tf32_sass=None):
     """The kernels line's parts of kernel ``name``: the global kernels it
     launches and the ptxas report (``ptxas_report``) of its instances,
-    where the line lists them; for kernels 6 and 7 (f32) the count of
-    TF32_MMA_SASS instructions in kernel 7's 3xTF32 kernels
+    where the line lists them; for kernels 3, 6, 7 and 11 (f32) the count
+    of TF32_MMA_SASS instructions in their 3xTF32 kernels
     (``tf32_mma_sass``)."""
-    if name in ("ln_ff_res_bwd", "glu_res_bwd"):
-        parts = KERNELS_7 if name == "ln_ff_res_bwd" else KERNELS_6
+    f32_parts = {"ln_ff_res_bwd": KERNELS_7, "glu_res_bwd": KERNELS_6,
+                 "ln_ff_res": KERNELS_3, "gate_res_skip": KERNELS_11}
+    if name in f32_parts:
+        parts = f32_parts[name]
         names = [k for group in parts.values() for k in group]
         return {"global_kernels": names,
                 "ptxas": {k: v for k, v in ptxas.items()
@@ -833,13 +851,13 @@ def ptxas_report(procs):
     bytes} from ptxas's reports, of kernel 4 (``cauchy_fwd_kernel<K>``),
     of kernel 8 (``name<K, PAIRED>``), of kernels 5 and 5f's radix-16
     route (``fftconv_dkf_r16_kernel<M, Q, T>``), of kernel 5L's two
-    passes and cluster kernel (KERNEL_5L), of kernel 7's 3xTF32 pass at
-    each P and its weights' split (KERNEL_7_TF32) and of kernel 12
-    (``fftconv_int8_kernel<T, threads>``);
+    passes and cluster kernel (KERNEL_5L), of the 3xTF32 kernels of
+    kernels 3, 7 and 11 at each P (TF32_KERNELS) and their weights' splits
+    (TF32_SPLITS) and of kernel 12 (``fftconv_int8_kernel<T, threads>``);
     raise if nvcc failed, an instance spills or one of kernels 4's and 8's
     K 1-8, of the route's M (n 2048 .. 32768, each with its transforms a
-    block Q) and T (float, bf16), of 5L's, of KERNEL_7_TF32's or of kernel
-    12's T and threads (ops.int8conv.THREADS) is missing."""
+    block Q) and T (float, bf16), of 5L's, of the 3xTF32 kernels' or of
+    kernel 12's T and threads (ops.int8conv.THREADS) is missing."""
     fc = importlib.import_module("diffwave_sashimi_torch.ops.fftconv")
     from diffwave_sashimi_torch.ops import int8conv
     out = {}
@@ -861,9 +879,10 @@ def ptxas_report(procs):
             k5c = re.search(r"Compiling entry function '\w*?(dkf_cluster_"
                             r"kernel)ILi(\d+)ELi(\d+)ELi(\d+)E(f|13__nv_"
                             r"bfloat16)E", line)
-            k7 = re.search(r"Compiling entry function '\w*?\d(ln_ff_res_bwd_"
-                           r"tf32_kernel|split_weights_tf32_kernel)"
-                           r"(?:ILi(\d+)E)?", line)
+            k7 = re.search(r"Compiling entry function '\w*?\d("
+                           + "|".join((*TF32_KERNELS,
+                                       "split_weights_tf32_kernel"))
+                           + r")(?:I((?:Li\d+E)+)E)?", line)
             k12 = re.search(r"Compiling entry function '\w*?\d(fftconv_int8_"
                             r"kernel)I(f|13__nv_bfloat16)Li(\d+)E", line)
             if k12:
@@ -871,8 +890,7 @@ def ptxas_report(procs):
                         f"{'float' if k12.group(2) == 'f' else 'bf16'}, "
                         f"{k12.group(3)}>")
             elif k7:
-                name = k7.group(1) + ("" if k7.group(2) is None
-                                      else f"<{k7.group(2)}>")
+                name = tf32_instance(k7)
             elif k8:
                 name = k8.group(1) + (
                     f"<{k8.group(2)}, "
@@ -901,8 +919,8 @@ def ptxas_report(procs):
                 "registers": int(regs.group(1)) if regs else None,
                 "spill_stores": int(spill.group(1)) if spill else None,
                 "spill_loads": int(spill.group(2)) if spill else None}
-    want = {f"{KERNEL_7_TF32[0]}<{P}>" for P in KERNEL_7_PS} | {
-        *KERNEL_7_TF32[1:]} | {
+    want = {f"{k}<{P}>" for k, ps in TF32_KERNELS.items() for P in ps} | {
+        *TF32_SPLITS} | {
         f"cauchy_bwd_lanes_kernel<{K}, {p}>" for K in range(1, 9)
         for p in ("true", "false")} | {
         f"cauchy_fwd_kernel<{K}>" for K in range(1, 9)} | {
@@ -920,32 +938,44 @@ def ptxas_report(procs):
     return out
 
 
+def tf32_instance(match):
+    """``name<args>`` of a 3xTF32 kernel or split instance from its mangled
+    name's match (group 1 the name, group 2 its int template arguments)."""
+    if match.group(2) is None:
+        return match.group(1)
+    args = re.findall(r"Li(\d+)E", match.group(2))
+    return f"{match.group(1)}<{', '.join(args)}>"
+
+
 def tf32_mma_sass():
-    """{KERNEL_7_TF32 instance: its count of TF32_MMA_SASS instructions}
-    in ``cuobjdump -sass`` of phase 1's chmix.cu object (ptxas_report's
-    build); raise unless each of the pass's instances multiplies on the
-    tensor cores."""
+    """{3xTF32 kernel instance (TF32_KERNELS at each P, TF32_SPLITS): its
+    count of TF32_MMA_SASS instructions} in ``cuobjdump -sass`` of phase
+    1's chmix.cu and wavenet_gate.cu objects (ptxas_report's build); raise
+    unless each instance of kernels 3's, 7's and 11's 3xTF32 kernels
+    multiplies on the tensor cores."""
     from diffwave_sashimi_torch.ops import cuda_lib
-    obj = cuda_lib._BUILD / "ptxas" / "chmix.cu.o"
-    text = subprocess.run(
-        [os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump"),
-         "-sass", str(obj)], capture_output=True, text=True,
-        check=True).stdout
     counts, name = {}, None
-    for line in text.splitlines():
-        fn = re.search(r"Function : \w*?\d(" + "|".join(KERNEL_7_TF32)
-                       + r")(?:ILi(\d+)E)?", line)
-        if "Function : " in line:
-            name = None if fn is None else fn.group(1) + (
-                "" if fn.group(2) is None else f"<{fn.group(2)}>")
-            if name is not None:
-                counts[name] = 0
-        elif name is not None and re.search(TF32_MMA_SASS, line):
-            counts[name] += 1
-    want = [f"{KERNEL_7_TF32[0]}<{P}>" for P in KERNEL_7_PS]
+    for src in ("chmix.cu", "wavenet_gate.cu"):
+        obj = cuda_lib._BUILD / "ptxas" / (src + ".o")
+        text = subprocess.run(
+            [os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump"),
+             "-sass", str(obj)], capture_output=True, text=True,
+            check=True).stdout
+        for line in text.splitlines():
+            fn = re.search(r"Function : \w*?\d("
+                           + "|".join((*TF32_KERNELS,
+                                       "split_weights_tf32_kernel"))
+                           + r")(?:I((?:Li\d+E)+)E)?", line)
+            if "Function : " in line:
+                name = None if fn is None else tf32_instance(fn)
+                if name is not None:
+                    counts[name] = 0
+            elif name is not None and re.search(TF32_MMA_SASS, line):
+                counts[name] += 1
+    want = [f"{k}<{P}>" for k, ps in TF32_KERNELS.items() for P in ps]
     if any(counts.get(k, 0) == 0 for k in want):
-        raise RuntimeError(f"kernel 7's {TF32_MMA_SASS} instructions: "
-                           f"{counts}")
+        raise RuntimeError(f"the 3xTF32 kernels' {TF32_MMA_SASS} "
+                           f"instructions: {counts}")
     return counts
 
 
@@ -990,8 +1020,8 @@ def work(name, B, H, L, n, K=6, N=32, S=None, bpe=4, F=None):
     do (the forwards' products; the backward passes' per-position products,
     its _bmm, while their weight gradients, its _bmmc, stay fp32); kernel
     12 moves activations of bpe bytes and multiplies int8 ones (its
-    four-step layout's products).  Kernel 7 (f32) takes its per-position
-    products in 3xTF32: three TF32 products each."""
+    four-step layout's products).  Kernels 3, 7 and 11 (f32) take their
+    per-position products in 3xTF32: three TF32 products each."""
     base = name.removesuffix("_bf16")
     if base != name:
         bpe = 2
@@ -1036,7 +1066,7 @@ def work(name, B, H, L, n, K=6, N=32, S=None, bpe=4, F=None):
     if base not in split:
         return {"fp32": ops}, nbytes
     prod, wgrad = split[base]
-    if name == "ln_ff_res_bwd":
+    if name in ("ln_ff_res_bwd", "ln_ff_res", "gate_res_skip"):
         by_type = {"fp32": wgrad, "tf32": 3 * prod}
     else:
         by_type = {"fp32": wgrad}
@@ -1162,8 +1192,8 @@ def tier_inputs(torch, blk, L, gen, dev):
 
 def check_kernels(torch, model, dev, results):
     """Phase 3 (+ kernel timings): the sampling kernels vs their plain
-    versions at the sampling path's shapes of every tier; kernel 4 beyond
-    that by ``hold_kernel_4``."""
+    versions at the sampling path's shapes of every tier; kernels 4 and 3
+    beyond that by ``hold_kernel_4`` and ``hold_ff``."""
     from diffwave_sashimi_torch import ops
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     for H, L, blk in tier_blocks(model):
@@ -1194,6 +1224,8 @@ def check_kernels(torch, model, dev, results):
             compare(name, H, L, kfn, pfn, 3 if name == "cauchy" else 20,
                     results)
         hold_kernel_4(torch, d, f"H{H}_L{L}", results)
+        hold_ff(torch, (x, d["m2"], d["s2"], d["w1"], d["b1"], d["w2"],
+                        d["b2"], d["skip"]), f"H{H}_L{L}", results)
 
 
 def direct_conv_f64(torch, x, a, c, bias, khat, D, fast):
@@ -2261,16 +2293,17 @@ def glu_yardstick(torch, glu):
 
 def hold_f32_mixer(torch, name, kfn, plain_fn, args, tier, results, parts,
                    yard):
-    """Kernel 7 (``name`` ln_ff_res_bwd) or 6 (glu_res_bwd) at f32, beyond
-    ``compare``'s bar: two calls bit-equal (fixed-order sums); the
-    kernel's float64 error (the worst of ``c64_err`` over its outputs,
-    against the plain version on float64 copies of ``args``; kernel 7's dm
-    and ds on the scale of ``ff_sum_scales``) at most twice the plain f32
-    version's on the same scales; its device time by part (``parts``:
-    KERNELS_7 or KERNELS_6) from a trace of five calls, which must record
-    device time and in which a kernel-7 call must launch nothing else; and
-    in CUDA graphs (``graph_ms``), in turns, the kernel and ``yard``, its
-    products as f32 ``torch.matmul`` calls (TF32 off; a yardstick)."""
+    """Kernel 3, 6, 7 or 11 at f32 (``name`` ln_ff_res, glu_res_bwd,
+    ln_ff_res_bwd or gate_res_skip), beyond ``compare``'s bar: two calls
+    bit-equal (fixed-order sums); the kernel's float64 error (the worst of
+    ``c64_err`` over its outputs, against ``plain_fn`` on float64 copies
+    of ``args``; kernel 7's dm and ds on the scale of ``ff_sum_scales``)
+    at most twice the plain f32 version's on the same scales; its device
+    time by part (``parts``: KERNELS_3, 6, 7 or 11) from a trace of five
+    calls, which must record device time and in which a call of kernel 3,
+    7 or 11 must launch nothing else; and in CUDA graphs (``graph_ms``),
+    in turns, the kernel and ``yard``, its products as f32
+    ``torch.matmul`` calls (TF32 off; a yardstick)."""
     one, two = kfn(), kfn()
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(one, two)):
@@ -2291,8 +2324,9 @@ def hold_f32_mixer(torch, name, kfn, plain_fn, args, tier, results, parts,
     split = trace["groups_ms_per_step"]
     other = [n for n in trace["top_kernels_ms_per_step"]
              if not any(in_group(n, names) for names in parts.values())]
-    if name == "ln_ff_res_bwd" and other:
-        raise AssertionError(f"a kernel 7 call launched {other} at {tier}")
+    if name != "glu_res_bwd" and other:
+        raise AssertionError(f"a kernel {name} call launched {other} at "
+                             f"{tier}")
     fns = {"graph_ms": kfn, "yardstick_graph_ms": yard}
     order = list(fns) + list(fns)[::-1]
     times = [(k, graph_ms(torch, fns[k])) for k in order]
@@ -2312,6 +2346,94 @@ def hold_f32_mixer(torch, name, kfn, plain_fn, args, tier, results, parts,
         raise AssertionError(f"kernel {name}'s float64 error {e_k:.3e} is "
                              f"over twice the plain version's {e_p:.3e} at "
                              f"{tier}")
+
+
+def ff_fwd_yardstick(torch, x, w1, w2):
+    """Kernel 3's two products as f32 ``torch.matmul`` calls (TF32 off,
+    cuBLAS on the fp32 cores), a yardstick the port never calls: z = W1 x
+    and W2 z, no LN, GELU, bias or residual."""
+    z = torch.matmul(w1, x)                        # an f32 (B, F, L) operand
+    return lambda: (torch.matmul(w1, x), torch.matmul(w2, z))
+
+
+def gate_yardstick(torch, h, wr, ws):
+    """Kernel 11's product as one f32 ``torch.matmul`` (TF32 off) of the
+    stacked weight [W_r; W_s] and an f32 (B, C, L) operand, a yardstick the
+    port never calls: no gate, bias or residual."""
+    w = torch.cat([wr, ws])
+    out = h[:, :wr.shape[0]].contiguous()
+    return lambda: (torch.matmul(w, out),)
+
+
+def hold_ff(torch, ff, tier, results):
+    """Kernel 3 (f32) at one tier beyond ``compare``'s bar
+    (``hold_f32_mixer``): ``ff`` = (x, m, s, w1, b1, w2, b2, skip), with
+    the statistics; in CUDA graphs beside the f32 ``torch.matmul``
+    yardstick of its products; and at every (P, blocks an SM) it is built
+    for whose tiles fit (``p_ms``, CUDA graphs)."""
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.ops import chmix, cuda_lib
+    x, m, s, w1, b1, w2, b2, skip = ff
+    B, H, L = x.shape
+    Fd = w1.shape[0]
+    plain = lambda *a: ops.ln_ff_res_ref(*a, emit_stats=True)  # noqa: E731
+    hold_f32_mixer(torch, "ln_ff_res", lambda: ops.ln_ff_res(*ff, True),
+                   plain, ff, tier, results, KERNELS_3,
+                   ff_fwd_yardstick(torch, x, w1, w2))
+    p_ms = {}
+    for P, blocks in ((64, 2), *((P, 1) for P in chmix.FF_TF32_PS)):
+        room = (chmix.SMEM_SM // blocks - chmix.SMEM_RESERVED if blocks > 1
+                else chmix.SMEM_LIMIT)
+        plan = next(((P, FC, blocks, sm)
+                     for FC in (Fd, 128 * 4, 128 * 2, 128)
+                     for sm in [chmix.ff_tf32_smem(H, Fd, P, FC)]
+                     if FC <= Fd and sm <= room
+                     and (FC == Fd or FC % (16 * chmix._tf32_mt(P)) == 0)),
+                    None)
+        if plan is None:
+            continue
+        out = torch.empty_like(x)
+        wf = w1.new_empty((chmix.ff_tf32_split_floats(H, Fd),))
+        ptrs = chmix._ptrs(x, skip, w1, b1, w2, b2, m, s, out, None, None,
+                           wf)
+        p_ms[str(plan)] = graph_ms(torch, lambda: cuda_lib.launch(
+            "dwst_ln_ff_res", *ptrs, B, H, Fd, L, *plan))
+    results["ln_ff_res"]["tiers"][tier]["p_ms"] = p_ms
+    log(f"kernel ln_ff_res {tier}: plan {chmix.ff_tf32_plan(H, Fd)}; in "
+        f"CUDA graphs by (P, FC, blocks an SM, bytes) {json.dumps(p_ms)}")
+
+
+def hold_gate(torch, args, tier, results):
+    """Kernel 11 (f32) at one tier beyond ``compare``'s bar
+    (``hold_f32_mixer``): ``args`` = (h, x, W_r, b_r, W_s, b_s); in CUDA
+    graphs beside the f32 ``torch.matmul`` yardstick of
+    its product; and at every (P, blocks an SM) it is built for whose tiles
+    fit (``p_ms``, CUDA graphs)."""
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.ops import cuda_lib, wavenet_gate as wg
+    h, x, wr, br, ws, bs = args
+    B, C, L = x.shape
+    S = ws.shape[0]
+    hold_f32_mixer(torch, "gate_res_skip", lambda: ops.gate_res_skip(*args),
+                   ops.gate_res_skip_ref, args, tier, results, KERNELS_11,
+                   gate_yardstick(torch, h, wr, ws))
+    p_ms = {}
+    res, skip = torch.empty_like(x), x.new_empty((B, S, L))
+    wf = x.new_empty((wg.gate_tf32_split_floats(C, S),))
+    for P, blocks in (*wg.GATE_TF32_SHARED,
+                      *((P, 1) for P in wg.GATE_TF32_PS)):
+        smem = wg.gate_tf32_smem(C, P)
+        if blocks * (smem + wg.SMEM_RESERVED) > wg.SMEM_SM or (
+                smem > wg.SMEM_LIMIT):
+            continue
+        p_ms[f"({P}, {blocks})"] = graph_ms(torch, lambda: cuda_lib.launch(
+            "dwst_gate_res_skip", *(t.data_ptr() for t in (
+                h, x, wr, br, ws, bs, res, skip, wf)), B, C, S, L, P,
+            blocks, smem))
+    results["gate_res_skip"]["tiers"][tier]["p_ms"] = p_ms
+    log(f"kernel gate_res_skip {tier}: plan "
+        f"{wg.gate_tf32_plan(B, C, S, L, cuda_lib.sm_count(x.device))}; in "
+        f"CUDA graphs by (P, blocks an SM) {json.dumps(p_ms)}")
 
 
 def write_corpus(root, per_digit=3):
@@ -2643,7 +2765,9 @@ def check_wide_mixers(torch, blk, L, dev, results):
     their f forms) vs their plain versions at the d_model 256 model's H
     1024 tier (B4, L 1000, the block's own weights), where the fp32 plans
     narrow P to fit one block (3 and 6 at 16, 7 at 8) and 3f, 6f and 7f
-    run at P 16; timed.  Returns each kernel's P there."""
+    run at P 16, and kernel 3 at F = 4H (seeded weights: ff 4, which
+    only its chunked hidden rows take); timed.  Returns each kernel's P
+    there."""
     from diffwave_sashimi_torch import ops
     from diffwave_sashimi_torch.ops import chmix
     gen = torch.Generator(device=dev).manual_seed(SEED + 25)
@@ -2669,7 +2793,18 @@ def check_wide_mixers(torch, blk, L, dev, results):
         ]
         for name, kfn, pfn in cases:
             compare(name + sfx, H, L, kfn, pfn, 3, results, tol=tol, bpe=bpe)
-    return {"glu": chmix.glu_plan(H)[0], "ff": chmix.ff_plan(H, 2 * H)[0],
+    # kernel 3 at F = 4H (d_model 256 with ff 4), its hidden rows in chunks
+    x = d["x"]
+    w4 = (torch.randn(4 * H, H, device=dev, generator=gen) / math.sqrt(H),
+          d["b1"].repeat(2), torch.randn(H, 4 * H, device=dev, generator=gen)
+          / math.sqrt(4 * H), d["b2"])
+    compare("ln_ff_res", H, L,
+            lambda: ops.ln_ff_res(x, d["m2"], d["s2"], *w4, d["skip"], True),
+            lambda: ops.ln_ff_res_ref(x, d["m2"], d["s2"], *w4, d["skip"],
+                                      True),
+            3, results, tier=f"H{H}_L{L}_F{4 * H}", F=4 * H)
+    return {"glu": chmix.glu_plan(H)[0],
+            "ff": chmix.ff_tf32_plan(H, 2 * H)[0],
             "glu_bwd": chmix.glu_bwd_plan(H)[0],
             "ff_bwd": chmix.ff_bwd_plan(H, 2 * H)[0],
             "glu_bf16": chmix.glu_bf16_plan(N_SAMPLES, H, L)[0],
@@ -2679,11 +2814,11 @@ def check_wide_mixers(torch, blk, L, dev, results):
 
 
 def check_wide_s4_kernels(torch, model, dev, results):
-    """Phase 24's kernels 4, 8, 5f, 6 and 7 (f32): vs their plain versions
-    at every tier of the d_model 256 model (its own S4 coefficients and
-    weights, seeded inputs and cotangents), timed; beyond that as phases
-    3, 7 and 7b hold them (``hold_kernel_4``, ``hold_kernel_8``,
-    ``hold_dkf``, ``hold_f32_mixers``)."""
+    """Phase 24's kernels 4, 8, 5f, 6, 7 and 3 (f32): vs their plain
+    versions at every tier of the d_model 256 model (its own S4
+    coefficients and weights, seeded inputs and cotangents), timed; beyond
+    that as phases 3, 7 and 7b hold them (``hold_kernel_4``,
+    ``hold_kernel_8``, ``hold_dkf``, ``hold_f32_mixers``, ``hold_ff``)."""
     from diffwave_sashimi_torch import ops
     gen = torch.Generator(device=dev).manual_seed(SEED + 26)
     for H, L, blk in tier_blocks(model):
@@ -2705,7 +2840,11 @@ def check_wide_s4_kernels(torch, model, dev, results):
         compare("glu_res_bwd", H, L, lambda: ops.glu_res_bwd(*glu),
                 lambda: ops.glu_res_bwd_ref(*glu), 3, results)
         hold_f32_mixers(torch, d, f"H{H}_L{L}", results)
-        del d, args, ff, glu
+        fwd = ff[:7] + (d["skip"],)
+        compare("ln_ff_res", H, L, lambda: ops.ln_ff_res(*fwd, True),
+                lambda: ops.ln_ff_res_ref(*fwd, True), 3, results)
+        hold_ff(torch, fwd, f"H{H}_L{L}", results)
+        del d, args, ff, glu, fwd
         torch.cuda.empty_cache()
 
 
@@ -2815,8 +2954,8 @@ def profile_train_step(torch, model, dev, steps=2):
 def check_training_trace(trace, label):
     """Raise unless a traced training step ran kernel 4's kernel, kernel
     8's lanes kernel and kernel 5's (f32) or 5f's (bf16) radix-16 kernel,
-    and (f32) kernel 7's 3xTF32 kernels (KERNEL_7_TF32), or when the
-    profiler recorded no device time."""
+    and (f32) kernels 7's and 3's 3xTF32 kernels (KERNEL_7_TF32,
+    KERNELS_3), or when the profiler recorded no device time."""
     if trace is None:
         raise AssertionError(f"the profiler recorded no device time in the "
                              f"{label} training step")
@@ -2831,11 +2970,13 @@ def check_training_trace(trace, label):
                and ("bfloat16" in n) == (label == "bf16") for n in names):
         raise AssertionError(f"the {label} training step's kernel 5 is not "
                              f"its radix-16 kernel: {sorted(names)}")
-    if label == "f32" and not all(any(in_group(n, (k,)) for n in names)
-                                  for k in KERNEL_7_TF32):
-        raise AssertionError(f"the f32 training step's kernel 7 is not its "
-                             f"3xTF32 kernels {KERNEL_7_TF32}: "
-                             f"{sorted(names)}")
+    for k, tf32 in (("7", KERNEL_7_TF32),
+                    ("3", [n for g in KERNELS_3.values() for n in g])):
+        if label == "f32" and not all(any(in_group(n, (t,)) for n in names)
+                                      for t in tf32):
+            raise AssertionError(f"the f32 training step's kernel {k} is not "
+                                 f"its 3xTF32 kernels {tf32}: "
+                                 f"{sorted(names)}")
 
 
 def trace_steps(torch, step, steps=2, groups=None):
@@ -3211,7 +3352,7 @@ def check_vocoder_kernels(torch, model, L, dev, results):
     """Phase 15: kernel 9 (both entries; 15b: 9f) at the top and middle
     tiers and at n 4096, kernel 1 at the deepest tier (n 16384 < 2L), and
     kernels 2 and 3 (15b: and 3f) at the vocoder's tiers, against their
-    plain versions, timed."""
+    plain versions, timed; kernel 3 beyond that by ``hold_ff``."""
     from diffwave_sashimi_torch import ops
     fl = importlib.import_module("diffwave_sashimi_torch.ops.fftconv_long")
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
@@ -3292,6 +3433,7 @@ def check_vocoder_kernels(torch, model, L, dev, results):
                 10, results, B, d["n"])
         compare("ln_ff_res", H, Lt, lambda: ops.ln_ff_res(*ff),
                 lambda: ops.ln_ff_res_ref(*ff), 10, results, B, d["n"])
+        hold_ff(torch, ff[:8], f"H{H}_L{Lt}", results)
         xb = x.to(torch.bfloat16)
         ffb = (xb,) + ff[1:7] + (xb, True)
         compare("ln_ff_res_bf16", H, Lt, lambda: ops.ln_ff_res_bf16(*ffb),
@@ -3535,7 +3677,8 @@ def build_wavenet(torch):
 def check_gate_kernel(torch, model, dev, results):
     """Phase 19: kernel 11 (19b: 11f, bf16 h and x) vs its plain version at
     GATE_CASES, with the first block's weights where the width is the
-    model's and seeded ones (scale 1/sqrt(C)) elsewhere, timed."""
+    model's and seeded ones (scale 1/sqrt(C)) elsewhere, timed; kernel 11
+    beyond that by ``hold_gate``."""
     from diffwave_sashimi_torch import ops
     from diffwave_sashimi_torch.ops.conv import weight_norm
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
@@ -3558,6 +3701,7 @@ def check_gate_kernel(torch, model, dev, results):
                     lambda: ops.gate_res_skip_ref(h, x, wr, br, ws, bs),
                     10 if B > N_SAMPLES else 20, results, B=B, S=S,
                     tier=tier)
+            hold_gate(torch, (h, x, wr, br, ws, bs), tier, results)
         hb, xb = h.to(torch.bfloat16), x.to(torch.bfloat16)
         compare("gate_res_skip_bf16", C, L,
                 lambda: ops.gate_res_skip_bf16(hb, xb, wr, br, ws, bs),
@@ -3672,7 +3816,8 @@ def check_wavenet_step(torch, model, cond, dev):
 
     out["trace"] = trace_steps(
         torch, lambda: model(x, steps, [], ops.FUSED),
-        groups=wavenet_groups("11", KERNELS_11))
+        groups=wavenet_groups("11", [k for names in KERNELS_11.values()
+                                     for k in names]))
     log("trace: wavenet step with kernel 11: " + (
         "no device time in the profiler's events (not measured)"
         if out["trace"] is None else json.dumps(out["trace"])))
@@ -4798,10 +4943,12 @@ def main():
             if key in r:
                 entries[-1][key] = r[key]
         entries[-1].update(kernel_parts(name, ptxas, tf32_sass))
-        if name == "ln_ff_res_bwd":
+        if name in ("ln_ff_res_bwd", "ln_ff_res", "gate_res_skip"):
             # the bound with every product on the fp32 FMAs, as before the
             # 3xTF32 products (a tf32 count is three products' operations)
-            ops_, nbytes = work(name, N_SAMPLES, 128, 16000, 32768)
+            ops_, nbytes = work(name, N_SAMPLES, *(
+                (256, 16000, 32768, 6, 32, 256) if name == "gate_res_skip"
+                else (128, 16000, 32768)))
             fp32 = ops_.get("fp32", 0) + ops_.get("tf32", 0) / 3
             entries[-1]["fp32_bound_ms"] = 1e3 * max(
                 fp32 / PEAK_OPS["fp32"], nbytes / PEAK_BYTES)

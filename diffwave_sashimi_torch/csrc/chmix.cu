@@ -17,29 +17,27 @@
 // (67 TFLOP/s : 3.35 TB/s = 20) at every tier (H >= 128), so they are
 // compute bound, and the inner product must not be bound by shared memory.
 //
-// Design: one block of 256 threads per (batch, P positions), P = 16384 / H
-// (128, 64, 32 at H = 128, 256, 512), so the block's input tile (H x P)
-// and, for FF, its (2H x P) hidden activation stay in shared memory (192 KB)
+// Design of the f32 GLU and its backward (kernels 2 and 6): one block of
+// 256 threads per (batch, P positions), P = 16384 / H (128, 64, 32 at H =
+// 128, 256, 512), so the block's input tile (H x P) stays in shared memory
 // and each residual branch costs one read and one write of the
 // activations.  Past H 512 the wider tiles would not fit one block, so the
-// plan halves P until they do (16 for FF and the GLU backward at H 1024, F
-// 2048).  The f32 FF backward (kernel 7) multiplies on the tensor cores
+// plan halves P until they do (16 for the GLU backward at H 1024).  The
+// f32 FF and its backward (kernels 3 and 7) multiply on the tensor cores
 // instead, in 3xTF32 (below).  Weights stream through a transposed (TK x
 // TM) shared tile, TM = 16384 / P rows, prefetched into registers one
 // k-step ahead.  Each thread keeps an 8 x 8 register tile (rows {r, r +
 // TM/2} x 4, positions 8 consecutive), fed by four 16-byte shared loads
-// per 64 FMAs.  One block per SM: two GLU blocks per SM and a 16-deep FF
-// k-tile were both measured slower on the step.  The FF kernel computes
-// the LayerNorm statistics of its input and of its output itself.  GELU
-// uses erff, the sigmoid expf: the strict f32 path.
+// per 64 FMAs.  One block per SM: two GLU blocks per SM were measured
+// slower on the step.  The sigmoid uses expf, GELU erff: the strict f32
+// path.
 //
 // The host computes every kernel's positions a block P and its bytes of
-// shared memory (ops/chmix.py: glu_plan, ff_plan, glu_bwd_plan, ff_bwd_plan
-// and, for the tensor-core kernels below, glu_bf16_plan, ff_bf16_plan,
-// glu_bwd_bf16_plan and ff_bwd_bf16_plan; wgrad_plan for the weight
-// gradients' splits), and
-// refuses widths whose tiles do not fit one block before it launches; the
-// kernels take both as given.
+// shared memory (ops/chmix.py: glu_plan, ff_tf32_plan, glu_bwd_plan,
+// ff_bwd_plan and, for the tensor-core kernels below, glu_bf16_plan,
+// ff_bf16_plan, glu_bwd_bf16_plan and ff_bwd_bf16_plan; wgrad_plan for the
+// weight gradients' splits), and refuses widths whose tiles do not fit one
+// block before it launches; the kernels take both as given.
 //
 // Kernel 3f, FF's bf16 form (ln_ff_res_tc_kernel), multiplies on the
 // tensor cores instead (mma.sync m16n8k16, bf16 operands, f32 sums;
@@ -70,9 +68,10 @@
 // result (+ b2) is staged in the GELU tile's region, then the residual
 // adds, the bf16 store and the output's statistics run 16 bytes a thread,
 // coalesced; the statistics are summed in a fixed order (no float
-// atomics).  Kernel 3, the f32 form, keeps its fp32 FMAs: its 1e-4 bar
-// rules out one TF32 product (kernel 7 takes three, 3xTF32, which keep
-// f32 accuracy; mma_tf32.cuh).
+// atomics).  Kernel 3, the f32 form (ln_ff_res_tf32_kernel below), takes
+// its products on the tensor cores too, in 3xTF32: its 1e-4 bar rules out
+// one TF32 product, and three, an f32 operand split into tf32 hi and lo
+// parts, keep f32 accuracy (mma_tf32.cuh).
 //
 // Kernel 2f, the GLU's bf16 form (glu_res_tc_kernel), is one channel GEMM
 // of 4 H^2 B L operations with a register-local epilogue, on the tensor
@@ -102,10 +101,11 @@
 // registers; their weight gradients contract the f32 scratch on the fp32
 // FMAs (wgrad_kernel).  Of the f32 forms, kernel 6 keeps its pass on the
 // fp32 FMAs on the gemm_chunk tiles; kernel 7 takes its three
-// per-position products in 3xTF32 (ln_ff_res_bwd_tf32_kernel): an f32
-// operand split into two tf32 parts and a product taken as three
-// tensor-core products with f32 sums keeps f32 accuracy (mma_tf32.cuh).
-// Both contract their weight gradients on the fp32 FMAs (wgrad_kernel).
+// per-position products in 3xTF32 (ln_ff_res_bwd_tf32_kernel), as kernel
+// 3 takes its two (ln_ff_res_tf32_kernel): an f32 operand split into two
+// tf32 parts and a product taken as three tensor-core products with f32
+// sums keeps f32 accuracy (mma_tf32.cuh).  Both backward passes contract
+// their weight gradients on the fp32 FMAs (wgrad_kernel).
 
 #include <cuda_runtime.h>
 
@@ -223,34 +223,6 @@ __device__ void load_tile(const float* __restrict__ x, float* xs, int b,
   }
 }
 
-// Per-position channel mean and E[x^2] - mean^2 of xs[0:H, :].
-template <int P>
-__device__ void column_stats(const float* xs, int H, float* red,
-                             float* mean_s, float* var_s) {
-  constexpr int PARTS = NT / P;
-  const int tid = threadIdx.x, p = tid % P, part = tid / P;
-  float s1 = 0.0f, s2 = 0.0f;
-  for (int h = part; h < H; h += PARTS) {
-    const float v = xs[h * P + p];
-    s1 += v;
-    s2 += v * v;
-  }
-  red[tid] = s1;
-  red[NT + tid] = s2;
-  __syncthreads();
-  if (tid < P) {
-    float t1 = 0.0f, t2 = 0.0f;
-    for (int q = 0; q < PARTS; ++q) {
-      t1 += red[q * P + tid];
-      t2 += red[NT + q * P + tid];
-    }
-    const float mean = t1 / (float)H;
-    mean_s[tid] = mean;
-    var_s[tid] = t2 / (float)H - mean * mean;
-  }
-  __syncthreads();
-}
-
 // Kernel 2 (f32; kernel 2f is glu_res_tc_kernel below).
 template <int P>
 __global__ void __launch_bounds__(NT, 1)
@@ -281,88 +253,6 @@ glu_res_kernel(const float* __restrict__ y, const float* __restrict__ res,
         const float g = acc[r + 4][j] + bg;
         out[row + t] = res[row + t] + (acc[r][j] + ba) / (1.0f + expf(-g));
       }
-    }
-  }
-}
-
-// Kernel 3 (f32; kernel 3f is ln_ff_res_tc_kernel below).
-template <int P>
-__global__ void __launch_bounds__(NT, 1)
-ln_ff_res_kernel(const float* __restrict__ x, const float* __restrict__ skip,
-                 const float* __restrict__ W1, const float* __restrict__ b1,
-                 const float* __restrict__ W2, const float* __restrict__ b2,
-                 const float* __restrict__ m_ptr,
-                 const float* __restrict__ s_ptr, float* __restrict__ out,
-                 float* __restrict__ mean_out, float* __restrict__ var_out,
-                 int H, int F, int L) {
-  using T = Tile<P>;
-  extern __shared__ float4 sh4[];
-  float* xs = reinterpret_cast<float*>(sh4);     // H x P: TLN(x), later out
-  float* zs = xs + H * P;                         // F x P: gelu(W1 xn + b1)
-  float* AsT = zs + F * P;                        // TK x LDT
-  float* red = AsT + TK * T::LDT;                 // 2 * NT
-  float* mean_s = red + 2 * NT;                   // P
-  float* var_s = mean_s + P;                      // P
-  const int b = blockIdx.y, t0 = blockIdx.x * P;
-  const int tid = threadIdx.x, pg = tid % T::PG;
-
-  load_tile<P>(x, xs, b, H, L, t0);
-  __syncthreads();
-  column_stats<P>(xs, H, red, mean_s, var_s);
-
-  // TransposedLN: (s / std) * (x - mean + m), population std, no eps
-  const float m = *m_ptr, s = *s_ptr;
-  for (int idx = tid; idx < H * P; idx += NT) {
-    const int p = idx % P;
-    xs[idx] = s * rsqrtf(var_s[p]) * (xs[idx] - mean_s[p] + m);
-  }
-
-  for (int f0 = 0; f0 < F; f0 += T::TM) {
-    float acc[8][8];
-    gemm_chunk<P>(W1, H, RowMap{f0, f0 + T::TM / 2, F, F, T::TM / 2}, xs,
-                      AsT, acc);
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int f = f0 + local_row<P>(r);
-      if (f >= F) continue;
-      const float bf = b1[f];
-      float* zr = zs + f * P + pg * 8;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) zr[j] = gelu_erf(acc[r][j] + bf);
-    }
-  }
-
-  for (int h0 = 0; h0 < H; h0 += T::TM) {
-    float acc[8][8];
-    gemm_chunk<P>(W2, F, RowMap{h0, h0 + T::TM / 2, H, H, T::TM / 2}, zs,
-                  AsT, acc);
-    // xs is free: every thread passed gemm_chunk's barriers after GEMM1
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int h = h0 + local_row<P>(r);
-      if (h >= H) continue;
-      const float bh = b2[h];
-      const size_t row = ((size_t)b * H + h) * L;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int p = pg * 8 + j, t = t0 + p;
-        float v = 0.0f;
-        if (t < L) {
-          v = x[row + t] + acc[r][j] + bh;
-          if (skip != nullptr) v += skip[row + t];
-          out[row + t] = v;
-        }
-        xs[h * P + p] = v;
-      }
-    }
-  }
-
-  if (mean_out != nullptr) {
-    __syncthreads();
-    column_stats<P>(xs, H, red, mean_s, var_s);
-    if (tid < P && t0 + tid < L) {
-      mean_out[(size_t)b * L + t0 + tid] = mean_s[tid];
-      var_out[(size_t)b * L + t0 + tid] = var_s[tid];
     }
   }
 }
@@ -1312,36 +1202,263 @@ ln_ff_res_bwd_tf32_kernel(const float* __restrict__ x,
   }
 }
 
-// wf = [W1 (F x H), W1^T (H x F), W2^T (F x H)] from W1 and W2 (H x F),
-// each split into tf32 hi and lo parts in fragment order (mma_tf32.cuh::
-// load_a_split), m-tiles of 16 rows (zero past the matrix) by k-tiles of 8,
-// once a call: kernel 7's weights.  One thread a (tile, lane).
-__global__ void split_weights_tf32_kernel(const float* __restrict__ W1,
-                                          const float* __restrict__ W2,
-                                          uint4* __restrict__ wf, int F,
-                                          int H) {
-  const int n0 = (F + 15) / 16 * (H / 8);     // tiles of W1 and of W2^T
-  const int n1 = (H + 15) / 16 * (F / 8);     // tiles of W1^T
-  const int id = blockIdx.x * blockDim.x + threadIdx.x;
-  const int tile = id >> 5, lane = id & 31;
-  if (tile >= 2 * n0 + n1) return;
-  const int job = tile < n0 ? 0 : (tile < n0 + n1 ? 1 : 2);
-  const int tix = tile - (job == 0 ? 0 : (job == 1 ? n0 : n0 + n1));
-  const int M = job == 1 ? H : F, Kt = (job == 1 ? F : H) / 8;
-  const int mt = tix / Kt, kt = tix % Kt, gq = lane >> 2, tq = lane & 3;
-  uint32_t hi[4], lo[4];
+// Kernel 3 (f32), on the tensor cores at f32 accuracy.  It replaces
+// diffwave_sashimi_tpu/ops/chmix.py:182 _ff_kernel with fast=False: out = x
+// + W2 gelu(W1 TLN(x) + b1) + b2 [+ skip] and, optionally, the output's
+// channel mean and E[out^2] - mean^2 per position (the next block's
+// norm1); its two per-position products (_bmm at HIGHEST precision) in
+// 3xTF32 (mma_tf32.cuh), the rest with kernel 3's f32 algebra: the LN
+// statistics (population std, no eps, var = E[x^2] - mean^2), the exact
+// GELU (erff), the residual adds in kernel 3's order ((x + W2 z) + b2, then
+// skip).
+//
+// What bounds it: two products of 2 F H B L operations each, three tf32
+// products apiece at the dense TF32 rate (495 T/s: 0.051 ms at SC09's top
+// tier, B4 H128 F256 L16000), against 0.020-0.029 ms of bytes (x and skip
+// read, out written); every block also reads both split weight matrices
+// (8 bytes an entry, 512 KB at H 128) from L2, once per P positions, so a
+// wide P matters.  Design, kernel 7's: split_weights_tf32_kernel<3> splits
+// W1 (F x H) and W2 (H x F) into tf32 hi and lo parts once a call, into a
+// scratch in fragment order, so that A fragments come from L2 two 16-byte
+// loads a lane, AHEAD k-steps ahead into a ring of registers
+// (warp_gemm_3xtf32_ring), with no weight tile and no barrier in the
+// k-loop; one block of 8 warps per (batch, P positions), built for BLOCKS
+// blocks an SM: at two (P 64, where two blocks' tiles fit an SM, H 128),
+// each warp takes one m-tile at a time in 128 registers, and the other
+// block's warps hide its latencies.  The f32 x tile arrives by cp.async,
+// rows padded to LD floats (LD % 32 of 8 or 24: a B fragment's 32 loads on
+// distinct banks), the statistics are taken from it, and TLN(x) replaces x
+// in it; B values are split as they load.  The hidden rows come in chunks
+// of FC: each warp takes MT m-tiles of the chunk for z = W1 TLN(x), adds
+// b1 and takes the GELU in registers into an f32 FC-row tile; after a
+// barrier each warp takes MT m-tiles of H and adds W2's chunk of columns
+// times that tile to its sums, kept over the chunks in an f32 H-row tile
+// (in x's tile when one chunk holds F: TLN(x) is then no longer read).
+// Chunks let P stay at 16384 / H from H 256 on (64, 32, 16 at H
+// 256-1024): the whole F-row tile fits beside the x tile only up to H 256.
+// Then out = (x + sums) + b2 [+ skip], 16 bytes a thread, coalesced (x
+// re-read), and the output's statistics from the tile.
+// ops/chmix.py::ff_tf32_plan picks P, FC and the blocks an SM and computes
+// the block's shared-memory bytes; the kernel takes them as given.  Every sum runs in a fixed order (the
+// k-steps in order over the chunks, no float atomics): two calls are
+// bit-equal.  H and F are multiples of 8 (the mma k-step); m-tiles past F
+// or H are the scratch's zero rows.
+template <int P, int BLOCKS>
+struct FfTf32Tile {
+  static constexpr int N8 = P / 8;             // n-tiles
+  // m-tiles a warp at once in both products: 16 MT N8 <= 64 sums a
+  // thread, MT <= 4; one at two blocks an SM (128 registers a thread)
+  static constexpr int MT =
+      BLOCKS > 1 || N8 >= 16 ? 1 : (16 / N8 < 4 ? 16 / N8 : 4);
+  // k-steps of A fragments in flight ahead of their use (one at four
+  // m-tiles a warp, whose ring would not fit 255 registers)
+  static constexpr int AHEAD = MT >= 4 ? 1 : 2;
+};
+
+template <int P, int BLOCKS>
+__global__ void __launch_bounds__(NT, BLOCKS)
+ln_ff_res_tf32_kernel(const float* __restrict__ x,
+                      const float* __restrict__ skip,
+                      const uint4* __restrict__ W1f,
+                      const float* __restrict__ b1,
+                      const uint4* __restrict__ W2f,
+                      const float* __restrict__ b2,
+                      const float* __restrict__ m_ptr,
+                      const float* __restrict__ s_ptr,
+                      float* __restrict__ out, float* __restrict__ mean_out,
+                      float* __restrict__ var_out, int H, int F, int L,
+                      int FC, bool vec) {
+  using T = Tf32Tile<P>;
+  using U = FfTf32Tile<P, BLOCKS>;
+  constexpr int LD = T::LD, N8 = T::N8, MT = U::MT;
+  constexpr int PARTS = NT / P;
+  extern __shared__ float4 sh4[];
+  float* red = reinterpret_cast<float*>(sh4);     // 2 NT: partial sums
+  float* mean_s = red + 2 * NT;                   // P
+  float* rstd_s = mean_s + P;                     // P (0 past L)
+  float* xs = rstd_s + P;                         // H x LD: x, TLN(x)
+  float* zs = xs + H * LD;                        // min(F, FC) x LD: GELU
+  float* os = FC < F ? zs + FC * LD : xs;         // H x LD: W2 z, then out
+  const int b = blockIdx.y, t0 = blockIdx.x * P;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  // the thread's position and part of the channels in the column passes
+  const int p = tid % P, part = tid / P;
+  // the thread's 16-byte chunk of a row and its first row in the row passes
+  const int c = tid % T::C4 * 4, tc = t0 + c, h0 = tid / T::C4;
+
+  // the x tile (0 past L), 16 bytes a thread by cp.async with vec
+  for (int h = h0; h < H; h += T::HS) {
+    const size_t at = ((size_t)b * H + h) * L + tc;
+    float* xd = xs + h * LD + c;
+    if (vec && tc < L) {           // L % 4 == 0: the chunk is all in
+      cp_async16(xd, x + at);
+    } else {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 16 * mt + gq + 8 * (i & 1), k = 8 * kt + tq + 4 * (i >> 1);
-    float v = 0.0f;
-    if (r < M)
-      v = job == 0 ? W1[(size_t)r * H + k]
-                   : (job == 1 ? W1[(size_t)k * H + r] : W2[(size_t)k * F + r]);
-    dwst_tf32::split(v, hi[i], lo[i]);
+      for (int e = 0; e < 4; ++e) xd[e] = tc + e < L ? x[at + e] : 0.0f;
+    }
   }
-  uint4* out = wf + (size_t)tile * 64 + lane;
-  out[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-  out[32] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // mean and E[x^2] - mean^2 per position, f32, in a fixed order
+  {
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int h = part; h < H; h += PARTS) {
+      const float v = xs[h * LD + p];
+      s1 += v;
+      s2 += v * v;
+    }
+    red[tid] = s1;
+    red[NT + tid] = s2;
+  }
+  __syncthreads();
+  if (tid < P) {
+    float t1 = 0.0f, t2 = 0.0f;
+    for (int q = 0; q < PARTS; ++q) {
+      t1 += red[q * P + tid];
+      t2 += red[NT + q * P + tid];
+    }
+    const float mean = t1 / (float)H;
+    mean_s[tid] = mean;
+    rstd_s[tid] = t0 + tid < L ? rsqrtf(t2 / (float)H - mean * mean) : 0.0f;
+  }
+  __syncthreads();
+
+  // TransposedLN in place: (s / std) (x - mean + m), population std, no
+  // eps (0 past L)
+  {
+    const float m = *m_ptr, s = *s_ptr;
+    for (int idx = tid; idx < H * P; idx += NT) {
+      const int h = idx / P, q = idx % P;
+      xs[h * LD + q] = s * rstd_s[q] * (xs[h * LD + q] - mean_s[q] + m);
+    }
+  }
+  __syncthreads();
+
+  const int Ft = (F + 15) / 16, Ht = (H + 15) / 16;
+  for (int f0 = 0; f0 < F; f0 += FC) {
+    const int fc = min(FC, F - f0);     // the chunk's rows, a multiple of 8
+    if (f0 > 0) __syncthreads();        // every warp has read zs
+    // z = W1 TLN(x) + b1 on the chunk's m-tiles; gelu(z) into zs
+    for (int u = warp; u * MT < (fc + 15) / 16; u += NWARPS) {
+      const int mt0 = f0 / 16 + u * MT;
+      float acc[MT][N8][4];
+      dwst_tf32::zero_acc<MT, N8>(acc);
+      dwst_tf32::warp_gemm_3xtf32_ring<MT, N8, U::AHEAD>(
+          W1f, Ft, H / 8, mt0, 0, H / 8, xs, LD, acc);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int f = 16 * (mt0 + mt) + gq + 8 * hh;
+          if (f >= f0 + fc) continue;
+          const float bias = b1[f];
+          float* zr = zs + (f - f0) * LD + 2 * tq;
+#pragma unroll
+          for (int j = 0; j < N8; ++j)
+            *reinterpret_cast<float2*>(zr + 8 * j) =
+                make_float2(gelu_erf(acc[mt][j][2 * hh] + bias),
+                            gelu_erf(acc[mt][j][2 * hh + 1] + bias));
+        }
+    }
+    __syncthreads();
+    // os += W2[:, f0:f0 + fc] gelu(z) on MT m-tiles of H a warp (the same
+    // warp's rows at every chunk)
+    for (int u = warp; u * MT < Ht; u += NWARPS) {
+      const int mt0 = u * MT;
+      float acc[MT][N8][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int h = 16 * (mt0 + mt) + gq + 8 * hh;
+#pragma unroll
+          for (int j = 0; j < N8; ++j) {
+            float2 v = make_float2(0.0f, 0.0f);
+            if (f0 > 0 && h < H)
+              v = *reinterpret_cast<const float2*>(os + h * LD + 8 * j +
+                                                   2 * tq);
+            acc[mt][j][2 * hh] = v.x;
+            acc[mt][j][2 * hh + 1] = v.y;
+          }
+        }
+      dwst_tf32::warp_gemm_3xtf32_ring<MT, N8, U::AHEAD>(
+          W2f, Ht, F / 8, mt0, f0 / 8, fc / 8, zs, LD, acc);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int h = 16 * (mt0 + mt) + gq + 8 * hh;
+          if (h >= H) continue;
+#pragma unroll
+          for (int j = 0; j < N8; ++j)
+            *reinterpret_cast<float2*>(os + h * LD + 8 * j + 2 * tq) =
+                make_float2(acc[mt][j][2 * hh], acc[mt][j][2 * hh + 1]);
+        }
+    }
+  }
+  __syncthreads();
+
+  // out = (x + W2 z) + b2 [+ skip], 16 bytes a thread; out (0 past L) over
+  // the sums for the statistics
+  for (int h = h0; h < H; h += T::HS) {
+    const size_t at = ((size_t)b * H + h) * L + tc;
+    float* o = os + h * LD + c;
+    const float bias = b2[h];
+    float v[4];
+    if (vec && tc < L) {
+      const float4 xv = __ldg(reinterpret_cast<const float4*>(x + at));
+      v[0] = xv.x + o[0] + bias;
+      v[1] = xv.y + o[1] + bias;
+      v[2] = xv.z + o[2] + bias;
+      v[3] = xv.w + o[3] + bias;
+      if (skip != nullptr) {
+        const float4 sv = __ldg(reinterpret_cast<const float4*>(skip + at));
+        v[0] += sv.x;
+        v[1] += sv.y;
+        v[2] += sv.z;
+        v[3] += sv.w;
+      }
+      *reinterpret_cast<float4*>(out + at) = make_float4(v[0], v[1], v[2],
+                                                         v[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[e] = 0.0f;
+        if (tc + e < L) {
+          v[e] = x[at + e] + o[e] + bias;
+          if (skip != nullptr) v[e] += skip[at + e];
+          out[at + e] = v[e];
+        }
+      }
+    }
+    *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+
+  if (mean_out != nullptr) {
+    __syncthreads();
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int h = part; h < H; h += PARTS) {
+      const float v = os[h * LD + p];
+      s1 += v;
+      s2 += v * v;
+    }
+    red[tid] = s1;                 // the x statistics' sums were read
+    red[NT + tid] = s2;            // before two barriers
+    __syncthreads();
+    if (tid < P && t0 + tid < L) {
+      float t1 = 0.0f, t2 = 0.0f;
+      for (int q = 0; q < PARTS; ++q) {
+        t1 += red[q * P + tid];
+        t2 += red[NT + q * P + tid];
+      }
+      const float mean = t1 / (float)H;
+      mean_out[(size_t)b * L + t0 + tid] = mean;
+      var_out[(size_t)b * L + t0 + tid] = t2 / (float)H - mean * mean;
+    }
+  }
 }
 
 // Kernel 7f (bf16 x, g and dx; f32 b1, m, s, scratch and (dm, ds)
@@ -2028,29 +2145,6 @@ int glu_res(const float* y, const float* res, const float* W, const float* b,
   }
 }
 
-int ln_ff_res(const float* x, const float* skip, const float* W1,
-              const float* b1, const float* W2, const float* b2,
-              const float* m, const float* s, float* out, float* mean,
-              float* var, int B, int H, int F, int L, int P, int smem,
-              cudaStream_t stream) {
-  auto run = [&](auto kernel) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    kernel<<<dim3((L + P - 1) / P, B), NT, smem, stream>>>(
-        x, skip, W1, b1, W2, b2, m, s, out, mean, var, H, F, L);
-    return (int)cudaGetLastError();
-  };
-  if (H % TK || F % TK) return (int)cudaErrorInvalidValue;
-  switch (P) {
-    case 128: return run(ln_ff_res_kernel<128>);
-    case 64: return run(ln_ff_res_kernel<64>);
-    case 32: return run(ln_ff_res_kernel<32>);
-    case 16: return run(ln_ff_res_kernel<16>);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 // wb[0:n] = bf16(W1[0:n]), wb[n:2n] = bf16(W2[0:n]), n % 4 == 0.  K (2 or
 // 3, the kernel whose call launches it) only names the instance, so that a
 // trace tells 2f's pass from 3f's.
@@ -2187,11 +2281,14 @@ int launch_ff_bwd_tf32(const float* x, const float* g, const float* W1,
                        const float* s, float* dx, float* xn, float* hact,
                        float* dz, float* stat_part, uint4* wf, int B, int H,
                        int F, int L, int smem, cudaStream_t stream) {
-  const int n0 = (F + 15) / 16 * (H / 8), n1 = (H + 15) / 16 * (F / 8);
-  const int threads = 32 * (2 * n0 + n1);
-  split_weights_tf32_kernel<<<(threads + NT - 1) / NT, NT, 0, stream>>>(
-      W1, W2, wf, F, H);
-  int e = (int)cudaGetLastError();
+  // W1 (F x H), W1^T (H x F), W2^T (F x H)
+  dwst_tf32::SplitJobs jobs{{{W1, nullptr, F, F, H, H, 1},
+                             {W1, nullptr, H, H, F, 1, H},
+                             {W2, nullptr, F, F, H, 1, F}},
+                            3};
+  const int n0 = dwst_tf32::split_tiles(jobs.job[0]);
+  const int n1 = dwst_tf32::split_tiles(jobs.job[1]);
+  int e = dwst_tf32::split_weights_launch<7>(jobs, wf, stream);
   if (e) return e;
   e = (int)cudaFuncSetAttribute(ln_ff_res_bwd_tf32_kernel<P>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -2204,6 +2301,34 @@ int launch_ff_bwd_tf32(const float* x, const float* g, const float* W1,
       <<<dim3((L + P - 1) / P, B), NT, smem, stream>>>(
           x, g, wf, wf + (size_t)64 * n0, wf + (size_t)64 * (n0 + n1), b1, m,
           s, dx, xn, hact, dz, stat_part, H, F, L, vec);
+  return (int)cudaGetLastError();
+}
+
+// Kernel 3 on smem bytes of dynamic shared memory a block: W1 and W2 split
+// into the scratch wf (ops/chmix.py::ff_tf32_split_floats floats), then
+// the 3xTF32 kernel, FC hidden rows a chunk, built for BLOCKS blocks an SM.
+template <int P, int BLOCKS>
+int launch_ff_tf32(const float* x, const float* skip, const float* W1,
+                   const float* b1, const float* W2, const float* b2,
+                   const float* m, const float* s, float* out, float* mean,
+                   float* var, uint4* wf, int B, int H, int F, int L, int FC,
+                   int smem, cudaStream_t stream) {
+  // W1 (F x H), W2 (H x F)
+  dwst_tf32::SplitJobs jobs{{{W1, nullptr, F, F, H, H, 1},
+                             {W2, nullptr, H, H, F, F, 1}},
+                            2};
+  int e = dwst_tf32::split_weights_launch<3>(jobs, wf, stream);
+  if (e) return e;
+  e = (int)cudaFuncSetAttribute(ln_ff_res_tf32_kernel<P, BLOCKS>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem);
+  if (e) return e;
+  const bool vec = L % 4 == 0 && aligned16(x) && aligned16(skip) &&
+                   aligned16(out);
+  ln_ff_res_tf32_kernel<P, BLOCKS>
+      <<<dim3((L + P - 1) / P, B), NT, smem, stream>>>(
+      x, skip, wf, b1, wf + (size_t)64 * dwst_tf32::split_tiles(jobs.job[0]),
+      b2, m, s, out, mean, var, H, F, L, FC, vec);
   return (int)cudaGetLastError();
 }
 
@@ -2270,14 +2395,35 @@ extern "C" int dwst_glu_res_bf16(const void* y, const void* res,
   }
 }
 
+// Kernel 3: x, skip, out, mean and var f32; wf a scratch for the split
+// weights (ops/chmix.py::ff_tf32_split_floats floats); P 128, 64, 32, 16 or
+// 8 at one block an SM, or 64 at two (blocks); FC hidden rows a chunk (F,
+// or a multiple of 16 below F); H and F multiples of 8.
 extern "C" int dwst_ln_ff_res(const float* x, const float* skip,
                               const float* W1, const float* b1,
                               const float* W2, const float* b2,
                               const float* m, const float* s, float* out,
-                              float* mean, float* var, int B, int H, int F,
-                              int L, int P, int smem, cudaStream_t stream) {
-  return ln_ff_res(x, skip, W1, b1, W2, b2, m, s, out, mean, var, B, H, F, L,
-                   P, smem, stream);
+                              float* mean, float* var, void* wf, int B, int H,
+                              int F, int L, int P, int FC, int blocks,
+                              int smem, cudaStream_t stream) {
+  if (H <= 0 || F <= 0 || H % 8 || F % 8 || FC <= 0 || (FC < F && FC % 16))
+    return (int)cudaErrorInvalidValue;
+  auto* w = static_cast<uint4*>(wf);
+  auto run = [&](auto launch) {
+    return launch(x, skip, W1, b1, W2, b2, m, s, out, mean, var, w, B, H, F,
+                  L, FC, smem, stream);
+  };
+  if (blocks == 2)
+    return P == 64 ? run(launch_ff_tf32<64, 2>) : (int)cudaErrorInvalidValue;
+  if (blocks != 1) return (int)cudaErrorInvalidValue;
+  switch (P) {
+    case 128: return run(launch_ff_tf32<128, 1>);
+    case 64: return run(launch_ff_tf32<64, 1>);
+    case 32: return run(launch_ff_tf32<32, 1>);
+    case 16: return run(launch_ff_tf32<16, 1>);
+    case 8: return run(launch_ff_tf32<8, 1>);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Kernel 3f: x, skip and out bf16; mean and var f32; wb a scratch for the

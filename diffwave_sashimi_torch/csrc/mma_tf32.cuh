@@ -137,4 +137,159 @@ __device__ __forceinline__ void warp_gemm_3xtf32(const uint4* __restrict__ Af,
   }
 }
 
+template <int MT, int N8>
+__device__ __forceinline__ void zero_acc(float acc[MT][N8][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < N8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.0f;
+}
+
+// One warp's acc[m][j] (MT m-tiles x N8 n-tiles, f32) += A[m-tile mt0 + m,
+// k-tiles kt0 .. kt0 + nk) Bs in 3xTF32, as warp_gemm_3xtf32 but with A's
+// fragments in a ring of AHEAD + 1 k-steps, loaded AHEAD k-steps ahead of
+// their use into the slot the ring indexes at compile time: no register
+// copy waits on a load in flight (as mma_bf16.cuh::warp_gemm_ring), so
+// AHEAD k-steps of products cover the L2 latency of each load.  Bs (8 nk x
+// 8 N8) has its row 0 at k-tile kt0.  Each k-step's sum is added to acc in
+// k order, so a product taken in pieces of k-tiles, in order, sums as one
+// taken whole.
+template <int MT, int N8, int AHEAD>
+__device__ __forceinline__ void warp_gemm_3xtf32_ring(
+    const uint4* __restrict__ Af, int Mt, int Kt, int mt0, int kt0, int nk,
+    const float* Bs, int ld, float acc[MT][N8][4]) {
+  constexpr int D = AHEAD + 1;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  uint32_t ring[D][MT][2][4];
+#pragma unroll
+  for (int s = 0; s < AHEAD; ++s)
+    if (s < nk) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        load_a_split(ring[s][mt][0], ring[s][mt][1], Af, Mt, Kt, mt0 + mt,
+                     kt0 + s);
+    }
+  for (int k0 = 0; k0 < nk; k0 += D) {
+#pragma unroll
+    for (int s = 0; s < D; ++s) {
+      const int kk = k0 + s;
+      if (kk >= nk) break;
+      if (kk + AHEAD < nk) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          load_a_split(ring[(s + AHEAD) % D][mt][0],
+                       ring[(s + AHEAD) % D][mt][1], Af, Mt, Kt, mt0 + mt,
+                       kt0 + kk + AHEAD);
+      }
+      const float* b = Bs + (size_t)(8 * kk + t) * ld + g;
+#pragma unroll
+      for (int j = 0; j < N8; ++j) {
+        uint32_t bh[2], bl[2];
+        split(b[8 * j], bh[0], bl[0]);
+        split(b[4 * ld + 8 * j], bh[1], bl[1]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma_3xtf32(acc[mt][j], ring[s][mt][0], ring[s][mt][1], bh, bl);
+      }
+    }
+  }
+}
+
+// A weight matrix to split into fragment order (load_a_split's layout): M
+// x K (K a multiple of 8), entry (r, k) = a[r rs + k ks] for r < rows_a,
+// b[(r - rows_a) rs + k ks] for rows_a <= r < M, so that two matrices of K
+// columns stack into one (kernel 11's [W_r; W_s]); ks 1 reads a row-major
+// matrix, rs 1 its transpose.
+struct SplitJob {
+  const float* a;
+  const float* b;
+  int rows_a, M, K, rs, ks;
+};
+
+// Up to three matrices split in one launch, their tiles one after another
+// in the scratch in job order.
+struct SplitJobs {
+  SplitJob job[3];
+  int n;
+};
+
+__host__ __device__ inline int split_tiles(const SplitJob& j) {
+  return (j.M + 15) / 16 * (j.K / 8);
+}
+
+// Thread id's share of split_weights: lane id % 32 of tile id / 32 (tiles
+// of the jobs in order), its four entries split into tf32 hi and lo and
+// stored as load_a_split reads them; entries past a job's M rows are 0.
+// Each source file's split_weights_tf32_kernel<K> (K names the kernel
+// whose call launches it, so that traces tell them apart) runs this.
+__device__ __forceinline__ void split_weights(const SplitJobs& jobs,
+                                              uint4* __restrict__ wf,
+                                              int id) {
+  const int lane = id & 31, base = id >> 5;
+  int tile = base;
+  bool found = false;
+  SplitJob w = jobs.job[0];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {      // constant indices: no local copy
+    if (!found && q < jobs.n) {
+      const int n = split_tiles(jobs.job[q]);
+      if (tile < n) {
+        w = jobs.job[q];
+        found = true;
+      } else {
+        tile -= n;
+      }
+    }
+  }
+  if (!found) return;
+  const int Kt = w.K / 8, mt = tile / Kt, kt = tile % Kt;
+  const int gq = lane >> 2, tq = lane & 3;
+  uint32_t hi[4], lo[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 16 * mt + gq + 8 * (i & 1), k = 8 * kt + tq + 4 * (i >> 1);
+    float v = 0.0f;
+    if (r < w.M)
+      v = r < w.rows_a ? w.a[(size_t)r * w.rs + (size_t)k * w.ks]
+                       : w.b[(size_t)(r - w.rows_a) * w.rs +
+                             (size_t)k * w.ks];
+    split(v, hi[i], lo[i]);
+  }
+  uint4* out = wf + (size_t)base * 64 + lane;
+  out[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  out[32] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+}
+
+// Tiles of all the jobs: the scratch holds 64 uint4 (256 floats) a tile.
+__host__ inline int split_tiles(const SplitJobs& jobs) {
+  int n = 0;
+  for (int j = 0; j < jobs.n; ++j) n += split_tiles(jobs.job[j]);
+  return n;
+}
+
+}  // namespace dwst_tf32
+
+// The split pass of kernel K (3, 7 or 11: the kernel whose call launches
+// it, so that traces tell them apart): one thread a (tile, lane).
+template <int K>
+__global__ void split_weights_tf32_kernel(dwst_tf32::SplitJobs jobs,
+                                          uint4* __restrict__ wf) {
+  dwst_tf32::split_weights(jobs, wf, blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+namespace dwst_tf32 {
+
+// Launch kernel K's split of jobs into wf (64 split_tiles(jobs) uint4s) on
+// stream; the launch's error, or 0.
+template <int K>
+int split_weights_launch(const SplitJobs& jobs, uint4* wf,
+                         cudaStream_t stream) {
+  const int threads = 32 * split_tiles(jobs);
+  split_weights_tf32_kernel<K><<<(threads + 255) / 256, 256, 0, stream>>>(
+      jobs, wf);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace dwst_tf32

@@ -7,26 +7,37 @@
 //   res  = (x + W_r out + b_r) * sqrt(1/2)      W_r (C, C), res (B, C, L)
 //   skip = W_s out + b_s                         W_s (S, C), skip (B, S, L)
 //
-// What bounds it on the H100: a position-wise GEMM of the stacked weight
-// [W_r; W_s] ((C + S) x C) over the gated activation, 2 C (C + S) fp32 flops
-// per position, against (2C + C + C + S) x 4 bytes of activations: 128
-// flops per byte at C = S = 256, far past the fp32 CUDA-core balance
-// (67 TFLOP/s : 3.35 TB/s = 20), so it is compute bound and the inner
-// product must not be bound by shared memory.
-//
-// Design (kernel 2's scheme, csrc/chmix.cu, with the nonlinearity moved to
-// the input side): one block of 256 threads per (batch row, P positions),
-// P = 16384 / C within [32, 128].  The block computes the gate of its
-// (2C x P) input tile once, into shared memory (C x P floats, 64 KB at
-// C = 256), then runs the (C + S) x C product out of shared memory in
-// chunks of TM stacked-weight rows.  Weights stream through a transposed
-// (TK x TM) shared tile, prefetched into registers one k-step ahead; each
-// thread keeps an 8 x 8 register tile (rows {r, r + TM/2} x 4, positions
-// {p, p + P/2} x 4, so a quarter-warp's 16-byte loads fall on distinct
-// banks) and the epilogue writes res (adding x and b_r, scaled by
-// sqrt(1/2)) and skip (adding b_s) straight to device memory.  The ragged
-// tail past L is masked, so any L works.  tanhf and expf are the exact
-// ones (no fast-math intrinsics): the strict f32 path.
+// Kernel 11, the f32 form (the TPU kernel with fast=False: its products
+// at HIGHEST precision), is gate_res_skip_tf32_kernel below, on the
+// tensor cores at f32 accuracy: the gate in f32 (the exact tanhf and expf,
+// no fast-math intrinsics), the products in 3xTF32 (mma_tf32.cuh: each f32
+// operand split into tf32 hi and lo, a product lo hi + hi lo + hi hi, each
+// k-step's terms summed from zero and added to f32 sums), res = (x + (W_r
+// out + b_r)) sqrt(1/2) and skip = W_s out + b_s in f32.  What bounds it on
+// the H100: the stacked weight [W_r; W_s] ((C + S) x C) over the gated
+// activation, 2 C (C + S) operations a position, three tf32 products apiece
+// at the dense TF32 rate (0.102 ms at B4 C256 S256 L16000), against (4C +
+// S) x 4 bytes a position (0.098 ms); every block also reads the split
+// weight (8 bytes an entry, 1 MB at C = S = 256) from L2, once per P
+// positions.  Design (kernel 3's, csrc/chmix.cu): the stacked weight split
+// once a call into the wrapper's scratch in fragment order, zero-padded to
+// whole m-tiles (split_weights_tf32_kernel<11>), so C need only be a
+// multiple of 8 and S anything; one block of 8 warps per (batch row, P
+// positions), built for BLOCKS blocks an SM (P 64 at two at C = S = 256,
+// P 32 at three at C 128, S 256: the other blocks' warps hide each one's
+// latencies, while the weight's L2 reads per position stay at most 16 KB).
+// The block forms the gate 16 bytes a thread into an f32 C x P tile, rows
+// padded so that a B fragment's loads fall on distinct banks; the warps
+// then take MT m-tiles of the stacked weight over all P positions, their A
+// fragments from L2 AHEAD k-steps ahead in a ring of registers
+// (warp_gemm_3xtf32_ring), B values split as they load, no weight tile and
+// no barrier in the k-loop.  Each m-tile's 16 rows (+ bias) go through the
+// warp's own staging tile, so that x is read and res and skip stored 16
+// bytes a lane, coalesced (element by element when L % 4 != 0 or a tensor
+// is not 16-byte aligned); the ragged tail past L is masked.
+// ops/wavenet_gate.py::gate_tf32_plan picks P and the blocks an SM and
+// computes the block's shared memory, which the kernel takes as given.
+// Every sum in a fixed order: two calls are bit-equal.
 //
 // Kernel 11f, the bf16 path's form (the TPU kernel with fast=True, _kernel
 // :58-73), is gate_res_skip_tc_kernel below: h, x, res and skip bf16; the
@@ -65,6 +76,7 @@
 #include <cuda_runtime.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -78,178 +90,7 @@ using dwst_mma::unpack8;
 
 constexpr int NT = 256;        // threads per block
 constexpr int NWARPS = NT / 32;
-constexpr int TK = 8;          // contraction tile
 constexpr float SQRT_HALF = 0.70710678118654752f;
-
-template <int P>
-struct Tile {
-  static constexpr int PG = P / 8;          // position groups of 4 + 4
-  static constexpr int RG = NT / PG;        // row groups of 4 + 4
-  static constexpr int TM = RG * 8;         // stacked-weight rows per chunk
-  static constexpr int LDT = TM + 4;        // padded transposed row
-  static constexpr int NPRE = TM * 2 / NT;  // float4 prefetches per thread
-};
-
-// Row g of the stacked weight [W_r; W_s], or null past its C + S rows.
-__device__ __forceinline__ const float* weight_row(const float* Wr,
-                                                  const float* Ws, int g,
-                                                  int C, int S) {
-  if (g < C) return Wr + (size_t)g * C;
-  if (g < C + S) return Ws + (size_t)(g - C) * C;
-  return nullptr;
-}
-
-// Four activations from p on (16-byte aligned), and four stored there.
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-__device__ __forceinline__ void store4(float* p, const float v[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-// Kernel 11 (f32; kernel 11f is gate_res_skip_tc_kernel below).
-template <int P>
-__global__ void __launch_bounds__(NT, 1)
-gate_res_skip_kernel(const float* __restrict__ h, const float* __restrict__ x,
-                     const float* __restrict__ Wr,
-                     const float* __restrict__ br,
-                     const float* __restrict__ Ws,
-                     const float* __restrict__ bs, float* __restrict__ res,
-                     float* __restrict__ skip, int C, int S, int L) {
-  using T = Tile<P>;
-  extern __shared__ float4 sh4[];
-  float* gs = reinterpret_cast<float*>(sh4);     // C x P gated activation
-  float* AsT = gs + C * P;                        // TK x LDT weight tile
-  const int tid = threadIdx.x;
-  const int pg = tid % T::PG, rg = tid / T::PG;
-  const int b = blockIdx.y, t0 = blockIdx.x * P;
-
-  // prologue: gs[c, p] = tanh(h[b, c, t]) * sigmoid(h[b, C + c, t]), 0 past L
-  const float* hb = h + (size_t)b * 2 * C * L;
-  for (int idx = tid; idx < C * P; idx += NT) {
-    const int c = idx / P, p = idx % P, t = t0 + p;
-    float v = 0.0f;
-    if (t < L) {
-      const float a = hb[(size_t)c * L + t];
-      const float g = hb[(size_t)(C + c) * L + t];
-      v = tanhf(a) / (1.0f + expf(-g));
-    }
-    gs[idx] = v;
-  }
-  // (the first barrier of the k loop orders these writes before any read)
-
-  // the thread's positions: j < 4 -> pg * 4 + j, j >= 4 -> P/2 + pg * 4 + j-4
-  const int tA = t0 + pg * 4, tB = t0 + P / 2 + pg * 4;
-  const bool vec = (L & 3) == 0;                 // rows start 16-byte aligned
-  const int M = C + S;
-  for (int m0 = 0; m0 < M; m0 += T::TM) {
-    float acc[8][8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[r][j] = 0.0f;
-
-    float4 pre[T::NPRE];
-    auto fetch = [&](int k0) {
-#pragma unroll
-      for (int q = 0; q < T::NPRE; ++q) {
-        const int idx = tid + q * NT;          // (row, half) pairs
-        const float* row = weight_row(Wr, Ws, m0 + (idx >> 1), C, S);
-        pre[q] = row ? *reinterpret_cast<const float4*>(row + k0 +
-                                                         4 * (idx & 1))
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    };
-    fetch(0);
-    for (int k0 = 0; k0 < C; k0 += TK) {
-      __syncthreads();                          // AsT free, gs complete
-#pragma unroll
-      for (int q = 0; q < T::NPRE; ++q) {
-        const int idx = tid + q * NT;
-        const int lr = idx >> 1, k = 4 * (idx & 1);
-        AsT[(k + 0) * T::LDT + lr] = pre[q].x;
-        AsT[(k + 1) * T::LDT + lr] = pre[q].y;
-        AsT[(k + 2) * T::LDT + lr] = pre[q].z;
-        AsT[(k + 3) * T::LDT + lr] = pre[q].w;
-      }
-      __syncthreads();
-      if (k0 + TK < C) fetch(k0 + TK);          // in flight during the FMAs
-#pragma unroll
-      for (int kk = 0; kk < TK; ++kk) {
-        const float* at = AsT + kk * T::LDT;
-        const float4 a0 = *reinterpret_cast<const float4*>(at + rg * 4);
-        const float4 a1 =
-            *reinterpret_cast<const float4*>(at + T::TM / 2 + rg * 4);
-        const float* bt = gs + (size_t)(k0 + kk) * P + pg * 4;
-        const float4 b0 = *reinterpret_cast<const float4*>(bt);
-        const float4 b1 = *reinterpret_cast<const float4*>(bt + P / 2);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(av[r], bv[j], acc[r][j]);
-      }
-    }
-
-    // epilogue: rows < C are res rows, the rest skip rows
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int g = m0 + (r < 4 ? rg * 4 + r : T::TM / 2 + rg * 4 + r - 4);
-      if (g >= M) continue;
-      const bool is_res = g < C;
-      const float bias = is_res ? br[g] : bs[g - C];
-      float* orow = is_res ? res + ((size_t)b * C + g) * L
-                           : skip + ((size_t)b * S + (g - C)) * L;
-      const float* xrow = is_res ? x + ((size_t)b * C + g) * L : nullptr;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int t = half ? tB : tA;
-        float v[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v[j] = acc[r][4 * half + j] + bias;
-        if (vec && t + 4 <= L) {
-          if (is_res) {
-            float xv[4];
-            load4(xrow + t, xv);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) v[j] = (xv[j] + v[j]) * SQRT_HALF;
-          }
-          store4(orow + t, v);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (t + j < L)
-              orow[t + j] = is_res ? (xrow[t + j] + v[j]) * SQRT_HALF : v[j];
-          }
-        }
-      }
-    }
-  }
-}
-
-// Positions per block: P = 16384 / C within [32, 128] (64 at C = 256).
-int choose_p(int C) {
-  const int p = 16384 / (C > 0 ? C : 1);
-  return p >= 128 ? 128 : (p >= 64 ? 64 : 32);
-}
-
-template <int P>
-int launch(const float* h, const float* x, const float* Wr, const float* br,
-           const float* Ws, const float* bs, float* res, float* skip, int B,
-           int C, int S, int L, cudaStream_t stream) {
-  using T = Tile<P>;
-  const size_t smem = ((size_t)C * P + TK * T::LDT) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      gate_res_skip_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((L + P - 1) / P, B);
-  gate_res_skip_kernel<P><<<grid, NT, smem, stream>>>(h, x, Wr, br, Ws, bs,
-                                                      res, skip, C, S, L);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // Kernel 11f on the tensor cores.
@@ -489,24 +330,163 @@ int launch_tc(const bf* h, const bf* x, const float* Wr, const float* br,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+// ---------------------------------------------------------------------------
+// Kernel 11 (f32) on the tensor cores at f32 accuracy: the products in
+// 3xTF32 (mma_tf32.cuh), the gate and the epilogue in f32.
 
-extern "C" int dwst_gate_res_skip(const float* h, const float* x,
-                                  const float* Wr, const float* br,
-                                  const float* Ws, const float* bs,
-                                  float* res, float* skip, int B, int C,
-                                  int S, int L, cudaStream_t stream) {
-  if (C <= 0 || C % TK || S <= 0 || B <= 0 || L <= 0)
-    return (int)cudaErrorInvalidValue;
-  switch (choose_p(C)) {
-    case 128: return launch<128>(h, x, Wr, br, Ws, bs, res, skip, B, C, S, L,
-                                 stream);
-    case 64: return launch<64>(h, x, Wr, br, Ws, bs, res, skip, B, C, S, L,
-                               stream);
-    default: return launch<32>(h, x, Wr, br, Ws, bs, res, skip, B, C, S, L,
-                               stream);
+// Kernel 11's tiles at P positions a block: f32 rows of LD floats (LD % 32
+// of 8 or 24: a B fragment's 32 loads on distinct banks); each warp takes
+// MT 16-row m-tiles of the stacked weight over all P positions at a time
+// (16 MT N8 <= 64 sums a thread, MT <= 4); each thread gates 4 consecutive
+// positions (16 bytes) of every HS-th row.
+template <int P, int BLOCKS>
+struct GateTf32Tile {
+  static constexpr int N8 = P / 8;
+  static constexpr int LD = P == 8 ? 8 : P + 8;
+  static constexpr int MT = BLOCKS > 2 || N8 >= 16 ? 1
+                                                   : (16 / N8 < 4 ? 16 / N8
+                                                                  : 4);
+  // k-steps of A in flight ahead of their use: one at two blocks an SM
+  // (128 registers a thread) and at four m-tiles a warp
+  static constexpr int AHEAD = BLOCKS == 2 || MT >= 4 ? 1 : 2;
+  static constexpr int C4 = P / 4;
+  static constexpr int HS = NT / C4;
+};
+
+// Kernel 11 (f32 h, x, res and skip; Wf = the stacked weight [W_r; W_s]
+// split by split_weights_tf32_kernel<11>: ceil((C + S) / 16) x C / 8 tiles,
+// rows past C + S zero).  Dynamic shared memory, sized by
+// ops/wavenet_gate.py::gate_tf32_plan: the f32 gate tile (C rows), then
+// each warp's 16-row staging tile.  vec: L % 4 == 0 and every activation
+// tensor 16-byte aligned.
+template <int P, int BLOCKS>
+__global__ void __launch_bounds__(NT, BLOCKS)
+gate_res_skip_tf32_kernel(const float* __restrict__ h,
+                          const float* __restrict__ x,
+                          const uint4* __restrict__ Wf,
+                          const float* __restrict__ br,
+                          const float* __restrict__ bs,
+                          float* __restrict__ res, float* __restrict__ skip,
+                          int C, int S, int L, bool vec) {
+  using T = GateTf32Tile<P, BLOCKS>;
+  constexpr int LD = T::LD, N8 = T::N8, MT = T::MT, C4 = T::C4;
+  extern __shared__ float4 sh4[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  float* gs = reinterpret_cast<float*>(sh4);          // C x LD gate
+  float* st = gs + (size_t)C * LD + warp * 16 * LD;   // the warp's 16 rows
+  const int b = blockIdx.y, t0 = blockIdx.x * P;
+  const int M = C + S, Mt = (M + 15) / 16, Kt = C / 8;
+
+  // gs[k, p] = tanh(a) sigmoid(g), a = h[b, k, t0 + p], g = h[b, C + k,
+  // t0 + p], the exact tanhf and expf; 0 past L
+  {
+    const int c = tid % C4 * 4, t = t0 + c;
+    const float* hb = h + (size_t)b * 2 * C * L + t;
+    for (int k = tid / C4; k < C; k += T::HS) {
+      float a[4], g[4], v[4];
+      if (vec && t < L) {            // L % 4 == 0: the chunk is all in
+        const float4 av = __ldg(reinterpret_cast<const float4*>(
+            hb + (size_t)k * L));
+        const float4 gv = __ldg(reinterpret_cast<const float4*>(
+            hb + (size_t)(C + k) * L));
+        a[0] = av.x; a[1] = av.y; a[2] = av.z; a[3] = av.w;
+        g[0] = gv.x; g[1] = gv.y; g[2] = gv.z; g[3] = gv.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          a[e] = t + e < L ? hb[(size_t)k * L + e] : 0.0f;
+          g[e] = t + e < L ? hb[(size_t)(C + k) * L + e] : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = t + e < L ? tanhf(a[e]) / (1.0f + expf(-g[e])) : 0.0f;
+      *reinterpret_cast<float4*>(gs + k * LD + c) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+  __syncthreads();
+
+  for (int u = warp; u * MT < Mt; u += NWARPS) {
+    const int mt0 = u * MT;
+    float acc[MT][N8][4];
+    dwst_tf32::zero_acc<MT, N8>(acc);
+    dwst_tf32::warp_gemm_3xtf32_ring<MT, N8, T::AHEAD>(Wf, Mt, Kt, mt0, 0, Kt,
+                                                       gs, LD, acc);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int r0 = 16 * (mt0 + mt);
+      if (r0 >= M) break;
+      // the m-tile's 16 rows + bias into the warp's staging tile
+      __syncwarp();                  // the last m-tile's rows are read
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = r0 + gq + 8 * hh;
+        const float bias = row < C ? br[row] : (row < M ? bs[row - C] : 0.0f);
+        float* sr = st + (gq + 8 * hh) * LD + 2 * tq;
+#pragma unroll
+        for (int j = 0; j < N8; ++j)
+          *reinterpret_cast<float2*>(sr + 8 * j) =
+              make_float2(acc[mt][j][2 * hh] + bias,
+                          acc[mt][j][2 * hh + 1] + bias);
+      }
+      __syncwarp();
+      // res rows: (x + W_r out + b_r) sqrt(1/2); skip rows: W_s out + b_s;
+      // 16 bytes a lane, a warp's lanes on consecutive positions
+      for (int i = lane; i < 16 * C4; i += 32) {
+        const int r = i / C4, cc = i % C4 * 4, row = r0 + r, t = t0 + cc;
+        if (row >= M) break;
+        const bool is_res = row < C;
+        const float* sv = st + r * LD + cc;
+        float* dst = is_res ? res + ((size_t)b * C + row) * L + t
+                            : skip + ((size_t)b * S + row - C) * L + t;
+        const float* xr =
+            is_res ? x + ((size_t)b * C + row) * L + t : nullptr;
+        if (vec && t < L) {
+          float4 v = *reinterpret_cast<const float4*>(sv);
+          if (is_res) {
+            const float4 xv = __ldg(reinterpret_cast<const float4*>(xr));
+            v = make_float4((xv.x + v.x) * SQRT_HALF, (xv.y + v.y) * SQRT_HALF,
+                            (xv.z + v.z) * SQRT_HALF,
+                            (xv.w + v.w) * SQRT_HALF);
+          }
+          *reinterpret_cast<float4*>(dst) = v;
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (t + e < L)
+              dst[e] = is_res ? (xr[e] + sv[e]) * SQRT_HALF : sv[e];
+        }
+      }
+    }
   }
 }
+
+// Kernel 11: the stacked weight split into the scratch Wf, then the 3xTF32
+// kernel on smem bytes of dynamic shared memory a block, built for BLOCKS
+// blocks an SM.
+template <int P, int BLOCKS>
+int launch_tf32(const float* h, const float* x, const float* Wr,
+                const float* br, const float* Ws, const float* bs, float* res,
+                float* skip, uint4* Wf, int B, int C, int S, int L, int smem,
+                cudaStream_t stream) {
+  // [W_r; W_s] ((C + S) x C)
+  dwst_tf32::SplitJobs jobs{{{Wr, Ws, C, C + S, C, C, 1}}, 1};
+  int e = dwst_tf32::split_weights_launch<11>(jobs, Wf, stream);
+  if (e) return e;
+  auto kernel = gate_res_skip_tf32_kernel<P, BLOCKS>;
+  e = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e) return e;
+  const bool vec = L % 4 == 0 && aligned16(h) && aligned16(x) &&
+                   aligned16(res) && aligned16(skip);
+  kernel<<<dim3((L + P - 1) / P, B), NT, smem, stream>>>(
+      h, x, Wf, br, bs, res, skip, C, S, L, vec);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 // Kernel 11f: h, x, res and skip bf16; the weights and biases f32; wf the
 // scratch of the rounded weights (16 Mt x 16 Kt bf16); P and smem from
@@ -531,6 +511,36 @@ extern "C" int dwst_gate_res_skip_bf16(const void* h, const void* x,
                                   S, L, smem, stream);
     case 32: return launch_tc<32>(hb, xb, Wr, br, Ws, bs, rb, sb, Wf, B, C,
                                   S, L, smem, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Kernel 11: h, x, res and skip f32; wf the scratch of the split weights
+// (ops/wavenet_gate.py::gate_tf32_split_floats floats); P, blocks an SM
+// (P 128, 64, 32, 16 or 8 at one; 64 at two; 32 at three) and smem from
+// ops/wavenet_gate.py::gate_tf32_plan.
+extern "C" int dwst_gate_res_skip(const float* h, const float* x,
+                                  const float* Wr, const float* br,
+                                  const float* Ws, const float* bs,
+                                  float* res, float* skip, void* wf, int B,
+                                  int C, int S, int L, int P, int blocks,
+                                  int smem, cudaStream_t stream) {
+  if (C <= 0 || C % 8 || S <= 0 || B <= 0 || L <= 0)
+    return (int)cudaErrorInvalidValue;
+  uint4* Wf = static_cast<uint4*>(wf);
+  auto run = [&](auto launch) {
+    return launch(h, x, Wr, br, Ws, bs, res, skip, Wf, B, C, S, L, smem,
+                  stream);
+  };
+  if (blocks == 2 && P == 64) return run(launch_tf32<64, 2>);
+  if (blocks == 3 && P == 32) return run(launch_tf32<32, 3>);
+  if (blocks != 1) return (int)cudaErrorInvalidValue;
+  switch (P) {
+    case 128: return run(launch_tf32<128, 1>);
+    case 64: return run(launch_tf32<64, 1>);
+    case 32: return run(launch_tf32<32, 1>);
+    case 16: return run(launch_tf32<16, 1>);
+    case 8: return run(launch_tf32<8, 1>);
     default: return (int)cudaErrorInvalidValue;
   }
 }

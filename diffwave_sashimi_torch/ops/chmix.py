@@ -26,14 +26,14 @@ to bf16 and the weight, bias, m and s gradients stay f32; kernels 6f
 and 7f multiply on the tensor cores and take channel widths that are
 multiples of 16.  The weight gradients of 6, 6f, 7 and 7f are one tiled
 contraction over all positions, in split-K partials summed in a fixed
-order (``wgrad_plan``), on the fp32 FMAs.  Kernel 7's per-position
-products run on the tensor cores in 3xTF32: each f32 operand split into
-two tf32 parts, hi and lo, and a product taken as lo hi + hi lo + hi hi
-with f32 sums, which keeps f32 accuracy.
+order (``wgrad_plan``), on the fp32 FMAs.  Kernels 3's and 7's
+per-position products run on the tensor cores in 3xTF32: each f32
+operand split into two tf32 parts, hi and lo, and a product taken as lo
+hi + hi lo + hi hi with f32 sums, which keeps f32 accuracy.
 
-Widths: each kernel's plan (``glu_plan``, ``ff_plan``, ``glu_bwd_plan``,
-``ff_bwd_plan``, ``glu_bf16_plan``, ``ff_bf16_plan``, ``glu_bwd_bf16_plan``,
-``ff_bwd_bf16_plan``)
+Widths: each kernel's plan (``glu_plan``, ``ff_tf32_plan``,
+``glu_bwd_plan``, ``ff_bwd_plan``, ``glu_bf16_plan``, ``ff_bf16_plan``,
+``glu_bwd_bf16_plan``, ``ff_bwd_bf16_plan``)
 is the one place its positions a block and its shared-memory bytes are
 computed, and its refusal function (``glu_refusal`` and the like) says
 whether it takes a block's widths at an activation dtype.  Every kernel
@@ -141,7 +141,11 @@ def ln_ff_res_ref(x, m, s, w1, b1, w2, b2, skip=None, emit_stats=False):
 def ln_ff_res(x, m, s, w1, b1, w2, b2, skip=None, emit_stats=False):
     """Kernel-3 wrapper: CUDA kernel for CUDA tensors, else the plain
     version (same arguments and results); bf16 activations go to kernel
-    3f."""
+    3f.  The kernel's two products run on the tensor cores at f32 accuracy
+    (3xTF32); H and F must be multiples of 8 (:func:`ff_refusal`).  A call
+    launches two kernels, counted as one launch: a pass that splits W1 and
+    W2 into tf32 parts in mma fragment order into a scratch of its own,
+    then the 3xTF32 kernel, sized by :func:`ff_tf32_plan`."""
     if not x.is_cuda:
         return ln_ff_res_ref(x, m, s, w1, b1, w2, b2, skip, emit_stats)
     if x.dtype == torch.bfloat16:
@@ -151,9 +155,10 @@ def ln_ff_res(x, m, s, w1, b1, w2, b2, skip=None, emit_stats=False):
     _raise(ff_refusal(H, Fd, torch.float32))
     out, mean, var = _ff_outputs(torch.float32, x, m, s, w1, b1, w2, b2, skip,
                                  emit_stats)
+    wf = w1.new_empty((ff_tf32_split_floats(H, Fd),))
     cuda_lib.launch("dwst_ln_ff_res", *_ptrs(x, skip, w1, b1, w2, b2, m, s,
-                                              out, mean, var),
-                    B, H, Fd, L, *ff_plan(H, Fd))
+                                              out, mean, var, wf),
+                    B, H, Fd, L, *ff_tf32_plan(H, Fd))
     ln_ff_res.launches += 1
     return (out, mean, var) if emit_stats else out
 
@@ -188,15 +193,19 @@ ln_ff_res_bf16.launches = 0
 
 # shared memory one block may use on sm_90 (227 KB)
 SMEM_LIMIT = 232448
-# csrc/chmix.cu's fp32 tiles (kernels 2, 3 and 6): NT threads a block;
+# an SM's shared memory on sm_90 (228 KB), of which the card reserves 1 KB
+# for each block it holds
+SMEM_SM, SMEM_RESERVED = 233472, 1024
+# csrc/chmix.cu's fp32 tiles (kernels 2 and 6): NT threads a block;
 # weights through a transposed (TK x 16384 / P + 4) tile
 NT, TK = 256, 8
 # the positions a block each fp32 kernel is built for (the P cases of its
 # launcher in csrc/chmix.cu), widest first
 GLU_PS = (128, 64, 32)
-FF_PS = (128, 64, 32, 16)
 GLU_BWD_PS = (128, 64, 32, 16)
 FF_BWD_PS = (64, 32, 16, 8)
+# the positions a block kernel 3 (3xTF32) is built for, widest first
+FF_TF32_PS = (128, 64, 32, 16, 8)
 # the widest H kernels 2f, 3f, 6f and 7f take
 GLU_BF16_MAX_H = FF_BF16_MAX_H = FF_BWD_BF16_MAX_H = 1024
 # the positions a block kernels 6f and 7f are built for, widest first
@@ -208,8 +217,8 @@ WGRAD_TILE, WGRAD_STEP, WGRAD_ALIGN = 128, 32, 8
 
 
 def _positions(H):
-    """P = 16384 / H within [32, 128]: kernels 2, 3 and 6 and the
-    tensor-core kernels' default."""
+    """P = 16384 / H within [32, 128]: kernels 2 and 6 and the tensor-core
+    kernels' default."""
     return 128 if H <= 128 else (64 if H <= 256 else 32)
 
 
@@ -234,12 +243,64 @@ def glu_plan(H):
                    lambda P: 4 * (H * P + _weight_tile(P)))
 
 
-def ff_plan(H, F):
-    """Kernel 3's (P, bytes): the f32 input and hidden tiles ((H + F) x P),
-    the weight tile, 2 NT floats of sums and 2 P of statistics; P halved
-    from 16384 / H until they fit (16 at H 1024, F 2048)."""
-    return _fitted(FF_PS, _positions(H), lambda P: 4 * (
-        (H + F) * P + _weight_tile(P) + 2 * NT + 2 * P))
+@functools.lru_cache(maxsize=None)
+def ff_tf32_plan(H, F):
+    """Kernel 3's tile plan (``csrc/chmix.cu::ln_ff_res_tf32_kernel``): (P
+    positions a block, FC hidden rows a chunk, blocks an SM the kernel is
+    built for, shared-memory bytes a block), the grid being ceil(L / P) x
+    B blocks.  Where two blocks' tiles at P 64 fit an SM (H 128, F 256),
+    P 64 at two blocks an SM: the other block's warps hide each one's
+    latencies, which outweighs reading the weights twice as often
+    (chip_smoke.py's p_ms of kernel 3 on an H100, against P 128 at one
+    block).  Else one block an SM, and since each block reads both split
+    weight matrices whole from L2, P is the
+    widest of FF_TF32_PS whose tiles fit: the x tile (H rows), then either
+    the whole F-row GELU tile (FC = F; the sums of W2's product then go
+    over the x tile) or an FC-row chunk of it and an H-row tile of those
+    sums, rows of :func:`ff_bwd_ld` floats, beside 2 NT floats of partial
+    sums and 2 P of statistics.  FC is the widest multiple of 16 MT 8 (a
+    chunk's m-tiles spread over the 8 warps, MT each) that fits, else of 16
+    MT, and a P whose chunks would leave more than half the warps idle
+    gives way to the next: P 64, 32, 16 at H 256, 512, 1024, F = 2H, the
+    chunks from H 512.  The kernel takes these as given: this is the one
+    place they are computed."""
+    two = ff_tf32_smem(H, F, 64, F)
+    if 2 * (two + SMEM_RESERVED) <= SMEM_SM:
+        return 64, F, 2, two
+    for P in FF_TF32_PS:
+        if ff_tf32_smem(H, F, P, F) <= SMEM_LIMIT:
+            return P, F, 1, ff_tf32_smem(H, F, P, F)
+        unit = 16 * _tf32_mt(P)           # one warp's m-tiles
+        wide = NT // 32 * unit            # the 8 warps' m-tiles
+        rows = (SMEM_LIMIT // 4 - 2 * NT - 2 * P) // ff_bwd_ld(P) - 2 * H
+        FC = rows // wide * wide or rows // unit * unit
+        if FC >= wide // 2:
+            return P, FC, 1, ff_tf32_smem(H, F, P, FC)
+    P = FF_TF32_PS[-1]
+    FC = 16 * _tf32_mt(P)
+    return P, FC, 1, ff_tf32_smem(H, F, P, FC)
+
+
+def ff_tf32_smem(H, F, P, FC):
+    """Kernel 3's shared-memory bytes a block at widths H, F, P positions
+    and FC hidden rows a chunk (:func:`ff_tf32_plan`)."""
+    rows = H + min(F, FC) + (H if FC < F else 0)
+    return 4 * (2 * NT + 2 * P + rows * ff_bwd_ld(P))
+
+
+def _tf32_mt(P):
+    """m-tiles a warp takes at once in kernel 3's first product at P
+    positions and one block an SM (``FfTf32Tile<P, 1>::MT1``): 64 sums a
+    thread, at most 4."""
+    n8 = P // 8
+    return 1 if n8 >= 16 else min(16 // n8, 4)
+
+
+def ff_tf32_split_floats(H, F):
+    """Floats of kernel 3's split-weight scratch: W1 (F x H) then W2 (H x
+    F), each as ``csrc/mma_tf32.cuh`` lays them out (m-tiles of 16 rows,
+    zero past the matrix, by k-tiles of 8, 256 floats a tile)."""
+    return 256 * (-(-F // 16) * (H // 8) + -(-H // 16) * (F // 8))
 
 
 def glu_bwd_plan(H):
@@ -450,7 +511,7 @@ def ff_refusal(H, F, dtype):
     channels each, so H <= FF_BF16_MAX_H."""
     widths = (("H", H), ("F", F))
     if dtype != torch.bfloat16:
-        return _width_refusal("3", widths, TK, ff_plan(H, F)[1])
+        return _width_refusal("3", widths, TK, ff_tf32_plan(H, F)[3])
     return _width_refusal("3f", widths, 16, ff_bf16_plan(1, H, F, 1)[1],
                           FF_BF16_MAX_H)
 

@@ -49,9 +49,10 @@ _SIGNATURES = {
     # the same with y, res and out bf16 and wb (the bf16 weight scratch)
     # after out
     "dwst_glu_res_bf16": [_P] * 6 + [_I] * 5 + [_P],
-    # x, skip, W1, b1, W2, b2, m, s, out, mean, var, B, H, F, L, P, smem,
-    # stream
-    "dwst_ln_ff_res": [_P] * 11 + [_I] * 6 + [_P],
+    # kernel 3: x, skip, W1, b1, W2, b2, m, s, out, mean, var, wf (the split
+    # weight scratch), B, H, F, L, and the plan (ops/chmix.py::ff_tf32_plan:
+    # P, FC hidden rows a chunk, blocks an SM, smem), stream
+    "dwst_ln_ff_res": [_P] * 12 + [_I] * 8 + [_P],
     # the same with x, skip and out bf16 and wb (bf16 weight scratch, or
     # null) after var
     "dwst_ln_ff_res_bf16": [_P] * 12 + [_I] * 6 + [_P],
@@ -110,8 +111,10 @@ _SIGNATURES = {
     # holds at once; 5L's: n
     "dwst_fftconv_long_max_clusters": [_I] * 2,
     "dwst_fftconv_dkf_long_max_clusters": [_I],
-    # h, x, Wr, br, Ws, bs, res, skip, B, C, S, L, stream
-    "dwst_gate_res_skip": [_P] * 8 + [_I] * 4 + [_P],
+    # kernel 11: h, x, Wr, br, Ws, bs, res, skip, wf (the split weight
+    # scratch), B, C, S, L, and the plan (ops/wavenet_gate.py::
+    # gate_tf32_plan: P, blocks an SM, smem), stream
+    "dwst_gate_res_skip": [_P] * 9 + [_I] * 7 + [_P],
     # kernel 11f: the same with h, x, res and skip bf16, wf (the bf16
     # weight scratch) after skip, and P and smem (ops/wavenet_gate.py::
     # gate_bf16_plan) after L

@@ -16,6 +16,10 @@ activations take the JAX kernel's ``fast=True`` form, kernel 11f
 rounded to bf16 for products that accumulate in f32, the f32 biases and
 the residual sum in f32, res and skip rounded to bf16.  Kernel 11f
 multiplies on the tensor cores; :func:`gate_bf16_plan` sizes its tiles.
+Kernel 11, the f32 form, multiplies on the tensor cores at f32 accuracy
+(3xTF32: each f32 operand split into two tf32 parts, hi and lo, and a
+product taken as lo hi + hi lo + hi hi with f32 sums);
+:func:`gate_tf32_plan` sizes its tiles.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import math
 import torch
 
 from . import cuda_lib
-from .chmix import SMEM_LIMIT
+from .chmix import NT, SMEM_LIMIT, SMEM_RESERVED, SMEM_SM, ff_bwd_ld
 from .fftconv import as_operand, widen
 
 SQRT_HALF = math.sqrt(0.5)
@@ -34,9 +38,16 @@ SQRT_HALF = math.sqrt(0.5)
 # computes at each (GateTile<P>::ROWS)
 GATE_BF16_PS = (128, 64, 32)
 GATE_BF16_ROWS = {128: 128, 64: 256, 32: 512}
-# an SM's shared memory on sm_90 (228 KB), of which the card reserves 1 KB
-# for each block it holds
-SMEM_SM, SMEM_RESERVED = 233472, 1024
+# kernel 11's positions a block at one block an SM (csrc/wavenet_gate.cu's
+# launcher), widest first; the (P, blocks an SM) it is also built for, most
+# blocks first; and the split weight bytes a block may read from L2 per
+# position at those: past 16 KB a position the reads cost more than the
+# extra blocks gain (chip_smoke.py's p_ms of kernel 11 on an H100: at C
+# 256, S 256, 32 KB a position at P 32, three blocks an SM lose to P 64 at
+# two)
+GATE_TF32_PS = (128, 64, 32, 16, 8)
+GATE_TF32_SHARED = ((32, 3), (64, 2))
+GATE_TF32_WEIGHT_BYTES = 16384
 
 
 def gate_res_skip_ref(h, x, wr, br, ws, bs):
@@ -57,33 +68,97 @@ def gate_res_skip_ref(h, x, wr, br, ws, bs):
 def gate_res_skip(h, x, wr, br, ws, bs):
     """Kernel-11 wrapper: the CUDA kernel for CUDA tensors, else the plain
     version (same arguments and results); bf16 activations go to kernel
-    11f."""
+    11f.  The kernel's products run on the tensor cores at f32 accuracy
+    (3xTF32); C must be a multiple of 8 (:func:`gate_tf32_refusal`).  A
+    call launches two kernels, counted as one launch: a pass that splits
+    the stacked weight [W_r; W_s] into tf32 parts in mma fragment order
+    into a scratch of its own, then the 3xTF32 kernel, sized by
+    :func:`gate_tf32_plan`."""
     if not h.is_cuda:
         return gate_res_skip_ref(h, x, wr, br, ws, bs)
     if h.dtype == torch.bfloat16:
         return gate_res_skip_bf16(h, x, wr, br, ws, bs)
     B, C, L = x.shape
     S = ws.shape[0]
-    if C % 8:
-        raise ValueError(f"residual width {C} must be a multiple of 8 for "
-                         f"the CUDA kernel (weight k-tiles of 8)")
+    refusal = gate_tf32_refusal(C, S)
+    if refusal is not None:
+        raise ValueError(refusal)
     for t, shape in ((h, (B, 2 * C, L)), (x, (B, C, L)), (wr, (C, C)),
                      (br, (C,)), (ws, (S, C)), (bs, (S,))):
         cuda_lib.check(t, shape, torch.float32)
-    if wr.data_ptr() % 16 or ws.data_ptr() % 16 or x.data_ptr() % 16:
-        raise ValueError("the kernel reads the weights and x four values at "
-                         "a time: they must start on a 16-byte boundary")
     res = torch.empty_like(x)
     skip = x.new_empty((B, S, L))
+    wf = x.new_empty((gate_tf32_split_floats(C, S),))
     cuda_lib.launch("dwst_gate_res_skip", h.data_ptr(), x.data_ptr(),
                     wr.data_ptr(), br.data_ptr(), ws.data_ptr(),
-                    bs.data_ptr(), res.data_ptr(), skip.data_ptr(), B, C, S,
-                    L)
+                    bs.data_ptr(), res.data_ptr(), skip.data_ptr(),
+                    wf.data_ptr(), B, C, S, L,
+                    *gate_tf32_plan(B, C, S, L, cuda_lib.sm_count(x.device)))
     gate_res_skip.launches += 1
     return res, skip
 
 
 gate_res_skip.launches = 0
+
+
+def gate_tf32_plan(B, C, S, L, sms=132):
+    """Kernel 11's tile plan on a card of ``sms`` SMs: (P positions a
+    block, blocks an SM the kernel is built for, shared-memory bytes a
+    block), the grid being ceil(L / P) x B blocks.  The block keeps the
+    f32 gate tile (C rows) and each of its 8 warps a 16-row f32 staging
+    tile, rows of :func:`ops.chmix.ff_bwd_ld` floats.  Several blocks an
+    SM hide each other's latencies, so the plan takes the first of
+    GATE_TF32_SHARED whose blocks' tiles fit an SM and whose block reads at
+    most GATE_TF32_WEIGHT_BYTES of split weights ((C + S) x C, 8 bytes an
+    entry) per position: P 64 at two blocks at C 256, S 256; P 32 at three
+    at C 128, S 256.  Else one block an SM, at the widest of GATE_TF32_PS
+    whose tiles fit and whose grid fills one wave (the narrowest that fits
+    if none does; the narrowest if none fits: the refusal then names the
+    bytes).  S sizes no tile: the warps take the stacked rows' m-tiles in
+    turns.  The kernel (``csrc/wavenet_gate.cu::
+    gate_res_skip_tf32_kernel``) takes these as given: this is the one
+    place they are computed."""
+    for P, blocks in GATE_TF32_SHARED:
+        smem = gate_tf32_smem(C, P)
+        if ((C + S) * C * 8 <= GATE_TF32_WEIGHT_BYTES * P
+                and blocks * (smem + SMEM_RESERVED) <= SMEM_SM):
+            return P, blocks, smem
+    fits = [P for P in GATE_TF32_PS
+            if gate_tf32_smem(C, P) <= SMEM_LIMIT] or GATE_TF32_PS[-1:]
+    P = next((P for P in fits if B * -(-L // P) >= sms), fits[-1])
+    return P, 1, gate_tf32_smem(C, P)
+
+
+def gate_tf32_smem(C, P):
+    """Kernel 11's shared-memory bytes a block at residual width C and P
+    positions (:func:`gate_tf32_plan`): the C-row gate tile and 8 warps'
+    16-row staging tiles, f32 rows of ``ff_bwd_ld(P)`` floats."""
+    return (C + 16 * (NT // 32)) * ff_bwd_ld(P) * 4
+
+
+def gate_tf32_split_floats(C, S):
+    """Floats of kernel 11's split-weight scratch: the stacked weight [W_r;
+    W_s] ((C + S) x C) as ``csrc/mma_tf32.cuh`` lays it out (m-tiles of 16
+    rows, zero past C + S, by k-tiles of 8, 256 floats a tile)."""
+    return 256 * -(-(C + S) // 16) * (C // 8)
+
+
+def gate_tf32_refusal(C, S):
+    """None if kernel 11 takes residual width C and skip width S, else why
+    not: C a positive multiple of 8 (its tf32 mma k-steps are 8 channels
+    deep; the stacked weight's last m-tile pads with zero rows, so S may be
+    anything positive), and tiles that fit one block's shared memory at
+    the narrowest P (C up to 7136)."""
+    if C <= 0 or C % 8:
+        return (f"residual width {C} must be a multiple of 8 for the CUDA "
+                f"kernel (weight k-tiles of 8)")
+    if S <= 0:
+        return f"kernel 11: skip width S = {S} must be positive"
+    smem = gate_tf32_plan(1, C, S, 1)[2]
+    if smem > SMEM_LIMIT:
+        return (f"kernel 11: widths C = {C}, S = {S} need {smem} bytes of "
+                f"shared memory a block, over {SMEM_LIMIT}")
+    return None
 
 
 def gate_bf16_plan(B, C, S, L, sms=132):

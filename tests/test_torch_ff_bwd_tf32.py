@@ -2,9 +2,10 @@
 the weight-gradient contraction of kernels 6 and 7, checked without a
 card.
 
-- ``tf32``, a torch model of ``cvt.rna.tf32.f32`` (with the kernel's
-  clearing of the 13 low bits), bit for bit on hand-picked values, and the
-  split x = hi + lo it feeds (``csrc/mma_tf32.cuh::split``).
+- ``tf32`` (``tests/torch_tf32.py``), a torch model of
+  ``cvt.rna.tf32.f32`` (with the kernel's clearing of the 13 low bits),
+  bit for bit on hand-picked values, and the split x = hi + lo it feeds
+  (``csrc/mma_tf32.cuh::split``).
 - A plain model of the kernel's products (``mm3``: per k-step of 8, lo hi
   + hi lo + hi hi summed from zero, then added to an f32 sum) and of its
   contractions (``contract``: f32 split-K partials of ``wgrad_plan``,
@@ -43,6 +44,7 @@ import jax.numpy as jnp
 from diffwave_sashimi_tpu.ops import chmix as jchmix
 from diffwave_sashimi_torch import ops
 from diffwave_sashimi_torch.ops import chmix, cuda_lib
+from torch_tf32 import mm3, split, tf32
 
 TOL_KERNEL = 1e-4          # chip_smoke.py's bar: x max(1, max|ref|)
 F32 = torch.float32
@@ -50,23 +52,6 @@ NT = 256                   # csrc/chmix.cu: threads a block
 
 
 # ---- cvt.rna.tf32.f32 and the split ----------------------------------------
-
-def tf32(x):
-    """x (f32) rounded as the kernel's ``to_tf32``: its 13 low significand
-    bits to nearest, ties away from zero (the integer add carries into the
-    exponent, so subnormals, the largest finite values and signs come out
-    right), the low bits cleared; inf and nan stay so."""
-    u = x.contiguous().numpy().view(np.uint32)
-    r = (u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
-    return torch.from_numpy(np.where(np.isfinite(x.numpy()), r, u)
-                            .astype(np.uint32).view(np.float32))
-
-
-def split(x):
-    """(hi, lo): hi = tf32(x), lo = tf32(x - hi) (x - hi exact in f32)."""
-    hi = tf32(x)
-    return hi, tf32(x - hi)
-
 
 def _bits(*words):
     return torch.from_numpy(np.array(words, np.uint32).view(np.float32))
@@ -127,24 +112,6 @@ def test_split_keeps_22_bits(scale):
 
 
 # ---- the plain model of the kernel's products and contractions -------------
-
-def mm3(a, b):
-    """a (M, K) @ b (B, K, N) as the kernel's 3xTF32 products: per k-step
-    of 8 (K zero-padded to a multiple of 8), lo(a) hi(b) + hi(a) lo(b) +
-    hi(a) hi(b) summed from zero, then added to the f32 sum in order."""
-    K = a.shape[1]
-    pad = -K % 8
-    a = F.pad(a, (0, pad))
-    b = F.pad(b, (0, 0, 0, pad))
-    ah, al = split(a)
-    bh, bl = split(b)
-    acc = torch.zeros(b.shape[0], a.shape[0], b.shape[2])
-    for k in range(0, K + pad, 8):
-        s = slice(k, k + 8)
-        acc = acc + (al[:, s] @ bh[:, s] + ah[:, s] @ bl[:, s]
-                     + ah[:, s] @ bh[:, s])
-    return acc
-
 
 def contract(X, Y):
     """The contraction of X (B, M, L) and Y (B, N, L): (X Y^T over all

@@ -97,7 +97,7 @@ def test_glu_bf16_width_check(H, ok):
 
 # the positions a block each fp32 mixer plan picks at a tier (H, F = 2H):
 # P halves from 16384 / H (8192 / H for kernel 7) until the tiles fit
-PLANS = {128: (128, 128, 128, 64), 256: (64, 64, 64, 32),
+PLANS = {128: (128, 64, 128, 64), 256: (64, 64, 64, 32),
          512: (32, 32, 32, 16), 1024: (32, 16, 16, 8)}
 
 
@@ -107,15 +107,19 @@ def test_mixer_kernels_take_every_tier(H, dtype):
     """Every channel-mixer kernel (2, 3, 6, 7 and their f forms) takes the
     widths of every tier of d_model 128 and 256 (H 128-1024, F = 2H): no
     refusal, and each fp32 plan picks a P its kernel is built for
-    (csrc/chmix.cu's launchers) whose tiles fit one block."""
+    (csrc/chmix.cu's launchers) whose tiles fit one block (kernel 3's plan
+    also its hidden rows a chunk and blocks an SM: P 64 at two at H
+    128)."""
     F = 2 * H
     assert [chmix.glu_refusal(H, dtype), chmix.ff_refusal(H, F, dtype),
             chmix.glu_bwd_refusal(H, dtype),
             chmix.ff_bwd_refusal(H, F, dtype)] == [None] * 4
-    plans = (chmix.glu_plan(H), chmix.ff_plan(H, F), chmix.glu_bwd_plan(H),
+    ff = chmix.ff_tf32_plan(H, F)
+    plans = (chmix.glu_plan(H), (ff[0], ff[3]), chmix.glu_bwd_plan(H),
              chmix.ff_bwd_plan(H, F))
     assert tuple(P for P, _ in plans) == PLANS[H]
-    for (P, smem), built in zip(plans, (chmix.GLU_PS, chmix.FF_PS,
+    assert ff[2] == (2 if H == 128 else 1)
+    for (P, smem), built in zip(plans, (chmix.GLU_PS, chmix.FF_TF32_PS,
                                         chmix.GLU_BWD_PS, chmix.FF_BWD_PS)):
         assert P in built and smem <= chmix.SMEM_LIMIT
 
@@ -124,20 +128,24 @@ def test_mixer_kernels_take_every_tier(H, dtype):
                                  (512, 1024), (256, 512)])
 def test_fp32_mixer_plans_hold_every_tile(H, F):
     """The fp32 plans' bytes hold their kernels' layouts (csrc/chmix.cu):
-    kernel 2 the (H x P) y tile, 3 the input and hidden tiles ((H + F) x
-    P), 6 the y and dz tiles (3H x P), each with the (TK x 16384 / P + 4)
-    weight tile; 7 the x, g and hidden tiles ((2H + F) rows of
-    ``ff_bwd_ld(P)`` floats) and no weight tile (its split weights come
-    from L2); the sums and statistics of 3 and 7 on top.  P at least 8,
-    so kernel 7's (dm, ds) partials, one pair a block, are B ceil(L / P)
-    pairs."""
+    kernel 2 the (H x P) y tile, 6 the y and dz tiles (3H x P), each with
+    the (TK x 16384 / P + 4) weight tile; 3 the x tile and the hidden
+    rows (all F, or FC a chunk and then an H-row tile of sums) and 7 the
+    x, g and hidden tiles ((2H + F) rows), rows of ``ff_bwd_ld(P)``
+    floats, and no weight tile (their split weights come from L2); the
+    sums and statistics of 3 and 7 on top.  P at least 8, so kernel 7's
+    (dm, ds) partials, one pair a block, are B ceil(L / P) pairs."""
     wt = chmix.TK * 4
-    for (P, smem), rows, extra in (
-            (chmix.glu_plan(H), H, 0), (chmix.ff_plan(H, F), H + F, 2 * 256),
-            (chmix.glu_bwd_plan(H), 3 * H, 0)):
+    for (P, smem), rows in ((chmix.glu_plan(H), H),
+                            (chmix.glu_bwd_plan(H), 3 * H)):
         assert P >= 8
-        assert smem >= 4 * (rows * P + extra) + wt * (16384 // P + 4)
+        assert smem >= 4 * rows * P + wt * (16384 // P + 4)
         assert smem <= chmix.SMEM_LIMIT
+    P, FC, _, smem = chmix.ff_tf32_plan(H, F)
+    rows = H + min(F, FC) + (H if FC < F else 0)
+    assert P >= 8
+    assert smem >= 4 * (rows * chmix.ff_bwd_ld(P) + 2 * 256)
+    assert smem <= chmix.SMEM_LIMIT
     P, smem = chmix.ff_bwd_plan(H, F)
     assert P >= 8
     assert smem >= 4 * ((2 * H + F) * chmix.ff_bwd_ld(P) + 2 * 256)
@@ -171,14 +179,21 @@ def test_card_refuses_widths_no_mixer_kernel_takes(d_model, precision,
 
 @pytest.mark.parametrize("precision,kernel", [("f32", "3"), ("bf16", "3f")])
 def test_card_refuses_ff_tiles_past_a_block(precision, kernel):
-    """At d_model 256 with ff 4 (F = 4096 at H 1024) the FF kernel's tiles
-    do not fit one block even at its narrowest P: refused on the card,
-    naming the widths and the bytes; the CPU runs the plain version."""
+    """At d_model 256 with ff 4 (F = 4096 at H 1024) kernel 3f's tiles do
+    not fit one block even at its narrowest P: refused on the card, naming
+    the widths and the bytes.  Kernel 3 (f32) takes its hidden rows in
+    chunks, so at f32 the card takes the model, sampling and training
+    (kernel 7 takes those widths too).  The CPU runs the plain version."""
     cfg = dict(SMALL_CFG, d_model=256, ff=4)
-    with pytest.raises(NotImplementedError,
-                       match=f"kernel {kernel}: widths H = 1024, F = 4096 "
-                             "need .* bytes.*item 8"):
-        check_supported(cfg, precision, device_type="cuda")
+    assert chmix.ff_tf32_plan(1024, 4096)[1] < 4096     # chunks at f32
+    if precision == "f32":
+        for train in (False, True):
+            check_supported(cfg, precision, train, device_type="cuda")
+    else:
+        with pytest.raises(NotImplementedError,
+                           match=f"kernel {kernel}: widths H = 1024, F = "
+                                 "4096 need .* bytes.*item 8"):
+            check_supported(cfg, precision, device_type="cuda")
     check_supported(cfg, precision, True, device_type="cpu")
 
 
