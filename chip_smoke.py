@@ -7,23 +7,34 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. build the CUDA kernels from ``diffwave_sashimi_torch/csrc`` (with
    ``nvcc -Xptxas -v`` of ``csrc/cauchy.cu``, ``csrc/fftconv.cu``,
-   ``csrc/fftconv_long.cu``, ``csrc/chmix.cu`` and ``csrc/fftconv_int8.cu``
-   beside the build: the registers and spills of each kernel-4 instance
-   ``<K>``, each kernel-8 instance ``<K, PAIRED>``, each instance ``<M,
-   Q, T>`` of kernels 5 and 5f's radix-16 route, kernel 5L's two passes
-   and each instance ``<N1, N2, NT, T>`` of its cluster kernel, kernel
-   7's 3xTF32 kernels (its pass ``<P>`` at every P, its weights' split)
-   and each kernel-12 instance ``<T, threads>``, none of which may spill;
-   and, by ``cuobjdump -sass``, the tf32 ``HMMA`` instructions in kernel
-   7's pass, which must have some) and require a CUDA device;
+   ``csrc/fftconv_long.cu``, ``csrc/chmix.cu``, ``csrc/fftconv_int8.cu``
+   and ``csrc/wavenet_gate.cu`` beside the build: the registers and
+   spills of each kernel-4 instance ``<K>``, each kernel-8 instance ``<K,
+   PAIRED>``, each instance ``<M, Q, T>`` of kernels 5 and 5f's radix-16
+   route, each f32 instance ``<M, FUSED, float>`` of kernel 1's, kernel
+   5L's two passes and each instance ``<N1, N2, NT, T>`` of its cluster
+   kernel, the 3xTF32 kernels of kernels 2, 3, 7 and 11 (each ``<P,
+   blocks an SM>`` or ``<P>`` they are built for, and their weights'
+   splits) and each kernel-12 instance ``<T, threads>``, none of which may
+   spill; and, by ``cuobjdump -sass``, the tf32 ``HMMA`` instructions in
+   each 3xTF32 kernel, which must have some) and require a CUDA device;
 2. build the shipped SC09 model (d_model 128, n_layers 6, pool [4, 4],
    expand 2, ff 2, L 16000) from a seed, with a perturbed (normally
    zero-initialised) final conv, and save it as a checkpoint in a
    temporary ``exp/`` directory;
 3. hold each of the four kernels against its plain PyTorch version on the
    card at the shapes the sampling path gives it at all three UNet tiers;
-   kernel 4 (its (K, M, Lz, 2) output) also two calls bit-equal, against
-   a complex128 evaluation of the sum at most twice the plain version's
+   kernel 1 also on both its routes (``ops.fftconv.conv_plan``: the
+   radix-16 kernel, two calls bit-equal, its relative L2 error against a
+   float64 evaluation at most twice the plain version's; the Stockham
+   kernel against the plain version), the two timed in CUDA graphs in
+   turns beside a cuFFT conv of the shapes (a yardstick); kernels 2 and 3
+   (f32, their products in 3xTF32) two calls bit-equal, their float64
+   error at most twice the plain version's, their time by part, in CUDA
+   graphs beside their products as f32 ``torch.matmul`` calls (TF32 off;
+   a yardstick) and at every (P, blocks an SM) they are built for; kernel
+   4 (its (K, M, Lz, 2) output) also two calls bit-equal, against a
+   complex128 evaluation of the sum at most twice the plain version's
    error, timed in a CUDA graph, its plan printed;
 4. the main path: ``generate()`` at T = 200, f32, a few samples, with every
    kernel's launch count set to 0 just before and read just after (each
@@ -63,7 +74,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    share; a trace with no device time fails);
 7. the training kernels (kernel 1's training entry and its conjugate
    form, kernels 4-8) against their plain versions at the three tiers,
-   with their times, kernel 4 held beyond that as in phase 3 and at four
+   with their times, kernel 1 held on both its routes as in phase 3,
+   kernel 4 held beyond that as in phase 3 and at four
    shapes off the shipped ones (odd K, K 8, blocks of fewer threads, N
    800 past 48 KB of records) against its plain version, two calls
    bit-equal; kernels 7 (f32, its per-position products in 3xTF32 on
@@ -171,8 +183,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
 15. kernel 9 (both entries, three passes) against its plain version at
     the top and middle tiers' shapes (B2 H128 L143360 n 2^18, H256 L35840
     n 2^16), at B2 H128 L100000 (n 2^17), n 4096 (H512 L3000) and n 2^19
-    (H128 L300000), and kernel 1 at the deepest tier (n 16384 < 2L),
-    timed; (15b) kernel 9f at the same five shapes (bf16 activations; its
+    (H128 L300000), kernel 1 at the deepest tier (n 16384 < 2L; on both
+    its routes as in phase 3) and kernels 2 and 3 at the three tiers (as
+    phase 3 holds them), timed; (15b) kernel 9f at the same five shapes (bf16 activations; its
     cluster route, one thread-block cluster a transform row, at n 2^16
     and 2^17, its three passes at the others), kernel 1f at the deepest
     tier (B2 H512 L8960 n 16384: L > n/2, the whole transform) on both
@@ -246,7 +259,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
     the tiles fit one block; 3f, 6f and 7f run at P 16), timed; kernels 4
     and 8 at its three tiers as in phases 3 and 7 (vs plain, bit-equal, vs
     complex128 beside the plain version, timed in a CUDA graph), and
-    kernels 6 and 7 (f32) there as phase 7 holds them; at f32 and
+    kernels 2, 3, 6 and 7 (f32) there as phases 3 and 7 hold them; at f32
+    and
     at bf16 one eps forward and one training step through the kernels
     against the plain path, each with exact launch counts of every kernel,
     and the eps step timed;
@@ -299,7 +313,7 @@ It prints the card's name and power limit, one JSON line with the kernels
 (each with its bound: the larger of its bytes over the HBM rate and its
 operations over the peak rate of their type, fp32, bf16, int8 or TF32 (a
 3xTF32 product three TF32 ones), at the top tier's shapes of the path
-that runs it; kernels 3, 7 and 11 also with ``fp32_bound_ms``, every
+that runs it; kernels 2, 3, 7 and 11 also with ``fp32_bound_ms``, every
 product on the fp32 FMAs), and last ``{"ok": true, "device": {...}}``.
 The config blocks below are ``load_config(["experiment=sc09"])``,
 ``load_config(["experiment=ljspeech"])``, the model and dataset blocks of
@@ -651,7 +665,7 @@ VOC_BF16_LAUNCHES = {"fftconv_long_ln_bias_gelu_d_bf16": 24 * 50,
 # the port's kernels, by the name of their __global__ function
 PORT_KERNELS = ("fftconv_kernel", "fftconv_r16_kernel",
                 "fftconv_dkf_kernel", "fftconv_dkf_r16_kernel",
-                "glu_res_kernel",
+                "glu_res_tf32_kernel",
                 "glu_res_tc_kernel", "glu_res_bwd_kernel",
                 "glu_res_bwd_tc_kernel", "ln_ff_res_tf32_kernel",
                 "ln_ff_res_tc_kernel", "round_weights_kernel",
@@ -675,14 +689,22 @@ KERNEL_9_GROUPS = {
     "kernel_9_cluster": lambda name: in_group(name, (KERNEL_9_CLUSTER,)),
     "kernel_9_three_pass": lambda name: in_group(name, KERNEL_9_THREE_PASS)}
 
-# kernel 1f's two routes (ops.fftconv.conv_plan): the radix-16 kernel and
-# the Stockham kernel's bf16 instances; traces report their sum as 1f's time
+# kernels 1's and 1f's two routes (ops.fftconv.conv_plan): the radix-16
+# kernel and the Stockham kernel, each with instances of both activation
+# types; traces report the sum of 1f's bf16 instances as 1f's time, of
+# kernel 1's f32 instances as kernel 1's
 def is_1f(name):
-    return name.startswith("fftconv_r16_kernel") or (
-        name.startswith("fftconv_kernel<") and "bfloat16" in name)
+    return name.startswith(("fftconv_r16_kernel<", "fftconv_kernel<")) and (
+        "bfloat16" in name)
+
+
+def is_1(name):
+    return name.startswith(("fftconv_r16_kernel<", "fftconv_kernel<")) and (
+        "bfloat16" not in name)
 
 
 KERNEL_1F_GROUPS = {"fftconv_1f": is_1f}
+KERNEL_1_GROUPS = {"fftconv_1": is_1}
 # kernel 12's instances <T, threads>; traces report their sum
 KERNEL_12 = "fftconv_int8_kernel"
 KERNEL_12_GROUPS = {"fftconv_int8": lambda name: in_group(name,
@@ -704,9 +726,11 @@ KERNELS_3F = ("ln_ff_res_tc_kernel", "round_weights_kernel<3>")
 # kernel 11's and 11f's: 11f's wrapper launches two a call, the stacked
 # weight's rounding pass and the tensor-core kernel; traces report their sum
 KERNELS_11F = ("gate_res_skip_tc_kernel", "round_gate_weights_kernel")
-# kernels 3's and 11's (f32) wrappers launch two a call, in two parts that
-# traces report apart: the weights' split (an instance named for its
+# kernels 2's, 3's and 11's (f32) wrappers launch two a call, in two parts
+# that traces report apart: the weights' split (an instance named for its
 # kernel) and the 3xTF32 kernel
+KERNELS_2 = {"split": ("split_weights_tf32_kernel<2>",),
+             "kernel": ("glu_res_tf32_kernel",)}
 KERNELS_3 = {"split": ("split_weights_tf32_kernel<3>",),
              "kernel": ("ln_ff_res_tf32_kernel",)}
 KERNELS_11 = {"split": ("split_weights_tf32_kernel<11>",),
@@ -765,16 +789,22 @@ PTXAS_SOURCES = ("cauchy.cu", "fftconv.cu", "fftconv_long.cu", "chmix.cu",
 # weights' split)
 KERNEL_7_TF32 = ("ln_ff_res_bwd_tf32_kernel", "split_weights_tf32_kernel<7>")
 KERNEL_7_PS = (64, 32, 16, 8)
-# the 3xTF32 kernels of kernels 3, 7 and 11 (f32) and the instances each is
-# built for (<P, blocks an SM>; kernel 7's <P>); the weights' split of
-# each, by the kernel that launches it
-TF32_KERNELS = {"ln_ff_res_tf32_kernel": ("128, 1", "64, 2", "64, 1",
+# the 3xTF32 kernels of kernels 2, 3, 7 and 11 (f32) and the instances
+# each is built for (<P, blocks an SM>; kernel 7's <P>); the weights'
+# split of each, by the kernel that launches it
+TF32_KERNELS = {"glu_res_tf32_kernel": ("64, 2", "32, 2", "32, 1", "16, 1",
+                                        "8, 1"),
+                "ln_ff_res_tf32_kernel": ("128, 1", "64, 2", "64, 1",
                                           "32, 1", "16, 1", "8, 1"),
                 "ln_ff_res_bwd_tf32_kernel": tuple(map(str, KERNEL_7_PS)),
                 "gate_res_skip_tf32_kernel": ("128, 1", "64, 2", "64, 1",
                                               "32, 3", "32, 1", "16, 1",
                                               "8, 1")}
-TF32_SPLITS = tuple(f"split_weights_tf32_kernel<{k}>" for k in (3, 7, 11))
+TF32_SPLITS = tuple(f"split_weights_tf32_kernel<{k}>"
+                    for k in (2, 3, 7, 11))
+# kernel 1's f32 instances of its radix-16 kernel, <M, FUSED, float> at
+# each M = n/2 of ops.fftconv.RADIX16_SIZES
+KERNEL_1_R16 = "fftconv_r16_kernel"
 # their tensor-core products in the built code: sm_90's SASS of mma.sync
 # with tf32 operands and f32 sums (HMMA.<shape>.F32.TF32)
 TF32_MMA_SASS = r"HMMA\.\w+\.F32\.TF32"
@@ -800,7 +830,8 @@ def kernel_parts(name, ptxas, tf32_sass=None):
     of TF32_MMA_SASS instructions in their 3xTF32 kernels
     (``tf32_mma_sass``)."""
     f32_parts = {"ln_ff_res_bwd": KERNELS_7, "glu_res_bwd": KERNELS_6,
-                 "ln_ff_res": KERNELS_3, "gate_res_skip": KERNELS_11}
+                 "ln_ff_res": KERNELS_3, "gate_res_skip": KERNELS_11,
+                 "glu_res": KERNELS_2}
     if name in f32_parts:
         parts = f32_parts[name]
         names = [k for group in parts.values() for k in group]
@@ -829,6 +860,10 @@ def kernel_parts(name, ptxas, tf32_sass=None):
     if name == "fftconv_int8":
         return {"ptxas": {k: v for k, v in ptxas.items()
                           if k.startswith(KERNEL_12)}}
+    if name in ("fftconv_ln_bias_gelu_d", "fftconv"):
+        return {"global_kernels": [KERNEL_1_R16, "fftconv_kernel"],
+                "ptxas": {k: v for k, v in ptxas.items()
+                          if k.startswith(KERNEL_1_R16)}}
     return {}
 
 
@@ -850,14 +885,16 @@ def ptxas_report(procs):
     """{__global__ instance: registers a thread, spill stores and loads in
     bytes} from ptxas's reports, of kernel 4 (``cauchy_fwd_kernel<K>``),
     of kernel 8 (``name<K, PAIRED>``), of kernels 5 and 5f's radix-16
-    route (``fftconv_dkf_r16_kernel<M, Q, T>``), of kernel 5L's two
+    route (``fftconv_dkf_r16_kernel<M, Q, T>``), of kernel 1's radix-16
+    route (``fftconv_r16_kernel<M, FUSED, float>``), of kernel 5L's two
     passes and cluster kernel (KERNEL_5L), of the 3xTF32 kernels of
-    kernels 3, 7 and 11 at each P (TF32_KERNELS) and their weights' splits
-    (TF32_SPLITS) and of kernel 12 (``fftconv_int8_kernel<T, threads>``);
-    raise if nvcc failed, an instance spills or one of kernels 4's and 8's
-    K 1-8, of the route's M (n 2048 .. 32768, each with its transforms a
-    block Q) and T (float, bf16), of 5L's, of the 3xTF32 kernels' or of
-    kernel 12's T and threads (ops.int8conv.THREADS) is missing."""
+    kernels 2, 3, 7 and 11 at each P (TF32_KERNELS) and their weights'
+    splits (TF32_SPLITS) and of kernel 12 (``fftconv_int8_kernel<T,
+    threads>``); raise if nvcc failed, an instance spills or one of
+    kernels 4's and 8's K 1-8, of the routes' M (n 2048 .. 32768, each
+    with its transforms a block Q, or both forms) and T (float, bf16), of
+    5L's, of the 3xTF32 kernels' or of kernel 12's T and threads
+    (ops.int8conv.THREADS) is missing."""
     fc = importlib.import_module("diffwave_sashimi_torch.ops.fftconv")
     from diffwave_sashimi_torch.ops import int8conv
     out = {}
@@ -885,7 +922,13 @@ def ptxas_report(procs):
                            + r")(?:I((?:Li\d+E)+)E)?", line)
             k12 = re.search(r"Compiling entry function '\w*?\d(fftconv_int8_"
                             r"kernel)I(f|13__nv_bfloat16)Li(\d+)E", line)
-            if k12:
+            k1 = re.search(r"Compiling entry function '\w*?\d(fftconv_r16_"
+                           r"kernel)ILi(\d+)ELb([01])EfE", line)
+            if k1:
+                name = (f"{k1.group(1)}<{k1.group(2)}, "
+                        f"{'true' if k1.group(3) == '1' else 'false'}, "
+                        f"float>")
+            elif k12:
                 name = (f"{k12.group(1)}<"
                         f"{'float' if k12.group(2) == 'f' else 'bf16'}, "
                         f"{k12.group(3)}>")
@@ -921,6 +964,8 @@ def ptxas_report(procs):
                 "spill_loads": int(spill.group(2)) if spill else None}
     want = {f"{k}<{P}>" for k, ps in TF32_KERNELS.items() for P in ps} | {
         *TF32_SPLITS} | {
+        f"{KERNEL_1_R16}<{n // 2}, {f}, float>" for n in fc.RADIX16_SIZES
+        for f in ("true", "false")} | {
         f"cauchy_bwd_lanes_kernel<{K}, {p}>" for K in range(1, 9)
         for p in ("true", "false")} | {
         f"cauchy_fwd_kernel<{K}>" for K in range(1, 9)} | {
@@ -1020,7 +1065,7 @@ def work(name, B, H, L, n, K=6, N=32, S=None, bpe=4, F=None):
     do (the forwards' products; the backward passes' per-position products,
     its _bmm, while their weight gradients, its _bmmc, stay fp32); kernel
     12 moves activations of bpe bytes and multiplies int8 ones (its
-    four-step layout's products).  Kernels 3, 7 and 11 (f32) take their
+    four-step layout's products).  Kernels 2, 3, 7 and 11 (f32) take their
     per-position products in 3xTF32: three TF32 products each."""
     base = name.removesuffix("_bf16")
     if base != name:
@@ -1066,7 +1111,7 @@ def work(name, B, H, L, n, K=6, N=32, S=None, bpe=4, F=None):
     if base not in split:
         return {"fp32": ops}, nbytes
     prod, wgrad = split[base]
-    if name in ("ln_ff_res_bwd", "ln_ff_res", "gate_res_skip"):
+    if name in ("ln_ff_res_bwd", "ln_ff_res", "gate_res_skip", "glu_res"):
         by_type = {"fp32": wgrad, "tf32": 3 * prod}
     else:
         by_type = {"fp32": wgrad}
@@ -1192,9 +1237,11 @@ def tier_inputs(torch, blk, L, gen, dev):
 
 def check_kernels(torch, model, dev, results):
     """Phase 3 (+ kernel timings): the sampling kernels vs their plain
-    versions at the sampling path's shapes of every tier; kernels 4 and 3
-    beyond that by ``hold_kernel_4`` and ``hold_ff``."""
+    versions at the sampling path's shapes of every tier; kernels 1, 2, 4
+    and 3 beyond that by ``hold_1_routes``, ``hold_glu``, ``hold_kernel_4``
+    and ``hold_ff``."""
     from diffwave_sashimi_torch import ops
+    fc = importlib.import_module("diffwave_sashimi_torch.ops.fftconv")
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     for H, L, blk in tier_blocks(model):
         d = tier_inputs(torch, blk, L, gen, dev)
@@ -1223,6 +1270,14 @@ def check_kernels(torch, model, dev, results):
         for name, (kfn, pfn) in cases.items():
             compare(name, H, L, kfn, pfn, 3 if name == "cauchy" else 20,
                     results)
+        conv = (d["a"], d["c"], d["bias"], d["khat"], d["D"])
+        hold_1_routes(torch, "fftconv_ln_bias_gelu_d", f"H{H}_L{L}", d["n"],
+                      lambda p: fc.launch_sampling(x, *conv, p),
+                      ops.fftconv_ln_bias_gelu_d_ref(x, *conv),
+                      direct_conv_f64(torch, x, *conv, fast=False),
+                      cufft_conv_ms(torch, x, d["khat"], L), results)
+        hold_glu(torch, (d["y"], x, lin.weight, lin.bias), f"H{H}_L{L}",
+                 results)
         hold_kernel_4(torch, d, f"H{H}_L{L}", results)
         hold_ff(torch, (x, d["m2"], d["s2"], d["w1"], d["b1"], d["w2"],
                         d["b2"], d["skip"]), f"H{H}_L{L}", results)
@@ -1319,7 +1374,7 @@ def check_bf16_kernels(torch, model, dev, results):
         hold_kernel_12(torch, blk, L, d, W, gen, dev,
                        results["fftconv_int8"]["tiers"][f"H{H}_L{L}"])
         hold_1f_routes(torch, "fftconv_ln_bias_gelu_d_bf16", f"H{H}_L{L}",
-                       d["n"], lambda p: fc.launch_sampling_bf16(x, *conv, p),
+                       d["n"], lambda p: fc.launch_sampling(x, *conv, p),
                        ops.fftconv_ln_bias_gelu_d_ref(x, *conv),
                        cufft_conv_ms(torch, d["x"], d["khat"], L), results)
         gemm_ms(torch, "glu_res_bf16", results, f"H{H}_L{L}", lin.weight, y)
@@ -1522,6 +1577,62 @@ def hold_1f_routes(torch, name, tier, n, launch, ref, cufft_ms, results,
         f"the plain version); cuFFT conv {cufft_ms:.4f} ms")
 
 
+def hold_1_routes(torch, name, tier, n, launch, ref, wide, cufft_ms,
+                  results, key=""):
+    """Kernel 1 (f32; ``name``: its sampling form or its training entry,
+    ``key`` "conj_" for the training entry's conjugate form) at one tier
+    beyond its bar: conv_plan takes its radix-16 route at n, and two calls
+    there are bit-equal; its relative L2 error against ``wide``, a float64
+    evaluation of the function on the same inputs, at most twice that of
+    the plain version ``ref`` (cuFFT's); the Stockham kernel held against
+    the plain version at TOL_KERNEL, its float64 error recorded; the two
+    routes timed in CUDA graphs in turns (``<key>graph_ms``,
+    ``<key>stockham_graph_ms``) beside a cuFFT conv of the same shapes
+    (``cufft_conv_ms``, a yardstick the port never calls).
+    ``launch(plan)`` runs kernel 1 on the plan's route."""
+    fc = importlib.import_module("diffwave_sashimi_torch.ops.fftconv")
+    r16, old = fc.radix16_plan(n), fc.STOCKHAM
+    if fc.conv_plan(n) != r16:
+        raise AssertionError(f"kernel {name} {tier}: conv_plan({n}) is not "
+                             f"its radix-16 route")
+    one, two, alt = launch(r16), launch(r16), launch(old)
+    torch.cuda.synchronize()
+    if not torch.equal(one, two):
+        raise AssertionError(f"kernel {name} {tier} {key}: two calls of "
+                             f"the radix-16 route differ")
+
+    def l2(out):
+        return float((out.double() - wide).norm() / wide.norm())
+    err, scale = max_err(alt, ref)
+    errs = {f"{key}c64_err": l2(one), f"{key}plain_c64_err": l2(ref),
+            f"{key}stockham_c64_err": l2(alt),
+            f"{key}stockham_max_abs_err": err}
+    ok = (errs[f"{key}c64_err"] <= 2 * errs[f"{key}plain_c64_err"]
+          and err <= TOL_KERNEL * max(1.0, scale)
+          and bool(torch.isfinite(alt).all()))
+    del one, two, alt
+    o1 = graph_ms(torch, lambda: launch(old))
+    k1, k2 = (graph_ms(torch, lambda: launch(r16)) for _ in range(2))
+    o2 = graph_ms(torch, lambda: launch(old))
+    t = results[name]["tiers"][tier]
+    t.update(errs, bit_equal=True, cufft_conv_ms=cufft_ms,
+             **{f"{key}graph_ms": (k1 + k2) / 2,
+                f"{key}stockham_graph_ms": (o1 + o2) / 2})
+    form = f" {key.rstrip('_')}" if key else ""
+    log(f"kernel {name} {tier}{form}: radix-16 route, two calls bit-equal; "
+        f"vs float64 L2 {errs[f'{key}c64_err']:.3e} (plain "
+        f"{errs[f'{key}plain_c64_err']:.3e}, Stockham "
+        f"{errs[f'{key}stockham_c64_err']:.3e}; bar 2x plain) "
+        f"{'ok' if ok else 'FAIL'}; in CUDA graphs, in turns: radix-16 "
+        f"{t[f'{key}graph_ms']:.4f} ms vs Stockham "
+        f"{t[f'{key}stockham_graph_ms']:.4f} ms (its max_abs_err {err:.3e} "
+        f"of {scale:.3e}); cuFFT conv {cufft_ms:.4f} ms")
+    if not ok:
+        raise AssertionError(f"kernel {name} {tier}{form}: its float64 "
+                             f"error is past twice the plain version's, or "
+                             f"the Stockham kernel disagrees")
+
+
 def run_shipped_command(torch, run, launches):
     """The shipped SC09 command, ``runtime.generate.main(["experiment=sc09",
     "generate.n_samples=4"])`` with no precision override (bf16), then with
@@ -1649,10 +1760,11 @@ def check_bf16_path(torch, model, dev):
 
 def check_training_kernels(torch, model, dev, results):
     """Phase 7: kernel 1's training entry (and its conjugate form) and
-    kernels 4-8 vs their plain versions at every tier, timed (kernels 4
-    and 8 beyond that by ``hold_kernel_4`` and ``hold_kernel_8``, kernel
-    5 by ``hold_dkf``)."""
+    kernels 4-8 vs their plain versions at every tier, timed (kernel 1
+    beyond that by ``hold_1_routes``, kernels 4 and 8 by ``hold_kernel_4``
+    and ``hold_kernel_8``, kernel 5 by ``hold_dkf``)."""
     from diffwave_sashimi_torch import ops
+    fc = importlib.import_module("diffwave_sashimi_torch.ops.fftconv")
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     for H, L, blk in tier_blocks(model):
         d = tier_inputs(torch, blk, L, gen, dev)
@@ -1678,6 +1790,16 @@ def check_training_kernels(torch, model, dev, results):
         for name, kfn, pfn in cases:
             compare(name, H, L, kfn, pfn,
                     3 if name.startswith("cauchy") else 10, results)
+        n, k64 = d["n"], khat.to(torch.complex128)
+        cufft = cufft_conv_ms(torch, x, khat, L)
+        for key, inp, conj in (("", x, False), ("conj_", g, True)):
+            wide = torch.fft.irfft(torch.fft.rfft(inp.double(), n=n) * (
+                k64.conj() if conj else k64), n=n)[..., :L]
+            hold_1_routes(torch, "fftconv", f"H{H}_L{L}", n,
+                          lambda p: fc.launch_conv(inp, khat, conj, p),
+                          ops.fftconv_ref(inp, khat, conj), wide, cufft,
+                          results, key)
+            del wide
         hold_kernel_4(torch, d, f"H{H}_L{L}", results)
         hold_kernel_8(torch, d, f"H{H}_L{L}", results)
         hold_dkf(torch, "fftconv_dkf", d, results)
@@ -2063,7 +2185,7 @@ def check_bf16_training_kernels(torch, model, dev, results):
         for key, inp, conj in (("", x, False), ("conj_", g, True)):
             hold_1f_routes(torch, "fftconv_bf16", f"H{H}_L{L}", d["n"],
                            lambda p, inp=inp, conj=conj:
-                           fc.launch_conv_bf16(inp, khat, conj, p),
+                           fc.launch_conv(inp, khat, conj, p),
                            ops.fftconv_ref(inp, khat, conj), cufft_ms,
                            results, key)
         # 7f at F = H (a config's model.ff 1), off the shipped F = 2H, and
@@ -2293,17 +2415,18 @@ def glu_yardstick(torch, glu):
 
 def hold_f32_mixer(torch, name, kfn, plain_fn, args, tier, results, parts,
                    yard):
-    """Kernel 3, 6, 7 or 11 at f32 (``name`` ln_ff_res, glu_res_bwd,
-    ln_ff_res_bwd or gate_res_skip), beyond ``compare``'s bar: two calls
-    bit-equal (fixed-order sums); the kernel's float64 error (the worst of
-    ``c64_err`` over its outputs, against ``plain_fn`` on float64 copies
-    of ``args``; kernel 7's dm and ds on the scale of ``ff_sum_scales``)
-    at most twice the plain f32 version's on the same scales; its device
-    time by part (``parts``: KERNELS_3, 6, 7 or 11) from a trace of five
-    calls, which must record device time and in which a call of kernel 3,
-    7 or 11 must launch nothing else; and in CUDA graphs (``graph_ms``),
-    in turns, the kernel and ``yard``, its products as f32
-    ``torch.matmul`` calls (TF32 off; a yardstick)."""
+    """Kernel 2, 3, 6, 7 or 11 at f32 (``name`` glu_res, ln_ff_res,
+    glu_res_bwd, ln_ff_res_bwd or gate_res_skip), beyond ``compare``'s
+    bar: two calls bit-equal (fixed-order sums); the kernel's float64
+    error (the worst of ``c64_err`` over its outputs, against
+    ``plain_fn`` on float64 copies of ``args``; kernel 7's dm and ds on
+    the scale of ``ff_sum_scales``) at most twice the plain f32 version's
+    on the same scales; its device time by part (``parts``: KERNELS_2, 3,
+    6, 7 or 11) from a trace of five calls, which must record device time
+    and in which a call of kernel 2, 3, 7 or 11 must launch nothing else;
+    and in CUDA graphs (``graph_ms``), in turns, the kernel and ``yard``,
+    its products as f32 ``torch.matmul`` calls (TF32 off; a
+    yardstick)."""
     one, two = kfn(), kfn()
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(one, two)):
@@ -2433,6 +2556,44 @@ def hold_gate(torch, args, tier, results):
     results["gate_res_skip"]["tiers"][tier]["p_ms"] = p_ms
     log(f"kernel gate_res_skip {tier}: plan "
         f"{wg.gate_tf32_plan(B, C, S, L, cuda_lib.sm_count(x.device))}; in "
+        f"CUDA graphs by (P, blocks an SM) {json.dumps(p_ms)}")
+
+
+def glu_fwd_yardstick(torch, y, w):
+    """Kernel 2's product as one f32 ``torch.matmul`` (TF32 off) of W (2H x
+    H) by y, a yardstick the port never calls: no bias, gate or
+    residual."""
+    return lambda: (torch.matmul(w, y),)
+
+
+def hold_glu(torch, args, tier, results):
+    """Kernel 2 (f32) at one tier beyond ``compare``'s bar
+    (``hold_f32_mixer``): ``args`` = (y, res, W, b); in CUDA graphs beside
+    the f32 ``torch.matmul`` yardstick of its product; and at every (P,
+    blocks an SM) it is built for whose tiles fit (``p_ms``, CUDA
+    graphs)."""
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.ops import chmix, cuda_lib
+    y, res, w, b = args
+    B, H, L = y.shape
+    hold_f32_mixer(torch, "glu_res", lambda: (ops.mix_glu_res(*args),),
+                   lambda *a: (ops.glu_res_ref(*a),), args, tier, results,
+                   KERNELS_2, glu_fwd_yardstick(torch, y, w))
+    out = torch.empty_like(res)
+    wf = w.new_empty((chmix.glu_tf32_split_floats(H),))
+    ptrs = [t.data_ptr() for t in (y, res, w, b, out, wf)]
+    p_ms = {}
+    for P, blocks in (*chmix.GLU_TF32_SHARED,
+                      *((P, 1) for P in chmix.GLU_TF32_PS)):
+        smem = chmix.glu_tf32_smem(H, P)
+        if blocks * (smem + chmix.SMEM_RESERVED) > chmix.SMEM_SM or (
+                smem > chmix.SMEM_LIMIT):
+            continue
+        p_ms[f"({P}, {blocks})"] = graph_ms(torch, lambda: cuda_lib.launch(
+            "dwst_glu_res", *ptrs, B, H, L, P, blocks, smem))
+    results["glu_res"]["tiers"][tier]["p_ms"] = p_ms
+    log(f"kernel glu_res {tier}: plan "
+        f"{chmix.glu_tf32_plan(B, H, L, cuda_lib.sm_count(y.device))}; in "
         f"CUDA graphs by (P, blocks an SM) {json.dumps(p_ms)}")
 
 
@@ -2803,7 +2964,7 @@ def check_wide_mixers(torch, blk, L, dev, results):
             lambda: ops.ln_ff_res_ref(x, d["m2"], d["s2"], *w4, d["skip"],
                                       True),
             3, results, tier=f"H{H}_L{L}_F{4 * H}", F=4 * H)
-    return {"glu": chmix.glu_plan(H)[0],
+    return {"glu": chmix.glu_tf32_plan(N_SAMPLES, H, L)[:2],
             "ff": chmix.ff_tf32_plan(H, 2 * H)[0],
             "glu_bwd": chmix.glu_bwd_plan(H)[0],
             "ff_bwd": chmix.ff_bwd_plan(H, 2 * H)[0],
@@ -2814,11 +2975,12 @@ def check_wide_mixers(torch, blk, L, dev, results):
 
 
 def check_wide_s4_kernels(torch, model, dev, results):
-    """Phase 24's kernels 4, 8, 5f, 6, 7 and 3 (f32): vs their plain
+    """Phase 24's kernels 4, 8, 5f, 6, 7, 3 and 2 (f32): vs their plain
     versions at every tier of the d_model 256 model (its own S4
     coefficients and weights, seeded inputs and cotangents), timed; beyond
     that as phases 3, 7 and 7b hold them (``hold_kernel_4``,
-    ``hold_kernel_8``, ``hold_dkf``, ``hold_f32_mixers``, ``hold_ff``)."""
+    ``hold_kernel_8``, ``hold_dkf``, ``hold_f32_mixers``, ``hold_ff``,
+    ``hold_glu``)."""
     from diffwave_sashimi_torch import ops
     gen = torch.Generator(device=dev).manual_seed(SEED + 26)
     for H, L, blk in tier_blocks(model):
@@ -2840,11 +3002,15 @@ def check_wide_s4_kernels(torch, model, dev, results):
         compare("glu_res_bwd", H, L, lambda: ops.glu_res_bwd(*glu),
                 lambda: ops.glu_res_bwd_ref(*glu), 3, results)
         hold_f32_mixers(torch, d, f"H{H}_L{L}", results)
+        gl = (d["y"], d["x"], d["lin"].weight, d["lin"].bias)
+        compare("glu_res", H, L, lambda: ops.mix_glu_res(*gl),
+                lambda: ops.glu_res_ref(*gl), 3, results)
+        hold_glu(torch, gl, f"H{H}_L{L}", results)
         fwd = ff[:7] + (d["skip"],)
         compare("ln_ff_res", H, L, lambda: ops.ln_ff_res(*fwd, True),
                 lambda: ops.ln_ff_res_ref(*fwd, True), 3, results)
         hold_ff(torch, fwd, f"H{H}_L{L}", results)
-        del d, args, ff, glu, fwd
+        del d, args, ff, glu, fwd, gl
         torch.cuda.empty_cache()
 
 
@@ -2939,7 +3105,7 @@ def profile_train_step(torch, model, dev, steps=2):
     audio = 0.3 * torch.randn(N_SAMPLES, 1, 16000, device=dev, generator=g)
     schedule = schedule_from_cfg(DIFFUSION_CFG)
     optim = make_optimizer(model, 2e-4)
-    groups = dict(KERNEL_8_GROUPS)
+    groups = dict(KERNEL_8_GROUPS, **KERNEL_1_GROUPS)
     groups.update({f"ln_ff_res_bwd_{part}": (lambda n, names=names:
                                              in_group(n, names))
                    for part, names in KERNELS_7.items()})
@@ -3411,16 +3577,21 @@ def check_vocoder_kernels(torch, model, L, dev, results):
                     lambda: ops.fftconv_ln_bias_gelu_d_ref(x, a, c, bias,
                                                            d["khat"], D),
                     10, results, B, d["n"])
-            # 1f at n 16384 with L 8960 > n/2: the whole transform
+            # 1 and 1f at n 16384 with L 8960 > n/2: the whole transform
             xb, conv = x.to(torch.bfloat16), (a, c, bias, d["khat"], D)
+            fc = importlib.import_module("diffwave_sashimi_torch.ops.fftconv")
+            hold_1_routes(torch, "fftconv_ln_bias_gelu_d", f"H{H}_L{Lt}",
+                          d["n"], lambda p: fc.launch_sampling(x, *conv, p),
+                          ops.fftconv_ln_bias_gelu_d_ref(x, *conv),
+                          direct_conv_f64(torch, x, *conv, fast=False),
+                          cufft_conv_ms(torch, x, d["khat"], Lt), results)
             compare("fftconv_ln_bias_gelu_d_bf16", H, Lt,
                     lambda: ops.fftconv_ln_bias_gelu_d_bf16(xb, *conv),
                     lambda: ops.fftconv_ln_bias_gelu_d_ref(xb, *conv),
                     10, results, B, d["n"], tol=TOL_BF16, bpe=2)
-            fc = importlib.import_module("diffwave_sashimi_torch.ops.fftconv")
             hold_1f_routes(torch, "fftconv_ln_bias_gelu_d_bf16",
                            f"H{H}_L{Lt}", d["n"],
-                           lambda p: fc.launch_sampling_bf16(xb, *conv, p),
+                           lambda p: fc.launch_sampling(xb, *conv, p),
                            ops.fftconv_ln_bias_gelu_d_ref(xb, *conv),
                            cufft_conv_ms(torch, x, d["khat"], Lt), results)
         lin, ff1, ff2 = blk.layer.output_linear[0], *(blk.ff["ff"][i]
@@ -3431,6 +3602,7 @@ def check_vocoder_kernels(torch, model, L, dev, results):
                 lambda: ops.mix_glu_res(x, x, lin.weight, lin.bias),
                 lambda: ops.glu_res_ref(x, x, lin.weight, lin.bias),
                 10, results, B, d["n"])
+        hold_glu(torch, (x, x, lin.weight, lin.bias), f"H{H}_L{Lt}", results)
         compare("ln_ff_res", H, Lt, lambda: ops.ln_ff_res(*ff),
                 lambda: ops.ln_ff_res_ref(*ff), 10, results, B, d["n"])
         hold_ff(torch, ff[:8], f"H{H}_L{Lt}", results)
@@ -3520,7 +3692,7 @@ def check_vocoder_step(torch, model, mel, L, dev):
         lambda: model(x, steps, k_plain, ops.PLAIN, mel_conds=conds), 3)
     trace = trace_steps(
         torch, lambda: model(x, steps, k_fused, ops.FUSED, mel_conds=conds),
-        groups=KERNEL_9_GROUPS)
+        groups=dict(KERNEL_9_GROUPS, **KERNEL_1_GROUPS))
     kernel_9_route(trace, "vocoder step", cluster=False)
     return ms, plain_ms, trace
 
@@ -4630,9 +4802,9 @@ def main():
     from diffwave_sashimi_torch.runtime.generate import generate
     from diffwave_sashimi_torch.utils.exp import local_directory
 
-    # phase 1: build (and ptxas's report on kernels 4, 8, 5, 5f, 5L and 7
-    # beside it, and kernel 7's tensor-core products in its code), then
-    # require the card
+    # phase 1: build (and ptxas's report on kernels 1, 2, 3, 4, 5, 5f, 5L,
+    # 7, 8, 11 and 12 beside it, and the 3xTF32 kernels' tensor-core
+    # products in their code), then require the card
     t0 = time.perf_counter()
     ptxas = start_ptxas()
     cuda_lib.library()
@@ -4640,9 +4812,9 @@ def main():
     tf32_sass = tf32_mma_sass()
     log(f"phase build: kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s; ptxas, kernels 4, 8, 5 and 5f's "
-        f"radix-16 route, 5L and kernel 7's 3xTF32 kernels: "
-        f"{json.dumps(ptxas)}; {TF32_MMA_SASS} instructions in kernel 7's "
-        f"code {json.dumps(tf32_sass)}")
+        f"and kernel 1's radix-16 routes, 5L, 12 and the 3xTF32 kernels: "
+        f"{json.dumps(ptxas)}; {TF32_MMA_SASS} instructions in the 3xTF32 "
+        f"kernels' code {json.dumps(tf32_sass)}")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the smoke test runs on a GPU")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4934,7 +5106,10 @@ def main():
                     "allocations", "bit_equal_composite",
                     "composite_graph_ms", "c64_err", "plain_c64_err",
                     "repeat_bit_equal", "c64_errs",
-                    "plain_c64_errs",
+                    "plain_c64_errs", "stockham_c64_err",
+                    "conj_graph_ms", "conj_stockham_graph_ms",
+                    "conj_c64_err", "conj_plain_c64_err",
+                    "conj_stockham_c64_err", "conj_stockham_max_abs_err",
                     "yardstick_graph_ms", "graphs"):
             # yardsticks and parts, not library calls
             if key in top:
@@ -4943,7 +5118,8 @@ def main():
             if key in r:
                 entries[-1][key] = r[key]
         entries[-1].update(kernel_parts(name, ptxas, tf32_sass))
-        if name in ("ln_ff_res_bwd", "ln_ff_res", "gate_res_skip"):
+        if name in ("ln_ff_res_bwd", "ln_ff_res", "gate_res_skip",
+                    "glu_res"):
             # the bound with every product on the fp32 FMAs, as before the
             # 3xTF32 products (a tf32 count is three products' operations)
             ops_, nbytes = work(name, N_SAMPLES, *(

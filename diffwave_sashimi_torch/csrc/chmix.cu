@@ -17,23 +17,21 @@
 // (67 TFLOP/s : 3.35 TB/s = 20) at every tier (H >= 128), so they are
 // compute bound, and the inner product must not be bound by shared memory.
 //
-// Design of the f32 GLU and its backward (kernels 2 and 6): one block of
-// 256 threads per (batch, P positions), P = 16384 / H (128, 64, 32 at H =
-// 128, 256, 512), so the block's input tile (H x P) stays in shared memory
-// and each residual branch costs one read and one write of the
-// activations.  Past H 512 the wider tiles would not fit one block, so the
-// plan halves P until they do (16 for the GLU backward at H 1024).  The
-// f32 FF and its backward (kernels 3 and 7) multiply on the tensor cores
-// instead, in 3xTF32 (below).  Weights stream through a transposed (TK x
-// TM) shared tile, TM = 16384 / P rows, prefetched into registers one
-// k-step ahead.  Each thread keeps an 8 x 8 register tile (rows {r, r +
-// TM/2} x 4, positions 8 consecutive), fed by four 16-byte shared loads
-// per 64 FMAs.  One block per SM: two GLU blocks per SM were measured
-// slower on the step.  The sigmoid uses expf, GELU erff: the strict f32
-// path.
+// Design of the f32 GLU backward's pass (kernel 6): one block of 256
+// threads per (batch, P positions), P = 16384 / H (128, 64, 32 at H = 128,
+// 256, 512), so the block's input tile (H x P) stays in shared memory and
+// each residual branch costs one read and one write of the activations.
+// Past H 512 the wider tiles would not fit one block, so the plan halves P
+// until they do (16 at H 1024).  The f32 GLU, FF and FF backward (kernels
+// 2, 3 and 7) multiply on the tensor cores instead, in 3xTF32 (below).
+// Weights stream through a transposed (TK x TM) shared tile, TM = 16384 /
+// P rows, prefetched into registers one k-step ahead.  Each thread keeps
+// an 8 x 8 register tile (rows {r, r + TM/2} x 4, positions 8
+// consecutive), fed by four 16-byte shared loads per 64 FMAs.  One block
+// per SM.  The sigmoid uses expf, GELU erff: the strict f32 path.
 //
 // The host computes every kernel's positions a block P and its bytes of
-// shared memory (ops/chmix.py: glu_plan, ff_tf32_plan, glu_bwd_plan,
+// shared memory (ops/chmix.py: glu_tf32_plan, ff_tf32_plan, glu_bwd_plan,
 // ff_bwd_plan and, for the tensor-core kernels below, glu_bf16_plan,
 // ff_bf16_plan, glu_bwd_bf16_plan and ff_bwd_bf16_plan; wgrad_plan for the
 // weight gradients' splits), and refuses widths whose tiles do not fit one
@@ -89,7 +87,9 @@
 // stored 16 bytes a thread, coalesced.  MV P = 128 keeps 128 sums a
 // thread; past 128 MV value rows the warps take the rows in passes, so any
 // H that is a multiple of 16 up to 1024 fits one block.  Kernel 2, the f32
-// form, keeps its fp32 FMAs: its 1e-4 bar rules out bf16 products.
+// form (glu_res_tf32_kernel below), pairs its value and gate m-tiles the
+// same way but multiplies in 3xTF32: its 1e-4 bar rules out bf16 products,
+// and an f32 operand split into two tf32 parts keeps f32 accuracy.
 //
 // The backward passes' bf16 forms, kernels 6f (glu_res_bwd_tc_kernel) and
 // 7f (ln_ff_res_bwd_tc_kernel), multiply on the tensor cores too, bound by
@@ -220,40 +220,6 @@ __device__ void load_tile(const float* __restrict__ x, float* xs, int b,
   for (int idx = threadIdx.x; idx < H * P; idx += NT) {
     const int h = idx / P, p = idx % P, t = t0 + p;
     xs[idx] = t < L ? x[((size_t)b * H + h) * L + t] : 0.0f;
-  }
-}
-
-// Kernel 2 (f32; kernel 2f is glu_res_tc_kernel below).
-template <int P>
-__global__ void __launch_bounds__(NT, 1)
-glu_res_kernel(const float* __restrict__ y, const float* __restrict__ res,
-               const float* __restrict__ W, const float* __restrict__ bias,
-               float* __restrict__ out, int H, int L) {
-  using T = Tile<P>;
-  extern __shared__ float4 sh4[];
-  float* ys = reinterpret_cast<float*>(sh4);     // H x P
-  float* AsT = ys + H * P;                        // TK x LDT
-  const int b = blockIdx.y, t0 = blockIdx.x * P;
-  const int pg = threadIdx.x % T::PG;
-  load_tile<P>(y, ys, b, H, L, t0);
-  for (int o0 = 0; o0 < H; o0 += T::TM / 2) {
-    float acc[8][8];
-    gemm_chunk<P>(W, H, RowMap{o0, H + o0, H, 2 * H, T::TM / 2}, ys, AsT,
-                  acc);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int o = o0 + local_row<P>(r);
-      if (o >= H) continue;
-      const float ba = bias[o], bg = bias[H + o];
-      const size_t row = ((size_t)b * H + o) * L;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int t = t0 + pg * 8 + j;
-        if (t >= L) continue;
-        const float g = acc[r + 4][j] + bg;
-        out[row + t] = res[row + t] + (acc[r][j] + ba) / (1.0f + expf(-g));
-      }
-    }
   }
 }
 
@@ -1461,6 +1427,139 @@ ln_ff_res_tf32_kernel(const float* __restrict__ x,
   }
 }
 
+// Kernel 2 (f32), on the tensor cores at f32 accuracy.  It replaces
+// diffwave_sashimi_tpu/ops/chmix.py:119 _glu_kernel with fast=False: out =
+// res + (Wa y + ba) sigmoid(Wg y + bg), [Wa; Wg] = W (2H x H); its product
+// (_bmm at HIGHEST precision) in 3xTF32 (mma_tf32.cuh), the rest in f32 in
+// the FMA design's order: out = res + (a + ba) / (1 + expf(-(g + bg))).
+//
+// What bounds it: 4 H^2 B L operations, three tf32 products apiece at the
+// dense TF32 rate (0.025 ms at SC09's top tier, B4 H128 L16000), against
+// 0.029 ms of bytes (y and res read, out written): bytes, barely; every
+// block also reads the split weight (8 bytes an entry, 256 KB at H 128)
+// from L2, once per P positions.  Design, kernel 11's with kernel 2f's
+// pairing: split_weights_tf32_kernel<2> splits Wa and Wg (H x H each, zero
+// rows to whole m-tiles, so H need only be a multiple of 8) once a call
+// into a scratch in fragment order, Wa's Ht = ceil(H / 16) m-tiles then
+// Wg's; one block of 8 warps per (batch, P positions), built for BLOCKS
+// blocks an SM.  The f32 y tile arrives by cp.async, rows padded to LD
+// floats (LD % 32 of 8 or 24: a B fragment's 32 loads on distinct banks).
+// Each warp takes MV value m-tiles [mt0, mt0 + MV) together with their
+// gate m-tiles [Ht + mt0, ...) over all P positions
+// (warp_gemm_3xtf32_ring's groups), so a and g of one (o, p) meet in one
+// thread's registers: A fragments from L2 AHEAD k-steps ahead in a ring of
+// registers, B values split as they load, no weight tile and no barrier in
+// the k-loop.  Each value m-tile's 16 gated rows go through the warp's own
+// staging tile, so that res is read and out stored 16 bytes a lane,
+// coalesced (element by element when L % 4 != 0 or a tensor is not 16-byte
+// aligned); the ragged tail past L is masked.  ops/chmix.py::glu_tf32_plan
+// picks P and the blocks an SM and computes the block's shared memory
+// (the y tile and the 8 staging tiles), which the kernel takes as given.
+// Every sum in a fixed order: two calls are bit-equal.
+template <int P, int BLOCKS>
+struct GluTf32Tile {
+  static constexpr int N8 = P / 8;             // n-tiles
+  static constexpr int LD = P == 8 ? 8 : P + 8;
+  // value m-tiles a warp at once (each with its gate m-tile): 8 MV N8 <=
+  // 64 sums a thread; one at two blocks an SM (128 registers a thread)
+  static constexpr int MV = BLOCKS > 1 ? 1 : 2;
+  // k-steps of A fragments in flight ahead of their use (one: the ring of
+  // four m-tiles at one block, or of two in 128 registers)
+  static constexpr int AHEAD = 1;
+  static constexpr int C4 = P / 4;             // 16-byte chunks a row
+  static constexpr int HS = NT / C4;           // row step of a thread
+};
+
+// Kernel 2 (f32 y, res and out; Wf = Wa's and Wg's split tiles; f32
+// bias).  Dynamic shared memory, sized by ops/chmix.py::glu_tf32_plan: the
+// f32 y tile (H rows), then each warp's 16-row staging tile.  vec: L % 4
+// == 0 and y, res and out 16-byte aligned.
+template <int P, int BLOCKS>
+__global__ void __launch_bounds__(NT, BLOCKS)
+glu_res_tf32_kernel(const float* __restrict__ y,
+                    const float* __restrict__ res,
+                    const uint4* __restrict__ Wf,
+                    const float* __restrict__ bias, float* __restrict__ out,
+                    int H, int L, bool vec) {
+  using T = GluTf32Tile<P, BLOCKS>;
+  constexpr int LD = T::LD, N8 = T::N8, MV = T::MV, C4 = T::C4;
+  extern __shared__ float4 sh4[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  float* ys = reinterpret_cast<float*>(sh4);          // H x LD: y
+  float* st = ys + (size_t)H * LD + warp * 16 * LD;   // the warp's 16 rows
+  const int b = blockIdx.y, t0 = blockIdx.x * P;
+  const int Ht = (H + 15) / 16, Kt = H / 8;
+
+  // the y tile (0 past L), 16 bytes a thread by cp.async with vec
+  {
+    const int c = tid % C4 * 4, tc = t0 + c;
+    for (int h = tid / C4; h < H; h += T::HS) {
+      const size_t at = ((size_t)b * H + h) * L + tc;
+      float* yd = ys + h * LD + c;
+      if (vec && tc < L) {           // L % 4 == 0: the chunk is all in
+        cp_async16(yd, y + at);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) yd[e] = tc + e < L ? y[at + e] : 0.0f;
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+
+  for (int u = warp; u * MV < Ht; u += NWARPS) {
+    const int mt0 = u * MV;
+    // acc[m < MV]: value m-tile mt0 + m; acc[MV + m]: its gate m-tile
+    float acc[2 * MV][N8][4];
+    dwst_tf32::zero_acc<2 * MV, N8>(acc);
+    dwst_tf32::warp_gemm_3xtf32_ring<2 * MV, N8, T::AHEAD, MV>(
+        Wf, 2 * Ht, Kt, mt0, 0, Kt, ys, LD, acc, Ht);
+#pragma unroll
+    for (int mt = 0; mt < MV; ++mt) {
+      const int r0 = 16 * (mt0 + mt);
+      if (r0 >= H) break;
+      // the m-tile's 16 gated rows into the warp's staging tile
+      __syncwarp();                  // the last m-tile's rows are read
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int o = r0 + gq + 8 * hh;
+        if (o >= H) continue;
+        const float ba = bias[o], bg = bias[H + o];
+        float* sr = st + (gq + 8 * hh) * LD + 2 * tq;
+#pragma unroll
+        for (int j = 0; j < N8; ++j) {
+          const float g0 = acc[MV + mt][j][2 * hh] + bg;
+          const float g1 = acc[MV + mt][j][2 * hh + 1] + bg;
+          *reinterpret_cast<float2*>(sr + 8 * j) =
+              make_float2((acc[mt][j][2 * hh] + ba) / (1.0f + expf(-g0)),
+                          (acc[mt][j][2 * hh + 1] + ba) / (1.0f + expf(-g1)));
+        }
+      }
+      __syncwarp();
+      // out = res + the gated rows, 16 bytes a lane, a warp's lanes on
+      // consecutive positions
+      for (int i = lane; i < 16 * C4; i += 32) {
+        const int r = i / C4, cc = i % C4 * 4, o = r0 + r, t = t0 + cc;
+        if (o >= H) break;
+        const float* sv = st + r * LD + cc;
+        const size_t at = ((size_t)b * H + o) * L + t;
+        if (vec && t < L) {
+          const float4 v = *reinterpret_cast<const float4*>(sv);
+          const float4 rv = __ldg(reinterpret_cast<const float4*>(res + at));
+          *reinterpret_cast<float4*>(out + at) =
+              make_float4(rv.x + v.x, rv.y + v.y, rv.z + v.z, rv.w + v.w);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (t + e < L) out[at + e] = res[at + e] + sv[e];
+        }
+      }
+    }
+  }
+}
+
 // Kernel 7f (bf16 x, g and dx; f32 b1, m, s, scratch and (dm, ds)
 // partials), the FF backward on the tensor cores.  It replaces
 // diffwave_sashimi_tpu/ops/chmix.py:362 _ff_bwd_kernel with fast=True: as
@@ -2101,9 +2200,9 @@ int weight_grad(const TX* X, const TY* Y, float* part, float* grads, int B,
 }
 
 
-// The fp32 kernels below launch at P positions a block on smem bytes of
-// dynamic shared memory, both from ops/chmix.py's plan of each kernel; P is
-// one the kernel is built for, else the launch is refused.
+// The fp32 kernel below launches at P positions a block on smem bytes of
+// dynamic shared memory, both from ops/chmix.py's plan; P is one the
+// kernel is built for, else the launch is refused.
 int glu_res_bwd_launch(const float* y, const float* g, const float* W,
                        const float* Wt, const float* bias, float* dy,
                        float* dz, int B, int H, int L, int P, int smem,
@@ -2121,26 +2220,6 @@ int glu_res_bwd_launch(const float* y, const float* g, const float* W,
     case 64: return run(glu_res_bwd_kernel<64>);
     case 32: return run(glu_res_bwd_kernel<32>);
     case 16: return run(glu_res_bwd_kernel<16>);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-int glu_res(const float* y, const float* res, const float* W, const float* b,
-            float* out, int B, int H, int L, int P, int smem,
-            cudaStream_t stream) {
-  auto run = [&](auto kernel) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    kernel<<<dim3((L + P - 1) / P, B), NT, smem, stream>>>(y, res, W, b, out,
-                                                           H, L);
-    return (int)cudaGetLastError();
-  };
-  if (H % TK) return (int)cudaErrorInvalidValue;
-  switch (P) {
-    case 128: return run(glu_res_kernel<128>);
-    case 64: return run(glu_res_kernel<64>);
-    case 32: return run(glu_res_kernel<32>);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -2304,6 +2383,30 @@ int launch_ff_bwd_tf32(const float* x, const float* g, const float* W1,
   return (int)cudaGetLastError();
 }
 
+// Kernel 2 on smem bytes of dynamic shared memory a block: Wa and Wg split
+// into the scratch wf (ops/chmix.py::glu_tf32_split_floats floats), then
+// the 3xTF32 kernel, built for BLOCKS blocks an SM.
+template <int P, int BLOCKS>
+int launch_glu_tf32(const float* y, const float* res, const float* W,
+                    const float* b, float* out, uint4* wf, int B, int H,
+                    int L, int smem, cudaStream_t stream) {
+  // Wa (H x H), then Wg (H x H), each zero-padded to whole m-tiles
+  dwst_tf32::SplitJobs jobs{{{W, nullptr, H, H, H, H, 1},
+                             {W + (size_t)H * H, nullptr, H, H, H, H, 1}},
+                            2};
+  int e = dwst_tf32::split_weights_launch<2>(jobs, wf, stream);
+  if (e) return e;
+  auto kernel = glu_res_tf32_kernel<P, BLOCKS>;
+  e = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e) return e;
+  const bool vec = L % 4 == 0 && aligned16(y) && aligned16(res) &&
+                   aligned16(out);
+  kernel<<<dim3((L + P - 1) / P, B), NT, smem, stream>>>(y, res, wf, b, out,
+                                                         H, L, vec);
+  return (int)cudaGetLastError();
+}
+
 // Kernel 3 on smem bytes of dynamic shared memory a block: W1 and W2 split
 // into the scratch wf (ops/chmix.py::ff_tf32_split_floats floats), then
 // the 3xTF32 kernel, FC hidden rows a chunk, built for BLOCKS blocks an SM.
@@ -2367,10 +2470,31 @@ using bf16 = __nv_bfloat16;
 // Every entry below takes P (positions a block) and smem (bytes of shared
 // memory a block) from the kernel's plan in ops/chmix.py.
 
+// Kernel 2: y, res and out f32; wf a scratch for the split weights
+// (ops/chmix.py::glu_tf32_split_floats floats); P, blocks an SM (P 32, 16
+// or 8 at one; 64 or 32 at two) and smem from ops/chmix.py::
+// glu_tf32_plan; H a multiple of 8.
 extern "C" int dwst_glu_res(const float* y, const float* res, const float* W,
-                            const float* b, float* out, int B, int H, int L,
-                            int P, int smem, cudaStream_t stream) {
-  return glu_res(y, res, W, b, out, B, H, L, P, smem, stream);
+                            const float* b, float* out, void* wf, int B,
+                            int H, int L, int P, int blocks, int smem,
+                            cudaStream_t stream) {
+  if (H <= 0 || H % 8 || B <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
+  auto* w = static_cast<uint4*>(wf);
+  auto run = [&](auto launch) {
+    return launch(y, res, W, b, out, w, B, H, L, smem, stream);
+  };
+  if (blocks == 2) {
+    if (P == 64) return run(launch_glu_tf32<64, 2>);
+    if (P == 32) return run(launch_glu_tf32<32, 2>);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (blocks != 1) return (int)cudaErrorInvalidValue;
+  switch (P) {
+    case 32: return run(launch_glu_tf32<32, 1>);
+    case 16: return run(launch_glu_tf32<16, 1>);
+    case 8: return run(launch_glu_tf32<8, 1>);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Kernel 2f: y, res and out bf16; wb a scratch for W rounded to bf16 (2 H H

@@ -28,9 +28,13 @@
 //
 // Kernel 1f's training entry (fftconv2 with fast=True, and its input
 // gradient, the same call on -kfi) is the plain form templated on bf16: u
-// and out bf16, the chain f32.  Both forms of kernel 1f also have a
-// radix-16 route (fftconv_r16_kernel, below), which ops/fftconv.py::
-// conv_plan takes at the FFT sizes where it is the faster on the H100.
+// and out bf16, the chain f32.  Both forms of kernel 1 and of kernel 1f
+// also have a radix-16 route (fftconv_r16_kernel<M, FUSED, T>, below),
+// which ops/fftconv.py::conv_plan takes at the FFT sizes it has instances
+// for (every size the SaShiMi paths launch kernel 1 at); the Stockham
+// kernel below serves every other size.  The f32 instances keep kernel
+// 1's function to f32 accuracy: twiddles from once-rounded roots, the
+// exact GELU, and the D-skip added in the epilogue.
 //
 // Kernel 5 replaces fftconv2.py::_dkf_kernel (fftconv2_dkf): the khat
 // gradient summed over the batch, in the convention of torch autograd for
@@ -221,11 +225,11 @@ fftconv_kernel(const T* __restrict__ u, const float* __restrict__ a,
   }
 }
 
-// ---- Kernel 1f's radix-16 route (both forms) -------------------------------
+// ---- Kernels 1 and 1f on the radix-16 route (both forms) ---------------------
 //
-// The same functions as fftconv_kernel<*, bf16>, redesigned for the H100
-// (ops/fftconv.py::conv_plan routes each FFT size to the faster of the
-// two).  What held the Stockham kernel back, per (b, h) row at n = 32768:
+// The same functions as fftconv_kernel<*, T>, redesigned for the H100
+// (ops/fftconv.py::conv_plan routes each FFT size to it or to that
+// kernel).  What held the Stockham kernel back, per (b, h) row at n = 32768:
 // 12 shared-memory round trips of the whole 128 KB row and 24 block-wide
 // barriers over 32 warps (5 radix-8/4 passes each way, the load, the
 // pairwise split pass, the store), a second pass over u, a and c for the
@@ -272,6 +276,18 @@ fftconv_kernel(const T* __restrict__ u, const float* __restrict__ a,
 // pass's, of the thread's own slots) and 11 block barriers (n 32768: 512
 // threads, 136 KB, one block an SM; smaller n several blocks an SM).  The
 // chain stays f32, as in the Stockham kernel.
+//
+// Kernel 1 (T float: u and out f32) takes the same schedule with three
+// changes, so that its error against float64 stays near the plain
+// version's (cuFFT's) and its function is the Stockham kernel's:
+// - the radix-16 passes twiddle by twiddle16 (products of at most two
+//   once-rounded roots, as kernels 5 and 5f do; ROOTS below), not by
+//   twiddle_all's running products to W^(15 k), but for the inverse one
+//   at n 8192 (INV_ROOTS in the kernel);
+// - the D-skip is not folded into the spectrum: the store pass adds D u'
+//   to y / n, u' re-read from device memory (L2) and formed as the load
+//   pass formed it, then takes the exact GELU (gelu_erf);
+// - its loads and stores of the row move f32 pairs, 8 bytes each.
 
 using bf16 = __nv_bfloat16;
 
@@ -491,8 +507,9 @@ __device__ __forceinline__ float2 load_pair(const float* __restrict__ x,
 }
 
 // The conv input's packed value p, (x[2p], x[2p+1]), zero past L: u, or in
-// the sampling form a u + c + bias (u bf16).  VEC (L even, rows aligned):
-// one load of u (load_pair) and 8-byte loads of a and c for the pair.
+// the sampling form a u + c + bias (u bf16 or f32).  VEC (L even, rows
+// aligned): one load of u (load_pair) and 8-byte loads of a and c for the
+// pair.
 template <bool FUSED, bool VEC, typename T>
 __device__ __forceinline__ float2 r16_in(const T* __restrict__ ur,
                                          const float* __restrict__ ar,
@@ -522,7 +539,7 @@ __device__ __forceinline__ float2 r16_in(const T* __restrict__ ur,
 // group of butterflies at a time (their loads in flight together: GL
 // packed values, 8 in the sampling form, whose three loads a value hold
 // more registers, 16 in the plain one).  x is bf16, or float for kernel
-// 5's row; Q: as r16_lane.
+// 1's and kernel 5's rows; Q: as r16_lane.
 template <int M, bool FUSED, bool VEC, int Q = 1, typename T>
 __device__ __forceinline__ void r16_load_pass(
     float2* z, const T* __restrict__ ur, const float* __restrict__ ar,
@@ -661,8 +678,9 @@ __device__ __forceinline__ void r16_last_forward_roots(float2* z) {
 // the thread holds one butterfly's 16 values, or a pair and two groups of
 // spectrum values, until the first inverse pass, whose 32 values cross
 // the barrier.  The thread folds its 16 pairs (r16_bin), thread 0 also the
-// real DC and Nyquist bins.
-template <int M>
+// real DC and Nyquist bins.  ROOTS: the last forward pass twiddles by
+// twiddle16 (r16_last_forward_roots).
+template <int M, bool ROOTS>
 __device__ __forceinline__ void r16_middle(float2* z,
                                            const float2* __restrict__ kr,
                                            float dh, float ksign) {
@@ -680,7 +698,8 @@ __device__ __forceinline__ void r16_middle(float2* z,
     km[i] = spec(M - r16_bin<M>(tid, i));
   }
   const float2 et = root<false>(tid, 2 * M);     // exp(-i pi t / M)
-  r16_last_forward<M>(z, et);
+  if constexpr (ROOTS) r16_last_forward_roots<M, 1>(z);
+  else r16_last_forward<M>(z, et);
   tid = r16_tid();
   if (tid == 0) {
     // the DC and Nyquist bins are real: irfft reads only their real parts
@@ -741,17 +760,27 @@ __device__ __forceinline__ void r16_middle(float2* z,
 
 // The last inverse pass, radix R0 at Ns = M/R0, to device memory: packed
 // output p = j + r M/R0 is n (y[2p] + i y[2p+1]); t = 2p, 2p + 1 stored
-// only where t < L, as gelu_fast(y) in the sampling form, as one 4-byte
-// store of the pair where L is even.  No barrier follows, so two
-// butterflies at a time.
-template <int M, bool FUSED>
-__device__ __forceinline__ void r16_store_pass(const float2* z,
-                                               bf16* __restrict__ orow,
-                                               int L) {
+// only where t < L, as one store of the pair (4 bytes of bf16, 8 of f32)
+// where L is even and the row aligned.  The sampling form's epilogue: T
+// bf16 (kernel 1f, the D-skip folded into the spectrum) gelu_fast(y); T
+// float (kernel 1) gelu_erf(y + dh u'), u' = a u + c + bias re-read from
+// the row as r16_in forms it (ur, ar, cr, bh: as for r16_load_pass; VEC:
+// its pair loads).  No barrier follows, so two butterflies at a time.
+// ROOTS: at R0 = 16 the twiddles by twiddle16, from once-rounded roots of
+// each butterfly's j, one butterfly at a time (two, with their roots, do
+// not fit 128 registers); else W_M^-j as one product of roots, its powers
+// by twiddle_all (a product or two at R0 <= 4).
+template <int M, bool FUSED, bool VEC, bool ROOTS, typename T>
+__device__ __forceinline__ void r16_store_pass(
+    const float2* z, T* __restrict__ orow, const T* __restrict__ ur,
+    const float* __restrict__ ar, const float* __restrict__ cr, float bh,
+    float dh, int L) {
+  constexpr bool F32 = sizeof(T) == 4;
   constexpr int R = R16<M>::R0, NT = R16<M>::NT, NB = R16_HELD / R;
-  constexpr int S = M / R, QS = NB >= 2 ? 2 : 1;
+  constexpr int S = M / R, QS = NB >= 2 && !(ROOTS && R == 16) ? 2 : 1;
   constexpr float inv_n = 1.0f / (float)(2 * M);
-  const bool pairs = !(L & 1) && !(reinterpret_cast<size_t>(orow) & 3);
+  const bool pairs =
+      !(L & 1) && !(reinterpret_cast<size_t>(orow) & (2 * sizeof(T) - 1));
   // butterfly j = t + q M/32 twiddles by W_M^-j = W_M^-t W_32^-q: one
   // root a thread, and a constant a butterfly
   const float2 wt = root<true>(r16_tid(), M);
@@ -762,29 +791,51 @@ __device__ __forceinline__ void r16_store_pass(const float2* z,
 #pragma unroll
     for (int q = 0; q < QS; ++q) {
       const int j = tid + (q0 + q) * NT;
+      if constexpr (ROOTS && R == 16) {
+        const Pow16 w = pow16<true>(j, M);
 #pragma unroll
-      for (int r = 0; r < R; ++r) v[q][r] = z[slot16(j + r * S)];
-      // W_32^-(q0 + q) = conj(exp(-i pi (q0 + q) / 16)), q0 + q < NB <= 16
-      twiddle_all<R, 1>(&v[q], cmul(wt, cconj(root32(q0 + q))));
+        for (int r = 0; r < R; ++r) v[q][r] = z[slot16(j + r * S)];
+        twiddle16<1>(&v[q], w);
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r) v[q][r] = z[slot16(j + r * S)];
+        // W_32^-(q0 + q) = conj(exp(-i pi (q0 + q) / 16)), q0 + q < NB <= 16
+        twiddle_all<R, 1>(&v[q], cmul(wt, cconj(root32(q0 + q))));
+      }
       dft<R, true>(v[q]);
     }
 #pragma unroll
     for (int q = 0; q < QS; ++q)
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const int t = 2 * (tid + (q0 + q) * NT + r * S);
+        const int p = tid + (q0 + q) * NT + r * S, t = 2 * p;
         float y0 = v[q][r].x * inv_n, y1 = v[q][r].y * inv_n;
-        if (FUSED) {
-          y0 = gelu_fast(y0);
-          y1 = gelu_fast(y1);
-        }
-        if (pairs) {
-          if (t < L)
-            *reinterpret_cast<__nv_bfloat162*>(orow + t) =
-                __floats2bfloat162_rn(y0, y1);
+        if constexpr (F32) {
+          if constexpr (FUSED) {
+            const float2 x = r16_in<true, VEC>(ur, ar, cr, bh, p, L);
+            y0 = gelu_erf(y0 + dh * x.x);
+            y1 = gelu_erf(y1 + dh * x.y);
+          }
+          if (pairs) {
+            if (t < L)
+              *reinterpret_cast<float2*>(orow + t) = make_float2(y0, y1);
+          } else {
+            if (t < L) orow[t] = y0;
+            if (t + 1 < L) orow[t + 1] = y1;
+          }
         } else {
-          if (t < L) orow[t] = __float2bfloat16_rn(y0);
-          if (t + 1 < L) orow[t + 1] = __float2bfloat16_rn(y1);
+          if (FUSED) {
+            y0 = gelu_fast(y0);
+            y1 = gelu_fast(y1);
+          }
+          if (pairs) {
+            if (t < L)
+              *reinterpret_cast<__nv_bfloat162*>(orow + t) =
+                  __floats2bfloat162_rn(y0, y1);
+          } else {
+            if (t < L) orow[t] = __float2bfloat16_rn(y0);
+            if (t + 1 < L) orow[t + 1] = __float2bfloat16_rn(y1);
+          }
         }
       }
   }
@@ -792,38 +843,55 @@ __device__ __forceinline__ void r16_store_pass(const float2* z,
 
 // One block a (b, h) row, blocks in channel-major order (the B rows of a
 // channel read its spectrum back to back).  FUSED: the sampling form;
-// otherwise the training entry, with conj(khat) when conj != 0.
-template <int M, bool FUSED>
+// otherwise the training entry, with conj(khat) when conj != 0.  T: bf16
+// (kernel 1f), or float (kernel 1: the ROOTS twiddles, the D-skip in the
+// store pass; see above).
+template <int M, bool FUSED, typename T>
 __global__ void __launch_bounds__(R16<M>::NT, R16<M>::MIN_BLOCKS)
-fftconv_r16_kernel(const bf16* __restrict__ u, const float* __restrict__ a,
+fftconv_r16_kernel(const T* __restrict__ u, const float* __restrict__ a,
                    const float* __restrict__ c,
                    const float* __restrict__ bias,
                    const float2* __restrict__ khat,
-                   const float* __restrict__ D, bf16* __restrict__ out,
+                   const float* __restrict__ D, T* __restrict__ out,
                    int B, int H, int L, int conj) {
+  constexpr bool F32 = sizeof(T) == 4;
+  // the inverse radix-16 passes' twiddles from roots, but at R0 = 16 (M
+  // 4096), where the roots' powers there took a thread past its 128
+  // registers (ptxas spilled 76-88 bytes) and the pass takes running
+  // products instead: one pass of them kept the float64 error within 1.1x
+  // the plain version's on the card (chip_smoke.py's hold_1_routes)
+  constexpr bool INV_ROOTS = F32 && R16<M>::R0 < 16;
   extern __shared__ float2 z[];      // R16<M>::SLOTS slots, slot16(i)
   const int h = blockIdx.x / B, b = blockIdx.x - h * B;
   const size_t row = (size_t)b * H + h;
   R16_STAMP(0);
-  const bf16* ur = u + row * L;
+  const T* ur = u + row * L;
   const float* ar = FUSED ? a + (size_t)b * L : a;
   const float* cr = FUSED ? c + (size_t)b * L : c;
   const float bh = FUSED ? bias[row] : 0.0f;
-  // pairs of the row as one 4-byte (u) and 8-byte (a, c) load each
-  const bool vec = !(L & 1) && !(reinterpret_cast<size_t>(u) & 3) &&
+  const float dh = FUSED ? D[h] : 0.0f;
+  // pairs of the row as one load of u (4 bytes of bf16, 8 of f32) and one
+  // 8-byte load of a and of c each
+  const bool vec = !(L & 1) &&
+                   !(reinterpret_cast<size_t>(u) & (2 * sizeof(T) - 1)) &&
                    !((reinterpret_cast<size_t>(a) |
                       reinterpret_cast<size_t>(c)) & 7);
   if (vec) r16_load_pass<M, FUSED, true>(z, ur, ar, cr, bh, L);
   else r16_load_pass<M, FUSED, false>(z, ur, ar, cr, bh, L);
   R16_STAMP(1);
-  r16_passes<M, 0, false>(z);
+  r16_passes<M, 0, false, F32>(z);
   R16_STAMP(2);
-  r16_middle<M>(z, khat + (size_t)h * (M + 1), FUSED ? D[h] : 0.0f,
-                conj ? -1.0f : 1.0f);
+  r16_middle<M, F32>(z, khat + (size_t)h * (M + 1), F32 ? 0.0f : dh,
+                     conj ? -1.0f : 1.0f);
   R16_STAMP(3);
-  r16_passes<M, 0, true>(z);
+  r16_passes<M, 0, true, INV_ROOTS>(z);
   R16_STAMP(4);
-  r16_store_pass<M, FUSED>(z, out + row * L, L);
+  if (F32 && vec)
+    r16_store_pass<M, FUSED, true, F32>(z, out + row * L, ur, ar, cr, bh, dh,
+                                        L);
+  else
+    r16_store_pass<M, FUSED, false, F32>(z, out + row * L, ur, ar, cr, bh,
+                                         dh, L);
   R16_STAMP(5);
 }
 
@@ -1220,32 +1288,32 @@ int launch_dkf_plan(const T* u, const T* g, void* out, int B, int H, int L,
   }
 }
 
-// Kernel 1f's radix-16 route at M = n/2, with the plan's threads and
-// shared-memory bytes (ops/fftconv.py::radix16_plan), which must be this
-// instance's.
-template <int M, bool FUSED>
-int launch_r16_at(const bf16* u, const float* a, const float* c,
+// Kernel 1's (T float) or 1f's (T bf16) radix-16 route at M = n/2, with
+// the plan's threads and shared-memory bytes (ops/fftconv.py::
+// radix16_plan), which must be this instance's.
+template <int M, bool FUSED, typename T>
+int launch_r16_at(const T* u, const float* a, const float* c,
                   const float* bias, const void* khat, const float* D,
-                  bf16* out, int B, int H, int L, int conj, int threads,
+                  T* out, int B, int H, int L, int conj, int threads,
                   int smem, cudaStream_t stream) {
   if (threads != R16<M>::NT || smem != R16<M>::SLOTS * (int)sizeof(float2)
       || L < 1 || L > 2 * M)
     return (int)cudaErrorInvalidValue;
   const cudaError_t attr = cudaFuncSetAttribute(
-      fftconv_r16_kernel<M, FUSED>,
+      fftconv_r16_kernel<M, FUSED, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
-  fftconv_r16_kernel<M, FUSED><<<B * H, threads, smem, stream>>>(
+  fftconv_r16_kernel<M, FUSED, T><<<B * H, threads, smem, stream>>>(
       u, a, c, bias, static_cast<const float2*>(khat), D, out, B, H, L,
       conj);
   return (int)cudaGetLastError();
 }
 
-template <bool FUSED>
-int launch_r16(const bf16* u, const float* a, const float* c,
-               const float* bias, const void* khat, const float* D,
-               bf16* out, int B, int H, int L, int n, int conj, int threads,
-               int smem, cudaStream_t stream) {
+template <bool FUSED, typename T>
+int launch_r16(const T* u, const float* a, const float* c,
+               const float* bias, const void* khat, const float* D, T* out,
+               int B, int H, int L, int n, int conj, int threads, int smem,
+               cudaStream_t stream) {
   switch (n) {
     case 2048:
       return launch_r16_at<1024, FUSED>(u, a, c, bias, khat, D, out, B, H,
@@ -1318,6 +1386,16 @@ extern "C" int dwst_fftconv_dkf_bf16(const void* u, const void* g, void* out,
                          threads, smem, stream);
 }
 
+// Kernel 1 on its radix-16 route: the arguments of
+// dwst_fftconv_ln_bias_gelu_d and the route's plan.
+extern "C" int dwst_fftconv_r16_ln_bias_gelu_d(
+    const float* u, const float* a, const float* c, const float* bias,
+    const void* khat, const float* D, float* out, int B, int H, int L, int n,
+    int threads, int smem, cudaStream_t stream) {
+  return launch_r16<true>(u, a, c, bias, khat, D, out, B, H, L, n, 0,
+                          threads, smem, stream);
+}
+
 // Kernel 1f on its radix-16 route: the arguments of
 // dwst_fftconv_ln_bias_gelu_d_bf16 and the route's plan.
 extern "C" int dwst_fftconv_r16_ln_bias_gelu_d_bf16(
@@ -1327,6 +1405,16 @@ extern "C" int dwst_fftconv_r16_ln_bias_gelu_d_bf16(
   return launch_r16<true>(static_cast<const bf16*>(u), a, c, bias, khat, D,
                           static_cast<bf16*>(out), B, H, L, n, 0, threads,
                           smem, stream);
+}
+
+// Kernel 1's training entry on its radix-16 route: the arguments of
+// dwst_fftconv and the route's plan.
+extern "C" int dwst_fftconv_r16(const float* u, const void* khat, float* out,
+                                int B, int H, int L, int n, int conj,
+                                int threads, int smem, cudaStream_t stream) {
+  return launch_r16<false, float>(u, nullptr, nullptr, nullptr, khat, nullptr,
+                                  out, B, H, L, n, conj, threads, smem,
+                                  stream);
 }
 
 // Kernel 1f's training entry on its radix-16 route: the arguments of

@@ -155,11 +155,14 @@ __device__ __forceinline__ void zero_acc(float acc[MT][N8][4]) {
 // AHEAD k-steps of products cover the L2 latency of each load.  Bs (8 nk x
 // 8 N8) has its row 0 at k-tile kt0.  Each k-step's sum is added to acc in
 // k order, so a product taken in pieces of k-tiles, in order, sums as one
-// taken whole.
-template <int MT, int N8, int AHEAD>
+// taken whole.  The m-tiles come in groups of MG consecutive ones, gap
+// tiles apart: acc[m] is A's m-tile mt0 + m % MG + gap (m / MG) (by default
+// one group, mt0 + m; kernel 2 pairs each value m-tile with its gate
+// m-tile, as mma_bf16.cuh::warp_gemm_ring does for kernel 2f).
+template <int MT, int N8, int AHEAD, int MG = MT>
 __device__ __forceinline__ void warp_gemm_3xtf32_ring(
     const uint4* __restrict__ Af, int Mt, int Kt, int mt0, int kt0, int nk,
-    const float* Bs, int ld, float acc[MT][N8][4]) {
+    const float* Bs, int ld, float acc[MT][N8][4], int gap = 0) {
   constexpr int D = AHEAD + 1;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   uint32_t ring[D][MT][2][4];
@@ -168,8 +171,8 @@ __device__ __forceinline__ void warp_gemm_3xtf32_ring(
     if (s < nk) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
-        load_a_split(ring[s][mt][0], ring[s][mt][1], Af, Mt, Kt, mt0 + mt,
-                     kt0 + s);
+        load_a_split(ring[s][mt][0], ring[s][mt][1], Af, Mt, Kt,
+                     mt0 + mt % MG + gap * (mt / MG), kt0 + s);
     }
   for (int k0 = 0; k0 < nk; k0 += D) {
 #pragma unroll
@@ -180,8 +183,8 @@ __device__ __forceinline__ void warp_gemm_3xtf32_ring(
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
           load_a_split(ring[(s + AHEAD) % D][mt][0],
-                       ring[(s + AHEAD) % D][mt][1], Af, Mt, Kt, mt0 + mt,
-                       kt0 + kk + AHEAD);
+                       ring[(s + AHEAD) % D][mt][1], Af, Mt, Kt,
+                       mt0 + mt % MG + gap * (mt / MG), kt0 + kk + AHEAD);
       }
       const float* b = Bs + (size_t)(8 * kk + t) * ld + g;
 #pragma unroll

@@ -26,12 +26,12 @@ to bf16 and the weight, bias, m and s gradients stay f32; kernels 6f
 and 7f multiply on the tensor cores and take channel widths that are
 multiples of 16.  The weight gradients of 6, 6f, 7 and 7f are one tiled
 contraction over all positions, in split-K partials summed in a fixed
-order (``wgrad_plan``), on the fp32 FMAs.  Kernels 3's and 7's
+order (``wgrad_plan``), on the fp32 FMAs.  Kernels 2's, 3's and 7's
 per-position products run on the tensor cores in 3xTF32: each f32
 operand split into two tf32 parts, hi and lo, and a product taken as lo
 hi + hi lo + hi hi with f32 sums, which keeps f32 accuracy.
 
-Widths: each kernel's plan (``glu_plan``, ``ff_tf32_plan``,
+Widths: each kernel's plan (``glu_tf32_plan``, ``ff_tf32_plan``,
 ``glu_bwd_plan``, ``ff_bwd_plan``, ``glu_bf16_plan``, ``ff_bf16_plan``,
 ``glu_bwd_bf16_plan``, ``ff_bwd_bf16_plan``)
 is the one place its positions a block and its shared-memory bytes are
@@ -65,7 +65,12 @@ def glu_res_ref(y, res, w, b):
 
 def mix_glu_res(y, res, w, b):
     """Kernel-2 wrapper: CUDA kernel for CUDA tensors, else the plain
-    version; bf16 activations go to kernel 2f."""
+    version; bf16 activations go to kernel 2f.  The kernel's product runs
+    on the tensor cores at f32 accuracy (3xTF32); H must be a multiple of
+    8 (:func:`glu_refusal`).  A call launches two kernels, counted as one
+    launch: a pass that splits W's value and gate halves into tf32 parts
+    in mma fragment order into a scratch of its own, then the 3xTF32
+    kernel, sized by :func:`glu_tf32_plan`."""
     if not y.is_cuda:
         return glu_res_ref(y, res, w, b)
     if y.dtype == torch.bfloat16:
@@ -76,9 +81,9 @@ def mix_glu_res(y, res, w, b):
                      (b, (2 * H,))):
         cuda_lib.check(t, shape, torch.float32)
     out = torch.empty_like(res)
-    cuda_lib.launch("dwst_glu_res", y.data_ptr(), res.data_ptr(),
-                    w.data_ptr(), b.data_ptr(), out.data_ptr(), B, H, L,
-                    *glu_plan(H))
+    wf = w.new_empty((glu_tf32_split_floats(H),))
+    cuda_lib.launch("dwst_glu_res", *_ptrs(y, res, w, b, out, wf), B, H, L,
+                    *glu_tf32_plan(B, H, L, cuda_lib.sm_count(y.device)))
     mix_glu_res.launches += 1
     return out
 
@@ -196,16 +201,23 @@ SMEM_LIMIT = 232448
 # an SM's shared memory on sm_90 (228 KB), of which the card reserves 1 KB
 # for each block it holds
 SMEM_SM, SMEM_RESERVED = 233472, 1024
-# csrc/chmix.cu's fp32 tiles (kernels 2 and 6): NT threads a block;
-# weights through a transposed (TK x 16384 / P + 4) tile
+# csrc/chmix.cu's fp32 tiles (kernel 6): NT threads a block; weights
+# through a transposed (TK x 16384 / P + 4) tile
 NT, TK = 256, 8
 # the positions a block each fp32 kernel is built for (the P cases of its
 # launcher in csrc/chmix.cu), widest first
-GLU_PS = (128, 64, 32)
 GLU_BWD_PS = (128, 64, 32, 16)
 FF_BWD_PS = (64, 32, 16, 8)
 # the positions a block kernel 3 (3xTF32) is built for, widest first
 FF_TF32_PS = (128, 64, 32, 16, 8)
+# kernel 2's (3xTF32): the positions a block it is built for at one block
+# an SM, widest first; its (P, blocks an SM) instances of more blocks, in
+# the order its plan tries them; the most split-weight bytes a block may
+# read from L2 per position there (kernel 11's rule: a narrower P re-reads
+# the weights more often)
+GLU_TF32_PS = (32, 16, 8)
+GLU_TF32_SHARED = ((64, 2), (32, 2))
+GLU_TF32_WEIGHT_BYTES = 16384
 # the widest H kernels 2f, 3f, 6f and 7f take
 GLU_BF16_MAX_H = FF_BF16_MAX_H = FF_BWD_BF16_MAX_H = 1024
 # the positions a block kernels 6f and 7f are built for, widest first
@@ -217,7 +229,7 @@ WGRAD_TILE, WGRAD_STEP, WGRAD_ALIGN = 128, 32, 8
 
 
 def _positions(H):
-    """P = 16384 / H within [32, 128]: kernels 2 and 6 and the tensor-core
+    """P = 16384 / H within [32, 128]: kernel 6's and the tensor-core
     kernels' default."""
     return 128 if H <= 128 else (64 if H <= 256 else 32)
 
@@ -236,11 +248,50 @@ def _fitted(ps, P0, smem):
     return P, smem(P)
 
 
-def glu_plan(H):
-    """Kernel 2's (P, shared-memory bytes a block): the f32 y tile (H x P)
-    and the weight tile."""
-    return _fitted(GLU_PS, _positions(H),
-                   lambda P: 4 * (H * P + _weight_tile(P)))
+@functools.lru_cache(maxsize=None)
+def glu_tf32_plan(B, H, L, sms=132):
+    """Kernel 2's tile plan (``csrc/chmix.cu::glu_res_tf32_kernel``) on a
+    card of ``sms`` SMs: (P positions a block, blocks an SM the kernel is
+    built for, shared-memory bytes a block), the grid being ceil(L / P) x
+    B blocks.  The block keeps the f32 y tile (H rows) and each of its 8
+    warps a 16-row f32 staging tile, rows of :func:`ff_bwd_ld` floats.
+    Several blocks an SM hide each other's latencies, so the plan takes
+    the first of GLU_TF32_SHARED whose blocks' tiles fit an SM and whose
+    block reads at most GLU_TF32_WEIGHT_BYTES of split weights (2H x H, 8
+    bytes an entry) per position: P 64 at two blocks at H 128 and 256.
+    Else one block an SM, at the widest of GLU_TF32_PS whose tiles fit and
+    whose grid fills at least 90% of one wave (each block reads the whole
+    split weight from L2, so a wider P reads it less often per position,
+    while a grid short of a wave leaves SMs idle), else the narrowest that
+    fits: P 32 at SC09's, the vocoder's and d_model 256's H 512 and at H
+    1024.  P 64 at one block an SM (64 sums of one value and one gate
+    m-tile a thread) lost to P 32 (two of each) at every such tier but
+    one on an H100 (chip_smoke.py's ``p_ms``).  The kernel takes these as
+    given: this is the one place they are computed."""
+    for P, blocks in GLU_TF32_SHARED:
+        smem = glu_tf32_smem(H, P)
+        if (2 * H * H * 8 <= GLU_TF32_WEIGHT_BYTES * P
+                and blocks * (smem + SMEM_RESERVED) <= SMEM_SM):
+            return P, blocks, smem
+    fits = [P for P in GLU_TF32_PS
+            if glu_tf32_smem(H, P) <= SMEM_LIMIT] or GLU_TF32_PS[-1:]
+    P = next((P for P in fits if B * -(-L // P) >= 0.9 * sms), fits[-1])
+    return P, 1, glu_tf32_smem(H, P)
+
+
+def glu_tf32_smem(H, P):
+    """Kernel 2's shared-memory bytes a block at width H and P positions
+    (:func:`glu_tf32_plan`): the H-row y tile and 8 warps' 16-row staging
+    tiles, f32 rows of ``ff_bwd_ld(P)`` floats."""
+    return (H + 16 * (NT // 32)) * ff_bwd_ld(P) * 4
+
+
+def glu_tf32_split_floats(H):
+    """Floats of kernel 2's split-weight scratch: W's value half Wa (H x
+    H) then its gate half Wg, each as ``csrc/mma_tf32.cuh`` lays it out
+    (m-tiles of 16 rows, zero past H, by k-tiles of 8, 256 floats a
+    tile)."""
+    return 256 * 2 * -(-H // 16) * (H // 8)
 
 
 @functools.lru_cache(maxsize=None)
@@ -496,11 +547,13 @@ def _width_refusal(kernel, widths, step, smem, max_h=None):
 
 def glu_refusal(H, dtype):
     """None if kernel 2 (f32) or 2f (bf16 activations) takes channel
-    width H, else why not.  Kernel 2 loads weights in k-tiles of 8
-    channels; 2f's mma tiles are 16 deep and its plan holds up to
-    GLU_BF16_MAX_H rows."""
+    width H, else why not.  Kernel 2's tf32 mma k-steps are 8 channels
+    deep (its m-tiles of 16 pad with zero rows), and its tiles fit one
+    block up to H 7136 at P 8; 2f's mma tiles are 16 deep and its plan
+    holds up to GLU_BF16_MAX_H rows."""
     if dtype != torch.bfloat16:
-        return _width_refusal("2", (("H", H),), TK, glu_plan(H)[1])
+        return _width_refusal("2", (("H", H),), TK,
+                              glu_tf32_plan(1, H, 1)[2])
     return _width_refusal("2f", (("H", H),), 16, glu_bf16_plan(1, H, 1)[1],
                           GLU_BF16_MAX_H)
 

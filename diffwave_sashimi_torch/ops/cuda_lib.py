@@ -38,14 +38,17 @@ _SIGNATURES = {
     # the same arguments, the activations bf16)
     "dwst_fftconv_ln_bias_gelu_d": [_P] * 7 + [_I] * 4 + [_P],
     "dwst_fftconv_ln_bias_gelu_d_bf16": [_P] * 7 + [_I] * 4 + [_P],
-    # kernel 1f's radix-16 route: the same arguments and its plan
+    # kernels 1's and 1f's radix-16 route: the same arguments and its plan
     # (threads, smem; ops/fftconv.py::conv_plan) before the stream
+    "dwst_fftconv_r16_ln_bias_gelu_d": [_P] * 7 + [_I] * 6 + [_P],
     "dwst_fftconv_r16_ln_bias_gelu_d_bf16": [_P] * 7 + [_I] * 6 + [_P],
     # The channel mixers (kernels 2, 3, 6, 7 and their f forms) take P
     # (positions a block) and smem (its bytes of shared memory) from their
     # plans in ops/chmix.py, after their other ints.
-    # y, res, W, b, out, B, H, L, P, smem, stream
-    "dwst_glu_res": [_P] * 5 + [_I] * 5 + [_P],
+    # kernel 2: y, res, W, b, out, wf (the split weight scratch), B, H, L,
+    # and the plan (ops/chmix.py::glu_tf32_plan: P, blocks an SM, smem),
+    # stream
+    "dwst_glu_res": [_P] * 6 + [_I] * 6 + [_P],
     # the same with y, res and out bf16 and wb (the bf16 weight scratch)
     # after out
     "dwst_glu_res_bf16": [_P] * 6 + [_I] * 5 + [_P],
@@ -69,8 +72,9 @@ _SIGNATURES = {
     # activations bf16)
     "dwst_fftconv": [_P] * 3 + [_I] * 5 + [_P],
     "dwst_fftconv_bf16": [_P] * 3 + [_I] * 5 + [_P],
-    # the same, kernel 1f's radix-16 route, with threads and smem before
-    # the stream
+    # the same, kernels 1's and 1f's radix-16 route, with threads and smem
+    # before the stream
+    "dwst_fftconv_r16": [_P] * 3 + [_I] * 7 + [_P],
     "dwst_fftconv_r16_bf16": [_P] * 3 + [_I] * 7 + [_P],
     # u, g, out, B, H, L, n, and the plan (rows, threads, smem; ops/
     # fftconv.py::dkf_plan; rows 0 the Stockham kernel), stream

@@ -24,13 +24,14 @@ PyTorch version (the ``*_ref`` functions, torch.fft with explicit
 formulas) for CPU tensors; the plain versions are also the on-card
 comparison.
 
-Kernel 1f (both forms) has two routes, chosen by the FFT size alone
-(:func:`conv_plan`): the radix-16 kernel (``fftconv_r16_kernel``: the
-D-skip folded into the spectrum, the zero half of the input pruned, the
-spectrum split merged into the passes around it) at the sizes it has
-instances for, where it beat the Stockham kernel in turns on the H100;
-the Stockham kernel (``fftconv_kernel``, which the f32 forms take at
-every size) at the rest.
+Kernels 1 and 1f (both forms each) have two routes, chosen by the FFT
+size alone (:func:`conv_plan`): the radix-16 kernel
+(``fftconv_r16_kernel<M, FUSED, T>``: the zero half of the input pruned,
+the spectrum split merged into the passes around it; for 1f the D-skip
+folded into the spectrum, for kernel 1 twiddles from once-rounded roots,
+the D-skip in the epilogue and the exact GELU) at :data:`RADIX16_SIZES`,
+every size the SaShiMi paths launch them at; the Stockham kernel
+(``fftconv_kernel``) at the rest.
 
 Kernels 5 and 5f have two routes too, chosen by the FFT size (and sized by
 the batch) in :func:`dkf_plan`: the radix-16 kernel
@@ -108,18 +109,18 @@ def _fft_size_of(khat) -> int:
     return 2 * (khat.shape[-1] - 1)
 
 
-# Kernel 1f's radix-16 route (csrc/fftconv.cu::fftconv_r16_kernel): each
-# thread holds R16_HELD complex values between passes; the FFT sizes the
-# kernel has instances for: every size the bf16 paths launch 1f at (SC09's
-# three tiers, the vocoder's deepest, d_model 256's), at each of which it
-# beat the Stockham kernel in turns on the H100 (PERF.md, §6, kernel 1f's
-# radix-16 route)
+# Kernels 1's and 1f's radix-16 route (csrc/fftconv.cu::
+# fftconv_r16_kernel): each thread holds R16_HELD complex values between
+# passes; the FFT sizes the kernel has instances for: every size the
+# SaShiMi paths launch kernel 1 or 1f at (SC09's three tiers, the
+# vocoder's deepest, d_model 256's), at each of which it beat the Stockham
+# kernel in turns on the H100 (PERF.md, §6, kernels 1 and 1f)
 R16_HELD = 32
 RADIX16_SIZES = (2048, 8192, 16384, 32768)
 
 
 class ConvPlan(NamedTuple):
-    """How kernel 1f runs at one FFT size: the route (``"radix16"`` or
+    """How kernel 1 or 1f runs at one FFT size: the route (``"radix16"`` or
     ``"stockham"``), and on the radix-16 route the radices of the forward
     complex transform's passes (first to last; the inverse runs them in
     the other order), the threads a block and its shared-memory bytes (0
@@ -147,7 +148,8 @@ def radix16_plan(n: int) -> ConvPlan:
 
 
 def conv_plan(n: int) -> ConvPlan:
-    """Kernel 1f's route at FFT size n, by n alone: the radix-16 kernel for
+    """Kernels 1's and 1f's route at FFT size n, by n alone (both forms,
+    both activation types): the radix-16 kernel for
     n in :data:`RADIX16_SIZES`, the Stockham kernel for every other n.
     The kernel takes the plan as given: this is the one place it is
     computed."""
@@ -226,24 +228,16 @@ def fftconv_ln_bias_gelu_d_ref(u, a, c, bias, khat, D):
 
 
 def fftconv_ln_bias_gelu_d(u, a, c, bias, khat, D):
-    """Kernel-1 wrapper: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors (same arguments as the plain version); bf16
-    activations go to kernel 1f."""
+    """Kernel-1 wrapper: the CUDA kernel on the route :func:`conv_plan`
+    gives its FFT size for CUDA tensors, the plain version for CPU tensors
+    (same arguments as the plain version); bf16 activations go to kernel
+    1f."""
     if not u.is_cuda:
         return fftconv_ln_bias_gelu_d_ref(u, a, c, bias, khat, D)
     if u.dtype == torch.bfloat16:
         return fftconv_ln_bias_gelu_d_bf16(u, a, c, bias, khat, D)
-    B, H, L = u.shape
-    n = _fft_size_of(khat)
-    _check_fft_size(n, L)
-    for t, shape in ((u, (B, H, L)), (a, (B, L)), (c, (B, L)),
-                     (bias, (B, H)), (D, (H,))):
-        cuda_lib.check(t, shape, torch.float32)
-    cuda_lib.check(khat, (H, n // 2 + 1), torch.complex64)
-    out = torch.empty_like(u)
-    cuda_lib.launch("dwst_fftconv_ln_bias_gelu_d", u.data_ptr(), a.data_ptr(),
-                    c.data_ptr(), bias.data_ptr(), khat.data_ptr(),
-                    D.data_ptr(), out.data_ptr(), B, H, L, n)
+    out = launch_sampling(u, a, c, bias, khat, D,
+                          conv_plan(_fft_size_of(khat)))
     fftconv_ln_bias_gelu_d.launches += 1
     return out
 
@@ -257,34 +251,37 @@ def fftconv_ln_bias_gelu_d_bf16(u, a, c, bias, khat, D):
     the plain version for CPU tensors."""
     if not u.is_cuda:
         return fftconv_ln_bias_gelu_d_ref(u, a, c, bias, khat, D)
-    out = launch_sampling_bf16(u, a, c, bias, khat, D,
-                               conv_plan(_fft_size_of(khat)))
+    out = launch_sampling(u, a, c, bias, khat, D,
+                          conv_plan(_fft_size_of(khat)))
     fftconv_ln_bias_gelu_d_bf16.launches += 1
     return out
 
 
-def launch_sampling_bf16(u, a, c, bias, khat, D, plan):
-    """Check kernel 1f's sampling arguments and launch it on ``plan``'s
-    route (uncounted; the wrapper counts)."""
+fftconv_ln_bias_gelu_d_bf16.launches = 0
+
+
+def launch_sampling(u, a, c, bias, khat, D, plan):
+    """Check the sampling arguments of kernel 1 (u float32) or 1f (u
+    bf16) and launch it on ``plan``'s route (uncounted; the wrappers
+    count)."""
     B, H, L = u.shape
     n = _fft_size_of(khat)
     _check_fft_size(n, L)
-    cuda_lib.check(u, (B, H, L), torch.bfloat16)
+    bf16 = u.dtype == torch.bfloat16
+    cuda_lib.check(u, (B, H, L), torch.bfloat16 if bf16 else torch.float32)
     for t, shape in ((a, (B, L)), (c, (B, L)), (bias, (B, H)), (D, (H,))):
         cuda_lib.check(t, shape, torch.float32)
     cuda_lib.check(khat, (H, n // 2 + 1), torch.complex64)
     out = torch.empty_like(u)
     args = (u.data_ptr(), a.data_ptr(), c.data_ptr(), bias.data_ptr(),
             khat.data_ptr(), D.data_ptr(), out.data_ptr(), B, H, L, n)
+    suffix = "_bf16" if bf16 else ""
     if plan.route == "radix16":
-        cuda_lib.launch("dwst_fftconv_r16_ln_bias_gelu_d_bf16", *args,
+        cuda_lib.launch(f"dwst_fftconv_r16_ln_bias_gelu_d{suffix}", *args,
                         plan.threads, plan.smem)
     else:
-        cuda_lib.launch("dwst_fftconv_ln_bias_gelu_d_bf16", *args)
+        cuda_lib.launch(f"dwst_fftconv_ln_bias_gelu_d{suffix}", *args)
     return out
-
-
-fftconv_ln_bias_gelu_d_bf16.launches = 0
 
 
 def fftconv_ref(u, khat, conj=False):
@@ -316,16 +313,18 @@ def fftconv_dkf_ref(u, g, n):
 
 
 def fftconv(u, khat, conj=False):
-    """Kernel-1 training entry: :func:`fftconv_ref` as a CUDA kernel for
-    CUDA tensors (the sampling kernel's FFT code without its prologue and
-    epilogue), the plain version for CPU tensors; bf16 activations go to
-    kernel 1f's training entry."""
+    """Kernel-1 training entry: :func:`fftconv_ref` as a CUDA kernel (the
+    sampling kernel's FFT code without its prologue and epilogue) on the
+    route :func:`conv_plan` gives its FFT size for CUDA tensors, the plain
+    version for CPU tensors; bf16 activations go to kernel 1f's training
+    entry."""
     if not u.is_cuda:
         return fftconv_ref(u, khat, conj)
     if u.dtype == torch.bfloat16:
         return fftconv_bf16(u, khat, conj)
-    return _launch_conv(fftconv, "dwst_fftconv", torch.float32, u, khat,
-                        conj)
+    out = launch_conv(u, khat, conj, conv_plan(_fft_size_of(khat)))
+    fftconv.launches += 1
+    return out
 
 
 fftconv.launches = 0
@@ -337,7 +336,7 @@ def fftconv_bf16(u, khat, conj=False):
     CUDA tensors, the plain version for CPU tensors."""
     if not u.is_cuda:
         return fftconv_ref(u, khat, conj)
-    out = launch_conv_bf16(u, khat, conj, conv_plan(_fft_size_of(khat)))
+    out = launch_conv(u, khat, conj, conv_plan(_fft_size_of(khat)))
     fftconv_bf16.launches += 1
     return out
 
@@ -345,30 +344,25 @@ def fftconv_bf16(u, khat, conj=False):
 fftconv_bf16.launches = 0
 
 
-def launch_conv_bf16(u, khat, conj, plan):
-    """Check the arguments of kernel 1f's training entry and launch it on
-    ``plan``'s route (uncounted; the wrapper counts)."""
-    if plan.route == "radix16":
-        return _launch_conv(None, "dwst_fftconv_r16_bf16", torch.bfloat16, u,
-                            khat, conj, (plan.threads, plan.smem))
-    return _launch_conv(None, "dwst_fftconv_bf16", torch.bfloat16, u, khat,
-                        conj)
-
-
-def _launch_conv(wrapper, entry, dtype, u, khat, conj, plan_args=()):
-    """Check the arguments of kernel 1's or 1f's training entry (u of
-    ``dtype``), launch ``entry`` (with ``plan_args`` after its ints) and
-    count it on ``wrapper``, if one is given."""
+def launch_conv(u, khat, conj, plan):
+    """Check the arguments of kernel 1's training entry (u float32) or
+    1f's (u bf16) and launch it on ``plan``'s route (uncounted; the
+    wrappers count)."""
     B, H, L = u.shape
     n = _fft_size_of(khat)
     _check_fft_size(n, L)
-    cuda_lib.check(u, (B, H, L), dtype)
+    bf16 = u.dtype == torch.bfloat16
+    cuda_lib.check(u, (B, H, L), torch.bfloat16 if bf16 else torch.float32)
     cuda_lib.check(khat, (H, n // 2 + 1), torch.complex64)
     out = torch.empty_like(u)
-    cuda_lib.launch(entry, u.data_ptr(), khat.data_ptr(), out.data_ptr(), B,
-                    H, L, n, int(conj), *plan_args)
-    if wrapper is not None:
-        wrapper.launches += 1
+    args = (u.data_ptr(), khat.data_ptr(), out.data_ptr(), B, H, L, n,
+            int(conj))
+    suffix = "_bf16" if bf16 else ""
+    if plan.route == "radix16":
+        cuda_lib.launch(f"dwst_fftconv_r16{suffix}", *args, plan.threads,
+                        plan.smem)
+    else:
+        cuda_lib.launch(f"dwst_fftconv{suffix}", *args)
     return out
 
 

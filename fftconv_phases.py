@@ -64,12 +64,14 @@ def ptxas_report(nvcc, flags, csrc, out_dir):
         if m:
             entries.add(m.group(1))
     for i, line in enumerate(log):
-        r16 = re.search(r"(fftconv_r16_kernel)ILi(\d+)ELb(\d)", line)
+        r16 = re.search(r"(fftconv_r16_kernel)ILi(\d+)ELb(\d)E"
+                        r"(f|13__nv_bfloat16)E", line)
         dkf = re.search(r"(fftconv_dkf_r16_kernel)ILi(\d+)ELi(\d+)E"
                         r"(f|13__nv_bfloat16)E", line)
         if "Compiling entry" in line and r16:
-            name, m, t = r16.groups()
-            args = f"{m}, {'true' if t == '1' else 'false'}"
+            name, m, t, ty = r16.groups()
+            args = (f"{m}, {'true' if t == '1' else 'false'}, "
+                    f"{'float' if ty == 'f' else 'bf16'}")
         elif "Compiling entry" in line and dkf:
             name, m, q, t = dkf.groups()
             args = f"{m}, {q}, {'float' if t == 'f' else 'bf16'}"

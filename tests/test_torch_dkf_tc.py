@@ -16,8 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_fftconv_tc import (_OnCard, _bf16_sizes, _dft, _held,
-                                   _pass, _root)
+from test_torch_fftconv_tc import _OnCard, _bf16_sizes
+from torch_r16 import (_dft, _held, _pass, _root, _roots_chain,
+                       _roots_pass_chain)
 
 import jax
 import jax.numpy as jnp
@@ -88,26 +89,6 @@ def test_dkf_plan_other_sizes_and_refusals():
 
 
 # ---- the schedule model ---------------------------------------------------
-
-def _roots_chain(a):
-    """The twiddles W^(k r), r < 16, from the roots a (..., 4) = W^(2^i k)
-    as csrc/fftconv.cu::pow16 and twiddle16 form them: each the product
-    of at most two of W^(s k), W^(4 s k), s < 4."""
-    one = torch.ones_like(a[..., 0])
-    p = [one, a[..., 0], a[..., 1], a[..., 1] * a[..., 0]]
-    q = [one, a[..., 2], a[..., 3], a[..., 3] * a[..., 2]]
-    return torch.stack([q[r >> 2] if r & 3 == 0 else p[r & 3] if r < 4
-                        else q[r >> 2] * p[r & 3] for r in range(16)], -1)
-
-
-def _roots_pass_chain(k, R, N, inverse):
-    """A pass's twiddles from the roots W^(2^i k) at N (csrc r16_pass,
-    ROOTS)."""
-    assert R == 16
-    k = torch.as_tensor(k)
-    return _roots_chain(torch.stack([_root(k << i, N, inverse)
-                                     for i in range(4)], -1))
-
 
 def _spectra(x, L, plan):
     """The kernel's half spectra of real rows x (R, L) f32: (R, M)
