@@ -13,10 +13,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    PAIRED>``, each instance ``<M, Q, T>`` of kernels 5 and 5f's radix-16
    route, each f32 instance ``<M, FUSED, float>`` of kernel 1's, kernel
    5L's two passes and each instance ``<N1, N2, NT, T>`` of its cluster
-   kernel, the 3xTF32 kernels of kernels 2, 3, 7 and 11 (each ``<P,
-   blocks an SM>`` or ``<P>`` they are built for, and their weights'
-   splits) and each kernel-12 instance ``<T, threads>``, none of which may
-   spill; and, by ``cuobjdump -sass``, the tf32 ``HMMA`` instructions in
+   kernel, each instance of kernel 9's three passes (KERNEL_9_PASSES), the
+   3xTF32 kernels of kernels 2, 3, 6, 7 and 11 (each ``<P, blocks an SM>``
+   or ``<P>`` they are built for, and their weights' splits) and each
+   kernel-12 instance ``<T, threads>``, none of which may spill; and, by
+   ``cuobjdump -sass``, the tf32 ``HMMA`` instructions in
    each 3xTF32 kernel, which must have some) and require a CUDA device;
 2. build the shipped SC09 model (d_model 128, n_layers 6, pool [4, 4],
    expand 2, ff 2, L 16000) from a seed, with a perturbed (normally
@@ -78,8 +79,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    kernel 4 held beyond that as in phase 3 and at four
    shapes off the shipped ones (odd K, K 8, blocks of fewer threads, N
    800 past 48 KB of records) against its plain version, two calls
-   bit-equal; kernels 7 (f32, its per-position products in 3xTF32 on
-   the tensor cores) and 6 (f32) at each tier also two calls bit-equal,
+   bit-equal; kernels 7 and 6 (f32, their per-position products in
+   3xTF32 on the tensor cores; 6 also at every (P, blocks an SM) it is
+   built for, ``p_ms``) at each tier also two calls bit-equal,
    the worst error of their outputs against a float64 evaluation at most
    twice the plain version's (a tensor's relative L2 error; kernel 7's
    sums dm and ds as |err| over the sum of their terms' magnitudes),
@@ -158,7 +160,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
     kernel and its reduce pass; both traces fail without the lanes
     kernel, without kernel 4's ``cauchy_fwd_kernel``, and without kernel
     5's or 5f's radix-16 kernel), kernel 7's pass, the contractions of
-    kernels 6 and 7, their sums and kernel 6's pass apart (the f32 trace
+    kernels 6 and 7, their sums and kernel 6's pass (its split and its
+    3xTF32 kernel) apart (the f32 trace
     fails without kernel 7's 3xTF32 kernels), the device's idle share;
     each trace fails if the profiler recorded no device time, or if in
     TRACE_ATTEMPTS traces it lacked a kernel that the host launched;
@@ -180,7 +183,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
     30, no f32 form; finite wavs of 143360 samples and a fidelity.json;
 14. the precomputed-mel route: the port's ``mel2samp`` CLI writes the
     utterance's mel, which loads equal to the one computed on the fly;
-15. kernel 9 (both entries, three passes) against its plain version at
+15. kernel 9 (both entries, three passes; the f32 sampling form also two
+    calls bit-equal, its float64 L2 error at most twice the plain
+    version's, and timed in a CUDA graph beside a cuFFT conv, by
+    ``hold_9_f32``) against its plain version at
     the top and middle tiers' shapes (B2 H128 L143360 n 2^18, H256 L35840
     n 2^16), at B2 H128 L100000 (n 2^17), n 4096 (H512 L3000) and n 2^19
     (H128 L300000), kernel 1 at the deepest tier (n 16384 < 2L; on both
@@ -666,7 +672,7 @@ VOC_BF16_LAUNCHES = {"fftconv_long_ln_bias_gelu_d_bf16": 24 * 50,
 PORT_KERNELS = ("fftconv_kernel", "fftconv_r16_kernel",
                 "fftconv_dkf_kernel", "fftconv_dkf_r16_kernel",
                 "glu_res_tf32_kernel",
-                "glu_res_tc_kernel", "glu_res_bwd_kernel",
+                "glu_res_tc_kernel", "glu_res_bwd_tf32_kernel",
                 "glu_res_bwd_tc_kernel", "ln_ff_res_tf32_kernel",
                 "ln_ff_res_tc_kernel", "round_weights_kernel",
                 "ln_ff_res_bwd_tf32_kernel", "split_weights_tf32_kernel",
@@ -685,6 +691,13 @@ PORT_KERNELS = ("fftconv_kernel", "fftconv_r16_kernel",
 # forms at every n)
 KERNEL_9_CLUSTER = "fftconv_cluster_kernel"
 KERNEL_9_THREE_PASS = ("cols_fwd_kernel", "rows_kernel", "cols_inv_kernel")
+# the three passes' instances in ptxas' report: the column passes <FUSED,
+# T> of each entry, the row pass with N2 at compile time at N2 64 .. 512
+# and at runtime (<0>; csrc rows_instance)
+KERNEL_9_PASSES = (*(f"{k}<{fused}, {t}>"
+                     for k in ("cols_fwd_kernel", "cols_inv_kernel")
+                     for fused in ("true", "false") for t in ("float", "bf16")),
+                   *(f"rows_kernel<{N2}>" for N2 in (0, 64, 128, 256, 512)))
 KERNEL_9_GROUPS = {
     "kernel_9_cluster": lambda name: in_group(name, (KERNEL_9_CLUSTER,)),
     "kernel_9_three_pass": lambda name: in_group(name, KERNEL_9_THREE_PASS)}
@@ -751,13 +764,15 @@ KERNELS_6F = {"pass": ("glu_res_bwd_tc_kernel", "round_weights_t_kernel<6>"),
               "reduce": ("reduce_splits_kernel",)}
 # kernel 7's (f32) seven, in the same parts: its pass (the weights' split,
 # then the 3xTF32 pass), its two contractions and the sums; kernel 6's
-# pass, its contraction and that one's sum (beside PyTorch's transpose of
-# W); both contract on the fp32 FMAs (wgrad_kernel, 6f's and 7f's)
+# four: its pass (the split of W's halves and W^T, then the 3xTF32 pass),
+# its contraction and that one's sum; both contract on the fp32 FMAs
+# (wgrad_kernel, 6f's and 7f's)
 KERNELS_7 = {"pass": ("ln_ff_res_bwd_tf32_kernel",
                       "split_weights_tf32_kernel<7>"),
              "contractions": ("wgrad_kernel",),
              "reduce": ("reduce_splits_kernel", "reduce_long_kernel")}
-KERNELS_6 = {"pass": ("glu_res_bwd_kernel",),
+KERNELS_6 = {"pass": ("glu_res_bwd_tf32_kernel",
+                      "split_weights_tf32_kernel<6>"),
              "contractions": ("wgrad_kernel",),
              "reduce": ("reduce_splits_kernel",)}
 # kernel 7's widths off the shipped ones: multiples of 8 but not of 16, so
@@ -789,11 +804,13 @@ PTXAS_SOURCES = ("cauchy.cu", "fftconv.cu", "fftconv_long.cu", "chmix.cu",
 # weights' split)
 KERNEL_7_TF32 = ("ln_ff_res_bwd_tf32_kernel", "split_weights_tf32_kernel<7>")
 KERNEL_7_PS = (64, 32, 16, 8)
-# the 3xTF32 kernels of kernels 2, 3, 7 and 11 (f32) and the instances
+# the 3xTF32 kernels of kernels 2, 3, 6, 7 and 11 (f32) and the instances
 # each is built for (<P, blocks an SM>; kernel 7's <P>); the weights'
 # split of each, by the kernel that launches it
 TF32_KERNELS = {"glu_res_tf32_kernel": ("64, 2", "32, 2", "32, 1", "16, 1",
                                         "8, 1"),
+                "glu_res_bwd_tf32_kernel": ("64, 2", "64, 1", "32, 1",
+                                            "16, 1", "8, 1"),
                 "ln_ff_res_tf32_kernel": ("128, 1", "64, 2", "64, 1",
                                           "32, 1", "16, 1", "8, 1"),
                 "ln_ff_res_bwd_tf32_kernel": tuple(map(str, KERNEL_7_PS)),
@@ -801,7 +818,7 @@ TF32_KERNELS = {"glu_res_tf32_kernel": ("64, 2", "32, 2", "32, 1", "16, 1",
                                               "32, 3", "32, 1", "16, 1",
                                               "8, 1")}
 TF32_SPLITS = tuple(f"split_weights_tf32_kernel<{k}>"
-                    for k in (2, 3, 7, 11))
+                    for k in (2, 3, 6, 7, 11))
 # kernel 1's f32 instances of its radix-16 kernel, <M, FUSED, float> at
 # each M = n/2 of ops.fftconv.RADIX16_SIZES
 KERNEL_1_R16 = "fftconv_r16_kernel"
@@ -857,6 +874,10 @@ def kernel_parts(name, ptxas, tf32_sass=None):
                           if k.startswith("fftconv_dkf")}}
     if name == "fftconv_long":
         return {"global_kernels": list(KERNEL_9_THREE_PASS)}
+    if name == "fftconv_long_ln_bias_gelu_d":
+        return {"global_kernels": list(KERNEL_9_THREE_PASS),
+                "ptxas": {k: ptxas[k] for k in KERNEL_9_PASSES
+                          if k in ptxas}}
     if name == "fftconv_int8":
         return {"ptxas": {k: v for k, v in ptxas.items()
                           if k.startswith(KERNEL_12)}}
@@ -887,14 +908,15 @@ def ptxas_report(procs):
     of kernel 8 (``name<K, PAIRED>``), of kernels 5 and 5f's radix-16
     route (``fftconv_dkf_r16_kernel<M, Q, T>``), of kernel 1's radix-16
     route (``fftconv_r16_kernel<M, FUSED, float>``), of kernel 5L's two
-    passes and cluster kernel (KERNEL_5L), of the 3xTF32 kernels of
-    kernels 2, 3, 7 and 11 at each P (TF32_KERNELS) and their weights'
-    splits (TF32_SPLITS) and of kernel 12 (``fftconv_int8_kernel<T,
-    threads>``); raise if nvcc failed, an instance spills or one of
-    kernels 4's and 8's K 1-8, of the routes' M (n 2048 .. 32768, each
-    with its transforms a block Q, or both forms) and T (float, bf16), of
-    5L's, of the 3xTF32 kernels' or of kernel 12's T and threads
-    (ops.int8conv.THREADS) is missing."""
+    passes and cluster kernel (KERNEL_5L), of kernel 9's three passes
+    (KERNEL_9_PASSES), of the 3xTF32 kernels of kernels 2, 3, 6, 7 and 11 at
+    each P (TF32_KERNELS) and their weights' splits (TF32_SPLITS) and of
+    kernel 12 (``fftconv_int8_kernel<T, threads>``); raise if nvcc
+    failed, an instance spills or one of kernels 4's and 8's K 1-8, of the
+    routes' M (n 2048 .. 32768, each with its transforms a block Q, or
+    both forms) and T (float, bf16), of 5L's, of 9's three passes, of the
+    3xTF32 kernels' or of kernel 12's T and threads (ops.int8conv.THREADS)
+    is missing."""
     fc = importlib.import_module("diffwave_sashimi_torch.ops.fftconv")
     from diffwave_sashimi_torch.ops import int8conv
     out = {}
@@ -924,7 +946,16 @@ def ptxas_report(procs):
                             r"kernel)I(f|13__nv_bfloat16)Li(\d+)E", line)
             k1 = re.search(r"Compiling entry function '\w*?\d(fftconv_r16_"
                            r"kernel)ILi(\d+)ELb([01])EfE", line)
-            if k1:
+            k9 = re.search(r"Compiling entry function '\w*?\d(cols_(?:fwd|inv)"
+                           r"_kernel)ILb([01])E(f|13__nv_bfloat16)E|Compiling "
+                           r"entry function '\w*?\d(rows_kernel)ILi(\d+)EE",
+                           line)
+            if k9:
+                name = (f"{k9.group(1)}<"
+                        f"{'true' if k9.group(2) == '1' else 'false'}, "
+                        f"{'float' if k9.group(3) == 'f' else 'bf16'}>"
+                        if k9.group(1) else f"rows_kernel<{k9.group(5)}>")
+            elif k1:
                 name = (f"{k1.group(1)}<{k1.group(2)}, "
                         f"{'true' if k1.group(3) == '1' else 'false'}, "
                         f"float>")
@@ -971,7 +1002,7 @@ def ptxas_report(procs):
         f"cauchy_fwd_kernel<{K}>" for K in range(1, 9)} | {
         f"fftconv_dkf_r16_kernel<{n // 2}, {q}, {t}>"
         for n, q in fc.DKF_PER_BLOCK.items() for t in ("float", "bf16")} | {
-        *KERNEL_5L} | {
+        *KERNEL_5L} | {*KERNEL_9_PASSES} | {
         f"{KERNEL_12}<{t}, {nt}>" for t in ("float", "bf16")
         for nt in int8conv.THREADS}
     spills = [k for k, v in out.items()
@@ -1065,7 +1096,7 @@ def work(name, B, H, L, n, K=6, N=32, S=None, bpe=4, F=None):
     do (the forwards' products; the backward passes' per-position products,
     its _bmm, while their weight gradients, its _bmmc, stay fp32); kernel
     12 moves activations of bpe bytes and multiplies int8 ones (its
-    four-step layout's products).  Kernels 2, 3, 7 and 11 (f32) take their
+    four-step layout's products).  Kernels 2, 3, 6, 7 and 11 (f32) take their
     per-position products in 3xTF32: three TF32 products each."""
     base = name.removesuffix("_bf16")
     if base != name:
@@ -1111,7 +1142,8 @@ def work(name, B, H, L, n, K=6, N=32, S=None, bpe=4, F=None):
     if base not in split:
         return {"fp32": ops}, nbytes
     prod, wgrad = split[base]
-    if name in ("ln_ff_res_bwd", "ln_ff_res", "gate_res_skip", "glu_res"):
+    if name in ("ln_ff_res_bwd", "ln_ff_res", "gate_res_skip", "glu_res",
+                "glu_res_bwd"):
         by_type = {"fp32": wgrad, "tf32": 3 * prod}
     else:
         by_type = {"fp32": wgrad}
@@ -1834,9 +1866,38 @@ def hold_f32_mixers(torch, d, tier, results):
     hold_f32_mixer(torch, "ln_ff_res_bwd", lambda: ops.ln_ff_res_bwd(*ff),
                    ops.ln_ff_res_bwd_ref, ff, tier, results, KERNELS_7,
                    ff_yardstick(torch, ff))
+    hold_glu_bwd(torch, glu, tier, results)
+
+
+def hold_glu_bwd(torch, glu, tier, results):
+    """Kernel 6 (f32) at one tier beyond ``compare``'s bar
+    (``hold_f32_mixer``): ``glu`` = (y, W, b, g); in CUDA graphs beside the
+    f32 ``torch.matmul`` yardstick of its products; and at every (P, blocks
+    an SM) it is built for whose tiles fit (``p_ms``, CUDA graphs, the
+    whole call)."""
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.ops import chmix, cuda_lib
+    y, w, b, g = glu
+    B, H, L = y.shape
     hold_f32_mixer(torch, "glu_res_bwd", lambda: ops.glu_res_bwd(*glu),
                    ops.glu_res_bwd_ref, glu, tier, results, KERNELS_6,
                    glu_yardstick(torch, glu))
+    dy, dz, tc, part, grads = chmix._glu_bwd_buffers(torch.float32, *glu)
+    wf = w.new_empty((chmix.glu_bwd_tf32_split_floats(H),))
+    ptrs = chmix._ptrs(y, g, w, b, dy, dz, part, grads, wf)
+    p_ms = {}
+    for P, blocks in (*chmix.GLU_BWD_TF32_SHARED,
+                      *((P, 1) for P in chmix.GLU_BWD_TF32_PS)):
+        smem = chmix.glu_bwd_tf32_smem(H, P)
+        if blocks * (smem + chmix.SMEM_RESERVED) > chmix.SMEM_SM or (
+                smem > chmix.SMEM_LIMIT):
+            continue
+        p_ms[f"({P}, {blocks})"] = graph_ms(torch, lambda: cuda_lib.launch(
+            "dwst_glu_res_bwd", *ptrs, B, H, L, tc, P, blocks, smem))
+    results["glu_res_bwd"]["tiers"][tier]["p_ms"] = p_ms
+    log(f"kernel glu_res_bwd {tier}: plan "
+        f"{chmix.glu_bwd_tf32_plan(B, H, L, cuda_lib.sm_count(y.device))}; "
+        f"in CUDA graphs by (P, blocks an SM) {json.dumps(p_ms)}")
 
 
 def hold_kernel_7_ragged(torch, dev, results):
@@ -2423,7 +2484,7 @@ def hold_f32_mixer(torch, name, kfn, plain_fn, args, tier, results, parts,
     the scale of ``ff_sum_scales``) at most twice the plain f32 version's
     on the same scales; its device time by part (``parts``: KERNELS_2, 3,
     6, 7 or 11) from a trace of five calls, which must record device time
-    and in which a call of kernel 2, 3, 7 or 11 must launch nothing else;
+    and in which a call must launch nothing else;
     and in CUDA graphs (``graph_ms``), in turns, the kernel and ``yard``,
     its products as f32 ``torch.matmul`` calls (TF32 off; a
     yardstick)."""
@@ -2447,7 +2508,7 @@ def hold_f32_mixer(torch, name, kfn, plain_fn, args, tier, results, parts,
     split = trace["groups_ms_per_step"]
     other = [n for n in trace["top_kernels_ms_per_step"]
              if not any(in_group(n, names) for names in parts.values())]
-    if name != "glu_res_bwd" and other:
+    if other:
         raise AssertionError(f"a kernel {name} call launched {other} at "
                              f"{tier}")
     fns = {"graph_ms": kfn, "yardstick_graph_ms": yard}
@@ -2966,7 +3027,7 @@ def check_wide_mixers(torch, blk, L, dev, results):
             3, results, tier=f"H{H}_L{L}_F{4 * H}", F=4 * H)
     return {"glu": chmix.glu_tf32_plan(N_SAMPLES, H, L)[:2],
             "ff": chmix.ff_tf32_plan(H, 2 * H)[0],
-            "glu_bwd": chmix.glu_bwd_plan(H)[0],
+            "glu_bwd": chmix.glu_bwd_tf32_plan(N_SAMPLES, H, L)[:2],
             "ff_bwd": chmix.ff_bwd_plan(H, 2 * H)[0],
             "glu_bf16": chmix.glu_bf16_plan(N_SAMPLES, H, L)[0],
             "ff_bf16": chmix.ff_bf16_plan(N_SAMPLES, H, 2 * H, L)[0],
@@ -3545,6 +3606,8 @@ def check_vocoder_kernels(torch, model, L, dev, results):
                 lambda: ops.fftconv_long_ln_bias_gelu_d_ref(x, a, c, bias,
                                                             kp, D),
                 10, results, B, d["n"])
+        hold_9_f32(torch, fl, f"H{H}_L{Lt}", d["n"], (x, a, c, bias, kp, D),
+                   results)
         compare("fftconv_long", H, Lt, lambda: ops.fftconv_long(x, kp),
                 lambda: ops.fftconv_long_ref(x, kp), 10, results, B, d["n"])
         xb = x.to(torch.bfloat16)
@@ -3619,6 +3682,39 @@ def check_vocoder_kernels(torch, model, L, dev, results):
                 xb)
         time_ff_weight_designs(torch, ffb, results["ln_ff_res_bf16"],
                                f"H{H}_L{Lt}")
+
+
+def hold_9_f32(torch, fl, tier, n, args, results):
+    """Phase 15 at each n: kernel 9's f32 sampling form beyond
+    ``compare``'s bar: two calls bit-equal, its float64 L2 error at most
+    twice the plain version's; its time in a CUDA graph (``graph_ms``) and
+    a cuFFT conv's of the same shapes with no prologue or epilogue
+    (``cufft_conv_ms``), a yardstick the port never calls."""
+    x, a, c, bias, kp, D = args
+    L = x.shape[-1]
+    one, two = (fl.launch_sampling(*args) for _ in range(2))
+    torch.cuda.synchronize()
+    if not torch.equal(one, two):
+        raise AssertionError(f"kernel 9 (f32) {tier}: two calls differ")
+    ref = fl.fftconv_long_ln_bias_gelu_d_ref(*args)
+    r64 = fl.fftconv_long_ln_bias_gelu_d_ref(
+        *(t.to(torch.complex128 if t.is_complex() else torch.float64)
+          for t in args))
+    (e_k,), (e_p,) = c64_err([one], [r64]), c64_err([ref], [r64])
+    del one, two, r64, ref
+    ms = {"graph_ms": graph_ms(torch, lambda: fl.launch_sampling(*args)),
+          "cufft_conv_ms": graph_ms(torch, lambda: torch.fft.irfft(
+              torch.fft.rfft(x, n=n) * fl.half_spectrum(kp), n=n)[..., :L])}
+    t = results["fftconv_long_ln_bias_gelu_d"]["tiers"][tier]
+    t.update(c64_err=e_k, plain_c64_err=e_p, repeat_bit_equal=True, **ms)
+    log(f"kernel 9 (f32) {tier}: two calls bit-equal; error vs float64 "
+        f"{e_k:.3e} (plain {e_p:.3e}; bar 2x) "
+        f"{'ok' if e_k <= 2 * e_p else 'FAIL'}; in CUDA graphs "
+        f"{json.dumps(ms)}")
+    if e_k > 2 * e_p:
+        raise AssertionError(f"kernel 9 (f32)'s float64 error {e_k:.3e} is "
+                             f"over twice the plain version's {e_p:.3e} at "
+                             f"{tier}")
 
 
 def hold_9f_routes(torch, fl, tier, n, launch, ref, cufft_ms, results):

@@ -17,22 +17,14 @@
 // (67 TFLOP/s : 3.35 TB/s = 20) at every tier (H >= 128), so they are
 // compute bound, and the inner product must not be bound by shared memory.
 //
-// Design of the f32 GLU backward's pass (kernel 6): one block of 256
-// threads per (batch, P positions), P = 16384 / H (128, 64, 32 at H = 128,
-// 256, 512), so the block's input tile (H x P) stays in shared memory and
-// each residual branch costs one read and one write of the activations.
-// Past H 512 the wider tiles would not fit one block, so the plan halves P
-// until they do (16 at H 1024).  The f32 GLU, FF and FF backward (kernels
-// 2, 3 and 7) multiply on the tensor cores instead, in 3xTF32 (below).
-// Weights stream through a transposed (TK x TM) shared tile, TM = 16384 /
-// P rows, prefetched into registers one k-step ahead.  Each thread keeps
-// an 8 x 8 register tile (rows {r, r + TM/2} x 4, positions 8
-// consecutive), fed by four 16-byte shared loads per 64 FMAs.  One block
-// per SM.  The sigmoid uses expf, GELU erff: the strict f32 path.
+// The f32 forms (kernels 2, 3, 6, 7) multiply on the tensor cores at f32
+// accuracy, in 3xTF32 (below): each f32 operand split into tf32 hi and lo
+// parts, a product taken as three tensor-core products with f32 sums
+// (mma_tf32.cuh).  The sigmoid uses expf, GELU erff: the strict f32 path.
 //
 // The host computes every kernel's positions a block P and its bytes of
-// shared memory (ops/chmix.py: glu_tf32_plan, ff_tf32_plan, glu_bwd_plan,
-// ff_bwd_plan and, for the tensor-core kernels below, glu_bf16_plan,
+// shared memory (ops/chmix.py: glu_tf32_plan, ff_tf32_plan,
+// glu_bwd_tf32_plan, ff_bwd_plan and, for the tensor-core kernels below, glu_bf16_plan,
 // ff_bf16_plan, glu_bwd_bf16_plan and ff_bwd_bf16_plan; wgrad_plan for the
 // weight gradients' splits), and refuses widths whose tiles do not fit one
 // block before it launches; the kernels take both as given.
@@ -99,13 +91,14 @@
 // weight tile, the bf16 activation tiles by cp.async, and 6f's value and
 // gate m-tiles paired in one warp as 2f's, so that its dz is formed in
 // registers; their weight gradients contract the f32 scratch on the fp32
-// FMAs (wgrad_kernel).  Of the f32 forms, kernel 6 keeps its pass on the
-// fp32 FMAs on the gemm_chunk tiles; kernel 7 takes its three
+// FMAs (wgrad_kernel).  Of the f32 forms, kernel 7 takes its three
 // per-position products in 3xTF32 (ln_ff_res_bwd_tf32_kernel), as kernel
-// 3 takes its two (ln_ff_res_tf32_kernel): an f32 operand split into two
-// tf32 parts and a product taken as three tensor-core products with f32
-// sums keeps f32 accuracy (mma_tf32.cuh).  Both backward passes contract
-// their weight gradients on the fp32 FMAs (wgrad_kernel).
+// 3 takes its two (ln_ff_res_tf32_kernel), and kernel 6 its two
+// (glu_res_bwd_tf32_kernel, with 6f's value/gate pairing): an f32 operand
+// split into two tf32 parts and a product taken as three tensor-core
+// products with f32 sums keeps f32 accuracy (mma_tf32.cuh).  Both
+// backward passes contract their weight gradients on the fp32 FMAs
+// (wgrad_kernel).
 
 #include <cuda_runtime.h>
 
@@ -124,104 +117,6 @@ using dwst_mma::pack8;
 using dwst_mma::unpack8;
 
 constexpr int NT = 256;        // threads per block
-constexpr int TK = 8;          // contraction tile
-
-template <int P>
-struct Tile {
-  static constexpr int PG = P / 8;          // position groups of 8
-  static constexpr int RG = NT / PG;        // row groups of 4 (+4 paired)
-  static constexpr int TM = RG * 8;         // weight rows per chunk
-  static constexpr int LDT = TM + 4;        // padded transposed row
-  static constexpr int NPRE = TM * 2 / NT;  // float4 prefetches per thread
-};
-
-// Global row of local weight row lr in [0, TM), or -1 past the matrix:
-// rows [0, TM/2) map to ra + lr, rows [TM/2, TM) to rb + lr - TM/2, each
-// valid below lim.  The GLU pairs value row o with gate row H + o.
-struct RowMap {
-  int ra, rb, lim_a, lim_b, half;
-  __device__ int operator()(int lr) const {
-    if (lr < half) return ra + lr < lim_a ? ra + lr : -1;
-    const int g = rb + lr - half;
-    return g < lim_b ? g : -1;
-  }
-};
-
-// acc[r][j] = sum_k A[row(r), k] * Bs[k * P + pg * 8 + j] for the thread's
-// rows r < 4 -> local rg * 4 + r, r >= 4 -> TM/2 + rg * 4 + r - 4.
-// A is (rows x K) row-major with K % TK == 0; Bs is K x P.
-template <int P>
-__device__ void gemm_chunk(const float* __restrict__ A, int K, RowMap map,
-                           const float* Bs, float* AsT, float acc[8][8]) {
-  using T = Tile<P>;
-  const int tid = threadIdx.x;
-  const int pg = tid % T::PG, rg = tid / T::PG;
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[r][j] = 0.0f;
-
-  float4 pre[T::NPRE];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int q = 0; q < T::NPRE; ++q) {
-      const int idx = tid + q * NT;           // (row, half) pairs
-      const int g = map(idx >> 1);
-      pre[q] = g >= 0 ? *reinterpret_cast<const float4*>(
-                            A + (size_t)g * K + k0 + 4 * (idx & 1))
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  };
-  fetch(0);
-  for (int k0 = 0; k0 < K; k0 += TK) {
-    __syncthreads();                          // AsT free, Bs complete
-#pragma unroll
-    for (int q = 0; q < T::NPRE; ++q) {
-      const int idx = tid + q * NT;
-      const int lr = idx >> 1, k = 4 * (idx & 1);
-      AsT[(k + 0) * T::LDT + lr] = pre[q].x;
-      AsT[(k + 1) * T::LDT + lr] = pre[q].y;
-      AsT[(k + 2) * T::LDT + lr] = pre[q].z;
-      AsT[(k + 3) * T::LDT + lr] = pre[q].w;
-    }
-    __syncthreads();
-    if (k0 + TK < K) fetch(k0 + TK);          // in flight during the FMAs
-#pragma unroll
-    for (int kk = 0; kk < TK; ++kk) {
-      const float* at = AsT + kk * T::LDT;
-      const float4 a0 = *reinterpret_cast<const float4*>(at + rg * 4);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(at + T::TM / 2 + rg * 4);
-      const float* bt = Bs + (size_t)(k0 + kk) * P + pg * 8;
-      const float4 b0 = *reinterpret_cast<const float4*>(bt);
-      const float4 b1 = *reinterpret_cast<const float4*>(bt + 4);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(av[r], bv[j], acc[r][j]);
-    }
-  }
-}
-
-// Thread's local row for accumulator row r.
-template <int P>
-__device__ __forceinline__ int local_row(int r) {
-  using T = Tile<P>;
-  const int rg = threadIdx.x / T::PG;
-  return r < 4 ? rg * 4 + r : T::TM / 2 + rg * 4 + r - 4;
-}
-
-// xs[h * P + p] = x[b, h, t0 + p] (0 past L), h < H.
-template <int P>
-__device__ void load_tile(const float* __restrict__ x, float* xs, int b,
-                          int H, int L, int t0) {
-  for (int idx = threadIdx.x; idx < H * P; idx += NT) {
-    const int h = idx / P, p = idx % P, t = t0 + p;
-    xs[idx] = t < L ? x[((size_t)b * H + h) * L + t] : 0.0f;
-  }
-}
 
 // Kernel 3f's tiles: P positions a block; in GEMM 1 a warp takes MT1
 // m-tiles (16 MT1 hidden channels) over all P positions at a time, in GEMM 2
@@ -622,10 +517,10 @@ glu_res_tc_kernel(const __nv_bfloat16* __restrict__ y,
 // position for GLU (z, dy, dW) and five for FF (z, dh, dxn, dW1, dW2), so
 // they are compute bound like the forwards.
 //
-// Design: a per-position pass (kernel 6's reuses the forward's block
-// layout and register-tiled gemm_chunk; kernel 7's is below) recomputes z
-// from the saved input, forms dz in shared memory, contracts it back to
-// the input gradient, and writes the operands of the weight gradients
+// Design: a per-position pass (kernels 6's and 7's are below, on the
+// tensor cores) recomputes z from the saved input, forms dz in registers
+// and shared memory, contracts it back to the input gradient, and writes
+// the operands of the weight gradients
 // (dz, and for FF the normalised input and the GELU output) to device
 // memory.  FF's scalar gradients dm and ds are per-block partials summed
 // in a fixed order.
@@ -652,69 +547,6 @@ glu_res_tc_kernel(const __nv_bfloat16* __restrict__ y,
 // Kernel 6f, the GLU backward's bf16 form, and kernel 7f, the FF
 // backward's, multiply on the tensor cores (glu_res_bwd_tc_kernel below,
 // ln_ff_res_bwd_tc_kernel below kernel 7).
-
-// GLU backward, per position tile (P as the forward): z = W y + b
-// recomputed, da = g sig(gate), dgate = g a sig (1 - sig), dy = W^T dz.
-// Kernel 6 (f32; kernel 6f is glu_res_bwd_tc_kernel below).
-template <int P>
-__global__ void __launch_bounds__(NT, 1)
-glu_res_bwd_kernel(const float* __restrict__ y, const float* __restrict__ g,
-                   const float* __restrict__ W, const float* __restrict__ Wt,
-                   const float* __restrict__ bias, float* __restrict__ dy,
-                   float* __restrict__ dz, int H, int L) {
-  using T = Tile<P>;
-  extern __shared__ float4 sh4[];
-  float* ys = reinterpret_cast<float*>(sh4);     // H x P
-  float* dzs = ys + H * P;                        // 2H x P
-  float* AsT = dzs + 2 * H * P;                   // TK x LDT
-  const int b = blockIdx.y, t0 = blockIdx.x * P;
-  const int pg = threadIdx.x % T::PG;
-  load_tile<P>(y, ys, b, H, L, t0);
-  for (int o0 = 0; o0 < H; o0 += T::TM / 2) {
-    float acc[8][8];
-    gemm_chunk<P>(W, H, RowMap{o0, H + o0, H, 2 * H, T::TM / 2}, ys, AsT,
-                  acc);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int o = o0 + local_row<P>(r);
-      if (o >= H) continue;
-      const float ba = bias[o], bg = bias[H + o];
-      const size_t grow = ((size_t)b * H + o) * L;
-      const size_t arow = ((size_t)b * 2 * H + o) * L;
-      const size_t hrow = arow + (size_t)H * L;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int p = pg * 8 + j, t = t0 + p;
-        const float gv = t < L ? g[grow + t] : 0.0f;
-        const float a = acc[r][j] + ba;
-        const float sig = 1.0f / (1.0f + expf(-(acc[r + 4][j] + bg)));
-        const float da = gv * sig, dgate = gv * a * sig * (1.0f - sig);
-        dzs[o * P + p] = da;
-        dzs[(H + o) * P + p] = dgate;
-        if (t < L) {
-          dz[arow + t] = da;
-          dz[hrow + t] = dgate;
-        }
-      }
-    }
-  }
-  for (int h0 = 0; h0 < H; h0 += T::TM) {
-    float acc[8][8];
-    gemm_chunk<P>(Wt, 2 * H, RowMap{h0, h0 + T::TM / 2, H, H, T::TM / 2},
-                  dzs, AsT, acc);
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int h = h0 + local_row<P>(r);
-      if (h >= H) continue;
-      const size_t row = ((size_t)b * H + h) * L;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int t = t0 + pg * 8 + j;
-        if (t < L) dy[row + t] = acc[r][j];
-      }
-    }
-  }
-}
 
 // Kernel 6f (bf16 y, g and dy; f32 bias and dz scratch), the GLU backward
 // on the tensor cores.  It replaces diffwave_sashimi_tpu/ops/chmix.py:414
@@ -1560,6 +1392,191 @@ glu_res_tf32_kernel(const float* __restrict__ y,
   }
 }
 
+// Kernel 6 (f32; kernel 6f is glu_res_bwd_tc_kernel above), the GLU
+// backward's per-position pass on the tensor cores at f32 accuracy.  It
+// replaces diffwave_sashimi_tpu/ops/chmix.py:414 _glu_bwd_kernel with
+// fast=False: z = W y + b recomputed, da = g sig, dgate = g a sig (1 -
+// sig) (sig = 1 / (1 + expf(-(zg + bg))), the FMA design's f32 algebra),
+// dy = W^T dz; its two products (_bmm at HIGHEST precision) in 3xTF32
+// (mma_tf32.cuh).  Writes dy and the f32 dz scratch, which the weight
+// gradient contracts on the fp32 FMAs (wgrad_kernel).
+//
+// What bounds it: two products of 4 H^2 B L operations each, three tf32
+// products apiece at the dense TF32 rate (0.051 ms at SC09's top tier, B4
+// H128 L16000), against 0.066 ms of bytes (y and g read, dy and the f32 dz
+// scratch written); every block also reads W's two split halves and the
+// split W^T (8 bytes an entry, 1 MB at H 128) from L2, once per P
+// positions.  Design, kernel 2's pairing with 6f's tiles:
+// split_weights_tf32_kernel<6> splits W's value half Wa, its gate half Wg
+// (each zero-padded to whole m-tiles, so H need only be a multiple of 8)
+// and W^T (taken from W by strides: no transpose is copied) once a call,
+// into a scratch in fragment order; one block of 8 warps per (batch, P
+// positions), built for BLOCKS blocks an SM.  The f32 y tile and the g tile
+// arrive by cp.async, rows padded to LD floats (LD % 32 of 8 or 24: a B
+// fragment's 32 loads on distinct banks); g lands in the first H rows of
+// the 2H-row dz tile.  In the first product each warp takes MV value
+// m-tiles with their MV gate m-tiles over all P positions
+// (warp_gemm_3xtf32_ring's groups), so a and gate meet in one thread's
+// registers, where bias, sigmoid, da and dgate are formed: g is read from
+// the dz tile at the thread's own positions and overwritten there by da
+// (no other thread reads those entries), dgate goes to row H + o, and both
+// go out to the dz scratch, four lanes filling a 32-byte sector.  After one
+// barrier, the second product: each warp takes MT2 m-tiles of dy over all
+// P positions, K = 2H from the dz tile, and stores them from its
+// registers, four lanes filling a sector.  ops/chmix.py::glu_bwd_tf32_plan
+// picks P and the blocks an SM and computes the block's shared memory (the
+// y and dz tiles), which the kernel takes as given.  Every sum in a fixed
+// order: two calls are bit-equal.
+template <int P, int BLOCKS>
+struct GluBwdTf32Tile {
+  static constexpr int N8 = P / 8;             // n-tiles
+  static constexpr int LD = P == 8 ? 8 : P + 8;
+  // value m-tiles a warp at once in z = W y (each with its gate m-tile):
+  // 8 MV N8 <= 64 sums a thread; one at two blocks an SM (128 registers)
+  static constexpr int MV = BLOCKS > 1 || N8 >= 8 ? 1 : 2;
+  // m-tiles of dy a warp at once: 4 MT2 N8 <= 64 sums a thread, at most 4;
+  // one at two blocks an SM
+  static constexpr int MT2 = BLOCKS > 1 ? 1 : (16 / N8 < 4 ? 16 / N8 : 4);
+  // k-steps of A fragments in flight ahead of their use
+  static constexpr int AHEAD1 = 1;
+  static constexpr int AHEAD2 = MT2 <= 2 ? 2 : 1;
+  static constexpr int C4 = P / 4;             // 16-byte chunks a row
+  static constexpr int HS = NT / C4;           // row step of a thread
+};
+
+// Kernel 6's pass (f32 y, g, dy and the dz scratch; Wf = Wa's and Wg's
+// split tiles, Wtf = W^T's; f32 bias).  Dynamic shared memory, sized by
+// ops/chmix.py::glu_bwd_tf32_plan: the y tile (H rows), then the dz tile
+// (2H rows).  vec: L % 4 == 0 and y, g, dy and dz 16-byte aligned.
+template <int P, int BLOCKS>
+__global__ void __launch_bounds__(NT, BLOCKS)
+glu_res_bwd_tf32_kernel(const float* __restrict__ y,
+                        const float* __restrict__ g,
+                        const uint4* __restrict__ Wf,
+                        const uint4* __restrict__ Wtf,
+                        const float* __restrict__ bias,
+                        float* __restrict__ dy, float* __restrict__ dz,
+                        int H, int L, bool vec) {
+  using T = GluBwdTf32Tile<P, BLOCKS>;
+  constexpr int LD = T::LD, N8 = T::N8, MV = T::MV, C4 = T::C4;
+  extern __shared__ float4 sh4[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  float* ys = reinterpret_cast<float*>(sh4);   // H x LD: y
+  float* zs = ys + (size_t)H * LD;             // 2H x LD: g, then dz
+  const int b = blockIdx.y, t0 = blockIdx.x * P;
+  const int Ht = (H + 15) / 16, Kt = H / 8;
+
+  // the y and g tiles (0 past L), 16 bytes a thread by cp.async with vec
+  {
+    const int c = tid % C4 * 4, tc = t0 + c;
+    for (int h = tid / C4; h < H; h += T::HS) {
+      const size_t at = ((size_t)b * H + h) * L + tc;
+      float* yd = ys + h * LD + c;
+      float* gd = zs + h * LD + c;
+      if (vec && tc < L) {           // L % 4 == 0: the chunk is all in
+        cp_async16(yd, y + at);
+        cp_async16(gd, g + at);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          yd[e] = tc + e < L ? y[at + e] : 0.0f;
+          gd[e] = tc + e < L ? g[at + e] : 0.0f;
+        }
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+
+  // z = W y: value m-tiles [mt0, mt0 + MV) and their gate m-tiles; da over
+  // g in the dz tile's row o, dgate into row H + o, both out to dz
+  for (int u = warp; u * MV < Ht; u += NWARPS) {
+    const int mt0 = u * MV;
+    float acc[2 * MV][N8][4];
+    dwst_tf32::zero_acc<2 * MV, N8>(acc);
+    dwst_tf32::warp_gemm_3xtf32_ring<2 * MV, N8, T::AHEAD1, MV>(
+        Wf, 2 * Ht, Kt, mt0, 0, Kt, ys, LD, acc, Ht);
+#pragma unroll
+    for (int mt = 0; mt < MV; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int o = 16 * (mt0 + mt) + gq + 8 * hh;
+        if (o >= H) continue;
+        const float ba = bias[o], bg = bias[H + o];
+        float* ar = zs + o * LD + 2 * tq;
+        float* hr = zs + (H + o) * LD + 2 * tq;
+        float* arow = dz + ((size_t)b * 2 * H + o) * L;
+        float* hrow = arow + (size_t)H * L;
+#pragma unroll
+        for (int j = 0; j < N8; ++j) {
+          const int tt = t0 + 8 * j + 2 * tq;
+          const float2 gv = *reinterpret_cast<const float2*>(ar + 8 * j);
+          const float gs[2] = {gv.x, gv.y};
+          float da[2], dg[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float a = acc[mt][j][2 * hh + e] + ba;
+            const float sig =
+                1.0f / (1.0f + expf(-(acc[MV + mt][j][2 * hh + e] + bg)));
+            da[e] = gs[e] * sig;
+            dg[e] = gs[e] * a * sig * (1.0f - sig);
+          }
+          *reinterpret_cast<float2*>(ar + 8 * j) = make_float2(da[0], da[1]);
+          *reinterpret_cast<float2*>(hr + 8 * j) = make_float2(dg[0], dg[1]);
+          if (vec) {             // L % 4 == 0: both positions in or both out
+            if (tt < L) {
+              *reinterpret_cast<float2*>(arow + tt) = make_float2(da[0], da[1]);
+              *reinterpret_cast<float2*>(hrow + tt) = make_float2(dg[0], dg[1]);
+            }
+          } else {
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (tt + e < L) {
+                arow[tt + e] = da[e];
+                hrow[tt + e] = dg[e];
+              }
+          }
+        }
+      }
+  }
+  __syncthreads();
+
+  // dy = W^T dz, H x P, K = 2H, out from the registers
+  {
+    constexpr int MT = T::MT2;
+    for (int u = warp; u * MT < Ht; u += NWARPS) {
+      const int mt0 = u * MT;
+      float acc[MT][N8][4];
+      dwst_tf32::zero_acc<MT, N8>(acc);
+      dwst_tf32::warp_gemm_3xtf32_ring<MT, N8, T::AHEAD2>(
+          Wtf, Ht, 2 * Kt, mt0, 0, 2 * Kt, zs, LD, acc);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int h = 16 * (mt0 + mt) + gq + 8 * hh;
+          if (h >= H) continue;
+          float* row = dy + ((size_t)b * H + h) * L;
+#pragma unroll
+          for (int j = 0; j < N8; ++j) {
+            const int tt = t0 + 8 * j + 2 * tq;
+            if (vec) {
+              if (tt < L)
+                *reinterpret_cast<float2*>(row + tt) =
+                    make_float2(acc[mt][j][2 * hh], acc[mt][j][2 * hh + 1]);
+            } else {
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                if (tt + e < L) row[tt + e] = acc[mt][j][2 * hh + e];
+            }
+          }
+        }
+    }
+  }
+}
+
 // Kernel 7f (bf16 x, g and dx; f32 b1, m, s, scratch and (dm, ds)
 // partials), the FF backward on the tensor cores.  It replaces
 // diffwave_sashimi_tpu/ops/chmix.py:362 _ff_bwd_kernel with fast=True: as
@@ -2200,30 +2217,6 @@ int weight_grad(const TX* X, const TY* Y, float* part, float* grads, int B,
 }
 
 
-// The fp32 kernel below launches at P positions a block on smem bytes of
-// dynamic shared memory, both from ops/chmix.py's plan; P is one the
-// kernel is built for, else the launch is refused.
-int glu_res_bwd_launch(const float* y, const float* g, const float* W,
-                       const float* Wt, const float* bias, float* dy,
-                       float* dz, int B, int H, int L, int P, int smem,
-                       cudaStream_t stream) {
-  auto run = [&](auto kernel) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    kernel<<<dim3((L + P - 1) / P, B), NT, smem, stream>>>(y, g, W, Wt, bias,
-                                                           dy, dz, H, L);
-    return (int)cudaGetLastError();
-  };
-  switch (P) {
-    case 128: return run(glu_res_bwd_kernel<128>);
-    case 64: return run(glu_res_bwd_kernel<64>);
-    case 32: return run(glu_res_bwd_kernel<32>);
-    case 16: return run(glu_res_bwd_kernel<16>);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 // wb[0:n] = bf16(W1[0:n]), wb[n:2n] = bf16(W2[0:n]), n % 4 == 0.  K (2 or
 // 3, the kernel whose call launches it) only names the instance, so that a
 // trace tells 2f's pass from 3f's.
@@ -2299,16 +2292,33 @@ int launch_glu_tc(const __nv_bfloat16* y, const __nv_bfloat16* res,
   return (int)cudaGetLastError();
 }
 
-// Kernel 6: the per-position pass, then dW and db from dz and y.
-int glu_res_bwd(const float* y, const float* g, const float* W,
-                const float* Wt, const float* b, float* dy, float* dz,
-                float* part, float* grads, int B, int H, int L, int tc, int P,
-                int smem, cudaStream_t stream) {
-  if (H % TK || tc <= 0 || tc % 8) return (int)cudaErrorInvalidValue;
-  const int e = glu_res_bwd_launch(y, g, W, Wt, b, dy, dz, B, H, L, P, smem,
-                                   stream);
+// Kernel 6's pass on smem bytes of dynamic shared memory a block: Wa, Wg
+// and W^T split into the scratch wf (ops/chmix.py::
+// glu_bwd_tf32_split_floats floats), then the 3xTF32 pass, built for
+// BLOCKS blocks an SM.
+template <int P, int BLOCKS>
+int launch_glu_bwd_tf32(const float* y, const float* g, const float* W,
+                        const float* b, float* dy, float* dz, uint4* wf,
+                        int B, int H, int L, int smem, cudaStream_t stream) {
+  // Wa (H x H), then Wg (H x H), each zero-padded to whole m-tiles, then
+  // W^T (H x 2H), entry (r, k) = W[k][r]
+  dwst_tf32::SplitJobs jobs{{{W, nullptr, H, H, H, H, 1},
+                             {W + (size_t)H * H, nullptr, H, H, H, H, 1},
+                             {W, nullptr, H, H, 2 * H, 1, H}},
+                            3};
+  int e = dwst_tf32::split_weights_launch<6>(jobs, wf, stream);
   if (e) return e;
-  return weight_grad(dz, y, part, grads, B, 2 * H, H, L, tc, stream);
+  auto kernel = glu_res_bwd_tf32_kernel<P, BLOCKS>;
+  e = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e) return e;
+  const bool vec = L % 4 == 0 && aligned16(y) && aligned16(g) &&
+                   aligned16(dy) && aligned16(dz);
+  const int n = dwst_tf32::split_tiles(jobs.job[0]) +
+                dwst_tf32::split_tiles(jobs.job[1]);
+  kernel<<<dim3((L + P - 1) / P, B), NT, smem, stream>>>(
+      y, g, wf, wf + (size_t)64 * n, b, dy, dz, H, L, vec);
+  return (int)cudaGetLastError();
 }
 
 // Kernel 6f's pass on smem bytes of dynamic shared memory a block: W and
@@ -2584,13 +2594,38 @@ extern "C" int dwst_ln_ff_res_bf16(const void* x, const void* skip,
   return (int)cudaErrorInvalidValue;
 }
 
+// Kernel 6: y, g, dy, dz, part and grads f32; wf a scratch for the split
+// weights (ops/chmix.py::glu_bwd_tf32_split_floats floats); P, blocks an SM
+// (P 64 at two; 64, 32, 16 or 8 at one) and smem from ops/chmix.py::
+// glu_bwd_tf32_plan; H a multiple of 8.  The 3xTF32 pass, then dW and db
+// from dz and y.
 extern "C" int dwst_glu_res_bwd(const float* y, const float* g, const float* W,
-                                const float* Wt, const float* b, float* dy,
-                                float* dz, float* part, float* grads, int B,
-                                int H, int L, int tc, int P, int smem,
-                                cudaStream_t stream) {
-  return glu_res_bwd(y, g, W, Wt, b, dy, dz, part, grads, B, H, L, tc, P,
-                     smem, stream);
+                                const float* b, float* dy, float* dz,
+                                float* part, float* grads, void* wf, int B,
+                                int H, int L, int tc, int P, int blocks,
+                                int smem, cudaStream_t stream) {
+  if (H <= 0 || H % 8 || B <= 0 || L <= 0 || tc <= 0 || tc % 8)
+    return (int)cudaErrorInvalidValue;
+  auto* w = static_cast<uint4*>(wf);
+  auto run = [&](auto launch) {
+    return launch(y, g, W, b, dy, dz, w, B, H, L, smem, stream);
+  };
+  int e;
+  if (blocks == 2 && P == 64) {
+    e = run(launch_glu_bwd_tf32<64, 2>);
+  } else if (blocks == 1) {
+    switch (P) {
+      case 64: e = run(launch_glu_bwd_tf32<64, 1>); break;
+      case 32: e = run(launch_glu_bwd_tf32<32, 1>); break;
+      case 16: e = run(launch_glu_bwd_tf32<16, 1>); break;
+      case 8: e = run(launch_glu_bwd_tf32<8, 1>); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (e) return e;
+  return weight_grad(dz, y, part, grads, B, 2 * H, H, L, tc, stream);
 }
 
 // Kernel 6f: y, g and dy bf16; dz, part and grads f32; wb a scratch for W

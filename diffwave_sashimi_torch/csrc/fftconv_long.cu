@@ -97,11 +97,26 @@
 //   beyond the bound, and its column passes move u and out in 32-byte
 //   runs (TC bf16 columns); many blocks an SM overlap one block's
 //   device-memory waits with another's transforms.
+//
+//   Two things pay on the H100 (PERF.md, Findings), and change no
+//   value: with f32 activations (L % 4 == 0, aligned tensors) the column
+//   passes move u, a, c and out four adjacent columns a 16-byte load or
+//   store (load_cols4, store_cols4), a quarter of the instructions and of
+//   the requests in flight for the same bytes; and at N2 64 .. 512 the
+//   row pass knows N2 at compile time, so its index divisions become
+//   shifts and each thread's scratch loads are all in flight at once.
+//   Keeping a wave's scratch in L2 instead lost at every n tried: in
+//   waves of three launches, or as the tiles of one persistent launch in
+//   a pipeline over the waves, the launches' and waves' tails cost more
+//   than the round trips saved; the cluster kernel's f32 instances (no
+//   stash, u' formed again in the store) lost at 2^16, 2^17 and 2^18.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <cstdint>
+#include <type_traits>
 
 #include "activations.cuh"
 #include "fft_stockham.cuh"
@@ -148,6 +163,9 @@ __device__ __forceinline__ float2 twiddle(int m, float two_over_n) {
 struct Dims {
   int B, H, L, N1, N2;
   float two_over_n;
+  // the f32 column passes' four-column loads and stores: L % 4 == 0 and
+  // u, a, c and out 16-byte aligned (else their element-wise path)
+  bool vec;
 };
 
 // The conv input at one position from u (as f32): u, or in the sampling
@@ -311,6 +329,110 @@ __device__ __forceinline__ void store_cols(
   }
 }
 
+// load_cols and store_cols of the f32 column passes (f32 u and out, the
+// Pad layout, with vec): each of the nt threads takes items i = tid + e nt
+// of the block's N1 ncols / 4, item i four adjacent columns c0 + 4 (i %
+// (ncols / 4)) .. + 3 of row n1 = i / (ncols / 4), so that u, a, c and out
+// move 16 bytes a load or store (a quarter warp covers a row's 64-byte
+// run of one tensor); the arithmetic is load_cols' and store_cols', value
+// by value.  With L % 4 == 0 an item's four positions are all in or all
+// past L.
+__device__ __forceinline__ float4 ld4(const float* p, bool in) {
+  return in ? *reinterpret_cast<const float4*>(p)
+            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+template <bool FUSED, int ncols>
+__device__ __forceinline__ void load_cols4(
+    float2* z, const float* __restrict__ u, const float* __restrict__ a,
+    const float* __restrict__ c, const float* __restrict__ bias,
+    const Dims& d, const Row& w, int c0, int tid, int nt) {
+  constexpr int CH = ncols / 4;
+  const int N1 = d.N1, N2 = d.N2, L = d.L, st = Pad::stride(N1);
+  const float* u0 = u + ((size_t)w.b0 * d.H + w.h) * L;
+  const float* u1 = u + ((size_t)w.b1 * d.H + w.h) * L;
+  const float* a0 = FUSED ? a + (size_t)w.b0 * L : a;
+  const float* a1 = FUSED ? a + (size_t)w.b1 * L : a;
+  const float* s0 = FUSED ? c + (size_t)w.b0 * L : c;
+  const float* s1 = FUSED ? c + (size_t)w.b1 * L : c;
+  const float bh0 = FUSED ? bias[(size_t)w.b0 * d.H + w.h] : 0.0f;
+  const float bh1 = FUSED && w.two ? bias[(size_t)w.b1 * d.H + w.h] : 0.0f;
+#pragma unroll 1
+  for (int i = tid; i < N1 * CH; i += nt) {
+    const int n1 = i / CH, cc = 4 * (i - n1 * CH), t = n1 * N2 + c0 + cc;
+    const bool in0 = t < L, in1 = in0 && w.two;
+    const float4 x0 = ld4(u0 + t, in0), x1 = ld4(u1 + t, in1);
+    const float4 p0 = ld4(a0 + t, FUSED && in0);
+    const float4 q0 = ld4(s0 + t, FUSED && in0);
+    const float4 p1 = ld4(a1 + t, FUSED && in1);
+    const float4 q1 = ld4(s1 + t, FUSED && in1);
+    const float xa[4] = {x0.x, x0.y, x0.z, x0.w};
+    const float xb[4] = {x1.x, x1.y, x1.z, x1.w};
+    const float pa[4] = {p0.x, p0.y, p0.z, p0.w};
+    const float pb[4] = {p1.x, p1.y, p1.z, p1.w};
+    const float qa[4] = {q0.x, q0.y, q0.z, q0.w};
+    const float qb[4] = {q1.x, q1.y, q1.z, q1.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float v0 =
+          in0 ? conv_in<FUSED, float>(xa[j], pa[j], qa[j], bh0) : 0;
+      const float v1 =
+          in1 ? conv_in<FUSED, float>(xb[j], pb[j], qb[j], bh1) : 0;
+      z[(cc + j) * st + pad(n1)] = make_float2(v0, v1);
+    }
+  }
+}
+
+template <bool FUSED, int ncols>
+__device__ __forceinline__ void store_cols4(
+    const float2* z, const float* __restrict__ u, const float* __restrict__ a,
+    const float* __restrict__ c, const float* __restrict__ bias,
+    const float* __restrict__ D, float* __restrict__ out, const Dims& d,
+    const Row& w, int c0, int tid, int nt) {
+  constexpr int CH = ncols / 4;
+  const int N1 = d.N1, N2 = d.N2, L = d.L, st = Pad::stride(N1);
+  const float inv_n = 0.5f * d.two_over_n;
+  const size_t o0 = ((size_t)w.b0 * d.H + w.h) * L;
+  const size_t o1 = ((size_t)w.b1 * d.H + w.h) * L;
+  const size_t r0 = (size_t)w.b0 * L, r1 = (size_t)w.b1 * L;
+  const float dh = FUSED ? D[w.h] : 0.0f;
+  const float bh0 = FUSED ? bias[(size_t)w.b0 * d.H + w.h] : 0.0f;
+  const float bh1 = FUSED && w.two ? bias[(size_t)w.b1 * d.H + w.h] : 0.0f;
+#pragma unroll 1
+  for (int i = tid; i < N1 * CH; i += nt) {
+    const int m1 = i / CH, cc = 4 * (i - m1 * CH), t = m1 * N2 + c0 + cc;
+    if (t >= L) continue;
+    const bool in0 = FUSED, in1 = FUSED && w.two;
+    const float4 x0 = ld4(u + o0 + t, in0), x1 = ld4(u + o1 + t, in1);
+    const float4 p0 = ld4(a + r0 + t, in0), q0 = ld4(c + r0 + t, in0);
+    const float4 p1 = ld4(a + r1 + t, in1), q1 = ld4(c + r1 + t, in1);
+    const float xa[4] = {x0.x, x0.y, x0.z, x0.w};
+    const float xb[4] = {x1.x, x1.y, x1.z, x1.w};
+    const float pa[4] = {p0.x, p0.y, p0.z, p0.w};
+    const float pb[4] = {p1.x, p1.y, p1.z, p1.w};
+    const float qa[4] = {q0.x, q0.y, q0.z, q0.w};
+    const float qb[4] = {q1.x, q1.y, q1.z, q1.w};
+    float ya[4], yb[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 v = z[(cc + j) * st + pad(m1)];
+      ya[j] = v.x * inv_n;
+      yb[j] = v.y * inv_n;
+      if (FUSED) {
+        ya[j] = gelu_out<float>(
+            ya[j] + dh * conv_in<true, float>(xa[j], pa[j], qa[j], bh0));
+        yb[j] = gelu_out<float>(
+            yb[j] + dh * conv_in<true, float>(xb[j], pb[j], qb[j], bh1));
+      }
+    }
+    *reinterpret_cast<float4*>(out + o0 + t) =
+        make_float4(ya[0], ya[1], ya[2], ya[3]);
+    if (w.two)
+      *reinterpret_cast<float4*>(out + o1 + t) =
+          make_float4(yb[0], yb[1], yb[2], yb[3]);
+  }
+}
+
 // z[q st + pad(k2)] *= kb[q N2 + k2] (conj(kb[...]) with conj) over the
 // rows q of N2 values that the nt threads' VPT values each cover, 2 G
 // loads of kb in flight (the three-pass route's row pass).
@@ -335,7 +457,8 @@ __device__ __forceinline__ void spectrum_product(
   }
 }
 
-// Pass A.  blockIdx.x: column tile; blockIdx.y: r = pair * H + h.
+// Pass A.  blockIdx.x: column tile; blockIdx.y: r = pair * H + h.  With
+// f32 activations and d.vec, the column load moves four columns a load.
 template <bool FUSED, typename T>
 __global__ void __launch_bounds__(1024)
 cols_fwd_kernel(const T* __restrict__ u, const float* __restrict__ a,
@@ -347,7 +470,14 @@ cols_fwd_kernel(const T* __restrict__ u, const float* __restrict__ a,
   const int c0 = blockIdx.x * TC;
   const int N1 = d.N1, N2 = d.N2, st = Pad::stride(N1);
   const int tid = threadIdx.x, nt = blockDim.x;
-  load_cols<FUSED, TC, Pad>(z, u, a, c, bias, d, w, c0, tid, nt);
+  if constexpr (std::is_same_v<T, float>) {
+    if (d.vec)
+      load_cols4<FUSED, TC>(z, u, a, c, bias, d, w, c0, tid, nt);
+    else
+      load_cols<FUSED, TC, Pad>(z, u, a, c, bias, d, w, c0, tid, nt);
+  } else {
+    load_cols<FUSED, TC, Pad>(z, u, a, c, bias, d, w, c0, tid, nt);
+  }
   __syncthreads();
   const int fpt = N1 / VPT, col = tid / fpt;
   fft<false>(z + col * st, N1, tid - col * fpt, fpt);
@@ -361,20 +491,34 @@ cols_fwd_kernel(const T* __restrict__ u, const float* __restrict__ a,
   }
 }
 
-// Pass B.  blockIdx.x: a run of rpb rows k1 of one r.
+// Pass B.  blockIdx.x: a run of rpb rows k1 of one r.  N2C: N2 at compile
+// time (then each thread's scratch loads are all in flight at once), or 0
+// (d.N2; rows_instance picks).
+template <int N2C>
 __global__ void __launch_bounds__(ROW_THREADS)
 rows_kernel(float2* __restrict__ S, const float2* __restrict__ kp, Dims d,
             int rpb, bool conj) {
   extern __shared__ float2 z[];    // rpb rows of N2 values
-  const int N1 = d.N1, N2 = d.N2, st = Pad::stride(N2);
+  const int N1 = d.N1, N2 = N2C ? N2C : d.N2, st = Pad::stride(N2);
   const int row0 = blockIdx.x * rpb;           // over (r, k1)
   const int r = row0 / N1, h = r % d.H;
   const int k10 = row0 - r * N1;
   const int tid = threadIdx.x, nt = blockDim.x;
   float2* Sb = S + (size_t)row0 * N2;
 
-  for (int i = tid; i < rpb * N2; i += nt)
-    z[(i / N2) * st + pad(i % N2)] = Sb[i];
+  if constexpr (N2C > 0) {
+    float2 v[VPT];
+#pragma unroll
+    for (int e = 0; e < VPT; ++e) v[e] = Sb[tid + e * nt];
+#pragma unroll
+    for (int e = 0; e < VPT; ++e) {
+      const int i = tid + e * nt;
+      z[(i / N2) * st + pad(i % N2)] = v[e];
+    }
+  } else {
+    for (int i = tid; i < rpb * N2; i += nt)
+      z[(i / N2) * st + pad(i % N2)] = Sb[i];
+  }
   __syncthreads();
   const int fpt = N2 / VPT, rr = tid / fpt, lane = tid - rr * fpt;
   fft<false>(z + rr * st, N2, lane, fpt);
@@ -388,7 +532,7 @@ rows_kernel(float2* __restrict__ S, const float2* __restrict__ kp, Dims d,
   }
 }
 
-// Pass C.  Grid as pass A.
+// Pass C.  Grid as pass A; the store as pass A's load.
 template <bool FUSED, typename T>
 __global__ void __launch_bounds__(1024)
 cols_inv_kernel(const float2* __restrict__ S, const T* __restrict__ u,
@@ -410,6 +554,12 @@ cols_inv_kernel(const float2* __restrict__ S, const T* __restrict__ u,
   __syncthreads();
   const int fpt = N1 / VPT, col = tid / fpt;
   fft<true>(z + col * st, N1, tid - col * fpt, fpt);
+  if constexpr (std::is_same_v<T, float>) {
+    if (d.vec) {
+      store_cols4<FUSED, TC>(z, u, a, c, bias, D, out, d, w, c0, tid, nt);
+      return;
+    }
+  }
   store_cols<FUSED, TC, Pad>(z, u, a, c, bias, D, out, d, w, c0, tid, nt);
 }
 
@@ -907,6 +1057,10 @@ dkf_cluster_kernel(const T* __restrict__ u, const T* __restrict__ g,
   }
 }
 
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 // power of two, 256 <= n <= 2^20 (N1, N2 in [16, 1024]), L <= n
 bool bad_size(int n, int L) {
   return n < 256 || n > (1 << 20) || (n & (n - 1)) || L > n || L < 1;
@@ -993,6 +1147,21 @@ int launch_cluster(const __nv_bfloat16* u, const float* a, const float* c,
   return (int)cudaGetLastError();
 }
 
+// The row pass's instance: N2 at compile time at N2 64 .. 512 (at 16 and
+// 32 it spilled; at 1024 its registers a thread cut the blocks an SM, and
+// it ran slower than the runtime instance); else the runtime one.
+using RowsKernel = void (*)(float2*, const float2*, Dims, int, bool);
+
+RowsKernel rows_instance(int N2) {
+  switch (N2) {
+    case 64: return rows_kernel<64>;
+    case 128: return rows_kernel<128>;
+    case 256: return rows_kernel<256>;
+    case 512: return rows_kernel<512>;
+  }
+  return rows_kernel<0>;
+}
+
 // The three-pass route through scratch.
 template <bool FUSED, typename T>
 int launch_long(const T* u, const float* a, const float* c,
@@ -1000,7 +1169,9 @@ int launch_long(const T* u, const float* a, const float* c,
                 void* scratch, T* out, int B, int H, int L, int n,
                 cudaStream_t stream, bool conj = false) {
   if (bad_size(n, L) || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  const Dims d = dims(B, H, L, n);
+  Dims d = dims(B, H, L, n);
+  d.vec = std::is_same_v<T, float> && L % 4 == 0 && aligned16(u) &&
+          aligned16(out) && (!FUSED || (aligned16(a) && aligned16(c)));
   const int R = (B + 1) / 2 * H;     // rows r = pair * H + h
   float2* S = static_cast<float2*>(scratch);
 
@@ -1008,9 +1179,10 @@ int launch_long(const T* u, const float* a, const float* c,
       (size_t)TC * Pad::stride(d.N1) * sizeof(float2);
   const int rpb = std::min(ROW_THREADS * VPT / d.N2, d.N1);
   const size_t smem_row = (size_t)rpb * Pad::stride(d.N2) * sizeof(float2);
+  const auto rows = rows_instance(d.N2);
   cudaError_t e;
   if ((e = allow_smem(cols_fwd_kernel<FUSED, T>, smem_col)) != cudaSuccess ||
-      (e = allow_smem(rows_kernel, smem_row)) != cudaSuccess ||
+      (e = allow_smem(rows, smem_row)) != cudaSuccess ||
       (e = allow_smem(cols_inv_kernel<FUSED, T>, smem_col)) != cudaSuccess)
     return (int)e;
 
@@ -1019,7 +1191,7 @@ int launch_long(const T* u, const float* a, const float* c,
   cols_fwd_kernel<FUSED, T><<<col_grid, col_threads, smem_col, stream>>>(
       u, a, c, bias, S, d);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  rows_kernel<<<R * d.N1 / rpb, rpb * d.N2 / VPT, smem_row, stream>>>(
+  rows<<<R * d.N1 / rpb, rpb * d.N2 / VPT, smem_row, stream>>>(
       S, static_cast<const float2*>(kp), d, rpb, conj);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   cols_inv_kernel<FUSED, T><<<col_grid, col_threads, smem_col, stream>>>(
@@ -1098,7 +1270,7 @@ int launch_dkf_long(const T* u, const T* g, void* scratch, void* out, int B,
 
 // kp: (H, N1, N2) complex64, the Hermitian-completed spectrum K[k1 + N1 k2]
 // at [h][k1][k2]; scratch: ceil(B/2) H n complex64.  The f32 forms take
-// the three-pass route at every n.
+// the three passes at every n.
 extern "C" int dwst_fftconv_long_ln_bias_gelu_d(
     const float* u, const float* a, const float* c, const float* bias,
     const void* kp, const float* D, void* scratch, float* out, int B, int H,

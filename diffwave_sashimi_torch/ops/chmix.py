@@ -26,13 +26,13 @@ to bf16 and the weight, bias, m and s gradients stay f32; kernels 6f
 and 7f multiply on the tensor cores and take channel widths that are
 multiples of 16.  The weight gradients of 6, 6f, 7 and 7f are one tiled
 contraction over all positions, in split-K partials summed in a fixed
-order (``wgrad_plan``), on the fp32 FMAs.  Kernels 2's, 3's and 7's
-per-position products run on the tensor cores in 3xTF32: each f32
+order (``wgrad_plan``), on the fp32 FMAs.  Kernels 2's, 3's, 6's and
+7's per-position products run on the tensor cores in 3xTF32: each f32
 operand split into two tf32 parts, hi and lo, and a product taken as lo
 hi + hi lo + hi hi with f32 sums, which keeps f32 accuracy.
 
 Widths: each kernel's plan (``glu_tf32_plan``, ``ff_tf32_plan``,
-``glu_bwd_plan``, ``ff_bwd_plan``, ``glu_bf16_plan``, ``ff_bf16_plan``,
+``glu_bwd_tf32_plan``, ``ff_bwd_plan``, ``glu_bf16_plan``, ``ff_bf16_plan``,
 ``glu_bwd_bf16_plan``, ``ff_bwd_bf16_plan``)
 is the one place its positions a block and its shared-memory bytes are
 computed, and its refusal function (``glu_refusal`` and the like) says
@@ -201,12 +201,11 @@ SMEM_LIMIT = 232448
 # an SM's shared memory on sm_90 (228 KB), of which the card reserves 1 KB
 # for each block it holds
 SMEM_SM, SMEM_RESERVED = 233472, 1024
-# csrc/chmix.cu's fp32 tiles (kernel 6): NT threads a block; weights
-# through a transposed (TK x 16384 / P + 4) tile
+# csrc/chmix.cu: NT threads a block; TK channels a tf32 mma k-step (the
+# f32 kernels' widths are multiples of it)
 NT, TK = 256, 8
-# the positions a block each fp32 kernel is built for (the P cases of its
-# launcher in csrc/chmix.cu), widest first
-GLU_BWD_PS = (128, 64, 32, 16)
+# the positions a block kernel 7 (3xTF32) is built for (the P cases of
+# its launcher in csrc/chmix.cu), widest first
 FF_BWD_PS = (64, 32, 16, 8)
 # the positions a block kernel 3 (3xTF32) is built for, widest first
 FF_TF32_PS = (128, 64, 32, 16, 8)
@@ -218,6 +217,11 @@ FF_TF32_PS = (128, 64, 32, 16, 8)
 GLU_TF32_PS = (32, 16, 8)
 GLU_TF32_SHARED = ((64, 2), (32, 2))
 GLU_TF32_WEIGHT_BYTES = 16384
+# kernel 6's (3xTF32 pass): the positions a block it is built for at one
+# block an SM, widest first, and its (P, blocks an SM) instances of more
+# blocks (the same rule of split-weight bytes a position as kernel 2's)
+GLU_BWD_TF32_PS = (64, 32, 16, 8)
+GLU_BWD_TF32_SHARED = ((64, 2),)
 # the widest H kernels 2f, 3f, 6f and 7f take
 GLU_BF16_MAX_H = FF_BF16_MAX_H = FF_BWD_BF16_MAX_H = 1024
 # the positions a block kernels 6f and 7f are built for, widest first
@@ -229,14 +233,9 @@ WGRAD_TILE, WGRAD_STEP, WGRAD_ALIGN = 128, 32, 8
 
 
 def _positions(H):
-    """P = 16384 / H within [32, 128]: kernel 6's and the tensor-core
-    kernels' default."""
+    """P = 16384 / H within [32, 128]: the bf16 tensor-core kernels'
+    default."""
     return 128 if H <= 128 else (64 if H <= 256 else 32)
-
-
-def _weight_tile(P):
-    """Floats of the fp32 kernels' transposed weight tile at P."""
-    return TK * (16384 // P + 4)
 
 
 def _fitted(ps, P0, smem):
@@ -354,11 +353,49 @@ def ff_tf32_split_floats(H, F):
     return 256 * (-(-F // 16) * (H // 8) + -(-H // 16) * (F // 8))
 
 
-def glu_bwd_plan(H):
-    """Kernel 6's (P, bytes): the f32 y and dz tiles (3H x P) and the
-    weight tile; P halved from 16384 / H until they fit (16 at H 1024)."""
-    return _fitted(GLU_BWD_PS, _positions(H),
-                   lambda P: 4 * (3 * H * P + _weight_tile(P)))
+@functools.lru_cache(maxsize=None)
+def glu_bwd_tf32_plan(B, H, L, sms=132):
+    """Kernel 6's tile plan (``csrc/chmix.cu::glu_res_bwd_tf32_kernel``) on
+    a card of ``sms`` SMs: (P positions a block, blocks an SM the kernel is
+    built for, shared-memory bytes a block), the grid being ceil(L / P) x
+    B blocks.  The block keeps the f32 y tile (H rows) and the dz tile (2H
+    rows, g until each entry's own thread overwrites it), rows of
+    :func:`ff_bwd_ld` floats.  As :func:`glu_tf32_plan`: the first of
+    GLU_BWD_TF32_SHARED whose blocks' tiles fit an SM, whose block reads at
+    most GLU_TF32_WEIGHT_BYTES of split weights (W and W^T, 8 bytes an
+    entry) per position and whose grid fills at least 90% of one wave of
+    that many blocks an SM, P 64 at two blocks at H 128; else one block an
+    SM at the widest of GLU_BWD_TF32_PS whose tiles fit and whose grid
+    fills at least 90% of one wave, else the narrowest that fits: P 64 at
+    H 256, 16 at H 512, 8 at H 1024 (SC09's and d_model 256's tiers at
+    B4).  The kernel takes these as given: this is the one place they are
+    computed."""
+    for P, blocks in GLU_BWD_TF32_SHARED:
+        smem = glu_bwd_tf32_smem(H, P)
+        if (4 * H * H * 8 <= GLU_TF32_WEIGHT_BYTES * P
+                and blocks * (smem + SMEM_RESERVED) <= SMEM_SM
+                and B * -(-L // P) >= 0.9 * blocks * sms):
+            return P, blocks, smem
+    fits = [P for P in GLU_BWD_TF32_PS
+            if glu_bwd_tf32_smem(H, P) <= SMEM_LIMIT] or GLU_BWD_TF32_PS[-1:]
+    P = next((P for P in fits if B * -(-L // P) >= 0.9 * sms), fits[-1])
+    return P, 1, glu_bwd_tf32_smem(H, P)
+
+
+def glu_bwd_tf32_smem(H, P):
+    """Kernel 6's shared-memory bytes a block at width H and P positions
+    (:func:`glu_bwd_tf32_plan`): the H-row y tile and the 2H-row dz tile,
+    f32 rows of ``ff_bwd_ld(P)`` floats."""
+    return 3 * H * ff_bwd_ld(P) * 4
+
+
+def glu_bwd_tf32_split_floats(H):
+    """Floats of kernel 6's split-weight scratch: W's value half Wa (H x
+    H), its gate half Wg, then W^T (H x 2H), each as ``csrc/mma_tf32.cuh``
+    lays it out (m-tiles of 16 rows, zero past H, by k-tiles of 8, 256
+    floats a tile)."""
+    Ht = -(-H // 16)
+    return 256 * (2 * Ht * (H // 8) + Ht * (H // 4))
 
 
 def ff_bwd_plan(H, F):
@@ -571,10 +608,13 @@ def ff_refusal(H, F, dtype):
 
 def glu_bwd_refusal(H, dtype):
     """None if kernel 6 (f32) or 6f (bf16 activations) takes width H,
-    else why not.  6f's mma tiles are 16 channels deep and its plan holds
-    up to GLU_BF16_MAX_H rows, as 2f's."""
+    else why not.  Kernel 6's tf32 mma k-steps are 8 channels deep (its
+    m-tiles of 16 pad with zero rows), and its tiles fit one block up to H
+    2416 at P 8; 6f's mma tiles are 16 channels deep and its plan holds up
+    to GLU_BF16_MAX_H rows, as 2f's."""
     if dtype != torch.bfloat16:
-        return _width_refusal("6", (("H", H),), TK, glu_bwd_plan(H)[1])
+        return _width_refusal("6", (("H", H),), TK,
+                              glu_bwd_tf32_plan(1, H, 1)[2])
     return _width_refusal("6f", (("H", H),), 16,
                           glu_bwd_bf16_plan(1, H, 1)[1], GLU_BF16_MAX_H)
 
@@ -704,9 +744,13 @@ def _wgrad_scratch(x, B, L, rows, cols):
 def glu_res_bwd(y, w, b, g):
     """Kernel-6 wrapper (same arguments and results as
     :func:`glu_res_bwd_ref`): the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors; bf16 activations go to kernel 6f.  A call
-    launches, counted as one launch: the per-position pass on the fp32
-    FMAs and the weight-gradient contraction with its split-K sum."""
+    version for CPU tensors; bf16 activations go to kernel 6f.  The pass's
+    two products run on the tensor cores at f32 accuracy (3xTF32); H must
+    be a multiple of 8 (:func:`glu_bwd_refusal`).  A call launches,
+    counted as one launch: a pass that splits W's value and gate halves
+    and its transpose into tf32 parts in mma fragment order into a scratch
+    of its own, the 3xTF32 pass (sized by :func:`glu_bwd_tf32_plan`), and
+    the weight-gradient contraction with its split-K sum."""
     if not y.is_cuda:
         return glu_res_bwd_ref(y, w, b, g)
     if y.dtype == torch.bfloat16:
@@ -714,10 +758,10 @@ def glu_res_bwd(y, w, b, g):
     B, H, L = y.shape
     _raise(glu_bwd_refusal(H, torch.float32))
     dy, dz, tc, part, grads = _glu_bwd_buffers(torch.float32, y, w, b, g)
-    wt = w.t().contiguous()
+    wf = w.new_empty((glu_bwd_tf32_split_floats(H),))
     cuda_lib.launch("dwst_glu_res_bwd",
-                    *_ptrs(y, g, w, wt, b, dy, dz, part, grads),
-                    B, H, L, tc, *glu_bwd_plan(H))
+                    *_ptrs(y, g, w, b, dy, dz, part, grads, wf), B, H, L, tc,
+                    *glu_bwd_tf32_plan(B, H, L, cuda_lib.sm_count(y.device)))
     glu_res_bwd.launches += 1
     return dy, grads[:2 * H * H].view(2 * H, H), grads[2 * H * H:]
 

@@ -80,8 +80,10 @@ _SIGNATURES = {
     # fftconv.py::dkf_plan; rows 0 the Stockham kernel), stream
     "dwst_fftconv_dkf": [_P] * 3 + [_I] * 7 + [_P],
     "dwst_fftconv_dkf_bf16": [_P] * 3 + [_I] * 7 + [_P],
-    # y, g, W, Wt, b, dy, dz, part, grads, B, H, L, tc, P, smem, stream
-    "dwst_glu_res_bwd": [_P] * 9 + [_I] * 6 + [_P],
+    # kernel 6: y, g, W, b, dy, dz, part, grads, wf (the split weight
+    # scratch), B, H, L, tc, and the plan (ops/chmix.py::glu_bwd_tf32_plan:
+    # P, blocks an SM, smem), stream
+    "dwst_glu_res_bwd": [_P] * 9 + [_I] * 7 + [_P],
     # kernel 6f: y, g, W, b, dy, dz, part, grads, wb (the bf16 weight
     # scratch), B, H, L, tc, P, smem, stream (y, g, dy bf16)
     "dwst_glu_res_bwd_bf16": [_P] * 9 + [_I] * 6 + [_P],

@@ -20,6 +20,7 @@ import test_torch_common  # noqa: F401  (single-threaded torch)
 
 from diffwave_sashimi_tpu.ops import fftconv_pallas as fp
 from diffwave_sashimi_torch import ops
+from diffwave_sashimi_torch.ops import cuda_lib
 
 fl = importlib.import_module("diffwave_sashimi_torch.ops.fftconv_long")
 
@@ -307,3 +308,171 @@ def test_cluster_schedule_matches_jax_fftconv_fused(B, L, n, C):
                               [torch.from_numpy(t) for t in (a, c, bias)],
                               torch.from_numpy(D))
     _within(fused.numpy(), gelu)
+
+
+# ---- kernel 9's f32 forms: the three passes' wide column items ----
+
+TC = 16                     # csrc/fftconv_long.cu: columns a column tile
+
+
+def _items(N1):
+    """The f32 column passes' wide items of one column tile (csrc
+    load_cols4/store_cols4): item i takes row n1 = i / (TC / 4) and
+    columns 4 (i % (TC / 4)) .. + 3 of the tile."""
+    CH = TC // 4
+    i = np.arange(N1 * CH)
+    n1, ch = np.divmod(i, CH)
+    return n1, 4 * ch
+
+
+@pytest.mark.parametrize("N1", [16, 64, 512, 1024])
+def test_wide_items_cover_each_tile_once(N1):
+    """The items of a column tile cover each (row n1, column) of its TC
+    columns once, 16 bytes of one row's run of 64 a load, and the block's
+    TC N1 / 16 threads take N1 TC / 4 / (TC N1 / 16) = 4 items each; a
+    row's chunk is all in or all past L when L % 4 == 0 (the kernel's
+    vec), since it starts at a multiple of 4."""
+    n1, col = _items(N1)
+    seen = np.zeros((N1, TC), np.int64)
+    for j in range(4):
+        np.add.at(seen, (n1, col + j), 1)
+    assert (seen == 1).all()
+    assert len(n1) == 4 * (TC * N1 // 16)
+    assert (col % 4 == 0).all()
+
+
+def _wide_schedule(u, kp, pro=None, D=None):
+    """A model of kernel 9's three passes with f32 activations (csrc
+    cols_fwd_kernel / rows_kernel / cols_inv_kernel<FUSED, float>, their
+    wide column items) in f64: per (batch pair,
+    channel) row, pass A's column tiles of TC columns gathered item by
+    item (four adjacent columns a load) through the prologue, their
+    N1-point FFTs and the twiddle W_n^(n2 k1) into the scratch S[k1][n2];
+    pass B's row FFTs, the spectrum product and the inverse with W_n^(-m2
+    k1); pass C's inverse column FFTs, 1/n, and the store t = m1 N2 + m2 <
+    L, the D-skip's u' formed again from u, a, c and bias (the
+    epilogue's re-read) and gelu_erf.  ``pro``: (a, c, bias); else the
+    contract's conv."""
+    B, H, L = u.shape
+    _, N1, N2 = kp.shape
+    n = N1 * N2
+    f64 = torch.float64
+    x = u.to(f64)
+    if pro is not None:
+        a, c, bias = (t.to(f64) for t in pro)
+        xpro = x * a[:, None] + c[:, None] + bias[:, :, None]
+    else:
+        xpro = x
+    xp = torch.zeros(B + B % 2, H, n, dtype=f64)
+    xp[:B, :, :L] = xpro
+    rows = torch.complex(xp[0::2], xp[1::2])             # (pairs, H, n)
+    S = torch.zeros(rows.shape[:2] + (N1, N2), dtype=torch.complex128)
+    n1, col = _items(N1)
+    k1 = torch.arange(N1, dtype=f64)
+    for c0 in range(0, N2, TC):                          # pass A
+        tile = torch.zeros(rows.shape[:2] + (TC, N1),
+                           dtype=torch.complex128)
+        for j in range(4):
+            t = torch.from_numpy(n1 * N2 + c0 + col + j)
+            tile[..., torch.from_numpy(col + j), torch.from_numpy(n1)] = (
+                rows[..., t])
+        F = torch.fft.fft(tile, dim=-1)                  # (.., cc, k1)
+        n2 = c0 + torch.arange(TC, dtype=f64)
+        tw = torch.exp(-2j * torch.pi * n2[:, None] * k1[None, :] / n)
+        S[..., c0:c0 + TC] = (F * tw).transpose(-1, -2)
+    X = torch.fft.fft(S, dim=-1) * kp.to(torch.complex128)   # pass B
+    m2 = torch.arange(N2, dtype=f64)
+    S = torch.fft.ifft(X, dim=-1) * N2 * torch.exp(
+        2j * torch.pi * k1[:, None] * m2[None, :] / n)
+    y = torch.fft.ifft(S, dim=-2) * N1 / n               # pass C
+    y = y.reshape(rows.shape[:2] + (n,))
+    out = torch.stack([y.real, y.imag], 1).reshape(-1, H, n)[:B, :, :L]
+    if pro is None:
+        return out
+    v = out + D.to(f64)[:, None] * xpro
+    return 0.5 * v * (1.0 + torch.erf(v / np.sqrt(2.0)))
+
+
+@pytest.mark.parametrize("B,L,n", [(2, 1000, 1024), (3, 700, 1024),
+                                   (2, 1500, 2048), (3, 3000, 4096)])
+def test_wide_schedule_matches_jax_fftconv_fused(B, L, n):
+    """The three passes' schedule with wide column items at small n, B2 and
+    an odd B3 (a pair's
+    second row empty): the conv alone and the sampling form (prologue,
+    epilogue with u' formed again) against fftconv_fused, within 1e-5 x
+    max(1, max|ref|), and against the plain version's float64 evaluation
+    to f64 rounding."""
+    H = 8                                 # fftconv_fused's HB
+    u, k = _case(B, H, L, n, min(L, n - L), seed=6)
+    kf = fp.factorize_kernel_freq(jnp.asarray(k), n)
+    kp = _port_spectrum(kf, n)
+    ref = np.asarray(fp.fftconv_fused(jnp.asarray(u), kf, n, L, False))
+    _within(_wide_schedule(torch.from_numpy(u), kp).numpy(), ref)
+
+    rng = np.random.RandomState(7)
+    a = (0.5 + rng.rand(B, L)).astype(np.float32)
+    c = (0.3 * rng.randn(B, L)).astype(np.float32)
+    bias = (0.3 * rng.randn(B, H)).astype(np.float32)
+    D = rng.randn(H).astype(np.float32)
+    up = u * a[:, None] + c[:, None] + bias[:, :, None]
+    y = np.asarray(fp.fftconv_fused(jnp.asarray(up), kf, n, L, False))
+    z = y + D[:, None] * up
+    gelu = 0.5 * z * (1.0 + erf(z / np.sqrt(2.0)))
+    pro = [torch.from_numpy(t) for t in (a, c, bias)]
+    fused = _wide_schedule(torch.from_numpy(u), kp, pro, torch.from_numpy(D))
+    _within(fused.numpy(), gelu)
+    f64 = ops.fftconv_long_ln_bias_gelu_d_ref(
+        torch.from_numpy(u).double(), *(t.double() for t in pro),
+        kp.to(torch.complex128), torch.from_numpy(D).double())
+    assert float((fused - f64).abs().max()) < 1e-9
+
+
+class _OnCard(torch.Tensor):
+    """A tensor that says it is on the card, so that a launcher takes its
+    launch route up to the launcher."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("B,H,L,n", [(2, 128, 143360, 1 << 18),
+                                     (2, 256, 35840, 1 << 16),
+                                     (2, 128, 100000, 1 << 17),
+                                     (2, 128, 300000, 1 << 19),
+                                     (3, 8, 3000, 4096)])
+def test_f32_sampling_wrapper_passes_its_signature(monkeypatch, B, H, L, n):
+    """On the card kernel 9's f32 sampling wrapper hands
+    ``dwst_fftconv_long_ln_bias_gelu_d`` exactly the arguments its ctypes
+    signature names, the stream apart: the eight addresses (the scratch of
+    the three passes, one complex n-row a (batch pair, channel) row, after
+    D), then B, H, L, n, and counts one launch, at every n of the
+    vocoder's tiers and phase 15's."""
+    calls = []
+    monkeypatch.setattr(cuda_lib, "launch", lambda name, *a: calls.append(
+        (name, a)))
+    monkeypatch.setattr(cuda_lib, "check", lambda *a: None)
+    N1, N2 = fl.split(n)
+    u = torch.empty(B, H, L, device="meta").as_subclass(_OnCard)
+    f = torch.empty(1, device="meta")
+    kp = torch.empty(H, N1, N2, dtype=torch.complex64, device="meta")
+    made = []
+    real_empty = torch.empty
+
+    def empty(*a, **k):
+        made.append(real_empty(*a, **k))
+        return made[-1]
+    monkeypatch.setattr(torch, "empty", empty)
+    before = ops.fftconv_long_ln_bias_gelu_d.launches
+    out = ops.fftconv_long_ln_bias_gelu_d(u, f, f, f, kp, f)
+    assert ops.fftconv_long_ln_bias_gelu_d.launches == before + 1
+    assert out.shape == (B, H, L)
+    (name, got), = calls
+    assert name == "dwst_fftconv_long_ln_bias_gelu_d"
+    sig = cuda_lib._SIGNATURES[name]
+    assert len(got) + 1 == len(sig) == 13
+    for a_, t in zip(got, sig):
+        assert isinstance(a_, int) and (t is cuda_lib._P or abs(a_) < 2 ** 31)
+    assert got[8:] == (B, H, L, n)
+    scratch = [t for t in made if t.dtype == torch.complex64]
+    assert [tuple(t.shape) for t in scratch] == [((B + 1) // 2 * H, n)]

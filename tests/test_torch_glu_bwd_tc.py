@@ -170,9 +170,11 @@ def test_glu_bwd_wrappers_pass_their_signatures(monkeypatch, dtype, entry):
     """The wrapper of kernel 6f (and of 6) hands its entry point exactly
     the arguments its ctypes signature names, the stream apart: addresses
     where it takes pointers, ints where it takes ints, ending with (B, H,
-    L, positions a weight-gradient split, P, smem) from the plans; 6f's
-    bf16 weight scratch holds W and W^T (4 H^2 entries, 8 H^2 bytes) and
-    it launches once, counted on its wrapper."""
+    L, positions a weight-gradient split) and the plan (6f's P, smem;
+    6's P, blocks an SM, smem); 6f's bf16 weight scratch holds W and W^T
+    (4 H^2 entries, 8 H^2 bytes), 6's f32 split scratch W's halves and W^T
+    in tf32 parts (no transposed copy of W), and it launches once, counted
+    on its wrapper."""
     calls = []
     monkeypatch.setattr(cuda_lib, "launch", lambda name, *a: calls.append(
         (name, a)))
@@ -200,14 +202,19 @@ def test_glu_bwd_wrappers_pass_their_signatures(monkeypatch, dtype, entry):
         assert isinstance(a, int) and (t is cuda_lib._P or abs(a) < 2 ** 31)
     tc = chmix.wgrad_plan(B, 2 * H, H, L, SMS)[0]
     plan = (chmix.glu_bwd_bf16_plan(B, H, L, SMS) if dtype == BF
-            else chmix.glu_bwd_plan(H))
-    assert args[-6:] == (B, H, L, tc, *plan)
+            else chmix.glu_bwd_tf32_plan(B, H, L, SMS))
+    assert args[-4 - len(plan):] == (B, H, L, tc, *plan)
     assert dy.dtype == dtype and tuple(dy.shape) == (B, H, L)
     assert tuple(dw.shape) == (2 * H, H) and tuple(db.shape) == (2 * H,)
     if dtype == BF:
         wb = [t for t in made if t.dtype == BF]
         assert [t.numel() for t in wb] == [4 * H * H]
         assert args[8] == wb[0].data_ptr()
+    else:
+        wf = [t for t in made if t.numel() == chmix.glu_bwd_tf32_split_floats(
+            H)]
+        assert len(wf) == 1 and args[8] == wf[0].data_ptr()
+        assert not any(t.shape == (H, 2 * H) for t in made)
 
 
 def test_glu_bwd_bf16_wrapper_is_its_plain_version_on_cpu():

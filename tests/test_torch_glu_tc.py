@@ -96,11 +96,12 @@ def test_glu_bf16_width_check(H, ok):
 
 
 # the positions a block each fp32 mixer plan picks at a tier (H, F = 2H;
-# B4 L1000 for kernel 2, whose plan fills a wave): kernel 2 P 64 at two
-# blocks an SM to H 256, then 32; P halves from 16384 / H (8192 / H for
-# kernel 7) until the tiles fit
-PLANS = {128: (64, 64, 128, 64), 256: (64, 64, 64, 32),
-         512: (32, 32, 32, 16), 1024: (32, 16, 16, 8)}
+# B4 L1000 for kernels 2 and 6, whose plans fill a wave): kernel 2 P 64 at
+# two blocks an SM to H 256, then 32; kernel 6 the widest P whose tiles
+# fit one block and whose 4 ceil(1000 / P) blocks fill a wave; P halves
+# from 8192 / H for kernel 7 until the tiles fit
+PLANS = {128: (64, 64, 32, 64), 256: (64, 64, 32, 32),
+         512: (32, 32, 16, 16), 1024: (32, 16, 8, 8)}
 
 
 @pytest.mark.parametrize("dtype", [F32, BF], ids=["f32", "bf16"])
@@ -118,14 +119,17 @@ def test_mixer_kernels_take_every_tier(H, dtype):
             chmix.ff_bwd_refusal(H, F, dtype)] == [None] * 4
     ff = chmix.ff_tf32_plan(H, F)
     glu = chmix.glu_tf32_plan(4, H, 1000)
-    plans = ((glu[0], glu[2]), (ff[0], ff[3]), chmix.glu_bwd_plan(H),
+    glu_bwd = chmix.glu_bwd_tf32_plan(4, H, 1000)
+    plans = ((glu[0], glu[2]), (ff[0], ff[3]), (glu_bwd[0], glu_bwd[2]),
              chmix.ff_bwd_plan(H, F))
     assert tuple(P for P, _ in plans) == PLANS[H]
     assert ff[2] == (2 if H == 128 else 1)
     assert glu[1] == (2 if H <= 256 else 1)
     glu_built = {P for P, _ in chmix.GLU_TF32_SHARED} | set(chmix.GLU_TF32_PS)
+    glu_bwd_built = ({P for P, _ in chmix.GLU_BWD_TF32_SHARED}
+                     | set(chmix.GLU_BWD_TF32_PS))
     for (P, smem), built in zip(plans, (glu_built, chmix.FF_TF32_PS,
-                                        chmix.GLU_BWD_PS, chmix.FF_BWD_PS)):
+                                        glu_bwd_built, chmix.FF_BWD_PS)):
         assert P in built and smem <= chmix.SMEM_LIMIT
 
 
@@ -133,18 +137,17 @@ def test_mixer_kernels_take_every_tier(H, dtype):
                                  (512, 1024), (256, 512)])
 def test_fp32_mixer_plans_hold_every_tile(H, F):
     """The fp32 plans' bytes hold their kernels' layouts (csrc/chmix.cu):
-    kernel 6 the y and dz tiles (3H x P) with the (TK x 16384 / P + 4)
-    weight tile; 2 the y tile and 8 warps' 16-row staging tiles, 3 the x
+    kernel 6 the y and dz tiles (3H rows); 2 the y tile and 8 warps' 16-row
+    staging tiles, 3 the x
     tile and the hidden rows (all F, or FC a chunk and then an H-row tile
     of sums) and 7 the x, g and hidden tiles ((2H + F) rows), rows of
     ``ff_bwd_ld(P)`` floats, and no weight tile (their split weights come
     from L2); the sums and statistics of 3 and 7 on top.  P at least 8, so
     kernel 7's (dm, ds) partials, one pair a block, are B ceil(L / P)
     pairs."""
-    wt = chmix.TK * 4
-    P, smem = chmix.glu_bwd_plan(H)
+    P, _, smem = chmix.glu_bwd_tf32_plan(4, H, 1000)
     assert P >= 8
-    assert smem >= 4 * 3 * H * P + wt * (16384 // P + 4)
+    assert smem >= 4 * 3 * H * chmix.ff_bwd_ld(P)
     assert smem <= chmix.SMEM_LIMIT
     P, _, smem = chmix.glu_tf32_plan(4, H, 1000)
     assert P >= 8
@@ -170,15 +173,15 @@ def test_fp32_mixer_plans_hold_every_tile(H, F):
     (200, "bf16", False, "cuda", "kernel 2f: channel width H = 200"),
     (512, "bf16", False, "cuda", "kernel 2f: channel width H = 2048"),
     (512, "f32", False, "cuda", None),
-    (512, "f32", True, "cuda", "kernel 6: widths H = 2048"),
+    (512, "f32", True, "cuda", "kernel 7: widths H = 2048"),
     (512, "f32", False, "cpu", None)])
 def test_card_refuses_widths_no_mixer_kernel_takes(d_model, precision,
                                                    train, device, refused):
     """``check_supported`` refuses by name, on the card only, a SaShiMi
     whose tier widths a channel-mixer kernel does not take (queue 1, item
     8): bf16 widths that are not multiples of 16, tiers past H 1024, f32
-    training past kernel 6's tiles (kernel 2 in 3xTF32 samples d_model
-    512's H 2048 tier); every tier of d_model 128 and 256 passes, sampling
+    training past kernel 7's tiles (kernel 2 in 3xTF32 samples d_model
+    512's H 2048 tier, kernel 6 in 3xTF32 takes its gradient); every tier of d_model 128 and 256 passes, sampling
     and training."""
     cfg = dict(SMALL_CFG, d_model=d_model)
     if refused is None:
