@@ -313,7 +313,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
     (d, after phase 4) ``generate(rank=1, world=2)`` writes ``1k_4`` to
     ``1k_7`` and draws other samples than rank 0.  The training phases
     through ``main()`` above pin ``mesh.data=1``: they read this process's
-    launch counts.
+    launch counts;
+28. the evaluation loop at the main path's width (``eval``): (a) the
+    committed classifier (``eval_assets/classifier_synth.pkl``) scores the
+    synthetic corpus (72 clips, ``eval.synth`` seed 0) and seeded noise
+    on the card and on the CPU (its plain version): features and
+    probabilities within 1e-4 x max(1, max |CPU|), the card's split and
+    noise FIDs within 5e-4 and 5e-3 of ``eval_assets/eval_artifact.json``'s
+    0.0146 and 45.9577; (b) on phase 2's seeded model and a checkpoint of
+    it, ``generate(params=sd, write_wavs=False)`` bit-equal to
+    ``generate(ckpt_iter=1000)`` and writing no wav, and with a perturbed
+    checkpoint at 2000, ``generate(ckpt_iter=2000, ckpt_smooth=999)``
+    bit-equal to ``generate(params=...)`` of the two checkpoints' mean in
+    the same running form (bf16, the 6-step fast schedule); (c) the
+    shipped bf16 training through ``main()`` at B4, 4 iterations, without
+    and with ``compute.remat=true`` (cuDNN's deterministic algorithms for
+    both): losses and every parameter bit-equal, launches exactly phase
+    8b's, and with remat the blocks' forward kernels (1f's training entry
+    without conj, 2f, 3f) twice; then one training step's time and
+    ``torch.cuda.max_memory_allocated`` without and with remat at B4 and
+    B16, in turns; (d) ``eval.flagship`` in this process at d_model 128,
+    20 iterations (remat), 8 samples, into a temporary workdir: its
+    artifact's FIDs and ISs finite, every kernel of the path launched.
 
 It prints the card's name and power limit, one JSON line with the kernels
 (each with its bound: the larger of its bytes over the HBM rate and its
@@ -557,20 +578,38 @@ DP_RANKS = 2
 DP_OVERRIDES = TRAIN_BF16_OVERRIDES + ["train.n_iters=2"]
 DP_ITERS = 3
 
+# phase 28: the evaluation loop.  (a) the committed bracket
+# (eval_assets/eval_artifact.json, rounded from 0.014615 and 45.957701)
+# and its bars; (b) generate() on the 6-step fast schedule of
+# eval/flagship.py (FAST_BETA_6); (c) the shipped bf16 training command,
+# 4 iterations, its last one checkpointed, without and with remat: with
+# remat each block's forward kernels run twice a step (1f's training entry
+# without conj, 2f, 3f); (d) the flagship loop at the shipped width
+EVAL_BRACKET = {"split": (0.0146, 5e-4), "noise": (45.9577, 5e-3)}
+EVAL_FAST_BETA = [0.0001, 0.001, 0.01, 0.05, 0.2, 0.5]
+EVAL_REMAT_OVERRIDES = [o for o in TRAIN_BF16_OVERRIDES
+                        if not o.startswith("train.iters_per_ckpt")] + [
+    "train.iters_per_ckpt=3"]
+TRAIN_REMAT_LAUNCHES = dict(TRAIN_BF16_LAUNCHES, fftconv_bf16=4 * 90,
+                            glu_res_bf16=4 * 60, ln_ff_res_bf16=4 * 60)
+EVAL_FLAGSHIP_ARGS = ["--d-model", "128", "--iters", "20", "--n-gen", "8",
+                      "--gen-batch", "8"]
+
 # name -> (source, TPU kernel it replaces, the paths that launch it)
 KERNELS = {
     "fftconv_ln_bias_gelu_d": ("diffwave_sashimi_torch/csrc/fftconv.cu",
                                "diffwave_sashimi_tpu/ops/fftconv2.py:427",
-                               ("generate",)),
+                               ("generate", "eval")),
     "glu_res": ("diffwave_sashimi_torch/csrc/chmix.cu",
                 "diffwave_sashimi_tpu/ops/chmix.py:119",
-                ("generate", "train")),
+                ("generate", "train", "eval")),
     "ln_ff_res": ("diffwave_sashimi_torch/csrc/chmix.cu",
                   "diffwave_sashimi_tpu/ops/chmix.py:182",
-                  ("generate", "train")),
+                  ("generate", "train", "eval")),
     "cauchy": ("diffwave_sashimi_torch/csrc/cauchy.cu",
                "diffwave_sashimi_tpu/ops/cauchy_pallas.py:54",
-               ("generate", "train", "train_bf16")),
+               ("generate", "train", "train_bf16", "train_bf16_remat",
+                "eval")),
     "fftconv": ("diffwave_sashimi_torch/csrc/fftconv.cu",
                 "diffwave_sashimi_tpu/ops/fftconv2.py:427", ("train",)),
     "fftconv_dkf": ("diffwave_sashimi_torch/csrc/fftconv.cu",
@@ -581,7 +620,7 @@ KERNELS = {
                       "diffwave_sashimi_tpu/ops/chmix.py:362", ("train",)),
     "cauchy_bwd": ("diffwave_sashimi_torch/csrc/cauchy.cu",
                    "diffwave_sashimi_tpu/ops/cauchy_pallas.py:91",
-                   ("train", "train_bf16")),
+                   ("train", "train_bf16", "train_bf16_remat", "eval")),
     # kernel 9 replaces fftconv_pallas.py:78 (_kernel) and, as the same
     # function, :126 (_kernel_batched)
     "fftconv_long_ln_bias_gelu_d": (
@@ -607,11 +646,11 @@ KERNELS = {
     "glu_res_bf16": ("diffwave_sashimi_torch/csrc/chmix.cu",
                      "diffwave_sashimi_tpu/ops/chmix.py:119",
                      ("generate_bf16", "generate_int8", "train_bf16",
-                      "vocode_bf16")),
+                      "vocode_bf16", "train_bf16_remat", "eval")),
     "ln_ff_res_bf16": ("diffwave_sashimi_torch/csrc/chmix.cu",
                        "diffwave_sashimi_tpu/ops/chmix.py:182",
                        ("generate_bf16", "generate_int8", "train_bf16",
-                        "vocode_bf16")),
+                        "vocode_bf16", "train_bf16_remat", "eval")),
     "fftconv_int8": ("diffwave_sashimi_torch/csrc/fftconv_int8.cu",
                      "diffwave_sashimi_tpu/ops/fftconv2.py:427",
                      ("generate_int8",)),
@@ -620,19 +659,23 @@ KERNELS = {
     "fftconv_bf16": ("diffwave_sashimi_torch/csrc/fftconv.cu",
                      "diffwave_sashimi_tpu/ops/fftconv2.py:427",
                      ("train_bf16", "vocoder_train",
-                      "vocoder_train_harder")),
+                      "vocoder_train_harder", "train_bf16_remat",
+                      "eval")),
     "fftconv_dkf_bf16": ("diffwave_sashimi_torch/csrc/fftconv.cu",
                          "diffwave_sashimi_tpu/ops/fftconv2.py:707",
                          ("train_bf16", "vocoder_train",
-                          "vocoder_train_harder")),
+                          "vocoder_train_harder", "train_bf16_remat",
+                          "eval")),
     "glu_res_bwd_bf16": ("diffwave_sashimi_torch/csrc/chmix.cu",
                          "diffwave_sashimi_tpu/ops/chmix.py:414",
                          ("train_bf16", "vocoder_train",
-                          "vocoder_train_harder")),
+                          "vocoder_train_harder", "train_bf16_remat",
+                          "eval")),
     "ln_ff_res_bwd_bf16": ("diffwave_sashimi_torch/csrc/chmix.cu",
                            "diffwave_sashimi_tpu/ops/chmix.py:362",
                            ("train_bf16", "vocoder_train",
-                            "vocoder_train_harder")),
+                            "vocoder_train_harder", "train_bf16_remat",
+                            "eval")),
     # the bf16 sampling forms (fast=True) of kernels 9 and 11
     "fftconv_long_ln_bias_gelu_d_bf16": (
         "diffwave_sashimi_torch/csrc/fftconv_long.cu",
@@ -645,7 +688,8 @@ PATHS = ("generate", "train", "vocode", "wavenet", "wavenet_train",
          "generate_bf16", "generate_int8", "train_bf16", "vocode_bf16",
          "wavenet_bf16", "d256_eps", "d256_eps_bf16", "d256_train",
          "d256_train_bf16", "vocoder_train", "vocoder_train_f32",
-         "vocoder_train_harder", "wavenet_train_bf16")
+         "vocoder_train_harder", "wavenet_train_bf16", "train_bf16_remat",
+         "eval")
 # the tier of the JSON line's entry, where it is not H128 at the path's L
 # (5L's at the bf16 path's dtype)
 TOP_TIER = {"gate_res_skip": f"B{N_SAMPLES}_C256_S256_L16000",
@@ -4888,6 +4932,266 @@ def check_generate_rank(torch, run, audio0):
     return {"wavs": wavs, "max_abs_diff_vs_rank0": diff}
 
 
+def eval_classifier(torch, root):
+    """Phase 28a: the committed classifier on the card against the CPU
+    (its plain version) on scripts/eval_artifact.py's bracket: the
+    synthetic corpus's two halves and seeded noise; the card's FIDs
+    against the committed numbers."""
+    import numpy as np
+    from diffwave_sashimi_torch.eval import classifier as clf
+    from diffwave_sashimi_torch.eval.fid import (frechet_distance,
+                                                 gaussian_stats)
+    from diffwave_sashimi_torch.eval.flagship import CLASSIFIER
+    from diffwave_sashimi_torch.eval.sc09_eval import _load_dir
+    from diffwave_sashimi_torch.eval.synth import synth_sc09_corpus
+    real = _load_dir(synth_sc09_corpus(os.path.join(root, "corpus")), 72)
+    sets = {"a": real[0::2], "b": real[1::2],
+            "noise": np.random.RandomState(1).randn(36, real.shape[1])
+            .astype(np.float32) * 0.1}
+    model, _ = clf.load_classifier(CLASSIFIER)
+    out, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out[dev] = {k: clf.extract(model, a, device=dev)
+                    for k, a in sets.items()}
+        secs[dev] = time.perf_counter() - t0
+    errs = {}
+    for k in sets:
+        for i, what in enumerate(("probs", "features")):
+            ref = out["cpu"][k][i]
+            errs[f"{k}_{what}"] = float(np.abs(out["cuda"][k][i] - ref).max()
+                                        ) / max(1.0, float(np.abs(ref).max()))
+    card = out["cuda"]
+    fids = {"split": frechet_distance(*gaussian_stats(card["a"][1]),
+                                      *gaussian_stats(card["b"][1])),
+            "noise": frechet_distance(*gaussian_stats(card["a"][1]),
+                                      *gaussian_stats(card["noise"][1]))}
+    ok = max(errs.values()) <= TOL_KERNEL and all(
+        abs(fids[k] - want) <= tol for k, (want, tol) in EVAL_BRACKET.items())
+    log(f"phase eval classifier: card vs CPU, error over max(1, max |CPU|) "
+        f"{json.dumps(errs)} (bar {TOL_KERNEL}); the card's FIDs split "
+        f"{fids['split']:.6f}, noise {fids['noise']:.6f} (bars: "
+        f"{json.dumps(EVAL_BRACKET)}); extract of 108 clips {secs['cuda']:.2f}"
+        f" s on the card, {secs['cpu']:.2f} s on the CPU (the log-mels on "
+        f"the host both times) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the classifier disagrees on the card")
+    return {"rel_err": errs, "fid": fids, "extract_s": secs}
+
+
+def eval_generate(torch, root):
+    """Phase 28b: ``generate(params=...)`` against the checkpoint it
+    replaces, and ``ckpt_smooth`` against ``params=`` of the mean, bit for
+    bit, on phase 2's seeded model (bf16, the 6-step fast schedule)."""
+    import numpy as np
+    from diffwave_sashimi_torch.runtime.checkpoint import save_checkpoint
+    from diffwave_sashimi_torch.runtime.generate import generate
+    from diffwave_sashimi_torch.utils.exp import local_directory
+    os.chdir(root)
+    diffusion = dict(DIFFUSION_CFG, beta=EVAL_FAST_BETA)
+    run, ckpt = local_directory(None, MODEL_CFG, diffusion, DATASET_CFG,
+                                "checkpoint")
+    model = build_model(torch)
+    save_checkpoint(ckpt, 1000, model)
+    sd1 = {k: v.clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator().manual_seed(SEED + 51)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.01 * torch.randn(p.shape, generator=gen))
+    save_checkpoint(ckpt, 2000, model)
+    sd2 = model.state_dict()
+    mean = {k: (v * 1 + sd2[k]) / 2 for k, v in sd1.items()}
+    kw = dict(n_samples=N_SAMPLES, seed=SEED, device="cuda",
+              precision="bf16")
+
+    def wavs(it):
+        d = os.path.join("exp", run, "waveforms", str(it))
+        return sorted(f for f in os.listdir(d) if f.endswith(".wav"))
+    from_params = generate(diffusion, MODEL_CFG, DATASET_CFG, ckpt_iter=1000,
+                           params=sd1, write_wavs=False, **kw)
+    wavs_params = wavs(1000)
+    from_ckpt = generate(diffusion, MODEL_CFG, DATASET_CFG, ckpt_iter=1000,
+                         **kw)
+    smooth = generate(diffusion, MODEL_CFG, DATASET_CFG, ckpt_iter=2000,
+                      ckpt_smooth=999, write_wavs=False, **kw)
+    from_mean = generate(diffusion, MODEL_CFG, DATASET_CFG, ckpt_iter=2000,
+                         params=mean, write_wavs=False, **kw)
+    out = {"params_bit_equal": bool(np.array_equal(from_params, from_ckpt)),
+           "params_wavs": wavs_params, "ckpt_wavs": wavs(1000),
+           "smooth_bit_equal": bool(np.array_equal(smooth, from_mean)),
+           "smooth_vs_1000_max_abs": float(np.abs(smooth - from_ckpt).max())}
+    ok = out["params_bit_equal"] and out["smooth_bit_equal"] and \
+        not wavs_params and len(out["ckpt_wavs"]) == N_SAMPLES and \
+        out["smooth_vs_1000_max_abs"] > 0 and np.isfinite(smooth).all()
+    log(f"phase eval generate: {json.dumps(out)} (bars: both bit-equal, no "
+        f"wav from params=, {N_SAMPLES} from the checkpoint) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("generate(params=...) or ckpt_smooth differs")
+    return out
+
+
+def eval_remat_training(torch, root, launches):
+    """Phase 28c: the shipped bf16 training command through ``main()`` at
+    B4 without and with ``compute.remat=true`` on phase 8's synthetic
+    corpus, the same seed; cuDNN takes its deterministic algorithms in
+    both runs, so that a difference is the remat's and not the run's."""
+    from diffwave_sashimi_torch.runtime import train as train_mod
+    from diffwave_sashimi_torch.utils.exp import local_directory
+    data = os.path.join(root, "sc09")
+    write_corpus(data)
+    os.chdir(root)
+    runs, deterministic = {}, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat, path, want in (
+                ("false", "train_bf16_no_remat", TRAIN_BF16_LAUNCHES),
+                ("true", "train_bf16_remat", TRAIN_REMAT_LAUNCHES)):
+            name = f"remat_{remat}"
+            t0 = time.perf_counter()
+            counted_run(torch, path, want, launches, lambda: train_mod.main(
+                EVAL_REMAT_OVERRIDES + [f"dataset.data_path={data}",
+                                        f"compute.remat={remat}",
+                                        f"train.name={name}"]))
+            secs = time.perf_counter() - t0
+            run, ckpt = local_directory(name, MODEL_CFG, DIFFUSION_CFG,
+                                        DATASET_CFG, "checkpoint",
+                                        makedirs=False)
+            with open(os.path.join("exp", run, "metrics.jsonl")) as f:
+                losses = [r["train/loss"] for r in map(json.loads, f)
+                          if "train/loss" in r]
+            sd = torch.load(os.path.join(ckpt, "3.pkl"),
+                            weights_only=True)["model_state_dict"]
+            runs[remat] = {"losses": losses, "sd": sd, "s": secs}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, b = runs["false"], runs["true"]
+    differ = [k for k, v in a["sd"].items() if not torch.equal(v, b["sd"][k])]
+    ok = len(a["losses"]) == 4 and a["losses"] == b["losses"] and not differ
+    log(f"phase eval remat: main() 4 iterations at B{N_SAMPLES}, bf16, "
+        f"without / with compute.remat=true: {a['s']:.2f} / {b['s']:.2f} s "
+        f"wall; losses {a['losses']} / {b['losses']}; parameters differing "
+        f"{differ[:5]} (bar: losses and every parameter bit-equal); launches "
+        f"with remat {launches['train_bf16_remat']} (the blocks' forward "
+        f"kernels twice: exactly {TRAIN_REMAT_LAUNCHES}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("training with remat differs from training "
+                             "without")
+    return {"losses": a["losses"], "losses_remat": b["losses"],
+            "s": a["s"], "s_remat": b["s"]}
+
+
+def remat_step_costs(torch, dev):
+    """Phase 28c: one bf16 training step (forward, backward, Adam) of the
+    seeded d128/n6 model at B4 and B16 without and with remat, in turns
+    (off, on, on, off; two steps each after a warm-up step of each):
+    ms a step (CUDA events) and ``torch.cuda.max_memory_allocated`` over
+    the steps (parameters and Adam state included)."""
+    from diffwave_sashimi_torch.diffusion.schedule import schedule_from_cfg
+    from diffwave_sashimi_torch.models import construct_model
+    from diffwave_sashimi_torch.runtime.train import make_optimizer, train_step
+    torch.manual_seed(SEED)
+    with torch.device(dev):
+        model = construct_model(MODEL_CFG, "bf16")
+    model.train()
+    opt = make_optimizer(model, 2e-4)
+    schedule = schedule_from_cfg(DIFFUSION_CFG)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+    out = {}
+    for B in (N_SAMPLES, 16):
+        audio = 0.5 * torch.randn(B, 1, 16000, device=dev, generator=gen)
+        ms = {False: [], True: []}
+        peak = {False: 0, True: 0}
+        for remat in (False, True):
+            model.remat = remat
+            train_step(model, opt, audio, schedule, gen)
+        for remat in (False, True, True, False):
+            model.remat = remat
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(2):
+                train_step(model, opt, audio, schedule, gen)
+            end.record()
+            torch.cuda.synchronize()
+            ms[remat].append(start.elapsed_time(end) / 2)
+            peak[remat] = max(peak[remat], torch.cuda.max_memory_allocated())
+        out[f"B{B}"] = {
+            "step_ms": sum(ms[False]) / 2, "step_ms_remat": sum(ms[True]) / 2,
+            "step_ms_turns": ms[False] + ms[True],
+            "max_memory_allocated": peak[False],
+            "max_memory_allocated_remat": peak[True]}
+        log(f"timing: bf16 training step at B{B} without / with remat "
+            f"{out[f'B{B}']['step_ms']:.2f} / "
+            f"{out[f'B{B}']['step_ms_remat']:.2f} ms (in turns: "
+            f"{[round(x, 2) for x in ms[False]]} / "
+            f"{[round(x, 2) for x in ms[True]]}); max_memory_allocated "
+            f"{peak[False] / 2**30:.3f} / {peak[True] / 2**30:.3f} GiB")
+    model.remat = False
+    return out
+
+
+def eval_flagship(torch, root, launches):
+    """Phase 28d: ``eval.flagship`` in this process at the shipped width,
+    20 iterations with remat, 8 samples a schedule, into ``root``; the
+    path's launches counted around it."""
+    import numpy as np
+    from diffwave_sashimi_torch import ops
+    from diffwave_sashimi_torch.eval import flagship
+    for f in ops.COUNTED.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    art = flagship.main(EVAL_FLAGSHIP_ARGS + ["--workdir", root])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches["eval"] = {k: f.launches for k, f in ops.COUNTED.items()}
+    points = art["trend_T200"] + [art["fast_T6_aligned"],
+                                  art["fast_T6_raw_ref_behavior"]]
+    missing = [k for k, (_, _, paths) in KERNELS.items()
+               if "eval" in paths and launches["eval"][k] == 0]
+    ok = [p["iter"] for p in art["trend_T200"]] == [20] and all(
+        np.isfinite(p["fid"]) and np.isfinite(p["is"]) for p in points) \
+        and not missing
+    log(f"phase eval flagship: {' '.join(EVAL_FLAGSHIP_ARGS)} in "
+        f"{secs:.2f} s wall (training {art['train_wall_s']} s); T200 "
+        f"{art['trend_T200']}, T6 aligned {art['fast_T6_aligned']}, T6 raw "
+        f"{art['fast_T6_raw_ref_behavior']}; launches {launches['eval']}; "
+        f"kernels never launched {missing} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the flagship loop failed its gates")
+    return {"artifact": art, "s": secs}
+
+
+def check_eval(torch, dev, launches):
+    """Phase 28: the evaluation loop and the runtime options it uses."""
+    t0 = time.perf_counter()
+    cwd = os.getcwd()
+    root = tempfile.TemporaryDirectory(prefix="dwst_smoke_eval_")
+    out = {}
+    try:
+        out["classifier"] = eval_classifier(torch, root.name)
+        for label, fn in (("generate", eval_generate),
+                          ("remat", lambda t, r: eval_remat_training(
+                              t, r, launches)),
+                          ("flagship", lambda t, r: eval_flagship(
+                              t, r, launches))):
+            sub = os.path.join(root.name, label)
+            os.makedirs(sub)
+            out[label] = fn(torch, sub)
+            os.chdir(cwd)
+            if label == "remat":
+                out["remat"]["step_costs"] = remat_step_costs(torch, dev)
+    finally:
+        os.chdir(cwd)
+        root.cleanup()
+    out["s"] = time.perf_counter() - t0
+    log(f"phase eval: {out['s']:.1f} s")
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -5168,6 +5472,9 @@ def main():
                                         dev, launches,
                                         train_bf16["main"]["losses"])
     data_parallel["generate_rank"] = dp_generate
+
+    # phase 28: the evaluation loop at the main path's width
+    evaluation = check_eval(torch, dev, launches)
     log(f"card: {smi[0]}")
 
     entries = []
@@ -5250,6 +5557,7 @@ def main():
         "wavenet_train_bf16": wn_train_bf16,
         "d256": d256,
         "data_parallel": data_parallel,
+        "eval": evaluation,
         "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,9 @@ class SpeechCommands:
     def __len__(self) -> int:
         return len(self.files)
 
+    def label(self, idx: int) -> str:
+        return self.files[idx][1]
+
     def __getitem__(self, idx: int):
         path, label = self.files[idx]
         audio, sr = load_wav_raw(path)

@@ -60,13 +60,17 @@ def check_supported(model_cfg: Dict[str, Any], precision: str,
 
 
 def construct_model(model_cfg: Dict[str, Any], precision: str = "f32",
-                    generator: Optional[torch.Generator] = None):
-    """Build the backbone (on the CPU) from a model config block."""
+                    generator: Optional[torch.Generator] = None,
+                    remat: bool = False):
+    """Build the backbone (on the CPU) from a model config block;
+    ``remat`` (``compute.remat``) checkpoints each block of the training
+    form (:mod:`.remat`)."""
     check_supported(model_cfg, precision, device_type="cpu")
     cfg = dict(model_cfg)
     cls = _REGISTRY[cfg.pop("_name_")]
     params = inspect.signature(cls).parameters
     kwargs = {k: (tuple(v) if isinstance(v, list) else v)
               for k, v in cfg.items() if k in params}
+    kwargs["remat"] = remat
     return cls(**kwargs, dtype=activation_dtype(precision),
                generator=generator)

@@ -22,7 +22,8 @@ then the S4 training path (its conv by kernels 1 and 5 up to FFT size
 32768, by kernel 9's training entries and kernel 5L past it, up to 2^20),
 then norm2 + FF + residual + UNet skip as one differentiable Function
 (kernels 3 and 7); the S4 kernels are rebuilt with gradients in every
-forward.
+forward.  With ``remat`` (``compute.remat``) each block's training form
+runs under an activation checkpoint (:mod:`.remat`).
 
 The conditional (vocoder) model adds, in every block, ``mel_conv(upsample(
 mel))`` to the residual that kernel 2 adds (JAX models/sashimi.py:237-242,
@@ -59,6 +60,7 @@ from ..ops.conv import TorchLinear, WNConv1d, ZeroConv1d, swish
 from ..ops.fftconv_long import MAX_N
 from ..ops.mel_upsample import MelUpsampler
 from .embedding import diffusion_step_embedding
+from .remat import checkpointed
 from .s4 import S4
 
 def check_train_length(L: int, device_type: str) -> None:
@@ -200,12 +202,14 @@ class DiffWaveBlock(nn.Module):
         return out, (mean, var)
 
     def forward_train(self, x, embed, khat, skip=None, ops: Ops = FUSED,
-                      mel_cond=None):
+                      mel_cond=None, mel=None):
         """The differentiable block: out [+ skip].  ``mel_cond`` (B or 1,
-        H, L) joins the residual that the GLU kernel (2 and 6, or 2f and
-        6f) takes, in x's dtype (JAX models/sashimi.py:204-210); its
-        gradient reaches the upsampler and mel_conv through autograd of
-        that sum."""
+        H, L), or the term computed here from ``mel``, joins the residual
+        that the GLU kernel (2 and 6, or 2f and 6f) takes, in x's dtype
+        (JAX models/sashimi.py:204-210); its gradient reaches the
+        upsampler and mel_conv through autograd of that sum."""
+        if mel is not None:
+            mel_cond = self.compute_mel_cond(mel, x.shape[-1])
         y = self.norm1(x) + self.fc_t(embed)[:, :, None]
         res = x if mel_cond is None else x + mel_cond.to(x.dtype)
         x = self.layer.forward_train(y, khat, residual=res, ops=ops)
@@ -226,10 +230,11 @@ class Sashimi(nn.Module):
                  diffusion_step_embed_dim_out: int = 512,
                  unconditional: bool = True,
                  mel_upsample: Sequence[int] = (16, 16), L: int = 16000,
-                 dropout: float = 0.0,
+                 dropout: float = 0.0, remat: bool = False,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.remat = remat      # the training form checkpoints each block
         if dropout:
             raise NotImplementedError("S4 dropout (DropoutNd) is not ported "
                                       "yet: ROADMAP.md queue 1, item 7")
@@ -348,12 +353,15 @@ class Sashimi(nn.Module):
         embed = swish(self.fc_t2(swish(self.fc_t1(embed))))
 
         def block(layer, x, stats, skip=None):
-            cond = next(conds) if conds is not None else (
-                None if mel is None
-                else layer.compute_mel_cond(mel, x.shape[-1]))
+            cond = next(conds) if conds is not None else None
             if train:
-                return layer.forward_train(x, embed, next(khats), skip,
-                                           ops=ops, mel_cond=cond), None
+                args = (x, embed, next(khats), skip)
+                kw = dict(ops=ops, mel_cond=cond, mel=mel)
+                return (checkpointed(layer.forward_train, *args, **kw)
+                        if self.remat else layer.forward_train(*args, **kw)
+                        ), None
+            if cond is None and mel is not None:
+                cond = layer.compute_mel_cond(mel, x.shape[-1])
             return layer(x, embed, next(khats), stats, skip=skip, ops=ops,
                          mel_cond=cond)
 

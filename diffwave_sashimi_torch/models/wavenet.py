@@ -19,7 +19,9 @@ The diffusion-step embedding goes through the two shared swish FC layers
 goes through ``ops.gate`` at any length (the JAX guard L % 128 == 0 is a TPU
 lane constraint); ``train=True`` differentiates the plain tail
 (``gate_res_skip_ref``) under autograd at either precision, as the JAX
-training path has no kernel there.  A block's mel term
+training path has no kernel there; with ``remat`` (``compute.remat``)
+each block runs under an activation checkpoint (:mod:`.remat`).  A
+block's mel term
 depends only on the mel and the parameters, so :meth:`WaveNet.
 compute_mel_conds` may compute all of them once per run (the JAX package
 recomputes them every step; the function is the same).
@@ -46,6 +48,7 @@ from ..ops.conv import (TorchLinear, WNConv1d, ZeroConv1d, swish,
                         weight_norm, weight_norm_params)
 from ..ops.mel_upsample import MelUpsampler
 from .embedding import diffusion_step_embedding
+from .remat import checkpointed
 
 
 class ResidualBlock(nn.Module):
@@ -75,8 +78,11 @@ class ResidualBlock(nn.Module):
         return self.mel_conv(self.upsample_conv2d(mel, L))
 
     def forward(self, x, embed, ops: Ops = FUSED, train: bool = False,
-                mel_cond=None):
-        """(block output (B, C, L), skip (B, S, L))."""
+                mel_cond=None, mel=None):
+        """(block output (B, C, L), skip (B, S, L)); the mel term is
+        ``mel_cond``, or computed here from ``mel``."""
+        if mel is not None:
+            mel_cond = self.compute_mel_cond(mel, x.shape[-1])
         h = x + self.fc_t(embed)[:, :, None]
         h = self.dilated_conv_layer(h)
         if mel_cond is not None:
@@ -99,10 +105,12 @@ class WaveNet(nn.Module):
                  diffusion_step_embed_dim_out: int = 512,
                  unconditional: bool = True,
                  mel_upsample: Sequence[int] = (16, 16),
+                 remat: bool = False,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = generator
+        self.remat = remat      # the training form checkpoints each block
         self.unconditional = unconditional
         self.act_dtype = dtype          # the parameters stay f32
         self.embed_dim_in = diffusion_step_embed_dim_in
@@ -171,10 +179,10 @@ class WaveNet(nn.Module):
         mel = None if mel is None else mel.to(dtype)
         skip_sum = None
         for n, block in enumerate(blocks):
-            cond = mel_conds[n] if mel_conds is not None else (
-                None if mel is None
-                else block.compute_mel_cond(mel, audio.shape[-1]))
-            x, skip = block(x, embed, ops, train, cond)
+            args = (x, embed, ops, train,
+                    None if mel_conds is None else mel_conds[n], mel)
+            x, skip = (checkpointed(block, *args) if train and self.remat
+                       else block(*args))
             skip_sum = skip if skip_sum is None else skip_sum + skip
         # the scale as a scalar of the activations' dtype, as JAX's
         scale = torch.tensor(math.sqrt(1.0 / len(blocks)), dtype=dtype).item()

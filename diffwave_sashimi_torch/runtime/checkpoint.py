@@ -15,8 +15,10 @@ Files are ``exp/<run>/checkpoint/<iter>.pkl`` holding a dict with
 -1, like "none found", means none.  Resuming from a JAX pickle or a
 reference torch file loads the parameters only: optimizer state is read
 from the port's own files only (the JAX package does the same for torch
-files).  Pickles are trusted input: they are written by this project's
-trainers.
+files).  :func:`smooth_checkpoints` averages the checkpoints of an
+iteration window (the reference's ``smooth_ckpt``, JAX
+``runtime/checkpoint.py::smooth_checkpoints``).  Pickles are trusted
+input: they are written by this project's trainers.
 """
 
 from __future__ import annotations
@@ -114,3 +116,26 @@ def load_into(model: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> None:
             v = v.reshape(own[k].shape)
         fitted[k] = v
     model.load_state_dict(fitted, strict=True)
+
+
+def smooth_checkpoints(directory: str, min_ckpt: int, max_ckpt: int,
+                       model_cfg) -> Dict[str, Any]:
+    """The arithmetic mean of the parameters of every checkpoint at
+    iterations in (min_ckpt, max_ckpt], in the JAX package's running form
+    ``(a n + b) / (n + 1)`` in f32, in iteration order; returns
+    ``{"model_state_dict", "step": the last iteration, "smoothed_over":
+    the iterations}``."""
+    iters = sorted(
+        int(f[:-4]) for f in os.listdir(directory)
+        if f.endswith(".pkl") and f[:-4].isdigit()
+        and min_ckpt < int(f[:-4]) <= max_ckpt)
+    if not iters:
+        raise FileNotFoundError(
+            f"no checkpoints in ({min_ckpt}, {max_ckpt}] under {directory}")
+    avg = None
+    for n, it in enumerate(iters):
+        sd = load_state_dict(directory, it, model_cfg)
+        avg = sd if avg is None else {k: (a * n + sd[k]) / (n + 1)
+                                      for k, a in avg.items()}
+    return {"model_state_dict": avg, "step": iters[-1],
+            "smoothed_over": iters}

@@ -22,22 +22,31 @@ the wavs compares rank 0's first sample with the source wav.
 
 ``conv_int8`` (``+compute.conv_int8=true``) runs SaShiMi's S4 conv as the
 int8 conv, kernel 12 (``ops.FUSED_INT8``), at either precision.
+
+As in JAX: ``params`` (a state dict in the port's names) replaces the
+checkpoint, while ``ckpt_iter`` still names the output folder;
+``ckpt_smooth=k`` samples from the mean of the checkpoints (k,
+ckpt_iter] (:func:`.checkpoint.smooth_checkpoints`); ``write_wavs=False``
+returns the samples and writes no file; ``profile_dir``
+(``compute.profile_dir``) traces the sampling loop with torch.profiler
+into that directory (a TensorBoard trace, ``*.pt.trace.json``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
 import time
 import traceback
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 from scipy.io import wavfile
 
-from ..config import load_config
+from ..config import extract_multirun_flag, load_config, sweep_overrides
 from ..data.mel2samp import Mel2Samp, load_mel_file
 from ..data.wav import load_wav_float, load_wav_raw
 from ..diffusion.sampling import sampling
@@ -46,13 +55,8 @@ from .. import ops as port_ops
 from ..models import check_supported, construct_model
 from ..utils.audio_metrics import compare
 from ..utils.exp import local_directory
-from .checkpoint import load_into, load_state_dict, resolve_iter
-
-
-PROFILE_DIR_TODO = ("compute.profile_dir (a trace of generation) is not "
-                    "ported: ROADMAP.md queue 1, item 6")
-CKPT_SMOOTH_TODO = ("generate.ckpt_smooth (checkpoint smoothing) is not "
-                    "ported: ROADMAP.md queue 1, item 6")
+from .checkpoint import (load_into, load_state_dict, resolve_iter,
+                         smooth_checkpoints)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -68,6 +72,25 @@ def resolve_device(device=None) -> torch.device:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def profiled(profile_dir: Optional[str], device: torch.device):
+    """A torch.profiler trace of the block (host, and the card's kernels on
+    a card) written into ``profile_dir`` for TensorBoard; nothing when
+    ``profile_dir`` is None."""
+    if profile_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities, on_trace_ready=torch.profiler.
+                 tensorboard_trace_handler(profile_dir)):
+        yield
+    print(f"sampling trace written to {profile_dir}", flush=True)
 
 
 def resolve_condition(dataset_cfg, mel_path: Optional[str],
@@ -108,7 +131,9 @@ def generate(diffusion_cfg, model_cfg, dataset_cfg, ckpt_iter="max",
              n_samples: int = 1, name: Optional[str] = None,
              batch_size: Optional[int] = None, ckpt_smooth=None,
              mel_path: Optional[str] = None, mel_name: Optional[str] = None,
+             params: Optional[Dict[str, torch.Tensor]] = None,
              seed: int = 0, precision: str = "f32", conv_int8: bool = False,
+             write_wavs: bool = True, profile_dir: Optional[str] = None,
              device=None, rank: int = 0, world: int = 1) -> np.ndarray:
     """Sample ``n_samples`` waveforms; returns (n_samples, 1, L) numpy.
     ``device`` defaults to the first card (see :func:`resolve_device`).
@@ -120,8 +145,6 @@ def generate(diffusion_cfg, model_cfg, dataset_cfg, ckpt_iter="max",
     if conv_int8 and model_cfg["_name_"] != "sashimi":
         raise ValueError("compute.conv_int8 switches SaShiMi's S4 conv; "
                          f"model {model_cfg['_name_']!r} has none")
-    if ckpt_smooth is not None:
-        raise NotImplementedError(CKPT_SMOOTH_TODO)
     # f32 means f32: no TF32 in the 1x1 convolutions or the plain matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -132,7 +155,12 @@ def generate(diffusion_cfg, model_cfg, dataset_cfg, ckpt_iter="max",
     schedule = schedule_from_cfg(diffusion_cfg, fast=True)
     ckpt_path = os.path.join("exp", local_path, "checkpoint")
     ckpt_iter = resolve_iter(ckpt_path, ckpt_iter)
-    sd = load_state_dict(ckpt_path, ckpt_iter, model_cfg)
+    sd = params
+    if sd is None and ckpt_smooth is not None:
+        sd = smooth_checkpoints(ckpt_path, int(ckpt_smooth), ckpt_iter,
+                                model_cfg)["model_state_dict"]
+    elif sd is None:
+        sd = load_state_dict(ckpt_path, ckpt_iter, model_cfg)
     if sd is None:
         raise FileNotFoundError(
             f"no valid checkpoint at iter {ckpt_iter} in {ckpt_path}")
@@ -163,14 +191,15 @@ def generate(diffusion_cfg, model_cfg, dataset_cfg, ckpt_iter="max",
     _sync(device)
     cond_s = time.perf_counter() - t0
     chunks, secs = [], []
-    for _ in range(n_samples // batch_size):
-        _sync(device)
-        t0 = time.perf_counter()
-        x = sampling(model, shape, schedule, device=device, generator=gen,
-                     mel_conds=mel_conds, ops=ops)
-        _sync(device)
-        secs.append(time.perf_counter() - t0)
-        chunks.append(x.cpu().numpy())
+    with profiled(profile_dir, device):
+        for _ in range(n_samples // batch_size):
+            _sync(device)
+            t0 = time.perf_counter()
+            x = sampling(model, shape, schedule, device=device,
+                         generator=gen, mel_conds=mel_conds, ops=ops)
+            _sync(device)
+            secs.append(time.perf_counter() - t0)
+            chunks.append(x.cpu().numpy())
     generated = np.concatenate(chunks, axis=0)
 
     sr = int(dataset_cfg["sampling_rate"])
@@ -183,6 +212,8 @@ def generate(diffusion_cfg, model_cfg, dataset_cfg, ckpt_iter="max",
           f"step at batch {batch_size}; includes building any S4 kernels"
           + ("" if mel is None else f"; the mel terms took {cond_s:.3f}s "
              f"once, before") + ")", flush=True)
+    if not write_wavs:
+        return generated
     for i in range(n_samples):
         wav = f"{ckpt_iter // 1000}k_{n_samples * rank + i}.wav"
         wavfile.write(os.path.join(output_directory, wav), sr,
@@ -215,16 +246,24 @@ def main(argv=None):
     int8 conv), ``experiment=sc09_wavenet``, or vocoding,
     ``experiment=ljspeech generate.mel_name=<wav name>
     dataset.data_path=<dir>`` (Hydra-style overrides of the repository's
-    configs/)."""
-    cfg = load_config(overrides=list(argv if argv is not None
-                                     else sys.argv[1:]))
-    if cfg.get_path("compute.profile_dir") is not None:
-        raise NotImplementedError(PROFILE_DIR_TODO)
+    configs/; ``-m`` sweeps comma-listed values as sequential jobs;
+    ``compute.profile_dir=<dir>`` traces the sampling loop)."""
+    args, multirun = extract_multirun_flag(
+        argv if argv is not None else sys.argv[1:])
+    if multirun:
+        jobs = sweep_overrides(args)
+        for i, job in enumerate(jobs):
+            print(f"[multirun] job {i}/{len(jobs)}: {' '.join(job)}",
+                  flush=True)
+            main(job)
+        return
+    cfg = load_config(overrides=args)
     print(cfg.to_yaml())
     generate(cfg.diffusion, cfg.model, cfg.dataset,
              name=cfg.train.get("name"),
              precision=cfg.get_path("compute.precision", "bf16"),
              conv_int8=bool(cfg.get_path("compute.conv_int8", False)),
+             profile_dir=cfg.get_path("compute.profile_dir"),
              **dict(cfg.generate))
 
 

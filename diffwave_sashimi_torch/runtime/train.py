@@ -33,12 +33,15 @@ by kernel 9's training entries and its spectrum gradient by kernel 5L;
 WaveNet's training form has none, as in JAX: cuDNN convs and the plain
 gate under autograd) and takes one Adam step on the f32 parameters, so a
 checkpoint is f32 whatever the precision.  In-training samples are drawn
-at f32, as the JAX trainer's ``generate()`` call does; a conditional
-model draws them for ``generate.mel_name``, which it needs.  Not ported,
-and refused by name (``models.check_supported(..., train=True)`` and the
-rest of :func:`_refuse_unported`): dropout, activation
-rematerialisation, wandb and, where samples are drawn,
-``generate.ckpt_smooth``: each before the first step.
+at f32 from the live parameters (``generate(params=...)``), as the JAX
+trainer's ``generate()`` call does, so ``generate.ckpt_smooth`` does not
+apply to them; a conditional model draws them for ``generate.mel_name``,
+which it needs.  ``compute.remat`` checkpoints each block of the training
+form (:mod:`..models.remat`: the blocks' forward kernels run twice a
+step); ``data_loader`` replaces the config's loader, as in JAX.  Not
+ported, and refused by name before the first step
+(``models.check_supported(..., train=True)`` and the rest of
+:func:`_refuse_unported`): dropout and wandb.
 """
 
 from __future__ import annotations
@@ -64,7 +67,7 @@ from ..parallel import (agree, all_reduce_mean, data_parallel, distributed,
                         is_main_process, launch, row_range, world_size)
 from ..utils.exp import local_directory
 from .checkpoint import load_checkpoint, load_into, save_checkpoint
-from .generate import CKPT_SMOOTH_TODO, generate, resolve_device
+from .generate import generate, resolve_device
 from .metrics import MetricsLogger
 
 SSM_PARAM_NAMES = frozenset(
@@ -135,10 +138,6 @@ def _refuse_unported(model_cfg, compute_cfg, wandb_cfg, generate_cfg,
     precision = compute_cfg.get("precision", "bf16")
     check_supported(model_cfg, precision, train=True,
                     device_type=device_type)
-    if compute_cfg.get("remat"):
-        raise NotImplementedError("compute.remat (activation "
-                                  "rematerialisation) is not ported: "
-                                  "ROADMAP.md queue 1, item 6")
     if (wandb_cfg or {}).get("mode", "disabled") != "disabled":
         raise NotImplementedError("wandb logging is not ported: ROADMAP.md "
                                   "queue 1, item 6")
@@ -146,14 +145,11 @@ def _refuse_unported(model_cfg, compute_cfg, wandb_cfg, generate_cfg,
         raise NotImplementedError("S4 dropout is not ported: ROADMAP.md "
                                   "queue 1, item 7")
     generate_cfg = generate_cfg or {}
-    if int(generate_cfg.get("n_samples") or 0) > 0:
-        if generate_cfg.get("ckpt_smooth") is not None:
-            raise NotImplementedError(CKPT_SMOOTH_TODO)
-        if not model_cfg.get("unconditional", True) \
-                and generate_cfg.get("mel_name") is None:
-            raise ValueError("a conditional model's in-training samples "
-                             "need generate.mel_name (or "
-                             "generate.n_samples=0)")
+    if int(generate_cfg.get("n_samples") or 0) > 0 \
+            and not model_cfg.get("unconditional", True) \
+            and generate_cfg.get("mel_name") is None:
+        raise ValueError("a conditional model's in-training samples need "
+                         "generate.mel_name (or generate.n_samples=0)")
     return precision
 
 
@@ -163,15 +159,18 @@ def train(diffusion_cfg, model_cfg, dataset_cfg, generate_cfg,
           learning_rate: float = 2e-4, batch_size_per_gpu: int = 4,
           s4_lr: Optional[float] = None, name: Optional[str] = None,
           mesh_cfg=None, compute_cfg=None, wandb_cfg=None, seed: int = 0,
-          max_seconds: Optional[float] = None,
+          data_loader=None, max_seconds: Optional[float] = None,
           device=None, rank: int = 0, world: int = 1) -> Dict[str, Any]:
     """Run the training loop; returns {'model', 'optimizer', 'step',
     'checkpoint_dir', 'losses'} ('model': the module, not its DDP wrapper;
     'losses': the logged (iteration, loss) pairs, means over the ranks).
-    ``device`` defaults to the first card.  ``rank`` of ``world``: one
-    rank of a process group that :func:`train_ranks` starts (``world`` >
-    1 needs one); a single process (``world`` 1) refuses a ``mesh.data``
-    that asks for more ranks."""
+    ``device`` defaults to the first card.  ``data_loader`` (anything with
+    ``len`` that iterates the batches the config's loader would yield:
+    audio (B, 1, L), or (mel, audio) for a conditional model) replaces
+    the config's loader.  ``rank`` of ``world``: one rank of a process
+    group that :func:`train_ranks` starts (``world`` > 1 needs one); a
+    single process (``world`` 1) refuses a ``mesh.data`` that asks for
+    more ranks."""
     device = resolve_device(device)
     precision = _refuse_unported(model_cfg, compute_cfg, wandb_cfg,
                                  generate_cfg, device.type)
@@ -195,9 +194,10 @@ def train(diffusion_cfg, model_cfg, dataset_cfg, generate_cfg,
     local_path, ckpt_dir = local_directory(name, model_cfg, diffusion_cfg,
                                            dataset_cfg, "checkpoint")
     schedule = schedule_from_cfg(diffusion_cfg, fast=False)
-    data_loader = dataloader(dataset_cfg, batch_size=batch_size_per_gpu,
-                             num_replicas=world, replica_id=rank,
-                             unconditional=model_cfg["unconditional"])
+    if data_loader is None:
+        data_loader = dataloader(dataset_cfg, batch_size=batch_size_per_gpu,
+                                 num_replicas=world, replica_id=rank,
+                                 unconditional=model_cfg["unconditional"])
     say(f"Data loaded: {len(data_loader)} batches "
         f"({batch_size_per_gpu * world} global, {world} "
         f"device{'s' * (world > 1)})")
@@ -211,7 +211,8 @@ def train(diffusion_cfg, model_cfg, dataset_cfg, generate_cfg,
 
     torch.manual_seed(seed)          # the initialisation, on the device
     with torch.device(device):
-        model = construct_model(model_cfg, precision)
+        model = construct_model(model_cfg, precision, remat=bool(
+            (compute_cfg or {}).get("remat", False)))
     say(f"{model.__class__.__name__} Parameters: "
         f"{sum(p.numel() for p in model.parameters()) / 1e6:.6f}M")
     optimizer = make_optimizer(model, learning_rate, s4_lr)
@@ -277,11 +278,13 @@ def train(diffusion_cfg, model_cfg, dataset_cfg, generate_cfg,
                     save_checkpoint(ckpt_dir, n_iter, model, optimizer)
                     say(f"model at iteration {n_iter} is saved")
                     if int(gen_kwargs.get("n_samples") or 0) > 0:
-                        # at generate()'s default precision, f32, as the
-                        # JAX trainer samples whatever it trains at
+                        # from the live parameters at generate()'s default
+                        # precision, f32, as the JAX trainer samples
+                        # whatever it trains at
                         try:
                             generate(diffusion_cfg, model_cfg, dataset_cfg,
                                      ckpt_iter=n_iter, name=name,
+                                     params=model.state_dict(),
                                      device=device, **gen_kwargs)
                         except Exception as e:  # sampling must not kill training
                             traceback.print_exc()

@@ -356,9 +356,6 @@ _REFUSED = {
     "kernel_fft_fast": (lambda: main(["experiment=sc09",
                                       "+model.kernel_fft_fast=true"]),
                         "kernel_fft_fast.*queue 1, item 1"),
-    "profile_dir": (lambda: main(["experiment=sc09",
-                                  "compute.profile_dir=trace"]),
-                    "profile_dir.*queue 1, item 6"),
 }
 
 
@@ -372,6 +369,34 @@ def test_bf16_is_refused_not_run_as_f32(case, tmp_path, monkeypatch):
     fn, match = _REFUSED[case]
     with pytest.raises(NotImplementedError, match=match):
         fn()
+
+
+def test_profile_dir_traces_sampling(small, tmp_path, monkeypatch, capsys):
+    """``compute.profile_dir`` through the generate CLI: a torch.profiler
+    trace of the sampling loop (TensorBoard's ``*.pt.trace.json``) lands
+    in that directory, and the samples are those of a run without it."""
+    monkeypatch.chdir(tmp_path)
+    base = ["experiment=sc09", "model.d_model=8", "model.n_layers=1",
+            "diffusion.fast_steps=3", "compute.precision=f32",
+            "generate.n_samples=1", "generate.ckpt_iter=1",
+            "+generate.device=cpu"]
+    from diffwave_sashimi_torch.config import load_config
+    cfg = load_config(overrides=base)
+    run, ck = local_directory(None, cfg.model, cfg.diffusion, cfg.dataset,
+                              "checkpoint")
+    port_save(ck, 1, small[3])
+    main(base + ["compute.profile_dir=trace"])
+    traces = [f for f in os.listdir("trace") if f.endswith(".pt.trace.json")]
+    assert len(traces) == 1, os.listdir("trace")
+    with open(os.path.join("trace", traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("sampling" in str(e.get("name", "")) or e.get("ph") == "X"
+               for e in events)
+    assert "sampling trace written to trace" in capsys.readouterr().out
+    wav = os.path.join("exp", run, "waveforms", "1", "0k_0.wav")
+    traced = wavfile.read(wav)[1]
+    main(base)
+    np.testing.assert_array_equal(wavfile.read(wav)[1], traced)
 
 
 def test_plain_and_fused_ops_agree_on_cpu(small):

@@ -333,31 +333,38 @@ def test_bf16_train_samples_at_f32(tmp_path, monkeypatch):
         "precision"].default == "f32"
 
 
-def test_train_refuses_ckpt_smooth_before_the_first_step(tmp_path,
-                                                        monkeypatch):
-    """generate.ckpt_smooth with in-training samples is refused by name,
-    citing its ROADMAP item, before any training step runs; with no
-    samples drawn it is never read, and training runs."""
+def test_train_samples_from_live_params_under_ckpt_smooth(tmp_path,
+                                                          monkeypatch):
+    """In-training samples come from the live parameters
+    (``generate(params=...)``), as the JAX trainer draws them, so
+    ``generate.ckpt_smooth`` does not apply there: training runs with it,
+    each checkpoint's samples are drawn from exactly the parameters it
+    saved, and they are the wavs of its iteration."""
     data = _write_corpus(str(tmp_path / "sc09"), n_per_label=1)
     monkeypatch.chdir(tmp_path)
-    steps = []
-    real_step = port_train.train_step
-    monkeypatch.setattr(port_train, "train_step",
-                        lambda *a, **k: steps.append(1) or real_step(*a, **k))
+    seen = []
+    real_generate = port_generate.generate
+
+    def recording(*a, **k):
+        seen.append((k["ckpt_iter"], k["ckpt_smooth"],
+                     {n: v.clone() for n, v in k["params"].items()}))
+        return real_generate(*a, **k)
+    monkeypatch.setattr(port_train, "generate", recording)
     gen_cfg = {"ckpt_iter": "max", "n_samples": 1, "batch_size": None,
                "ckpt_smooth": 1, "mel_path": None, "mel_name": None}
-    kw = dict(n_iters=1, iters_per_ckpt=1, iters_per_logging=1,
-              batch_size_per_gpu=2, device="cpu", compute_cfg=F32)
-    with pytest.raises(NotImplementedError,
-                       match=r"generate\.ckpt_smooth.*queue 1, item 6"):
-        train(DIFFUSION, SMALL_CFG, data, gen_cfg, **kw)
-    assert steps == [] and not os.path.exists(local_directory(
-        None, SMALL_CFG, DIFFUSION, data, "checkpoint", makedirs=False)[1])
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        port_generate.generate(DIFFUSION, SMALL_CFG, data, ckpt_smooth=1,
-                               device="cpu")
-    out = train(DIFFUSION, SMALL_CFG, data, dict(gen_cfg, n_samples=0), **kw)
-    assert out["step"] == 1 and len(steps) == 2
+    out = train(DIFFUSION, SMALL_CFG, data, gen_cfg, n_iters=2,
+                iters_per_ckpt=1, iters_per_logging=1, batch_size_per_gpu=2,
+                device="cpu", compute_cfg=F32)
+    assert out["step"] == 2 and [(i, s) for i, s, _ in seen] == [(1, 1),
+                                                                  (2, 1)]
+    for it, _, params in seen:
+        saved = torch.load(os.path.join(out["checkpoint_dir"], f"{it}.pkl"),
+                           weights_only=True)["model_state_dict"]
+        assert params.keys() == saved.keys()
+        assert all(torch.equal(params[n], saved[n]) for n in saved)
+        run = os.path.dirname(out["checkpoint_dir"])
+        assert os.listdir(os.path.join(run, "waveforms", str(it))) == [
+            "0k_0.wav"]
 
 
 def test_failing_in_training_generation_does_not_stop_training(
